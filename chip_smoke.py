@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Drives the PyTorch/CUDA port's serving path once on one GPU and checks it.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases:
+  1. card: name and power limit; build of every CUDA source (parallel nvcc);
+  2. kernel vs plain: ``vf_eval`` against ``vf_eval_plain`` at the serving
+     shape (B=64, 69 tokens padded to 80, D=192, 3 heads, dh=768), modes
+     plain / euler / base, in bf16 and f32, and with garbage and NaN in
+     the padded rows;
+  3. main path: ``fast_forward`` of the CIFAR-100 ViTODE (32 px, patch 4,
+     D=192, 3 heads, mlp 4, 4 registers, bf16) at B=1024, Euler on 49 grid
+     points and rk4 on 13 (48 evaluations each), through the kernel and
+     through the plain path; logits compared, both timed with CUDA events;
+  4. serving: a ServingEngine with buckets (1, 8, 32, 128) answers 16 uint8
+     requests of 1-37 images from 4 threads; each answer is held against a
+     direct ``fast_forward`` of the same images;
+  5. the kernels line (launch counts of the main path, times, bounds) and
+     the result line.
+
+Exits non-zero, printing no result line, when a phase fails or when there
+is no CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense bf16).
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+# Tolerances, as max|kernel - plain| / max|plain|.
+#  f32: the same arithmetic with sums in another order and erff for erf;
+#       float32 noise is ~1e-6 of the scale.
+#  bf16: five intermediates (cn, gelu(h), qkv, p, ctx) round to bf16; where
+#       the two versions sum in another order one of them can round to the
+#       neighbouring bf16 value (2^-8 relative) and carry that on.
+TOL_F32 = 1e-4
+TOL_BF16 = 2e-2
+# Logits after 48 bf16 evaluations: the per-evaluation differences above
+# compound through the integration.
+TOL_LOGITS = 5e-2
+MIN_TOP1_AGREEMENT = 0.95
+
+BATCH = 1024
+SHAPE = dict(img_size=32, patch_size=4, embed_dim=192, num_heads=3,
+             mlp_ratio=4.0, num_classes=100, emulate_depth=12.0,
+             time_interval=1.0, register_tokens=4,
+             pos_embed_register_tokens=False)
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(ok: bool, what: str):
+    if not ok:
+        raise SmokeFailure(what)
+
+
+def emit(phase: str, **fields):
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def rel_err(got, want, mask=None):
+    import torch
+    g, w = got.float(), want.float()
+    if mask is not None:
+        g, w = g[:, mask], w[:, mask]
+    return ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def vf_bound(b: int, n_real: int, d: int, dh: int, itemsize: int):
+    """(bound_ms, bound_by) of one evaluation: operations at the real token
+    count over the bf16 peak, against the state in and out plus the
+    weights over the memory rate."""
+    flops = b * (n_real * (8 * d * d + 4 * d * dh) + 4 * n_real * n_real * d)
+    nbytes = (2 * b * n_real * d + 4 * d * d + 2 * d * dh) * itemsize + 16 * d
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def phase_card():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    from odevit_tpu_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build()
+    seconds = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in build.build_logs.items()}
+    emit("card", nvidia_smi=smi, kind=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         build_seconds=round(seconds, 2), libraries=sorted(libs),
+         ptxas=ptxas)
+    return smi
+
+
+def phase_kernel_vs_plain(model):
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import vf_eval
+    b, n_real, n_pad, d = 64, model.patch_embed.seq_len, 80, 192
+    check(n_real == 69, f"slice shape has 69 tokens, got {n_real}")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w = model.vf.kernel_weights(dtype)
+        x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+        x[:, n_real:] = 0
+        x = x.to(dtype)
+        base = torch.randn(b, n_pad, d, generator=g, device="cuda").to(dtype)
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+        for mode, extra in (("plain", {}), ("euler", {"dt": 1.0 / 48}),
+                            ("base", {"dt": 1.0 / 16, "base": base})):
+            got = vf_eval(x, w, mode=mode, **kw, **extra)
+            want = vf_eval(x, w, mode=mode, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            err = rel_err(got[:, :n_real], want[:, :n_real])
+            results.append({"dtype": str(dtype), "mode": mode,
+                            "rel_err": err, "tol": tol})
+            check(err <= tol, f"{dtype} {mode}: rel err {err} > {tol}")
+        # padded rows full of garbage and NaN must not reach a real row
+        dirty = x.clone()
+        dirty[:, n_real:n_real + 5] = float("nan")
+        dirty[:, n_real + 5:] = 1e30
+        clean = vf_eval(x, w, mode="euler", dt=1.0 / 48, **kw)
+        got = vf_eval(dirty, w, mode="euler", dt=1.0 / 48, **kw)
+        torch.cuda.synchronize()
+        real = got[:, :n_real]
+        check(bool(torch.isfinite(real).all()),
+              f"{dtype}: NaN padding reached a real row")
+        same = bool(torch.equal(real, clean[:, :n_real]))
+        check(same, f"{dtype}: padded rows changed real rows")
+        results.append({"dtype": str(dtype), "mode": "euler, NaN padding",
+                        "real_rows_unchanged": same})
+    # a second, small shape (D=64, 2 heads, dh=128, 19 tokens padded to
+    # 32), where the kernel takes its other plan (q|k|v in one product)
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import VFWeights, kernel_plan
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        def r(*shape, scale=0.2, shift=0.0):
+            return (torch.randn(*shape, generator=g, device="cuda") * scale
+                    + shift)
+        w = VFWeights(r(64, shift=1.0), r(64), r(64, shift=1.0), r(64),
+                      *(r(*s).to(dtype) for s in ((64, 192), (64, 64),
+                                                  (64, 128), (128, 64))))
+        x = r(8, 32, 64, scale=1.0).to(dtype)
+        base = r(8, 32, 64, scale=1.0).to(dtype)
+        kw = dict(num_heads=2, scaler=4.0, n_real=19)
+        for mode, extra in (("plain", {}), ("euler", {"dt": 0.25}),
+                            ("base", {"dt": 0.125, "base": base})):
+            got = vf_eval(x, w, mode=mode, **kw, **extra)
+            want = vf_eval(x, w, mode=mode, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            err = rel_err(got[:, :19], want[:, :19])
+            results.append({"dtype": str(dtype), "mode": mode,
+                            "shape": "B=8 n=19/32 D=64 H=2 dh=128",
+                            "plan": kernel_plan(dtype, 32, 19, 64, 2, 128),
+                            "rel_err": err, "tol": tol})
+            check(err <= tol, f"small {dtype} {mode}: rel err {err} > {tol}")
+    # a shape without a one-image-per-CTA plan (the 224 px TS-Base
+    # evaluation: 207 tokens, D=768, 12 heads) raises; nothing falls back
+    big = torch.zeros(1, 208, 768, device="cuda", dtype=torch.bfloat16)
+    wb = VFWeights(*(torch.zeros(*s, device="cuda") for s in [(768,)] * 4),
+                   *(torch.zeros(*s, device="cuda", dtype=torch.bfloat16)
+                     for s in ((768, 2304), (768, 768), (768, 768),
+                               (768, 768))))
+    before = launch_counts["vf_eval"]
+    try:
+        vf_eval(big, wb, num_heads=12, scaler=12.0, n_real=207)
+    except ValueError as e:
+        results.append({"shape": "B=1 n=207/208 D=768 H=12 dh=768",
+                        "raised": str(e)[:80]})
+    else:
+        raise SmokeFailure("a shape without a plan did not raise")
+    check(launch_counts["vf_eval"] == before, "unplanned shape launched")
+    emit("kernel_vs_plain", results=results)
+
+
+def phase_main_path(models, images_u8):
+    import torch
+    from odevit_tpu_torch.core.integrators import nfe
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    preprocess = make_preprocess(dtype=torch.bfloat16)
+    x = preprocess(images_u8)
+    report = {}
+    for name, model in models.items():
+        evals = nfe(model.solver, model.num_eval_steps)
+        reset_launch_counts()
+        got = fast_forward(model, x)["logits"]
+        torch.cuda.synchronize()
+        launches = launch_counts["vf_eval"]
+        check(launches == evals,
+              f"{name}: {launches} kernel launches, expected {evals}")
+        want = fast_forward(model, x, plain=True)["logits"]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+        check(tuple(got.shape) == (BATCH, 100), f"{name}: shape {got.shape}")
+        err = rel_err(got, want)
+        top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        ms = cuda_ms(lambda: fast_forward(model, x), iters=5)
+        plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True),
+                           iters=2)
+        report[name] = {
+            "launches": launches, "nfe": evals,
+            "max_abs_dlogit": (got - want).abs().max().item(),
+            "rel_err": err, "tol": TOL_LOGITS, "top1_agreement": top1,
+            "ms_per_forward": ms, "img_per_s": BATCH / ms * 1e3,
+            "ms_per_eval": ms / evals, "plain_ms_per_forward": plain_ms,
+            "plain_img_per_s": BATCH / plain_ms * 1e3}
+        check(err <= TOL_LOGITS, f"{name}: logits rel err {err}")
+        check(top1 >= MIN_TOP1_AGREEMENT, f"{name}: top-1 agreement {top1}")
+    emit("main_path", batch=BATCH, results=report)
+    return x, report
+
+
+def phase_vf_timing(model, x):
+    """The kernel alone at the main path's shape: its first Euler step on
+    the B=1024 tokens, against the plain version on the same inputs."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import pad_tokens, vf_eval
+    with torch.inference_mode():
+        tokens = model.patch_embed(x)
+        n_real = tokens.shape[1]
+        tokens = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real))
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real,
+                  mode="euler", dt=1.0 / 48)
+        before = launch_counts["vf_eval"]
+        got = vf_eval(tokens, w, **kw)
+        want = vf_eval(tokens, w, plain=True, **kw)
+        torch.cuda.synchronize()
+        err = (got[:, :n_real].float() - want[:, :n_real].float()).abs()
+        ms = cuda_ms(lambda: vf_eval(tokens, w, **kw), iters=20)
+        plain_ms = cuda_ms(lambda: vf_eval(tokens, w, plain=True, **kw),
+                           iters=3)
+        launch_counts["vf_eval"] = before      # comparisons do not count
+    bound_ms, bound_by = vf_bound(BATCH, n_real, 192, 768, 2)
+    check(rel_err(got, want, slice(0, n_real)) <= TOL_BF16,
+          "B=1024 euler step disagrees with the plain version")
+    return {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_serving(model, rng):
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    from odevit_tpu_torch.serve.engine import ServingEngine
+    preprocess = make_preprocess(dtype=torch.bfloat16)
+    sizes = [int(s) for s in rng.integers(1, 38, 16)]
+    requests = [rng.integers(0, 256, (s, 32, 32, 3), dtype=np.uint8)
+                for s in sizes]
+    answers = [None] * len(requests)
+    with ServingEngine(model, batch_buckets=(1, 8, 32, 128),
+                       preprocess=preprocess, max_delay_ms=2.0,
+                       device="cuda") as engine:
+        reset_launch_counts()
+
+        def client(k):
+            futs = [(i, engine.submit(requests[i]))
+                    for i in range(k, len(requests), 4)]
+            for i, fut in futs:
+                answers[i] = fut.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "serving hung")
+        launches = launch_counts["vf_eval"]
+        stats = engine.stats()
+    evals = 48
+    check(launches == evals * stats["runs"],
+          f"serving: {launches} launches for {stats['runs']} runs")
+    worst, identical = 0.0, 0
+    for req, got in zip(requests, answers):
+        check(got is not None and got.shape == (len(req), 100),
+              "serving: missing or misshapen answer")
+        x = preprocess(torch.from_numpy(req).cuda())
+        want = fast_forward(model, x)["logits"].cpu().numpy()
+        identical += int(np.array_equal(got, want))
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / max(np.abs(want).max(), 1e-30)))
+    emit("serving", requests=len(requests), sizes=sizes,
+         identical_answers=identical, worst_rel_err=worst, tol=TOL_LOGITS,
+         launches=launches, stats=stats)
+    check(worst <= TOL_LOGITS, f"serving answers differ: {worst}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = phase_card()
+    models = {
+        "euler-49": ViTODE(**SHAPE, num_eval_steps=49, solver="euler",
+                           dtype=torch.bfloat16, device="cuda", seed=0),
+        "rk4-13": ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
+                         dtype=torch.bfloat16, device="cuda", seed=0),
+    }
+    phase_kernel_vs_plain(models["euler-49"])
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)).cuda()
+    x, report = phase_main_path(models, images)
+    timing = phase_vf_timing(models["euler-49"], x)
+    phase_serving(models["euler-49"], rng)
+
+    kernels = [{
+        "name": "vf_eval", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field.cu",
+        "replaces": "odevit_tpu/kernels/vector_field.py:196",
+        "launches": report["euler-49"]["launches"],
+        **timing, "library_ms": None}]
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

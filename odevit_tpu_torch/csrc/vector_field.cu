@@ -1,0 +1,438 @@
+// One evaluation of the ODE-ViT vector field, fused into one CUDA kernel.
+//
+// Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
+// (its plain, Euler and stage-advance modes) on Hopper (sm_90a).
+//
+//   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
+//   plain : out = f(x)
+//   euler : out = x + coef * f(x)            (f not rounded first)
+//   base  : out = base + coef * f(x)         (Kutta 3/8 stage advance)
+//
+// x, base, out: [B * n_pad, D] row-major (bf16 or f32); gamma/beta: [D]
+// f32; weights in [in, out] layout and x's dtype: Wqkv [D, 3D],
+// Wout [D, D], W1 [D, dh], W2 [dh, D].
+//
+// Numerics follow the TPU kernel: CenterNorm centering in f32; cn_a, cn_m,
+// gelu(h), qkv (before the heads are sliced), p and ctx are rounded to the
+// compute dtype; every product accumulates in f32; mlp_o and attn_o stay
+// in f32. Padded keys (index >= n_real) are masked by selection, and the
+// padded rows of v are zeroed, so garbage or NaN in padded rows of x never
+// reaches a real row (0 * NaN would).
+//
+// Bound. At the serving shape (B=1024, 69 real tokens padded to 80,
+// D=192, 3 heads, dh=768) one evaluation needs about 64.7 MFLOP per
+// image, 66 GFLOP in all: 67 us at the H100's 989 TFLOP/s in bf16. Its
+// state traffic is about 54 MB in and out, 16 us at 3.35 TB/s. So the
+// kernel is bound by tensor-core operations once it is good.
+//
+// Design. One CTA per image keeps the whole evaluation in shared memory:
+// only x (and base) come in and only the new state goes out. The MLP runs
+// over dh in chunks, so the [n_pad, dh] hidden never exists whole, and the
+// attention output is accumulated head by head into the same f32
+// accumulator as the MLP (attn_o = sum_h ctx_h Wout[h]); where shared
+// memory allows, q, k and v of a head come from one product. Products use
+// bf16 WMMA fragments (16x16x16, f32 accumulators); each warp owns a
+// column tile and walks its rows, so each weight fragment is read from L2
+// once per image, one step ahead of its use; 12 warps match the 12 column
+// tiles of D=192. Shared-memory rows are padded by 16 bytes so fragment
+// loads hit distinct banks. Weights (0.9 MB in bf16) stay in L2 across
+// the batch.
+// The f32 mode exists for tight checks: its products run on the CUDA
+// cores and its accumulator lives in the output buffer.
+//
+// What limits it today: the shared memory of one image (~223 KB) allows
+// one 12-warp CTA per SM, so the barriers between small dependent
+// products and the elementwise phases leave the tensor cores idle most of
+// the time (vf_attribution.py breaks the time down). Not yet done:
+// accumulators in registers (two CTAs per SM), ldmatrix/wgmma, TMA,
+// multi-stage pipelines.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cmath>
+#include <cstddef>
+#include <type_traits>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kThreads = 384;            // 12 warps: one per column tile of D=192
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRowTiles = 8;          // n_pad <= 128
+constexpr int kMaxSmem = 232448;         // 227 KB of dynamic shared memory
+constexpr int kChunks[] = {128, 64, 32, 16};
+
+struct Shape {
+  int n_pad, n_real, d, heads, hd, dh, hc;
+  int qkv_fused;  // 1: q, k and v of a head come from one product
+};
+
+__host__ __device__ inline size_t align128(size_t b) {
+  return (b + 127) / 128 * 128;
+}
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+// Shared-memory layout of one CTA: byte offsets and row strides (in
+// elements). Every row is padded by 16 bytes, so consecutive rows start in
+// different banks and fragment loads are free of bank conflicts. The f32
+// accumulator lives in shared memory for bf16 and in the (unpadded) output
+// buffer for f32.
+struct Plan {
+  size_t cn, stage, hbuf, q, k, v, p, acc, total;
+  int ld_cn, ld_stage, ld_h, ld_qkv, ld_p, ld_acc;
+};
+
+__host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
+  const int pad = 16 / tbytes;
+  Plan p;
+  p.ld_cn = s.d + pad;
+  p.ld_stage = imax(imax(s.hc, s.qkv_fused ? 3 * s.hd : s.hd), s.n_pad) + 4;
+  p.ld_h = imax(s.hc, s.hd) + pad;
+  p.ld_qkv = s.hd + pad;
+  p.ld_p = s.n_pad + pad;
+  p.ld_acc = tbytes == 2 ? s.d + 4 : s.d;
+  const size_t n = s.n_pad;
+  size_t off = 0;
+  p.cn = off;    off += align128(n * p.ld_cn * tbytes);
+  p.stage = off; off += align128(n * p.ld_stage * 4);
+  p.hbuf = off;  off += align128(n * p.ld_h * tbytes);
+  p.q = off;     off += align128(n * p.ld_qkv * tbytes);
+  p.k = off;     off += align128(n * p.ld_qkv * tbytes);
+  p.v = off;     off += align128(n * p.ld_qkv * tbytes);
+  p.p = off;     off += align128(n * p.ld_p * tbytes);
+  p.acc = off;
+  if (tbytes == 2) off += align128(n * p.ld_acc * 4);
+  p.total = off;
+  return p;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// C[M,N] (=|+=) A[M,K] @ B[K,N]. A is row-major in shared memory; B is
+// row-major (ldb) or, with BT, stored transposed: B(k, n) = B[n*ldb + k].
+// C is f32 row-major. M, N, K are multiples of 16. B's columns may come in
+// strips: column tile t is read from strip t / strip (each `strip` tiles
+// wide, `strip_stride` elements apart), so one product can gather the q, k
+// and v columns of a head. Each warp owns a column tile (and, when there
+// are fewer column tiles than warps, a group of row tiles): it reads each
+// B fragment once, one step ahead of its use.
+template <bool BT>
+__device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
+                   int ldc, bool accumulate, int M, int N, int K,
+                   int strip = 1 << 30, int strip_stride = 0) {
+  using BLayout =
+      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout>;
+  const int warp = threadIdx.x / 32;
+  const int mt = M / 16, nt = N / 16, kt = K / 16;
+  const int groups = imin(imax(kWarps / nt, 1), mt);
+  const int rg = (mt + groups - 1) / groups;
+  for (int task = warp; task < nt * groups; task += kWarps) {
+    const int tn = task % nt;
+    const int r0 = (task / nt) * rg;
+    const int rows = imin(mt - r0, rg);
+    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
+    const bf16* bcol = BT ? B + (size_t)col * ldb : B + col;
+    const size_t bstep = BT ? 16 : (size_t)16 * ldb;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[kMaxRowTiles];
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r) {
+      if (r < rows) {
+        if (accumulate)
+          wmma::load_matrix_sync(c[r], C + (r0 + r) * 16 * ldc + tn * 16,
+                                 ldc, wmma::mem_row_major);
+        else
+          wmma::fill_fragment(c[r], 0.0f);
+      }
+    }
+    FragB b, b_next;
+    wmma::load_matrix_sync(b, bcol, ldb);
+    for (int kk = 0; kk < kt; ++kk) {
+      if (kk + 1 < kt)
+        wmma::load_matrix_sync(b_next, bcol + (kk + 1) * bstep, ldb);
+#pragma unroll
+      for (int r = 0; r < kMaxRowTiles; ++r) {
+        if (r < rows) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::load_matrix_sync(a, A + (r0 + r) * 16 * lda + kk * 16, lda);
+          wmma::mma_sync(c[r], a, b, c[r]);
+        }
+      }
+      b = b_next;
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r) {
+      if (r < rows)
+        wmma::store_matrix_sync(C + (r0 + r) * 16 * ldc + tn * 16, c[r], ldc,
+                                wmma::mem_row_major);
+    }
+  }
+}
+
+// The f32 version of the same product, on the CUDA cores.
+template <bool BT>
+__device__ void mm(const float* A, int lda, const float* B, int ldb,
+                   float* C, int ldc, bool accumulate, int M, int N, int K,
+                   int strip = 1 << 30, int strip_stride = 0) {
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int m = i / N, nc = i % N, t = nc / 16;
+    const int n = (t / strip) * strip_stride + (t % strip) * 16 + nc % 16;
+    const float* a = A + m * lda;
+    float s = 0.0f;
+    for (int k = 0; k < K; ++k)
+      s = fmaf(a[k], BT ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n], s);
+    C[m * ldc + nc] = accumulate ? C[m * ldc + nc] + s : s;
+  }
+}
+
+// cn = round(((x - mean) * d/(d-1)) * gamma + beta), one warp per row.
+template <typename T>
+__device__ void center_norm(const T* x, const float* gamma,
+                            const float* beta, T* cn, int ld, int n, int d) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float scale = (float)((double)d / (d - 1.0));
+  for (int r = warp; r < n; r += kWarps) {
+    const T* row = x + (size_t)r * d;
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32) sum += to_f(row[c]);
+    const float mean = warp_sum(sum) / d;
+    for (int c = lane; c < d; c += 32)
+      cn[r * ld + c] =
+          from_f<T>(((to_f(row[c]) - mean) * scale) * gamma[c] + beta[c]);
+  }
+}
+
+// p = round(softmax(s * qk_scale)) over keys < n_real; padded keys get 0
+// by selection. One warp per query row.
+template <typename T>
+__device__ void softmax_rows(const float* s, int lds, T* p, int ldp, int n,
+                             int n_real, float qk_scale) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps) {
+    const float* row = s + r * lds;
+    float mx = -INFINITY;
+    for (int c = lane; c < n_real; c += 32) mx = fmaxf(mx, row[c] * qk_scale);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int c = lane; c < n_real; c += 32) sum += expf(row[c] * qk_scale - mx);
+    sum = warp_sum(sum);
+    for (int c = lane; c < n; c += 32)
+      p[r * ldp + c] = c < n_real
+                           ? from_f<T>(expf(row[c] * qk_scale - mx) / sum)
+                           : from_f<T>(0.0f);
+  }
+}
+
+// dst[r, c] = round(src[r, c]) for an [n, w] block; rows >= zero_from are
+// written as 0. One warp per row.
+template <typename T>
+__device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
+                            int w, int zero_from) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < w; c += 32)
+      dst[r * ldd + c] = r < zero_from ? from_f<T>(src[r * lds + c])
+                                       : from_f<T>(0.0f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
+          T* out, float* acc_global,  // may alias (f32: acc is out)
+          const float* __restrict__ ga, const float* __restrict__ ba,
+          const float* __restrict__ gm, const float* __restrict__ bm,
+          const T* __restrict__ wqkv, const T* __restrict__ wout,
+          const T* __restrict__ w1, const T* __restrict__ w2, Shape s,
+          float scaler, float coef, float qk_scale, int mode) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Plan pl = make_plan(s, sizeof(T));
+  T* cn = reinterpret_cast<T*>(smem + pl.cn);
+  float* stage = reinterpret_cast<float*>(smem + pl.stage);
+  T* hbuf = reinterpret_cast<T*>(smem + pl.hbuf);
+  T* q = reinterpret_cast<T*>(smem + pl.q);
+  T* k = reinterpret_cast<T*>(smem + pl.k);
+  T* v = reinterpret_cast<T*>(smem + pl.v);
+  T* p = reinterpret_cast<T*>(smem + pl.p);
+
+  const int n = s.n_pad, d = s.d, hd = s.hd, hc = s.hc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t img = (size_t)blockIdx.x * n * d;
+  const T* xi = x + img;
+  float* acc = sizeof(T) == 2 ? reinterpret_cast<float*>(smem + pl.acc)
+                              : acc_global + img;
+
+  // MLP branch: acc = sum over dh chunks of gelu(cn_m W1[:, c]) W2[c, :]
+  center_norm(xi, gm, bm, cn, pl.ld_cn, n, d);
+  __syncthreads();
+  for (int c0 = 0; c0 < s.dh; c0 += hc) {
+    mm<false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false, n, hc,
+              d);
+    __syncthreads();
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < hc; c += 32)
+        hbuf[r * pl.ld_h + c] = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+    __syncthreads();
+    mm<false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc, c0 > 0,
+              n, d, hc);
+    __syncthreads();
+  }
+
+  // attention branch, head by head: acc += ctx_h Wout[h*hd:(h+1)*hd, :]
+  center_norm(xi, ga, ba, cn, pl.ld_cn, n, d);
+  __syncthreads();
+  for (int h = 0; h < s.heads; ++h) {
+    T* dst[3] = {q, k, v};
+    // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
+    if (s.qkv_fused) {
+      mm<false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage, pl.ld_stage,
+                false, n, 3 * hd, d, hd / 16, d);
+      __syncthreads();
+      for (int j = 0; j < 3; ++j)
+        round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
+                    j == 2 ? s.n_real : n);
+      __syncthreads();
+    } else {
+      for (int j = 0; j < 3; ++j) {
+        mm<false>(cn, pl.ld_cn, wqkv + j * d + h * hd, 3 * d, stage,
+                  pl.ld_stage, false, n, hd, d);
+        __syncthreads();
+        round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
+                    j == 2 ? s.n_real : n);
+        __syncthreads();
+      }
+    }
+    mm<true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n, n, hd);
+    __syncthreads();
+    softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
+    __syncthreads();
+    mm<false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n, hd, n);
+    __syncthreads();
+    round_block(stage, pl.ld_stage, hbuf, pl.ld_h, n, hd, n);
+    __syncthreads();
+    mm<false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc, pl.ld_acc,
+              true, n, d, hd);
+    __syncthreads();
+  }
+
+  T* oi = out + img;
+  const T* bi = mode == 2 ? base + img : xi;
+  for (int r = warp; r < n; r += kWarps) {
+    for (int c = lane; c < d; c += 32) {
+      const float f = acc[r * pl.ld_acc + c] * scaler;
+      const size_t i = (size_t)r * d + c;
+      oi[i] = from_f<T>(mode == 0 ? f : to_f(bi[i]) + coef * f);
+    }
+  }
+}
+
+Shape make_shape(int n_pad, int n_real, int d, int heads, int dh, int hc,
+                 int qkv_fused) {
+  return Shape{n_pad, n_real, d,  heads, heads > 0 ? d / heads : 0,
+               dh,    hc,     qkv_fused};
+}
+
+bool shape_ok(const Shape& s) {
+  return s.heads > 0 && s.d % s.heads == 0 && s.d % 16 == 0 &&
+         s.hd % 16 == 0 && s.dh % 16 == 0 && s.n_pad % 16 == 0 &&
+         s.n_pad > 0 && s.n_pad <= 16 * kMaxRowTiles && s.n_real > 0 &&
+         s.n_real <= s.n_pad;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Chooses the plan of one CTA: whether q, k and v of a head come from one
+// product, the MLP chunk width and the shared memory, preferring the
+// fused q|k|v product and wide chunks. Returns 0 when the shape has a
+// plan, 1 when it has none (the wrapper raises).
+int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+            int* qkv_fused_out, int* hc_out, int* smem_out) {
+  for (int fused = 1; fused >= 0; --fused) {
+    for (int hc : kChunks) {
+      const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, fused);
+      if (!shape_ok(s) || dh % hc) continue;
+      const Plan p = make_plan(s, tbytes);
+      if (p.total <= (size_t)kMaxSmem) {
+        *qkv_fused_out = fused;
+        *hc_out = hc;
+        *smem_out = (int)p.total;
+        return 0;
+      }
+    }
+  }
+  return 1;
+}
+
+// Launches one evaluation on `stream`; returns cudaGetLastError() after
+// the launch (0 on success). mode: 0 plain, 1 euler, 2 base.
+int vf_launch(int tbytes, const void* x, const void* base, void* out,
+              void* acc, const float* ga, const float* ba, const float* gm,
+              const float* bm, const void* wqkv, const void* wout,
+              const void* w1, const void* w2, int batch, int n_pad,
+              int n_real, int d, int heads, int dh, int qkv_fused, int hc,
+              int smem, float scaler, float coef, float qk_scale, int mode,
+              void* stream) {
+  const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (tbytes == 2) {
+    err = cudaFuncSetAttribute(vf_kernel<bf16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    vf_kernel<bf16><<<batch, kThreads, smem, st>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(base),
+        static_cast<bf16*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
+        static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
+        static_cast<const bf16*>(w1), static_cast<const bf16*>(w2), s, scaler,
+        coef, qk_scale, mode);
+  } else {
+    err = cudaFuncSetAttribute(vf_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    vf_kernel<float><<<batch, kThreads, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(base),
+        static_cast<float*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
+        static_cast<const float*>(wqkv), static_cast<const float*>(wout),
+        static_cast<const float*>(w1), static_cast<const float*>(w2), s,
+        scaler, coef, qk_scale, mode);
+  }
+  return (int)cudaGetLastError();
+}
+
+const char* vf_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

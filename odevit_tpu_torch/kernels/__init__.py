@@ -1,0 +1,25 @@
+"""Hand-written CUDA kernels and their plain PyTorch versions.
+
+Every kernel wrapper adds one to its entry in :data:`launch_counts` each
+time it launches its kernel, and nowhere else, so a run can show that its
+path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+launch_counts: Dict[str, int] = {"vf_eval": 0}
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0

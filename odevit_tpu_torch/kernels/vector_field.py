@@ -1,0 +1,200 @@
+"""One fused evaluation of the ODE-ViT vector field.
+
+``vf_eval`` launches the CUDA kernel of ``csrc/vector_field.cu`` (the
+counterpart of the TPU kernel ``odevit_tpu/kernels/vector_field.py::
+_vf_kernel``) on a CUDA tensor, and runs its plain PyTorch version
+``vf_eval_plain`` on a CPU tensor. Three modes:
+
+  * ``"plain"``: ``f(x)``;
+  * ``"euler"``: ``x + dt * f(x)``, with ``f`` not rounded first;
+  * ``"base"``: ``base + dt * f(x)`` (the Kutta-3/8 stage advance).
+
+``x`` is the padded token tensor ``[B, n_pad, D]`` (``n_pad`` a multiple of
+:data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
+attention, and whatever they hold never reaches a real token.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.ops.dot import dot32
+
+# Token-axis padding granularity (the TPU package pads to the same 16).
+TOKEN_PAD = 16
+
+MODES = {"plain": 0, "euler": 1, "base": 2}
+
+
+class VFWeights(NamedTuple):
+    """A ParallelVectorField's weights as the kernel takes them: norms in
+    float32, matrices ``[in, out]`` in the compute dtype."""
+    norm_attn_scale: torch.Tensor   # [D] f32
+    norm_attn_bias: torch.Tensor    # [D] f32
+    norm_mlp_scale: torch.Tensor    # [D] f32
+    norm_mlp_bias: torch.Tensor     # [D] f32
+    wqkv: torch.Tensor              # [D, 3D]
+    wout: torch.Tensor              # [D, D]
+    w1: torch.Tensor                # [D, dh]
+    w2: torch.Tensor                # [dh, D]
+
+
+def pad_tokens(n: int) -> int:
+    return -(-n // TOKEN_PAD) * TOKEN_PAD
+
+
+def _check(x, w: VFWeights, num_heads, n_real, mode, base):
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} is not one of {sorted(MODES)}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, n_pad, D], got {tuple(x.shape)}")
+    b, n, d = x.shape
+    if n % TOKEN_PAD:
+        raise ValueError(f"token axis {n} is not padded to {TOKEN_PAD}")
+    if not 0 < n_real <= n:
+        raise ValueError(f"n_real {n_real} outside (0, {n}]")
+    if d % num_heads:
+        raise ValueError(f"D={d} is not divisible by {num_heads} heads")
+    dh = w.w1.shape[1]
+    shapes = {"norm_attn_scale": (d,), "norm_attn_bias": (d,),
+              "norm_mlp_scale": (d,), "norm_mlp_bias": (d,),
+              "wqkv": (d, 3 * d), "wout": (d, d), "w1": (d, dh),
+              "w2": (dh, d)}
+    for name, shape in shapes.items():
+        t = getattr(w, name)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+    if (mode == "base") != (base is not None):
+        raise ValueError("base is given exactly when mode == 'base'")
+    if base is not None and base.shape != x.shape:
+        raise ValueError(f"base {tuple(base.shape)} != x {tuple(x.shape)}")
+
+
+def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                  n_real: int, mode: str = "plain", dt: float = 0.0,
+                  base=None):
+    """The kernel's arithmetic in plain PyTorch, rounding where it rounds
+    (qkv is rounded to the compute dtype before the heads are sliced)."""
+    _check(x, w, num_heads, n_real, mode, base)
+    b, n, d = x.shape
+    hd = d // num_heads
+    dtype = x.dtype
+    xf = x.float()
+    cent = (xf - xf.mean(-1, keepdim=True)) * (d / (d - 1.0))
+    cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
+    cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
+
+    h = torch.nn.functional.gelu(dot32(cn_m, w.w1)).to(dtype)
+    mlp_o = dot32(h, w.w2)
+
+    qkv = dot32(cn_a, w.wqkv).to(dtype)
+    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    key = torch.arange(n, device=x.device) < n_real
+    s = (q.float() * hd ** -0.5) @ k.float().transpose(-1, -2)
+    s = s.masked_fill(~key, float("-inf"))          # select, never 0 * x
+    p = torch.softmax(s, dim=-1).to(dtype)
+    v = torch.where(key[:, None], v, torch.zeros((), dtype=dtype,
+                                                 device=x.device))
+    ctx = dot32(p, v).to(dtype).transpose(1, 2).reshape(b, n, d)
+    attn_o = dot32(ctx, w.wout)
+
+    f = (mlp_o + attn_o) * scaler
+    if mode == "euler":
+        f = xf + dt * f
+    elif mode == "base":
+        f = base.float() + dt * f
+    return f.to(dtype)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    lib.vf_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+    lib.vf_plan.restype = i
+    lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9 + [f, f, f, i, p])
+    lib.vf_launch.restype = i
+    lib.vf_error_string.argtypes = [i]
+    lib.vf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from odevit_tpu_torch.kernels import build
+        _lib = _bind(build.load("vector_field"))
+    return _lib
+
+
+def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                dh: int):
+    """(fused q|k|v product, MLP chunk width, shared-memory bytes) of one
+    CTA; raises if the shape has no plan (it does not fit one image per
+    CTA)."""
+    fused, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    tbytes = torch.empty((), dtype=dtype).element_size()
+    if _library().vf_plan(tbytes, n_pad, n_real, d, num_heads, dh,
+                          ctypes.byref(fused), ctypes.byref(hc),
+                          ctypes.byref(smem)):
+        raise ValueError(
+            f"no one-image-per-CTA plan for n_pad={n_pad}, D={d}, "
+            f"{num_heads} heads, dh={dh} in {dtype}: the fused kernel "
+            f"needs n_pad <= 128, multiples of 16 and <= 227 KB of shared "
+            f"memory")
+    return fused.value, hc.value, smem.value
+
+
+def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
+            mode: str = "plain", dt: float = 0.0, base=None,
+            plain: bool = False):
+    """One vector-field evaluation (see the module docstring).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs
+    :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
+    GPU too: it exists for comparisons, and the main path never sets it.
+    """
+    if plain or x.device.type == "cpu":
+        return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
+                             n_real=n_real, mode=mode, dt=dt, base=base)
+    _check(x, w, num_heads, n_real, mode, base)
+    if x.device.type != "cuda":
+        raise ValueError(f"vf_eval runs on CUDA or CPU, not {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernel takes bfloat16 or float32, not {x.dtype}")
+    tensors = {"x": x, **w._asdict()}
+    if base is not None:
+        tensors["base"] = base
+    for name, t in tensors.items():
+        want = torch.float32 if name.startswith("norm") else x.dtype
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, the kernel takes {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 32:
+            raise ValueError(f"{name} is not 32-byte aligned")
+    b, n, d = x.shape
+    dh = w.w1.shape[1]
+    plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh)
+    out = torch.empty_like(x)
+    # f32: the kernel accumulates mlp_o + attn_o in the output buffer
+    acc = out.data_ptr() if x.dtype == torch.float32 else None
+    err = _library().vf_launch(
+        x.element_size(), x.data_ptr(),
+        base.data_ptr() if base is not None else None, out.data_ptr(), acc,
+        *(t.data_ptr() for t in w), b, n, n_real, d, num_heads, dh, *plan,
+        scaler, dt, (d // num_heads) ** -0.5, MODES[mode],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("vector-field kernel launch failed: "
+                           + _library().vf_error_string(err).decode())
+    count_launch("vf_eval")
+    return out

@@ -1,0 +1,109 @@
+"""Inference path: ViTODE forward through the fused vector-field kernel.
+
+Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
+
+  * tokens are padded to a multiple of ``TOKEN_PAD`` once before the
+    integration and sliced once after; padded tokens get no attention
+    and never reach a real token;
+  * only the final state is kept (no trajectory);
+  * the integration takes one of three routes: on a uniform grid, Euler
+    runs each step as one kernel launch that writes ``y + dt*f(y)``, and
+    rk4 (Kutta 3/8) runs each stage as one launch that writes
+    ``base + c*dt*f(y)``; any other grid or fixed-grid solver calls the
+    kernel in plain-f mode through the generic integrator;
+  * the CLS head runs in float32.
+
+On the GPU every evaluation launches the kernel; ``plain=True`` runs the
+same routes through the kernel's plain PyTorch version instead, for
+comparisons. dopri5, the chained-Euler opt-in and Macaron are not ported
+yet and raise (L2 attention and time conditioning raise when the model is
+built).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+
+from odevit_tpu_torch.core.integrators import odeint
+from odevit_tpu_torch.kernels.vector_field import pad_tokens, vf_eval
+from odevit_tpu_torch.models.vit_ode import ViTODE
+
+
+@torch.inference_mode()
+def fast_forward(model, images, *, t_grid=None,
+                 plain: bool = False) -> Dict[str, torch.Tensor]:
+    """logits = head(odeint(fused_vf, patch_embed(images)))[CLS].
+
+    Args:
+      model: a ``ViTODE``.
+      images: [B, H, W, C] preprocessed floats on the model's device.
+      t_grid: optional time grid (default ``model.make_time_grid()``).
+      plain: run the kernel's plain PyTorch version on the GPU as well.
+    Returns {"logits": [B, num_classes] f32[, "logits_dist"]}.
+    """
+    if not isinstance(model, ViTODE):
+        raise NotImplementedError(
+            f"fast_forward takes a ViTODE; {type(model).__name__} (e.g. "
+            f"Macaron) is not ported yet")
+    if model.solver == "dopri5":
+        raise NotImplementedError("dopri5 is not ported yet")
+    if os.environ.get("ODEVIT_EULER_CHAIN", "1") != "1":
+        raise NotImplementedError("the chained Euler kernel is not ported "
+                                  "yet; unset ODEVIT_EULER_CHAIN")
+
+    tokens = model.patch_embed(images)
+    b, n, d = tokens.shape
+    n_pad = pad_tokens(n)
+    if n_pad != n:
+        tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
+    weights = model.vf.kernel_weights(tokens.dtype)
+
+    def vf(y, mode="plain", dt=0.0, base=None):
+        return vf_eval(y, weights, num_heads=model.num_heads,
+                       scaler=model.vf.scaler, n_real=n, mode=mode, dt=dt,
+                       base=base, plain=plain)
+
+    ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
+    uniform = len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
+    if model.solver == "euler" and uniform:
+        dt = float(ts[1] - ts[0])
+        y = tokens
+        for _ in range(len(ts) - 1):
+            y = vf(y, "euler", dt)
+    elif model.solver == "rk4" and uniform:
+        dt = float(ts[1] - ts[0])
+        y = tokens
+        for _ in range(len(ts) - 1):
+            y = _rk4_step(vf, y, dt)
+    else:
+        y = odeint(lambda t, y: vf(y), tokens, ts, method=model.solver,
+                   return_states=False)
+
+    out = {"logits": model.head(y[:, 0].float())}
+    if model.dist_head is not None:
+        out["logits_dist"] = model.dist_head(y[:, 1].float())
+    return out
+
+
+def _rk4_step(vf, y, dt: float):
+    """One Kutta-3/8 step with every stage advance inside the kernel:
+
+        y2     = y + dt/3 * k1
+        y3     = (2y - y2)                  + dt   * k2
+        y4     = (2y2 - y3)                 + dt   * k3
+        y_next = (-y/8 + 3/4*y3 + 3/8*y4)   + dt/8 * k4
+
+    The bases are combined in float32 and rounded to the state's dtype.
+    """
+    def comb(*terms):
+        return sum(c * t.float() for c, t in terms).to(y.dtype)
+
+    y2 = vf(y, "euler", dt / 3.0)
+    y3 = vf(y2, "base", dt, comb((2.0, y), (-1.0, y2)))
+    y4 = vf(y3, "base", dt, comb((2.0, y2), (-1.0, y3)))
+    return vf(y4, "base", dt / 8.0,
+              comb((-0.125, y), (0.75, y3), (0.375, y4)))

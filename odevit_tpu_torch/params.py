@@ -1,0 +1,47 @@
+"""Loads parameters saved by the JAX package into the port's modules."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ViTODE params pytree of the JAX package -> the port's state dict.
+
+    ``tree`` is ``params`` (not ``{"params": ...}``) as nested dicts of
+    numpy arrays; the caller moves it to the host first. Matrices handed to
+    ``nn.Linear`` are transposed to ``[out, in]``; the patch projection
+    stays a ``[p*p*C, D]`` matmul kernel. The result is on the CPU in
+    float32: ``model.load_state_dict`` copies it to the model's device.
+    """
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    pe, vf = tree["patch_embed"], tree["vf"]
+    sd = {
+        "patch_embed.proj_kernel": t(pe["proj_kernel"]),
+        "patch_embed.proj_bias": t(pe["proj_bias"]),
+        "patch_embed.cls_token": t(pe["cls_token"]),
+        "patch_embed.pos_embed": t(pe["pos_embed"]),
+        "vf.norm_attn.weight": t(vf["norm_attn"]["scale"]),
+        "vf.norm_attn.bias": t(vf["norm_attn"]["bias"]),
+        "vf.norm_mlp.weight": t(vf["norm_mlp"]["scale"]),
+        "vf.norm_mlp.bias": t(vf["norm_mlp"]["bias"]),
+        "vf.attn.qkv.weight": t(vf["attn"]["qkv_kernel"]).T.contiguous(),
+        "vf.attn.proj.weight": t(vf["attn"]["out_kernel"]).T.contiguous(),
+        "vf.mlp.fc1.weight": t(vf["mlp"]["fc1_kernel"]).T.contiguous(),
+        "vf.mlp.fc2.weight": t(vf["mlp"]["fc2_kernel"]).T.contiguous(),
+        "head.weight": t(tree["head"]["kernel"]).T.contiguous(),
+        "head.bias": t(tree["head"]["bias"]),
+    }
+    if "register_tokens" in pe:
+        sd["patch_embed.register_tokens"] = t(pe["register_tokens"])
+    if "dist_token" in pe:
+        sd["patch_embed.dist_token"] = t(pe["dist_token"])
+    if "dist_head" in tree:
+        sd["dist_head.weight"] = t(tree["dist_head"]["kernel"]).T.contiguous()
+        sd["dist_head.bias"] = t(tree["dist_head"]["bias"])
+    return sd

@@ -1,0 +1,104 @@
+"""The port stands alone: no module of ``odevit_tpu_torch`` and not
+``chip_smoke.py`` imports JAX, flax or the JAX package; entry points
+never fall back to the CPU quietly; a failed kernel build raises."""
+
+import ast
+import os
+import pkgutil
+import stat
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import odevit_tpu_torch
+from odevit_tpu_torch import resolve_device
+from odevit_tpu_torch.kernels import build
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "odevit_tpu")
+
+
+def port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        odevit_tpu_torch.__path__, "odevit_tpu_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import sys\n"
+        f"for name in {BLOCKED!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "import chip_smoke\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py", "odevit_tpu_torch"])
+def test_sources_name_no_jax_import(path):
+    files = [ROOT / path] if path.endswith(".py") else sorted(
+        (ROOT / path).rglob("*.py"))
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in BLOCKED, (f, name)
+
+
+def test_entry_points_need_a_gpu_or_an_explicit_cpu(monkeypatch):
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    from odevit_tpu_torch.serve.engine import ServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError):
+        ViTODE(img_size=16, patch_size=4, embed_dim=32, num_heads=2)
+    m = ViTODE(img_size=16, patch_size=4, embed_dim=32, num_heads=2,
+               num_classes=3, num_eval_steps=2, device="cpu")
+    with pytest.raises(RuntimeError):
+        ServingEngine(m, batch_buckets=(1,))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails makes the build raise; nothing falls back."""
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "broken.cu").write_text("this is not C++\n")
+    nvcc = tmp_path / "bin" / "nvcc"
+    nvcc.parent.mkdir()
+    nvcc.write_text("#!/bin/sh\necho 'error: broken.cu' >&2\nexit 1\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setenv("PATH", f"{nvcc.parent}{os.pathsep}"
+                       f"{os.environ['PATH']}")
+    with pytest.raises(RuntimeError, match="CUDA build failed"):
+        build.build(["broken"])
+    assert not list((tmp_path / "out").glob("*.so"))
+
+
+def test_missing_compiler_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_toolkit"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.build(["vector_field"])
+
+
+def test_the_only_source_is_listed():
+    assert set(build.sources()) == {"vector_field"}
