@@ -16,7 +16,18 @@ Phases:
   4. serving: a ServingEngine with buckets (1, 8, 32, 128) answers 16 uint8
      requests of 1-37 images from 4 threads; each answer is held against a
      direct ``fast_forward`` of the same images;
-  5. the kernels line (launch counts of the main path, times, bounds) and
+  5. training kernels vs plain: ``vf_eval_jasmin`` against
+     ``vf_eval_jasmin_plain`` and ``vf_bwd`` (with and without the JaSMin
+     cotangent) against ``vf_bwd_plain`` at the training shape (B=64), in
+     bf16 and f32, with tied keys, with peaked rows (p == 1.0) and with
+     garbage and NaN in the padded rows; every statistic's column lies on
+     exactly one real key; two backward runs are bit-identical;
+  6. training main path: 3 steps of ``make_fast_free_train_step`` (rk4 on
+     13 points, JaSMin k=10, AdamW, bf16) at B=1024 through the kernels
+     and through the plain path from the same weights; losses and the
+     first gradient compared, launches counted, steps timed;
+  7. the training kernels alone at B=1024 against their plain versions;
+  8. the kernels line (launch counts of the main paths, times, bounds) and
      the result line.
 
 Exits non-zero, printing no result line, when a phase fails or when there
@@ -48,6 +59,12 @@ TOL_BF16 = 2e-2
 # compound through the integration.
 TOL_LOGITS = 5e-2
 MIN_TOP1_AGREEMENT = 0.95
+# Training through the kernels vs the plain path, bf16, B=1024: the loss
+# of each of 3 steps, and the direction of the first gradient.
+TOL_TRAIN_LOSS = 1e-2
+MIN_GRAD_COSINE = 0.99
+TRAIN_STEPS = 3
+JASMIN_K = 10
 
 BATCH = 1024
 SHAPE = dict(img_size=32, patch_size=4, embed_dim=192, num_heads=3,
@@ -325,6 +342,325 @@ def phase_serving(model, rng):
     return launches
 
 
+def bwd_bound(b: int, n_real: int, d: int, dh: int, heads: int,
+              itemsize: int):
+    """(bound_ms, bound_by) of one backward: the recomputed forward
+    products (h1, qkv, q k^T, p v) and two products for each product of
+    the forward, at the real token count, over the bf16 peak; against x
+    and g in, x_bar out, the weights in and the 8 float32 cotangents out,
+    plus the JaSMin cotangent and columns, over the memory rate."""
+    flops = b * (n_real * (10 * d * dh + 22 * d * d)
+                 + 12 * n_real * n_real * d)
+    weights = 4 * d * d + 2 * d * dh
+    nbytes = ((3 * b * n_real * d + weights) * itemsize
+              + (weights + 4 * d) * 4 + b * heads * n_real * (5 + 4) * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def jasmin_bound(b: int, n_real: int, d: int, dh: int, heads: int,
+                 itemsize: int, kk: int):
+    """(bound_ms, bound_by) of one JaSMin-mode evaluation: the forward's
+    products plus kk compare passes over each real attention row (counted
+    at the bf16 rate, a lower bound), against the forward's bytes plus the
+    statistics and columns written."""
+    flops = (b * (n_real * (8 * d * d + 4 * d * dh) + 4 * n_real * n_real * d)
+             + b * heads * n_real * n_real * kk)
+    nbytes = ((2 * b * n_real * d + 4 * d * d + 2 * d * dh) * itemsize
+              + 16 * d + b * heads * n_real * (5 + 4) * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def train_case(model, b, dtype, kind, g):
+    """Inputs of one training evaluation at the slice shape: weights (the
+    model's, or with q/k columns scaled so that rows saturate), a padded
+    state, its cotangent and a JaSMin cotangent (zero on padded rows)."""
+    import torch
+    n_real, n_pad, d, heads = model.patch_embed.seq_len, 80, 192, 3
+    w = model.vf.kernel_weights(dtype)
+    if kind == "peaked":
+        wqkv = w.wqkv.float().clone()
+        wqkv[:, :2 * d] *= 8.0
+        w = w._replace(wqkv=wqkv.to(dtype).contiguous())
+    x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+    if kind == "ties":
+        x[:, 5:11] = x[:, 5:6]
+    x[:, n_real:] = 0
+    gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+    gx[:, n_real:] = 0
+    gj = torch.randn(b, heads, 5, n_pad, generator=g, device="cuda") * 1e-2
+    gj[..., n_real:] = 0
+    return w, x.to(dtype), gx.to(dtype), gj
+
+
+def phase_train_kernels_vs_plain(model):
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval_jasmin,
+                                                       vf_eval_jasmin_plain)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd, vf_bwd_plain
+    names = ("x", "norm_attn_scale", "norm_attn_bias", "norm_mlp_scale",
+             "norm_mlp_bias", "wqkv", "wout", "w1", "w2")
+    b, n_real = 64, model.patch_embed.seq_len
+    kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    before = dict(launch_counts)
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        kinds = ("random", "ties", "peaked") if dtype == torch.bfloat16 \
+            else ("random", "ties")
+        for kind in kinds:
+            w, x, gx, gj = train_case(model, b, dtype, kind, g)
+            r = {"dtype": str(dtype), "case": kind, "tol": tol,
+                 "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
+            dx, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw)
+            pdx, pst, pidx = vf_eval_jasmin_plain(x, w, jas_k=JASMIN_K, **kw)
+            torch.cuda.synchronize()
+            r["jasmin_fwd"] = {
+                "dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                "stats": rel_err(st[..., :n_real], pst[..., :n_real]),
+                "idx_agreement": (idx[..., :n_real] == pidx[..., :n_real])
+                .float().mean().item(),
+                "rows_at_1.0": int((st[:, :, 0, :n_real] == 1.0).sum())}
+            check(r["jasmin_fwd"]["dx"] <= tol and
+                  r["jasmin_fwd"]["stats"] <= tol,
+                  f"jasmin fwd {dtype} {kind}: {r['jasmin_fwd']}")
+            # every statistic's cotangent lands on exactly one column: each
+            # (row, rank) column is a real key, distinct from the row's
+            # other ranks' columns (k=10: ranks 1, 2, 10, 11 differ)
+            cols = idx[..., :n_real].long()
+            real = (cols >= 0) & (cols < n_real)
+            distinct = torch.stack([
+                torch.stack([cols[:, :, i] != cols[:, :, j]
+                             for j in range(4) if j != i]).all(0)
+                for i in range(4)], dim=2)
+            hit = real & distinct
+            r["scatter"] = {"entries": cols.numel(),
+                            "hit_once": int(hit.sum())}
+            check(r["scatter"]["hit_once"] == r["scatter"]["entries"],
+                  f"jasmin columns {dtype} {kind}: {r['scatter']}")
+            if kind == "peaked" and dtype == torch.bfloat16:
+                check(r["jasmin_fwd"]["rows_at_1.0"] > 0,
+                      "the peaked case has no row at 1.0")
+            for jas in (False, True):
+                extra = dict(g_jas=gj, jas_idx=idx) if jas else {}
+                got = vf_bwd(x, w, gx, **kw, **extra)
+                want = vf_bwd_plain(x, w, gx, **kw, **extra)
+                again = vf_bwd(x, w, gx, **kw, **extra)
+                torch.cuda.synchronize()
+                errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                    b_[:, :n_real] if nm == "x" else b_)
+                        for nm, a, b_ in zip(names, got, want)}
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                r["bwd_jas" if jas else "bwd"] = errs
+                r["repeat_bit_identical" + ("_jas" if jas else "")] = same
+                check(max(errs.values()) <= tol,
+                      f"bwd {dtype} {kind} jas={jas}: {errs}")
+                check(same, f"bwd {dtype} {kind} jas={jas} not repeatable")
+            if kind == "random":
+                # garbage and NaN in the padded rows change no real row
+                dirty = x.clone()
+                dirty[:, n_real:n_real + 5] = float("nan")
+                dirty[:, n_real + 5:] = 1e30
+                gdirty = gx.clone()
+                gdirty[:, n_real:] = 7.0
+                ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=JASMIN_K,
+                                                **kw)
+                dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx, **kw)
+                cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
+                torch.cuda.synchronize()
+                same = (torch.equal(ddx[:, :n_real], dx[:, :n_real])
+                        and torch.equal(dst, st) and torch.equal(didx, idx)
+                        and all(torch.equal(a, c)
+                                for a, c in zip(dbars, cbars)))
+                r["nan_padding_unchanged"] = same
+                check(same, f"{dtype}: padded rows reached a real row")
+            results.append(r)
+    launch_counts.update(before)           # comparisons do not count
+    emit("train_kernels_vs_plain", results=results)
+
+
+def grad_vector(model):
+    import torch
+    return torch.cat([p.grad.float().reshape(-1)
+                      for p in model.parameters()])
+
+
+def profile_step(step, state, batch, top: int = 12):
+    """One more training step under torch.profiler: device time by kernel
+    (the largest ``top``; device events only, as host operators also carry
+    the time of the kernels they launch) and the device's busy share of
+    the step's wall time (kernel time over the step's host-clock time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    device_ms = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms if wall_ms else None,
+            "top": [{"kernel": k[:80], "ms": ms, "count": c}
+                    for k, ms, c in rows[:top]]}
+
+
+def phase_train(images_u8, rng):
+    """3 steps through the kernels and through the plain path from the
+    same weights and batch; then one more timed step of each, split into
+    forward and backward."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    from odevit_tpu_torch.train.fast_steps import (fast_free_forward,
+                                                   make_fast_free_train_step)
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    pre = make_preprocess(dtype=torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, 100, BATCH)).cuda()
+    batch = {"pixel_values": images_u8, "labels": labels}
+    runs = {}
+    for path in ("kernels", "plain"):
+        model = ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
+                       dtype=torch.bfloat16, device="cuda", seed=0)
+        state = create_train_state(model, make_optimizer(1e-4))
+        step = make_fast_free_train_step(model, jasmin_k=JASMIN_K,
+                                         preprocess_fn=pre,
+                                         plain=path == "plain")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "kernels":
+            reset_launch_counts()
+        losses, ms, metrics, first_grad = [], [], None, None
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            if i == 0:
+                first_grad = grad_vector(model)
+        launches = dict(launch_counts) if path == "kernels" else None
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # one more step, timed by CUDA events around its parts
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = fast_free_forward(model, pre(images_u8), labels,
+                                    jasmin_k=JASMIN_K, plain=path == "plain")
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state.apply_gradients()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if path == "kernels":
+            profile = profile_step(step, state, batch)
+        runs[path] = {
+            "loss": losses, "ms_per_step": ms,
+            "img_per_s": BATCH / min(ms) * 1e3,
+            "jasmin_loss_last": metrics["jasmin_loss"].item(),
+            "grad_norm_last": metrics["grad_norm"].item(),
+            "acc_last": metrics["acc"].item(), "peak_mem_gb": peak,
+            "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
+                         "backward": ev[1].elapsed_time(ev[2]),
+                         "optimizer": ev[2].elapsed_time(ev[3])},
+            "launches": launches, "first_grad": first_grad}
+    k, p = runs["kernels"], runs["plain"]
+    cos = torch.nn.functional.cosine_similarity(
+        k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
+    per_step = {n: c / TRAIN_STEPS for n, c in k["launches"].items()}
+    emit("train_profile", **profile)
+    emit("train", batch=BATCH, steps=TRAIN_STEPS, solver="rk4-13",
+         jasmin_k=JASMIN_K, first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         launches_per_step=per_step, results=runs)
+    check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
+          "non-finite training loss")
+    check(max(loss_rel) <= TOL_TRAIN_LOSS, f"training losses: {loss_rel}")
+    check(cos >= MIN_GRAD_COSINE, f"first gradient cosine {cos}")
+    want = {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48}
+    check(per_step == want, f"launches per step {per_step}, want {want}")
+    return k["launches"], runs
+
+
+def phase_train_kernel_timing(model, images_u8):
+    """Each training kernel alone on the main path's inputs (the first
+    JaSMin-window state of one image batch) against its plain version."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import pad_tokens, vf_eval_jasmin
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    before = dict(launch_counts)
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            dtype=torch.bfloat16)(images_u8))
+        n_real = tokens.shape[1]
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        dx, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw)
+        pdx, pst, _ = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True, **kw)
+        gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        bars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
+        pbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw)
+        torch.cuda.synchronize()
+        errs = [rel_err(a[:, :n_real], b[:, :n_real])
+                for a, b in zip((dx, st), (pdx, pst))]
+        berrs = [rel_err(a[:, :n_real] if i == 0 else a,
+                         b[:, :n_real] if i == 0 else b)
+                 for i, (a, b) in enumerate(zip(bars, pbars))]
+        check(max(errs) <= TOL_BF16, f"B=1024 jasmin fwd: {errs}")
+        check(max(berrs) <= TOL_BF16, f"B=1024 bwd: {berrs}")
+        out = {
+            "vf_eval_jasmin": {
+                "max_abs_err": (dx[:, :n_real].float()
+                                - pdx[:, :n_real].float()).abs().max().item(),
+                "ms": cuda_ms(lambda: vf_eval_jasmin(
+                    x, w, jas_k=JASMIN_K, **kw), iters=10),
+                "plain_ms": cuda_ms(lambda: vf_eval_jasmin(
+                    x, w, jas_k=JASMIN_K, plain=True, **kw), iters=2),
+                **dict(zip(("bound_ms", "bound_by"), jasmin_bound(
+                    BATCH, n_real, 192, 768, 3, 2, JASMIN_K + 1)))},
+            "vf_bwd": {
+                "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(bars[1:], pbars[1:])),
+                "max_abs_err_x": (bars[0][:, :n_real].float()
+                                  - pbars[0][:, :n_real].float()
+                                  ).abs().max().item(),
+                "rel_errs": berrs,
+                "ms": cuda_ms(lambda: vf_bwd(
+                    x, w, gx, g_jas=gj, jas_idx=idx, **kw), iters=10),
+                "plain_ms": cuda_ms(lambda: vf_bwd(
+                    x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw),
+                    iters=2),
+                **dict(zip(("bound_ms", "bound_by"), bwd_bound(
+                    BATCH, n_real, 192, 768, 3, 2)))}}
+    launch_counts.update(before)           # comparisons do not count
+    emit("train_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
+         f"dh=768 bf16", results=out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -350,13 +686,30 @@ def main() -> int:
     x, report = phase_main_path(models, images)
     timing = phase_vf_timing(models["euler-49"], x)
     phase_serving(models["euler-49"], rng)
+    phase_train_kernels_vs_plain(models["rk4-13"])
+    train_launches, _ = phase_train(images, rng)
+    train_timing = phase_train_kernel_timing(models["rk4-13"], images)
 
     kernels = [{
         "name": "vf_eval", "route": "cuda",
         "source": "odevit_tpu_torch/csrc/vector_field.cu",
         "replaces": "odevit_tpu/kernels/vector_field.py:196",
         "launches": report["euler-49"]["launches"],
-        **timing, "library_ms": None}]
+        "launches_train": train_launches["vf_eval"],
+        **timing, "library_ms": None}, {
+        "name": "vf_eval_jasmin", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field.cu",
+        "replaces": "odevit_tpu/kernels/vector_field.py:196",
+        "launches": train_launches["vf_eval_jasmin"],
+        **train_timing["vf_eval_jasmin"], "library_ms": None}, {
+        "name": "vf_bwd", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field_bwd.cu",
+        "replaces": "odevit_tpu/kernels/vector_field_bwd.py:117",
+        "launches": train_launches["vf_bwd"],
+        **{k: v for k, v in train_timing["vf_bwd"].items()
+           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")},
+        "library_ms": None}]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

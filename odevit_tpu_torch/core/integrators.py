@@ -10,8 +10,11 @@ vector-field evaluations (NFE) per step:
 
 ``f(t, y)`` returns ``dy``. State updates are computed in float32 and
 rounded back to the state's dtype, so a bfloat16 state stays bfloat16 and
-is rounded once per update, as in the JAX package. Per-evaluation aux
-outputs (attention maps) come with the training slice.
+is rounded once per update, as in the JAX package.
+
+With ``has_aux=True`` the vector field returns ``(dy, aux)``; aux outputs
+are collected per *evaluation* and stacked per step (leading axis: the
+stage), as ``odevit_tpu/core/integrators.py`` does.
 """
 
 from __future__ import annotations
@@ -52,41 +55,56 @@ def _lc(y, dt, terms):
     return acc.to(y.dtype)
 
 
-def make_step(method: str) -> Callable:
-    """Build ``step(f, y, t, dt) -> y_next``."""
+def make_step(method: str, has_aux: bool = False) -> Callable:
+    """Build ``step(f, y, t, dt) -> y_next``, or with ``has_aux``
+    ``step(f, y, t, dt) -> (y_next, aux)`` where ``aux`` stacks the
+    evaluations' aux tensors along a new leading stage axis."""
     third = 1.0 / 3.0
+
+    def call(f, t, y):
+        out = f(t, y)
+        return out if has_aux else (out, None)
+
+    def done(y_next, auxes):
+        if not has_aux:
+            return y_next
+        return y_next, torch.stack(auxes, dim=0)
+
     if method == "euler":
         def step(f, y, t, dt):
-            return _lc(y, dt, [(1.0, f(t, y))])
+            k1, a1 = call(f, t, y)
+            return done(_lc(y, dt, [(1.0, k1)]), [a1])
     elif method == "midpoint":
         def step(f, y, t, dt):
-            k1 = f(t, y)
-            k2 = f(t + dt * 0.5, _lc(y, dt, [(0.5, k1)]))
-            return _lc(y, dt, [(1.0, k2)])
+            k1, a1 = call(f, t, y)
+            k2, a2 = call(f, t + dt * 0.5, _lc(y, dt, [(0.5, k1)]))
+            return done(_lc(y, dt, [(1.0, k2)]), [a1, a2])
     elif method == "heun":
         def step(f, y, t, dt):
-            k1 = f(t, y)
-            k2 = f(t + dt, _lc(y, dt, [(1.0, k1)]))
-            return _lc(y, dt, [(0.5, k1), (0.5, k2)])
+            k1, a1 = call(f, t, y)
+            k2, a2 = call(f, t + dt, _lc(y, dt, [(1.0, k1)]))
+            return done(_lc(y, dt, [(0.5, k1), (0.5, k2)]), [a1, a2])
     elif method == "rk4":
         # Kutta 3/8 rule (torchdiffeq's "rk4")
         def step(f, y, t, dt):
-            k1 = f(t, y)
-            k2 = f(t + dt * third, _lc(y, dt, [(third, k1)]))
-            k3 = f(t + dt * 2.0 * third,
-                   _lc(y, dt, [(-third, k1), (1.0, k2)]))
-            k4 = f(t + dt, _lc(y, dt, [(1.0, k1), (-1.0, k2), (1.0, k3)]))
-            return _lc(y, dt, [(0.125, k1), (0.375, k2), (0.375, k3),
-                               (0.125, k4)])
+            k1, a1 = call(f, t, y)
+            k2, a2 = call(f, t + dt * third, _lc(y, dt, [(third, k1)]))
+            k3, a3 = call(f, t + dt * 2.0 * third,
+                          _lc(y, dt, [(-third, k1), (1.0, k2)]))
+            k4, a4 = call(f, t + dt,
+                          _lc(y, dt, [(1.0, k1), (-1.0, k2), (1.0, k3)]))
+            return done(_lc(y, dt, [(0.125, k1), (0.375, k2), (0.375, k3),
+                                    (0.125, k4)]), [a1, a2, a3, a4])
     elif method == "rk4_classical":
         def step(f, y, t, dt):
-            k1 = f(t, y)
-            k2 = f(t + dt * 0.5, _lc(y, dt, [(0.5, k1)]))
-            k3 = f(t + dt * 0.5, _lc(y, dt, [(0.5, k2)]))
-            k4 = f(t + dt, _lc(y, dt, [(1.0, k3)]))
+            k1, a1 = call(f, t, y)
+            k2, a2 = call(f, t + dt * 0.5, _lc(y, dt, [(0.5, k1)]))
+            k3, a3 = call(f, t + dt * 0.5, _lc(y, dt, [(0.5, k2)]))
+            k4, a4 = call(f, t + dt, _lc(y, dt, [(1.0, k3)]))
             sixth = 1.0 / 6.0
-            return _lc(y, dt, [(sixth, k1), (2 * sixth, k2),
-                               (2 * sixth, k3), (sixth, k4)])
+            return done(_lc(y, dt, [(sixth, k1), (2 * sixth, k2),
+                                    (2 * sixth, k3), (sixth, k4)]),
+                        [a1, a2, a3, a4])
     else:
         raise ValueError(
             f"unknown method {method!r}; options: {sorted(METHOD_STAGES)}")

@@ -1,7 +1,8 @@
 // One evaluation of the ODE-ViT vector field, fused into one CUDA kernel.
 //
 // Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
-// (its plain, Euler and stage-advance modes) on Hopper (sm_90a).
+// (its plain, Euler, stage-advance and JaSMin-statistics modes) on Hopper
+// (sm_90a).
 //
 //   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
 //   plain : out = f(x)
@@ -18,6 +19,16 @@
 // in f32. Padded keys (index >= n_real) are masked by selection, and the
 // padded rows of v are zeroed, so garbage or NaN in padded rows of x never
 // reaches a real row (0 * NaN would).
+//
+// JaSMin-statistics mode (the training tail, `jas_kk` = k + 1 > 0): the
+// output is f(x), and for every head and query row the kernel also takes
+// kk max-extraction passes over the rounded p of the real keys, each
+// removing the first column that holds the maximum (as the TPU kernel
+// and JAX's argmax do), and keeps ranks (1, 2, kk-1, kk), the columns they
+// came from, and the row sum of clip(p, 1e-12, 1). The [n, n] map never
+// leaves shared memory; the passes run on registers (four columns per
+// lane), so the mode needs no more shared memory than the plain one. The
+// backward scatters the statistics' cotangents onto the saved columns.
 //
 // Bound. At the serving shape (B=1024, 69 real tokens padded to 80,
 // D=192, 3 heads, dh=768) one evaluation needs about 64.7 MFLOP per
@@ -47,6 +58,13 @@
 // accumulators in registers (two CTAs per SM), ldmatrix/wgmma, TMA,
 // multi-stage pipelines.
 
+// The device helpers below (namespace vf) are shared with the backward,
+// vector_field_bwd.cu, which includes this file with VF_HELPERS_ONLY
+// defined. Products: bf16 WMMA fragments (16x16x16, f32 accumulators) or,
+// for the f32 check mode, plain loops on the CUDA cores. Both walk K in
+// the same order whatever the product's layout, so a product recomputed
+// by the backward is bit-identical to the forward's.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -55,21 +73,15 @@
 #include <cstddef>
 #include <type_traits>
 
+namespace vf {
+
 using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
-
-namespace {
 
 constexpr int kThreads = 384;            // 12 warps: one per column tile of D=192
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRowTiles = 8;          // n_pad <= 128
 constexpr int kMaxSmem = 232448;         // 227 KB of dynamic shared memory
-constexpr int kChunks[] = {128, 64, 32, 16};
-
-struct Shape {
-  int n_pad, n_real, d, heads, hd, dh, hc;
-  int qkv_fused;  // 1: q, k and v of a head come from one product
-};
 
 __host__ __device__ inline size_t align128(size_t b) {
   return (b + 127) / 128 * 128;
@@ -77,6 +89,206 @@ __host__ __device__ inline size_t align128(size_t b) {
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min_int(int v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+// d/dv gelu(v) = 0.5 (1 + erf(v / sqrt 2)) + v exp(-v^2 / 2) / sqrt(2 pi)
+__device__ __forceinline__ float gelu_grad(float v) {
+  return 0.5f * (1.0f + erff(v * 0.70710678118654752f)) +
+         v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// C[M,N] (=|+=) A[M,K] @ B[K,N], C f32 row-major (shared or global).
+// A is row-major (lda) or, with AT, stored transposed: A(m, k) =
+// A[k*lda + m]. B is row-major (ldb) or, with BT, stored transposed:
+// B(k, n) = B[n*ldb + k]. M, N, K are multiples of 16. B's columns may
+// come in strips: column tile t is read from strip t / strip (each `strip`
+// tiles wide, `strip_stride` elements apart), so one product can gather
+// the q, k and v columns of a head. Each warp owns a column tile (and,
+// when there are fewer column tiles than warps, a group of row tiles): it
+// reads each B fragment once, one step ahead of its use.
+template <bool AT, bool BT>
+__device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
+                   int ldc, bool accumulate, int M, int N, int K,
+                   int strip = 1 << 30, int strip_stride = 0) {
+  using ALayout =
+      typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+  using BLayout =
+      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout>;
+  const int warp = threadIdx.x / 32;
+  const int mt = M / 16, nt = N / 16, kt = K / 16;
+  const int groups = imin(imax(kWarps / nt, 1), mt);
+  const int rg = (mt + groups - 1) / groups;
+  for (int task = warp; task < nt * groups; task += kWarps) {
+    const int tn = task % nt;
+    const int r0 = (task / nt) * rg;
+    const int rows = imin(mt - r0, rg);
+    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
+    const bf16* bcol = BT ? B + (size_t)col * ldb : B + col;
+    const size_t bstep = BT ? 16 : (size_t)16 * ldb;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[kMaxRowTiles];
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r) {
+      if (r < rows) {
+        if (accumulate)
+          wmma::load_matrix_sync(c[r], C + (r0 + r) * 16 * ldc + tn * 16,
+                                 ldc, wmma::mem_row_major);
+        else
+          wmma::fill_fragment(c[r], 0.0f);
+      }
+    }
+    FragB b, b_next;
+    wmma::load_matrix_sync(b, bcol, ldb);
+    for (int kk = 0; kk < kt; ++kk) {
+      if (kk + 1 < kt)
+        wmma::load_matrix_sync(b_next, bcol + (kk + 1) * bstep, ldb);
+#pragma unroll
+      for (int r = 0; r < kMaxRowTiles; ++r) {
+        if (r < rows) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
+          const bf16* ap = AT ? A + kk * 16 * lda + (r0 + r) * 16
+                              : A + (r0 + r) * 16 * lda + kk * 16;
+          wmma::load_matrix_sync(a, ap, lda);
+          wmma::mma_sync(c[r], a, b, c[r]);
+        }
+      }
+      b = b_next;
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r) {
+      if (r < rows)
+        wmma::store_matrix_sync(C + (r0 + r) * 16 * ldc + tn * 16, c[r], ldc,
+                                wmma::mem_row_major);
+    }
+  }
+}
+
+// The f32 version of the same product, on the CUDA cores.
+template <bool AT, bool BT>
+__device__ void mm(const float* A, int lda, const float* B, int ldb,
+                   float* C, int ldc, bool accumulate, int M, int N, int K,
+                   int strip = 1 << 30, int strip_stride = 0) {
+  for (int i = threadIdx.x; i < M * N; i += kThreads) {
+    const int m = i / N, nc = i % N, t = nc / 16;
+    const int n = (t / strip) * strip_stride + (t % strip) * 16 + nc % 16;
+    float s = 0.0f;
+    for (int k = 0; k < K; ++k)
+      s = fmaf(AT ? A[(size_t)k * lda + m] : A[(size_t)m * lda + k],
+               BT ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n], s);
+    float* c = C + (size_t)m * ldc + nc;
+    *c = accumulate ? *c + s : s;
+  }
+}
+
+// cn = round(((x - mean) * d/(d-1)) * gamma + beta), one warp per row.
+// Rows >= n_real read as zeros when zero_pad (the backward, so that
+// whatever the padded rows hold never reaches a cotangent). With `mean`,
+// each row's mean is stored there too.
+template <typename T>
+__device__ void center_norm(const T* x, const float* gamma,
+                            const float* beta, T* cn, int ld, int n, int d,
+                            int n_real = 1 << 30, float* mean_out = nullptr) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const float scale = (float)((double)d / (d - 1.0));
+  for (int r = warp; r < n; r += kWarps) {
+    const T* row = x + (size_t)r * d;
+    const bool real = r < n_real;
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32) sum += real ? to_f(row[c]) : 0.0f;
+    const float mean = warp_sum(sum) / d;
+    if (mean_out != nullptr && lane == 0) mean_out[r] = mean;
+    for (int c = lane; c < d; c += 32) {
+      const float xv = real ? to_f(row[c]) : 0.0f;
+      cn[r * ld + c] = from_f<T>(((xv - mean) * scale) * gamma[c] + beta[c]);
+    }
+  }
+}
+
+// p = round(softmax(s * qk_scale)) over keys < n_real; padded keys get 0
+// by selection. One warp per query row. With `pf`, the unrounded
+// probabilities are stored there too (f32).
+template <typename T>
+__device__ void softmax_rows(const float* s, int lds, T* p, int ldp, int n,
+                             int n_real, float qk_scale,
+                             float* pf = nullptr, int ldpf = 0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps) {
+    const float* row = s + r * lds;
+    float mx = -INFINITY;
+    for (int c = lane; c < n_real; c += 32) mx = fmaxf(mx, row[c] * qk_scale);
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int c = lane; c < n_real; c += 32) sum += expf(row[c] * qk_scale - mx);
+    sum = warp_sum(sum);
+    for (int c = lane; c < n; c += 32) {
+      const float v = c < n_real ? expf(row[c] * qk_scale - mx) / sum : 0.0f;
+      p[r * ldp + c] = from_f<T>(v);
+      if (pf != nullptr) pf[r * ldpf + c] = v;
+    }
+  }
+}
+
+// dst[r, c] = round(scale * src[r, c]) for an [n, w] block; rows >=
+// zero_from are written as 0. One warp per row. With `dst2` (global,
+// row stride ld2) the same values are stored there as well.
+template <typename T>
+__device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
+                            int w, int zero_from, float scale = 1.0f,
+                            T* dst2 = nullptr, int ld2 = 0) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < w; c += 32) {
+      const T v = r < zero_from ? from_f<T>(src[r * lds + c] * scale)
+                                : from_f<T>(0.0f);
+      if (dst != nullptr) dst[r * ldd + c] = v;
+      if (dst2 != nullptr) dst2[(size_t)r * ld2 + c] = v;
+    }
+}
+
+}  // namespace vf
+
+#ifndef VF_HELPERS_ONLY
+
+using namespace vf;
+
+namespace {
+
+constexpr int kChunks[] = {128, 64, 32, 16};
+
+struct Shape {
+  int n_pad, n_real, d, heads, hd, dh, hc;
+  int qkv_fused;  // 1: q, k and v of a head come from one product
+};
 
 // Shared-memory layout of one CTA: byte offsets and row strides (in
 // elements). Every row is padded by 16 bytes, so consecutive rows start in
@@ -112,167 +324,71 @@ __host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
   return p;
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// C[M,N] (=|+=) A[M,K] @ B[K,N]. A is row-major in shared memory; B is
-// row-major (ldb) or, with BT, stored transposed: B(k, n) = B[n*ldb + k].
-// C is f32 row-major. M, N, K are multiples of 16. B's columns may come in
-// strips: column tile t is read from strip t / strip (each `strip` tiles
-// wide, `strip_stride` elements apart), so one product can gather the q, k
-// and v columns of a head. Each warp owns a column tile (and, when there
-// are fewer column tiles than warps, a group of row tiles): it reads each
-// B fragment once, one step ahead of its use.
-template <bool BT>
-__device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                   int ldc, bool accumulate, int M, int N, int K,
-                   int strip = 1 << 30, int strip_stride = 0) {
-  using BLayout =
-      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout>;
-  const int warp = threadIdx.x / 32;
-  const int mt = M / 16, nt = N / 16, kt = K / 16;
-  const int groups = imin(imax(kWarps / nt, 1), mt);
-  const int rg = (mt + groups - 1) / groups;
-  for (int task = warp; task < nt * groups; task += kWarps) {
-    const int tn = task % nt;
-    const int r0 = (task / nt) * rg;
-    const int rows = imin(mt - r0, rg);
-    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
-    const bf16* bcol = BT ? B + (size_t)col * ldb : B + col;
-    const size_t bstep = BT ? 16 : (size_t)16 * ldb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[kMaxRowTiles];
-#pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r) {
-      if (r < rows) {
-        if (accumulate)
-          wmma::load_matrix_sync(c[r], C + (r0 + r) * 16 * ldc + tn * 16,
-                                 ldc, wmma::mem_row_major);
-        else
-          wmma::fill_fragment(c[r], 0.0f);
-      }
+// JaSMin order statistics of one head, computed on the rounded p: one
+// warp per query row, kk passes over the real keys, each taking the row's
+// largest remaining value and removing the FIRST column that holds it
+// (the row lives in registers, four columns per lane). Ranks (1, 2, kk-1,
+// kk) are kept with the columns they came from, and the clipped row sum.
+// stats: [5, n_pad] f32, idx: [4, n_pad] int32 of this image and head;
+// padded query rows get zeros.
+template <typename T>
+__device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
+                               int kk, float* stats, int* idx) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps) {
+    if (r >= n_real) {
+      if (lane < 5) stats[lane * n + r] = 0.0f;
+      if (lane < 4) idx[lane * n + r] = 0;
+      continue;
     }
-    FragB b, b_next;
-    wmma::load_matrix_sync(b, bcol, ldb);
-    for (int kk = 0; kk < kt; ++kk) {
-      if (kk + 1 < kt)
-        wmma::load_matrix_sync(b_next, bcol + (kk + 1) * bstep, ldb);
+    float v[kMaxRowTiles / 2];
+    float sum = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kMaxRowTiles; ++r) {
-        if (r < rows) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, A + (r0 + r) * 16 * lda + kk * 16, lda);
-          wmma::mma_sync(c[r], a, b, c[r]);
+    for (int j = 0; j < kMaxRowTiles / 2; ++j) {
+      const int c = lane + 32 * j;
+      v[j] = c < n_real ? to_f(p[r * ldp + c]) : -INFINITY;
+      if (c < n_real) sum += fminf(fmaxf(v[j], 1e-12f), 1.0f);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) stats[4 * n + r] = sum;
+    for (int pass = 0; pass < kk; ++pass) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kMaxRowTiles / 2; ++j) m = fmaxf(m, v[j]);
+      m = warp_max(m);
+      int first = 1 << 30;
+#pragma unroll
+      for (int j = kMaxRowTiles / 2 - 1; j >= 0; --j)
+        if (v[j] == m) first = lane + 32 * j;
+      first = warp_min_int(first);
+      if (lane == 0) {
+        const int rows[4] = {0, 1, kk - 2, kk - 1};
+        for (int i = 0; i < 4; ++i) {
+          if (pass == rows[i]) {
+            stats[i * n + r] = m;
+            idx[i * n + r] = first;
+          }
         }
       }
-      b = b_next;
-    }
 #pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r) {
-      if (r < rows)
-        wmma::store_matrix_sync(C + (r0 + r) * 16 * ldc + tn * 16, c[r], ldc,
-                                wmma::mem_row_major);
+      for (int j = 0; j < kMaxRowTiles / 2; ++j)
+        if (lane + 32 * j == first) v[j] = -INFINITY;
     }
   }
 }
 
-// The f32 version of the same product, on the CUDA cores.
-template <bool BT>
-__device__ void mm(const float* A, int lda, const float* B, int ldb,
-                   float* C, int ldc, bool accumulate, int M, int N, int K,
-                   int strip = 1 << 30, int strip_stride = 0) {
-  for (int i = threadIdx.x; i < M * N; i += kThreads) {
-    const int m = i / N, nc = i % N, t = nc / 16;
-    const int n = (t / strip) * strip_stride + (t % strip) * 16 + nc % 16;
-    const float* a = A + m * lda;
-    float s = 0.0f;
-    for (int k = 0; k < K; ++k)
-      s = fmaf(a[k], BT ? B[(size_t)n * ldb + k] : B[(size_t)k * ldb + n], s);
-    C[m * ldc + nc] = accumulate ? C[m * ldc + nc] + s : s;
-  }
-}
-
-// cn = round(((x - mean) * d/(d-1)) * gamma + beta), one warp per row.
-template <typename T>
-__device__ void center_norm(const T* x, const float* gamma,
-                            const float* beta, T* cn, int ld, int n, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const float scale = (float)((double)d / (d - 1.0));
-  for (int r = warp; r < n; r += kWarps) {
-    const T* row = x + (size_t)r * d;
-    float sum = 0.0f;
-    for (int c = lane; c < d; c += 32) sum += to_f(row[c]);
-    const float mean = warp_sum(sum) / d;
-    for (int c = lane; c < d; c += 32)
-      cn[r * ld + c] =
-          from_f<T>(((to_f(row[c]) - mean) * scale) * gamma[c] + beta[c]);
-  }
-}
-
-// p = round(softmax(s * qk_scale)) over keys < n_real; padded keys get 0
-// by selection. One warp per query row.
-template <typename T>
-__device__ void softmax_rows(const float* s, int lds, T* p, int ldp, int n,
-                             int n_real, float qk_scale) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += kWarps) {
-    const float* row = s + r * lds;
-    float mx = -INFINITY;
-    for (int c = lane; c < n_real; c += 32) mx = fmaxf(mx, row[c] * qk_scale);
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int c = lane; c < n_real; c += 32) sum += expf(row[c] * qk_scale - mx);
-    sum = warp_sum(sum);
-    for (int c = lane; c < n; c += 32)
-      p[r * ldp + c] = c < n_real
-                           ? from_f<T>(expf(row[c] * qk_scale - mx) / sum)
-                           : from_f<T>(0.0f);
-  }
-}
-
-// dst[r, c] = round(src[r, c]) for an [n, w] block; rows >= zero_from are
-// written as 0. One warp per row.
-template <typename T>
-__device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
-                            int w, int zero_from) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < n; r += kWarps)
-    for (int c = lane; c < w; c += 32)
-      dst[r * ldd + c] = r < zero_from ? from_f<T>(src[r * lds + c])
-                                       : from_f<T>(0.0f);
-}
-
-template <typename T>
+// kJas: the JaSMin-statistics mode, compiled apart so that the other
+// modes keep their registers.
+template <typename T, bool kJas>
 __global__ void __launch_bounds__(kThreads)
 vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           T* out, float* acc_global,  // may alias (f32: acc is out)
           const float* __restrict__ ga, const float* __restrict__ ba,
           const float* __restrict__ gm, const float* __restrict__ bm,
           const T* __restrict__ wqkv, const T* __restrict__ wout,
-          const T* __restrict__ w1, const T* __restrict__ w2, Shape s,
-          float scaler, float coef, float qk_scale, int mode) {
+          const T* __restrict__ w1, const T* __restrict__ w2,
+          float* __restrict__ jas, int* __restrict__ jas_idx, int jas_kk,
+          Shape s, float scaler, float coef, float qk_scale, int mode) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan pl = make_plan(s, sizeof(T));
   T* cn = reinterpret_cast<T*>(smem + pl.cn);
@@ -294,15 +410,15 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
   center_norm(xi, gm, bm, cn, pl.ld_cn, n, d);
   __syncthreads();
   for (int c0 = 0; c0 < s.dh; c0 += hc) {
-    mm<false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false, n, hc,
-              d);
+    mm<false, false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false,
+                     n, hc, d);
     __syncthreads();
     for (int r = warp; r < n; r += kWarps)
       for (int c = lane; c < hc; c += 32)
         hbuf[r * pl.ld_h + c] = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
     __syncthreads();
-    mm<false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc, c0 > 0,
-              n, d, hc);
+    mm<false, false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc,
+                     c0 > 0, n, d, hc);
     __syncthreads();
   }
 
@@ -313,8 +429,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
     T* dst[3] = {q, k, v};
     // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
     if (s.qkv_fused) {
-      mm<false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage, pl.ld_stage,
-                false, n, 3 * hd, d, hd / 16, d);
+      mm<false, false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage,
+                       pl.ld_stage, false, n, 3 * hd, d, hd / 16, d);
       __syncthreads();
       for (int j = 0; j < 3; ++j)
         round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
@@ -322,24 +438,31 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
       __syncthreads();
     } else {
       for (int j = 0; j < 3; ++j) {
-        mm<false>(cn, pl.ld_cn, wqkv + j * d + h * hd, 3 * d, stage,
-                  pl.ld_stage, false, n, hd, d);
+        mm<false, false>(cn, pl.ld_cn, wqkv + j * d + h * hd, 3 * d, stage,
+                         pl.ld_stage, false, n, hd, d);
         __syncthreads();
         round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
                     j == 2 ? s.n_real : n);
         __syncthreads();
       }
     }
-    mm<true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n, n, hd);
+    mm<false, true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n,
+                    n, hd);
     __syncthreads();
     softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
     __syncthreads();
-    mm<false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n, hd, n);
+    if (kJas) {
+      const size_t bh = (size_t)blockIdx.x * s.heads + h;
+      jas_stats_rows(p, pl.ld_p, n, s.n_real, jas_kk, jas + bh * 5 * n,
+                     jas_idx + bh * 4 * n);
+    }
+    mm<false, false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n,
+                     hd, n);
     __syncthreads();
     round_block(stage, pl.ld_stage, hbuf, pl.ld_h, n, hd, n);
     __syncthreads();
-    mm<false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc, pl.ld_acc,
-              true, n, d, hd);
+    mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc,
+                     pl.ld_acc, true, n, d, hd);
     __syncthreads();
   }
 
@@ -365,6 +488,27 @@ bool shape_ok(const Shape& s) {
          s.hd % 16 == 0 && s.dh % 16 == 0 && s.n_pad % 16 == 0 &&
          s.n_pad > 0 && s.n_pad <= 16 * kMaxRowTiles && s.n_real > 0 &&
          s.n_real <= s.n_pad;
+}
+
+template <typename T>
+int launch(const void* x, const void* base, void* out, void* acc,
+           const float* ga, const float* ba, const float* gm,
+           const float* bm, const void* wqkv, const void* wout,
+           const void* w1, const void* w2, void* jas, void* jas_idx,
+           int jas_kk, int batch, int smem, Shape s, float scaler,
+           float coef, float qk_scale, int mode, cudaStream_t st) {
+  auto kernel = jas_kk > 0 ? vf_kernel<T, true> : vf_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, kThreads, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(base),
+      static_cast<T*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
+      static_cast<const T*>(wqkv), static_cast<const T*>(wout),
+      static_cast<const T*>(w1), static_cast<const T*>(w2),
+      static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk, s,
+      scaler, coef, qk_scale, mode);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -394,41 +538,25 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 }
 
 // Launches one evaluation on `stream`; returns cudaGetLastError() after
-// the launch (0 on success). mode: 0 plain, 1 euler, 2 base.
+// the launch (0 on success). mode: 0 plain, 1 euler, 2 base. jas_kk > 0
+// also writes the JaSMin statistics ([B, H, 5, n_pad] f32) and their
+// columns ([B, H, 4, n_pad] int32) of kk = k + 1 extraction passes.
 int vf_launch(int tbytes, const void* x, const void* base, void* out,
               void* acc, const float* ga, const float* ba, const float* gm,
               const float* bm, const void* wqkv, const void* wout,
               const void* w1, const void* w2, int batch, int n_pad,
               int n_real, int d, int heads, int dh, int qkv_fused, int hc,
               int smem, float scaler, float coef, float qk_scale, int mode,
-              void* stream) {
+              void* jas, void* jas_idx, int jas_kk, void* stream) {
   const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (tbytes == 2) {
-    err = cudaFuncSetAttribute(vf_kernel<bf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    vf_kernel<bf16><<<batch, kThreads, smem, st>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(base),
-        static_cast<bf16*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
-        static_cast<const bf16*>(wqkv), static_cast<const bf16*>(wout),
-        static_cast<const bf16*>(w1), static_cast<const bf16*>(w2), s, scaler,
-        coef, qk_scale, mode);
-  } else {
-    err = cudaFuncSetAttribute(vf_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    vf_kernel<float><<<batch, kThreads, smem, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(base),
-        static_cast<float*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
-        static_cast<const float*>(wqkv), static_cast<const float*>(wout),
-        static_cast<const float*>(w1), static_cast<const float*>(w2), s,
-        scaler, coef, qk_scale, mode);
-  }
-  return (int)cudaGetLastError();
+  return tbytes == 2
+             ? launch<bf16>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1,
+                            w2, jas, jas_idx, jas_kk, batch, smem, s, scaler,
+                            coef, qk_scale, mode, st)
+             : launch<float>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout,
+                             w1, w2, jas, jas_idx, jas_kk, batch, smem, s,
+                             scaler, coef, qk_scale, mode, st);
 }
 
 const char* vf_error_string(int code) {
@@ -436,3 +564,5 @@ const char* vf_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // VF_HELPERS_ONLY

@@ -1,0 +1,551 @@
+// Backward of one evaluation of the ODE-ViT vector field, on Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel
+// odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (plain, and with
+// the JaSMin-statistics cotangent). Given x, the weights and the dx
+// cotangent g (and optionally the cotangent of the JaSMin statistics with
+// the columns the forward took them from), it produces x_bar and the 8
+// cotangents of the norms and weight matrices, in float32:
+//
+//   dx = (MLP(cn_m) + Attn(cn_a)) * scaler,   gd = round(g * scaler)
+//   MLP:   h1 = cn_m W1, h = round(gelu(h1)), h_bar = gd W2^T,
+//          h1_bar = round(h_bar gelu'(h1)), m_bar = h1_bar W1^T,
+//          W2_bar = h^T gd, W1_bar = cn_m^T h1_bar
+//   Attn:  per head: p recomputed (f32 and rounded), ctx = round(p v),
+//          cb = round(gd Wout_h^T), v_bar = p^T cb, p_bar = cb v^T (+ the
+//          JaSMin scatter), s_bar = round(p (p_bar - sum(p_bar p))),
+//          q_bar = s_bar k tau, k_bar = s_bar^T round(q tau);
+//          a_bar = [q_bar k_bar v_bar] Wqkv^T, Wout_bar = ctx^T gd,
+//          Wqkv_bar = cn_a^T [q_bar k_bar v_bar]
+//   Norms: gamma_bar = sum(bar * cent), beta_bar = sum(bar);
+//          x_bar = d/(d-1) (c_bar - mean(c_bar)),
+//          c_bar = a_bar gamma_a + m_bar gamma_m
+// rounding where the TPU kernel rounds (to x's dtype), every product
+// accumulated in f32.
+//
+// JaSMin. Row 4 of the statistics (the clipped row sum) sends its
+// cotangent to every real key through clip's subgradient, 0.5 at either
+// bound as JAX's clip gives it (bf16 rows round to exactly 1.0 on peaked
+// heads). Rows 0..3 send theirs to the columns the forward kernel took
+// them from (it saves them beside the statistics), so each lands on
+// exactly one column however the values tie.
+//
+// Padding. Rows >= n_real of x and g are read as zeros and x_bar's are
+// written as zeros, so nothing a padded row holds reaches a cotangent.
+//
+// Bound. At the training shape (B=1024, 69 real tokens padded to 80,
+// D=192, 3 heads, dh=768) the backward recomputes the forward's products
+// and does two for each of them: about 2.6x the forward's 66 GFLOP, 0.17
+// ms at the H100's 989 TFLOP/s in bf16. Operations, not bytes, bound it.
+//
+// Design: three launches, all deterministic.
+//  1. vfb_rows: one CTA of 12 warps per image, as the forward kernel:
+//     recompute, the MLP backward over dh in chunks, the attention
+//     backward head by head, x_bar and the image's norm partial sums. It
+//     writes the operands of the weight products (cn_m, cn_a, gd, ctx, h,
+//     h1_bar, [q_bar k_bar v_bar]) to global scratch in x's dtype.
+//  2. vfb_wgrad: the four weight cotangents as A^T G products over all
+//     B*n_pad rows. The TPU accumulates them with += across its sequential
+//     grid; here CTAs run in parallel, so each CTA sums one 64x64 output
+//     tile over one fixed slice of rows into its own partial buffer.
+//  3. vfb_reduce: sums the partials (and the per-image norm partials) in
+//     a fixed order. Two runs give bit-identical cotangents.
+// Products are the repo's own WMMA code (the helpers of vector_field.cu);
+// nothing goes to a library. Not yet done: wgmma/TMA, keeping the weight products' A and
+// G operands on chip.
+
+#define VF_HELPERS_ONLY
+#include "vector_field.cu"
+
+using namespace vf;
+
+// Everything one backward needs, passed by pointer from Python (ctypes)
+// and by value to the kernels. Outside the anonymous namespace: the C
+// entry point takes it, so it needs external linkage.
+struct Args {
+  const void* x;
+  const void* g;
+  const float* g_jas;      // [B, H, 5, n_pad] or null
+  const int* jas_idx;      // [B, H, 4, n_pad] or null
+  const float* ga;
+  const float* ba;
+  const float* gm;
+  const float* bm;
+  const void* wqkv;
+  const void* wout;
+  const void* w1;
+  const void* w2;
+  void* xbar;              // [B, n_pad, D]
+  void* cnm;               // [B*n_pad, D]   scratch, x's dtype
+  void* cna;               // [B*n_pad, D]
+  void* gd;                // [B*n_pad, D]
+  void* ctx;               // [B*n_pad, D]
+  void* h;                 // [B*n_pad, dh]
+  void* h1b;               // [B*n_pad, dh]
+  void* qkvb;              // [B*n_pad, 3D]
+  float* macc;             // [B*n_pad, D]   m_bar
+  float* npart;            // [B, 4, D]      per-image norm partials
+  float* wpart;            // [splits, W]    per-split weight partials
+  float* out;              // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
+  int batch, n_pad, n_real, d, heads, dh;
+  int cn_smem, hc, smem, splits;
+  float scaler, qk_scale;
+};
+
+namespace {
+
+constexpr int kChunks[] = {128, 64, 32, 16};
+constexpr int kTile = 64;        // weight-product output tile
+constexpr int kRowStep = 32;     // rows per staged chunk
+constexpr int kWThreads = 128;   // 4 warps, 32x32 of the tile each
+
+struct Plan {
+  size_t cn, gd, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
+      abar, total;
+  int ld_cn, ld_st_m, ld_hb, ld_st_a, ld_pf, ld_p, ld_hd, ld_abar;
+};
+
+// Shared memory of one CTA: cn and gd (unless they stay in global
+// scratch), the row means, then a region used by the MLP phase (two f32
+// stages and the rounded h1_bar chunk) and again by the attention phase.
+__host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
+                                          int cn_smem, int tb) {
+  const int pad = 16 / tb;
+  Plan p;
+  p.ld_cn = cn_smem ? d + pad : d;
+  p.ld_st_m = hc + 4;
+  p.ld_hb = hc + pad;
+  p.ld_st_a = imax(hd, n) + 4;
+  p.ld_pf = n + 4;
+  p.ld_p = n + pad;
+  p.ld_hd = hd + pad;
+  p.ld_abar = d + 4;
+  size_t off = 0;
+  p.cn = off;
+  p.gd = off;
+  if (cn_smem) {
+    off += align128((size_t)n * p.ld_cn * tb);
+    p.gd = off;
+    off += align128((size_t)n * p.ld_cn * tb);
+  }
+  p.mean = off;  off += align128((size_t)n * 4);
+  size_t m = off;
+  p.st_m = m;   m += align128((size_t)n * p.ld_st_m * 4);
+  p.st2_m = m;  m += align128((size_t)n * p.ld_st_m * 4);
+  p.hb_m = m;   m += align128((size_t)n * p.ld_hb * tb);
+  size_t a = off;
+  p.st_a = a;   a += align128((size_t)n * p.ld_st_a * 4);
+  p.pf = a;     a += align128((size_t)n * p.ld_pf * 4);
+  p.pb = a;     a += align128((size_t)n * p.ld_p * tb);
+  p.q = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.k = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.v = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.cb = a;     a += align128((size_t)n * p.ld_hd * tb);
+  p.abar = off;
+  const size_t e = off + align128((size_t)n * p.ld_abar * 4);
+  p.total = m > a ? m : a;
+  if (e > p.total) p.total = e;
+  return p;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = args.n_pad, n_real = args.n_real, d = args.d;
+  const int heads = args.heads, hd = d / heads, dh = args.dh, hc = args.hc;
+  const Plan pl = make_plan(n, d, hd, hc, args.cn_smem, sizeof(T));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x;
+  const size_t row0 = (size_t)b * n;
+  const T* x = static_cast<const T*>(args.x) + row0 * d;
+  const T* g = static_cast<const T*>(args.g) + row0 * d;
+  const T* wqkv = static_cast<const T*>(args.wqkv);
+  const T* wout = static_cast<const T*>(args.wout);
+  const T* w1 = static_cast<const T*>(args.w1);
+  const T* w2 = static_cast<const T*>(args.w2);
+  T* cnm_g = static_cast<T*>(args.cnm) + row0 * d;
+  T* cna_g = static_cast<T*>(args.cna) + row0 * d;
+  T* gd_g = static_cast<T*>(args.gd) + row0 * d;
+  T* ctx_g = static_cast<T*>(args.ctx) + row0 * d;
+  T* h_g = static_cast<T*>(args.h) + row0 * dh;
+  T* h1b_g = static_cast<T*>(args.h1b) + row0 * dh;
+  T* qkvb_g = static_cast<T*>(args.qkvb) + row0 * 3 * d;
+  float* macc = args.macc + row0 * d;
+  float* mean = reinterpret_cast<float*>(smem + pl.mean);
+  T* gd = args.cn_smem ? reinterpret_cast<T*>(smem + pl.gd) : gd_g;
+  const float scale = (float)((double)d / (d - 1.0));
+
+  // gd = round(g * scaler); rows >= n_real are zeros
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < d; c += 32) {
+      const T v = r < n_real ? from_f<T>(to_f(g[(size_t)r * d + c]) *
+                                         args.scaler)
+                             : from_f<T>(0.0f);
+      gd[r * pl.ld_cn + c] = v;
+      if (args.cn_smem) gd_g[(size_t)r * d + c] = v;
+    }
+
+  // ---- MLP backward, over dh in chunks of hc ----
+  T* cn = args.cn_smem ? reinterpret_cast<T*>(smem + pl.cn) : cnm_g;
+  center_norm(x, args.gm, args.bm, cn, pl.ld_cn, n, d, n_real, mean);
+  __syncthreads();
+  if (args.cn_smem)
+    for (int i = threadIdx.x; i < n * d; i += kThreads)
+      cnm_g[i] = cn[(i / d) * pl.ld_cn + i % d];
+  float* st = reinterpret_cast<float*>(smem + pl.st_m);
+  float* st2 = reinterpret_cast<float*>(smem + pl.st2_m);
+  T* hb = reinterpret_cast<T*>(smem + pl.hb_m);
+  for (int c0 = 0; c0 < dh; c0 += hc) {
+    mm<false, false>(cn, pl.ld_cn, w1 + c0, dh, st, pl.ld_st_m, false, n, hc,
+                     d);
+    mm<false, true>(gd, pl.ld_cn, w2 + (size_t)c0 * d, d, st2, pl.ld_st_m,
+                    false, n, hc, d);
+    __syncthreads();
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < hc; c += 32) {
+        const float h1 = st[r * pl.ld_st_m + c];
+        const T v = from_f<T>(st2[r * pl.ld_st_m + c] * gelu_grad(h1));
+        h_g[(size_t)r * dh + c0 + c] = from_f<T>(gelu(h1));
+        h1b_g[(size_t)r * dh + c0 + c] = v;
+        hb[r * pl.ld_hb + c] = v;
+      }
+    __syncthreads();
+    mm<false, true>(hb, pl.ld_hb, w1 + c0, dh, macc, d, c0 > 0, n, d, hc);
+    __syncthreads();
+  }
+
+  // ---- attention backward, head by head ----
+  if (!args.cn_smem) cn = cna_g;
+  center_norm(x, args.ga, args.ba, cn, pl.ld_cn, n, d, n_real);
+  __syncthreads();
+  if (args.cn_smem)
+    for (int i = threadIdx.x; i < n * d; i += kThreads)
+      cna_g[i] = cn[(i / d) * pl.ld_cn + i % d];
+  st = reinterpret_cast<float*>(smem + pl.st_a);
+  float* pf = reinterpret_cast<float*>(smem + pl.pf);
+  T* pb = reinterpret_cast<T*>(smem + pl.pb);
+  T* q = reinterpret_cast<T*>(smem + pl.q);
+  T* k = reinterpret_cast<T*>(smem + pl.k);
+  T* v = reinterpret_cast<T*>(smem + pl.v);
+  T* cb = reinterpret_cast<T*>(smem + pl.cb);
+  T* const none = nullptr;  // q_bar, k_bar, v_bar go to global scratch only
+  const int ls = pl.ld_st_a, lh = pl.ld_hd;
+  for (int hh = 0; hh < heads; ++hh) {
+    T* dst[3] = {q, k, v};
+    for (int j = 0; j < 3; ++j) {
+      mm<false, false>(cn, pl.ld_cn, wqkv + j * d + hh * hd, 3 * d, st, ls,
+                       false, n, hd, d);
+      __syncthreads();
+      // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
+      round_block(st, ls, dst[j], lh, n, hd, j == 2 ? n_real : n);
+      __syncthreads();
+    }
+    mm<false, true>(q, lh, k, lh, st, ls, false, n, n, hd);
+    __syncthreads();
+    softmax_rows(st, ls, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
+                 pl.ld_pf);
+    __syncthreads();
+    mm<false, false>(pb, pl.ld_p, v, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    // ctx of this head for Wout_bar; q becomes round(q * tau) for k_bar
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, ctx_g + hh * hd, d);
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < hd; c += 32)
+        q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * args.qk_scale);
+    __syncthreads();
+    // cb = round(gd Wout[h*hd:(h+1)*hd, :]^T)
+    mm<false, true>(gd, pl.ld_cn, wout + (size_t)hh * hd * d, d, st, ls,
+                    false, n, hd, d);
+    __syncthreads();
+    round_block(st, ls, cb, lh, n, hd, n);
+    __syncthreads();
+    // v_bar = p^T cb
+    mm<true, false>(pb, pl.ld_p, cb, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + 2 * d + hh * hd,
+                3 * d);
+    __syncthreads();
+    // p_bar = cb v^T (+ JaSMin), then s_bar into pb
+    mm<false, true>(cb, lh, v, lh, st, ls, false, n, n, hd);
+    __syncthreads();
+    const size_t bh = (size_t)b * heads + hh;
+    for (int r = warp; r < n; r += kWarps) {
+      float* prow = st + r * ls;
+      const float* frow = pf + r * pl.ld_pf;
+      if (r >= n_real) {
+        for (int c = lane; c < n; c += 32)
+          pb[r * pl.ld_p + c] = from_f<T>(0.0f);
+        continue;
+      }
+      if (args.g_jas != nullptr) {
+        const float* gj = args.g_jas + bh * 5 * n;
+        const int* ji = args.jas_idx + bh * 4 * n;
+        const float g4 = gj[4 * n + r];
+        for (int c = lane; c < n_real; c += 32) {
+          const float pj = to_f(pb[r * pl.ld_p + c]);
+          const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
+          const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
+          float t = g4 * (lo * hi);
+          for (int i = 0; i < 4; ++i)
+            if (ji[i * n + r] == c) t += gj[i * n + r];
+          prow[c] += t;
+        }
+      }
+      float dot = 0.0f;
+      for (int c = lane; c < n_real; c += 32) dot += prow[c] * frow[c];
+      dot = warp_sum(dot);
+      for (int c = lane; c < n; c += 32)
+        pb[r * pl.ld_p + c] =
+            from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+    }
+    __syncthreads();
+    // q_bar = s_bar k tau, k_bar = s_bar^T round(q tau)
+    mm<false, false>(pb, pl.ld_p, k, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, args.qk_scale, qkvb_g + hh * hd,
+                3 * d);
+    __syncthreads();
+    mm<true, false>(pb, pl.ld_p, q, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + d + hh * hd, 3 * d);
+    __syncthreads();
+  }
+
+  // a_bar = [q_bar k_bar v_bar] Wqkv^T, one product over 3D
+  float* abar = reinterpret_cast<float*>(smem + pl.abar);
+  mm<false, true>(qkvb_g, 3 * d, wqkv, 3 * d, abar, pl.ld_abar, false, n, d,
+                  3 * d);
+  __syncthreads();
+
+  // norm partials of this image: (ga, ba, gm, bm) sums over real rows
+  float* np = args.npart + (size_t)b * 4 * d;
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
+    for (int r = 0; r < n_real; ++r) {
+      const float cent = (to_f(x[(size_t)r * d + c]) - mean[r]) * scale;
+      const float a = abar[r * pl.ld_abar + c];
+      const float m = macc[(size_t)r * d + c];
+      sa1 += a * cent;
+      sa0 += a;
+      sm1 += m * cent;
+      sm0 += m;
+    }
+    np[c] = sa1;
+    np[d + c] = sa0;
+    np[2 * d + c] = sm1;
+    np[3 * d + c] = sm0;
+  }
+
+  // x_bar = d/(d-1) (c_bar - mean(c_bar)); padded rows are zeros
+  T* xb = static_cast<T*>(args.xbar) + row0 * d;
+  for (int r = warp; r < n; r += kWarps) {
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32)
+      sum += abar[r * pl.ld_abar + c] * args.ga[c] +
+             macc[(size_t)r * d + c] * args.gm[c];
+    const float cm = warp_sum(sum) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float cbar = abar[r * pl.ld_abar + c] * args.ga[c] +
+                         macc[(size_t)r * d + c] * args.gm[c];
+      xb[(size_t)r * d + c] =
+          from_f<T>(r < n_real ? scale * (cbar - cm) : 0.0f);
+    }
+  }
+}
+
+// The four weight products W_bar[M, N] = A[R, M]^T G[R, N].
+struct Problem {
+  const void* a;
+  const void* g;
+  int m, n;
+  size_t out;  // offset in the flat weight buffer
+};
+
+struct Problems {
+  Problem p[4];
+  int rows, rows_per_split;
+  size_t total;  // floats of one split's partial buffer
+};
+
+__device__ inline int tiles(int m) { return (m + kTile - 1) / kTile; }
+
+// blockIdx.x: a 64x64 output tile of one problem; blockIdx.y: a slice of
+// rows. Each CTA writes its own partial tile; nothing is shared.
+__global__ void __launch_bounds__(kWThreads)
+vfb_wgrad_bf16(Problems ps, float* wpart) {
+  __shared__ __align__(128) bf16 as[kRowStep][kTile + 8];
+  __shared__ __align__(128) bf16 gs[kRowStep][kTile + 8];
+  int t = blockIdx.x, pi = 0;
+  while (t >= tiles(ps.p[pi].m) * tiles(ps.p[pi].n)) {
+    t -= tiles(ps.p[pi].m) * tiles(ps.p[pi].n);
+    ++pi;
+  }
+  const Problem pr = ps.p[pi];
+  const int tn = tiles(pr.n);
+  const int m0 = (t / tn) * kTile, n0 = (t % tn) * kTile;
+  const bf16* a = static_cast<const bf16*>(pr.a);
+  const bf16* g = static_cast<const bf16*>(pr.g);
+  const int r_begin = blockIdx.y * ps.rows_per_split;
+  const int r_end = imin(ps.rows, r_begin + ps.rows_per_split);
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+  for (int r0 = r_begin; r0 < r_end; r0 += kRowStep) {
+    for (int i = threadIdx.x; i < kRowStep * kTile; i += kWThreads) {
+      const int rr = i / kTile, cc = i % kTile, r = r0 + rr;
+      const bool in = r < r_end;
+      as[rr][cc] = in && m0 + cc < pr.m ? a[(size_t)r * pr.m + m0 + cc]
+                                        : __float2bfloat16_rn(0.0f);
+      gs[rr][cc] = in && n0 + cc < pr.n ? g[(size_t)r * pr.n + n0 + cc]
+                                        : __float2bfloat16_rn(0.0f);
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kRowStep; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], &as[kk][wm + 16 * i], kTile + 8);
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], &gs[kk][wn + 16 * j], kTile + 8);
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = wpart + blockIdx.y * ps.total + pr.out;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      const int m = m0 + wm + 16 * i, nn = n0 + wn + 16 * j;
+      if (m < pr.m && nn < pr.n)
+        wmma::store_matrix_sync(out + (size_t)m * pr.n + nn, c[i][j], pr.n,
+                                wmma::mem_row_major);
+    }
+}
+
+// The f32 version, on the CUDA cores (checks at small shapes).
+__global__ void __launch_bounds__(kWThreads)
+vfb_wgrad_f32(Problems ps, float* wpart) {
+  int t = blockIdx.x, pi = 0;
+  while (t >= tiles(ps.p[pi].m) * tiles(ps.p[pi].n)) {
+    t -= tiles(ps.p[pi].m) * tiles(ps.p[pi].n);
+    ++pi;
+  }
+  const Problem pr = ps.p[pi];
+  const int tn = tiles(pr.n);
+  const int m0 = (t / tn) * kTile, n0 = (t % tn) * kTile;
+  const float* a = static_cast<const float*>(pr.a);
+  const float* g = static_cast<const float*>(pr.g);
+  const int r_begin = blockIdx.y * ps.rows_per_split;
+  const int r_end = imin(ps.rows, r_begin + ps.rows_per_split);
+  float* out = wpart + blockIdx.y * ps.total + pr.out;
+  for (int i = threadIdx.x; i < kTile * kTile; i += kWThreads) {
+    const int m = m0 + i / kTile, nn = n0 + i % kTile;
+    if (m >= pr.m || nn >= pr.n) continue;
+    float s = 0.0f;
+    for (int r = r_begin; r < r_end; ++r)
+      s = fmaf(a[(size_t)r * pr.m + m], g[(size_t)r * pr.n + nn], s);
+    out[(size_t)m * pr.n + nn] = s;
+  }
+}
+
+// out[i] = sum over splits of wpart (weights), then sum over images of
+// npart (norms), each in a fixed order.
+__global__ void vfb_reduce(const float* wpart, int splits, size_t wtotal,
+                           const float* npart, int batch, int nlen,
+                           float* out) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < wtotal) {
+    float s = 0.0f;
+    for (int k = 0; k < splits; ++k) s += wpart[k * wtotal + i];
+    out[i] = s;
+  } else if (i < wtotal + nlen) {
+    const size_t j = i - wtotal;
+    float s = 0.0f;
+    for (int k = 0; k < batch; ++k) s += npart[(size_t)k * nlen + j];
+    out[i] = s;
+  }
+}
+
+bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
+  return heads > 0 && d % heads == 0 && d % 16 == 0 && (d / heads) % 16 == 0 &&
+         dh % 16 == 0 && n_pad % 16 == 0 && n_pad > 0 &&
+         n_pad <= 16 * kMaxRowTiles && n_real > 0 && n_real <= n_pad;
+}
+
+template <typename T>
+int launch(const Args& a, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      vfb_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return (int)err;
+  vfb_rows<T><<<a.batch, kThreads, a.smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int d = a.d, dh = a.dh;
+  Problems ps;
+  ps.p[0] = {a.cna, a.qkvb, d, 3 * d, 0};
+  ps.p[1] = {a.ctx, a.gd, d, d, (size_t)3 * d * d};
+  ps.p[2] = {a.cnm, a.h1b, d, dh, (size_t)4 * d * d};
+  ps.p[3] = {a.h, a.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
+  ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
+  ps.rows = a.batch * a.n_pad;
+  ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
+  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
+  int ntiles = 0;
+  for (const Problem& p : ps.p)
+    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
+  const dim3 grid(ntiles, a.splits);
+  if (sizeof(T) == 2)
+    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
+  else
+    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t all = ps.total + (size_t)4 * d;
+  vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
+      a.wpart, a.splits, ps.total, a.npart, a.batch, 4 * d, a.out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Chooses the plan of vfb_rows: whether cn and gd live in shared memory
+// (preferred) or in their global scratch, and the MLP chunk width.
+// Returns 0 when the shape has a plan, 1 when it has none.
+int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+             int* cn_smem_out, int* hc_out, int* smem_out) {
+  if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
+  for (int cn_smem = 1; cn_smem >= 0; --cn_smem) {
+    for (int hc : kChunks) {
+      if (dh % hc) continue;
+      const Plan p = make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes);
+      if (p.total <= (size_t)kMaxSmem) {
+        *cn_smem_out = cn_smem;
+        *hc_out = hc;
+        *smem_out = (int)p.total;
+        return 0;
+      }
+    }
+  }
+  return 1;
+}
+
+// Launches the backward (three kernels) on `stream`; returns the first
+// cudaGetLastError() that is not 0, else 0. `tbytes` is x's element size.
+int vfb_launch(int tbytes, const Args* args, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tbytes == 2 ? launch<bf16>(*args, st) : launch<float>(*args, st);
+}
+
+const char* vfb_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -10,7 +10,8 @@ from __future__ import annotations
 import threading
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"vf_eval": 0}
+launch_counts: Dict[str, int] = {
+    "vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0}
 _count_lock = threading.Lock()
 
 

@@ -1,0 +1,87 @@
+"""Differentiable fused evaluations: the kernels' forward and backward as
+``torch.autograd.Function``s.
+
+``FusedVF`` is the counterpart of ``odevit_tpu/kernels/vector_field.py::
+fused_vf`` and ``FusedVFJasmin`` of ``fused_vf_jasmin``: the forward runs
+``vf_eval`` / ``vf_eval_jasmin`` and the backward ``vf_bwd``. On a CPU
+tensor both run the plain versions; on a CUDA tensor they launch the
+kernels or raise.
+
+Both take the evaluation's float32 parameters (``params``: the two norms'
+scales and biases, then Wqkv, Wout, W1, W2 as ``[in, out]`` views) and
+the same weights already cast for the kernel (``w``, a ``VFWeights``
+made once per step). The cast happens outside the graph, but the
+gradients flow to ``params``, so they arrive in float32 as they do in
+JAX. Each Function saves x (and the statistics' columns) and recomputes
+the rest in the backward.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from odevit_tpu_torch.kernels.vector_field import (VFWeights, vf_eval,
+                                                   vf_eval_jasmin)
+from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+
+
+class FusedVF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
+                n_real: int, plain: bool, *params):
+        ctx.save_for_backward(x)
+        ctx.w = w
+        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
+                      plain=plain)
+        return vf_eval(x, w, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        bars = vf_bwd(x, ctx.w, g.contiguous(), **ctx.kw)
+        return (bars[0], None, None, None, None, None, *bars[1:])
+
+
+class FusedVFJasmin(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
+                n_real: int, jas_k: int, plain: bool, *params):
+        dx, stats, idx = vf_eval_jasmin(x, w, num_heads=num_heads,
+                                        scaler=scaler, n_real=n_real,
+                                        jas_k=jas_k, plain=plain)
+        ctx.save_for_backward(x, idx)
+        ctx.w = w
+        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
+                      plain=plain)
+        return dx, stats
+
+    @staticmethod
+    def backward(ctx, g, g_stats):
+        # autograd hands zeros for an output that took no part in the loss
+        x, idx = ctx.saved_tensors
+        bars = vf_bwd(x, ctx.w, g.contiguous(), g_jas=g_stats.contiguous(),
+                      jas_idx=idx, **ctx.kw)
+        return (bars[0], None, None, None, None, None, None, *bars[1:])
+
+
+def vf_params(vf) -> tuple:
+    """A ``ParallelVectorField``'s float32 parameters in the order the
+    Functions take them (matrices as ``[in, out]`` views)."""
+    return (vf.norm_attn.weight, vf.norm_attn.bias, vf.norm_mlp.weight,
+            vf.norm_mlp.bias, vf.attn.qkv.weight.T, vf.attn.proj.weight.T,
+            vf.mlp.fc1.weight.T, vf.mlp.fc2.weight.T)
+
+
+def fused_vf(x, w: VFWeights, params, *, num_heads: int, scaler: float,
+             n_real: int, plain: bool = False):
+    """f(x), differentiable in x and ``params``."""
+    return FusedVF.apply(x, w, num_heads, scaler, n_real, plain, *params)
+
+
+def fused_vf_jasmin(x, w: VFWeights, params, *, num_heads: int,
+                    scaler: float, n_real: int, jas_k: int,
+                    plain: bool = False):
+    """(f(x), JaSMin statistics [B, H, 5, n_pad]), differentiable in x and
+    ``params``."""
+    return FusedVFJasmin.apply(x, w, num_heads, scaler, n_real, jas_k,
+                               plain, *params)

@@ -9,6 +9,11 @@ _vf_kernel``) on a CUDA tensor, and runs its plain PyTorch version
   * ``"euler"``: ``x + dt * f(x)``, with ``f`` not rounded first;
   * ``"base"``: ``base + dt * f(x)`` (the Kutta-3/8 stage advance).
 
+``vf_eval_jasmin`` (plain version ``vf_eval_jasmin_plain``) is the same
+kernel in its JaSMin-statistics mode, the counterpart of
+``fused_vf_jasmin``: ``f(x)`` and the ``[B, H, 5, n_pad]`` order
+statistics of the attention rows, with the columns they came from.
+
 ``x`` is the padded token tensor ``[B, n_pad, D]`` (``n_pad`` a multiple of
 :data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
 attention, and whatever they hold never reaches a real token.
@@ -22,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.losses.jasmin import jasmin_order_stats
 from odevit_tpu_torch.ops.dot import dot32
 
 # Token-axis padding granularity (the TPU package pads to the same 16).
@@ -75,12 +81,11 @@ def _check(x, w: VFWeights, num_heads, n_real, mode, base):
         raise ValueError(f"base {tuple(base.shape)} != x {tuple(x.shape)}")
 
 
-def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
-                  n_real: int, mode: str = "plain", dt: float = 0.0,
-                  base=None):
-    """The kernel's arithmetic in plain PyTorch, rounding where it rounds
-    (qkv is rounded to the compute dtype before the heads are sliced)."""
-    _check(x, w, num_heads, n_real, mode, base)
+def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
+                 n_real: int):
+    """(f(x) in float32, p [B, H, n, n] in the compute dtype), rounding
+    where the kernel rounds (qkv is rounded before the heads are
+    sliced)."""
     b, n, d = x.shape
     hd = d // num_heads
     dtype = x.dtype
@@ -102,20 +107,56 @@ def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                                                  device=x.device))
     ctx = dot32(p, v).to(dtype).transpose(1, 2).reshape(b, n, d)
     attn_o = dot32(ctx, w.wout)
+    return (mlp_o + attn_o) * scaler, p
 
-    f = (mlp_o + attn_o) * scaler
+
+def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                  n_real: int, mode: str = "plain", dt: float = 0.0,
+                  base=None):
+    """The kernel's arithmetic in plain PyTorch."""
+    _check(x, w, num_heads, n_real, mode, base)
+    f, _ = _field_plain(x, w, num_heads, scaler, n_real)
     if mode == "euler":
-        f = xf + dt * f
+        f = x.float() + dt * f
     elif mode == "base":
         f = base.float() + dt * f
-    return f.to(dtype)
+    return f.to(x.dtype)
+
+
+def _check_jasmin(n_real: int, jas_k: int):
+    kk = max(jas_k, 1) + 1
+    if n_real < kk:
+        raise ValueError(f"JaSMin statistics for k={jas_k} need at least "
+                         f"{kk} real tokens, got {n_real}")
+    return kk
+
+
+def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                         n_real: int, jas_k: int):
+    """(f(x), stats, idx): the kernel's JaSMin-statistics mode in plain
+    PyTorch. ``stats`` [B, H, 5, n_pad] f32 holds, per query row (last
+    axis), the 1st, 2nd, k-th and (k+1)-th largest p of the real keys and
+    the row sum of clip(p, 1e-12, 1); ``idx`` [B, H, 4, n_pad] int32 the
+    columns of the first four (first occurrence among ties). Padded query
+    rows hold zeros."""
+    _check(x, w, num_heads, n_real, "plain", None)
+    _check_jasmin(n_real, jas_k)
+    f, p = _field_plain(x, w, num_heads, scaler, n_real)
+    stats, idx = jasmin_order_stats(p[..., :n_real], jas_k,
+                                    return_indices=True)
+    query = torch.arange(x.shape[1], device=x.device) < n_real
+    stats = torch.where(query, stats, torch.zeros((), device=x.device))
+    idx = torch.where(query, idx, torch.zeros((), dtype=idx.dtype,
+                                              device=x.device))
+    return f.to(x.dtype), stats.contiguous(), idx.contiguous()
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
     lib.vf_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
     lib.vf_plan.restype = i
-    lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9 + [f, f, f, i, p])
+    lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9
+                              + [f, f, f, i, p, p, i, p])
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
     lib.vf_error_string.restype = ctypes.c_char_p
@@ -151,21 +192,9 @@ def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return fused.value, hc.value, smem.value
 
 
-def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
-            mode: str = "plain", dt: float = 0.0, base=None,
-            plain: bool = False):
-    """One vector-field evaluation (see the module docstring).
-
-    A CUDA tensor launches the kernel; a CPU tensor runs
-    :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
-    GPU too: it exists for comparisons, and the main path never sets it.
-    """
-    if plain or x.device.type == "cpu":
-        return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
-                             n_real=n_real, mode=mode, dt=dt, base=base)
-    _check(x, w, num_heads, n_real, mode, base)
+def _check_launch(x, w: VFWeights, base=None):
     if x.device.type != "cuda":
-        raise ValueError(f"vf_eval runs on CUDA or CPU, not {x.device}")
+        raise ValueError(f"the kernel runs on CUDA or CPU, not {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernel takes bfloat16 or float32, not {x.dtype}")
     tensors = {"x": x, **w._asdict()}
@@ -181,20 +210,67 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
             raise ValueError(f"{name} is not contiguous")
         if t.data_ptr() % 32:
             raise ValueError(f"{name} is not 32-byte aligned")
+
+
+def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
+            jas_kk=0):
     b, n, d = x.shape
     dh = w.w1.shape[1]
     plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh)
     out = torch.empty_like(x)
     # f32: the kernel accumulates mlp_o + attn_o in the output buffer
     acc = out.data_ptr() if x.dtype == torch.float32 else None
+    stats = idx = None
+    if jas_kk:
+        stats = torch.empty(b, num_heads, 5, n, device=x.device)
+        idx = torch.empty(b, num_heads, 4, n, device=x.device,
+                          dtype=torch.int32)
     err = _library().vf_launch(
         x.element_size(), x.data_ptr(),
         base.data_ptr() if base is not None else None, out.data_ptr(), acc,
         *(t.data_ptr() for t in w), b, n, n_real, d, num_heads, dh, *plan,
         scaler, dt, (d // num_heads) ** -0.5, MODES[mode],
+        stats.data_ptr() if jas_kk else None,
+        idx.data_ptr() if jas_kk else None, jas_kk,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("vector-field kernel launch failed: "
                            + _library().vf_error_string(err).decode())
+    return out, stats, idx
+
+
+def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
+            mode: str = "plain", dt: float = 0.0, base=None,
+            plain: bool = False):
+    """One vector-field evaluation (see the module docstring).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs
+    :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
+    GPU too: it exists for comparisons, and the main path never sets it.
+    """
+    if plain or x.device.type == "cpu":
+        return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
+                             n_real=n_real, mode=mode, dt=dt, base=base)
+    _check(x, w, num_heads, n_real, mode, base)
+    _check_launch(x, w, base)
+    out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                        n_real=n_real, mode=mode, dt=dt, base=base)
     count_launch("vf_eval")
+    return out
+
+
+def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
+                   n_real: int, jas_k: int, plain: bool = False):
+    """(f(x), stats, idx) in one launch of the kernel's JaSMin-statistics
+    mode (see :func:`vf_eval_jasmin_plain` for the layout). A CPU tensor,
+    or ``plain=True``, runs the plain version."""
+    if plain or x.device.type == "cpu":
+        return vf_eval_jasmin_plain(x, w, num_heads=num_heads, scaler=scaler,
+                                    n_real=n_real, jas_k=jas_k)
+    _check(x, w, num_heads, n_real, "plain", None)
+    kk = _check_jasmin(n_real, jas_k)
+    _check_launch(x, w)
+    out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
+                  mode="plain", dt=0.0, base=None, jas_kk=kk)
+    count_launch("vf_eval_jasmin")
     return out

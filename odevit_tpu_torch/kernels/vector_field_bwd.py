@@ -1,0 +1,259 @@
+"""Backward of one fused vector-field evaluation.
+
+``vf_bwd`` launches the CUDA kernels of ``csrc/vector_field_bwd.cu`` (the
+counterpart of the TPU kernel ``odevit_tpu/kernels/vector_field_bwd.py::
+_vf_bwd_kernel``) on a CUDA tensor, and runs its plain PyTorch version
+``vf_bwd_plain`` on a CPU tensor. Both take the forward's input ``x``, its
+weights, the cotangent ``g`` of f(x) and, for an evaluation of the
+JaSMin-statistics mode, the cotangent ``g_jas`` of its statistics with the
+columns ``jas_idx`` the forward took them from. They return the 9
+cotangents (x_bar in x's dtype; the norms' and weights' in float32):
+
+    (x_bar, norm_attn_scale, norm_attn_bias, norm_mlp_scale, norm_mlp_bias,
+     wqkv, wout, w1, w2)
+
+Rows ``>= n_real`` of ``x`` and ``g`` are read as zeros and those of
+``x_bar`` are zeros, so nothing a padded row holds reaches a cotangent.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels.vector_field import (VFWeights, _check,
+                                                   _check_launch)
+from odevit_tpu_torch.ops.dot import dot32
+
+# SMs of an H100: the weight products are split over rows so that about
+# four CTAs per SM are in flight
+_SMS = 132
+
+
+def _gelu_grad(v):
+    return (0.5 * (1.0 + torch.erf(v * 2.0 ** -0.5))
+            + v * 0.3989422804014327 * torch.exp(-0.5 * v * v))
+
+
+def _jas_pbar(pb, g_jas, jas_idx, n_real: int):
+    """The JaSMin statistics' cotangent as a p_bar term [B, H, n, n]: row 4
+    (the clipped row sum) through clip's subgradient (0.5 at either bound,
+    as JAX gives it), rows 0..3 onto the saved columns."""
+    n = pb.shape[-1]
+    pj = pb.float()
+    lo = ((pj >= 1e-12).float() + (pj > 1e-12).float()) * 0.5
+    hi = ((pj <= 1.0).float() + (pj < 1.0).float()) * 0.5
+    key = torch.arange(n, device=pb.device) < n_real
+    t = torch.where(key, g_jas[:, :, 4, :, None] * (lo * hi),
+                    torch.zeros((), device=pb.device))
+    for i in range(4):
+        idx = jas_idx[:, :, i, :].long()
+        ok = (idx >= 0) & (idx < n_real)
+        t = t.scatter_add(-1, idx.clamp(0, n - 1)[..., None],
+                          torch.where(ok, g_jas[:, :, i, :], 0.0)[..., None])
+    query = (torch.arange(n, device=pb.device) < n_real)[:, None]
+    return torch.where(query, t, torch.zeros((), device=pb.device))
+
+
+def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
+                 n_real: int, g_jas=None, jas_idx=None):
+    """The kernels' arithmetic in plain PyTorch: the forward recomputed,
+    then the MLP, attention and CenterNorm backward, rounding to x's
+    dtype where the TPU kernel rounds."""
+    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx)
+    b, n, d = x.shape
+    hd = d // num_heads
+    tau = hd ** -0.5
+    dtype = x.dtype
+    zero = torch.zeros((), device=x.device)
+    row = (torch.arange(n, device=x.device) < n_real)[:, None]
+    xf = torch.where(row, x.float(), zero)
+    cent = (xf - xf.mean(-1, keepdim=True)) * (d / (d - 1.0))
+    cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
+    cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
+    gd = torch.where(row, g.float() * scaler, zero).to(dtype)
+
+    def t2(a):                      # [b, n, c] -> [b*n, c]
+        return a.reshape(b * n, a.shape[-1])
+
+    # MLP
+    h1 = dot32(cn_m, w.w1)
+    h = torch.nn.functional.gelu(h1).to(dtype)
+    h1_bar = (dot32(gd, w.w2.T) * _gelu_grad(h1)).to(dtype)
+    m_bar = dot32(h1_bar, w.w1.T)
+    w2_bar = dot32(t2(h).T, t2(gd))
+    w1_bar = dot32(t2(cn_m).T, t2(h1_bar))
+
+    # attention
+    qkv = dot32(cn_a, w.wqkv).to(dtype)
+    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    key = torch.arange(n, device=x.device) < n_real
+    v = torch.where(key[:, None], v, torch.zeros((), dtype=dtype,
+                                                 device=x.device))
+    s = (q.float() * tau) @ k.float().transpose(-1, -2)
+    pf = torch.softmax(s.masked_fill(~key, float("-inf")), dim=-1)
+    pb = pf.to(dtype)
+
+    def merge(a):                   # [b, H, n, hd] -> [b, n, d]
+        return a.transpose(1, 2).reshape(b, n, d)
+
+    ctx = merge(dot32(pb, v).to(dtype))
+    cb = dot32(gd, w.wout.T).to(dtype).reshape(
+        b, n, num_heads, hd).transpose(1, 2)
+    v_bar = dot32(pb.transpose(-1, -2), cb).to(dtype)
+    p_bar = dot32(cb, v.transpose(-1, -2))
+    if g_jas is not None:
+        p_bar = p_bar + _jas_pbar(pb, g_jas, jas_idx, n_real)
+    s_bar = pf * (p_bar - (p_bar * pf).sum(-1, keepdim=True))
+    s_bar = torch.where(key & row, s_bar, zero).to(dtype)
+    q_bar = (dot32(s_bar, k) * tau).to(dtype)
+    k_bar = dot32(s_bar.transpose(-1, -2),
+                  (q.float() * tau).to(dtype)).to(dtype)
+    qkv_bar = torch.cat([merge(q_bar), merge(k_bar), merge(v_bar)], -1)
+    a_bar = dot32(qkv_bar, w.wqkv.T)
+    wqkv_bar = dot32(t2(cn_a).T, t2(qkv_bar))
+    wout_bar = dot32(t2(ctx).T, t2(gd))
+
+    # CenterNorm
+    c_bar = a_bar * w.norm_attn_scale + m_bar * w.norm_mlp_scale
+    x_bar = (d / (d - 1.0)) * (c_bar - c_bar.mean(-1, keepdim=True))
+    x_bar = torch.where(row, x_bar, zero).to(dtype)
+    return (x_bar, (a_bar * cent).sum((0, 1)), a_bar.sum((0, 1)),
+            (m_bar * cent).sum((0, 1)), m_bar.sum((0, 1)),
+            wqkv_bar, wout_bar, w1_bar, w2_bar)
+
+
+def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx):
+    _check(x, w, num_heads, n_real, "plain", None)
+    if g.shape != x.shape:
+        raise ValueError(f"g {tuple(g.shape)} != x {tuple(x.shape)}")
+    if (g_jas is None) != (jas_idx is None):
+        raise ValueError("g_jas and jas_idx come together")
+    if g_jas is not None:
+        b, n, _ = x.shape
+        want = {"g_jas": (g_jas, (b, num_heads, 5, n)),
+                "jas_idx": (jas_idx, (b, num_heads, 4, n))}
+        for name, (t, shape) in want.items():
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                                 f"expected {shape}")
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
+        "w1", "w2", "xbar", "cnm", "cna", "gd", "ctx", "h", "h1b", "qkvb",
+        "macc", "npart", "wpart", "out")]
+        + [(name, ctypes.c_int) for name in (
+            "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
+            "smem", "splits")]
+        + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float)])
+
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from odevit_tpu_torch.kernels import build
+        lib = build.load("vector_field_bwd")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.vfb_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+        lib.vfb_plan.restype = i
+        lib.vfb_launch.argtypes = [i, ctypes.POINTER(_Args), p]
+        lib.vfb_launch.restype = i
+        lib.vfb_error_string.argtypes = [i]
+        lib.vfb_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+             dh: int):
+    """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
+    of the per-image kernel; raises if the shape has no plan."""
+    cn_smem, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    tbytes = torch.empty((), dtype=dtype).element_size()
+    if _library().vfb_plan(tbytes, n_pad, n_real, d, num_heads, dh,
+                           ctypes.byref(cn_smem), ctypes.byref(hc),
+                           ctypes.byref(smem)):
+        raise ValueError(
+            f"no one-image-per-CTA backward plan for n_pad={n_pad}, D={d}, "
+            f"{num_heads} heads, dh={dh} in {dtype}")
+    return cn_smem.value, hc.value, smem.value
+
+
+def weight_splits(rows: int, d: int, dh: int) -> int:
+    """Slices of rows the weight products are split into: enough CTAs for
+    about four per SM, each slice at least 256 rows. Fixed by the shape,
+    so the reduction order, and the result, are the same every run."""
+    t = lambda m: -(-m // 64)
+    tiles = (t(d) * t(3 * d) + t(d) * t(d) + t(d) * t(dh) + t(dh) * t(d))
+    return max(1, min(math.ceil(4 * _SMS / tiles), rows // 256))
+
+
+def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
+           n_real: int, g_jas=None, jas_idx=None, plain: bool = False):
+    """The 9 cotangents of one evaluation (see the module docstring). A
+    CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
+    runs :func:`vf_bwd_plain`."""
+    if plain or x.device.type == "cpu":
+        return vf_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
+                            n_real=n_real, g_jas=g_jas, jas_idx=jas_idx)
+    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx)
+    _check_launch(x, w)
+    extra = {"g": (g, x.dtype)}
+    if g_jas is not None:
+        extra.update(g_jas=(g_jas, torch.float32),
+                     jas_idx=(jas_idx, torch.int32))
+    for name, (t, dtype) in extra.items():
+        if t.device != x.device or t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, the kernel "
+                            f"takes {dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    b, n, d = x.shape
+    dh = w.w1.shape[1]
+    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
+    rows = b * n
+    splits = weight_splits(rows, d, dh)
+    wtotal = 4 * d * d + 2 * d * dh
+
+    def scratch(width, dtype=x.dtype):
+        return torch.empty(rows, width, device=x.device, dtype=dtype)
+
+    bufs = {"xbar": torch.empty_like(x), "cnm": scratch(d),
+            "cna": scratch(d), "gd": scratch(d), "ctx": scratch(d),
+            "h": scratch(dh), "h1b": scratch(dh), "qkvb": scratch(3 * d),
+            "macc": scratch(d, torch.float32),
+            "npart": torch.empty(b, 4, d, device=x.device),
+            "wpart": torch.empty(splits, wtotal, device=x.device),
+            "out": torch.empty(wtotal + 4 * d, device=x.device)}
+    args = _Args(
+        x=x.data_ptr(), g=g.data_ptr(),
+        g_jas=g_jas.data_ptr() if g_jas is not None else None,
+        jas_idx=jas_idx.data_ptr() if jas_idx is not None else None,
+        ga=w.norm_attn_scale.data_ptr(), ba=w.norm_attn_bias.data_ptr(),
+        gm=w.norm_mlp_scale.data_ptr(), bm=w.norm_mlp_bias.data_ptr(),
+        wqkv=w.wqkv.data_ptr(), wout=w.wout.data_ptr(),
+        w1=w.w1.data_ptr(), w2=w.w2.data_ptr(),
+        **{name: t.data_ptr() for name, t in bufs.items()},
+        batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads, dh=dh,
+        cn_smem=cn_smem, hc=hc, smem=smem, splits=splits, scaler=scaler,
+        qk_scale=(d // num_heads) ** -0.5)
+    err = _library().vfb_launch(
+        x.element_size(), ctypes.byref(args),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError("vector-field backward launch failed: "
+                           + _library().vfb_error_string(err).decode())
+    count_launch("vf_bwd")
+    out = bufs["out"]
+    sizes = [3 * d * d, d * d, d * dh, dh * d, d, d, d, d]
+    wqkv, wout, w1, w2, ga, ba, gm, bm = torch.split(out, sizes)
+    return (bufs["xbar"], ga, ba, gm, bm, wqkv.view(d, 3 * d),
+            wout.view(d, d), w1.view(d, dh), w2.view(dh, d))

@@ -100,5 +100,18 @@ def test_missing_compiler_raises(tmp_path, monkeypatch):
         build.build(["vector_field"])
 
 
+def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
+    """The backward includes the forward's source, so a library's name
+    hashes every source: an edit of one renames both libraries."""
+    (tmp_path / "a.cu").write_text("int a;\n")
+    (tmp_path / "b.cu").write_text('#include "a.cu"\n')
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    assert before["a"] != before["b"]
+    (tmp_path / "a.cu").write_text("int a = 1;\n")
+    for name, path in before.items():
+        assert build.library_path(name) != path
+
+
 def test_the_only_source_is_listed():
-    assert set(build.sources()) == {"vector_field"}
+    assert set(build.sources()) == {"vector_field", "vector_field_bwd"}

@@ -90,3 +90,31 @@ def test_nfe_and_stage_counts():
         num_stages("dopri5")
     with pytest.raises(ValueError):
         make_step("bogus")
+
+
+@pytest.mark.parametrize("method", sorted(METHOD_STAGES))
+def test_step_aux_matches_jax(method):
+    """has_aux: one aux per evaluation, stacked along the stage axis in
+    evaluation order, as JAX's make_step(has_aux=True) returns them."""
+    from odevit_tpu.core.integrators import make_step as jax_make_step
+    y0 = np.random.default_rng(2).standard_normal((3, 6)).astype(np.float32)
+
+    def tf(t, y):
+        dy = torch_f(t, y)
+        return dy, dy.sum(-1)
+
+    def jf(t, y):
+        dy = jax_f(t, y)
+        return dy, dy.sum(-1)
+
+    y, aux = make_step(method, has_aux=True)(tf, torch.from_numpy(y0),
+                                             0.25, 0.5)
+    want_y, want_aux = jax_make_step(method, has_aux=True)(
+        jf, jnp.asarray(y0), jnp.float32(0.25), jnp.float32(0.5))
+    assert aux.shape == (num_stages(method), 3)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), atol=1e-6,
+                               rtol=1e-5)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), atol=1e-6,
+                               rtol=1e-5)
+    assert torch.equal(y, make_step(method)(torch_f, torch.from_numpy(y0),
+                                            0.25, 0.5))
