@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drives the PyTorch/CUDA port's serving path once on one GPU and checks it.
+"""Drives the PyTorch/CUDA port's main paths once on one GPU and checks them.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -27,8 +27,21 @@ Phases:
      and through the plain path from the same weights; losses and the
      first gradient compared, launches counted, steps timed;
   7. the training kernels alone at B=1024 against their plain versions;
-  8. the kernels line (launch counts of the main paths, times, bounds) and
-     the result line.
+  8. distillation kernels vs plain: the tiled route at the TS-Base shape
+     (B=4, 207 tokens padded to 208, D=768, 12 heads, dh=768), in bf16 and
+     f32: the forward in its plain, JaSMin (k=2) and attention-map modes,
+     the backward with the dx cotangent, the JaSMin cotangent and the
+     map cotangent, against their plain versions; statistics' columns on
+     real keys, repeated backwards bit-identical, NaN padding inert;
+  9. distillation main path (cell tsref-distill-b64-bf16): 3 steps of
+     ``make_fast_distill_train_step`` (224 px TS-Base student, ViT-B/16
+     teacher, Euler on 36 points, JaSMin k=2, L1 attention loss,
+     supervised, B=64, bf16) through the kernels and through the plain
+     path; losses and the first gradient compared, launches counted, the
+     step timed and split, one step profiled;
+  10. the tiled kernels alone at B=64 against their plain versions;
+  11. the kernels line (launch counts of the main paths, times, bounds)
+     and the result line.
 
 Exits non-zero, printing no result line, when a phase fails or when there
 is no CUDA device.
@@ -204,21 +217,23 @@ def phase_kernel_vs_plain(model):
                             "rel_err": err, "tol": tol})
             check(err <= tol, f"small {dtype} {mode}: rel err {err} > {tol}")
     # a shape without a one-image-per-CTA plan (the 224 px TS-Base
-    # evaluation: 207 tokens, D=768, 12 heads) raises; nothing falls back
+    # evaluation: 207 tokens, D=768, 12 heads) takes the tiled route, which
+    # has no Euler mode: it raises, and nothing falls back
     big = torch.zeros(1, 208, 768, device="cuda", dtype=torch.bfloat16)
     wb = VFWeights(*(torch.zeros(*s, device="cuda") for s in [(768,)] * 4),
                    *(torch.zeros(*s, device="cuda", dtype=torch.bfloat16)
                      for s in ((768, 2304), (768, 768), (768, 768),
                                (768, 768))))
-    before = launch_counts["vf_eval"]
+    before = dict(launch_counts)
     try:
-        vf_eval(big, wb, num_heads=12, scaler=12.0, n_real=207)
-    except ValueError as e:
-        results.append({"shape": "B=1 n=207/208 D=768 H=12 dh=768",
+        vf_eval(big, wb, num_heads=12, scaler=12.0, n_real=207,
+                mode="euler", dt=0.1)
+    except NotImplementedError as e:
+        results.append({"shape": "B=1 n=207/208 D=768 H=12 dh=768 euler",
                         "raised": str(e)[:80]})
     else:
-        raise SmokeFailure("a shape without a plan did not raise")
-    check(launch_counts["vf_eval"] == before, "unplanned shape launched")
+        raise SmokeFailure("euler mode on the tiled route did not raise")
+    check(launch_counts == before, "an unported route launched")
     emit("kernel_vs_plain", results=results)
 
 
@@ -343,17 +358,20 @@ def phase_serving(model, rng):
 
 
 def bwd_bound(b: int, n_real: int, d: int, dh: int, heads: int,
-              itemsize: int):
+              itemsize: int, map_cotangent: bool = False):
     """(bound_ms, bound_by) of one backward: the recomputed forward
     products (h1, qkv, q k^T, p v) and two products for each product of
     the forward, at the real token count, over the bf16 peak; against x
     and g in, x_bar out, the weights in and the 8 float32 cotangents out,
-    plus the JaSMin cotangent and columns, over the memory rate."""
+    plus the JaSMin cotangent and columns (and with ``map_cotangent`` the
+    maps' cotangent), over the memory rate."""
     flops = b * (n_real * (10 * d * dh + 22 * d * d)
                  + 12 * n_real * n_real * d)
     weights = 4 * d * d + 2 * d * dh
     nbytes = ((3 * b * n_real * d + weights) * itemsize
               + (weights + 4 * d) * 4 + b * heads * n_real * (5 + 4) * 4)
+    if map_cotangent:
+        nbytes += b * heads * n_real * n_real * itemsize
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
@@ -592,7 +610,10 @@ def phase_train(images_u8, rng):
           "non-finite training loss")
     check(max(loss_rel) <= TOL_TRAIN_LOSS, f"training losses: {loss_rel}")
     check(cos >= MIN_GRAD_COSINE, f"first gradient cosine {cos}")
-    want = {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48}
+    # the CIFAR shape keeps the one-image-per-CTA kernels: the tiled
+    # route's counters stay at 0
+    want = {**{n: 0 for n in per_step}, "vf_eval": 36, "vf_eval_jasmin": 12,
+            "vf_bwd": 48}
     check(per_step == want, f"launches per step {per_step}, want {want}")
     return k["launches"], runs
 
@@ -660,6 +681,336 @@ def phase_train_kernel_timing(model, images_u8):
          f"dh=768 bf16", results=out)
     return out
 
+# --- distillation slice: the tiled route at the TS-Base shape -----------
+
+DISTILL_BATCH = 64
+DISTILL_K = 2                      # the recipe's jasmin_k
+# the tiled route's counters on the distillation main path, per step:
+# 5 plain evaluations before the JaSMin window, 29 in it, the final
+# evaluation with its maps, and 35 backwards
+DISTILL_LAUNCHES = {"vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0,
+                    "vf_eval_tiled": 5, "vf_eval_jasmin_tiled": 29,
+                    "vf_eval_attn": 1, "vf_bwd_tiled": 35}
+
+
+def attn_bound(b: int, n_real: int, d: int, dh: int, heads: int,
+               itemsize: int):
+    """(bound_ms, bound_by) of one attention-map evaluation: the forward's
+    operations, against its bytes plus the maps written."""
+    t_ops, _ = vf_bound(b, n_real, d, dh, itemsize)
+    nbytes = ((2 * b * n_real * d + 4 * d * d + 2 * d * dh
+               + b * heads * n_real * n_real) * itemsize + 16 * d)
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def distill_case(b, dtype, kind, g):
+    """Inputs of one TS-Base evaluation: a padded state (with "ties", six
+    tokens copied from one), its cotangent, a JaSMin cotangent and a map
+    cotangent, zero on padded rows."""
+    import torch
+    n_real, n_pad, d, heads = 207, 208, 768, 12
+    x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+    if kind == "ties":
+        x[:, 5:11] = x[:, 5:6]
+    x[:, n_real:] = 0
+    gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+    gx[:, n_real:] = 0
+    gj = torch.randn(b, heads, 5, n_pad, generator=g, device="cuda") * 1e-2
+    gj[..., n_real:] = 0
+    ga = torch.randn(b, heads, n_pad, n_pad, generator=g, device="cuda")
+    ga = ga * 1e-2
+    ga[:, :, n_real:] = 0
+    ga[..., n_real:] = 0
+    return x.to(dtype), gx.to(dtype), gj, ga.to(dtype)
+
+
+def phase_distill_kernels_vs_plain(model):
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    from odevit_tpu_torch.kernels.tiled import tiled_plan
+    names = ("x", "norm_attn_scale", "norm_attn_bias", "norm_mlp_scale",
+             "norm_mlp_bias", "wqkv", "wout", "w1", "w2")
+    b, n_real, n_pad = 4, model.patch_embed.seq_len, 208
+    check(n_real == 207, f"TS-Base has 207 tokens, got {n_real}")
+    kw = dict(num_heads=12, scaler=model.vf.scaler, n_real=n_real)
+    kk = DISTILL_K + 1
+    ranks = (0, 1, kk - 2, kk - 1)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    before = dict(launch_counts)
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w = model.vf.kernel_weights(dtype)
+        for kind in ("random", "ties"):
+            x, gx, gj, ga = distill_case(b, dtype, kind, g)
+            r = {"dtype": str(dtype), "case": kind, "tol": tol,
+                 "shape": f"B={b} n={n_real}/{n_pad} D=768 H=12 dh=768",
+                 "plan": tiled_plan(dtype, n_pad, n_real, 768, 12, 768)}
+            counts = dict(launch_counts)
+            dx = vf_eval(x, w, **kw)
+            jdx, st, idx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw)
+            adx, amap = vf_eval_attn(x, w, **kw)
+            pdx = vf_eval(x, w, plain=True, **kw)
+            _, pst, _ = vf_eval_jasmin(x, w, jas_k=DISTILL_K, plain=True,
+                                       **kw)
+            _, pmap = vf_eval_attn(x, w, plain=True, **kw)
+            torch.cuda.synchronize()
+            routed = {k: launch_counts[k] - counts[k] for k in counts}
+            check(routed["vf_eval_tiled"] == 1
+                  and routed["vf_eval_jasmin_tiled"] == 1
+                  and routed["vf_eval_attn"] == 1
+                  and routed["vf_eval"] == routed["vf_eval_jasmin"] == 0,
+                  f"the forward did not take the tiled route: {routed}")
+            r["route"] = "tiled"
+            r["fwd"] = {
+                "plain_dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                "jasmin_dx": rel_err(jdx[:, :n_real], pdx[:, :n_real]),
+                "jasmin_stats": rel_err(st[..., :n_real], pst[..., :n_real]),
+                "attn_dx": rel_err(adx[:, :n_real], pdx[:, :n_real]),
+                "attn_map": rel_err(amap, pmap)}
+            check(max(r["fwd"].values()) <= tol,
+                  f"tiled fwd {dtype} {kind}: {r['fwd']}")
+            check(not amap[:, :, n_real:].any() and not amap[..., n_real:]
+                  .any(), "the map is not zero on padded rows and keys")
+            # each statistic's column is a real key; the columns of
+            # different ranks differ, those of one rank agree
+            cols = idx[..., :n_real].long()
+            ok = (cols >= 0) & (cols < n_real)
+            for i in range(4):
+                for j in range(4):
+                    if i != j:
+                        same = cols[:, :, i] == cols[:, :, j]
+                        ok[:, :, i] &= same if ranks[i] == ranks[j] \
+                            else ~same
+            r["scatter"] = {"entries": cols.numel(),
+                            "hit_once": int(ok.sum())}
+            check(r["scatter"]["hit_once"] == r["scatter"]["entries"],
+                  f"tiled jasmin columns {dtype} {kind}: {r['scatter']}")
+            for case, extra in (("g", {}),
+                                ("g_jas", dict(g_jas=gj, jas_idx=idx)),
+                                ("g_attn", dict(g_attn=ga))):
+                counts = dict(launch_counts)
+                got = vf_bwd(x, w, gx, **kw, **extra)
+                again = vf_bwd(x, w, gx, **kw, **extra)
+                want = vf_bwd(x, w, gx, plain=True, **kw, **extra)
+                torch.cuda.synchronize()
+                check(launch_counts["vf_bwd_tiled"] - counts["vf_bwd_tiled"]
+                      == 2 and launch_counts["vf_bwd"] == counts["vf_bwd"],
+                      f"the backward ({case}) did not take the tiled route")
+                errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                    b_[:, :n_real] if nm == "x" else b_)
+                        for nm, a, b_ in zip(names, got, want)}
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                r["bwd_" + case] = errs
+                r["repeat_bit_identical_" + case] = same
+                check(max(errs.values()) <= tol,
+                      f"tiled bwd {dtype} {kind} {case}: {errs}")
+                check(same, f"tiled bwd {dtype} {kind} {case} not "
+                      f"repeatable")
+            if kind == "random":
+                # NaN and garbage in padded rows (and in the padded rows
+                # and keys of the map cotangent) change no real row
+                dirty = x.clone()
+                dirty[:, n_real:] = float("nan")
+                gdirty = gx.clone()
+                gdirty[:, n_real:] = 1e30
+                adirty = ga.clone()
+                adirty[:, :, n_real:] = float("nan")
+                adirty[..., n_real:] = 7.0
+                ddx, dmap = vf_eval_attn(dirty, w, **kw)
+                _, dst, didx = vf_eval_jasmin(dirty, w, jas_k=DISTILL_K, **kw)
+                dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx,
+                               g_attn=adirty, **kw)
+                cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, g_attn=ga,
+                               **kw)
+                torch.cuda.synchronize()
+                same = (torch.equal(ddx[:, :n_real], adx[:, :n_real])
+                        and torch.equal(dmap, amap) and torch.equal(dst, st)
+                        and torch.equal(didx, idx)
+                        and all(torch.equal(a, c)
+                                for a, c in zip(dbars, cbars)))
+                r["nan_padding_unchanged"] = same
+                check(same, f"{dtype}: padded rows reached a real row on "
+                      f"the tiled route")
+            results.append(r)
+    launch_counts.update(before)           # comparisons do not count
+    emit("distill_kernels_vs_plain", results=results)
+
+
+def distill_student():
+    """The recipe's TS-Base student (224 px, patch 16, D=768, 12 heads,
+    mlp 1.0, 10 registers, Euler on 36 points), bf16, from seed 0."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    return ViTODE.base_224(num_classes=100, dtype=torch.bfloat16,
+                           device="cuda", seed=0)
+
+
+def phase_distill(teacher, images_u8, labels):
+    """Cell tsref-distill-b64-bf16: 3 steps through the kernels and through
+    the plain path from the same student weights, teacher and batch; then
+    one more step of the kernel path split by CUDA events into teacher,
+    student forward, backward and optimizer, and one profiled step."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.train.fast_steps import (
+        fast_distill_forward, make_fast_distill_train_step)
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    pre = make_preprocess(dtype=torch.bfloat16)
+    batch = {"pixel_values": images_u8, "labels": labels}
+    recipe = dict(lambda_param=0.5, jasmin_k=DISTILL_K, temperature=3.0,
+                  use_kl_loss=False, mse_full_path=True)
+    runs = {}
+    for path in ("kernels", "plain"):
+        model = distill_student()
+        state = create_train_state(model, make_optimizer(1e-4))
+        step = make_fast_distill_train_step(model, teacher,
+                                            preprocess_fn=pre,
+                                            plain=path == "plain", **recipe)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "kernels":
+            reset_launch_counts()
+        losses, ms, metrics, first_grad = [], [], None, None
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, supervise=True)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            if i == 0:
+                first_grad = grad_vector(model)
+        launches = dict(launch_counts) if path == "kernels" else None
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        x = pre(images_u8)
+        with torch.no_grad():
+            t_out = teacher(x)
+        ev[1].record()
+        loss, _ = fast_distill_forward(
+            model, x, labels, t_out["hidden_states"][1:],
+            t_out["attentions"][-1], supervise=True, plain=path == "plain",
+            **recipe)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        state.apply_gradients()
+        ev[4].record()
+        torch.cuda.synchronize()
+        if path == "kernels":
+            profile = profile_step(lambda s, b: step(s, b, supervise=True),
+                                   state, batch)
+        runs[path] = {
+            "loss": losses, "ms_per_step": ms,
+            "img_per_s": DISTILL_BATCH / min(ms[1:]) * 1e3,
+            "metrics_last": {k: v.item() for k, v in metrics.items()
+                             if not k.startswith("mse_loss_t@")},
+            "peak_mem_gb": peak,
+            "split_ms": {"teacher": ev[0].elapsed_time(ev[1]),
+                         "forward": ev[1].elapsed_time(ev[2]),
+                         "backward": ev[2].elapsed_time(ev[3]),
+                         "optimizer": ev[3].elapsed_time(ev[4])},
+            "launches": launches, "first_grad": first_grad}
+        del model, state, step
+    k, p = runs["kernels"], runs["plain"]
+    cos = torch.nn.functional.cosine_similarity(
+        k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
+    per_step = {n: c / TRAIN_STEPS for n, c in k["launches"].items()}
+    emit("distill_profile", **profile)
+    emit("distill", cell="tsref-distill-b64-bf16", batch=DISTILL_BATCH,
+         steps=TRAIN_STEPS, solver="euler-36", jasmin_k=DISTILL_K,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
+         first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         launches_per_step=per_step, results=runs)
+    check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
+          "non-finite distillation loss")
+    check(max(loss_rel) <= TOL_TRAIN_LOSS, f"distillation losses: {loss_rel}")
+    check(cos >= MIN_GRAD_COSINE, f"distillation gradient cosine {cos}")
+    check(per_step == DISTILL_LAUNCHES,
+          f"launches per step {per_step}, want {DISTILL_LAUNCHES}")
+    return k["launches"]
+
+
+def phase_distill_kernel_timing(model, images_u8):
+    """Each tiled kernel alone at B=64 on the distillation path's first
+    state (the patch-embedded images), against its plain version."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    before = dict(launch_counts)
+    b, d, dh, heads = DISTILL_BATCH, 768, 768, 12
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            dtype=torch.bfloat16)(images_u8))
+        n_real = tokens.shape[1]
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        g = torch.Generator(device="cuda").manual_seed(5)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        _, _, idx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw)
+        gj = torch.randn(b, heads, 5, x.shape[1], generator=g,
+                         device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        _, amap = vf_eval_attn(x, w, **kw)
+        ga = (torch.randn(amap.shape, generator=g, device="cuda")
+              * 1e-3).to(torch.bfloat16)
+        calls = {
+            "vf_eval_tiled": (lambda pl: vf_eval(x, w, plain=pl, **kw),
+                              vf_bound(b, n_real, d, dh, 2)),
+            "vf_eval_jasmin_tiled": (
+                lambda pl: vf_eval_jasmin(x, w, jas_k=DISTILL_K, plain=pl,
+                                          **kw),
+                jasmin_bound(b, n_real, d, dh, heads, 2, DISTILL_K + 1)),
+            "vf_eval_attn": (lambda pl: vf_eval_attn(x, w, plain=pl, **kw),
+                             attn_bound(b, n_real, d, dh, heads, 2)),
+            "vf_bwd_tiled": (
+                lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx,
+                                  g_attn=ga, plain=pl, **kw),
+                bwd_bound(b, n_real, d, dh, heads, 2,
+                          map_cotangent=True))}
+        out = {}
+        for name, (fn, (bound_ms, bound_by)) in calls.items():
+            got, want = fn(False), fn(True)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs, abs_err = [], 0.0
+            for i, (a, b_) in enumerate(zip(got, want)):
+                if a.dtype == torch.int32:
+                    continue
+                real = a[:, :n_real] if a.dim() == 3 else a
+                ref = b_[:, :n_real] if b_.dim() == 3 else b_
+                errs.append(rel_err(real, ref))
+                abs_err = max(abs_err, (real.float() - ref.float()).abs()
+                              .max().item())
+            check(max(errs) <= TOL_BF16, f"B={b} {name}: {errs}")
+            out[name] = {"max_abs_err": abs_err, "rel_errs": errs,
+                         "ms": cuda_ms(lambda: fn(False), iters=10),
+                         "plain_ms": cuda_ms(lambda: fn(True), iters=2),
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+    launch_counts.update(before)           # comparisons do not count
+    emit("distill_kernel_timing", shape=f"B={b} n={n_real}/{x.shape[1]} "
+         f"D=768 H=12 dh=768 bf16", results=out)
+    return out
+
 
 def main() -> int:
     import torch
@@ -689,6 +1040,18 @@ def main() -> int:
     phase_train_kernels_vs_plain(models["rk4-13"])
     train_launches, _ = phase_train(images, rng)
     train_timing = phase_train_kernel_timing(models["rk4-13"], images)
+    del models
+    # the distillation slice at the TS-Base shape
+    from odevit_tpu_torch.teacher.vit import ViTTeacher
+    student = distill_student()
+    phase_distill_kernels_vs_plain(student)
+    rng_d = np.random.default_rng(0)
+    images_d = torch.from_numpy(rng_d.integers(
+        0, 256, (DISTILL_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    labels_d = torch.from_numpy(rng_d.integers(0, 100, DISTILL_BATCH)).cuda()
+    teacher = ViTTeacher.dino_b16(device="cuda", seed=1)
+    distill_launches = phase_distill(teacher, images_d, labels_d)
+    distill_timing = phase_distill_kernel_timing(student, images_d)
 
     kernels = [{
         "name": "vf_eval", "route": "cuda",
@@ -710,6 +1073,19 @@ def main() -> int:
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by")},
         "library_ms": None}]
+    for name in ("vf_eval_tiled", "vf_eval_jasmin_tiled", "vf_eval_attn",
+                 "vf_bwd_tiled"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
+            "replaces": ("odevit_tpu/kernels/vector_field_bwd.py:117"
+                         if name == "vf_bwd_tiled"
+                         else "odevit_tpu/kernels/vector_field.py:196"),
+            "launches": distill_launches[name],
+            **{k: v for k, v in distill_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+            "library_ms": None})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -514,6 +514,10 @@ int launch(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
+// vector_field_tiled.cu includes this file with VFB_KERNELS_ONLY for its
+// weight products and reduce; it has entry points of its own.
+#ifndef VFB_KERNELS_ONLY
+
 extern "C" {
 
 // Chooses the plan of vfb_rows: whether cn and gd live in shared memory
@@ -549,3 +553,5 @@ const char* vfb_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // VFB_KERNELS_ONLY

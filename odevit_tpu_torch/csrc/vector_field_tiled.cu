@@ -1,0 +1,935 @@
+// The tiled route of the fused vector-field evaluation and its backward,
+// on Hopper (sm_90a), for shapes where one image does not fit one CTA.
+//
+// Replaces the TPU kernels odevit_tpu/kernels/vector_field.py::_vf_kernel
+// (plain, JaSMin-statistics and attention-map modes) and
+// odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (with the JaSMin
+// cotangent and the attention-map cotangent) at shapes such as TS-Base
+// (224 px, patch 16: 207 tokens padded to 208, D=768, 12 heads, dh=768),
+// where one image's activations (320 KB for one bf16 [208, 768] tensor)
+// exceed the 227 KB of shared memory that vector_field.cu and
+// vector_field_bwd.cu keep one image in.
+//
+// The arithmetic is the one of vector_field.cu (the same rounding to the
+// compute dtype, f32 accumulation, selection masks for padded keys); only
+// the split of the work differs. Rows >= n_real of each image read as
+// zeros, so nothing a padded row holds reaches a real row or a cotangent;
+// the attention map and the JaSMin statistics hold zeros on padded query
+// rows, and x_bar holds zeros on padded rows.
+//
+// Forward, five launches:
+//   vft_norm        cn_a, cn_m = round(CenterNorm(x)), one warp per row;
+//   vft_gemm (x2)   qkv = round(cn_a Wqkv); h = round(gelu(cn_m W1));
+//   vft_attn        one CTA per (image, head, query tile): K and V of the
+//                   head in shared memory, f32 scores, softmax over the real
+//                   keys, p rounded; the map (attention-map mode) or the
+//                   JaSMin statistics and their columns; ctx = round(p v);
+//   vft_gemm        out = round(scaler * ([ctx | h] [Wout; W2])), the two
+//                   products summed in one f32 accumulator.
+// Backward, twelve launches, no atomics (two runs are bit-identical):
+//   vft_norm        cn_a, cn_m, the row means, gd = round(g * scaler);
+//   vft_gemm (x4)   h1 (f32) and h; qkv; h1_bar = round((gd W2^T)
+//                   gelu'(h1)); cb = round(gd Wout^T);
+//   vft_attn<bwd>   per (image, head, query tile): p recomputed, ctx,
+//                   p_bar = cb v^T + g_attn + the JaSMin scatter onto the
+//                   saved columns, s_bar = round(p (p_bar - sum p p_bar)),
+//                   q_bar = round(s_bar k tau); p and s_bar go to global
+//                   scratch;
+//   vft_attn_keys   per (image, head, key tile): k_bar = round(s_bar^T
+//                   round(q tau)), v_bar = round(p^T cb);
+//   vft_gemm (x2)   a_bar = [q_bar k_bar v_bar] Wqkv^T, m_bar = h1_bar W1^T
+//                   (f32);
+//   vft_norm_bwd    x_bar and the per-image partial sums of the four norm
+//                   cotangents;
+//   vfb_wgrad_*, vfb_reduce (from vector_field_bwd.cu): the four weight
+//                   cotangents as split-K products with per-split partials,
+//                   then a fixed-order reduce of the weight and norm
+//                   partials.
+//
+// Products. vft_gemm is a 128x128 tile per CTA of 8 warps, each warp 64x32
+// in bf16 WMMA fragments (16x16x16, f32 accumulators), K in steps of 32
+// staged through shared memory with the next step's loads held in
+// registers. The attention kernels use the WMMA helper of vector_field.cu
+// (vf::mm). The f32 instantiation, for tight checks, runs every product on
+// the CUDA cores. Nothing goes to a library.
+//
+// Bound. At TS-Base and B=64 one evaluation does ~102 GFLOP (0.10 ms at
+// 989 TFLOP/s in bf16) and one backward ~3x that; operations, not bytes,
+// bound both. This first design is simple: no wgmma, no TMA, no pipeline
+// deeper than one step, intermediates in device memory between launches.
+
+#define VFB_KERNELS_ONLY
+#include "vector_field_bwd.cu"
+
+namespace vft {
+
+using namespace nvcuda;
+using vf::bf16;
+
+constexpr int kMaxCols = 256;           // n_pad limit: 8 columns per lane
+constexpr int kQTiles[] = {64, 32, 16};  // query-tile rows, largest first
+constexpr int kKeyTile = 64;
+
+// ---------------------------------------------------------------- norms
+
+// cn_a, cn_m = round(((x - mean) d/(d-1)) gamma + beta), one warp per row;
+// rows >= n_real of each image read as zeros. With `mean`, the row means
+// are stored; with `gd`, gd = round(g * scaler) (zeros on padded rows).
+template <typename T>
+__global__ void __launch_bounds__(256)
+vft_norm(const T* __restrict__ x, const T* __restrict__ g, int rows,
+         int n_pad, int n_real, int d, const float* __restrict__ ga,
+         const float* __restrict__ ba, const float* __restrict__ gm,
+         const float* __restrict__ bm, T* cna, T* cnm, float* mean, T* gd,
+         float scaler) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = blockIdx.x * 8 + warp;
+  if (r >= rows) return;
+  const bool real = r % n_pad < n_real;
+  const T* row = x + (size_t)r * d;
+  const float scale = (float)((double)d / (d - 1.0));
+  float sum = 0.0f;
+  for (int c = lane; c < d; c += 32) sum += real ? vf::to_f(row[c]) : 0.0f;
+  const float mu = vf::warp_sum(sum) / d;
+  if (mean != nullptr && lane == 0) mean[r] = mu;
+  for (int c = lane; c < d; c += 32) {
+    const float xv = real ? vf::to_f(row[c]) : 0.0f;
+    const float cent = (xv - mu) * scale;
+    const size_t i = (size_t)r * d + c;
+    cna[i] = vf::from_f<T>(cent * ga[c] + ba[c]);
+    cnm[i] = vf::from_f<T>(cent * gm[c] + bm[c]);
+    if (gd != nullptr)
+      gd[i] = vf::from_f<T>(real ? vf::to_f(g[i]) * scaler : 0.0f);
+  }
+}
+
+// x_bar = d/(d-1) (c_bar - mean(c_bar)), c_bar = a_bar gamma_a + m_bar
+// gamma_m, zeros on padded rows; then this image's partial sums of
+// (a_bar cent, a_bar, m_bar cent, m_bar) over its real rows. One CTA per
+// image.
+template <typename T>
+__global__ void __launch_bounds__(vf::kThreads)
+vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
+             const T* __restrict__ x, const float* __restrict__ mean,
+             const float* __restrict__ ga, const float* __restrict__ gm,
+             T* xbar, float* npart, int n_pad, int n_real, int d) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = (size_t)blockIdx.x * n_pad;
+  const float scale = (float)((double)d / (d - 1.0));
+  for (int r = warp; r < n_pad; r += vf::kWarps) {
+    const size_t o = (row0 + r) * d;
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32)
+      sum += abar[o + c] * ga[c] + mbar[o + c] * gm[c];
+    const float cm = vf::warp_sum(sum) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float cbar = abar[o + c] * ga[c] + mbar[o + c] * gm[c];
+      xbar[o + c] = vf::from_f<T>(r < n_real ? scale * (cbar - cm) : 0.0f);
+    }
+  }
+  float* np = npart + (size_t)blockIdx.x * 4 * d;
+  for (int c = threadIdx.x; c < d; c += vf::kThreads) {
+    float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
+    for (int r = 0; r < n_real; ++r) {
+      const size_t i = (row0 + r) * d + c;
+      const float cent = (vf::to_f(x[i]) - mean[row0 + r]) * scale;
+      sa1 += abar[i] * cent;
+      sa0 += abar[i];
+      sm1 += mbar[i] * cent;
+      sm0 += mbar[i];
+    }
+    np[c] = sa1;
+    np[d + c] = sa0;
+    np[2 * d + c] = sm1;
+    np[3 * d + c] = sm0;
+  }
+}
+
+// ---------------------------------------------------------------- GEMM
+
+enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4 };
+
+// C[m, n] = sum over pairs of A_p[m, :] B_p[:, n]; A row-major (lda), B
+// row-major [K, N] (ldb) or, with BT, stored transposed [N, K]. M and N
+// are multiples of 16, every K a multiple of 16, every leading dimension a
+// multiple of 8 (16-byte rows).
+struct GemmArgs {
+  const void* a[2];
+  const void* b[2];
+  int lda[2], ldb[2], k[2];
+  int pairs, m, n;
+  int epi;
+  void* out;         // x's dtype
+  int ldo;
+  float* out32;      // f32 (kGelu: the pre-GELU value, optional; kF32)
+  int ld32;
+  const float* aux;  // kGeluGrad: the pre-GELU value h1
+  int ldaux;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
+                                         float v) {
+  T* out = static_cast<T*>(g.out);
+  const size_t o = (size_t)m * g.ldo + n;
+  switch (g.epi) {
+    case kRound:
+      out[o] = vf::from_f<T>(v);
+      break;
+    case kGelu:
+      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = v;
+      out[o] = vf::from_f<T>(vf::gelu(v));
+      break;
+    case kScale:
+      out[o] = vf::from_f<T>(v * g.scale);
+      break;
+    case kGeluGrad:
+      out[o] = vf::from_f<T>(v * vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
+      break;
+    default:
+      g.out32[(size_t)m * g.ld32 + n] = v;
+      break;
+  }
+}
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kGThreads = 256;
+constexpr int kLdA = kBK + 8;   // shared rows padded by 16 bytes
+constexpr int kLdB = kBN + 8;
+constexpr int kLdE = 20;
+
+template <bool BT>
+__device__ __forceinline__ void gemm_fetch(const GemmArgs& g, int p, int k0,
+                                           int m0, int n0, uint4 (&ra)[2],
+                                           uint4 (&rb)[2]) {
+  const bf16* A = static_cast<const bf16*>(g.a[p]);
+  const bf16* B = static_cast<const bf16*>(g.b[p]);
+  const int K = g.k[p];
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = threadIdx.x + i * kGThreads;
+    const int row = v >> 2, c8 = (v & 3) * 8;
+    ra[i] = m0 + row < g.m && k0 + c8 < K
+                ? *reinterpret_cast<const uint4*>(
+                      A + (size_t)(m0 + row) * g.lda[p] + k0 + c8)
+                : zero;
+    if (BT) {
+      rb[i] = n0 + row < g.n && k0 + c8 < K
+                  ? *reinterpret_cast<const uint4*>(
+                        B + (size_t)(n0 + row) * g.ldb[p] + k0 + c8)
+                  : zero;
+    } else {
+      const int kr = v >> 4, n8 = (v & 15) * 8;
+      rb[i] = k0 + kr < K && n0 + n8 < g.n
+                  ? *reinterpret_cast<const uint4*>(
+                        B + (size_t)(k0 + kr) * g.ldb[p] + n0 + n8)
+                  : zero;
+    }
+  }
+}
+
+template <bool BT>
+__global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
+  __shared__ __align__(128) bf16 As[kBM * kLdA];
+  __shared__ __align__(128) bf16 Bs[kBM * kLdA];  // >= kBK * kLdB
+  __shared__ __align__(128) float ep[kGThreads / 32][16 * kLdE];
+  using BLayout =
+      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int nk0 = (g.k[0] + kBK - 1) / kBK;
+  const int nk1 = g.pairs > 1 ? (g.k[1] + kBK - 1) / kBK : 0;
+  const int steps = nk0 + nk1;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+
+  uint4 ra[2], rb[2];
+  gemm_fetch<BT>(g, 0, 0, m0, n0, ra, rb);
+  for (int t = 0; t < steps; ++t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = threadIdx.x + i * kGThreads;
+      *reinterpret_cast<uint4*>(As + (v >> 2) * kLdA + (v & 3) * 8) = ra[i];
+      if (BT)
+        *reinterpret_cast<uint4*>(Bs + (v >> 2) * kLdA + (v & 3) * 8) = rb[i];
+      else
+        *reinterpret_cast<uint4*>(Bs + (v >> 4) * kLdB + (v & 15) * 8) =
+            rb[i];
+    }
+    __syncthreads();
+    if (t + 1 < steps) {
+      const int p = t + 1 < nk0 ? 0 : 1;
+      const int kt = p ? t + 1 - nk0 : t + 1;
+      gemm_fetch<BT>(g, p, kt * kBK, m0, n0, ra, rb);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = wn * 32 + j * 16;
+        if (BT)
+          wmma::load_matrix_sync(fb[j], Bs + col * kLdA + kk, kLdA);
+        else
+          wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + col, kLdB);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::load_matrix_sync(fa, As + (wm * 64 + i * 16) * kLdA + kk, kLdA);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], fa, fb[j], c[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+
+  float* sc = ep[warp];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int mb = m0 + wm * 64 + i * 16, nb = n0 + wn * 32 + j * 16;
+      if (mb >= g.m || nb >= g.n) continue;  // the same for the whole warp
+      wmma::store_matrix_sync(sc, c[i][j], kLdE, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int m = mb + (e >> 4);
+        if (m < g.m) epilogue<bf16>(g, m, nb + (e & 15), sc[(e >> 4) * kLdE + (e & 15)]);
+      }
+      __syncwarp();
+    }
+}
+
+// The f32 version on the CUDA cores: a 64x64 tile per CTA, 4x4 outputs a
+// thread, K in steps of 16 through shared memory.
+template <bool BT>
+__global__ void __launch_bounds__(kGThreads) vft_gemm_f32(GemmArgs g) {
+  __shared__ float As[16][65];
+  __shared__ float Bs[16][65];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
+  float acc[4][4] = {};
+  for (int p = 0; p < g.pairs; ++p) {
+    const float* A = static_cast<const float*>(g.a[p]);
+    const float* B = static_cast<const float*>(g.b[p]);
+    const int K = g.k[p];
+    for (int k0 = 0; k0 < K; k0 += 16) {
+      for (int i = 0; i < 4; ++i) {
+        const int e = threadIdx.x + i * kGThreads;
+        const int mm = e / 16, kk = e % 16;
+        As[kk][mm] = m0 + mm < g.m && k0 + kk < K
+                         ? A[(size_t)(m0 + mm) * g.lda[p] + k0 + kk]
+                         : 0.0f;
+        if (BT) {
+          Bs[kk][mm] = n0 + mm < g.n && k0 + kk < K
+                           ? B[(size_t)(n0 + mm) * g.ldb[p] + k0 + kk]
+                           : 0.0f;
+        } else {
+          const int kr = e / 64, nn = e % 64;
+          Bs[kr][nn] = k0 + kr < K && n0 + nn < g.n
+                           ? B[(size_t)(k0 + kr) * g.ldb[p] + n0 + nn]
+                           : 0.0f;
+        }
+      }
+      __syncthreads();
+      for (int kk = 0; kk < 16; ++kk)
+        for (int i = 0; i < 4; ++i)
+          for (int j = 0; j < 4; ++j)
+            acc[i][j] = fmaf(As[kk][ty + 16 * i], Bs[kk][tx + 16 * j],
+                             acc[i][j]);
+      __syncthreads();
+    }
+  }
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
+      if (m < g.m && n < g.n) epilogue<float>(g, m, n, acc[i][j]);
+    }
+}
+
+// ---------------------------------------------------------------- attention
+
+// JaSMin statistics of one real query row qi of rounded p (one warp): kk
+// passes, each taking the largest remaining value and removing the FIRST
+// column that holds it; ranks (1, 2, kk-1, kk), their columns and the row
+// sum of clip(p, 1e-12, 1). The rule of vector_field.cu's jas_stats_rows,
+// over up to 256 columns.
+template <typename T>
+__device__ void jas_row(const T* prow, int n_real, int kk, int qi, int n,
+                        float* stats, int* idx) {
+  const int lane = threadIdx.x % 32;
+  constexpr int kPer = kMaxCols / 32;
+  float v[kPer];
+  float sum = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int c = lane + 32 * j;
+    v[j] = c < n_real ? vf::to_f(prow[c]) : -INFINITY;
+    if (c < n_real) sum += fminf(fmaxf(v[j], 1e-12f), 1.0f);
+  }
+  sum = vf::warp_sum(sum);
+  if (lane == 0) stats[4 * n + qi] = sum;
+  for (int pass = 0; pass < kk; ++pass) {
+    float m = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) m = fmaxf(m, v[j]);
+    m = vf::warp_max(m);
+    int first = 1 << 30;
+#pragma unroll
+    for (int j = kPer - 1; j >= 0; --j)
+      if (v[j] == m) first = lane + 32 * j;
+    first = vf::warp_min_int(first);
+    if (lane == 0) {
+      const int ranks[4] = {0, 1, kk - 2, kk - 1};
+      for (int i = 0; i < 4; ++i)
+        if (pass == ranks[i]) {
+          stats[i * n + qi] = m;
+          idx[i * n + qi] = first;
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (lane + 32 * j == first) v[j] = -INFINITY;
+  }
+}
+
+struct AttnArgs {
+  const void* qkv;       // [R, 3D]
+  const void* cb;        // [R, D]   backward: round(gd Wout^T)
+  void* ctx;             // [R, D]
+  void* pmap;            // forward, attention-map mode: [B, H, n, n]
+  float* stats;          // forward, JaSMin mode: [B, H, 5, n]
+  int* idx;              //                       [B, H, 4, n]
+  const void* g_attn;    // backward: [B, H, n, n] or null
+  const float* g_jas;    // backward: [B, H, 5, n] or null
+  const int* jas_idx;    //           [B, H, 4, n]
+  void* pg;              // backward: p      [B, H, n, n] scratch
+  void* sbar;            // backward: s_bar  [B, H, n, n] scratch
+  void* qkvb;            // backward: [R, 3D]
+  int n_pad, n_real, d, heads, mt, mode, jas_kk;
+  float qk_scale;
+};
+
+enum AttnMode { kPlain = 0, kJasmin = 1, kMap = 2 };
+
+// Shared memory of one attention CTA (byte offsets; row strides in
+// elements, rows padded by 16 bytes).
+struct AttnPlan {
+  size_t k, v, q, s, p, cb, pbar, total;
+  int ld_hd, ld_s, ld_p;
+};
+
+__host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
+                                              bool bwd) {
+  const int pad = 16 / tb;
+  AttnPlan a;
+  a.ld_hd = hd + pad;
+  a.ld_s = vf::imax(n, hd) + 4;
+  a.ld_p = n + pad;
+  size_t off = 0;
+  a.k = off;  off += vf::align128((size_t)n * a.ld_hd * tb);
+  a.v = off;  off += vf::align128((size_t)n * a.ld_hd * tb);
+  a.q = off;  off += vf::align128((size_t)mt * a.ld_hd * tb);
+  a.s = off;  off += vf::align128((size_t)mt * a.ld_s * 4);
+  a.p = off;  off += vf::align128((size_t)mt * a.ld_p * tb);
+  a.cb = a.pbar = off;
+  if (bwd) {
+    a.cb = off;    off += vf::align128((size_t)mt * a.ld_hd * tb);
+    a.pbar = off;  off += vf::align128((size_t)mt * a.ld_s * 4);
+  }
+  a.total = off;
+  return a;
+}
+
+// One CTA per (query tile, head, image). Forward: the scores, p, the map
+// or statistics, ctx. With kBwd also p_bar, s_bar and q_bar (see the top
+// of the file).
+template <typename T, bool kBwd>
+__global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, n_real = a.n_real, d = a.d, hd = d / a.heads;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * a.mt;
+  const int rows = vf::imin(a.mt, n - q0);
+  const AttnPlan pl = attn_plan(n, hd, a.mt, sizeof(T), kBwd);
+  T* k = reinterpret_cast<T*>(smem + pl.k);
+  T* v = reinterpret_cast<T*>(smem + pl.v);
+  T* q = reinterpret_cast<T*>(smem + pl.q);
+  float* s = reinterpret_cast<float*>(smem + pl.s);
+  T* p = reinterpret_cast<T*>(smem + pl.p);
+  T* cbs = reinterpret_cast<T*>(smem + pl.cb);
+  float* pbar = reinterpret_cast<float*>(smem + pl.pbar);
+  const int lh = pl.ld_hd, ls = pl.ld_s, lp = pl.ld_p;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = (size_t)b * n;
+  const size_t bh = (size_t)b * a.heads + h;
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T zero = vf::from_f<T>(0.0f);
+
+  // K and V of the head (padded value rows zeroed, so that 0 * NaN cannot
+  // reach p v), the query tile, and in the backward the tile of cb
+  for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    const T* src = qkv + (row0 + r) * 3 * d + h * hd + c;
+    k[r * lh + c] = src[d];
+    v[r * lh + c] = r < n_real ? src[2 * d] : zero;
+  }
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    q[r * lh + c] = qkv[(row0 + q0 + r) * 3 * d + h * hd + c];
+    if (kBwd)
+      cbs[r * lh + c] =
+          static_cast<const T*>(a.cb)[(row0 + q0 + r) * d + h * hd + c];
+  }
+  __syncthreads();
+
+  vf::mm<false, true>(q, lh, k, lh, s, ls, false, rows, n, hd);
+  __syncthreads();
+  // softmax over the real keys; p rounded; in the backward the unrounded
+  // p replaces the scores in place (each lane rewrites its own columns)
+  for (int r = warp; r < rows; r += vf::kWarps) {
+    float* row = s + r * ls;
+    float mx = -INFINITY;
+    for (int c = lane; c < n_real; c += 32) mx = fmaxf(mx, row[c] * a.qk_scale);
+    mx = vf::warp_max(mx);
+    float sum = 0.0f;
+    for (int c = lane; c < n_real; c += 32) sum += expf(row[c] * a.qk_scale - mx);
+    sum = vf::warp_sum(sum);
+    const int qi = q0 + r;
+    T* mrow = a.mode == kMap
+                  ? static_cast<T*>(a.pmap) + (bh * n + qi) * n
+                  : nullptr;
+    for (int c = lane; c < n; c += 32) {
+      const float pv = c < n_real ? expf(row[c] * a.qk_scale - mx) / sum : 0.0f;
+      const T pr = vf::from_f<T>(pv);
+      p[r * lp + c] = pr;
+      if (kBwd) row[c] = pv;
+      if (mrow != nullptr) mrow[c] = qi < n_real ? pr : zero;
+    }
+  }
+  __syncthreads();
+  if (!kBwd && a.mode == kJasmin) {
+    float* st = a.stats + bh * 5 * n;
+    int* ix = a.idx + bh * 4 * n;
+    for (int r = warp; r < rows; r += vf::kWarps) {
+      const int qi = q0 + r;
+      if (qi >= n_real) {
+        if (lane < 5) st[lane * n + qi] = 0.0f;
+        if (lane < 4) ix[lane * n + qi] = 0;
+        continue;
+      }
+      jas_row(p + r * lp, n_real, a.jas_kk, qi, n, st, ix);
+    }
+  }
+
+  // ctx = round(p v) for this tile
+  float* cst = kBwd ? pbar : s;
+  vf::mm<false, false>(p, lp, v, lh, cst, ls, false, rows, hd, n);
+  __syncthreads();
+  T* ctx = static_cast<T*>(a.ctx);
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    ctx[(row0 + q0 + r) * d + h * hd + c] = vf::from_f<T>(cst[r * ls + c]);
+  }
+  if (!kBwd) return;
+
+  // p to global scratch for v_bar (zeros on padded query rows)
+  T* pg = static_cast<T*>(a.pg) + bh * n * n;
+  for (int i = threadIdx.x; i < rows * n; i += vf::kThreads) {
+    const int r = i / n, c = i % n;
+    pg[(size_t)(q0 + r) * n + c] = q0 + r < n_real ? p[r * lp + c] : zero;
+  }
+  __syncthreads();
+  // p_bar = cb v^T (+ g_attn, + the JaSMin scatter); s_bar into p
+  vf::mm<false, true>(cbs, lh, v, lh, pbar, ls, false, rows, n, hd);
+  __syncthreads();
+  T* sb = static_cast<T*>(a.sbar) + bh * n * n;
+  const T* gat = a.g_attn != nullptr
+                     ? static_cast<const T*>(a.g_attn) + bh * n * n
+                     : nullptr;
+  for (int r = warp; r < rows; r += vf::kWarps) {
+    const int qi = q0 + r;
+    float* prow = pbar + r * ls;
+    const float* frow = s + r * ls;
+    if (qi >= n_real) {
+      for (int c = lane; c < n; c += 32) {
+        p[r * lp + c] = zero;
+        sb[(size_t)qi * n + c] = zero;
+      }
+      continue;
+    }
+    if (gat != nullptr)
+      for (int c = lane; c < n_real; c += 32)
+        prow[c] += vf::to_f(gat[(size_t)qi * n + c]);
+    if (a.g_jas != nullptr) {
+      const float* gj = a.g_jas + bh * 5 * n;
+      const int* ji = a.jas_idx + bh * 4 * n;
+      const float g4 = gj[4 * n + qi];
+      for (int c = lane; c < n_real; c += 32) {
+        const float pj = vf::to_f(p[r * lp + c]);
+        const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
+        const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
+        float t = g4 * (lo * hi);
+        for (int i = 0; i < 4; ++i)
+          if (ji[i * n + qi] == c) t += gj[i * n + qi];
+        prow[c] += t;
+      }
+    }
+    float dot = 0.0f;
+    for (int c = lane; c < n_real; c += 32) dot += prow[c] * frow[c];
+    dot = vf::warp_sum(dot);
+    for (int c = lane; c < n; c += 32) {
+      const T sv = vf::from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+      p[r * lp + c] = sv;
+      sb[(size_t)qi * n + c] = sv;
+    }
+  }
+  __syncthreads();
+  // q_bar = round(s_bar k tau)
+  vf::mm<false, false>(p, lp, k, lh, s, ls, false, rows, hd, n);
+  __syncthreads();
+  T* qkvb = static_cast<T*>(a.qkvb);
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    qkvb[(row0 + q0 + r) * 3 * d + h * hd + c] =
+        vf::from_f<T>(s[r * ls + c] * a.qk_scale);
+  }
+}
+
+struct KeyPlan {
+  size_t qs, cbs, st, total;
+  int ld_hd, ld_st;
+};
+
+__host__ __device__ inline KeyPlan key_plan(int n, int hd, int tb) {
+  KeyPlan a;
+  a.ld_hd = hd + 16 / tb;
+  a.ld_st = hd + 4;
+  size_t off = 0;
+  a.qs = off;   off += vf::align128((size_t)n * a.ld_hd * tb);
+  a.cbs = off;  off += vf::align128((size_t)n * a.ld_hd * tb);
+  a.st = off;   off += vf::align128((size_t)kKeyTile * a.ld_st * 4);
+  a.total = off;
+  return a;
+}
+
+// One CTA per (key tile, head, image): k_bar = round(s_bar^T round(q tau))
+// and v_bar = round(p^T cb) over every query of the image, the s_bar and p
+// rows read from global scratch.
+template <typename T>
+__global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, d = a.d, hd = d / a.heads;
+  const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * kKeyTile;
+  const int rows = vf::imin(kKeyTile, n - j0);
+  const KeyPlan pl = key_plan(n, hd, sizeof(T));
+  T* qs = reinterpret_cast<T*>(smem + pl.qs);
+  T* cbs = reinterpret_cast<T*>(smem + pl.cbs);
+  float* st = reinterpret_cast<float*>(smem + pl.st);
+  const int lh = pl.ld_hd, ls = pl.ld_st;
+  const size_t row0 = (size_t)b * n;
+  const size_t bh = (size_t)b * a.heads + h;
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T* cb = static_cast<const T*>(a.cb);
+  for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    qs[r * lh + c] = vf::from_f<T>(
+        vf::to_f(qkv[(row0 + r) * 3 * d + h * hd + c]) * a.qk_scale);
+    cbs[r * lh + c] = cb[(row0 + r) * d + h * hd + c];
+  }
+  __syncthreads();
+  T* qkvb = static_cast<T*>(a.qkvb);
+  const T* src[2] = {static_cast<const T*>(a.sbar) + bh * n * n + j0,
+                     static_cast<const T*>(a.pg) + bh * n * n + j0};
+  const T* rhs[2] = {qs, cbs};
+  for (int part = 0; part < 2; ++part) {
+    vf::mm<true, false>(src[part], n, rhs[part], lh, st, ls, false, rows, hd,
+                        n);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+      const int r = i / hd, c = i % hd;
+      qkvb[(row0 + j0 + r) * 3 * d + (part + 1) * d + h * hd + c] =
+          vf::from_f<T>(st[r * ls + c]);
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace vft
+
+// Everything one tiled evaluation or backward needs, passed by pointer from
+// Python (ctypes). Scratch buffers are allocated by the caller.
+struct TiledArgs {
+  const void* x;
+  const void* g;           // backward: the dx cotangent
+  const float* g_jas;      // backward: [B, H, 5, n_pad] or null
+  const int* jas_idx;      //           [B, H, 4, n_pad]
+  const void* g_attn;      // backward: [B, H, n_pad, n_pad] or null
+  const float* ga;
+  const float* ba;
+  const float* gm;
+  const float* bm;
+  const void* wqkv;
+  const void* wout;
+  const void* w1;
+  const void* w2;
+  void* out;               // forward: f(x); backward: x_bar
+  float* stats;            // forward, JaSMin mode
+  int* idx;
+  void* pmap;              // forward, attention-map mode
+  void* cna;               // [R, D]
+  void* cnm;               // [R, D]
+  void* qkv;               // [R, 3D]
+  void* h;                 // [R, dh]
+  void* ctx;               // [R, D]
+  float* mean;             // backward: [R]
+  void* gd;                // [R, D]
+  float* h1;               // [R, dh] f32
+  void* h1b;               // [R, dh]
+  void* cb;                // [R, D]
+  void* pg;                // [B, H, n_pad, n_pad]
+  void* sbar;              // [B, H, n_pad, n_pad]
+  void* qkvb;              // [R, 3D]
+  float* abar;             // [R, D] f32
+  float* mbar;             // [R, D] f32
+  float* npart;            // [B, 4, D]
+  float* wpart;            // [splits, W]
+  float* wbars;            // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
+  int batch, n_pad, n_real, d, heads, dh, mode, jas_kk, mt, splits;
+  float scaler, qk_scale;
+};
+
+namespace vft {
+
+GemmArgs gemm_args(const void* a, int lda, const void* b, int ldb, int k,
+                   int m, int n, int epi, void* out, int ldo) {
+  GemmArgs g = {};
+  g.a[0] = a;
+  g.lda[0] = lda;
+  g.b[0] = b;
+  g.ldb[0] = ldb;
+  g.k[0] = k;
+  g.pairs = 1;
+  g.m = m;
+  g.n = n;
+  g.epi = epi;
+  g.out = out;
+  g.ldo = ldo;
+  g.ld32 = n;
+  g.ldaux = n;
+  return g;
+}
+
+template <typename T, bool BT>
+int gemm(const GemmArgs& g, cudaStream_t st) {
+  if (sizeof(T) == 2) {
+    const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM);
+    vft_gemm_bf16<BT><<<grid, kGThreads, 0, st>>>(g);
+  } else {
+    const dim3 grid((g.n + 63) / 64, (g.m + 63) / 64);
+    vft_gemm_f32<BT><<<grid, kGThreads, 0, st>>>(g);
+  }
+  return (int)cudaGetLastError();
+}
+
+AttnArgs attn_args(const TiledArgs& t) {
+  AttnArgs a = {};
+  a.qkv = t.qkv;
+  a.cb = t.cb;
+  a.ctx = t.ctx;
+  a.pmap = t.pmap;
+  a.stats = t.stats;
+  a.idx = t.idx;
+  a.g_attn = t.g_attn;
+  a.g_jas = t.g_jas;
+  a.jas_idx = t.jas_idx;
+  a.pg = t.pg;
+  a.sbar = t.sbar;
+  a.qkvb = t.qkvb;
+  a.n_pad = t.n_pad;
+  a.n_real = t.n_real;
+  a.d = t.d;
+  a.heads = t.heads;
+  a.mt = t.mt;
+  a.mode = t.mode;
+  a.jas_kk = t.jas_kk;
+  a.qk_scale = t.qk_scale;
+  return a;
+}
+
+template <typename T, bool kBwd>
+int attn(const TiledArgs& t, cudaStream_t st) {
+  const int hd = t.d / t.heads;
+  const size_t smem =
+      attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      vft_attn<T, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
+  vft_attn<T, kBwd><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int norm(const TiledArgs& t, bool bwd, cudaStream_t st) {
+  const int rows = t.batch * t.n_pad;
+  vft_norm<T><<<(rows + 7) / 8, 256, 0, st>>>(
+      static_cast<const T*>(t.x), static_cast<const T*>(t.g), rows, t.n_pad,
+      t.n_real, t.d, t.ga, t.ba, t.gm, t.bm, static_cast<T*>(t.cna),
+      static_cast<T*>(t.cnm), bwd ? t.mean : nullptr,
+      bwd ? static_cast<T*>(t.gd) : nullptr, t.scaler);
+  return (int)cudaGetLastError();
+}
+
+#define VFT_CHECK(call)           \
+  do {                            \
+    const int e_ = (call);        \
+    if (e_ != 0) return e_;       \
+  } while (0)
+
+template <typename T>
+int forward(const TiledArgs& t, cudaStream_t st) {
+  const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
+  VFT_CHECK(norm<T>(t, false, st));
+  VFT_CHECK((gemm<T, false>(
+      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
+      st)));
+  VFT_CHECK((gemm<T, false>(
+      gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh), st)));
+  VFT_CHECK((attn<T, false>(t, st)));
+  GemmArgs o = gemm_args(t.ctx, d, t.wout, d, d, R, d, kScale, t.out, d);
+  o.pairs = 2;
+  o.a[1] = t.h;
+  o.lda[1] = dh;
+  o.b[1] = t.w2;
+  o.ldb[1] = d;
+  o.k[1] = dh;
+  o.scale = t.scaler;
+  return gemm<T, false>(o, st);
+}
+
+template <typename T>
+int backward(const TiledArgs& t, cudaStream_t st) {
+  const int R = t.batch * t.n_pad, d = t.d, dh = t.dh, hd = d / t.heads;
+  VFT_CHECK(norm<T>(t, true, st));
+  GemmArgs h1 = gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh);
+  h1.out32 = t.h1;
+  VFT_CHECK((gemm<T, false>(h1, st)));
+  VFT_CHECK((gemm<T, false>(
+      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
+      st)));
+  // h1_bar = round((gd W2^T) gelu'(h1)); cb = round(gd Wout^T)
+  GemmArgs hb = gemm_args(t.gd, d, t.w2, d, d, R, dh, kGeluGrad, t.h1b, dh);
+  hb.aux = t.h1;
+  VFT_CHECK((gemm<T, true>(hb, st)));
+  VFT_CHECK((gemm<T, true>(
+      gemm_args(t.gd, d, t.wout, d, d, R, d, kRound, t.cb, d), st)));
+  VFT_CHECK((attn<T, true>(t, st)));
+  const size_t ksmem = key_plan(t.n_pad, hd, sizeof(T)).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      vft_attn_keys<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ksmem);
+  if (err != cudaSuccess) return (int)err;
+  vft_attn_keys<T><<<dim3((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads,
+                          t.batch),
+                     vf::kThreads, ksmem, st>>>(attn_args(t));
+  VFT_CHECK((int)cudaGetLastError());
+  // a_bar = qkv_bar Wqkv^T, m_bar = h1_bar W1^T (f32)
+  GemmArgs ab = gemm_args(t.qkvb, 3 * d, t.wqkv, 3 * d, 3 * d, R, d, kF32,
+                          nullptr, d);
+  ab.out32 = t.abar;
+  VFT_CHECK((gemm<T, true>(ab, st)));
+  GemmArgs mb = gemm_args(t.h1b, dh, t.w1, dh, dh, R, d, kF32, nullptr, d);
+  mb.out32 = t.mbar;
+  VFT_CHECK((gemm<T, true>(mb, st)));
+  vft_norm_bwd<T><<<t.batch, vf::kThreads, 0, st>>>(
+      t.abar, t.mbar, static_cast<const T*>(t.x), t.mean, t.ga, t.gm,
+      static_cast<T*>(t.out), t.npart, t.n_pad, t.n_real, d);
+  VFT_CHECK((int)cudaGetLastError());
+
+  // the weight cotangents: split-K products, then a fixed-order reduce
+  // (the kernels of vector_field_bwd.cu)
+  Problems ps;
+  ps.p[0] = {t.cna, t.qkvb, d, 3 * d, 0};
+  ps.p[1] = {t.ctx, t.gd, d, d, (size_t)3 * d * d};
+  ps.p[2] = {t.cnm, t.h1b, d, dh, (size_t)4 * d * d};
+  ps.p[3] = {t.h, t.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
+  ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
+  ps.rows = R;
+  ps.rows_per_split = (R + t.splits - 1) / t.splits;
+  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
+  int ntiles = 0;
+  for (const Problem& p : ps.p)
+    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
+  const dim3 grid(ntiles, t.splits);
+  if (sizeof(T) == 2)
+    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
+  else
+    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
+  VFT_CHECK((int)cudaGetLastError());
+  const size_t all = ps.total + (size_t)4 * d;
+  vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
+      t.wpart, t.splits, ps.total, t.npart, t.batch, 4 * d, t.wbars);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
+  return heads > 0 && d % heads == 0 && d % 16 == 0 &&
+         (d / heads) % 16 == 0 && dh % 16 == 0 && n_pad % 16 == 0 &&
+         n_pad > 0 && n_pad <= kMaxCols && n_real > 0 && n_real <= n_pad;
+}
+
+}  // namespace vft
+
+extern "C" {
+
+// Chooses the query-tile rows of the attention kernels: the largest whose
+// backward CTA fits the shared memory. Returns 0 with the plan, 1 when the
+// shape has none (the wrapper raises).
+int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+             int* mt_out, int* smem_fwd_out, int* smem_bwd_out,
+             int* smem_keys_out) {
+  if (!vft::shape_ok(n_pad, n_real, d, heads, dh)) return 1;
+  const int hd = d / heads;
+  const size_t keys = vft::key_plan(n_pad, hd, tbytes).total;
+  if (keys > (size_t)vf::kMaxSmem) return 1;
+  for (int mt : vft::kQTiles) {
+    const size_t bwd = vft::attn_plan(n_pad, hd, mt, tbytes, true).total;
+    if (bwd <= (size_t)vf::kMaxSmem) {
+      *mt_out = mt;
+      *smem_fwd_out = (int)vft::attn_plan(n_pad, hd, mt, tbytes, false).total;
+      *smem_bwd_out = (int)bwd;
+      *smem_keys_out = (int)keys;
+      return 0;
+    }
+  }
+  return 1;
+}
+
+// One evaluation (mode 0 plain, 1 JaSMin statistics, 2 attention map) on
+// `stream`; returns the first cudaGetLastError() that is not 0, else 0.
+int vft_forward(int tbytes, const TiledArgs* args, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tbytes == 2 ? vft::forward<bf16>(*args, st)
+                     : vft::forward<float>(*args, st);
+}
+
+// One backward on `stream`; returns as vft_forward.
+int vft_backward(int tbytes, const TiledArgs* args, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tbytes == 2 ? vft::backward<bf16>(*args, st)
+                     : vft::backward<float>(*args, st);
+}
+
+const char* vft_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

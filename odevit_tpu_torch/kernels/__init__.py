@@ -11,7 +11,10 @@ import threading
 from typing import Dict
 
 launch_counts: Dict[str, int] = {
-    "vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0}
+    "vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0,
+    # the tiled route (csrc/vector_field_tiled.cu)
+    "vf_eval_tiled": 0, "vf_eval_jasmin_tiled": 0, "vf_eval_attn": 0,
+    "vf_bwd_tiled": 0}
 _count_lock = threading.Lock()
 
 

@@ -2,8 +2,10 @@
 ``torch.autograd.Function``s.
 
 ``FusedVF`` is the counterpart of ``odevit_tpu/kernels/vector_field.py::
-fused_vf`` and ``FusedVFJasmin`` of ``fused_vf_jasmin``: the forward runs
-``vf_eval`` / ``vf_eval_jasmin`` and the backward ``vf_bwd``. On a CPU
+fused_vf``, ``FusedVFJasmin`` of ``fused_vf_jasmin`` and ``FusedVFAttn`` of
+``fused_vf_attn``: the forward runs ``vf_eval`` / ``vf_eval_jasmin`` /
+``vf_eval_attn`` and the backward ``vf_bwd`` (with the maps' cotangent for
+``FusedVFAttn``). On a CPU
 tensor both run the plain versions; on a CUDA tensor they launch the
 kernels or raise.
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from odevit_tpu_torch.kernels.vector_field import (VFWeights, vf_eval,
+                                                   vf_eval_attn,
                                                    vf_eval_jasmin)
 from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
 
@@ -64,6 +67,26 @@ class FusedVFJasmin(torch.autograd.Function):
         return (bars[0], None, None, None, None, None, None, *bars[1:])
 
 
+class FusedVFAttn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
+                n_real: int, plain: bool, *params):
+        dx, p = vf_eval_attn(x, w, num_heads=num_heads, scaler=scaler,
+                             n_real=n_real, plain=plain)
+        ctx.save_for_backward(x)
+        ctx.w = w
+        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
+                      plain=plain)
+        return dx, p
+
+    @staticmethod
+    def backward(ctx, g, g_attn):
+        (x,) = ctx.saved_tensors
+        bars = vf_bwd(x, ctx.w, g.contiguous(),
+                      g_attn=g_attn.to(x.dtype).contiguous(), **ctx.kw)
+        return (bars[0], None, None, None, None, None, *bars[1:])
+
+
 def vf_params(vf) -> tuple:
     """A ``ParallelVectorField``'s float32 parameters in the order the
     Functions take them (matrices as ``[in, out]`` views)."""
@@ -85,3 +108,10 @@ def fused_vf_jasmin(x, w: VFWeights, params, *, num_heads: int,
     ``params``."""
     return FusedVFJasmin.apply(x, w, num_heads, scaler, n_real, jas_k,
                                plain, *params)
+
+
+def fused_vf_attn(x, w: VFWeights, params, *, num_heads: int, scaler: float,
+                  n_real: int, plain: bool = False):
+    """(f(x), attention maps [B, H, n_pad, n_pad]), differentiable in x and
+    ``params``."""
+    return FusedVFAttn.apply(x, w, num_heads, scaler, n_real, plain, *params)

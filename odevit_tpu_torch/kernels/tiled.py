@@ -1,0 +1,152 @@
+"""The tiled route of the fused evaluation and its backward.
+
+``csrc/vector_field_tiled.cu`` runs one evaluation, or one backward, as a
+sequence of kernels over all rows of the batch (a CenterNorm pass, tiled
+products, an attention kernel per image, head and query tile), for shapes
+whose image does not fit the one-image-per-CTA kernels of
+``vector_field.cu`` and ``vector_field_bwd.cu`` (the 224 px TS-Base
+evaluation: 207 tokens padded to 208, D=768, 12 heads). It replaces the
+same TPU kernels, ``_vf_kernel`` and ``_vf_bwd_kernel``. The wrappers in
+``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
+module binds the library and allocates the scratch the kernels use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+MODES = {"plain": 0, "jasmin": 1, "attn": 2}
+
+_PTRS = ("x", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm", "bm",
+         "wqkv", "wout", "w1", "w2", "out", "stats", "idx", "pmap", "cna",
+         "cnm", "qkv", "h", "ctx", "mean", "gd", "h1", "h1b", "cb", "pg",
+         "sbar", "qkvb", "abar", "mbar", "npart", "wpart", "wbars")
+_INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
+         "mt", "splits")
+
+
+class _Args(ctypes.Structure):
+    _fields_ = ([(name, ctypes.c_void_p) for name in _PTRS]
+                + [(name, ctypes.c_int) for name in _INTS]
+                + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float)])
+
+
+_lib = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from odevit_tpu_torch.kernels import build
+        lib = build.load("vector_field_tiled")
+        i, p = ctypes.c_int, ctypes.c_void_p
+        lib.vft_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 4
+        lib.vft_plan.restype = i
+        for fn in (lib.vft_forward, lib.vft_backward):
+            fn.argtypes = [i, ctypes.POINTER(_Args), p]
+            fn.restype = i
+        lib.vft_error_string.argtypes = [i]
+        lib.vft_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+               dh: int):
+    """(query-tile rows, shared-memory bytes of the forward, backward and
+    key-tile attention CTAs); raises if the shape has no tiled plan
+    (n_pad > 256, or sizes that are not multiples of 16)."""
+    out = [ctypes.c_int() for _ in range(4)]
+    tbytes = torch.empty((), dtype=dtype).element_size()
+    if _library().vft_plan(tbytes, n_pad, n_real, d, num_heads, dh,
+                           *(ctypes.byref(o) for o in out)):
+        raise ValueError(
+            f"no tiled plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
+            f"dh={dh} in {dtype}: the tiled kernels need n_pad <= 256 and "
+            f"multiples of 16")
+    return tuple(o.value for o in out)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
+         jas_kk=0, splits=0):
+    b, n, d = x.shape
+    dh = w.w1.shape[1]
+    mt = tiled_plan(x.dtype, n, n_real, d, num_heads, dh)[0]
+    ptrs = {"ga": w.norm_attn_scale, "ba": w.norm_attn_bias,
+            "gm": w.norm_mlp_scale, "bm": w.norm_mlp_bias, "wqkv": w.wqkv,
+            "wout": w.wout, "w1": w.w1, "w2": w.w2, "x": x, **bufs}
+    args = _Args(**{k: _ptr(v) for k, v in ptrs.items()},
+                 batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads,
+                 dh=dh, mode=MODES[mode], jas_kk=jas_kk, mt=mt,
+                 splits=splits, scaler=scaler,
+                 qk_scale=(d // num_heads) ** -0.5)
+    lib = _library()
+    err = getattr(lib, fn_name)(
+        x.element_size(), ctypes.byref(args),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"tiled vector-field kernel launch failed "
+                           f"({fn_name}): "
+                           + lib.vft_error_string(err).decode())
+
+
+def _scratch(x, dh: int):
+    b, n, d = x.shape
+    e = lambda w, dt=x.dtype: torch.empty(b * n, w, device=x.device,
+                                           dtype=dt)
+    return {"cna": e(d), "cnm": e(d), "qkv": e(3 * d), "h": e(dh),
+            "ctx": e(d)}
+
+
+def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
+                  mode: str = "plain", jas_kk: int = 0):
+    """One evaluation on the tiled route: f(x), and for mode "jasmin" the
+    statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
+    n_pad]`` (zeros on padded query rows). The caller has checked the
+    arguments."""
+    b, n, d = x.shape
+    bufs = _scratch(x, w.w1.shape[1])
+    bufs["out"] = torch.empty_like(x)
+    extra = ()
+    if mode == "jasmin":
+        bufs["stats"] = torch.empty(b, num_heads, 5, n, device=x.device)
+        bufs["idx"] = torch.empty(b, num_heads, 4, n, device=x.device,
+                                  dtype=torch.int32)
+        extra = (bufs["stats"], bufs["idx"])
+    elif mode == "attn":
+        bufs["pmap"] = torch.empty(b, num_heads, n, n, device=x.device,
+                                   dtype=x.dtype)
+        extra = (bufs["pmap"],)
+    _run("vft_forward", x, w, bufs, num_heads=num_heads, scaler=scaler,
+         n_real=n_real, mode=mode, jas_kk=jas_kk)
+    return (bufs["out"], *extra)
+
+
+def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
+                   splits: int, g_jas=None, jas_idx=None, g_attn=None):
+    """The 9 cotangents of one evaluation on the tiled route (see
+    ``vector_field_bwd.py``). The caller has checked the arguments."""
+    b, n, d = x.shape
+    dh = w.w1.shape[1]
+    rows = b * n
+    wtotal = 4 * d * d + 2 * d * dh
+    f32 = lambda *s: torch.empty(*s, device=x.device)
+    e = lambda *s: torch.empty(*s, device=x.device, dtype=x.dtype)
+    bufs = _scratch(x, dh)
+    bufs.update(
+        g=g, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
+        out=torch.empty_like(x), mean=f32(rows), gd=e(rows, d),
+        h1=f32(rows, dh), h1b=e(rows, dh), cb=e(rows, d),
+        pg=e(b, num_heads, n, n), sbar=e(b, num_heads, n, n),
+        qkvb=e(rows, 3 * d), abar=f32(rows, d), mbar=f32(rows, d),
+        npart=f32(b, 4, d), wpart=f32(splits, wtotal),
+        wbars=f32(wtotal + 4 * d))
+    _run("vft_backward", x, w, bufs, num_heads=num_heads, scaler=scaler,
+         n_real=n_real, splits=splits)
+    return bufs["out"], bufs["wbars"]

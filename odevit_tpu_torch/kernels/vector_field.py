@@ -13,6 +13,18 @@ _vf_kernel``) on a CUDA tensor, and runs its plain PyTorch version
 kernel in its JaSMin-statistics mode, the counterpart of
 ``fused_vf_jasmin``: ``f(x)`` and the ``[B, H, 5, n_pad]`` order
 statistics of the attention rows, with the columns they came from.
+``vf_eval_attn`` (plain version ``vf_eval_attn_plain``) is its
+attention-map mode, the counterpart of ``fused_vf_attn``: ``f(x)`` and the
+maps ``[B, H, n_pad, n_pad]`` in the compute dtype, zeros on padded query
+rows and padded keys.
+
+Routes. Where one image fits one CTA (``kernel_plan``), the plain and
+JaSMin modes launch the one-image-per-CTA kernel of
+``csrc/vector_field.cu``. Elsewhere (the 224 px TS-Base shape: 207 tokens,
+D=768) they launch the tiled route, ``csrc/vector_field_tiled.cu``
+(``kernels/tiled.py``), which also carries the attention-map mode at every
+shape. The Euler and stage-advance modes have no tiled route yet and raise
+there. Each route counts its launches under its own name.
 
 ``x`` is the padded token tensor ``[B, n_pad, D]`` (``n_pad`` a multiple of
 :data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
@@ -131,6 +143,19 @@ def _check_jasmin(n_real: int, jas_k: int):
     return kk
 
 
+def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                       n_real: int):
+    """(f(x), p): the attention-map mode in plain PyTorch. ``p`` [B, H,
+    n_pad, n_pad] in x's dtype holds zeros on padded query rows (and, by
+    the key mask, on padded keys)."""
+    _check(x, w, num_heads, n_real, "plain", None)
+    f, p = _field_plain(x, w, num_heads, scaler, n_real)
+    query = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
+    p = torch.where(query, p, torch.zeros((), dtype=p.dtype,
+                                          device=x.device))
+    return f.to(x.dtype), p
+
+
 def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                          n_real: int, jas_k: int):
     """(f(x), stats, idx): the kernel's JaSMin-statistics mode in plain
@@ -172,6 +197,17 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         _lib = _bind(build.load("vector_field"))
     return _lib
+
+
+def has_cta_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                 dh: int) -> bool:
+    """Whether the one-image-per-CTA kernel takes this shape (else the
+    tiled route runs)."""
+    try:
+        kernel_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    except ValueError:
+        return False
+    return True
 
 
 def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
@@ -253,6 +289,16 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
                              n_real=n_real, mode=mode, dt=dt, base=base)
     _check(x, w, num_heads, n_real, mode, base)
     _check_launch(x, w, base)
+    if not _cta_route(x, w, num_heads, n_real):
+        if mode != "plain":
+            raise NotImplementedError(
+                f"mode {mode!r} has no tiled route yet (ROADMAP.md §1): the "
+                f"tiled route runs the plain, JaSMin and map modes")
+        from odevit_tpu_torch.kernels.tiled import tiled_forward
+        (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                               n_real=n_real)
+        count_launch("vf_eval_tiled")
+        return out
     out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
                         n_real=n_real, mode=mode, dt=dt, base=base)
     count_launch("vf_eval")
@@ -270,7 +316,36 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
     _check(x, w, num_heads, n_real, "plain", None)
     kk = _check_jasmin(n_real, jas_k)
     _check_launch(x, w)
+    if not _cta_route(x, w, num_heads, n_real):
+        from odevit_tpu_torch.kernels.tiled import tiled_forward
+        out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                            n_real=n_real, mode="jasmin", jas_kk=kk)
+        count_launch("vf_eval_jasmin_tiled")
+        return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
                   mode="plain", dt=0.0, base=None, jas_kk=kk)
     count_launch("vf_eval_jasmin")
     return out
+
+
+def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
+                 n_real: int, plain: bool = False):
+    """(f(x), p) in one launch of the tiled route's attention-map mode (see
+    :func:`vf_eval_attn_plain` for the layout); the one-image-per-CTA
+    kernel has no map mode. A CPU tensor, or ``plain=True``, runs the plain
+    version."""
+    if plain or x.device.type == "cpu":
+        return vf_eval_attn_plain(x, w, num_heads=num_heads, scaler=scaler,
+                                  n_real=n_real)
+    _check(x, w, num_heads, n_real, "plain", None)
+    _check_launch(x, w)
+    from odevit_tpu_torch.kernels.tiled import tiled_forward
+    out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                        n_real=n_real, mode="attn")
+    count_launch("vf_eval_attn")
+    return out
+
+
+def _cta_route(x, w: VFWeights, num_heads: int, n_real: int) -> bool:
+    b, n, d = x.shape
+    return has_cta_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1])

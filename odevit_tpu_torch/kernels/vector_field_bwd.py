@@ -6,7 +6,9 @@ _vf_bwd_kernel``) on a CUDA tensor, and runs its plain PyTorch version
 ``vf_bwd_plain`` on a CPU tensor. Both take the forward's input ``x``, its
 weights, the cotangent ``g`` of f(x) and, for an evaluation of the
 JaSMin-statistics mode, the cotangent ``g_jas`` of its statistics with the
-columns ``jas_idx`` the forward took them from. They return the 9
+columns ``jas_idx`` the forward took them from, and for an evaluation of the
+attention-map mode, the cotangent ``g_attn`` [B, H, n_pad, n_pad] of its
+maps (read on real query rows and real keys only). They return the 9
 cotangents (x_bar in x's dtype; the norms' and weights' in float32):
 
     (x_bar, norm_attn_scale, norm_attn_bias, norm_mlp_scale, norm_mlp_bias,
@@ -14,6 +16,11 @@ cotangents (x_bar in x's dtype; the norms' and weights' in float32):
 
 Rows ``>= n_real`` of ``x`` and ``g`` are read as zeros and those of
 ``x_bar`` are zeros, so nothing a padded row holds reaches a cotangent.
+
+Routes: without ``g_attn``, where one image fits one CTA (``bwd_plan``),
+the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
+no such plan exists (the 224 px TS-Base shape), the tiled route of
+``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
 """
 
 from __future__ import annotations
@@ -59,11 +66,11 @@ def _jas_pbar(pb, g_jas, jas_idx, n_real: int):
 
 
 def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
-                 n_real: int, g_jas=None, jas_idx=None):
+                 n_real: int, g_jas=None, jas_idx=None, g_attn=None):
     """The kernels' arithmetic in plain PyTorch: the forward recomputed,
     then the MLP, attention and CenterNorm backward, rounding to x's
     dtype where the TPU kernel rounds."""
-    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx)
+    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     b, n, d = x.shape
     hd = d // num_heads
     tau = hd ** -0.5
@@ -105,6 +112,11 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         b, n, num_heads, hd).transpose(1, 2)
     v_bar = dot32(pb.transpose(-1, -2), cb).to(dtype)
     p_bar = dot32(cb, v.transpose(-1, -2))
+    if g_attn is not None:
+        # rounded to x's dtype, as the TPU kernel takes it; selected on
+        # real query rows and keys, so nothing padded reaches p_bar
+        p_bar = p_bar + torch.where(key & row, g_attn.to(dtype).float(),
+                                    zero)
     if g_jas is not None:
         p_bar = p_bar + _jas_pbar(pb, g_jas, jas_idx, n_real)
     s_bar = pf * (p_bar - (p_bar * pf).sum(-1, keepdim=True))
@@ -126,10 +138,14 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             wqkv_bar, wout_bar, w1_bar, w2_bar)
 
 
-def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx):
+def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
     _check(x, w, num_heads, n_real, "plain", None)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != x {tuple(x.shape)}")
+    b, n, _ = x.shape
+    if g_attn is not None and tuple(g_attn.shape) != (b, num_heads, n, n):
+        raise ValueError(f"g_attn has shape {tuple(g_attn.shape)}, "
+                         f"expected {(b, num_heads, n, n)}")
     if (g_jas is None) != (jas_idx is None):
         raise ValueError("g_jas and jas_idx come together")
     if g_jas is not None:
@@ -187,6 +203,17 @@ def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return cn_smem.value, hc.value, smem.value
 
 
+def has_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                 dh: int) -> bool:
+    """Whether the one-image-per-CTA backward takes this shape (else the
+    tiled route runs)."""
+    try:
+        bwd_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    except ValueError:
+        return False
+    return True
+
+
 def weight_splits(rows: int, d: int, dh: int) -> int:
     """Slices of rows the weight products are split into: enough CTAs for
     about four per SM, each slice at least 256 rows. Fixed by the shape,
@@ -197,19 +224,23 @@ def weight_splits(rows: int, d: int, dh: int) -> int:
 
 
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
-           n_real: int, g_jas=None, jas_idx=None, plain: bool = False):
+           n_real: int, g_jas=None, jas_idx=None, g_attn=None,
+           plain: bool = False):
     """The 9 cotangents of one evaluation (see the module docstring). A
     CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
     runs :func:`vf_bwd_plain`."""
     if plain or x.device.type == "cpu":
         return vf_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
-                            n_real=n_real, g_jas=g_jas, jas_idx=jas_idx)
-    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx)
+                            n_real=n_real, g_jas=g_jas, jas_idx=jas_idx,
+                            g_attn=g_attn)
+    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_launch(x, w)
     extra = {"g": (g, x.dtype)}
     if g_jas is not None:
         extra.update(g_jas=(g_jas, torch.float32),
                      jas_idx=(jas_idx, torch.int32))
+    if g_attn is not None:
+        extra["g_attn"] = (g_attn, x.dtype)
     for name, (t, dtype) in extra.items():
         if t.device != x.device or t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype} on {t.device}, the kernel "
@@ -218,9 +249,17 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             raise ValueError(f"{name} is not contiguous")
     b, n, d = x.shape
     dh = w.w1.shape[1]
-    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
     rows = b * n
     splits = weight_splits(rows, d, dh)
+    if g_attn is not None or not has_bwd_plan(x.dtype, n, n_real, d,
+                                              num_heads, dh):
+        from odevit_tpu_torch.kernels.tiled import tiled_backward
+        xbar, out = tiled_backward(
+            x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
+            splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn)
+        count_launch("vf_bwd_tiled")
+        return _split_bars(xbar, out, d, dh)
+    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
     wtotal = 4 * d * d + 2 * d * dh
 
     def scratch(width, dtype=x.dtype):
@@ -252,8 +291,13 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         raise RuntimeError("vector-field backward launch failed: "
                            + _library().vfb_error_string(err).decode())
     count_launch("vf_bwd")
-    out = bufs["out"]
+    return _split_bars(bufs["xbar"], bufs["out"], d, dh)
+
+
+def _split_bars(xbar, out, d: int, dh: int):
+    """x_bar and the flat [Wqkv, Wout, W1, W2, ga, ba, gm, bm] buffer ->
+    the 9 cotangents in the order of the module docstring."""
     sizes = [3 * d * d, d * d, d * dh, dh * d, d, d, d, d]
     wqkv, wout, w1, w2, ga, ba, gm, bm = torch.split(out, sizes)
-    return (bufs["xbar"], ga, ba, gm, bm, wqkv.view(d, 3 * d),
-            wout.view(d, d), w1.view(d, dh), w2.view(dh, d))
+    return (xbar, ga, ba, gm, bm, wqkv.view(d, 3 * d), wout.view(d, d),
+            w1.view(d, dh), w2.view(dh, d))

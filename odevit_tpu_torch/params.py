@@ -9,7 +9,8 @@ import torch
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ViTODE params pytree of the JAX package -> the port's state dict.
+    """A ViTODE (or ``ViTTeacher``) params pytree of the JAX package -> the
+    port's state dict.
 
     ``tree`` is ``params`` (not ``{"params": ...}``) as nested dicts of
     numpy arrays; the caller moves it to the host first. Matrices handed to
@@ -20,6 +21,8 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32))
 
+    if "patch_kernel" in tree:
+        return _teacher_params(tree, t)
     pe, vf = tree["patch_embed"], tree["vf"]
     sd = {
         "patch_embed.proj_kernel": t(pe["proj_kernel"]),
@@ -44,4 +47,35 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if "dist_head" in tree:
         sd["dist_head.weight"] = t(tree["dist_head"]["kernel"]).T.contiguous()
         sd["dist_head.bias"] = t(tree["dist_head"]["bias"])
+    return sd
+
+
+def _teacher_params(tree, t) -> Dict[str, torch.Tensor]:
+    """The teacher tree (``layer_i/{query, key, value, attn_output,
+    intermediate, output}``, the layer norms, ``cls_token``,
+    ``position_embeddings``, ``patch_kernel/bias``, ``classifier``)."""
+    def dense(prefix, node):
+        return {f"{prefix}.weight": t(node["kernel"]).T.contiguous(),
+                f"{prefix}.bias": t(node["bias"])}
+
+    def norm(prefix, node):
+        return {f"{prefix}.weight": t(node["scale"]),
+                f"{prefix}.bias": t(node["bias"])}
+
+    sd = {"cls_token": t(tree["cls_token"]),
+          "position_embeddings": t(tree["position_embeddings"]),
+          "patch_kernel": t(tree["patch_kernel"]),
+          "patch_bias": t(tree["patch_bias"]),
+          **norm("layernorm", tree["layernorm"])}
+    i = 0
+    while f"layer_{i}" in tree:
+        layer = tree[f"layer_{i}"]
+        for name in ("query", "key", "value", "attn_output", "intermediate",
+                     "output"):
+            sd.update(dense(f"layers.{i}.{name}", layer[name]))
+        for name in ("layernorm_before", "layernorm_after"):
+            sd.update(norm(f"layers.{i}.{name}", layer[name]))
+        i += 1
+    if "classifier" in tree:
+        sd.update(dense("classifier", tree["classifier"]))
     return sd

@@ -1,6 +1,8 @@
-"""The fused free-training step: CE + JaSMin through the fused kernels.
+"""The fused training steps: free training (CE + JaSMin) and
+teacher-student trajectory distillation, through the fused kernels.
 
-Counterpart of ``odevit_tpu/train/fast_steps.py::fast_free_forward`` and
+Free training, the counterpart of
+``odevit_tpu/train/fast_steps.py::fast_free_forward`` and
 ``make_fast_free_train_step`` in their deterministic softmax route:
 
   * patch embed, tokens padded once to a multiple of ``TOKEN_PAD``;
@@ -16,12 +18,29 @@ Counterpart of ``odevit_tpu/train/fast_steps.py::fast_free_forward`` and
     the 48 saved inputs take about 1.5 GB);
   * AdamW after the global-norm clip (``train/state.py``).
 
-On the GPU every evaluation and its backward launch the kernels;
-``plain=True`` runs the same route through their plain versions, for
-comparisons. Not ported yet, and raising: dropout, residual stashing, the
-mesh (data-parallel) step and the attention-map route for sequences
-shorter than ``jasmin_k + 1`` tokens (the distillation slice); L2
-attention and time conditioning raise when the model is built.
+Distillation, the counterpart of ``fast_distill_forward`` and
+``make_fast_distill_train_step`` in their deterministic route (Euler):
+
+  * the step range is cut at the JaSMin window's start and at the
+    teacher-layer control points; plain evaluations before the window,
+    JaSMin-statistics evaluations in it; the control points' CLS states
+    are kept;
+  * the final evaluation runs apart, through ``FusedVFAttn``, and its map
+    feeds the attention loss (and ``jasmin_map_loss`` when it lies in the
+    window); the map is cut to the real tokens before the registers are
+    stripped;
+  * loss = (trajectory MSE + L1 or KL attention loss) * lambda + JaSMin
+    (+ CE with label smoothing 0.05 when supervised); the teacher runs
+    under ``torch.no_grad()``.
+
+On the GPU every evaluation and its backward launch the kernels (at the
+224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
+through their plain versions, for comparisons. Not ported yet, and
+raising: dropout, residual stashing, the mesh (data-parallel) step, the
+teacher cache, and the attention-map route of the fused steps for
+sequences shorter than ``jasmin_k + 1`` tokens (ROADMAP.md §1, the map
+route of the fused steps); L2 attention and time conditioning raise when
+the model is built.
 """
 
 from __future__ import annotations
@@ -32,12 +51,18 @@ import numpy as np
 import torch
 
 from odevit_tpu_torch.core.integrators import make_step, num_stages
-from odevit_tpu_torch.kernels.autograd import (fused_vf, fused_vf_jasmin,
-                                               vf_params)
+from odevit_tpu_torch.kernels.autograd import (fused_vf, fused_vf_attn,
+                                               fused_vf_jasmin, vf_params)
 from odevit_tpu_torch.kernels.vector_field import pad_tokens
 from odevit_tpu_torch.losses.classification import accuracy, cross_entropy
+from odevit_tpu_torch.losses.attention_distill import (kl_attention_loss,
+                                                       l1_attention_loss)
+from odevit_tpu_torch.losses.control_points import \
+    proportional_control_points
 from odevit_tpu_torch.losses.jasmin import (jasmin_from_stats,
+                                            jasmin_map_loss,
                                             jasmin_trajectory_window)
+from odevit_tpu_torch.losses.trajectory import trajectory_mse
 from odevit_tpu_torch.train.state import TrainState
 
 
@@ -50,8 +75,9 @@ def _check_route(model, jasmin_k: int, n: int):
     if n < max(jasmin_k, 1) + 1:
         raise NotImplementedError(
             f"{n} tokens are too few for the in-kernel JaSMin statistics "
-            f"(k={jasmin_k}); the attention-map route comes with the "
-            f"distillation slice")
+            f"(k={jasmin_k}); the attention-map route of the fused steps "
+            f"is not ported yet (ROADMAP.md §1, queued after the "
+            f"distillation slice)")
 
 
 def jasmin_window(num_eval_steps: int, solver: str):
@@ -64,20 +90,25 @@ def jasmin_window(num_eval_steps: int, solver: str):
     return num_steps - tail, tail
 
 
-def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
-                      plain: bool = False):
-    """(loss, {"logits", "ce", "jasmin_loss"}), differentiable in the
-    model's parameters (see the module docstring)."""
+def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
     tokens = model.patch_embed(pixels)
     b, n, d = tokens.shape
     _check_route(model, jasmin_k, n)
     n_pad = pad_tokens(n)
     if n_pad != n:
         tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
-    w = model.vf.kernel_weights(tokens.dtype)
-    params = vf_params(model.vf)
     kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler, n_real=n,
               plain=plain)
+    return tokens, model.vf.kernel_weights(tokens.dtype), \
+        vf_params(model.vf), kw
+
+
+def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
+                      plain: bool = False):
+    """(loss, {"logits", "ce", "jasmin_loss"}), differentiable in the
+    model's parameters (see the module docstring)."""
+    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    n = kw["n_real"]
 
     def f_plain(t, y):
         return fused_vf(y, w, params, **kw)
@@ -142,6 +173,150 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
             "loss": loss.detach(), "jasmin_loss": aux["jasmin_loss"].detach(),
             "acc": accuracy(aux["logits"].detach(), batch["labels"]),
             "grad_norm": grad_norm}
+        return state, metrics
+
+    return step
+
+
+def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
+                         jasmin_k: int, temperature: float,
+                         lambda_param: float, mse_full_path: bool = True,
+                         use_distillation: bool = True,
+                         use_kl_loss: bool = False, supervise: bool = False,
+                         plain: bool = False):
+    """(loss, {"metrics", "logits"}) of the distillation student,
+    differentiable in the model's parameters (see the module docstring).
+    ``t_states``: the teacher's hidden states [L, B, N_t, D] (layers
+    1..L); ``t_attn_last``: its last layer's maps [B, H, N_t, N_t]."""
+    if model.solver != "euler":
+        raise ValueError("the fused distillation step integrates the "
+                         f"reference's Euler grid, not {model.solver!r}")
+    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    n = kw["n_real"]
+    reg = model.patch_embed.num_registers
+    T = model.num_eval_steps
+    num_steps = T - 1
+    dt = float(model.time_interval) / num_steps
+
+    # the static plan: control-point boundaries and the JaSMin tail
+    cps = proportional_control_points(T, temperature)
+    window = max(1, min(int(0.85 * T), num_steps))
+    tail_start = num_steps - window          # steps >= tail_start score
+    cp_set = set(int(i) for i in cps)
+    breaks = sorted({0, num_steps, tail_start}
+                    | {i for i in cp_set if 0 < i <= num_steps})
+
+    def advance(y, dx):
+        return (y + dt * dx).to(y.dtype)
+
+    y = tokens
+    state_at = {0: tokens}
+    jas = []
+    for a, b_ in zip(breaks[:-1], breaks[1:]):
+        is_last = b_ == num_steps
+        for _ in range(b_ - a - (1 if is_last else 0)):
+            if a >= tail_start:
+                dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
+                                            **kw)
+                jas.append(jasmin_from_stats(stats[..., :n], jasmin_k))
+            else:
+                dx = fused_vf(y, w, params, **kw)
+            y = advance(y, dx)
+        if is_last:
+            # the final evaluation emits its maps for the attention loss;
+            # padded rows are cut before the registers are stripped
+            dx, maps = fused_vf_attn(y, w, params, **kw)
+            last_attn = maps[:, :, :n, :n]
+            if num_steps - 1 >= tail_start:
+                jas.append(jasmin_map_loss(last_attn, k=jasmin_k))
+            y = advance(y, dx)
+        if b_ in cp_set:
+            state_at[b_] = y
+    state_at[num_steps] = y
+
+    cls_points = torch.stack([state_at[int(i)][:, 0] for i in cps])
+    jasmin = jasmin_trajectory_window(torch.stack(jas), T)
+    logits = model.head(y[:, 0].float())
+
+    mse, mse_parts = trajectory_mse(cls_points[:, :, None, :],
+                                    t_states[:, :, :1],
+                                    full_path=mse_full_path)
+    rep = mse
+    metrics = {"mse_loss": mse, **mse_parts}
+    if use_distillation:
+        s_attn = last_attn[:, :, :n - reg, :n - reg] if reg else last_attn
+        if use_kl_loss:
+            kl = kl_attention_loss(s_attn, t_attn_last,
+                                   lambda_param=lambda_param,
+                                   temperature=temperature)
+        else:
+            kl = l1_attention_loss(s_attn, t_attn_last,
+                                   lambda_param=lambda_param)
+        ok = torch.isfinite(kl)
+        rep = rep + torch.where(ok, kl, torch.zeros_like(kl))
+        metrics["kl_loss"] = kl
+        metrics["kl_nonfinite"] = 1.0 - ok.float()
+    rep = rep * lambda_param
+    loss = rep + jasmin
+    ce = cross_entropy(logits, labels, label_smoothing=0.05)
+    if supervise:
+        loss = loss + ce
+    metrics.update({"jasmin_loss": jasmin, "supervision_loss": ce,
+                    "loss": loss})
+    return loss, {"metrics": metrics, "logits": logits}
+
+
+def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
+                                 jasmin_k: int = 10,
+                                 mse_full_path: bool = True,
+                                 use_distillation: bool = True,
+                                 use_kl_loss: bool = False,
+                                 temperature: float = 30.0,
+                                 preprocess_fn: Optional[Callable] = None,
+                                 plain: bool = False, mesh=None,
+                                 teacher_cache: bool = False,
+                                 stash: bool = False):
+    """``step(state, batch, supervise=False) -> (state, metrics)`` for a
+    ``TrainState`` of ``student``; ``teacher`` is a ``ViTTeacher`` whose
+    forward runs without gradients. ``batch`` holds ``pixel_values``
+    [B, H, W, C] and ``labels`` [B] on the model's device. Metrics, as
+    tensors on the device: ``loss``, ``mse_loss``, ``mse_loss_t@i``,
+    ``kl_loss``, ``kl_nonfinite``, ``jasmin_loss``, ``supervision_loss``,
+    ``acc``, ``grad_norm`` (before the clip) and ``nonfinite``."""
+    if mesh is not None:
+        raise NotImplementedError("the data-parallel (mesh) step is not "
+                                  "ported yet (the host-side slice)")
+    if teacher_cache:
+        raise NotImplementedError("the teacher cache is not ported yet "
+                                  "(ROADMAP.md §1)")
+    if stash:
+        raise NotImplementedError("residual stashing is not ported yet "
+                                  "(its own slice, to be measured again)")
+
+    def step(state: TrainState, batch, supervise: bool = False) -> tuple:
+        if state.model is not student:
+            raise ValueError("the state was made for another model")
+        pixels = batch["pixel_values"]
+        if preprocess_fn is not None:
+            pixels = preprocess_fn(pixels)
+        with torch.no_grad():
+            t_out = teacher(pixels)
+        t_states = t_out["hidden_states"][1:]
+        t_attn_last = t_out["attentions"][-1]
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = fast_distill_forward(
+            student, pixels, batch["labels"], t_states, t_attn_last,
+            jasmin_k=jasmin_k, temperature=temperature,
+            lambda_param=lambda_param, mse_full_path=mse_full_path,
+            use_distillation=use_distillation, use_kl_loss=use_kl_loss,
+            supervise=supervise, plain=plain)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        metrics: Dict[str, torch.Tensor] = {
+            k: v.detach() for k, v in aux["metrics"].items()}
+        metrics["acc"] = accuracy(aux["logits"].detach(), batch["labels"])
+        metrics["grad_norm"] = grad_norm
+        metrics["nonfinite"] = 1.0 - torch.isfinite(metrics["loss"]).float()
         return state, metrics
 
     return step

@@ -63,10 +63,13 @@ class TrainState:
 
     def apply_gradients(self) -> torch.Tensor:
         """Clip the gradients the parameters hold, take one AdamW step and
-        return the global norm before the clip."""
+        return the global norm before the clip. A parameter that took no
+        part in the loss (the head of an unsupervised distillation step)
+        gets a zero gradient, as JAX gives it, so AdamW still decays it."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        if any(g is None for g in grads):
-            raise RuntimeError("every parameter needs a gradient")
         norm = global_norm(grads)
         if self.tx.clip_norm is not None:
             scale = (self.tx.clip_norm / norm).clamp(max=1.0)

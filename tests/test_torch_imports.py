@@ -73,6 +73,21 @@ def test_entry_points_need_a_gpu_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError):
         ServingEngine(m, batch_buckets=(1,))
     assert resolve_device("cpu") == torch.device("cpu")
+    # the distillation slice: the teacher, and the step built on a student
+    # and a teacher that were asked for the CPU
+    from odevit_tpu_torch.teacher.vit import ViTTeacher
+    from odevit_tpu_torch.train.fast_steps import \
+        make_fast_distill_train_step
+    small = dict(image_size=16, patch_size=4, hidden_size=32, num_layers=2,
+                 num_heads=2, mlp_dim=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ViTTeacher(**small)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ViTTeacher.dino_b16()
+    teacher = ViTTeacher(**small, device="cpu")
+    assert next(teacher.parameters()).device == torch.device("cpu")
+    assert callable(make_fast_distill_train_step(m, teacher,
+                                                 lambda_param=0.5))
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -114,4 +129,5 @@ def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
 
 
 def test_the_only_source_is_listed():
-    assert set(build.sources()) == {"vector_field", "vector_field_bwd"}
+    assert set(build.sources()) == {"vector_field", "vector_field_bwd",
+                                    "vector_field_tiled"}
