@@ -27,20 +27,33 @@ Phases:
      and through the plain path from the same weights; losses and the
      first gradient compared, launches counted, steps timed;
   7. the training kernels alone at B=1024 against their plain versions;
-  8. distillation kernels vs plain: the tiled route at the TS-Base shape
+  8. dropout masks: the generator kernel (``generate_dropout_masks``) at
+     B=1024 against the plain generator, bit for bit, for three seeds;
+     values, keep rates, and masks that change with seed, site, head and
+     image but not with the launch;
+  9. dropout kernels vs plain: the dropout instances of ``vf_eval``,
+     ``vf_eval_jasmin`` and ``vf_bwd`` (with and without the JaSMin
+     cotangent) at B=64 in bf16 and f32; repeated backwards bit-identical,
+     NaN padding inert, rates of 0 on the deterministic instance;
+  10. training with dropout (cell cifar100-vitode-train-drop0.1-b1024-bf16):
+     phase 6 at the recipe's dropout 0.1, through the kernels' dropout
+     instances and the plain path from the same weights and rng, beside
+     phase 6's img/s;
+  11. the dropout kernels and the generator alone at B=1024;
+  12. distillation kernels vs plain: the tiled route at the TS-Base shape
      (B=4, 207 tokens padded to 208, D=768, 12 heads, dh=768), in bf16 and
      f32: the forward in its plain, JaSMin (k=2) and attention-map modes,
      the backward with the dx cotangent, the JaSMin cotangent and the
      map cotangent, against their plain versions; statistics' columns on
      real keys, repeated backwards bit-identical, NaN padding inert;
-  9. distillation main path (cell tsref-distill-b64-bf16): 3 steps of
+  13. distillation main path (cell tsref-distill-b64-bf16): 3 steps of
      ``make_fast_distill_train_step`` (224 px TS-Base student, ViT-B/16
      teacher, Euler on 36 points, JaSMin k=2, L1 attention loss,
      supervised, B=64, bf16) through the kernels and through the plain
      path; losses and the first gradient compared, launches counted, the
      step timed and split, one step profiled;
-  10. the tiled kernels alone at B=64 against their plain versions;
-  11. the kernels line (launch counts of the main paths, times, bounds)
+  14. the tiled kernels alone at B=64 against their plain versions;
+  15. the kernels line (launch counts of the main paths, times, bounds)
      and the result line.
 
 Exits non-zero, printing no result line, when a phase fails or when there
@@ -59,6 +72,16 @@ import time
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense bf16).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit integer instructions outside the tensor cores issue on two pipes
+# of 64 lanes per SM each: multiplies (IMAD, IMAD.HI) on the FMA pipe,
+# additions, logic and compares (IADD3, LOP3, ISETP) on the ALU pipe; 132
+# SMs x 64 x 1.98 GHz per pipe. One Philox4x32-10 call (4 words) takes per
+# round two 32x32 -> 64 products, a low and a high half each: 40 on the FMA
+# pipe. The ALU pipe takes fewer: two three-way xors per round (20) and the
+# 4 keep compares. The key schedule depends on the site's seed only, so it
+# is per launch, not per call. The FMA pipe bounds the masks.
+PEAK_INT32_PIPE_OPS = 16.7e12
+PHILOX_FMA_PIPE_OPS = 40
 
 # Tolerances, as max|kernel - plain| / max|plain|.
 #  f32: the same arithmetic with sums in another order and erff for erf;
@@ -78,6 +101,13 @@ TOL_TRAIN_LOSS = 1e-2
 MIN_GRAD_COSINE = 0.99
 TRAIN_STEPS = 3
 JASMIN_K = 10
+# Dropout (configs/classification/evidence_free_cifar.yaml:53-55): attn,
+# proj and mlp rates; the step's rng; the generator's seeds (int32 edges
+# among them).
+DROP_RATES = (0.1, 0.1, 0.1)
+DROP_RNG = 0
+DROP_SEEDS = (-2 ** 31, -1, 1234567)
+MIN_KEEP, MAX_KEEP = 0.898, 0.902
 
 BATCH = 1024
 SHAPE = dict(img_size=32, patch_size=4, embed_dim=192, num_heads=3,
@@ -533,26 +563,30 @@ def profile_step(step, state, batch, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def phase_train(images_u8, rng):
-    """3 steps through the kernels and through the plain path from the
-    same weights and batch; then one more timed step of each, split into
-    forward and backward."""
-    import numpy as np
+def train_runs(images_u8, labels, drops=None):
+    """3 steps through the kernels and through the plain path from the same
+    weights and batch (with ``drops``, the model's dropout rates, and the
+    same rng); then one more step of each timed by CUDA events around its
+    parts, and one profiled step of the kernel path. Returns (runs,
+    profile, first-gradient cosine, loss differences, launches per
+    step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
     from odevit_tpu_torch.models.vit_ode import ViTODE
-    from odevit_tpu_torch.train.fast_steps import (fast_free_forward,
+    from odevit_tpu_torch.train.fast_steps import (draw_step_seeds,
+                                                   fast_free_forward,
                                                    make_fast_free_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
                                               make_optimizer)
     pre = make_preprocess(dtype=torch.bfloat16)
-    labels = torch.from_numpy(rng.integers(0, 100, BATCH)).cuda()
     batch = {"pixel_values": images_u8, "labels": labels}
+    rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), drops or ()))
+    rng = DROP_RNG if drops else None
     runs = {}
     for path in ("kernels", "plain"):
         model = ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
-                       dtype=torch.bfloat16, device="cuda", seed=0)
+                       dtype=torch.bfloat16, device="cuda", seed=0, **rates)
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_free_train_step(model, jasmin_k=JASMIN_K,
                                          preprocess_fn=pre,
@@ -564,7 +598,7 @@ def phase_train(images_u8, rng):
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
-            state, metrics = step(state, batch)
+            state, metrics = step(state, batch, rng=rng)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(metrics["loss"].item())
@@ -573,11 +607,14 @@ def phase_train(images_u8, rng):
         launches = dict(launch_counts) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
+        seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
+                 if drops else None)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state.optimizer.zero_grad(set_to_none=True)
         ev[0].record()
         loss, _ = fast_free_forward(model, pre(images_u8), labels,
-                                    jasmin_k=JASMIN_K, plain=path == "plain")
+                                    jasmin_k=JASMIN_K, step_seeds=seeds,
+                                    plain=path == "plain")
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -585,10 +622,12 @@ def phase_train(images_u8, rng):
         ev[3].record()
         torch.cuda.synchronize()
         if path == "kernels":
-            profile = profile_step(step, state, batch)
+            profile = profile_step(lambda s, b: step(s, b, rng=rng), state,
+                                   batch)
         runs[path] = {
             "loss": losses, "ms_per_step": ms,
             "img_per_s": BATCH / min(ms) * 1e3,
+            "img_per_s_best_of_2_3": BATCH / min(ms[1:]) * 1e3,
             "jasmin_loss_last": metrics["jasmin_loss"].item(),
             "grad_norm_last": metrics["grad_norm"].item(),
             "acc_last": metrics["acc"].item(), "peak_mem_gb": peak,
@@ -596,26 +635,40 @@ def phase_train(images_u8, rng):
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "first_grad": first_grad}
+        del model, state, step
     k, p = runs["kernels"], runs["plain"]
     cos = torch.nn.functional.cosine_similarity(
         k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
     per_step = {n: c / TRAIN_STEPS for n, c in k["launches"].items()}
+    return runs, profile, cos, loss_rel, per_step
+
+
+def check_train(name, runs, cos, loss_rel, per_step, want):
+    import numpy as np
+    k, p = runs["kernels"], runs["plain"]
+    check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
+          f"{name}: non-finite training loss")
+    check(max(loss_rel) <= TOL_TRAIN_LOSS, f"{name} losses: {loss_rel}")
+    check(cos >= MIN_GRAD_COSINE, f"{name}: first gradient cosine {cos}")
+    want = {**{n: 0 for n in per_step}, **want}
+    check(per_step == want, f"{name}: launches per step {per_step}, "
+          f"want {want}")
+
+
+def phase_train(images_u8, labels):
+    """Cell cifar100-vitode-train-b1024-bf16: the deterministic step."""
+    runs, profile, cos, loss_rel, per_step = train_runs(images_u8, labels)
     emit("train_profile", **profile)
     emit("train", batch=BATCH, steps=TRAIN_STEPS, solver="rk4-13",
          jasmin_k=JASMIN_K, first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
          loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
          launches_per_step=per_step, results=runs)
-    check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
-          "non-finite training loss")
-    check(max(loss_rel) <= TOL_TRAIN_LOSS, f"training losses: {loss_rel}")
-    check(cos >= MIN_GRAD_COSINE, f"first gradient cosine {cos}")
     # the CIFAR shape keeps the one-image-per-CTA kernels: the tiled
     # route's counters stay at 0
-    want = {**{n: 0 for n in per_step}, "vf_eval": 36, "vf_eval_jasmin": 12,
-            "vf_bwd": 48}
-    check(per_step == want, f"launches per step {per_step}, want {want}")
-    return k["launches"], runs
+    check_train("train", runs, cos, loss_rel, per_step,
+                {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48})
+    return runs["kernels"]["launches"], runs
 
 
 def phase_train_kernel_timing(model, images_u8):
@@ -681,6 +734,313 @@ def phase_train_kernel_timing(model, images_u8):
          f"dh=768 bf16", results=out)
     return out
 
+# --- dropout slice: the fused free step at the recipe's drop 0.1 --------
+
+def dropout_calls(b: int, n_real: int, d: int, dh: int, heads: int) -> int:
+    """Philox calls that one evaluation's masks need (real rows and keys,
+    4 columns per call): gelu(h), mlp_o, attn_o and the maps. The backward
+    draws the same masks once more."""
+    c4 = lambda w: -(-w // 4)
+    return b * n_real * (c4(dh) + 2 * c4(d) + heads * c4(n_real))
+
+
+def with_masks(bound, calls: int):
+    """(bound_ms, bound_by, bound_unit) of a kernel that also draws
+    ``calls`` Philox calls: the masks' busiest pipe runs beside the tensor
+    cores and the memory, so the bound is the larger of its time and the
+    kernel's own bound."""
+    t_int = calls * PHILOX_FMA_PIPE_OPS / PEAK_INT32_PIPE_OPS * 1e3
+    bound_ms, bound_by = bound
+    if t_int > bound_ms:
+        return t_int, "operations", "integer"
+    return bound_ms, bound_by, "tensor" if bound_by == "operations" \
+        else "bytes"
+
+
+def phase_dropout_masks(model):
+    """The generator kernel at the CIFAR shape, B=1024, against the plain
+    generator, bit for bit, for three seeds (int32 min and -1 among them);
+    values, keep rates, and masks that change with seed, site, head and
+    image but not with the launch."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.kernels.dropout import generate_dropout_masks
+    n = model.patch_embed.seq_len
+    rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), DROP_RATES))
+
+    def gen(seed, b=BATCH, img0=0, plain=False):
+        return generate_dropout_masks(b, n, 192, 768, 3, seed, img0=img0,
+                                      device="cuda", plain=plain, **rates)
+
+    names = ("mask_h", "mask_mo", "mask_ao", "mask_p")
+    scale = float(np.float32(1.0 / (1.0 - DROP_RATES[0])))
+    reset_launch_counts()
+    got = {seed: gen(seed) for seed in DROP_SEEDS}
+    torch.cuda.synchronize()
+    launches = launch_counts["dropout_masks"]
+    check(launches == len(DROP_SEEDS)
+          and sum(launch_counts.values()) == launches,
+          f"generator launches {dict(launch_counts)}")
+    results = {}
+    for seed, masks in got.items():
+        r = {}
+        for name, a, b in zip(names, masks, gen(seed, plain=True)):
+            values = torch.unique(a).tolist()
+            keep = (a > 0).float().mean().item()
+            r[name] = {"bit_identical": torch.equal(a, b),
+                       "values": values, "keep_rate": keep}
+            check(r[name]["bit_identical"],
+                  f"seed {seed} {name}: the kernel's mask differs")
+            check(values == [0.0, scale], f"seed {seed} {name}: {values}")
+            check(MIN_KEEP <= keep <= MAX_KEEP,
+                  f"seed {seed} {name}: keep rate {keep}")
+        results[str(seed)] = r
+    a, b = got[DROP_SEEDS[0]], got[DROP_SEEDS[1]]
+    part = gen(DROP_SEEDS[2], b=200, img0=100)
+    checks = {
+        "seed_changes_mask": all(not torch.equal(x, y) for x, y in zip(a, b)),
+        "site_changes_mask": not torch.equal(a[1], a[2]),
+        "head_changes_mask": not torch.equal(a[3][:, 0], a[3][:, 1])
+        and not torch.equal(a[3][:, 1], a[3][:, 2]),
+        "image_changes_mask": all(not torch.equal(m[0], m[1]) for m in a),
+        "same_seed_same_mask": all(torch.equal(x, y)
+                                   for x, y in zip(a, gen(DROP_SEEDS[0]))),
+        "images_100_300_alone_equal_the_slice": all(
+            torch.equal(x, y[100:300])
+            for x, y in zip(part, got[DROP_SEEDS[2]]))}
+    emit("dropout_masks", shape=f"B={BATCH} n={n} D=192 dh=768 H=3",
+         rates=DROP_RATES, seeds=DROP_SEEDS, launches=launches,
+         results=results, checks=checks)
+    check(all(checks.values()), f"dropout masks: {checks}")
+    return launches
+
+
+def phase_dropout_kernels_vs_plain(model):
+    """The dropout instances at B=64 against their plain versions, in bf16
+    and f32 (where a mask bit that differs would show far above the
+    tolerance)."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import vf_eval, vf_eval_jasmin
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    names = ("x", "norm_attn_scale", "norm_attn_bias", "norm_mlp_scale",
+             "norm_mlp_bias", "wqkv", "wout", "w1", "w2")
+    b, n_real = 64, model.patch_embed.seq_len
+    kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+    dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    before = dict(launch_counts)
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w, x, gx, gj = train_case(model, b, dtype, "random", g)
+        r = {"dtype": str(dtype), "tol": tol, "drops": DROP_RATES,
+             "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
+        counts = dict(launch_counts)
+        dx = vf_eval(x, w, **kw, **dkw)
+        pdx = vf_eval(x, w, plain=True, **kw, **dkw)
+        jdx, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw, **dkw)
+        pjdx, pst, _ = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True, **kw,
+                                      **dkw)
+        torch.cuda.synchronize()
+        routed = {k: launch_counts[k] - counts[k] for k in counts}
+        check(routed == {**{k: 0 for k in routed}, "vf_eval_drop": 1,
+                         "vf_eval_jasmin_drop": 1},
+              f"the dropout forward did not take its instance: {routed}")
+        det = vf_eval(x, w, **kw)
+        r["fwd"] = {"dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                    "jasmin_dx": rel_err(jdx[:, :n_real], pjdx[:, :n_real]),
+                    "stats": rel_err(st[..., :n_real], pst[..., :n_real])}
+        r["vs_deterministic"] = rel_err(dx[:, :n_real], det[:, :n_real])
+        check(max(r["fwd"].values()) <= tol,
+              f"dropout fwd {dtype}: {r['fwd']}")
+        check(r["vs_deterministic"] > 10 * tol,
+              f"dropout fwd {dtype} equals the deterministic one")
+        cols = idx[..., :n_real].long()
+        real = (cols >= 0) & (cols < n_real)
+        distinct = torch.stack([
+            torch.stack([cols[:, :, i] != cols[:, :, j]
+                         for j in range(4) if j != i]).all(0)
+            for i in range(4)], dim=2)
+        r["scatter"] = {"entries": cols.numel(),
+                        "hit_once": int((real & distinct).sum())}
+        check(r["scatter"]["hit_once"] == r["scatter"]["entries"],
+              f"dropout jasmin columns {dtype}: {r['scatter']}")
+        for jas in (False, True):
+            extra = dict(g_jas=gj, jas_idx=idx) if jas else {}
+            counts = dict(launch_counts)
+            got = vf_bwd(x, w, gx, **kw, **dkw, **extra)
+            again = vf_bwd(x, w, gx, **kw, **dkw, **extra)
+            want = vf_bwd(x, w, gx, plain=True, **kw, **dkw, **extra)
+            torch.cuda.synchronize()
+            check(launch_counts["vf_bwd_drop"] - counts["vf_bwd_drop"] == 2
+                  and launch_counts["vf_bwd"] == counts["vf_bwd"],
+                  "the dropout backward did not take its instance")
+            errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                b_[:, :n_real] if nm == "x" else b_)
+                    for nm, a, b_ in zip(names, got, want)}
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            r["bwd_jas" if jas else "bwd"] = errs
+            r["repeat_bit_identical" + ("_jas" if jas else "")] = same
+            check(max(errs.values()) <= tol,
+                  f"dropout bwd {dtype} jas={jas}: {errs}")
+            check(same, f"dropout bwd {dtype} jas={jas} not repeatable")
+        # garbage and NaN in the padded rows change no real row
+        dirty = x.clone()
+        dirty[:, n_real:n_real + 5] = float("nan")
+        dirty[:, n_real + 5:] = 1e30
+        gdirty = gx.clone()
+        gdirty[:, n_real:] = 7.0
+        ddx = vf_eval(dirty, w, **kw, **dkw)
+        djdx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=JASMIN_K, **kw,
+                                         **dkw)
+        dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx, **kw, **dkw)
+        cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw, **dkw)
+        torch.cuda.synchronize()
+        same = (torch.equal(ddx[:, :n_real], dx[:, :n_real])
+                and torch.equal(djdx[:, :n_real], jdx[:, :n_real])
+                and torch.equal(dst, st) and torch.equal(didx, idx)
+                and all(torch.equal(a, c) for a, c in zip(dbars, cbars)))
+        r["nan_padding_unchanged"] = same
+        check(same, f"dropout {dtype}: padded rows reached a real row")
+        results.append(r)
+    # sites of rate 0 beside sites with dropout (f32: exact masks)
+    for drops in ((0.0, 0.3, 0.0), (0.2, 0.0, 0.1)):
+        mixed = dict(seed=DROP_SEEDS[0], drops=drops)
+        errs = [rel_err(a[:, :n_real], b_[:, :n_real]) for a, b_ in zip(
+            (vf_eval(x, w, **kw, **mixed),
+             vf_bwd(x, w, gx, **kw, **mixed)[0]),
+            (vf_eval(x, w, plain=True, **kw, **mixed),
+             vf_bwd(x, w, gx, plain=True, **kw, **mixed)[0]))]
+        results.append({"dtype": str(x.dtype), "drops": drops,
+                        "fwd_and_xbar": errs})
+        check(max(errs) <= TOL_F32, f"dropout {drops}: {errs}")
+    # rates of 0 with a seed take the deterministic instance
+    counts = dict(launch_counts)
+    zero = vf_eval(x, w, seed=5, drops=(0.0, 0.0, 0.0), **kw)
+    torch.cuda.synchronize()
+    routed = {k: launch_counts[k] - counts[k] for k in counts}
+    ok = (routed == {**{k: 0 for k in routed}, "vf_eval": 1}
+          and torch.equal(zero, vf_eval(x, w, **kw)))
+    results.append({"rates_0_with_seed": routed, "deterministic": ok})
+    check(ok, f"rates of 0 did not take the deterministic instance: {routed}")
+    launch_counts.update(before)           # comparisons do not count
+    emit("dropout_kernels_vs_plain", results=results)
+
+
+def phase_train_dropout(images_u8, labels, det):
+    """Cell cifar100-vitode-train-drop0.1-b1024-bf16: the free step with
+    the recipe's dropout, through the kernels' dropout instances and
+    through the plain path, from the same weights and rng; beside the
+    deterministic step's img/s of this run (``det``)."""
+    runs, profile, cos, loss_rel, per_step = train_runs(images_u8, labels,
+                                                        DROP_RATES)
+    k, p = runs["kernels"], runs["plain"]
+    emit("train_dropout_profile", **profile)
+    emit("train_dropout", cell="cifar100-vitode-train-drop0.1-b1024-bf16",
+         batch=BATCH, steps=TRAIN_STEPS, solver="rk4-13", jasmin_k=JASMIN_K,
+         drops=DROP_RATES, rng=DROP_RNG,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         deterministic_img_per_s=det["kernels"]["img_per_s_best_of_2_3"],
+         split_ms=k["split_ms"], busy_share=profile["busy_share"],
+         first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         launches_per_step=per_step, results=runs)
+    check_train("train_dropout", runs, cos, loss_rel, per_step,
+                {"vf_eval_drop": 36, "vf_eval_jasmin_drop": 12,
+                 "vf_bwd_drop": 48})
+    return k["launches"]
+
+
+def phase_dropout_kernel_timing(model, images_u8):
+    """Each dropout kernel alone at B=1024 on the main path's first state,
+    against its plain version; the generator also against torch's
+    ``bernoulli_`` over as many elements (the same distribution, other
+    bits)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import generate_dropout_masks
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    before = dict(launch_counts)
+    d, dh, heads = 192, 768, 3
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            dtype=torch.bfloat16)(images_u8))
+        n_real = tokens.shape[1]
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+        rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), DROP_RATES))
+        g = torch.Generator(device="cuda").manual_seed(7)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        _, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw, **dkw)
+        gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        calls = dropout_calls(BATCH, n_real, d, dh, heads)
+        elements = BATCH * n_real * (dh + 2 * d + heads * n_real)
+        jobs = {
+            "vf_eval_drop": (
+                lambda pl: vf_eval(x, w, plain=pl, **kw, **dkw),
+                with_masks(vf_bound(BATCH, n_real, d, dh, 2), calls)),
+            "vf_eval_jasmin_drop": (
+                lambda pl: vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=pl,
+                                          **kw, **dkw),
+                with_masks(jasmin_bound(BATCH, n_real, d, dh, heads, 2,
+                                        JASMIN_K + 1), calls)),
+            "vf_bwd_drop": (
+                lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=pl,
+                                  **kw, **dkw),
+                with_masks(bwd_bound(BATCH, n_real, d, dh, heads, 2), calls)),
+            "dropout_masks": (
+                lambda pl: generate_dropout_masks(
+                    BATCH, n_real, d, dh, heads, DROP_SEEDS[2],
+                    device="cuda", plain=pl, **rates),
+                with_masks((elements * 4 / PEAK_BYTES_PER_S * 1e3, "bytes"),
+                           calls))}
+        out = {}
+        for name, (fn, (bound_ms, bound_by, unit)) in jobs.items():
+            got, want = fn(False), fn(True)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs, abs_err = [], 0.0
+            for a, b_ in zip(got, want):
+                if a.dtype == torch.int32:
+                    continue
+                real = a[:, :n_real] if a.dim() == 3 and name != \
+                    "dropout_masks" else a
+                ref = b_[:, :n_real] if b_.dim() == 3 and name != \
+                    "dropout_masks" else b_
+                errs.append(rel_err(real, ref))
+                abs_err = max(abs_err, (real.float() - ref.float()).abs()
+                              .max().item())
+            check(max(errs) <= TOL_BF16, f"B={BATCH} {name}: {errs}")
+            out[name] = {"max_abs_err": abs_err, "rel_errs": errs,
+                         "ms": cuda_ms(lambda: fn(False), iters=10),
+                         "plain_ms": cuda_ms(lambda: fn(True), iters=2),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "bound_unit": unit, "library_ms": None}
+        check(out["dropout_masks"]["max_abs_err"] == 0.0,
+              "the generator is not bit-identical at B=1024")
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        flat = torch.empty(elements, device="cuda")
+        out["dropout_masks"]["library_ms"] = cuda_ms(
+            lambda: flat.bernoulli_(1.0 - DROP_RATES[0], generator=gen),
+            iters=10)
+    launch_counts.update(before)           # comparisons do not count
+    emit("dropout_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 "
+         f"H=3 dh=768 bf16", drops=DROP_RATES, philox_calls=calls,
+         results=out)
+    return out
+
 # --- distillation slice: the tiled route at the TS-Base shape -----------
 
 DISTILL_BATCH = 64
@@ -688,8 +1048,7 @@ DISTILL_K = 2                      # the recipe's jasmin_k
 # the tiled route's counters on the distillation main path, per step:
 # 5 plain evaluations before the JaSMin window, 29 in it, the final
 # evaluation with its maps, and 35 backwards
-DISTILL_LAUNCHES = {"vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0,
-                    "vf_eval_tiled": 5, "vf_eval_jasmin_tiled": 29,
+DISTILL_LAUNCHES = {"vf_eval_tiled": 5, "vf_eval_jasmin_tiled": 29,
                     "vf_eval_attn": 1, "vf_bwd_tiled": 35}
 
 
@@ -937,8 +1296,8 @@ def phase_distill(teacher, images_u8, labels):
           "non-finite distillation loss")
     check(max(loss_rel) <= TOL_TRAIN_LOSS, f"distillation losses: {loss_rel}")
     check(cos >= MIN_GRAD_COSINE, f"distillation gradient cosine {cos}")
-    check(per_step == DISTILL_LAUNCHES,
-          f"launches per step {per_step}, want {DISTILL_LAUNCHES}")
+    want = {**{n: 0 for n in per_step}, **DISTILL_LAUNCHES}
+    check(per_step == want, f"launches per step {per_step}, want {want}")
     return k["launches"]
 
 
@@ -1038,8 +1397,14 @@ def main() -> int:
     timing = phase_vf_timing(models["euler-49"], x)
     phase_serving(models["euler-49"], rng)
     phase_train_kernels_vs_plain(models["rk4-13"])
-    train_launches, _ = phase_train(images, rng)
+    labels = torch.from_numpy(rng.integers(0, 100, BATCH)).cuda()
+    train_launches, train = phase_train(images, labels)
     train_timing = phase_train_kernel_timing(models["rk4-13"], images)
+    # the dropout slice at the CIFAR shape
+    mask_launches = phase_dropout_masks(models["rk4-13"])
+    phase_dropout_kernels_vs_plain(models["rk4-13"])
+    drop_launches = phase_train_dropout(images, labels, train)
+    drop_timing = phase_dropout_kernel_timing(models["rk4-13"], images)
     del models
     # the distillation slice at the TS-Base shape
     from odevit_tpu_torch.teacher.vit import ViTTeacher
@@ -1086,6 +1451,22 @@ def main() -> int:
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")},
             "library_ms": None})
+    for name, source, replaces in (
+            ("vf_eval_drop", "vector_field.cu", "vector_field.py:196"),
+            ("vf_eval_jasmin_drop", "vector_field.cu", "vector_field.py:196"),
+            ("vf_bwd_drop", "vector_field_bwd.cu", "vector_field_bwd.py:117"),
+            ("dropout_masks", "dropout_masks.cu", "vector_field.py:121")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"odevit_tpu_torch/csrc/{source}",
+            "replaces": f"odevit_tpu/kernels/{replaces}",
+            # the generator's path is generate_dropout_masks (the
+            # dropout_masks phase); the others', the dropout train step
+            "launches": (mask_launches if name == "dropout_masks"
+                         else drop_launches[name]),
+            **{k: v for k, v in drop_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bound_unit", "library_ms")}})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 // One evaluation of the ODE-ViT vector field, fused into one CUDA kernel.
 //
 // Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
-// (its plain, Euler, stage-advance and JaSMin-statistics modes) on Hopper
-// (sm_90a).
+// (its plain, Euler, stage-advance and JaSMin-statistics modes, and the
+// dropout of the plain and JaSMin modes) on Hopper (sm_90a).
 //
 //   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
 //   plain : out = f(x)
@@ -34,7 +34,12 @@
 // D=192, 3 heads, dh=768) one evaluation needs about 64.7 MFLOP per
 // image, 66 GFLOP in all: 67 us at the H100's 989 TFLOP/s in bf16. Its
 // state traffic is about 54 MB in and out, 16 us at 3.35 TB/s. So the
-// kernel is bound by tensor-core operations once it is good.
+// kernel is bound by tensor-core operations once it is good. With dropout
+// 0.1 the masks take 23.6 k Philox calls per image (real rows and keys),
+// 24.2 M per launch. Their busiest pipe is the FMA pipe, which takes the
+// 40 multiply halves of each call (the xors and compares go to the ALU
+// pipe, the key schedule is per site): 58 us at 64 lanes per SM, below
+// the products' 67 us, which still bind.
 //
 // Design. One CTA per image keeps the whole evaluation in shared memory:
 // only x (and base) come in and only the new state goes out. The MLP runs
@@ -275,6 +280,88 @@ __device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
     }
 }
 
+// ---- dropout: one counter-based stream (kernels/dropout.py) ----
+// A keep bit is a pure function of (seed, site, image, row, column), so the
+// forward, the backward and the generator (dropout_masks.cu) draw the same
+// bits whatever their grids. Philox4x32-10 with key = (the site's seed,
+// kPhiloxKeyHi) and counter = (image, row, column / 4, 0); word column % 4
+// of the output; keep where bits >= the site's threshold, kept values
+// scaled by 1 / (1 - rate). Sites: gelu(h) 0, mlp_o 1, attn_o 2, the maps
+// of head h 3 + h. Only real rows and real keys are drawn: padding is 0.
+
+constexpr unsigned kSeedGold = 0x9E3779B9u;
+constexpr unsigned kPhiloxKeyHi = 0x6F766974u;
+constexpr int kSiteH = 0, kSiteMlpOut = 1, kSiteAttnOut = 2, kSiteP = 3;
+
+// One evaluation's dropout (ctypes: kernels/dropout.py::Drop). th_*: keep
+// thresholds, 0 where the site has no dropout; sc_*: kept values. p: the
+// attention maps (attn_drop); ao: attn_o (proj_drop); m: gelu(h) and mlp_o
+// (mlp_drop).
+struct Drop {
+  unsigned seed;
+  unsigned th_p, th_ao, th_m;
+  float sc_p, sc_ao, sc_m;
+};
+
+// seed + 0x9E3779B9 * (site + 1), wrapping as int32 does
+__host__ __device__ inline unsigned site_key(unsigned seed, int site) {
+  return seed + kSeedGold * (unsigned)(site + 1);
+}
+
+__device__ __forceinline__ uint4 philox(unsigned key, unsigned img,
+                                        unsigned row, unsigned col4) {
+  unsigned c0 = img, c1 = row, c2 = col4, c3 = 0u;
+  unsigned k0 = key, k1 = kPhiloxKeyHi;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return make_uint4(c0, c1, c2, c3);
+}
+
+// m[j]: the kept value of column 4 g + j of one real row: `sc` where kept,
+// 0 where dropped or at a column >= n_valid (a padded key).
+__device__ __forceinline__ void keep4(unsigned key, unsigned img, int row,
+                                      int g, int n_valid, unsigned th,
+                                      float sc, float m[4]) {
+  const uint4 b = philox(key, img, row, g);
+  const unsigned w[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    m[j] = 4 * g + j < n_valid && w[j] >= th ? sc : 0.0f;
+}
+
+// The keep bits of one real row of `ncols` columns, by one warp: column
+// group g = 32 i + lane (columns 4 g .. 4 g + 3) sets bit `lane` of word
+// 4 i + j for column 4 g + j. 4 * ceil(ncols / 128) words per row.
+__device__ void keep_bits_row(unsigned key, unsigned img, int row, int ncols,
+                              int n_valid, unsigned th, unsigned* words) {
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; 128 * i < ncols; ++i) {
+    const int g = 32 * i + lane;
+    float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (4 * g < n_valid) keep4(key, img, row, g, n_valid, th, 1.0f, m);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned word = __ballot_sync(0xffffffffu, m[j] != 0.0f);
+      if (lane == 0) words[4 * i + j] = word;
+    }
+  }
+}
+
+__device__ __forceinline__ bool kept(const unsigned* words, int c) {
+  return (words[(c >> 7) * 4 + (c & 3)] >> ((c >> 2) & 31)) & 1u;
+}
+
 }  // namespace vf
 
 #ifndef VF_HELPERS_ONLY
@@ -288,23 +375,27 @@ constexpr int kChunks[] = {128, 64, 32, 16};
 struct Shape {
   int n_pad, n_real, d, heads, hd, dh, hc;
   int qkv_fused;  // 1: q, k and v of a head come from one product
+  int drop;       // 1: the dropout instance's plan
 };
 
 // Shared-memory layout of one CTA: byte offsets and row strides (in
 // elements). Every row is padded by 16 bytes, so consecutive rows start in
 // different banks and fragment loads are free of bank conflicts. The f32
 // accumulator lives in shared memory for bf16 and in the (unpadded) output
-// buffer for f32.
+// buffer for f32. The dropout instance also keeps attn_o's keep bits, and
+// in bf16 takes each head's attn_o product in `stage` (so it is >= D wide);
+// in f32 that product goes to a global scratch.
 struct Plan {
-  size_t cn, stage, hbuf, q, k, v, p, acc, total;
-  int ld_cn, ld_stage, ld_h, ld_qkv, ld_p, ld_acc;
+  size_t cn, stage, hbuf, q, k, v, p, acc, bits, total;
+  int ld_cn, ld_stage, ld_h, ld_qkv, ld_p, ld_acc, ld_bits;
 };
 
 __host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
   const int pad = 16 / tbytes;
   Plan p;
   p.ld_cn = s.d + pad;
-  p.ld_stage = imax(imax(s.hc, s.qkv_fused ? 3 * s.hd : s.hd), s.n_pad) + 4;
+  p.ld_stage = imax(imax(imax(s.hc, s.qkv_fused ? 3 * s.hd : s.hd), s.n_pad),
+                    s.drop && tbytes == 2 ? s.d : 0) + 4;
   p.ld_h = imax(s.hc, s.hd) + pad;
   p.ld_qkv = s.hd + pad;
   p.ld_p = s.n_pad + pad;
@@ -320,6 +411,9 @@ __host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
   p.p = off;     off += align128(n * p.ld_p * tbytes);
   p.acc = off;
   if (tbytes == 2) off += align128(n * p.ld_acc * 4);
+  p.bits = off;
+  p.ld_bits = 4 * ((s.d + 127) / 128);
+  if (s.drop) off += align128(n * p.ld_bits * 4);
   p.total = off;
   return p;
 }
@@ -377,9 +471,20 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
   }
 }
 
-// kJas: the JaSMin-statistics mode, compiled apart so that the other
-// modes keep their registers.
-template <typename T, bool kJas>
+// kJas: the JaSMin-statistics mode; kDrop: dropout. Each is compiled apart
+// so that the other modes keep their registers.
+//
+// Dropout (kDrop), at the sites the TPU kernel uses: h = round(round(
+// gelu(h1)) * mask_h) per chunk; mlp_o * mask_mo, applied to the
+// accumulator in place after the MLP loop; p = round(p * mask_p) per head
+// after the JaSMin statistics, which stay those of the pre-dropout p; and
+// attn_o * mask_ao. attn_o is a sum over heads that meets mlp_o in one
+// accumulator, so each head's Wout product goes to `ao` (`stage` in bf16,
+// a global scratch in f32) and is added masked: acc += mask_ao * ctx_h
+// Wout_h. That sums attn_o in another order than (sum_h ctx_h Wout_h) *
+// mask_ao; the f32 difference is rounding. attn_o's keep bits are drawn
+// once, before the heads, into shared memory.
+template <typename T, bool kJas, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           T* out, float* acc_global,  // may alias (f32: acc is out)
@@ -388,7 +493,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           const T* __restrict__ wqkv, const T* __restrict__ wout,
           const T* __restrict__ w1, const T* __restrict__ w2,
           float* __restrict__ jas, int* __restrict__ jas_idx, int jas_kk,
-          Shape s, float scaler, float coef, float qk_scale, int mode) {
+          Shape s, float scaler, float coef, float qk_scale, int mode,
+          Drop drop, float* __restrict__ ao_global) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan pl = make_plan(s, sizeof(T));
   T* cn = reinterpret_cast<T*>(smem + pl.cn);
@@ -398,9 +504,11 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
   T* k = reinterpret_cast<T*>(smem + pl.k);
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* p = reinterpret_cast<T*>(smem + pl.p);
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + pl.bits);
 
   const int n = s.n_pad, d = s.d, hd = s.hd, hc = s.hc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned b = blockIdx.x;
   const size_t img = (size_t)blockIdx.x * n * d;
   const T* xi = x + img;
   float* acc = sizeof(T) == 2 ? reinterpret_cast<float*>(smem + pl.acc)
@@ -413,13 +521,49 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
     mm<false, false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false,
                      n, hc, d);
     __syncthreads();
-    for (int r = warp; r < n; r += kWarps)
-      for (int c = lane; c < hc; c += 32)
-        hbuf[r * pl.ld_h + c] = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+    if (kDrop && drop.th_m) {
+      const unsigned key = site_key(drop.seed, kSiteH);
+      for (int r = warp; r < n; r += kWarps)
+        for (int g = lane; 4 * g < hc; g += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (r < s.n_real)
+            keep4(key, b, r, (c0 >> 2) + g, s.dh, drop.th_m, drop.sc_m, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = 4 * g + j;
+            const T h = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+            hbuf[r * pl.ld_h + c] = from_f<T>(to_f(h) * m[j]);
+          }
+        }
+    } else {
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hc; c += 32)
+          hbuf[r * pl.ld_h + c] = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+    }
     __syncthreads();
     mm<false, false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc,
                      c0 > 0, n, d, hc);
     __syncthreads();
+  }
+  if (kDrop && drop.th_m) {
+    // acc = mlp_o * mask_mo
+    const unsigned key = site_key(drop.seed, kSiteMlpOut);
+    for (int r = warp; r < n; r += kWarps)
+      for (int g = lane; 4 * g < d; g += 32) {
+        float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (r < s.n_real) keep4(key, b, r, g, d, drop.th_m, drop.sc_m, m);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[r * pl.ld_acc + 4 * g + j] *= m[j];
+      }
+  }
+  if (kDrop && drop.th_ao) {
+    const unsigned key = site_key(drop.seed, kSiteAttnOut);
+    for (int r = warp; r < n; r += kWarps) {
+      if (r < s.n_real)
+        keep_bits_row(key, b, r, d, d, drop.th_ao, bits + r * pl.ld_bits);
+      else
+        for (int i = lane; i < pl.ld_bits; i += 32) bits[r * pl.ld_bits + i] = 0;
+    }
   }
 
   // attention branch, head by head: acc += ctx_h Wout[h*hd:(h+1)*hd, :]
@@ -456,13 +600,43 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
       jas_stats_rows(p, pl.ld_p, n, s.n_real, jas_kk, jas + bh * 5 * n,
                      jas_idx + bh * 4 * n);
     }
+    if (kDrop && drop.th_p) {
+      if (kJas) __syncthreads();  // the statistics read the pre-dropout p
+      const unsigned key = site_key(drop.seed, kSiteP + h);
+      for (int r = warp; r < n; r += kWarps)
+        for (int g = lane; 4 * g < n; g += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (r < s.n_real)
+            keep4(key, b, r, g, s.n_real, drop.th_p, drop.sc_p, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            T* pj = p + r * pl.ld_p + 4 * g + j;
+            *pj = from_f<T>(to_f(*pj) * m[j]);
+          }
+        }
+      __syncthreads();
+    }
     mm<false, false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n,
                      hd, n);
     __syncthreads();
     round_block(stage, pl.ld_stage, hbuf, pl.ld_h, n, hd, n);
     __syncthreads();
-    mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc,
-                     pl.ld_acc, true, n, d, hd);
+    if (kDrop && drop.th_ao) {
+      // acc += mask_ao * ctx_h Wout_h
+      float* ao = sizeof(T) == 2 ? stage : ao_global + img;
+      const int ld_ao = sizeof(T) == 2 ? pl.ld_stage : d;
+      mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, ao, ld_ao,
+                       false, n, d, hd);
+      __syncthreads();
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < d; c += 32)
+          acc[r * pl.ld_acc + c] +=
+              ao[r * ld_ao + c] *
+              (kept(bits + r * pl.ld_bits, c) ? drop.sc_ao : 0.0f);
+    } else {
+      mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc,
+                       pl.ld_acc, true, n, d, hd);
+    }
     __syncthreads();
   }
 
@@ -478,9 +652,9 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
 }
 
 Shape make_shape(int n_pad, int n_real, int d, int heads, int dh, int hc,
-                 int qkv_fused) {
-  return Shape{n_pad, n_real, d,  heads, heads > 0 ? d / heads : 0,
-               dh,    hc,     qkv_fused};
+                 int qkv_fused, int drop) {
+  return Shape{n_pad, n_real, d,  heads,     heads > 0 ? d / heads : 0,
+               dh,    hc,     qkv_fused, drop};
 }
 
 bool shape_ok(const Shape& s) {
@@ -490,14 +664,16 @@ bool shape_ok(const Shape& s) {
          s.n_real <= s.n_pad;
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int launch(const void* x, const void* base, void* out, void* acc,
            const float* ga, const float* ba, const float* gm,
            const float* bm, const void* wqkv, const void* wout,
            const void* w1, const void* w2, void* jas, void* jas_idx,
            int jas_kk, int batch, int smem, Shape s, float scaler,
-           float coef, float qk_scale, int mode, cudaStream_t st) {
-  auto kernel = jas_kk > 0 ? vf_kernel<T, true> : vf_kernel<T, false>;
+           float coef, float qk_scale, int mode, const Drop& drop, void* ao,
+           cudaStream_t st) {
+  auto kernel =
+      jas_kk > 0 ? vf_kernel<T, true, kDrop> : vf_kernel<T, false, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -507,7 +683,7 @@ int launch(const void* x, const void* base, void* out, void* acc,
       static_cast<const T*>(wqkv), static_cast<const T*>(wout),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk, s,
-      scaler, coef, qk_scale, mode);
+      scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao));
   return (int)cudaGetLastError();
 }
 
@@ -517,13 +693,15 @@ extern "C" {
 
 // Chooses the plan of one CTA: whether q, k and v of a head come from one
 // product, the MLP chunk width and the shared memory, preferring the
-// fused q|k|v product and wide chunks. Returns 0 when the shape has a
-// plan, 1 when it has none (the wrapper raises).
+// fused q|k|v product and wide chunks. `drop` asks for the dropout
+// instance's plan. Returns 0 when the shape has a plan, 1 when it has none
+// (the wrapper raises).
 int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-            int* qkv_fused_out, int* hc_out, int* smem_out) {
+            int drop, int* qkv_fused_out, int* hc_out, int* smem_out) {
   for (int fused = 1; fused >= 0; --fused) {
     for (int hc : kChunks) {
-      const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, fused);
+      const Shape s =
+          make_shape(n_pad, n_real, d, heads, dh, hc, fused, drop != 0);
       if (!shape_ok(s) || dh % hc) continue;
       const Plan p = make_plan(s, tbytes);
       if (p.total <= (size_t)kMaxSmem) {
@@ -540,23 +718,30 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // Launches one evaluation on `stream`; returns cudaGetLastError() after
 // the launch (0 on success). mode: 0 plain, 1 euler, 2 base. jas_kk > 0
 // also writes the JaSMin statistics ([B, H, 5, n_pad] f32) and their
-// columns ([B, H, 4, n_pad] int32) of kk = k + 1 extraction passes.
+// columns ([B, H, 4, n_pad] int32) of kk = k + 1 extraction passes. A
+// non-null `drop` launches the dropout instance (planned with drop=1);
+// in f32 it takes `ao`, a [B * n_pad, D] f32 scratch.
 int vf_launch(int tbytes, const void* x, const void* base, void* out,
               void* acc, const float* ga, const float* ba, const float* gm,
               const float* bm, const void* wqkv, const void* wout,
               const void* w1, const void* w2, int batch, int n_pad,
               int n_real, int d, int heads, int dh, int qkv_fused, int hc,
               int smem, float scaler, float coef, float qk_scale, int mode,
-              void* jas, void* jas_idx, int jas_kk, void* stream) {
-  const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused);
+              void* jas, void* jas_idx, int jas_kk, const Drop* drop,
+              void* ao, void* stream) {
+  const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused,
+                             drop != nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return tbytes == 2
-             ? launch<bf16>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1,
-                            w2, jas, jas_idx, jas_kk, batch, smem, s, scaler,
-                            coef, qk_scale, mode, st)
-             : launch<float>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout,
-                             w1, w2, jas, jas_idx, jas_kk, batch, smem, s,
-                             scaler, coef, qk_scale, mode, st);
+  const Drop none = {};
+  const Drop& dr = drop != nullptr ? *drop : none;
+#define VF_LAUNCH(T, D)                                                    \
+  launch<T, D>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1, w2, jas, \
+               jas_idx, jas_kk, batch, smem, s, scaler, coef, qk_scale,    \
+               mode, dr, ao, st)
+  if (tbytes == 2)
+    return drop != nullptr ? VF_LAUNCH(bf16, true) : VF_LAUNCH(bf16, false);
+  return drop != nullptr ? VF_LAUNCH(float, true) : VF_LAUNCH(float, false);
+#undef VF_LAUNCH
 }
 
 const char* vf_error_string(int code) {

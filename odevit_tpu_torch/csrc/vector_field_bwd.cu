@@ -2,10 +2,11 @@
 // (sm_90a).
 //
 // Replaces the TPU kernel
-// odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (plain, and with
-// the JaSMin-statistics cotangent). Given x, the weights and the dx
-// cotangent g (and optionally the cotangent of the JaSMin statistics with
-// the columns the forward took them from), it produces x_bar and the 8
+// odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (plain, with the
+// JaSMin-statistics cotangent, and with dropout). Given x, the weights and
+// the dx cotangent g (and optionally the cotangent of the JaSMin
+// statistics with the columns the forward took them from, and the
+// forward's dropout seed and rates), it produces x_bar and the 8
 // cotangents of the norms and weight matrices, in float32:
 //
 //   dx = (MLP(cn_m) + Attn(cn_a)) * scaler,   gd = round(g * scaler)
@@ -37,7 +38,9 @@
 // Bound. At the training shape (B=1024, 69 real tokens padded to 80,
 // D=192, 3 heads, dh=768) the backward recomputes the forward's products
 // and does two for each of them: about 2.6x the forward's 66 GFLOP, 0.17
-// ms at the H100's 989 TFLOP/s in bf16. Operations, not bytes, bound it.
+// ms at the H100's 989 TFLOP/s in bf16. Operations, not bytes, bound it;
+// with dropout the masks' integer work (the forward's, 58 us on its
+// busiest pipe) stays below.
 //
 // Design: three launches, all deterministic.
 //  1. vfb_rows: one CTA of 12 warps per image, as the forward kernel:
@@ -80,6 +83,7 @@ struct Args {
   void* cnm;               // [B*n_pad, D]   scratch, x's dtype
   void* cna;               // [B*n_pad, D]
   void* gd;                // [B*n_pad, D]
+  void* gd2;               // [B*n_pad, D]   dropout: attn's gd, else null
   void* ctx;               // [B*n_pad, D]
   void* h;                 // [B*n_pad, dh]
   void* h1b;               // [B*n_pad, dh]
@@ -91,6 +95,7 @@ struct Args {
   int batch, n_pad, n_real, d, heads, dh;
   int cn_smem, hc, smem, splits;
   float scaler, qk_scale;
+  Drop drop;               // all zeros: the deterministic instance
 };
 
 namespace {
@@ -101,16 +106,18 @@ constexpr int kRowStep = 32;     // rows per staged chunk
 constexpr int kWThreads = 128;   // 4 warps, 32x32 of the tile each
 
 struct Plan {
-  size_t cn, gd, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
-      abar, total;
+  size_t cn, gd, gd2, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
+      pbits, abar, total;
   int ld_cn, ld_st_m, ld_hb, ld_st_a, ld_pf, ld_p, ld_hd, ld_abar;
 };
 
 // Shared memory of one CTA: cn and gd (unless they stay in global
-// scratch), the row means, then a region used by the MLP phase (two f32
-// stages and the rounded h1_bar chunk) and again by the attention phase.
+// scratch; with dropout also the attention's gd2), the row means, then a
+// region used by the MLP phase (two f32 stages and the rounded h1_bar
+// chunk) and again by the attention phase (with dropout also the keep bits
+// of one head's map, 4 words per row).
 __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
-                                          int cn_smem, int tb) {
+                                          int cn_smem, int tb, bool drop) {
   const int pad = 16 / tb;
   Plan p;
   p.ld_cn = cn_smem ? d + pad : d;
@@ -124,10 +131,13 @@ __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
   size_t off = 0;
   p.cn = off;
   p.gd = off;
+  p.gd2 = off;
   if (cn_smem) {
     off += align128((size_t)n * p.ld_cn * tb);
     p.gd = off;
     off += align128((size_t)n * p.ld_cn * tb);
+    p.gd2 = off;
+    if (drop) off += align128((size_t)n * p.ld_cn * tb);
   }
   p.mean = off;  off += align128((size_t)n * 4);
   size_t m = off;
@@ -142,6 +152,8 @@ __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
   p.k = a;      a += align128((size_t)n * p.ld_hd * tb);
   p.v = a;      a += align128((size_t)n * p.ld_hd * tb);
   p.cb = a;     a += align128((size_t)n * p.ld_hd * tb);
+  p.pbits = a;
+  if (drop) a += align128((size_t)n * 4 * 4);
   p.abar = off;
   const size_t e = off + align128((size_t)n * p.ld_abar * 4);
   p.total = m > a ? m : a;
@@ -149,12 +161,22 @@ __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
   return p;
 }
 
-template <typename T>
+// kDrop: dropout, compiled apart so that the deterministic instance keeps
+// its registers. The forward's masks are drawn again from the same (seed,
+// site, image, row, column), as the TPU kernel regenerates them, and
+// applied where the XLA twin applies them: two operands, gd = round(g *
+// scaler * mask_mo) for the MLP and W2_bar, gd2 = round(g * scaler *
+// mask_ao) for the attention and Wout_bar; h = round(round(gelu(h1)) *
+// mask_h) and h_bar * mask_h; p = round(round(p) * mask_p) for ctx and
+// v_bar, p_bar * mask_p before the JaSMin scatter, which with s_bar stays
+// on the pre-dropout p.
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = args.n_pad, n_real = args.n_real, d = args.d;
   const int heads = args.heads, hd = d / heads, dh = args.dh, hc = args.hc;
-  const Plan pl = make_plan(n, d, hd, hc, args.cn_smem, sizeof(T));
+  const Plan pl = make_plan(n, d, hd, hc, args.cn_smem, sizeof(T), kDrop);
+  const Drop& dr = args.drop;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x;
   const size_t row0 = (size_t)b * n;
@@ -174,17 +196,48 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   float* macc = args.macc + row0 * d;
   float* mean = reinterpret_cast<float*>(smem + pl.mean);
   T* gd = args.cn_smem ? reinterpret_cast<T*>(smem + pl.gd) : gd_g;
+  // the attention's operand: gd, or with dropout gd2
+  T* gd2_g = kDrop ? static_cast<T*>(args.gd2) + row0 * d : gd_g;
+  T* gda = !kDrop ? gd
+           : args.cn_smem ? reinterpret_cast<T*>(smem + pl.gd2) : gd2_g;
   const float scale = (float)((double)d / (d - 1.0));
 
   // gd = round(g * scaler); rows >= n_real are zeros
-  for (int r = warp; r < n; r += kWarps)
-    for (int c = lane; c < d; c += 32) {
-      const T v = r < n_real ? from_f<T>(to_f(g[(size_t)r * d + c]) *
-                                         args.scaler)
-                             : from_f<T>(0.0f);
-      gd[r * pl.ld_cn + c] = v;
-      if (args.cn_smem) gd_g[(size_t)r * d + c] = v;
-    }
+  if (kDrop) {
+    // gd = round(g * scaler * mask_mo), gd2 = round(g * scaler * mask_ao)
+    const unsigned kmo = site_key(dr.seed, kSiteMlpOut);
+    const unsigned kao = site_key(dr.seed, kSiteAttnOut);
+    for (int r = warp; r < n; r += kWarps)
+      for (int gg = lane; 4 * gg < d; gg += 32) {
+        float mo[4] = {1.0f, 1.0f, 1.0f, 1.0f}, ma[4] = {1.0f, 1.0f, 1.0f,
+                                                         1.0f};
+        if (r < n_real && dr.th_m) keep4(kmo, b, r, gg, d, dr.th_m, dr.sc_m, mo);
+        if (r < n_real && dr.th_ao)
+          keep4(kao, b, r, gg, d, dr.th_ao, dr.sc_ao, ma);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * gg + j;
+          const float gv =
+              r < n_real ? to_f(g[(size_t)r * d + c]) * args.scaler : 0.0f;
+          const T vm = from_f<T>(gv * mo[j]), va = from_f<T>(gv * ma[j]);
+          gd[r * pl.ld_cn + c] = vm;
+          gda[r * pl.ld_cn + c] = va;
+          if (args.cn_smem) {
+            gd_g[(size_t)r * d + c] = vm;
+            gd2_g[(size_t)r * d + c] = va;
+          }
+        }
+      }
+  } else {
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < d; c += 32) {
+        const T v = r < n_real ? from_f<T>(to_f(g[(size_t)r * d + c]) *
+                                           args.scaler)
+                               : from_f<T>(0.0f);
+        gd[r * pl.ld_cn + c] = v;
+        if (args.cn_smem) gd_g[(size_t)r * d + c] = v;
+      }
+  }
 
   // ---- MLP backward, over dh in chunks of hc ----
   T* cn = args.cn_smem ? reinterpret_cast<T*>(smem + pl.cn) : cnm_g;
@@ -202,14 +255,36 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
     mm<false, true>(gd, pl.ld_cn, w2 + (size_t)c0 * d, d, st2, pl.ld_st_m,
                     false, n, hc, d);
     __syncthreads();
-    for (int r = warp; r < n; r += kWarps)
-      for (int c = lane; c < hc; c += 32) {
-        const float h1 = st[r * pl.ld_st_m + c];
-        const T v = from_f<T>(st2[r * pl.ld_st_m + c] * gelu_grad(h1));
-        h_g[(size_t)r * dh + c0 + c] = from_f<T>(gelu(h1));
-        h1b_g[(size_t)r * dh + c0 + c] = v;
-        hb[r * pl.ld_hb + c] = v;
-      }
+    if (kDrop && dr.th_m) {
+      // h = round(round(gelu(h1)) * mask_h); h1_bar from h_bar * mask_h
+      const unsigned kh = site_key(dr.seed, kSiteH);
+      for (int r = warp; r < n; r += kWarps)
+        for (int gg = lane; 4 * gg < hc; gg += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (r < n_real)
+            keep4(kh, b, r, (c0 >> 2) + gg, dh, dr.th_m, dr.sc_m, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = 4 * gg + j;
+            const float h1 = st[r * pl.ld_st_m + c];
+            const T v =
+                from_f<T>(st2[r * pl.ld_st_m + c] * m[j] * gelu_grad(h1));
+            h_g[(size_t)r * dh + c0 + c] =
+                from_f<T>(to_f(from_f<T>(gelu(h1))) * m[j]);
+            h1b_g[(size_t)r * dh + c0 + c] = v;
+            hb[r * pl.ld_hb + c] = v;
+          }
+        }
+    } else {
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hc; c += 32) {
+          const float h1 = st[r * pl.ld_st_m + c];
+          const T v = from_f<T>(st2[r * pl.ld_st_m + c] * gelu_grad(h1));
+          h_g[(size_t)r * dh + c0 + c] = from_f<T>(gelu(h1));
+          h1b_g[(size_t)r * dh + c0 + c] = v;
+          hb[r * pl.ld_hb + c] = v;
+        }
+    }
     __syncthreads();
     mm<false, true>(hb, pl.ld_hb, w1 + c0, dh, macc, d, c0 > 0, n, d, hc);
     __syncthreads();
@@ -229,6 +304,7 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   T* k = reinterpret_cast<T*>(smem + pl.k);
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* cb = reinterpret_cast<T*>(smem + pl.cb);
+  unsigned* pbits = reinterpret_cast<unsigned*>(smem + pl.pbits);
   T* const none = nullptr;  // q_bar, k_bar, v_bar go to global scratch only
   const int ls = pl.ld_st_a, lh = pl.ld_hd;
   for (int hh = 0; hh < heads; ++hh) {
@@ -246,6 +322,22 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
     softmax_rows(st, ls, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
                  pl.ld_pf);
     __syncthreads();
+    if (kDrop && dr.th_p) {
+      // pb = round(pb * mask_p); the keep bits stay for p_bar
+      const unsigned kp = site_key(dr.seed, kSiteP + hh);
+      for (int r = warp; r < n; r += kWarps) {
+        unsigned* words = pbits + 4 * r;
+        if (r < n_real)
+          keep_bits_row(kp, b, r, n, n_real, dr.th_p, words);
+        else if (lane < 4)
+          words[lane] = 0;
+        __syncwarp();
+        for (int c = lane; c < n; c += 32)
+          pb[r * pl.ld_p + c] = from_f<T>(
+              to_f(pb[r * pl.ld_p + c]) * (kept(words, c) ? dr.sc_p : 0.0f));
+      }
+      __syncthreads();
+    }
     mm<false, false>(pb, pl.ld_p, v, lh, st, ls, false, n, hd, n);
     __syncthreads();
     // ctx of this head for Wout_bar; q becomes round(q * tau) for k_bar
@@ -255,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
         q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * args.qk_scale);
     __syncthreads();
     // cb = round(gd Wout[h*hd:(h+1)*hd, :]^T)
-    mm<false, true>(gd, pl.ld_cn, wout + (size_t)hh * hd * d, d, st, ls,
+    mm<false, true>(gda, pl.ld_cn, wout + (size_t)hh * hd * d, d, st, ls,
                     false, n, hd, d);
     __syncthreads();
     round_block(st, ls, cb, lh, n, hd, n);
@@ -278,12 +370,15 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
           pb[r * pl.ld_p + c] = from_f<T>(0.0f);
         continue;
       }
+      if (kDrop && dr.th_p)
+        for (int c = lane; c < n_real; c += 32)
+          prow[c] *= kept(pbits + 4 * r, c) ? dr.sc_p : 0.0f;
       if (args.g_jas != nullptr) {
         const float* gj = args.g_jas + bh * 5 * n;
         const int* ji = args.jas_idx + bh * 4 * n;
         const float g4 = gj[4 * n + r];
         for (int c = lane; c < n_real; c += 32) {
-          const float pj = to_f(pb[r * pl.ld_p + c]);
+          const float pj = to_f(from_f<T>(frow[c]));  // pre-dropout, rounded
           const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
           const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
           float t = g4 * (lo * hi);
@@ -478,17 +573,19 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
+  const bool drop = a.drop.th_p | a.drop.th_ao | a.drop.th_m;
+  auto rows = drop ? vfb_rows<T, true> : vfb_rows<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      vfb_rows<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return (int)err;
-  vfb_rows<T><<<a.batch, kThreads, a.smem, st>>>(a);
+  rows<<<a.batch, kThreads, a.smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const int d = a.d, dh = a.dh;
   Problems ps;
   ps.p[0] = {a.cna, a.qkvb, d, 3 * d, 0};
-  ps.p[1] = {a.ctx, a.gd, d, d, (size_t)3 * d * d};
+  ps.p[1] = {a.ctx, drop ? a.gd2 : a.gd, d, d, (size_t)3 * d * d};
   ps.p[2] = {a.cnm, a.h1b, d, dh, (size_t)4 * d * d};
   ps.p[3] = {a.h, a.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
   ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
@@ -521,15 +618,17 @@ int launch(const Args& a, cudaStream_t st) {
 extern "C" {
 
 // Chooses the plan of vfb_rows: whether cn and gd live in shared memory
-// (preferred) or in their global scratch, and the MLP chunk width.
-// Returns 0 when the shape has a plan, 1 when it has none.
+// (preferred) or in their global scratch, and the MLP chunk width; `drop`
+// asks for the dropout instance's plan. Returns 0 when the shape has a
+// plan, 1 when it has none.
 int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-             int* cn_smem_out, int* hc_out, int* smem_out) {
+             int drop, int* cn_smem_out, int* hc_out, int* smem_out) {
   if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   for (int cn_smem = 1; cn_smem >= 0; --cn_smem) {
     for (int hc : kChunks) {
       if (dh % hc) continue;
-      const Plan p = make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes);
+      const Plan p =
+          make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes, drop != 0);
       if (p.total <= (size_t)kMaxSmem) {
         *cn_smem_out = cn_smem;
         *hc_out = hc;
@@ -543,6 +642,8 @@ int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 
 // Launches the backward (three kernels) on `stream`; returns the first
 // cudaGetLastError() that is not 0, else 0. `tbytes` is x's element size.
+// A nonzero threshold in args->drop launches the dropout instance (planned
+// with drop=1), which also takes the gd2 scratch.
 int vfb_launch(int tbytes, const Args* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? launch<bf16>(*args, st) : launch<float>(*args, st);

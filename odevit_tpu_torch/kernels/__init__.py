@@ -12,6 +12,9 @@ from typing import Dict
 
 launch_counts: Dict[str, int] = {
     "vf_eval": 0, "vf_eval_jasmin": 0, "vf_bwd": 0,
+    # the dropout instances of the same kernels, and the mask generator
+    "vf_eval_drop": 0, "vf_eval_jasmin_drop": 0, "vf_bwd_drop": 0,
+    "dropout_masks": 0,
     # the tiled route (csrc/vector_field_tiled.cu)
     "vf_eval_tiled": 0, "vf_eval_jasmin_tiled": 0, "vf_eval_attn": 0,
     "vf_bwd_tiled": 0}

@@ -16,6 +16,11 @@ made once per step). The cast happens outside the graph, but the
 gradients flow to ``params``, so they arrive in float32 as they do in
 JAX. Each Function saves x (and the statistics' columns) and recomputes
 the rest in the backward.
+
+``FusedVF`` and ``FusedVFJasmin`` also carry dropout (``seed``, ``drops``
+= (attn, proj, mlp)), the counterparts of ``fused_vf_dropout`` and
+``fused_vf_jasmin_dropout``: they keep the seed, never a mask, and the
+backward draws the masks again.
 """
 
 from __future__ import annotations
@@ -30,32 +35,25 @@ from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
 
 class FusedVF(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
-                n_real: int, plain: bool, *params):
+    def forward(ctx, x, w: VFWeights, kw: dict, *params):
+        # kw: num_heads, scaler, n_real, seed, drops, plain
         ctx.save_for_backward(x)
-        ctx.w = w
-        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
-                      plain=plain)
-        return vf_eval(x, w, **ctx.kw)
+        ctx.w, ctx.kw = w, kw
+        return vf_eval(x, w, **kw)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         bars = vf_bwd(x, ctx.w, g.contiguous(), **ctx.kw)
-        return (bars[0], None, None, None, None, None, *bars[1:])
+        return (bars[0], None, None, *bars[1:])
 
 
 class FusedVFJasmin(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
-                n_real: int, jas_k: int, plain: bool, *params):
-        dx, stats, idx = vf_eval_jasmin(x, w, num_heads=num_heads,
-                                        scaler=scaler, n_real=n_real,
-                                        jas_k=jas_k, plain=plain)
+    def forward(ctx, x, w: VFWeights, kw: dict, jas_k: int, *params):
+        dx, stats, idx = vf_eval_jasmin(x, w, jas_k=jas_k, **kw)
         ctx.save_for_backward(x, idx)
-        ctx.w = w
-        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
-                      plain=plain)
+        ctx.w, ctx.kw = w, kw
         return dx, stats
 
     @staticmethod
@@ -64,7 +62,7 @@ class FusedVFJasmin(torch.autograd.Function):
         x, idx = ctx.saved_tensors
         bars = vf_bwd(x, ctx.w, g.contiguous(), g_jas=g_stats.contiguous(),
                       jas_idx=idx, **ctx.kw)
-        return (bars[0], None, None, None, None, None, None, *bars[1:])
+        return (bars[0], None, None, None, *bars[1:])
 
 
 class FusedVFAttn(torch.autograd.Function):
@@ -96,18 +94,23 @@ def vf_params(vf) -> tuple:
 
 
 def fused_vf(x, w: VFWeights, params, *, num_heads: int, scaler: float,
-             n_real: int, plain: bool = False):
-    """f(x), differentiable in x and ``params``."""
-    return FusedVF.apply(x, w, num_heads, scaler, n_real, plain, *params)
+             n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
+             plain: bool = False):
+    """f(x) (with dropout where ``drops`` and ``seed`` ask for it),
+    differentiable in x and ``params``."""
+    kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
+              drops=drops, plain=plain)
+    return FusedVF.apply(x, w, kw, *params)
 
 
 def fused_vf_jasmin(x, w: VFWeights, params, *, num_heads: int,
-                    scaler: float, n_real: int, jas_k: int,
-                    plain: bool = False):
-    """(f(x), JaSMin statistics [B, H, 5, n_pad]), differentiable in x and
-    ``params``."""
-    return FusedVFJasmin.apply(x, w, num_heads, scaler, n_real, jas_k,
-                               plain, *params)
+                    scaler: float, n_real: int, jas_k: int, seed=None,
+                    drops=(0.0, 0.0, 0.0), plain: bool = False):
+    """(f(x), JaSMin statistics [B, H, 5, n_pad] of the pre-dropout p),
+    differentiable in x and ``params``."""
+    kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
+              drops=drops, plain=plain)
+    return FusedVFJasmin.apply(x, w, kw, jas_k, *params)
 
 
 def fused_vf_attn(x, w: VFWeights, params, *, num_heads: int, scaler: float,

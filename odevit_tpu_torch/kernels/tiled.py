@@ -8,7 +8,9 @@ whose image does not fit the one-image-per-CTA kernels of
 evaluation: 207 tokens padded to 208, D=768, 12 heads). It replaces the
 same TPU kernels, ``_vf_kernel`` and ``_vf_bwd_kernel``. The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
-module binds the library and allocates the scratch the kernels use.
+module binds the library and allocates the scratch the kernels use. The
+route has no dropout yet: an evaluation or backward with dropout raises
+rather than drop the seed.
 """
 
 from __future__ import annotations
@@ -73,6 +75,15 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def no_dropout(drop):
+    """Raises on a ``dropout.Drop``: the route, and the attention-map mode
+    that only it carries, have no dropout yet."""
+    if drop is not None:
+        raise NotImplementedError(
+            "dropout on the tiled route (and so with the attention-map "
+            "mode) is not ported yet (ROADMAP.md §1 items 1 and 8)")
+
+
 def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
          jas_kk=0, splits=0):
     b, n, d = x.shape
@@ -105,11 +116,12 @@ def _scratch(x, dh: int):
 
 
 def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
-                  mode: str = "plain", jas_kk: int = 0):
+                  mode: str = "plain", jas_kk: int = 0, drop=None):
     """One evaluation on the tiled route: f(x), and for mode "jasmin" the
     statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
     n_pad]`` (zeros on padded query rows). The caller has checked the
-    arguments."""
+    arguments. ``drop`` (a ``dropout.Drop``) raises: not ported yet."""
+    no_dropout(drop)
     b, n, d = x.shape
     bufs = _scratch(x, w.w1.shape[1])
     bufs["out"] = torch.empty_like(x)
@@ -129,9 +141,12 @@ def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
 
 
 def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
-                   splits: int, g_jas=None, jas_idx=None, g_attn=None):
+                   splits: int, g_jas=None, jas_idx=None, g_attn=None,
+                   drop=None):
     """The 9 cotangents of one evaluation on the tiled route (see
-    ``vector_field_bwd.py``). The caller has checked the arguments."""
+    ``vector_field_bwd.py``). The caller has checked the arguments.
+    ``drop`` raises: not ported yet."""
+    no_dropout(drop)
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n

@@ -29,6 +29,16 @@ there. Each route counts its launches under its own name.
 ``x`` is the padded token tensor ``[B, n_pad, D]`` (``n_pad`` a multiple of
 :data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
 attention, and whatever they hold never reaches a real token.
+
+Dropout. ``vf_eval`` and ``vf_eval_jasmin`` take ``seed`` and ``drops`` =
+(attn_drop, proj_drop, mlp_drop), the counterparts of ``fused_vf_dropout``
+and ``fused_vf_jasmin_dropout``: inverted dropout on gelu(h), mlp_o,
+attn_o and the attention probabilities, with the masks of
+``kernels/dropout.py`` (the JaSMin statistics stay those of the
+pre-dropout p). Rates of 0 take the deterministic route whatever the
+seed; nonzero rates without a seed raise. On the GPU they launch the
+kernel's dropout instance, counted as ``vf_eval_drop`` and
+``vf_eval_jasmin_drop``; the tiled route has no dropout yet and raises.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from typing import NamedTuple
 import torch
 
 from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels.dropout import drop_spec, masks_plain
+from odevit_tpu_torch.kernels.tiled import no_dropout, tiled_forward
 from odevit_tpu_torch.losses.jasmin import jasmin_order_stats
 from odevit_tpu_torch.ops.dot import dot32
 
@@ -94,20 +106,28 @@ def _check(x, w: VFWeights, num_heads, n_real, mode, base):
 
 
 def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
-                 n_real: int):
+                 n_real: int, seed=None, drops=(0.0, 0.0, 0.0)):
     """(f(x) in float32, p [B, H, n, n] in the compute dtype), rounding
     where the kernel rounds (qkv is rounded before the heads are
-    sliced)."""
+    sliced). With dropout, the kernels' masks (``dropout.masks_plain``)
+    apply where the XLA twin applies them; ``p`` is the pre-dropout map."""
     b, n, d = x.shape
     hd = d // num_heads
     dtype = x.dtype
+    mask_h, mask_mo, mask_ao, mask_p = masks_plain(
+        b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
+        device=x.device, n_pad=n) or (None,) * 4
     xf = x.float()
     cent = (xf - xf.mean(-1, keepdim=True)) * (d / (d - 1.0))
     cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
     cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
 
     h = torch.nn.functional.gelu(dot32(cn_m, w.w1)).to(dtype)
+    if mask_h is not None:
+        h = (h.float() * mask_h).to(dtype)
     mlp_o = dot32(h, w.w2)
+    if mask_mo is not None:
+        mlp_o = mlp_o * mask_mo
 
     qkv = dot32(cn_a, w.wqkv).to(dtype)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
@@ -117,17 +137,20 @@ def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
     p = torch.softmax(s, dim=-1).to(dtype)
     v = torch.where(key[:, None], v, torch.zeros((), dtype=dtype,
                                                  device=x.device))
-    ctx = dot32(p, v).to(dtype).transpose(1, 2).reshape(b, n, d)
+    p_used = p if mask_p is None else (p.float() * mask_p).to(dtype)
+    ctx = dot32(p_used, v).to(dtype).transpose(1, 2).reshape(b, n, d)
     attn_o = dot32(ctx, w.wout)
+    if mask_ao is not None:
+        attn_o = attn_o * mask_ao
     return (mlp_o + attn_o) * scaler, p
 
 
 def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                   n_real: int, mode: str = "plain", dt: float = 0.0,
-                  base=None):
+                  base=None, seed=None, drops=(0.0, 0.0, 0.0)):
     """The kernel's arithmetic in plain PyTorch."""
     _check(x, w, num_heads, n_real, mode, base)
-    f, _ = _field_plain(x, w, num_heads, scaler, n_real)
+    f, _ = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     if mode == "euler":
         f = x.float() + dt * f
     elif mode == "base":
@@ -144,11 +167,14 @@ def _check_jasmin(n_real: int, jas_k: int):
 
 
 def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
-                       n_real: int):
+                       n_real: int, seed=None, drops=(0.0, 0.0, 0.0)):
     """(f(x), p): the attention-map mode in plain PyTorch. ``p`` [B, H,
     n_pad, n_pad] in x's dtype holds zeros on padded query rows (and, by
     the key mask, on padded keys)."""
     _check(x, w, num_heads, n_real, "plain", None)
+    # the mode runs on the tiled route only: its plain version refuses
+    # dropout as the route does
+    no_dropout(drop_spec(seed, drops))
     f, p = _field_plain(x, w, num_heads, scaler, n_real)
     query = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
     p = torch.where(query, p, torch.zeros((), dtype=p.dtype,
@@ -157,16 +183,18 @@ def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
 
 
 def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
-                         n_real: int, jas_k: int):
+                         n_real: int, jas_k: int, seed=None,
+                         drops=(0.0, 0.0, 0.0)):
     """(f(x), stats, idx): the kernel's JaSMin-statistics mode in plain
     PyTorch. ``stats`` [B, H, 5, n_pad] f32 holds, per query row (last
     axis), the 1st, 2nd, k-th and (k+1)-th largest p of the real keys and
     the row sum of clip(p, 1e-12, 1); ``idx`` [B, H, 4, n_pad] int32 the
     columns of the first four (first occurrence among ties). Padded query
-    rows hold zeros."""
+    rows hold zeros. With dropout the statistics are those of the
+    pre-dropout p."""
     _check(x, w, num_heads, n_real, "plain", None)
     _check_jasmin(n_real, jas_k)
-    f, p = _field_plain(x, w, num_heads, scaler, n_real)
+    f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     stats, idx = jasmin_order_stats(p[..., :n_real], jas_k,
                                     return_indices=True)
     query = torch.arange(x.shape[1], device=x.device) < n_real
@@ -178,10 +206,10 @@ def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.vf_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+    lib.vf_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
     lib.vf_plan.restype = i
     lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9
-                              + [f, f, f, i, p, p, i, p])
+                              + [f, f, f, i, p, p, i, p, p, p])
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
     lib.vf_error_string.restype = ctypes.c_char_p
@@ -200,25 +228,25 @@ def _library() -> ctypes.CDLL:
 
 
 def has_cta_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-                 dh: int) -> bool:
-    """Whether the one-image-per-CTA kernel takes this shape (else the
-    tiled route runs)."""
+                 dh: int, drop: bool = False) -> bool:
+    """Whether the one-image-per-CTA kernel (its dropout instance with
+    ``drop``) takes this shape (else the tiled route runs)."""
     try:
-        kernel_plan(dtype, n_pad, n_real, d, num_heads, dh)
+        kernel_plan(dtype, n_pad, n_real, d, num_heads, dh, drop)
     except ValueError:
         return False
     return True
 
 
 def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-                dh: int):
+                dh: int, drop: bool = False):
     """(fused q|k|v product, MLP chunk width, shared-memory bytes) of one
-    CTA; raises if the shape has no plan (it does not fit one image per
-    CTA)."""
+    CTA (of the dropout instance with ``drop``); raises if the shape has
+    no plan (it does not fit one image per CTA)."""
     fused, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vf_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                          ctypes.byref(fused), ctypes.byref(hc),
+                          int(drop), ctypes.byref(fused), ctypes.byref(hc),
                           ctypes.byref(smem)):
         raise ValueError(
             f"no one-image-per-CTA plan for n_pad={n_pad}, D={d}, "
@@ -249,13 +277,17 @@ def _check_launch(x, w: VFWeights, base=None):
 
 
 def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
-            jas_kk=0):
+            jas_kk=0, drop=None):
     b, n, d = x.shape
     dh = w.w1.shape[1]
-    plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh)
+    plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None)
     out = torch.empty_like(x)
-    # f32: the kernel accumulates mlp_o + attn_o in the output buffer
+    # f32: the kernel accumulates mlp_o + attn_o in the output buffer, and
+    # the dropout instance takes each head's attn_o product in a scratch
     acc = out.data_ptr() if x.dtype == torch.float32 else None
+    ao = None
+    if drop is not None and x.dtype == torch.float32:
+        ao = torch.empty(b * n, d, device=x.device)
     stats = idx = None
     if jas_kk:
         stats = torch.empty(b, num_heads, 5, n, device=x.device)
@@ -268,6 +300,8 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
         scaler, dt, (d // num_heads) ** -0.5, MODES[mode],
         stats.data_ptr() if jas_kk else None,
         idx.data_ptr() if jas_kk else None, jas_kk,
+        ctypes.byref(drop) if drop is not None else None,
+        ao.data_ptr() if ao is not None else None,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("vector-field kernel launch failed: "
@@ -276,8 +310,8 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
 
 
 def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
-            mode: str = "plain", dt: float = 0.0, base=None,
-            plain: bool = False):
+            mode: str = "plain", dt: float = 0.0, base=None, seed=None,
+            drops=(0.0, 0.0, 0.0), plain: bool = False):
     """One vector-field evaluation (see the module docstring).
 
     A CUDA tensor launches the kernel; a CPU tensor runs
@@ -286,66 +320,73 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
     """
     if plain or x.device.type == "cpu":
         return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
-                             n_real=n_real, mode=mode, dt=dt, base=base)
+                             n_real=n_real, mode=mode, dt=dt, base=base,
+                             seed=seed, drops=drops)
     _check(x, w, num_heads, n_real, mode, base)
     _check_launch(x, w, base)
-    if not _cta_route(x, w, num_heads, n_real):
+    drop = drop_spec(seed, drops)
+    if not _cta_route(x, w, num_heads, n_real, drop):
         if mode != "plain":
             raise NotImplementedError(
                 f"mode {mode!r} has no tiled route yet (ROADMAP.md §1): the "
                 f"tiled route runs the plain, JaSMin and map modes")
-        from odevit_tpu_torch.kernels.tiled import tiled_forward
         (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                               n_real=n_real)
+                               n_real=n_real, drop=drop)
         count_launch("vf_eval_tiled")
         return out
     out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
-                        n_real=n_real, mode=mode, dt=dt, base=base)
-    count_launch("vf_eval")
+                        n_real=n_real, mode=mode, dt=dt, base=base, drop=drop)
+    count_launch("vf_eval" if drop is None else "vf_eval_drop")
     return out
 
 
 def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
-                   n_real: int, jas_k: int, plain: bool = False):
+                   n_real: int, jas_k: int, seed=None,
+                   drops=(0.0, 0.0, 0.0), plain: bool = False):
     """(f(x), stats, idx) in one launch of the kernel's JaSMin-statistics
     mode (see :func:`vf_eval_jasmin_plain` for the layout). A CPU tensor,
     or ``plain=True``, runs the plain version."""
     if plain or x.device.type == "cpu":
         return vf_eval_jasmin_plain(x, w, num_heads=num_heads, scaler=scaler,
-                                    n_real=n_real, jas_k=jas_k)
+                                    n_real=n_real, jas_k=jas_k, seed=seed,
+                                    drops=drops)
     _check(x, w, num_heads, n_real, "plain", None)
     kk = _check_jasmin(n_real, jas_k)
     _check_launch(x, w)
-    if not _cta_route(x, w, num_heads, n_real):
-        from odevit_tpu_torch.kernels.tiled import tiled_forward
+    drop = drop_spec(seed, drops)
+    if not _cta_route(x, w, num_heads, n_real, drop):
         out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                            n_real=n_real, mode="jasmin", jas_kk=kk)
+                            n_real=n_real, mode="jasmin", jas_kk=kk,
+                            drop=drop)
         count_launch("vf_eval_jasmin_tiled")
         return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
-                  mode="plain", dt=0.0, base=None, jas_kk=kk)
-    count_launch("vf_eval_jasmin")
+                  mode="plain", dt=0.0, base=None, jas_kk=kk, drop=drop)
+    count_launch("vf_eval_jasmin" if drop is None else "vf_eval_jasmin_drop")
     return out
 
 
 def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
-                 n_real: int, plain: bool = False):
+                 n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
+                 plain: bool = False):
     """(f(x), p) in one launch of the tiled route's attention-map mode (see
     :func:`vf_eval_attn_plain` for the layout); the one-image-per-CTA
     kernel has no map mode. A CPU tensor, or ``plain=True``, runs the plain
-    version."""
+    version. Dropout is not ported in this mode and raises."""
     if plain or x.device.type == "cpu":
         return vf_eval_attn_plain(x, w, num_heads=num_heads, scaler=scaler,
-                                  n_real=n_real)
+                                  n_real=n_real, seed=seed, drops=drops)
     _check(x, w, num_heads, n_real, "plain", None)
     _check_launch(x, w)
-    from odevit_tpu_torch.kernels.tiled import tiled_forward
     out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                        n_real=n_real, mode="attn")
+                        n_real=n_real, mode="attn",
+                        drop=drop_spec(seed, drops))
     count_launch("vf_eval_attn")
     return out
 
 
-def _cta_route(x, w: VFWeights, num_heads: int, n_real: int) -> bool:
+def _cta_route(x, w: VFWeights, num_heads: int, n_real: int,
+               drop=None) -> bool:
     b, n, d = x.shape
-    return has_cta_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1])
+    return has_cta_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1],
+                        drop is not None)

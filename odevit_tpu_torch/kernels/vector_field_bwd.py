@@ -21,6 +21,11 @@ Routes: without ``g_attn``, where one image fits one CTA (``bwd_plan``),
 the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
 no such plan exists (the 224 px TS-Base shape), the tiled route of
 ``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
+
+Dropout: ``seed`` and ``drops`` as the forward took them; the masks are
+drawn again (``kernels/dropout.py``), never saved. On the GPU the kernels'
+dropout instance runs, counted as ``vf_bwd_drop``; the tiled route and the
+maps' cotangent have no dropout yet and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ import math
 import torch
 
 from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
+from odevit_tpu_torch.kernels.tiled import no_dropout, tiled_backward
 from odevit_tpu_torch.kernels.vector_field import (VFWeights, _check,
                                                    _check_launch)
 from odevit_tpu_torch.ops.dot import dot32
@@ -66,22 +73,35 @@ def _jas_pbar(pb, g_jas, jas_idx, n_real: int):
 
 
 def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
-                 n_real: int, g_jas=None, jas_idx=None, g_attn=None):
+                 n_real: int, g_jas=None, jas_idx=None, g_attn=None,
+                 seed=None, drops=(0.0, 0.0, 0.0)):
     """The kernels' arithmetic in plain PyTorch: the forward recomputed,
     then the MLP, attention and CenterNorm backward, rounding to x's
-    dtype where the TPU kernel rounds."""
+    dtype where the TPU kernel rounds. With dropout, the forward's masks
+    are drawn again and applied where the XLA twin's vjp applies them:
+    g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
+    is rounded before and after its mask, as in the forward."""
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
+    if g_attn is not None:
+        # the maps' cotangent runs on the tiled route only: its plain
+        # version refuses dropout as the route does
+        no_dropout(drop_spec(seed, drops))
     b, n, d = x.shape
     hd = d // num_heads
     tau = hd ** -0.5
     dtype = x.dtype
+    mask_h, mask_mo, mask_ao, mask_p = masks_plain(
+        b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
+        device=x.device, n_pad=n) or (None,) * 4
     zero = torch.zeros((), device=x.device)
     row = (torch.arange(n, device=x.device) < n_real)[:, None]
     xf = torch.where(row, x.float(), zero)
     cent = (xf - xf.mean(-1, keepdim=True)) * (d / (d - 1.0))
     cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
     cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
-    gd = torch.where(row, g.float() * scaler, zero).to(dtype)
+    gf = torch.where(row, g.float() * scaler, zero)
+    gd = (gf if mask_mo is None else gf * mask_mo).to(dtype)
+    gda = (gf if mask_ao is None else gf * mask_ao).to(dtype)
 
     def t2(a):                      # [b, n, c] -> [b*n, c]
         return a.reshape(b * n, a.shape[-1])
@@ -89,7 +109,11 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     # MLP
     h1 = dot32(cn_m, w.w1)
     h = torch.nn.functional.gelu(h1).to(dtype)
-    h1_bar = (dot32(gd, w.w2.T) * _gelu_grad(h1)).to(dtype)
+    h_bar = dot32(gd, w.w2.T)
+    if mask_h is not None:
+        h = (h.float() * mask_h).to(dtype)
+        h_bar = h_bar * mask_h
+    h1_bar = (h_bar * _gelu_grad(h1)).to(dtype)
     m_bar = dot32(h1_bar, w.w1.T)
     w2_bar = dot32(t2(h).T, t2(gd))
     w1_bar = dot32(t2(cn_m).T, t2(h1_bar))
@@ -103,15 +127,18 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     s = (q.float() * tau) @ k.float().transpose(-1, -2)
     pf = torch.softmax(s.masked_fill(~key, float("-inf")), dim=-1)
     pb = pf.to(dtype)
+    pu = pb if mask_p is None else (pb.float() * mask_p).to(dtype)
 
     def merge(a):                   # [b, H, n, hd] -> [b, n, d]
         return a.transpose(1, 2).reshape(b, n, d)
 
-    ctx = merge(dot32(pb, v).to(dtype))
-    cb = dot32(gd, w.wout.T).to(dtype).reshape(
+    ctx = merge(dot32(pu, v).to(dtype))
+    cb = dot32(gda, w.wout.T).to(dtype).reshape(
         b, n, num_heads, hd).transpose(1, 2)
-    v_bar = dot32(pb.transpose(-1, -2), cb).to(dtype)
+    v_bar = dot32(pu.transpose(-1, -2), cb).to(dtype)
     p_bar = dot32(cb, v.transpose(-1, -2))
+    if mask_p is not None:
+        p_bar = p_bar * mask_p
     if g_attn is not None:
         # rounded to x's dtype, as the TPU kernel takes it; selected on
         # real query rows and keys, so nothing padded reaches p_bar
@@ -127,7 +154,7 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     qkv_bar = torch.cat([merge(q_bar), merge(k_bar), merge(v_bar)], -1)
     a_bar = dot32(qkv_bar, w.wqkv.T)
     wqkv_bar = dot32(t2(cn_a).T, t2(qkv_bar))
-    wout_bar = dot32(t2(ctx).T, t2(gd))
+    wout_bar = dot32(t2(ctx).T, t2(gda))
 
     # CenterNorm
     c_bar = a_bar * w.norm_attn_scale + m_bar * w.norm_mlp_scale
@@ -161,12 +188,13 @@ def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
 class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
-        "w1", "w2", "xbar", "cnm", "cna", "gd", "ctx", "h", "h1b", "qkvb",
-        "macc", "npart", "wpart", "out")]
+        "w1", "w2", "xbar", "cnm", "cna", "gd", "gd2", "ctx", "h", "h1b",
+        "qkvb", "macc", "npart", "wpart", "out")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
             "smem", "splits")]
-        + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float)])
+        + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float),
+           ("drop", Drop)])
 
 
 _lib = None
@@ -178,7 +206,7 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         lib = build.load("vector_field_bwd")
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.vfb_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
+        lib.vfb_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
         lib.vfb_plan.restype = i
         lib.vfb_launch.argtypes = [i, ctypes.POINTER(_Args), p]
         lib.vfb_launch.restype = i
@@ -189,13 +217,15 @@ def _library() -> ctypes.CDLL:
 
 
 def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-             dh: int):
+             dh: int, drop: bool = False):
     """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
-    of the per-image kernel; raises if the shape has no plan."""
+    of the per-image kernel (its dropout instance with ``drop``); raises
+    if the shape has no plan."""
     cn_smem, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vfb_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                           ctypes.byref(cn_smem), ctypes.byref(hc),
+                           int(drop), ctypes.byref(cn_smem),
+                           ctypes.byref(hc),
                            ctypes.byref(smem)):
         raise ValueError(
             f"no one-image-per-CTA backward plan for n_pad={n_pad}, D={d}, "
@@ -204,11 +234,11 @@ def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
 
 
 def has_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-                 dh: int) -> bool:
+                 dh: int, drop: bool = False) -> bool:
     """Whether the one-image-per-CTA backward takes this shape (else the
     tiled route runs)."""
     try:
-        bwd_plan(dtype, n_pad, n_real, d, num_heads, dh)
+        bwd_plan(dtype, n_pad, n_real, d, num_heads, dh, drop)
     except ValueError:
         return False
     return True
@@ -224,17 +254,18 @@ def weight_splits(rows: int, d: int, dh: int) -> int:
 
 
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
-           n_real: int, g_jas=None, jas_idx=None, g_attn=None,
-           plain: bool = False):
+           n_real: int, g_jas=None, jas_idx=None, g_attn=None, seed=None,
+           drops=(0.0, 0.0, 0.0), plain: bool = False):
     """The 9 cotangents of one evaluation (see the module docstring). A
     CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
     runs :func:`vf_bwd_plain`."""
     if plain or x.device.type == "cpu":
         return vf_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, g_jas=g_jas, jas_idx=jas_idx,
-                            g_attn=g_attn)
+                            g_attn=g_attn, seed=seed, drops=drops)
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_launch(x, w)
+    drop = drop_spec(seed, drops)
     extra = {"g": (g, x.dtype)}
     if g_jas is not None:
         extra.update(g_jas=(g_jas, torch.float32),
@@ -252,21 +283,25 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     rows = b * n
     splits = weight_splits(rows, d, dh)
     if g_attn is not None or not has_bwd_plan(x.dtype, n, n_real, d,
-                                              num_heads, dh):
-        from odevit_tpu_torch.kernels.tiled import tiled_backward
+                                              num_heads, dh,
+                                              drop is not None):
         xbar, out = tiled_backward(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
-            splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn)
+            splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
+            drop=drop)
         count_launch("vf_bwd_tiled")
         return _split_bars(xbar, out, d, dh)
-    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
+    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
+                                 drop is not None)
     wtotal = 4 * d * d + 2 * d * dh
 
     def scratch(width, dtype=x.dtype):
         return torch.empty(rows, width, device=x.device, dtype=dtype)
 
     bufs = {"xbar": torch.empty_like(x), "cnm": scratch(d),
-            "cna": scratch(d), "gd": scratch(d), "ctx": scratch(d),
+            "cna": scratch(d), "gd": scratch(d),
+            "gd2": scratch(d) if drop is not None else None,
+            "ctx": scratch(d),
             "h": scratch(dh), "h1b": scratch(dh), "qkvb": scratch(3 * d),
             "macc": scratch(d, torch.float32),
             "npart": torch.empty(b, 4, d, device=x.device),
@@ -280,17 +315,18 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         gm=w.norm_mlp_scale.data_ptr(), bm=w.norm_mlp_bias.data_ptr(),
         wqkv=w.wqkv.data_ptr(), wout=w.wout.data_ptr(),
         w1=w.w1.data_ptr(), w2=w.w2.data_ptr(),
-        **{name: t.data_ptr() for name, t in bufs.items()},
+        **{name: t.data_ptr() if t is not None else None
+           for name, t in bufs.items()},
         batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads, dh=dh,
         cn_smem=cn_smem, hc=hc, smem=smem, splits=splits, scaler=scaler,
-        qk_scale=(d // num_heads) ** -0.5)
+        qk_scale=(d // num_heads) ** -0.5, drop=drop or Drop())
     err = _library().vfb_launch(
         x.element_size(), ctypes.byref(args),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("vector-field backward launch failed: "
                            + _library().vfb_error_string(err).decode())
-    count_launch("vf_bwd")
+    count_launch("vf_bwd" if drop is None else "vf_bwd_drop")
     return _split_bars(bufs["xbar"], bufs["out"], d, dh)
 
 

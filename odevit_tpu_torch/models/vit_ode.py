@@ -6,6 +6,9 @@ parallel attention+MLP vector field -> linear head on the final CLS state.
 The module carries the configuration and the parameters; its ``forward``
 is the plain PyTorch path that returns the logits. The serving path with
 the fused kernel is :func:`odevit_tpu_torch.models.fast_forward.fast_forward`.
+The dropout rates (``attn_drop``, ``proj_drop``, ``mlp_drop``) are read by
+the fused training step only; ``forward`` and ``fast_forward`` evaluate
+without dropout, as JAX's ``models/fast_forward.py`` does.
 Attention outputs, JaSMin, control points, stability bounds and the loss
 are not ported yet and raise.
 """
@@ -35,7 +38,8 @@ class ViTODE(nn.Module):
                  l2_attention: bool = False, register_tokens: int = 4,
                  pos_embed_register_tokens: bool = False,
                  time_conditioning: bool = False, dtype=None, *,
-                 device=None, seed: int = 0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 mlp_drop: float = 0.0, device=None, seed: int = 0):
         """``dtype`` is the compute dtype (parameters stay float32);
         ``device=None`` means the GPU (see ``resolve_device``). Weights are
         drawn on the CPU from a ``torch.Generator`` seeded with ``seed``."""
@@ -54,6 +58,9 @@ class ViTODE(nn.Module):
         self.num_eval_steps = num_eval_steps
         self.solver = solver
         self.add_distillation_token = add_distillation_token
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
+        self.mlp_drop = mlp_drop
         self.dtype = dtype
         self.patch_embed = PatchEmbed(
             img_size, patch_size, in_chans, embed_dim,

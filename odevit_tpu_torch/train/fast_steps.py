@@ -18,6 +18,16 @@ Free training, the counterpart of
     the 48 saved inputs take about 1.5 GB);
   * AdamW after the global-norm clip (``train/state.py``).
 
+With nonzero dropout rates (the model's ``attn_drop``, ``proj_drop``,
+``mlp_drop``) the free step takes JAX's dropout route: the step's ``rng``
+(an int) with the step count folded in seeds a CPU ``torch.Generator``
+that draws one int32 seed per solver step; stage ``s`` of a step evaluates
+with ``step_seed + 0x9E3779B9 * (s + 1)``. The evaluations run the fused
+kernels' dropout instances (``FusedVF``/``FusedVFJasmin`` with a seed; the
+JaSMin window split as above), and Euler and Kutta-3/8 rk4 stages are
+combined as JAX's ``step_drop`` combines them, with the same casts to the
+state's dtype.
+
 Distillation, the counterpart of ``fast_distill_forward`` and
 ``make_fast_distill_train_step`` in their deterministic route (Euler):
 
@@ -36,11 +46,12 @@ Distillation, the counterpart of ``fast_distill_forward`` and
 On the GPU every evaluation and its backward launch the kernels (at the
 224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
 through their plain versions, for comparisons. Not ported yet, and
-raising: dropout, residual stashing, the mesh (data-parallel) step, the
-teacher cache, and the attention-map route of the fused steps for
-sequences shorter than ``jasmin_k + 1`` tokens (ROADMAP.md §1, the map
-route of the fused steps); L2 attention and time conditioning raise when
-the model is built.
+raising: dropout in the distillation step (it runs on the tiled route,
+whose dropout is ROADMAP.md §1 item 1), residual stashing, the mesh
+(data-parallel) step, the teacher cache, and the attention-map route of
+the fused steps for sequences shorter than ``jasmin_k + 1`` tokens
+(ROADMAP.md §1, the map route of the fused steps); L2 attention and time
+conditioning raise when the model is built.
 """
 
 from __future__ import annotations
@@ -50,9 +61,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from odevit_tpu_torch.core.integrators import make_step, num_stages
+from odevit_tpu_torch.core.integrators import _lc, make_step, num_stages
 from odevit_tpu_torch.kernels.autograd import (fused_vf, fused_vf_attn,
                                                fused_vf_jasmin, vf_params)
+from odevit_tpu_torch.kernels.dropout import (check_rates, fold_seed,
+                                              philox4x32_plain)
 from odevit_tpu_torch.kernels.vector_field import pad_tokens
 from odevit_tpu_torch.losses.classification import accuracy, cross_entropy
 from odevit_tpu_torch.losses.attention_distill import (kl_attention_loss,
@@ -66,12 +79,20 @@ from odevit_tpu_torch.losses.trajectory import trajectory_mse
 from odevit_tpu_torch.train.state import TrainState
 
 
-def _check_route(model, jasmin_k: int, n: int):
-    drops = [float(getattr(model, a, 0.0))
-             for a in ("attn_drop", "proj_drop", "mlp_drop")]
-    if any(drops):
-        raise NotImplementedError("dropout in the fused step is not ported "
-                                  "yet (the dropout slice)")
+def drop_rates(model):
+    """(attn_drop, proj_drop, mlp_drop) of the model."""
+    return check_rates([model.attn_drop, model.proj_drop, model.mlp_drop])
+
+
+def _check_route(model, jasmin_k: int, n: int, distill: bool = False):
+    # The distillation forward draws no seeds, so neither the tiled route's
+    # guard nor the plain path would see the model's rates: without this
+    # check both would train without dropout.
+    if distill and any(drop_rates(model)):
+        raise NotImplementedError(
+            "dropout in the distillation step is not ported yet: the step "
+            "runs on the tiled route, whose dropout is ROADMAP.md §1 item 1 "
+            "(dropout on the tiled route)")
     if n < max(jasmin_k, 1) + 1:
         raise NotImplementedError(
             f"{n} tokens are too few for the in-kernel JaSMin statistics "
@@ -90,10 +111,11 @@ def jasmin_window(num_eval_steps: int, solver: str):
     return num_steps - tail, tail
 
 
-def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
+def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool,
+                     distill: bool = False):
     tokens = model.patch_embed(pixels)
     b, n, d = tokens.shape
-    _check_route(model, jasmin_k, n)
+    _check_route(model, jasmin_k, n, distill)
     n_pad = pad_tokens(n)
     if n_pad != n:
         tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
@@ -103,10 +125,70 @@ def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
         vf_params(model.vf), kw
 
 
+def draw_step_seeds(rng: int, step: int, count: int):
+    """``count`` int32 step seeds for training step ``step`` of a run
+    seeded with ``rng``, uniform in [-2^31, 2^31 - 1) as JAX's ``randint``
+    draws them, from a CPU ``torch.Generator``. Its seed folds the step
+    into rng, as JAX folds the step into its key: one Philox word of
+    counter (step) under key (rng), since the generator keeps 32 bits of
+    its seed."""
+    lo = lambda v, s=0: (int(v) >> s) & 0xFFFFFFFF
+    mix = philox4x32_plain(lo(step), lo(step, 32), 0, 0, lo(rng),
+                           lo(rng, 32))[0]
+    g = torch.Generator().manual_seed(int(mix))
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (count,), generator=g,
+                         dtype=torch.int64).tolist()
+
+
+def _comb(y, dt: float, terms):
+    """``(y + dt * (c_1 k_1 + c_2 k_2 + ...)).astype(y.dtype)`` as JAX's
+    ``step_drop`` forms it: the inner sum in the stage slopes' dtype (each
+    coefficient rounded to it, as a Python float meeting a bf16 array is),
+    the rest in float32."""
+    inner = None
+    for c, k in terms:
+        t = k * torch.tensor(c, dtype=k.dtype, device=k.device)
+        inner = t if inner is None else inner + t
+    return (y.float() + float(np.float32(dt)) * inner.float()).to(y.dtype)
+
+
+def _step_drop(solver: str, f, y, dt: float, step_seed: int):
+    """One Euler or Kutta-3/8 rk4 step whose stage ``s`` evaluates
+    ``f(y_s, seed)`` with seed ``fold_seed(step_seed, s)``; the stage
+    states and the update are formed as JAX's ``step_drop`` forms them.
+    Returns (y_next, [aux of each stage])."""
+    es = lambda s: fold_seed(step_seed, s)
+    if solver == "euler":
+        k1, a1 = f(y, es(0))
+        return _lc(y, dt, [(1.0, k1)]), [a1]
+    third = 1.0 / 3.0
+    k1, a1 = f(y, es(0))
+    k2, a2 = f(_lc(y, dt, [(third, k1)]), es(1))
+    k3, a3 = f(_comb(y, dt, [(-third, k1), (1.0, k2)]), es(2))
+    k4, a4 = f(_comb(y, dt, [(1.0, k1), (-1.0, k2), (1.0, k3)]), es(3))
+    y_next = _comb(y, dt, [(0.125, k1), (0.375, k2), (0.375, k3),
+                           (0.125, k4)])
+    return y_next, [a1, a2, a3, a4]
+
+
 def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
-                      plain: bool = False):
+                      step_seeds=None, plain: bool = False):
     """(loss, {"logits", "ce", "jasmin_loss"}), differentiable in the
-    model's parameters (see the module docstring)."""
+    model's parameters (see the module docstring). A model with dropout
+    takes ``step_seeds``, one int32 seed per solver step (the train step
+    draws them with :func:`draw_step_seeds`)."""
+    drops = drop_rates(model)
+    if any(drops):
+        num_steps = model.num_eval_steps - 1
+        if step_seeds is None:
+            raise ValueError("the model has dropout; pass step_seeds= (the "
+                             "train step draws them from its rng)")
+        if len(step_seeds) != num_steps:
+            raise ValueError(f"{len(step_seeds)} step seeds for "
+                             f"{num_steps} solver steps")
+        if model.solver not in ("euler", "rk4"):
+            raise ValueError(f"the dropout route stages euler and rk4, not "
+                             f"{model.solver!r}")
     tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
     n = kw["n_real"]
 
@@ -115,6 +197,14 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
 
     def f_jas(t, y):
         dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k, **kw)
+        return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
+
+    def f_drop_plain(y, seed):
+        return fused_vf(y, w, params, seed=seed, drops=drops, **kw), None
+
+    def f_drop_jas(y, seed):
+        dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k, seed=seed,
+                                    drops=drops, **kw)
         return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
 
     # the grid in float32, steps as JAX's scan forms them
@@ -127,7 +217,13 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
     y = tokens
     jas = []
     for i, (t, dt) in enumerate(zip(t_all, dt_all)):
-        if i < head:
+        if any(drops):
+            y, aux = _step_drop(model.solver,
+                                f_drop_plain if i < head else f_drop_jas,
+                                y, float(dt), step_seeds[i])
+            if i >= head:
+                jas.append(torch.stack(aux))
+        elif i < head:
             y = step_plain(f_plain, y, float(t), float(dt))
         else:
             y, aux = step_jas(f_jas, y, float(t), float(dt))
@@ -145,12 +241,14 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
                               preprocess_fn: Optional[Callable] = None,
                               plain: bool = False, mesh=None,
                               stash: bool = False):
-    """``step(state, batch) -> (state, metrics)`` for a ``TrainState``
-    made by ``create_train_state(model, tx)`` (the state carries the
-    optimizer). ``batch`` holds
-    ``pixel_values`` [B, H, W, C] and ``labels`` [B] on the model's
-    device. Metrics: ``loss`` (CE + JaSMin), ``jasmin_loss``, ``acc`` and
-    ``grad_norm`` (before the clip), as tensors on the device."""
+    """``step(state, batch, rng=None) -> (state, metrics)`` for a
+    ``TrainState`` made by ``create_train_state(model, tx)`` (the state
+    carries the optimizer). ``batch`` holds ``pixel_values`` [B, H, W, C]
+    and ``labels`` [B] on the model's device; ``rng``, an int, seeds the
+    dropout of a model with nonzero rates (required then; the step count
+    is folded in, so every step draws new masks). Metrics: ``loss`` (CE +
+    JaSMin), ``jasmin_loss``, ``acc`` and ``grad_norm`` (before the clip),
+    as tensors on the device."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel (mesh) step is not "
                                   "ported yet (the host-side slice)")
@@ -158,15 +256,25 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
         raise NotImplementedError("residual stashing is not ported yet "
                                   "(its own slice, to be measured again)")
 
-    def step(state: TrainState, batch) -> tuple:
+    has_drop = any(drop_rates(model))
+
+    def step(state: TrainState, batch, rng=None) -> tuple:
         if state.model is not model:
             raise ValueError("the state was made for another model")
+        step_seeds = None
+        if has_drop:
+            if rng is None:
+                raise ValueError("the model has dropout; pass rng= (an int "
+                                 "seed) to the step")
+            step_seeds = draw_step_seeds(rng, state.step,
+                                         model.num_eval_steps - 1)
         pixels = batch["pixel_values"]
         if preprocess_fn is not None:
             pixels = preprocess_fn(pixels)
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = fast_free_forward(model, pixels, batch["labels"],
-                                      jasmin_k=jasmin_k, plain=plain)
+                                      jasmin_k=jasmin_k,
+                                      step_seeds=step_seeds, plain=plain)
         loss.backward()
         grad_norm = state.apply_gradients()
         metrics: Dict[str, torch.Tensor] = {
@@ -191,7 +299,8 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     if model.solver != "euler":
         raise ValueError("the fused distillation step integrates the "
                          f"reference's Euler grid, not {model.solver!r}")
-    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain,
+                                             distill=True)
     n = kw["n_real"]
     reg = model.patch_embed.num_registers
     T = model.num_eval_steps

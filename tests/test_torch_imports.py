@@ -130,4 +130,4 @@ def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
 
 def test_the_only_source_is_listed():
     assert set(build.sources()) == {"vector_field", "vector_field_bwd",
-                                    "vector_field_tiled"}
+                                    "vector_field_tiled", "dropout_masks"}
