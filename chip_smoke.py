@@ -53,7 +53,17 @@ Phases:
      path; losses and the first gradient compared, launches counted, the
      step timed and split, one step profiled;
   14. the tiled kernels alone at B=64 against their plain versions;
-  15. the kernels line (launch counts of the main paths, times, bounds)
+  15. distillation dropout kernels vs plain: the tiled route's dropout
+     instances at B=4 in bf16 and f32, forward in its three modes and the
+     backward with each cotangent, against their plain versions; maps and
+     statistics equal to the deterministic ones (pre-dropout p); mixed
+     rates; rates of 0 on the deterministic instances; repeats
+     bit-identical; NaN padding inert;
+  16. distillation with dropout (cell tsref-distill-drop0.1-b64-bf16):
+     phase 13 at the recipe's dropout 0.1 with ``rng=0``, through the
+     tiled dropout instances and the plain path, beside phase 13's img/s;
+  17. the tiled dropout instances alone at B=64;
+  18. the kernels line (launch counts of the main paths, times, bounds)
      and the result line.
 
 Exits non-zero, printing no result line, when a phase fails or when there
@@ -1199,35 +1209,39 @@ def phase_distill_kernels_vs_plain(model):
     emit("distill_kernels_vs_plain", results=results)
 
 
-def distill_student():
+def distill_student(drops=None):
     """The recipe's TS-Base student (224 px, patch 16, D=768, 12 heads,
-    mlp 1.0, 10 registers, Euler on 36 points), bf16, from seed 0."""
+    mlp 1.0, 10 registers, Euler on 36 points), bf16, from seed 0; with
+    ``drops``, at those attn/proj/mlp dropout rates."""
     import torch
     from odevit_tpu_torch.models.vit_ode import ViTODE
+    rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), drops or ()))
     return ViTODE.base_224(num_classes=100, dtype=torch.bfloat16,
-                           device="cuda", seed=0)
+                           device="cuda", seed=0, **rates)
 
 
-def phase_distill(teacher, images_u8, labels):
-    """Cell tsref-distill-b64-bf16: 3 steps through the kernels and through
-    the plain path from the same student weights, teacher and batch; then
-    one more step of the kernel path split by CUDA events into teacher,
-    student forward, backward and optimizer, and one profiled step."""
-    import numpy as np
+def distill_runs(teacher, images_u8, labels, drops=None):
+    """3 steps through the kernels and through the plain path from the same
+    student weights, teacher and batch (with ``drops``, the student's
+    dropout rates, and the same rng); then one more step of each split by
+    CUDA events into teacher, student forward, backward and optimizer, and
+    one profiled step of the kernel path. Returns (runs, profile,
+    first-gradient cosine, loss differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
     from odevit_tpu_torch.train.fast_steps import (
-        fast_distill_forward, make_fast_distill_train_step)
+        draw_step_seeds, fast_distill_forward, make_fast_distill_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
                                               make_optimizer)
     pre = make_preprocess(dtype=torch.bfloat16)
     batch = {"pixel_values": images_u8, "labels": labels}
     recipe = dict(lambda_param=0.5, jasmin_k=DISTILL_K, temperature=3.0,
                   use_kl_loss=False, mse_full_path=True)
+    rng = DROP_RNG if drops else None
     runs = {}
     for path in ("kernels", "plain"):
-        model = distill_student()
+        model = distill_student(drops)
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_distill_train_step(model, teacher,
                                             preprocess_fn=pre,
@@ -1239,7 +1253,7 @@ def phase_distill(teacher, images_u8, labels):
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
-            state, metrics = step(state, batch, supervise=True)
+            state, metrics = step(state, batch, rng=rng, supervise=True)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(metrics["loss"].item())
@@ -1247,6 +1261,8 @@ def phase_distill(teacher, images_u8, labels):
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
+        seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
+                 if drops else None)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         state.optimizer.zero_grad(set_to_none=True)
         ev[0].record()
@@ -1256,8 +1272,8 @@ def phase_distill(teacher, images_u8, labels):
         ev[1].record()
         loss, _ = fast_distill_forward(
             model, x, labels, t_out["hidden_states"][1:],
-            t_out["attentions"][-1], supervise=True, plain=path == "plain",
-            **recipe)
+            t_out["attentions"][-1], supervise=True, step_seeds=seeds,
+            plain=path == "plain", **recipe)
         ev[2].record()
         loss.backward()
         ev[3].record()
@@ -1265,8 +1281,9 @@ def phase_distill(teacher, images_u8, labels):
         ev[4].record()
         torch.cuda.synchronize()
         if path == "kernels":
-            profile = profile_step(lambda s, b: step(s, b, supervise=True),
-                                   state, batch)
+            profile = profile_step(
+                lambda s, b: step(s, b, rng=rng, supervise=True), state,
+                batch)
         runs[path] = {
             "loss": losses, "ms_per_step": ms,
             "img_per_s": DISTILL_BATCH / min(ms[1:]) * 1e3,
@@ -1284,6 +1301,15 @@ def phase_distill(teacher, images_u8, labels):
         k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
     per_step = {n: c / TRAIN_STEPS for n, c in k["launches"].items()}
+    return runs, profile, cos, loss_rel, per_step
+
+
+def phase_distill(teacher, images_u8, labels):
+    """Cell tsref-distill-b64-bf16: the deterministic step (drop 0), the
+    same-call reference of the dropout cell."""
+    runs, profile, cos, loss_rel, per_step = distill_runs(teacher, images_u8,
+                                                          labels)
+    k, p = runs["kernels"], runs["plain"]
     emit("distill_profile", **profile)
     emit("distill", cell="tsref-distill-b64-bf16", batch=DISTILL_BATCH,
          steps=TRAIN_STEPS, solver="euler-36", jasmin_k=DISTILL_K,
@@ -1292,18 +1318,15 @@ def phase_distill(teacher, images_u8, labels):
          first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
          loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
          launches_per_step=per_step, results=runs)
-    check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
-          "non-finite distillation loss")
-    check(max(loss_rel) <= TOL_TRAIN_LOSS, f"distillation losses: {loss_rel}")
-    check(cos >= MIN_GRAD_COSINE, f"distillation gradient cosine {cos}")
-    want = {**{n: 0 for n in per_step}, **DISTILL_LAUNCHES}
-    check(per_step == want, f"launches per step {per_step}, want {want}")
-    return k["launches"]
+    check_train("distill", runs, cos, loss_rel, per_step, DISTILL_LAUNCHES)
+    return k["launches"], runs
 
 
-def phase_distill_kernel_timing(model, images_u8):
+def phase_distill_kernel_timing(model, images_u8, drops=None):
     """Each tiled kernel alone at B=64 on the distillation path's first
-    state (the patch-embedded images), against its plain version."""
+    state (the patch-embedded images), against its plain version; with
+    ``drops``, each dropout instance, its bound counting the masks' Philox
+    work (``with_masks``)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts
@@ -1321,6 +1344,8 @@ def phase_distill_kernel_timing(model, images_u8):
             tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
         w = model.vf.kernel_weights(torch.bfloat16)
         kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        if drops:
+            kw.update(seed=DROP_SEEDS[2], drops=drops)
         g = torch.Generator(device="cuda").manual_seed(5)
         gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
             torch.bfloat16)
@@ -1331,7 +1356,9 @@ def phase_distill_kernel_timing(model, images_u8):
         _, amap = vf_eval_attn(x, w, **kw)
         ga = (torch.randn(amap.shape, generator=g, device="cuda")
               * 1e-3).to(torch.bfloat16)
-        calls = {
+        calls = dropout_calls(b, n_real, d, dh, heads) if drops else 0
+        sfx = "_drop" if drops else ""
+        jobs = {
             "vf_eval_tiled": (lambda pl: vf_eval(x, w, plain=pl, **kw),
                               vf_bound(b, n_real, d, dh, 2)),
             "vf_eval_jasmin_tiled": (
@@ -1346,13 +1373,14 @@ def phase_distill_kernel_timing(model, images_u8):
                 bwd_bound(b, n_real, d, dh, heads, 2,
                           map_cotangent=True))}
         out = {}
-        for name, (fn, (bound_ms, bound_by)) in calls.items():
+        for name, (fn, bound) in jobs.items():
+            bound_ms, bound_by, unit = with_masks(bound, calls)
             got, want = fn(False), fn(True)
             torch.cuda.synchronize()
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             errs, abs_err = [], 0.0
-            for i, (a, b_) in enumerate(zip(got, want)):
+            for a, b_ in zip(got, want):
                 if a.dtype == torch.int32:
                     continue
                 real = a[:, :n_real] if a.dim() == 3 else a
@@ -1360,15 +1388,188 @@ def phase_distill_kernel_timing(model, images_u8):
                 errs.append(rel_err(real, ref))
                 abs_err = max(abs_err, (real.float() - ref.float()).abs()
                               .max().item())
-            check(max(errs) <= TOL_BF16, f"B={b} {name}: {errs}")
-            out[name] = {"max_abs_err": abs_err, "rel_errs": errs,
-                         "ms": cuda_ms(lambda: fn(False), iters=10),
-                         "plain_ms": cuda_ms(lambda: fn(True), iters=2),
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+            check(max(errs) <= TOL_BF16, f"B={b} {name}{sfx}: {errs}")
+            out[name + sfx] = {
+                "max_abs_err": abs_err, "rel_errs": errs,
+                "ms": cuda_ms(lambda: fn(False), iters=10),
+                "plain_ms": cuda_ms(lambda: fn(True), iters=2),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_unit": unit, "library_ms": None}
     launch_counts.update(before)           # comparisons do not count
-    emit("distill_kernel_timing", shape=f"B={b} n={n_real}/{x.shape[1]} "
-         f"D=768 H=12 dh=768 bf16", results=out)
+    emit("distill_dropout_kernel_timing" if drops else
+         "distill_kernel_timing", shape=f"B={b} n={n_real}/{x.shape[1]} "
+         f"D=768 H=12 dh=768 bf16", drops=drops, philox_calls=calls,
+         results=out)
     return out
+
+
+# --- distillation with dropout: the tiled route's dropout instances -----
+
+# the tiled route's dropout counters on the distillation main path at
+# dropout 0.1, per step (none on its deterministic counters)
+DISTILL_DROP_LAUNCHES = {"vf_eval_tiled_drop": 5,
+                         "vf_eval_jasmin_tiled_drop": 29,
+                         "vf_eval_attn_drop": 1, "vf_bwd_tiled_drop": 35}
+
+
+def phase_distill_dropout_kernels_vs_plain(model):
+    """The tiled route's dropout instances at B=4, 207/208 tokens, against
+    their plain versions in bf16 and f32: the plain, JaSMin and map
+    forwards, the backward with g, g_jas and g_attn; the maps and
+    statistics equal to the deterministic instances' (pre-dropout p);
+    repeated backwards bit-identical; NaN padding inert; mixed rates (f32);
+    rates of 0 on the deterministic instances."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    names = ("x", "norm_attn_scale", "norm_attn_bias", "norm_mlp_scale",
+             "norm_mlp_bias", "wqkv", "wout", "w1", "w2")
+    b, n_real = 4, model.patch_embed.seq_len
+    kw = dict(num_heads=12, scaler=model.vf.scaler, n_real=n_real)
+    dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    before = dict(launch_counts)
+    results = []
+
+    def routed(counts):
+        return {k: launch_counts[k] - counts[k] for k in counts
+                if launch_counts[k] != counts[k]}
+
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w = model.vf.kernel_weights(dtype)
+        x, gx, gj, ga = distill_case(b, dtype, "random", g)
+        r = {"dtype": str(dtype), "tol": tol, "drops": DROP_RATES,
+             "shape": f"B={b} n={n_real}/208 D=768 H=12 dh=768"}
+        counts = dict(launch_counts)
+        dx = vf_eval(x, w, **kw, **dkw)
+        jdx, st, idx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw, **dkw)
+        adx, amap = vf_eval_attn(x, w, **kw, **dkw)
+        torch.cuda.synchronize()
+        got = routed(counts)
+        check(got == {"vf_eval_tiled_drop": 1, "vf_eval_jasmin_tiled_drop": 1,
+                      "vf_eval_attn_drop": 1},
+              f"the dropout forward did not take its tiled instances: {got}")
+        pdx = vf_eval(x, w, plain=True, **kw, **dkw)
+        pjdx, pst, _ = vf_eval_jasmin(x, w, jas_k=DISTILL_K, plain=True,
+                                      **kw, **dkw)
+        padx, pmap = vf_eval_attn(x, w, plain=True, **kw, **dkw)
+        _, dst, didx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw)
+        ddx, dmap = vf_eval_attn(x, w, **kw)
+        torch.cuda.synchronize()
+        r["fwd"] = {"plain_dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                    "jasmin_dx": rel_err(jdx[:, :n_real], pjdx[:, :n_real]),
+                    "jasmin_stats": rel_err(st[..., :n_real],
+                                            pst[..., :n_real]),
+                    "attn_dx": rel_err(adx[:, :n_real], padx[:, :n_real]),
+                    "attn_map": rel_err(amap, pmap)}
+        check(max(r["fwd"].values()) <= tol,
+              f"tiled dropout fwd {dtype}: {r['fwd']}")
+        # one mask stream: the three modes draw the same masks
+        r["modes_agree"] = bool(torch.equal(dx, jdx) and torch.equal(dx, adx))
+        check(r["modes_agree"], f"{dtype}: the modes' dropout differs")
+        # the map and the statistics are those of the pre-dropout p
+        r["pre_dropout_map_and_stats"] = bool(
+            torch.equal(amap, dmap) and torch.equal(st, dst)
+            and torch.equal(idx, didx))
+        check(r["pre_dropout_map_and_stats"],
+              f"{dtype}: the map or the statistics saw the mask")
+        r["vs_deterministic"] = rel_err(dx[:, :n_real], ddx[:, :n_real])
+        check(r["vs_deterministic"] > 10 * tol,
+              f"tiled dropout fwd {dtype} equals the deterministic one")
+        for case, extra in (("g", {}), ("g_jas", dict(g_jas=gj, jas_idx=idx)),
+                            ("g_attn", dict(g_attn=ga))):
+            counts = dict(launch_counts)
+            got = vf_bwd(x, w, gx, **kw, **dkw, **extra)
+            again = vf_bwd(x, w, gx, **kw, **dkw, **extra)
+            torch.cuda.synchronize()
+            routes = routed(counts)
+            check(routes == {"vf_bwd_tiled_drop": 2},
+                  f"the dropout backward ({case}) took {routes}")
+            want = vf_bwd(x, w, gx, plain=True, **kw, **dkw, **extra)
+            torch.cuda.synchronize()
+            errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                b_[:, :n_real] if nm == "x" else b_)
+                    for nm, a, b_ in zip(names, got, want)}
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            r["bwd_" + case] = errs
+            r["repeat_bit_identical_" + case] = same
+            check(max(errs.values()) <= tol,
+                  f"tiled dropout bwd {dtype} {case}: {errs}")
+            check(same, f"tiled dropout bwd {dtype} {case} not repeatable")
+        # NaN and garbage in padded rows (and in the padded rows and keys
+        # of the map cotangent) change no real row
+        dirty = x.clone()
+        dirty[:, n_real:] = float("nan")
+        gdirty = gx.clone()
+        gdirty[:, n_real:] = 1e30
+        adirty = ga.clone()
+        adirty[:, :, n_real:] = float("nan")
+        adirty[..., n_real:] = 7.0
+        ndx, nmap = vf_eval_attn(dirty, w, **kw, **dkw)
+        nbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx,
+                       g_attn=adirty, **kw, **dkw)
+        cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, g_attn=ga, **kw,
+                       **dkw)
+        torch.cuda.synchronize()
+        same = (torch.equal(ndx[:, :n_real], adx[:, :n_real])
+                and torch.equal(nmap, amap)
+                and all(torch.equal(a, c) for a, c in zip(nbars, cbars)))
+        r["nan_padding_unchanged"] = same
+        check(same, f"tiled dropout {dtype}: padded rows reached a real row")
+        results.append(r)
+    # sites of rate 0 beside sites with dropout (f32: exact masks)
+    for drops in ((0.0, 0.3, 0.0), (0.2, 0.0, 0.1)):
+        mixed = dict(seed=DROP_SEEDS[0], drops=drops)
+        got = (vf_eval_attn(x, w, **kw, **mixed)[0],
+               vf_bwd(x, w, gx, g_attn=ga, **kw, **mixed)[0])
+        want = (vf_eval_attn(x, w, plain=True, **kw, **mixed)[0],
+                vf_bwd(x, w, gx, g_attn=ga, plain=True, **kw, **mixed)[0])
+        errs = [rel_err(a[:, :n_real], b_[:, :n_real])
+                for a, b_ in zip(got, want)]
+        results.append({"dtype": str(x.dtype), "drops": drops,
+                        "attn_dx_and_xbar": errs})
+        check(max(errs) <= TOL_F32, f"tiled dropout {drops}: {errs}")
+    # rates of 0 with a seed take the deterministic instances
+    counts = dict(launch_counts)
+    zero = dict(seed=5, drops=(0.0, 0.0, 0.0))
+    za = vf_eval_attn(x, w, **kw, **zero)
+    zb = vf_bwd(x, w, gx, g_attn=ga, **kw, **zero)
+    torch.cuda.synchronize()
+    got = routed(counts)
+    ok = (got == {"vf_eval_attn": 1, "vf_bwd_tiled": 1}
+          and all(torch.equal(a, c) for a, c in zip(
+              za + zb, vf_eval_attn(x, w, **kw) + vf_bwd(x, w, gx, g_attn=ga,
+                                                          **kw))))
+    results.append({"rates_0_with_seed": got, "deterministic": ok})
+    check(ok, f"rates of 0 did not take the deterministic instances: {got}")
+    launch_counts.update(before)           # comparisons do not count
+    emit("distill_dropout_kernels_vs_plain", results=results)
+
+
+def phase_distill_dropout(teacher, images_u8, labels, det):
+    """Cell tsref-distill-drop0.1-b64-bf16: the distillation step at the
+    recipe's dropout 0.1, through the tiled route's dropout instances and
+    through the plain path, from the same weights and rng; beside the
+    drop-0 cell's img/s of this run (``det``)."""
+    runs, profile, cos, loss_rel, per_step = distill_runs(
+        teacher, images_u8, labels, DROP_RATES)
+    k, p = runs["kernels"], runs["plain"]
+    emit("distill_dropout_profile", **profile)
+    emit("distill_dropout", cell="tsref-distill-drop0.1-b64-bf16",
+         batch=DISTILL_BATCH, steps=TRAIN_STEPS, solver="euler-36",
+         jasmin_k=DISTILL_K, drops=DROP_RATES, rng=DROP_RNG,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
+         drop0_img_per_s=det["kernels"]["img_per_s"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train("distill_dropout", runs, cos, loss_rel, per_step,
+                DISTILL_DROP_LAUNCHES)
+    return k["launches"]
 
 
 def main() -> int:
@@ -1415,8 +1616,14 @@ def main() -> int:
         0, 256, (DISTILL_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
     labels_d = torch.from_numpy(rng_d.integers(0, 100, DISTILL_BATCH)).cuda()
     teacher = ViTTeacher.dino_b16(device="cuda", seed=1)
-    distill_launches = phase_distill(teacher, images_d, labels_d)
+    distill_launches, distill = phase_distill(teacher, images_d, labels_d)
     distill_timing = phase_distill_kernel_timing(student, images_d)
+    # the distillation step at the recipe's dropout, beside drop 0
+    phase_distill_dropout_kernels_vs_plain(student)
+    ddrop_launches = phase_distill_dropout(teacher, images_d, labels_d,
+                                           distill)
+    ddrop_timing = phase_distill_kernel_timing(student, images_d,
+                                               DROP_RATES)
 
     kernels = [{
         "name": "vf_eval", "route": "cuda",
@@ -1438,19 +1645,19 @@ def main() -> int:
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by")},
         "library_ms": None}]
-    for name in ("vf_eval_tiled", "vf_eval_jasmin_tiled", "vf_eval_attn",
-                 "vf_bwd_tiled"):
+    tiled_timing = {**distill_timing, **ddrop_timing}
+    for name in (*DISTILL_LAUNCHES, *DISTILL_DROP_LAUNCHES):
         kernels.append({
             "name": name, "route": "cuda",
             "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
             "replaces": ("odevit_tpu/kernels/vector_field_bwd.py:117"
-                         if name == "vf_bwd_tiled"
+                         if name.startswith("vf_bwd")
                          else "odevit_tpu/kernels/vector_field.py:196"),
-            "launches": distill_launches[name],
-            **{k: v for k, v in distill_timing[name].items()
+            "launches": (distill_launches if name in DISTILL_LAUNCHES
+                         else ddrop_launches)[name],
+            **{k: v for k, v in tiled_timing[name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by")},
-            "library_ms": None})
+                        "bound_by", "bound_unit", "library_ms")}})
     for name, source, replaces in (
             ("vf_eval_drop", "vector_field.cu", "vector_field.py:196"),
             ("vf_eval_jasmin_drop", "vector_field.cu", "vector_field.py:196"),

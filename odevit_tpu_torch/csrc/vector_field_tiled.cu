@@ -57,6 +57,33 @@
 // 989 TFLOP/s in bf16) and one backward ~3x that; operations, not bytes,
 // bound both. This first design is simple: no wgmma, no TMA, no pipeline
 // deeper than one step, intermediates in device memory between launches.
+//
+// Dropout (the TPU kernels' fused_vf_dropout, fused_vf_jasmin_dropout,
+// fused_vf_attn_dropout and _vf_bwd_kernel with a seed). Instances
+// compiled apart (template flag kDrop, runtime `drop` of TiledArgs) draw
+// the masks of vector_field.cu's stream, so the bits are those of the
+// one-image-per-CTA kernels and of dropout_masks.cu: a flattened row r is
+// row r % n_pad of image r / n_pad. Where they apply, as the XLA twin:
+//   forward   h = round(round(gelu(h1)) mask_h) in the GELU epilogue;
+//             ctx from round(round(p) mask_p), the map and the JaSMin
+//             statistics from the pre-dropout p; the output product in
+//             two passes, attn_o = ctx Wout into f32, then out =
+//             round(scaler (mask_mo (h W2) + mask_ao attn_o)) in the
+//             epilogue of the second (one f32 accumulator cannot carry
+//             two masks);
+//   backward  two cotangent operands, gd = round(g scaler mask_mo) (W2
+//             and h1_bar, W2_bar) and gd2 = round(g scaler mask_ao) (cb,
+//             Wout_bar); h1_bar = round((gd W2^T) mask_h gelu'(h1)); the
+//             masked h for W2_bar; p_bar = mask_p (cb v^T) + g_attn + the
+//             JaSMin scatter (the latter two on the pre-dropout p), the
+//             keep bits of the query tile kept in shared memory between
+//             the two; v_bar from the masked p.
+// The product epilogues draw one Philox call per 4 columns of a row (the
+// 16x16 accumulator tile is staged in shared memory first, so a lane takes
+// a row's 4 consecutive columns whatever the fragment layout); the f32
+// check instance draws per element. Masks add ~16 M Philox calls per
+// forward at B=64, drawn between barriers: below the products' bound on
+// the FMA pipe, but they add to the time rather than hide under it.
 
 #define VFB_KERNELS_ONLY
 #include "vector_field_bwd.cu"
@@ -75,13 +102,15 @@ constexpr int kKeyTile = 64;
 // cn_a, cn_m = round(((x - mean) d/(d-1)) gamma + beta), one warp per row;
 // rows >= n_real of each image read as zeros. With `mean`, the row means
 // are stored; with `gd`, gd = round(g * scaler) (zeros on padded rows).
-template <typename T>
+// kDrop: gd = round(g * scaler * mask_mo) and gd2 = round(g * scaler *
+// mask_ao), a Philox call per 4 columns and site.
+template <typename T, bool kDrop>
 __global__ void __launch_bounds__(256)
 vft_norm(const T* __restrict__ x, const T* __restrict__ g, int rows,
          int n_pad, int n_real, int d, const float* __restrict__ ga,
          const float* __restrict__ ba, const float* __restrict__ gm,
          const float* __restrict__ bm, T* cna, T* cnm, float* mean, T* gd,
-         float scaler) {
+         float scaler, T* gd2, vf::Drop drop) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r = blockIdx.x * 8 + warp;
   if (r >= rows) return;
@@ -98,8 +127,27 @@ vft_norm(const T* __restrict__ x, const T* __restrict__ g, int rows,
     const size_t i = (size_t)r * d + c;
     cna[i] = vf::from_f<T>(cent * ga[c] + ba[c]);
     cnm[i] = vf::from_f<T>(cent * gm[c] + bm[c]);
-    if (gd != nullptr)
+    if (!kDrop && gd != nullptr)
       gd[i] = vf::from_f<T>(real ? vf::to_f(g[i]) * scaler : 0.0f);
+  }
+  if (kDrop && gd != nullptr) {
+    const unsigned img = r / n_pad, row = r % n_pad;
+    const unsigned kmo = vf::site_key(drop.seed, vf::kSiteMlpOut);
+    const unsigned kao = vf::site_key(drop.seed, vf::kSiteAttnOut);
+    for (int q = lane; 4 * q < d; q += 32) {
+      float mo[4] = {1.0f, 1.0f, 1.0f, 1.0f}, ma[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+      if (real && drop.th_m)
+        vf::keep4(kmo, img, row, q, d, drop.th_m, drop.sc_m, mo);
+      if (real && drop.th_ao)
+        vf::keep4(kao, img, row, q, d, drop.th_ao, drop.sc_ao, ma);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const size_t i = (size_t)r * d + 4 * q + j;
+        const float gv = real ? vf::to_f(g[i]) * scaler : 0.0f;
+        gd[i] = vf::from_f<T>(gv * mo[j]);
+        gd2[i] = vf::from_f<T>(gv * ma[j]);
+      }
+    }
   }
 }
 
@@ -147,7 +195,9 @@ vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
 
 // ---------------------------------------------------------------- GEMM
 
-enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4 };
+enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4,
+                // the dropout epilogues (vft_gemm_*<BT, true>)
+                kGeluDrop = 5, kGeluGradDrop = 6, kOutDrop = 7 };
 
 // C[m, n] = sum over pairs of A_p[m, :] B_p[:, n]; A row-major (lda), B
 // row-major [K, N] (ldb) or, with BT, stored transposed [N, K]. M and N
@@ -163,9 +213,16 @@ struct GemmArgs {
   int ldo;
   float* out32;      // f32 (kGelu: the pre-GELU value, optional; kF32)
   int ld32;
-  const float* aux;  // kGeluGrad: the pre-GELU value h1
+  const float* aux;  // kGeluGrad: the pre-GELU value h1; kOutDrop: attn_o
   int ldaux;
   float scale;
+  // dropout epilogues: the keep masks of up to two sites over the output
+  // (kGeluDrop, kGeluGradDrop: mask_h; kOutDrop: mask_mo, mask_ao), th 0
+  // where a site has no dropout; output row m is row m % n_pad of image
+  // m / n_pad
+  unsigned key[2], th[2];
+  float sc[2];
+  int n_pad, n_real;
 };
 
 template <typename T>
@@ -189,6 +246,38 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
       break;
     default:
       g.out32[(size_t)m * g.ld32 + n] = v;
+      break;
+  }
+}
+
+// mask[j]: the kept value of column 4 grp + j of output row m under mask i
+// of a dropout epilogue; 1 where the site has no dropout, 0 on padded rows
+__device__ __forceinline__ void gemm_keep4(const GemmArgs& g, int i, int m,
+                                           int grp, float mask[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mask[j] = g.th[i] ? 0.0f : 1.0f;
+  const int row = m % g.n_pad;
+  if (g.th[i] && row < g.n_real)
+    vf::keep4(g.key[i], m / g.n_pad, row, grp, g.n, g.th[i], g.sc[i], mask);
+}
+
+template <typename T>
+__device__ __forceinline__ void epilogue_drop(const GemmArgs& g, int m, int n,
+                                              float v, float m0, float m1) {
+  T* out = static_cast<T*>(g.out);
+  const size_t o = (size_t)m * g.ldo + n;
+  switch (g.epi) {
+    case kGeluDrop:  // h = round(round(gelu(h1)) mask_h)
+      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = v;
+      out[o] = vf::from_f<T>(vf::to_f(vf::from_f<T>(vf::gelu(v))) * m0);
+      break;
+    case kGeluGradDrop:  // h1_bar = round(h_bar mask_h gelu'(h1))
+      out[o] = vf::from_f<T>(v * m0 *
+                             vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
+      break;
+    default:  // kOutDrop: round(scaler (mlp_o mask_mo + attn_o mask_ao))
+      out[o] = vf::from_f<T>(
+          (v * m0 + g.aux[(size_t)m * g.ldaux + n] * m1) * g.scale);
       break;
   }
 }
@@ -229,7 +318,7 @@ __device__ __forceinline__ void gemm_fetch(const GemmArgs& g, int p, int k0,
   }
 }
 
-template <bool BT>
+template <bool BT, bool kDrop>
 __global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
   __shared__ __align__(128) bf16 As[kBM * kLdA];
   __shared__ __align__(128) bf16 Bs[kBM * kLdA];  // >= kBK * kLdB
@@ -299,17 +388,33 @@ __global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
       if (mb >= g.m || nb >= g.n) continue;  // the same for the whole warp
       wmma::store_matrix_sync(sc, c[i][j], kLdE, wmma::mem_row_major);
       __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = mb + (e >> 4);
-        if (m < g.m) epilogue<bf16>(g, m, nb + (e & 15), sc[(e >> 4) * kLdE + (e & 15)]);
+      if (kDrop) {
+        // a lane takes 4 consecutive columns of a row: one Philox call
+        for (int e = lane; e < 64; e += 32) {
+          const int rr = e >> 2, c4 = (e & 3) * 4, m = mb + rr;
+          if (m >= g.m) continue;
+          float k0[4], k1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+          gemm_keep4(g, 0, m, (nb + c4) >> 2, k0);
+          if (g.epi == kOutDrop) gemm_keep4(g, 1, m, (nb + c4) >> 2, k1);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            epilogue_drop<bf16>(g, m, nb + c4 + q, sc[rr * kLdE + c4 + q],
+                                k0[q], k1[q]);
+        }
+      } else {
+        for (int e = lane; e < 256; e += 32) {
+          const int m = mb + (e >> 4);
+          if (m < g.m) epilogue<bf16>(g, m, nb + (e & 15), sc[(e >> 4) * kLdE + (e & 15)]);
+        }
       }
       __syncwarp();
     }
 }
 
 // The f32 version on the CUDA cores: a 64x64 tile per CTA, 4x4 outputs a
-// thread, K in steps of 16 through shared memory.
-template <bool BT>
+// thread, K in steps of 16 through shared memory. Its dropout epilogues
+// draw one Philox call per element (it exists for checks).
+template <bool BT, bool kDrop>
 __global__ void __launch_bounds__(kGThreads) vft_gemm_f32(GemmArgs g) {
   __shared__ float As[16][65];
   __shared__ float Bs[16][65];
@@ -350,7 +455,15 @@ __global__ void __launch_bounds__(kGThreads) vft_gemm_f32(GemmArgs g) {
   for (int i = 0; i < 4; ++i)
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m < g.m && n < g.n) epilogue<float>(g, m, n, acc[i][j]);
+      if (m >= g.m || n >= g.n) continue;
+      if (kDrop) {
+        float k0[4], k1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+        gemm_keep4(g, 0, m, n >> 2, k0);
+        if (g.epi == kOutDrop) gemm_keep4(g, 1, m, n >> 2, k1);
+        epilogue_drop<float>(g, m, n, acc[i][j], k0[n & 3], k1[n & 3]);
+      } else {
+        epilogue<float>(g, m, n, acc[i][j]);
+      }
     }
 }
 
@@ -415,19 +528,21 @@ struct AttnArgs {
   void* qkvb;            // backward: [R, 3D]
   int n_pad, n_real, d, heads, mt, mode, jas_kk;
   float qk_scale;
+  vf::Drop drop;         // the dropout instances: mask_p (th_p, sc_p)
 };
 
 enum AttnMode { kPlain = 0, kJasmin = 1, kMap = 2 };
 
 // Shared memory of one attention CTA (byte offsets; row strides in
-// elements, rows padded by 16 bytes).
+// elements, rows padded by 16 bytes). The backward's dropout instance also
+// keeps the query tile's keep bits (vf::keep_bits_row's words).
 struct AttnPlan {
-  size_t k, v, q, s, p, cb, pbar, total;
-  int ld_hd, ld_s, ld_p;
+  size_t k, v, q, s, p, cb, pbar, bits, total;
+  int ld_hd, ld_s, ld_p, ld_bits;
 };
 
 __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
-                                              bool bwd) {
+                                              bool bwd, bool drop) {
   const int pad = 16 / tb;
   AttnPlan a;
   a.ld_hd = hd + pad;
@@ -444,20 +559,25 @@ __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
     a.cb = off;    off += vf::align128((size_t)mt * a.ld_hd * tb);
     a.pbar = off;  off += vf::align128((size_t)mt * a.ld_s * 4);
   }
+  a.bits = off;
+  a.ld_bits = 4 * ((n + 127) / 128);
+  if (bwd && drop) off += vf::align128((size_t)mt * a.ld_bits * 4);
   a.total = off;
   return a;
 }
 
 // One CTA per (query tile, head, image). Forward: the scores, p, the map
 // or statistics, ctx. With kBwd also p_bar, s_bar and q_bar (see the top
-// of the file).
-template <typename T, bool kBwd>
+// of the file). kDrop: ctx (and in the backward v_bar, through the p
+// scratch) takes the masked p; the map, the statistics, the JaSMin
+// scatter and s_bar the pre-dropout p.
+template <typename T, bool kBwd, bool kDrop>
 __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n_pad, n_real = a.n_real, d = a.d, hd = d / a.heads;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * a.mt;
   const int rows = vf::imin(a.mt, n - q0);
-  const AttnPlan pl = attn_plan(n, hd, a.mt, sizeof(T), kBwd);
+  const AttnPlan pl = attn_plan(n, hd, a.mt, sizeof(T), kBwd, kDrop);
   T* k = reinterpret_cast<T*>(smem + pl.k);
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* q = reinterpret_cast<T*>(smem + pl.q);
@@ -527,6 +647,40 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
       jas_row(p + r * lp, n_real, a.jas_kk, qi, n, st, ix);
     }
   }
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + pl.bits);
+  const bool drop_p = kDrop && a.drop.th_p;
+  if (drop_p) {
+    // p = round(p mask_p) on real query rows, 0 on padded ones; the map
+    // and the statistics above keep the pre-dropout p
+    __syncthreads();
+    const unsigned key = vf::site_key(a.drop.seed, vf::kSiteP + h);
+    for (int r = warp; r < rows; r += vf::kWarps) {
+      const int qi = q0 + r;
+      T* prow = p + r * lp;
+      if (kBwd) {
+        // the keep bits stay for p_bar
+        unsigned* words = bits + r * pl.ld_bits;
+        if (qi < n_real)
+          vf::keep_bits_row(key, b, qi, n, n_real, a.drop.th_p, words);
+        else if (lane < pl.ld_bits)
+          words[lane] = 0u;
+        __syncwarp();
+        for (int c = lane; c < n; c += 32)
+          prow[c] = vf::from_f<T>(
+              vf::to_f(prow[c]) * (vf::kept(words, c) ? a.drop.sc_p : 0.0f));
+      } else {
+        for (int q4 = lane; 4 * q4 < n; q4 += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (qi < n_real)
+            vf::keep4(key, b, qi, q4, n_real, a.drop.th_p, a.drop.sc_p, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            prow[4 * q4 + j] = vf::from_f<T>(vf::to_f(prow[4 * q4 + j]) * m[j]);
+        }
+      }
+    }
+    __syncthreads();
+  }
 
   // ctx = round(p v) for this tile
   float* cst = kBwd ? pbar : s;
@@ -564,6 +718,9 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
       }
       continue;
     }
+    if (drop_p)
+      for (int c = lane; c < n_real; c += 32)
+        prow[c] *= vf::kept(bits + r * pl.ld_bits, c) ? a.drop.sc_p : 0.0f;
     if (gat != nullptr)
       for (int c = lane; c < n_real; c += 32)
         prow[c] += vf::to_f(gat[(size_t)qi * n + c]);
@@ -572,7 +729,9 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
       const int* ji = a.jas_idx + bh * 4 * n;
       const float g4 = gj[4 * n + qi];
       for (int c = lane; c < n_real; c += 32) {
-        const float pj = vf::to_f(p[r * lp + c]);
+        // the pre-dropout rounded p (with dropout, p holds the masked one)
+        const float pj = kDrop ? vf::to_f(vf::from_f<T>(frow[c]))
+                               : vf::to_f(p[r * lp + c]);
         const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
         const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
         float t = g4 * (lo * hi);
@@ -688,8 +847,10 @@ struct TiledArgs {
   void* qkv;               // [R, 3D]
   void* h;                 // [R, dh]
   void* ctx;               // [R, D]
+  float* ao;               // forward with dropout: attn_o [R, D] f32
   float* mean;             // backward: [R]
-  void* gd;                // [R, D]
+  void* gd;                // [R, D]   with dropout: g scaler mask_mo
+  void* gd2;               // [R, D]   with dropout: g scaler mask_ao
   float* h1;               // [R, dh] f32
   void* h1b;               // [R, dh]
   void* cb;                // [R, D]
@@ -703,6 +864,7 @@ struct TiledArgs {
   float* wbars;            // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
   int batch, n_pad, n_real, d, heads, dh, mode, jas_kk, mt, splits;
   float scaler, qk_scale;
+  vf::Drop drop;           // all zeros: the deterministic instances
 };
 
 namespace vft {
@@ -726,16 +888,27 @@ GemmArgs gemm_args(const void* a, int lda, const void* b, int ldb, int k,
   return g;
 }
 
-template <typename T, bool BT>
+template <typename T, bool BT, bool kDrop = false>
 int gemm(const GemmArgs& g, cudaStream_t st) {
   if (sizeof(T) == 2) {
     const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM);
-    vft_gemm_bf16<BT><<<grid, kGThreads, 0, st>>>(g);
+    vft_gemm_bf16<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
   } else {
     const dim3 grid((g.n + 63) / 64, (g.m + 63) / 64);
-    vft_gemm_f32<BT><<<grid, kGThreads, 0, st>>>(g);
+    vft_gemm_f32<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
   }
   return (int)cudaGetLastError();
+}
+
+// mask i of a dropout epilogue: the keep mask of `site` (mask_h and mask_mo
+// at mlp_drop, mask_ao at proj_drop)
+void gemm_mask(GemmArgs& g, int i, const TiledArgs& t, int site) {
+  const bool ao = site == vf::kSiteAttnOut;
+  g.key[i] = vf::site_key(t.drop.seed, site);
+  g.th[i] = ao ? t.drop.th_ao : t.drop.th_m;
+  g.sc[i] = ao ? t.drop.sc_ao : t.drop.sc_m;
+  g.n_pad = t.n_pad;
+  g.n_real = t.n_real;
 }
 
 AttnArgs attn_args(const TiledArgs& t) {
@@ -760,31 +933,33 @@ AttnArgs attn_args(const TiledArgs& t) {
   a.mode = t.mode;
   a.jas_kk = t.jas_kk;
   a.qk_scale = t.qk_scale;
+  a.drop = t.drop;
   return a;
 }
 
-template <typename T, bool kBwd>
+template <typename T, bool kBwd, bool kDrop>
 int attn(const TiledArgs& t, cudaStream_t st) {
   const int hd = t.d / t.heads;
   const size_t smem =
-      attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd).total;
+      attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd, kDrop).total;
   cudaError_t err = cudaFuncSetAttribute(
-      vft_attn<T, kBwd>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      vft_attn<T, kBwd, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
-  vft_attn<T, kBwd><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
+  vft_attn<T, kBwd, kDrop><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int norm(const TiledArgs& t, bool bwd, cudaStream_t st) {
   const int rows = t.batch * t.n_pad;
-  vft_norm<T><<<(rows + 7) / 8, 256, 0, st>>>(
+  vft_norm<T, kDrop><<<(rows + 7) / 8, 256, 0, st>>>(
       static_cast<const T*>(t.x), static_cast<const T*>(t.g), rows, t.n_pad,
       t.n_real, t.d, t.ga, t.ba, t.gm, t.bm, static_cast<T*>(t.cna),
       static_cast<T*>(t.cnm), bwd ? t.mean : nullptr,
-      bwd ? static_cast<T*>(t.gd) : nullptr, t.scaler);
+      bwd ? static_cast<T*>(t.gd) : nullptr, t.scaler,
+      static_cast<T*>(t.gd2), t.drop);
   return (int)cudaGetLastError();
 }
 
@@ -794,16 +969,41 @@ int norm(const TiledArgs& t, bool bwd, cudaStream_t st) {
     if (e_ != 0) return e_;       \
   } while (0)
 
+bool has_drop(const TiledArgs& t) {
+  return t.drop.th_p | t.drop.th_ao | t.drop.th_m;
+}
+
 template <typename T>
 int forward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
-  VFT_CHECK(norm<T>(t, false, st));
+  const bool drop = has_drop(t);
+  VFT_CHECK((norm<T, false>(t, false, st)));
   VFT_CHECK((gemm<T, false>(
       gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
       st)));
-  VFT_CHECK((gemm<T, false>(
-      gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh), st)));
-  VFT_CHECK((attn<T, false>(t, st)));
+  GemmArgs hg = gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh);
+  if (drop && t.drop.th_m) {
+    // h = round(round(gelu(h1)) mask_h)
+    hg.epi = kGeluDrop;
+    gemm_mask(hg, 0, t, vf::kSiteH);
+    VFT_CHECK((gemm<T, false, true>(hg, st)));
+  } else {
+    VFT_CHECK((gemm<T, false>(hg, st)));
+  }
+  VFT_CHECK((drop ? attn<T, false, true>(t, st) : attn<T, false, false>(t, st)));
+  if (drop && (t.drop.th_m || t.drop.th_ao)) {
+    // attn_o = ctx Wout (f32), then out = round(scaler (mask_mo (h W2) +
+    // mask_ao attn_o))
+    GemmArgs ao = gemm_args(t.ctx, d, t.wout, d, d, R, d, kF32, nullptr, d);
+    ao.out32 = t.ao;
+    VFT_CHECK((gemm<T, false>(ao, st)));
+    GemmArgs o = gemm_args(t.h, dh, t.w2, d, dh, R, d, kOutDrop, t.out, d);
+    o.aux = t.ao;
+    o.scale = t.scaler;
+    gemm_mask(o, 0, t, vf::kSiteMlpOut);
+    gemm_mask(o, 1, t, vf::kSiteAttnOut);
+    return gemm<T, false, true>(o, st);
+  }
   GemmArgs o = gemm_args(t.ctx, d, t.wout, d, d, R, d, kScale, t.out, d);
   o.pairs = 2;
   o.a[1] = t.h;
@@ -818,20 +1018,33 @@ int forward(const TiledArgs& t, cudaStream_t st) {
 template <typename T>
 int backward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh, hd = d / t.heads;
-  VFT_CHECK(norm<T>(t, true, st));
+  const bool drop = has_drop(t);
+  // with dropout, gd carries mask_mo and gd2 mask_ao
+  const void* gda = drop ? t.gd2 : t.gd;
+  VFT_CHECK((drop ? norm<T, true>(t, true, st) : norm<T, false>(t, true, st)));
   GemmArgs h1 = gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh);
   h1.out32 = t.h1;
-  VFT_CHECK((gemm<T, false>(h1, st)));
-  VFT_CHECK((gemm<T, false>(
-      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
-      st)));
   // h1_bar = round((gd W2^T) gelu'(h1)); cb = round(gd Wout^T)
   GemmArgs hb = gemm_args(t.gd, d, t.w2, d, d, R, dh, kGeluGrad, t.h1b, dh);
   hb.aux = t.h1;
-  VFT_CHECK((gemm<T, true>(hb, st)));
+  if (drop && t.drop.th_m) {
+    // the masked h (for W2_bar) and h1_bar = round(h_bar mask_h gelu'(h1))
+    h1.epi = kGeluDrop;
+    hb.epi = kGeluGradDrop;
+    gemm_mask(h1, 0, t, vf::kSiteH);
+    gemm_mask(hb, 0, t, vf::kSiteH);
+    VFT_CHECK((gemm<T, false, true>(h1, st)));
+  } else {
+    VFT_CHECK((gemm<T, false>(h1, st)));
+  }
+  VFT_CHECK((gemm<T, false>(
+      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
+      st)));
+  VFT_CHECK((hb.epi == kGeluGradDrop ? gemm<T, true, true>(hb, st)
+                                     : gemm<T, true>(hb, st)));
   VFT_CHECK((gemm<T, true>(
-      gemm_args(t.gd, d, t.wout, d, d, R, d, kRound, t.cb, d), st)));
-  VFT_CHECK((attn<T, true>(t, st)));
+      gemm_args(gda, d, t.wout, d, d, R, d, kRound, t.cb, d), st)));
+  VFT_CHECK((drop ? attn<T, true, true>(t, st) : attn<T, true, false>(t, st)));
   const size_t ksmem = key_plan(t.n_pad, hd, sizeof(T)).total;
   cudaError_t err = cudaFuncSetAttribute(
       vft_attn_keys<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -858,7 +1071,7 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   // (the kernels of vector_field_bwd.cu)
   Problems ps;
   ps.p[0] = {t.cna, t.qkvb, d, 3 * d, 0};
-  ps.p[1] = {t.ctx, t.gd, d, d, (size_t)3 * d * d};
+  ps.p[1] = {t.ctx, gda, d, d, (size_t)3 * d * d};
   ps.p[2] = {t.cnm, t.h1b, d, dh, (size_t)4 * d * d};
   ps.p[3] = {t.h, t.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
   ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
@@ -891,20 +1104,23 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 extern "C" {
 
 // Chooses the query-tile rows of the attention kernels: the largest whose
-// backward CTA fits the shared memory. Returns 0 with the plan, 1 when the
-// shape has none (the wrapper raises).
+// backward CTA (of the dropout instance with `drop`) fits the shared
+// memory. Returns 0 with the plan, 1 when the shape has none (the wrapper
+// raises).
 int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-             int* mt_out, int* smem_fwd_out, int* smem_bwd_out,
+             int drop, int* mt_out, int* smem_fwd_out, int* smem_bwd_out,
              int* smem_keys_out) {
   if (!vft::shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   const int hd = d / heads;
   const size_t keys = vft::key_plan(n_pad, hd, tbytes).total;
   if (keys > (size_t)vf::kMaxSmem) return 1;
   for (int mt : vft::kQTiles) {
-    const size_t bwd = vft::attn_plan(n_pad, hd, mt, tbytes, true).total;
+    const size_t bwd =
+        vft::attn_plan(n_pad, hd, mt, tbytes, true, drop != 0).total;
     if (bwd <= (size_t)vf::kMaxSmem) {
       *mt_out = mt;
-      *smem_fwd_out = (int)vft::attn_plan(n_pad, hd, mt, tbytes, false).total;
+      *smem_fwd_out =
+          (int)vft::attn_plan(n_pad, hd, mt, tbytes, false, drop != 0).total;
       *smem_bwd_out = (int)bwd;
       *smem_keys_out = (int)keys;
       return 0;
@@ -914,7 +1130,9 @@ int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 }
 
 // One evaluation (mode 0 plain, 1 JaSMin statistics, 2 attention map) on
-// `stream`; returns the first cudaGetLastError() that is not 0, else 0.
+// `stream`; returns the first cudaGetLastError() that is not 0, else 0. A
+// nonzero threshold in args->drop runs the dropout instances (planned with
+// drop=1), which also take the ao scratch (and gd2 in the backward).
 int vft_forward(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vft::forward<bf16>(*args, st)

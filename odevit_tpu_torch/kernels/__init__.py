@@ -17,7 +17,10 @@ launch_counts: Dict[str, int] = {
     "dropout_masks": 0,
     # the tiled route (csrc/vector_field_tiled.cu)
     "vf_eval_tiled": 0, "vf_eval_jasmin_tiled": 0, "vf_eval_attn": 0,
-    "vf_bwd_tiled": 0}
+    "vf_bwd_tiled": 0,
+    # and its dropout instances
+    "vf_eval_tiled_drop": 0, "vf_eval_jasmin_tiled_drop": 0,
+    "vf_eval_attn_drop": 0, "vf_bwd_tiled_drop": 0}
 _count_lock = threading.Lock()
 
 

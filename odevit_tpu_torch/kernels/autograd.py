@@ -17,9 +17,9 @@ gradients flow to ``params``, so they arrive in float32 as they do in
 JAX. Each Function saves x (and the statistics' columns) and recomputes
 the rest in the backward.
 
-``FusedVF`` and ``FusedVFJasmin`` also carry dropout (``seed``, ``drops``
-= (attn, proj, mlp)), the counterparts of ``fused_vf_dropout`` and
-``fused_vf_jasmin_dropout``: they keep the seed, never a mask, and the
+All three also carry dropout (``seed``, ``drops`` = (attn, proj, mlp)),
+the counterparts of ``fused_vf_dropout``, ``fused_vf_jasmin_dropout`` and
+``fused_vf_attn_dropout``: they keep the seed, never a mask, and the
 backward draws the masks again.
 """
 
@@ -67,14 +67,10 @@ class FusedVFJasmin(torch.autograd.Function):
 
 class FusedVFAttn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w: VFWeights, num_heads: int, scaler: float,
-                n_real: int, plain: bool, *params):
-        dx, p = vf_eval_attn(x, w, num_heads=num_heads, scaler=scaler,
-                             n_real=n_real, plain=plain)
+    def forward(ctx, x, w: VFWeights, kw: dict, *params):
+        dx, p = vf_eval_attn(x, w, **kw)
         ctx.save_for_backward(x)
-        ctx.w = w
-        ctx.kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real,
-                      plain=plain)
+        ctx.w, ctx.kw = w, kw
         return dx, p
 
     @staticmethod
@@ -82,7 +78,7 @@ class FusedVFAttn(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         bars = vf_bwd(x, ctx.w, g.contiguous(),
                       g_attn=g_attn.to(x.dtype).contiguous(), **ctx.kw)
-        return (bars[0], None, None, None, None, None, *bars[1:])
+        return (bars[0], None, None, *bars[1:])
 
 
 def vf_params(vf) -> tuple:
@@ -114,7 +110,10 @@ def fused_vf_jasmin(x, w: VFWeights, params, *, num_heads: int,
 
 
 def fused_vf_attn(x, w: VFWeights, params, *, num_heads: int, scaler: float,
-                  n_real: int, plain: bool = False):
-    """(f(x), attention maps [B, H, n_pad, n_pad]), differentiable in x and
-    ``params``."""
-    return FusedVFAttn.apply(x, w, num_heads, scaler, n_real, plain, *params)
+                  n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
+                  plain: bool = False):
+    """(f(x), attention maps [B, H, n_pad, n_pad] of the pre-dropout p),
+    differentiable in x and ``params``."""
+    kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
+              drops=drops, plain=plain)
+    return FusedVFAttn.apply(x, w, kw, *params)

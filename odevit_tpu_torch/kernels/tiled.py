@@ -8,9 +8,14 @@ whose image does not fit the one-image-per-CTA kernels of
 evaluation: 207 tokens padded to 208, D=768, 12 heads). It replaces the
 same TPU kernels, ``_vf_kernel`` and ``_vf_bwd_kernel``. The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
-module binds the library and allocates the scratch the kernels use. The
-route has no dropout yet: an evaluation or backward with dropout raises
-rather than drop the seed.
+module binds the library and allocates the scratch the kernels use.
+
+Dropout: a ``dropout.Drop`` (its seed, thresholds and kept values) runs
+the dropout instances of every kernel of the route, which draw the masks
+of ``kernels/dropout.py`` themselves; the forward then takes an f32
+``attn_o`` scratch and the backward a second cotangent operand (``gd2``,
+g * scaler * mask_ao beside ``gd``'s mask_mo). None runs the
+deterministic instances.
 """
 
 from __future__ import annotations
@@ -19,12 +24,15 @@ import ctypes
 
 import torch
 
+from odevit_tpu_torch.kernels.dropout import Drop
+
 MODES = {"plain": 0, "jasmin": 1, "attn": 2}
 
 _PTRS = ("x", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm", "bm",
          "wqkv", "wout", "w1", "w2", "out", "stats", "idx", "pmap", "cna",
-         "cnm", "qkv", "h", "ctx", "mean", "gd", "h1", "h1b", "cb", "pg",
-         "sbar", "qkvb", "abar", "mbar", "npart", "wpart", "wbars")
+         "cnm", "qkv", "h", "ctx", "ao", "mean", "gd", "gd2", "h1", "h1b",
+         "cb", "pg", "sbar", "qkvb", "abar", "mbar", "npart", "wpart",
+         "wbars")
 _INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
          "mt", "splits")
 
@@ -32,7 +40,8 @@ _INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
 class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in _PTRS]
                 + [(name, ctypes.c_int) for name in _INTS]
-                + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float)])
+                + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float),
+                   ("drop", Drop)])
 
 
 _lib = None
@@ -44,7 +53,7 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         lib = build.load("vector_field_tiled")
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.vft_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 4
+        lib.vft_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 4
         lib.vft_plan.restype = i
         for fn in (lib.vft_forward, lib.vft_backward):
             fn.argtypes = [i, ctypes.POINTER(_Args), p]
@@ -56,14 +65,15 @@ def _library() -> ctypes.CDLL:
 
 
 def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-               dh: int):
+               dh: int, drop: bool = False):
     """(query-tile rows, shared-memory bytes of the forward, backward and
-    key-tile attention CTAs); raises if the shape has no tiled plan
-    (n_pad > 256, or sizes that are not multiples of 16)."""
+    key-tile attention CTAs), of the dropout instances with ``drop``;
+    raises if the shape has no tiled plan (n_pad > 256, or sizes that are
+    not multiples of 16)."""
     out = [ctypes.c_int() for _ in range(4)]
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vft_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                           *(ctypes.byref(o) for o in out)):
+                           int(drop), *(ctypes.byref(o) for o in out)):
         raise ValueError(
             f"no tiled plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
             f"dh={dh} in {dtype}: the tiled kernels need n_pad <= 256 and "
@@ -75,28 +85,30 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def no_dropout(drop):
-    """Raises on a ``dropout.Drop``: the route, and the attention-map mode
-    that only it carries, have no dropout yet."""
-    if drop is not None:
-        raise NotImplementedError(
-            "dropout on the tiled route (and so with the attention-map "
-            "mode) is not ported yet (ROADMAP.md §1 items 1 and 8)")
-
-
-def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
-         jas_kk=0, splits=0):
+def make_args(x, w, bufs, *, num_heads, scaler, n_real, mt, mode="plain",
+              jas_kk=0, splits=0, drop=None) -> _Args:
+    """The kernels' ``TiledArgs`` for one call: pointers of x, the weights
+    and ``bufs`` (None where absent), the shape, and ``drop`` (zeros, the
+    deterministic instances, for None)."""
     b, n, d = x.shape
-    dh = w.w1.shape[1]
-    mt = tiled_plan(x.dtype, n, n_real, d, num_heads, dh)[0]
     ptrs = {"ga": w.norm_attn_scale, "ba": w.norm_attn_bias,
             "gm": w.norm_mlp_scale, "bm": w.norm_mlp_bias, "wqkv": w.wqkv,
             "wout": w.wout, "w1": w.w1, "w2": w.w2, "x": x, **bufs}
-    args = _Args(**{k: _ptr(v) for k, v in ptrs.items()},
+    return _Args(**{k: _ptr(v) for k, v in ptrs.items()},
                  batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads,
-                 dh=dh, mode=MODES[mode], jas_kk=jas_kk, mt=mt,
+                 dh=w.w1.shape[1], mode=MODES[mode], jas_kk=jas_kk, mt=mt,
                  splits=splits, scaler=scaler,
-                 qk_scale=(d // num_heads) ** -0.5)
+                 qk_scale=(d // num_heads) ** -0.5, drop=drop or Drop())
+
+
+def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
+         jas_kk=0, splits=0, drop=None):
+    b, n, d = x.shape
+    mt = tiled_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1],
+                    drop is not None)[0]
+    args = make_args(x, w, bufs, num_heads=num_heads, scaler=scaler,
+                     n_real=n_real, mt=mt, mode=mode, jas_kk=jas_kk,
+                     splits=splits, drop=drop)
     lib = _library()
     err = getattr(lib, fn_name)(
         x.element_size(), ctypes.byref(args),
@@ -115,38 +127,43 @@ def _scratch(x, dh: int):
             "ctx": e(d)}
 
 
-def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
-                  mode: str = "plain", jas_kk: int = 0, drop=None):
-    """One evaluation on the tiled route: f(x), and for mode "jasmin" the
-    statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
-    n_pad]`` (zeros on padded query rows). The caller has checked the
-    arguments. ``drop`` (a ``dropout.Drop``) raises: not ported yet."""
-    no_dropout(drop)
+def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
+                    drop=None) -> dict:
+    """The outputs and scratch of one tiled evaluation, by ``TiledArgs``
+    field: with ``drop`` also the f32 ``ao`` [B * n_pad, D]."""
     b, n, d = x.shape
     bufs = _scratch(x, w.w1.shape[1])
     bufs["out"] = torch.empty_like(x)
-    extra = ()
+    if drop is not None:
+        bufs["ao"] = torch.empty(b * n, d, device=x.device)
     if mode == "jasmin":
         bufs["stats"] = torch.empty(b, num_heads, 5, n, device=x.device)
         bufs["idx"] = torch.empty(b, num_heads, 4, n, device=x.device,
                                   dtype=torch.int32)
-        extra = (bufs["stats"], bufs["idx"])
     elif mode == "attn":
         bufs["pmap"] = torch.empty(b, num_heads, n, n, device=x.device,
                                    dtype=x.dtype)
-        extra = (bufs["pmap"],)
+    return bufs
+
+
+def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
+                  mode: str = "plain", jas_kk: int = 0, drop=None):
+    """One evaluation on the tiled route: f(x), and for mode "jasmin" the
+    statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
+    n_pad]`` (zeros on padded query rows), both of the pre-dropout p. The
+    caller has checked the arguments. ``drop``: a ``dropout.Drop`` or
+    None (see the module docstring)."""
+    bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop)
     _run("vft_forward", x, w, bufs, num_heads=num_heads, scaler=scaler,
-         n_real=n_real, mode=mode, jas_kk=jas_kk)
-    return (bufs["out"], *extra)
+         n_real=n_real, mode=mode, jas_kk=jas_kk, drop=drop)
+    extra = {"jasmin": ("stats", "idx"), "attn": ("pmap",)}.get(mode, ())
+    return (bufs["out"], *(bufs[k] for k in extra))
 
 
-def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
-                   splits: int, g_jas=None, jas_idx=None, g_attn=None,
-                   drop=None):
-    """The 9 cotangents of one evaluation on the tiled route (see
-    ``vector_field_bwd.py``). The caller has checked the arguments.
-    ``drop`` raises: not ported yet."""
-    no_dropout(drop)
+def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
+                     jas_idx=None, g_attn=None, drop=None) -> dict:
+    """The cotangents and scratch of one tiled backward, by ``TiledArgs``
+    field: with ``drop`` also ``gd2``, the second cotangent operand."""
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
@@ -157,11 +174,23 @@ def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
     bufs.update(
         g=g, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
         out=torch.empty_like(x), mean=f32(rows), gd=e(rows, d),
-        h1=f32(rows, dh), h1b=e(rows, dh), cb=e(rows, d),
-        pg=e(b, num_heads, n, n), sbar=e(b, num_heads, n, n),
-        qkvb=e(rows, 3 * d), abar=f32(rows, d), mbar=f32(rows, d),
-        npart=f32(b, 4, d), wpart=f32(splits, wtotal),
+        gd2=e(rows, d) if drop is not None else None, h1=f32(rows, dh),
+        h1b=e(rows, dh), cb=e(rows, d), pg=e(b, num_heads, n, n),
+        sbar=e(b, num_heads, n, n), qkvb=e(rows, 3 * d), abar=f32(rows, d),
+        mbar=f32(rows, d), npart=f32(b, 4, d), wpart=f32(splits, wtotal),
         wbars=f32(wtotal + 4 * d))
+    return bufs
+
+
+def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
+                   splits: int, g_jas=None, jas_idx=None, g_attn=None,
+                   drop=None):
+    """The 9 cotangents of one evaluation on the tiled route (see
+    ``vector_field_bwd.py``), with the forward's ``drop`` (masks drawn
+    again). The caller has checked the arguments."""
+    bufs = backward_buffers(x, w, g, num_heads=num_heads, splits=splits,
+                            g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
+                            drop=drop)
     _run("vft_backward", x, w, bufs, num_heads=num_heads, scaler=scaler,
-         n_real=n_real, splits=splits)
+         n_real=n_real, splits=splits, drop=drop)
     return bufs["out"], bufs["wbars"]

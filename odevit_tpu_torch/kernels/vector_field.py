@@ -35,10 +35,13 @@ Dropout. ``vf_eval`` and ``vf_eval_jasmin`` take ``seed`` and ``drops`` =
 and ``fused_vf_jasmin_dropout``: inverted dropout on gelu(h), mlp_o,
 attn_o and the attention probabilities, with the masks of
 ``kernels/dropout.py`` (the JaSMin statistics stay those of the
-pre-dropout p). Rates of 0 take the deterministic route whatever the
-seed; nonzero rates without a seed raise. On the GPU they launch the
-kernel's dropout instance, counted as ``vf_eval_drop`` and
-``vf_eval_jasmin_drop``; the tiled route has no dropout yet and raises.
+pre-dropout p). ``vf_eval_attn`` takes them too, the counterpart of
+``fused_vf_attn_dropout``: its maps are the pre-dropout p. Rates of 0 take
+the deterministic route whatever the seed; nonzero rates without a seed
+raise. On the GPU they launch the kernels' dropout instances, counted as
+``vf_eval_drop`` and ``vf_eval_jasmin_drop`` (one image per CTA) and
+``vf_eval_tiled_drop``, ``vf_eval_jasmin_tiled_drop`` and
+``vf_eval_attn_drop`` (the tiled route).
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import torch
 
 from odevit_tpu_torch.kernels import count_launch
 from odevit_tpu_torch.kernels.dropout import drop_spec, masks_plain
-from odevit_tpu_torch.kernels.tiled import no_dropout, tiled_forward
+from odevit_tpu_torch.kernels.tiled import tiled_forward
 from odevit_tpu_torch.losses.jasmin import jasmin_order_stats
 from odevit_tpu_torch.ops.dot import dot32
 
@@ -170,12 +173,10 @@ def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                        n_real: int, seed=None, drops=(0.0, 0.0, 0.0)):
     """(f(x), p): the attention-map mode in plain PyTorch. ``p`` [B, H,
     n_pad, n_pad] in x's dtype holds zeros on padded query rows (and, by
-    the key mask, on padded keys)."""
+    the key mask, on padded keys). With dropout ``p`` is the pre-dropout
+    map."""
     _check(x, w, num_heads, n_real, "plain", None)
-    # the mode runs on the tiled route only: its plain version refuses
-    # dropout as the route does
-    no_dropout(drop_spec(seed, drops))
-    f, p = _field_plain(x, w, num_heads, scaler, n_real)
+    f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     query = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
     p = torch.where(query, p, torch.zeros((), dtype=p.dtype,
                                           device=x.device))
@@ -332,7 +333,8 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
                 f"tiled route runs the plain, JaSMin and map modes")
         (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                n_real=n_real, drop=drop)
-        count_launch("vf_eval_tiled")
+        count_launch("vf_eval_tiled" if drop is None
+                     else "vf_eval_tiled_drop")
         return out
     out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
                         n_real=n_real, mode=mode, dt=dt, base=base, drop=drop)
@@ -358,7 +360,8 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
         out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, mode="jasmin", jas_kk=kk,
                             drop=drop)
-        count_launch("vf_eval_jasmin_tiled")
+        count_launch("vf_eval_jasmin_tiled" if drop is None
+                     else "vf_eval_jasmin_tiled_drop")
         return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
                   mode="plain", dt=0.0, base=None, jas_kk=kk, drop=drop)
@@ -372,16 +375,17 @@ def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
     """(f(x), p) in one launch of the tiled route's attention-map mode (see
     :func:`vf_eval_attn_plain` for the layout); the one-image-per-CTA
     kernel has no map mode. A CPU tensor, or ``plain=True``, runs the plain
-    version. Dropout is not ported in this mode and raises."""
+    version. With dropout the dropout instance runs; the maps stay those
+    of the pre-dropout p."""
     if plain or x.device.type == "cpu":
         return vf_eval_attn_plain(x, w, num_heads=num_heads, scaler=scaler,
                                   n_real=n_real, seed=seed, drops=drops)
     _check(x, w, num_heads, n_real, "plain", None)
     _check_launch(x, w)
+    drop = drop_spec(seed, drops)
     out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                        n_real=n_real, mode="attn",
-                        drop=drop_spec(seed, drops))
-    count_launch("vf_eval_attn")
+                        n_real=n_real, mode="attn", drop=drop)
+    count_launch("vf_eval_attn" if drop is None else "vf_eval_attn_drop")
     return out
 
 

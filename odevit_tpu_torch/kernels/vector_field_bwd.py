@@ -24,8 +24,9 @@ no such plan exists (the 224 px TS-Base shape), the tiled route of
 
 Dropout: ``seed`` and ``drops`` as the forward took them; the masks are
 drawn again (``kernels/dropout.py``), never saved. On the GPU the kernels'
-dropout instance runs, counted as ``vf_bwd_drop``; the tiled route and the
-maps' cotangent have no dropout yet and raise.
+dropout instances run, counted as ``vf_bwd_drop`` (one image per CTA) and
+``vf_bwd_tiled_drop`` (the tiled route, with or without the maps'
+cotangent, which adds to the pre-dropout p's cotangent).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 
 from odevit_tpu_torch.kernels import count_launch
 from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
-from odevit_tpu_torch.kernels.tiled import no_dropout, tiled_backward
+from odevit_tpu_torch.kernels.tiled import tiled_backward
 from odevit_tpu_torch.kernels.vector_field import (VFWeights, _check,
                                                    _check_launch)
 from odevit_tpu_torch.ops.dot import dot32
@@ -82,10 +83,6 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
     is rounded before and after its mask, as in the forward."""
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
-    if g_attn is not None:
-        # the maps' cotangent runs on the tiled route only: its plain
-        # version refuses dropout as the route does
-        no_dropout(drop_spec(seed, drops))
     b, n, d = x.shape
     hd = d // num_heads
     tau = hd ** -0.5
@@ -289,7 +286,7 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
             drop=drop)
-        count_launch("vf_bwd_tiled")
+        count_launch("vf_bwd_tiled" if drop is None else "vf_bwd_tiled_drop")
         return _split_bars(xbar, out, d, dh)
     cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
                                  drop is not None)

@@ -15,9 +15,11 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
 
 On the GPU every evaluation launches the kernel; ``plain=True`` runs the
 same routes through the kernel's plain PyTorch version instead, for
-comparisons. dopri5, the chained-Euler opt-in and Macaron are not ported
-yet and raise (L2 attention and time conditioning raise when the model is
-built).
+comparisons. dopri5 and Macaron are not ported yet and raise, and so
+does the chained-Euler opt-in where JAX would chain (``ODEVIT_EULER_CHAIN``
+above 1 and dividing the step count of the fused Euler route); elsewhere
+the variable is ignored, as JAX ignores it. L2 attention and time
+conditioning raise when the model is built.
 """
 
 from __future__ import annotations
@@ -51,9 +53,16 @@ def fast_forward(model, images, *, t_grid=None,
             f"Macaron) is not ported yet")
     if model.solver == "dopri5":
         raise NotImplementedError("dopri5 is not ported yet")
-    if os.environ.get("ODEVIT_EULER_CHAIN", "1") != "1":
-        raise NotImplementedError("the chained Euler kernel is not ported "
-                                  "yet; unset ODEVIT_EULER_CHAIN")
+    ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
+    uniform = len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
+    if model.solver == "euler" and uniform:
+        # ODEVIT_EULER_CHAIN=c chains c Euler steps per launch where c > 1
+        # divides the step count; any other value runs per-step Euler
+        chain = int(os.environ.get("ODEVIT_EULER_CHAIN", "1"))
+        if chain > 1 and (len(ts) - 1) % chain == 0:
+            raise NotImplementedError(
+                f"the chained Euler kernel (ODEVIT_EULER_CHAIN={chain}) is "
+                f"not ported yet; unset ODEVIT_EULER_CHAIN")
 
     tokens = model.patch_embed(images)
     b, n, d = tokens.shape
@@ -67,8 +76,6 @@ def fast_forward(model, images, *, t_grid=None,
                        scaler=model.vf.scaler, n_real=n, mode=mode, dt=dt,
                        base=base, plain=plain)
 
-    ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
-    uniform = len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
     if model.solver == "euler" and uniform:
         dt = float(ts[1] - ts[0])
         y = tokens

@@ -29,7 +29,7 @@ combined as JAX's ``step_drop`` combines them, with the same casts to the
 state's dtype.
 
 Distillation, the counterpart of ``fast_distill_forward`` and
-``make_fast_distill_train_step`` in their deterministic route (Euler):
+``make_fast_distill_train_step`` (Euler):
 
   * the step range is cut at the JaSMin window's start and at the
     teacher-layer control points; plain evaluations before the window,
@@ -41,17 +41,27 @@ Distillation, the counterpart of ``fast_distill_forward`` and
     stripped;
   * loss = (trajectory MSE + L1 or KL attention loss) * lambda + JaSMin
     (+ CE with label smoothing 0.05 when supervised); the teacher runs
-    under ``torch.no_grad()``.
+    under ``torch.no_grad()``, without dropout.
+
+With nonzero dropout rates the distillation step takes JAX's seeds: the
+step's ``rng`` (an int, required then) with the step count folded in
+draws one int32 seed per Euler step (:func:`draw_step_seeds`), and step
+``i`` evaluates with ``step_seeds[i]`` itself, without the free step's
+per-stage fold; the final evaluation, with its maps, is step
+``num_steps - 1``. Every evaluation runs a dropout instance; the JaSMin
+statistics and the maps are those of the pre-dropout p (JAX, at D=768,
+draws its masks outside the kernels and takes JaSMin from the maps,
+``_xla_dropout_eval``; the statistics computed in the kernels are the same
+function of the same p).
 
 On the GPU every evaluation and its backward launch the kernels (at the
 224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
 through their plain versions, for comparisons. Not ported yet, and
-raising: dropout in the distillation step (it runs on the tiled route,
-whose dropout is ROADMAP.md §1 item 1), residual stashing, the mesh
-(data-parallel) step, the teacher cache, and the attention-map route of
-the fused steps for sequences shorter than ``jasmin_k + 1`` tokens
-(ROADMAP.md §1, the map route of the fused steps); L2 attention and time
-conditioning raise when the model is built.
+raising: residual stashing, the mesh (data-parallel) step, the teacher
+cache, and the attention-map route of the fused steps for sequences
+shorter than ``jasmin_k + 1`` tokens (ROADMAP.md §1, the map route of the
+fused steps); L2 attention and time conditioning raise when the model is
+built.
 """
 
 from __future__ import annotations
@@ -84,15 +94,7 @@ def drop_rates(model):
     return check_rates([model.attn_drop, model.proj_drop, model.mlp_drop])
 
 
-def _check_route(model, jasmin_k: int, n: int, distill: bool = False):
-    # The distillation forward draws no seeds, so neither the tiled route's
-    # guard nor the plain path would see the model's rates: without this
-    # check both would train without dropout.
-    if distill and any(drop_rates(model)):
-        raise NotImplementedError(
-            "dropout in the distillation step is not ported yet: the step "
-            "runs on the tiled route, whose dropout is ROADMAP.md §1 item 1 "
-            "(dropout on the tiled route)")
+def _check_route(jasmin_k: int, n: int):
     if n < max(jasmin_k, 1) + 1:
         raise NotImplementedError(
             f"{n} tokens are too few for the in-kernel JaSMin statistics "
@@ -111,11 +113,10 @@ def jasmin_window(num_eval_steps: int, solver: str):
     return num_steps - tail, tail
 
 
-def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool,
-                     distill: bool = False):
+def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
     tokens = model.patch_embed(pixels)
     b, n, d = tokens.shape
-    _check_route(model, jasmin_k, n, distill)
+    _check_route(jasmin_k, n)
     n_pad = pad_tokens(n)
     if n_pad != n:
         tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
@@ -171,6 +172,15 @@ def _step_drop(solver: str, f, y, dt: float, step_seed: int):
     return y_next, [a1, a2, a3, a4]
 
 
+def _check_seeds(step_seeds, num_steps: int):
+    if step_seeds is None:
+        raise ValueError("the model has dropout; pass step_seeds= (the "
+                         "train step draws them from its rng)")
+    if len(step_seeds) != num_steps:
+        raise ValueError(f"{len(step_seeds)} step seeds for "
+                         f"{num_steps} solver steps")
+
+
 def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
                       step_seeds=None, plain: bool = False):
     """(loss, {"logits", "ce", "jasmin_loss"}), differentiable in the
@@ -179,13 +189,7 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
     draws them with :func:`draw_step_seeds`)."""
     drops = drop_rates(model)
     if any(drops):
-        num_steps = model.num_eval_steps - 1
-        if step_seeds is None:
-            raise ValueError("the model has dropout; pass step_seeds= (the "
-                             "train step draws them from its rng)")
-        if len(step_seeds) != num_steps:
-            raise ValueError(f"{len(step_seeds)} step seeds for "
-                             f"{num_steps} solver steps")
+        _check_seeds(step_seeds, model.num_eval_steps - 1)
         if model.solver not in ("euler", "rk4"):
             raise ValueError(f"the dropout route stages euler and rk4, not "
                              f"{model.solver!r}")
@@ -291,21 +295,29 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
                          lambda_param: float, mse_full_path: bool = True,
                          use_distillation: bool = True,
                          use_kl_loss: bool = False, supervise: bool = False,
-                         plain: bool = False):
+                         step_seeds=None, plain: bool = False):
     """(loss, {"metrics", "logits"}) of the distillation student,
     differentiable in the model's parameters (see the module docstring).
     ``t_states``: the teacher's hidden states [L, B, N_t, D] (layers
-    1..L); ``t_attn_last``: its last layer's maps [B, H, N_t, N_t]."""
+    1..L); ``t_attn_last``: its last layer's maps [B, H, N_t, N_t]. A
+    model with dropout takes ``step_seeds``, one int32 seed per Euler step
+    (the train step draws them with :func:`draw_step_seeds`)."""
     if model.solver != "euler":
         raise ValueError("the fused distillation step integrates the "
                          f"reference's Euler grid, not {model.solver!r}")
-    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain,
-                                             distill=True)
-    n = kw["n_real"]
-    reg = model.patch_embed.num_registers
     T = model.num_eval_steps
     num_steps = T - 1
+    drops = drop_rates(model)
+    if any(drops):
+        _check_seeds(step_seeds, num_steps)
+    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    n = kw["n_real"]
+    reg = model.patch_embed.num_registers
     dt = float(model.time_interval) / num_steps
+
+    def drop_kw(i: int):
+        # Euler step i evaluates with step_seeds[i] itself
+        return dict(seed=step_seeds[i], drops=drops) if any(drops) else {}
 
     # the static plan: control-point boundaries and the JaSMin tail
     cps = proportional_control_points(T, temperature)
@@ -323,18 +335,19 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     jas = []
     for a, b_ in zip(breaks[:-1], breaks[1:]):
         is_last = b_ == num_steps
-        for _ in range(b_ - a - (1 if is_last else 0)):
+        for i in range(a, b_ - (1 if is_last else 0)):
             if a >= tail_start:
                 dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
-                                            **kw)
+                                            **kw, **drop_kw(i))
                 jas.append(jasmin_from_stats(stats[..., :n], jasmin_k))
             else:
-                dx = fused_vf(y, w, params, **kw)
+                dx = fused_vf(y, w, params, **kw, **drop_kw(i))
             y = advance(y, dx)
         if is_last:
             # the final evaluation emits its maps for the attention loss;
             # padded rows are cut before the registers are stripped
-            dx, maps = fused_vf_attn(y, w, params, **kw)
+            dx, maps = fused_vf_attn(y, w, params, **kw,
+                                     **drop_kw(num_steps - 1))
             last_attn = maps[:, :, :n, :n]
             if num_steps - 1 >= tail_start:
                 jas.append(jasmin_map_loss(last_attn, k=jasmin_k))
@@ -385,10 +398,12 @@ def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
                                  plain: bool = False, mesh=None,
                                  teacher_cache: bool = False,
                                  stash: bool = False):
-    """``step(state, batch, supervise=False) -> (state, metrics)`` for a
-    ``TrainState`` of ``student``; ``teacher`` is a ``ViTTeacher`` whose
-    forward runs without gradients. ``batch`` holds ``pixel_values``
-    [B, H, W, C] and ``labels`` [B] on the model's device. Metrics, as
+    """``step(state, batch, rng=None, supervise=False) -> (state,
+    metrics)`` for a ``TrainState`` of ``student``; ``teacher`` is a
+    ``ViTTeacher`` whose forward runs without gradients. ``batch`` holds
+    ``pixel_values`` [B, H, W, C] and ``labels`` [B] on the model's device;
+    ``rng``, an int, seeds the dropout of a student with nonzero rates
+    (required then; the step count is folded in). Metrics, as
     tensors on the device: ``loss``, ``mse_loss``, ``mse_loss_t@i``,
     ``kl_loss``, ``kl_nonfinite``, ``jasmin_loss``, ``supervision_loss``,
     ``acc``, ``grad_norm`` (before the clip) and ``nonfinite``."""
@@ -402,9 +417,19 @@ def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
         raise NotImplementedError("residual stashing is not ported yet "
                                   "(its own slice, to be measured again)")
 
-    def step(state: TrainState, batch, supervise: bool = False) -> tuple:
+    has_drop = any(drop_rates(student))
+
+    def step(state: TrainState, batch, rng=None,
+             supervise: bool = False) -> tuple:
         if state.model is not student:
             raise ValueError("the state was made for another model")
+        step_seeds = None
+        if has_drop:
+            if rng is None:
+                raise ValueError("the student has dropout; pass rng= (an "
+                                 "int seed) to the step")
+            step_seeds = draw_step_seeds(rng, state.step,
+                                         student.num_eval_steps - 1)
         pixels = batch["pixel_values"]
         if preprocess_fn is not None:
             pixels = preprocess_fn(pixels)
@@ -418,7 +443,7 @@ def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
             jasmin_k=jasmin_k, temperature=temperature,
             lambda_param=lambda_param, mse_full_path=mse_full_path,
             use_distillation=use_distillation, use_kl_loss=use_kl_loss,
-            supervise=supervise, plain=plain)
+            supervise=supervise, step_seeds=step_seeds, plain=plain)
         loss.backward()
         grad_norm = state.apply_gradients()
         metrics: Dict[str, torch.Tensor] = {

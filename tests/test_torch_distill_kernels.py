@@ -220,6 +220,7 @@ def test_tiled_arguments_match_the_kernel_struct():
         kind = ("ptr" if "*" in kind else kind.strip())
         fields += [(n, kind) for n in names.split(", ")]
     want = [(name, {ctypesf: k for ctypesf, k in (
-        ("c_void_p", "ptr"), ("c_int", "int"), ("c_float", "float"))}[
+        ("c_void_p", "ptr"), ("c_int", "int"), ("c_float", "float"),
+        ("Drop", "vf::Drop"))}[
         t.__name__]) for name, t in tiled._Args._fields_]
     assert fields == want

@@ -29,13 +29,12 @@ from odevit_tpu.kernels.vector_field import (DROP_SITE_ATTN_OUT, DROP_SITE_H,
                                              DROP_SITE_MLP_OUT, DROP_SITE_P,
                                              _site_seed, _xla_reference)
 from odevit_tpu.losses.jasmin import jasmin_order_stats
-from odevit_tpu_torch.kernels import dropout, launch_counts
+from odevit_tpu_torch.kernels import dropout, launch_counts, tiled
 from odevit_tpu_torch.kernels.autograd import fused_vf, fused_vf_jasmin
 from odevit_tpu_torch.kernels.dropout import (fold_seed,
                                               generate_dropout_masks,
                                               keep_mask_plain, masks_plain,
                                               philox4x32_plain)
-from odevit_tpu_torch.kernels.tiled import tiled_backward, tiled_forward
 from odevit_tpu_torch.kernels.vector_field import (VFWeights, vf_eval,
                                                    vf_eval_attn,
                                                    vf_eval_jasmin,
@@ -321,20 +320,60 @@ def test_autograd_functions_with_dropout_match_the_plain_backward():
 @pytest.mark.parametrize("where", ["tiled_forward", "tiled_backward",
                                    "map_mode", "map_cotangent"])
 def test_unported_dropout_routes_raise(where):
-    """The tiled route and the attention-map mode have no dropout yet:
-    they raise rather than drop the seed."""
+    """The routes that raised on dropout before the tiled route carried it
+    now take the seed: the tiled forward and backward hand the ``Drop`` to
+    the kernels' struct beside their dropout scratch (the f32 attn_o, the
+    second cotangent operand), and the map mode and the map cotangent
+    apply the masks (plain versions, against the XLA twin fed the same
+    masks and against its vjp)."""
     x, w, g, _ = make_case(6)
     xt, wt = torch.from_numpy(pad(x)), torch_weights(w, torch.float32)
     gt = torch.from_numpy(pad(g))
     spec = dropout.drop_spec(SEED, DROPS)
     kw = dict(num_heads=H, scaler=SCALER, n_real=N)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        if where == "tiled_forward":
-            tiled_forward(xt, wt, **kw, drop=spec)
-        elif where == "tiled_backward":
-            tiled_backward(xt, wt, gt, **kw, splits=1, drop=spec)
-        elif where == "map_mode":
-            vf_eval_attn(xt, wt, **kw, seed=SEED, drops=DROPS)
-        else:
-            vf_bwd(xt, wt, gt, **kw, g_attn=torch.zeros(B, H, N_PAD, N_PAD),
-                   seed=SEED, drops=DROPS)
+    if where == "tiled_forward":
+        bufs = tiled.forward_buffers(xt, wt, num_heads=H, mode="attn",
+                                     drop=spec)
+        assert bufs["ao"].dtype == torch.float32
+        assert tuple(bufs["ao"].shape) == (B * N_PAD, D)
+        assert "ao" not in tiled.forward_buffers(xt, wt, num_heads=H)
+        args = tiled.make_args(xt, wt, bufs, mt=16, mode="attn", drop=spec,
+                               **kw)
+        assert args.ao == bufs["ao"].data_ptr() and args.mode == 2
+        assert bytes(args.drop) == bytes(spec)
+        det = tiled.make_args(xt, wt, bufs, mt=16, **kw)
+        assert bytes(det.drop) == bytes(dropout.Drop())
+    elif where == "tiled_backward":
+        bufs = tiled.backward_buffers(xt, wt, gt, num_heads=H, splits=2,
+                                      drop=spec)
+        assert bufs["gd2"].shape == bufs["gd"].shape
+        assert bufs["gd2"].dtype == xt.dtype
+        assert tiled.backward_buffers(xt, wt, gt, num_heads=H,
+                                      splits=2)["gd2"] is None
+        args = tiled.make_args(xt, wt, bufs, mt=16, splits=2, drop=spec,
+                               **kw)
+        assert args.gd2 == bufs["gd2"].data_ptr() and args.splits == 2
+        assert (args.drop.seed, args.drop.th_p, args.drop.sc_m) == (
+            spec.seed, spec.th_p, spec.sc_m)
+    elif where == "map_mode":
+        want_dx, want_p = twin(x, w, port_masks(), torch.float32)
+        dx, p = vf_eval_attn(xt, wt, **kw, seed=SEED, drops=DROPS)
+        # the maps are the pre-dropout p
+        assert rel(p[:, :, :N, :N].numpy(), want_p) <= 1e-5
+        assert rel(dx[:, :N].numpy(), want_dx) <= 1e-5
+    else:
+        ga = np.random.default_rng(7).standard_normal(
+            (B, H, N, N)).astype(np.float32)
+        masks = tuple(jnp.asarray(m.numpy()) for m in port_masks())
+        _, vjp = jax.vjp(
+            lambda *a: _xla_reference(*a, num_heads=H, scaler=SCALER,
+                                      return_attn=True, masks=masks),
+            jnp.asarray(x), *map(jnp.asarray, w))
+        want = vjp((jnp.asarray(g), jnp.asarray(ga)))
+        gap = np.zeros((B, H, N_PAD, N_PAD), np.float32)
+        gap[:, :, :N, :N] = ga
+        got = vf_bwd(xt, wt, gt, **kw, g_attn=torch.from_numpy(gap),
+                     seed=SEED, drops=DROPS)
+        got = [got[0][:, :N]] + list(got[1:])
+        for name, a, b in zip(NAMES, got, want):
+            assert rel(a.numpy(), np.asarray(b)) <= 1e-4, name

@@ -107,12 +107,30 @@ def test_unported_paths_raise(case, monkeypatch):
             tm.solver = "dopri5"
             fast_forward(tm, x)
         elif case == "chain":
+            # Euler on a uniform grid of 4 steps: JAX chains 4 per launch
             monkeypatch.setenv("ODEVIT_EULER_CHAIN", "4")
             fast_forward(tm, x)
         elif case == "not_vitode":       # e.g. a Macaron model
             fast_forward(tm.vf, x)
         else:
             tm(x, output_attentions=True)
+
+
+@pytest.mark.parametrize("solver,chain,grid", [
+    ("rk4", "5", None),                  # not the fused Euler route
+    ("euler", "3", None),                # 3 does not divide 4 steps
+    ("euler", "0", None),                # not above 1
+    ("euler", "4", [0.0, 0.1, 0.35, 0.7, 1.0])])   # not a uniform grid
+def test_euler_chain_is_ignored_where_jax_does_not_chain(solver, chain, grid,
+                                                         monkeypatch):
+    """JAX reads ODEVIT_EULER_CHAIN only on the fused Euler route over a
+    uniform grid, and chains only when the value is above 1 and divides
+    the step count; elsewhere the port takes JAX's route unchanged."""
+    _, _, tm, x = pair(solver)
+    x = torch.from_numpy(x)
+    want = fast_forward(tm, x, t_grid=grid)["logits"]
+    monkeypatch.setenv("ODEVIT_EULER_CHAIN", chain)
+    assert torch.equal(fast_forward(tm, x, t_grid=grid)["logits"], want)
 
 
 def test_make_preprocess_matches_jax():

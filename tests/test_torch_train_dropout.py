@@ -41,6 +41,7 @@ from odevit_tpu_torch.params import from_jax_params
 from odevit_tpu_torch.train.fast_steps import (_comb, _lc, draw_step_seeds,
                                                fast_distill_forward,
                                                fast_free_forward,
+                                               make_fast_distill_train_step,
                                                make_fast_free_train_step)
 from odevit_tpu_torch.train.state import create_train_state, make_optimizer
 
@@ -282,8 +283,14 @@ def test_dropout_routes_that_raise(case):
         with pytest.raises(ValueError, match="midpoint"):
             fast_free_forward(tm, px, lb, jasmin_k=10, step_seeds=[1, 2, 3])
     else:
-        # the distillation step runs on the tiled route: no dropout yet
+        # the distillation step with dropout needs its rng too (it raises
+        # before the teacher runs), and its forward the step seeds
         tm.solver = "euler"
-        with pytest.raises(NotImplementedError, match="tiled route"):
+        step = make_fast_distill_train_step(tm, None, lambda_param=0.5,
+                                            jasmin_k=2, temperature=3.0)
+        with pytest.raises(ValueError, match="rng"):
+            step(create_train_state(tm, make_optimizer(LR)),
+                 {"pixel_values": px, "labels": lb}, supervise=True)
+        with pytest.raises(ValueError, match="step_seeds"):
             fast_distill_forward(tm, px, lb, None, None, jasmin_k=2,
                                  temperature=3.0, lambda_param=0.5)
