@@ -162,12 +162,16 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / iters
 
 
-def vf_bound(b: int, n_real: int, d: int, dh: int, itemsize: int):
-    """(bound_ms, bound_by) of one evaluation: operations at the real token
-    count over the bf16 peak, against the state in and out plus the
-    weights over the memory rate."""
-    flops = b * (n_real * (8 * d * d + 4 * d * dh) + 4 * n_real * n_real * d)
-    nbytes = (2 * b * n_real * d + 4 * d * d + 2 * d * dh) * itemsize + 16 * d
+def vf_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
+             states: int = 2, evals: int = 1):
+    """(bound_ms, bound_by) of ``evals`` evaluations in one launch:
+    operations at the real token count over the bf16 peak, against the
+    ``states`` state tensors read or written once (x in and out; the stage
+    advance also reads its base) plus the weights over the memory rate."""
+    flops = evals * b * (n_real * (8 * d * d + 4 * d * dh)
+                         + 4 * n_real * n_real * d)
+    nbytes = ((states * b * n_real * d + 4 * d * d + 2 * d * dh) * itemsize
+              + 16 * d)
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
@@ -233,7 +237,6 @@ def phase_kernel_vs_plain(model):
                         "real_rows_unchanged": same})
     # a second, small shape (D=64, 2 heads, dh=128, 19 tokens padded to
     # 32), where the kernel takes its other plan (q|k|v in one product)
-    from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.vector_field import VFWeights, kernel_plan
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
         def r(*shape, scale=0.2, shift=0.0):
@@ -257,24 +260,64 @@ def phase_kernel_vs_plain(model):
                             "rel_err": err, "tol": tol})
             check(err <= tol, f"small {dtype} {mode}: rel err {err} > {tol}")
     # a shape without a one-image-per-CTA plan (the 224 px TS-Base
-    # evaluation: 207 tokens, D=768, 12 heads) takes the tiled route, which
-    # has no Euler mode: it raises, and nothing falls back
-    big = torch.zeros(1, 208, 768, device="cuda", dtype=torch.bfloat16)
-    wb = VFWeights(*(torch.zeros(*s, device="cuda") for s in [(768,)] * 4),
-                   *(torch.zeros(*s, device="cuda", dtype=torch.bfloat16)
-                     for s in ((768, 2304), (768, 768), (768, 768),
-                               (768, 768))))
-    before = dict(launch_counts)
-    try:
-        vf_eval(big, wb, num_heads=12, scaler=12.0, n_real=207,
-                mode="euler", dt=0.1)
-    except NotImplementedError as e:
-        results.append({"shape": "B=1 n=207/208 D=768 H=12 dh=768 euler",
-                        "raised": str(e)[:80]})
-    else:
-        raise SmokeFailure("euler mode on the tiled route did not raise")
-    check(launch_counts == before, "an unported route launched")
+    # evaluation: 207 tokens, D=768, 12 heads) takes the tiled route's
+    # Euler and stage-advance modes
+    results += tiled_advance_vs_plain(g)
     emit("kernel_vs_plain", results=results)
+
+
+def tiled_advance_vs_plain(g):
+    """The tiled route's Euler and stage-advance modes at B=4, 207/208
+    tokens, D=768, 12 heads, dh=768 (random weights of the spectral
+    scale), in bf16 and f32, against ``vf_eval_plain``; NaN and garbage in
+    the padded rows stay there; each launch lands on its counter."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import VFWeights, vf_eval
+    b, n_real, n_pad, d = 4, 207, 208, 768
+    kw = dict(num_heads=12, scaler=12.0, n_real=n_real)
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        def r(*shape, scale=d ** -0.5, shift=0.0):
+            return (torch.randn(*shape, generator=g, device="cuda") * scale
+                    + shift)
+        w = VFWeights(r(d, shift=1.0), r(d), r(d, shift=1.0), r(d),
+                      *(r(*s).to(dtype) for s in ((d, 3 * d), (d, d), (d, d),
+                                                  (d, d))))
+        x = r(b, n_pad, d, scale=1.0)
+        x[:, n_real:] = 0
+        x = x.to(dtype)
+        base = r(b, n_pad, d, scale=1.0).to(dtype)
+        for mode, extra in (("euler", {"dt": 1.0 / 24}),
+                            ("base", {"dt": 1.0 / 18, "base": base})):
+            counts = dict(launch_counts)
+            got = vf_eval(x, w, mode=mode, **kw, **extra)
+            torch.cuda.synchronize()
+            routed = {k: launch_counts[k] - counts[k] for k in counts
+                      if launch_counts[k] != counts[k]}
+            check(routed == {f"vf_eval_{mode}_tiled": 1},
+                  f"tiled {mode} {dtype} launched {routed}")
+            want = vf_eval(x, w, mode=mode, plain=True, **kw, **extra)
+            err = rel_err(got[:, :n_real], want[:, :n_real])
+            results.append({"dtype": str(dtype), "mode": mode,
+                            "route": "tiled", "launched": routed,
+                            "shape": "B=4 n=207/208 D=768 H=12 dh=768",
+                            "rel_err": err, "tol": tol})
+            check(err <= tol, f"tiled {dtype} {mode}: rel err {err} > {tol}")
+            # padded rows full of garbage and NaN (in x and in the base)
+            # must not reach a real row
+            dirty, dbase = x.clone(), base.clone()
+            for t in (dirty, dbase):
+                t[:, n_real:] = float("nan")
+            dextra = {**extra, "base": dbase} if mode == "base" else extra
+            got_d = vf_eval(dirty, w, mode=mode, **kw, **dextra)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got_d[:, :n_real], got[:, :n_real]))
+            results.append({"dtype": str(dtype), "mode": f"{mode}, NaN "
+                            f"padding", "real_rows_unchanged": same})
+            check(same, f"tiled {dtype} {mode}: padded rows reached a "
+                  f"real row")
+    return results
 
 
 def phase_main_path(models, images_u8):
@@ -1055,6 +1098,8 @@ def phase_dropout_kernel_timing(model, images_u8):
 
 DISTILL_BATCH = 64
 DISTILL_K = 2                      # the recipe's jasmin_k
+DISTILL_RECIPE = dict(lambda_param=0.5, jasmin_k=DISTILL_K, temperature=3.0,
+                      use_kl_loss=False, mse_full_path=True)
 # the tiled route's counters on the distillation main path, per step:
 # 5 plain evaluations before the JaSMin window, 29 in it, the final
 # evaluation with its maps, and 35 backwards
@@ -1234,10 +1279,11 @@ def distill_runs(teacher, images_u8, labels, drops=None):
         draw_step_seeds, fast_distill_forward, make_fast_distill_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
                                               make_optimizer)
-    pre = make_preprocess(dtype=torch.bfloat16)
+    # the recipe's CIFAR images are resized to 224 on the device, as the
+    # CLI does (odevit_tpu/cli/classification_ode_distillation.py:73-74)
+    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
     batch = {"pixel_values": images_u8, "labels": labels}
-    recipe = dict(lambda_param=0.5, jasmin_k=DISTILL_K, temperature=3.0,
-                  use_kl_loss=False, mse_full_path=True)
+    recipe = DISTILL_RECIPE
     rng = DROP_RNG if drops else None
     runs = {}
     for path in ("kernels", "plain"):
@@ -1304,16 +1350,46 @@ def distill_runs(teacher, images_u8, labels, drops=None):
     return runs, profile, cos, loss_rel, per_step
 
 
-def phase_distill(teacher, images_u8, labels):
+def step_ms_at_224(teacher, labels, rng):
+    """The kernel path's distillation step (drop 0) fed 224 px uint8, no
+    resize: best of steps 2-3 by the host clock."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.train.fast_steps import make_fast_distill_train_step
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    images = torch.from_numpy(rng.integers(
+        0, 256, (DISTILL_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    model = distill_student()
+    state = create_train_state(model, make_optimizer(1e-4))
+    step = make_fast_distill_train_step(
+        model, teacher, preprocess_fn=make_preprocess(
+            image_size=224, dtype=torch.bfloat16), **DISTILL_RECIPE)
+    batch = {"pixel_values": images, "labels": labels}
+    ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, supervise=True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return min(ms[1:])
+
+
+def phase_distill(teacher, images_u8, labels, rng):
     """Cell tsref-distill-b64-bf16: the deterministic step (drop 0), the
-    same-call reference of the dropout cell."""
+    same-call reference of the dropout cell, on 32 px images resized on
+    the device; beside it one step time fed 224 px images."""
     runs, profile, cos, loss_rel, per_step = distill_runs(teacher, images_u8,
                                                           labels)
     k, p = runs["kernels"], runs["plain"]
+    ms_224 = step_ms_at_224(teacher, labels, rng)
     emit("distill_profile", **profile)
     emit("distill", cell="tsref-distill-b64-bf16", batch=DISTILL_BATCH,
-         steps=TRAIN_STEPS, solver="euler-36", jasmin_k=DISTILL_K,
+         input="uint8 32x32 resized to 224", steps=TRAIN_STEPS,
+         solver="euler-36", jasmin_k=DISTILL_K,
          ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         ms_per_step_224px_input=ms_224,
          img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
          first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
          loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
@@ -1338,7 +1414,7 @@ def phase_distill_kernel_timing(model, images_u8, drops=None):
     b, d, dh, heads = DISTILL_BATCH, 768, 768, 12
     with torch.no_grad():
         tokens = model.patch_embed(make_preprocess(
-            dtype=torch.bfloat16)(images_u8))
+            image_size=224, dtype=torch.bfloat16)(images_u8))
         n_real = tokens.shape[1]
         x = torch.nn.functional.pad(
             tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
@@ -1558,7 +1634,8 @@ def phase_distill_dropout(teacher, images_u8, labels, det):
     k, p = runs["kernels"], runs["plain"]
     emit("distill_dropout_profile", **profile)
     emit("distill_dropout", cell="tsref-distill-drop0.1-b64-bf16",
-         batch=DISTILL_BATCH, steps=TRAIN_STEPS, solver="euler-36",
+         batch=DISTILL_BATCH, input="uint8 32x32 resized to 224",
+         steps=TRAIN_STEPS, solver="euler-36",
          jasmin_k=DISTILL_K, drops=DROP_RATES, rng=DROP_RNG,
          ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
          img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
@@ -1570,6 +1647,341 @@ def phase_distill_dropout(teacher, images_u8, labels, det):
     check_train("distill_dropout", runs, cos, loss_rel, per_step,
                 DISTILL_DROP_LAUNCHES)
     return k["launches"]
+
+# --- serving slice: the 224 px student, the chained Euler kernel ---------
+
+SERVE224_BATCH = 64
+# the serving cells at 224 px (bench.py:298-303 drives euler-25 at B=64):
+# (solver, grid points) and the launches of one forward; 24 evaluations
+# each
+SERVE224_CELLS = {
+    "tsbase-serve-euler25-b64-bf16": ("euler", 25,
+                                      {"vf_eval_euler_tiled": 24}),
+    "tsbase-serve-rk4-7-b64-bf16": ("rk4", 7, {"vf_eval_euler_tiled": 6,
+                                              "vf_eval_base_tiled": 18})}
+# ODEVIT_EULER_CHAIN values at the CIFAR shape (48 Euler steps)
+CHAINS = (4, 12)
+DOPRI5_BATCH = 8
+
+
+def serve_student(solver, steps, dtype="bfloat16"):
+    """The TS-Base student (``ViTODE.base_224``: 224 px, patch 16, D=768,
+    12 heads, mlp 1.0, 10 registers, 100 classes) on ``steps`` grid points
+    of ``solver``, from seed 0."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    return ViTODE.base_224(num_classes=100, solver=solver,
+                           num_eval_steps=steps,
+                           dtype=getattr(torch, dtype) if dtype else None,
+                           device="cuda", seed=0)
+
+
+def phase_serve_224(rng):
+    """Cells tsbase-serve-euler25-b64-bf16 and tsbase-serve-rk4-7-b64-bf16:
+    ``fast_forward`` of the 224 px student at B=64 on uint8 CIFAR-size
+    images (32 px, the recipe's data) resized on the device by
+    ``make_preprocess(image_size=224)``, through the tiled route's Euler
+    and stage-advance modes and through the plain path; launches counted,
+    img/s by CUDA events after a warm-up, peak memory; then one dopri5
+    forward at B=8 against the plain path (f32: see the docstring of
+    ``dopri5_check``)."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    b = SERVE224_BATCH
+    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    images = torch.from_numpy(rng.integers(0, 256, (b, 32, 32, 3),
+                                           dtype=np.uint8)).cuda()
+    x = pre(images)
+    check(tuple(x.shape) == (b, 224, 224, 3), f"resized to {x.shape}")
+    pre_ms = cuda_ms(lambda: pre(images), iters=10)
+    report, students = {}, {}
+    for cell, (solver, steps, want_launches) in SERVE224_CELLS.items():
+        model = serve_student(solver, steps)
+        reset_launch_counts()
+        got = fast_forward(model, x)["logits"]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts.items() if v}
+        check(launches == want_launches,
+              f"{cell}: launches {launches}, want {want_launches}")
+        want = fast_forward(model, x, plain=True)["logits"]
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{cell}: non-finite logits")
+        check(tuple(got.shape) == (b, 100), f"{cell}: shape {got.shape}")
+        err = rel_err(got, want)
+        top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fast_forward(model, x), iters=5)
+        peak = torch.cuda.max_memory_allocated()
+        plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True),
+                           iters=2)
+        evals = sum(want_launches.values())
+        report[cell] = {
+            "solver": f"{solver}-{steps}", "launches": launches,
+            "max_abs_dlogit": (got - want).abs().max().item(),
+            "rel_err": err, "tol": TOL_LOGITS, "top1_agreement": top1,
+            "ms_per_forward": ms, "img_per_s": b / ms * 1e3,
+            "ms_per_eval": ms / evals, "plain_ms_per_forward": plain_ms,
+            "plain_img_per_s": b / plain_ms * 1e3,
+            "peak_mem_gb": peak / 1e9,
+            "scratch_gb": (peak - before) / 1e9}
+        check(err <= TOL_LOGITS, f"{cell}: logits rel err {err}")
+        check(top1 >= MIN_TOP1_AGREEMENT, f"{cell}: top-1 agreement {top1}")
+        students[cell] = model
+    dopri5 = dopri5_check(images[:DOPRI5_BATCH])
+    emit("serve_224", batch=b, input="uint8 32x32 resized to 224",
+         preprocess_ms=pre_ms, results=report, dopri5=dopri5)
+    return x, report, students
+
+
+def dopri5_check(images_u8):
+    """One dopri5 forward (``fast_forward``: one segment [0, 1], rtol
+    1e-5, atol 1e-6) of the TS-Base student at B=8 through the tiled route
+    and through the plain path. In float32: in bf16 the error estimate sits
+    at the state's rounding (2^-8 relative, 400x rtol), so every step is
+    rejected and the segment stops at the cap short of t=1. The launches
+    of the kernel path are its evaluations (nfe)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    model = serve_student("dopri5", 25, dtype=None)
+    x = make_preprocess(image_size=224)(images_u8)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = fast_forward(model, x)["logits"]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in launch_counts.items() if v}
+    nfe = launches.get("vf_eval_tiled", 0)
+    check(set(launches) == {"vf_eval_tiled"} and 7 <= nfe <= 385,
+          f"dopri5: launches {launches}")
+    t0 = time.perf_counter()
+    want = fast_forward(model, x, plain=True)["logits"]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()) and err <= TOL_LOGITS
+          and top1 >= MIN_TOP1_AGREEMENT,
+          f"dopri5: logits rel err {err}, top-1 agreement {top1}")
+    return {"batch": len(images_u8), "dtype": "float32", "nfe": nfe,
+            "max_steps_hit": nfe >= 1 + 6 * 64, "rel_err": err,
+            "tol": TOL_LOGITS, "top1_agreement": top1, "ms_host": ms,
+            "plain_ms_host": plain_ms}
+
+
+def phase_serve_224_kernel_timing(model, x):
+    """The tiled Euler and stage-advance modes alone at B=64 on the
+    euler-25 cell's first state (the patch-embedded images) against their
+    plain versions."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import pad_tokens, vf_eval
+    before = dict(launch_counts)
+    b, d, dh = SERVE224_BATCH, 768, 768
+    with torch.inference_mode():
+        tokens = model.patch_embed(x)
+        n_real = tokens.shape[1]
+        tokens = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        g = torch.Generator(device="cuda").manual_seed(10)
+        base = (tokens.float() + torch.randn(tokens.shape, generator=g,
+                                             device="cuda") * 1e-2).to(
+            torch.bfloat16)
+        kw = dict(num_heads=12, scaler=model.vf.scaler, n_real=n_real)
+        jobs = {"vf_eval_euler_tiled": (dict(mode="euler", dt=1.0 / 24), 2),
+                "vf_eval_base_tiled": (dict(mode="base", dt=1.0 / 18,
+                                            base=base), 3)}
+        out = {}
+        for name, (extra, states) in jobs.items():
+            got = vf_eval(tokens, w, **kw, **extra)
+            want = vf_eval(tokens, w, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            err = rel_err(got[:, :n_real], want[:, :n_real])
+            check(err <= TOL_BF16, f"B={b} {name}: rel err {err}")
+            bound_ms, bound_by = vf_bound(b, n_real, d, dh, 2, states=states)
+            out[name] = {
+                "max_abs_err": (got[:, :n_real].float()
+                                - want[:, :n_real].float()).abs().max()
+                .item(), "rel_err": err,
+                "ms": cuda_ms(lambda: vf_eval(tokens, w, **kw, **extra),
+                              iters=10),
+                "plain_ms": cuda_ms(lambda: vf_eval(tokens, w, plain=True,
+                                                    **kw, **extra), iters=2),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": None}
+        # the plain mode beside them, in the same call
+        plain_mode_ms = cuda_ms(lambda: vf_eval(tokens, w, **kw), iters=10)
+    launch_counts.update(before)           # comparisons do not count
+    emit("serve_224_kernel_timing", shape=f"B={b} n={n_real}/208 D=768 "
+         f"H=12 dh=768 bf16", plain_mode_ms=plain_mode_ms, results=out)
+    return out
+
+
+def phase_chain_vs_per_step(model, x, student, x224):
+    """``ODEVIT_EULER_CHAIN`` at the CIFAR shape (euler-49, B=1024): chains
+    of 4 and 12 steps per launch against the per-step route, logits bit
+    for bit, launches counted, each timed beside the per-step route in this
+    call (per-step, chains, per-step); the chained kernel alone against
+    per-step launches (bit for bit) and its plain version, in bf16 at
+    B=1024 and in f32 at B=64; at TS-Base a chain of 4 on euler-25 runs the
+    tiled Euler mode once per step, with the per-step route's logits."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_euler_chain)
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    saved = os.environ.pop("ODEVIT_EULER_CHAIN", None)
+    report, chain_launches = {}, None
+    try:
+        per_step = fast_forward(model, x)["logits"]
+        per_ms = [cuda_ms(lambda: fast_forward(model, x), iters=5)]
+        for chain in CHAINS:
+            os.environ["ODEVIT_EULER_CHAIN"] = str(chain)
+            reset_launch_counts()
+            got = fast_forward(model, x)["logits"]
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in launch_counts.items() if v}
+            check(launches == {"vf_euler_chain": 48 // chain},
+                  f"chain {chain}: launches {launches}")
+            same = bool(torch.equal(got, per_step))
+            check(same, f"chain {chain}: logits differ from per-step")
+            ms = cuda_ms(lambda: fast_forward(model, x), iters=5)
+            report[f"chain_{chain}"] = {
+                "launches": launches, "logits_bit_identical": same,
+                "ms_per_forward": ms, "img_per_s": BATCH / ms * 1e3}
+            if chain == CHAINS[0]:
+                chain_launches = launches["vf_euler_chain"]
+        del os.environ["ODEVIT_EULER_CHAIN"]
+        per_ms.append(cuda_ms(lambda: fast_forward(model, x), iters=5))
+        report["per_step"] = {"ms_per_forward": per_ms,
+                              "img_per_s": BATCH / min(per_ms) * 1e3}
+        # TS-Base: the chain runs the tiled Euler mode once per step
+        want224 = fast_forward(student, x224)["logits"]
+        os.environ["ODEVIT_EULER_CHAIN"] = str(CHAINS[0])
+        reset_launch_counts()
+        got224 = fast_forward(student, x224)["logits"]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts.items() if v}
+        del os.environ["ODEVIT_EULER_CHAIN"]
+        same = bool(torch.equal(got224, want224))
+        report["tsbase_euler25_chain_4"] = {"launches": launches,
+                                            "logits_bit_identical": same}
+        check(launches == {"vf_eval_euler_tiled": 24},
+              f"TS-Base chain: launches {launches}")
+        check(same, "TS-Base chain: logits differ from per-step")
+    finally:
+        os.environ.pop("ODEVIT_EULER_CHAIN", None)
+        if saved is not None:
+            os.environ["ODEVIT_EULER_CHAIN"] = saved
+    # the kernel alone: one chain of 4 against 4 per-step launches and the
+    # plain chain, bf16 at the main path's first state, f32 at B=64
+    before = dict(launch_counts)
+    chain, dt = CHAINS[0], 1.0 / 48
+    with torch.inference_mode():
+        tokens = model.patch_embed(x)
+        n_real = tokens.shape[1]
+        tokens = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real, dt=dt)
+        alone = {}
+        for dtype, tol, b in ((torch.bfloat16, TOL_BF16, BATCH),
+                              (torch.float32, TOL_F32, 64)):
+            xs = tokens[:b].to(dtype).contiguous()
+            w = model.vf.kernel_weights(dtype)
+            got = vf_euler_chain(xs, w, chain=chain, **kw)
+            step = xs
+            for _ in range(chain):
+                step = vf_eval(step, w, mode="euler", **kw)
+            want = vf_euler_chain(xs, w, chain=chain, plain=True, **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got[:, :n_real], step[:, :n_real]))
+            err = rel_err(got[:, :n_real], want[:, :n_real])
+            alone[str(dtype)] = {"batch": b, "per_step_bit_identical": same,
+                                 "rel_err_vs_plain": err, "tol": tol}
+            check(same, f"chain kernel {dtype}: differs from per-step")
+            check(err <= tol, f"chain kernel {dtype}: rel err {err}")
+            if dtype == torch.bfloat16:
+                timing = {
+                    "max_abs_err": (got[:, :n_real].float()
+                                    - want[:, :n_real].float()).abs().max()
+                    .item(),
+                    "ms": cuda_ms(lambda: vf_euler_chain(
+                        xs, w, chain=chain, **kw), iters=10),
+                    "plain_ms": cuda_ms(lambda: vf_euler_chain(
+                        xs, w, chain=chain, plain=True, **kw), iters=2),
+                    "per_step_ms": cuda_ms(lambda: [
+                        vf_eval(xs, w, mode="euler", **kw)
+                        for _ in range(chain)], iters=10),
+                    **dict(zip(("bound_ms", "bound_by"), vf_bound(
+                        BATCH, n_real, 192, 768, 2, evals=chain))),
+                    "library_ms": None}
+    launch_counts.update(before)           # comparisons do not count
+    emit("chain_vs_per_step", chains=CHAINS, results=report,
+         kernel_alone=alone, kernel_timing={"chain": chain, **timing})
+    return chain_launches, timing
+
+
+def phase_serving_224(model, rng):
+    """A ServingEngine over the euler-25 student, buckets (1, 8, 64), its
+    preprocess ``make_preprocess(image_size=224)`` (the engine takes the
+    model's 224 px, as JAX's does, so the resize is the identity), answers
+    16 uint8 requests of 1-20 images from 4 threads; each answer is held
+    against a direct ``fast_forward``; the mean latency and the B=1
+    forward time."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    from odevit_tpu_torch.serve.engine import ServingEngine
+    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    sizes = [int(s) for s in rng.integers(1, 21, 16)]
+    requests = [rng.integers(0, 256, (s, 224, 224, 3), dtype=np.uint8)
+                for s in sizes]
+    answers = [None] * len(requests)
+    with ServingEngine(model, batch_buckets=(1, 8, 64), preprocess=pre,
+                       max_delay_ms=2.0, device="cuda") as engine:
+        reset_launch_counts()
+
+        def client(k):
+            futs = [(i, engine.submit(requests[i]))
+                    for i in range(k, len(requests), 4)]
+            for i, fut in futs:
+                answers[i] = fut.result(timeout=300)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(not any(t.is_alive() for t in threads), "serving_224 hung")
+        launches = {k: v for k, v in launch_counts.items() if v}
+        stats = engine.stats()
+    check(launches == {"vf_eval_euler_tiled": 24 * stats["runs"]},
+          f"serving_224: {launches} for {stats['runs']} runs")
+    worst, identical = 0.0, 0
+    for req, got in zip(requests, answers):
+        check(got is not None and got.shape == (len(req), 100),
+              "serving_224: missing or misshapen answer")
+        x = pre(torch.from_numpy(req).cuda())
+        want = fast_forward(model, x)["logits"].cpu().numpy()
+        identical += int(np.array_equal(got, want))
+        worst = max(worst, float(np.abs(got - want).max()
+                                 / max(np.abs(want).max(), 1e-30)))
+    x1 = pre(torch.from_numpy(requests[0][:1]).cuda())
+    b1_ms = cuda_ms(lambda: fast_forward(model, x1), iters=10)
+    emit("serving_224", requests=len(requests), sizes=sizes,
+         buckets=(1, 8, 64), identical_answers=identical, worst_rel_err=worst,
+         tol=TOL_LOGITS, launches=launches, stats=stats,
+         b1_ms_per_forward=b1_ms, b1_ms_per_eval=b1_ms / 24)
+    check(worst <= TOL_LOGITS, f"serving_224 answers differ: {worst}")
 
 
 def main() -> int:
@@ -1606,17 +2018,20 @@ def main() -> int:
     phase_dropout_kernels_vs_plain(models["rk4-13"])
     drop_launches = phase_train_dropout(images, labels, train)
     drop_timing = phase_dropout_kernel_timing(models["rk4-13"], images)
+    cifar_euler = models["euler-49"]
     del models
     # the distillation slice at the TS-Base shape
     from odevit_tpu_torch.teacher.vit import ViTTeacher
     student = distill_student()
     phase_distill_kernels_vs_plain(student)
     rng_d = np.random.default_rng(0)
+    # the recipe's data: 32 px CIFAR-100 images, resized to 224 on the card
     images_d = torch.from_numpy(rng_d.integers(
-        0, 256, (DISTILL_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+        0, 256, (DISTILL_BATCH, 32, 32, 3), dtype=np.uint8)).cuda()
     labels_d = torch.from_numpy(rng_d.integers(0, 100, DISTILL_BATCH)).cuda()
     teacher = ViTTeacher.dino_b16(device="cuda", seed=1)
-    distill_launches, distill = phase_distill(teacher, images_d, labels_d)
+    distill_launches, distill = phase_distill(teacher, images_d, labels_d,
+                                              rng_d)
     distill_timing = phase_distill_kernel_timing(student, images_d)
     # the distillation step at the recipe's dropout, beside drop 0
     phase_distill_dropout_kernels_vs_plain(student)
@@ -1624,6 +2039,15 @@ def main() -> int:
                                            distill)
     ddrop_timing = phase_distill_kernel_timing(student, images_d,
                                                DROP_RATES)
+    del teacher, student
+    # the serving slice at 224 px, and the chained Euler kernel
+    rng_s = np.random.default_rng(2)
+    x224, serve224, students = phase_serve_224(rng_s)
+    euler25 = students["tsbase-serve-euler25-b64-bf16"]
+    serve224_timing = phase_serve_224_kernel_timing(euler25, x224)
+    chain_launches, chain_timing = phase_chain_vs_per_step(
+        cifar_euler, x, euler25, x224)
+    phase_serving_224(euler25, rng_s)
 
     kernels = [{
         "name": "vf_eval", "route": "cuda",
@@ -1674,6 +2098,26 @@ def main() -> int:
             **{k: v for k, v in drop_timing[name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "bound_unit", "library_ms")}})
+    for name, cell in (
+            ("vf_eval_euler_tiled", "tsbase-serve-euler25-b64-bf16"),
+            ("vf_eval_base_tiled", "tsbase-serve-rk4-7-b64-bf16")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
+            "replaces": "odevit_tpu/kernels/vector_field.py:196",
+            "launches": serve224[cell]["launches"][name],
+            **{k: v for k, v in serve224_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}})
+    kernels.append({
+        "name": "vf_euler_chain", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field.cu",
+        "replaces": "odevit_tpu/kernels/vector_field.py:741",
+        "launches": chain_launches,
+        **{k: v for k, v in chain_timing.items()
+           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}})
+    check(len(kernels) == 18, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

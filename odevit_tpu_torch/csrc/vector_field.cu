@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
 // (its plain, Euler, stage-advance and JaSMin-statistics modes, and the
-// dropout of the plain and JaSMin modes) on Hopper (sm_90a).
+// dropout of the plain and JaSMin modes), and, as the instance kChain,
+// _vf_euler_chain_kernel (`chain` Euler steps per launch), on Hopper
+// (sm_90a).
 //
 //   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
 //   plain : out = f(x)
@@ -471,8 +473,18 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
   }
 }
 
-// kJas: the JaSMin-statistics mode; kDrop: dropout. Each is compiled apart
-// so that the other modes keep their registers.
+// kJas: the JaSMin-statistics mode; kDrop: dropout; kChain: `chain` Euler
+// steps in one launch (the TPU's _vf_euler_chain_kernel). Each is compiled
+// apart so that the other modes keep their registers.
+//
+// Chain (kChain, mode 1): the CTA runs the whole evaluation `chain` times
+// on its image. Each step's epilogue writes round(x + coef f(x)) to the
+// image's rows of `out`, the state the next step reads (the TPU kernel
+// rounds the state to its dtype between steps too, so a chain is step for
+// step the per-step Euler route, bit for bit), and a barrier ends the step.
+// The state and the f32 accumulator stay apart: in f32 `acc_global` is a
+// scratch and not `out`. Steps after the first read the state through
+// `out`, never through x, so x stays __restrict__ (read-only).
 //
 // Dropout (kDrop), at the sites the TPU kernel uses: h = round(round(
 // gelu(h1)) * mask_h) per chunk; mlp_o * mask_mo, applied to the
@@ -484,17 +496,18 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
 // Wout_h. That sums attn_o in another order than (sum_h ctx_h Wout_h) *
 // mask_ao; the f32 difference is rounding. attn_o's keep bits are drawn
 // once, before the heads, into shared memory.
-template <typename T, bool kJas, bool kDrop>
+template <typename T, bool kJas, bool kDrop, bool kChain = false>
 __global__ void __launch_bounds__(kThreads)
 vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
-          T* out, float* acc_global,  // may alias (f32: acc is out)
+          T* out, float* acc_global,  // may alias (f32: acc is out), not
+                                      // with kChain
           const float* __restrict__ ga, const float* __restrict__ ba,
           const float* __restrict__ gm, const float* __restrict__ bm,
           const T* __restrict__ wqkv, const T* __restrict__ wout,
           const T* __restrict__ w1, const T* __restrict__ w2,
           float* __restrict__ jas, int* __restrict__ jas_idx, int jas_kk,
           Shape s, float scaler, float coef, float qk_scale, int mode,
-          Drop drop, float* __restrict__ ao_global) {
+          Drop drop, float* __restrict__ ao_global, int chain) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan pl = make_plan(s, sizeof(T));
   T* cn = reinterpret_cast<T*>(smem + pl.cn);
@@ -510,144 +523,156 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const unsigned b = blockIdx.x;
   const size_t img = (size_t)blockIdx.x * n * d;
-  const T* xi = x + img;
+  T* oi = out + img;
   float* acc = sizeof(T) == 2 ? reinterpret_cast<float*>(smem + pl.acc)
                               : acc_global + img;
 
-  // MLP branch: acc = sum over dh chunks of gelu(cn_m W1[:, c]) W2[c, :]
-  center_norm(xi, gm, bm, cn, pl.ld_cn, n, d);
-  __syncthreads();
-  for (int c0 = 0; c0 < s.dh; c0 += hc) {
-    mm<false, false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false,
-                     n, hc, d);
+  // one evaluation of the state xi; the epilogue writes this image's rows
+  // of `out`
+  auto evaluate = [&](const T* xi) {
+    // MLP branch: acc = sum over dh chunks of gelu(cn_m W1[:, c]) W2[c, :]
+    center_norm(xi, gm, bm, cn, pl.ld_cn, n, d);
     __syncthreads();
+    for (int c0 = 0; c0 < s.dh; c0 += hc) {
+      mm<false, false>(cn, pl.ld_cn, w1 + c0, s.dh, stage, pl.ld_stage, false,
+                       n, hc, d);
+      __syncthreads();
+      if (kDrop && drop.th_m) {
+        const unsigned key = site_key(drop.seed, kSiteH);
+        for (int r = warp; r < n; r += kWarps)
+          for (int g = lane; 4 * g < hc; g += 32) {
+            float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (r < s.n_real)
+              keep4(key, b, r, (c0 >> 2) + g, s.dh, drop.th_m, drop.sc_m, m);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int c = 4 * g + j;
+              const T h = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+              hbuf[r * pl.ld_h + c] = from_f<T>(to_f(h) * m[j]);
+            }
+          }
+      } else {
+        for (int r = warp; r < n; r += kWarps)
+          for (int c = lane; c < hc; c += 32)
+            hbuf[r * pl.ld_h + c] =
+                from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+      }
+      __syncthreads();
+      mm<false, false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc,
+                       c0 > 0, n, d, hc);
+      __syncthreads();
+    }
     if (kDrop && drop.th_m) {
-      const unsigned key = site_key(drop.seed, kSiteH);
+      // acc = mlp_o * mask_mo
+      const unsigned key = site_key(drop.seed, kSiteMlpOut);
       for (int r = warp; r < n; r += kWarps)
-        for (int g = lane; 4 * g < hc; g += 32) {
+        for (int g = lane; 4 * g < d; g += 32) {
           float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          if (r < s.n_real)
-            keep4(key, b, r, (c0 >> 2) + g, s.dh, drop.th_m, drop.sc_m, m);
+          if (r < s.n_real) keep4(key, b, r, g, d, drop.th_m, drop.sc_m, m);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int c = 4 * g + j;
-            const T h = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
-            hbuf[r * pl.ld_h + c] = from_f<T>(to_f(h) * m[j]);
-          }
+          for (int j = 0; j < 4; ++j) acc[r * pl.ld_acc + 4 * g + j] *= m[j];
         }
-    } else {
-      for (int r = warp; r < n; r += kWarps)
-        for (int c = lane; c < hc; c += 32)
-          hbuf[r * pl.ld_h + c] = from_f<T>(gelu(stage[r * pl.ld_stage + c]));
     }
-    __syncthreads();
-    mm<false, false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc,
-                     c0 > 0, n, d, hc);
-    __syncthreads();
-  }
-  if (kDrop && drop.th_m) {
-    // acc = mlp_o * mask_mo
-    const unsigned key = site_key(drop.seed, kSiteMlpOut);
-    for (int r = warp; r < n; r += kWarps)
-      for (int g = lane; 4 * g < d; g += 32) {
-        float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        if (r < s.n_real) keep4(key, b, r, g, d, drop.th_m, drop.sc_m, m);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r * pl.ld_acc + 4 * g + j] *= m[j];
-      }
-  }
-  if (kDrop && drop.th_ao) {
-    const unsigned key = site_key(drop.seed, kSiteAttnOut);
-    for (int r = warp; r < n; r += kWarps) {
-      if (r < s.n_real)
-        keep_bits_row(key, b, r, d, d, drop.th_ao, bits + r * pl.ld_bits);
-      else
-        for (int i = lane; i < pl.ld_bits; i += 32) bits[r * pl.ld_bits + i] = 0;
-    }
-  }
-
-  // attention branch, head by head: acc += ctx_h Wout[h*hd:(h+1)*hd, :]
-  center_norm(xi, ga, ba, cn, pl.ld_cn, n, d);
-  __syncthreads();
-  for (int h = 0; h < s.heads; ++h) {
-    T* dst[3] = {q, k, v};
-    // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
-    if (s.qkv_fused) {
-      mm<false, false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage,
-                       pl.ld_stage, false, n, 3 * hd, d, hd / 16, d);
-      __syncthreads();
-      for (int j = 0; j < 3; ++j)
-        round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                    j == 2 ? s.n_real : n);
-      __syncthreads();
-    } else {
-      for (int j = 0; j < 3; ++j) {
-        mm<false, false>(cn, pl.ld_cn, wqkv + j * d + h * hd, 3 * d, stage,
-                         pl.ld_stage, false, n, hd, d);
-        __syncthreads();
-        round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                    j == 2 ? s.n_real : n);
-        __syncthreads();
-      }
-    }
-    mm<false, true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n,
-                    n, hd);
-    __syncthreads();
-    softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
-    __syncthreads();
-    if (kJas) {
-      const size_t bh = (size_t)blockIdx.x * s.heads + h;
-      jas_stats_rows(p, pl.ld_p, n, s.n_real, jas_kk, jas + bh * 5 * n,
-                     jas_idx + bh * 4 * n);
-    }
-    if (kDrop && drop.th_p) {
-      if (kJas) __syncthreads();  // the statistics read the pre-dropout p
-      const unsigned key = site_key(drop.seed, kSiteP + h);
-      for (int r = warp; r < n; r += kWarps)
-        for (int g = lane; 4 * g < n; g += 32) {
-          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          if (r < s.n_real)
-            keep4(key, b, r, g, s.n_real, drop.th_p, drop.sc_p, m);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            T* pj = p + r * pl.ld_p + 4 * g + j;
-            *pj = from_f<T>(to_f(*pj) * m[j]);
-          }
-        }
-      __syncthreads();
-    }
-    mm<false, false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n,
-                     hd, n);
-    __syncthreads();
-    round_block(stage, pl.ld_stage, hbuf, pl.ld_h, n, hd, n);
-    __syncthreads();
     if (kDrop && drop.th_ao) {
-      // acc += mask_ao * ctx_h Wout_h
-      float* ao = sizeof(T) == 2 ? stage : ao_global + img;
-      const int ld_ao = sizeof(T) == 2 ? pl.ld_stage : d;
-      mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, ao, ld_ao,
-                       false, n, d, hd);
-      __syncthreads();
-      for (int r = warp; r < n; r += kWarps)
-        for (int c = lane; c < d; c += 32)
-          acc[r * pl.ld_acc + c] +=
-              ao[r * ld_ao + c] *
-              (kept(bits + r * pl.ld_bits, c) ? drop.sc_ao : 0.0f);
-    } else {
-      mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc,
-                       pl.ld_acc, true, n, d, hd);
+      const unsigned key = site_key(drop.seed, kSiteAttnOut);
+      for (int r = warp; r < n; r += kWarps) {
+        if (r < s.n_real)
+          keep_bits_row(key, b, r, d, d, drop.th_ao, bits + r * pl.ld_bits);
+        else
+          for (int i = lane; i < pl.ld_bits; i += 32)
+            bits[r * pl.ld_bits + i] = 0;
+      }
     }
-    __syncthreads();
-  }
 
-  T* oi = out + img;
-  const T* bi = mode == 2 ? base + img : xi;
-  for (int r = warp; r < n; r += kWarps) {
-    for (int c = lane; c < d; c += 32) {
-      const float f = acc[r * pl.ld_acc + c] * scaler;
-      const size_t i = (size_t)r * d + c;
-      oi[i] = from_f<T>(mode == 0 ? f : to_f(bi[i]) + coef * f);
+    // attention branch, head by head: acc += ctx_h Wout[h*hd:(h+1)*hd, :]
+    center_norm(xi, ga, ba, cn, pl.ld_cn, n, d);
+    __syncthreads();
+    for (int h = 0; h < s.heads; ++h) {
+      T* dst[3] = {q, k, v};
+      // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
+      if (s.qkv_fused) {
+        mm<false, false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage,
+                         pl.ld_stage, false, n, 3 * hd, d, hd / 16, d);
+        __syncthreads();
+        for (int j = 0; j < 3; ++j)
+          round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
+                      j == 2 ? s.n_real : n);
+        __syncthreads();
+      } else {
+        for (int j = 0; j < 3; ++j) {
+          mm<false, false>(cn, pl.ld_cn, wqkv + j * d + h * hd, 3 * d, stage,
+                           pl.ld_stage, false, n, hd, d);
+          __syncthreads();
+          round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
+                      j == 2 ? s.n_real : n);
+          __syncthreads();
+        }
+      }
+      mm<false, true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n,
+                      n, hd);
+      __syncthreads();
+      softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
+      __syncthreads();
+      if (kJas) {
+        const size_t bh = (size_t)blockIdx.x * s.heads + h;
+        jas_stats_rows(p, pl.ld_p, n, s.n_real, jas_kk, jas + bh * 5 * n,
+                       jas_idx + bh * 4 * n);
+      }
+      if (kDrop && drop.th_p) {
+        if (kJas) __syncthreads();  // the statistics read the pre-dropout p
+        const unsigned key = site_key(drop.seed, kSiteP + h);
+        for (int r = warp; r < n; r += kWarps)
+          for (int g = lane; 4 * g < n; g += 32) {
+            float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (r < s.n_real)
+              keep4(key, b, r, g, s.n_real, drop.th_p, drop.sc_p, m);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              T* pj = p + r * pl.ld_p + 4 * g + j;
+              *pj = from_f<T>(to_f(*pj) * m[j]);
+            }
+          }
+        __syncthreads();
+      }
+      mm<false, false>(p, pl.ld_p, v, pl.ld_qkv, stage, pl.ld_stage, false, n,
+                       hd, n);
+      __syncthreads();
+      round_block(stage, pl.ld_stage, hbuf, pl.ld_h, n, hd, n);
+      __syncthreads();
+      if (kDrop && drop.th_ao) {
+        // acc += mask_ao * ctx_h Wout_h
+        float* ao = sizeof(T) == 2 ? stage : ao_global + img;
+        const int ld_ao = sizeof(T) == 2 ? pl.ld_stage : d;
+        mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, ao,
+                         ld_ao, false, n, d, hd);
+        __syncthreads();
+        for (int r = warp; r < n; r += kWarps)
+          for (int c = lane; c < d; c += 32)
+            acc[r * pl.ld_acc + c] +=
+                ao[r * ld_ao + c] *
+                (kept(bits + r * pl.ld_bits, c) ? drop.sc_ao : 0.0f);
+      } else {
+        mm<false, false>(hbuf, pl.ld_h, wout + (size_t)h * hd * d, d, acc,
+                         pl.ld_acc, true, n, d, hd);
+      }
+      __syncthreads();
     }
+
+    const T* bi = mode == 2 ? base + img : xi;
+    for (int r = warp; r < n; r += kWarps) {
+      for (int c = lane; c < d; c += 32) {
+        const float f = acc[r * pl.ld_acc + c] * scaler;
+        const size_t i = (size_t)r * d + c;
+        oi[i] = from_f<T>(mode == 0 ? f : to_f(bi[i]) + coef * f);
+      }
+    }
+  };
+  evaluate(x + img);
+  // kChain: each further step reads the state the previous one wrote,
+  // through `out`
+  for (int step = 1; kChain && step < chain; ++step) {
+    __syncthreads();
+    evaluate(oi);
   }
 }
 
@@ -671,9 +696,10 @@ int launch(const void* x, const void* base, void* out, void* acc,
            const void* w1, const void* w2, void* jas, void* jas_idx,
            int jas_kk, int batch, int smem, Shape s, float scaler,
            float coef, float qk_scale, int mode, const Drop& drop, void* ao,
-           cudaStream_t st) {
-  auto kernel =
-      jas_kk > 0 ? vf_kernel<T, true, kDrop> : vf_kernel<T, false, kDrop>;
+           int chain, cudaStream_t st) {
+  auto kernel = chain > 1    ? vf_kernel<T, false, false, true>
+                : jas_kk > 0 ? vf_kernel<T, true, kDrop>
+                             : vf_kernel<T, false, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -683,7 +709,7 @@ int launch(const void* x, const void* base, void* out, void* acc,
       static_cast<const T*>(wqkv), static_cast<const T*>(wout),
       static_cast<const T*>(w1), static_cast<const T*>(w2),
       static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk, s,
-      scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao));
+      scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao), chain);
   return (int)cudaGetLastError();
 }
 
@@ -720,7 +746,9 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // also writes the JaSMin statistics ([B, H, 5, n_pad] f32) and their
 // columns ([B, H, 4, n_pad] int32) of kk = k + 1 extraction passes. A
 // non-null `drop` launches the dropout instance (planned with drop=1);
-// in f32 it takes `ao`, a [B * n_pad, D] f32 scratch.
+// in f32 it takes `ao`, a [B * n_pad, D] f32 scratch. chain > 1 runs
+// `chain` Euler steps in one launch (mode 1, no statistics, no dropout;
+// in f32 `acc` is then a [B * n_pad, D] f32 scratch apart from `out`).
 int vf_launch(int tbytes, const void* x, const void* base, void* out,
               void* acc, const float* ga, const float* ba, const float* gm,
               const float* bm, const void* wqkv, const void* wout,
@@ -728,7 +756,10 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
               int n_real, int d, int heads, int dh, int qkv_fused, int hc,
               int smem, float scaler, float coef, float qk_scale, int mode,
               void* jas, void* jas_idx, int jas_kk, const Drop* drop,
-              void* ao, void* stream) {
+              void* ao, int chain, void* stream) {
+  if (chain > 1 && (mode != 1 || jas_kk > 0 || drop != nullptr ||
+                    (tbytes == 4 && acc == out)))
+    return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused,
                              drop != nullptr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -737,7 +768,7 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
 #define VF_LAUNCH(T, D)                                                    \
   launch<T, D>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1, w2, jas, \
                jas_idx, jas_kk, batch, smem, s, scaler, coef, qk_scale,    \
-               mode, dr, ao, st)
+               mode, dr, ao, chain, st)
   if (tbytes == 2)
     return drop != nullptr ? VF_LAUNCH(bf16, true) : VF_LAUNCH(bf16, false);
   return drop != nullptr ? VF_LAUNCH(float, true) : VF_LAUNCH(float, false);

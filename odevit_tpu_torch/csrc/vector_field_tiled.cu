@@ -2,7 +2,8 @@
 // on Hopper (sm_90a), for shapes where one image does not fit one CTA.
 //
 // Replaces the TPU kernels odevit_tpu/kernels/vector_field.py::_vf_kernel
-// (plain, JaSMin-statistics and attention-map modes) and
+// (plain, Euler, stage-advance, JaSMin-statistics and attention-map modes)
+// and
 // odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (with the JaSMin
 // cotangent and the attention-map cotangent) at shapes such as TS-Base
 // (224 px, patch 16: 207 tokens padded to 208, D=768, 12 heads, dh=768),
@@ -25,7 +26,14 @@
 //                   keys, p rounded; the map (attention-map mode) or the
 //                   JaSMin statistics and their columns; ctx = round(p v);
 //   vft_gemm        out = round(scaler * ([ctx | h] [Wout; W2])), the two
-//                   products summed in one f32 accumulator.
+//                   products summed in one f32 accumulator; the Euler and
+//                   stage-advance modes (the TPU kernel's euler_dt and
+//                   base, reached through fused_euler_step_from_params and
+//                   fused_rk4_step_from_params) read x or the stage base
+//                   per element in this epilogue and write round(x + dt
+//                   (scaler acc)) or round(base + dt (scaler acc)), summed
+//                   in f32 as vector_field.cu's epilogue sums: one 20 MB
+//                   read more at TS-Base and B=64, no elementwise pass.
 // Backward, twelve launches, no atomics (two runs are bit-identical):
 //   vft_norm        cn_a, cn_m, the row means, gd = round(g * scaler);
 //   vft_gemm (x4)   h1 (f32) and h; qkv; h1_bar = round((gd W2^T)
@@ -197,7 +205,10 @@ vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
 
 enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4,
                 // the dropout epilogues (vft_gemm_*<BT, true>)
-                kGeluDrop = 5, kGeluGradDrop = 6, kOutDrop = 7 };
+                kGeluDrop = 5, kGeluGradDrop = 6, kOutDrop = 7,
+                // the Euler and stage-advance output: round(res + dt
+                // (scale v)), res = x (Euler) or the stage base
+                kAdvance = 8 };
 
 // C[m, n] = sum over pairs of A_p[m, :] B_p[:, n]; A row-major (lda), B
 // row-major [K, N] (ldb) or, with BT, stored transposed [N, K]. M and N
@@ -216,6 +227,8 @@ struct GemmArgs {
   const float* aux;  // kGeluGrad: the pre-GELU value h1; kOutDrop: attn_o
   int ldaux;
   float scale;
+  const void* res;   // kAdvance: x or the stage base, x's dtype, ldo
+  float dt;          // kAdvance
   // dropout epilogues: the keep masks of up to two sites over the output
   // (kGeluDrop, kGeluGradDrop: mask_h; kOutDrop: mask_mo, mask_ao), th 0
   // where a site has no dropout; output row m is row m % n_pad of image
@@ -243,6 +256,10 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
       break;
     case kGeluGrad:
       out[o] = vf::from_f<T>(v * vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
+      break;
+    case kAdvance:  // the f32 sum of vector_field.cu's epilogue
+      out[o] = vf::from_f<T>(vf::to_f(static_cast<const T*>(g.res)[o]) +
+                             g.dt * (v * g.scale));
       break;
     default:
       g.out32[(size_t)m * g.ld32 + n] = v;
@@ -826,6 +843,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
 // Python (ctypes). Scratch buffers are allocated by the caller.
 struct TiledArgs {
   const void* x;
+  const void* base;        // forward, stage-advance mode: [R, D]
   const void* g;           // backward: the dx cotangent
   const float* g_jas;      // backward: [B, H, 5, n_pad] or null
   const int* jas_idx;      //           [B, H, 4, n_pad]
@@ -864,6 +882,7 @@ struct TiledArgs {
   float* wbars;            // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
   int batch, n_pad, n_real, d, heads, dh, mode, jas_kk, mt, splits;
   float scaler, qk_scale;
+  float dt;                // forward, Euler and stage-advance modes
   vf::Drop drop;           // all zeros: the deterministic instances
 };
 
@@ -930,7 +949,8 @@ AttnArgs attn_args(const TiledArgs& t) {
   a.d = t.d;
   a.heads = t.heads;
   a.mt = t.mt;
-  a.mode = t.mode;
+  // the Euler and stage-advance modes attend as the plain mode
+  a.mode = t.mode == kJasmin || t.mode == kMap ? t.mode : kPlain;
   a.jas_kk = t.jas_kk;
   a.qk_scale = t.qk_scale;
   a.drop = t.drop;
@@ -973,10 +993,16 @@ bool has_drop(const TiledArgs& t) {
   return t.drop.th_p | t.drop.th_ao | t.drop.th_m;
 }
 
+// TiledArgs::mode: the attention modes, then the output's
+enum ForwardMode { kEuler = 3, kBase = 4 };
+
 template <typename T>
 int forward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
   const bool drop = has_drop(t);
+  const bool advance = t.mode == kEuler || t.mode == kBase;
+  // no dropout instance advances the state (nor does the TPU kernel)
+  if (advance && drop) return (int)cudaErrorInvalidValue;
   VFT_CHECK((norm<T, false>(t, false, st)));
   VFT_CHECK((gemm<T, false>(
       gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
@@ -1004,7 +1030,10 @@ int forward(const TiledArgs& t, cudaStream_t st) {
     gemm_mask(o, 1, t, vf::kSiteAttnOut);
     return gemm<T, false, true>(o, st);
   }
-  GemmArgs o = gemm_args(t.ctx, d, t.wout, d, d, R, d, kScale, t.out, d);
+  // out = round(scaler acc), or with the Euler and stage-advance modes
+  // round(res + dt (scaler acc)), res = x or base, read in the epilogue
+  GemmArgs o = gemm_args(t.ctx, d, t.wout, d, d, R, d,
+                         advance ? kAdvance : kScale, t.out, d);
   o.pairs = 2;
   o.a[1] = t.h;
   o.lda[1] = dh;
@@ -1012,6 +1041,8 @@ int forward(const TiledArgs& t, cudaStream_t st) {
   o.ldb[1] = d;
   o.k[1] = dh;
   o.scale = t.scaler;
+  o.res = t.mode == kBase ? t.base : t.x;
+  o.dt = t.dt;
   return gemm<T, false>(o, st);
 }
 
@@ -1129,10 +1160,12 @@ int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
   return 1;
 }
 
-// One evaluation (mode 0 plain, 1 JaSMin statistics, 2 attention map) on
-// `stream`; returns the first cudaGetLastError() that is not 0, else 0. A
-// nonzero threshold in args->drop runs the dropout instances (planned with
-// drop=1), which also take the ao scratch (and gd2 in the backward).
+// One evaluation (mode 0 plain, 1 JaSMin statistics, 2 attention map,
+// 3 Euler: x + dt f(x), 4 stage advance: base + dt f(x)) on `stream`;
+// returns the first cudaGetLastError() that is not 0, else 0. A nonzero
+// threshold in args->drop runs the dropout instances (planned with
+// drop=1), which also take the ao scratch (and gd2 in the backward); modes
+// 3 and 4 have none and return cudaErrorInvalidValue with one.
 int vft_forward(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vft::forward<bf16>(*args, st)

@@ -20,7 +20,10 @@ launch_counts: Dict[str, int] = {
     "vf_bwd_tiled": 0,
     # and its dropout instances
     "vf_eval_tiled_drop": 0, "vf_eval_jasmin_tiled_drop": 0,
-    "vf_eval_attn_drop": 0, "vf_bwd_tiled_drop": 0}
+    "vf_eval_attn_drop": 0, "vf_bwd_tiled_drop": 0,
+    # serving: the tiled route's Euler and stage-advance modes, and the
+    # chained Euler instance of csrc/vector_field.cu
+    "vf_eval_euler_tiled": 0, "vf_eval_base_tiled": 0, "vf_euler_chain": 0}
 _count_lock = threading.Lock()
 
 

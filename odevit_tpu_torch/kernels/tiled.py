@@ -6,7 +6,8 @@ products, an attention kernel per image, head and query tile), for shapes
 whose image does not fit the one-image-per-CTA kernels of
 ``vector_field.cu`` and ``vector_field_bwd.cu`` (the 224 px TS-Base
 evaluation: 207 tokens padded to 208, D=768, 12 heads). It replaces the
-same TPU kernels, ``_vf_kernel`` and ``_vf_bwd_kernel``. The wrappers in
+same TPU kernels, ``_vf_kernel`` (plain, JaSMin, attention-map, Euler and
+stage-advance modes) and ``_vf_bwd_kernel``. The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
 module binds the library and allocates the scratch the kernels use.
 
@@ -26,12 +27,12 @@ import torch
 
 from odevit_tpu_torch.kernels.dropout import Drop
 
-MODES = {"plain": 0, "jasmin": 1, "attn": 2}
+MODES = {"plain": 0, "jasmin": 1, "attn": 2, "euler": 3, "base": 4}
 
-_PTRS = ("x", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm", "bm",
-         "wqkv", "wout", "w1", "w2", "out", "stats", "idx", "pmap", "cna",
-         "cnm", "qkv", "h", "ctx", "ao", "mean", "gd", "gd2", "h1", "h1b",
-         "cb", "pg", "sbar", "qkvb", "abar", "mbar", "npart", "wpart",
+_PTRS = ("x", "base", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm",
+         "bm", "wqkv", "wout", "w1", "w2", "out", "stats", "idx", "pmap",
+         "cna", "cnm", "qkv", "h", "ctx", "ao", "mean", "gd", "gd2", "h1",
+         "h1b", "cb", "pg", "sbar", "qkvb", "abar", "mbar", "npart", "wpart",
          "wbars")
 _INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
          "mt", "splits")
@@ -41,7 +42,7 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in _PTRS]
                 + [(name, ctypes.c_int) for name in _INTS]
                 + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float),
-                   ("drop", Drop)])
+                   ("dt", ctypes.c_float), ("drop", Drop)])
 
 
 _lib = None
@@ -86,10 +87,11 @@ def _ptr(t):
 
 
 def make_args(x, w, bufs, *, num_heads, scaler, n_real, mt, mode="plain",
-              jas_kk=0, splits=0, drop=None) -> _Args:
+              jas_kk=0, splits=0, drop=None, dt=0.0) -> _Args:
     """The kernels' ``TiledArgs`` for one call: pointers of x, the weights
-    and ``bufs`` (None where absent), the shape, and ``drop`` (zeros, the
-    deterministic instances, for None)."""
+    and ``bufs`` (None where absent; the stage base among them), the shape,
+    the step ``dt`` and ``drop`` (zeros, the deterministic instances, for
+    None)."""
     b, n, d = x.shape
     ptrs = {"ga": w.norm_attn_scale, "ba": w.norm_attn_bias,
             "gm": w.norm_mlp_scale, "bm": w.norm_mlp_bias, "wqkv": w.wqkv,
@@ -98,17 +100,18 @@ def make_args(x, w, bufs, *, num_heads, scaler, n_real, mt, mode="plain",
                  batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads,
                  dh=w.w1.shape[1], mode=MODES[mode], jas_kk=jas_kk, mt=mt,
                  splits=splits, scaler=scaler,
-                 qk_scale=(d // num_heads) ** -0.5, drop=drop or Drop())
+                 qk_scale=(d // num_heads) ** -0.5, dt=dt,
+                 drop=drop or Drop())
 
 
 def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
-         jas_kk=0, splits=0, drop=None):
+         jas_kk=0, splits=0, drop=None, dt=0.0):
     b, n, d = x.shape
     mt = tiled_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1],
                     drop is not None)[0]
     args = make_args(x, w, bufs, num_heads=num_heads, scaler=scaler,
                      n_real=n_real, mt=mt, mode=mode, jas_kk=jas_kk,
-                     splits=splits, drop=drop)
+                     splits=splits, drop=drop, dt=dt)
     lib = _library()
     err = getattr(lib, fn_name)(
         x.element_size(), ctypes.byref(args),
@@ -147,15 +150,19 @@ def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
 
 
 def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
-                  mode: str = "plain", jas_kk: int = 0, drop=None):
+                  mode: str = "plain", jas_kk: int = 0, drop=None,
+                  dt: float = 0.0, base=None):
     """One evaluation on the tiled route: f(x), and for mode "jasmin" the
     statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
-    n_pad]`` (zeros on padded query rows), both of the pre-dropout p. The
+    n_pad]`` (zeros on padded query rows), both of the pre-dropout p; for
+    mode "euler" x + dt f(x) and for mode "base" base + dt f(x) instead of
+    f(x), summed in f32 and rounded once (these two take no ``drop``). The
     caller has checked the arguments. ``drop``: a ``dropout.Drop`` or
     None (see the module docstring)."""
     bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop)
+    bufs["base"] = base
     _run("vft_forward", x, w, bufs, num_heads=num_heads, scaler=scaler,
-         n_real=n_real, mode=mode, jas_kk=jas_kk, drop=drop)
+         n_real=n_real, mode=mode, jas_kk=jas_kk, drop=drop, dt=dt)
     extra = {"jasmin": ("stats", "idx"), "attn": ("pmap",)}.get(mode, ())
     return (bufs["out"], *(bufs[k] for k in extra))
 

@@ -18,13 +18,20 @@ attention-map mode, the counterpart of ``fused_vf_attn``: ``f(x)`` and the
 maps ``[B, H, n_pad, n_pad]`` in the compute dtype, zeros on padded query
 rows and padded keys.
 
-Routes. Where one image fits one CTA (``kernel_plan``), the plain and
-JaSMin modes launch the one-image-per-CTA kernel of
+``vf_euler_chain`` (plain version ``vf_euler_chain_plain``) runs
+``chain`` Euler steps, the counterpart of ``fused_euler_chain_from_params``
+(``_vf_euler_chain_kernel``): one launch of the kernel's chained instance
+where one image fits one CTA, else the tiled Euler mode once per step.
+
+Routes. Where one image fits one CTA (``kernel_plan``), every mode but the
+attention map launches the one-image-per-CTA kernel of
 ``csrc/vector_field.cu``. Elsewhere (the 224 px TS-Base shape: 207 tokens,
-D=768) they launch the tiled route, ``csrc/vector_field_tiled.cu``
-(``kernels/tiled.py``), which also carries the attention-map mode at every
-shape. The Euler and stage-advance modes have no tiled route yet and raise
-there. Each route counts its launches under its own name.
+D=768) the plain, Euler, stage-advance and JaSMin modes launch the tiled
+route, ``csrc/vector_field_tiled.cu`` (``kernels/tiled.py``), which also
+carries the attention-map mode at every shape. Each route counts its
+launches under its own name: ``vf_eval`` (every mode of ``vf_eval`` on
+one CTA per image), ``vf_eval_tiled``, ``vf_eval_euler_tiled``,
+``vf_eval_base_tiled``, ``vf_eval_jasmin`` and so on.
 
 ``x`` is the padded token tensor ``[B, n_pad, D]`` (``n_pad`` a multiple of
 :data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
@@ -41,7 +48,9 @@ the deterministic route whatever the seed; nonzero rates without a seed
 raise. On the GPU they launch the kernels' dropout instances, counted as
 ``vf_eval_drop`` and ``vf_eval_jasmin_drop`` (one image per CTA) and
 ``vf_eval_tiled_drop``, ``vf_eval_jasmin_tiled_drop`` and
-``vf_eval_attn_drop`` (the tiled route).
+``vf_eval_attn_drop`` (the tiled route). The Euler and stage-advance
+modes have no dropout instance, as in the TPU kernel: with a nonzero rate
+they raise.
 """
 
 from __future__ import annotations
@@ -61,6 +70,9 @@ from odevit_tpu_torch.ops.dot import dot32
 TOKEN_PAD = 16
 
 MODES = {"plain": 0, "euler": 1, "base": 2}
+# the tiled route's counters of the deterministic modes
+_TILED_COUNTERS = {"plain": "vf_eval_tiled", "euler": "vf_eval_euler_tiled",
+                   "base": "vf_eval_base_tiled"}
 
 
 class VFWeights(NamedTuple):
@@ -210,7 +222,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vf_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
     lib.vf_plan.restype = i
     lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9
-                              + [f, f, f, i, p, p, i, p, p, p])
+                              + [f, f, f, i, p, p, i, p, p, i, p])
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
     lib.vf_error_string.restype = ctypes.c_char_p
@@ -278,14 +290,18 @@ def _check_launch(x, w: VFWeights, base=None):
 
 
 def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
-            jas_kk=0, drop=None):
+            jas_kk=0, drop=None, chain=1):
     b, n, d = x.shape
     dh = w.w1.shape[1]
     plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None)
     out = torch.empty_like(x)
-    # f32: the kernel accumulates mlp_o + attn_o in the output buffer, and
+    # f32: the kernel accumulates mlp_o + attn_o in the output buffer (a
+    # chain keeps its state there, and its accumulator in a scratch), and
     # the dropout instance takes each head's attn_o product in a scratch
-    acc = out.data_ptr() if x.dtype == torch.float32 else None
+    acc_buf = None
+    if x.dtype == torch.float32:
+        acc_buf = torch.empty(b * n, d, device=x.device) if chain > 1 else out
+    acc = acc_buf.data_ptr() if acc_buf is not None else None
     ao = None
     if drop is not None and x.dtype == torch.float32:
         ao = torch.empty(b * n, d, device=x.device)
@@ -302,7 +318,7 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
         stats.data_ptr() if jas_kk else None,
         idx.data_ptr() if jas_kk else None, jas_kk,
         ctypes.byref(drop) if drop is not None else None,
-        ao.data_ptr() if ao is not None else None,
+        ao.data_ptr() if ao is not None else None, chain,
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("vector-field kernel launch failed: "
@@ -319,6 +335,9 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
     :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
     GPU too: it exists for comparisons, and the main path never sets it.
     """
+    if mode != "plain" and any(drops):
+        raise ValueError(f"mode {mode!r} has no dropout instance (nor has "
+                         f"the TPU kernel)")
     if plain or x.device.type == "cpu":
         return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
                              n_real=n_real, mode=mode, dt=dt, base=base,
@@ -327,18 +346,55 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
     _check_launch(x, w, base)
     drop = drop_spec(seed, drops)
     if not _cta_route(x, w, num_heads, n_real, drop):
-        if mode != "plain":
-            raise NotImplementedError(
-                f"mode {mode!r} has no tiled route yet (ROADMAP.md §1): the "
-                f"tiled route runs the plain, JaSMin and map modes")
         (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                               n_real=n_real, drop=drop)
-        count_launch("vf_eval_tiled" if drop is None
+                               n_real=n_real, mode=mode, drop=drop, dt=dt,
+                               base=base)
+        count_launch(_TILED_COUNTERS[mode] if drop is None
                      else "vf_eval_tiled_drop")
         return out
     out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
                         n_real=n_real, mode=mode, dt=dt, base=base, drop=drop)
     count_launch("vf_eval" if drop is None else "vf_eval_drop")
+    return out
+
+
+def vf_euler_chain_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                         n_real: int, dt: float, chain: int):
+    """``chain`` Euler steps in plain PyTorch: ``vf_eval_plain`` in its
+    Euler mode, the state rounded to x's dtype after each step."""
+    for _ in range(chain):
+        x = vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
+                          n_real=n_real, mode="euler", dt=dt)
+    return x
+
+
+def vf_euler_chain(x, w: VFWeights, *, num_heads: int, scaler: float,
+                   n_real: int, dt: float, chain: int, plain: bool = False):
+    """``chain`` Euler steps y <- round(y + dt f(y)), the counterpart of
+    ``fused_euler_chain_from_params``. Where one image fits one CTA, one
+    launch of the kernel's chained instance runs them all, each CTA
+    holding its image's state between steps (counted as
+    ``vf_euler_chain``); the state is rounded to its dtype between steps,
+    so the result is bit for bit that of ``chain`` per-step launches.
+    Elsewhere (the tiled route) a chain in one launch would need a barrier
+    across the grid between the route's kernels, so the chain runs the
+    tiled Euler mode once per step (``vf_eval_euler_tiled``): the same bits,
+    as JAX's chain equals its per-step route by construction. A CPU tensor,
+    or ``plain=True``, runs :func:`vf_euler_chain_plain`."""
+    if chain < 1:
+        raise ValueError(f"chain {chain} < 1")
+    kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real)
+    if plain or x.device.type == "cpu":
+        return vf_euler_chain_plain(x, w, dt=dt, chain=chain, **kw)
+    _check(x, w, num_heads, n_real, "euler", None)
+    _check_launch(x, w)
+    if chain == 1 or not _cta_route(x, w, num_heads, n_real):
+        for _ in range(chain):
+            x = vf_eval(x, w, mode="euler", dt=dt, **kw)
+        return x
+    out, _, _ = _launch(x, w, mode="euler", dt=dt, base=None, chain=chain,
+                        **kw)
+    count_launch("vf_euler_chain")
     return out
 
 

@@ -6,19 +6,24 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
     integration and sliced once after; padded tokens get no attention
     and never reach a real token;
   * only the final state is kept (no trajectory);
-  * the integration takes one of three routes: on a uniform grid, Euler
-    runs each step as one kernel launch that writes ``y + dt*f(y)``, and
-    rk4 (Kutta 3/8) runs each stage as one launch that writes
-    ``base + c*dt*f(y)``; any other grid or fixed-grid solver calls the
-    kernel in plain-f mode through the generic integrator;
+  * the integration takes one of four routes: dopri5 integrates
+    adaptively (``core/adaptive.py``) over one segment ``[ts[0], ts[-1]]``
+    with the model's ``solver_rtol``/``solver_atol``, each evaluation a
+    plain-f launch; on a uniform grid, Euler runs each step as one kernel
+    launch that writes ``y + dt*f(y)``, and rk4 (Kutta 3/8) runs each
+    stage as one launch that writes ``base + c*dt*f(y)``; any other grid
+    or fixed-grid solver calls the kernel in plain-f mode through the
+    generic integrator;
+  * ``ODEVIT_EULER_CHAIN=c`` opts the Euler route into chains of ``c``
+    steps per launch (``vf_euler_chain``) where JAX chains: ``c`` above 1
+    and dividing the step count. At shapes on the tiled route a chain runs
+    the tiled Euler mode once per step. Elsewhere the variable is ignored,
+    as JAX ignores it;
   * the CLS head runs in float32.
 
-On the GPU every evaluation launches the kernel; ``plain=True`` runs the
-same routes through the kernel's plain PyTorch version instead, for
-comparisons. dopri5 and Macaron are not ported yet and raise, and so
-does the chained-Euler opt-in where JAX would chain (``ODEVIT_EULER_CHAIN``
-above 1 and dividing the step count of the fused Euler route); elsewhere
-the variable is ignored, as JAX ignores it. L2 attention and time
+On the GPU every evaluation launches a kernel; ``plain=True`` runs the
+same routes through the kernels' plain PyTorch versions instead, for
+comparisons. Macaron is not ported yet and raises; L2 attention and time
 conditioning raise when the model is built.
 """
 
@@ -30,8 +35,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from odevit_tpu_torch.core.adaptive import odeint_dopri5
 from odevit_tpu_torch.core.integrators import odeint
-from odevit_tpu_torch.kernels.vector_field import pad_tokens, vf_eval
+from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                   vf_euler_chain)
 from odevit_tpu_torch.models.vit_ode import ViTODE
 
 
@@ -51,18 +58,8 @@ def fast_forward(model, images, *, t_grid=None,
         raise NotImplementedError(
             f"fast_forward takes a ViTODE; {type(model).__name__} (e.g. "
             f"Macaron) is not ported yet")
-    if model.solver == "dopri5":
-        raise NotImplementedError("dopri5 is not ported yet")
     ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
     uniform = len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
-    if model.solver == "euler" and uniform:
-        # ODEVIT_EULER_CHAIN=c chains c Euler steps per launch where c > 1
-        # divides the step count; any other value runs per-step Euler
-        chain = int(os.environ.get("ODEVIT_EULER_CHAIN", "1"))
-        if chain > 1 and (len(ts) - 1) % chain == 0:
-            raise NotImplementedError(
-                f"the chained Euler kernel (ODEVIT_EULER_CHAIN={chain}) is "
-                f"not ported yet; unset ODEVIT_EULER_CHAIN")
 
     tokens = model.patch_embed(images)
     b, n, d = tokens.shape
@@ -76,11 +73,28 @@ def fast_forward(model, images, *, t_grid=None,
                        scaler=model.vf.scaler, n_real=n, mode=mode, dt=dt,
                        base=base, plain=plain)
 
-    if model.solver == "euler" and uniform:
+    if model.solver == "dopri5":
+        # adaptive inference: error-controlled NFE instead of a fixed grid
+        states, _ = odeint_dopri5(lambda t, y: vf(y), tokens,
+                                  [ts[0], ts[-1]], rtol=model.solver_rtol,
+                                  atol=model.solver_atol)
+        y = states[-1]
+    elif model.solver == "euler" and uniform:
         dt = float(ts[1] - ts[0])
+        steps = len(ts) - 1
+        # ODEVIT_EULER_CHAIN=c chains c Euler steps per launch where c > 1
+        # divides the step count; any other value runs per-step Euler
+        chain = int(os.environ.get("ODEVIT_EULER_CHAIN", "1"))
+        chain = chain if chain > 1 and steps % chain == 0 else 1
         y = tokens
-        for _ in range(len(ts) - 1):
-            y = vf(y, "euler", dt)
+        if chain > 1:
+            for _ in range(steps // chain):
+                y = vf_euler_chain(y, weights, num_heads=model.num_heads,
+                                   scaler=model.vf.scaler, n_real=n, dt=dt,
+                                   chain=chain, plain=plain)
+        else:
+            for _ in range(steps):
+                y = vf(y, "euler", dt)
     elif model.solver == "rk4" and uniform:
         dt = float(ts[1] - ts[0])
         y = tokens

@@ -8,7 +8,8 @@ is the plain PyTorch path that returns the logits. The serving path with
 the fused kernel is :func:`odevit_tpu_torch.models.fast_forward.fast_forward`.
 The dropout rates (``attn_drop``, ``proj_drop``, ``mlp_drop``) are read by
 the fused training step only; ``forward`` and ``fast_forward`` evaluate
-without dropout, as JAX's ``models/fast_forward.py`` does.
+without dropout, as JAX's ``models/fast_forward.py`` does. dopri5 runs
+in ``fast_forward`` only, as in JAX.
 Attention outputs, JaSMin, control points, stability bounds and the loss
 are not ported yet and raise.
 """
@@ -39,10 +40,13 @@ class ViTODE(nn.Module):
                  pos_embed_register_tokens: bool = False,
                  time_conditioning: bool = False, dtype=None, *,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
-                 mlp_drop: float = 0.0, device=None, seed: int = 0):
+                 mlp_drop: float = 0.0, solver_rtol: float = 1e-5,
+                 solver_atol: float = 1e-6, device=None, seed: int = 0):
         """``dtype`` is the compute dtype (parameters stay float32);
         ``device=None`` means the GPU (see ``resolve_device``). Weights are
-        drawn on the CPU from a ``torch.Generator`` seeded with ``seed``."""
+        drawn on the CPU from a ``torch.Generator`` seeded with ``seed``.
+        ``solver_rtol``/``solver_atol`` control dopri5's error in
+        ``fast_forward``; the fixed-grid solvers ignore them."""
         super().__init__()
         device = resolve_device(device)
         g = torch.Generator().manual_seed(seed)
@@ -57,6 +61,8 @@ class ViTODE(nn.Module):
         self.time_interval = time_interval
         self.num_eval_steps = num_eval_steps
         self.solver = solver
+        self.solver_rtol = solver_rtol
+        self.solver_atol = solver_atol
         self.add_distillation_token = add_distillation_token
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
@@ -99,7 +105,9 @@ class ViTODE(nn.Module):
         if asked:
             raise NotImplementedError(f"{asked} are not ported yet")
         if self.solver == "dopri5":
-            raise NotImplementedError("dopri5 is not ported yet")
+            # as the flax model, whose ODEBlock integrates fixed grids only
+            raise NotImplementedError(
+                "forward integrates fixed grids; dopri5 runs in fast_forward")
         tokens = self.patch_embed(pixel_values)
         ts = self.make_time_grid() if t_grid is None else np.asarray(t_grid)
         final = odeint(lambda t, y: self.vf(y, t)[0], tokens, ts,
@@ -122,9 +130,11 @@ class ViTODE(nn.Module):
 
     @classmethod
     def base_224(cls, num_classes=100, **kw):
-        """The TS-Base distillation student."""
+        """The TS-Base distillation student (Euler on 36 points unless
+        ``solver``/``num_eval_steps`` say otherwise: served on 25)."""
         kw.setdefault("solver", "euler")
+        kw.setdefault("num_eval_steps", 36)
         return cls(img_size=224, patch_size=16, embed_dim=768, num_heads=12,
                    mlp_ratio=1.0, num_classes=num_classes, emulate_depth=12,
-                   time_interval=1.0, num_eval_steps=36,
-                   register_tokens=10, pos_embed_register_tokens=False, **kw)
+                   time_interval=1.0, register_tokens=10,
+                   pos_embed_register_tokens=False, **kw)

@@ -314,7 +314,7 @@ def test_tiled_struct_carries_the_drop():
     assert tiled._Args._fields_[-1] == ("drop", dropout.Drop)
     names = [n for n, _ in tiled._Args._fields_]
     assert names == [n for n, _ in targs]
-    assert {"ao", "gd2"} <= set(names)
+    assert {"ao", "gd2", "base", "dt"} <= set(names)
     drop = _c_fields((csrc / "vector_field.cu").read_text(), "Drop")
     kinds = {"unsigned": ctypes.c_uint32, "float": ctypes.c_float}
     assert [(n, kinds[k]) for n, k in drop] == dropout.Drop._fields_

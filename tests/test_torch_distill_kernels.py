@@ -224,3 +224,5 @@ def test_tiled_arguments_match_the_kernel_struct():
         ("Drop", "vf::Drop"))}[
         t.__name__]) for name, t in tiled._Args._fields_]
     assert fields == want
+    # the stage base and the step of the Euler and stage-advance modes
+    assert {("base", "ptr"), ("dt", "float")} <= set(fields)

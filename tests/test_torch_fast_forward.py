@@ -1,7 +1,9 @@
 """The port's serving path against the JAX package's: ``fast_forward``
 on the CPU (the kernel's plain version) vs the JAX ``fast_forward`` (the
-Pallas kernel in interpret mode), ``ViTODE.forward`` vs the flax model,
-and ``make_preprocess``."""
+Pallas kernel in interpret mode) on every route (Euler, rk4, the generic
+integrator, the chained Euler opt-in, dopri5), at a small shape and at the
+TS-Base token count; ``ViTODE.forward`` vs the flax model; and
+``make_preprocess`` with its bilinear resize."""
 
 import numpy as np
 import jax
@@ -28,8 +30,11 @@ def pair(solver, dtype=None, **extra):
     jm = JaxViTODE(dtype=jnp.bfloat16 if dtype else None, **kw)
     x = np.random.default_rng(0).standard_normal((4, 16, 16, 3)).astype(
         np.float32)
-    params = jax.device_get(jm.init(jax.random.PRNGKey(0),
-                                    jnp.asarray(x))["params"])
+    # the flax model integrates fixed grids only: a dopri5 model takes the
+    # parameters of its Euler twin
+    init = jm.clone(solver="euler") if solver == "dopri5" else jm
+    params = jax.device_get(init.init(jax.random.PRNGKey(0),
+                                      jnp.asarray(x))["params"])
     tm = ViTODE(dtype=torch.bfloat16 if dtype else None, device="cpu", **kw)
     tm.load_state_dict(from_jax_params(params))
     return jm, params, tm, x
@@ -97,23 +102,80 @@ def test_from_jax_params_fills_every_parameter():
     assert tuple(sd["patch_embed.proj_kernel"].shape) == (48, 32)  # [in, out]
 
 
-@pytest.mark.parametrize("case", ["dopri5", "chain", "forward_flag",
-                                  "not_vitode"])
-def test_unported_paths_raise(case, monkeypatch):
+@pytest.mark.parametrize("case", ["forward_flag", "not_vitode",
+                                  "forward_dopri5"])
+def test_unported_paths_raise(case):
     _, _, tm, x = pair("euler")
     x = torch.from_numpy(x)
     with pytest.raises(NotImplementedError):
-        if case == "dopri5":
-            tm.solver = "dopri5"
-            fast_forward(tm, x)
-        elif case == "chain":
-            # Euler on a uniform grid of 4 steps: JAX chains 4 per launch
-            monkeypatch.setenv("ODEVIT_EULER_CHAIN", "4")
-            fast_forward(tm, x)
-        elif case == "not_vitode":       # e.g. a Macaron model
+        if case == "not_vitode":         # e.g. a Macaron model
             fast_forward(tm.vf, x)
+        elif case == "forward_dopri5":
+            # the flax model integrates fixed grids only (its ODEBlock
+            # knows no dopri5); dopri5 runs in fast_forward
+            tm.solver = "dopri5"
+            tm(x)
         else:
             tm(x, output_attentions=True)
+
+
+@pytest.mark.parametrize("chain", ["2", "4"])
+def test_euler_chain_matches_jax_and_the_per_step_route(chain, monkeypatch):
+    """Euler on 4 uniform steps, chained 2 or 4 steps per launch: JAX's
+    chain (``_vf_euler_chain_kernel``, interpret mode) at f32, and bit for
+    bit the port's per-step route, at f32 and bf16."""
+    jm, params, tm, x = pair("euler")
+    xt = torch.from_numpy(x)
+    per_step = fast_forward(tm, xt)["logits"]
+    monkeypatch.setenv("ODEVIT_EULER_CHAIN", chain)
+    want = np.asarray(jax_fast_forward(jm, params, jnp.asarray(x),
+                                       block_b=4)["logits"])
+    got = fast_forward(tm, xt)["logits"]
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-3)
+    assert torch.equal(got, per_step)
+    _, _, tb, _ = pair("euler", dtype="bf16")
+    chained = fast_forward(tb, xt)["logits"]
+    monkeypatch.delenv("ODEVIT_EULER_CHAIN")
+    assert torch.equal(chained, fast_forward(tb, xt)["logits"])
+
+
+def test_dopri5_matches_jax_f32():
+    """dopri5 over one segment [0, 1] with the model's rtol/atol, against
+    JAX's route (``odeint_dopri5`` over the XLA twin) at f32."""
+    jm, params, tm, x = pair("dopri5")
+    assert (tm.solver_rtol, tm.solver_atol) == (jm.solver_rtol,
+                                                 jm.solver_atol)
+    want = np.asarray(jax_fast_forward(jm, params, jnp.asarray(x), block_b=4,
+                                       use_pallas=False)["logits"])
+    got = fast_forward(tm, torch.from_numpy(x))["logits"].numpy()
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-3)
+
+
+# the TS-Base student's token count (224 px, patch 16, 10 registers: 207
+# tokens padded to 208) at narrow widths
+TS_NARROW = dict(img_size=224, patch_size=16, embed_dim=64, num_heads=4,
+                 mlp_ratio=1.0, num_classes=7, emulate_depth=12,
+                 time_interval=1.0, num_eval_steps=4, register_tokens=10,
+                 pos_embed_register_tokens=False)
+
+
+@pytest.mark.parametrize("solver", ["euler", "rk4"])
+def test_fast_forward_at_the_ts_base_token_count(solver):
+    """The routes the 224 px student serves on (fused Euler, fused rk4
+    stage advance) at 207 tokens, B=2, f32, against JAX's fast_forward."""
+    kw = {**TS_NARROW, "solver": solver}
+    jm = JaxViTODE(**kw)
+    x = np.random.default_rng(3).standard_normal((2, 224, 224, 3)).astype(
+        np.float32)
+    params = jax.device_get(jm.init(jax.random.PRNGKey(1),
+                                    jnp.asarray(x))["params"])
+    tm = ViTODE(device="cpu", **kw)
+    tm.load_state_dict(from_jax_params(params))
+    assert tm.patch_embed.seq_len == 207
+    want = np.asarray(jax_fast_forward(jm, params, jnp.asarray(x),
+                                       block_b=2)["logits"])
+    got = fast_forward(tm, torch.from_numpy(x))["logits"].numpy()
+    np.testing.assert_allclose(got, want, atol=5e-4, rtol=5e-3)
 
 
 @pytest.mark.parametrize("solver,chain,grid", [
@@ -146,5 +208,33 @@ def test_make_preprocess_matches_jax():
                                   np.asarray(jax_preprocess(
                                       dtype=jnp.bfloat16)(jnp.asarray(u8))
                                       .astype(jnp.float32)))
-    with pytest.raises(NotImplementedError):
-        make_preprocess(image_size=16)(torch.from_numpy(u8))
+    # a size the images already have needs no resize
+    same = make_preprocess(image_size=8)(torch.from_numpy(u8))
+    assert torch.equal(same, got)
+
+
+@pytest.mark.parametrize("src", [32, 256, 300, 224])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_make_preprocess_resize_matches_jax(src, dtype):
+    """x/255, ``jax.image.resize(method="bilinear")`` to 224, normalize,
+    cast. float32: within 1e-4 of the normalized values (the resize agrees
+    to 2e-5 of [0, 1] at 300 -> 224, ~8e-5 after dividing by the std).
+    bfloat16: the same values rounded once, so a value next to a rounding
+    boundary may land one bf16 ulp (2^-7 relative) away, rarely."""
+    u8 = np.random.default_rng(src).integers(0, 256, (2, src, src, 3),
+                                             dtype=np.uint8)
+    want = np.asarray(jax_preprocess(image_size=224,
+                                     dtype=getattr(jnp, dtype))(
+        jnp.asarray(u8)).astype(jnp.float32))
+    got = make_preprocess(image_size=224, dtype=getattr(torch, dtype))(
+        torch.from_numpy(u8))
+    assert got.dtype == getattr(torch, dtype)
+    assert tuple(got.shape) == (2, 224, 224, 3) and got.is_contiguous()
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=2 ** -7)
+        assert (got != want).mean() < 1e-3
+    if src == 224:
+        np.testing.assert_array_equal(got, want)

@@ -45,6 +45,12 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "ok"
 
 
+def test_the_port_keeps_its_own_dopri5():
+    """The serving slice's adaptive integrator is the port's own copy
+    (checked above with every other module), not the JAX package's."""
+    assert "odevit_tpu_torch.core.adaptive" in port_modules()
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "odevit_tpu_torch"])
 def test_sources_name_no_jax_import(path):
     files = [ROOT / path] if path.endswith(".py") else sorted(

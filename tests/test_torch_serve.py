@@ -163,3 +163,26 @@ def test_engine_submit_close_race_resolves_future():
         fut.result(timeout=10)
     except RuntimeError as e:
         assert "engine closed" in str(e)
+
+
+def test_engine_at_the_ts_base_token_count():
+    """The 224 px student's shape (patch 16, 10 registers: 207 tokens
+    padded to 208) at narrow widths: uint8 requests through the engine's
+    preprocess with its resize step, against a direct ``fast_forward``."""
+    m = ViTODE(img_size=224, patch_size=16, embed_dim=64, num_heads=4,
+               mlp_ratio=1.0, num_classes=7, emulate_depth=12,
+               time_interval=1.0, num_eval_steps=3, solver="euler",
+               register_tokens=10, device="cpu", seed=0)
+    assert m.patch_embed.seq_len == 207
+    rng = np.random.default_rng(1)
+    pre = make_preprocess(image_size=224)
+    reqs = [rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+            for b in (1, 3)]
+    with ServingEngine(m, batch_buckets=(1, 4), preprocess=pre,
+                       max_delay_ms=0.5, device="cpu") as eng:
+        for u8 in reqs:
+            got = eng.submit(u8).result(timeout=120)
+            want = fast_forward(m, pre(torch.from_numpy(u8)))["logits"]
+            np.testing.assert_allclose(got, want.numpy(), atol=2e-5,
+                                       rtol=1e-4)
+        assert eng.stats()["images"] == 4
