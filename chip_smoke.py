@@ -63,8 +63,25 @@ Phases:
      phase 13 at the recipe's dropout 0.1 with ``rng=0``, through the
      tiled dropout instances and the plain path, beside phase 13's img/s;
   17. the tiled dropout instances alone at B=64;
-  18. the kernels line (launch counts of the main paths, times, bounds)
-     and the result line.
+  18. split backward vs plain: the ratio-4 student's shape (B=4, 197
+     tokens padded to 208, D=768, dh=3072) in bf16 and f32: the tiled
+     forward's modes at dh=3072, the split backward's MLP and attention
+     halves alone and chained through ``vf_bwd``, with each cotangent and
+     with and without dropout, against their plain twins; the split route
+     against the tiled route's backward (at ratio 1 too); repeats
+     bit-identical; NaN padding inert;
+  19. distillation at MLP ratio 4 (cell tsbase-r4-distill-b64-bf16): 3
+     steps of the student ``bench_distill`` builds (224 px uint8, Euler on
+     37 points, JaSMin k=2, supervised, B=64, bf16) through the kernels and
+     the plain path; every backward on the split route;
+  20. the ratio-4 kernels alone at B=64: the tiled forward at dh=3072, the
+     split halves and the pair, and the tiled backward at the same shape;
+  21. phases 19 and 20 at dropout 0.1 (cell
+     tsbase-r4-distill-drop0.1-b64-bf16, ``rng=0``);
+  then the serving slice at 224 px (``serve_224``,
+  ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
+  last, the kernels line (launch counts of the main paths, times, bounds)
+  and the result line.
 
 Exits non-zero, printing no result line, when a phase fails or when there
 is no CUDA device.
@@ -1118,12 +1135,13 @@ def attn_bound(b: int, n_real: int, d: int, dh: int, heads: int,
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
-def distill_case(b, dtype, kind, g):
-    """Inputs of one TS-Base evaluation: a padded state (with "ties", six
-    tokens copied from one), its cotangent, a JaSMin cotangent and a map
-    cotangent, zero on padded rows."""
+def distill_case(b, dtype, kind, g, n_real=207):
+    """Inputs of one TS-Base evaluation (``n_real`` tokens padded to 208):
+    a padded state (with "ties", six tokens copied from one), its
+    cotangent, a JaSMin cotangent and a map cotangent, zero on padded
+    rows."""
     import torch
-    n_real, n_pad, d, heads = 207, 208, 768, 12
+    n_pad, d, heads = 208, 768, 12
     x = torch.randn(b, n_pad, d, generator=g, device="cuda")
     if kind == "ties":
         x[:, 5:11] = x[:, 5:6]
@@ -1265,13 +1283,16 @@ def distill_student(drops=None):
                            device="cuda", seed=0, **rates)
 
 
-def distill_runs(teacher, images_u8, labels, drops=None):
+def distill_runs(teacher, images_u8, labels, drops=None,
+                 student_fn=None, recipe=None):
     """3 steps through the kernels and through the plain path from the same
     student weights, teacher and batch (with ``drops``, the student's
     dropout rates, and the same rng); then one more step of each split by
     CUDA events into teacher, student forward, backward and optimizer, and
-    one profiled step of the kernel path. Returns (runs, profile,
-    first-gradient cosine, loss differences, launches per step)."""
+    one profiled step of the kernel path. The student is ``student_fn``'s
+    (default the recipe's), the step's settings ``recipe`` (default
+    ``DISTILL_RECIPE``). Returns (runs, profile, first-gradient cosine,
+    loss differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1283,11 +1304,12 @@ def distill_runs(teacher, images_u8, labels, drops=None):
     # CLI does (odevit_tpu/cli/classification_ode_distillation.py:73-74)
     pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
     batch = {"pixel_values": images_u8, "labels": labels}
-    recipe = DISTILL_RECIPE
+    recipe = recipe or DISTILL_RECIPE
+    student_fn = student_fn or distill_student
     rng = DROP_RNG if drops else None
     runs = {}
     for path in ("kernels", "plain"):
-        model = distill_student(drops)
+        model = student_fn(drops)
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_distill_train_step(model, teacher,
                                             preprocess_fn=pre,
@@ -1398,6 +1420,39 @@ def phase_distill(teacher, images_u8, labels, rng):
     return k["launches"], runs
 
 
+def time_jobs(jobs, n_real: int, sfx: str = ""):
+    """Each job (name -> (fn(plain) -> outputs, (bound_ms, bound_by), the
+    Philox calls its masks take)) through the kernels against its plain
+    version (bf16 tolerance; rows >= n_real of [B, n, D] outputs cut),
+    then timed by CUDA events: 10 kernel runs, 2 plain runs. Returns the
+    kernels line's fields by name + ``sfx``."""
+    import torch
+    out = {}
+    for name, (fn, bound, calls) in jobs.items():
+        bound_ms, bound_by, unit = with_masks(bound, calls)
+        got, want = fn(False), fn(True)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs, abs_err = [], 0.0
+        for a, b_ in zip(got, want):
+            if a.dtype == torch.int32:
+                continue
+            real = a[:, :n_real] if a.dim() == 3 else a
+            ref = b_[:, :n_real] if b_.dim() == 3 else b_
+            errs.append(rel_err(real, ref))
+            abs_err = max(abs_err, (real.float() - ref.float()).abs()
+                          .max().item())
+        check(max(errs) <= TOL_BF16, f"{name}{sfx}: {errs}")
+        out[name + sfx] = {
+            "max_abs_err": abs_err, "rel_errs": errs,
+            "ms": cuda_ms(lambda: fn(False), iters=10),
+            "plain_ms": cuda_ms(lambda: fn(True), iters=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_unit": unit, "library_ms": None}
+    return out
+
+
 def phase_distill_kernel_timing(model, images_u8, drops=None):
     """Each tiled kernel alone at B=64 on the distillation path's first
     state (the patch-embedded images), against its plain version; with
@@ -1448,29 +1503,8 @@ def phase_distill_kernel_timing(model, images_u8, drops=None):
                                   g_attn=ga, plain=pl, **kw),
                 bwd_bound(b, n_real, d, dh, heads, 2,
                           map_cotangent=True))}
-        out = {}
-        for name, (fn, bound) in jobs.items():
-            bound_ms, bound_by, unit = with_masks(bound, calls)
-            got, want = fn(False), fn(True)
-            torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            errs, abs_err = [], 0.0
-            for a, b_ in zip(got, want):
-                if a.dtype == torch.int32:
-                    continue
-                real = a[:, :n_real] if a.dim() == 3 else a
-                ref = b_[:, :n_real] if b_.dim() == 3 else b_
-                errs.append(rel_err(real, ref))
-                abs_err = max(abs_err, (real.float() - ref.float()).abs()
-                              .max().item())
-            check(max(errs) <= TOL_BF16, f"B={b} {name}{sfx}: {errs}")
-            out[name + sfx] = {
-                "max_abs_err": abs_err, "rel_errs": errs,
-                "ms": cuda_ms(lambda: fn(False), iters=10),
-                "plain_ms": cuda_ms(lambda: fn(True), iters=2),
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "bound_unit": unit, "library_ms": None}
+        out = time_jobs({name: (fn, bound, calls)
+                         for name, (fn, bound) in jobs.items()}, n_real, sfx)
     launch_counts.update(before)           # comparisons do not count
     emit("distill_dropout_kernel_timing" if drops else
          "distill_kernel_timing", shape=f"B={b} n={n_real}/{x.shape[1]} "
@@ -1647,6 +1681,361 @@ def phase_distill_dropout(teacher, images_u8, labels, det):
     check_train("distill_dropout", runs, cos, loss_rel, per_step,
                 DISTILL_DROP_LAUNCHES)
     return k["launches"]
+
+# --- the ratio-4 student: the split backward ----------------------------
+
+# JAX's headline distillation cell (benchmarks/train_speed.py:100-161,
+# tsbase_b64): the student at MLP ratio 4 (dh=3072), no registers (197
+# tokens padded to 208), Euler on 37 points; JaSMin k=2, lambda 0.5, the
+# full-path MSE, supervised, the step's default temperature; 224 px uint8
+# fed as it is
+R4_RECIPE = dict(lambda_param=0.5, jasmin_k=DISTILL_K, temperature=30.0,
+                 use_kl_loss=False, mse_full_path=True)
+# per step: 5 plain evaluations, 30 in the JaSMin window, the final one
+# with its maps, and 36 backwards on the split route (one launch of each
+# half per backward)
+R4_LAUNCHES = {"vf_eval_tiled": 5, "vf_eval_jasmin_tiled": 30,
+               "vf_eval_attn": 1, "vf_bwd_split": 36, "vf_bwd_mlp": 36,
+               "vf_bwd_attn": 36}
+R4_DROP_LAUNCHES = {f"{k}_drop": v for k, v in R4_LAUNCHES.items()}
+BWD_NAMES = ("x", "norm_attn_scale", "norm_attn_bias", "norm_mlp_scale",
+             "norm_mlp_bias", "wqkv", "wout", "w1", "w2")
+
+
+def r4_student(drops=None):
+    """The ratio-4 TS-Base student as ``bench_distill`` builds it, bf16,
+    from seed 0; with ``drops``, at those attn/proj/mlp dropout rates."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), drops or ()))
+    return ViTODE(img_size=224, patch_size=16, embed_dim=768, num_heads=12,
+                  mlp_ratio=4.0, num_classes=100, emulate_depth=12.0,
+                  time_interval=1.0, num_eval_steps=37, solver="euler",
+                  register_tokens=0, dtype=torch.bfloat16, device="cuda",
+                  seed=0, **rates)
+
+
+def mlp_bwd_bound(b: int, n_real: int, d: int, dh: int, itemsize: int):
+    """(bound_ms, bound_by) of the MLP half: h1 recomputed, h_bar, m_bar
+    and the two weight products (10 R D dh at the real token count) over
+    the bf16 peak, against x and g in, x_bar_m (f32) out, W1 and W2 in and
+    their f32 cotangents out, over the memory rate."""
+    flops = 10 * b * n_real * d * dh
+    nbytes = ((2 * b * n_real * d + 2 * d * dh) * itemsize
+              + (b * n_real * d + 2 * d * dh + 2 * d) * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def attn_bwd_bound(b: int, n_real: int, d: int, heads: int, itemsize: int,
+                   map_cotangent: bool = False):
+    """(bound_ms, bound_by) of the attention half: qkv recomputed, cb,
+    a_bar and the two weight products (22 R D^2) and the six attention
+    products (12 n^2 D an image) over the bf16 peak, against x, g and
+    x_bar_m (f32) in, x_bar out, Wqkv and Wout in and their f32
+    cotangents out, the JaSMin cotangent and columns (with
+    ``map_cotangent`` also the maps'), over the memory rate."""
+    flops = b * (22 * n_real * d * d + 12 * n_real * n_real * d)
+    nbytes = ((3 * b * n_real * d + 4 * d * d) * itemsize
+              + (b * n_real * d + 4 * d * d + 2 * d) * 4
+              + b * heads * n_real * (5 + 4) * 4)
+    if map_cotangent:
+        nbytes += b * heads * n_real * n_real * itemsize
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def phase_split_kernels_vs_plain(model, ratio1):
+    """The ratio-4 shape at B=4 (197 tokens padded to 208, D=768, 12
+    heads, dh=3072) in bf16 and f32: the tiled forward in its plain, JaSMin
+    and map modes, each with and without dropout, against their plain
+    versions; the split backward's halves, each alone (the attention half
+    fed the plain MLP half's x_bar_m), and the pair through ``vf_bwd``,
+    with g, g_jas and g_attn, with and without dropout, against their
+    plain twins; the split route against the tiled route's backward on the
+    same inputs; repeats bit-identical; NaN padding inert. At ratio 1
+    (``ratio1``, 207 tokens) the split functions, called directly, against
+    the tiled route that ``vf_bwd`` takes there."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import drop_spec
+    from odevit_tpu_torch.kernels.tiled import tiled_backward
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import (_split_bars,
+                                                           vf_bwd,
+                                                           weight_splits)
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import (
+        split_route, vf_bwd_attn, vf_bwd_mlp, vf_bwd_split)
+    b, n_real, n_pad, d, dh = 4, model.patch_embed.seq_len, 208, 768, 3072
+    check(n_real == 197 and split_route(d, dh) and not split_route(d, d),
+          f"the ratio-4 student has 197 tokens and takes the split route")
+    kw = dict(num_heads=12, scaler=model.vf.scaler, n_real=n_real)
+    mkw = dict(scaler=model.vf.scaler, n_real=n_real)
+    dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    before = dict(launch_counts)
+    results = []
+
+    def routed(counts):
+        return {k: launch_counts[k] - counts[k] for k in counts
+                if launch_counts[k] != counts[k]}
+
+    def errs_of(names, got, want, n):
+        return {nm: rel_err(a[:, :n] if a.dim() == 3 else a,
+                            b_[:, :n] if b_.dim() == 3 else b_)
+                for nm, a, b_ in zip(names, got, want)}
+
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w = model.vf.kernel_weights(dtype)
+        x, gx, gj, ga = distill_case(b, dtype, "random", g, n_real=n_real)
+        r = {"dtype": str(dtype), "tol": tol,
+             "shape": f"B={b} n={n_real}/{n_pad} D=768 H=12 dh={dh}"}
+        idx = None
+        for dname, drop in (("det", {}), ("drop", dkw)):
+            sfx = "" if not drop else "_drop"
+            counts = dict(launch_counts)
+            dx = vf_eval(x, w, **kw, **drop)
+            jdx, st, jidx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw, **drop)
+            adx, amap = vf_eval_attn(x, w, **kw, **drop)
+            torch.cuda.synchronize()
+            got = routed(counts)
+            check(got == {"vf_eval_tiled" + sfx: 1,
+                          "vf_eval_jasmin_tiled" + sfx: 1,
+                          "vf_eval_attn" + sfx: 1},
+                  f"the dh=3072 forward ({dname}) took {got}")
+            pdx = vf_eval(x, w, plain=True, **kw, **drop)
+            pjdx, pst, _ = vf_eval_jasmin(x, w, jas_k=DISTILL_K, plain=True,
+                                          **kw, **drop)
+            _, pmap = vf_eval_attn(x, w, plain=True, **kw, **drop)
+            r["fwd_" + dname] = {
+                "plain_dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                "jasmin_dx": rel_err(jdx[:, :n_real], pjdx[:, :n_real]),
+                "jasmin_stats": rel_err(st[..., :n_real], pst[..., :n_real]),
+                "attn_dx": rel_err(adx[:, :n_real], pdx[:, :n_real]),
+                "attn_map": rel_err(amap, pmap)}
+            check(max(r["fwd_" + dname].values()) <= tol,
+                  f"dh=3072 fwd {dtype} {dname}: {r['fwd_' + dname]}")
+            idx = jidx if idx is None else idx
+            # the MLP half alone, once: it is the same for every cotangent
+            counts = dict(launch_counts)
+            m = vf_bwd_mlp(x, w, gx, **mkw, **drop)
+            m2 = vf_bwd_mlp(x, w, gx, **mkw, **drop)
+            pm = vf_bwd_mlp(x, w, gx, plain=True, **mkw, **drop)
+            torch.cuda.synchronize()
+            check(routed(counts) == {"vf_bwd_mlp" + sfx: 2},
+                  f"the MLP half ({dname}) took {routed(counts)}")
+            r["mlp_" + dname] = errs_of(
+                ("xbar_m", "w1", "w2", "norm_mlp_scale", "norm_mlp_bias"),
+                m, pm, n_real)
+            r["mlp_repeat_bit_identical_" + dname] = all(
+                torch.equal(a, c) for a, c in zip(m, m2))
+            check(max(r["mlp_" + dname].values()) <= tol,
+                  f"split MLP half {dtype} {dname}: {r['mlp_' + dname]}")
+            check(r["mlp_repeat_bit_identical_" + dname],
+                  f"split MLP half {dtype} {dname} not repeatable")
+            for case, extra in (("g", {}),
+                                ("g_jas", dict(g_jas=gj, jas_idx=idx)),
+                                ("g_attn", dict(g_attn=ga))):
+                key = f"{case}_{dname}"
+                counts = dict(launch_counts)
+                a = vf_bwd_attn(x, w, gx, pm[0], **kw, **drop, **extra)
+                pa = vf_bwd_attn(x, w, gx, pm[0], plain=True, **kw, **drop,
+                                 **extra)
+                got = vf_bwd(x, w, gx, **kw, **drop, **extra)
+                again = vf_bwd(x, w, gx, **kw, **drop, **extra)
+                torch.cuda.synchronize()
+                routes = routed(counts)
+                check(routes == {"vf_bwd_attn" + sfx: 3,
+                                 "vf_bwd_mlp" + sfx: 2,
+                                 "vf_bwd_split" + sfx: 2},
+                      f"the split backward ({key}) took {routes}")
+                want = vf_bwd(x, w, gx, plain=True, **kw, **drop, **extra)
+                xbar, wbars = tiled_backward(
+                    x, w, gx, splits=weight_splits(b * n_pad, d, dh),
+                    drop=drop_spec(drop.get("seed"),
+                                   drop.get("drops", (0.0, 0.0, 0.0))),
+                    g_jas=extra.get("g_jas"), jas_idx=extra.get("jas_idx"),
+                    g_attn=extra.get("g_attn"), **kw)
+                tiled = _split_bars(xbar, wbars, d, dh)
+                torch.cuda.synchronize()
+                r["attn_" + key] = errs_of(
+                    ("x", "norm_attn_scale", "norm_attn_bias", "wqkv",
+                     "wout"), a, pa, n_real)
+                r["pair_" + key] = errs_of(BWD_NAMES, got, want, n_real)
+                r["split_vs_tiled_" + key] = errs_of(BWD_NAMES, got, tiled,
+                                                      n_real)
+                same = all(torch.equal(p, q) for p, q in zip(got, again))
+                r["repeat_bit_identical_" + key] = same
+                for part in ("attn_", "pair_", "split_vs_tiled_"):
+                    check(max(r[part + key].values()) <= tol,
+                          f"split {part}{dtype} {key}: {r[part + key]}")
+                check(same, f"split backward {dtype} {key} not repeatable")
+        # NaN and garbage in padded rows (and in the padded rows and keys
+        # of the map cotangent) change no real row
+        dirty = x.clone()
+        dirty[:, n_real:] = float("nan")
+        gdirty = gx.clone()
+        gdirty[:, n_real:] = 1e30
+        adirty = ga.clone()
+        adirty[:, :, n_real:] = float("nan")
+        adirty[..., n_real:] = 7.0
+        for drop in ({}, dkw):
+            nbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx,
+                           g_attn=adirty, **kw, **drop)
+            cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, g_attn=ga, **kw,
+                           **drop)
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(nbars, cbars))
+            r["nan_padding_unchanged" + ("_drop" if drop else "")] = same
+            check(same, f"split {dtype}: padded rows reached a real row")
+        # ratio 1 (207 tokens): the split functions against the tiled route
+        w_r1 = ratio1.vf.kernel_weights(dtype)
+        n1 = ratio1.patch_embed.seq_len
+        x1, gx1, gj1, ga1 = distill_case(b, dtype, "random", g, n_real=n1)
+        k1 = dict(kw, n_real=n1)
+        _, _, idx1 = vf_eval_jasmin(x1, w_r1, jas_k=DISTILL_K, **k1)
+        for drop in ({}, dkw):
+            extra = dict(g_jas=gj1, jas_idx=idx1, g_attn=ga1)
+            counts = dict(launch_counts)
+            tiled = vf_bwd(x1, w_r1, gx1, **k1, **drop, **extra)
+            split = vf_bwd_split(x1, w_r1, gx1, **k1, **drop, **extra)
+            torch.cuda.synchronize()
+            sfx = "_drop" if drop else ""
+            check(routed(counts).get("vf_bwd_tiled" + sfx) == 1,
+                  f"ratio 1 did not take the tiled route: {routed(counts)}")
+            key = "ratio1_split_vs_tiled" + sfx
+            r[key] = errs_of(BWD_NAMES, split, tiled, n1)
+            check(max(r[key].values()) <= tol, f"{key} {dtype}: {r[key]}")
+        results.append(r)
+    launch_counts.update(before)           # comparisons do not count
+    emit("split_kernels_vs_plain", results=results)
+
+
+def phase_distill_r4(teacher, images_u8, labels, drops=None, det=None):
+    """Cell tsbase-r4-distill-b64-bf16 (with ``drops``:
+    tsbase-r4-distill-drop0.1-b64-bf16, ``rng=0``, beside the drop-0
+    cell's img/s ``det``): 3 steps of the ratio-4 student through the
+    kernels and through the plain path from the same weights, on 224 px
+    uint8 images fed as they are; every backward on the split route."""
+    runs, profile, cos, loss_rel, per_step = distill_runs(
+        teacher, images_u8, labels, drops, student_fn=r4_student,
+        recipe=R4_RECIPE)
+    k, p = runs["kernels"], runs["plain"]
+    name = "distill_r4_dropout" if drops else "distill_r4"
+    emit(name + "_profile", **profile)
+    emit(name, cell=("tsbase-r4-distill-drop0.1-b64-bf16" if drops
+                     else "tsbase-r4-distill-b64-bf16"),
+         batch=DISTILL_BATCH, input="uint8 224x224", steps=TRAIN_STEPS,
+         solver="euler-37", jasmin_k=DISTILL_K, drops=drops,
+         rng=DROP_RNG if drops else None,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
+         drop0_img_per_s=det["kernels"]["img_per_s"] if det else None,
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train(name, runs, cos, loss_rel, per_step,
+                R4_DROP_LAUNCHES if drops else R4_LAUNCHES)
+    return k["launches"], runs
+
+
+def phase_distill_r4_kernel_timing(model, images_u8, drops=None):
+    """At B=64 on the ratio-4 path's first state: the tiled forward's
+    modes at dh=3072, the split backward's halves and the pair, and the
+    tiled route's backward at the same shape (the TPU's split-or-combined
+    trade-off, measured on this card), each against its plain version;
+    with ``drops``, the dropout instances, bounds counting the masks."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import drop_spec
+    from odevit_tpu_torch.kernels.tiled import tiled_backward
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import (_split_bars,
+                                                           vf_bwd,
+                                                           vf_bwd_plain,
+                                                           weight_splits)
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import (vf_bwd_attn,
+                                                                 vf_bwd_mlp)
+    before = dict(launch_counts)
+    b, d, dh, heads = DISTILL_BATCH, 768, 3072, 12
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            image_size=224, dtype=torch.bfloat16)(images_u8))
+        n_real = tokens.shape[1]
+        n_pad = pad_tokens(n_real)
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, n_pad - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        dkw = dict(seed=DROP_SEEDS[2], drops=drops) if drops else {}
+        mkw = dict(scaler=model.vf.scaler, n_real=n_real, **dkw)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        _, _, idx = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw)
+        gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                         device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        _, amap = vf_eval_attn(x, w, **kw)
+        ga = (torch.randn(amap.shape, generator=g, device="cuda")
+              * 1e-3).to(torch.bfloat16)
+        cot = dict(g_jas=gj, jas_idx=idx, g_attn=ga)
+        xbar_m = vf_bwd_mlp(x, w, gx, **mkw)[0]
+        c4 = lambda v: -(-v // 4)
+        calls_mlp = b * n_real * (c4(dh) + c4(d)) if drops else 0
+        calls_attn = (b * n_real * (c4(d) + heads * c4(n_real))
+                      if drops else 0)
+        splits = weight_splits(b * n_pad, d, dh)
+
+        def tiled(pl):
+            if pl:
+                return vf_bwd_plain(x, w, gx, **kw, **dkw, **cot)
+            xbar, wbars = tiled_backward(
+                x, w, gx, splits=splits, drop=drop_spec(
+                    dkw.get("seed"), drops or (0.0, 0.0, 0.0)), **kw, **cot)
+            return _split_bars(xbar, wbars, d, dh)
+
+        jobs = {
+            "vf_eval_tiled": (lambda pl: vf_eval(x, w, plain=pl, **kw, **dkw),
+                              vf_bound(b, n_real, d, dh, 2),
+                              calls_mlp + calls_attn),
+            "vf_eval_jasmin_tiled": (
+                lambda pl: vf_eval_jasmin(x, w, jas_k=DISTILL_K, plain=pl,
+                                          **kw, **dkw),
+                jasmin_bound(b, n_real, d, dh, heads, 2, DISTILL_K + 1),
+                calls_mlp + calls_attn),
+            "vf_eval_attn": (
+                lambda pl: vf_eval_attn(x, w, plain=pl, **kw, **dkw),
+                attn_bound(b, n_real, d, dh, heads, 2),
+                calls_mlp + calls_attn),
+            "vf_bwd_mlp": (lambda pl: vf_bwd_mlp(x, w, gx, plain=pl, **mkw),
+                           mlp_bwd_bound(b, n_real, d, dh, 2), calls_mlp),
+            "vf_bwd_attn": (
+                lambda pl: vf_bwd_attn(x, w, gx, xbar_m, plain=pl, **kw,
+                                       **dkw, **cot),
+                attn_bwd_bound(b, n_real, d, heads, 2, map_cotangent=True),
+                calls_attn),
+            "vf_bwd_split": (
+                lambda pl: vf_bwd(x, w, gx, plain=pl, **kw, **dkw, **cot),
+                bwd_bound(b, n_real, d, dh, heads, 2, map_cotangent=True),
+                calls_mlp + calls_attn),
+            "vf_bwd_tiled": (tiled, bwd_bound(b, n_real, d, dh, heads, 2,
+                                              map_cotangent=True),
+                             calls_mlp + calls_attn)}
+        out = time_jobs(jobs, n_real, "_drop" if drops else "")
+    launch_counts.update(before)           # comparisons do not count
+    emit("distill_r4_dropout_kernel_timing" if drops else
+         "distill_r4_kernel_timing", shape=f"B={b} n={n_real}/{n_pad} "
+         f"D=768 H=12 dh={dh} bf16", drops=drops, results=out)
+    return out
+
 
 # --- serving slice: the 224 px student, the chained Euler kernel ---------
 
@@ -2039,7 +2428,19 @@ def main() -> int:
                                            distill)
     ddrop_timing = phase_distill_kernel_timing(student, images_d,
                                                DROP_RATES)
-    del teacher, student
+    # JAX's headline distillation cell: the ratio-4 student, whose
+    # backward takes the split route, fed 224 px images
+    r4 = r4_student()
+    phase_split_kernels_vs_plain(r4, student)
+    images_r4 = torch.from_numpy(rng_d.integers(
+        0, 256, (DISTILL_BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+    r4_launches, r4_runs = phase_distill_r4(teacher, images_r4, labels_d)
+    r4_timing = phase_distill_r4_kernel_timing(r4, images_r4)
+    r4_drop_launches, _ = phase_distill_r4(teacher, images_r4, labels_d,
+                                           DROP_RATES, r4_runs)
+    r4_drop_timing = phase_distill_r4_kernel_timing(r4, images_r4,
+                                                    DROP_RATES)
+    del teacher, student, r4
     # the serving slice at 224 px, and the chained Euler kernel
     rng_s = np.random.default_rng(2)
     x224, serve224, students = phase_serve_224(rng_s)
@@ -2117,7 +2518,18 @@ def main() -> int:
         **{k: v for k, v in chain_timing.items()
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}})
-    check(len(kernels) == 18, f"{len(kernels)} kernels in the line")
+    split_timing = {**r4_timing, **r4_drop_timing}
+    for name, line in (("vf_bwd_mlp", 350), ("vf_bwd_attn", 432)):
+        for sfx, launches in (("", r4_launches), ("_drop", r4_drop_launches)):
+            kernels.append({
+                "name": name + sfx, "route": "cuda",
+                "source": "odevit_tpu_torch/csrc/vector_field_bwd_split.cu",
+                "replaces": f"odevit_tpu/kernels/vector_field_bwd.py:{line}",
+                "launches": launches[name + sfx],
+                **{k: v for k, v in split_timing[name + sfx].items()
+                   if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "bound_unit", "library_ms")}})
+    check(len(kernels) == 22, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -335,21 +335,24 @@ __device__ __forceinline__ void gemm_fetch(const GemmArgs& g, int p, int k0,
   }
 }
 
-template <bool BT, bool kDrop>
-__global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
-  __shared__ __align__(128) bf16 As[kBM * kLdA];
-  __shared__ __align__(128) bf16 Bs[kBM * kLdA];  // >= kBK * kLdB
-  __shared__ __align__(128) float ep[kGThreads / 32][16 * kLdE];
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+// The 128x128 output tile at (m0, n0) of the product g into the
+// accumulators c of this warp (rows wm 64 + 16 i, columns wn 32 + 16 j,
+// wm = warp / 4, wn = warp % 4), staged through As and Bs (kBM * kLdA
+// elements each). Ends with a barrier: As and Bs are free again.
+template <bool BT>
+__device__ __forceinline__ void gemm_mainloop(const GemmArgs& g, int m0,
+                                              int n0, bf16* As, bf16* Bs,
+                                              Acc (&c)[4][2]) {
   using BLayout =
       typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   const int nk0 = (g.k[0] + kBK - 1) / kBK;
   const int nk1 = g.pairs > 1 ? (g.k[1] + kBK - 1) / kBK : 0;
   const int steps = nk0 + nk1;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[4][2];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -395,6 +398,18 @@ __global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
     }
     __syncthreads();
   }
+}
+
+template <bool BT, bool kDrop>
+__global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
+  __shared__ __align__(128) bf16 As[kBM * kLdA];
+  __shared__ __align__(128) bf16 Bs[kBM * kLdA];  // >= kBK * kLdB
+  __shared__ __align__(128) float ep[kGThreads / 32][16 * kLdE];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 4, wn = warp % 4;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  Acc c[4][2];
+  gemm_mainloop<BT>(g, m0, n0, As, Bs, c);
 
   float* sc = ep[warp];
 #pragma unroll
@@ -1046,6 +1061,37 @@ int forward(const TiledArgs& t, cudaStream_t st) {
   return gemm<T, false>(o, st);
 }
 
+// The first `count` weight products of ps (A^T G over the B n_pad rows,
+// t.splits slices of rows, into t.wpart), then the fixed-order reduce of
+// their partials and of the per-image norm partials (t.npart, `nlen`
+// floats an image) into t.wbars: the products' cotangents in order, then
+// the norms'.
+template <typename T>
+int weight_bars(Problems ps, int count, const TiledArgs& t, int nlen,
+                cudaStream_t st) {
+  const int R = t.batch * t.n_pad;
+  ps.total = 0;
+  int ntiles = 0;
+  for (int i = 0; i < count; ++i) {
+    const Problem& p = ps.p[i];
+    ps.total += (size_t)p.m * p.n;
+    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
+  }
+  ps.rows = R;
+  ps.rows_per_split = (R + t.splits - 1) / t.splits;
+  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
+  const dim3 grid(ntiles, t.splits);
+  if (sizeof(T) == 2)
+    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
+  else
+    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
+  VFT_CHECK((int)cudaGetLastError());
+  const size_t all = ps.total + (size_t)nlen;
+  vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
+      t.wpart, t.splits, ps.total, t.npart, t.batch, nlen, t.wbars);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int backward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh, hd = d / t.heads;
@@ -1105,23 +1151,7 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   ps.p[1] = {t.ctx, gda, d, d, (size_t)3 * d * d};
   ps.p[2] = {t.cnm, t.h1b, d, dh, (size_t)4 * d * d};
   ps.p[3] = {t.h, t.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
-  ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
-  ps.rows = R;
-  ps.rows_per_split = (R + t.splits - 1) / t.splits;
-  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-  int ntiles = 0;
-  for (const Problem& p : ps.p)
-    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
-  const dim3 grid(ntiles, t.splits);
-  if (sizeof(T) == 2)
-    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
-  else
-    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
-  VFT_CHECK((int)cudaGetLastError());
-  const size_t all = ps.total + (size_t)4 * d;
-  vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
-      t.wpart, t.splits, ps.total, t.npart, t.batch, 4 * d, t.wbars);
-  return (int)cudaGetLastError();
+  return weight_bars<T>(ps, 4, t, 4 * d, st);
 }
 
 bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
@@ -1131,6 +1161,10 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 }
 
 }  // namespace vft
+
+// vector_field_bwd_split.cu includes this file with VFT_KERNELS_ONLY for
+// its kernels and launch helpers; it has entry points of its own.
+#ifndef VFT_KERNELS_ONLY
 
 extern "C" {
 
@@ -1184,3 +1218,5 @@ const char* vft_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // VFT_KERNELS_ONLY

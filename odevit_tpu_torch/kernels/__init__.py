@@ -23,7 +23,11 @@ launch_counts: Dict[str, int] = {
     "vf_eval_attn_drop": 0, "vf_bwd_tiled_drop": 0,
     # serving: the tiled route's Euler and stage-advance modes, and the
     # chained Euler instance of csrc/vector_field.cu
-    "vf_eval_euler_tiled": 0, "vf_eval_base_tiled": 0, "vf_euler_chain": 0}
+    "vf_eval_euler_tiled": 0, "vf_eval_base_tiled": 0, "vf_euler_chain": 0,
+    # the split backward (csrc/vector_field_bwd_split.cu): its two halves,
+    # and the route's chained backwards, each with its dropout instance
+    "vf_bwd_mlp": 0, "vf_bwd_attn": 0, "vf_bwd_split": 0,
+    "vf_bwd_mlp_drop": 0, "vf_bwd_attn_drop": 0, "vf_bwd_split_drop": 0}
 _count_lock = threading.Lock()
 
 

@@ -17,10 +17,13 @@ cotangents (x_bar in x's dtype; the norms' and weights' in float32):
 Rows ``>= n_real`` of ``x`` and ``g`` are read as zeros and those of
 ``x_bar`` are zeros, so nothing a padded row holds reaches a cotangent.
 
-Routes: without ``g_attn``, where one image fits one CTA (``bwd_plan``),
+Routes: where D >= 512 and dh >= 4 D (TS-Base at MLP ratio 4), the split
+route of ``vector_field_bwd_split.py`` runs, one MLP-branch and one
+attention-branch backward, on the GPU and in its plain twins on the CPU.
+Elsewhere, without ``g_attn``, where one image fits one CTA (``bwd_plan``),
 the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
-no such plan exists (the 224 px TS-Base shape), the tiled route of
-``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
+no such plan exists (the 224 px TS-Base shape at ratio 1), the tiled route
+of ``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
 
 Dropout: ``seed`` and ``drops`` as the forward took them; the masks are
 drawn again (``kernels/dropout.py``), never saved. On the GPU the kernels'
@@ -73,37 +76,27 @@ def _jas_pbar(pb, g_jas, jas_idx, n_real: int):
     return torch.where(query, t, torch.zeros((), device=pb.device))
 
 
-def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
-                 n_real: int, g_jas=None, jas_idx=None, g_attn=None,
-                 seed=None, drops=(0.0, 0.0, 0.0)):
-    """The kernels' arithmetic in plain PyTorch: the forward recomputed,
-    then the MLP, attention and CenterNorm backward, rounding to x's
-    dtype where the TPU kernel rounds. With dropout, the forward's masks
-    are drawn again and applied where the XLA twin's vjp applies them:
-    g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
-    is rounded before and after its mask, as in the forward."""
-    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
-    b, n, d = x.shape
-    hd = d // num_heads
-    tau = hd ** -0.5
-    dtype = x.dtype
-    mask_h, mask_mo, mask_ao, mask_p = masks_plain(
-        b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
-        device=x.device, n_pad=n) or (None,) * 4
+def bwd_inputs(x, g, *, scaler: float, n_real: int):
+    """(real-row mask [n, 1], cent = (x - mean) d/(d-1), g * scaler): the
+    last two float32, with rows >= n_real read as zeros; what both branches
+    of the backward start from."""
+    d = x.shape[-1]
     zero = torch.zeros((), device=x.device)
-    row = (torch.arange(n, device=x.device) < n_real)[:, None]
+    row = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
     xf = torch.where(row, x.float(), zero)
     cent = (xf - xf.mean(-1, keepdim=True)) * (d / (d - 1.0))
-    cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
+    return row, cent, torch.where(row, g.float() * scaler, zero)
+
+
+def mlp_bars(x, w: VFWeights, cent, gf, mask_h=None, mask_mo=None):
+    """The MLP branch's backward in plain PyTorch: (m_bar [B, n, D] f32,
+    W1_bar, W2_bar), rounding where the TPU kernel rounds; the masks are
+    the forward's (None without dropout)."""
+    b, n, _ = x.shape
+    dtype = x.dtype
     cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
-    gf = torch.where(row, g.float() * scaler, zero)
     gd = (gf if mask_mo is None else gf * mask_mo).to(dtype)
-    gda = (gf if mask_ao is None else gf * mask_ao).to(dtype)
-
-    def t2(a):                      # [b, n, c] -> [b*n, c]
-        return a.reshape(b * n, a.shape[-1])
-
-    # MLP
+    t2 = lambda a: a.reshape(b * n, a.shape[-1])
     h1 = dot32(cn_m, w.w1)
     h = torch.nn.functional.gelu(h1).to(dtype)
     h_bar = dot32(gd, w.w2.T)
@@ -112,10 +105,24 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         h_bar = h_bar * mask_h
     h1_bar = (h_bar * _gelu_grad(h1)).to(dtype)
     m_bar = dot32(h1_bar, w.w1.T)
-    w2_bar = dot32(t2(h).T, t2(gd))
-    w1_bar = dot32(t2(cn_m).T, t2(h1_bar))
+    return m_bar, dot32(t2(cn_m).T, t2(h1_bar)), dot32(t2(h).T, t2(gd))
 
-    # attention
+
+def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
+              n_real: int, g_jas=None, jas_idx=None, g_attn=None,
+              mask_ao=None, mask_p=None):
+    """The attention branch's backward in plain PyTorch: (a_bar [B, n, D]
+    f32, Wqkv_bar, Wout_bar). g * scaler * mask_ao is its cotangent
+    operand, and p is rounded before and after its mask, as in the
+    forward."""
+    b, n, d = x.shape
+    hd = d // num_heads
+    tau = hd ** -0.5
+    dtype = x.dtype
+    zero = torch.zeros((), device=x.device)
+    cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
+    gda = (gf if mask_ao is None else gf * mask_ao).to(dtype)
+    t2 = lambda a: a.reshape(b * n, a.shape[-1])
     qkv = dot32(cn_a, w.wqkv).to(dtype)
     q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
     key = torch.arange(n, device=x.device) < n_real
@@ -149,15 +156,35 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     k_bar = dot32(s_bar.transpose(-1, -2),
                   (q.float() * tau).to(dtype)).to(dtype)
     qkv_bar = torch.cat([merge(q_bar), merge(k_bar), merge(v_bar)], -1)
-    a_bar = dot32(qkv_bar, w.wqkv.T)
-    wqkv_bar = dot32(t2(cn_a).T, t2(qkv_bar))
-    wout_bar = dot32(t2(ctx).T, t2(gda))
+    return (dot32(qkv_bar, w.wqkv.T), dot32(t2(cn_a).T, t2(qkv_bar)),
+            dot32(t2(ctx).T, t2(gda)))
 
+
+def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
+                 n_real: int, g_jas=None, jas_idx=None, g_attn=None,
+                 seed=None, drops=(0.0, 0.0, 0.0)):
+    """The kernels' arithmetic in plain PyTorch: the forward recomputed,
+    then the MLP, attention and CenterNorm backward, rounding to x's
+    dtype where the TPU kernel rounds. With dropout, the forward's masks
+    are drawn again and applied where the XLA twin's vjp applies them:
+    g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
+    is rounded before and after its mask, as in the forward."""
+    _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
+    b, n, d = x.shape
+    mask_h, mask_mo, mask_ao, mask_p = masks_plain(
+        b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
+        device=x.device, n_pad=n) or (None,) * 4
+    row, cent, gf = bwd_inputs(x, g, scaler=scaler, n_real=n_real)
+    m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo)
+    a_bar, wqkv_bar, wout_bar = attn_bars(
+        x, w, cent, gf, row, num_heads=num_heads, n_real=n_real,
+        g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, mask_ao=mask_ao,
+        mask_p=mask_p)
     # CenterNorm
     c_bar = a_bar * w.norm_attn_scale + m_bar * w.norm_mlp_scale
     x_bar = (d / (d - 1.0)) * (c_bar - c_bar.mean(-1, keepdim=True))
-    x_bar = torch.where(row, x_bar, zero).to(dtype)
-    return (x_bar, (a_bar * cent).sum((0, 1)), a_bar.sum((0, 1)),
+    x_bar = torch.where(row, x_bar, torch.zeros((), device=x.device))
+    return (x_bar.to(x.dtype), (a_bar * cent).sum((0, 1)), a_bar.sum((0, 1)),
             (m_bar * cent).sum((0, 1)), m_bar.sum((0, 1)),
             wqkv_bar, wout_bar, w1_bar, w2_bar)
 
@@ -180,6 +207,19 @@ def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                                  f"expected {shape}")
+
+
+def check_operands(x, **tensors):
+    """Device, dtype and layout of a backward kernel's other inputs: name
+    -> (tensor or None, the dtype the kernel takes)."""
+    for name, (t, dtype) in tensors.items():
+        if t is None:
+            continue
+        if t.device != x.device or t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype} on {t.device}, the kernel "
+                            f"takes {dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
 
 
 class _Args(ctypes.Structure):
@@ -241,12 +281,14 @@ def has_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return True
 
 
-def weight_splits(rows: int, d: int, dh: int) -> int:
-    """Slices of rows the weight products are split into: enough CTAs for
-    about four per SM, each slice at least 256 rows. Fixed by the shape,
-    so the reduction order, and the result, are the same every run."""
+def weight_splits(rows: int, d: int, dh: int, shapes=None) -> int:
+    """Slices of rows the weight products (``shapes``, default all four)
+    are split into: enough CTAs for about four per SM, each slice at least
+    256 rows. Fixed by the shape, so the reduction order, and the result,
+    are the same every run."""
     t = lambda m: -(-m // 64)
-    tiles = (t(d) * t(3 * d) + t(d) * t(d) + t(d) * t(dh) + t(dh) * t(d))
+    shapes = shapes or ((d, 3 * d), (d, d), (d, dh), (dh, d))
+    tiles = sum(t(m) * t(n) for m, n in shapes)
     return max(1, min(math.ceil(4 * _SMS / tiles), rows // 256))
 
 
@@ -255,7 +297,14 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
            drops=(0.0, 0.0, 0.0), plain: bool = False):
     """The 9 cotangents of one evaluation (see the module docstring). A
     CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
-    runs :func:`vf_bwd_plain`."""
+    runs :func:`vf_bwd_plain`. Shapes of the split route
+    (``vector_field_bwd_split.split_route``) take it on either device."""
+    from odevit_tpu_torch.kernels import vector_field_bwd_split as split
+    if split.split_route(x.shape[-1], w.w1.shape[1]):
+        return split.vf_bwd_split(
+            x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
+            g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, seed=seed,
+            drops=drops, plain=plain)
     if plain or x.device.type == "cpu":
         return vf_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, g_jas=g_jas, jas_idx=jas_idx,
@@ -263,18 +312,8 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
-    extra = {"g": (g, x.dtype)}
-    if g_jas is not None:
-        extra.update(g_jas=(g_jas, torch.float32),
-                     jas_idx=(jas_idx, torch.int32))
-    if g_attn is not None:
-        extra["g_attn"] = (g_attn, x.dtype)
-    for name, (t, dtype) in extra.items():
-        if t.device != x.device or t.dtype != dtype:
-            raise TypeError(f"{name} is {t.dtype} on {t.device}, the kernel "
-                            f"takes {dtype} on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    check_operands(x, g=(g, x.dtype), g_jas=(g_jas, torch.float32),
+                   jas_idx=(jas_idx, torch.int32), g_attn=(g_attn, x.dtype))
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n

@@ -8,11 +8,12 @@ so inside these tests JAX's dropout routes (``fused_vf_dropout_from_params``,
 its XLA twin ``_xla_reference(masks=...)``, fed the masks of the port's
 plain generator for the traced seed (``jax.pure_callback``), as
 ``tests/test_torch_train_dropout.py`` does. JAX's step runs on both of its
-routes: its own at this small D (in-kernel dropout, JaSMin from the
-statistics), and, with ``auto_block_b`` patched to 0, the route it takes at
-TS-Base (``_xla_dropout_eval`` for every evaluation, JaSMin from the
-pre-dropout maps through ``jasmin_map_loss``). The port keeps its in-kernel
-statistics of the pre-dropout p on both.
+routes: the in-kernel one (dropout in the kernels, JaSMin from the
+statistics), which it takes at this small D and at TS-Base in bf16 (both
+MLP ratios), and, with ``auto_block_b`` patched to 0, the one it takes at
+TS-Base in f32 at MLP ratio 4 (``_xla_dropout_eval`` for every evaluation,
+JaSMin from the pre-dropout maps through ``jasmin_map_loss``). The port
+keeps its in-kernel statistics of the pre-dropout p on both.
 
 Small shapes: 16 px, D=32, 2 heads, 2 registers (19 tokens), Euler on 8
 points, JaSMin k=2, temperature 3, lambda 0.5, L1 attention loss,
@@ -76,8 +77,9 @@ K = 2
 
 @pytest.fixture(params=["kernel", "xla"])
 def jax_route(request, twin_dropout, monkeypatch):
-    """JAX's dropout routes through the twin; "xla": the route JAX takes at
-    TS-Base, where ``auto_block_b`` finds no backward tile."""
+    """JAX's dropout routes through the twin; "xla": the route JAX takes
+    where ``auto_block_b`` finds no backward tile (TS-Base in f32 at MLP
+    ratio 4)."""
     def attn_dropout_from_params(x, vf_params, seed, *, num_heads, scaler,
                                  drops, **kw):
         return twin_eval(x, vf_params, seed, num_heads=num_heads,

@@ -136,4 +136,25 @@ def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
 
 def test_the_only_source_is_listed():
     assert set(build.sources()) == {"vector_field", "vector_field_bwd",
-                                    "vector_field_tiled", "dropout_masks"}
+                                    "vector_field_tiled", "dropout_masks",
+                                    "vector_field_bwd_split"}
+
+
+def test_the_split_backward_is_a_port_module():
+    """The split backward's wrappers and plain twins are the port's own
+    module (checked above with every other module for JAX imports), built
+    from its own source."""
+    assert "odevit_tpu_torch.kernels.vector_field_bwd_split" in port_modules()
+    assert build.sources()["vector_field_bwd_split"].parent == build.CSRC
+
+
+def test_split_kernels_without_a_compiler_raise(tmp_path, monkeypatch):
+    """The split route's library is built at first use; with no compiler
+    its wrappers raise instead of running anything else."""
+    from odevit_tpu_torch.kernels import vector_field_bwd_split as split
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_toolkit"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(split, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        split._library()
