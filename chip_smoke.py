@@ -78,6 +78,14 @@ Phases:
      split halves and the pair, and the tiled backward at the same shape;
   21. phases 19 and 20 at dropout 0.1 (cell
      tsbase-r4-distill-drop0.1-b64-bf16, ``rng=0``);
+  22. L2 attention at the CIFAR shape (cell
+     cifar100-vitode-l2-train-b1024-bf16, JAX's ``l2_b1024``): the L2+bias
+     instances against their plain versions at B=4 (bf16 and f32, nonzero
+     biases, an underflow case, NaN padding, repeats), the Python L2 plans
+     against the CUDA ones, the L2 model served at rk4-13 (B=1024), through
+     the engine and by dopri5 (f32, B=8), 3 free-training steps at B=1024
+     through the L2 instances and the plain path, and each L2 instance
+     alone at B=1024 (it runs after phase 11);
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
   last, the kernels line (launch counts of the main paths, times, bounds)
@@ -406,7 +414,7 @@ def phase_vf_timing(model, x):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def phase_serving(model, rng):
+def phase_serving(model, rng, counter="vf_eval", name="serving"):
     import numpy as np
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
@@ -436,7 +444,7 @@ def phase_serving(model, rng):
         for t in threads:
             t.join(timeout=600)
         check(not any(t.is_alive() for t in threads), "serving hung")
-        launches = launch_counts["vf_eval"]
+        launches = launch_counts[counter]
         stats = engine.stats()
     evals = 48
     check(launches == evals * stats["runs"],
@@ -450,7 +458,7 @@ def phase_serving(model, rng):
         identical += int(np.array_equal(got, want))
         worst = max(worst, float(np.abs(got - want).max()
                                  / max(np.abs(want).max(), 1e-30)))
-    emit("serving", requests=len(requests), sizes=sizes,
+    emit(name, requests=len(requests), sizes=sizes,
          identical_answers=identical, worst_rel_err=worst, tol=TOL_LOGITS,
          launches=launches, stats=stats)
     check(worst <= TOL_LOGITS, f"serving answers differ: {worst}")
@@ -633,13 +641,13 @@ def profile_step(step, state, batch, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def train_runs(images_u8, labels, drops=None):
+def train_runs(images_u8, labels, drops=None, l2=False):
     """3 steps through the kernels and through the plain path from the same
     weights and batch (with ``drops``, the model's dropout rates, and the
-    same rng); then one more step of each timed by CUDA events around its
-    parts, and one profiled step of the kernel path. Returns (runs,
-    profile, first-gradient cosine, loss differences, launches per
-    step)."""
+    same rng; with ``l2``, of the L2-attention model); then one more step
+    of each timed by CUDA events around its parts, and one profiled step of
+    the kernel path. Returns (runs, profile, first-gradient cosine, loss
+    differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -656,7 +664,8 @@ def train_runs(images_u8, labels, drops=None):
     runs = {}
     for path in ("kernels", "plain"):
         model = ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
-                       dtype=torch.bfloat16, device="cuda", seed=0, **rates)
+                       dtype=torch.bfloat16, device="cuda", seed=0,
+                       l2_attention=l2, **rates)
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_free_train_step(model, jasmin_k=JASMIN_K,
                                          preprocess_fn=pre,
@@ -2373,6 +2382,336 @@ def phase_serving_224(model, rng):
     check(worst <= TOL_LOGITS, f"serving_224 answers differ: {worst}")
 
 
+# --- L2 attention: the L2+bias instances of the one-CTA kernels --------
+
+L2_CELL = "cifar100-vitode-l2-train-b1024-bf16"
+L2_NAMES = BWD_NAMES + ("qkv_bias", "out_bias")
+L2_BIAS_SCALE = 0.1
+
+
+def l2_model(solver="rk4", steps=13, dtype="bfloat16", seed=0):
+    """The CIFAR ViTODE with L2 attention (``model.l2_attention``, JAX's
+    ``l2_b1024``), its four attention biases drawn nonzero from ``seed``
+    (normal, 0.1), so that the bias paths carry data."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    model = ViTODE(**SHAPE, num_eval_steps=steps, solver=solver,
+                   dtype=getattr(torch, dtype) if dtype else None,
+                   l2_attention=True, device="cuda", seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    a = model.vf.attn
+    with torch.no_grad():
+        for lin in (a.q, a.k, a.v, a.out):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g)
+                           * L2_BIAS_SCALE)
+    return model
+
+
+def l2_plans_agree():
+    """The Python plans that route L2 on either device (``l2_plan``,
+    ``l2_bwd_plan``) against the CUDA sources' ``vf_plan``/``vfb_plan``
+    over a sweep of shapes: the same plan, or none on both sides."""
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import kernel_plan, l2_plan
+    from odevit_tpu_torch.kernels.vector_field_bwd import bwd_plan, l2_bwd_plan
+
+    def c_plan(fn, *args):
+        try:
+            return tuple(fn(*args, l2=True))
+        except ValueError:
+            return None
+    shapes = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_pad in (16, 32, 64, 80, 96, 112, 128, 144):
+            for d, heads in ((64, 2), (64, 4), (128, 2), (192, 3), (256, 4),
+                             (384, 6)):
+                for dh in (d, 2 * d, 4 * d):
+                    args = (dtype, n_pad, n_pad - 3, d, heads, dh)
+                    want_f = c_plan(kernel_plan, *args[:6], False)
+                    want_b = c_plan(bwd_plan, *args[:6], False)
+                    got_f, got_b = l2_plan(*args), l2_bwd_plan(*args)
+                    check(got_f == want_f, f"L2 plan {args}: python {got_f}, "
+                          f"vf_plan {want_f}")
+                    check(got_b == want_b, f"L2 bwd plan {args}: python "
+                          f"{got_b}, vfb_plan {want_b}")
+                    shapes += 1
+    return shapes
+
+
+def phase_l2_kernels_vs_plain():
+    """Both L2 forward instances and the L2 backward (with and without the
+    JaSMin cotangent) against their plain versions at B=4, the CIFAR shape,
+    random nonzero biases, in bf16 and f32; repeated backwards
+    bit-identical; NaN and garbage in the padded rows inert; a "far" case
+    (q/k weights x8) where whole rows underflow to p = 0 and the output
+    stays finite and equal to the plain version's; each call lands on its
+    L2 counter; the Python plans agree with the CUDA sources'."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    before = dict(launch_counts)
+    model = l2_model()
+    b, n_real, n_pad, d, heads = 4, 69, 80, 192, 3
+    kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def routed(fn, want):
+        counts = dict(launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: launch_counts[k] - counts[k] for k in counts
+               if launch_counts[k] != counts[k]}
+        check(got == {want: 1}, f"L2 launched {got}, want {want}")
+        return out
+
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        for kind in ("random", "far"):
+            w = model.vf.kernel_weights(dtype)
+            if kind == "far":
+                # q and k weights x8: distances of hundreds, so nearly
+                # every row's exponentials all underflow (p = 0)
+                wqkv = w.wqkv.float().clone()
+                wqkv[:, :2 * d] *= 8.0
+                w = w._replace(wqkv=wqkv.to(dtype).contiguous())
+            x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+            x[:, n_real:] = 0
+            x = x.to(dtype)
+            gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+            gx[:, n_real:] = 0
+            gx = gx.to(dtype)
+            gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                             device="cuda") * 1e-2
+            gj[..., n_real:] = 0
+            r = {"dtype": str(dtype), "case": kind, "tol": tol,
+                 "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
+            f = routed(lambda: vf_eval(x, w, **kw), "vf_eval_l2")
+            pf = vf_eval(x, w, plain=True, **kw)
+            dx, st, idx = routed(lambda: vf_eval_jasmin(x, w, jas_k=JASMIN_K,
+                                                        **kw),
+                                 "vf_eval_jasmin_l2")
+            pdx, pst, pidx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True,
+                                            **kw)
+            torch.cuda.synchronize()
+            r["fwd"] = rel_err(f[:, :n_real], pf[:, :n_real])
+            r["jasmin_fwd"] = {
+                "dx": rel_err(dx[:, :n_real], pdx[:, :n_real]),
+                "stats": rel_err(st[..., :n_real], pst[..., :n_real]),
+                "idx_agreement": (idx[..., :n_real] == pidx[..., :n_real])
+                .float().mean().item()}
+            r["rows_p_zero"] = int((st[:, :, 0, :n_real] == 0).sum())
+            r["finite"] = bool(torch.isfinite(f[:, :n_real]).all()
+                               and torch.isfinite(dx[:, :n_real]).all())
+            check(r["finite"], f"L2 {dtype} {kind}: non-finite output")
+            check(max(r["fwd"], r["jasmin_fwd"]["dx"],
+                      r["jasmin_fwd"]["stats"]) <= tol,
+                  f"L2 fwd {dtype} {kind}: {r}")
+            if kind == "far":
+                check(r["rows_p_zero"] > 0, f"L2 far {dtype}: no row "
+                      f"underflowed")
+            for jas in (False, True):
+                extra = dict(g_jas=gj, jas_idx=idx) if jas else {}
+                got = routed(lambda: vf_bwd(x, w, gx, **kw, **extra),
+                             "vf_bwd_l2")
+                want = vf_bwd(x, w, gx, plain=True, **kw, **extra)
+                again = vf_bwd(x, w, gx, **kw, **extra)
+                torch.cuda.synchronize()
+                check(len(got) == 11, f"L2 bwd gave {len(got)} cotangents")
+                errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                    b_[:, :n_real] if nm == "x" else b_)
+                        for nm, a, b_ in zip(L2_NAMES, got, want)}
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                fin = all(bool(torch.isfinite(a).all()) for a in got)
+                r["bwd_jas" if jas else "bwd"] = errs
+                r["repeat_bit_identical" + ("_jas" if jas else "")] = same
+                check(fin, f"L2 bwd {dtype} {kind} jas={jas}: non-finite")
+                check(max(errs.values()) <= tol,
+                      f"L2 bwd {dtype} {kind} jas={jas}: {errs}")
+                check(same, f"L2 bwd {dtype} {kind} jas={jas} not "
+                      f"repeatable")
+            if kind == "random":
+                dirty = x.clone()
+                dirty[:, n_real:n_real + 5] = float("nan")
+                dirty[:, n_real + 5:] = 1e30
+                gdirty = gx.clone()
+                gdirty[:, n_real:] = 7.0
+                ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=JASMIN_K,
+                                                **kw)
+                df = vf_eval(dirty, w, **kw)
+                dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx, **kw)
+                cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
+                torch.cuda.synchronize()
+                same = (torch.equal(ddx[:, :n_real], dx[:, :n_real])
+                        and torch.equal(df[:, :n_real], f[:, :n_real])
+                        and torch.equal(dst, st) and torch.equal(didx, idx)
+                        and all(torch.equal(a, c)
+                                for a, c in zip(dbars, cbars)))
+                r["nan_padding_unchanged"] = same
+                check(same, f"L2 {dtype}: padded rows reached a real row")
+            results.append(r)
+    shapes = l2_plans_agree()
+    launch_counts.update(before)           # comparisons do not count
+    emit("l2_kernels_vs_plain", bias_scale=L2_BIAS_SCALE,
+         plans_agree_over_shapes=shapes, results=results)
+
+
+def phase_l2_serving(images_u8, softmax_report, rng):
+    """The L2 model served through ``fast_forward`` at B=1024, rk4 on 13
+    points, on the generic route (48 plain L2 launches), against the plain
+    path, beside the softmax rk4-13 figure of this run; the engine over it;
+    one dopri5 forward in f32 at B=8."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    model = l2_model()
+    x = make_preprocess(dtype=torch.bfloat16)(images_u8)
+    reset_launch_counts()
+    got = fast_forward(model, x)["logits"]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    check(launches == {"vf_eval_l2": 48}, f"L2 rk4-13: launches {launches}")
+    want = fast_forward(model, x, plain=True)["logits"]
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (BATCH, 100),
+          f"L2 rk4-13: logits {got.shape}")
+    check(err <= TOL_LOGITS, f"L2 rk4-13: logits rel err {err}")
+    check(top1 >= MIN_TOP1_AGREEMENT, f"L2 rk4-13: top-1 agreement {top1}")
+    ms = cuda_ms(lambda: fast_forward(model, x), iters=5)
+    plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True), iters=2)
+    engine = phase_serving(model, rng, counter="vf_eval_l2",
+                           name="l2_serving_engine")
+    # dopri5 in f32 at B=8 (in bf16 the error estimate sits at the state's
+    # rounding, see dopri5_check)
+    d5 = l2_model(solver="dopri5", dtype=None)
+    x8 = make_preprocess()(images_u8[:8])
+    reset_launch_counts()
+    got5 = fast_forward(d5, x8)["logits"]
+    torch.cuda.synchronize()
+    l5 = {k: v for k, v in launch_counts.items() if v}
+    nfe = l5.get("vf_eval_l2", 0)
+    check(set(l5) == {"vf_eval_l2"} and 7 <= nfe <= 385,
+          f"L2 dopri5: launches {l5}")
+    want5 = fast_forward(d5, x8, plain=True)["logits"]
+    err5 = rel_err(got5, want5)
+    check(bool(torch.isfinite(got5).all()) and err5 <= TOL_LOGITS,
+          f"L2 dopri5: logits rel err {err5}")
+    emit("l2_serving", solver="rk4-13", batch=BATCH, launches=launches,
+         rel_err=err, tol=TOL_LOGITS, top1_agreement=top1,
+         ms_per_forward=ms, img_per_s=BATCH / ms * 1e3,
+         plain_img_per_s=BATCH / plain_ms * 1e3,
+         softmax_rk4_13_img_per_s=softmax_report["rk4-13"]["img_per_s"],
+         engine_launches=engine,
+         dopri5={"batch": 8, "dtype": "float32", "nfe": nfe,
+                 "rel_err": err5})
+    return launches
+
+
+def phase_l2_train(images_u8, labels, det):
+    """Cell cifar100-vitode-l2-train-b1024-bf16 (JAX's ``l2_b1024``): the
+    free step of the L2 model, through its L2 instances and through the
+    plain path from the same weights; beside the softmax step's img/s of
+    this run (``det``)."""
+    runs, profile, cos, loss_rel, per_step = train_runs(images_u8, labels,
+                                                        l2=True)
+    k, p = runs["kernels"], runs["plain"]
+    emit("l2_train_profile", **profile)
+    emit("l2_train", cell=L2_CELL, batch=BATCH, steps=TRAIN_STEPS,
+         solver="rk4-13", jasmin_k=JASMIN_K,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         softmax_img_per_s=det["kernels"]["img_per_s_best_of_2_3"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train("l2_train", runs, cos, loss_rel, per_step,
+                {"vf_eval_l2": 36, "vf_eval_jasmin_l2": 12, "vf_bwd_l2": 48})
+    return k["launches"]
+
+
+def phase_l2_kernel_timing(images_u8):
+    """Each L2 instance alone at B=1024 on the main path's inputs (the
+    first state of one image batch) against its plain version, with its
+    bound: the softmax instance's (the norms' extra work is under 1 %)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    before = dict(launch_counts)
+    model = l2_model()
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            dtype=torch.bfloat16)(images_u8))
+        n_real = tokens.shape[1]
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+        w = model.vf.kernel_weights(torch.bfloat16)
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+        g = torch.Generator(device="cuda").manual_seed(12)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        f = vf_eval(x, w, **kw)
+        pf = vf_eval(x, w, plain=True, **kw)
+        dx, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw)
+        pdx, pst, _ = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True, **kw)
+        gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        bars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
+        pbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw)
+        torch.cuda.synchronize()
+        ferr = rel_err(f[:, :n_real], pf[:, :n_real])
+        errs = [rel_err(a[:, :n_real], b[:, :n_real])
+                for a, b in zip((dx, st), (pdx, pst))]
+        berrs = [rel_err(a[:, :n_real] if i == 0 else a,
+                         b[:, :n_real] if i == 0 else b)
+                 for i, (a, b) in enumerate(zip(bars, pbars))]
+        check(max([ferr] + errs) <= TOL_BF16, f"B=1024 L2 fwd: {ferr} {errs}")
+        check(max(berrs) <= TOL_BF16, f"B=1024 L2 bwd: {berrs}")
+        amax = lambda a, b: (a[:, :n_real].float()
+                             - b[:, :n_real].float()).abs().max().item()
+        out = {
+            "vf_eval_l2": {
+                "max_abs_err": amax(f, pf), "rel_err": ferr,
+                "ms": cuda_ms(lambda: vf_eval(x, w, **kw), iters=10),
+                "plain_ms": cuda_ms(lambda: vf_eval(x, w, plain=True, **kw),
+                                    iters=2),
+                **dict(zip(("bound_ms", "bound_by"),
+                           vf_bound(BATCH, n_real, 192, 768, 2)))},
+            "vf_eval_jasmin_l2": {
+                "max_abs_err": amax(dx, pdx), "rel_errs": errs,
+                "ms": cuda_ms(lambda: vf_eval_jasmin(
+                    x, w, jas_k=JASMIN_K, **kw), iters=10),
+                "plain_ms": cuda_ms(lambda: vf_eval_jasmin(
+                    x, w, jas_k=JASMIN_K, plain=True, **kw), iters=2),
+                **dict(zip(("bound_ms", "bound_by"), jasmin_bound(
+                    BATCH, n_real, 192, 768, 3, 2, JASMIN_K + 1)))},
+            "vf_bwd_l2": {
+                "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                   for a, b in zip(bars[1:], pbars[1:])),
+                "max_abs_err_x": amax(bars[0], pbars[0]),
+                "rel_errs": dict(zip(L2_NAMES, berrs)),
+                "ms": cuda_ms(lambda: vf_bwd(
+                    x, w, gx, g_jas=gj, jas_idx=idx, **kw), iters=10),
+                "plain_ms": cuda_ms(lambda: vf_bwd(
+                    x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw),
+                    iters=2),
+                **dict(zip(("bound_ms", "bound_by"), bwd_bound(
+                    BATCH, n_real, 192, 768, 3, 2)))}}
+    launch_counts.update(before)           # comparisons do not count
+    emit("l2_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
+         f"dh=768 bf16", results=out)
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2407,6 +2746,11 @@ def main() -> int:
     phase_dropout_kernels_vs_plain(models["rk4-13"])
     drop_launches = phase_train_dropout(images, labels, train)
     drop_timing = phase_dropout_kernel_timing(models["rk4-13"], images)
+    # L2 attention at the CIFAR shape: kernels, serving, the l2_b1024 step
+    phase_l2_kernels_vs_plain()
+    l2_serve_launches = phase_l2_serving(images, report, rng)
+    l2_launches = phase_l2_train(images, labels, train)
+    l2_timing = phase_l2_kernel_timing(images)
     cifar_euler = models["euler-49"]
     del models
     # the distillation slice at the TS-Base shape
@@ -2529,7 +2873,24 @@ def main() -> int:
                 **{k: v for k, v in split_timing[name + sfx].items()
                    if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "bound_unit", "library_ms")}})
-    check(len(kernels) == 22, f"{len(kernels)} kernels in the line")
+    for name in ("vf_eval_l2", "vf_eval_jasmin_l2", "vf_bwd_l2"):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("odevit_tpu_torch/csrc/vector_field_bwd.cu"
+                       if name.startswith("vf_bwd")
+                       else "odevit_tpu_torch/csrc/vector_field.cu"),
+            "replaces": ("odevit_tpu/kernels/vector_field_bwd.py:117"
+                         if name.startswith("vf_bwd")
+                         else "odevit_tpu/kernels/vector_field.py:196"),
+            # the L2 cell's 3 training steps; serving's forward beside it
+            "launches": l2_launches[name],
+            **({"launches_serve": l2_serve_launches[name]}
+               if name == "vf_eval_l2" else {}),
+            **{k: v for k, v in l2_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+            "library_ms": None})
+    check(len(kernels) == 25, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,10 @@
 // One evaluation of the ODE-ViT vector field, fused into one CUDA kernel.
 //
 // Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
-// (its plain, Euler, stage-advance and JaSMin-statistics modes, and the
-// dropout of the plain and JaSMin modes), and, as the instance kChain,
-// _vf_euler_chain_kernel (`chain` Euler steps per launch), on Hopper
-// (sm_90a).
+// (its plain, Euler, stage-advance and JaSMin-statistics modes, the
+// dropout of the plain and JaSMin modes, and the L2+bias mode of the plain
+// and JaSMin modes), and, as the instance kChain, _vf_euler_chain_kernel
+// (`chain` Euler steps per launch), on Hopper (sm_90a).
 //
 //   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
 //   plain : out = f(x)
@@ -21,6 +21,16 @@
 // in f32. Padded keys (index >= n_real) are masked by selection, and the
 // padded rows of v are zeroed, so garbage or NaN in padded rows of x never
 // reaches a real row (0 * NaN would).
+//
+// L2+bias mode (instance kL2, the TPU kernel's l2_attention with biases):
+// qkv = round(cn_a Wqkv + qkv_bias); per head, q2 and k2 are the f32 row
+// norms of the rounded q and k, and p = round(e / (sum e + 1e-8)) with
+// e = exp(-(q2 + k2 - 2 q.k) tau) over the real keys, 0 on padded keys.
+// No max is subtracted, as in the TPU kernel: a row whose exponentials all
+// underflow gives p = 0 (the 1e-8 keeps it finite). expf, never __expf,
+// which flushes the small exponentials that guard exists for. out_bias is
+// added to the f32 accumulator once, before the scaler. The norms' extra
+// work is under 1 % of the products', so the bound is the softmax one.
 //
 // JaSMin-statistics mode (the training tail, `jas_kk` = k + 1 > 0): the
 // output is f(x), and for every head and query row the kernel also takes
@@ -265,18 +275,64 @@ __device__ void softmax_rows(const float* s, int lds, T* p, int ldp, int n,
   }
 }
 
-// dst[r, c] = round(scale * src[r, c]) for an [n, w] block; rows >=
-// zero_from are written as 0. One warp per row. With `dst2` (global,
-// row stride ld2) the same values are stored there as well.
+// p = round(e / (sum e + 1e-8)) with e = exp(-(q2 + k2 - 2 s) tau) over
+// keys < n_real (L2 attention); padded keys get 0 by selection. q2, k2:
+// the f32 row norms of q and k. One warp per query row. With `ef` the f32
+// e is stored there too, and with `esum` each row's sum e + 1e-8.
+template <typename T>
+__device__ void l2_rows(const float* s, int lds, const float* q2,
+                        const float* k2, T* p, int ldp, int n, int n_real,
+                        float tau, float* ef = nullptr, int ldef = 0,
+                        float* esum = nullptr) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps) {
+    const float* row = s + r * lds;
+    const float qr = q2[r];
+    auto e_of = [&](int c) {
+      return expf(-(qr + k2[c] - 2.0f * row[c]) * tau);
+    };
+    float sum = 0.0f;
+    for (int c = lane; c < n_real; c += 32) sum += e_of(c);
+    sum = warp_sum(sum) + 1e-8f;
+    if (esum != nullptr && lane == 0) esum[r] = sum;
+    for (int c = lane; c < n; c += 32) {
+      const float e = c < n_real ? e_of(c) : 0.0f;
+      p[r * ldp + c] = from_f<T>(e / sum);
+      if (ef != nullptr) ef[r * ldef + c] = e;
+    }
+  }
+}
+
+// out[r] = sum over c < w of a[r, c]^2 in f32, one warp per row.
+template <typename T>
+__device__ void sq_rows(const T* a, int lda, int n, int w, float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps) {
+    float sum = 0.0f;
+    for (int c = lane; c < w; c += 32) {
+      const float v = to_f(a[r * lda + c]);
+      sum += v * v;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) out[r] = sum;
+  }
+}
+
+// dst[r, c] = round(scale * src[r, c] (+ bias[c])) for an [n, w] block;
+// rows >= zero_from are written as 0. One warp per row. With `dst2`
+// (global, row stride ld2) the same values are stored there as well.
 template <typename T>
 __device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
                             int w, int zero_from, float scale = 1.0f,
-                            T* dst2 = nullptr, int ld2 = 0) {
+                            T* dst2 = nullptr, int ld2 = 0,
+                            const float* bias = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < n; r += kWarps)
     for (int c = lane; c < w; c += 32) {
-      const T v = r < zero_from ? from_f<T>(src[r * lds + c] * scale)
-                                : from_f<T>(0.0f);
+      const float f = src[r * lds + c] * scale;
+      const T v = r >= zero_from ? from_f<T>(0.0f)
+                  : bias != nullptr ? from_f<T>(f + bias[c])
+                                    : from_f<T>(f);
       if (dst != nullptr) dst[r * ldd + c] = v;
       if (dst2 != nullptr) dst2[(size_t)r * ld2 + c] = v;
     }
@@ -378,6 +434,7 @@ struct Shape {
   int n_pad, n_real, d, heads, hd, dh, hc;
   int qkv_fused;  // 1: q, k and v of a head come from one product
   int drop;       // 1: the dropout instance's plan
+  int l2;         // 1: the L2 instance's plan (q2 and k2 of a head)
 };
 
 // Shared-memory layout of one CTA: byte offsets and row strides (in
@@ -386,9 +443,10 @@ struct Shape {
 // accumulator lives in shared memory for bf16 and in the (unpadded) output
 // buffer for f32. The dropout instance also keeps attn_o's keep bits, and
 // in bf16 takes each head's attn_o product in `stage` (so it is >= D wide);
-// in f32 that product goes to a global scratch.
+// in f32 that product goes to a global scratch. The L2 instance also
+// keeps the row norms q2 and k2 of one head.
 struct Plan {
-  size_t cn, stage, hbuf, q, k, v, p, acc, bits, total;
+  size_t cn, stage, hbuf, q, k, v, p, acc, bits, norms, total;
   int ld_cn, ld_stage, ld_h, ld_qkv, ld_p, ld_acc, ld_bits;
 };
 
@@ -416,6 +474,8 @@ __host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
   p.bits = off;
   p.ld_bits = 4 * ((s.d + 127) / 128);
   if (s.drop) off += align128(n * p.ld_bits * 4);
+  p.norms = off;
+  if (s.l2) off += 2 * align128(n * 4);
   p.total = off;
   return p;
 }
@@ -474,8 +534,9 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
 }
 
 // kJas: the JaSMin-statistics mode; kDrop: dropout; kChain: `chain` Euler
-// steps in one launch (the TPU's _vf_euler_chain_kernel). Each is compiled
-// apart so that the other modes keep their registers.
+// steps in one launch (the TPU's _vf_euler_chain_kernel); kL2: L2
+// attention with biases (plain and JaSMin modes, no dropout). Each is
+// compiled apart so that the other modes keep their registers.
 //
 // Chain (kChain, mode 1): the CTA runs the whole evaluation `chain` times
 // on its image. Each step's epilogue writes round(x + coef f(x)) to the
@@ -496,7 +557,8 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
 // Wout_h. That sums attn_o in another order than (sum_h ctx_h Wout_h) *
 // mask_ao; the f32 difference is rounding. attn_o's keep bits are drawn
 // once, before the heads, into shared memory.
-template <typename T, bool kJas, bool kDrop, bool kChain = false>
+template <typename T, bool kJas, bool kDrop, bool kChain = false,
+          bool kL2 = false>
 __global__ void __launch_bounds__(kThreads)
 vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           T* out, float* acc_global,  // may alias (f32: acc is out), not
@@ -505,6 +567,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           const float* __restrict__ gm, const float* __restrict__ bm,
           const T* __restrict__ wqkv, const T* __restrict__ wout,
           const T* __restrict__ w1, const T* __restrict__ w2,
+          const float* __restrict__ qkv_bias,  // kL2: [3D], else null
+          const float* __restrict__ out_bias,  // kL2: [D], else null
           float* __restrict__ jas, int* __restrict__ jas_idx, int jas_kk,
           Shape s, float scaler, float coef, float qk_scale, int mode,
           Drop drop, float* __restrict__ ao_global, int chain) {
@@ -518,6 +582,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* p = reinterpret_cast<T*>(smem + pl.p);
   unsigned* bits = reinterpret_cast<unsigned*>(smem + pl.bits);
+  float* q2 = reinterpret_cast<float*>(smem + pl.norms);
+  float* k2 = q2 + align128(s.n_pad * 4) / 4;
 
   const int n = s.n_pad, d = s.d, hd = s.hd, hc = s.hc;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -596,7 +662,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
         __syncthreads();
         for (int j = 0; j < 3; ++j)
           round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                      j == 2 ? s.n_real : n);
+                      j == 2 ? s.n_real : n, 1.0f, (T*)nullptr, 0,
+                      kL2 ? qkv_bias + j * d + h * hd : nullptr);
         __syncthreads();
       } else {
         for (int j = 0; j < 3; ++j) {
@@ -604,14 +671,25 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
                            pl.ld_stage, false, n, hd, d);
           __syncthreads();
           round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                      j == 2 ? s.n_real : n);
+                      j == 2 ? s.n_real : n, 1.0f, (T*)nullptr, 0,
+                      kL2 ? qkv_bias + j * d + h * hd : nullptr);
           __syncthreads();
         }
+      }
+      if (kL2) {
+        // the rounded q's and k's row norms, beside the score product
+        sq_rows(q, pl.ld_qkv, n, hd, q2);
+        sq_rows(k, pl.ld_qkv, n, hd, k2);
       }
       mm<false, true>(q, pl.ld_qkv, k, pl.ld_qkv, stage, pl.ld_stage, false, n,
                       n, hd);
       __syncthreads();
-      softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
+      if (kL2) {
+        l2_rows(stage, pl.ld_stage, q2, k2, p, pl.ld_p, n, s.n_real,
+                qk_scale);
+      } else {
+        softmax_rows(stage, pl.ld_stage, p, pl.ld_p, n, s.n_real, qk_scale);
+      }
       __syncthreads();
       if (kJas) {
         const size_t bh = (size_t)blockIdx.x * s.heads + h;
@@ -661,7 +739,9 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
     const T* bi = mode == 2 ? base + img : xi;
     for (int r = warp; r < n; r += kWarps) {
       for (int c = lane; c < d; c += 32) {
-        const float f = acc[r * pl.ld_acc + c] * scaler;
+        float a = acc[r * pl.ld_acc + c];
+        if (kL2) a += out_bias[c];
+        const float f = a * scaler;
         const size_t i = (size_t)r * d + c;
         oi[i] = from_f<T>(mode == 0 ? f : to_f(bi[i]) + coef * f);
       }
@@ -677,9 +757,9 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
 }
 
 Shape make_shape(int n_pad, int n_real, int d, int heads, int dh, int hc,
-                 int qkv_fused, int drop) {
+                 int qkv_fused, int drop, int l2) {
   return Shape{n_pad, n_real, d,  heads,     heads > 0 ? d / heads : 0,
-               dh,    hc,     qkv_fused, drop};
+               dh,    hc,     qkv_fused, drop, l2};
 }
 
 bool shape_ok(const Shape& s) {
@@ -693,11 +773,16 @@ template <typename T, bool kDrop>
 int launch(const void* x, const void* base, void* out, void* acc,
            const float* ga, const float* ba, const float* gm,
            const float* bm, const void* wqkv, const void* wout,
-           const void* w1, const void* w2, void* jas, void* jas_idx,
-           int jas_kk, int batch, int smem, Shape s, float scaler,
-           float coef, float qk_scale, int mode, const Drop& drop, void* ao,
-           int chain, cudaStream_t st) {
+           const void* w1, const void* w2, const float* qkvb,
+           const float* outb, void* jas, void* jas_idx, int jas_kk,
+           int batch, int smem, Shape s, float scaler, float coef,
+           float qk_scale, int mode, const Drop& drop, void* ao, int chain,
+           cudaStream_t st) {
   auto kernel = chain > 1    ? vf_kernel<T, false, false, true>
+                : s.l2       ? (jas_kk > 0 ? vf_kernel<T, true, false, false,
+                                                         true>
+                                           : vf_kernel<T, false, false, false,
+                                                       true>)
                 : jas_kk > 0 ? vf_kernel<T, true, kDrop>
                              : vf_kernel<T, false, kDrop>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -707,7 +792,7 @@ int launch(const void* x, const void* base, void* out, void* acc,
       static_cast<const T*>(x), static_cast<const T*>(base),
       static_cast<T*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
       static_cast<const T*>(wqkv), static_cast<const T*>(wout),
-      static_cast<const T*>(w1), static_cast<const T*>(w2),
+      static_cast<const T*>(w1), static_cast<const T*>(w2), qkvb, outb,
       static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk, s,
       scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao), chain);
   return (int)cudaGetLastError();
@@ -720,14 +805,16 @@ extern "C" {
 // Chooses the plan of one CTA: whether q, k and v of a head come from one
 // product, the MLP chunk width and the shared memory, preferring the
 // fused q|k|v product and wide chunks. `drop` asks for the dropout
-// instance's plan. Returns 0 when the shape has a plan, 1 when it has none
-// (the wrapper raises).
+// instance's plan, `l2` for the L2 instance's (kernels/vector_field.py::
+// l2_plan repeats this rule in Python). Returns 0 when the shape has a
+// plan, 1 when it has none (the wrapper raises).
 int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-            int drop, int* qkv_fused_out, int* hc_out, int* smem_out) {
+            int drop, int l2, int* qkv_fused_out, int* hc_out,
+            int* smem_out) {
   for (int fused = 1; fused >= 0; --fused) {
     for (int hc : kChunks) {
-      const Shape s =
-          make_shape(n_pad, n_real, d, heads, dh, hc, fused, drop != 0);
+      const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, fused,
+                                 drop != 0, l2 != 0);
       if (!shape_ok(s) || dh % hc) continue;
       const Plan p = make_plan(s, tbytes);
       if (p.total <= (size_t)kMaxSmem) {
@@ -749,26 +836,33 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // in f32 it takes `ao`, a [B * n_pad, D] f32 scratch. chain > 1 runs
 // `chain` Euler steps in one launch (mode 1, no statistics, no dropout;
 // in f32 `acc` is then a [B * n_pad, D] f32 scratch apart from `out`).
+// Non-null biases (qkvb [3D], outb [D], f32) launch the L2 instance
+// (planned with l2=1): mode 0, no chain, no dropout.
 int vf_launch(int tbytes, const void* x, const void* base, void* out,
               void* acc, const float* ga, const float* ba, const float* gm,
               const float* bm, const void* wqkv, const void* wout,
-              const void* w1, const void* w2, int batch, int n_pad,
-              int n_real, int d, int heads, int dh, int qkv_fused, int hc,
-              int smem, float scaler, float coef, float qk_scale, int mode,
-              void* jas, void* jas_idx, int jas_kk, const Drop* drop,
-              void* ao, int chain, void* stream) {
+              const void* w1, const void* w2, const float* qkvb,
+              const float* outb, int batch, int n_pad, int n_real, int d,
+              int heads, int dh, int qkv_fused, int hc, int smem,
+              float scaler, float coef, float qk_scale, int mode, void* jas,
+              void* jas_idx, int jas_kk, const Drop* drop, void* ao,
+              int chain, void* stream) {
   if (chain > 1 && (mode != 1 || jas_kk > 0 || drop != nullptr ||
                     (tbytes == 4 && acc == out)))
     return (int)cudaErrorInvalidValue;
+  const bool l2 = qkvb != nullptr;
+  if (l2 != (outb != nullptr) ||
+      (l2 && (mode != 0 || chain > 1 || drop != nullptr)))
+    return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused,
-                             drop != nullptr);
+                             drop != nullptr, l2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Drop none = {};
   const Drop& dr = drop != nullptr ? *drop : none;
 #define VF_LAUNCH(T, D)                                                    \
-  launch<T, D>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1, w2, jas, \
-               jas_idx, jas_kk, batch, smem, s, scaler, coef, qk_scale,    \
-               mode, dr, ao, chain, st)
+  launch<T, D>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1, w2, qkvb, \
+               outb, jas, jas_idx, jas_kk, batch, smem, s, scaler, coef,   \
+               qk_scale, mode, dr, ao, chain, st)
   if (tbytes == 2)
     return drop != nullptr ? VF_LAUNCH(bf16, true) : VF_LAUNCH(bf16, false);
   return drop != nullptr ? VF_LAUNCH(float, true) : VF_LAUNCH(float, false);

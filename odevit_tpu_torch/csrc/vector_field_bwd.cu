@@ -3,11 +3,12 @@
 //
 // Replaces the TPU kernel
 // odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (plain, with the
-// JaSMin-statistics cotangent, and with dropout). Given x, the weights and
-// the dx cotangent g (and optionally the cotangent of the JaSMin
-// statistics with the columns the forward took them from, and the
-// forward's dropout seed and rates), it produces x_bar and the 8
-// cotangents of the norms and weight matrices, in float32:
+// JaSMin-statistics cotangent, with dropout, and in its L2+bias mode).
+// Given x, the weights and the dx cotangent g (and optionally the
+// cotangent of the JaSMin statistics with the columns the forward took
+// them from, and the forward's dropout seed and rates), it produces x_bar
+// and the 8 cotangents of the norms and weight matrices, in float32 (10
+// with L2 attention's two biases):
 //
 //   dx = (MLP(cn_m) + Attn(cn_a)) * scaler,   gd = round(g * scaler)
 //   MLP:   h1 = cn_m W1, h = round(gelu(h1)), h_bar = gd W2^T,
@@ -24,6 +25,18 @@
 //          c_bar = a_bar gamma_a + m_bar gamma_m
 // rounding where the TPU kernel rounds (to x's dtype), every product
 // accumulated in f32.
+//
+// L2 attention (instance kL2, no dropout): qkv gets its bias before it is
+// rounded; p = e / esum with e = exp(-(q2 + k2 - 2 q.k) tau) and esum =
+// sum e + 1e-8 over the real keys, recomputed as the forward takes them.
+// With p_bar as above (+ the JaSMin scatter):
+//   e_bar = (p_bar - sum(p_bar p)) / esum,  d2b = -tau e e_bar  (f32)
+//   q_bar = 2 q sum_k d2b - 2 round(d2b) k
+//   k_bar = 2 k sum_q d2b - 2 round(d2b)^T q
+// and the bias cotangents are column sums of two operands the kernel
+// already writes in x's dtype: out_bias_bar = sum_rows gd, qkv_bias_bar =
+// sum_rows [q_bar k_bar v_bar], taken as per-image partials beside the
+// norms' and summed by vfb_reduce in a fixed order.
 //
 // JaSMin. Row 4 of the statistics (the clipped row sum) sends its
 // cotangent to every real key through clip's subgradient, 0.5 at either
@@ -89,9 +102,13 @@ struct Args {
   void* h1b;               // [B*n_pad, dh]
   void* qkvb;              // [B*n_pad, 3D]
   float* macc;             // [B*n_pad, D]   m_bar
-  float* npart;            // [B, 4, D]      per-image norm partials
+  float* npart;            // [B, 4, D]      per-image norm partials;
+                           // with L2 [B, 8, D]: then the bias partials
   float* wpart;            // [splits, W]    per-split weight partials
-  float* out;              // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
+  float* out;              // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm;
+                           // with L2 [W + 8D]: then qkv_bias, out_bias
+  const float* qkv_bias;   // L2: [3D] f32, else null (the softmax field)
+  const float* out_bias;   // L2: [D] f32, else null
   int batch, n_pad, n_real, d, heads, dh;
   int cn_smem, hc, smem, splits;
   float scaler, qk_scale;
@@ -107,7 +124,7 @@ constexpr int kWThreads = 128;   // 4 warps, 32x32 of the tile each
 
 struct Plan {
   size_t cn, gd, gd2, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
-      pbits, abar, total;
+      pbits, l2, abar, total;
   int ld_cn, ld_st_m, ld_hb, ld_st_a, ld_pf, ld_p, ld_hd, ld_abar;
 };
 
@@ -115,9 +132,12 @@ struct Plan {
 // scratch; with dropout also the attention's gd2), the row means, then a
 // region used by the MLP phase (two f32 stages and the rounded h1_bar
 // chunk) and again by the attention phase (with dropout also the keep bits
-// of one head's map, 4 words per row).
+// of one head's map, 4 words per row; with L2 five f32 vectors of one
+// head: q2, k2, esum, the rows' and the columns' sums of d2b).
+// kernels/vector_field_bwd.py::l2_bwd_plan repeats the L2 plan in Python.
 __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
-                                          int cn_smem, int tb, bool drop) {
+                                          int cn_smem, int tb, bool drop,
+                                          bool l2) {
   const int pad = 16 / tb;
   Plan p;
   p.ld_cn = cn_smem ? d + pad : d;
@@ -154,11 +174,26 @@ __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
   p.cb = a;     a += align128((size_t)n * p.ld_hd * tb);
   p.pbits = a;
   if (drop) a += align128((size_t)n * 4 * 4);
+  p.l2 = a;
+  if (l2) a += 5 * align128((size_t)n * 4);
   p.abar = off;
   const size_t e = off + align128((size_t)n * p.ld_abar * 4);
   p.total = m > a ? m : a;
   if (e > p.total) p.total = e;
   return p;
+}
+
+// L2: dst[r, c] = round(2 a[r, c] sum[r] - 2 prod[r, c]) for an [n, w]
+// block, a in shared memory; dst is global (row stride ldd). One warp per
+// row.
+template <typename T>
+__device__ void l2_bar(const float* prod, int lds, const T* a, int lda,
+                       const float* sum, int n, int w, T* dst, int ldd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += kWarps)
+    for (int c = lane; c < w; c += 32)
+      dst[(size_t)r * ldd + c] = from_f<T>(
+          2.0f * to_f(a[r * lda + c]) * sum[r] - 2.0f * prod[r * lds + c]);
 }
 
 // kDrop: dropout, compiled apart so that the deterministic instance keeps
@@ -169,13 +204,15 @@ __host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
 // mask_ao) for the attention and Wout_bar; h = round(round(gelu(h1)) *
 // mask_h) and h_bar * mask_h; p = round(round(p) * mask_p) for ctx and
 // v_bar, p_bar * mask_p before the JaSMin scatter, which with s_bar stays
-// on the pre-dropout p.
-template <typename T, bool kDrop>
+// on the pre-dropout p. kL2: L2 attention with biases (see the top of the
+// file), compiled apart as well.
+template <typename T, bool kDrop, bool kL2 = false>
 __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = args.n_pad, n_real = args.n_real, d = args.d;
   const int heads = args.heads, hd = d / heads, dh = args.dh, hc = args.hc;
-  const Plan pl = make_plan(n, d, hd, hc, args.cn_smem, sizeof(T), kDrop);
+  const Plan pl =
+      make_plan(n, d, hd, hc, args.cn_smem, sizeof(T), kDrop, kL2);
   const Drop& dr = args.drop;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int b = blockIdx.x;
@@ -305,6 +342,11 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* cb = reinterpret_cast<T*>(smem + pl.cb);
   unsigned* pbits = reinterpret_cast<unsigned*>(smem + pl.pbits);
+  // kL2: q2, k2, esum, then the rows' and the columns' sums of d2b
+  const size_t nv = align128((size_t)n * 4) / 4;
+  float* q2 = reinterpret_cast<float*>(smem + pl.l2);
+  float *k2 = q2 + nv, *esum = q2 + 2 * nv, *rsum = q2 + 3 * nv,
+        *csum = q2 + 4 * nv;
   T* const none = nullptr;  // q_bar, k_bar, v_bar go to global scratch only
   const int ls = pl.ld_st_a, lh = pl.ld_hd;
   for (int hh = 0; hh < heads; ++hh) {
@@ -314,13 +356,23 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
                        false, n, hd, d);
       __syncthreads();
       // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
-      round_block(st, ls, dst[j], lh, n, hd, j == 2 ? n_real : n);
+      round_block(st, ls, dst[j], lh, n, hd, j == 2 ? n_real : n, 1.0f, none,
+                  0, kL2 ? args.qkv_bias + j * d + hh * hd : nullptr);
       __syncthreads();
+    }
+    if (kL2) {
+      sq_rows(q, lh, n, hd, q2);
+      sq_rows(k, lh, n, hd, k2);
     }
     mm<false, true>(q, lh, k, lh, st, ls, false, n, n, hd);
     __syncthreads();
-    softmax_rows(st, ls, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
-                 pl.ld_pf);
+    // pf: the f32 p (softmax) or e (L2, with esum: p = e / esum)
+    if (kL2)
+      l2_rows(st, ls, q2, k2, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
+              pl.ld_pf, esum);
+    else
+      softmax_rows(st, ls, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
+                   pl.ld_pf);
     __syncthreads();
     if (kDrop && dr.th_p) {
       // pb = round(pb * mask_p); the keep bits stay for p_bar
@@ -341,10 +393,12 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
     mm<false, false>(pb, pl.ld_p, v, lh, st, ls, false, n, hd, n);
     __syncthreads();
     // ctx of this head for Wout_bar; q becomes round(q * tau) for k_bar
+    // (softmax; L2's k_bar takes q as it is)
     round_block(st, ls, none, 0, n, hd, n, 1.0f, ctx_g + hh * hd, d);
-    for (int r = warp; r < n; r += kWarps)
-      for (int c = lane; c < hd; c += 32)
-        q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * args.qk_scale);
+    if (!kL2)
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hd; c += 32)
+          q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * args.qk_scale);
     __syncthreads();
     // cb = round(gd Wout[h*hd:(h+1)*hd, :]^T)
     mm<false, true>(gda, pl.ld_cn, wout + (size_t)hh * hd * d, d, st, ls,
@@ -358,7 +412,8 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
     round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + 2 * d + hh * hd,
                 3 * d);
     __syncthreads();
-    // p_bar = cb v^T (+ JaSMin), then s_bar into pb
+    // p_bar = cb v^T (+ JaSMin), then s_bar (softmax) or round(d2b) (L2)
+    // into pb
     mm<false, true>(cb, lh, v, lh, st, ls, false, n, n, hd);
     __syncthreads();
     const size_t bh = (size_t)b * heads + hh;
@@ -366,10 +421,16 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
       float* prow = st + r * ls;
       const float* frow = pf + r * pl.ld_pf;
       if (r >= n_real) {
-        for (int c = lane; c < n; c += 32)
+        for (int c = lane; c < n; c += 32) {
           pb[r * pl.ld_p + c] = from_f<T>(0.0f);
+          if (kL2) prow[c] = 0.0f;
+        }
+        if (kL2 && lane == 0) rsum[r] = 0.0f;
         continue;
       }
+      // the f32 p of column c
+      const float es = kL2 ? esum[r] : 1.0f;
+      auto p_of = [&](int c) { return kL2 ? frow[c] / es : frow[c]; };
       if (kDrop && dr.th_p)
         for (int c = lane; c < n_real; c += 32)
           prow[c] *= kept(pbits + 4 * r, c) ? dr.sc_p : 0.0f;
@@ -378,7 +439,7 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
         const int* ji = args.jas_idx + bh * 4 * n;
         const float g4 = gj[4 * n + r];
         for (int c = lane; c < n_real; c += 32) {
-          const float pj = to_f(from_f<T>(frow[c]));  // pre-dropout, rounded
+          const float pj = to_f(from_f<T>(p_of(c)));  // pre-dropout, rounded
           const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
           const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
           float t = g4 * (lo * hi);
@@ -388,22 +449,53 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
         }
       }
       float dot = 0.0f;
-      for (int c = lane; c < n_real; c += 32) dot += prow[c] * frow[c];
+      for (int c = lane; c < n_real; c += 32) dot += prow[c] * p_of(c);
       dot = warp_sum(dot);
-      for (int c = lane; c < n; c += 32)
-        pb[r * pl.ld_p + c] =
-            from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+      if (kL2) {
+        // d2b in f32 stays in st for the column sums; pb = round(d2b)
+        float sum = 0.0f;
+        for (int c = lane; c < n; c += 32) {
+          const float v2 = c < n_real
+              ? -args.qk_scale * frow[c] * ((prow[c] - dot) / es) : 0.0f;
+          prow[c] = v2;
+          pb[r * pl.ld_p + c] = from_f<T>(v2);
+          sum += v2;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) rsum[r] = sum;
+      } else {
+        for (int c = lane; c < n; c += 32)
+          pb[r * pl.ld_p + c] =
+              from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+      }
     }
     __syncthreads();
-    // q_bar = s_bar k tau, k_bar = s_bar^T round(q tau)
+    if (kL2) {
+      // the columns' sums of d2b, each over the rows in order
+      for (int c = threadIdx.x; c < n; c += kThreads) {
+        float sum = 0.0f;
+        for (int r = 0; r < n; ++r) sum += st[r * ls + c];
+        csum[c] = sum;
+      }
+      __syncthreads();
+    }
+    // softmax: q_bar = s_bar k tau, k_bar = s_bar^T round(q tau); L2:
+    // q_bar = 2 q rsum - 2 round(d2b) k, k_bar = 2 k csum - 2 round(d2b)^T q
     mm<false, false>(pb, pl.ld_p, k, lh, st, ls, false, n, hd, n);
     __syncthreads();
-    round_block(st, ls, none, 0, n, hd, n, args.qk_scale, qkvb_g + hh * hd,
-                3 * d);
+    if (kL2)
+      l2_bar(st, ls, q, lh, rsum, n, hd, qkvb_g + hh * hd, 3 * d);
+    else
+      round_block(st, ls, none, 0, n, hd, n, args.qk_scale, qkvb_g + hh * hd,
+                  3 * d);
     __syncthreads();
     mm<true, false>(pb, pl.ld_p, q, lh, st, ls, false, n, hd, n);
     __syncthreads();
-    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + d + hh * hd, 3 * d);
+    if (kL2)
+      l2_bar(st, ls, k, lh, csum, n, hd, qkvb_g + d + hh * hd, 3 * d);
+    else
+      round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + d + hh * hd,
+                  3 * d);
     __syncthreads();
   }
 
@@ -414,7 +506,22 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   __syncthreads();
 
   // norm partials of this image: (ga, ba, gm, bm) sums over real rows
-  float* np = args.npart + (size_t)b * 4 * d;
+  float* np = args.npart + (size_t)b * (kL2 ? 8 : 4) * d;
+  if (kL2) {
+    // bias partials: qkv_bias_bar over [q_bar k_bar v_bar], out_bias_bar
+    // over gd (both written above, in x's dtype)
+    for (int c = threadIdx.x; c < 3 * d; c += kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r)
+        sum += to_f(qkvb_g[(size_t)r * 3 * d + c]);
+      np[4 * d + c] = sum;
+    }
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r) sum += to_f(gd_g[(size_t)r * d + c]);
+      np[7 * d + c] = sum;
+    }
+  }
   for (int c = threadIdx.x; c < d; c += kThreads) {
     float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
     for (int r = 0; r < n_real; ++r) {
@@ -574,7 +681,11 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 template <typename T>
 int launch(const Args& a, cudaStream_t st) {
   const bool drop = a.drop.th_p | a.drop.th_ao | a.drop.th_m;
-  auto rows = drop ? vfb_rows<T, true> : vfb_rows<T, false>;
+  const bool l2 = a.qkv_bias != nullptr;
+  if (l2 && (drop || a.out_bias == nullptr)) return (int)cudaErrorInvalidValue;
+  auto rows = l2     ? vfb_rows<T, false, true>
+              : drop ? vfb_rows<T, true>
+                     : vfb_rows<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return (int)err;
@@ -603,9 +714,10 @@ int launch(const Args& a, cudaStream_t st) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t all = ps.total + (size_t)4 * d;
+  const int nlen = (l2 ? 8 : 4) * d;
+  const size_t all = ps.total + (size_t)nlen;
   vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
-      a.wpart, a.splits, ps.total, a.npart, a.batch, 4 * d, a.out);
+      a.wpart, a.splits, ps.total, a.npart, a.batch, nlen, a.out);
   return (int)cudaGetLastError();
 }
 
@@ -619,16 +731,17 @@ extern "C" {
 
 // Chooses the plan of vfb_rows: whether cn and gd live in shared memory
 // (preferred) or in their global scratch, and the MLP chunk width; `drop`
-// asks for the dropout instance's plan. Returns 0 when the shape has a
-// plan, 1 when it has none.
+// asks for the dropout instance's plan, `l2` for the L2 instance's.
+// Returns 0 when the shape has a plan, 1 when it has none.
 int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-             int drop, int* cn_smem_out, int* hc_out, int* smem_out) {
+             int drop, int l2, int* cn_smem_out, int* hc_out,
+             int* smem_out) {
   if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   for (int cn_smem = 1; cn_smem >= 0; --cn_smem) {
     for (int hc : kChunks) {
       if (dh % hc) continue;
-      const Plan p =
-          make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes, drop != 0);
+      const Plan p = make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes,
+                               drop != 0, l2 != 0);
       if (p.total <= (size_t)kMaxSmem) {
         *cn_smem_out = cn_smem;
         *hc_out = hc;
@@ -643,7 +756,9 @@ int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // Launches the backward (three kernels) on `stream`; returns the first
 // cudaGetLastError() that is not 0, else 0. `tbytes` is x's element size.
 // A nonzero threshold in args->drop launches the dropout instance (planned
-// with drop=1), which also takes the gd2 scratch.
+// with drop=1), which also takes the gd2 scratch. Non-null biases launch
+// the L2 instance (planned with l2=1; no dropout), whose `out` and
+// `npart` hold 8D norm and bias entries.
 int vfb_launch(int tbytes, const Args* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? launch<bf16>(*args, st) : launch<float>(*args, st);

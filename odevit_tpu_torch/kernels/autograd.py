@@ -2,20 +2,21 @@
 ``torch.autograd.Function``s.
 
 ``FusedVF`` is the counterpart of ``odevit_tpu/kernels/vector_field.py::
-fused_vf``, ``FusedVFJasmin`` of ``fused_vf_jasmin`` and ``FusedVFAttn`` of
-``fused_vf_attn``: the forward runs ``vf_eval`` / ``vf_eval_jasmin`` /
-``vf_eval_attn`` and the backward ``vf_bwd`` (with the maps' cotangent for
-``FusedVFAttn``). On a CPU
+fused_vf`` (and, with L2 weights, of ``fused_vf_l2``), ``FusedVFJasmin`` of
+``fused_vf_jasmin`` (``fused_vf_l2_jasmin``) and ``FusedVFAttn`` of
+``fused_vf_attn`` (no L2 instance: it raises): the forward runs
+``vf_eval`` / ``vf_eval_jasmin`` / ``vf_eval_attn`` and the backward
+``vf_bwd`` (with the maps' cotangent for ``FusedVFAttn``). On a CPU
 tensor both run the plain versions; on a CUDA tensor they launch the
 kernels or raise.
 
 Both take the evaluation's float32 parameters (``params``: the two norms'
-scales and biases, then Wqkv, Wout, W1, W2 as ``[in, out]`` views) and
-the same weights already cast for the kernel (``w``, a ``VFWeights``
-made once per step). The cast happens outside the graph, but the
-gradients flow to ``params``, so they arrive in float32 as they do in
-JAX. Each Function saves x (and the statistics' columns) and recomputes
-the rest in the backward.
+scales and biases, then Wqkv, Wout, W1, W2 as ``[in, out]`` views, and an
+L2 field's two biases; ``vf_params``) and the same weights already cast
+for the kernel (``w``, a ``VFWeights`` made once per step). The cast
+happens outside the graph, but the gradients flow to ``params``, so they
+arrive in float32 as they do in JAX. Each Function saves x (and the
+statistics' columns) and recomputes the rest in the backward.
 
 All three also carry dropout (``seed``, ``drops`` = (attn, proj, mlp)),
 the counterparts of ``fused_vf_dropout``, ``fused_vf_jasmin_dropout`` and
@@ -83,10 +84,19 @@ class FusedVFAttn(torch.autograd.Function):
 
 def vf_params(vf) -> tuple:
     """A ``ParallelVectorField``'s float32 parameters in the order the
-    Functions take them (matrices as ``[in, out]`` views)."""
-    return (vf.norm_attn.weight, vf.norm_attn.bias, vf.norm_mlp.weight,
-            vf.norm_mlp.bias, vf.attn.qkv.weight.T, vf.attn.proj.weight.T,
-            vf.mlp.fc1.weight.T, vf.mlp.fc2.weight.T)
+    Functions take them (matrices as ``[in, out]`` views). With L2
+    attention, Wqkv is ``[Wq | Wk | Wv]`` and the biases ``[bq | bk | bv]``
+    and ``b_out`` follow W2, as ``fused_vf_l2_from_params`` concatenates
+    them; autograd carries their gradients back to the four projections."""
+    a = vf.attn
+    norms = (vf.norm_attn.weight, vf.norm_attn.bias, vf.norm_mlp.weight,
+             vf.norm_mlp.bias)
+    mlp = (vf.mlp.fc1.weight.T, vf.mlp.fc2.weight.T)
+    if not vf.l2_attention:
+        return (*norms, a.qkv.weight.T, a.proj.weight.T, *mlp)
+    return (*norms, torch.cat([a.q.weight.T, a.k.weight.T, a.v.weight.T], 1),
+            a.out.weight.T, *mlp, torch.cat([a.q.bias, a.k.bias, a.v.bias]),
+            a.out.bias)
 
 
 def fused_vf(x, w: VFWeights, params, *, num_heads: int, scaler: float,

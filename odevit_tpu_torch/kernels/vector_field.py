@@ -37,6 +37,16 @@ one CTA per image), ``vf_eval_tiled``, ``vf_eval_euler_tiled``,
 :data:`TOKEN_PAD`); tokens ``>= n_real`` are padding: they receive no
 attention, and whatever they hold never reaches a real token.
 
+L2 attention. Weights with biases (``VFWeights.qkv_bias`` and
+``out_bias``, the counterparts of ``fused_vf_l2`` and
+``fused_vf_l2_jasmin``) make the attention ``p = e / (sum(e) + 1e-8)``
+with ``e = exp(-(q2 + k2 - 2 q.k) / sqrt(hd))`` over the real keys, no
+max-subtraction, and add the biases to qkv (before it is rounded) and to
+attn_o. As in the TPU kernel, only the plain and JaSMin modes exist for
+it, without dropout; they run on one CTA per image only, counted as
+``vf_eval_l2`` and ``vf_eval_jasmin_l2``. A shape without that plan
+(:func:`l2_plan`, the same rule on either device) raises.
+
 Dropout. ``vf_eval`` and ``vf_eval_jasmin`` take ``seed`` and ``drops`` =
 (attn_drop, proj_drop, mlp_drop), the counterparts of ``fused_vf_dropout``
 and ``fused_vf_jasmin_dropout``: inverted dropout on gelu(h), mlp_o,
@@ -56,7 +66,7 @@ they raise.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -86,6 +96,14 @@ class VFWeights(NamedTuple):
     wout: torch.Tensor              # [D, D]
     w1: torch.Tensor                # [D, dh]
     w2: torch.Tensor                # [dh, D]
+    # L2 attention only: [bq | bk | bv] [3D] and the output bias [D], f32
+    qkv_bias: Optional[torch.Tensor] = None
+    out_bias: Optional[torch.Tensor] = None
+
+    @property
+    def l2(self) -> bool:
+        """Whether these are an L2-attention field's weights."""
+        return self.qkv_bias is not None
 
 
 def pad_tokens(n: int) -> int:
@@ -109,6 +127,15 @@ def _check(x, w: VFWeights, num_heads, n_real, mode, base):
               "norm_mlp_scale": (d,), "norm_mlp_bias": (d,),
               "wqkv": (d, 3 * d), "wout": (d, d), "w1": (d, dh),
               "w2": (dh, d)}
+    if (w.qkv_bias is None) != (w.out_bias is None):
+        raise ValueError("qkv_bias and out_bias come together")
+    if w.l2:
+        shapes.update(qkv_bias=(3 * d,), out_bias=(d,))
+        if mode != "plain":
+            raise ValueError(f"L2 attention has no {mode!r} mode (nor has "
+                             f"the TPU kernel): it serves through the "
+                             f"plain mode")
+        _check_l2_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1])
     for name, shape in shapes.items():
         t = getattr(w, name)
         if tuple(t.shape) != shape:
@@ -144,20 +171,107 @@ def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
     if mask_mo is not None:
         mlp_o = mlp_o * mask_mo
 
-    qkv = dot32(cn_a, w.wqkv).to(dtype)
-    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    qkv = dot32(cn_a, w.wqkv)
+    if w.l2:
+        qkv = qkv + w.qkv_bias
+    q, k, v = qkv.to(dtype).reshape(b, n, 3, num_heads, hd).permute(
+        2, 0, 3, 1, 4)
     key = torch.arange(n, device=x.device) < n_real
-    s = (q.float() * hd ** -0.5) @ k.float().transpose(-1, -2)
-    s = s.masked_fill(~key, float("-inf"))          # select, never 0 * x
-    p = torch.softmax(s, dim=-1).to(dtype)
+    if w.l2:
+        p = l2_probs(q, k, key)[0].to(dtype)
+    else:
+        s = (q.float() * hd ** -0.5) @ k.float().transpose(-1, -2)
+        s = s.masked_fill(~key, float("-inf"))      # select, never 0 * x
+        p = torch.softmax(s, dim=-1).to(dtype)
     v = torch.where(key[:, None], v, torch.zeros((), dtype=dtype,
                                                  device=x.device))
     p_used = p if mask_p is None else (p.float() * mask_p).to(dtype)
     ctx = dot32(p_used, v).to(dtype).transpose(1, 2).reshape(b, n, d)
     attn_o = dot32(ctx, w.wout)
+    if w.l2:
+        attn_o = attn_o + w.out_bias
     if mask_ao is not None:
         attn_o = attn_o * mask_ao
     return (mlp_o + attn_o) * scaler, p
+
+
+def l2_probs(q, k, key):
+    """(p f32, e, row sum + 1e-8) of L2 attention over the keys where
+    ``key`` holds, from the rounded q and k [B, H, n, hd]: e = exp(-(q2 +
+    k2 - 2 q.k) / sqrt(hd)), selected to 0 on padded keys, and p = e /
+    (sum(e) + 1e-8), with q2, k2 and q.k in float32, as the TPU kernel
+    takes them. No max is subtracted: a row whose exponentials all
+    underflow gives p = 0."""
+    qf, kf = q.float(), k.float()
+    q2 = (qf * qf).sum(-1, keepdim=True)
+    k2 = (kf * kf).sum(-1)[..., None, :]
+    dist2 = q2 + k2 - 2.0 * (qf @ kf.transpose(-1, -2))
+    e = torch.where(key, torch.exp(-dist2 * q.shape[-1] ** -0.5),
+                    torch.zeros((), device=q.device))
+    esum = e.sum(-1, keepdim=True) + 1e-8
+    return e / esum, e, esum
+
+
+# Shared memory of one CTA (csrc/vector_field.cu: kMaxSmem, kChunks)
+_MAX_SMEM = 232448
+_CHUNKS = (128, 64, 32, 16)
+
+
+def align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def cta_shape_ok(n_pad: int, n_real: int, d: int, num_heads: int,
+                 dh: int) -> bool:
+    """The one-image-per-CTA kernels' shape rule (``shape_ok`` in
+    ``csrc/vector_field.cu`` and ``csrc/vector_field_bwd.cu``)."""
+    return (num_heads > 0 and d % num_heads == 0 and d % 16 == 0
+            and (d // num_heads) % 16 == 0 and dh % 16 == 0
+            and n_pad % 16 == 0 and 0 < n_pad <= 128 and 0 < n_real <= n_pad)
+
+
+def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+            dh: int):
+    """(fused q|k|v product, MLP chunk width, shared-memory bytes) of the
+    L2 instance, or None where one image does not fit one CTA: ``vf_plan``
+    of ``csrc/vector_field.cu`` (its ``make_plan`` with the norms' region)
+    in Python, so that a CPU run routes as the card does.
+    ``chip_smoke.py`` holds it against ``vf_plan`` on the card."""
+    if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
+        return None
+    tb = torch.empty((), dtype=dtype).element_size()
+    hd, pad = d // num_heads, 16 // tb
+    for fused in (1, 0):
+        for hc in _CHUNKS:
+            if dh % hc:
+                continue
+            rows = [(d + pad) * tb,                         # cn
+                    (max(hc, 3 * hd if fused else hd, n_pad) + 4) * 4,
+                    (max(hc, hd) + pad) * tb,               # hbuf
+                    *[(hd + pad) * tb] * 3,                 # q, k, v
+                    (n_pad + pad) * tb,                     # p
+                    *([(d + 4) * 4] if tb == 2 else []),    # acc
+                    4, 4]                                   # q2, k2
+            total = sum(align128(n_pad * r) for r in rows)
+            if total <= _MAX_SMEM:
+                return fused, hc, total
+    return None
+
+
+def _check_l2_plan(dtype, n_pad, n_real, d, num_heads, dh):
+    if l2_plan(dtype, n_pad, n_real, d, num_heads, dh) is None:
+        raise NotImplementedError(
+            f"L2 attention runs on the one-image-per-CTA kernels only, and "
+            f"n_pad={n_pad}, D={d}, {num_heads} heads, dh={dh} in {dtype} "
+            f"has no such plan (ROADMAP.md §1 item 8: L2 at shapes "
+            f"without a one-CTA plan)")
+
+
+def _check_l2_drop(w: VFWeights, drops):
+    if w.l2 and any(drops):
+        raise ValueError("L2 attention has no dropout instance (nor has the "
+                         "TPU kernel: JAX's fused L2 path is "
+                         "deterministic-only)")
 
 
 def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
@@ -165,12 +279,20 @@ def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                   base=None, seed=None, drops=(0.0, 0.0, 0.0)):
     """The kernel's arithmetic in plain PyTorch."""
     _check(x, w, num_heads, n_real, mode, base)
+    _check_l2_drop(w, drops)
     f, _ = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     if mode == "euler":
         f = x.float() + dt * f
     elif mode == "base":
         f = base.float() + dt * f
     return f.to(x.dtype)
+
+
+def _check_no_l2_map(w: VFWeights):
+    if w.l2:
+        raise NotImplementedError(
+            "the attention-map mode has no L2 instance (JAX's fused L2 path "
+            "takes JaSMin from the statistics, never from the maps)")
 
 
 def _check_jasmin(n_real: int, jas_k: int):
@@ -188,6 +310,7 @@ def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
     the key mask, on padded keys). With dropout ``p`` is the pre-dropout
     map."""
     _check(x, w, num_heads, n_real, "plain", None)
+    _check_no_l2_map(w)
     f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     query = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
     p = torch.where(query, p, torch.zeros((), dtype=p.dtype,
@@ -207,6 +330,7 @@ def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
     pre-dropout p."""
     _check(x, w, num_heads, n_real, "plain", None)
     _check_jasmin(n_real, jas_k)
+    _check_l2_drop(w, drops)
     f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     stats, idx = jasmin_order_stats(p[..., :n_real], jas_k,
                                     return_indices=True)
@@ -219,9 +343,9 @@ def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     i, f, p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
-    lib.vf_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
+    lib.vf_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
     lib.vf_plan.restype = i
-    lib.vf_launch.argtypes = ([i] + [p] * 12 + [i] * 9
+    lib.vf_launch.argtypes = ([i] + [p] * 14 + [i] * 9
                               + [f, f, f, i, p, p, i, p, p, i, p])
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
@@ -252,15 +376,16 @@ def has_cta_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
 
 
 def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-                dh: int, drop: bool = False):
+                dh: int, drop: bool = False, l2: bool = False):
     """(fused q|k|v product, MLP chunk width, shared-memory bytes) of one
-    CTA (of the dropout instance with ``drop``); raises if the shape has
-    no plan (it does not fit one image per CTA)."""
+    CTA (of the dropout instance with ``drop``, of the L2 instance with
+    ``l2``); raises if the shape has no plan (it does not fit one image
+    per CTA)."""
     fused, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vf_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                          int(drop), ctypes.byref(fused), ctypes.byref(hc),
-                          ctypes.byref(smem)):
+                          int(drop), int(l2), ctypes.byref(fused),
+                          ctypes.byref(hc), ctypes.byref(smem)):
         raise ValueError(
             f"no one-image-per-CTA plan for n_pad={n_pad}, D={d}, "
             f"{num_heads} heads, dh={dh} in {dtype}: the fused kernel "
@@ -278,7 +403,10 @@ def _check_launch(x, w: VFWeights, base=None):
     if base is not None:
         tensors["base"] = base
     for name, t in tensors.items():
-        want = torch.float32 if name.startswith("norm") else x.dtype
+        if t is None:
+            continue
+        want = (torch.float32 if name.startswith("norm")
+                or name.endswith("_bias") else x.dtype)
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != want:
@@ -293,7 +421,8 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
             jas_kk=0, drop=None, chain=1):
     b, n, d = x.shape
     dh = w.w1.shape[1]
-    plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None)
+    plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None,
+                       w.l2)
     out = torch.empty_like(x)
     # f32: the kernel accumulates mlp_o + attn_o in the output buffer (a
     # chain keeps its state there, and its accumulator in a scratch), and
@@ -313,7 +442,8 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
     err = _library().vf_launch(
         x.element_size(), x.data_ptr(),
         base.data_ptr() if base is not None else None, out.data_ptr(), acc,
-        *(t.data_ptr() for t in w), b, n, n_real, d, num_heads, dh, *plan,
+        *(t.data_ptr() if t is not None else None for t in w), b, n,
+        n_real, d, num_heads, dh, *plan,
         scaler, dt, (d // num_heads) ** -0.5, MODES[mode],
         stats.data_ptr() if jas_kk else None,
         idx.data_ptr() if jas_kk else None, jas_kk,
@@ -343,8 +473,14 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
                              n_real=n_real, mode=mode, dt=dt, base=base,
                              seed=seed, drops=drops)
     _check(x, w, num_heads, n_real, mode, base)
+    _check_l2_drop(w, drops)
     _check_launch(x, w, base)
     drop = drop_spec(seed, drops)
+    if w.l2:
+        out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                            n_real=n_real, mode=mode, dt=dt, base=base)
+        count_launch("vf_eval_l2")
+        return out
     if not _cta_route(x, w, num_heads, n_real, drop):
         (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                n_real=n_real, mode=mode, drop=drop, dt=dt,
@@ -410,8 +546,15 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
                                     drops=drops)
     _check(x, w, num_heads, n_real, "plain", None)
     kk = _check_jasmin(n_real, jas_k)
+    _check_l2_drop(w, drops)
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
+    if w.l2:
+        out = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                      n_real=n_real, mode="plain", dt=0.0, base=None,
+                      jas_kk=kk)
+        count_launch("vf_eval_jasmin_l2")
+        return out
     if not _cta_route(x, w, num_heads, n_real, drop):
         out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, mode="jasmin", jas_kk=kk,
@@ -437,6 +580,7 @@ def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
         return vf_eval_attn_plain(x, w, num_heads=num_heads, scaler=scaler,
                                   n_real=n_real, seed=seed, drops=drops)
     _check(x, w, num_heads, n_real, "plain", None)
+    _check_no_l2_map(w)
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
     out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,

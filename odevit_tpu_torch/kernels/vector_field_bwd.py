@@ -17,6 +17,17 @@ cotangents (x_bar in x's dtype; the norms' and weights' in float32):
 Rows ``>= n_real`` of ``x`` and ``g`` are read as zeros and those of
 ``x_bar`` are zeros, so nothing a padded row holds reaches a cotangent.
 
+L2 attention (weights with ``qkv_bias`` and ``out_bias``; the TPU
+kernel's ``l2_attention`` with biases) returns 11 cotangents, the two
+biases' last, as ``pallas_vf_bwd(l2_attention=True, qkv_bias=...)`` does.
+It follows the TPU kernel's arithmetic, not autograd through the plain
+forward: with ``e_bar = (p_bar - sum(p_bar p)) / esum`` and ``d2b = -tau e
+e_bar`` in float32, ``q_bar = 2 q sum_k d2b - 2 round(d2b) k``, ``k_bar = 2
+k sum_q d2b - 2 round(d2b)^T q``, and the biases' cotangents are the
+column sums of ``round(g scaler)`` and of ``round([q_bar k_bar v_bar])``.
+It runs on one CTA per image only (``l2_bwd_plan``; counted as
+``vf_bwd_l2``), without dropout.
+
 Routes: where D >= 512 and dh >= 4 D (TS-Base at MLP ratio 4), the split
 route of ``vector_field_bwd_split.py`` runs, one MLP-branch and one
 attention-branch backward, on the GPU and in its plain twins on the CPU.
@@ -42,8 +53,9 @@ import torch
 from odevit_tpu_torch.kernels import count_launch
 from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
 from odevit_tpu_torch.kernels.tiled import tiled_backward
-from odevit_tpu_torch.kernels.vector_field import (VFWeights, _check,
-                                                   _check_launch)
+from odevit_tpu_torch.kernels.vector_field import (
+    _CHUNKS, _MAX_SMEM, VFWeights, _check, _check_launch, _check_l2_drop,
+    align128, cta_shape_ok, l2_probs)
 from odevit_tpu_torch.ops.dot import dot32
 
 # SMs of an H100: the weight products are split over rows so that about
@@ -123,13 +135,19 @@ def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
     cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
     gda = (gf if mask_ao is None else gf * mask_ao).to(dtype)
     t2 = lambda a: a.reshape(b * n, a.shape[-1])
-    qkv = dot32(cn_a, w.wqkv).to(dtype)
-    q, k, v = qkv.reshape(b, n, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    qkv = dot32(cn_a, w.wqkv)
+    if w.l2:
+        qkv = qkv + w.qkv_bias
+    q, k, v = qkv.to(dtype).reshape(b, n, 3, num_heads, hd).permute(
+        2, 0, 3, 1, 4)
     key = torch.arange(n, device=x.device) < n_real
     v = torch.where(key[:, None], v, torch.zeros((), dtype=dtype,
                                                  device=x.device))
-    s = (q.float() * tau) @ k.float().transpose(-1, -2)
-    pf = torch.softmax(s.masked_fill(~key, float("-inf")), dim=-1)
+    if w.l2:
+        pf, e, esum = l2_probs(q, k, key)
+    else:
+        s = (q.float() * tau) @ k.float().transpose(-1, -2)
+        pf = torch.softmax(s.masked_fill(~key, float("-inf")), dim=-1)
     pb = pf.to(dtype)
     pu = pb if mask_p is None else (pb.float() * mask_p).to(dtype)
 
@@ -150,14 +168,27 @@ def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
                                     zero)
     if g_jas is not None:
         p_bar = p_bar + _jas_pbar(pb, g_jas, jas_idx, n_real)
-    s_bar = pf * (p_bar - (p_bar * pf).sum(-1, keepdim=True))
-    s_bar = torch.where(key & row, s_bar, zero).to(dtype)
-    q_bar = (dot32(s_bar, k) * tau).to(dtype)
-    k_bar = dot32(s_bar.transpose(-1, -2),
-                  (q.float() * tau).to(dtype)).to(dtype)
+    dot = (p_bar * pf).sum(-1, keepdim=True)
+    if w.l2:
+        d2b = (-tau) * e * ((p_bar - dot) / esum)
+        d2b = torch.where(key & row, d2b, zero)
+        d2b_d = d2b.to(dtype)
+        qf, kf = q.float(), k.float()
+        q_bar = (2.0 * qf * d2b.sum(-1, keepdim=True)
+                 - 2.0 * dot32(d2b_d, k)).to(dtype)
+        k_bar = (2.0 * kf * d2b.sum(-2)[..., None]
+                 - 2.0 * dot32(d2b_d.transpose(-1, -2), q)).to(dtype)
+    else:
+        s_bar = torch.where(key & row, pf * (p_bar - dot), zero).to(dtype)
+        q_bar = (dot32(s_bar, k) * tau).to(dtype)
+        k_bar = dot32(s_bar.transpose(-1, -2),
+                      (q.float() * tau).to(dtype)).to(dtype)
     qkv_bar = torch.cat([merge(q_bar), merge(k_bar), merge(v_bar)], -1)
-    return (dot32(qkv_bar, w.wqkv.T), dot32(t2(cn_a).T, t2(qkv_bar)),
+    bars = (dot32(qkv_bar, w.wqkv.T), dot32(t2(cn_a).T, t2(qkv_bar)),
             dot32(t2(ctx).T, t2(gda)))
+    if w.l2:
+        bars += (qkv_bar.float().sum((0, 1)), gda.float().sum((0, 1)))
+    return bars
 
 
 def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
@@ -170,13 +201,14 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
     is rounded before and after its mask, as in the forward."""
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
+    _check_l2_drop(w, drops)
     b, n, d = x.shape
     mask_h, mask_mo, mask_ao, mask_p = masks_plain(
         b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
         device=x.device, n_pad=n) or (None,) * 4
     row, cent, gf = bwd_inputs(x, g, scaler=scaler, n_real=n_real)
     m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo)
-    a_bar, wqkv_bar, wout_bar = attn_bars(
+    a_bar, wqkv_bar, wout_bar, *bias_bars = attn_bars(
         x, w, cent, gf, row, num_heads=num_heads, n_real=n_real,
         g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, mask_ao=mask_ao,
         mask_p=mask_p)
@@ -186,11 +218,23 @@ def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     x_bar = torch.where(row, x_bar, torch.zeros((), device=x.device))
     return (x_bar.to(x.dtype), (a_bar * cent).sum((0, 1)), a_bar.sum((0, 1)),
             (m_bar * cent).sum((0, 1)), m_bar.sum((0, 1)),
-            wqkv_bar, wout_bar, w1_bar, w2_bar)
+            wqkv_bar, wout_bar, w1_bar, w2_bar, *bias_bars)
 
 
 def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
     _check(x, w, num_heads, n_real, "plain", None)
+    if w.l2:
+        if g_attn is not None:
+            raise NotImplementedError("the maps' cotangent has no L2 "
+                                      "instance (nor has JAX's fused L2 "
+                                      "path)")
+        if l2_bwd_plan(x.dtype, x.shape[1], n_real, x.shape[2], num_heads,
+                       w.w1.shape[1]) is None:
+            raise NotImplementedError(
+                f"the L2 backward runs on one CTA per image only, and "
+                f"{tuple(x.shape)} with {num_heads} heads in {x.dtype} has "
+                f"no such plan (ROADMAP.md §1 item 8: L2 at shapes without "
+                f"a one-CTA plan)")
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != x {tuple(x.shape)}")
     b, n, _ = x.shape
@@ -226,7 +270,7 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
         "w1", "w2", "xbar", "cnm", "cna", "gd", "gd2", "ctx", "h", "h1b",
-        "qkvb", "macc", "npart", "wpart", "out")]
+        "qkvb", "macc", "npart", "wpart", "out", "qkv_bias", "out_bias")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
             "smem", "splits")]
@@ -243,7 +287,7 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         lib = build.load("vector_field_bwd")
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.vfb_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 3
+        lib.vfb_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
         lib.vfb_plan.restype = i
         lib.vfb_launch.argtypes = [i, ctypes.POINTER(_Args), p]
         lib.vfb_launch.restype = i
@@ -253,15 +297,45 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-             dh: int, drop: bool = False):
+def l2_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                dh: int):
     """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
-    of the per-image kernel (its dropout instance with ``drop``); raises
-    if the shape has no plan."""
+    of the L2 instance of the per-image kernel, or None where one image
+    does not fit one CTA: ``vfb_plan`` of ``csrc/vector_field_bwd.cu`` (its
+    ``make_plan`` with the L2 region) in Python, so that a CPU run routes
+    as the card does. ``chip_smoke.py`` holds it against ``vfb_plan``."""
+    if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
+        return None
+    tb = torch.empty((), dtype=dtype).element_size()
+    n, hd, pad = n_pad, d // num_heads, 16 // tb
+    for cn_smem in (1, 0):
+        for hc in _CHUNKS:
+            if dh % hc:
+                continue
+            off = 2 * align128(n * (d + pad) * tb) if cn_smem else 0
+            off += align128(n * 4)                              # mean
+            mlp = (2 * align128(n * (hc + 4) * 4)
+                   + align128(n * (hc + pad) * tb))
+            attn = (align128(n * (max(hd, n) + 4) * 4)          # st_a
+                    + align128(n * (n + 4) * 4)                 # pf
+                    + align128(n * (n + pad) * tb)              # pb
+                    + 4 * align128(n * (hd + pad) * tb)         # q k v cb
+                    + 5 * align128(n * 4))                      # L2
+            total = off + max(mlp, attn, align128(n * (d + 4) * 4))
+            if total <= _MAX_SMEM:
+                return cn_smem, hc, total
+    return None
+
+
+def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+             dh: int, drop: bool = False, l2: bool = False):
+    """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
+    of the per-image kernel (its dropout instance with ``drop``, its L2
+    instance with ``l2``); raises if the shape has no plan."""
     cn_smem, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vfb_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                           int(drop), ctypes.byref(cn_smem),
+                           int(drop), int(l2), ctypes.byref(cn_smem),
                            ctypes.byref(hc),
                            ctypes.byref(smem)):
         raise ValueError(
@@ -295,12 +369,13 @@ def weight_splits(rows: int, d: int, dh: int, shapes=None) -> int:
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
            n_real: int, g_jas=None, jas_idx=None, g_attn=None, seed=None,
            drops=(0.0, 0.0, 0.0), plain: bool = False):
-    """The 9 cotangents of one evaluation (see the module docstring). A
-    CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
-    runs :func:`vf_bwd_plain`. Shapes of the split route
-    (``vector_field_bwd_split.split_route``) take it on either device."""
+    """The 9 cotangents of one evaluation (11 with L2 attention; see the
+    module docstring). A CUDA tensor launches the kernels; a CPU tensor,
+    or ``plain=True``, runs :func:`vf_bwd_plain`. Shapes of the split
+    route (``vector_field_bwd_split.split_route``) take it on either
+    device; L2 never does."""
     from odevit_tpu_torch.kernels import vector_field_bwd_split as split
-    if split.split_route(x.shape[-1], w.w1.shape[1]):
+    if not w.l2 and split.split_route(x.shape[-1], w.w1.shape[1]):
         return split.vf_bwd_split(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, seed=seed,
@@ -314,13 +389,13 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     drop = drop_spec(seed, drops)
     check_operands(x, g=(g, x.dtype), g_jas=(g_jas, torch.float32),
                    jas_idx=(jas_idx, torch.int32), g_attn=(g_attn, x.dtype))
+    _check_l2_drop(w, drops)
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
     splits = weight_splits(rows, d, dh)
-    if g_attn is not None or not has_bwd_plan(x.dtype, n, n_real, d,
-                                              num_heads, dh,
-                                              drop is not None):
+    if not w.l2 and (g_attn is not None or not has_bwd_plan(
+            x.dtype, n, n_real, d, num_heads, dh, drop is not None)):
         xbar, out = tiled_backward(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
@@ -328,8 +403,9 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         count_launch("vf_bwd_tiled" if drop is None else "vf_bwd_tiled_drop")
         return _split_bars(xbar, out, d, dh)
     cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
-                                 drop is not None)
+                                 drop is not None, w.l2)
     wtotal = 4 * d * d + 2 * d * dh
+    nlen = (8 if w.l2 else 4) * d      # the norms' (and biases') sums
 
     def scratch(width, dtype=x.dtype):
         return torch.empty(rows, width, device=x.device, dtype=dtype)
@@ -340,9 +416,10 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             "ctx": scratch(d),
             "h": scratch(dh), "h1b": scratch(dh), "qkvb": scratch(3 * d),
             "macc": scratch(d, torch.float32),
-            "npart": torch.empty(b, 4, d, device=x.device),
+            "npart": torch.empty(b, nlen, device=x.device),
             "wpart": torch.empty(splits, wtotal, device=x.device),
-            "out": torch.empty(wtotal + 4 * d, device=x.device)}
+            "out": torch.empty(wtotal + nlen, device=x.device),
+            "qkv_bias": w.qkv_bias, "out_bias": w.out_bias}
     args = _Args(
         x=x.data_ptr(), g=g.data_ptr(),
         g_jas=g_jas.data_ptr() if g_jas is not None else None,
@@ -362,14 +439,18 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     if err:
         raise RuntimeError("vector-field backward launch failed: "
                            + _library().vfb_error_string(err).decode())
-    count_launch("vf_bwd" if drop is None else "vf_bwd_drop")
+    count_launch("vf_bwd_l2" if w.l2
+                 else "vf_bwd" if drop is None else "vf_bwd_drop")
     return _split_bars(bufs["xbar"], bufs["out"], d, dh)
 
 
 def _split_bars(xbar, out, d: int, dh: int):
-    """x_bar and the flat [Wqkv, Wout, W1, W2, ga, ba, gm, bm] buffer ->
-    the 9 cotangents in the order of the module docstring."""
+    """x_bar and the flat [Wqkv, Wout, W1, W2, ga, ba, gm, bm(, qkv_bias,
+    out_bias)] buffer -> the 9 (11) cotangents in the order of the module
+    docstring."""
     sizes = [3 * d * d, d * d, d * dh, dh * d, d, d, d, d]
-    wqkv, wout, w1, w2, ga, ba, gm, bm = torch.split(out, sizes)
+    if out.numel() > sum(sizes):
+        sizes += [3 * d, d]
+    wqkv, wout, w1, w2, ga, ba, gm, bm, *biases = torch.split(out, sizes)
     return (xbar, ga, ba, gm, bm, wqkv.view(d, 3 * d), wout.view(d, d),
-            w1.view(d, dh), w2.view(dh, d))
+            w1.view(d, dh), w2.view(dh, d), *biases)

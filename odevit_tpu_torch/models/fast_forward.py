@@ -14,6 +14,10 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
     stage as one launch that writes ``base + c*dt*f(y)``; any other grid
     or fixed-grid solver calls the kernel in plain-f mode through the
     generic integrator;
+  * L2 attention takes JAX's route for it: the generic integrator on
+    every fixed grid and dopri5 for dopri5, each evaluation a plain-f
+    launch of the kernel's L2 instance; never the Euler, stage-advance or
+    chained routes (``ODEVIT_EULER_CHAIN`` is ignored, as JAX ignores it);
   * ``ODEVIT_EULER_CHAIN=c`` opts the Euler route into chains of ``c``
     steps per launch (``vf_euler_chain``) where JAX chains: ``c`` above 1
     and dividing the step count. At shapes on the tiled route a chain runs
@@ -23,8 +27,8 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
 
 On the GPU every evaluation launches a kernel; ``plain=True`` runs the
 same routes through the kernels' plain PyTorch versions instead, for
-comparisons. Macaron is not ported yet and raises; L2 attention and time
-conditioning raise when the model is built.
+comparisons. Macaron is not ported yet and raises; time conditioning
+raises when the model is built.
 """
 
 from __future__ import annotations
@@ -79,7 +83,7 @@ def fast_forward(model, images, *, t_grid=None,
                                   [ts[0], ts[-1]], rtol=model.solver_rtol,
                                   atol=model.solver_atol)
         y = states[-1]
-    elif model.solver == "euler" and uniform:
+    elif model.solver == "euler" and uniform and not model.l2_attention:
         dt = float(ts[1] - ts[0])
         steps = len(ts) - 1
         # ODEVIT_EULER_CHAIN=c chains c Euler steps per launch where c > 1
@@ -95,7 +99,7 @@ def fast_forward(model, images, *, t_grid=None,
         else:
             for _ in range(steps):
                 y = vf(y, "euler", dt)
-    elif model.solver == "rk4" and uniform:
+    elif model.solver == "rk4" and uniform and not model.l2_attention:
         dt = float(ts[1] - ts[0])
         y = tokens
         for _ in range(len(ts) - 1):

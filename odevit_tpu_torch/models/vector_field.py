@@ -3,8 +3,9 @@
 Counterpart of ``ParallelVectorField`` in
 ``odevit_tpu/models/vector_field.py``:
 ``dx/dt = (MLP(CN_m(x)) + Attn(CN_a(x))) * scaler`` — parallel sublayers,
-pre-CenterNorm, no residual (the solver adds it). Time conditioning, L2
-attention and the Macaron field are not ported yet.
+pre-CenterNorm, no residual (the solver adds it). The attention is softmax,
+or with ``l2_attention`` the L2-distance variant with biased projections.
+Time conditioning and the Macaron field are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ import torch
 from torch import nn
 
 from odevit_tpu_torch.kernels.vector_field import VFWeights
-from odevit_tpu_torch.ops.attention import SoftmaxSelfAttention
+from odevit_tpu_torch.ops.attention import (L2SelfAttention,
+                                            SoftmaxSelfAttention)
 from odevit_tpu_torch.ops.center_norm import CenterNorm
 from odevit_tpu_torch.ops.mlp import Mlp
 
@@ -29,16 +31,15 @@ class ParallelVectorField(nn.Module):
                  l2_attention: bool = False, time_conditioning: bool = False,
                  dtype=None, *, generator: torch.Generator):
         super().__init__()
-        if l2_attention:
-            raise NotImplementedError("L2 attention is not ported yet")
         if time_conditioning:
             raise NotImplementedError("time conditioning is not ported yet")
         self.num_heads = num_heads
+        self.l2_attention = l2_attention
         self.scaler = drift_scaler(emulate_depth, time_interval)
         self.norm_attn = CenterNorm(dim, dtype=dtype)
         self.norm_mlp = CenterNorm(dim, dtype=dtype)
-        self.attn = SoftmaxSelfAttention(dim, num_heads, dtype=dtype,
-                                         generator=generator)
+        attn = L2SelfAttention if l2_attention else SoftmaxSelfAttention
+        self.attn = attn(dim, num_heads, dtype=dtype, generator=generator)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype,
                        generator=generator)
 
@@ -50,13 +51,22 @@ class ParallelVectorField(nn.Module):
 
     def kernel_weights(self, dtype) -> VFWeights:
         """The weights as the fused kernel takes them: ``[in, out]``
-        matrices in ``dtype``, norms in float32."""
-        def mat(lin):
-            return lin.weight.detach().T.to(dtype).contiguous()
-        return VFWeights(
-            self.norm_attn.weight.detach().float().contiguous(),
-            self.norm_attn.bias.detach().float().contiguous(),
-            self.norm_mlp.weight.detach().float().contiguous(),
-            self.norm_mlp.bias.detach().float().contiguous(),
-            mat(self.attn.qkv), mat(self.attn.proj),
-            mat(self.mlp.fc1), mat(self.mlp.fc2))
+        matrices in ``dtype``, norms in float32. L2 attention's
+        ``wqkv`` is ``[Wq | Wk | Wv]``, and its biases come in float32 as
+        ``qkv_bias = [bq | bk | bv]`` and ``out_bias``."""
+        def f32(t):
+            return t.detach().float().contiguous()
+
+        def mat(*lins):
+            return torch.cat([lin.weight.detach().T for lin in lins],
+                             1).to(dtype).contiguous()
+        a = self.attn
+        norms = (f32(self.norm_attn.weight), f32(self.norm_attn.bias),
+                 f32(self.norm_mlp.weight), f32(self.norm_mlp.bias))
+        mlp = (mat(self.mlp.fc1), mat(self.mlp.fc2))
+        if not self.l2_attention:
+            return VFWeights(*norms, mat(a.qkv), mat(a.proj), *mlp)
+        return VFWeights(*norms, mat(a.q, a.k, a.v), mat(a.out), *mlp,
+                         qkv_bias=f32(torch.cat([a.q.bias, a.k.bias,
+                                                 a.v.bias])),
+                         out_bias=f32(a.out.bias))

@@ -9,7 +9,8 @@ the fused kernel is :func:`odevit_tpu_torch.models.fast_forward.fast_forward`.
 The dropout rates (``attn_drop``, ``proj_drop``, ``mlp_drop``) are read by
 the fused training step only; ``forward`` and ``fast_forward`` evaluate
 without dropout, as JAX's ``models/fast_forward.py`` does. dopri5 runs
-in ``fast_forward`` only, as in JAX.
+in ``fast_forward`` only, as in JAX. With ``l2_attention`` the vector
+field's attention is the L2-distance variant (``ops/attention.py``).
 Attention outputs, JaSMin, control points, stability bounds and the loss
 are not ported yet and raise.
 """
@@ -63,6 +64,7 @@ class ViTODE(nn.Module):
         self.solver = solver
         self.solver_rtol = solver_rtol
         self.solver_atol = solver_atol
+        self.l2_attention = l2_attention
         self.add_distillation_token = add_distillation_token
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop

@@ -1,9 +1,16 @@
-"""Softmax self-attention of the ODE-ViT vector field.
+"""Self-attention of the ODE-ViT vector field.
 
-Counterpart of ``SoftmaxSelfAttention`` in ``odevit_tpu/ops/attention.py``:
-one fused QKV projection, no bias, per-head scaled dot-product softmax.
-Matmuls accumulate in float32; the returned maps are post-softmax. The
-L2-distance variant is not ported yet.
+Counterparts of ``odevit_tpu/ops/attention.py``:
+
+* ``SoftmaxSelfAttention``: one fused QKV projection, no bias, per-head
+  scaled dot-product softmax; the returned maps are post-softmax.
+* ``L2SelfAttention``: the Lipschitz-controlled variant. Separate biased
+  q, k, v and out projections; weights ``exp(-||q_i - k_j||^2 / sqrt(hd))``
+  divided by (row sum + 1e-8), with the distance in the expanded form
+  ``q2 + k2 - 2 q.k`` and no max-subtraction, as JAX computes it (rows
+  whose exponentials all underflow give p = 0).
+
+Matmuls accumulate in float32.
 """
 
 from __future__ import annotations
@@ -50,4 +57,41 @@ class SoftmaxSelfAttention(nn.Module):
         out = dot32(attn.to(dtype), v.to(dtype))
         out = _merge_heads(out).to(dtype)
         out = dot32(out, self.proj.weight.T.to(dtype)).to(dtype)
+        return out, attn.to(dtype)
+
+
+class L2SelfAttention(nn.Module):
+    """L2-distance multi-head self-attention with biased projections."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.q = spectral_linear(dim, dim, generator, bias=True)
+        self.k = spectral_linear(dim, dim, generator, bias=True)
+        self.v = spectral_linear(dim, dim, generator, bias=True)
+        self.out = spectral_linear(dim, dim, generator, bias=True)
+
+    def forward(self, x):
+        """[B, N, D] -> (out [B, N, D], maps [B, H, N, N])."""
+        dtype = self.dtype or x.dtype
+
+        def proj(lin, y):
+            return (dot32(y.to(dtype), lin.weight.T.to(dtype))
+                    + lin.bias.float())
+
+        q = _split_heads(proj(self.q, x), self.num_heads)
+        k = _split_heads(proj(self.k, x), self.num_heads)
+        v = _split_heads(proj(self.v, x), self.num_heads)
+        scale = (self.dim // self.num_heads) ** -0.5
+        q2 = (q * q).sum(-1, keepdim=True)
+        k2 = (k * k).sum(-1)[:, :, None, :]
+        dist2 = q2 + k2 - 2.0 * (q @ k.transpose(-1, -2))
+        attn = torch.exp(-dist2 * scale)
+        attn = attn / (attn.sum(-1, keepdim=True) + 1e-8)
+        out = _merge_heads(dot32(attn.to(dtype), v.to(dtype))).to(dtype)
+        out = (dot32(out, self.out.weight.T.to(dtype))
+               + self.out.bias.float()).to(dtype)
         return out, attn.to(dtype)

@@ -33,13 +33,21 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         "vf.norm_attn.bias": t(vf["norm_attn"]["bias"]),
         "vf.norm_mlp.weight": t(vf["norm_mlp"]["scale"]),
         "vf.norm_mlp.bias": t(vf["norm_mlp"]["bias"]),
-        "vf.attn.qkv.weight": t(vf["attn"]["qkv_kernel"]).T.contiguous(),
-        "vf.attn.proj.weight": t(vf["attn"]["out_kernel"]).T.contiguous(),
         "vf.mlp.fc1.weight": t(vf["mlp"]["fc1_kernel"]).T.contiguous(),
         "vf.mlp.fc2.weight": t(vf["mlp"]["fc2_kernel"]).T.contiguous(),
         "head.weight": t(tree["head"]["kernel"]).T.contiguous(),
         "head.bias": t(tree["head"]["bias"]),
     }
+    attn = vf["attn"]
+    if "q_kernel" in attn:
+        # L2 attention: four biased projections
+        for name in ("q", "k", "v", "out"):
+            sd[f"vf.attn.{name}.weight"] = t(
+                attn[f"{name}_kernel"]).T.contiguous()
+            sd[f"vf.attn.{name}.bias"] = t(attn[f"{name}_bias"])
+    else:
+        sd["vf.attn.qkv.weight"] = t(attn["qkv_kernel"]).T.contiguous()
+        sd["vf.attn.proj.weight"] = t(attn["out_kernel"]).T.contiguous()
     if "register_tokens" in pe:
         sd["patch_embed.register_tokens"] = t(pe["register_tokens"])
     if "dist_token" in pe:

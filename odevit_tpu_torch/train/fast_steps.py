@@ -3,7 +3,8 @@ teacher-student trajectory distillation, through the fused kernels.
 
 Free training, the counterpart of
 ``odevit_tpu/train/fast_steps.py::fast_free_forward`` and
-``make_fast_free_train_step`` in their deterministic softmax route:
+``make_fast_free_train_step`` in their deterministic route, softmax or L2
+attention:
 
   * patch embed, tokens padded once to a multiple of ``TOKEN_PAD``;
   * the solver grid's head (all but the JaSMin window) runs plain-mode
@@ -17,6 +18,13 @@ Free training, the counterpart of
   * the backward of every evaluation is ``vf_bwd``; no remat (at B=1024
     the 48 saved inputs take about 1.5 GB);
   * AdamW after the global-norm clip (``train/state.py``).
+
+With L2 attention the same route runs the kernels' L2 instances
+(``fused_vf``/``fused_vf_jasmin`` with the field's biases in ``params``),
+as JAX runs ``fused_vf_l2`` and ``fused_vf_l2_jasmin``. As in JAX, it is
+deterministic only (dropout raises) and needs ``jasmin_k + 1`` tokens
+(fewer raise: JAX's L2 path has no map route), and the distillation step
+rejects it.
 
 With nonzero dropout rates (the model's ``attn_drop``, ``proj_drop``,
 ``mlp_drop``) the free step takes JAX's dropout route: the step's ``rng``
@@ -60,8 +68,7 @@ through their plain versions, for comparisons. Not ported yet, and
 raising: residual stashing, the mesh (data-parallel) step, the teacher
 cache, and the attention-map route of the fused steps for sequences
 shorter than ``jasmin_k + 1`` tokens (ROADMAP.md §1, the map route of the
-fused steps); L2 attention and time conditioning raise when the model is
-built.
+fused steps); time conditioning raises when the model is built.
 """
 
 from __future__ import annotations
@@ -94,7 +101,11 @@ def drop_rates(model):
     return check_rates([model.attn_drop, model.proj_drop, model.mlp_drop])
 
 
-def _check_route(jasmin_k: int, n: int):
+def _check_route(jasmin_k: int, n: int, l2: bool = False):
+    if l2 and n < max(jasmin_k, 1) + 1:
+        raise ValueError(f"the fused L2 path needs at least "
+                         f"{max(jasmin_k, 1) + 1} tokens for k={jasmin_k} "
+                         f"(JAX's has no map route either); got {n}")
     if n < max(jasmin_k, 1) + 1:
         raise NotImplementedError(
             f"{n} tokens are too few for the in-kernel JaSMin statistics "
@@ -116,7 +127,7 @@ def jasmin_window(num_eval_steps: int, solver: str):
 def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
     tokens = model.patch_embed(pixels)
     b, n, d = tokens.shape
-    _check_route(jasmin_k, n)
+    _check_route(jasmin_k, n, model.l2_attention)
     n_pad = pad_tokens(n)
     if n_pad != n:
         tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
@@ -188,6 +199,9 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
     takes ``step_seeds``, one int32 seed per solver step (the train step
     draws them with :func:`draw_step_seeds`)."""
     drops = drop_rates(model)
+    if any(drops) and model.l2_attention:
+        raise ValueError("the fused L2 path is deterministic only (as "
+                         "JAX's): the model has dropout")
     if any(drops):
         _check_seeds(step_seeds, model.num_eval_steps - 1)
         if model.solver not in ("euler", "rk4"):
@@ -305,6 +319,9 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     if model.solver != "euler":
         raise ValueError("the fused distillation step integrates the "
                          f"reference's Euler grid, not {model.solver!r}")
+    if model.l2_attention:
+        raise ValueError("the fused distillation step takes a softmax "
+                         "student, as JAX's does")
     T = model.num_eval_steps
     num_steps = T - 1
     drops = drop_rates(model)

@@ -146,7 +146,7 @@ def test_vector_field_matches_flax_and_its_kernel_weights():
     assert drift_scaler(12.0, 12.0) == 1.0
 
 
-@pytest.mark.parametrize("flag", ["l2_attention", "time_conditioning"])
+@pytest.mark.parametrize("flag", ["time_conditioning"])
 def test_unported_vector_field_options_raise(flag):
     with pytest.raises(NotImplementedError):
         ParallelVectorField(32, 2, generator=gen(), **{flag: True})

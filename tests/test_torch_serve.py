@@ -186,3 +186,26 @@ def test_engine_at_the_ts_base_token_count():
             np.testing.assert_allclose(got, want.numpy(), atol=2e-5,
                                        rtol=1e-4)
         assert eng.stats()["images"] == 4
+
+
+def test_engine_over_an_l2_model():
+    """An L2-attention model (its attention biases drawn nonzero) served
+    through the engine, which ``fast_forward`` sends along the generic
+    integrator, matches a direct ``fast_forward``."""
+    m = ViTODE(img_size=16, patch_size=4, embed_dim=32, num_heads=2,
+               mlp_ratio=2.0, num_classes=7, emulate_depth=4,
+               time_interval=1.0, num_eval_steps=5, solver="rk4",
+               register_tokens=2, l2_attention=True, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for lin in (m.vf.attn.q, m.vf.attn.k, m.vf.attn.v, m.vf.attn.out):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=g) * 0.1)
+    rng = np.random.default_rng(2)
+    with ServingEngine(m, batch_buckets=(2, 4), max_delay_ms=0.5,
+                       device="cpu") as eng:
+        for b in (1, 3, 6):
+            x = rng.standard_normal((b, 16, 16, 3)).astype(np.float32)
+            got = eng.submit(x).result(timeout=60)
+            np.testing.assert_allclose(got, direct(m, x), atol=2e-5,
+                                       rtol=1e-4)
+        assert eng.stats()["images"] == 10
