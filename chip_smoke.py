@@ -86,6 +86,15 @@ Phases:
      the engine and by dopri5 (f32, B=8), 3 free-training steps at B=1024
      through the L2 instances and the plain path, and each L2 instance
      alone at B=1024 (it runs after phase 11);
+  23. the Macaron family (cells cifar100-macaron-serve-rk4-13-b1024 and
+     cifar100-macaron-train-b1024, JAX's ``macaron_b1024``; it runs after
+     phase 22): ``macaron_eval`` in its three modes and ``macaron_bwd``
+     (16 cotangents) against their plain versions at B=4 in bf16 and f32
+     (perturbed weights, NaN padding, repeats, the Python plans against
+     the CUDA ones); the bf16 model (float32 states by promotion) served
+     at B=1024 by rk4 on 13 points (48 launches) and Euler on 13 (12),
+     and through the engine; 3 training steps through the kernels and the
+     plain path; each instance alone at B=1024;
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
   last, the kernels line (launch counts of the main paths, times, bounds)
@@ -2712,6 +2721,379 @@ def phase_l2_kernel_timing(images_u8):
 
 
 
+# ---- the Macaron family at the CIFAR shape (JAX's macaron_b1024) ----
+
+MACARON_SHAPE = dict(img_size=32, patch_size=4, embed_dim=192, num_heads=3,
+                     mlp_ratio=4.0, num_classes=100, emulate_depth=12.0,
+                     time_interval=12.0, num_eval_steps=13, solver="rk4")
+MACARON_TRAIN_CELL = "cifar100-macaron-train-b1024"
+MACARON_SERVE_CELL = "cifar100-macaron-serve-rk4-13-b1024"
+# the H100's float32 peak outside the tensor cores: the bound of the
+# float32 instances, whose inputs are float32
+PEAK_F32_FLOPS = 67e12
+
+
+def macaron_model(solver="rk4", steps=13, seed=0):
+    """``benchmarks/train_speed.py::bench_macaron``'s model: dtype bf16 with
+    float32 parameters, so its tokens and states are float32."""
+    import torch
+    from odevit_tpu_torch.models.macaron import ViTMacaron
+    return ViTMacaron(**{**MACARON_SHAPE, "solver": solver,
+                         "num_eval_steps": steps}, dtype=torch.bfloat16,
+                      device="cuda", seed=seed)
+
+
+def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
+                  backward: bool = False):
+    """(bound_ms, bound_by) of one Macaron evaluation (``backward``: its
+    backward): two FFN halves, the q|k|v and output projections and the
+    attention at the real token count (99.1 MFLOP per image at 65 tokens,
+    ``analysis/flops.py::macaron_fwd_flops``); the backward recomputes them
+    and does two products for each, 3x. Over the bf16 tensor peak for the
+    bf16 instance and the float32 peak for the float32 one, against the
+    state in and out (and g, x_bar), the weights and, for the backward,
+    their float32 cotangents over the memory rate."""
+    flops = b * (n_real * (8 * d * dh + 8 * d * d) + 4 * n_real * n_real * d)
+    weights = 4 * d * d + 2 * d * dh
+    states = 3 if backward else 2
+    nbytes = (states * b * n_real * d + weights) * itemsize + 12 * d * 4
+    if backward:
+        flops *= 3
+        nbytes += (weights + 11 * d + dh + 1) * 4
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def macaron_plans_agree():
+    """The Python plans that route Macaron on either device
+    (``macaron_plan``, ``macaron_bwd_plan``) against the CUDA sources'
+    ``mac_plan``/``mcb_plan`` over a sweep of shapes."""
+    import torch
+    from odevit_tpu_torch.kernels.macaron import kernel_plan, macaron_plan
+    from odevit_tpu_torch.kernels.macaron_bwd import (kernel_bwd_plan,
+                                                      macaron_bwd_plan)
+    shapes = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_pad in (16, 32, 64, 80, 96, 128, 144):
+            for d, heads in ((32, 2), (64, 2), (128, 2), (192, 3), (256, 4),
+                             (384, 6), (192, 12)):
+                for dh in (d, 2 * d, 4 * d):
+                    args = (dtype, n_pad, n_pad - 3, d, heads, dh)
+                    check(macaron_plan(*args) == kernel_plan(*args),
+                          f"Macaron plan {args}: python "
+                          f"{macaron_plan(*args)}, mac_plan "
+                          f"{kernel_plan(*args)}")
+                    check(macaron_bwd_plan(*args) == kernel_bwd_plan(*args),
+                          f"Macaron bwd plan {args}: python "
+                          f"{macaron_bwd_plan(*args)}, mcb_plan "
+                          f"{kernel_bwd_plan(*args)}")
+                    shapes += 1
+    return shapes
+
+
+def phase_macaron_kernels_vs_plain():
+    """``macaron_eval`` (plain, euler, base) and ``macaron_bwd`` (16
+    cotangents) against their plain versions at B=4, the cell's shape (65
+    tokens padded to 80, D=192, 3 heads, dh=768), in bf16 and f32, with
+    every parameter perturbed by normal(0, 0.1) (the FFN's 1e-3 init would
+    compare near-zeros); repeats bit-identical; NaN and garbage in the
+    padded rows inert; the Python plans equal to the CUDA ones."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron_bwd import BAR_NAMES, macaron_bwd
+    before = dict(launch_counts)
+    model = macaron_model()
+    gen = torch.Generator().manual_seed(21)
+    with torch.no_grad():
+        for p in model.vf.parameters():
+            p.add_(torch.randn(p.shape, generator=gen).cuda() * 0.1)
+    b, n_real, n_pad, d = 4, 65, 80, 192
+    kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+    g = torch.Generator(device="cuda").manual_seed(22)
+
+    def routed(fn, want):
+        counts = dict(launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: launch_counts[k] - counts[k] for k in counts
+               if launch_counts[k] != counts[k]}
+        check(got == {want: 1}, f"Macaron launched {got}, want {want}")
+        return out
+
+    results = []
+    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        w = model.vf.kernel_weights(dtype)
+        x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+        x[:, n_real:] = 0
+        x = x.to(dtype)
+        base = torch.randn(b, n_pad, d, generator=g, device="cuda").to(dtype)
+        gx = torch.randn(b, n_pad, d, generator=g, device="cuda")
+        gx[:, n_real:] = 0
+        gx = gx.to(dtype)
+        r = {"dtype": str(dtype), "tol": tol,
+             "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
+        modes = {"plain": {}, "euler": dict(dt=0.25),
+                 "base": dict(dt=0.25, base=base)}
+        for mode, extra in modes.items():
+            got = routed(lambda: macaron_eval(x, w, mode=mode, **kw, **extra),
+                         "macaron_eval")
+            want = macaron_eval(x, w, mode=mode, plain=True, **kw, **extra)
+            again = macaron_eval(x, w, mode=mode, **kw, **extra)
+            torch.cuda.synchronize()
+            r[mode] = rel_err(got[:, :n_real], want[:, :n_real])
+            check(bool(torch.isfinite(got[:, :n_real]).all()),
+                  f"Macaron {dtype} {mode}: non-finite output")
+            check(r[mode] <= tol, f"Macaron fwd {dtype} {mode}: {r[mode]}")
+            check(torch.equal(got, again), f"Macaron fwd {dtype} {mode} "
+                  f"not repeatable")
+        got = routed(lambda: macaron_bwd(x, w, gx, **kw), "macaron_bwd")
+        want = macaron_bwd(x, w, gx, plain=True, **kw)
+        again = macaron_bwd(x, w, gx, **kw)
+        torch.cuda.synchronize()
+        check(len(got) == 16 and got[-1].shape == (1,),
+              f"Macaron bwd gave {len(got)} cotangents")
+        errs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                            c[:, :n_real] if nm == "x" else c)
+                for nm, a, c in zip(BAR_NAMES, got, want)}
+        r["bwd"] = errs
+        r["bwd_repeat_bit_identical"] = all(
+            torch.equal(a, c) for a, c in zip(got, again))
+        check(all(bool(torch.isfinite(a).all()) for a in got),
+              f"Macaron bwd {dtype}: non-finite cotangent")
+        check(max(errs.values()) <= tol, f"Macaron bwd {dtype}: {errs}")
+        check(r["bwd_repeat_bit_identical"], f"Macaron bwd {dtype} not "
+              f"repeatable")
+        dirty = x.clone()
+        dirty[:, n_real:n_real + 5] = float("nan")
+        dirty[:, n_real + 5:] = 1e30 if dtype == torch.float32 else 3e38
+        gdirty = gx.clone()
+        gdirty[:, n_real:] = 7.0
+        same = all(torch.equal(macaron_eval(dirty, w, mode=m, **kw, **e)
+                               [:, :n_real],
+                               macaron_eval(x, w, mode=m, **kw, **e)
+                               [:, :n_real]) for m, e in modes.items())
+        same = same and all(torch.equal(a, c) for a, c in zip(
+            macaron_bwd(dirty, w, gdirty, **kw), got))
+        r["nan_padding_unchanged"] = same
+        check(same, f"Macaron {dtype}: padded rows reached a real row")
+        results.append(r)
+    shapes = macaron_plans_agree()
+    launch_counts.update(before)           # comparisons do not count
+    emit("macaron_kernels_vs_plain", weight_noise=0.1,
+         plans_agree_over_shapes=shapes, results=results)
+
+
+def phase_macaron_serving(images_u8, rng):
+    """Cell cifar100-macaron-serve-rk4-13-b1024: the Macaron model served by
+    ``fast_forward`` at B=1024, rk4 on 13 points on the fused stage-advance
+    route (48 launches: one euler-mode and three base-mode per step, f32
+    states), against the plain path; Euler on 13 points (12 euler-mode
+    launches) beside it; the engine over the rk4 model."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    x = make_preprocess(dtype=torch.bfloat16)(images_u8)
+    report = {}
+    models = {"rk4-13": macaron_model(), "euler-13": macaron_model("euler")}
+    for name, model in models.items():
+        evals = 48 if name == "rk4-13" else 12
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got = fast_forward(model, x)["logits"]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == {"macaron_eval": evals},
+              f"Macaron {name}: launches {launches}")
+        want = fast_forward(model, x, plain=True)["logits"]
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        check(bool(torch.isfinite(got).all())
+              and tuple(got.shape) == (BATCH, 100),
+              f"Macaron {name}: logits {got.shape}")
+        check(err <= TOL_LOGITS, f"Macaron {name}: logits rel err {err}")
+        check(top1 >= MIN_TOP1_AGREEMENT,
+              f"Macaron {name}: top-1 agreement {top1}")
+        ms = cuda_ms(lambda: fast_forward(model, x), iters=3)
+        plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True),
+                           iters=2)
+        report[name] = {
+            "launches": launches, "rel_err": err, "tol": TOL_LOGITS,
+            "top1_agreement": top1, "logit_scale": want.abs().max().item(),
+            "ms_per_forward": ms, "img_per_s": BATCH / ms * 1e3,
+            "ms_per_eval": ms / evals, "plain_ms_per_forward": plain_ms,
+            "plain_img_per_s": BATCH / plain_ms * 1e3, "peak_mem_gb": peak}
+    engine = phase_serving(models["rk4-13"], rng, counter="macaron_eval",
+                           name="macaron_serving_engine")
+    emit("macaron_serving", cell=MACARON_SERVE_CELL, batch=BATCH,
+         state_dtype="float32", results=report, engine_launches=engine)
+    return report
+
+
+def macaron_train_runs(images_u8, labels):
+    """3 steps of ``make_fast_macaron_train_step`` through the kernels and
+    through the plain path from the same weights and batch; then one more
+    step of each timed by CUDA events around its parts, and one profiled
+    step of the kernel path."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.train.fast_steps import (
+        fast_macaron_forward, make_fast_macaron_train_step)
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    pre = make_preprocess(dtype=torch.bfloat16)
+    batch = {"pixel_values": images_u8, "labels": labels}
+    runs = {}
+    for path in ("kernels", "plain"):
+        model = macaron_model()
+        state = create_train_state(model, make_optimizer(1e-4))
+        step = make_fast_macaron_train_step(model, preprocess_fn=pre,
+                                            plain=path == "plain")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "kernels":
+            reset_launch_counts()
+        losses, ms, metrics, first_grad = [], [], None, None
+        for i in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(metrics["loss"].item())
+            if i == 0:
+                first_grad = grad_vector(model)
+        launches = dict(launch_counts) if path == "kernels" else None
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        loss, _ = fast_macaron_forward(model, pre(images_u8), labels,
+                                       plain=path == "plain")
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        state.apply_gradients()
+        ev[3].record()
+        torch.cuda.synchronize()
+        if path == "kernels":
+            profile = profile_step(step, state, batch)
+        runs[path] = {
+            "loss": losses, "ms_per_step": ms,
+            "img_per_s_best_of_2_3": BATCH / min(ms[1:]) * 1e3,
+            "grad_norm_last": metrics["grad_norm"].item(),
+            "acc_last": metrics["acc"].item(), "peak_mem_gb": peak,
+            "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
+                         "backward": ev[1].elapsed_time(ev[2]),
+                         "optimizer": ev[2].elapsed_time(ev[3])},
+            "launches": launches, "first_grad": first_grad}
+        del model, state, step
+    k, p = runs["kernels"], runs["plain"]
+    cos = torch.nn.functional.cosine_similarity(
+        k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
+    per_step = {n: c / TRAIN_STEPS for n, c in k["launches"].items()}
+    return runs, profile, cos, loss_rel, per_step
+
+
+def phase_macaron_train(images_u8, labels):
+    """Cell cifar100-macaron-train-b1024 (JAX's ``macaron_b1024``): the
+    fused Macaron step (rk4-13, CE, AdamW at 1e-4 after the clip), 48
+    ``macaron_eval`` and 48 ``macaron_bwd`` per step in f32."""
+    runs, profile, cos, loss_rel, per_step = macaron_train_runs(images_u8,
+                                                                labels)
+    k, p = runs["kernels"], runs["plain"]
+    emit("macaron_train_profile", **profile)
+    emit("macaron_train", cell=MACARON_TRAIN_CELL, batch=BATCH,
+         steps=TRAIN_STEPS, solver="rk4-13", state_dtype="float32",
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train("macaron_train", runs, cos, loss_rel, per_step,
+                {"macaron_eval": 48, "macaron_bwd": 48})
+    return k["launches"]
+
+
+def phase_macaron_kernel_timing(images_u8):
+    """Each Macaron instance alone at B=1024 on the main path's inputs (the
+    first state of one image batch: float32, as the cells run it; the bf16
+    instance on the same state rounded) against its plain version, with
+    its bound."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron_bwd import BAR_NAMES, macaron_bwd
+    from odevit_tpu_torch.models.fast_forward import pad_to_kernel
+    before = dict(launch_counts)
+    model = macaron_model()
+    out = {}
+    with torch.no_grad():
+        tokens, n_real = pad_to_kernel(model.embed(make_preprocess(
+            dtype=torch.bfloat16)(images_u8), fused=True))
+        check(tokens.dtype == torch.float32, f"Macaron tokens {tokens.dtype}")
+        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+        g = torch.Generator(device="cuda").manual_seed(23)
+        gx = torch.randn(tokens.shape, generator=g, device="cuda") * 1e-3
+        gx[:, n_real:] = 0
+        for dtype, tol in ((torch.float32, TOL_F32),
+                           (torch.bfloat16, TOL_BF16)):
+            x = tokens.to(dtype).contiguous()
+            gd = gx.to(dtype)
+            w = model.vf.kernel_weights(dtype)
+            isz = x.element_size()
+            f = macaron_eval(x, w, **kw)
+            pf = macaron_eval(x, w, plain=True, **kw)
+            bars = macaron_bwd(x, w, gd, **kw)
+            pbars = macaron_bwd(x, w, gd, plain=True, **kw)
+            torch.cuda.synchronize()
+            ferr = rel_err(f[:, :n_real], pf[:, :n_real])
+            berrs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
+                                 c[:, :n_real] if nm == "x" else c)
+                     for nm, a, c in zip(BAR_NAMES, bars, pbars)}
+            check(ferr <= tol, f"B=1024 Macaron fwd {dtype}: {ferr}")
+            check(max(berrs.values()) <= tol,
+                  f"B=1024 Macaron bwd {dtype}: {berrs}")
+            slow = dtype == torch.float32
+            out[str(dtype)] = {
+                "macaron_eval": {
+                    "max_abs_err": (f[:, :n_real].float()
+                                    - pf[:, :n_real].float()).abs().max()
+                    .item(), "rel_err": ferr,
+                    "ms": cuda_ms(lambda: macaron_eval(x, w, **kw), iters=5),
+                    "plain_ms": cuda_ms(lambda: macaron_eval(
+                        x, w, plain=True, **kw), iters=2),
+                    **dict(zip(("bound_ms", "bound_by"), macaron_bound(
+                        BATCH, n_real, 192, 768, isz)))},
+                "macaron_bwd": {
+                    "max_abs_err": max((a.float() - c.float()).abs().max()
+                                       .item() for a, c in zip(bars[1:],
+                                                               pbars[1:])),
+                    "max_abs_err_x": (bars[0][:, :n_real].float()
+                                      - pbars[0][:, :n_real].float()).abs()
+                    .max().item(), "rel_errs": berrs,
+                    "ms": cuda_ms(lambda: macaron_bwd(x, w, gd, **kw),
+                                  iters=3 if slow else 5),
+                    "plain_ms": cuda_ms(lambda: macaron_bwd(
+                        x, w, gd, plain=True, **kw), iters=2),
+                    **dict(zip(("bound_ms", "bound_by"), macaron_bound(
+                        BATCH, n_real, 192, 768, isz, backward=True)))}}
+    launch_counts.update(before)           # comparisons do not count
+    emit("macaron_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
+         f"dh=768", results=out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2751,6 +3133,12 @@ def main() -> int:
     l2_serve_launches = phase_l2_serving(images, report, rng)
     l2_launches = phase_l2_train(images, labels, train)
     l2_timing = phase_l2_kernel_timing(images)
+    # the Macaron family at the CIFAR shape: serving and the macaron_b1024
+    # step, on the kernels' float32 instances
+    phase_macaron_kernels_vs_plain()
+    mac_serve = phase_macaron_serving(images, rng)
+    mac_launches = phase_macaron_train(images, labels)
+    mac_timing = phase_macaron_kernel_timing(images)
     cifar_euler = models["euler-49"]
     del models
     # the distillation slice at the TS-Base shape
@@ -2890,7 +3278,25 @@ def main() -> int:
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")},
             "library_ms": None})
-    check(len(kernels) == 25, f"{len(kernels)} kernels in the line")
+    for name, source, line in (("macaron_eval", "macaron.cu", 45),
+                               ("macaron_bwd", "macaron_bwd.cu", 218)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"odevit_tpu_torch/csrc/{source}",
+            "replaces": f"odevit_tpu/kernels/macaron.py:{line}",
+            # the Macaron train cell's 3 steps (float32 instance); serving's
+            # rk4-13 forward beside it, and the bf16 instance's numbers
+            "launches": mac_launches[name],
+            **({"launches_serve": mac_serve["rk4-13"]["launches"][name]}
+               if name == "macaron_eval" else {}),
+            **{k: v for k, v in mac_timing["torch.float32"][name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+            "library_ms": None,
+            "bf16": {k: v for k, v in mac_timing["torch.bfloat16"][name]
+                     .items() if k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")}})
+    check(len(kernels) == 27, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,685 @@
+// Backward of one evaluation of the Macaron vector field, on Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel odevit_tpu/kernels/macaron.py::
+// _macaron_bwd_kernel. Given x, the weights and the cotangent g of
+// f = x3 * scaler (macaron.cu), it produces x_bar and the 15 parameter
+// cotangents in f32, as the TPU kernel does:
+//
+//   forward chain, recomputed:
+//     z1 = LN1(x), h_1 = round(gelu(z1 W1 + b1)), f1 = h_1 W2 + b2,
+//     x1 = x + rs/2 f1;  z2 = LN2(x1), qkv = round(z2 Wqkv + qkv_bias),
+//     p = softmax per head (f32, and rounded), ctx = round(p v),
+//     ao = ctx Wout + out_bias, x2 = x1 + rs ao;  z3 = LN3(x2),
+//     h_3, f3 as for the first half.
+//   backward chain, with x3_bar = g * scaler (f32):
+//     FFN half (out_bar = rs/2 x_bar of its output state):
+//       ob = round(out_bar), W2_bar += h^T ob, b2_bar += sum(out_bar),
+//       h1_bar = round((ob W2^T) gelu'(h1)), W1_bar += z^T h1_bar,
+//       b1_bar += sum(h1_bar), z_bar = h1_bar W1^T
+//     LayerNorm (the TPU kernel's ln_bwd): s_bar += sum(z_bar chat),
+//       b_bar += sum(z_bar), u = z_bar s,
+//       x_bar += rstd (u - mean(u) - chat mean(u chat))
+//     attention: ao_bar = rs x2_bar, out_bias_bar = sum(ao_bar) in f32,
+//       aod = round(ao_bar), Wout_bar = ctx^T aod, per head
+//       cb = round(aod Wout_h^T), v_bar = round(p)^T cb, p_bar = cb v^T,
+//       s_bar = round(p (p_bar - sum(p_bar p))) with the f32 p,
+//       q_bar = round(tau s_bar k), k_bar = round(s_bar^T round(q tau));
+//       qkv_bias_bar = sum(qkv_bar), Wqkv_bar = z2^T qkv_bar,
+//       z2_bar = qkv_bar Wqkv^T
+//     rs_bar = 1/2 sum(x3_bar f3) + sum(x2_bar ao) + 1/2 sum(x1_bar f1)
+// rounding where the TPU kernel rounds (to x's dtype), every product
+// accumulated in f32. Rows >= n_real of x and g are read as zeros and
+// x_bar's are written as zeros, so nothing a padded row holds reaches a
+// cotangent.
+//
+// Bound. The backward recomputes the forward's products (99.1 MFLOP per
+// image at the Macaron CIFAR shape) and does two for each of them: about
+// 3x the forward, 304 GFLOP at B=1024, 0.31 ms at the H100's 989 TFLOP/s
+// in bf16. Operations bound it.
+//
+// Design. The TPU kernel recomputes the whole chain in VMEM and emits the
+// 16 cotangents in one pass; its f32 hidden alone (80 x 768 x 4 bytes)
+// exceeds a CTA's shared memory. Here, as in vector_field_bwd.cu, three
+// kinds of launch, all deterministic:
+//  1. mcb_rows: one CTA of 12 warps per image runs the chain forward and
+//     back. The FFN halves run over dh in chunks (h1 recomputed per
+//     chunk), the attention head by head in shared memory. The image's
+//     f32 states (x1, x2, f1, f3, ao), its running x_bar and z_bar, and
+//     the operands of the weight products (z1, z3, z2, h_1, h_3, h1_bar
+//     of each half, ob of each half, ctx, aod, qkv, qkv_bar, in x's
+//     dtype) go to a global workspace; the column sums (the six LayerNorm
+//     vectors, the four biases) and rs_bar go to per-image partials, each
+//     summed over rows in a fixed order.
+//  2. vfb_wgrad_bf16 (vector_field_bwd.cu; in f32 mcb_wgrad_f32), twice:
+//     Wqkv_bar = z2^T qkv_bar and
+//     Wout_bar = ctx^T aod over the B*n_pad rows; the shared FFN's
+//     W1_bar = [z1; z3]^T [h1_bar_1; h1_bar_3] and W2_bar = [h_1; h_3]^T
+//     [ob_1; ob_3], one product each over the two halves' rows stacked.
+//     Each CTA sums one 64x64 tile over a fixed slice of rows into its
+//     own partial buffer.
+//  3. vfb_reduce: sums the weight partials and the per-image partials in
+//     a fixed order. Two runs give bit-identical cotangents.
+// Products are the repo's own WMMA code: bf16 fragments, or in f32 the
+// split-TF32 passes of macaron.cu (mcb_wgrad_f32 for the weight products);
+// nothing goes to a library.
+
+#define VFB_KERNELS_ONLY
+#include "vector_field_bwd.cu"
+#define MAC_HELPERS_ONLY
+#include "macaron.cu"
+
+// Everything one backward needs, passed by pointer from Python (ctypes).
+// The workspace pointers are per-row buffers of B * n_pad rows (2 * B *
+// n_pad for the two FFN halves' operands, the first half's rows first).
+struct McbArgs {
+  const void* x;
+  const void* g;
+  const float* ln1s;
+  const float* ln1b;
+  const float* ln2s;
+  const float* ln2b;
+  const float* ln3s;
+  const float* ln3b;
+  const void* wqkv;
+  const float* qkv_bias;
+  const void* wout;
+  const float* out_bias;
+  const void* w1;
+  const float* b1;
+  const void* w2;
+  const float* b2;
+  const float* rs;
+  void* xbar;     // [B*n_pad, D] x's dtype
+  void* z13;      // [2, B*n_pad, D]
+  void* z2;       // [B*n_pad, D]
+  void* h13;      // [2, B*n_pad, dh]
+  void* h1b13;    // [2, B*n_pad, dh]
+  void* ob13;     // [2, B*n_pad, D]
+  void* qkv;      // [B*n_pad, 3D]
+  void* ctx;      // [B*n_pad, D]
+  void* aod;      // [B*n_pad, D]
+  void* qkvbar;   // [B*n_pad, 3D]
+  float* st32;    // [7, B*n_pad, D]: x1, x2, f1, f3, ao, x_bar, z_bar
+  float* npart;   // [B, NP] per-image partials (see np_offsets)
+  float* wpart;   // [splits, W]
+  float* out;     // [W + NP]: Wqkv, Wout, W1, W2, then the partials' sums
+  int batch, n_pad, n_real, d, heads, dh, hc, smem, splits;
+  float scaler, qk_scale;
+};
+
+namespace macb {
+
+using namespace vf;
+
+// Offsets in one image's partials: the six LayerNorm vectors (s1, b1, s2,
+// b2, s3, b3), qkv_bias [3D], out_bias [D], b1 [dh], b2 [D], rs [1].
+struct NpOff {
+  int ln, qkvb, outb, b1, b2, rs, total;
+};
+
+__host__ __device__ inline NpOff np_offsets(int d, int dh) {
+  NpOff o;
+  o.ln = 0;
+  o.qkvb = 6 * d;
+  o.outb = 9 * d;
+  o.b1 = 10 * d;
+  o.b2 = 10 * d + dh;
+  o.rs = 11 * d + dh;
+  o.total = 11 * d + dh + 1;
+  return o;
+}
+
+// Shared memory of one CTA: a reduction scratch and the rows' LayerNorm
+// statistics, the f32 stage of the products, then a region used by the FFN
+// phases (a second f32 stage and the rounded hidden chunk) and again by
+// the attention phases (the f32 and rounded p, q, k, v and cb of a head).
+// kernels/macaron_bwd.py::macaron_bwd_plan repeats this layout in Python.
+struct Plan {
+  size_t red, st, st2, hb, pf, pb, q, k, v, cb, total;
+  int ld_st, ld_st2, ld_hb, ld_pf, ld_pb, ld_hd;
+};
+
+__host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
+                                          int tb) {
+  const int pad = 16 / tb;
+  Plan p;
+  p.ld_st = imax(imax(hc, 3 * hd), n) + 4;
+  p.ld_st2 = hc + 4;
+  p.ld_hb = hc + pad;
+  p.ld_pf = n + 4;
+  p.ld_pb = n + pad;
+  p.ld_hd = hd + pad;
+  size_t off = 0;
+  p.red = off;  off += align128((size_t)(kWarps + 2 * 16 * kMaxRowTiles) * 4);
+  p.st = off;   off += align128((size_t)n * p.ld_st * 4);
+  size_t m = off;
+  p.st2 = m;    m += align128((size_t)n * p.ld_st2 * 4);
+  p.hb = m;     m += align128((size_t)n * p.ld_hb * tb);
+  size_t a = off;
+  p.pf = a;     a += align128((size_t)n * p.ld_pf * 4);
+  p.pb = a;     a += align128((size_t)n * p.ld_pb * tb);
+  p.q = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.k = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.v = a;      a += align128((size_t)n * p.ld_hd * tb);
+  p.cb = a;     a += align128((size_t)n * p.ld_hd * tb);
+  p.total = m > a ? m : a;
+  return p;
+}
+
+// The block's sum of one value per thread, in a fixed order: each warp's
+// butterfly, then the warps in order. `red` holds kWarps floats.
+__device__ float block_sum(float v, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  v = warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+// The backward of z = LN(xs) * s + b over the image's rows, given z_bar
+// (f32, global): x_bar += rstd (u - mean(u) - chat mean(u chat)) with
+// u = z_bar s, and the image's partials s_part = sum_r z_bar chat,
+// b_part = sum_r z_bar over the real rows, in row order. `stats` holds 2n
+// floats (each row's mean and rstd). Rows >= zero_from of xs read as zeros.
+template <typename S>
+__device__ void ln_bwd(const S* xs, const float* zbar, const float* s,
+                       float* xbar, int n, int n_real, int d, int zero_from,
+                       float* stats, float* s_part, float* b_part) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* mean = stats;
+  float* rstd = stats + n;
+  auto xv = [&](int r, int c) {
+    return r < zero_from ? to_f(xs[(size_t)r * d + c]) : 0.0f;
+  };
+  for (int r = warp; r < n; r += kWarps) {
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32) sum += xv(r, c);
+    const float mu = warp_sum(sum) / d;
+    float var = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      const float cv = xv(r, c) - mu;
+      var += cv * cv;
+    }
+    var = warp_sum(var);
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rsqrtf(var / d + mac::kLnEps);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float s1 = 0.0f, s0 = 0.0f;
+    for (int r = 0; r < n_real; ++r) {
+      const float zb = zbar[(size_t)r * d + c];
+      s1 += zb * ((xv(r, c) - mean[r]) * rstd[r]);
+      s0 += zb;
+    }
+    s_part[c] = s1;
+    b_part[c] = s0;
+  }
+  for (int r = warp; r < n; r += kWarps) {
+    const float mu = mean[r], rs = rstd[r];
+    float su = 0.0f, suc = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      const float u = zbar[(size_t)r * d + c] * s[c];
+      su += u;
+      suc += u * ((xv(r, c) - mu) * rs);
+    }
+    su = warp_sum(su) / d;
+    suc = warp_sum(suc) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float u = zbar[(size_t)r * d + c] * s[c];
+      const float chat = (xv(r, c) - mu) * rs;
+      xbar[(size_t)r * d + c] += rs * (u - su - chat * suc);
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) mcb_rows(McbArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, n_real = a.n_real, d = a.d, heads = a.heads;
+  const int hd = d / heads, dh = a.dh, hc = a.hc;
+  const Plan pl = make_plan(n, d, hd, hc, sizeof(T));
+  const NpOff no = np_offsets(d, dh);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x;
+  const size_t rows = (size_t)a.batch * n;
+  const size_t row0 = (size_t)b * n;
+  const float rs = a.rs[0], hrs = 0.5f * rs;
+
+  const T* x = static_cast<const T*>(a.x) + row0 * d;
+  const T* g = static_cast<const T*>(a.g) + row0 * d;
+  const T* wqkv = static_cast<const T*>(a.wqkv);
+  const T* wout = static_cast<const T*>(a.wout);
+  const T* w1 = static_cast<const T*>(a.w1);
+  const T* w2 = static_cast<const T*>(a.w2);
+  T* z1 = static_cast<T*>(a.z13) + row0 * d;
+  T* z3 = static_cast<T*>(a.z13) + (rows + row0) * d;
+  T* z2 = static_cast<T*>(a.z2) + row0 * d;
+  T* h_1 = static_cast<T*>(a.h13) + row0 * dh;
+  T* h_3 = static_cast<T*>(a.h13) + (rows + row0) * dh;
+  T* h1b_1 = static_cast<T*>(a.h1b13) + row0 * dh;
+  T* h1b_3 = static_cast<T*>(a.h1b13) + (rows + row0) * dh;
+  T* ob_1 = static_cast<T*>(a.ob13) + row0 * d;
+  T* ob_3 = static_cast<T*>(a.ob13) + (rows + row0) * d;
+  T* qkv = static_cast<T*>(a.qkv) + row0 * 3 * d;
+  T* ctx = static_cast<T*>(a.ctx) + row0 * d;
+  T* aod = static_cast<T*>(a.aod) + row0 * d;
+  T* qkvbar = static_cast<T*>(a.qkvbar) + row0 * 3 * d;
+  float* x1 = a.st32 + row0 * d;
+  float* x2 = a.st32 + (rows + row0) * d;
+  float* f1 = a.st32 + (2 * rows + row0) * d;
+  float* f3 = a.st32 + (3 * rows + row0) * d;
+  float* ao = a.st32 + (4 * rows + row0) * d;
+  float* xb = a.st32 + (5 * rows + row0) * d;
+  float* zb = a.st32 + (6 * rows + row0) * d;
+  float* np = a.npart + (size_t)b * no.total;
+
+  float* red = reinterpret_cast<float*>(smem + pl.red);
+  float* stats = red + kWarps;
+  float* st = reinterpret_cast<float*>(smem + pl.st);
+  float* st2 = reinterpret_cast<float*>(smem + pl.st2);
+  T* hb = reinterpret_cast<T*>(smem + pl.hb);
+  float* pf = reinterpret_cast<float*>(smem + pl.pf);
+  T* pb = reinterpret_cast<T*>(smem + pl.pb);
+  T* q = reinterpret_cast<T*>(smem + pl.q);
+  T* k = reinterpret_cast<T*>(smem + pl.k);
+  T* v = reinterpret_cast<T*>(smem + pl.v);
+  T* cb = reinterpret_cast<T*>(smem + pl.cb);
+  const int ls = pl.ld_st, lh = pl.ld_hd;
+  T* const none = nullptr;
+
+  // ---- the forward chain ----
+  // the first FFN half: h_1 to the workspace, f1 = h_1 W2 + b2 (f32)
+  auto ffn_fwd = [&](const T* zz, T* hh, float* ff) {
+    for (int c0 = 0; c0 < dh; c0 += hc) {
+      mac::prod<false, false>(zz, d, w1 + c0, dh, st, ls, false, n, hc, d);
+      __syncthreads();
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hc; c += 32) {
+          const T h = from_f<T>(gelu(st[r * ls + c] + a.b1[c0 + c]));
+          hb[r * pl.ld_hb + c] = h;
+          hh[(size_t)r * dh + c0 + c] = h;
+        }
+      __syncthreads();
+      mac::prod<false, false>(hb, pl.ld_hb, w2 + (size_t)c0 * d, d, ff, d, c0 > 0, n,
+                       d, hc);
+      __syncthreads();
+    }
+    mac::add_row_vector(ff, d, a.b2, 1.0f, n, d);
+    __syncthreads();
+  };
+
+  mac::layer_norm_rows(x, d, a.ln1s, a.ln1b, z1, d, n, d, n_real);
+  __syncthreads();
+  ffn_fwd(z1, h_1, f1);
+  for (int i = threadIdx.x; i < n * d; i += kThreads) {
+    const int r = i / d;
+    x1[i] = (r < n_real ? to_f(x[i]) : 0.0f) + hrs * f1[i];
+  }
+  __syncthreads();
+  mac::layer_norm_rows(x1, d, a.ln2s, a.ln2b, z2, d, n, d);
+  __syncthreads();
+  for (int hh = 0; hh < heads; ++hh) {
+    // q | k | v of the head in one product; rounded after the bias, to
+    // shared memory and the workspace (padded value rows zeroed)
+    mac::prod<false, false>(z2, d, wqkv + hh * hd, 3 * d, st, ls, false, n, 3 * hd,
+                     d, hd / 16, d);
+    __syncthreads();
+    T* dst[3] = {q, k, v};
+    for (int j = 0; j < 3; ++j)
+      round_block(st + j * hd, ls, dst[j], lh, n, hd, j == 2 ? n_real : n,
+                  1.0f, qkv + j * d + hh * hd, 3 * d,
+                  a.qkv_bias + j * d + hh * hd);
+    __syncthreads();
+    mac::prod<false, true>(q, lh, k, lh, st, ls, false, n, n, hd);
+    __syncthreads();
+    softmax_rows(st, ls, pb, pl.ld_pb, n, n_real, a.qk_scale);
+    __syncthreads();
+    mac::prod<false, false>(pb, pl.ld_pb, v, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, ctx + hh * hd, d);
+    __syncthreads();
+  }
+  mac::prod<false, false>(ctx, d, wout, d, ao, d, false, n, d, d);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * d; i += kThreads) {
+    const float av = ao[i] + a.out_bias[i % d];
+    ao[i] = av;
+    x2[i] = x1[i] + rs * av;
+  }
+  __syncthreads();
+  mac::layer_norm_rows(x2, d, a.ln3s, a.ln3b, z3, d, n, d);
+  __syncthreads();
+
+  // ---- the backward chain ----
+  // a FFN half's backward: out_bar = rs/2 xb, ob to the workspace (and
+  // the f32 column sums to b2's partial), h1_bar of each chunk to the
+  // workspace (its column sums to b1's partial), zb = h1_bar W1^T. The
+  // second half also recomputes h_3 and f3 = h_3 W2 + b2 for rs_bar.
+  auto ffn_bwd = [&](const T* zz, T* ob, T* h1b, T* hh, float* ff,
+                     bool first) {
+    for (int i = threadIdx.x; i < n * d; i += kThreads)
+      ob[i] = from_f<T>(hrs * xb[i]);
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r) sum += hrs * xb[(size_t)r * d + c];
+      np[no.b2 + c] = first ? sum : np[no.b2 + c] + sum;
+    }
+    __syncthreads();
+    for (int c0 = 0; c0 < dh; c0 += hc) {
+      mac::prod<false, false>(zz, d, w1 + c0, dh, st, ls, false, n, hc, d);
+      mac::prod<false, true>(ob, d, w2 + (size_t)c0 * d, d, st2, pl.ld_st2, false,
+                      n, hc, d);
+      __syncthreads();
+      if (hh != nullptr) {
+        for (int r = warp; r < n; r += kWarps)
+          for (int c = lane; c < hc; c += 32) {
+            const T h = from_f<T>(gelu(st[r * ls + c] + a.b1[c0 + c]));
+            hb[r * pl.ld_hb + c] = h;
+            hh[(size_t)r * dh + c0 + c] = h;
+          }
+        __syncthreads();
+        mac::prod<false, false>(hb, pl.ld_hb, w2 + (size_t)c0 * d, d, ff, d, c0 > 0,
+                         n, d, hc);
+        __syncthreads();
+      }
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hc; c += 32) {
+          const float h1 = st[r * ls + c] + a.b1[c0 + c];
+          const T v1 = from_f<T>(st2[r * pl.ld_st2 + c] * gelu_grad(h1));
+          hb[r * pl.ld_hb + c] = v1;
+          h1b[(size_t)r * dh + c0 + c] = v1;
+        }
+      __syncthreads();
+      for (int c = threadIdx.x; c < hc; c += kThreads) {
+        float sum = 0.0f;
+        for (int r = 0; r < n_real; ++r) sum += to_f(hb[r * pl.ld_hb + c]);
+        np[no.b1 + c0 + c] = first ? sum : np[no.b1 + c0 + c] + sum;
+      }
+      mac::prod<false, true>(hb, pl.ld_hb, w1 + c0, dh, zb, d, c0 > 0, n, d, hc);
+      __syncthreads();
+    }
+  };
+
+  // stage 3: x3 = x2 + rs/2 FFN(LN3 x2), x3_bar = g * scaler
+  for (int i = threadIdx.x; i < n * d; i += kThreads)
+    xb[i] = i / d < n_real ? to_f(g[i]) * a.scaler : 0.0f;
+  __syncthreads();
+  ffn_bwd(z3, ob_3, h1b_3, h_3, f3, true);
+  mac::add_row_vector(f3, d, a.b2, 1.0f, n, d);
+  __syncthreads();
+  float acc = 0.0f;
+  for (int i = threadIdx.x; i < n * d; i += kThreads) acc += xb[i] * f3[i];
+  const float rs3 = block_sum(acc, red);
+  ln_bwd(x2, zb, a.ln3s, xb, n, n_real, d, 1 << 30, stats,
+         np + no.ln + 4 * d, np + no.ln + 5 * d);
+
+  // stage 2: x2 = x1 + rs ao
+  acc = 0.0f;
+  for (int i = threadIdx.x; i < n * d; i += kThreads) acc += xb[i] * ao[i];
+  const float rs2 = block_sum(acc, red);
+  for (int i = threadIdx.x; i < n * d; i += kThreads)
+    aod[i] = from_f<T>(rs * xb[i]);
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float sum = 0.0f;
+    for (int r = 0; r < n_real; ++r) sum += rs * xb[(size_t)r * d + c];
+    np[no.outb + c] = sum;
+  }
+  __syncthreads();
+  for (int hh = 0; hh < heads; ++hh) {
+    const T* qkv_h[3] = {qkv + hh * hd, qkv + d + hh * hd,
+                         qkv + 2 * d + hh * hd};
+    T* dst[3] = {q, k, v};
+    for (int j = 0; j < 3; ++j)
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hd; c += 32)
+          dst[j][r * lh + c] = qkv_h[j][(size_t)r * 3 * d + c];
+    __syncthreads();
+    mac::prod<false, true>(q, lh, k, lh, st, ls, false, n, n, hd);
+    __syncthreads();
+    softmax_rows(st, ls, pb, pl.ld_pb, n, n_real, a.qk_scale, pf, pl.ld_pf);
+    __syncthreads();
+    // q becomes round(q * tau) for k_bar
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < hd; c += 32)
+        q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * a.qk_scale);
+    // cb = round(aod Wout[h*hd:(h+1)*hd, :]^T)
+    mac::prod<false, true>(aod, d, wout + (size_t)hh * hd * d, d, st, ls, false, n,
+                    hd, d);
+    __syncthreads();
+    round_block(st, ls, cb, lh, n, hd, n);
+    __syncthreads();
+    // v_bar = round(p)^T cb
+    mac::prod<true, false>(pb, pl.ld_pb, cb, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvbar + 2 * d + hh * hd,
+                3 * d);
+    __syncthreads();
+    // p_bar = cb v^T, then s_bar = round(p (p_bar - sum(p_bar p))) into pb
+    mac::prod<false, true>(cb, lh, v, lh, st, ls, false, n, n, hd);
+    __syncthreads();
+    for (int r = warp; r < n; r += kWarps) {
+      const float* prow = st + r * ls;
+      const float* frow = pf + r * pl.ld_pf;
+      if (r >= n_real) {
+        for (int c = lane; c < n; c += 32) pb[r * pl.ld_pb + c] = from_f<T>(0.0f);
+        continue;
+      }
+      float dot = 0.0f;
+      for (int c = lane; c < n_real; c += 32) dot += prow[c] * frow[c];
+      dot = warp_sum(dot);
+      for (int c = lane; c < n; c += 32)
+        pb[r * pl.ld_pb + c] =
+            from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+    }
+    __syncthreads();
+    // q_bar = round(tau s_bar k), k_bar = round(s_bar^T round(q tau))
+    mac::prod<false, false>(pb, pl.ld_pb, k, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, a.qk_scale, qkvbar + hh * hd,
+                3 * d);
+    __syncthreads();
+    mac::prod<true, false>(pb, pl.ld_pb, q, lh, st, ls, false, n, hd, n);
+    __syncthreads();
+    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvbar + d + hh * hd,
+                3 * d);
+    __syncthreads();
+  }
+  for (int c = threadIdx.x; c < 3 * d; c += kThreads) {
+    float sum = 0.0f;
+    for (int r = 0; r < n_real; ++r) sum += to_f(qkvbar[(size_t)r * 3 * d + c]);
+    np[no.qkvb + c] = sum;
+  }
+  // z2_bar = qkv_bar Wqkv^T, one product over 3D
+  mac::prod<false, true>(qkvbar, 3 * d, wqkv, 3 * d, zb, d, false, n, d, 3 * d);
+  __syncthreads();
+  ln_bwd(x1, zb, a.ln2s, xb, n, n_real, d, 1 << 30, stats,
+         np + no.ln + 2 * d, np + no.ln + 3 * d);
+
+  // stage 1: x1 = x + rs/2 FFN(LN1 x)
+  acc = 0.0f;
+  for (int i = threadIdx.x; i < n * d; i += kThreads) acc += xb[i] * f1[i];
+  const float rs1 = block_sum(acc, red);
+  ffn_bwd(z1, ob_1, h1b_1, nullptr, nullptr, false);
+  ln_bwd(x, zb, a.ln1s, xb, n, n_real, d, n_real, stats, np + no.ln,
+         np + no.ln + d);
+  if (threadIdx.x == 0) np[no.rs] = 0.5f * rs3 + rs2 + 0.5f * rs1;
+
+  T* xbar = static_cast<T*>(a.xbar) + row0 * d;
+  for (int i = threadIdx.x; i < n * d; i += kThreads)
+    xbar[i] = from_f<T>(i / d < n_real ? xb[i] : 0.0f);
+}
+
+// The weight products W_bar = A^T G of vfb_wgrad_bf16 in f32, as split
+// TF32 in three passes (mac::split_tf32): blockIdx.x a 64x64 output tile of
+// one problem, blockIdx.y a slice of rows; each CTA writes its own partial
+// tile.
+__global__ void __launch_bounds__(kWThreads)
+mcb_wgrad_f32(Problems ps, float* wpart) {
+  __shared__ __align__(128) float as[kRowStep][kTile + 4];
+  __shared__ __align__(128) float gs[kRowStep][kTile + 4];
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
+                               wmma::precision::tf32, wmma::col_major>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
+                               wmma::precision::tf32, wmma::row_major>;
+  int t = blockIdx.x, pi = 0;
+  while (t >= tiles(ps.p[pi].m) * tiles(ps.p[pi].n)) {
+    t -= tiles(ps.p[pi].m) * tiles(ps.p[pi].n);
+    ++pi;
+  }
+  const Problem pr = ps.p[pi];
+  const int tn = tiles(pr.n);
+  const int m0 = (t / tn) * kTile, n0 = (t % tn) * kTile;
+  const float* a = static_cast<const float*>(pr.a);
+  const float* g = static_cast<const float*>(pr.g);
+  const int r_begin = blockIdx.y * ps.rows_per_split;
+  const int r_end = imin(ps.rows, r_begin + ps.rows_per_split);
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
+  // each staged chunk of rows sums into a fresh fragment, added to c with
+  // f32 adds: the tensor cores' own accumulation is not rounded to nearest,
+  // and over thousands of rows its error would grow with the row count
+  wmma::fragment<wmma::accumulator, 16, 16, 8, float> c[2][2], part[2][2];
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+  for (int r0 = r_begin; r0 < r_end; r0 += kRowStep) {
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(part[i][j], 0.0f);
+    for (int i = threadIdx.x; i < kRowStep * kTile; i += kWThreads) {
+      const int rr = i / kTile, cc = i % kTile, r = r0 + rr;
+      const bool in = r < r_end;
+      as[rr][cc] = in && m0 + cc < pr.m ? a[(size_t)r * pr.m + m0 + cc] : 0.0f;
+      gs[rr][cc] = in && n0 + cc < pr.n ? g[(size_t)r * pr.n + n0 + cc] : 0.0f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kRowStep; kk += 8) {
+      FragA fa[2], fa_s[2];
+      FragB fb[2], fb_s[2];
+      for (int i = 0; i < 2; ++i) {
+        wmma::load_matrix_sync(fa[i], &as[kk][wm + 16 * i], kTile + 4);
+        mac::split_tf32(fa[i], fa_s[i]);
+      }
+      for (int j = 0; j < 2; ++j) {
+        wmma::load_matrix_sync(fb[j], &gs[kk][wn + 16 * j], kTile + 4);
+        mac::split_tf32(fb[j], fb_s[j]);
+      }
+      for (int i = 0; i < 2; ++i)
+        for (int j = 0; j < 2; ++j) {
+          wmma::mma_sync(part[i][j], fa_s[i], fb[j], part[i][j]);
+          wmma::mma_sync(part[i][j], fa[i], fb_s[j], part[i][j]);
+          wmma::mma_sync(part[i][j], fa[i], fb[j], part[i][j]);
+        }
+    }
+    for (int i = 0; i < 2; ++i)
+      for (int j = 0; j < 2; ++j)
+        for (int e = 0; e < c[i][j].num_elements; ++e)
+          c[i][j].x[e] += part[i][j].x[e];
+    __syncthreads();
+  }
+  float* out = wpart + blockIdx.y * ps.total + pr.out;
+  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < 2; ++j) {
+      const int m = m0 + wm + 16 * i, nn = n0 + wn + 16 * j;
+      if (m < pr.m && nn < pr.n)
+        wmma::store_matrix_sync(out + (size_t)m * pr.n + nn, c[i][j], pr.n,
+                                wmma::mem_row_major);
+    }
+}
+
+template <typename T>
+int launch(const McbArgs& a, cudaStream_t st) {
+  auto rows_kernel = mcb_rows<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return (int)err;
+  rows_kernel<<<a.batch, kThreads, a.smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int d = a.d, dh = a.dh;
+  const size_t rows = (size_t)a.batch * a.n_pad;
+  const size_t wtotal = (size_t)4 * d * d + (size_t)2 * d * dh;
+  // the attention's products over B*n_pad rows, then the shared FFN's over
+  // the two halves' 2*B*n_pad rows; both write the same partial layout
+  for (int pass = 0; pass < 2; ++pass) {
+    Problems ps = {};
+    if (pass == 0) {
+      ps.p[0] = {a.z2, a.qkvbar, d, 3 * d, 0};
+      ps.p[1] = {a.ctx, a.aod, d, d, (size_t)3 * d * d};
+    } else {
+      ps.p[0] = {a.z13, a.h1b13, d, dh, (size_t)4 * d * d};
+      ps.p[1] = {a.h13, a.ob13, dh, d, (size_t)4 * d * d + (size_t)d * dh};
+    }
+    ps.total = wtotal;
+    ps.rows = (int)(pass == 0 ? rows : 2 * rows);
+    ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
+    ps.rows_per_split =
+        (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
+    int ntiles = 0;
+    for (int i = 0; i < 2; ++i)
+      ntiles += ((ps.p[i].m + kTile - 1) / kTile) *
+                ((ps.p[i].n + kTile - 1) / kTile);
+    const dim3 grid(ntiles, a.splits);
+    if (sizeof(T) == 2)
+      vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
+    else
+      mcb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nlen = np_offsets(d, dh).total;
+  const size_t all = wtotal + (size_t)nlen;
+  vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
+      a.wpart, a.splits, wtotal, a.npart, a.batch, nlen, a.out);
+  return (int)cudaGetLastError();
+}
+
+bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
+  return heads > 0 && d % heads == 0 && d % 16 == 0 && (d / heads) % 16 == 0 &&
+         dh % 16 == 0 && n_pad % 16 == 0 && n_pad > 0 &&
+         n_pad <= 16 * kMaxRowTiles && n_real > 0 && n_real <= n_pad;
+}
+
+}  // namespace macb
+
+extern "C" {
+
+// Chooses the plan of mcb_rows: the FFN chunk width and the shared
+// memory, preferring wide chunks. Returns 0 when the shape has a plan, 1
+// when it has none (the wrapper raises).
+int mcb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+             int* hc_out, int* smem_out) {
+  if (!macb::shape_ok(n_pad, n_real, d, heads, dh)) return 1;
+  for (int hc : mac::kChunks) {
+    if (dh % hc) continue;
+    const macb::Plan p = macb::make_plan(n_pad, d, d / heads, hc, tbytes);
+    if (p.total <= (size_t)vf::kMaxSmem) {
+      *hc_out = hc;
+      *smem_out = (int)p.total;
+      return 0;
+    }
+  }
+  return 1;
+}
+
+// Launches the backward (four kernels) on `stream`; returns the first
+// cudaGetLastError() that is not 0, else 0. `tbytes` is x's element size.
+int mcb_launch(int tbytes, const McbArgs* args, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tbytes == 2 ? macb::launch<vf::bf16>(*args, st)
+                     : macb::launch<float>(*args, st);
+}
+
+const char* mcb_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

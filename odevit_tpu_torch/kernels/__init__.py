@@ -29,7 +29,9 @@ launch_counts: Dict[str, int] = {
     "vf_bwd_mlp": 0, "vf_bwd_attn": 0, "vf_bwd_split": 0,
     "vf_bwd_mlp_drop": 0, "vf_bwd_attn_drop": 0, "vf_bwd_split_drop": 0,
     # L2 attention: the L2+bias instances of the one-CTA kernels
-    "vf_eval_l2": 0, "vf_eval_jasmin_l2": 0, "vf_bwd_l2": 0}
+    "vf_eval_l2": 0, "vf_eval_jasmin_l2": 0, "vf_bwd_l2": 0,
+    # the Macaron field (csrc/macaron.cu: every mode; csrc/macaron_bwd.cu)
+    "macaron_eval": 0, "macaron_bwd": 0}
 _count_lock = threading.Lock()
 
 

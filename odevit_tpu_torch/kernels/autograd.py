@@ -18,7 +18,13 @@ happens outside the graph, but the gradients flow to ``params``, so they
 arrive in float32 as they do in JAX. Each Function saves x (and the
 statistics' columns) and recomputes the rest in the backward.
 
-All three also carry dropout (``seed``, ``drops`` = (attn, proj, mlp)),
+``MacaronFunction`` is the counterpart of
+``odevit_tpu/kernels/macaron.py::fused_macaron``: the forward runs
+``macaron_eval`` in its plain mode and the backward ``macaron_bwd``, over
+the 15 float32 parameters of ``MacaronVectorField.kernel_params`` and their
+cast copies (``MacaronWeights``).
+
+The first three also carry dropout (``seed``, ``drops`` = (attn, proj, mlp)),
 the counterparts of ``fused_vf_dropout``, ``fused_vf_jasmin_dropout`` and
 ``fused_vf_attn_dropout``: they keep the seed, never a mask, and the
 backward draws the masks again.
@@ -28,6 +34,8 @@ from __future__ import annotations
 
 import torch
 
+from odevit_tpu_torch.kernels.macaron import MacaronWeights, macaron_eval
+from odevit_tpu_torch.kernels.macaron_bwd import macaron_bwd
 from odevit_tpu_torch.kernels.vector_field import (VFWeights, vf_eval,
                                                    vf_eval_attn,
                                                    vf_eval_jasmin)
@@ -127,3 +135,25 @@ def fused_vf_attn(x, w: VFWeights, params, *, num_heads: int, scaler: float,
     kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
               drops=drops, plain=plain)
     return FusedVFAttn.apply(x, w, kw, *params)
+
+
+class MacaronFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: MacaronWeights, kw: dict, *params):
+        # kw: num_heads, scaler, n_real, plain
+        ctx.save_for_backward(x)
+        ctx.w, ctx.kw = w, kw
+        return macaron_eval(x, w, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        bars = macaron_bwd(x, ctx.w, g.contiguous(), **ctx.kw)
+        return (bars[0], None, None, *bars[1:])
+
+
+def fused_macaron(x, w: MacaronWeights, params, *, num_heads: int,
+                  scaler: float, n_real: int, plain: bool = False):
+    """f(x) of the Macaron field, differentiable in x and ``params``."""
+    kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, plain=plain)
+    return MacaronFunction.apply(x, w, kw, *params)

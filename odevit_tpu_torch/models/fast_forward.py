@@ -1,6 +1,9 @@
-"""Inference path: ViTODE forward through the fused vector-field kernel.
+"""Inference path: ViTODE and ViTMacaron forwards through the fused
+vector-field kernels.
 
-Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
+Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward`` (a
+``ViTMacaron`` takes :func:`fast_forward_macaron`, as JAX's
+``fast_forward`` dispatches it):
 
   * tokens are padded to a multiple of ``TOKEN_PAD`` once before the
     integration and sliced once after; padded tokens get no attention
@@ -27,8 +30,8 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward``:
 
 On the GPU every evaluation launches a kernel; ``plain=True`` runs the
 same routes through the kernels' plain PyTorch versions instead, for
-comparisons. Macaron is not ported yet and raises; time conditioning
-raises when the model is built.
+comparisons. A model that is neither a ``ViTODE`` nor a ``ViTMacaron``
+raises; time conditioning raises when the model is built.
 """
 
 from __future__ import annotations
@@ -41,8 +44,10 @@ import torch
 
 from odevit_tpu_torch.core.adaptive import odeint_dopri5
 from odevit_tpu_torch.core.integrators import odeint
+from odevit_tpu_torch.kernels.macaron import macaron_eval
 from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
                                                    vf_euler_chain)
+from odevit_tpu_torch.models.macaron import ViTMacaron
 from odevit_tpu_torch.models.vit_ode import ViTODE
 
 
@@ -52,24 +57,22 @@ def fast_forward(model, images, *, t_grid=None,
     """logits = head(odeint(fused_vf, patch_embed(images)))[CLS].
 
     Args:
-      model: a ``ViTODE``.
+      model: a ``ViTODE`` or a ``ViTMacaron``.
       images: [B, H, W, C] preprocessed floats on the model's device.
       t_grid: optional time grid (default ``model.make_time_grid()``).
       plain: run the kernel's plain PyTorch version on the GPU as well.
     Returns {"logits": [B, num_classes] f32[, "logits_dist"]}.
     """
+    if isinstance(model, ViTMacaron):
+        return fast_forward_macaron(model, images, t_grid=t_grid,
+                                    plain=plain)
     if not isinstance(model, ViTODE):
         raise NotImplementedError(
-            f"fast_forward takes a ViTODE; {type(model).__name__} (e.g. "
-            f"Macaron) is not ported yet")
+            f"fast_forward takes a ViTODE or a ViTMacaron, not "
+            f"{type(model).__name__}")
     ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
-    uniform = len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
-
-    tokens = model.patch_embed(images)
-    b, n, d = tokens.shape
-    n_pad = pad_tokens(n)
-    if n_pad != n:
-        tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
+    uniform = uniform_grid(ts)
+    tokens, n = pad_to_kernel(model.patch_embed(images))
     weights = model.vf.kernel_weights(tokens.dtype)
 
     def vf(y, mode="plain", dt=0.0, base=None):
@@ -112,6 +115,53 @@ def fast_forward(model, images, *, t_grid=None,
     if model.dist_head is not None:
         out["logits_dist"] = model.dist_head(y[:, 1].float())
     return out
+
+
+def pad_to_kernel(tokens):
+    """Tokens padded once to a multiple of ``TOKEN_PAD``, and the real
+    token count."""
+    n = tokens.shape[1]
+    n_pad = pad_tokens(n)
+    if n_pad != n:
+        tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
+    return tokens, n
+
+
+def uniform_grid(ts) -> bool:
+    return len(ts) < 3 or bool(np.allclose(np.diff(ts), ts[1] - ts[0]))
+
+
+@torch.inference_mode()
+def fast_forward_macaron(model, images, *, t_grid=None,
+                         plain: bool = False) -> Dict[str, torch.Tensor]:
+    """A ``ViTMacaron`` through the Macaron kernel, the counterpart of
+    ``fast_forward_macaron`` in its serving routes: the embed as that
+    function computes it (kernels cast to the compute dtype), tokens padded
+    once; on a uniform grid Euler runs each step as one euler-mode launch
+    and rk4 (Kutta 3/8) as one euler-mode launch with dt/3 and three
+    base-mode launches, the stage bases combined in float32; any other grid
+    or solver runs plain-mode launches through the generic integrator. The
+    head takes the two-pass float32 LayerNorm."""
+    ts = model.make_time_grid() if t_grid is None else np.asarray(t_grid)
+    tokens, n = pad_to_kernel(model.embed(images, fused=True))
+    weights = model.vf.kernel_weights(tokens.dtype)
+
+    def vf(y, mode="plain", dt=0.0, base=None):
+        return macaron_eval(y, weights, num_heads=model.num_heads,
+                            scaler=model.vf.scaler, n_real=n, mode=mode,
+                            dt=dt, base=base, plain=plain)
+
+    uniform = uniform_grid(ts)
+    if model.solver in ("euler", "rk4") and uniform:
+        dt = float(ts[1] - ts[0])
+        y = tokens
+        for _ in range(len(ts) - 1):
+            y = vf(y, "euler", dt) if model.solver == "euler" \
+                else _rk4_step(vf, y, dt)
+    else:
+        y = odeint(lambda t, y: vf(y), tokens, ts, method=model.solver,
+                   return_states=False)
+    return model.head_logits(y, fused=True)
 
 
 def _rk4_step(vf, y, dt: float):

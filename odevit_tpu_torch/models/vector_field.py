@@ -1,11 +1,18 @@
-"""The ODE vector field: one transformer block integrated over time.
+"""The ODE vector fields: one transformer block integrated over time.
 
-Counterpart of ``ParallelVectorField`` in
-``odevit_tpu/models/vector_field.py``:
-``dx/dt = (MLP(CN_m(x)) + Attn(CN_a(x))) * scaler`` — parallel sublayers,
-pre-CenterNorm, no residual (the solver adds it). The attention is softmax,
-or with ``l2_attention`` the L2-distance variant with biased projections.
-Time conditioning and the Macaron field are not ported yet.
+Counterparts of ``odevit_tpu/models/vector_field.py``:
+
+* ``ParallelVectorField``: ``dx/dt = (MLP(CN_m(x)) + Attn(CN_a(x))) *
+  scaler`` — parallel sublayers, pre-CenterNorm, no residual (the solver
+  adds it). The attention is softmax, or with ``l2_attention`` the
+  L2-distance variant with biased projections.
+* ``MacaronVectorField``: the sequential Macaron drift, half-FFN ->
+  attention -> half-FFN with LayerNorms, one FFN shared by both halves and
+  a learnable ``res_scale`` (shape (1,), initialised to ones):
+  ``x1 = x + rs/2 FFN(LN1 x)``, ``x2 = x1 + rs Attn(LN2 x1)``,
+  ``x3 = x2 + rs/2 FFN(LN3 x2)``, ``dx = x3 * scaler``.
+
+Time conditioning is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,11 +20,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from odevit_tpu_torch.kernels.macaron import MacaronWeights
 from odevit_tpu_torch.kernels.vector_field import VFWeights
 from odevit_tpu_torch.ops.attention import (L2SelfAttention,
                                             SoftmaxSelfAttention)
 from odevit_tpu_torch.ops.center_norm import CenterNorm
-from odevit_tpu_torch.ops.mlp import Mlp
+from odevit_tpu_torch.ops.layer_norm import LayerNorm
+from odevit_tpu_torch.ops.mlp import MacaronFFN, Mlp
 
 
 def drift_scaler(emulate_depth: float, time_interval: float) -> float:
@@ -70,3 +79,50 @@ class ParallelVectorField(nn.Module):
                          qkv_bias=f32(torch.cat([a.q.bias, a.k.bias,
                                                  a.v.bias])),
                          out_bias=f32(a.out.bias))
+
+
+class MacaronVectorField(nn.Module):
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 mlp_drop: float = 0.0, emulate_depth: float = 12.0,
+                 time_interval: float = 12.0, dtype=None, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_heads = num_heads
+        self.scaler = drift_scaler(emulate_depth, time_interval)
+        self.norm1 = LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
+        self.norm3 = LayerNorm(dim)
+        self.attn = SoftmaxSelfAttention(dim, num_heads, dtype=dtype,
+                                         use_bias=True, spectral_init=False,
+                                         generator=generator)
+        self.ffn = MacaronFFN(dim, int(dim * mlp_ratio), drop=mlp_drop,
+                              dtype=dtype, generator=generator)
+        self.res_scale = nn.Parameter(torch.ones(1))
+
+    def forward(self, x, t=None):
+        """[B, N, D] -> (dx [B, N, D], attention maps [B, H, N, N])."""
+        rs = self.res_scale
+        x1 = x + 0.5 * rs * self.ffn(self.norm1(x))
+        delta, maps = self.attn(self.norm2(x1))
+        x2 = x1 + rs * delta
+        x3 = x2 + 0.5 * rs * self.ffn(self.norm3(x2))
+        return x3 * self.scaler, maps
+
+    def kernel_params(self) -> tuple:
+        """The float32 parameters in the order the Macaron kernels take
+        them (matrices as ``[in, out]`` views), for the autograd Function:
+        the gradients flow back to the modules' parameters."""
+        a, f = self.attn, self.ffn
+        return (self.norm1.weight, self.norm1.bias, self.norm2.weight,
+                self.norm2.bias, self.norm3.weight, self.norm3.bias,
+                a.qkv.weight.T, a.qkv.bias, a.proj.weight.T, a.proj.bias,
+                f.fc1.weight.T, f.fc1.bias, f.fc2.weight.T, f.fc2.bias,
+                self.res_scale)
+
+    def kernel_weights(self, dtype) -> MacaronWeights:
+        """The weights as the fused kernels take them: ``[in, out]``
+        matrices in ``dtype``, everything else in float32."""
+        mats = {6, 8, 10, 12}
+        return MacaronWeights(*(
+            t.detach().to(dtype if i in mats else torch.float32).contiguous()
+            for i, t in enumerate(self.kernel_params())))

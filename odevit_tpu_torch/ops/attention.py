@@ -2,8 +2,12 @@
 
 Counterparts of ``odevit_tpu/ops/attention.py``:
 
-* ``SoftmaxSelfAttention``: one fused QKV projection, no bias, per-head
-  scaled dot-product softmax; the returned maps are post-softmax.
+* ``SoftmaxSelfAttention``: one fused QKV projection, per-head scaled
+  dot-product softmax; the returned maps are post-softmax. Bias-free, or
+  with ``use_bias`` (the Macaron field's) a ``qkv_bias`` added to the
+  float32 qkv and an ``out_bias`` added to the float32 output before it is
+  rounded; its weights then start Xavier-normal (``spectral_init=False``)
+  instead of spectral.
 * ``L2SelfAttention``: the Lipschitz-controlled variant. Separate biased
   q, k, v and out projections; weights ``exp(-||q_i - k_j||^2 / sqrt(hd))``
   divided by (row sum + 1e-8), with the distance in the expanded form
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from odevit_tpu_torch.ops.dot import dot32
-from odevit_tpu_torch.ops.init import spectral_linear
+from odevit_tpu_torch.ops.init import spectral_linear, xavier_linear
 
 
 def _split_heads(x, num_heads: int):
@@ -33,21 +37,27 @@ def _merge_heads(x):
 
 
 class SoftmaxSelfAttention(nn.Module):
-    """Fused-QKV softmax multi-head self-attention (bias-free)."""
+    """Fused-QKV softmax multi-head self-attention (bias-free unless
+    ``use_bias``)."""
 
     def __init__(self, dim: int, num_heads: int, dtype=None, *,
+                 use_bias: bool = False, spectral_init: bool = True,
                  generator: torch.Generator):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.dtype = dtype
-        self.qkv = spectral_linear(dim, 3 * dim, generator)
-        self.proj = spectral_linear(dim, dim, generator)
+        self.use_bias = use_bias
+        linear = spectral_linear if spectral_init else xavier_linear
+        self.qkv = linear(dim, 3 * dim, generator, bias=use_bias)
+        self.proj = linear(dim, dim, generator, bias=use_bias)
 
     def forward(self, x):
         """[B, N, D] -> (out [B, N, D], maps [B, H, N, N])."""
         dtype = self.dtype or x.dtype
         qkv = dot32(x.to(dtype), self.qkv.weight.T.to(dtype))
+        if self.use_bias:
+            qkv = qkv + self.qkv.bias.float()
         q, k, v = qkv.chunk(3, dim=-1)
         head_dim = self.dim // self.num_heads
         q = _split_heads(q, self.num_heads) * head_dim ** -0.5
@@ -56,8 +66,10 @@ class SoftmaxSelfAttention(nn.Module):
         attn = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
         out = dot32(attn.to(dtype), v.to(dtype))
         out = _merge_heads(out).to(dtype)
-        out = dot32(out, self.proj.weight.T.to(dtype)).to(dtype)
-        return out, attn.to(dtype)
+        out = dot32(out, self.proj.weight.T.to(dtype))
+        if self.use_bias:
+            out = out + self.proj.bias.float()
+        return out.to(dtype), attn.to(dtype)
 
 
 class L2SelfAttention(nn.Module):

@@ -41,6 +41,35 @@ def spectral_linear(fan_in: int, fan_out: int, generator: torch.Generator,
     return lin
 
 
+def xavier_linear(fan_in: int, fan_out: int, generator: torch.Generator,
+                  bias: bool = False) -> nn.Linear:
+    """``nn.Linear`` with a Xavier-normal weight (std sqrt(2 / (fan_in +
+    fan_out))) and a zero bias, if any: flax's ``xavier_normal``, the
+    initialisation of the Macaron field's attention."""
+    lin = nn.Linear(fan_in, fan_out, bias=bias)
+    std = math.sqrt(2.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        lin.weight.copy_(torch.randn((fan_out, fan_in), generator=generator)
+                         * std)
+        if bias:
+            lin.bias.zero_()
+    return lin
+
+
+def lecun_linear(fan_in: int, fan_out: int, generator: torch.Generator,
+                 bias: bool = True) -> nn.Linear:
+    """``nn.Linear`` with a LeCun-normal weight (std 1 / sqrt(fan_in),
+    truncated at two standard deviations) and a zero bias: flax's default
+    ``nn.Dense`` initialisation."""
+    lin = nn.Linear(fan_in, fan_out, bias=bias)
+    with torch.no_grad():
+        lin.weight.copy_(truncated_normal((fan_out, fan_in), generator,
+                                          std=fan_in ** -0.5))
+        if bias:
+            lin.bias.zero_()
+    return lin
+
+
 def truncated_normal(shape, generator: torch.Generator, std: float = 0.02):
     """Normal(0, std) truncated at two standard deviations."""
     w = torch.empty(shape)

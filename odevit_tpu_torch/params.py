@@ -9,8 +9,8 @@ import torch
 
 
 def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A ViTODE (or ``ViTTeacher``) params pytree of the JAX package -> the
-    port's state dict.
+    """A ViTODE (or ``ViTMacaron``, or ``ViTTeacher``) params pytree of the
+    JAX package -> the port's state dict.
 
     ``tree`` is ``params`` (not ``{"params": ...}``) as nested dicts of
     numpy arrays; the caller moves it to the host first. Matrices handed to
@@ -23,6 +23,8 @@ def from_jax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     if "patch_kernel" in tree:
         return _teacher_params(tree, t)
+    if "patch_proj" in tree and "res_scale" in tree.get("vf", {}):
+        return _macaron_params(tree, t)
     pe, vf = tree["patch_embed"], tree["vf"]
     sd = {
         "patch_embed.proj_kernel": t(pe["proj_kernel"]),
@@ -86,4 +88,45 @@ def _teacher_params(tree, t) -> Dict[str, torch.Tensor]:
         i += 1
     if "classifier" in tree:
         sd.update(dense("classifier", tree["classifier"]))
+    return sd
+
+
+def _macaron_params(tree, t) -> Dict[str, torch.Tensor]:
+    """The ViTMacaron tree: ``patch_proj``, ``cls_token``, ``pos_embed``,
+    ``vf/{norm1,norm2,norm3}``, ``vf/attn/{qkv,out}_{kernel,bias}``,
+    ``vf/ffn/{fc1,fc2}``, ``vf/res_scale``, ``norm_head``, ``head``, and
+    optionally ``dist_token``, ``norm_dist``, ``dist_head``, ``init_ivp``
+    (an HWIO convolution kernel, made OIHW) and ``ivp_projector``."""
+    def dense(prefix, node):
+        return {f"{prefix}.weight": t(node["kernel"]).T.contiguous(),
+                f"{prefix}.bias": t(node["bias"])}
+
+    def norm(prefix, node):
+        return {f"{prefix}.weight": t(node["scale"]),
+                f"{prefix}.bias": t(node["bias"])}
+
+    vf, attn = tree["vf"], tree["vf"]["attn"]
+    sd = {"cls_token": t(tree["cls_token"]),
+          "pos_embed": t(tree["pos_embed"]),
+          "vf.attn.qkv.weight": t(attn["qkv_kernel"]).T.contiguous(),
+          "vf.attn.qkv.bias": t(attn["qkv_bias"]),
+          "vf.attn.proj.weight": t(attn["out_kernel"]).T.contiguous(),
+          "vf.attn.proj.bias": t(attn["out_bias"]),
+          "vf.res_scale": t(vf["res_scale"]),
+          **dense("patch_proj", tree["patch_proj"]),
+          **dense("vf.ffn.fc1", vf["ffn"]["fc1"]),
+          **dense("vf.ffn.fc2", vf["ffn"]["fc2"]),
+          **dense("head", tree["head"]),
+          **norm("norm_head", tree["norm_head"])}
+    for i in (1, 2, 3):
+        sd.update(norm(f"vf.norm{i}", vf[f"norm{i}"]))
+    if "dist_token" in tree:
+        sd["dist_token"] = t(tree["dist_token"])
+        sd.update(norm("norm_dist", tree["norm_dist"]))
+        sd.update(dense("dist_head", tree["dist_head"]))
+    if "init_ivp" in tree:
+        sd["init_ivp.weight"] = t(tree["init_ivp"]["kernel"]).permute(
+            3, 2, 0, 1).contiguous()
+        sd["init_ivp.bias"] = t(tree["init_ivp"]["bias"])
+        sd.update(dense("ivp_projector", tree["ivp_projector"]))
     return sd

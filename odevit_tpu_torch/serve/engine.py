@@ -29,7 +29,7 @@ class ServingEngine:
     """Batched inference over ``fast_forward`` with shape-bucketing.
 
     Args:
-      model: a ``ViTODE``; it is moved to ``device``.
+      model: a ``ViTODE`` or a ``ViTMacaron``; it is moved to ``device``.
       batch_buckets: ascending ladder of batch sizes.
       preprocess: optional uint8 -> float function run on the device
         (``data.pipeline.make_preprocess``); requests are then uint8.

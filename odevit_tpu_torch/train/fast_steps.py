@@ -62,6 +62,13 @@ draws its masks outside the kernels and takes JaSMin from the maps,
 ``_xla_dropout_eval``; the statistics computed in the kernels are the same
 function of the same p).
 
+Macaron free training, the counterpart of ``make_fast_macaron_train_step``:
+the embed as ``fast_forward_macaron`` computes it, tokens padded once, the
+model's fixed-grid solver over plain-mode evaluations through
+``MacaronFunction`` (whose backward is ``macaron_bwd``), the float32 head,
+CE without label smoothing; AdamW after the clip. Deterministic only: a
+nonzero dropout rate raises, as JAX's assert does.
+
 On the GPU every evaluation and its backward launch the kernels (at the
 224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
 through their plain versions, for comparisons. Not ported yet, and
@@ -78,12 +85,13 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from odevit_tpu_torch.core.integrators import _lc, make_step, num_stages
-from odevit_tpu_torch.kernels.autograd import (fused_vf, fused_vf_attn,
+from odevit_tpu_torch.core.integrators import (_lc, make_step, num_stages,
+                                               odeint)
+from odevit_tpu_torch.kernels.autograd import (fused_macaron, fused_vf,
+                                               fused_vf_attn,
                                                fused_vf_jasmin, vf_params)
 from odevit_tpu_torch.kernels.dropout import (check_rates, fold_seed,
                                               philox4x32_plain)
-from odevit_tpu_torch.kernels.vector_field import pad_tokens
 from odevit_tpu_torch.losses.classification import accuracy, cross_entropy
 from odevit_tpu_torch.losses.attention_distill import (kl_attention_loss,
                                                        l1_attention_loss)
@@ -93,6 +101,7 @@ from odevit_tpu_torch.losses.jasmin import (jasmin_from_stats,
                                             jasmin_map_loss,
                                             jasmin_trajectory_window)
 from odevit_tpu_torch.losses.trajectory import trajectory_mse
+from odevit_tpu_torch.models.fast_forward import pad_to_kernel
 from odevit_tpu_torch.train.state import TrainState
 
 
@@ -125,12 +134,8 @@ def jasmin_window(num_eval_steps: int, solver: str):
 
 
 def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
-    tokens = model.patch_embed(pixels)
-    b, n, d = tokens.shape
+    tokens, n = pad_to_kernel(model.patch_embed(pixels))
     _check_route(jasmin_k, n, model.l2_attention)
-    n_pad = pad_tokens(n)
-    if n_pad != n:
-        tokens = torch.nn.functional.pad(tokens, (0, 0, 0, n_pad - n))
     kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler, n_real=n,
               plain=plain)
     return tokens, model.vf.kernel_weights(tokens.dtype), \
@@ -298,6 +303,61 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
         metrics: Dict[str, torch.Tensor] = {
             "loss": loss.detach(), "jasmin_loss": aux["jasmin_loss"].detach(),
             "acc": accuracy(aux["logits"].detach(), batch["labels"]),
+            "grad_norm": grad_norm}
+        return state, metrics
+
+    return step
+
+
+def fast_macaron_forward(model, pixels, labels, *, plain: bool = False):
+    """(CE loss, logits) of a ``ViTMacaron``, differentiable in its
+    parameters: ``fast_forward_macaron(differentiable=True)`` and JAX's
+    ``cross_entropy``."""
+    tokens, n = pad_to_kernel(model.embed(pixels, fused=True))
+    vf = model.vf
+    w = vf.kernel_weights(tokens.dtype)
+    params = vf.kernel_params()
+
+    def f(t, y):
+        return fused_macaron(y, w, params, num_heads=model.num_heads,
+                             scaler=vf.scaler, n_real=n, plain=plain)
+
+    y = odeint(f, tokens, model.make_time_grid(), method=model.solver,
+               return_states=False)
+    logits = model.head_logits(y, fused=True)["logits"]
+    return cross_entropy(logits, labels), logits
+
+
+def make_fast_macaron_train_step(model, *,
+                                 preprocess_fn: Optional[Callable] = None,
+                                 plain: bool = False, mesh=None):
+    """``step(state, batch, rng=None) -> (state, metrics)`` for a
+    ``ViTMacaron``'s ``TrainState`` (see the module docstring). Metrics:
+    ``loss`` (CE), ``jasmin_loss`` (0: the Macaron family has no JaSMin),
+    ``acc`` and ``grad_norm`` (before the clip), as tensors on the device.
+    ``rng`` is accepted and unused: the step is deterministic."""
+    if mesh is not None:
+        raise NotImplementedError("the data-parallel (mesh) step is not "
+                                  "ported yet (the host-side slice)")
+    if any(drop_rates(model)):
+        raise ValueError("the fused Macaron step is deterministic only (as "
+                         "JAX's): the model has dropout")
+
+    def step(state: TrainState, batch, rng=None) -> tuple:
+        if state.model is not model:
+            raise ValueError("the state was made for another model")
+        pixels = batch["pixel_values"]
+        if preprocess_fn is not None:
+            pixels = preprocess_fn(pixels)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, logits = fast_macaron_forward(model, pixels, batch["labels"],
+                                            plain=plain)
+        loss.backward()
+        grad_norm = state.apply_gradients()
+        metrics: Dict[str, torch.Tensor] = {
+            "loss": loss.detach(),
+            "jasmin_loss": torch.zeros((), device=loss.device),
+            "acc": accuracy(logits.detach(), batch["labels"]),
             "grad_norm": grad_norm}
         return state, metrics
 

@@ -108,7 +108,7 @@ def test_unported_paths_raise(case):
     _, _, tm, x = pair("euler")
     x = torch.from_numpy(x)
     with pytest.raises(NotImplementedError):
-        if case == "not_vitode":         # e.g. a Macaron model
+        if case == "not_vitode":  # neither a ViTODE nor a ViTMacaron
             fast_forward(tm.vf, x)
         elif case == "forward_dopri5":
             # the flax model integrates fixed grids only (its ODEBlock

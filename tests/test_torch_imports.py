@@ -137,7 +137,8 @@ def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
 def test_the_only_source_is_listed():
     assert set(build.sources()) == {"vector_field", "vector_field_bwd",
                                     "vector_field_tiled", "dropout_masks",
-                                    "vector_field_bwd_split"}
+                                    "vector_field_bwd_split", "macaron",
+                                    "macaron_bwd"}
 
 
 def test_the_split_backward_is_a_port_module():
@@ -146,6 +147,24 @@ def test_the_split_backward_is_a_port_module():
     from its own source."""
     assert "odevit_tpu_torch.kernels.vector_field_bwd_split" in port_modules()
     assert build.sources()["vector_field_bwd_split"].parent == build.CSRC
+
+
+@pytest.mark.parametrize("module", ["macaron", "macaron_bwd"])
+def test_macaron_kernels_without_a_compiler_raise(module, tmp_path,
+                                                  monkeypatch):
+    """The Macaron kernels' libraries are built at first use from their own
+    sources; with no compiler their wrappers raise instead of running
+    anything else."""
+    import importlib
+    mod = importlib.import_module(f"odevit_tpu_torch.kernels.{module}")
+    assert f"odevit_tpu_torch.kernels.{module}" in port_modules()
+    assert build.sources()[module].parent == build.CSRC
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_toolkit"))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(mod, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        mod._library()
 
 
 def test_split_kernels_without_a_compiler_raise(tmp_path, monkeypatch):
