@@ -95,6 +95,20 @@ Phases:
      at B=1024 by rk4 on 13 points (48 launches) and Euler on 13 (12),
      and through the engine; 3 training steps through the kernels and the
      plain path; each instance alone at B=1024;
+  24. the fused steps' map route and emit_masks (after phase 11): the free
+     step on a 9-token sequence (CIFAR width at patch 16, k=9, rk4-13,
+     B=1024, ± dropout 0.1), JaSMin from the maps, through the kernels
+     and the plain path (``map_route``); the emit_masks instance at
+     ``benchmarks/tpu_dropout_check.py``'s shape against a PyTorch copy
+     of its twin, the generator kernel and autograd (``dropout_check``);
+  25. L2 attention past one CTA (after phase 21; cells
+     tsbase-l2-train-b64-bf16 and tsbase-l2-serve-euler36-b64-bf16): the
+     tiled route's L2 instances against their plain versions at B=4 and
+     on the cell's state at B=64 (bf16 and f32; the Python plan rule
+     against ``vft_plan``), 3 training steps of the TS-Base student with
+     ``l2_attention`` (``evidence_free_base.yaml`` at dropout 0) through
+     the kernels and the plain path, the softmax student's step beside
+     it, and the student served at euler-36 and through the engine;
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
   last, the kernels line (launch counts of the main paths, times, bounds)
@@ -650,13 +664,17 @@ def profile_step(step, state, batch, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
-def train_runs(images_u8, labels, drops=None, l2=False):
+def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
+               pre=None, jasmin_k=JASMIN_K):
     """3 steps through the kernels and through the plain path from the same
     weights and batch (with ``drops``, the model's dropout rates, and the
     same rng; with ``l2``, of the L2-attention model); then one more step
     of each timed by CUDA events around its parts, and one profiled step of
-    the kernel path. Returns (runs, profile, first-gradient cosine, loss
-    differences, launches per step)."""
+    the kernel path. The model is the CIFAR rk4-13 ViTODE unless
+    ``model_fn(rates)`` (rates: the dropout keywords) gives another, fed
+    through ``pre`` (default: the CIFAR preprocess). Returns (runs,
+    profile, first-gradient cosine, loss differences, launches per
+    step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -666,17 +684,18 @@ def train_runs(images_u8, labels, drops=None, l2=False):
                                                    make_fast_free_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
                                               make_optimizer)
-    pre = make_preprocess(dtype=torch.bfloat16)
+    pre = pre or make_preprocess(dtype=torch.bfloat16)
     batch = {"pixel_values": images_u8, "labels": labels}
     rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), drops or ()))
     rng = DROP_RNG if drops else None
+    nb = images_u8.shape[0]
     runs = {}
     for path in ("kernels", "plain"):
-        model = ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
-                       dtype=torch.bfloat16, device="cuda", seed=0,
-                       l2_attention=l2, **rates)
+        model = (model_fn(rates) if model_fn is not None else ViTODE(
+            **SHAPE, num_eval_steps=13, solver="rk4", dtype=torch.bfloat16,
+            device="cuda", seed=0, l2_attention=l2, **rates))
         state = create_train_state(model, make_optimizer(1e-4))
-        step = make_fast_free_train_step(model, jasmin_k=JASMIN_K,
+        step = make_fast_free_train_step(model, jasmin_k=jasmin_k,
                                          preprocess_fn=pre,
                                          plain=path == "plain")
         torch.cuda.synchronize()
@@ -701,7 +720,7 @@ def train_runs(images_u8, labels, drops=None, l2=False):
         state.optimizer.zero_grad(set_to_none=True)
         ev[0].record()
         loss, _ = fast_free_forward(model, pre(images_u8), labels,
-                                    jasmin_k=JASMIN_K, step_seeds=seeds,
+                                    jasmin_k=jasmin_k, step_seeds=seeds,
                                     plain=path == "plain")
         ev[1].record()
         loss.backward()
@@ -714,8 +733,8 @@ def train_runs(images_u8, labels, drops=None, l2=False):
                                    batch)
         runs[path] = {
             "loss": losses, "ms_per_step": ms,
-            "img_per_s": BATCH / min(ms) * 1e3,
-            "img_per_s_best_of_2_3": BATCH / min(ms[1:]) * 1e3,
+            "img_per_s": nb / min(ms) * 1e3,
+            "img_per_s_best_of_2_3": nb / min(ms[1:]) * 1e3,
             "jasmin_loss_last": metrics["jasmin_loss"].item(),
             "grad_norm_last": metrics["grad_norm"].item(),
             "acc_last": metrics["acc"].item(), "peak_mem_gb": peak,
@@ -1523,6 +1542,13 @@ def phase_distill_kernel_timing(model, images_u8, drops=None):
                           map_cotangent=True))}
         out = time_jobs({name: (fn, bound, calls)
                          for name, (fn, bound) in jobs.items()}, n_real, sfx)
+        if drops:
+            # the map mode writing its four masks (emit_masks): the
+            # dropout check's instance at the cell's state
+            out.update(time_jobs({"vf_eval_masks": (
+                lambda pl: (lambda f, p, m: (f, p, *m))(*vf_eval_attn(
+                    x, w, plain=pl, emit_masks=True, **kw)),
+                masks_bound(b, n_real, d, dh, heads, 2), calls)}, n_real))
     launch_counts.update(before)           # comparisons do not count
     emit("distill_dropout_kernel_timing" if drops else
          "distill_kernel_timing", shape=f"B={b} n={n_real}/{x.shape[1]} "
@@ -2334,13 +2360,15 @@ def phase_chain_vs_per_step(model, x, student, x224):
     return chain_launches, timing
 
 
-def phase_serving_224(model, rng):
-    """A ServingEngine over the euler-25 student, buckets (1, 8, 64), its
-    preprocess ``make_preprocess(image_size=224)`` (the engine takes the
-    model's 224 px, as JAX's does, so the resize is the identity), answers
-    16 uint8 requests of 1-20 images from 4 threads; each answer is held
-    against a direct ``fast_forward``; the mean latency and the B=1
-    forward time."""
+def phase_serving_224(model, rng, counter="vf_eval_euler_tiled", evals=24,
+                      name="serving_224"):
+    """A ServingEngine over the euler-25 student (or another 224 px model,
+    whose forward launches ``evals`` of ``counter``), buckets (1, 8, 64),
+    its preprocess ``make_preprocess(image_size=224)`` (the engine takes
+    the model's 224 px, as JAX's does, so the resize is the identity),
+    answers 16 uint8 requests of 1-20 images from 4 threads; each answer
+    is held against a direct ``fast_forward``; the mean latency and the
+    B=1 forward time."""
     import numpy as np
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
@@ -2368,15 +2396,15 @@ def phase_serving_224(model, rng):
             t.start()
         for t in threads:
             t.join(timeout=600)
-        check(not any(t.is_alive() for t in threads), "serving_224 hung")
+        check(not any(t.is_alive() for t in threads), f"{name} hung")
         launches = {k: v for k, v in launch_counts.items() if v}
         stats = engine.stats()
-    check(launches == {"vf_eval_euler_tiled": 24 * stats["runs"]},
-          f"serving_224: {launches} for {stats['runs']} runs")
+    check(launches == {counter: evals * stats["runs"]},
+          f"{name}: {launches} for {stats['runs']} runs")
     worst, identical = 0.0, 0
     for req, got in zip(requests, answers):
         check(got is not None and got.shape == (len(req), 100),
-              "serving_224: missing or misshapen answer")
+              f"{name}: missing or misshapen answer")
         x = pre(torch.from_numpy(req).cuda())
         want = fast_forward(model, x)["logits"].cpu().numpy()
         identical += int(np.array_equal(got, want))
@@ -2384,11 +2412,12 @@ def phase_serving_224(model, rng):
                                  / max(np.abs(want).max(), 1e-30)))
     x1 = pre(torch.from_numpy(requests[0][:1]).cuda())
     b1_ms = cuda_ms(lambda: fast_forward(model, x1), iters=10)
-    emit("serving_224", requests=len(requests), sizes=sizes,
+    emit(name, requests=len(requests), sizes=sizes,
          buckets=(1, 8, 64), identical_answers=identical, worst_rel_err=worst,
          tol=TOL_LOGITS, launches=launches, stats=stats,
-         b1_ms_per_forward=b1_ms, b1_ms_per_eval=b1_ms / 24)
-    check(worst <= TOL_LOGITS, f"serving_224 answers differ: {worst}")
+         b1_ms_per_forward=b1_ms, b1_ms_per_eval=b1_ms / evals)
+    check(worst <= TOL_LOGITS, f"{name} answers differ: {worst}")
+    return launches
 
 
 # --- L2 attention: the L2+bias instances of the one-CTA kernels --------
@@ -2398,15 +2427,21 @@ L2_NAMES = BWD_NAMES + ("qkv_bias", "out_bias")
 L2_BIAS_SCALE = 0.1
 
 
-def l2_model(solver="rk4", steps=13, dtype="bfloat16", seed=0):
+def l2_model(solver="rk4", steps=13, dtype="bfloat16", seed=0,
+             tsbase=False):
     """The CIFAR ViTODE with L2 attention (``model.l2_attention``, JAX's
-    ``l2_b1024``), its four attention biases drawn nonzero from ``seed``
-    (normal, 0.1), so that the bias paths carry data."""
+    ``l2_b1024``), or with ``tsbase`` the TS-Base student of
+    ``evidence_free_base.yaml`` with it (Euler on 36 points unless
+    ``solver``/``steps`` say otherwise), its four attention biases drawn
+    nonzero from ``seed`` (normal, 0.1), so that the bias paths carry
+    data."""
     import torch
     from odevit_tpu_torch.models.vit_ode import ViTODE
-    model = ViTODE(**SHAPE, num_eval_steps=steps, solver=solver,
-                   dtype=getattr(torch, dtype) if dtype else None,
-                   l2_attention=True, device="cuda", seed=seed)
+    kw = dict(num_eval_steps=steps, solver=solver,
+              dtype=getattr(torch, dtype) if dtype else None,
+              l2_attention=True, device="cuda", seed=seed)
+    model = (ViTODE.base_224(num_classes=100, **kw) if tsbase
+             else ViTODE(**SHAPE, **kw))
     g = torch.Generator().manual_seed(seed + 1)
     a = model.vf.attn
     with torch.no_grad():
@@ -2447,22 +2482,26 @@ def l2_plans_agree():
     return shapes
 
 
-def phase_l2_kernels_vs_plain():
+def phase_l2_kernels_vs_plain(tsbase=False):
     """Both L2 forward instances and the L2 backward (with and without the
-    JaSMin cotangent) against their plain versions at B=4, the CIFAR shape,
-    random nonzero biases, in bf16 and f32; repeated backwards
-    bit-identical; NaN and garbage in the padded rows inert; a "far" case
-    (q/k weights x8) where whole rows underflow to p = 0 and the output
-    stays finite and equal to the plain version's; each call lands on its
-    L2 counter; the Python plans agree with the CUDA sources'."""
+    JaSMin cotangent) against their plain versions at B=4, the CIFAR shape
+    (with ``tsbase`` the TS-Base shape, 207/208 tokens, D=768: the tiled
+    route's L2 instances), random nonzero biases, in bf16 and f32; repeated
+    backwards bit-identical; NaN and garbage in the padded rows inert; a
+    "far" case (q/k weights x8) where whole rows underflow to p = 0 and the
+    output stays finite and equal to the plain version's; each call lands
+    on its L2 counter; the Python plans agree with the CUDA sources'."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.vector_field import (vf_eval,
                                                        vf_eval_jasmin)
     from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
     before = dict(launch_counts)
-    model = l2_model()
-    b, n_real, n_pad, d, heads = 4, 69, 80, 192, 3
+    model = l2_model(tsbase=tsbase)
+    b, n_real, n_pad, d, heads = ((4, 207, 208, 768, 12) if tsbase
+                                  else (4, 69, 80, 192, 3))
+    jas_k = TSL2_K if tsbase else JASMIN_K
+    sfx = "_tiled" if tsbase else ""
     kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
     g = torch.Generator(device="cuda").manual_seed(11)
 
@@ -2495,13 +2534,14 @@ def phase_l2_kernels_vs_plain():
                              device="cuda") * 1e-2
             gj[..., n_real:] = 0
             r = {"dtype": str(dtype), "case": kind, "tol": tol,
-                 "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
-            f = routed(lambda: vf_eval(x, w, **kw), "vf_eval_l2")
+                 "shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} "
+                          f"dh={model.vf.mlp.fc1.weight.shape[0]}"}
+            f = routed(lambda: vf_eval(x, w, **kw), "vf_eval_l2" + sfx)
             pf = vf_eval(x, w, plain=True, **kw)
-            dx, st, idx = routed(lambda: vf_eval_jasmin(x, w, jas_k=JASMIN_K,
+            dx, st, idx = routed(lambda: vf_eval_jasmin(x, w, jas_k=jas_k,
                                                         **kw),
-                                 "vf_eval_jasmin_l2")
-            pdx, pst, pidx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True,
+                                 "vf_eval_jasmin_l2" + sfx)
+            pdx, pst, pidx = vf_eval_jasmin(x, w, jas_k=jas_k, plain=True,
                                             **kw)
             torch.cuda.synchronize()
             r["fwd"] = rel_err(f[:, :n_real], pf[:, :n_real])
@@ -2523,7 +2563,7 @@ def phase_l2_kernels_vs_plain():
             for jas in (False, True):
                 extra = dict(g_jas=gj, jas_idx=idx) if jas else {}
                 got = routed(lambda: vf_bwd(x, w, gx, **kw, **extra),
-                             "vf_bwd_l2")
+                             "vf_bwd_l2" + sfx)
                 want = vf_bwd(x, w, gx, plain=True, **kw, **extra)
                 again = vf_bwd(x, w, gx, **kw, **extra)
                 torch.cuda.synchronize()
@@ -2546,7 +2586,7 @@ def phase_l2_kernels_vs_plain():
                 dirty[:, n_real + 5:] = 1e30
                 gdirty = gx.clone()
                 gdirty[:, n_real:] = 7.0
-                ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=JASMIN_K,
+                ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=jas_k,
                                                 **kw)
                 df = vf_eval(dirty, w, **kw)
                 dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx, **kw)
@@ -2560,10 +2600,11 @@ def phase_l2_kernels_vs_plain():
                 r["nan_padding_unchanged"] = same
                 check(same, f"L2 {dtype}: padded rows reached a real row")
             results.append(r)
-    shapes = l2_plans_agree()
+    shapes = tiled_plans_agree() if tsbase else l2_plans_agree()
     launch_counts.update(before)           # comparisons do not count
-    emit("l2_kernels_vs_plain", bias_scale=L2_BIAS_SCALE,
-         plans_agree_over_shapes=shapes, results=results)
+    emit("l2_tiled_kernels_vs_plain" if tsbase else "l2_kernels_vs_plain",
+         bias_scale=L2_BIAS_SCALE, plans_agree_over_shapes=shapes,
+         results=results)
 
 
 def phase_l2_serving(images_u8, softmax_report, rng):
@@ -2644,10 +2685,13 @@ def phase_l2_train(images_u8, labels, det):
     return k["launches"]
 
 
-def phase_l2_kernel_timing(images_u8):
-    """Each L2 instance alone at B=1024 on the main path's inputs (the
-    first state of one image batch) against its plain version, with its
-    bound: the softmax instance's (the norms' extra work is under 1 %)."""
+def phase_l2_kernel_timing(images_u8, tsbase=False):
+    """Each L2 instance alone on the main path's inputs (the first state of
+    one image batch: B=1024 at the CIFAR shape, or with ``tsbase`` B=64 at
+    the TS-Base shape, the tiled route's instances) against its plain
+    version, with its bound: the softmax instance's (the norms' extra work
+    is under 1 %). With ``tsbase`` the f32 instances are held against
+    their plain versions on the same state too (TOL_F32)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts
@@ -2655,70 +2699,85 @@ def phase_l2_kernel_timing(images_u8):
                                                        vf_eval_jasmin)
     from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
     before = dict(launch_counts)
-    model = l2_model()
+    model = l2_model(tsbase=tsbase)
+    d, dh, heads = (768, 768, 12) if tsbase else (192, 768, 3)
+    jas_k = TSL2_K if tsbase else JASMIN_K
+    sfx = "_tiled" if tsbase else ""
+    pre = make_preprocess(image_size=224 if tsbase else None,
+                          dtype=torch.bfloat16)
+    b = images_u8.shape[0]
+    out, f32_errs = {}, {}
     with torch.no_grad():
-        tokens = model.patch_embed(make_preprocess(
-            dtype=torch.bfloat16)(images_u8))
+        tokens = model.patch_embed(pre(images_u8))
         n_real = tokens.shape[1]
-        x = torch.nn.functional.pad(
+        state = torch.nn.functional.pad(
             tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
-        w = model.vf.kernel_weights(torch.bfloat16)
-        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
         g = torch.Generator(device="cuda").manual_seed(12)
-        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
-            torch.bfloat16)
-        f = vf_eval(x, w, **kw)
-        pf = vf_eval(x, w, plain=True, **kw)
-        dx, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw)
-        pdx, pst, _ = vf_eval_jasmin(x, w, jas_k=JASMIN_K, plain=True, **kw)
-        gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
-        gj[..., n_real:] = 0
-        bars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
-        pbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw)
-        torch.cuda.synchronize()
-        ferr = rel_err(f[:, :n_real], pf[:, :n_real])
-        errs = [rel_err(a[:, :n_real], b[:, :n_real])
-                for a, b in zip((dx, st), (pdx, pst))]
-        berrs = [rel_err(a[:, :n_real] if i == 0 else a,
-                         b[:, :n_real] if i == 0 else b)
-                 for i, (a, b) in enumerate(zip(bars, pbars))]
-        check(max([ferr] + errs) <= TOL_BF16, f"B=1024 L2 fwd: {ferr} {errs}")
-        check(max(berrs) <= TOL_BF16, f"B=1024 L2 bwd: {berrs}")
-        amax = lambda a, b: (a[:, :n_real].float()
-                             - b[:, :n_real].float()).abs().max().item()
-        out = {
-            "vf_eval_l2": {
-                "max_abs_err": amax(f, pf), "rel_err": ferr,
-                "ms": cuda_ms(lambda: vf_eval(x, w, **kw), iters=10),
-                "plain_ms": cuda_ms(lambda: vf_eval(x, w, plain=True, **kw),
-                                    iters=2),
-                **dict(zip(("bound_ms", "bound_by"),
-                           vf_bound(BATCH, n_real, 192, 768, 2)))},
-            "vf_eval_jasmin_l2": {
-                "max_abs_err": amax(dx, pdx), "rel_errs": errs,
-                "ms": cuda_ms(lambda: vf_eval_jasmin(
-                    x, w, jas_k=JASMIN_K, **kw), iters=10),
-                "plain_ms": cuda_ms(lambda: vf_eval_jasmin(
-                    x, w, jas_k=JASMIN_K, plain=True, **kw), iters=2),
-                **dict(zip(("bound_ms", "bound_by"), jasmin_bound(
-                    BATCH, n_real, 192, 768, 3, 2, JASMIN_K + 1)))},
-            "vf_bwd_l2": {
-                "max_abs_err": max((a.float() - b.float()).abs().max().item()
-                                   for a, b in zip(bars[1:], pbars[1:])),
-                "max_abs_err_x": amax(bars[0], pbars[0]),
-                "rel_errs": dict(zip(L2_NAMES, berrs)),
-                "ms": cuda_ms(lambda: vf_bwd(
-                    x, w, gx, g_jas=gj, jas_idx=idx, **kw), iters=10),
-                "plain_ms": cuda_ms(lambda: vf_bwd(
-                    x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw),
-                    iters=2),
-                **dict(zip(("bound_ms", "bound_by"), bwd_bound(
-                    BATCH, n_real, 192, 768, 3, 2)))}}
+        gx32 = torch.randn(state.shape, generator=g, device="cuda") * 1e-3
+        for dtype in ((torch.bfloat16, torch.float32) if tsbase
+                      else (torch.bfloat16,)):
+            x, gx = state.to(dtype), gx32.to(dtype)
+            w = model.vf.kernel_weights(dtype)
+            kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+            f = vf_eval(x, w, **kw)
+            pf = vf_eval(x, w, plain=True, **kw)
+            dx, st, idx = vf_eval_jasmin(x, w, jas_k=jas_k, **kw)
+            pdx, pst, _ = vf_eval_jasmin(x, w, jas_k=jas_k, plain=True, **kw)
+            gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+            gj[..., n_real:] = 0
+            bars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, **kw)
+            pbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw)
+            torch.cuda.synchronize()
+            ferr = rel_err(f[:, :n_real], pf[:, :n_real])
+            errs = [rel_err(a[:, :n_real], b_[:, :n_real])
+                    for a, b_ in zip((dx, st), (pdx, pst))]
+            berrs = [rel_err(a[:, :n_real] if i == 0 else a,
+                             b_[:, :n_real] if i == 0 else b_)
+                     for i, (a, b_) in enumerate(zip(bars, pbars))]
+            tol = TOL_BF16 if dtype == torch.bfloat16 else TOL_F32
+            check(max([ferr] + errs) <= tol,
+                  f"B={b} L2 fwd {dtype}: {ferr} {errs}")
+            check(max(berrs) <= tol, f"B={b} L2 bwd {dtype}: {berrs}")
+            if dtype == torch.float32:
+                f32_errs = {"fwd": ferr, "jasmin": errs,
+                            "bwd": dict(zip(L2_NAMES, berrs))}
+                continue
+            amax = lambda a, b_: (a[:, :n_real].float()
+                                  - b_[:, :n_real].float()).abs().max().item()
+            out = {
+                "vf_eval_l2" + sfx: {
+                    "max_abs_err": amax(f, pf), "rel_err": ferr,
+                    "ms": cuda_ms(lambda: vf_eval(x, w, **kw), iters=10),
+                    "plain_ms": cuda_ms(lambda: vf_eval(x, w, plain=True,
+                                                        **kw), iters=2),
+                    **dict(zip(("bound_ms", "bound_by"),
+                               vf_bound(b, n_real, d, dh, 2)))},
+                "vf_eval_jasmin_l2" + sfx: {
+                    "max_abs_err": amax(dx, pdx), "rel_errs": errs,
+                    "ms": cuda_ms(lambda: vf_eval_jasmin(
+                        x, w, jas_k=jas_k, **kw), iters=10),
+                    "plain_ms": cuda_ms(lambda: vf_eval_jasmin(
+                        x, w, jas_k=jas_k, plain=True, **kw), iters=2),
+                    **dict(zip(("bound_ms", "bound_by"), jasmin_bound(
+                        b, n_real, d, dh, heads, 2, jas_k + 1)))},
+                "vf_bwd_l2" + sfx: {
+                    "max_abs_err": max(
+                        (a.float() - b_.float()).abs().max().item()
+                        for a, b_ in zip(bars[1:], pbars[1:])),
+                    "max_abs_err_x": amax(bars[0], pbars[0]),
+                    "rel_errs": dict(zip(L2_NAMES, berrs)),
+                    "ms": cuda_ms(lambda: vf_bwd(
+                        x, w, gx, g_jas=gj, jas_idx=idx, **kw), iters=10),
+                    "plain_ms": cuda_ms(lambda: vf_bwd(
+                        x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw),
+                        iters=2),
+                    **dict(zip(("bound_ms", "bound_by"), bwd_bound(
+                        b, n_real, d, dh, heads, 2)))}}
     launch_counts.update(before)           # comparisons do not count
-    emit("l2_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
-         f"dh=768 bf16", results=out)
+    emit("tsbase_l2_kernel_timing" if tsbase else "l2_kernel_timing",
+         shape=f"B={b} n={n_real}/{state.shape[1]} D={d} H={heads} "
+         f"dh={dh} bf16", f32_rel_errs=f32_errs or None, results=out)
     return out
-
 
 
 # ---- the Macaron family at the CIFAR shape (JAX's macaron_b1024) ----
@@ -3094,6 +3153,333 @@ def phase_macaron_kernel_timing(images_u8):
     return out
 
 
+
+# ---- slice 10: L2 past one CTA, the map route, emit_masks ------------------
+
+# evidence_free_base.yaml's model with l2_attention (dropout 0: JAX's fused
+# L2 path is deterministic only)
+TSL2_TRAIN_CELL = "tsbase-l2-train-b64-bf16"
+TSL2_SERVE_CELL = "tsbase-l2-serve-euler36-b64-bf16"
+TSL2_K = 2                                 # the recipe's jasmin
+# per step: jasmin_window(36, "euler") = (5, 30) plain and JaSMin
+# evaluations, and their 35 backwards
+TSL2_LAUNCHES = {"vf_eval_l2_tiled": 5, "vf_eval_jasmin_l2_tiled": 30,
+                 "vf_bwd_l2_tiled": 35}
+# the map route: CIFAR width at patch 16 (9 tokens, padded to 16), rk4 on
+# 13 points: 9 head steps of plain evaluations, 3 tail steps of map
+# evaluations, per step. k=9: more extraction passes (k+1) than tokens,
+# and the largest k JAX's map route takes (its _g_pair indexes the k-th
+# order statistic of a row of 9)
+MAP_ROUTE_CELL = "cifar100-vitode-p16-maproute-b1024-bf16"
+MAP_ROUTE_K = 9
+MAP_LAUNCHES = {"vf_eval": 36, "vf_eval_attn": 12, "vf_bwd": 36,
+                "vf_bwd_tiled": 12}
+MAP_DROP_LAUNCHES = {"vf_eval_drop": 36, "vf_eval_attn_drop": 12,
+                     "vf_bwd_drop": 36, "vf_bwd_tiled_drop": 12}
+# benchmarks/tpu_dropout_check.py's shape and rates (attn, proj, mlp)
+CHECK_SHAPE = dict(b=16, n=21, d=64, heads=2, dh=128)
+CHECK_DROPS = (0.2, 0.1, 0.3)
+CHECK_SCALER, CHECK_SEED = 12.0, 12345
+
+
+def tiled_plans_agree():
+    """``tiled_plan_rule`` (Python, which routes L2 on either device)
+    against ``vft_plan`` of the CUDA source over a sweep of shapes, with
+    and without dropout and L2: the same plan, or none on both sides."""
+    import torch
+    from odevit_tpu_torch.kernels.tiled import tiled_plan, tiled_plan_rule
+    shapes = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_pad in (16, 32, 80, 128, 144, 160, 208, 256, 272):
+            for d, heads in ((32, 2), (64, 2), (192, 3), (384, 6),
+                             (768, 12), (1024, 16)):
+                for dh in (d, 4 * d):
+                    for drop in (False, True):
+                        for l2 in (False, True):
+                            args = (dtype, n_pad, n_pad - 1, d, heads, dh,
+                                    drop, l2)
+                            try:
+                                want = tiled_plan(*args)
+                            except ValueError:
+                                want = None
+                            got = tiled_plan_rule(*args)
+                            check(got == want, f"tiled plan {args}: python "
+                                  f"{got}, vft_plan {want}")
+                            shapes += 1
+    return shapes
+
+
+def free_step_ms(model, images_u8, labels, pre, jasmin_k):
+    """The fused free step of ``model`` through the kernels: best of
+    steps 2-3 by the host clock."""
+    import torch
+    from odevit_tpu_torch.train.fast_steps import make_fast_free_train_step
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    state = create_train_state(model, make_optimizer(1e-4))
+    step = make_fast_free_train_step(model, jasmin_k=jasmin_k,
+                                     preprocess_fn=pre)
+    batch = {"pixel_values": images_u8, "labels": labels}
+    ms = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return min(ms[1:])
+
+
+def phase_tsbase_l2_train(images_u8, labels):
+    """Cell tsbase-l2-train-b64-bf16: the free step of the TS-Base student
+    with L2 attention (evidence_free_base.yaml at dropout 0; 32 px uint8
+    resized to 224 on the card), through the tiled route's L2 instances
+    and through the plain path from the same weights; beside it the
+    softmax student's step at the same shape (the existing tiled kernels),
+    a reference number only."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    runs, profile, cos, loss_rel, per_step = train_runs(
+        images_u8, labels, model_fn=lambda rates: l2_model(
+            solver="euler", steps=36, tsbase=True),
+        pre=pre, jasmin_k=TSL2_K)
+    k, p = runs["kernels"], runs["plain"]
+    softmax_ms = free_step_ms(distill_student(), images_u8, labels, pre,
+                              TSL2_K)
+    b = images_u8.shape[0]
+    emit("tsbase_l2_train_profile", **profile)
+    emit("tsbase_l2_train", cell=TSL2_TRAIN_CELL, batch=b,
+         input="uint8 32x32 resized to 224", steps=TRAIN_STEPS,
+         solver="euler-36", jasmin_k=TSL2_K,
+         reduced="dropout 0 (JAX's L2 is deterministic-only)",
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         softmax_ms_per_step=softmax_ms,
+         softmax_img_per_s=b / softmax_ms * 1e3,
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train("tsbase_l2_train", runs, cos, loss_rel, per_step,
+                TSL2_LAUNCHES)
+    return k["launches"]
+
+
+def phase_tsbase_l2_serving(images_224, rng):
+    """Cell tsbase-l2-serve-euler36-b64-bf16: the L2 student served by
+    ``fast_forward`` at its own grid (Euler on 36 points, the generic
+    route as JAX routes L2: 35 tiled L2 launches per forward) at B=64 on
+    224 px uint8, against the plain path; then the engine over it."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    model = l2_model(solver="euler", steps=36, tsbase=True)
+    x = make_preprocess(image_size=224, dtype=torch.bfloat16)(images_224)
+    b = x.shape[0]
+    reset_launch_counts()
+    got = fast_forward(model, x)["logits"]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    check(launches == {"vf_eval_l2_tiled": 35},
+          f"{TSL2_SERVE_CELL}: launches {launches}")
+    want = fast_forward(model, x, plain=True)["logits"]
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (b, 100),
+          f"{TSL2_SERVE_CELL}: logits {got.shape}")
+    check(err <= TOL_LOGITS, f"{TSL2_SERVE_CELL}: logits rel err {err}")
+    check(top1 >= MIN_TOP1_AGREEMENT,
+          f"{TSL2_SERVE_CELL}: top-1 agreement {top1}")
+    ms = cuda_ms(lambda: fast_forward(model, x), iters=5)
+    plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True), iters=2)
+    engine = phase_serving_224(model, rng, counter="vf_eval_l2_tiled",
+                               evals=35, name="tsbase_l2_serving_engine")
+    emit("tsbase_l2_serving", cell=TSL2_SERVE_CELL, solver="euler-36",
+         batch=b, launches=launches, rel_err=err, tol=TOL_LOGITS,
+         top1_agreement=top1, ms_per_forward=ms, img_per_s=b / ms * 1e3,
+         plain_img_per_s=b / plain_ms * 1e3, engine_launches=engine)
+    return launches
+
+
+def phase_map_route(images_u8, labels):
+    """The fused free step on JAX's map route: CIFAR width at patch 16 (9
+    tokens padded to 16), JaSMin k=9 (more extraction passes than
+    tokens), rk4 on 13 points, B=1024, bf16, deterministic and at dropout
+    0.1; 3 steps through the kernels and the plain path each. The tail's
+    evaluations launch the attention-map mode and their backwards the
+    tiled route with the maps' cotangent."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    shape = dict(SHAPE, patch_size=16)
+
+    def model_fn(rates):
+        return ViTODE(**shape, num_eval_steps=13, solver="rk4",
+                      dtype=torch.bfloat16, device="cuda", seed=0, **rates)
+
+    out, launches = {}, {}
+    for drops, want in ((None, MAP_LAUNCHES), (DROP_RATES, MAP_DROP_LAUNCHES)):
+        runs, _, cos, loss_rel, per_step = train_runs(
+            images_u8, labels, drops=drops, model_fn=model_fn,
+            jasmin_k=MAP_ROUTE_K)
+        name = "drop0.1" if drops else "deterministic"
+        check_train(f"map_route {name}", runs, cos, loss_rel, per_step, want)
+        k = runs["kernels"]
+        out[name] = {"img_per_s": k["img_per_s_best_of_2_3"],
+                     "plain_img_per_s": runs["plain"]["img_per_s_best_of_2_3"],
+                     "first_grad_cosine": cos, "loss_rel_diff": loss_rel,
+                     "jasmin_loss_last": k["jasmin_loss_last"],
+                     "launches_per_step": per_step}
+        launches.update({n: c for n, c in k["launches"].items() if c})
+    emit("map_route", cell=MAP_ROUTE_CELL, batch=images_u8.shape[0],
+         tokens="9/16", solver="rk4-13", jasmin_k=MAP_ROUTE_K,
+         min_cosine=MIN_GRAD_COSINE, tol_loss=TOL_TRAIN_LOSS, results=out)
+    return launches
+
+
+def twin_with_masks(x, ga, ba, gm, bm, wqkv, wout, w1, w2, masks, *,
+                    num_heads, scaler, n_real):
+    """``benchmarks/tpu_dropout_check.py::xla_twin_with_masks`` in
+    PyTorch: the kernel's math in f32 with the emitted masks (JAX's
+    layouts); (f(x), the pre-dropout p)."""
+    import torch
+    mask_h, mask_mo, mask_ao, mask_p = masks
+    b, n, d = x.shape
+    hd = d // num_heads
+    cent = (x - x.mean(-1, keepdim=True)) * (d / (d - 1.0))
+    cn_a, cn_m = cent * ga + ba, cent * gm + bm
+    h = torch.nn.functional.gelu(cn_m @ w1) * mask_h.reshape(b, n, -1)
+    mlp_o = (h @ w2) * mask_mo.reshape(b, n, d)
+    q, k, v = (cn_a @ wqkv).split(d, -1)
+    heads = lambda t: t.reshape(b, n, num_heads, hd).transpose(1, 2)
+    s = (heads(q) * hd ** -0.5) @ heads(k).transpose(-1, -2)
+    key = torch.arange(n, device=x.device) < n_real
+    p = torch.softmax(s.masked_fill(~key, -1e30), -1)
+    ctx = ((p * mask_p) @ heads(v)).transpose(1, 2).reshape(b, n, d)
+    return (mlp_o + (ctx @ wout) * mask_ao.reshape(b, n, d)) * scaler, p
+
+
+def phase_dropout_check():
+    """The port's counterpart of ``tpu_dropout_check.run_checks`` at its
+    shape (b=16, n=21, D=64, 2 heads, dh=128, rates 0.2/0.1/0.3, f32), on
+    the emit_masks instance: the forward against the twin fed the emitted
+    masks (f(x) within 1e-4, maps within 1e-5); the masks' values and keep
+    rates; the masks bit-identical to ``generate_dropout_masks`` on the
+    card and equal across the plain and map modes and a repeat; the
+    backward (maps' cotangent, the tiled dropout instance) against
+    autograd of the twin (1e-4 of each cotangent's scale)."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.kernels.autograd import fused_vf_attn
+    from odevit_tpu_torch.kernels.dropout import generate_dropout_masks
+    from odevit_tpu_torch.kernels.vector_field import (VFWeights, vf_eval,
+                                                       vf_eval_attn)
+    b, n, d, heads, dh = (CHECK_SHAPE[k] for k in ("b", "n", "d", "heads",
+                                                   "dh"))
+    n_pad = 32
+    g = torch.Generator(device="cuda").manual_seed(0)
+    mk = lambda *s: torch.randn(*s, generator=g, device="cuda") * 0.2
+    x = torch.zeros(b, n_pad, d, device="cuda")
+    x[:, :n] = mk(b, n, d)
+    ws = [mk(d), mk(d), mk(d), mk(d), mk(d, 3 * d), mk(d, d), mk(d, dh),
+          mk(dh, d)]
+    w = VFWeights(*ws)
+    kw = dict(num_heads=heads, scaler=CHECK_SCALER, n_real=n,
+              seed=CHECK_SEED, drops=CHECK_DROPS)
+    reset_launch_counts()
+    f, p, masks = vf_eval_attn(x, w, emit_masks=True, **kw)
+    f2, masks2 = vf_eval(x, w, emit_masks=True, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    check(launches == {"vf_eval_masks": 2}, f"dropout_check: {launches}")
+    before = dict(launch_counts)
+    r = {}
+    # 1. forward vs twin
+    dx_t, p_t = twin_with_masks(x, *ws, masks, num_heads=heads,
+                                scaler=CHECK_SCALER, n_real=n)
+    r["fwd_max_abs_err"] = (f[:, :n] - dx_t[:, :n]).abs().max().item()
+    r["attn_max_abs_err"] = (p[:, :, :n, :n] - p_t[:, :, :n, :n]).abs() \
+        .max().item()
+    check(r["fwd_max_abs_err"] < 1e-4, f"dropout_check fwd: {r}")
+    check(r["attn_max_abs_err"] < 1e-5, f"dropout_check maps: {r}")
+    # 2. values and keep rates, over the real rows and keys
+    real = [m.reshape(b, n_pad, -1)[:, :n] for m in masks[:3]] + [
+        masks[3][:, :, :n, :n]]
+    for name, m, rate in (("h", real[0], CHECK_DROPS[2]),
+                          ("mlp_out", real[1], CHECK_DROPS[2]),
+                          ("attn_out", real[2], CHECK_DROPS[1]),
+                          ("p", real[3], CHECK_DROPS[0])):
+        vals = torch.unique(m).tolist()
+        check(len(vals) == 2 and vals[0] == 0.0
+              and abs(vals[1] - 1.0 / (1.0 - rate)) < 1e-5,
+              f"dropout_check mask {name}: values {vals}")
+        keep = (m > 0).float().mean().item()
+        r[f"keep_rate_{name}"] = keep
+        check(abs(keep - (1.0 - rate)) < 0.02,
+              f"dropout_check mask {name}: keep rate {keep}")
+    # 3. the generator kernel's masks, bit for bit; zeros on padding; the
+    # same masks from both modes and from a repeat
+    gen = generate_dropout_masks(b, n, d, dh, heads, CHECK_SEED,
+                                 attn_drop=CHECK_DROPS[0],
+                                 proj_drop=CHECK_DROPS[1],
+                                 mlp_drop=CHECK_DROPS[2], device="cuda")
+    _, _, masks3 = vf_eval_attn(x, w, emit_masks=True, **kw)
+    torch.cuda.synchronize()
+    pad_zero = (not any(m.reshape(b, n_pad, -1)[:, n:].any()
+                        for m in masks[:3])
+                and not masks[3][:, :, n:].any()
+                and not masks[3][..., n:].any())
+    r["masks_equal_generator"] = all(torch.equal(a, c)
+                                     for a, c in zip(real, gen))
+    r["masks_equal_across_modes_and_repeat"] = all(
+        torch.equal(a, c) and torch.equal(a, e)
+        for a, c, e in zip(masks, masks2, masks3))
+    r["padding_zero"] = pad_zero
+    check(r["masks_equal_generator"] and pad_zero,
+          "dropout_check: the emitted masks differ from the generator's")
+    check(r["masks_equal_across_modes_and_repeat"] and torch.equal(f, f2),
+          "dropout_check: emitted masks differ between calls")
+    # 4. the backward against autograd of the twin
+    names = ("x",) + BWD_NAMES[1:]
+    xk = x.clone().requires_grad_()
+    pk = [t.clone().requires_grad_() for t in ws]
+    dx, maps = fused_vf_attn(xk, VFWeights(*[t.detach() for t in pk]), pk,
+                             **kw)
+    loss = (dx[:, :n] ** 2).sum() + maps[:, :, 0, :n].sum()
+    gk = torch.autograd.grad(loss, [xk, *pk])
+    xt = x.clone().requires_grad_()
+    pt = [t.clone().requires_grad_() for t in ws]
+    dx_t, p_t = twin_with_masks(xt, *pt, masks, num_heads=heads,
+                                scaler=CHECK_SCALER, n_real=n)
+    loss_t = (dx_t[:, :n] ** 2).sum() + p_t[:, :, 0, :n].sum()
+    gt = torch.autograd.grad(loss_t, [xt, *pt])
+    errs = {nm: rel_err(a[:, :n] if nm == "x" else a,
+                        c[:, :n] if nm == "x" else c)
+            for nm, a, c in zip(names, gk, gt)}
+    r["bwd_rel_err"] = errs
+    check(max(errs.values()) < 1e-4, f"dropout_check bwd: {errs}")
+    launch_counts.update(before)           # comparisons do not count
+    emit("dropout_check", shape=CHECK_SHAPE, n_pad=n_pad, drops=CHECK_DROPS,
+         launches=launches, results=r)
+    return launches["vf_eval_masks"]
+
+
+def masks_bound(b: int, n_real: int, d: int, dh: int, heads: int,
+                itemsize: int):
+    """(bound_ms, bound_by) of one map-mode evaluation that also writes
+    its four f32 masks: the forward's operations, against its bytes, the
+    maps and the masks written."""
+    t_ops, _ = vf_bound(b, n_real, d, dh, itemsize)
+    nbytes = ((2 * b * n_real * d + 4 * d * d + 2 * d * dh
+               + b * heads * n_real * n_real) * itemsize + 16 * d
+              + 4 * (b * n_real * (dh + 2 * d) + b * heads * n_real * n_real))
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3128,6 +3514,10 @@ def main() -> int:
     phase_dropout_kernels_vs_plain(models["rk4-13"])
     drop_launches = phase_train_dropout(images, labels, train)
     drop_timing = phase_dropout_kernel_timing(models["rk4-13"], images)
+    # the fused steps' map route (short sequences), and the emit_masks
+    # instance at tpu_dropout_check.py's shape
+    map_launches = phase_map_route(images, labels)
+    masks_check_launches = phase_dropout_check()
     # L2 attention at the CIFAR shape: kernels, serving, the l2_b1024 step
     phase_l2_kernels_vs_plain()
     l2_serve_launches = phase_l2_serving(images, report, rng)
@@ -3173,6 +3563,12 @@ def main() -> int:
     r4_drop_timing = phase_distill_r4_kernel_timing(r4, images_r4,
                                                     DROP_RATES)
     del teacher, student, r4
+    # L2 attention past one CTA: the TS-Base student with l2_attention,
+    # trained (32 px resized on the card) and served (224 px)
+    phase_l2_kernels_vs_plain(tsbase=True)
+    tsl2_launches = phase_tsbase_l2_train(images_d, labels_d)
+    tsl2_timing = phase_l2_kernel_timing(images_d, tsbase=True)
+    tsl2_serve = phase_tsbase_l2_serving(images_r4, rng_d)
     # the serving slice at 224 px, and the chained Euler kernel
     rng_s = np.random.default_rng(2)
     x224, serve224, students = phase_serve_224(rng_s)
@@ -3296,7 +3692,39 @@ def main() -> int:
             "bf16": {k: v for k, v in mac_timing["torch.bfloat16"][name]
                      .items() if k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by")}})
-    check(len(kernels) == 27, f"{len(kernels)} kernels in the line")
+    for name in ("vf_eval_l2_tiled", "vf_eval_jasmin_l2_tiled",
+                 "vf_bwd_l2_tiled"):
+        bwd = name.startswith("vf_bwd")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
+            "replaces": ("odevit_tpu/kernels/vector_field_bwd.py:117" if bwd
+                         else "odevit_tpu/kernels/vector_field.py:196"),
+            # the TS-Base L2 cell's 3 training steps; serving's forward
+            # beside it
+            "launches": tsl2_launches[name],
+            **({"launches_serve": tsl2_serve[name]}
+               if name == "vf_eval_l2_tiled" else {}),
+            **{k: v for k, v in tsl2_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+            "library_ms": None})
+    kernels.append({
+        "name": "vf_eval_masks", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
+        "replaces": "odevit_tpu/kernels/vector_field.py:221",
+        # the dropout check's run; timed at the TS-Base dropout cell's
+        # state (B=64)
+        "launches": masks_check_launches,
+        **{k: v for k, v in ddrop_timing["vf_eval_masks"].items()
+           if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "bound_unit", "library_ms")}})
+    for entry in kernels:
+        # the map route's launches (3 steps each, ± dropout) beside the
+        # distillation cells'
+        if entry["name"] in map_launches:
+            entry["launches_map_route"] = map_launches[entry["name"]]
+    check(len(kernels) == 31, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 // on Hopper (sm_90a), for shapes where one image does not fit one CTA.
 //
 // Replaces the TPU kernels odevit_tpu/kernels/vector_field.py::_vf_kernel
-// (plain, Euler, stage-advance, JaSMin-statistics and attention-map modes)
-// and
+// (plain, Euler, stage-advance, JaSMin-statistics and attention-map modes,
+// L2+bias, emit_masks) and
 // odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (with the JaSMin
-// cotangent and the attention-map cotangent) at shapes such as TS-Base
+// cotangent and the attention-map cotangent; L2+bias) at shapes such as TS-Base
 // (224 px, patch 16: 207 tokens padded to 208, D=768, 12 heads, dh=768),
 // where one image's activations (320 KB for one bf16 [208, 768] tensor)
 // exceed the 227 KB of shared memory that vector_field.cu and
@@ -86,6 +86,30 @@
 //             JaSMin scatter (the latter two on the pre-dropout p), the
 //             keep bits of the query tile kept in shared memory between
 //             the two; v_bar from the masked p.
+// emit_masks (the TPU kernel's, :221-223, :252-261, :355, :370): the
+// forward's dropout instance also writes each mask it draws, as f32 kept
+// values (1 / (1 - rate) or 0; 0 on padded rows and keys), from the
+// epilogue that applies it: mask_h from the GELU epilogue, mask_mo and
+// mask_ao from the output pass, mask_p from vft_attn.
+//
+// L2 attention (the TPU kernel's l2_attention with biases, :293-301,
+// :260-261, :364-365, and _vf_bwd_kernel's L2 branch): instances compiled
+// apart (template flag kL2, chosen by non-null biases) in the plain and
+// JaSMin modes, without dropout. The qkv product's epilogue adds the f32
+// qkv_bias before rounding, the output product's adds out_bias to the f32
+// sum of both products before the scaler. vft_attn takes the f32 row norms
+// q2 (its query tile) and k2 (every key) of the rounded q and k, and p =
+// round(e / (sum e + 1e-8)), e = exp(-(q2 + k2 - 2 q.k) tau) over the
+// real keys: the expanded form, as the TPU kernel, and no max. Its
+// backward, as vector_field_bwd.cu's vfb_rows<kL2>: e_bar = (p_bar -
+// sum p_bar p) / esum, d2b = -tau e e_bar (f32), q_bar = round(2 q rsum -
+// 2 round(d2b) k) in vft_attn, k_bar = round(2 k csum - 2 round(d2b)^T q)
+// in vft_attn_keys, with rsum a row's sum of d2b and csum a key's column
+// sum, the query tiles' partials (l2cs) summed in order; the biases'
+// cotangents are per-image column sums of [q_bar k_bar v_bar] and of gd
+// (vft_norm_bwd) in the fixed-order reduce, so repeats stay
+// bit-identical.
+//
 // The product epilogues draw one Philox call per 4 columns of a row (the
 // 16x16 accumulator tile is staged in shared memory first, so a lane takes
 // a row's 4 consecutive columns whatever the fragment layout); the f32
@@ -161,14 +185,17 @@ vft_norm(const T* __restrict__ x, const T* __restrict__ g, int rows,
 
 // x_bar = d/(d-1) (c_bar - mean(c_bar)), c_bar = a_bar gamma_a + m_bar
 // gamma_m, zeros on padded rows; then this image's partial sums of
-// (a_bar cent, a_bar, m_bar cent, m_bar) over its real rows. One CTA per
-// image.
+// (a_bar cent, a_bar, m_bar cent, m_bar) over its real rows, and with L2
+// (qkvb given) those of [q_bar k_bar v_bar] and of gd, the biases'
+// cotangents, in x's dtype as written. One CTA per image.
 template <typename T>
 __global__ void __launch_bounds__(vf::kThreads)
 vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
              const T* __restrict__ x, const float* __restrict__ mean,
              const float* __restrict__ ga, const float* __restrict__ gm,
-             T* xbar, float* npart, int n_pad, int n_real, int d) {
+             T* xbar, float* npart, int n_pad, int n_real, int d,
+             const T* __restrict__ qkvb = nullptr,
+             const T* __restrict__ gd = nullptr) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = (size_t)blockIdx.x * n_pad;
   const float scale = (float)((double)d / (d - 1.0));
@@ -183,7 +210,20 @@ vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
       xbar[o + c] = vf::from_f<T>(r < n_real ? scale * (cbar - cm) : 0.0f);
     }
   }
-  float* np = npart + (size_t)blockIdx.x * 4 * d;
+  float* np = npart + (size_t)blockIdx.x * (qkvb != nullptr ? 8 : 4) * d;
+  if (qkvb != nullptr) {
+    for (int c = threadIdx.x; c < 3 * d; c += vf::kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r)
+        sum += vf::to_f(qkvb[(row0 + r) * 3 * d + c]);
+      np[4 * d + c] = sum;
+    }
+    for (int c = threadIdx.x; c < d; c += vf::kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r) sum += vf::to_f(gd[(row0 + r) * d + c]);
+      np[7 * d + c] = sum;
+    }
+  }
   for (int c = threadIdx.x; c < d; c += vf::kThreads) {
     float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
     for (int r = 0; r < n_real; ++r) {
@@ -236,6 +276,10 @@ struct GemmArgs {
   unsigned key[2], th[2];
   float sc[2];
   int n_pad, n_real;
+  // L2: the f32 bias added to the accumulator before kRound / kScale
+  const float* bias;
+  // emit_masks: the kept values of masks 0 and 1, f32 [m, n], or null
+  float* mask[2];
 };
 
 template <typename T>
@@ -245,14 +289,15 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
   const size_t o = (size_t)m * g.ldo + n;
   switch (g.epi) {
     case kRound:
-      out[o] = vf::from_f<T>(v);
+      out[o] = vf::from_f<T>(g.bias != nullptr ? v + g.bias[n] : v);
       break;
     case kGelu:
       if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = v;
       out[o] = vf::from_f<T>(vf::gelu(v));
       break;
     case kScale:
-      out[o] = vf::from_f<T>(v * g.scale);
+      out[o] = vf::from_f<T>((g.bias != nullptr ? v + g.bias[n] : v) *
+                             g.scale);
       break;
     case kGeluGrad:
       out[o] = vf::from_f<T>(v * vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
@@ -297,6 +342,8 @@ __device__ __forceinline__ void epilogue_drop(const GemmArgs& g, int m, int n,
           (v * m0 + g.aux[(size_t)m * g.ldaux + n] * m1) * g.scale);
       break;
   }
+  if (g.mask[0] != nullptr) g.mask[0][(size_t)m * g.n + n] = m0;
+  if (g.mask[1] != nullptr) g.mask[1][(size_t)m * g.n + n] = m1;
 }
 
 constexpr int kBM = 128, kBN = 128, kBK = 32, kGThreads = 256;
@@ -556,8 +603,12 @@ struct AttnArgs {
   const float* g_jas;    // backward: [B, H, 5, n] or null
   const int* jas_idx;    //           [B, H, 4, n]
   void* pg;              // backward: p      [B, H, n, n] scratch
-  void* sbar;            // backward: s_bar  [B, H, n, n] scratch
+  void* sbar;            // backward: s_bar  [B, H, n, n] scratch (L2:
+                         //           round(d2b))
   void* qkvb;            // backward: [R, 3D]
+  float* l2cs;           // backward, L2: each query tile's column sums of
+                         //           d2b [B, H, query tiles, n]
+  float* mask_p;         // forward with dropout, emit_masks: [B, H, n, n]
   int n_pad, n_real, d, heads, mt, mode, jas_kk;
   float qk_scale;
   vf::Drop drop;         // the dropout instances: mask_p (th_p, sc_p)
@@ -567,14 +618,17 @@ enum AttnMode { kPlain = 0, kJasmin = 1, kMap = 2 };
 
 // Shared memory of one attention CTA (byte offsets; row strides in
 // elements, rows padded by 16 bytes). The backward's dropout instance also
-// keeps the query tile's keep bits (vf::keep_bits_row's words).
+// keeps the query tile's keep bits (vf::keep_bits_row's words); the L2
+// instances the f32 k2 of every key, then q2, the row sums of e (+ 1e-8)
+// and, in the backward, of d2b, for the query tile.
 struct AttnPlan {
-  size_t k, v, q, s, p, cb, pbar, bits, total;
+  size_t k, v, q, s, p, cb, pbar, bits, l2, total;
   int ld_hd, ld_s, ld_p, ld_bits;
 };
 
 __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
-                                              bool bwd, bool drop) {
+                                              bool bwd, bool drop,
+                                              bool l2 = false) {
   const int pad = 16 / tb;
   AttnPlan a;
   a.ld_hd = hd + pad;
@@ -594,6 +648,8 @@ __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
   a.bits = off;
   a.ld_bits = 4 * ((n + 127) / 128);
   if (bwd && drop) off += vf::align128((size_t)mt * a.ld_bits * 4);
+  a.l2 = off;
+  if (l2) off += vf::align128((size_t)(n + 3 * mt) * 4);
   a.total = off;
   return a;
 }
@@ -602,14 +658,15 @@ __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
 // or statistics, ctx. With kBwd also p_bar, s_bar and q_bar (see the top
 // of the file). kDrop: ctx (and in the backward v_bar, through the p
 // scratch) takes the masked p; the map, the statistics, the JaSMin
-// scatter and s_bar the pre-dropout p.
-template <typename T, bool kBwd, bool kDrop>
+// scatter and s_bar the pre-dropout p. kL2: L2 scores (see the top of the
+// file), no dropout and no map.
+template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
 __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n_pad, n_real = a.n_real, d = a.d, hd = d / a.heads;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * a.mt;
   const int rows = vf::imin(a.mt, n - q0);
-  const AttnPlan pl = attn_plan(n, hd, a.mt, sizeof(T), kBwd, kDrop);
+  const AttnPlan pl = attn_plan(n, hd, a.mt, sizeof(T), kBwd, kDrop, kL2);
   T* k = reinterpret_cast<T*>(smem + pl.k);
   T* v = reinterpret_cast<T*>(smem + pl.v);
   T* q = reinterpret_cast<T*>(smem + pl.q);
@@ -617,6 +674,8 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   T* p = reinterpret_cast<T*>(smem + pl.p);
   T* cbs = reinterpret_cast<T*>(smem + pl.cb);
   float* pbar = reinterpret_cast<float*>(smem + pl.pbar);
+  float* k2 = reinterpret_cast<float*>(smem + pl.l2);
+  float *q2 = k2 + n, *esum = q2 + a.mt, *rsum = esum + a.mt;
   const int lh = pl.ld_hd, ls = pl.ld_s, lp = pl.ld_p;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t row0 = (size_t)b * n;
@@ -641,22 +700,45 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   }
   __syncthreads();
 
+  if (kL2) {
+    // the rounded q's and k's f32 row norms, beside the score product
+    vf::sq_rows(k, lh, n, hd, k2);
+    vf::sq_rows(q, lh, rows, hd, q2);
+  }
   vf::mm<false, true>(q, lh, k, lh, s, ls, false, rows, n, hd);
   __syncthreads();
-  // softmax over the real keys; p rounded; in the backward the unrounded
-  // p replaces the scores in place (each lane rewrites its own columns)
+  // softmax over the real keys, or L2: e = exp(-(q2 + k2 - 2 q.k) tau)
+  // over (sum e + 1e-8), no max; p rounded; in the backward the unrounded
+  // p (L2: e, with the row sum in esum) replaces the scores in place (each
+  // lane rewrites its own columns)
   for (int r = warp; r < rows; r += vf::kWarps) {
     float* row = s + r * ls;
+    const int qi = q0 + r;
+    T* mrow = a.mode == kMap
+                  ? static_cast<T*>(a.pmap) + (bh * n + qi) * n
+                  : nullptr;
+    if (kL2) {
+      const float qr = q2[r];
+      float sum = 0.0f;
+      for (int c = lane; c < n_real; c += 32)
+        sum += expf(-(qr + k2[c] - 2.0f * row[c]) * a.qk_scale);
+      sum = vf::warp_sum(sum) + 1e-8f;
+      if (lane == 0) esum[r] = sum;
+      for (int c = lane; c < n; c += 32) {
+        const float e =
+            c < n_real ? expf(-(qr + k2[c] - 2.0f * row[c]) * a.qk_scale)
+                       : 0.0f;
+        p[r * lp + c] = vf::from_f<T>(e / sum);
+        if (kBwd) row[c] = e;
+      }
+      continue;
+    }
     float mx = -INFINITY;
     for (int c = lane; c < n_real; c += 32) mx = fmaxf(mx, row[c] * a.qk_scale);
     mx = vf::warp_max(mx);
     float sum = 0.0f;
     for (int c = lane; c < n_real; c += 32) sum += expf(row[c] * a.qk_scale - mx);
     sum = vf::warp_sum(sum);
-    const int qi = q0 + r;
-    T* mrow = a.mode == kMap
-                  ? static_cast<T*>(a.pmap) + (bh * n + qi) * n
-                  : nullptr;
     for (int c = lane; c < n; c += 32) {
       const float pv = c < n_real ? expf(row[c] * a.qk_scale - mx) / sum : 0.0f;
       const T pr = vf::from_f<T>(pv);
@@ -683,7 +765,8 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   const bool drop_p = kDrop && a.drop.th_p;
   if (drop_p) {
     // p = round(p mask_p) on real query rows, 0 on padded ones; the map
-    // and the statistics above keep the pre-dropout p
+    // and the statistics above keep the pre-dropout p; with emit_masks the
+    // mask's kept values go to a.mask_p
     __syncthreads();
     const unsigned key = vf::site_key(a.drop.seed, vf::kSiteP + h);
     for (int r = warp; r < rows; r += vf::kWarps) {
@@ -701,13 +784,17 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
           prow[c] = vf::from_f<T>(
               vf::to_f(prow[c]) * (vf::kept(words, c) ? a.drop.sc_p : 0.0f));
       } else {
+        float* mrow =
+            a.mask_p != nullptr ? a.mask_p + (bh * n + qi) * n : nullptr;
         for (int q4 = lane; 4 * q4 < n; q4 += 32) {
           float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
           if (qi < n_real)
             vf::keep4(key, b, qi, q4, n_real, a.drop.th_p, a.drop.sc_p, m);
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < 4; ++j) {
             prow[4 * q4 + j] = vf::from_f<T>(vf::to_f(prow[4 * q4 + j]) * m[j]);
+            if (mrow != nullptr) mrow[4 * q4 + j] = m[j];
+          }
         }
       }
     }
@@ -732,7 +819,8 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
     pg[(size_t)(q0 + r) * n + c] = q0 + r < n_real ? p[r * lp + c] : zero;
   }
   __syncthreads();
-  // p_bar = cb v^T (+ g_attn, + the JaSMin scatter); s_bar into p
+  // p_bar = cb v^T (+ g_attn, + the JaSMin scatter); s_bar (L2: round(d2b))
+  // into p
   vf::mm<false, true>(cbs, lh, v, lh, pbar, ls, false, rows, n, hd);
   __syncthreads();
   T* sb = static_cast<T*>(a.sbar) + bh * n * n;
@@ -747,9 +835,14 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
       for (int c = lane; c < n; c += 32) {
         p[r * lp + c] = zero;
         sb[(size_t)qi * n + c] = zero;
+        if (kL2) prow[c] = 0.0f;
       }
+      if (kL2 && lane == 0) rsum[r] = 0.0f;
       continue;
     }
+    // the f32 p of column c (L2: e over its row sum)
+    const float es = kL2 ? esum[r] : 1.0f;
+    auto p_of = [&](int c) { return kL2 ? frow[c] / es : frow[c]; };
     if (drop_p)
       for (int c = lane; c < n_real; c += 32)
         prow[c] *= vf::kept(bits + r * pl.ld_bits, c) ? a.drop.sc_p : 0.0f;
@@ -773,8 +866,25 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
       }
     }
     float dot = 0.0f;
-    for (int c = lane; c < n_real; c += 32) dot += prow[c] * frow[c];
+    for (int c = lane; c < n_real; c += 32) dot += prow[c] * p_of(c);
     dot = vf::warp_sum(dot);
+    if (kL2) {
+      // d2b = -tau e (p_bar - dot) / esum in f32 stays in pbar for the
+      // column sums; p and the scratch take round(d2b)
+      float sum = 0.0f;
+      for (int c = lane; c < n; c += 32) {
+        const float v2 =
+            c < n_real ? -a.qk_scale * frow[c] * ((prow[c] - dot) / es) : 0.0f;
+        const T sv = vf::from_f<T>(v2);
+        prow[c] = v2;
+        p[r * lp + c] = sv;
+        sb[(size_t)qi * n + c] = sv;
+        sum += v2;
+      }
+      sum = vf::warp_sum(sum);
+      if (lane == 0) rsum[r] = sum;
+      continue;
+    }
     for (int c = lane; c < n; c += 32) {
       const T sv = vf::from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
       p[r * lp + c] = sv;
@@ -782,23 +892,38 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
     }
   }
   __syncthreads();
-  // q_bar = round(s_bar k tau)
+  if (kL2) {
+    // this tile's column sums of d2b, over its rows in order
+    float* cs = a.l2cs + (bh * gridDim.x + blockIdx.x) * n;
+    for (int c = threadIdx.x; c < n; c += vf::kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < rows; ++r) sum += pbar[r * ls + c];
+      cs[c] = sum;
+    }
+  }
+  // softmax: q_bar = round(s_bar k tau); L2: q_bar = round(2 q rsum - 2
+  // round(d2b) k)
   vf::mm<false, false>(p, lp, k, lh, s, ls, false, rows, hd, n);
   __syncthreads();
   T* qkvb = static_cast<T*>(a.qkvb);
   for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
     const int r = i / hd, c = i % hd;
-    qkvb[(row0 + q0 + r) * 3 * d + h * hd + c] =
-        vf::from_f<T>(s[r * ls + c] * a.qk_scale);
+    const float qb =
+        kL2 ? (q0 + r < n_real ? 2.0f * vf::to_f(q[r * lh + c]) * rsum[r] -
+                                     2.0f * s[r * ls + c]
+                               : 0.0f)
+            : s[r * ls + c] * a.qk_scale;
+    qkvb[(row0 + q0 + r) * 3 * d + h * hd + c] = vf::from_f<T>(qb);
   }
 }
 
 struct KeyPlan {
-  size_t qs, cbs, st, total;
+  size_t qs, cbs, st, cs, total;
   int ld_hd, ld_st;
 };
 
-__host__ __device__ inline KeyPlan key_plan(int n, int hd, int tb) {
+__host__ __device__ inline KeyPlan key_plan(int n, int hd, int tb,
+                                            bool l2 = false) {
   KeyPlan a;
   a.ld_hd = hd + 16 / tb;
   a.ld_st = hd + 4;
@@ -806,23 +931,28 @@ __host__ __device__ inline KeyPlan key_plan(int n, int hd, int tb) {
   a.qs = off;   off += vf::align128((size_t)n * a.ld_hd * tb);
   a.cbs = off;  off += vf::align128((size_t)n * a.ld_hd * tb);
   a.st = off;   off += vf::align128((size_t)kKeyTile * a.ld_st * 4);
+  a.cs = off;
+  if (l2) off += vf::align128((size_t)kKeyTile * 4);
   a.total = off;
   return a;
 }
 
 // One CTA per (key tile, head, image): k_bar = round(s_bar^T round(q tau))
 // and v_bar = round(p^T cb) over every query of the image, the s_bar and p
-// rows read from global scratch.
-template <typename T>
+// rows read from global scratch. kL2: k_bar = round(2 k csum - 2
+// round(d2b)^T q), csum the key's column sum of d2b, summed over the query
+// tiles' partials in order.
+template <typename T, bool kL2 = false>
 __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = a.n_pad, d = a.d, hd = d / a.heads;
   const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * kKeyTile;
   const int rows = vf::imin(kKeyTile, n - j0);
-  const KeyPlan pl = key_plan(n, hd, sizeof(T));
+  const KeyPlan pl = key_plan(n, hd, sizeof(T), kL2);
   T* qs = reinterpret_cast<T*>(smem + pl.qs);
   T* cbs = reinterpret_cast<T*>(smem + pl.cbs);
   float* st = reinterpret_cast<float*>(smem + pl.st);
+  float* cs = reinterpret_cast<float*>(smem + pl.cs);
   const int lh = pl.ld_hd, ls = pl.ld_st;
   const size_t row0 = (size_t)b * n;
   const size_t bh = (size_t)b * a.heads + h;
@@ -830,9 +960,18 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
   const T* cb = static_cast<const T*>(a.cb);
   for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
     const int r = i / hd, c = i % hd;
-    qs[r * lh + c] = vf::from_f<T>(
-        vf::to_f(qkv[(row0 + r) * 3 * d + h * hd + c]) * a.qk_scale);
+    const T qv = qkv[(row0 + r) * 3 * d + h * hd + c];
+    qs[r * lh + c] = kL2 ? qv : vf::from_f<T>(vf::to_f(qv) * a.qk_scale);
     cbs[r * lh + c] = cb[(row0 + r) * d + h * hd + c];
+  }
+  if (kL2) {
+    const int tiles = (n + a.mt - 1) / a.mt;
+    for (int r = threadIdx.x; r < rows; r += vf::kThreads) {
+      float sum = 0.0f;
+      for (int t = 0; t < tiles; ++t)
+        sum += a.l2cs[(bh * tiles + t) * n + j0 + r];
+      cs[r] = sum;
+    }
   }
   __syncthreads();
   T* qkvb = static_cast<T*>(a.qkvb);
@@ -845,8 +984,12 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
     __syncthreads();
     for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
       const int r = i / hd, c = i % hd;
-      qkvb[(row0 + j0 + r) * 3 * d + (part + 1) * d + h * hd + c] =
-          vf::from_f<T>(st[r * ls + c]);
+      const size_t o = (row0 + j0 + r) * 3 * d + (part + 1) * d + h * hd + c;
+      const float kb =
+          kL2 && part == 0
+              ? 2.0f * vf::to_f(qkv[o]) * cs[r] - 2.0f * st[r * ls + c]
+              : st[r * ls + c];
+      qkvb[o] = vf::from_f<T>(kb);
     }
     __syncthreads();
   }
@@ -892,9 +1035,17 @@ struct TiledArgs {
   void* qkvb;              // [R, 3D]
   float* abar;             // [R, D] f32
   float* mbar;             // [R, D] f32
-  float* npart;            // [B, 4, D]
+  float* npart;            // [B, 4, D]; L2 [B, 8, D]
   float* wpart;            // [splits, W]
   float* wbars;            // [W + 4D]: Wqkv, Wout, W1, W2, ga, ba, gm, bm
+                           // (L2 [W + 8D]: then qkv_bias, out_bias)
+  const float* qkv_bias;   // L2: [3D] f32, else null (the softmax field)
+  const float* out_bias;   // L2: [D] f32, else null
+  float* l2cs;             // backward, L2: [B, H, query tiles, n_pad]
+  float* mask_h;           // forward with dropout, emit_masks: the kept
+  float* mask_mo;          // values of each site drawn, f32: [R, dh],
+  float* mask_ao;          // [R, D], [R, D], [B, H, n_pad, n_pad]; null
+  float* mask_p;           // where not asked for or the rate is 0
   int batch, n_pad, n_real, d, heads, dh, mode, jas_kk, mt, splits;
   float scaler, qk_scale;
   float dt;                // forward, Euler and stage-advance modes
@@ -959,6 +1110,8 @@ AttnArgs attn_args(const TiledArgs& t) {
   a.pg = t.pg;
   a.sbar = t.sbar;
   a.qkvb = t.qkvb;
+  a.l2cs = t.l2cs;
+  a.mask_p = t.mask_p;
   a.n_pad = t.n_pad;
   a.n_real = t.n_real;
   a.d = t.d;
@@ -972,17 +1125,32 @@ AttnArgs attn_args(const TiledArgs& t) {
   return a;
 }
 
-template <typename T, bool kBwd, bool kDrop>
+template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
 int attn(const TiledArgs& t, cudaStream_t st) {
   const int hd = t.d / t.heads;
   const size_t smem =
-      attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd, kDrop).total;
+      attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd, kDrop, kL2).total;
   cudaError_t err = cudaFuncSetAttribute(
-      vft_attn<T, kBwd, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      vft_attn<T, kBwd, kDrop, kL2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
-  vft_attn<T, kBwd, kDrop><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
+  vft_attn<T, kBwd, kDrop, kL2><<<grid, vf::kThreads, smem, st>>>(
+      attn_args(t));
+  return (int)cudaGetLastError();
+}
+
+// The key-tile kernel of the backward (its L2 instance with kL2).
+template <typename T, bool kL2>
+int attn_keys(const TiledArgs& t, cudaStream_t st) {
+  const size_t ksmem = key_plan(t.n_pad, t.d / t.heads, sizeof(T), kL2).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      vft_attn_keys<T, kL2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ksmem);
+  if (err != cudaSuccess) return (int)err;
+  vft_attn_keys<T, kL2><<<dim3((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads,
+                               t.batch),
+                          vf::kThreads, ksmem, st>>>(attn_args(t));
   return (int)cudaGetLastError();
 }
 
@@ -1011,27 +1179,40 @@ bool has_drop(const TiledArgs& t) {
 // TiledArgs::mode: the attention modes, then the output's
 enum ForwardMode { kEuler = 3, kBase = 4 };
 
+// The L2 instances (biases given) have no dropout, no map and no Euler or
+// stage-advance mode, as the TPU kernel's.
+bool l2_ok(const TiledArgs& t) {
+  return t.qkv_bias == nullptr ||
+         (t.out_bias != nullptr && !has_drop(t) &&
+          (t.mode == kPlain || t.mode == kJasmin));
+}
+
 template <typename T>
 int forward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
   const bool drop = has_drop(t);
   const bool advance = t.mode == kEuler || t.mode == kBase;
+  const bool l2 = t.qkv_bias != nullptr;
   // no dropout instance advances the state (nor does the TPU kernel)
-  if (advance && drop) return (int)cudaErrorInvalidValue;
+  if ((advance && drop) || !l2_ok(t)) return (int)cudaErrorInvalidValue;
   VFT_CHECK((norm<T, false>(t, false, st)));
-  VFT_CHECK((gemm<T, false>(
-      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
-      st)));
+  GemmArgs qg =
+      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d);
+  qg.bias = t.qkv_bias;
+  VFT_CHECK((gemm<T, false>(qg, st)));
   GemmArgs hg = gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh);
   if (drop && t.drop.th_m) {
     // h = round(round(gelu(h1)) mask_h)
     hg.epi = kGeluDrop;
     gemm_mask(hg, 0, t, vf::kSiteH);
+    hg.mask[0] = t.mask_h;
     VFT_CHECK((gemm<T, false, true>(hg, st)));
   } else {
     VFT_CHECK((gemm<T, false>(hg, st)));
   }
-  VFT_CHECK((drop ? attn<T, false, true>(t, st) : attn<T, false, false>(t, st)));
+  VFT_CHECK((l2     ? attn<T, false, false, true>(t, st)
+             : drop ? attn<T, false, true>(t, st)
+                    : attn<T, false, false>(t, st)));
   if (drop && (t.drop.th_m || t.drop.th_ao)) {
     // attn_o = ctx Wout (f32), then out = round(scaler (mask_mo (h W2) +
     // mask_ao attn_o))
@@ -1043,6 +1224,8 @@ int forward(const TiledArgs& t, cudaStream_t st) {
     o.scale = t.scaler;
     gemm_mask(o, 0, t, vf::kSiteMlpOut);
     gemm_mask(o, 1, t, vf::kSiteAttnOut);
+    o.mask[0] = t.drop.th_m ? t.mask_mo : nullptr;
+    o.mask[1] = t.drop.th_ao ? t.mask_ao : nullptr;
     return gemm<T, false, true>(o, st);
   }
   // out = round(scaler acc), or with the Euler and stage-advance modes
@@ -1056,6 +1239,7 @@ int forward(const TiledArgs& t, cudaStream_t st) {
   o.ldb[1] = d;
   o.k[1] = dh;
   o.scale = t.scaler;
+  o.bias = t.out_bias;
   o.res = t.mode == kBase ? t.base : t.x;
   o.dt = t.dt;
   return gemm<T, false>(o, st);
@@ -1094,8 +1278,12 @@ int weight_bars(Problems ps, int count, const TiledArgs& t, int nlen,
 
 template <typename T>
 int backward(const TiledArgs& t, cudaStream_t st) {
-  const int R = t.batch * t.n_pad, d = t.d, dh = t.dh, hd = d / t.heads;
+  const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
   const bool drop = has_drop(t);
+  const bool l2 = t.qkv_bias != nullptr;
+  // L2: no dropout, no map cotangent (nor has the TPU kernel)
+  if (!l2_ok(t) || (l2 && t.g_attn != nullptr))
+    return (int)cudaErrorInvalidValue;
   // with dropout, gd carries mask_mo and gd2 mask_ao
   const void* gda = drop ? t.gd2 : t.gd;
   VFT_CHECK((drop ? norm<T, true>(t, true, st) : norm<T, false>(t, true, st)));
@@ -1114,23 +1302,18 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   } else {
     VFT_CHECK((gemm<T, false>(h1, st)));
   }
-  VFT_CHECK((gemm<T, false>(
-      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d),
-      st)));
+  GemmArgs qg =
+      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d);
+  qg.bias = t.qkv_bias;
+  VFT_CHECK((gemm<T, false>(qg, st)));
   VFT_CHECK((hb.epi == kGeluGradDrop ? gemm<T, true, true>(hb, st)
                                      : gemm<T, true>(hb, st)));
   VFT_CHECK((gemm<T, true>(
       gemm_args(gda, d, t.wout, d, d, R, d, kRound, t.cb, d), st)));
-  VFT_CHECK((drop ? attn<T, true, true>(t, st) : attn<T, true, false>(t, st)));
-  const size_t ksmem = key_plan(t.n_pad, hd, sizeof(T)).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      vft_attn_keys<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ksmem);
-  if (err != cudaSuccess) return (int)err;
-  vft_attn_keys<T><<<dim3((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads,
-                          t.batch),
-                     vf::kThreads, ksmem, st>>>(attn_args(t));
-  VFT_CHECK((int)cudaGetLastError());
+  VFT_CHECK((l2     ? attn<T, true, false, true>(t, st)
+             : drop ? attn<T, true, true>(t, st)
+                    : attn<T, true, false>(t, st)));
+  VFT_CHECK((l2 ? attn_keys<T, true>(t, st) : attn_keys<T, false>(t, st)));
   // a_bar = qkv_bar Wqkv^T, m_bar = h1_bar W1^T (f32)
   GemmArgs ab = gemm_args(t.qkvb, 3 * d, t.wqkv, 3 * d, 3 * d, R, d, kF32,
                           nullptr, d);
@@ -1141,7 +1324,9 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   VFT_CHECK((gemm<T, true>(mb, st)));
   vft_norm_bwd<T><<<t.batch, vf::kThreads, 0, st>>>(
       t.abar, t.mbar, static_cast<const T*>(t.x), t.mean, t.ga, t.gm,
-      static_cast<T*>(t.out), t.npart, t.n_pad, t.n_real, d);
+      static_cast<T*>(t.out), t.npart, t.n_pad, t.n_real, d,
+      l2 ? static_cast<const T*>(t.qkvb) : nullptr,
+      static_cast<const T*>(t.gd));
   VFT_CHECK((int)cudaGetLastError());
 
   // the weight cotangents: split-K products, then a fixed-order reduce
@@ -1151,7 +1336,7 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   ps.p[1] = {t.ctx, gda, d, d, (size_t)3 * d * d};
   ps.p[2] = {t.cnm, t.h1b, d, dh, (size_t)4 * d * d};
   ps.p[3] = {t.h, t.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
-  return weight_bars<T>(ps, 4, t, 4 * d, st);
+  return weight_bars<T>(ps, 4, t, (l2 ? 8 : 4) * d, st);
 }
 
 bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
@@ -1169,23 +1354,25 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 extern "C" {
 
 // Chooses the query-tile rows of the attention kernels: the largest whose
-// backward CTA (of the dropout instance with `drop`) fits the shared
-// memory. Returns 0 with the plan, 1 when the shape has none (the wrapper
-// raises).
+// backward CTA (of the dropout instance with `drop`, of the L2 instance
+// with `l2`) fits the shared memory. Returns 0 with the plan, 1 when the
+// shape has none (the wrapper raises). kernels/tiled.py::tiled_plan_rule
+// repeats this rule in Python.
 int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-             int drop, int* mt_out, int* smem_fwd_out, int* smem_bwd_out,
-             int* smem_keys_out) {
+             int drop, int l2, int* mt_out, int* smem_fwd_out,
+             int* smem_bwd_out, int* smem_keys_out) {
   if (!vft::shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   const int hd = d / heads;
-  const size_t keys = vft::key_plan(n_pad, hd, tbytes).total;
+  const size_t keys = vft::key_plan(n_pad, hd, tbytes, l2 != 0).total;
   if (keys > (size_t)vf::kMaxSmem) return 1;
   for (int mt : vft::kQTiles) {
     const size_t bwd =
-        vft::attn_plan(n_pad, hd, mt, tbytes, true, drop != 0).total;
+        vft::attn_plan(n_pad, hd, mt, tbytes, true, drop != 0, l2 != 0).total;
     if (bwd <= (size_t)vf::kMaxSmem) {
       *mt_out = mt;
-      *smem_fwd_out =
-          (int)vft::attn_plan(n_pad, hd, mt, tbytes, false, drop != 0).total;
+      *smem_fwd_out = (int)vft::attn_plan(n_pad, hd, mt, tbytes, false,
+                                          drop != 0, l2 != 0)
+                          .total;
       *smem_bwd_out = (int)bwd;
       *smem_keys_out = (int)keys;
       return 0;

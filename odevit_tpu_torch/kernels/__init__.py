@@ -30,6 +30,11 @@ launch_counts: Dict[str, int] = {
     "vf_bwd_mlp_drop": 0, "vf_bwd_attn_drop": 0, "vf_bwd_split_drop": 0,
     # L2 attention: the L2+bias instances of the one-CTA kernels
     "vf_eval_l2": 0, "vf_eval_jasmin_l2": 0, "vf_bwd_l2": 0,
+    # and of the tiled route (csrc/vector_field_tiled.cu)
+    "vf_eval_l2_tiled": 0, "vf_eval_jasmin_l2_tiled": 0,
+    "vf_bwd_l2_tiled": 0,
+    # the tiled route's dropout instance writing its masks (emit_masks)
+    "vf_eval_masks": 0,
     # the Macaron field (csrc/macaron.cu: every mode; csrc/macaron_bwd.cu)
     "macaron_eval": 0, "macaron_bwd": 0}
 _count_lock = threading.Lock()

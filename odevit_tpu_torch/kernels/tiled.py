@@ -16,7 +16,17 @@ the dropout instances of every kernel of the route, which draw the masks
 of ``kernels/dropout.py`` themselves; the forward then takes an f32
 ``attn_o`` scratch and the backward a second cotangent operand (``gd2``,
 g * scaler * mask_ao beside ``gd``'s mask_mo). None runs the
-deterministic instances.
+deterministic instances. With ``emit_masks`` the forward's dropout
+instance also writes the four masks it draws (JAX's ``emit_masks``).
+
+L2 attention: weights with biases (``VFWeights.qkv_bias``, ``out_bias``)
+run the route's L2 instances, in the plain and JaSMin modes and the
+backward (11 cotangents), without dropout, maps or the Euler and
+stage-advance modes, as the TPU kernel has them.
+
+Plans: :func:`tiled_plan` asks the CUDA library; :func:`tiled_plan_rule`
+is the same rule in Python, so that a CPU run routes as the card does
+(``chip_smoke.py`` holds the two against each other).
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ _PTRS = ("x", "base", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm",
          "bm", "wqkv", "wout", "w1", "w2", "out", "stats", "idx", "pmap",
          "cna", "cnm", "qkv", "h", "ctx", "ao", "mean", "gd", "gd2", "h1",
          "h1b", "cb", "pg", "sbar", "qkvb", "abar", "mbar", "npart", "wpart",
-         "wbars")
+         "wbars", "qkv_bias", "out_bias", "l2cs", "mask_h", "mask_mo",
+         "mask_ao", "mask_p")
 _INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
          "mt", "splits")
 
@@ -54,7 +65,7 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         lib = build.load("vector_field_tiled")
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.vft_plan.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 4
+        lib.vft_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 4
         lib.vft_plan.restype = i
         for fn in (lib.vft_forward, lib.vft_backward):
             fn.argtypes = [i, ctypes.POINTER(_Args), p]
@@ -66,20 +77,78 @@ def _library() -> ctypes.CDLL:
 
 
 def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-               dh: int, drop: bool = False):
+               dh: int, drop: bool = False, l2: bool = False):
     """(query-tile rows, shared-memory bytes of the forward, backward and
-    key-tile attention CTAs), of the dropout instances with ``drop``;
-    raises if the shape has no tiled plan (n_pad > 256, or sizes that are
-    not multiples of 16)."""
+    key-tile attention CTAs), of the dropout instances with ``drop``, of
+    the L2 instances with ``l2``; raises if the shape has no tiled plan
+    (n_pad > 256, or sizes that are not multiples of 16)."""
     out = [ctypes.c_int() for _ in range(4)]
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vft_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                           int(drop), *(ctypes.byref(o) for o in out)):
+                           int(drop), int(l2),
+                           *(ctypes.byref(o) for o in out)):
         raise ValueError(
             f"no tiled plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
             f"dh={dh} in {dtype}: the tiled kernels need n_pad <= 256 and "
             f"multiples of 16")
     return tuple(o.value for o in out)
+
+
+# csrc/vector_field_tiled.cu: kMaxCols, kQTiles, kKeyTile, vf::kMaxSmem
+_MAX_COLS = 256
+_Q_TILES = (64, 32, 16)
+_KEY_TILE = 64
+_MAX_SMEM = 232448
+
+
+def align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def shape_rule(n_pad: int, n_real: int, d: int, num_heads: int, dh: int,
+               max_cols: int) -> bool:
+    """The kernels' shape rule (``shape_ok``): sizes in multiples of 16,
+    at most ``max_cols`` padded tokens."""
+    return (num_heads > 0 and d % num_heads == 0 and d % 16 == 0
+            and (d // num_heads) % 16 == 0 and dh % 16 == 0
+            and n_pad % 16 == 0 and 0 < n_pad <= max_cols
+            and 0 < n_real <= n_pad)
+
+
+def _attn_smem(n, hd, mt, tb, bwd, drop, l2):
+    # attn_plan of csrc/vector_field_tiled.cu
+    pad = 16 // tb
+    ld_hd, ld_s, ld_p = hd + pad, max(n, hd) + 4, n + pad
+    total = (2 * align128(n * ld_hd * tb) + align128(mt * ld_hd * tb)
+             + align128(mt * ld_s * 4) + align128(mt * ld_p * tb))
+    if bwd:
+        total += align128(mt * ld_hd * tb) + align128(mt * ld_s * 4)
+        if drop:
+            total += align128(mt * 4 * ((n + 127) // 128) * 4)
+    if l2:
+        total += align128((n + 3 * mt) * 4)
+    return total
+
+
+def tiled_plan_rule(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                    dh: int, drop: bool = False, l2: bool = False):
+    """``vft_plan``'s answer in Python: the plan :func:`tiled_plan` would
+    return, or None where it would raise."""
+    if not shape_rule(n_pad, n_real, d, num_heads, dh, _MAX_COLS):
+        return None
+    tb = torch.empty((), dtype=dtype).element_size()
+    hd = d // num_heads
+    keys = (2 * align128(n_pad * (hd + 16 // tb) * tb)
+            + align128(_KEY_TILE * (hd + 4) * 4)
+            + (align128(_KEY_TILE * 4) if l2 else 0))
+    if keys > _MAX_SMEM:
+        return None
+    for mt in _Q_TILES:
+        bwd = _attn_smem(n_pad, hd, mt, tb, True, drop, l2)
+        if bwd <= _MAX_SMEM:
+            return (mt, _attn_smem(n_pad, hd, mt, tb, False, drop, l2), bwd,
+                    keys)
+    return None
 
 
 def _ptr(t):
@@ -95,7 +164,8 @@ def make_args(x, w, bufs, *, num_heads, scaler, n_real, mt, mode="plain",
     b, n, d = x.shape
     ptrs = {"ga": w.norm_attn_scale, "ba": w.norm_attn_bias,
             "gm": w.norm_mlp_scale, "bm": w.norm_mlp_bias, "wqkv": w.wqkv,
-            "wout": w.wout, "w1": w.w1, "w2": w.w2, "x": x, **bufs}
+            "wout": w.wout, "w1": w.w1, "w2": w.w2, "qkv_bias": w.qkv_bias,
+            "out_bias": w.out_bias, "x": x, **bufs}
     return _Args(**{k: _ptr(v) for k, v in ptrs.items()},
                  batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads,
                  dh=w.w1.shape[1], mode=MODES[mode], jas_kk=jas_kk, mt=mt,
@@ -104,11 +174,17 @@ def make_args(x, w, bufs, *, num_heads, scaler, n_real, mt, mode="plain",
                  drop=drop or Drop())
 
 
-def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
-         jas_kk=0, splits=0, drop=None, dt=0.0):
+def _query_tile(x, w, num_heads: int, n_real: int, drop) -> int:
+    """The plan's query-tile rows for this call."""
     b, n, d = x.shape
-    mt = tiled_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1],
-                    drop is not None)[0]
+    return tiled_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1],
+                      drop is not None, w.l2)[0]
+
+
+def _run(fn_name: str, x, w, bufs, *, num_heads, scaler, n_real, mode="plain",
+         jas_kk=0, splits=0, drop=None, dt=0.0, mt=None):
+    if mt is None:
+        mt = _query_tile(x, w, num_heads, n_real, drop)
     args = make_args(x, w, bufs, num_heads=num_heads, scaler=scaler,
                      n_real=n_real, mt=mt, mode=mode, jas_kk=jas_kk,
                      splits=splits, drop=drop, dt=dt)
@@ -130,15 +206,40 @@ def _scratch(x, dh: int):
             "ctx": e(d)}
 
 
+MASKS = ("mask_h", "mask_mo", "mask_ao", "mask_p")
+
+
+def _drawn(drop: Drop) -> dict:
+    """Whether the kernels draw each mask: its site's rate is not 0."""
+    return {"mask_h": drop.th_m, "mask_mo": drop.th_m,
+            "mask_ao": drop.th_ao, "mask_p": drop.th_p}
+
+
+def mask_buffers(x, dh: int, num_heads: int, drop: Drop) -> dict:
+    """The four masks ``emit_masks`` returns, in JAX's layouts (mask_h
+    [B * n_pad, dh], mask_mo and mask_ao [B * n_pad, D], mask_p [B, H,
+    n_pad, n_pad], f32): empty where the kernels draw the site, all ones
+    where its rate is 0 (the kernels leave those alone)."""
+    b, n, d = x.shape
+    shapes = {"mask_h": (b * n, dh), "mask_mo": (b * n, d),
+              "mask_ao": (b * n, d), "mask_p": (b, num_heads, n, n)}
+    drawn = _drawn(drop)
+    return {k: (torch.empty if drawn[k] else torch.ones)(
+        s, device=x.device) for k, s in shapes.items()}
+
+
 def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
-                    drop=None) -> dict:
+                    drop=None, emit_masks: bool = False) -> dict:
     """The outputs and scratch of one tiled evaluation, by ``TiledArgs``
-    field: with ``drop`` also the f32 ``ao`` [B * n_pad, D]."""
+    field: with ``drop`` also the f32 ``ao`` [B * n_pad, D], and with
+    ``emit_masks`` the four masks (:func:`mask_buffers`)."""
     b, n, d = x.shape
     bufs = _scratch(x, w.w1.shape[1])
     bufs["out"] = torch.empty_like(x)
     if drop is not None:
         bufs["ao"] = torch.empty(b * n, d, device=x.device)
+    if emit_masks:
+        bufs.update(mask_buffers(x, w.w1.shape[1], num_heads, drop))
     if mode == "jasmin":
         bufs["stats"] = torch.empty(b, num_heads, 5, n, device=x.device)
         bufs["idx"] = torch.empty(b, num_heads, 4, n, device=x.device,
@@ -151,30 +252,43 @@ def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
 
 def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
                   mode: str = "plain", jas_kk: int = 0, drop=None,
-                  dt: float = 0.0, base=None):
+                  dt: float = 0.0, base=None, emit_masks: bool = False):
     """One evaluation on the tiled route: f(x), and for mode "jasmin" the
     statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
     n_pad]`` (zeros on padded query rows), both of the pre-dropout p; for
     mode "euler" x + dt f(x) and for mode "base" base + dt f(x) instead of
-    f(x), summed in f32 and rounded once (these two take no ``drop``). The
-    caller has checked the arguments. ``drop``: a ``dropout.Drop`` or
+    f(x), summed in f32 and rounded once (these two take no ``drop``); with
+    ``emit_masks`` (which needs ``drop``) last the four masks as a tuple.
+    The caller has checked the arguments. ``drop``: a ``dropout.Drop`` or
     None (see the module docstring)."""
-    bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop)
-    bufs["base"] = base
-    _run("vft_forward", x, w, bufs, num_heads=num_heads, scaler=scaler,
-         n_real=n_real, mode=mode, jas_kk=jas_kk, drop=drop, dt=dt)
+    bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop,
+                           emit_masks=emit_masks)
+    kernel_bufs = dict(bufs, base=base)
+    if emit_masks:
+        # the kernels write the sites they draw; the others stay ones
+        drawn = _drawn(drop)
+        kernel_bufs.update({k: bufs[k] if drawn[k] else None for k in MASKS})
+    _run("vft_forward", x, w, kernel_bufs, num_heads=num_heads,
+         scaler=scaler, n_real=n_real, mode=mode, jas_kk=jas_kk, drop=drop,
+         dt=dt)
     extra = {"jasmin": ("stats", "idx"), "attn": ("pmap",)}.get(mode, ())
-    return (bufs["out"], *(bufs[k] for k in extra))
+    out = (bufs["out"], *(bufs[k] for k in extra))
+    return out + (tuple(bufs[k] for k in MASKS),) if emit_masks else out
 
 
 def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
-                     jas_idx=None, g_attn=None, drop=None) -> dict:
+                     jas_idx=None, g_attn=None, drop=None,
+                     mt: int = 0) -> dict:
     """The cotangents and scratch of one tiled backward, by ``TiledArgs``
-    field: with ``drop`` also ``gd2``, the second cotangent operand."""
+    field: with ``drop`` also ``gd2``, the second cotangent operand; with
+    L2 weights the bias partials (8 D floats an image, not 4 D) and the
+    query tiles' column sums ``l2cs`` (``mt``: the plan's query-tile
+    rows)."""
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
     wtotal = 4 * d * d + 2 * d * dh
+    nlen = (8 if w.l2 else 4) * d
     f32 = lambda *s: torch.empty(*s, device=x.device)
     e = lambda *s: torch.empty(*s, device=x.device, dtype=x.dtype)
     bufs = _scratch(x, dh)
@@ -184,20 +298,22 @@ def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
         gd2=e(rows, d) if drop is not None else None, h1=f32(rows, dh),
         h1b=e(rows, dh), cb=e(rows, d), pg=e(b, num_heads, n, n),
         sbar=e(b, num_heads, n, n), qkvb=e(rows, 3 * d), abar=f32(rows, d),
-        mbar=f32(rows, d), npart=f32(b, 4, d), wpart=f32(splits, wtotal),
-        wbars=f32(wtotal + 4 * d))
+        mbar=f32(rows, d), npart=f32(b, nlen), wpart=f32(splits, wtotal),
+        wbars=f32(wtotal + nlen),
+        l2cs=f32(b, num_heads, -(-n // mt), n) if w.l2 else None)
     return bufs
 
 
 def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
                    splits: int, g_jas=None, jas_idx=None, g_attn=None,
                    drop=None):
-    """The 9 cotangents of one evaluation on the tiled route (see
-    ``vector_field_bwd.py``), with the forward's ``drop`` (masks drawn
-    again). The caller has checked the arguments."""
+    """The 9 cotangents of one evaluation on the tiled route (11 with L2
+    weights; see ``vector_field_bwd.py``), with the forward's ``drop``
+    (masks drawn again). The caller has checked the arguments."""
+    mt = _query_tile(x, w, num_heads, n_real, drop)
     bufs = backward_buffers(x, w, g, num_heads=num_heads, splits=splits,
                             g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
-                            drop=drop)
+                            drop=drop, mt=mt)
     _run("vft_backward", x, w, bufs, num_heads=num_heads, scaler=scaler,
-         n_real=n_real, splits=splits, drop=drop)
+         n_real=n_real, splits=splits, drop=drop, mt=mt)
     return bufs["out"], bufs["wbars"]

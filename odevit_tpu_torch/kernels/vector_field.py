@@ -28,7 +28,8 @@ attention map launches the one-image-per-CTA kernel of
 ``csrc/vector_field.cu``. Elsewhere (the 224 px TS-Base shape: 207 tokens,
 D=768) the plain, Euler, stage-advance and JaSMin modes launch the tiled
 route, ``csrc/vector_field_tiled.cu`` (``kernels/tiled.py``), which also
-carries the attention-map mode at every shape. Each route counts its
+carries the attention-map mode at every shape (down to 16 padded tokens:
+the fused steps' map route on short sequences). Each route counts its
 launches under its own name: ``vf_eval`` (every mode of ``vf_eval`` on
 one CTA per image), ``vf_eval_tiled``, ``vf_eval_euler_tiled``,
 ``vf_eval_base_tiled``, ``vf_eval_jasmin`` and so on.
@@ -43,9 +44,12 @@ L2 attention. Weights with biases (``VFWeights.qkv_bias`` and
 with ``e = exp(-(q2 + k2 - 2 q.k) / sqrt(hd))`` over the real keys, no
 max-subtraction, and add the biases to qkv (before it is rounded) and to
 attn_o. As in the TPU kernel, only the plain and JaSMin modes exist for
-it, without dropout; they run on one CTA per image only, counted as
-``vf_eval_l2`` and ``vf_eval_jasmin_l2``. A shape without that plan
-(:func:`l2_plan`, the same rule on either device) raises.
+it, without dropout or maps. Where one image fits one CTA (:func:`l2_plan`)
+they launch the one-image-per-CTA kernel's L2 instance (``vf_eval_l2``,
+``vf_eval_jasmin_l2``), elsewhere the tiled route's
+(``vf_eval_l2_tiled``, ``vf_eval_jasmin_l2_tiled``; the 224 px TS-Base
+student). :func:`l2_route` decides, by the same rule on either device; a
+shape with neither plan (past 256 padded tokens) raises.
 
 Dropout. ``vf_eval`` and ``vf_eval_jasmin`` take ``seed`` and ``drops`` =
 (attn_drop, proj_drop, mlp_drop), the counterparts of ``fused_vf_dropout``
@@ -61,6 +65,16 @@ raise. On the GPU they launch the kernels' dropout instances, counted as
 ``vf_eval_attn_drop`` (the tiled route). The Euler and stage-advance
 modes have no dropout instance, as in the TPU kernel: with a nonzero rate
 they raise.
+
+``emit_masks`` (``vf_eval`` and ``vf_eval_attn`` with dropout, the TPU
+kernel's ``emit_masks``) also returns the four keep masks the evaluation
+applied, in JAX's layouts: mask_h [B * n_pad, dh], mask_mo and mask_ao
+[B * n_pad, D], mask_p [B, H, n_pad, n_pad], f32, 1 / (1 - rate) where
+kept, else 0 (0 on padded rows and keys; all ones at a site of rate 0).
+It runs the tiled route's dropout instance at every shape (the port's map
+mode lives there, and the dropout check asks for maps and masks
+together), counted as ``vf_eval_masks``; the masks equal
+``generate_dropout_masks`` bit for bit.
 """
 
 from __future__ import annotations
@@ -72,7 +86,8 @@ import torch
 
 from odevit_tpu_torch.kernels import count_launch
 from odevit_tpu_torch.kernels.dropout import drop_spec, masks_plain
-from odevit_tpu_torch.kernels.tiled import tiled_forward
+from odevit_tpu_torch.kernels.tiled import (align128, shape_rule,
+                                            tiled_forward, tiled_plan_rule)
 from odevit_tpu_torch.losses.jasmin import jasmin_order_stats
 from odevit_tpu_torch.ops.dot import dot32
 
@@ -135,7 +150,7 @@ def _check(x, w: VFWeights, num_heads, n_real, mode, base):
             raise ValueError(f"L2 attention has no {mode!r} mode (nor has "
                              f"the TPU kernel): it serves through the "
                              f"plain mode")
-        _check_l2_plan(x.dtype, n, n_real, d, num_heads, w.w1.shape[1])
+        l2_route(x.dtype, n, n_real, d, num_heads, w.w1.shape[1])
     for name, shape in shapes.items():
         t = getattr(w, name)
         if tuple(t.shape) != shape:
@@ -217,17 +232,11 @@ _MAX_SMEM = 232448
 _CHUNKS = (128, 64, 32, 16)
 
 
-def align128(nbytes: int) -> int:
-    return -(-nbytes // 128) * 128
-
-
 def cta_shape_ok(n_pad: int, n_real: int, d: int, num_heads: int,
                  dh: int) -> bool:
     """The one-image-per-CTA kernels' shape rule (``shape_ok`` in
     ``csrc/vector_field.cu`` and ``csrc/vector_field_bwd.cu``)."""
-    return (num_heads > 0 and d % num_heads == 0 and d % 16 == 0
-            and (d // num_heads) % 16 == 0 and dh % 16 == 0
-            and n_pad % 16 == 0 and 0 < n_pad <= 128 and 0 < n_real <= n_pad)
+    return shape_rule(n_pad, n_real, d, num_heads, dh, 128)
 
 
 def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
@@ -258,13 +267,24 @@ def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return None
 
 
-def _check_l2_plan(dtype, n_pad, n_real, d, num_heads, dh):
-    if l2_plan(dtype, n_pad, n_real, d, num_heads, dh) is None:
-        raise NotImplementedError(
-            f"L2 attention runs on the one-image-per-CTA kernels only, and "
-            f"n_pad={n_pad}, D={d}, {num_heads} heads, dh={dh} in {dtype} "
-            f"has no such plan (ROADMAP.md §1 item 8: L2 at shapes "
-            f"without a one-CTA plan)")
+def l2_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+             dh: int, bwd: bool = False) -> str:
+    """"cta" where the one-image-per-CTA L2 instance has a plan (of the
+    backward with ``bwd``), else "tiled" where the tiled route's has one;
+    raises past both (n_pad > 256). The same rule on either device."""
+    if bwd:
+        from odevit_tpu_torch.kernels.vector_field_bwd import l2_bwd_plan
+        cta = l2_bwd_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    else:
+        cta = l2_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    if cta is not None:
+        return "cta"
+    if tiled_plan_rule(dtype, n_pad, n_real, d, num_heads, dh, l2=True):
+        return "tiled"
+    raise ValueError(
+        f"no L2 plan for n_pad={n_pad}, D={d}, {num_heads} heads, dh={dh} "
+        f"in {dtype}: the tiled kernels need n_pad <= 256 and multiples of "
+        f"16")
 
 
 def _check_l2_drop(w: VFWeights, drops):
@@ -274,17 +294,43 @@ def _check_l2_drop(w: VFWeights, drops):
                          "deterministic-only)")
 
 
+def masks_emitted_plain(x, dh: int, num_heads: int, n_real: int, seed,
+                        drops):
+    """The four masks ``emit_masks`` returns (see the module docstring),
+    from ``dropout.masks_plain``."""
+    b, n, d = x.shape
+    got = masks_plain(b, n_real, d, dh, num_heads, seed, drops,
+                      device=x.device, n_pad=n)
+    shapes = ((b * n, dh), (b * n, d), (b * n, d), (b, num_heads, n, n))
+    return tuple(torch.ones(s, device=x.device) if m is None
+                 else m.reshape(s) for m, s in zip(got, shapes))
+
+
+def _check_emit_masks(mode: str, seed, drops):
+    if drop_spec(seed, drops) is None or mode != "plain":
+        raise ValueError("emit_masks returns the dropout masks of a "
+                         "plain-mode evaluation: give a seed and nonzero "
+                         "rates")
+
+
 def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                   n_real: int, mode: str = "plain", dt: float = 0.0,
-                  base=None, seed=None, drops=(0.0, 0.0, 0.0)):
-    """The kernel's arithmetic in plain PyTorch."""
+                  base=None, seed=None, drops=(0.0, 0.0, 0.0),
+                  emit_masks: bool = False):
+    """The kernel's arithmetic in plain PyTorch; with ``emit_masks``,
+    (f(x), masks)."""
     _check(x, w, num_heads, n_real, mode, base)
     _check_l2_drop(w, drops)
+    if emit_masks:
+        _check_emit_masks(mode, seed, drops)
     f, _ = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     if mode == "euler":
         f = x.float() + dt * f
     elif mode == "base":
         f = base.float() + dt * f
+    if emit_masks:
+        return f.to(x.dtype), masks_emitted_plain(
+            x, w.w1.shape[1], num_heads, n_real, seed, drops)
     return f.to(x.dtype)
 
 
@@ -304,17 +350,23 @@ def _check_jasmin(n_real: int, jas_k: int):
 
 
 def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
-                       n_real: int, seed=None, drops=(0.0, 0.0, 0.0)):
+                       n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
+                       emit_masks: bool = False):
     """(f(x), p): the attention-map mode in plain PyTorch. ``p`` [B, H,
     n_pad, n_pad] in x's dtype holds zeros on padded query rows (and, by
     the key mask, on padded keys). With dropout ``p`` is the pre-dropout
-    map."""
+    map; with ``emit_masks``, (f(x), p, masks)."""
     _check(x, w, num_heads, n_real, "plain", None)
     _check_no_l2_map(w)
+    if emit_masks:
+        _check_emit_masks("plain", seed, drops)
     f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     query = (torch.arange(x.shape[1], device=x.device) < n_real)[:, None]
     p = torch.where(query, p, torch.zeros((), dtype=p.dtype,
                                           device=x.device))
+    if emit_masks:
+        return f.to(x.dtype), p, masks_emitted_plain(
+            x, w.w1.shape[1], num_heads, n_real, seed, drops)
     return f.to(x.dtype), p
 
 
@@ -458,8 +510,10 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
 
 def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
             mode: str = "plain", dt: float = 0.0, base=None, seed=None,
-            drops=(0.0, 0.0, 0.0), plain: bool = False):
-    """One vector-field evaluation (see the module docstring).
+            drops=(0.0, 0.0, 0.0), plain: bool = False,
+            emit_masks: bool = False):
+    """One vector-field evaluation (see the module docstring); with
+    ``emit_masks``, (f(x), masks).
 
     A CUDA tensor launches the kernel; a CPU tensor runs
     :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
@@ -471,12 +525,23 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
     if plain or x.device.type == "cpu":
         return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
                              n_real=n_real, mode=mode, dt=dt, base=base,
-                             seed=seed, drops=drops)
+                             seed=seed, drops=drops, emit_masks=emit_masks)
     _check(x, w, num_heads, n_real, mode, base)
     _check_l2_drop(w, drops)
     _check_launch(x, w, base)
     drop = drop_spec(seed, drops)
+    if emit_masks:
+        _check_emit_masks(mode, seed, drops)
+        out, masks = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                                   n_real=n_real, drop=drop, emit_masks=True)
+        count_launch("vf_eval_masks")
+        return out, masks
     if w.l2:
+        if _l2_tiled(x, w, num_heads, n_real):
+            (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                                   n_real=n_real)
+            count_launch("vf_eval_l2_tiled")
+            return out
         out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, mode=mode, dt=dt, base=base)
         count_launch("vf_eval_l2")
@@ -550,6 +615,11 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
     if w.l2:
+        if _l2_tiled(x, w, num_heads, n_real):
+            out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                                n_real=n_real, mode="jasmin", jas_kk=kk)
+            count_launch("vf_eval_jasmin_l2_tiled")
+            return out
         out = _launch(x, w, num_heads=num_heads, scaler=scaler,
                       n_real=n_real, mode="plain", dt=0.0, base=None,
                       jas_kk=kk)
@@ -570,23 +640,35 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
 
 def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
                  n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
-                 plain: bool = False):
+                 plain: bool = False, emit_masks: bool = False):
     """(f(x), p) in one launch of the tiled route's attention-map mode (see
     :func:`vf_eval_attn_plain` for the layout); the one-image-per-CTA
     kernel has no map mode. A CPU tensor, or ``plain=True``, runs the plain
     version. With dropout the dropout instance runs; the maps stay those
-    of the pre-dropout p."""
+    of the pre-dropout p. With ``emit_masks`` (dropout only), (f(x), p,
+    masks), counted as ``vf_eval_masks``."""
     if plain or x.device.type == "cpu":
         return vf_eval_attn_plain(x, w, num_heads=num_heads, scaler=scaler,
-                                  n_real=n_real, seed=seed, drops=drops)
+                                  n_real=n_real, seed=seed, drops=drops,
+                                  emit_masks=emit_masks)
     _check(x, w, num_heads, n_real, "plain", None)
     _check_no_l2_map(w)
     _check_launch(x, w)
+    if emit_masks:
+        _check_emit_masks("plain", seed, drops)
     drop = drop_spec(seed, drops)
     out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
-                        n_real=n_real, mode="attn", drop=drop)
-    count_launch("vf_eval_attn" if drop is None else "vf_eval_attn_drop")
+                        n_real=n_real, mode="attn", drop=drop,
+                        emit_masks=emit_masks)
+    count_launch("vf_eval_masks" if emit_masks
+                 else "vf_eval_attn" if drop is None else "vf_eval_attn_drop")
     return out
+
+
+def _l2_tiled(x, w: VFWeights, num_heads: int, n_real: int) -> bool:
+    b, n, d = x.shape
+    return l2_route(x.dtype, n, n_real, d, num_heads,
+                    w.w1.shape[1]) == "tiled"
 
 
 def _cta_route(x, w: VFWeights, num_heads: int, n_real: int,

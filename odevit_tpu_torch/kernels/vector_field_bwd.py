@@ -25,12 +25,15 @@ forward: with ``e_bar = (p_bar - sum(p_bar p)) / esum`` and ``d2b = -tau e
 e_bar`` in float32, ``q_bar = 2 q sum_k d2b - 2 round(d2b) k``, ``k_bar = 2
 k sum_q d2b - 2 round(d2b)^T q``, and the biases' cotangents are the
 column sums of ``round(g scaler)`` and of ``round([q_bar k_bar v_bar])``.
-It runs on one CTA per image only (``l2_bwd_plan``; counted as
-``vf_bwd_l2``), without dropout.
+Without dropout or the maps' cotangent, it runs on one CTA per image where
+``l2_bwd_plan`` has a plan (counted as ``vf_bwd_l2``), else on the tiled
+route (``vf_bwd_l2_tiled``), and never on the split route: JAX keeps its
+combined kernel for L2, and its split halves take no biases.
 
-Routes: where D >= 512 and dh >= 4 D (TS-Base at MLP ratio 4), the split
-route of ``vector_field_bwd_split.py`` runs, one MLP-branch and one
-attention-branch backward, on the GPU and in its plain twins on the CPU.
+Routes: for softmax weights where D >= 512 and dh >= 4 D (TS-Base at MLP
+ratio 4), the split route of ``vector_field_bwd_split.py`` runs, one
+MLP-branch and one attention-branch backward, on the GPU and in its plain
+twins on the CPU.
 Elsewhere, without ``g_attn``, where one image fits one CTA (``bwd_plan``),
 the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
 no such plan exists (the 224 px TS-Base shape at ratio 1), the tiled route
@@ -55,7 +58,7 @@ from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
 from odevit_tpu_torch.kernels.tiled import tiled_backward
 from odevit_tpu_torch.kernels.vector_field import (
     _CHUNKS, _MAX_SMEM, VFWeights, _check, _check_launch, _check_l2_drop,
-    align128, cta_shape_ok, l2_probs)
+    align128, cta_shape_ok, l2_probs, l2_route)
 from odevit_tpu_torch.ops.dot import dot32
 
 # SMs of an H100: the weight products are split over rows so that about
@@ -228,13 +231,8 @@ def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
             raise NotImplementedError("the maps' cotangent has no L2 "
                                       "instance (nor has JAX's fused L2 "
                                       "path)")
-        if l2_bwd_plan(x.dtype, x.shape[1], n_real, x.shape[2], num_heads,
-                       w.w1.shape[1]) is None:
-            raise NotImplementedError(
-                f"the L2 backward runs on one CTA per image only, and "
-                f"{tuple(x.shape)} with {num_heads} heads in {x.dtype} has "
-                f"no such plan (ROADMAP.md §1 item 8: L2 at shapes without "
-                f"a one-CTA plan)")
+        l2_route(x.dtype, x.shape[1], n_real, x.shape[2], num_heads,
+                 w.w1.shape[1], bwd=True)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != x {tuple(x.shape)}")
     b, n, _ = x.shape
@@ -394,6 +392,13 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     dh = w.w1.shape[1]
     rows = b * n
     splits = weight_splits(rows, d, dh)
+    if w.l2 and l2_route(x.dtype, n, n_real, d, num_heads, dh,
+                         bwd=True) == "tiled":
+        xbar, out = tiled_backward(
+            x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
+            splits=splits, g_jas=g_jas, jas_idx=jas_idx)
+        count_launch("vf_bwd_l2_tiled")
+        return _split_bars(xbar, out, d, dh)
     if not w.l2 and (g_attn is not None or not has_bwd_plan(
             x.dtype, n, n_real, d, num_heads, dh, drop is not None)):
         xbar, out = tiled_backward(

@@ -19,7 +19,8 @@ Counterpart of ``odevit_tpu/models/fast_forward.py::fast_forward`` (a
     generic integrator;
   * L2 attention takes JAX's route for it: the generic integrator on
     every fixed grid and dopri5 for dopri5, each evaluation a plain-f
-    launch of the kernel's L2 instance; never the Euler, stage-advance or
+    launch of the kernel's L2 instance (one CTA per image, or the tiled
+    route's past 128 padded tokens); never the Euler, stage-advance or
     chained routes (``ODEVIT_EULER_CHAIN`` is ignored, as JAX ignores it);
   * ``ODEVIT_EULER_CHAIN=c`` opts the Euler route into chains of ``c``
     steps per launch (``vf_euler_chain``) where JAX chains: ``c`` above 1

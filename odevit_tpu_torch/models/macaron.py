@@ -33,7 +33,8 @@ from odevit_tpu_torch.core.integrators import odeint
 from odevit_tpu_torch.device import resolve_device
 from odevit_tpu_torch.models.vector_field import MacaronVectorField
 from odevit_tpu_torch.ops.dot import dot32
-from odevit_tpu_torch.ops.init import lecun_linear, truncated_normal
+from odevit_tpu_torch.ops.init import (lecun_linear, lecun_normal,
+                                       truncated_normal)
 from odevit_tpu_torch.ops.layer_norm import LayerNorm, layer_norm
 from odevit_tpu_torch.ops.patch_embed import patchify
 
@@ -90,9 +91,8 @@ class ViTMacaron(nn.Module):
         if learn_ivp:
             self.init_ivp = nn.Conv2d(in_chans, d, 5)
             with torch.no_grad():
-                self.init_ivp.weight.copy_(truncated_normal(
-                    self.init_ivp.weight.shape, g,
-                    std=(in_chans * 25) ** -0.5))
+                self.init_ivp.weight.copy_(lecun_normal(
+                    self.init_ivp.weight.shape, in_chans * 25, g))
                 self.init_ivp.bias.zero_()
             self.ivp_projector = lecun_linear(2 * d, d, g)
         self.vf = MacaronVectorField(

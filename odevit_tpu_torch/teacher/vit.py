@@ -25,20 +25,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from odevit_tpu_torch.device import resolve_device
+from odevit_tpu_torch.ops.init import lecun_linear
 from odevit_tpu_torch.ops.dot import dot32
 from odevit_tpu_torch.ops.patch_embed import patchify
 
 
 def _dense(fan_in: int, fan_out: int, g: torch.Generator) -> nn.Linear:
-    """Lecun-normal weight (std 1/sqrt(fan_in), truncated at 2 std, as
-    flax's default), zero bias."""
-    lin = nn.Linear(fan_in, fan_out)
-    std = 1.0 / math.sqrt(fan_in)
-    with torch.no_grad():
-        nn.init.trunc_normal_(lin.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=g)
-        lin.bias.zero_()
-    return lin
+    """``lecun_normal`` weight (flax's default), zero bias."""
+    return lecun_linear(fan_in, fan_out, g)
 
 
 def _linear(lin: nn.Linear, x, dtype):

@@ -13,6 +13,11 @@ attention:
     evaluations through ``FusedVFJasmin`` with ``jasmin_from_stats`` per
     evaluation; ``jasmin_trajectory_window`` keeps the last
     ``int(0.85 T)`` of them;
+  * a sequence shorter than ``max(jasmin_k, 1) + 1`` tokens cannot hold
+    the statistics' extraction passes: there the tail takes JAX's map
+    route, attention-map evaluations through ``FusedVFAttn`` (their maps'
+    cotangent in the backward) with ``jasmin_map_loss`` on the maps cut to
+    the real tokens;
   * the head on the final CLS state in float32, CE with label smoothing
     0.05; loss = CE + JaSMin;
   * the backward of every evaluation is ``vf_bwd``; no remat (at B=1024
@@ -21,10 +26,11 @@ attention:
 
 With L2 attention the same route runs the kernels' L2 instances
 (``fused_vf``/``fused_vf_jasmin`` with the field's biases in ``params``),
-as JAX runs ``fused_vf_l2`` and ``fused_vf_l2_jasmin``. As in JAX, it is
-deterministic only (dropout raises) and needs ``jasmin_k + 1`` tokens
-(fewer raise: JAX's L2 path has no map route), and the distillation step
-rejects it.
+as JAX runs ``fused_vf_l2`` and ``fused_vf_l2_jasmin`` (one CTA per image
+where it fits, else the tiled route: the 224 px TS-Base student). As in
+JAX, it is deterministic only (dropout raises) and needs ``jasmin_k + 1``
+tokens (fewer raise: JAX's L2 path has no map route), and the
+distillation step rejects it.
 
 With nonzero dropout rates (the model's ``attn_drop``, ``proj_drop``,
 ``mlp_drop``) the free step takes JAX's dropout route: the step's ``rng``
@@ -32,7 +38,8 @@ With nonzero dropout rates (the model's ``attn_drop``, ``proj_drop``,
 that draws one int32 seed per solver step; stage ``s`` of a step evaluates
 with ``step_seed + 0x9E3779B9 * (s + 1)``. The evaluations run the fused
 kernels' dropout instances (``FusedVF``/``FusedVFJasmin`` with a seed; the
-JaSMin window split as above), and Euler and Kutta-3/8 rk4 stages are
+JaSMin window split as above; the map route's ``FusedVFAttn`` with a seed
+on a short sequence), and Euler and Kutta-3/8 rk4 stages are
 combined as JAX's ``step_drop`` combines them, with the same casts to the
 state's dtype.
 
@@ -46,7 +53,8 @@ Distillation, the counterpart of ``fast_distill_forward`` and
   * the final evaluation runs apart, through ``FusedVFAttn``, and its map
     feeds the attention loss (and ``jasmin_map_loss`` when it lies in the
     window); the map is cut to the real tokens before the registers are
-    stripped;
+    stripped; on a sequence shorter than ``max(jasmin_k, 1) + 1`` tokens
+    every evaluation of the window takes that map route, as JAX's;
   * loss = (trajectory MSE + L1 or KL attention loss) * lambda + JaSMin
     (+ CE with label smoothing 0.05 when supervised); the teacher runs
     under ``torch.no_grad()``, without dropout.
@@ -72,10 +80,8 @@ nonzero dropout rate raises, as JAX's assert does.
 On the GPU every evaluation and its backward launch the kernels (at the
 224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
 through their plain versions, for comparisons. Not ported yet, and
-raising: residual stashing, the mesh (data-parallel) step, the teacher
-cache, and the attention-map route of the fused steps for sequences
-shorter than ``jasmin_k + 1`` tokens (ROADMAP.md §1, the map route of the
-fused steps); time conditioning raises when the model is built.
+raising: residual stashing, the mesh (data-parallel) step and the teacher
+cache; time conditioning raises when the model is built.
 """
 
 from __future__ import annotations
@@ -110,17 +116,15 @@ def drop_rates(model):
     return check_rates([model.attn_drop, model.proj_drop, model.mlp_drop])
 
 
-def _check_route(jasmin_k: int, n: int, l2: bool = False):
-    if l2 and n < max(jasmin_k, 1) + 1:
+def stats_ok(jasmin_k: int, n: int, l2: bool = False) -> bool:
+    """Whether the JaSMin window takes the in-kernel statistics (else the
+    map route); an L2 model has no map route, as JAX's, and raises."""
+    ok = n >= max(jasmin_k, 1) + 1
+    if l2 and not ok:
         raise ValueError(f"the fused L2 path needs at least "
                          f"{max(jasmin_k, 1) + 1} tokens for k={jasmin_k} "
                          f"(JAX's has no map route either); got {n}")
-    if n < max(jasmin_k, 1) + 1:
-        raise NotImplementedError(
-            f"{n} tokens are too few for the in-kernel JaSMin statistics "
-            f"(k={jasmin_k}); the attention-map route of the fused steps "
-            f"is not ported yet (ROADMAP.md §1, queued after the "
-            f"distillation slice)")
+    return ok
 
 
 def jasmin_window(num_eval_steps: int, solver: str):
@@ -133,9 +137,8 @@ def jasmin_window(num_eval_steps: int, solver: str):
     return num_steps - tail, tail
 
 
-def _pad_and_weights(model, pixels, jasmin_k: int, plain: bool):
+def _pad_and_weights(model, pixels, plain: bool):
     tokens, n = pad_to_kernel(model.patch_embed(pixels))
-    _check_route(jasmin_k, n, model.l2_attention)
     kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler, n_real=n,
               plain=plain)
     return tokens, model.vf.kernel_weights(tokens.dtype), \
@@ -212,23 +215,30 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
         if model.solver not in ("euler", "rk4"):
             raise ValueError(f"the dropout route stages euler and rk4, not "
                              f"{model.solver!r}")
-    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    tokens, w, params, kw = _pad_and_weights(model, pixels, plain)
     n = kw["n_real"]
+    use_stats = stats_ok(jasmin_k, n, model.l2_attention)
+
+    def jas_eval(y, **drop_kw):
+        # the statistics route, or JAX's map route on a short sequence
+        if use_stats:
+            dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
+                                        **drop_kw, **kw)
+            return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
+        dx, maps = fused_vf_attn(y, w, params, **drop_kw, **kw)
+        return dx, jasmin_map_loss(maps[:, :, :n, :n], k=jasmin_k)
 
     def f_plain(t, y):
         return fused_vf(y, w, params, **kw)
 
     def f_jas(t, y):
-        dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k, **kw)
-        return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
+        return jas_eval(y)
 
     def f_drop_plain(y, seed):
         return fused_vf(y, w, params, seed=seed, drops=drops, **kw), None
 
     def f_drop_jas(y, seed):
-        dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k, seed=seed,
-                                    drops=drops, **kw)
-        return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
+        return jas_eval(y, seed=seed, drops=drops)
 
     # the grid in float32, steps as JAX's scan forms them
     ts = np.linspace(0.0, model.time_interval,
@@ -387,8 +397,9 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     drops = drop_rates(model)
     if any(drops):
         _check_seeds(step_seeds, num_steps)
-    tokens, w, params, kw = _pad_and_weights(model, pixels, jasmin_k, plain)
+    tokens, w, params, kw = _pad_and_weights(model, pixels, plain)
     n = kw["n_real"]
+    use_stats = stats_ok(jasmin_k, n)
     reg = model.patch_embed.num_registers
     dt = float(model.time_interval) / num_steps
 
@@ -413,10 +424,14 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     for a, b_ in zip(breaks[:-1], breaks[1:]):
         is_last = b_ == num_steps
         for i in range(a, b_ - (1 if is_last else 0)):
-            if a >= tail_start:
+            if a >= tail_start and use_stats:
                 dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
                                             **kw, **drop_kw(i))
                 jas.append(jasmin_from_stats(stats[..., :n], jasmin_k))
+            elif a >= tail_start:
+                # JAX's map route on a short sequence
+                dx, maps = fused_vf_attn(y, w, params, **kw, **drop_kw(i))
+                jas.append(jasmin_map_loss(maps[:, :, :n, :n], k=jasmin_k))
             else:
                 dx = fused_vf(y, w, params, **kw, **drop_kw(i))
             y = advance(y, dx)

@@ -8,7 +8,8 @@ numpy-seeded batch; ``fast_forward`` against JAX's ``fast_forward`` with
 rk4, Euler (both on the generic integrator, as JAX routes L2) and dopri5
 (JAX's XLA twin, as ``tests/test_torch_fast_forward.py`` runs it);
 ``ODEVIT_EULER_CHAIN`` ignored for L2; and the routes JAX's L2 path does
-not have, which raise. The small config is ``tests/test_torch_train.py``'s
+not have, which raise (and shapes past the tiled route's 256 padded
+tokens). The small config is ``tests/test_torch_train.py``'s
 ``CFG`` (16 px, D=32, 2 heads, 19 tokens, rk4 on 4 points) with
 ``l2_attention=True``.
 
@@ -185,11 +186,13 @@ def test_l2_routes_jax_does_not_have_raise(case):
             step(create_train_state(tm, make_optimizer(LR)),
                  {"pixel_values": pixels, "labels": labels}, rng=0)
     elif case == "no_cta_plan":
-        # 64 px at patch 4: 259 tokens, beyond one image per CTA
+        # 64 px at patch 4: 259 tokens padded to 272, beyond one image per
+        # CTA and beyond the tiled route's 256 (tests/test_torch_l2_tiled.py
+        # holds the shapes between against JAX)
         tm = ViTODE(**{**CFG, "img_size": 64}, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="256"):
             fast_forward(tm, torch.zeros(2, 64, 64, 3))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="256"):
             fast_free_forward(tm, torch.zeros(2, 64, 64, 3), labels,
                               jasmin_k=10)
     elif case == "distill":
