@@ -109,6 +109,17 @@ Phases:
      ``l2_attention`` (``evidence_free_base.yaml`` at dropout 0) through
      the kernels and the plain path, the softmax student's step beside
      it, and the student served at euler-36 and through the engine;
+  26. the Macaron family past one CTA (after phase 25; cells
+     cifar224-macaron-r2-train-b64 and
+     cifar224-macaron-r2-serve-euler24-b64: experiment_vit_edo.yaml's
+     width as a ViTMacaron, 224 px, D=768, 12 heads, MLP ratio 2, f32,
+     197 tokens padded to 208): the tiled route's forward in its three
+     modes and its backward (16 cotangents) against the plain versions
+     at B=4 in bf16 and f32 (repeats, NaN padding, the Python tiled plan
+     against ``mct_plan``); 3 training steps (Euler on 24 points, B=64,
+     32 px resized on the card) through the kernels and the plain path;
+     each instance alone at B=64; the model served at euler-24 and rk4-7
+     and through the engine;
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
   last, the kernels line (launch counts of the main paths, times, bounds)
@@ -2361,21 +2372,21 @@ def phase_chain_vs_per_step(model, x, student, x224):
 
 
 def phase_serving_224(model, rng, counter="vf_eval_euler_tiled", evals=24,
-                      name="serving_224"):
+                      name="serving_224", dtype="bfloat16"):
     """A ServingEngine over the euler-25 student (or another 224 px model,
     whose forward launches ``evals`` of ``counter``), buckets (1, 8, 64),
     its preprocess ``make_preprocess(image_size=224)`` (the engine takes
     the model's 224 px, as JAX's does, so the resize is the identity),
     answers 16 uint8 requests of 1-20 images from 4 threads; each answer
     is held against a direct ``fast_forward``; the mean latency and the
-    B=1 forward time."""
+    B=1 forward time. ``dtype``: the preprocess's output dtype."""
     import numpy as np
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
     from odevit_tpu_torch.models.fast_forward import fast_forward
     from odevit_tpu_torch.serve.engine import ServingEngine
-    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    pre = make_preprocess(image_size=224, dtype=getattr(torch, dtype))
     sizes = [int(s) for s in rng.integers(1, 21, 16)]
     requests = [rng.integers(0, 256, (s, 224, 224, 3), dtype=np.uint8)
                 for s in sizes]
@@ -2852,25 +2863,27 @@ def macaron_plans_agree():
     return shapes
 
 
-def phase_macaron_kernels_vs_plain():
+def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     """``macaron_eval`` (plain, euler, base) and ``macaron_bwd`` (16
-    cotangents) against their plain versions at B=4, the cell's shape (65
-    tokens padded to 80, D=192, 3 heads, dh=768), in bf16 and f32, with
-    every parameter perturbed by normal(0, 0.1) (the FFN's 1e-3 init would
-    compare near-zeros); repeats bit-identical; NaN and garbage in the
-    padded rows inert; the Python plans equal to the CUDA ones."""
+    cotangents) of ``model``'s field against their plain versions at B=b,
+    n_real tokens padded to n_pad, in bf16 and f32, with every parameter
+    perturbed by normal(0, 0.1) (the FFN's 1e-3 init would compare
+    near-zeros); each launch counted once as ``counters`` (the forward's,
+    the backward's) say; repeats bit-identical; NaN and garbage in the
+    padded rows inert; ``plans()`` holds the Python plans against the
+    CUDA ones and returns the number of shapes."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.macaron import macaron_eval
     from odevit_tpu_torch.kernels.macaron_bwd import BAR_NAMES, macaron_bwd
     before = dict(launch_counts)
-    model = macaron_model()
     gen = torch.Generator().manual_seed(21)
     with torch.no_grad():
         for p in model.vf.parameters():
             p.add_(torch.randn(p.shape, generator=gen).cuda() * 0.1)
-    b, n_real, n_pad, d = 4, 65, 80, 192
-    kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+    d, heads = model.embed_dim, model.num_heads
+    dh = model.vf.kernel_weights(torch.float32).w1.shape[1]
+    kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
     g = torch.Generator(device="cuda").manual_seed(22)
 
     def routed(fn, want):
@@ -2893,12 +2906,12 @@ def phase_macaron_kernels_vs_plain():
         gx[:, n_real:] = 0
         gx = gx.to(dtype)
         r = {"dtype": str(dtype), "tol": tol,
-             "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
+             "shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh}"}
         modes = {"plain": {}, "euler": dict(dt=0.25),
                  "base": dict(dt=0.25, base=base)}
         for mode, extra in modes.items():
             got = routed(lambda: macaron_eval(x, w, mode=mode, **kw, **extra),
-                         "macaron_eval")
+                         counters[0])
             want = macaron_eval(x, w, mode=mode, plain=True, **kw, **extra)
             again = macaron_eval(x, w, mode=mode, **kw, **extra)
             torch.cuda.synchronize()
@@ -2908,7 +2921,7 @@ def phase_macaron_kernels_vs_plain():
             check(r[mode] <= tol, f"Macaron fwd {dtype} {mode}: {r[mode]}")
             check(torch.equal(got, again), f"Macaron fwd {dtype} {mode} "
                   f"not repeatable")
-        got = routed(lambda: macaron_bwd(x, w, gx, **kw), "macaron_bwd")
+        got = routed(lambda: macaron_bwd(x, w, gx, **kw), counters[1])
         want = macaron_bwd(x, w, gx, plain=True, **kw)
         again = macaron_bwd(x, w, gx, **kw)
         torch.cuda.synchronize()
@@ -2939,10 +2952,18 @@ def phase_macaron_kernels_vs_plain():
         r["nan_padding_unchanged"] = same
         check(same, f"Macaron {dtype}: padded rows reached a real row")
         results.append(r)
-    shapes = macaron_plans_agree()
+    shapes = plans()
     launch_counts.update(before)           # comparisons do not count
-    emit("macaron_kernels_vs_plain", weight_noise=0.1,
-         plans_agree_over_shapes=shapes, results=results)
+    emit(name, weight_noise=0.1, plans_agree_over_shapes=shapes,
+         results=results)
+
+
+def phase_macaron_kernels_vs_plain():
+    """The one-CTA kernels at B=4 and the cell's shape (65 tokens padded
+    to 80, D=192, 3 heads, dh=768); the Python plans against
+    ``mac_plan``/``mcb_plan``."""
+    macaron_vs_plain("macaron_kernels_vs_plain", macaron_model(), 4, 65, 80,
+                     ("macaron_eval", "macaron_bwd"), macaron_plans_agree)
 
 
 def phase_macaron_serving(images_u8, rng):
@@ -2995,11 +3016,12 @@ def phase_macaron_serving(images_u8, rng):
     return report
 
 
-def macaron_train_runs(images_u8, labels):
+def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
     """3 steps of ``make_fast_macaron_train_step`` through the kernels and
     through the plain path from the same weights and batch; then one more
     step of each timed by CUDA events around its parts, and one profiled
-    step of the kernel path."""
+    step of the kernel path. ``model_fn`` (default ``macaron_model``) makes
+    the model, ``pre`` (default the 32 px bf16 preprocess) the input."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -3007,11 +3029,13 @@ def macaron_train_runs(images_u8, labels):
         fast_macaron_forward, make_fast_macaron_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
                                               make_optimizer)
-    pre = make_preprocess(dtype=torch.bfloat16)
+    pre = pre or make_preprocess(dtype=torch.bfloat16)
+    model_fn = model_fn or macaron_model
     batch = {"pixel_values": images_u8, "labels": labels}
+    b = images_u8.shape[0]
     runs = {}
     for path in ("kernels", "plain"):
-        model = macaron_model()
+        model = model_fn()
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_macaron_train_step(model, preprocess_fn=pre,
                                             plain=path == "plain")
@@ -3045,7 +3069,7 @@ def macaron_train_runs(images_u8, labels):
             profile = profile_step(step, state, batch)
         runs[path] = {
             "loss": losses, "ms_per_step": ms,
-            "img_per_s_best_of_2_3": BATCH / min(ms[1:]) * 1e3,
+            "img_per_s_best_of_2_3": b / min(ms[1:]) * 1e3,
             "grad_norm_last": metrics["grad_norm"].item(),
             "acc_last": metrics["acc"].item(), "peak_mem_gb": peak,
             "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
@@ -3083,25 +3107,26 @@ def phase_macaron_train(images_u8, labels):
     return k["launches"]
 
 
-def phase_macaron_kernel_timing(images_u8):
-    """Each Macaron instance alone at B=1024 on the main path's inputs (the
-    first state of one image batch: float32, as the cells run it; the bf16
-    instance on the same state rounded) against its plain version, with
-    its bound."""
+def macaron_timing(model, x_in, b, iters=(5, 2), slow_iters=3):
+    """Each Macaron instance alone on the main path's inputs (the first
+    state of ``x_in``, preprocessed images: float32, as the cells run it;
+    the bf16 instance on the same state rounded) against its plain
+    version, with its bound; ``iters``: CUDA-event iterations of the
+    kernel and of the plain version (``slow_iters`` for the f32
+    backward). Returns {dtype: {counter: numbers}}, keyed by the counters
+    the shape's route launches."""
     import torch
-    from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts
-    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron import macaron_eval, macaron_route
     from odevit_tpu_torch.kernels.macaron_bwd import BAR_NAMES, macaron_bwd
     from odevit_tpu_torch.models.fast_forward import pad_to_kernel
     before = dict(launch_counts)
-    model = macaron_model()
     out = {}
+    d, heads = model.embed_dim, model.num_heads
     with torch.no_grad():
-        tokens, n_real = pad_to_kernel(model.embed(make_preprocess(
-            dtype=torch.bfloat16)(images_u8), fused=True))
+        tokens, n_real = pad_to_kernel(model.embed(x_in, fused=True))
         check(tokens.dtype == torch.float32, f"Macaron tokens {tokens.dtype}")
-        kw = dict(num_heads=3, scaler=model.vf.scaler, n_real=n_real)
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
         g = torch.Generator(device="cuda").manual_seed(23)
         gx = torch.randn(tokens.shape, generator=g, device="cuda") * 1e-3
         gx[:, n_real:] = 0
@@ -3110,6 +3135,12 @@ def phase_macaron_kernel_timing(images_u8):
             x = tokens.to(dtype).contiguous()
             gd = gx.to(dtype)
             w = model.vf.kernel_weights(dtype)
+            dh = w.w1.shape[1]
+            sfx = {"cta": "", "tiled": "_tiled"}
+            names = [name + sfx[macaron_route(dtype, x.shape[1], n_real, d,
+                                              heads, dh, bwd)]
+                     for name, bwd in (("macaron_eval", False),
+                                       ("macaron_bwd", True))]
             isz = x.element_size()
             f = macaron_eval(x, w, **kw)
             pf = macaron_eval(x, w, plain=True, **kw)
@@ -3120,21 +3151,22 @@ def phase_macaron_kernel_timing(images_u8):
             berrs = {nm: rel_err(a[:, :n_real] if nm == "x" else a,
                                  c[:, :n_real] if nm == "x" else c)
                      for nm, a, c in zip(BAR_NAMES, bars, pbars)}
-            check(ferr <= tol, f"B=1024 Macaron fwd {dtype}: {ferr}")
+            check(ferr <= tol, f"B={b} Macaron fwd {dtype}: {ferr}")
             check(max(berrs.values()) <= tol,
-                  f"B=1024 Macaron bwd {dtype}: {berrs}")
+                  f"B={b} Macaron bwd {dtype}: {berrs}")
             slow = dtype == torch.float32
             out[str(dtype)] = {
-                "macaron_eval": {
+                names[0]: {
                     "max_abs_err": (f[:, :n_real].float()
                                     - pf[:, :n_real].float()).abs().max()
                     .item(), "rel_err": ferr,
-                    "ms": cuda_ms(lambda: macaron_eval(x, w, **kw), iters=5),
+                    "ms": cuda_ms(lambda: macaron_eval(x, w, **kw),
+                                  iters=iters[0]),
                     "plain_ms": cuda_ms(lambda: macaron_eval(
-                        x, w, plain=True, **kw), iters=2),
+                        x, w, plain=True, **kw), iters=iters[1]),
                     **dict(zip(("bound_ms", "bound_by"), macaron_bound(
-                        BATCH, n_real, 192, 768, isz)))},
-                "macaron_bwd": {
+                        b, n_real, d, dh, isz)))},
+                names[1]: {
                     "max_abs_err": max((a.float() - c.float()).abs().max()
                                        .item() for a, c in zip(bars[1:],
                                                                pbars[1:])),
@@ -3142,16 +3174,185 @@ def phase_macaron_kernel_timing(images_u8):
                                       - pbars[0][:, :n_real].float()).abs()
                     .max().item(), "rel_errs": berrs,
                     "ms": cuda_ms(lambda: macaron_bwd(x, w, gd, **kw),
-                                  iters=3 if slow else 5),
+                                  iters=slow_iters if slow else iters[0]),
                     "plain_ms": cuda_ms(lambda: macaron_bwd(
-                        x, w, gd, plain=True, **kw), iters=2),
+                        x, w, gd, plain=True, **kw), iters=iters[1]),
                     **dict(zip(("bound_ms", "bound_by"), macaron_bound(
-                        BATCH, n_real, 192, 768, isz, backward=True)))}}
+                        b, n_real, d, dh, isz, backward=True)))}}
     launch_counts.update(before)           # comparisons do not count
-    emit("macaron_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
-         f"dh=768", results=out)
+    return out, n_real, x.shape[1], dh
+
+
+def phase_macaron_kernel_timing(images_u8):
+    """Each Macaron instance alone at B=1024 on the main path's inputs."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    out, n_real, n_pad, dh = macaron_timing(
+        macaron_model(), make_preprocess(dtype=torch.bfloat16)(images_u8),
+        BATCH)
+    emit("macaron_kernel_timing", shape=f"B={BATCH} n={n_real}/{n_pad} "
+         f"D=192 H=3 dh={dh}", results=out)
     return out
 
+
+# ---- slice 11: the Macaron family past one CTA ----------------------------
+
+# configs/classification/experiment_vit_edo.yaml's model width as a
+# ViTMacaron (the CLI builds one from any recipe's inputs with
+# modeling.type: macaron): 224 px, patch 16, D=768, 12 heads, MLP ratio 2,
+# Euler on 24 points over [0, 1]; 197 tokens padded to 208; model dtype
+# float32 (the CLI's default), so the tiled route's f32 instances run.
+# reduced: dropout 0 (the recipe has 0.3; JAX's fused Macaron step is
+# deterministic-only)
+MACARON224_SHAPE = dict(img_size=224, patch_size=16, embed_dim=768,
+                        num_heads=12, mlp_ratio=2.0, num_classes=100,
+                        emulate_depth=12.0, time_interval=1.0,
+                        num_eval_steps=24, solver="euler")
+MAC224_TRAIN_CELL = "cifar224-macaron-r2-train-b64"
+MAC224_SERVE_CELL = "cifar224-macaron-r2-serve-euler24-b64"
+MAC224_REDUCED = ("dropout 0 (the recipe's 0.3; JAX's fused Macaron step is "
+                  "deterministic-only)")
+# per step: 23 plain-mode evaluations and their 23 backwards
+MAC224_LAUNCHES = {"macaron_eval_tiled": 23, "macaron_bwd_tiled": 23}
+
+
+def macaron224_model(solver="euler", steps=24, seed=0):
+    import torch
+    from odevit_tpu_torch.models.macaron import ViTMacaron
+    return ViTMacaron(**{**MACARON224_SHAPE, "solver": solver,
+                         "num_eval_steps": steps}, dtype=torch.float32,
+                      device="cuda", seed=seed)
+
+
+def macaron_tiled_plans_agree():
+    """``tiled_macaron_plan`` (Python, which routes on either device)
+    against ``mct_plan`` of ``csrc/macaron_tiled.cu`` over a sweep of
+    shapes: the same plan, or none on both sides."""
+    import torch
+    from odevit_tpu_torch.kernels.macaron_tiled import (kernel_tiled_plan,
+                                                        tiled_macaron_plan)
+    shapes = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_pad in (16, 80, 128, 144, 160, 208, 256, 272):
+            for d, heads in ((32, 2), (32, 4), (192, 3), (384, 6),
+                             (768, 12), (1024, 16)):
+                for dh in (d, 2 * d, 4 * d):
+                    args = (dtype, n_pad, n_pad - 11, d, heads, dh)
+                    got, want = tiled_macaron_plan(*args), \
+                        kernel_tiled_plan(*args)
+                    check(got == want, f"Macaron tiled plan {args}: python "
+                          f"{got}, mct_plan {want}")
+                    shapes += 1
+    return shapes
+
+
+def phase_macaron224_kernels_vs_plain():
+    """The tiled route at B=4 and the cells' shape (197 tokens padded to
+    208, D=768, 12 heads, dh=1536): each mode and the 16 cotangents
+    against the plain versions in bf16 and f32, repeats, NaN padding; the
+    Python tiled plan against ``mct_plan``."""
+    macaron_vs_plain("macaron224_kernels_vs_plain", macaron224_model(), 4,
+                     197, 208, ("macaron_eval_tiled", "macaron_bwd_tiled"),
+                     macaron_tiled_plans_agree)
+
+
+def phase_macaron224_train(images_u8, labels):
+    """Cell cifar224-macaron-r2-train-b64: 3 steps of the fused Macaron
+    step (Euler on 24 points, CE, AdamW at 1e-4 after the clip at 1.0;
+    32 px uint8 resized to 224 on the card, f32) through the tiled
+    kernels and the plain path: 23 ``macaron_eval_tiled`` and 23
+    ``macaron_bwd_tiled`` per step."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    pre = make_preprocess(image_size=224, dtype=torch.float32)
+    runs, profile, cos, loss_rel, per_step = macaron_train_runs(
+        images_u8, labels, model_fn=macaron224_model, pre=pre)
+    k, p = runs["kernels"], runs["plain"]
+    emit("macaron224_train_profile", **profile)
+    emit("macaron224_train", cell=MAC224_TRAIN_CELL,
+         batch=images_u8.shape[0], input="uint8 32x32 resized to 224",
+         steps=TRAIN_STEPS, solver="euler-24", state_dtype="float32",
+         reduced=MAC224_REDUCED,
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         busy_share=profile["busy_share"], first_grad_cosine=cos,
+         min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
+         tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
+    check_train("macaron224_train", runs, cos, loss_rel, per_step,
+                MAC224_LAUNCHES)
+    return k["launches"]
+
+
+def phase_macaron224_kernel_timing(images_u8):
+    """Each tiled instance alone at B=64 on the training cell's first
+    state (f32; the bf16 instance on it rounded)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    b = images_u8.shape[0]
+    out, n_real, n_pad, dh = macaron_timing(
+        macaron224_model(),
+        make_preprocess(image_size=224, dtype=torch.float32)(images_u8), b,
+        iters=(3, 2), slow_iters=2)
+    emit("macaron224_kernel_timing", shape=f"B={b} n={n_real}/{n_pad} "
+         f"D=768 H=12 dh={dh}", results=out)
+    return out
+
+
+def phase_macaron224_serving(images_u8, rng):
+    """Cell cifar224-macaron-r2-serve-euler24-b64: the model served by
+    ``fast_forward`` at B=64 (32 px uint8 resized to 224 on the card,
+    f32): Euler on 24 points (23 euler-mode tiled launches), and rk4 on 7
+    (6 euler-mode and 18 base-mode) beside it, against the plain path;
+    then the engine over the Euler model (16 requests)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    x = make_preprocess(image_size=224, dtype=torch.float32)(images_u8)
+    b = x.shape[0]
+    report = {}
+    models = {"euler-24": macaron224_model(),
+              "rk4-7": macaron224_model("rk4", 7)}
+    for name, model in models.items():
+        evals = 23 if name == "euler-24" else 24
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        got = fast_forward(model, x)["logits"]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts.items() if v}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == {"macaron_eval_tiled": evals},
+              f"Macaron 224 {name}: launches {launches}")
+        want = fast_forward(model, x, plain=True)["logits"]
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        check(bool(torch.isfinite(got).all())
+              and tuple(got.shape) == (b, 100),
+              f"Macaron 224 {name}: logits {got.shape}")
+        check(err <= TOL_LOGITS, f"Macaron 224 {name}: logits rel err {err}")
+        check(top1 >= MIN_TOP1_AGREEMENT,
+              f"Macaron 224 {name}: top-1 agreement {top1}")
+        ms = cuda_ms(lambda: fast_forward(model, x), iters=2)
+        plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True),
+                           iters=2)
+        report[name] = {
+            "launches": launches, "rel_err": err, "tol": TOL_LOGITS,
+            "top1_agreement": top1, "logit_scale": want.abs().max().item(),
+            "ms_per_forward": ms, "img_per_s": b / ms * 1e3,
+            "ms_per_eval": ms / evals, "plain_ms_per_forward": plain_ms,
+            "plain_img_per_s": b / plain_ms * 1e3, "peak_mem_gb": peak}
+    engine = phase_serving_224(models["euler-24"], rng,
+                               counter="macaron_eval_tiled", evals=23,
+                               name="macaron224_serving_engine",
+                               dtype="float32")
+    emit("macaron224_serving", cell=MAC224_SERVE_CELL, batch=b,
+         input="uint8 32x32 resized to 224", state_dtype="float32",
+         reduced=MAC224_REDUCED, results=report, engine_launches=engine)
+    return report
 
 
 # ---- slice 10: L2 past one CTA, the map route, emit_masks ------------------
@@ -3569,6 +3770,12 @@ def main() -> int:
     tsl2_launches = phase_tsbase_l2_train(images_d, labels_d)
     tsl2_timing = phase_l2_kernel_timing(images_d, tsbase=True)
     tsl2_serve = phase_tsbase_l2_serving(images_r4, rng_d)
+    # the Macaron family past one CTA: experiment_vit_edo.yaml's width as
+    # a ViTMacaron, trained and served at 224 px (32 px resized on the card)
+    phase_macaron224_kernels_vs_plain()
+    mac224_launches = phase_macaron224_train(images_d, labels_d)
+    mac224_timing = phase_macaron224_kernel_timing(images_d)
+    mac224_serve = phase_macaron224_serving(images_d, rng_d)
     # the serving slice at 224 px, and the chained Euler kernel
     rng_s = np.random.default_rng(2)
     x224, serve224, students = phase_serve_224(rng_s)
@@ -3709,6 +3916,24 @@ def main() -> int:
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by")},
             "library_ms": None})
+    for name, line in (("macaron_eval_tiled", 45),
+                       ("macaron_bwd_tiled", 218)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "odevit_tpu_torch/csrc/macaron_tiled.cu",
+            "replaces": f"odevit_tpu/kernels/macaron.py:{line}",
+            # the 224 px Macaron train cell's 3 steps (f32 instance);
+            # serving's euler-24 forward beside it, and the bf16 numbers
+            "launches": mac224_launches[name],
+            **({"launches_serve": mac224_serve["euler-24"]["launches"][name]}
+               if name == "macaron_eval_tiled" else {}),
+            **{k: v for k, v in mac224_timing["torch.float32"][name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+            "library_ms": None,
+            "bf16": {k: v for k, v in mac224_timing["torch.bfloat16"][name]
+                     .items() if k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by")}})
     kernels.append({
         "name": "vf_eval_masks", "route": "cuda",
         "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
@@ -3724,7 +3949,7 @@ def main() -> int:
         # distillation cells'
         if entry["name"] in map_launches:
             entry["launches_map_route"] = map_launches[entry["name"]]
-    check(len(kernels) == 31, f"{len(kernels)} kernels in the line")
+    check(len(kernels) == 33, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

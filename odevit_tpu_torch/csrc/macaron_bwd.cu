@@ -64,10 +64,14 @@
 // split-TF32 passes of macaron.cu (mcb_wgrad_f32 for the weight products);
 // nothing goes to a library.
 
+// macaron_tiled.cu includes this file with MCB_KERNELS_ONLY, after the
+// sources below, for mcb_wgrad_f32 and the per-image partials' layout.
+#ifndef MCB_KERNELS_ONLY
 #define VFB_KERNELS_ONLY
 #include "vector_field_bwd.cu"
 #define MAC_HELPERS_ONLY
 #include "macaron.cu"
+#endif
 
 // Everything one backward needs, passed by pointer from Python (ctypes).
 // The workspace pointers are per-row buffers of B * n_pad rows (2 * B *
@@ -650,6 +654,8 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 
 }  // namespace macb
 
+#ifndef MCB_KERNELS_ONLY
+
 extern "C" {
 
 // Chooses the plan of mcb_rows: the FFN chunk width and the shared
@@ -683,3 +689,5 @@ const char* mcb_error_string(int code) {
 }
 
 }  // extern "C"
+
+#endif  // MCB_KERNELS_ONLY

@@ -110,6 +110,11 @@
 // (vft_norm_bwd) in the fixed-order reduce, so repeats stay
 // bit-identical.
 //
+// macaron_tiled.cu runs the Macaron field on these products and attention
+// kernels: kGelu adds a bias (b1) before the GELU, kMacResid writes the
+// f32 state x + alpha rs (v + bias) (and v + bias itself), kMacOut the
+// last residual step's round(scaler x3) or its Euler / stage update.
+//
 // The product epilogues draw one Philox call per 4 columns of a row (the
 // 16x16 accumulator tile is staged in shared memory first, so a lane takes
 // a row's 4 consecutive columns whatever the fragment layout); the f32
@@ -248,7 +253,12 @@ enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4,
                 kGeluDrop = 5, kGeluGradDrop = 6, kOutDrop = 7,
                 // the Euler and stage-advance output: round(res + dt
                 // (scale v)), res = x (Euler) or the stage base
-                kAdvance = 8 };
+                kAdvance = 8,
+                // the Macaron field's residual steps (macaron_tiled.cu), f
+                // = v + bias in f32: kMacResid writes fout = f and out32 =
+                // aux + alpha rs f; kMacOut writes round(scale x3), or
+                // round(res + dt (scale x3)), x3 = aux + alpha rs f
+                kMacResid = 9, kMacOut = 10 };
 
 // C[m, n] = sum over pairs of A_p[m, :] B_p[:, n]; A row-major (lda), B
 // row-major [K, N] (ldb) or, with BT, stored transposed [N, K]. M and N
@@ -280,6 +290,11 @@ struct GemmArgs {
   const float* bias;
   // emit_masks: the kept values of masks 0 and 1, f32 [m, n], or null
   float* mask[2];
+  // kMacResid, kMacOut: rs (read on the device), its factor, and f (f32,
+  // ld32; optional)
+  const float* rs;
+  float alpha;
+  float* fout;
 };
 
 template <typename T>
@@ -291,10 +306,12 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
     case kRound:
       out[o] = vf::from_f<T>(g.bias != nullptr ? v + g.bias[n] : v);
       break;
-    case kGelu:
-      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = v;
-      out[o] = vf::from_f<T>(vf::gelu(v));
+    case kGelu: {  // with a bias (the Macaron FFN's b1) added first
+      const float h1 = g.bias != nullptr ? v + g.bias[n] : v;
+      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = h1;
+      out[o] = vf::from_f<T>(vf::gelu(h1));
       break;
+    }
     case kScale:
       out[o] = vf::from_f<T>((g.bias != nullptr ? v + g.bias[n] : v) *
                              g.scale);
@@ -306,6 +323,23 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
       out[o] = vf::from_f<T>(vf::to_f(static_cast<const T*>(g.res)[o]) +
                              g.dt * (v * g.scale));
       break;
+    case kMacResid: {  // the new f32 state (in place where aux == out32)
+      const float f = v + g.bias[n];
+      const size_t s = (size_t)m * g.ld32 + n;
+      if (g.fout != nullptr) g.fout[s] = f;
+      if (g.out32 != nullptr) g.out32[s] = g.aux[s] + g.alpha * g.rs[0] * f;
+      break;
+    }
+    case kMacOut: {  // f not rounded before the Euler or stage update
+      const float x3 = g.aux[(size_t)m * g.ldaux + n] +
+                       g.alpha * g.rs[0] * (v + g.bias[n]);
+      const float f = x3 * g.scale;
+      out[o] = vf::from_f<T>(
+          g.res != nullptr
+              ? vf::to_f(static_cast<const T*>(g.res)[o]) + g.dt * f
+              : f);
+      break;
+    }
     default:
       g.out32[(size_t)m * g.ld32 + n] = v;
       break;
@@ -1345,40 +1379,48 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
          n_pad > 0 && n_pad <= kMaxCols && n_real > 0 && n_real <= n_pad;
 }
 
-}  // namespace vft
-
-// vector_field_bwd_split.cu includes this file with VFT_KERNELS_ONLY for
-// its kernels and launch helpers; it has entry points of its own.
-#ifndef VFT_KERNELS_ONLY
-
-extern "C" {
-
 // Chooses the query-tile rows of the attention kernels: the largest whose
 // backward CTA (of the dropout instance with `drop`, of the L2 instance
 // with `l2`) fits the shared memory. Returns 0 with the plan, 1 when the
-// shape has none (the wrapper raises). kernels/tiled.py::tiled_plan_rule
+// shape has none (the wrappers raise). kernels/tiled.py::tiled_plan_rule
 // repeats this rule in Python.
-int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
-             int drop, int l2, int* mt_out, int* smem_fwd_out,
-             int* smem_bwd_out, int* smem_keys_out) {
-  if (!vft::shape_ok(n_pad, n_real, d, heads, dh)) return 1;
+int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+         bool drop, bool l2, int* mt_out, int* smem_fwd_out,
+         int* smem_bwd_out, int* smem_keys_out) {
+  if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   const int hd = d / heads;
-  const size_t keys = vft::key_plan(n_pad, hd, tbytes, l2 != 0).total;
+  const size_t keys = key_plan(n_pad, hd, tbytes, l2).total;
   if (keys > (size_t)vf::kMaxSmem) return 1;
-  for (int mt : vft::kQTiles) {
-    const size_t bwd =
-        vft::attn_plan(n_pad, hd, mt, tbytes, true, drop != 0, l2 != 0).total;
+  for (int mt : kQTiles) {
+    const size_t bwd = attn_plan(n_pad, hd, mt, tbytes, true, drop, l2).total;
     if (bwd <= (size_t)vf::kMaxSmem) {
       *mt_out = mt;
-      *smem_fwd_out = (int)vft::attn_plan(n_pad, hd, mt, tbytes, false,
-                                          drop != 0, l2 != 0)
-                          .total;
+      *smem_fwd_out =
+          (int)attn_plan(n_pad, hd, mt, tbytes, false, drop, l2).total;
       *smem_bwd_out = (int)bwd;
       *smem_keys_out = (int)keys;
       return 0;
     }
   }
   return 1;
+}
+
+}  // namespace vft
+
+// vector_field_bwd_split.cu and macaron_tiled.cu include this file with
+// VFT_KERNELS_ONLY for its kernels and launch helpers; they have entry
+// points of their own.
+#ifndef VFT_KERNELS_ONLY
+
+extern "C" {
+
+// The plan of vft::plan (query-tile rows, shared memory of the forward,
+// backward and key-tile attention CTAs); returns 0 with it, 1 without.
+int vft_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
+             int drop, int l2, int* mt_out, int* smem_fwd_out,
+             int* smem_bwd_out, int* smem_keys_out) {
+  return vft::plan(tbytes, n_pad, n_real, d, heads, dh, drop != 0, l2 != 0,
+                   mt_out, smem_fwd_out, smem_bwd_out, smem_keys_out);
 }
 
 // One evaluation (mode 0 plain, 1 JaSMin statistics, 2 attention map,

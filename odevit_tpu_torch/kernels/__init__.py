@@ -36,7 +36,9 @@ launch_counts: Dict[str, int] = {
     # the tiled route's dropout instance writing its masks (emit_masks)
     "vf_eval_masks": 0,
     # the Macaron field (csrc/macaron.cu: every mode; csrc/macaron_bwd.cu)
-    "macaron_eval": 0, "macaron_bwd": 0}
+    "macaron_eval": 0, "macaron_bwd": 0,
+    # and its tiled route (csrc/macaron_tiled.cu: every mode; backward)
+    "macaron_eval_tiled": 0, "macaron_bwd_tiled": 0}
 _count_lock = threading.Lock()
 
 

@@ -1,9 +1,13 @@
 """One fused evaluation of the Macaron vector field.
 
-``macaron_eval`` launches the CUDA kernel of ``csrc/macaron.cu`` (the
-counterpart of the TPU kernel ``odevit_tpu/kernels/macaron.py::
-_macaron_kernel``) on a CUDA tensor, and runs its plain PyTorch version
-``macaron_eval_plain`` on a CPU tensor. With ``f = x3 * scaler`` and
+``macaron_eval`` launches a CUDA counterpart of the TPU kernel
+``odevit_tpu/kernels/macaron.py::_macaron_kernel`` on a CUDA tensor, and
+runs its plain PyTorch version ``macaron_eval_plain`` on a CPU tensor.
+:func:`macaron_route` chooses the kernel, by the same rule on either
+device: ``csrc/macaron.cu``, one image per CTA, where :func:`macaron_plan`
+has a plan, else the tiled route of ``csrc/macaron_tiled.cu``
+(``kernels/macaron_tiled.py``) up to 256 padded tokens; past that it
+raises. With ``f = x3 * scaler`` and
 
     x1 = x  + rs/2 * FFN(LN1 x)        FFN(z) = gelu(z W1 + b1) W2 + b2
     x2 = x1 + rs   * Attn(LN2 x1)      (biased q|k|v and output projections)
@@ -15,7 +19,8 @@ three modes, as ``_pallas_macaron`` has them:
   * ``"euler"``: ``x + dt * f(x)``, with ``f`` not rounded first;
   * ``"base"``: ``base + dt * f(x)`` (the Kutta-3/8 stage advance).
 
-Every mode counts as ``macaron_eval``. ``x`` is the padded token tensor
+Every mode counts as ``macaron_eval`` (``macaron_eval_tiled`` on the
+tiled route). ``x`` is the padded token tensor
 ``[B, n_pad, D]`` (``n_pad`` a multiple of ``TOKEN_PAD``); tokens
 ``>= n_real`` are padding: they receive no attention and whatever they hold
 never reaches a real token.
@@ -24,9 +29,10 @@ Rounding follows the kernel, not JAX's XLA twin ``_xla_macaron``: the
 state stays float32; the LayerNorm outputs (flax's eps 1e-6), qkv after its
 bias (before the heads are sliced), p, ctx and gelu(h) are rounded to x's
 dtype; the FFN output and attn_o stay float32 until they reach the state;
-the result is rounded once. A shape without a one-image-per-CTA plan
-(:func:`macaron_plan`, the same rule on either device) raises: JAX's
-XLA-twin fallback is a TPU VMEM trade-off that no configured shape takes.
+the result is rounded once. Both routes round there, so the plain
+version is one. JAX's forward runs its Pallas kernel at every shape
+(``_macaron_block_b`` only halves the batch tile); the port's two routes
+together take every shape up to 256 padded tokens.
 """
 
 from __future__ import annotations
@@ -80,7 +86,8 @@ def _shapes(d: int, dh: int):
 def macaron_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                  dh: int):
     """(fused q|k|v product, FFN chunk width, shared-memory bytes) of one
-    CTA, or None where one image does not fit one CTA: ``mac_plan`` of
+    CTA, or None where one image does not fit one CTA (the shape then takes
+    the tiled route, :func:`macaron_route`): ``mac_plan`` of
     ``csrc/macaron.cu`` in Python, so that a CPU run routes as the card
     does. ``chip_smoke.py`` holds it against ``mac_plan``."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
@@ -103,7 +110,31 @@ def macaron_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return None
 
 
-def _check(x, w: MacaronWeights, num_heads, n_real, mode, base):
+def macaron_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                  dh: int, bwd: bool = False) -> str:
+    """"cta" where the one-image-per-CTA kernel has a plan (of the backward
+    with ``bwd``), else "tiled" where the tiled route has one; raises past
+    both (n_pad > 256, or sizes that are not multiples of 16). The same
+    rule on either device."""
+    from odevit_tpu_torch.kernels.macaron_tiled import tiled_macaron_plan
+    if bwd:
+        from odevit_tpu_torch.kernels.macaron_bwd import macaron_bwd_plan
+        cta = macaron_bwd_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    else:
+        cta = macaron_plan(dtype, n_pad, n_real, d, num_heads, dh)
+    if cta is not None:
+        return "cta"
+    if tiled_macaron_plan(dtype, n_pad, n_real, d, num_heads, dh):
+        return "tiled"
+    raise ValueError(
+        f"no Macaron plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
+        f"dh={dh} in {dtype}: one image per CTA needs n_pad <= 128, the "
+        f"tiled kernels n_pad <= 256, both multiples of 16")
+
+
+def _check(x, w: MacaronWeights, num_heads, n_real, mode, base,
+           bwd: bool = False) -> str:
+    """Checks the arguments; returns the route (:func:`macaron_route`)."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {sorted(MODES)}")
     if x.dim() != 3:
@@ -125,12 +156,7 @@ def _check(x, w: MacaronWeights, num_heads, n_real, mode, base):
         raise ValueError("base is given exactly when mode == 'base'")
     if base is not None and base.shape != x.shape:
         raise ValueError(f"base {tuple(base.shape)} != x {tuple(x.shape)}")
-    if macaron_plan(x.dtype, n, n_real, d, num_heads, dh) is None:
-        raise NotImplementedError(
-            f"the Macaron kernels run one image per CTA, and n_pad={n}, "
-            f"D={d}, {num_heads} heads, dh={dh} in {x.dtype} has no such "
-            f"plan (n_pad <= 128, multiples of 16, <= 227 KB of shared "
-            f"memory)")
+    return macaron_route(x.dtype, n, n_real, d, num_heads, dh, bwd)
 
 
 def chain_plain(xf, w: MacaronWeights, *, num_heads: int, n_real: int,
@@ -253,7 +279,7 @@ def macaron_eval(x, w: MacaronWeights, *, num_heads: int, scaler: float,
                  base=None, plain: bool = False):
     """One Macaron evaluation (see the module docstring).
 
-    A CUDA tensor launches the kernel; a CPU tensor runs
+    A CUDA tensor launches the kernel of its route; a CPU tensor runs
     :func:`macaron_eval_plain`. ``plain=True`` runs the plain version on
     the GPU too: it exists for comparisons, and the main path never sets
     it.
@@ -261,8 +287,14 @@ def macaron_eval(x, w: MacaronWeights, *, num_heads: int, scaler: float,
     if plain or x.device.type == "cpu":
         return macaron_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
                                   n_real=n_real, mode=mode, dt=dt, base=base)
-    _check(x, w, num_heads, n_real, mode, base)
+    route = _check(x, w, num_heads, n_real, mode, base)
     check_launch(x, w, base)
+    if route == "tiled":
+        from odevit_tpu_torch.kernels.macaron_tiled import tiled_eval
+        out = tiled_eval(x, w, num_heads=num_heads, scaler=scaler,
+                         n_real=n_real, mode=mode, dt=dt, base=base)
+        count_launch("macaron_eval_tiled")
+        return out
     b, n, d = x.shape
     dh = w.w1.shape[1]
     fused, hc, smem = macaron_plan(x.dtype, n, n_real, d, num_heads, dh)

@@ -1,9 +1,16 @@
 """Backward of one fused Macaron evaluation.
 
-``macaron_bwd`` launches the CUDA kernels of ``csrc/macaron_bwd.cu`` (the
-counterpart of the TPU kernel ``odevit_tpu/kernels/macaron.py::
-_macaron_bwd_kernel``) on a CUDA tensor, counted as ``macaron_bwd``, and
-runs its plain PyTorch version ``macaron_bwd_plain`` on a CPU tensor. Both
+``macaron_bwd`` launches CUDA counterparts of the TPU kernel
+``odevit_tpu/kernels/macaron.py::_macaron_bwd_kernel`` on a CUDA tensor and
+runs its plain PyTorch version ``macaron_bwd_plain`` on a CPU tensor. The
+route is ``macaron_route(..., bwd=True)``'s: the kernels of
+``csrc/macaron_bwd.cu`` (one image per CTA, counted as ``macaron_bwd``)
+where :func:`macaron_bwd_plan` has a plan, else the tiled route of
+``csrc/macaron_tiled.cu`` (``macaron_bwd_tiled``) up to 256 padded tokens;
+past that it raises. JAX's backward is ``pallas_macaron_bwd`` wherever
+``macaron_bwd_block_b`` finds a batch tile, else ``jax.vjp`` of its XLA
+twin (at MLP ratio 4 and 224 px, for one); the cotangents are the same.
+Both
 take the forward's input ``x``, its weights and the cotangent ``g`` of
 f(x), and return the 16 cotangents of ``pallas_macaron_bwd`` in its order
 (x_bar in x's dtype, the rest in float32, ``rs``'s as a ``(1,)`` tensor):
@@ -32,6 +39,7 @@ import torch
 from odevit_tpu_torch.kernels import count_launch
 from odevit_tpu_torch.kernels.macaron import (MacaronWeights, _check,
                                               chain_plain, check_launch)
+from odevit_tpu_torch.kernels.macaron_tiled import tiled_bwd
 from odevit_tpu_torch.kernels.vector_field import (_CHUNKS, _MAX_SMEM,
                                                    align128, cta_shape_ok)
 from odevit_tpu_torch.kernels.vector_field_bwd import (_gelu_grad,
@@ -46,7 +54,8 @@ BAR_NAMES = ("x", *MacaronWeights._fields)
 def macaron_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                      dh: int):
     """(FFN chunk width, shared-memory bytes) of the per-image kernel, or
-    None where one image does not fit one CTA: ``mcb_plan`` of
+    None where one image does not fit one CTA (the shape then takes the
+    tiled route, ``macaron_route``): ``mcb_plan`` of
     ``csrc/macaron_bwd.cu`` in Python. ``chip_smoke.py`` holds it against
     ``mcb_plan``."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
@@ -77,7 +86,7 @@ def ln_stats(xf):
 def macaron_bwd_plain(x, w: MacaronWeights, g, *, num_heads: int,
                       scaler: float, n_real: int):
     """The kernels' arithmetic in plain PyTorch: the 16 cotangents."""
-    _check(x, w, num_heads, n_real, "plain", None)
+    _check(x, w, num_heads, n_real, "plain", None, bwd=True)
     b, n, d = x.shape
     dtype = x.dtype
     zero = torch.zeros((), device=x.device)
@@ -190,24 +199,29 @@ def partials(d: int, dh: int) -> int:
 def macaron_bwd(x, w: MacaronWeights, g, *, num_heads: int, scaler: float,
                 n_real: int, plain: bool = False):
     """The 16 cotangents of one evaluation (see the module docstring). A
-    CUDA tensor launches the kernels; a CPU tensor, or ``plain=True``,
-    runs :func:`macaron_bwd_plain`."""
+    CUDA tensor launches the kernels of its route; a CPU tensor, or
+    ``plain=True``, runs :func:`macaron_bwd_plain`."""
     if plain or x.device.type == "cpu":
         return macaron_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
                                  n_real=n_real)
-    _check(x, w, num_heads, n_real, "plain", None)
+    route = _check(x, w, num_heads, n_real, "plain", None, bwd=True)
     check_launch(x, w)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} != x {tuple(x.shape)}")
     check_operands(x, g=(g, x.dtype))
     b, n, d = x.shape
     dh = w.w1.shape[1]
-    hc, smem = macaron_bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
     rows = b * n
     # one split count for both weight passes (B*n_pad and 2*B*n_pad rows)
     splits = weight_splits(rows, d, dh)
     wtotal = 4 * d * d + 2 * d * dh
     nlen = partials(d, dh)
+    if route == "tiled":
+        xbar, out = tiled_bwd(x, w, g, num_heads=num_heads, scaler=scaler,
+                              n_real=n_real, splits=splits, nlen=nlen)
+        count_launch("macaron_bwd_tiled")
+        return split_bars(xbar, out, d, dh)
+    hc, smem = macaron_bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
 
     def scratch(width, halves=1, dtype=x.dtype):
         return torch.empty(halves * rows, width, device=x.device, dtype=dtype)

@@ -138,7 +138,7 @@ def test_the_only_source_is_listed():
     assert set(build.sources()) == {"vector_field", "vector_field_bwd",
                                     "vector_field_tiled", "dropout_masks",
                                     "vector_field_bwd_split", "macaron",
-                                    "macaron_bwd"}
+                                    "macaron_bwd", "macaron_tiled"}
 
 
 def test_the_split_backward_is_a_port_module():
@@ -149,7 +149,8 @@ def test_the_split_backward_is_a_port_module():
     assert build.sources()["vector_field_bwd_split"].parent == build.CSRC
 
 
-@pytest.mark.parametrize("module", ["macaron", "macaron_bwd"])
+@pytest.mark.parametrize("module", ["macaron", "macaron_bwd",
+                                    "macaron_tiled"])
 def test_macaron_kernels_without_a_compiler_raise(module, tmp_path,
                                                   monkeypatch):
     """The Macaron kernels' libraries are built at first use from their own

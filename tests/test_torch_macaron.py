@@ -8,8 +8,10 @@ Macaron tree. The kernels' plain versions are held against the TPU kernels
 in interpret mode and against JAX's XLA twin: ``macaron_eval_plain`` in
 its three modes against ``_pallas_macaron`` and ``_xla_macaron``, and
 ``macaron_bwd_plain`` (all 16 cotangents) against ``pallas_macaron_bwd``
-and ``jax.vjp`` of ``_xla_macaron``; NaN padding stays inert, and the
-plans raise where one image does not fit one CTA. The CUDA kernels are
+and ``jax.vjp`` of ``_xla_macaron``; NaN padding stays inert; the plans,
+and the route: one CTA up to 128 padded tokens, the tiled route past it
+(``tests/test_torch_macaron_tiled.py`` holds it against JAX), a raise
+past 256. The CUDA kernels are
 held against the plain versions on the GPU by ``chip_smoke.py``;
 ``tests/test_torch_macaron_step.py`` holds the whole slice (serving,
 training) against JAX.
@@ -53,9 +55,10 @@ from odevit_tpu.models.macaron import ViTMacaron as JaxViTMacaron
 from odevit_tpu.models.vector_field import MacaronVectorField as JaxMacVF
 from odevit_tpu.ops.attention import SoftmaxSelfAttention as JaxAttn
 from odevit_tpu.ops.mlp import MacaronFFN as JaxFFN
+from odevit_tpu_torch.kernels import launch_counts
 from odevit_tpu_torch.kernels.macaron import (MacaronWeights, macaron_eval,
                                               macaron_eval_plain,
-                                              macaron_plan)
+                                              macaron_plan, macaron_route)
 from odevit_tpu_torch.kernels.macaron_bwd import (BAR_NAMES, macaron_bwd,
                                                   macaron_bwd_plain,
                                                   macaron_bwd_plan)
@@ -391,18 +394,33 @@ def test_plans_and_the_shapes_without_one_raise():
     assert macaron_plan(torch.float32, 80, 65, 192, 3, 768)[0] == 0
     for dt in (torch.bfloat16, torch.float32):
         assert macaron_bwd_plan(dt, 80, 65, 192, 3, 768) is not None
-        # 144 tokens, or heads of 8 channels, have no plan
+        for bwd in (False, True):
+            assert macaron_route(dt, 80, 65, 192, 3, 768, bwd) == "cta"
+            # 144 tokens have no one-CTA plan: they take the tiled route
+            assert macaron_route(dt, 144, 130, 192, 3, 768, bwd) == "tiled"
         assert macaron_plan(dt, 144, 130, 192, 3, 768) is None
         assert macaron_bwd_plan(dt, 144, 130, 192, 3, 768) is None
+        # heads of 8 channels have a plan on neither route
         assert macaron_plan(dt, 32, 20, 32, 4, 64) is None
+        with pytest.raises(ValueError, match="256"):
+            macaron_route(dt, 32, 20, 32, 4, 64)
     _, p = jax_vf_tree(15)
     w = port_weights(p)
+    # on the CPU the tiled route's shapes run the plain versions
     x = torch.zeros(1, 144, D)
+    before = dict(launch_counts)
+    assert macaron_eval(x, w, num_heads=H, scaler=1.0,
+                        n_real=140).shape == x.shape
+    assert len(macaron_bwd(x, w, x, num_heads=H, scaler=1.0,
+                           n_real=140)) == 16
+    assert launch_counts == before
+    # past 256 padded tokens neither route has a plan
+    x = torch.zeros(1, 272, D)
     for fn in (lambda: macaron_eval(x, w, num_heads=H, scaler=1.0,
-                                    n_real=140),
+                                    n_real=260),
                lambda: macaron_bwd(x, w, x, num_heads=H, scaler=1.0,
-                                   n_real=140)):
-        with pytest.raises(NotImplementedError, match="one image per CTA"):
+                                   n_real=260)):
+        with pytest.raises(ValueError, match="256"):
             fn()
     with pytest.raises(ValueError, match="padded"):
         macaron_eval(torch.zeros(1, 17, D), w, num_heads=H, scaler=1.0,
