@@ -120,6 +120,18 @@ Phases:
      32 px resized on the card) through the kernels and the plain path;
      each instance alone at B=64; the model served at euler-24 and rk4-7
      and through the engine;
+  27. residual stashing (after phase 21; the stash arms of cells
+     cifar100-vitode-train-b1024-bf16, tsref-distill-b64-bf16 and
+     tsbase-r4-distill-b64-bf16): ``stash_kernels_vs_plain`` (B=4 on the
+     one-CTA, tiled and split routes, bf16 and f32: f(x) bit-identical to
+     the non-stash instances', rqkv, rh1 and the cotangents against the
+     plain stash versions and the resid backward against the recompute
+     backward, repeats, NaN padding, launches), ``stash_train`` (each
+     cell's stash arm through the kernels and the plain path over 3
+     steps; then the stash and recompute arms on the kernels from the same
+     weights, their first steps compared, alternated steps timed, peak
+     memory, one profiled backward each in ``stash_train_profile``) and
+     ``stash_kernel_timing`` (each stash instance at its cell's state);
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
   last, the kernels line (launch counts of the main paths, times, bounds)
@@ -676,16 +688,16 @@ def profile_step(step, state, batch, top: int = 12):
 
 
 def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
-               pre=None, jasmin_k=JASMIN_K):
+               pre=None, jasmin_k=JASMIN_K, stash=False):
     """3 steps through the kernels and through the plain path from the same
     weights and batch (with ``drops``, the model's dropout rates, and the
     same rng; with ``l2``, of the L2-attention model); then one more step
     of each timed by CUDA events around its parts, and one profiled step of
     the kernel path. The model is the CIFAR rk4-13 ViTODE unless
     ``model_fn(rates)`` (rates: the dropout keywords) gives another, fed
-    through ``pre`` (default: the CIFAR preprocess). Returns (runs,
-    profile, first-gradient cosine, loss differences, launches per
-    step)."""
+    through ``pre`` (default: the CIFAR preprocess); ``stash`` is the
+    step's. Returns (runs, profile, first-gradient cosine, loss
+    differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -708,7 +720,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_free_train_step(model, jasmin_k=jasmin_k,
                                          preprocess_fn=pre,
-                                         plain=path == "plain")
+                                         plain=path == "plain", stash=stash)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if path == "kernels":
@@ -732,7 +744,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         ev[0].record()
         loss, _ = fast_free_forward(model, pre(images_u8), labels,
                                     jasmin_k=jasmin_k, step_seeds=seeds,
-                                    plain=path == "plain")
+                                    plain=path == "plain", stash=stash)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -1332,15 +1344,15 @@ def distill_student(drops=None):
 
 
 def distill_runs(teacher, images_u8, labels, drops=None,
-                 student_fn=None, recipe=None):
+                 student_fn=None, recipe=None, stash=False):
     """3 steps through the kernels and through the plain path from the same
     student weights, teacher and batch (with ``drops``, the student's
     dropout rates, and the same rng); then one more step of each split by
     CUDA events into teacher, student forward, backward and optimizer, and
     one profiled step of the kernel path. The student is ``student_fn``'s
     (default the recipe's), the step's settings ``recipe`` (default
-    ``DISTILL_RECIPE``). Returns (runs, profile, first-gradient cosine,
-    loss differences, launches per step)."""
+    ``DISTILL_RECIPE``) and ``stash``. Returns (runs, profile,
+    first-gradient cosine, loss differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1361,7 +1373,8 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         state = create_train_state(model, make_optimizer(1e-4))
         step = make_fast_distill_train_step(model, teacher,
                                             preprocess_fn=pre,
-                                            plain=path == "plain", **recipe)
+                                            plain=path == "plain",
+                                            stash=stash, **recipe)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if path == "kernels":
@@ -1389,7 +1402,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         loss, _ = fast_distill_forward(
             model, x, labels, t_out["hidden_states"][1:],
             t_out["attentions"][-1], supervise=True, step_seeds=seeds,
-            plain=path == "plain", **recipe)
+            plain=path == "plain", stash=stash, **recipe)
         ev[2].record()
         loss.backward()
         ev[3].record()
@@ -2089,6 +2102,484 @@ def phase_distill_r4_kernel_timing(model, images_u8, drops=None):
     emit("distill_r4_dropout_kernel_timing" if drops else
          "distill_r4_kernel_timing", shape=f"B={b} n={n_real}/{n_pad} "
          f"D=768 H=12 dh={dh} bf16", drops=drops, results=out)
+    return out
+
+
+# --- residual stashing: the stash forwards and resid backwards -----------
+
+# (n_real, n_pad, D, heads, dh) of the three routes the stash reaches: one
+# CTA per image (CIFAR), the tiled route (TS-Base, ratio 1), the split
+# backward (ratio 4)
+STASH_SHAPES = {"cifar": (69, 80, 192, 3, 768),
+                "tsbase": (207, 208, 768, 12, 768),
+                "r4": (197, 208, 768, 12, 3072)}
+# the counters one stash forward (plain, JaSMin) and one resid backward
+# add on each route
+STASH_ROUTES = {
+    "cifar": ("vf_eval_stash", "vf_eval_jasmin_stash", {"vf_bwd_resid": 1}),
+    "tsbase": ("vf_eval_stash_tiled", "vf_eval_jasmin_stash_tiled",
+               {"vf_bwd_resid_tiled": 1}),
+    "r4": ("vf_eval_stash_tiled", "vf_eval_jasmin_stash_tiled",
+           {"vf_bwd_split": 1, "vf_bwd_mlp_resid": 1,
+            "vf_bwd_attn_resid": 1})}
+# per step of the stash arms: every plain and JaSMin evaluation stashes and
+# its backward reads the residuals; the final map evaluation (distillation)
+# and its backward do not
+STASH_LAUNCHES = {
+    "cifar100-vitode-train-stash-b1024-bf16": {
+        "vf_eval_stash": 36, "vf_eval_jasmin_stash": 12,
+        "vf_bwd_resid": 48},
+    "tsref-distill-stash-b64-bf16": {
+        "vf_eval_stash_tiled": 5, "vf_eval_jasmin_stash_tiled": 29,
+        "vf_eval_attn": 1, "vf_bwd_resid_tiled": 34, "vf_bwd_tiled": 1},
+    "tsbase-r4-distill-stash-b64-bf16": {
+        "vf_eval_stash_tiled": 5, "vf_eval_jasmin_stash_tiled": 30,
+        "vf_eval_attn": 1, "vf_bwd_split": 36, "vf_bwd_mlp_resid": 35,
+        "vf_bwd_attn_resid": 35, "vf_bwd_mlp": 1, "vf_bwd_attn": 1}}
+STASH_AB_ROUNDS = 3
+
+
+def stash_weights(dtype, d: int, heads: int, dh: int, g):
+    """Random VFWeights at one shape: norms 1 + N(0, 0.1) and N(0, 0.1),
+    matrices N(0, 1 / fan_in)."""
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import VFWeights
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    mat = lambda i, o: (r(i, o) * i ** -0.5).to(dtype).contiguous()
+    return VFWeights(1 + 0.1 * r(d), 0.1 * r(d), 1 + 0.1 * r(d), 0.1 * r(d),
+                     mat(d, 3 * d), mat(d, d), mat(d, dh), mat(dh, d))
+
+
+def resid_rows(resid, b: int, n_pad: int, n_real: int):
+    """The stash residuals' rows of real tokens, [B, n_real, width]."""
+    return tuple(t.reshape(b, n_pad, -1)[:, :n_real] for t in resid)
+
+
+def phase_stash_kernels_vs_plain():
+    """The stash instances at B=4 on the three routes, bf16 and f32: each
+    stash forward's f(x) bit-identical to the non-stash instance's (the
+    JaSMin mode's statistics and columns too); rqkv, rh1 and f(x) against
+    the plain stash version; the resid backward (± the JaSMin cotangent)
+    against the plain version with the same residuals and against the
+    recompute backward; repeats bit-identical; NaN in the padded rows of
+    x, rqkv and rh1 inert; launches exactly as the route says."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.vector_field import vf_eval, vf_eval_jasmin
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    b = 4
+    g = torch.Generator(device="cuda").manual_seed(13)
+    before = dict(launch_counts)
+    results = []
+    for shape, (n_real, n_pad, d, heads, dh) in STASH_SHAPES.items():
+        fwd_c, jas_c, bwd_c = STASH_ROUTES[shape]
+        for dtype, tol in ((torch.bfloat16, TOL_BF16),
+                           (torch.float32, TOL_F32)):
+            w = stash_weights(dtype, d, heads, dh, g)
+            kw = dict(num_heads=heads, scaler=0.25, n_real=n_real)
+            x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+            x[:, n_real:] = 0
+            gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+            gx[:, n_real:] = 0
+            gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                             device="cuda") * 1e-2
+            gj[..., n_real:] = 0
+            x, gx = x.to(dtype), gx.to(dtype)
+            r = {"shape": f"{shape}: B={b} n={n_real}/{n_pad} D={d} "
+                 f"H={heads} dh={dh}", "dtype": str(dtype), "tol": tol}
+            counts = dict(launch_counts)
+            dx, resid = vf_eval(x, w, stash=True, **kw)
+            jdx, st, idx, jresid = vf_eval_jasmin(x, w, jas_k=DISTILL_K,
+                                                  stash=True, **kw)
+            torch.cuda.synchronize()
+            routed = {k: v - counts[k] for k, v in launch_counts.items()
+                      if v != counts[k]}
+            check(routed == {fwd_c: 1, jas_c: 1},
+                  f"stash forwards {shape} {dtype}: {routed}")
+            ref = vf_eval(x, w, **kw)
+            jref = vf_eval_jasmin(x, w, jas_k=DISTILL_K, **kw)
+            pdx, presid = vf_eval(x, w, stash=True, plain=True, **kw)
+            torch.cuda.synchronize()
+            r["dx_bit_identical"] = (torch.equal(dx, ref)
+                                     and torch.equal(jdx, jref[0])
+                                     and torch.equal(st, jref[1])
+                                     and torch.equal(idx, jref[2]))
+            check(r["dx_bit_identical"], f"stash forward {shape} {dtype}: "
+                  f"f(x) differs from the non-stash instance's")
+            r["fwd"] = {"dx": rel_err(dx[:, :n_real], pdx[:, :n_real])}
+            for mode, res in (("plain", resid), ("jasmin", jresid)):
+                for name, a, p_ in zip(("rqkv", "rh1"),
+                                       resid_rows(res, b, n_pad, n_real),
+                                       resid_rows(presid, b, n_pad, n_real)):
+                    r["fwd"][f"{mode}_{name}"] = rel_err(a, p_)
+            check(max(r["fwd"].values()) <= tol,
+                  f"stash forward {shape} {dtype}: {r['fwd']}")
+            rq, rh = resid
+            for case, extra in (("g", {}),
+                                ("g_jas", dict(g_jas=gj, jas_idx=idx))):
+                counts = dict(launch_counts)
+                got = vf_bwd(x, w, gx, resid_qkv=rq, resid_h1=rh, **kw,
+                             **extra)
+                again = vf_bwd(x, w, gx, resid_qkv=rq, resid_h1=rh, **kw,
+                               **extra)
+                torch.cuda.synchronize()
+                routed = {k: v - counts[k] for k, v in launch_counts.items()
+                          if v != counts[k]}
+                check(routed == {k: 2 * v for k, v in bwd_c.items()},
+                      f"resid backward {shape} {dtype} {case}: {routed}")
+                want = vf_bwd(x, w, gx, resid_qkv=rq, resid_h1=rh,
+                              plain=True, **kw, **extra)
+                rec = vf_bwd(x, w, gx, **kw, **extra)
+                torch.cuda.synchronize()
+                cut = lambda nm, a: a[:, :n_real] if nm == "x" else a
+                for key, ref_bars in (("vs_plain", want),
+                                      ("vs_recompute", rec)):
+                    errs = {nm: rel_err(cut(nm, a), cut(nm, c))
+                            for nm, a, c in zip(BWD_NAMES, got, ref_bars)}
+                    r[f"bwd_{case}_{key}"] = errs
+                    check(max(errs.values()) <= tol,
+                          f"resid backward {shape} {dtype} {case} {key}: "
+                          f"{errs}")
+                same = all(torch.equal(a, c) for a, c in zip(got, again))
+                r[f"repeat_bit_identical_{case}"] = same
+                check(same, f"resid backward {shape} {dtype} {case} not "
+                      f"repeatable")
+            # NaN in the padded rows of x, rqkv and rh1, garbage in g's:
+            # the stash forward's real rows and the backward unchanged
+            dirty = x.clone()
+            dirty[:, n_real:] = float("nan")
+            gdirty = gx.clone()
+            gdirty[:, n_real:] = 1e30
+            rdirty = []
+            for t in resid:
+                t = t.clone()
+                t.view(b, n_pad, -1)[:, n_real:] = float("nan")
+                rdirty.append(t)
+            ddx, _ = vf_eval(dirty, w, stash=True, **kw)
+            dbars = vf_bwd(dirty, w, gdirty, g_jas=gj, jas_idx=idx,
+                           resid_qkv=rdirty[0], resid_h1=rdirty[1], **kw)
+            cbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, resid_qkv=rq,
+                           resid_h1=rh, **kw)
+            torch.cuda.synchronize()
+            r["nan_padding_unchanged"] = (
+                torch.equal(ddx[:, :n_real], dx[:, :n_real])
+                and all(torch.equal(a, c) for a, c in zip(dbars, cbars)))
+            check(r["nan_padding_unchanged"],
+                  f"stash {shape} {dtype}: padded rows reached a real row")
+            results.append(r)
+    launch_counts.update(before)           # comparisons do not count
+    emit("stash_kernels_vs_plain", results=results)
+
+
+def backward_profile(loss_fn, top: int = 12):
+    """Device time of one backward by kernel under torch.profiler (the
+    forward, ``loss_fn()``, runs outside it): total, and the largest
+    ``top`` kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    loss = loss_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return {"device_ms": sum(r[1] for r in rows),
+            "top": [{"kernel": k[:80], "ms": ms, "count": c}
+                    for k, ms, c in rows[:top]]}
+
+
+def stash_ab(make_model, make_step, loss_fn, batch, nb: int):
+    """The stash and recompute arms of one cell on the kernels, from the
+    same weights and batch: their first steps compared (loss and
+    gradient), then ``STASH_AB_ROUNDS`` rounds of one step each, the order
+    alternating (recompute, stash, stash, recompute, ...), timed by the
+    host clock after a synchronise; each arm's peak memory over its steps
+    and what its step adds to the memory held before it; one profiled
+    backward of each. ``make_step(model, stash)`` -> step(state, batch);
+    ``loss_fn(model, stash)`` -> the step's loss, for the profile."""
+    import torch
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    arms, first = {}, {}
+    for arm in ("recompute", "stash"):
+        model = make_model()
+        state = create_train_state(model, make_optimizer(1e-4))
+        arms[arm] = {"model": model, "state": state,
+                     "step": make_step(model, arm == "stash"), "ms": [],
+                     "peak_gb": 0.0, "step_gb": 0.0}
+    order = []
+    for i in range(STASH_AB_ROUNDS + 1):
+        pair = ("recompute", "stash") if i % 2 == 0 else ("stash",
+                                                          "recompute")
+        order += pair
+    for i, arm in enumerate(order):
+        a = arms[arm]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        a["state"], met = a["step"](a["state"], batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        a["peak_gb"] = max(a["peak_gb"], peak / 1e9)
+        a["step_gb"] = max(a["step_gb"], (peak - held) / 1e9)
+        if arm not in first:
+            # the first step of each arm: the same weights and batch
+            first[arm] = (met["loss"].item(), grad_vector(a["model"]))
+        else:
+            a["ms"].append(ms)
+    (lr, gr), (ls, gs) = first["recompute"], first["stash"]
+    agreement = {
+        "loss_rel_diff": abs(ls - lr) / abs(lr),
+        "grad_cosine": torch.nn.functional.cosine_similarity(
+            gs, gr, dim=0).item(),
+        "grad_rel_diff": ((gs - gr).abs().max() / gr.abs().max()).item()}
+    out = {"agreement": agreement, "order": order}
+    for arm, a in arms.items():
+        prof = backward_profile(lambda: loss_fn(a["model"], arm == "stash"))
+        out[arm] = {"ms_per_step": a["ms"],
+                    "img_per_s": nb / min(a["ms"]) * 1e3,
+                    "peak_mem_gb": a["peak_gb"], "step_mem_gb": a["step_gb"],
+                    "backward_profile": prof}
+    rec, st = out["recompute"], out["stash"]
+    out["stash_speedup"] = min(rec["ms_per_step"]) / min(st["ms_per_step"])
+    bwd_r = rec["backward_profile"]["device_ms"]
+    bwd_s = st["backward_profile"]["device_ms"]
+    out["backward_device_ms"] = {
+        "recompute": bwd_r, "stash": bwd_s,
+        "recompute_share": (bwd_r - bwd_s) / bwd_r if bwd_r else None}
+    for a in arms.values():
+        a["model"].zero_grad(set_to_none=True)
+    del arms
+    return out
+
+
+def check_stash_ab(name, ab):
+    agree = ab["agreement"]
+    check(agree["loss_rel_diff"] <= TOL_TRAIN_LOSS
+          and agree["grad_cosine"] >= MIN_GRAD_COSINE,
+          f"{name}: stash against recompute {agree}")
+
+
+def phase_stash_train(images_u8, labels, teacher, images_d, labels_d,
+                      images_r4):
+    """The stash arm of three cells: 3 steps through the kernels and the
+    plain path with ``stash=True`` (losses, first gradient, launches),
+    then the A/B against the recompute arm on the kernels
+    (``stash_ab``)."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    from odevit_tpu_torch.train.fast_steps import (
+        fast_distill_forward, fast_free_forward, make_fast_distill_train_step,
+        make_fast_free_train_step)
+    launches = {}
+    cells = list(STASH_LAUNCHES)
+    # CIFAR: the free step, rk4 on 13 points, B=1024
+    pre = make_preprocess(dtype=torch.bfloat16)
+    cifar = lambda: ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
+                           dtype=torch.bfloat16, device="cuda", seed=0)
+    runs, profile, cos, loss_rel, per_step = train_runs(images_u8, labels,
+                                                        stash=True)
+    check_train(cells[0], runs, cos, loss_rel, per_step,
+                STASH_LAUNCHES[cells[0]])
+    ab = stash_ab(
+        cifar, lambda m, s: make_fast_free_train_step(
+            m, jasmin_k=JASMIN_K, preprocess_fn=pre, stash=s),
+        lambda m, s: fast_free_forward(m, pre(images_u8), labels,
+                                       jasmin_k=JASMIN_K, stash=s)[0],
+        {"pixel_values": images_u8, "labels": labels}, BATCH)
+    check_stash_ab(cells[0], ab)
+    report = [(cells[0], runs, profile, cos, loss_rel, per_step, ab)]
+    launches[cells[0]] = runs["kernels"]["launches"]
+    # TS-Base at ratio 1 and 4: the distillation step, B=64
+    pre224 = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    for cell, fn, recipe, imgs in (
+            (cells[1], distill_student, DISTILL_RECIPE, images_d),
+            (cells[2], r4_student, R4_RECIPE, images_r4)):
+        runs, profile, cos, loss_rel, per_step = distill_runs(
+            teacher, imgs, labels_d, student_fn=fn, recipe=recipe,
+            stash=True)
+        check_train(cell, runs, cos, loss_rel, per_step,
+                    STASH_LAUNCHES[cell])
+
+        def loss_fn(m, s, imgs=imgs, recipe=recipe):
+            x = pre224(imgs)
+            with torch.no_grad():
+                t_out = teacher(x)
+            return fast_distill_forward(
+                m, x, labels_d, t_out["hidden_states"][1:],
+                t_out["attentions"][-1], supervise=True, stash=s,
+                **recipe)[0]
+
+        ab = stash_ab(
+            fn, lambda m, s, recipe=recipe: (
+                lambda step: lambda st, bt: step(st, bt, supervise=True))(
+                make_fast_distill_train_step(m, teacher,
+                                             preprocess_fn=pre224, stash=s,
+                                             **recipe)),
+            loss_fn, {"pixel_values": imgs, "labels": labels_d},
+            DISTILL_BATCH)
+        check_stash_ab(cell, ab)
+        report.append((cell, runs, profile, cos, loss_rel, per_step, ab))
+        launches[cell] = runs["kernels"]["launches"]
+    for cell, runs, profile, cos, loss_rel, per_step, ab in report:
+        k, p = runs["kernels"], runs["plain"]
+        emit("stash_train_profile", cell=cell, stash_step=profile,
+             backward_recompute=ab["recompute"]["backward_profile"],
+             backward_stash=ab["stash"]["backward_profile"],
+             backward_device_ms=ab["backward_device_ms"])
+        emit("stash_train", cell=cell, steps=TRAIN_STEPS,
+             img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
+             first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+             loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+             launches_per_step=per_step, peak_mem_gb=k["peak_mem_gb"],
+             split_ms=k["split_ms"],
+             stash_vs_recompute=ab["agreement"],
+             stash_img_per_s=ab["stash"]["img_per_s"],
+             recompute_img_per_s=ab["recompute"]["img_per_s"],
+             stash_speedup=ab["stash_speedup"],
+             stash_peak_mem_gb=ab["stash"]["peak_mem_gb"],
+             recompute_peak_mem_gb=ab["recompute"]["peak_mem_gb"],
+             stash_step_mem_gb=ab["stash"]["step_mem_gb"],
+             recompute_step_mem_gb=ab["recompute"]["step_mem_gb"],
+             ab_ms={arm: ab[arm]["ms_per_step"]
+                    for arm in ("recompute", "stash")}, ab_order=ab["order"],
+             results=runs)
+    return launches
+
+
+def _bound(flops: float, nbytes: float):
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def stash_bounds(b: int, n_real: int, d: int, dh: int, heads: int,
+                 itemsize: int, kk: int):
+    """(bound_ms, bound_by) of each stash instance: the operations and
+    bytes of its non-stash counterpart (``vf_bound``, ``jasmin_bound``,
+    ``bwd_bound``, ``mlp_bwd_bound``, ``attn_bwd_bound``), the resid
+    backwards less the products they skip (2 n D (3D + dh) an image: qkv
+    and h1; each half its own), every one plus the residual bytes of the
+    real rows it writes or reads."""
+    rows = b * n_real
+    weights = 4 * d * d + 2 * d * dh
+    fwd = b * (n_real * (8 * d * d + 4 * d * dh) + 4 * n_real * n_real * d)
+    fwd_bytes = (2 * rows * d + weights) * itemsize + 16 * d
+    stats = b * heads * n_real * (5 + 4) * 4
+    bwd = b * (n_real * (10 * d * dh + 22 * d * d)
+               + 12 * n_real * n_real * d)
+    bwd_bytes = (3 * rows * d + weights) * itemsize + (weights + 4 * d) * 4
+    mlp = 10 * rows * d * dh
+    mlp_bytes = ((2 * rows * d + 2 * d * dh) * itemsize
+                 + (rows * d + 2 * d * dh + 2 * d) * 4)
+    attn = b * (22 * n_real * d * d + 12 * n_real * n_real * d)
+    attn_bytes = ((3 * rows * d + 4 * d * d) * itemsize
+                  + (rows * d + 4 * d * d + 2 * d) * 4 + stats)
+    rq, rh = rows * 3 * d * itemsize, rows * dh * itemsize
+    return {
+        "fwd": _bound(fwd, fwd_bytes + rq + rh),
+        "jasmin": _bound(fwd + b * heads * n_real * n_real * kk,
+                         fwd_bytes + stats + rq + rh),
+        "bwd": _bound(bwd - rows * (6 * d * d + 2 * d * dh),
+                      bwd_bytes + stats + rq + rh),
+        "mlp": _bound(mlp - 2 * rows * d * dh, mlp_bytes + rh),
+        "attn": _bound(attn - 6 * rows * d * d, attn_bytes + rq)}
+
+
+def first_state(model, images_u8, image_size=None):
+    """The padded tokens of a batch (the first state of the path), the
+    weights and the evaluation's keywords, bf16."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels.vector_field import pad_tokens
+    tokens = model.patch_embed(make_preprocess(
+        image_size=image_size, dtype=torch.bfloat16)(images_u8))
+    n_real = tokens.shape[1]
+    x = torch.nn.functional.pad(
+        tokens, (0, 0, 0, pad_tokens(n_real) - n_real)).contiguous()
+    kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler,
+              n_real=n_real)
+    return x, model.vf.kernel_weights(torch.bfloat16), kw
+
+
+def phase_stash_kernel_timing(images_u8, images_d, images_r4):
+    """Each stash instance alone on its cell's first state, against its
+    plain version: the one-CTA forwards and resid backward at B=1024 on
+    the CIFAR shape, the tiled ones at B=64 on the TS-Base student's, the
+    split halves' resid instances at B=64 on the ratio-4 student's."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    from odevit_tpu_torch.kernels.vector_field import vf_eval, vf_eval_jasmin
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import (vf_bwd_attn,
+                                                                 vf_bwd_mlp)
+    before = dict(launch_counts)
+    flat = lambda out: (*out[:-1], *out[-1])
+    out, shapes = {}, {}
+    cases = (("", lambda: ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
+                                 dtype=torch.bfloat16, device="cuda",
+                                 seed=0), images_u8, None, JASMIN_K),
+             ("_tiled", distill_student, images_d, 224, DISTILL_K),
+             ("_r4", r4_student, images_r4, 224, DISTILL_K))
+    for sfx, make, imgs, size, k in cases:
+        model = make()
+        with torch.no_grad():
+            x, w, kw = first_state(model, imgs, size)
+            b, n_pad, d = x.shape
+            n_real, heads, dh = kw["n_real"], kw["num_heads"], w.w1.shape[1]
+            g = torch.Generator(device="cuda").manual_seed(14)
+            gx = (torch.randn(x.shape, generator=g, device="cuda")
+                  * 1e-3).to(torch.bfloat16)
+            _, _, idx, (rq, rh) = vf_eval_jasmin(x, w, jas_k=k, stash=True,
+                                                 **kw)
+            gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                             device="cuda") * 1e-3
+            gj[..., n_real:] = 0
+            bounds = stash_bounds(b, n_real, d, dh, heads, 2, k + 1)
+            res = dict(resid_qkv=rq, resid_h1=rh)
+            shapes[sfx or "_cta"] = (f"B={b} n={n_real}/{n_pad} D={d} "
+                                     f"H={heads} dh={dh} bf16")
+            if sfx == "_r4":
+                mkw = dict(scaler=kw["scaler"], n_real=n_real)
+                xbar_m = vf_bwd_mlp(x, w, gx, resid_h1=rh, **mkw)[0]
+                jobs = {
+                    "vf_bwd_mlp_resid": (
+                        lambda pl: vf_bwd_mlp(x, w, gx, resid_h1=rh,
+                                              plain=pl, **mkw),
+                        bounds["mlp"], 0),
+                    "vf_bwd_attn_resid": (
+                        lambda pl: vf_bwd_attn(x, w, gx, xbar_m, g_jas=gj,
+                                               jas_idx=idx, resid_qkv=rq,
+                                               plain=pl, **kw),
+                        bounds["attn"], 0)}
+            else:
+                jobs = {
+                    "vf_eval_stash" + sfx: (
+                        lambda pl: flat(vf_eval(x, w, stash=True, plain=pl,
+                                                **kw)),
+                        bounds["fwd"], 0),
+                    "vf_eval_jasmin_stash" + sfx: (
+                        lambda pl: flat(vf_eval_jasmin(
+                            x, w, jas_k=k, stash=True, plain=pl, **kw)),
+                        bounds["jasmin"], 0),
+                    "vf_bwd_resid" + sfx: (
+                        lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx,
+                                          plain=pl, **res, **kw),
+                        bounds["bwd"], 0)}
+            out.update(time_jobs(jobs, n_real))
+        del model
+    launch_counts.update(before)           # comparisons do not count
+    emit("stash_kernel_timing", shapes=shapes, results=out)
     return out
 
 
@@ -3763,7 +4254,14 @@ def main() -> int:
                                            DROP_RATES, r4_runs)
     r4_drop_timing = phase_distill_r4_kernel_timing(r4, images_r4,
                                                     DROP_RATES)
-    del teacher, student, r4
+    # residual stashing on the three routes: the stash arms of the CIFAR
+    # free step and of both TS-Base distillation steps
+    del student, r4
+    phase_stash_kernels_vs_plain()
+    stash_launches = phase_stash_train(images, labels, teacher, images_d,
+                                       labels_d, images_r4)
+    stash_timing = phase_stash_kernel_timing(images, images_d, images_r4)
+    del teacher
     # L2 attention past one CTA: the TS-Base student with l2_attention,
     # trained (32 px resized on the card) and served (224 px)
     phase_l2_kernels_vs_plain(tsbase=True)
@@ -3944,12 +4442,42 @@ def main() -> int:
         **{k: v for k, v in ddrop_timing["vf_eval_masks"].items()
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "bound_unit", "library_ms")}})
+    stash_cells = list(STASH_LAUNCHES)
+    for name, source, replaces, cell in (
+            ("vf_eval_stash", "vector_field.cu", "vector_field.py:196", 0),
+            ("vf_eval_jasmin_stash", "vector_field.cu",
+             "vector_field.py:196", 0),
+            ("vf_bwd_resid", "vector_field_bwd.cu", "vector_field_bwd.py:117",
+             0),
+            ("vf_eval_stash_tiled", "vector_field_tiled.cu",
+             "vector_field.py:196", 1),
+            ("vf_eval_jasmin_stash_tiled", "vector_field_tiled.cu",
+             "vector_field.py:196", 1),
+            ("vf_bwd_resid_tiled", "vector_field_tiled.cu",
+             "vector_field_bwd.py:117", 1),
+            ("vf_bwd_mlp_resid", "vector_field_bwd_split.cu",
+             "vector_field_bwd.py:350", 2),
+            ("vf_bwd_attn_resid", "vector_field_bwd_split.cu",
+             "vector_field_bwd.py:432", 2)):
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"odevit_tpu_torch/csrc/{source}",
+            "replaces": f"odevit_tpu/kernels/{replaces}",
+            # the stash arm's 3 steps of its cell (stash_train)
+            "launches": stash_launches[stash_cells[cell]][name],
+            **{k: v for k, v in stash_timing[name].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
+        if name.startswith("vf_eval") and cell == 1:
+            # the ratio-4 cell's stash forwards, timed at its state
+            entry["launches_r4"] = stash_launches[stash_cells[2]][name]
+        kernels.append(entry)
     for entry in kernels:
         # the map route's launches (3 steps each, ± dropout) beside the
         # distillation cells'
         if entry["name"] in map_launches:
             entry["launches_map_route"] = map_launches[entry["name"]]
-    check(len(kernels) == 33, f"{len(kernels)} kernels in the line")
+    check(len(kernels) == 41, f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 //
 // Replaces the TPU kernel odevit_tpu/kernels/vector_field.py::_vf_kernel
 // (its plain, Euler, stage-advance and JaSMin-statistics modes, the
-// dropout of the plain and JaSMin modes, and the L2+bias mode of the plain
-// and JaSMin modes), and, as the instance kChain, _vf_euler_chain_kernel
-// (`chain` Euler steps per launch), on Hopper (sm_90a).
+// dropout of the plain and JaSMin modes, the L2+bias mode of the plain
+// and JaSMin modes, and the residual stash of the plain and JaSMin modes),
+// and, as the instance kChain, _vf_euler_chain_kernel (`chain` Euler steps
+// per launch), on Hopper (sm_90a).
 //
 //   f(x)  = (MLP(CN_m x) + Attn(CN_a x)) * scaler
 //   plain : out = f(x)
@@ -41,6 +42,19 @@
 // leaves shared memory; the passes run on registers (four columns per
 // lane), so the mode needs no more shared memory than the plain one. The
 // backward scatters the statistics' cotangents onto the saved columns.
+//
+// Residual stash (instance kStash, the TPU kernel's emit_resid, :205,
+// :242-244, :266-270; plain and JaSMin modes, softmax, no dropout): the
+// evaluation also writes the two products the backward would recompute,
+// in the compute dtype and JAX's padded row layout: rqkv [B * n_pad, 3D],
+// the qkv the heads are sliced from (rounded after the product, exactly
+// what a recompute rounds; the padded value rows as the product gives
+// them, not zeroed), and rh1 [B * n_pad, dh], the pre-GELU hidden
+// round(cn_m W1) of each dh chunk, stored from the f32 stage before the
+// GELU reads it. f(x) is the non-stash instance's, bit for bit: the stores
+// read values the evaluation computes anyway. They add 2 (3D + dh) bytes
+// per row to the state's traffic (220 MB at B=1024 on the CIFAR shape in
+// bf16, 66 us at 3.35 TB/s), below the products' bound.
 //
 // Bound. At the serving shape (B=1024, 69 real tokens padded to 80,
 // D=192, 3 heads, dh=768) one evaluation needs about 64.7 MFLOP per
@@ -320,21 +334,22 @@ __device__ void sq_rows(const T* a, int lda, int n, int w, float* out) {
 
 // dst[r, c] = round(scale * src[r, c] (+ bias[c])) for an [n, w] block;
 // rows >= zero_from are written as 0. One warp per row. With `dst2`
-// (global, row stride ld2) the same values are stored there as well.
+// (global, row stride ld2) the same values are stored there as well, or,
+// with zero_dst2 false, the values before the zeroing of rows >= zero_from.
 template <typename T>
 __device__ void round_block(const float* src, int lds, T* dst, int ldd, int n,
                             int w, int zero_from, float scale = 1.0f,
                             T* dst2 = nullptr, int ld2 = 0,
-                            const float* bias = nullptr) {
+                            const float* bias = nullptr,
+                            bool zero_dst2 = true) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < n; r += kWarps)
     for (int c = lane; c < w; c += 32) {
       const float f = src[r * lds + c] * scale;
-      const T v = r >= zero_from ? from_f<T>(0.0f)
-                  : bias != nullptr ? from_f<T>(f + bias[c])
-                                    : from_f<T>(f);
+      const T full = bias != nullptr ? from_f<T>(f + bias[c]) : from_f<T>(f);
+      const T v = r >= zero_from ? from_f<T>(0.0f) : full;
       if (dst != nullptr) dst[r * ldd + c] = v;
-      if (dst2 != nullptr) dst2[(size_t)r * ld2 + c] = v;
+      if (dst2 != nullptr) dst2[(size_t)r * ld2 + c] = zero_dst2 ? v : full;
     }
 }
 
@@ -535,8 +550,10 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
 
 // kJas: the JaSMin-statistics mode; kDrop: dropout; kChain: `chain` Euler
 // steps in one launch (the TPU's _vf_euler_chain_kernel); kL2: L2
-// attention with biases (plain and JaSMin modes, no dropout). Each is
-// compiled apart so that the other modes keep their registers.
+// attention with biases (plain and JaSMin modes, no dropout); kStash: the
+// residual stash (plain and JaSMin modes, softmax, no dropout: rqkv and
+// rh1, see the top of the file). Each is compiled apart so that the other
+// modes keep their registers.
 //
 // Chain (kChain, mode 1): the CTA runs the whole evaluation `chain` times
 // on its image. Each step's epilogue writes round(x + coef f(x)) to the
@@ -558,7 +575,7 @@ __device__ void jas_stats_rows(const T* p, int ldp, int n, int n_real,
 // mask_ao; the f32 difference is rounding. attn_o's keep bits are drawn
 // once, before the heads, into shared memory.
 template <typename T, bool kJas, bool kDrop, bool kChain = false,
-          bool kL2 = false>
+          bool kL2 = false, bool kStash = false>
 __global__ void __launch_bounds__(kThreads)
 vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           T* out, float* acc_global,  // may alias (f32: acc is out), not
@@ -571,7 +588,8 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           const float* __restrict__ out_bias,  // kL2: [D], else null
           float* __restrict__ jas, int* __restrict__ jas_idx, int jas_kk,
           Shape s, float scaler, float coef, float qk_scale, int mode,
-          Drop drop, float* __restrict__ ao_global, int chain) {
+          Drop drop, float* __restrict__ ao_global, int chain,
+          T* __restrict__ rqkv, T* __restrict__ rh1) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Plan pl = make_plan(s, sizeof(T));
   T* cn = reinterpret_cast<T*>(smem + pl.cn);
@@ -590,6 +608,9 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
   const unsigned b = blockIdx.x;
   const size_t img = (size_t)blockIdx.x * n * d;
   T* oi = out + img;
+  // kStash: this image's rows of rqkv [n, 3D] and rh1 [n, dh]
+  T* rqkv_i = kStash ? rqkv + (size_t)blockIdx.x * n * 3 * d : nullptr;
+  T* rh1_i = kStash ? rh1 + (size_t)blockIdx.x * n * s.dh : nullptr;
   float* acc = sizeof(T) == 2 ? reinterpret_cast<float*>(smem + pl.acc)
                               : acc_global + img;
 
@@ -619,9 +640,12 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
           }
       } else {
         for (int r = warp; r < n; r += kWarps)
-          for (int c = lane; c < hc; c += 32)
-            hbuf[r * pl.ld_h + c] =
-                from_f<T>(gelu(stage[r * pl.ld_stage + c]));
+          for (int c = lane; c < hc; c += 32) {
+            const float h1 = stage[r * pl.ld_stage + c];
+            // kStash: the pre-GELU hidden, rounded to the compute dtype
+            if (kStash) rh1_i[(size_t)r * s.dh + c0 + c] = from_f<T>(h1);
+            hbuf[r * pl.ld_h + c] = from_f<T>(gelu(h1));
+          }
       }
       __syncthreads();
       mm<false, false>(hbuf, pl.ld_h, w2 + (size_t)c0 * d, d, acc, pl.ld_acc,
@@ -660,10 +684,12 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
         mm<false, false>(cn, pl.ld_cn, wqkv + h * hd, 3 * d, stage,
                          pl.ld_stage, false, n, 3 * hd, d, hd / 16, d);
         __syncthreads();
+        // kStash: the same rounded q, k and v to rqkv (value rows unzeroed)
         for (int j = 0; j < 3; ++j)
           round_block(stage + j * hd, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                      j == 2 ? s.n_real : n, 1.0f, (T*)nullptr, 0,
-                      kL2 ? qkv_bias + j * d + h * hd : nullptr);
+                      j == 2 ? s.n_real : n, 1.0f,
+                      kStash ? rqkv_i + j * d + h * hd : nullptr, 3 * d,
+                      kL2 ? qkv_bias + j * d + h * hd : nullptr, false);
         __syncthreads();
       } else {
         for (int j = 0; j < 3; ++j) {
@@ -671,8 +697,9 @@ vf_kernel(const T* __restrict__ x, const T* __restrict__ base,
                            pl.ld_stage, false, n, hd, d);
           __syncthreads();
           round_block(stage, pl.ld_stage, dst[j], pl.ld_qkv, n, hd,
-                      j == 2 ? s.n_real : n, 1.0f, (T*)nullptr, 0,
-                      kL2 ? qkv_bias + j * d + h * hd : nullptr);
+                      j == 2 ? s.n_real : n, 1.0f,
+                      kStash ? rqkv_i + j * d + h * hd : nullptr, 3 * d,
+                      kL2 ? qkv_bias + j * d + h * hd : nullptr, false);
           __syncthreads();
         }
       }
@@ -777,8 +804,12 @@ int launch(const void* x, const void* base, void* out, void* acc,
            const float* outb, void* jas, void* jas_idx, int jas_kk,
            int batch, int smem, Shape s, float scaler, float coef,
            float qk_scale, int mode, const Drop& drop, void* ao, int chain,
-           cudaStream_t st) {
-  auto kernel = chain > 1    ? vf_kernel<T, false, false, true>
+           void* rqkv, void* rh1, cudaStream_t st) {
+  auto kernel = rqkv != nullptr
+                    ? (jas_kk > 0 ? vf_kernel<T, true, false, false, false, true>
+                                  : vf_kernel<T, false, false, false, false,
+                                              true>)
+                : chain > 1  ? vf_kernel<T, false, false, true>
                 : s.l2       ? (jas_kk > 0 ? vf_kernel<T, true, false, false,
                                                          true>
                                            : vf_kernel<T, false, false, false,
@@ -794,7 +825,8 @@ int launch(const void* x, const void* base, void* out, void* acc,
       static_cast<const T*>(wqkv), static_cast<const T*>(wout),
       static_cast<const T*>(w1), static_cast<const T*>(w2), qkvb, outb,
       static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk, s,
-      scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao), chain);
+      scaler, coef, qk_scale, mode, drop, static_cast<float*>(ao), chain,
+      static_cast<T*>(rqkv), static_cast<T*>(rh1));
   return (int)cudaGetLastError();
 }
 
@@ -837,7 +869,10 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // `chain` Euler steps in one launch (mode 1, no statistics, no dropout;
 // in f32 `acc` is then a [B * n_pad, D] f32 scratch apart from `out`).
 // Non-null biases (qkvb [3D], outb [D], f32) launch the L2 instance
-// (planned with l2=1): mode 0, no chain, no dropout.
+// (planned with l2=1): mode 0, no chain, no dropout. Non-null rqkv and rh1
+// ([B * n_pad, 3D] and [B * n_pad, dh], x's dtype) launch the stash
+// instance (the deterministic plan): mode 0, softmax, no chain, no
+// dropout.
 int vf_launch(int tbytes, const void* x, const void* base, void* out,
               void* acc, const float* ga, const float* ba, const float* gm,
               const float* bm, const void* wqkv, const void* wout,
@@ -846,13 +881,16 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
               int heads, int dh, int qkv_fused, int hc, int smem,
               float scaler, float coef, float qk_scale, int mode, void* jas,
               void* jas_idx, int jas_kk, const Drop* drop, void* ao,
-              int chain, void* stream) {
+              int chain, void* rqkv, void* rh1, void* stream) {
   if (chain > 1 && (mode != 1 || jas_kk > 0 || drop != nullptr ||
                     (tbytes == 4 && acc == out)))
     return (int)cudaErrorInvalidValue;
   const bool l2 = qkvb != nullptr;
   if (l2 != (outb != nullptr) ||
       (l2 && (mode != 0 || chain > 1 || drop != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if ((rqkv != nullptr) != (rh1 != nullptr) ||
+      (rqkv != nullptr && (mode != 0 || chain > 1 || drop != nullptr || l2)))
     return (int)cudaErrorInvalidValue;
   const Shape s = make_shape(n_pad, n_real, d, heads, dh, hc, qkv_fused,
                              drop != nullptr, l2);
@@ -862,7 +900,7 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
 #define VF_LAUNCH(T, D)                                                    \
   launch<T, D>(x, base, out, acc, ga, ba, gm, bm, wqkv, wout, w1, w2, qkvb, \
                outb, jas, jas_idx, jas_kk, batch, smem, s, scaler, coef,   \
-               qk_scale, mode, dr, ao, chain, st)
+               qk_scale, mode, dr, ao, chain, rqkv, rh1, st)
   if (tbytes == 2)
     return drop != nullptr ? VF_LAUNCH(bf16, true) : VF_LAUNCH(bf16, false);
   return drop != nullptr ? VF_LAUNCH(float, true) : VF_LAUNCH(float, false);

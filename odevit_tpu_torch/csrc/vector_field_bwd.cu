@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel
 // odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (plain, with the
-// JaSMin-statistics cotangent, with dropout, and in its L2+bias mode).
+// JaSMin-statistics cotangent, with dropout, in its L2+bias mode, and with
+// the forward's stashed residuals).
 // Given x, the weights and the dx cotangent g (and optionally the
 // cotangent of the JaSMin statistics with the columns the forward took
 // them from, and the forward's dropout seed and rates), it produces x_bar
@@ -47,6 +48,20 @@
 //
 // Padding. Rows >= n_real of x and g are read as zeros and x_bar's are
 // written as zeros, so nothing a padded row holds reaches a cotangent.
+//
+// Residuals (instance kResid, the TPU kernel's has_resid, :125, :173-188;
+// softmax, no dropout): the forward's stash instance wrote rqkv, the
+// rounded qkv [B * n_pad, 3D], and rh1, the rounded pre-GELU hidden
+// [B * n_pad, dh]. vfb_rows reads each dh chunk of h1 from rh1 instead of
+// the cn_m W1 product, and q, k and v of each head from rqkv instead of
+// the three cn_a Wqkv products: h = round(gelu(f32(rh1))), h1_bar =
+// round(h_bar gelu'(f32(rh1))), as JAX's stash backward takes them. cn_m
+// and cn_a are still computed: the weight products read them. Padded rows
+// of rqkv and rh1 (their q, k, v and h1) are read as zeros, so a NaN there
+// reaches no cotangent. The plan, and so the shared memory, is the
+// deterministic instance's: the residuals stay in device memory. It skips
+// 2 n_pad D (3D + dh) of the recomputed products per image (12 % of the
+// backward's operations at the CIFAR shape) for a read of the residuals.
 //
 // Bound. At the training shape (B=1024, 69 real tokens padded to 80,
 // D=192, 3 heads, dh=768) the backward recomputes the forward's products
@@ -109,6 +124,8 @@ struct Args {
                            // with L2 [W + 8D]: then qkv_bias, out_bias
   const float* qkv_bias;   // L2: [3D] f32, else null (the softmax field)
   const float* out_bias;   // L2: [D] f32, else null
+  const void* rqkv;        // kResid: [B*n_pad, 3D] x's dtype, else null
+  const void* rh1;         // kResid: [B*n_pad, dh] x's dtype, else null
   int batch, n_pad, n_real, d, heads, dh;
   int cn_smem, hc, smem, splits;
   float scaler, qk_scale;
@@ -205,8 +222,9 @@ __device__ void l2_bar(const float* prod, int lds, const T* a, int lda,
 // mask_h) and h_bar * mask_h; p = round(round(p) * mask_p) for ctx and
 // v_bar, p_bar * mask_p before the JaSMin scatter, which with s_bar stays
 // on the pre-dropout p. kL2: L2 attention with biases (see the top of the
-// file), compiled apart as well.
-template <typename T, bool kDrop, bool kL2 = false>
+// file), compiled apart as well, as is kResid: the forward's residuals in
+// place of the qkv and h1 products (see the top of the file).
+template <typename T, bool kDrop, bool kL2 = false, bool kResid = false>
 __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n = args.n_pad, n_real = args.n_real, d = args.d;
@@ -287,8 +305,18 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   float* st2 = reinterpret_cast<float*>(smem + pl.st2_m);
   T* hb = reinterpret_cast<T*>(smem + pl.hb_m);
   for (int c0 = 0; c0 < dh; c0 += hc) {
-    mm<false, false>(cn, pl.ld_cn, w1 + c0, dh, st, pl.ld_st_m, false, n, hc,
-                     d);
+    if (kResid) {
+      // h1 of the chunk from rh1; padded rows read as zeros
+      const T* rh1 = static_cast<const T*>(args.rh1) + row0 * dh + c0;
+      for (int i = threadIdx.x; i < n * hc; i += kThreads) {
+        const int r = i / hc, c = i % hc;
+        st[r * pl.ld_st_m + c] =
+            r < n_real ? to_f(rh1[(size_t)r * dh + c]) : 0.0f;
+      }
+    } else {
+      mm<false, false>(cn, pl.ld_cn, w1 + c0, dh, st, pl.ld_st_m, false, n,
+                       hc, d);
+    }
     mm<false, true>(gd, pl.ld_cn, w2 + (size_t)c0 * d, d, st2, pl.ld_st_m,
                     false, n, hc, d);
     __syncthreads();
@@ -351,7 +379,18 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
   const int ls = pl.ld_st_a, lh = pl.ld_hd;
   for (int hh = 0; hh < heads; ++hh) {
     T* dst[3] = {q, k, v};
-    for (int j = 0; j < 3; ++j) {
+    if (kResid) {
+      // q, k and v of the head from rqkv; padded rows read as zeros
+      const T* rq = static_cast<const T*>(args.rqkv) + row0 * 3 * d + hh * hd;
+      for (int i = threadIdx.x; i < n * hd; i += kThreads) {
+        const int r = i / hd, c = i % hd;
+        for (int j = 0; j < 3; ++j)
+          dst[j][r * lh + c] = r < n_real ? rq[(size_t)r * 3 * d + j * d + c]
+                                          : from_f<T>(0.0f);
+      }
+      __syncthreads();
+    }
+    for (int j = 0; !kResid && j < 3; ++j) {
       mm<false, false>(cn, pl.ld_cn, wqkv + j * d + hh * hd, 3 * d, st, ls,
                        false, n, hd, d);
       __syncthreads();
@@ -682,10 +721,14 @@ template <typename T>
 int launch(const Args& a, cudaStream_t st) {
   const bool drop = a.drop.th_p | a.drop.th_ao | a.drop.th_m;
   const bool l2 = a.qkv_bias != nullptr;
+  const bool resid = a.rqkv != nullptr;
   if (l2 && (drop || a.out_bias == nullptr)) return (int)cudaErrorInvalidValue;
-  auto rows = l2     ? vfb_rows<T, false, true>
-              : drop ? vfb_rows<T, true>
-                     : vfb_rows<T, false>;
+  if (resid != (a.rh1 != nullptr) || (resid && (drop || l2)))
+    return (int)cudaErrorInvalidValue;
+  auto rows = l2      ? vfb_rows<T, false, true>
+              : drop  ? vfb_rows<T, true>
+              : resid ? vfb_rows<T, false, false, true>
+                      : vfb_rows<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return (int)err;
@@ -758,7 +801,8 @@ int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // A nonzero threshold in args->drop launches the dropout instance (planned
 // with drop=1), which also takes the gd2 scratch. Non-null biases launch
 // the L2 instance (planned with l2=1; no dropout), whose `out` and
-// `npart` hold 8D norm and bias entries.
+// `npart` hold 8D norm and bias entries. Non-null rqkv and rh1 launch the
+// kResid instance (the deterministic plan; no dropout, no biases).
 int vfb_launch(int tbytes, const Args* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? launch<bf16>(*args, st) : launch<float>(*args, st);

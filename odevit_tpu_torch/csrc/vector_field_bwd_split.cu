@@ -42,6 +42,17 @@
 // x_bar_m. Nine launches: vft_norm, vft_gemm (qkv, then cb), vft_attn<bwd>,
 // vft_attn_keys, vft_gemm (a_bar), vfs_norm_bwd, vfb_wgrad, vfb_reduce.
 //
+// Residuals (the TPU kernels' has_resid: _mlp_bwd_kernel's rh1, :399-403,
+// and _attn_bwd_kernel's rqkv, :477-478; softmax, no dropout). With
+// TiledArgs::rh1 the MLP half has no h1 product: vfs_hidden<kResid> loads
+// the CTA's 128x128 tile of rh1 into the f32 h1 tile (16-byte loads,
+// padded rows as zeros) where the other instances compute it, then runs
+// the h_bar product and the same epilogue. With TiledArgs::rqkv the
+// attention half skips its qkv product
+// and its attention kernels read rqkv (padded rows of q and k as zeros);
+// cn_a is still computed, for Wqkv_bar. Each half skips 2 R D dh
+// (MLP) or 6 R D^2 (attention) operations for a read of its residual.
+//
 // Dropout, where a half's rates are nonzero (template flag kDrop, runtime
 // TiledArgs::drop): the stream of vector_field.cu (sites H and MLP_OUT in
 // the MLP half, ATTN_OUT and P + head in the attention half), so the bits
@@ -98,7 +109,13 @@ __device__ __forceinline__ void hidden_out(T* h, T* h1b, size_t o, float h1,
 // a: h1 = cn_m W1 (B row-major), its output h and, with dropout, mask_h in
 // its mask fields; b: h_bar = gd W2^T (W2 read as stored, [dh, D]), its
 // output h1_bar. Both [R, dh], K = D. One CTA per 128x128 output tile.
-template <bool kDrop>
+// kResid: h1 is read from a.res (the stash's rh1, [R, dh] bf16, row
+// stride a.ldo), rows m % n_pad >= n_real as zeros; no h1 product.
+__device__ __forceinline__ bool resid_row(const GemmArgs& a, int m) {
+  return m < a.m && m % a.n_pad < a.n_real;
+}
+
+template <bool kDrop, bool kResid = false>
 __global__ void __launch_bounds__(kGThreads)
 vfs_hidden_bf16(GemmArgs a, GemmArgs b) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -110,15 +127,32 @@ vfs_hidden_bf16(GemmArgs a, GemmArgs b) {
   const int wm = warp / 4, wn = warp % 4;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
   Acc c[4][2];
-  vft::gemm_mainloop<false>(a, m0, n0, As, Bs, c);
-  // each warp stages its own 64x32 of h1 and reads back only that
+  if (kResid) {
+    // the tile of rh1, 8 columns a load; the h_bar product's barriers
+    // order these stores before the epilogue reads them
+    const bf16* rh1 = static_cast<const bf16*>(a.res);
+    for (int v = threadIdx.x; v < kBM * (kBN / 8); v += kGThreads) {
+      const int rr = v / (kBN / 8), c8 = (v % (kBN / 8)) * 8;
+      const int m = m0 + rr, n = n0 + c8;
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (resid_row(a, m) && n < a.n)
+        raw = *reinterpret_cast<const uint4*>(rh1 + (size_t)m * a.ldo + n);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+      for (int q = 0; q < 8; ++q)
+        h1s[rr * kLdH + c8 + q] = __bfloat162float(e[q]);
+    }
+  } else {
+    vft::gemm_mainloop<false>(a, m0, n0, As, Bs, c);
+    // each warp stages its own 64x32 of h1 and reads back only that
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(h1s + (wm * 64 + i * 16) * kLdH + wn * 32 +
-                                  j * 16,
-                              c[i][j], kLdH, wmma::mem_row_major);
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::store_matrix_sync(h1s + (wm * 64 + i * 16) * kLdH + wn * 32 +
+                                    j * 16,
+                                c[i][j], kLdH, wmma::mem_row_major);
+  }
   vft::gemm_mainloop<true>(b, m0, n0, As, Bs, c);
 
   float* sc = ep + warp * 16 * kLdE;
@@ -163,8 +197,8 @@ vfs_hidden_bf16(GemmArgs a, GemmArgs b) {
 // The f32 instance on the CUDA cores: a 64x64 tile of both products per
 // CTA, 4x4 outputs of each a thread, K in steps of 16 through shared
 // memory; its dropout draws one Philox call per element (it exists for
-// checks).
-template <bool kDrop>
+// checks). kResid: h1 read from a.res per element, no h1 product.
+template <bool kDrop, bool kResid = false>
 __global__ void __launch_bounds__(kGThreads)
 vfs_hidden_f32(GemmArgs a, GemmArgs b) {
   __shared__ float Cs[16][65], W1s[16][65], Gs[16][65], W2s[16][65];
@@ -196,7 +230,9 @@ vfs_hidden_f32(GemmArgs a, GemmArgs b) {
     for (int kk = 0; kk < 16; ++kk)
       for (int i = 0; i < 4; ++i)
         for (int j = 0; j < 4; ++j) {
-          h1[i][j] = fmaf(Cs[kk][ty + 16 * i], W1s[kk][tx + 16 * j], h1[i][j]);
+          if (!kResid)
+            h1[i][j] = fmaf(Cs[kk][ty + 16 * i], W1s[kk][tx + 16 * j],
+                            h1[i][j]);
           hb[i][j] = fmaf(Gs[kk][ty + 16 * i], W2s[kk][tx + 16 * j], hb[i][j]);
         }
     __syncthreads();
@@ -209,8 +245,11 @@ vfs_hidden_f32(GemmArgs a, GemmArgs b) {
       if (m >= a.m || n >= a.n) continue;
       float keep[4] = {1.0f, 1.0f, 1.0f, 1.0f};
       if (kDrop) vft::gemm_keep4(a, 0, m, n >> 2, keep);
-      hidden_out<float, kDrop>(h, h1b, (size_t)m * a.ldo + n, h1[i][j],
-                               hb[i][j], keep[n & 3]);
+      const size_t o = (size_t)m * a.ldo + n;
+      const float h1v = !kResid          ? h1[i][j]
+                        : resid_row(a, m) ? static_cast<const float*>(a.res)[o]
+                                          : 0.0f;
+      hidden_out<float, kDrop>(h, h1b, o, h1v, hb[i][j], keep[n & 3]);
     }
 }
 
@@ -261,10 +300,10 @@ vfs_norm_bwd(const float* __restrict__ bar, const T* __restrict__ x,
     if (e_ != 0) return e_;       \
   } while (0)
 
-template <typename T, bool kDrop>
+template <typename T, bool kDrop, bool kResid = false>
 int hidden(GemmArgs a, GemmArgs b, cudaStream_t st) {
   if (sizeof(T) == 2) {
-    auto kernel = vfs_hidden_bf16<kDrop>;
+    auto kernel = vfs_hidden_bf16<kDrop, kResid>;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)kHiddenSmem);
@@ -273,7 +312,7 @@ int hidden(GemmArgs a, GemmArgs b, cudaStream_t st) {
     kernel<<<grid, kGThreads, kHiddenSmem, st>>>(a, b);
   } else {
     const dim3 grid((a.n + 63) / 64, (a.m + 63) / 64);
-    vfs_hidden_f32<kDrop><<<grid, kGThreads, 0, st>>>(a, b);
+    vfs_hidden_f32<kDrop, kResid><<<grid, kGThreads, 0, st>>>(a, b);
   }
   return (int)cudaGetLastError();
 }
@@ -295,14 +334,24 @@ template <typename T>
 int mlp(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
   const bool drop = t.drop.th_m != 0;
+  if (drop && t.rh1 != nullptr) return (int)cudaErrorInvalidValue;
   VFS_CHECK((drop ? vft::norm<T, true>(t, true, st)
                   : vft::norm<T, false>(t, true, st)));
   GemmArgs a = vft::gemm_args(t.cnm, d, t.w1, dh, d, R, dh, vft::kGelu, t.h,
                               dh);
   GemmArgs b = vft::gemm_args(t.gd, d, t.w2, d, d, R, dh, vft::kGeluGrad,
                               t.h1b, dh);
-  if (drop) vft::gemm_mask(a, 0, t, vf::kSiteH);
-  VFS_CHECK((drop ? hidden<T, true>(a, b, st) : hidden<T, false>(a, b, st)));
+  if (t.rh1 != nullptr) {
+    // h1 from the stash's rh1 in place of the cn_m W1 product
+    a.res = t.rh1;
+    a.n_pad = t.n_pad;
+    a.n_real = t.n_real;
+    VFS_CHECK((hidden<T, false, true>(a, b, st)));
+  } else {
+    if (drop) vft::gemm_mask(a, 0, t, vf::kSiteH);
+    VFS_CHECK((drop ? hidden<T, true>(a, b, st)
+                    : hidden<T, false>(a, b, st)));
+  }
   // m_bar = h1_bar W1^T (f32)
   GemmArgs mb = vft::gemm_args(t.h1b, dh, t.w1, dh, dh, R, d, vft::kF32,
                                nullptr, d);
@@ -324,14 +373,17 @@ template <typename T>
 int attn(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, hd = d / t.heads;
   const bool drop = (t.drop.th_p | t.drop.th_ao) != 0;
+  if (drop && t.rqkv != nullptr) return (int)cudaErrorInvalidValue;
   // with dropout, gd2 = round(g scaler mask_ao) is the branch's operand
   const void* gda = drop ? t.gd2 : t.gd;
   VFS_CHECK((drop ? vft::norm<T, true>(t, true, st)
                   : vft::norm<T, false>(t, true, st)));
-  VFS_CHECK((vft::gemm<T, false>(
-      vft::gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, vft::kRound,
-                     t.qkv, 3 * d),
-      st)));
+  // with rqkv, the attention kernels read it instead (vft::attn_args)
+  if (t.rqkv == nullptr)
+    VFS_CHECK((vft::gemm<T, false>(
+        vft::gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, vft::kRound,
+                       t.qkv, 3 * d),
+        st)));
   VFS_CHECK((vft::gemm<T, true>(
       vft::gemm_args(gda, d, t.wout, d, d, R, d, vft::kRound, t.cb, d), st)));
   VFS_CHECK((drop ? vft::attn<T, true, true>(t, st)
@@ -362,7 +414,8 @@ int attn(const TiledArgs& t, cudaStream_t st) {
 extern "C" {
 
 // The MLP half on `stream`; returns the first cudaGetLastError() that is
-// not 0, else 0. A nonzero th_m in args->drop runs the dropout instances.
+// not 0, else 0. A nonzero th_m in args->drop runs the dropout instances;
+// a non-null args->rh1 reads the stashed pre-GELU hidden (no dropout).
 int vfs_mlp(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vfs::mlp<vf::bf16>(*args, st)
@@ -370,7 +423,8 @@ int vfs_mlp(int tbytes, const TiledArgs* args, void* stream) {
 }
 
 // The attention half on `stream` (args->mt from vft_plan, planned with
-// drop=1 when th_p or th_ao is nonzero); returns as vfs_mlp.
+// drop=1 when th_p or th_ao is nonzero); returns as vfs_mlp. A non-null
+// args->rqkv reads the stashed qkv (no dropout).
 int vfs_attn(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vfs::attn<vf::bf16>(*args, st)

@@ -3,9 +3,10 @@
 //
 // Replaces the TPU kernels odevit_tpu/kernels/vector_field.py::_vf_kernel
 // (plain, Euler, stage-advance, JaSMin-statistics and attention-map modes,
-// L2+bias, emit_masks) and
+// L2+bias, emit_masks, emit_resid) and
 // odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (with the JaSMin
-// cotangent and the attention-map cotangent; L2+bias) at shapes such as TS-Base
+// cotangent and the attention-map cotangent; L2+bias; the stashed
+// residuals) at shapes such as TS-Base
 // (224 px, patch 16: 207 tokens padded to 208, D=768, 12 heads, dh=768),
 // where one image's activations (320 KB for one bf16 [208, 768] tensor)
 // exceed the 227 KB of shared memory that vector_field.cu and
@@ -109,6 +110,20 @@
 // cotangents are per-image column sums of [q_bar k_bar v_bar] and of gd
 // (vft_norm_bwd) in the fixed-order reduce, so repeats stay
 // bit-identical.
+//
+// Residual stash (the TPU kernels' emit_resid and has_resid; softmax, no
+// dropout). Forward: the qkv scratch is already round(cn_a Wqkv) of every
+// row, so the caller keeps it as rqkv (a buffer of its own for each
+// evaluation); the kGelu epilogue also writes rh1 = round(h1), the
+// pre-GELU hidden, in the compute dtype (TiledArgs::rh1). Backward with
+// rqkv and rh1: the qkv and h1 products are skipped, and with them the f32
+// h1 scratch (164 MB at TS-Base ratio 1 and B=64). The kGeluGradResid
+// epilogue of the h_bar product reads rh1 and writes both h1_bar =
+// round(h_bar gelu'(h1)) and h = round(gelu(h1)), the operand of W2_bar:
+// folded there rather than in a pass of its own, rh1 is read once and no
+// launch is added. The attention kernels read q, k and v from rqkv, with
+// padded rows of q and k (as of v, always) read as zeros, and so does the
+// epilogue with padded rows of rh1: a NaN there reaches no cotangent.
 //
 // macaron_tiled.cu runs the Macaron field on these products and attention
 // kernels: kGelu adds a bias (b1) before the GELU, kMacResid writes the
@@ -258,7 +273,11 @@ enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4,
                 // = v + bias in f32: kMacResid writes fout = f and out32 =
                 // aux + alpha rs f; kMacOut writes round(scale x3), or
                 // round(res + dt (scale x3)), x3 = aux + alpha rs f
-                kMacResid = 9, kMacOut = 10 };
+                kMacResid = 9, kMacOut = 10,
+                // the stash backward: h1 = f32(res) (rh1, x's dtype, ldo; 0
+                // on padded rows), out = round(v gelu'(h1)), out2 =
+                // round(gelu(h1))
+                kGeluGradResid = 11 };
 
 // C[m, n] = sum over pairs of A_p[m, :] B_p[:, n]; A row-major (lda), B
 // row-major [K, N] (ldb) or, with BT, stored transposed [N, K]. M and N
@@ -274,15 +293,18 @@ struct GemmArgs {
   int ldo;
   float* out32;      // f32 (kGelu: the pre-GELU value, optional; kF32)
   int ld32;
+  void* out2;        // x's dtype, ldo (kGelu: round(h1), the stash's rh1,
+                     // optional; kGeluGradResid: h)
   const float* aux;  // kGeluGrad: the pre-GELU value h1; kOutDrop: attn_o
   int ldaux;
   float scale;
-  const void* res;   // kAdvance: x or the stage base, x's dtype, ldo
+  const void* res;   // kAdvance: x or the stage base, x's dtype, ldo;
+                     // kGeluGradResid: rh1
   float dt;          // kAdvance
   // dropout epilogues: the keep masks of up to two sites over the output
   // (kGeluDrop, kGeluGradDrop: mask_h; kOutDrop: mask_mo, mask_ao), th 0
   // where a site has no dropout; output row m is row m % n_pad of image
-  // m / n_pad
+  // m / n_pad (kGeluGradResid: its padded rows)
   unsigned key[2], th[2];
   float sc[2];
   int n_pad, n_real;
@@ -309,7 +331,16 @@ __device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
     case kGelu: {  // with a bias (the Macaron FFN's b1) added first
       const float h1 = g.bias != nullptr ? v + g.bias[n] : v;
       if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = h1;
+      if (g.out2 != nullptr) static_cast<T*>(g.out2)[o] = vf::from_f<T>(h1);
       out[o] = vf::from_f<T>(vf::gelu(h1));
+      break;
+    }
+    case kGeluGradResid: {
+      const float h1 = m % g.n_pad < g.n_real
+                           ? vf::to_f(static_cast<const T*>(g.res)[o])
+                           : 0.0f;
+      out[o] = vf::from_f<T>(v * vf::gelu_grad(h1));
+      static_cast<T*>(g.out2)[o] = vf::from_f<T>(vf::gelu(h1));
       break;
     }
     case kScale:
@@ -644,6 +675,8 @@ struct AttnArgs {
                          //           d2b [B, H, query tiles, n]
   float* mask_p;         // forward with dropout, emit_masks: [B, H, n, n]
   int n_pad, n_real, d, heads, mt, mode, jas_kk;
+  int resid;             // backward: qkv is the stash's rqkv; its padded
+                         // rows of q and k are read as zeros too
   float qk_scale;
   vf::Drop drop;         // the dropout instances: mask_p (th_p, sc_p)
 };
@@ -722,12 +755,14 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
     const int r = i / hd, c = i % hd;
     const T* src = qkv + (row0 + r) * 3 * d + h * hd + c;
-    k[r * lh + c] = src[d];
+    k[r * lh + c] = a.resid && r >= n_real ? zero : src[d];
     v[r * lh + c] = r < n_real ? src[2 * d] : zero;
   }
   for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
     const int r = i / hd, c = i % hd;
-    q[r * lh + c] = qkv[(row0 + q0 + r) * 3 * d + h * hd + c];
+    q[r * lh + c] = a.resid && q0 + r >= n_real
+                        ? zero
+                        : qkv[(row0 + q0 + r) * 3 * d + h * hd + c];
     if (kBwd)
       cbs[r * lh + c] =
           static_cast<const T*>(a.cb)[(row0 + q0 + r) * d + h * hd + c];
@@ -994,7 +1029,8 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
   const T* cb = static_cast<const T*>(a.cb);
   for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
     const int r = i / hd, c = i % hd;
-    const T qv = qkv[(row0 + r) * 3 * d + h * hd + c];
+    const T qv = a.resid && r >= a.n_real ? vf::from_f<T>(0.0f)
+                                          : qkv[(row0 + r) * 3 * d + h * hd + c];
     qs[r * lh + c] = kL2 ? qv : vf::from_f<T>(vf::to_f(qv) * a.qk_scale);
     cbs[r * lh + c] = cb[(row0 + r) * d + h * hd + c];
   }
@@ -1080,6 +1116,9 @@ struct TiledArgs {
   float* mask_mo;          // values of each site drawn, f32: [R, dh],
   float* mask_ao;          // [R, D], [R, D], [B, H, n_pad, n_pad]; null
   float* mask_p;           // where not asked for or the rate is 0
+  void* rqkv;              // backward with residuals: [R, 3D] (the forward
+                           // keeps its qkv scratch as rqkv)
+  void* rh1;               // forward, stash: written; backward: read [R, dh]
   int batch, n_pad, n_real, d, heads, dh, mode, jas_kk, mt, splits;
   float scaler, qk_scale;
   float dt;                // forward, Euler and stage-advance modes
@@ -1132,7 +1171,8 @@ void gemm_mask(GemmArgs& g, int i, const TiledArgs& t, int site) {
 
 AttnArgs attn_args(const TiledArgs& t) {
   AttnArgs a = {};
-  a.qkv = t.qkv;
+  a.qkv = t.rqkv != nullptr ? t.rqkv : t.qkv;
+  a.resid = t.rqkv != nullptr;
   a.cb = t.cb;
   a.ctx = t.ctx;
   a.pmap = t.pmap;
@@ -1227,14 +1267,19 @@ int forward(const TiledArgs& t, cudaStream_t st) {
   const bool drop = has_drop(t);
   const bool advance = t.mode == kEuler || t.mode == kBase;
   const bool l2 = t.qkv_bias != nullptr;
-  // no dropout instance advances the state (nor does the TPU kernel)
-  if ((advance && drop) || !l2_ok(t)) return (int)cudaErrorInvalidValue;
+  // no dropout instance advances the state (nor does the TPU kernel); the
+  // stash (rh1) exists for the deterministic softmax plain and JaSMin
+  // modes only
+  if ((advance && drop) || !l2_ok(t) ||
+      (t.rh1 != nullptr && (drop || l2 || advance || t.mode == kMap)))
+    return (int)cudaErrorInvalidValue;
   VFT_CHECK((norm<T, false>(t, false, st)));
   GemmArgs qg =
       gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d);
   qg.bias = t.qkv_bias;
   VFT_CHECK((gemm<T, false>(qg, st)));
   GemmArgs hg = gemm_args(t.cnm, d, t.w1, dh, d, R, dh, kGelu, t.h, dh);
+  hg.out2 = t.rh1;
   if (drop && t.drop.th_m) {
     // h = round(round(gelu(h1)) mask_h)
     hg.epi = kGeluDrop;
@@ -1315,8 +1360,11 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   const int R = t.batch * t.n_pad, d = t.d, dh = t.dh;
   const bool drop = has_drop(t);
   const bool l2 = t.qkv_bias != nullptr;
-  // L2: no dropout, no map cotangent (nor has the TPU kernel)
-  if (!l2_ok(t) || (l2 && t.g_attn != nullptr))
+  const bool resid = t.rqkv != nullptr;
+  // L2: no dropout, no map cotangent (nor has the TPU kernel); residuals:
+  // both or neither, softmax, no dropout
+  if (!l2_ok(t) || (l2 && t.g_attn != nullptr) ||
+      resid != (t.rh1 != nullptr) || (resid && (drop || l2)))
     return (int)cudaErrorInvalidValue;
   // with dropout, gd carries mask_mo and gd2 mask_ao
   const void* gda = drop ? t.gd2 : t.gd;
@@ -1326,7 +1374,14 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   // h1_bar = round((gd W2^T) gelu'(h1)); cb = round(gd Wout^T)
   GemmArgs hb = gemm_args(t.gd, d, t.w2, d, d, R, dh, kGeluGrad, t.h1b, dh);
   hb.aux = t.h1;
-  if (drop && t.drop.th_m) {
+  if (resid) {
+    // h1 from rh1: the epilogue writes h1_bar and h (no h1 or qkv product)
+    hb.epi = kGeluGradResid;
+    hb.res = t.rh1;
+    hb.out2 = t.h;
+    hb.n_pad = t.n_pad;
+    hb.n_real = t.n_real;
+  } else if (drop && t.drop.th_m) {
     // the masked h (for W2_bar) and h1_bar = round(h_bar mask_h gelu'(h1))
     h1.epi = kGeluDrop;
     hb.epi = kGeluGradDrop;
@@ -1336,10 +1391,12 @@ int backward(const TiledArgs& t, cudaStream_t st) {
   } else {
     VFT_CHECK((gemm<T, false>(h1, st)));
   }
-  GemmArgs qg =
-      gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound, t.qkv, 3 * d);
-  qg.bias = t.qkv_bias;
-  VFT_CHECK((gemm<T, false>(qg, st)));
+  if (!resid) {
+    GemmArgs qg = gemm_args(t.cna, d, t.wqkv, 3 * d, d, R, 3 * d, kRound,
+                            t.qkv, 3 * d);
+    qg.bias = t.qkv_bias;
+    VFT_CHECK((gemm<T, false>(qg, st)));
+  }
   VFT_CHECK((hb.epi == kGeluGradDrop ? gemm<T, true, true>(hb, st)
                                      : gemm<T, true>(hb, st)));
   VFT_CHECK((gemm<T, true>(

@@ -38,7 +38,14 @@ launch_counts: Dict[str, int] = {
     # the Macaron field (csrc/macaron.cu: every mode; csrc/macaron_bwd.cu)
     "macaron_eval": 0, "macaron_bwd": 0,
     # and its tiled route (csrc/macaron_tiled.cu: every mode; backward)
-    "macaron_eval_tiled": 0, "macaron_bwd_tiled": 0}
+    "macaron_eval_tiled": 0, "macaron_bwd_tiled": 0,
+    # the residual stash: the forwards writing rqkv and rh1, one CTA per
+    # image and tiled, and the backwards reading them (one CTA, tiled, the
+    # split route's halves)
+    "vf_eval_stash": 0, "vf_eval_jasmin_stash": 0,
+    "vf_eval_stash_tiled": 0, "vf_eval_jasmin_stash_tiled": 0,
+    "vf_bwd_resid": 0, "vf_bwd_resid_tiled": 0,
+    "vf_bwd_mlp_resid": 0, "vf_bwd_attn_resid": 0}
 _count_lock = threading.Lock()
 
 

@@ -18,6 +18,16 @@ happens outside the graph, but the gradients flow to ``params``, so they
 arrive in float32 as they do in JAX. Each Function saves x (and the
 statistics' columns) and recomputes the rest in the backward.
 
+``FusedVFStash`` and ``FusedVFJasminStash`` are the counterparts of
+``fused_vf_stash`` and ``fused_vf_jasmin_stash`` (residual stashing;
+softmax, no dropout): the forward runs ``vf_eval(stash=True)`` /
+``vf_eval_jasmin(stash=True)`` and saves, beside x (and the statistics'
+columns), the compute-dtype rqkv [B * n_pad, 3D] and rh1 [B * n_pad, dh]
+it wrote; the backward hands them to ``vf_bwd`` (``resid_qkv``,
+``resid_h1``), which reads them instead of recomputing the qkv and fc1
+products. The route is the one the same evaluation takes without the
+stash.
+
 ``MacaronFunction`` is the counterpart of
 ``odevit_tpu/kernels/macaron.py::fused_macaron``: the forward runs
 ``macaron_eval`` in its plain mode and the backward ``macaron_bwd``, over
@@ -90,6 +100,39 @@ class FusedVFAttn(torch.autograd.Function):
         return (bars[0], None, None, *bars[1:])
 
 
+class FusedVFStash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: VFWeights, kw: dict, *params):
+        dx, (rqkv, rh1) = vf_eval(x, w, stash=True, **kw)
+        ctx.save_for_backward(x, rqkv, rh1)
+        ctx.w, ctx.kw = w, kw
+        return dx
+
+    @staticmethod
+    def backward(ctx, g):
+        x, rqkv, rh1 = ctx.saved_tensors
+        bars = vf_bwd(x, ctx.w, g.contiguous(), resid_qkv=rqkv,
+                      resid_h1=rh1, **ctx.kw)
+        return (bars[0], None, None, *bars[1:])
+
+
+class FusedVFJasminStash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w: VFWeights, kw: dict, jas_k: int, *params):
+        dx, stats, idx, (rqkv, rh1) = vf_eval_jasmin(x, w, jas_k=jas_k,
+                                                     stash=True, **kw)
+        ctx.save_for_backward(x, idx, rqkv, rh1)
+        ctx.w, ctx.kw = w, kw
+        return dx, stats
+
+    @staticmethod
+    def backward(ctx, g, g_stats):
+        x, idx, rqkv, rh1 = ctx.saved_tensors
+        bars = vf_bwd(x, ctx.w, g.contiguous(), g_jas=g_stats.contiguous(),
+                      jas_idx=idx, resid_qkv=rqkv, resid_h1=rh1, **ctx.kw)
+        return (bars[0], None, None, None, *bars[1:])
+
+
 def vf_params(vf) -> tuple:
     """A ``ParallelVectorField``'s float32 parameters in the order the
     Functions take them (matrices as ``[in, out]`` views). With L2
@@ -109,22 +152,26 @@ def vf_params(vf) -> tuple:
 
 def fused_vf(x, w: VFWeights, params, *, num_heads: int, scaler: float,
              n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
-             plain: bool = False):
+             plain: bool = False, stash: bool = False):
     """f(x) (with dropout where ``drops`` and ``seed`` ask for it),
-    differentiable in x and ``params``."""
+    differentiable in x and ``params``; ``stash`` runs ``FusedVFStash``
+    (no dropout)."""
     kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
               drops=drops, plain=plain)
-    return FusedVF.apply(x, w, kw, *params)
+    return (FusedVFStash if stash else FusedVF).apply(x, w, kw, *params)
 
 
 def fused_vf_jasmin(x, w: VFWeights, params, *, num_heads: int,
                     scaler: float, n_real: int, jas_k: int, seed=None,
-                    drops=(0.0, 0.0, 0.0), plain: bool = False):
+                    drops=(0.0, 0.0, 0.0), plain: bool = False,
+                    stash: bool = False):
     """(f(x), JaSMin statistics [B, H, 5, n_pad] of the pre-dropout p),
-    differentiable in x and ``params``."""
+    differentiable in x and ``params``; ``stash`` runs
+    ``FusedVFJasminStash`` (no dropout)."""
     kw = dict(num_heads=num_heads, scaler=scaler, n_real=n_real, seed=seed,
               drops=drops, plain=plain)
-    return FusedVFJasmin.apply(x, w, kw, jas_k, *params)
+    fn = FusedVFJasminStash if stash else FusedVFJasmin
+    return fn.apply(x, w, kw, jas_k, *params)
 
 
 def fused_vf_attn(x, w: VFWeights, params, *, num_heads: int, scaler: float,

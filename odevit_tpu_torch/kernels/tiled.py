@@ -24,6 +24,12 @@ run the route's L2 instances, in the plain and JaSMin modes and the
 backward (11 cotangents), without dropout, maps or the Euler and
 stage-advance modes, as the TPU kernel has them.
 
+Residual stash: ``stash=True`` keeps the forward's qkv scratch (rqkv, one
+buffer per evaluation) and has the GELU product's epilogue write rh1, the
+rounded pre-GELU hidden; the backward given them (``rqkv``, ``rh1``) skips
+the qkv and h1 products and allocates no f32 h1 scratch. Softmax, no
+dropout, plain and JaSMin modes, as the TPU kernel's emit_resid.
+
 Plans: :func:`tiled_plan` asks the CUDA library; :func:`tiled_plan_rule`
 is the same rule in Python, so that a CPU run routes as the card does
 (``chip_smoke.py`` holds the two against each other).
@@ -44,7 +50,7 @@ _PTRS = ("x", "base", "g", "g_jas", "jas_idx", "g_attn", "ga", "ba", "gm",
          "cna", "cnm", "qkv", "h", "ctx", "ao", "mean", "gd", "gd2", "h1",
          "h1b", "cb", "pg", "sbar", "qkvb", "abar", "mbar", "npart", "wpart",
          "wbars", "qkv_bias", "out_bias", "l2cs", "mask_h", "mask_mo",
-         "mask_ao", "mask_p")
+         "mask_ao", "mask_p", "rqkv", "rh1")
 _INTS = ("batch", "n_pad", "n_real", "d", "heads", "dh", "mode", "jas_kk",
          "mt", "splits")
 
@@ -229,13 +235,18 @@ def mask_buffers(x, dh: int, num_heads: int, drop: Drop) -> dict:
 
 
 def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
-                    drop=None, emit_masks: bool = False) -> dict:
+                    drop=None, emit_masks: bool = False,
+                    stash: bool = False) -> dict:
     """The outputs and scratch of one tiled evaluation, by ``TiledArgs``
-    field: with ``drop`` also the f32 ``ao`` [B * n_pad, D], and with
-    ``emit_masks`` the four masks (:func:`mask_buffers`)."""
+    field: with ``drop`` also the f32 ``ao`` [B * n_pad, D], with
+    ``emit_masks`` the four masks (:func:`mask_buffers`), and with
+    ``stash`` ``rh1`` [B * n_pad, dh] in x's dtype."""
     b, n, d = x.shape
     bufs = _scratch(x, w.w1.shape[1])
     bufs["out"] = torch.empty_like(x)
+    if stash:
+        bufs["rh1"] = torch.empty(b * n, w.w1.shape[1], device=x.device,
+                                  dtype=x.dtype)
     if drop is not None:
         bufs["ao"] = torch.empty(b * n, d, device=x.device)
     if emit_masks:
@@ -252,17 +263,19 @@ def forward_buffers(x, w, *, num_heads: int, mode: str = "plain",
 
 def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
                   mode: str = "plain", jas_kk: int = 0, drop=None,
-                  dt: float = 0.0, base=None, emit_masks: bool = False):
+                  dt: float = 0.0, base=None, emit_masks: bool = False,
+                  stash: bool = False):
     """One evaluation on the tiled route: f(x), and for mode "jasmin" the
     statistics and their columns, for mode "attn" the map ``[B, H, n_pad,
     n_pad]`` (zeros on padded query rows), both of the pre-dropout p; for
     mode "euler" x + dt f(x) and for mode "base" base + dt f(x) instead of
     f(x), summed in f32 and rounded once (these two take no ``drop``); with
-    ``emit_masks`` (which needs ``drop``) last the four masks as a tuple.
-    The caller has checked the arguments. ``drop``: a ``dropout.Drop`` or
-    None (see the module docstring)."""
+    ``emit_masks`` (which needs ``drop``) last the four masks as a tuple,
+    and with ``stash`` last (rqkv, rh1). The caller has checked the
+    arguments. ``drop``: a ``dropout.Drop`` or None (see the module
+    docstring)."""
     bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop,
-                           emit_masks=emit_masks)
+                           emit_masks=emit_masks, stash=stash)
     kernel_bufs = dict(bufs, base=base)
     if emit_masks:
         # the kernels write the sites they draw; the others stay ones
@@ -273,17 +286,20 @@ def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
          dt=dt)
     extra = {"jasmin": ("stats", "idx"), "attn": ("pmap",)}.get(mode, ())
     out = (bufs["out"], *(bufs[k] for k in extra))
+    if stash:
+        return out + ((bufs["qkv"], bufs["rh1"]),)
     return out + (tuple(bufs[k] for k in MASKS),) if emit_masks else out
 
 
 def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
                      jas_idx=None, g_attn=None, drop=None,
-                     mt: int = 0) -> dict:
+                     mt: int = 0, rqkv=None, rh1=None) -> dict:
     """The cotangents and scratch of one tiled backward, by ``TiledArgs``
     field: with ``drop`` also ``gd2``, the second cotangent operand; with
     L2 weights the bias partials (8 D floats an image, not 4 D) and the
     query tiles' column sums ``l2cs`` (``mt``: the plan's query-tile
-    rows)."""
+    rows); with the stash's ``rqkv`` and ``rh1``, those in place of the
+    qkv and f32 h1 scratch."""
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
@@ -292,10 +308,13 @@ def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
     f32 = lambda *s: torch.empty(*s, device=x.device)
     e = lambda *s: torch.empty(*s, device=x.device, dtype=x.dtype)
     bufs = _scratch(x, dh)
+    if rqkv is not None:
+        bufs["qkv"] = None          # rqkv takes its place
     bufs.update(
         g=g, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
         out=torch.empty_like(x), mean=f32(rows), gd=e(rows, d),
-        gd2=e(rows, d) if drop is not None else None, h1=f32(rows, dh),
+        gd2=e(rows, d) if drop is not None else None,
+        h1=f32(rows, dh) if rh1 is None else None, rqkv=rqkv, rh1=rh1,
         h1b=e(rows, dh), cb=e(rows, d), pg=e(b, num_heads, n, n),
         sbar=e(b, num_heads, n, n), qkvb=e(rows, 3 * d), abar=f32(rows, d),
         mbar=f32(rows, d), npart=f32(b, nlen), wpart=f32(splits, wtotal),
@@ -306,14 +325,15 @@ def backward_buffers(x, w, g, *, num_heads: int, splits: int, g_jas=None,
 
 def tiled_backward(x, w, g, *, num_heads: int, scaler: float, n_real: int,
                    splits: int, g_jas=None, jas_idx=None, g_attn=None,
-                   drop=None):
+                   drop=None, rqkv=None, rh1=None):
     """The 9 cotangents of one evaluation on the tiled route (11 with L2
     weights; see ``vector_field_bwd.py``), with the forward's ``drop``
-    (masks drawn again). The caller has checked the arguments."""
+    (masks drawn again), or reading the stash's ``rqkv`` and ``rh1``. The
+    caller has checked the arguments."""
     mt = _query_tile(x, w, num_heads, n_real, drop)
     bufs = backward_buffers(x, w, g, num_heads=num_heads, splits=splits,
                             g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
-                            drop=drop, mt=mt)
+                            drop=drop, mt=mt, rqkv=rqkv, rh1=rh1)
     _run("vft_backward", x, w, bufs, num_heads=num_heads, scaler=scaler,
          n_real=n_real, splits=splits, drop=drop, mt=mt)
     return bufs["out"], bufs["wbars"]

@@ -66,6 +66,20 @@ raise. On the GPU they launch the kernels' dropout instances, counted as
 modes have no dropout instance, as in the TPU kernel: with a nonzero rate
 they raise.
 
+Residual stash. ``vf_eval`` and ``vf_eval_jasmin`` with ``stash=True``
+(the TPU kernel's ``emit_resid``, behind ``fused_vf_stash`` and
+``fused_vf_jasmin_stash``; plain and JaSMin modes, softmax, no dropout)
+also return ``(rqkv, rh1)``, in JAX's padded 2-D row layout and the
+compute dtype: rqkv [B * n_pad, 3D] the qkv the heads are sliced from,
+rounded after the product (exactly what the backward's recompute rounds),
+and rh1 [B * n_pad, dh] the pre-GELU hidden cn_m W1 rounded once (the
+stash backward takes h = round(gelu(f32(rh1)))). f(x) is that of
+``stash=False``. Padded rows hold what the forward computes there (the
+tiled route reads padded rows of x as zeros). On the GPU the kernels'
+stash instances run, counted as ``vf_eval_stash`` and
+``vf_eval_jasmin_stash`` (one image per CTA) or ``vf_eval_stash_tiled``
+and ``vf_eval_jasmin_stash_tiled``; the route is that of ``stash=False``.
+
 ``emit_masks`` (``vf_eval`` and ``vf_eval_attn`` with dropout, the TPU
 kernel's ``emit_masks``) also returns the four keep masks the evaluation
 applied, in JAX's layouts: mask_h [B * n_pad, dh], mask_mo and mask_ao
@@ -163,11 +177,13 @@ def _check(x, w: VFWeights, num_heads, n_real, mode, base):
 
 
 def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
-                 n_real: int, seed=None, drops=(0.0, 0.0, 0.0)):
+                 n_real: int, seed=None, drops=(0.0, 0.0, 0.0),
+                 resid: bool = False):
     """(f(x) in float32, p [B, H, n, n] in the compute dtype), rounding
     where the kernel rounds (qkv is rounded before the heads are
     sliced). With dropout, the kernels' masks (``dropout.masks_plain``)
-    apply where the XLA twin applies them; ``p`` is the pre-dropout map."""
+    apply where the XLA twin applies them; ``p`` is the pre-dropout map.
+    With ``resid``, (f, p, (rqkv, rh1)): the stash (module docstring)."""
     b, n, d = x.shape
     hd = d // num_heads
     dtype = x.dtype
@@ -179,7 +195,8 @@ def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
     cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
     cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
 
-    h = torch.nn.functional.gelu(dot32(cn_m, w.w1)).to(dtype)
+    h1 = dot32(cn_m, w.w1)
+    h = torch.nn.functional.gelu(h1).to(dtype)
     if mask_h is not None:
         h = (h.float() * mask_h).to(dtype)
     mlp_o = dot32(h, w.w2)
@@ -207,6 +224,10 @@ def _field_plain(x, w: VFWeights, num_heads: int, scaler: float,
         attn_o = attn_o + w.out_bias
     if mask_ao is not None:
         attn_o = attn_o * mask_ao
+    if resid:
+        return (mlp_o + attn_o) * scaler, p, (
+            qkv.to(dtype).reshape(b * n, 3 * d),
+            h1.to(dtype).reshape(b * n, -1))
     return (mlp_o + attn_o) * scaler, p
 
 
@@ -306,6 +327,13 @@ def masks_emitted_plain(x, dh: int, num_heads: int, n_real: int, seed,
                  else m.reshape(s) for m, s in zip(got, shapes))
 
 
+def _check_stash(w: VFWeights, mode: str, drops, emit_masks: bool = False):
+    if w.l2 or mode != "plain" or any(drops) or emit_masks:
+        raise ValueError("the residual stash exists for the deterministic "
+                         "softmax plain and JaSMin modes only (as the TPU "
+                         "kernel's emit_resid)")
+
+
 def _check_emit_masks(mode: str, seed, drops):
     if drop_spec(seed, drops) is None or mode != "plain":
         raise ValueError("emit_masks returns the dropout masks of a "
@@ -316,13 +344,18 @@ def _check_emit_masks(mode: str, seed, drops):
 def vf_eval_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                   n_real: int, mode: str = "plain", dt: float = 0.0,
                   base=None, seed=None, drops=(0.0, 0.0, 0.0),
-                  emit_masks: bool = False):
+                  emit_masks: bool = False, stash: bool = False):
     """The kernel's arithmetic in plain PyTorch; with ``emit_masks``,
-    (f(x), masks)."""
+    (f(x), masks); with ``stash``, (f(x), (rqkv, rh1))."""
     _check(x, w, num_heads, n_real, mode, base)
     _check_l2_drop(w, drops)
     if emit_masks:
         _check_emit_masks(mode, seed, drops)
+    if stash:
+        _check_stash(w, mode, drops, emit_masks)
+        f, _, resid = _field_plain(x, w, num_heads, scaler, n_real,
+                                   resid=True)
+        return f.to(x.dtype), resid
     f, _ = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
     if mode == "euler":
         f = x.float() + dt * f
@@ -372,25 +405,28 @@ def vf_eval_attn_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
 
 def vf_eval_jasmin_plain(x, w: VFWeights, *, num_heads: int, scaler: float,
                          n_real: int, jas_k: int, seed=None,
-                         drops=(0.0, 0.0, 0.0)):
+                         drops=(0.0, 0.0, 0.0), stash: bool = False):
     """(f(x), stats, idx): the kernel's JaSMin-statistics mode in plain
     PyTorch. ``stats`` [B, H, 5, n_pad] f32 holds, per query row (last
     axis), the 1st, 2nd, k-th and (k+1)-th largest p of the real keys and
     the row sum of clip(p, 1e-12, 1); ``idx`` [B, H, 4, n_pad] int32 the
     columns of the first four (first occurrence among ties). Padded query
     rows hold zeros. With dropout the statistics are those of the
-    pre-dropout p."""
+    pre-dropout p. With ``stash``, (f(x), stats, idx, (rqkv, rh1))."""
     _check(x, w, num_heads, n_real, "plain", None)
     _check_jasmin(n_real, jas_k)
     _check_l2_drop(w, drops)
-    f, p = _field_plain(x, w, num_heads, scaler, n_real, seed, drops)
+    if stash:
+        _check_stash(w, "plain", drops)
+    f, p, *resid = _field_plain(x, w, num_heads, scaler, n_real, seed, drops,
+                                resid=stash)
     stats, idx = jasmin_order_stats(p[..., :n_real], jas_k,
                                     return_indices=True)
     query = torch.arange(x.shape[1], device=x.device) < n_real
     stats = torch.where(query, stats, torch.zeros((), device=x.device))
     idx = torch.where(query, idx, torch.zeros((), dtype=idx.dtype,
                                               device=x.device))
-    return f.to(x.dtype), stats.contiguous(), idx.contiguous()
+    return (f.to(x.dtype), stats.contiguous(), idx.contiguous(), *resid)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -398,7 +434,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vf_plan.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 3
     lib.vf_plan.restype = i
     lib.vf_launch.argtypes = ([i] + [p] * 14 + [i] * 9
-                              + [f, f, f, i, p, p, i, p, p, i, p])
+                              + [f, f, f, i, p, p, i, p, p, i, p, p, p])
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
     lib.vf_error_string.restype = ctypes.c_char_p
@@ -470,7 +506,7 @@ def _check_launch(x, w: VFWeights, base=None):
 
 
 def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
-            jas_kk=0, drop=None, chain=1):
+            jas_kk=0, drop=None, chain=1, stash=False):
     b, n, d = x.shape
     dh = w.w1.shape[1]
     plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None,
@@ -491,6 +527,9 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
         stats = torch.empty(b, num_heads, 5, n, device=x.device)
         idx = torch.empty(b, num_heads, 4, n, device=x.device,
                           dtype=torch.int32)
+    resid = ((torch.empty(b * n, 3 * d, device=x.device, dtype=x.dtype),
+              torch.empty(b * n, dh, device=x.device, dtype=x.dtype))
+             if stash else (None, None))
     err = _library().vf_launch(
         x.element_size(), x.data_ptr(),
         base.data_ptr() if base is not None else None, out.data_ptr(), acc,
@@ -501,19 +540,20 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
         idx.data_ptr() if jas_kk else None, jas_kk,
         ctypes.byref(drop) if drop is not None else None,
         ao.data_ptr() if ao is not None else None, chain,
+        *(t.data_ptr() if t is not None else None for t in resid),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError("vector-field kernel launch failed: "
                            + _library().vf_error_string(err).decode())
-    return out, stats, idx
+    return out, stats, idx, resid
 
 
 def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
             mode: str = "plain", dt: float = 0.0, base=None, seed=None,
             drops=(0.0, 0.0, 0.0), plain: bool = False,
-            emit_masks: bool = False):
+            emit_masks: bool = False, stash: bool = False):
     """One vector-field evaluation (see the module docstring); with
-    ``emit_masks``, (f(x), masks).
+    ``emit_masks``, (f(x), masks); with ``stash``, (f(x), (rqkv, rh1)).
 
     A CUDA tensor launches the kernel; a CPU tensor runs
     :func:`vf_eval_plain`. ``plain=True`` runs the plain version on the
@@ -525,11 +565,25 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
     if plain or x.device.type == "cpu":
         return vf_eval_plain(x, w, num_heads=num_heads, scaler=scaler,
                              n_real=n_real, mode=mode, dt=dt, base=base,
-                             seed=seed, drops=drops, emit_masks=emit_masks)
+                             seed=seed, drops=drops, emit_masks=emit_masks,
+                             stash=stash)
     _check(x, w, num_heads, n_real, mode, base)
     _check_l2_drop(w, drops)
     _check_launch(x, w, base)
     drop = drop_spec(seed, drops)
+    if stash:
+        _check_stash(w, mode, drops, emit_masks)
+        if not _cta_route(x, w, num_heads, n_real):
+            out, resid = tiled_forward(x, w, num_heads=num_heads,
+                                       scaler=scaler, n_real=n_real,
+                                       stash=True)
+            count_launch("vf_eval_stash_tiled")
+            return out, resid
+        out, _, _, resid = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                                   n_real=n_real, mode=mode, dt=dt,
+                                   base=base, stash=True)
+        count_launch("vf_eval_stash")
+        return out, resid
     if emit_masks:
         _check_emit_masks(mode, seed, drops)
         out, masks = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
@@ -542,8 +596,8 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
                                    n_real=n_real)
             count_launch("vf_eval_l2_tiled")
             return out
-        out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
-                            n_real=n_real, mode=mode, dt=dt, base=base)
+        out = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                      n_real=n_real, mode=mode, dt=dt, base=base)[0]
         count_launch("vf_eval_l2")
         return out
     if not _cta_route(x, w, num_heads, n_real, drop):
@@ -553,8 +607,8 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
         count_launch(_TILED_COUNTERS[mode] if drop is None
                      else "vf_eval_tiled_drop")
         return out
-    out, _, _ = _launch(x, w, num_heads=num_heads, scaler=scaler,
-                        n_real=n_real, mode=mode, dt=dt, base=base, drop=drop)
+    out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
+                  mode=mode, dt=dt, base=base, drop=drop)[0]
     count_launch("vf_eval" if drop is None else "vf_eval_drop")
     return out
 
@@ -593,27 +647,41 @@ def vf_euler_chain(x, w: VFWeights, *, num_heads: int, scaler: float,
         for _ in range(chain):
             x = vf_eval(x, w, mode="euler", dt=dt, **kw)
         return x
-    out, _, _ = _launch(x, w, mode="euler", dt=dt, base=None, chain=chain,
-                        **kw)
+    out = _launch(x, w, mode="euler", dt=dt, base=None, chain=chain, **kw)[0]
     count_launch("vf_euler_chain")
     return out
 
 
 def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
                    n_real: int, jas_k: int, seed=None,
-                   drops=(0.0, 0.0, 0.0), plain: bool = False):
+                   drops=(0.0, 0.0, 0.0), plain: bool = False,
+                   stash: bool = False):
     """(f(x), stats, idx) in one launch of the kernel's JaSMin-statistics
-    mode (see :func:`vf_eval_jasmin_plain` for the layout). A CPU tensor,
-    or ``plain=True``, runs the plain version."""
+    mode (see :func:`vf_eval_jasmin_plain` for the layout), and with
+    ``stash`` last (rqkv, rh1). A CPU tensor, or ``plain=True``, runs the
+    plain version."""
     if plain or x.device.type == "cpu":
         return vf_eval_jasmin_plain(x, w, num_heads=num_heads, scaler=scaler,
                                     n_real=n_real, jas_k=jas_k, seed=seed,
-                                    drops=drops)
+                                    drops=drops, stash=stash)
     _check(x, w, num_heads, n_real, "plain", None)
     kk = _check_jasmin(n_real, jas_k)
     _check_l2_drop(w, drops)
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
+    if stash:
+        _check_stash(w, "plain", drops)
+        if not _cta_route(x, w, num_heads, n_real):
+            out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
+                                n_real=n_real, mode="jasmin", jas_kk=kk,
+                                stash=True)
+            count_launch("vf_eval_jasmin_stash_tiled")
+            return out
+        out = _launch(x, w, num_heads=num_heads, scaler=scaler,
+                      n_real=n_real, mode="plain", dt=0.0, base=None,
+                      jas_kk=kk, stash=True)
+        count_launch("vf_eval_jasmin_stash")
+        return out
     if w.l2:
         if _l2_tiled(x, w, num_heads, n_real):
             out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
@@ -622,7 +690,7 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
             return out
         out = _launch(x, w, num_heads=num_heads, scaler=scaler,
                       n_real=n_real, mode="plain", dt=0.0, base=None,
-                      jas_kk=kk)
+                      jas_kk=kk)[:3]
         count_launch("vf_eval_jasmin_l2")
         return out
     if not _cta_route(x, w, num_heads, n_real, drop):
@@ -633,7 +701,7 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
                      else "vf_eval_jasmin_tiled_drop")
         return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
-                  mode="plain", dt=0.0, base=None, jas_kk=kk, drop=drop)
+                  mode="plain", dt=0.0, base=None, jas_kk=kk, drop=drop)[:3]
     count_launch("vf_eval_jasmin" if drop is None else "vf_eval_jasmin_drop")
     return out
 

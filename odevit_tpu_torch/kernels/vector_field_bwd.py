@@ -39,6 +39,18 @@ the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
 no such plan exists (the 224 px TS-Base shape at ratio 1), the tiled route
 of ``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
 
+Residuals (the TPU kernel's ``has_resid``, the backward of
+``fused_vf_stash`` and ``fused_vf_jasmin_stash``): ``resid_qkv`` and
+``resid_h1``, the forward's stash (``vf_eval(stash=True)``), come as a pair
+or not at all, softmax and without dropout. The backward reads q, k and v
+from rqkv and h1 from rh1 instead of recomputing the qkv and fc1
+products, and takes h = round(gelu(f32(rh1))) and h1_bar = round(h_bar
+gelu'(f32(rh1))), as JAX's stash backward does; padded rows of both read
+as zeros. The route is that of the same call without them; on the GPU
+the kernels' resid instances run, counted as ``vf_bwd_resid`` (one image
+per CTA), ``vf_bwd_resid_tiled`` and, on the split route,
+``vf_bwd_mlp_resid`` and ``vf_bwd_attn_resid``.
+
 Dropout: ``seed`` and ``drops`` as the forward took them; the masks are
 drawn again (``kernels/dropout.py``), never saved. On the GPU the kernels'
 dropout instances run, counted as ``vf_bwd_drop`` (one image per CTA) and
@@ -103,16 +115,27 @@ def bwd_inputs(x, g, *, scaler: float, n_real: int):
     return row, cent, torch.where(row, g.float() * scaler, zero)
 
 
-def mlp_bars(x, w: VFWeights, cent, gf, mask_h=None, mask_mo=None):
+def _resid_rows(r, b: int, n: int, n_real: int):
+    """A stash residual [B * n, w] as [B, n, w] float32, its rows >= n_real
+    read as zeros."""
+    r = r.reshape(b, n, -1).float()
+    row = (torch.arange(n, device=r.device) < n_real)[:, None]
+    return torch.where(row, r, torch.zeros((), device=r.device))
+
+
+def mlp_bars(x, w: VFWeights, cent, gf, mask_h=None, mask_mo=None,
+             resid_h1=None, n_real: int = 0):
     """The MLP branch's backward in plain PyTorch: (m_bar [B, n, D] f32,
     W1_bar, W2_bar), rounding where the TPU kernel rounds; the masks are
-    the forward's (None without dropout)."""
+    the forward's (None without dropout). With ``resid_h1`` (and the
+    ``n_real`` its padded rows are cut at) h1 is read from it."""
     b, n, _ = x.shape
     dtype = x.dtype
     cn_m = (cent * w.norm_mlp_scale + w.norm_mlp_bias).to(dtype)
     gd = (gf if mask_mo is None else gf * mask_mo).to(dtype)
     t2 = lambda a: a.reshape(b * n, a.shape[-1])
-    h1 = dot32(cn_m, w.w1)
+    h1 = (dot32(cn_m, w.w1) if resid_h1 is None
+          else _resid_rows(resid_h1, b, n, n_real))
     h = torch.nn.functional.gelu(h1).to(dtype)
     h_bar = dot32(gd, w.w2.T)
     if mask_h is not None:
@@ -125,11 +148,11 @@ def mlp_bars(x, w: VFWeights, cent, gf, mask_h=None, mask_mo=None):
 
 def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
               n_real: int, g_jas=None, jas_idx=None, g_attn=None,
-              mask_ao=None, mask_p=None):
+              mask_ao=None, mask_p=None, resid_qkv=None):
     """The attention branch's backward in plain PyTorch: (a_bar [B, n, D]
     f32, Wqkv_bar, Wout_bar). g * scaler * mask_ao is its cotangent
     operand, and p is rounded before and after its mask, as in the
-    forward."""
+    forward. With ``resid_qkv`` q, k and v are read from it."""
     b, n, d = x.shape
     hd = d // num_heads
     tau = hd ** -0.5
@@ -138,9 +161,12 @@ def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
     cn_a = (cent * w.norm_attn_scale + w.norm_attn_bias).to(dtype)
     gda = (gf if mask_ao is None else gf * mask_ao).to(dtype)
     t2 = lambda a: a.reshape(b * n, a.shape[-1])
-    qkv = dot32(cn_a, w.wqkv)
-    if w.l2:
-        qkv = qkv + w.qkv_bias
+    if resid_qkv is None:
+        qkv = dot32(cn_a, w.wqkv)
+        if w.l2:
+            qkv = qkv + w.qkv_bias
+    else:
+        qkv = _resid_rows(resid_qkv, b, n, n_real)
     q, k, v = qkv.to(dtype).reshape(b, n, 3, num_heads, hd).permute(
         2, 0, 3, 1, 4)
     key = torch.arange(n, device=x.device) < n_real
@@ -196,25 +222,29 @@ def attn_bars(x, w: VFWeights, cent, gf, row, *, num_heads: int,
 
 def vf_bwd_plain(x, w: VFWeights, g, *, num_heads: int, scaler: float,
                  n_real: int, g_jas=None, jas_idx=None, g_attn=None,
-                 seed=None, drops=(0.0, 0.0, 0.0)):
-    """The kernels' arithmetic in plain PyTorch: the forward recomputed,
-    then the MLP, attention and CenterNorm backward, rounding to x's
-    dtype where the TPU kernel rounds. With dropout, the forward's masks
-    are drawn again and applied where the XLA twin's vjp applies them:
-    g * scaler * mask_mo and g * scaler * mask_ao are two operands, and p
-    is rounded before and after its mask, as in the forward."""
+                 seed=None, drops=(0.0, 0.0, 0.0), resid_qkv=None,
+                 resid_h1=None):
+    """The kernels' arithmetic in plain PyTorch: the forward recomputed
+    (or read from the residuals), then the MLP, attention and CenterNorm
+    backward, rounding to x's dtype where the TPU kernel rounds. With
+    dropout, the forward's masks are drawn again and applied where the XLA
+    twin's vjp applies them: g * scaler * mask_mo and g * scaler * mask_ao
+    are two operands, and p is rounded before and after its mask, as in
+    the forward."""
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_l2_drop(w, drops)
+    check_resid(x, w, drops, resid_qkv, resid_h1)
     b, n, d = x.shape
     mask_h, mask_mo, mask_ao, mask_p = masks_plain(
         b, n_real, d, w.w1.shape[1], num_heads, seed, drops,
         device=x.device, n_pad=n) or (None,) * 4
     row, cent, gf = bwd_inputs(x, g, scaler=scaler, n_real=n_real)
-    m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo)
+    m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo,
+                                     resid_h1, n_real)
     a_bar, wqkv_bar, wout_bar, *bias_bars = attn_bars(
         x, w, cent, gf, row, num_heads=num_heads, n_real=n_real,
         g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, mask_ao=mask_ao,
-        mask_p=mask_p)
+        mask_p=mask_p, resid_qkv=resid_qkv)
     # CenterNorm
     c_bar = a_bar * w.norm_attn_scale + m_bar * w.norm_mlp_scale
     x_bar = (d / (d - 1.0)) * (c_bar - c_bar.mean(-1, keepdim=True))
@@ -251,6 +281,34 @@ def _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn=None):
                                  f"expected {shape}")
 
 
+def check_resid(x, w: VFWeights, drops, resid_qkv=None, resid_h1=None,
+                need=("qkv", "h1")):
+    """The stash residuals a backward takes (``need``: both, or a split
+    half's one): as a pair or not at all, [B * n_pad, 3D] and [B * n_pad,
+    dh] in x's dtype, softmax and without dropout (as JAX asserts)."""
+    given = {"qkv": resid_qkv, "h1": resid_h1}
+    if all(given[k] is None for k in need):
+        return False
+    if any(given[k] is None for k in need):
+        raise ValueError("the stash residuals come as a (qkv, h1) pair")
+    if w.l2 or any(drops):
+        raise ValueError("residual stashing is softmax and deterministic "
+                         "only (as JAX's)")
+    b, n, d = x.shape
+    widths = {"qkv": 3 * d, "h1": w.w1.shape[1]}
+    for k in need:
+        t = given[k]
+        if tuple(t.shape) != (b * n, widths[k]):
+            raise ValueError(f"resid_{k} has shape {tuple(t.shape)}, "
+                             f"expected {(b * n, widths[k])}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"resid_{k} is {t.dtype} on {t.device}, x "
+                            f"{x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"resid_{k} is not contiguous")
+    return True
+
+
 def check_operands(x, **tensors):
     """Device, dtype and layout of a backward kernel's other inputs: name
     -> (tensor or None, the dtype the kernel takes)."""
@@ -268,7 +326,8 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
         "w1", "w2", "xbar", "cnm", "cna", "gd", "gd2", "ctx", "h", "h1b",
-        "qkvb", "macc", "npart", "wpart", "out", "qkv_bias", "out_bias")]
+        "qkvb", "macc", "npart", "wpart", "out", "qkv_bias", "out_bias",
+        "rqkv", "rh1")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
             "smem", "splits")]
@@ -366,28 +425,32 @@ def weight_splits(rows: int, d: int, dh: int, shapes=None) -> int:
 
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
            n_real: int, g_jas=None, jas_idx=None, g_attn=None, seed=None,
-           drops=(0.0, 0.0, 0.0), plain: bool = False):
+           drops=(0.0, 0.0, 0.0), plain: bool = False, resid_qkv=None,
+           resid_h1=None):
     """The 9 cotangents of one evaluation (11 with L2 attention; see the
-    module docstring). A CUDA tensor launches the kernels; a CPU tensor,
-    or ``plain=True``, runs :func:`vf_bwd_plain`. Shapes of the split
-    route (``vector_field_bwd_split.split_route``) take it on either
-    device; L2 never does."""
+    module docstring), reading the stash's ``resid_qkv`` and ``resid_h1``
+    where given. A CUDA tensor launches the kernels; a CPU tensor, or
+    ``plain=True``, runs :func:`vf_bwd_plain`. Shapes of the split route
+    (``vector_field_bwd_split.split_route``) take it on either device; L2
+    never does."""
     from odevit_tpu_torch.kernels import vector_field_bwd_split as split
+    rkw = dict(resid_qkv=resid_qkv, resid_h1=resid_h1)
     if not w.l2 and split.split_route(x.shape[-1], w.w1.shape[1]):
         return split.vf_bwd_split(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, seed=seed,
-            drops=drops, plain=plain)
+            drops=drops, plain=plain, **rkw)
     if plain or x.device.type == "cpu":
         return vf_bwd_plain(x, w, g, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, g_jas=g_jas, jas_idx=jas_idx,
-                            g_attn=g_attn, seed=seed, drops=drops)
+                            g_attn=g_attn, seed=seed, drops=drops, **rkw)
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_launch(x, w)
     drop = drop_spec(seed, drops)
     check_operands(x, g=(g, x.dtype), g_jas=(g_jas, torch.float32),
                    jas_idx=(jas_idx, torch.int32), g_attn=(g_attn, x.dtype))
     _check_l2_drop(w, drops)
+    resid = check_resid(x, w, drops, resid_qkv, resid_h1)
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
@@ -404,8 +467,10 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         xbar, out = tiled_backward(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
-            drop=drop)
-        count_launch("vf_bwd_tiled" if drop is None else "vf_bwd_tiled_drop")
+            drop=drop, rqkv=resid_qkv, rh1=resid_h1)
+        count_launch("vf_bwd_resid_tiled" if resid
+                     else "vf_bwd_tiled" if drop is None
+                     else "vf_bwd_tiled_drop")
         return _split_bars(xbar, out, d, dh)
     cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
                                  drop is not None, w.l2)
@@ -424,7 +489,8 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             "npart": torch.empty(b, nlen, device=x.device),
             "wpart": torch.empty(splits, wtotal, device=x.device),
             "out": torch.empty(wtotal + nlen, device=x.device),
-            "qkv_bias": w.qkv_bias, "out_bias": w.out_bias}
+            "qkv_bias": w.qkv_bias, "out_bias": w.out_bias,
+            "rqkv": resid_qkv, "rh1": resid_h1}
     args = _Args(
         x=x.data_ptr(), g=g.data_ptr(),
         g_jas=g_jas.data_ptr() if g_jas is not None else None,
@@ -444,7 +510,7 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     if err:
         raise RuntimeError("vector-field backward launch failed: "
                            + _library().vfb_error_string(err).decode())
-    count_launch("vf_bwd_l2" if w.l2
+    count_launch("vf_bwd_l2" if w.l2 else "vf_bwd_resid" if resid
                  else "vf_bwd" if drop is None else "vf_bwd_drop")
     return _split_bars(bufs["xbar"], bufs["out"], d, dh)
 

@@ -29,6 +29,13 @@ mlp), the attention half mask_ao and mask_p (sites ATTN_OUT and P + head),
 from the stream of ``kernels/dropout.py``, so the bits are those of every
 other route. A half whose rates are 0 runs its deterministic instance.
 
+Residuals (the TPU kernels' ``has_resid``): the MLP half takes the
+stash's ``resid_h1`` and reads h1 from it instead of the cn_m W1 product;
+the attention half takes ``resid_qkv`` and reads q, k and v from it
+(cn_a is still computed, for Wqkv_bar). Softmax, no dropout. On the GPU
+they launch the halves' resid instances, counted as ``vf_bwd_mlp_resid``
+and ``vf_bwd_attn_resid``; ``vf_bwd_split`` counts every chained backward.
+
 Launch counts: ``vf_bwd_mlp`` and ``vf_bwd_attn`` (``..._drop`` for the
 dropout instances), one per launch of a half, and ``vf_bwd_split`` (or
 ``vf_bwd_split_drop``) once per chained backward on the GPU.
@@ -49,6 +56,7 @@ from odevit_tpu_torch.kernels.vector_field_bwd import (_check_bwd,
                                                        attn_bars,
                                                        bwd_inputs,
                                                        check_operands,
+                                                       check_resid,
                                                        mlp_bars,
                                                        weight_splits)
 
@@ -80,16 +88,18 @@ def _project(bar, gamma):
 
 
 def vf_bwd_mlp_plain(x, w: VFWeights, g, *, scaler: float, n_real: int,
-                     seed=None, drops=(0.0, 0.0, 0.0)):
+                     seed=None, drops=(0.0, 0.0, 0.0), resid_h1=None):
     """The MLP half's arithmetic in plain PyTorch (see the module
     docstring), rounding where the TPU kernel rounds."""
     _check_bwd(x, w, g, 1, n_real, None, None)
+    check_resid(x, w, _mlp_rates(drops), resid_h1=resid_h1, need=("h1",))
     b, n, d = x.shape
     masks = masks_plain(b, n_real, d, w.w1.shape[1], 1, seed,
                         _mlp_rates(drops), device=x.device, n_pad=n)
     mask_h, mask_mo = masks[:2] if masks else (None, None)
     row, cent, gf = bwd_inputs(x, g, scaler=scaler, n_real=n_real)
-    m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo)
+    m_bar, w1_bar, w2_bar = mlp_bars(x, w, cent, gf, mask_h, mask_mo,
+                                     resid_h1, n_real)
     xbar_m = torch.where(row, _project(m_bar, w.norm_mlp_scale),
                          torch.zeros((), device=x.device))
     return (xbar_m, w1_bar, w2_bar, (m_bar * cent).sum((0, 1)),
@@ -107,11 +117,14 @@ def _check_xbar_m(x, xbar_m):
 
 def vf_bwd_attn_plain(x, w: VFWeights, g, xbar_m, *, num_heads: int,
                       scaler: float, n_real: int, g_attn=None, g_jas=None,
-                      jas_idx=None, seed=None, drops=(0.0, 0.0, 0.0)):
+                      jas_idx=None, seed=None, drops=(0.0, 0.0, 0.0),
+                      resid_qkv=None):
     """The attention half's arithmetic in plain PyTorch (see the module
     docstring), rounding where the TPU kernel rounds."""
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_xbar_m(x, xbar_m)
+    check_resid(x, w, _attn_rates(drops), resid_qkv=resid_qkv,
+                need=("qkv",))
     b, n, d = x.shape
     masks = masks_plain(b, n_real, d, w.w1.shape[1], num_heads, seed,
                         _attn_rates(drops), device=x.device, n_pad=n)
@@ -120,7 +133,7 @@ def vf_bwd_attn_plain(x, w: VFWeights, g, xbar_m, *, num_heads: int,
     a_bar, wqkv_bar, wout_bar = attn_bars(
         x, w, cent, gf, row, num_heads=num_heads, n_real=n_real,
         g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn, mask_ao=mask_ao,
-        mask_p=mask_p)
+        mask_p=mask_p, resid_qkv=resid_qkv)
     x_bar = torch.where(row, xbar_m + _project(a_bar, w.norm_attn_scale),
                         torch.zeros((), device=x.device))
     return (x_bar.to(x.dtype), (a_bar * cent).sum((0, 1)), a_bar.sum((0, 1)),
@@ -159,16 +172,19 @@ def _launch(fn_name: str, x, w, bufs, *, num_heads: int, scaler: float,
 
 
 def vf_bwd_mlp(x, w: VFWeights, g, *, scaler: float, n_real: int,
-               seed=None, drops=(0.0, 0.0, 0.0), plain: bool = False):
+               seed=None, drops=(0.0, 0.0, 0.0), plain: bool = False,
+               resid_h1=None):
     """The MLP half (see the module docstring). A CUDA tensor launches the
     kernels; a CPU tensor, or ``plain=True``, runs
     :func:`vf_bwd_mlp_plain`."""
     if plain or x.device.type == "cpu":
         return vf_bwd_mlp_plain(x, w, g, scaler=scaler, n_real=n_real,
-                                seed=seed, drops=drops)
+                                seed=seed, drops=drops, resid_h1=resid_h1)
     _check_bwd(x, w, g, 1, n_real, None, None)
     _check_launch(x, w)
     check_operands(x, g=(g, x.dtype))
+    resid = check_resid(x, w, _mlp_rates(drops), resid_h1=resid_h1,
+                        need=("h1",))
     drop = drop_spec(seed, _mlp_rates(drops))
     b, n, d = x.shape
     dh = w.w1.shape[1]
@@ -182,10 +198,11 @@ def vf_bwd_mlp(x, w: VFWeights, g, *, scaler: float, n_real: int,
             "gd2": e(d) if drop is not None else None, "h": e(dh),
             "h1b": e(dh), "mbar": f32(rows, d), "npart": f32(b, 2, d),
             "wpart": f32(splits, 2 * d * dh),
-            "wbars": f32(2 * d * dh + 2 * d)}
+            "wbars": f32(2 * d * dh + 2 * d), "rh1": resid_h1}
     _launch("vfs_mlp", x, w, bufs, num_heads=1, scaler=scaler,
             n_real=n_real, splits=splits, drop=drop)
-    count_launch("vf_bwd_mlp" if drop is None else "vf_bwd_mlp_drop")
+    count_launch("vf_bwd_mlp_resid" if resid else "vf_bwd_mlp"
+                 if drop is None else "vf_bwd_mlp_drop")
     w1, w2, gm, bm = torch.split(bufs["wbars"], [d * dh, dh * d, d, d])
     return bufs["out"], w1.view(d, dh), w2.view(dh, d), gm, bm
 
@@ -193,7 +210,7 @@ def vf_bwd_mlp(x, w: VFWeights, g, *, scaler: float, n_real: int,
 def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
                 scaler: float, n_real: int, g_attn=None, g_jas=None,
                 jas_idx=None, seed=None, drops=(0.0, 0.0, 0.0),
-                plain: bool = False):
+                plain: bool = False, resid_qkv=None):
     """The attention half (see the module docstring). A CUDA tensor
     launches the kernels; a CPU tensor, or ``plain=True``, runs
     :func:`vf_bwd_attn_plain`."""
@@ -201,13 +218,15 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
         return vf_bwd_attn_plain(x, w, g, xbar_m, num_heads=num_heads,
                                  scaler=scaler, n_real=n_real, g_attn=g_attn,
                                  g_jas=g_jas, jas_idx=jas_idx, seed=seed,
-                                 drops=drops)
+                                 drops=drops, resid_qkv=resid_qkv)
     _check_bwd(x, w, g, num_heads, n_real, g_jas, jas_idx, g_attn)
     _check_xbar_m(x, xbar_m)
     _check_launch(x, w)
     check_operands(x, g=(g, x.dtype), xbar_m=(xbar_m, torch.float32),
                    g_attn=(g_attn, x.dtype), g_jas=(g_jas, torch.float32),
                    jas_idx=(jas_idx, torch.int32))
+    resid = check_resid(x, w, _attn_rates(drops), resid_qkv=resid_qkv,
+                        need=("qkv",))
     drop = drop_spec(seed, _attn_rates(drops))
     b, n, d = x.shape
     rows = b * n
@@ -216,7 +235,10 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
     e = lambda *s: torch.empty(*s, device=x.device, dtype=x.dtype)
     bufs = {"g": g, "g_jas": g_jas, "jas_idx": jas_idx, "g_attn": g_attn,
             "out": torch.empty_like(x), "cna": e(rows, d),
-            "cnm": e(rows, d), "qkv": e(rows, 3 * d), "ctx": e(rows, d),
+            "cnm": e(rows, d), "ctx": e(rows, d),
+            # the stash's rqkv takes the place of the qkv scratch
+            "qkv": e(rows, 3 * d) if resid_qkv is None else None,
+            "rqkv": resid_qkv,
             "mean": f32(rows), "gd": e(rows, d),
             "gd2": e(rows, d) if drop is not None else None,
             "cb": e(rows, d), "pg": e(b, num_heads, n, n),
@@ -228,7 +250,8 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
                     drop is not None)[0]
     _launch("vfs_attn", x, w, bufs, num_heads=num_heads, scaler=scaler,
             n_real=n_real, splits=splits, drop=drop, mt=mt)
-    count_launch("vf_bwd_attn" if drop is None else "vf_bwd_attn_drop")
+    count_launch("vf_bwd_attn_resid" if resid else "vf_bwd_attn"
+                 if drop is None else "vf_bwd_attn_drop")
     wqkv, wout, ga, ba = torch.split(bufs["wbars"],
                                      [3 * d * d, d * d, d, d])
     return bufs["out"], ga, ba, wqkv.view(d, 3 * d), wout.view(d, d)
@@ -236,17 +259,21 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
 
 def vf_bwd_split(x, w: VFWeights, g, *, num_heads: int, scaler: float,
                  n_real: int, g_jas=None, jas_idx=None, g_attn=None,
-                 seed=None, drops=(0.0, 0.0, 0.0), plain: bool = False):
+                 seed=None, drops=(0.0, 0.0, 0.0), plain: bool = False,
+                 resid_qkv=None, resid_h1=None):
     """``vf_bwd``'s 9 cotangents from the two halves: W1, W2 and the MLP
     norm's from the MLP half, Wqkv, Wout and the attention norm's from the
-    attention half, x_bar from both."""
+    attention half, x_bar from both; the stash's residuals, a pair, go to
+    their halves."""
+    check_resid(x, w, drops, resid_qkv, resid_h1)
     xbar_m, w1, w2, gm, bm = vf_bwd_mlp(x, w, g, scaler=scaler,
                                         n_real=n_real, seed=seed,
-                                        drops=drops, plain=plain)
+                                        drops=drops, plain=plain,
+                                        resid_h1=resid_h1)
     x_bar, ga, ba, wqkv, wout = vf_bwd_attn(
         x, w, g, xbar_m, num_heads=num_heads, scaler=scaler, n_real=n_real,
         g_attn=g_attn, g_jas=g_jas, jas_idx=jas_idx, seed=seed, drops=drops,
-        plain=plain)
+        plain=plain, resid_qkv=resid_qkv)
     if not plain and x.device.type != "cpu":
         count_launch("vf_bwd_split" if drop_spec(seed, drops) is None
                      else "vf_bwd_split_drop")

@@ -77,11 +77,21 @@ model's fixed-grid solver over plain-mode evaluations through
 CE without label smoothing; AdamW after the clip. Deterministic only: a
 nonzero dropout rate raises, as JAX's assert does.
 
+Residual stashing (``stash=True`` of both steps, JAX's rule): the free
+step stashes where ``stash and not l2 and not dropout``, the distillation
+step where ``stash and not dropout``. Then the plain and JaSMin-statistics
+evaluations run ``FusedVFStash`` / ``FusedVFJasminStash``: each forward
+also writes its compute-dtype qkv and pre-GELU hidden, and its backward
+reads them instead of recomputing two products. The map-route
+evaluations and the distillation step's final map evaluation do not
+stash, as in JAX; where JAX ignores the flag (dropout, L2, the map
+route) it is ignored here too.
+
 On the GPU every evaluation and its backward launch the kernels (at the
 224 px TS-Base shape, the tiled route); ``plain=True`` runs the same route
 through their plain versions, for comparisons. Not ported yet, and
-raising: residual stashing, the mesh (data-parallel) step and the teacher
-cache; time conditioning raises when the model is built.
+raising: the mesh (data-parallel) step and the teacher cache; time
+conditioning raises when the model is built.
 """
 
 from __future__ import annotations
@@ -201,11 +211,13 @@ def _check_seeds(step_seeds, num_steps: int):
 
 
 def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
-                      step_seeds=None, plain: bool = False):
+                      step_seeds=None, plain: bool = False,
+                      stash: bool = False):
     """(loss, {"logits", "ce", "jasmin_loss"}), differentiable in the
     model's parameters (see the module docstring). A model with dropout
     takes ``step_seeds``, one int32 seed per solver step (the train step
-    draws them with :func:`draw_step_seeds`)."""
+    draws them with :func:`draw_step_seeds`). ``stash`` stashes the
+    residuals where JAX's rule allows it (module docstring)."""
     drops = drop_rates(model)
     if any(drops) and model.l2_attention:
         raise ValueError("the fused L2 path is deterministic only (as "
@@ -218,18 +230,20 @@ def fast_free_forward(model, pixels, labels, *, jasmin_k: int,
     tokens, w, params, kw = _pad_and_weights(model, pixels, plain)
     n = kw["n_real"]
     use_stats = stats_ok(jasmin_k, n, model.l2_attention)
+    # residual stashing: deterministic softmax evaluations only, as JAX's
+    use_stash = stash and not model.l2_attention and not any(drops)
 
     def jas_eval(y, **drop_kw):
         # the statistics route, or JAX's map route on a short sequence
         if use_stats:
             dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
-                                        **drop_kw, **kw)
+                                        stash=use_stash, **drop_kw, **kw)
             return dx, jasmin_from_stats(stats[..., :n], jasmin_k)
         dx, maps = fused_vf_attn(y, w, params, **drop_kw, **kw)
         return dx, jasmin_map_loss(maps[:, :, :n, :n], k=jasmin_k)
 
     def f_plain(t, y):
-        return fused_vf(y, w, params, **kw)
+        return fused_vf(y, w, params, stash=use_stash, **kw)
 
     def f_jas(t, y):
         return jas_eval(y)
@@ -279,15 +293,13 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
     carries the optimizer). ``batch`` holds ``pixel_values`` [B, H, W, C]
     and ``labels`` [B] on the model's device; ``rng``, an int, seeds the
     dropout of a model with nonzero rates (required then; the step count
-    is folded in, so every step draws new masks). Metrics: ``loss`` (CE +
-    JaSMin), ``jasmin_loss``, ``acc`` and ``grad_norm`` (before the clip),
-    as tensors on the device."""
+    is folded in, so every step draws new masks). ``stash``: residual
+    stashing where JAX's rule allows it (module docstring). Metrics:
+    ``loss`` (CE + JaSMin), ``jasmin_loss``, ``acc`` and ``grad_norm``
+    (before the clip), as tensors on the device."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel (mesh) step is not "
                                   "ported yet (the host-side slice)")
-    if stash:
-        raise NotImplementedError("residual stashing is not ported yet "
-                                  "(its own slice, to be measured again)")
 
     has_drop = any(drop_rates(model))
 
@@ -307,7 +319,8 @@ def make_fast_free_train_step(model, *, jasmin_k: int = 10,
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = fast_free_forward(model, pixels, batch["labels"],
                                       jasmin_k=jasmin_k,
-                                      step_seeds=step_seeds, plain=plain)
+                                      step_seeds=step_seeds, plain=plain,
+                                      stash=stash)
         loss.backward()
         grad_norm = state.apply_gradients()
         metrics: Dict[str, torch.Tensor] = {
@@ -379,13 +392,16 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
                          lambda_param: float, mse_full_path: bool = True,
                          use_distillation: bool = True,
                          use_kl_loss: bool = False, supervise: bool = False,
-                         step_seeds=None, plain: bool = False):
+                         step_seeds=None, plain: bool = False,
+                         stash: bool = False):
     """(loss, {"metrics", "logits"}) of the distillation student,
     differentiable in the model's parameters (see the module docstring).
     ``t_states``: the teacher's hidden states [L, B, N_t, D] (layers
     1..L); ``t_attn_last``: its last layer's maps [B, H, N_t, N_t]. A
     model with dropout takes ``step_seeds``, one int32 seed per Euler step
-    (the train step draws them with :func:`draw_step_seeds`)."""
+    (the train step draws them with :func:`draw_step_seeds`). ``stash``
+    stashes the residuals where JAX's rule allows it (module
+    docstring)."""
     if model.solver != "euler":
         raise ValueError("the fused distillation step integrates the "
                          f"reference's Euler grid, not {model.solver!r}")
@@ -400,6 +416,8 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
     tokens, w, params, kw = _pad_and_weights(model, pixels, plain)
     n = kw["n_real"]
     use_stats = stats_ok(jasmin_k, n)
+    # residual stashing: deterministic evaluations only, as JAX's
+    use_stash = stash and not any(drops)
     reg = model.patch_embed.num_registers
     dt = float(model.time_interval) / num_steps
 
@@ -426,14 +444,16 @@ def fast_distill_forward(model, pixels, labels, t_states, t_attn_last, *,
         for i in range(a, b_ - (1 if is_last else 0)):
             if a >= tail_start and use_stats:
                 dx, stats = fused_vf_jasmin(y, w, params, jas_k=jasmin_k,
-                                            **kw, **drop_kw(i))
+                                            stash=use_stash, **kw,
+                                            **drop_kw(i))
                 jas.append(jasmin_from_stats(stats[..., :n], jasmin_k))
             elif a >= tail_start:
                 # JAX's map route on a short sequence
                 dx, maps = fused_vf_attn(y, w, params, **kw, **drop_kw(i))
                 jas.append(jasmin_map_loss(maps[:, :, :n, :n], k=jasmin_k))
             else:
-                dx = fused_vf(y, w, params, **kw, **drop_kw(i))
+                dx = fused_vf(y, w, params, stash=use_stash, **kw,
+                              **drop_kw(i))
             y = advance(y, dx)
         if is_last:
             # the final evaluation emits its maps for the attention loss;
@@ -498,16 +518,15 @@ def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
     (required then; the step count is folded in). Metrics, as
     tensors on the device: ``loss``, ``mse_loss``, ``mse_loss_t@i``,
     ``kl_loss``, ``kl_nonfinite``, ``jasmin_loss``, ``supervision_loss``,
-    ``acc``, ``grad_norm`` (before the clip) and ``nonfinite``."""
+    ``acc``, ``grad_norm`` (before the clip) and ``nonfinite``.
+    ``stash``: residual stashing where JAX's rule allows it (module
+    docstring)."""
     if mesh is not None:
         raise NotImplementedError("the data-parallel (mesh) step is not "
                                   "ported yet (the host-side slice)")
     if teacher_cache:
         raise NotImplementedError("the teacher cache is not ported yet "
                                   "(ROADMAP.md §1)")
-    if stash:
-        raise NotImplementedError("residual stashing is not ported yet "
-                                  "(its own slice, to be measured again)")
 
     has_drop = any(drop_rates(student))
 
@@ -535,7 +554,8 @@ def make_fast_distill_train_step(student, teacher, *, lambda_param: float,
             jasmin_k=jasmin_k, temperature=temperature,
             lambda_param=lambda_param, mse_full_path=mse_full_path,
             use_distillation=use_distillation, use_kl_loss=use_kl_loss,
-            supervise=supervise, step_seeds=step_seeds, plain=plain)
+            supervise=supervise, step_seeds=step_seeds, plain=plain,
+            stash=stash)
         loss.backward()
         grad_norm = state.apply_gradients()
         metrics: Dict[str, torch.Tensor] = {

@@ -259,8 +259,7 @@ def test_distill_map_is_cut_to_real_tokens_before_registers():
     assert seen["shape"] == (8, 2, 17, 17)
 
 
-@pytest.mark.parametrize("option", ["mesh", "teacher_cache", "stash",
-                                    "solver"])
+@pytest.mark.parametrize("option", ["mesh", "teacher_cache", "solver"])
 def test_distill_routes_not_ported_raise(option):
     _, _, _, _, tm, tt, pixels, labels = setup(5)
     if option == "solver":
@@ -271,7 +270,7 @@ def test_distill_routes_not_ported_raise(option):
                                  jasmin_k=2, temperature=30.0,
                                  lambda_param=0.5)
         return
-    kw = {"mesh": object(), "teacher_cache": True, "stash": True}
+    kw = {"mesh": object(), "teacher_cache": True}
     with pytest.raises(NotImplementedError):
         make_fast_distill_train_step(tm, tt, lambda_param=0.5,
                                      **{option: kw[option]})

@@ -135,8 +135,7 @@ def test_cpu_step_counts_no_launch():
     assert launch_counts == before
 
 
-@pytest.mark.parametrize("option", ["mesh", "stash", "short_sequence",
-                                    "schedule"])
+@pytest.mark.parametrize("option", ["mesh", "short_sequence", "schedule"])
 def test_routes_not_ported_raise(option):
     _, _, tm, pixels, labels = setup(3)
     if option == "schedule":
@@ -151,6 +150,5 @@ def test_routes_not_ported_raise(option):
                                     torch.from_numpy(labels), jasmin_k=19)
         assert np.isfinite(loss.item())
         return
-    kw = {"mesh": object(), "stash": True}
     with pytest.raises(NotImplementedError):
-        make_fast_free_train_step(tm, **{option: kw[option]})
+        make_fast_free_train_step(tm, mesh=object())
