@@ -134,6 +134,19 @@ Phases:
      ``stash_kernel_timing`` (each stash instance at its cell's state);
   then the serving slice at 224 px (``serve_224``,
   ``serve_224_kernel_timing``, ``chain_vs_per_step``, ``serving_224``);
+  28. sequences past 256 padded tokens (after the serving slice; cells
+     tsbase384-free-train-drop0.1-b64-bf16 and
+     tsbase384-serve-euler36-b64-bf16: evidence_free_base.yaml's student
+     at 384 px, 587 tokens padded to 592): ``long_kernels_vs_plain``
+     (every key-tiled instance of the tiled route, its split backward and
+     the Macaron tiled route against the plain versions at B=2, 261/272
+     and 587/592 tokens, bf16 and f32; repeats, NaN padding, the emitted
+     masks against the generator, the plans up to 1,024 padded tokens),
+     ``long_train`` (3 steps at B=8 through the kernels and the plain
+     path, then 3 kernel steps at B=64: img/s, split, peak memory, busy
+     share, launches), ``long_serving`` (Euler-36 at B=64 against the
+     plain path, timed; the engine as ``long_serving_engine``) and
+     ``long_kernel_timing`` (each key-tiled instance alone at B=64);
   last, the kernels line (launch counts of the main paths, times, bounds)
   and the result line.
 
@@ -2863,24 +2876,25 @@ def phase_chain_vs_per_step(model, x, student, x224):
 
 
 def phase_serving_224(model, rng, counter="vf_eval_euler_tiled", evals=24,
-                      name="serving_224", dtype="bfloat16"):
-    """A ServingEngine over the euler-25 student (or another 224 px model,
-    whose forward launches ``evals`` of ``counter``), buckets (1, 8, 64),
-    its preprocess ``make_preprocess(image_size=224)`` (the engine takes
-    the model's 224 px, as JAX's does, so the resize is the identity),
-    answers 16 uint8 requests of 1-20 images from 4 threads; each answer
-    is held against a direct ``fast_forward``; the mean latency and the
-    B=1 forward time. ``dtype``: the preprocess's output dtype."""
+                      name="serving_224", dtype="bfloat16", image_size=224):
+    """A ServingEngine over the euler-25 student (or another model of
+    ``image_size`` px, whose forward launches ``evals`` of ``counter``),
+    buckets (1, 8, 64), its preprocess ``make_preprocess(image_size)``
+    (the engine takes the model's size, as JAX's does, so the resize is
+    the identity), answers 16 uint8 requests of 1-20 images from 4
+    threads; each answer is held against a direct ``fast_forward``; the
+    mean latency and the B=1 forward time. ``dtype``: the preprocess's
+    output dtype."""
     import numpy as np
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
     from odevit_tpu_torch.models.fast_forward import fast_forward
     from odevit_tpu_torch.serve.engine import ServingEngine
-    pre = make_preprocess(image_size=224, dtype=getattr(torch, dtype))
+    pre = make_preprocess(image_size=image_size, dtype=getattr(torch, dtype))
     sizes = [int(s) for s in rng.integers(1, 21, 16)]
-    requests = [rng.integers(0, 256, (s, 224, 224, 3), dtype=np.uint8)
-                for s in sizes]
+    requests = [rng.integers(0, 256, (s, image_size, image_size, 3),
+                             dtype=np.uint8) for s in sizes]
     answers = [None] * len(requests)
     with ServingEngine(model, batch_buckets=(1, 8, 64), preprocess=pre,
                        max_delay_ms=2.0, device="cuda") as engine:
@@ -3362,7 +3376,8 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     near-zeros); each launch counted once as ``counters`` (the forward's,
     the backward's) say; repeats bit-identical; NaN and garbage in the
     padded rows inert; ``plans()`` holds the Python plans against the
-    CUDA ones and returns the number of shapes."""
+    CUDA ones and returns the number of shapes. Returns the launches it
+    made, by counter."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.macaron import macaron_eval
@@ -3444,9 +3459,12 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
         check(same, f"Macaron {dtype}: padded rows reached a real row")
         results.append(r)
     shapes = plans()
+    made = {k: v - before[k] for k, v in launch_counts.items()
+            if v != before[k]}
     launch_counts.update(before)           # comparisons do not count
     emit(name, weight_noise=0.1, plans_agree_over_shapes=shapes,
          results=results)
+    return made
 
 
 def phase_macaron_kernels_vs_plain():
@@ -4172,6 +4190,617 @@ def masks_bound(b: int, n_real: int, d: int, dh: int, heads: int,
 
 
 
+# --- sequences past 256 padded tokens: the key-tiled attention ----------
+
+LONG_TRAIN_CELL = "tsbase384-free-train-drop0.1-b64-bf16"
+LONG_SERVE_CELL = "tsbase384-serve-euler36-b64-bf16"
+LONG_SHAPES = ((272, 261), (592, 587))   # (n_pad, n_real) of phase 28a
+LONG_K = 2                               # the recipe's jasmin_k
+LONG_CHECK_BATCH = 8                     # kernels vs plain, 3 steps
+LONG_BATCH = 64
+# the free step at 384 px and dropout 0.1, per step: jasmin_window(36,
+# "euler") = (5, 30) plain and JaSMin evaluations, and their 35 backwards,
+# all on the key-tiled instances
+LONG_LAUNCHES = {"vf_eval_tiled_drop_kt": 5,
+                 "vf_eval_jasmin_tiled_drop_kt": 30,
+                 "vf_bwd_tiled_drop_kt": 35}
+
+
+def long_student(drops=None, solver="euler", steps=36):
+    """The TS-Base student of evidence_free_base.yaml at 384 px: patch 16,
+    D=768, 12 heads, MLP ratio 1, 10 registers, 587 tokens padded to 592,
+    bf16, from seed 0; with ``drops``, at those attn/proj/mlp rates."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    rates = dict(zip(("attn_drop", "proj_drop", "mlp_drop"), drops or ()))
+    return ViTODE(img_size=384, patch_size=16, embed_dim=768, num_heads=12,
+                  mlp_ratio=1.0, num_classes=100, emulate_depth=12,
+                  time_interval=1.0, register_tokens=10,
+                  pos_embed_register_tokens=False, solver=solver,
+                  num_eval_steps=steps, dtype=torch.bfloat16, device="cuda",
+                  seed=0, **rates)
+
+
+def long_weights(d, heads, dh, g):
+    """A field's weights at width d (scales of the model's
+    initialisation; norms and L2 biases normal(0, 0.1) around 1 and 0), as
+    {dtype: (softmax weights, L2 weights)} in bf16 and f32."""
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import VFWeights
+    r = lambda *s, sc: torch.randn(*s, generator=g, device="cuda") * sc
+    norms = (1 + r(d, sc=0.1), r(d, sc=0.1), 1 + r(d, sc=0.1), r(d, sc=0.1))
+    mats = (r(d, 3 * d, sc=d ** -0.5), r(d, d, sc=d ** -0.5),
+            r(d, dh, sc=d ** -0.5), r(dh, d, sc=dh ** -0.5))
+    bias = dict(qkv_bias=r(3 * d, sc=0.1), out_bias=r(d, sc=0.1))
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        w = VFWeights(*norms, *(m.to(dtype).contiguous() for m in mats))
+        out[dtype] = (w, w._replace(**bias))
+    return out
+
+
+def long_plans_agree():
+    """``tiled_plan_rule`` and ``tiled_macaron_plan`` (Python, which route
+    on either device) against ``vft_plan`` and ``mct_plan`` over shapes up
+    to 1,024 padded tokens, whole-row and key-tiled: the same plan, or
+    none on both sides."""
+    import torch
+    from odevit_tpu_torch.kernels.macaron_tiled import (kernel_tiled_plan,
+                                                        tiled_macaron_plan)
+    from odevit_tpu_torch.kernels.tiled import tiled_plan, tiled_plan_rule
+    shapes = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_pad in (256, 272, 288, 400, 592, 600, 608, 1024):
+            for d, heads in ((32, 2), (64, 2), (192, 3), (384, 6), (768, 12),
+                             (1024, 16), (768, 4)):
+                for dh in (d, 4 * d):
+                    for drop, l2 in ((False, False), (True, False),
+                                     (False, True)):
+                        args = (dtype, n_pad, n_pad - 5, d, heads, dh, drop,
+                                l2)
+                        try:
+                            want = tiled_plan(*args)
+                        except ValueError:
+                            want = None
+                        got = tiled_plan_rule(*args)
+                        check(got == want, f"tiled plan {args}: python "
+                              f"{got}, vft_plan {want}")
+                        shapes += 1
+                    args = (dtype, n_pad, n_pad - 5, d, heads, dh)
+                    got, want = tiled_macaron_plan(*args), \
+                        kernel_tiled_plan(*args)
+                    check(got == want, f"Macaron tiled plan {args}: python "
+                          f"{got}, mct_plan {want}")
+                    shapes += 1
+    return shapes
+
+
+def phase_long_kernels_vs_plain():
+    """Phase 28a: every key-tiled instance against its plain version at
+    B=2, 261 tokens padded to 272 and 587 padded to 592 (the last key tile
+    partial), D=768, 12 heads, bf16 and f32: the forward's plain, Euler,
+    stage-advance, JaSMin (k=2, k=10), map, dropout (± emit_masks, the
+    masks bit-identical to ``generate_dropout_masks``), stash and L2
+    instances; the backward with the dx, JaSMin and map cotangents, ±
+    dropout, resid and L2; the split pair at dh=3072; the Macaron tiled
+    route (3 modes, 16 cotangents). Statistics' columns on real keys,
+    repeats bit-identical, NaN in padded rows inert, each launch counted
+    once under its ``_kt`` counter; the Python plans against the CUDA
+    ones up to 1,024 padded tokens."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import generate_dropout_masks
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    from odevit_tpu_torch.kernels.tiled import tiled_plan
+    before = dict(launch_counts)
+    checked = {}
+    b, d, heads, dh = 2, 768, 12, 768
+    g = torch.Generator(device="cuda").manual_seed(28)
+    weights = long_weights(d, heads, dh, g)
+    w4s = long_weights(d, heads, 4 * d, g)
+    seed, drops = DROP_SEEDS[2], DROP_RATES
+    dkw = dict(seed=seed, drops=drops)
+
+    def routed(fn, want):
+        counts = dict(launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: launch_counts[k] - counts[k] for k in counts
+               if launch_counts[k] != counts[k]}
+        check(got == want, f"launched {got}, want {want}")
+        for k, v in got.items():
+            checked[k] = checked.get(k, 0) + v
+        return out
+
+    results = []
+    for n_pad, n_real in LONG_SHAPES:
+        kw = dict(num_heads=heads, scaler=4.0, n_real=n_real)
+        for dtype, tol in ((torch.bfloat16, TOL_BF16),
+                           (torch.float32, TOL_F32)):
+            w, wl2 = weights[dtype]
+            w4 = w4s[dtype][0]
+            x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+            x[:, 5:11] = x[:, 5:6]            # tied keys
+            x[:, n_real:] = 0
+            x = x.to(dtype)
+            xb = torch.randn(b, n_pad, d, generator=g,
+                             device="cuda").to(dtype)
+            gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+            gx[:, n_real:] = 0
+            gx = gx.to(dtype)
+            gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                             device="cuda") * 1e-2
+            gj[..., n_real:] = 0
+            ga = torch.randn(b, heads, n_pad, n_pad, generator=g,
+                             device="cuda") * 1e-2
+            ga[:, :, n_real:] = 0
+            ga[..., n_real:] = 0
+            ga = ga.to(dtype)
+            r = {"dtype": str(dtype), "tol": tol,
+                 "shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh}",
+                 "plan": tiled_plan(dtype, n_pad, n_real, d, heads, dh)}
+            errs = {}
+            real = lambda a: a[:, :n_real]
+
+            def cmp(name, got, want):
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                e = 0.0
+                for a, c in zip(got, want):
+                    if a.dtype == torch.int32:
+                        continue
+                    big = a.dim() == 3 and a.shape[1] == n_pad
+                    e = max(e, rel_err(real(a) if big else a,
+                                       real(c) if big else c))
+                errs[name] = e
+
+            fwd = {
+                "plain": ({}, "vf_eval_tiled_kt"),
+                "euler": (dict(mode="euler", dt=0.1),
+                          "vf_eval_euler_tiled_kt"),
+                "base": (dict(mode="base", dt=0.1, base=xb),
+                         "vf_eval_base_tiled_kt"),
+                "drop": (dkw, "vf_eval_tiled_drop_kt")}
+            for name, (extra, counter) in fwd.items():
+                cmp(name, routed(lambda: vf_eval(x, w, **kw, **extra),
+                                 {counter: 1}),
+                    vf_eval(x, w, plain=True, **kw, **extra))
+            jas = {}
+            for k in (LONG_K, JASMIN_K):
+                got = routed(lambda: vf_eval_jasmin(x, w, jas_k=k, **kw),
+                             {"vf_eval_jasmin_tiled_kt": 1})
+                cmp(f"jasmin_k{k}", got,
+                    vf_eval_jasmin(x, w, jas_k=k, plain=True, **kw))
+                jas[k] = got
+                # each statistic's column is a real key; the columns of
+                # different ranks differ, those of one rank agree
+                kk = k + 1
+                ranks = (0, 1, kk - 2, kk - 1)
+                cols = got[2][..., :n_real].long()
+                ok = (cols >= 0) & (cols < n_real)
+                for i in range(4):
+                    for j in range(4):
+                        if i != j:
+                            same = cols[:, :, i] == cols[:, :, j]
+                            ok[:, :, i] &= same if ranks[i] == ranks[j] \
+                                else ~same
+                check(bool(ok.all()), f"long jasmin k={k} {dtype} n={n_pad}: "
+                      f"statistics' columns")
+                check(not got[1][..., n_real:].any(),
+                      "statistics not zero on padded rows")
+            djas = routed(lambda: vf_eval_jasmin(x, w, jas_k=LONG_K, **kw,
+                                                 **dkw),
+                          {"vf_eval_jasmin_tiled_drop_kt": 1})
+            cmp("drop_jasmin", djas,
+                vf_eval_jasmin(x, w, jas_k=LONG_K, plain=True, **kw, **dkw))
+            check(torch.equal(djas[1], jas[LONG_K][1])
+                  and torch.equal(djas[2], jas[LONG_K][2]),
+                  "dropout changed the JaSMin statistics")
+            amap = routed(lambda: vf_eval_attn(x, w, **kw),
+                          {"vf_eval_attn_kt": 1})
+            cmp("map", amap, vf_eval_attn(x, w, plain=True, **kw))
+            check(not amap[1][:, :, n_real:].any()
+                  and not amap[1][..., n_real:].any(),
+                  "the map is not zero on padded rows and keys")
+            dmap = routed(lambda: vf_eval_attn(x, w, **kw, **dkw),
+                          {"vf_eval_attn_drop_kt": 1})
+            cmp("drop_map", dmap, vf_eval_attn(x, w, plain=True, **kw, **dkw))
+            check(torch.equal(dmap[1], amap[1]), "dropout changed the map")
+            out, masks = routed(
+                lambda: vf_eval(x, w, emit_masks=True, **kw, **dkw),
+                {"vf_eval_masks_kt": 1})
+            cmp("masks_out", out, vf_eval(x, w, plain=True, **kw, **dkw))
+            gen = generate_dropout_masks(
+                b, n_real, d, dh, heads, seed, attn_drop=drops[0],
+                proj_drop=drops[1], mlp_drop=drops[2], device="cuda")
+            cut = [m.reshape(b, n_pad, -1)[:, :n_real] for m in masks[:3]] \
+                + [masks[3][:, :, :n_real, :n_real]]
+            r["masks_equal_generator"] = all(
+                torch.equal(a, c) for a, c in zip(cut, gen))
+            check(r["masks_equal_generator"], "emitted masks differ from "
+                  "generate_dropout_masks")
+            check(not masks[3][:, :, n_real:].any()
+                  and not masks[3][..., n_real:].any(),
+                  "mask_p not zero on padding")
+            sout = routed(lambda: vf_eval(x, w, stash=True, **kw),
+                          {"vf_eval_stash_tiled_kt": 1})
+            rows = lambda o: (o[0], *resid_rows(o[1], b, n_pad, n_real))
+            cmp("stash", rows(sout),
+                rows(vf_eval(x, w, stash=True, plain=True, **kw)))
+            check(torch.equal(sout[0], vf_eval(x, w, **kw)),
+                  "the stash forward's f(x) differs")
+            sjas = routed(lambda: vf_eval_jasmin(x, w, jas_k=LONG_K,
+                                                 stash=True, **kw),
+                          {"vf_eval_jasmin_stash_tiled_kt": 1})
+            cmp("stash_jasmin", sjas[:3], vf_eval_jasmin(
+                x, w, jas_k=LONG_K, stash=True, plain=True, **kw)[:3])
+            cmp("l2", routed(lambda: vf_eval(x, wl2, **kw),
+                             {"vf_eval_l2_tiled_kt": 1}),
+                vf_eval(x, wl2, plain=True, **kw))
+            ljas = routed(lambda: vf_eval_jasmin(x, wl2, jas_k=LONG_K, **kw),
+                          {"vf_eval_jasmin_l2_tiled_kt": 1})
+            cmp("l2_jasmin", ljas,
+                vf_eval_jasmin(x, wl2, jas_k=LONG_K, plain=True, **kw))
+            # the backwards
+            idx = jas[LONG_K][2]
+            bwd = {
+                "bwd_g": (w, {}, {"vf_bwd_tiled_kt": 1}),
+                "bwd_g_jas": (w, dict(g_jas=gj, jas_idx=idx),
+                              {"vf_bwd_tiled_kt": 1}),
+                "bwd_g_attn": (w, dict(g_attn=ga, g_jas=gj, jas_idx=idx),
+                               {"vf_bwd_tiled_kt": 1}),
+                "bwd_drop_g_jas": (w, dict(g_jas=gj, jas_idx=idx, **dkw),
+                                   {"vf_bwd_tiled_drop_kt": 1}),
+                "bwd_drop_g_attn": (w, dict(g_attn=ga, **dkw),
+                                    {"vf_bwd_tiled_drop_kt": 1}),
+                "bwd_resid": (w, dict(g_jas=gj, jas_idx=idx,
+                                      resid_qkv=sjas[3][0],
+                                      resid_h1=sjas[3][1]),
+                              {"vf_bwd_resid_tiled_kt": 1}),
+                "bwd_l2": (wl2, dict(g_jas=gj, jas_idx=ljas[2]),
+                           {"vf_bwd_l2_tiled_kt": 1}),
+                "bwd_split": (w4, dict(g_jas=gj, jas_idx=idx),
+                              {"vf_bwd_mlp": 1, "vf_bwd_attn_kt": 1,
+                               "vf_bwd_split": 1}),
+                "bwd_split_drop": (w4, dict(g_attn=ga, **dkw),
+                                   {"vf_bwd_mlp_drop": 1,
+                                    "vf_bwd_attn_drop_kt": 1,
+                                    "vf_bwd_split_drop": 1})}
+            repeats = {}
+            for name, (wb, extra, counters) in bwd.items():
+                got = routed(lambda: vf_bwd(x, wb, gx, **kw, **extra),
+                             counters)
+                cmp(name, got, vf_bwd(x, wb, gx, plain=True, **kw, **extra))
+                if name in ("bwd_g_attn", "bwd_drop_g_jas", "bwd_l2",
+                            "bwd_split"):
+                    again = routed(lambda: vf_bwd(x, wb, gx, **kw, **extra),
+                                   counters)
+                    repeats[name] = all(torch.equal(a, c)
+                                        for a, c in zip(got, again))
+                if name == "bwd_g_attn":
+                    clean = got
+            r["repeat_bit_identical"] = repeats
+            check(all(repeats.values()), f"long bwd not repeatable: "
+                  f"{repeats}")
+            # NaN and garbage in the padded rows change no real row
+            dirty = x.clone()
+            dirty[:, n_real:] = float("nan")
+            gdirty = gx.clone()
+            gdirty[:, n_real:] = 1e30 if dtype == torch.float32 else 3e38
+            ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=LONG_K, **kw)
+            dbars = vf_bwd(dirty, w, gdirty, g_attn=ga, g_jas=gj,
+                           jas_idx=idx, **kw)
+            torch.cuda.synchronize()
+            r["nan_padding_unchanged"] = (
+                torch.equal(real(ddx), real(jas[LONG_K][0]))
+                and torch.equal(dst, jas[LONG_K][1])
+                and torch.equal(didx, jas[LONG_K][2])
+                and all(torch.equal(a, c) for a, c in zip(dbars, clean)))
+            check(r["nan_padding_unchanged"], f"{dtype} n={n_pad}: padded "
+                  f"rows reached a real row")
+            r["rel_err"] = errs
+            check(max(errs.values()) <= tol, f"long {dtype} n={n_pad}: "
+                  f"{errs}")
+            results.append(r)
+    for n_pad, n_real in LONG_SHAPES:
+        made = macaron_vs_plain(
+            f"long_macaron_kernels_vs_plain_{n_pad}", macaron224_model(), b,
+            n_real, n_pad, ("macaron_eval_tiled_kt", "macaron_bwd_tiled_kt"),
+            lambda: 0)
+        for k, v in made.items():
+            checked[k] = checked.get(k, 0) + v
+    shapes = long_plans_agree()
+    launch_counts.update(before)           # comparisons do not count
+    emit("long_kernels_vs_plain", plans_agree_over_shapes=shapes,
+         launches_checked=checked, results=results)
+    return checked
+
+
+def long_kernel_steps(model, images_u8, labels, pre, rng):
+    """Three free steps of ``model`` through the kernels alone (the plain
+    path is too slow at this batch): ms per step, img/s (best of steps
+    2-3), launches per step and peak memory; then one step split by CUDA
+    events into forward, backward and optimizer, and one profiled."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.train.fast_steps import (draw_step_seeds,
+                                                   fast_free_forward,
+                                                   make_fast_free_train_step)
+    from odevit_tpu_torch.train.state import (create_train_state,
+                                              make_optimizer)
+    nb = images_u8.shape[0]
+    batch = {"pixel_values": images_u8, "labels": labels}
+    state = create_train_state(model, make_optimizer(1e-4))
+    step = make_fast_free_train_step(model, jasmin_k=LONG_K,
+                                     preprocess_fn=pre)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, rng=rng)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(metrics["loss"].item())
+    launches = {k: v for k, v in launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    seeds = draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = fast_free_forward(model, pre(images_u8), labels,
+                                jasmin_k=LONG_K, step_seeds=seeds)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    state.apply_gradients()
+    ev[3].record()
+    torch.cuda.synchronize()
+    profile = profile_step(lambda s, bt: step(s, bt, rng=rng), state, batch)
+    return {"ms_per_step": ms, "loss": losses,
+            "img_per_s_best_of_2_3": nb / min(ms[1:]) * 1e3,
+            "peak_mem_gb": peak, "launches": launches,
+            "launches_per_step": {k: v / TRAIN_STEPS
+                                  for k, v in launches.items()},
+            "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
+                         "backward": ev[1].elapsed_time(ev[2]),
+                         "optimizer": ev[2].elapsed_time(ev[3])},
+            "profile": profile}
+
+
+def phase_long_train(images_u8, labels):
+    """Phase 28b, cell tsbase384-free-train-drop0.1-b64-bf16: the free
+    step of the 384 px TS-Base student at dropout 0.1 (``rng=0``; 32 px
+    uint8 resized to 384 on the card): 3 steps at B=8 through the kernels
+    and through the plain path from the same weights and rng, then 3
+    kernel steps at B=64."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    pre = make_preprocess(image_size=384, dtype=torch.bfloat16)
+    nb = LONG_CHECK_BATCH
+    runs, profile, cos, loss_rel, per_step = train_runs(
+        images_u8[:nb], labels[:nb], drops=DROP_RATES,
+        model_fn=lambda rates: long_student(DROP_RATES), pre=pre,
+        jasmin_k=LONG_K)
+    check_train("long_train", runs, cos, loss_rel, per_step, LONG_LAUNCHES)
+    full = long_kernel_steps(long_student(DROP_RATES), images_u8, labels,
+                             pre, DROP_RNG)
+    check(all(np.isfinite(v) for v in full["loss"]),
+          "long_train: non-finite loss at B=64")
+    want = {**{k: 0 for k in full["launches_per_step"]}, **LONG_LAUNCHES}
+    check(full["launches_per_step"] == want, f"long_train B=64: launches "
+          f"{full['launches_per_step']}")
+    b = images_u8.shape[0]
+    emit("long_train_profile", **full.pop("profile"))
+    emit("long_train", cell=LONG_TRAIN_CELL, batch=b,
+         input="uint8 32x32 resized to 384", tokens="587/592",
+         solver="euler-36", jasmin_k=LONG_K, drops=DROP_RATES,
+         check_batch=nb, first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         check_launches_per_step=per_step, check_results=runs,
+         check_profile=profile, img_per_s=full["img_per_s_best_of_2_3"],
+         **full)
+    return full["launches"]
+
+
+def phase_long_serving(rng):
+    """Phase 28c, cell tsbase384-serve-euler36-b64-bf16: ``fast_forward``
+    of the 384 px student at Euler on 36 points (35 key-tiled Euler
+    launches per forward) at B=64 on 384 px uint8, against the plain path,
+    timed, with its peak memory; then 16 engine requests against direct
+    forwards and the B=1 latency."""
+    import numpy as np
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.models.fast_forward import fast_forward
+    model = long_student()
+    images = torch.from_numpy(rng.integers(
+        0, 256, (LONG_BATCH, 384, 384, 3), dtype=np.uint8)).cuda()
+    x = make_preprocess(image_size=384, dtype=torch.bfloat16)(images)
+    b = x.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    got = fast_forward(model, x)["logits"]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == {"vf_eval_euler_tiled_kt": 35},
+          f"{LONG_SERVE_CELL}: launches {launches}")
+    want = fast_forward(model, x, plain=True)["logits"]
+    torch.cuda.synchronize()
+    err = rel_err(got, want)
+    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (b, 100),
+          f"{LONG_SERVE_CELL}: logits {got.shape}")
+    check(err <= TOL_LOGITS, f"{LONG_SERVE_CELL}: logits rel err {err}")
+    check(top1 >= MIN_TOP1_AGREEMENT,
+          f"{LONG_SERVE_CELL}: top-1 agreement {top1}")
+    ms = cuda_ms(lambda: fast_forward(model, x), iters=3)
+    plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True), iters=1)
+    engine = phase_serving_224(model, rng, counter="vf_eval_euler_tiled_kt",
+                               evals=35, name="long_serving_engine",
+                               image_size=384)
+    emit("long_serving", cell=LONG_SERVE_CELL, solver="euler-36",
+         tokens="587/592", batch=b, launches=launches, rel_err=err,
+         tol=TOL_LOGITS, top1_agreement=top1, ms_per_forward=ms,
+         img_per_s=b / ms * 1e3, plain_ms_per_forward=plain_ms,
+         plain_img_per_s=b / plain_ms * 1e3, peak_mem_gb=peak,
+         engine_launches=engine)
+    return launches, model
+
+
+def phase_long_kernel_timing(model, images_u8):
+    """Phase 28d: each key-tiled instance alone at B=64 on the 384 px
+    student's first state (587 tokens padded to 592), against its plain
+    version; the dropout instances at the cell's rates, their bounds
+    counting the masks' Philox work; the split attention half at dh=3072
+    and the Macaron route (f32, D=768, dh=1536) on random states of the
+    same shape."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron_bwd import macaron_bwd
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import vf_bwd_attn
+    before = dict(launch_counts)
+    b, d, dh, heads = LONG_BATCH, 768, 768, 12
+    out = {}
+    with torch.no_grad():
+        x, w, kw = first_state(model, images_u8, image_size=384)
+        n_real, n_pad = kw["n_real"], x.shape[1]
+        g = torch.Generator(device="cuda").manual_seed(6)
+        wl2 = long_weights(d, heads, dh, g)[torch.bfloat16][1]
+        w4 = long_weights(d, heads, 4 * d, g)[torch.bfloat16][0]
+        dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+        gx = (torch.randn(x.shape, generator=g, device="cuda") * 1e-3).to(
+            torch.bfloat16)
+        gx[:, n_real:] = 0
+        _, _, idx = vf_eval_jasmin(x, w, jas_k=LONG_K, **kw)
+        _, _, lidx = vf_eval_jasmin(x, wl2, jas_k=LONG_K, **kw)
+        gj = torch.randn(b, heads, 5, n_pad, generator=g,
+                         device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        ga = (torch.randn(b, heads, n_pad, n_pad, generator=g,
+                          device="cuda") * 1e-3).to(torch.bfloat16)
+        _, (rqkv, rh1) = vf_eval(x, w, stash=True, **kw)
+        xm = torch.zeros(b, n_pad, 768, device="cuda").normal_(
+            generator=g).float()
+        xbar_m = torch.randn(x.shape, generator=g, device="cuda") * 1e-3
+        kk = LONG_K + 1
+        calls = dropout_calls(b, n_real, d, dh, heads)
+        stb = stash_bounds(b, n_real, d, dh, heads, 2, kk)
+        jobs = {
+            # the main paths: the training step's and serving's
+            "vf_eval_tiled_drop_kt": (
+                lambda pl: vf_eval(x, w, plain=pl, **kw, **dkw),
+                vf_bound(b, n_real, d, dh, 2), calls),
+            "vf_eval_jasmin_tiled_drop_kt": (
+                lambda pl: vf_eval_jasmin(x, w, jas_k=LONG_K, plain=pl, **kw,
+                                          **dkw),
+                jasmin_bound(b, n_real, d, dh, heads, 2, kk), calls),
+            "vf_bwd_tiled_drop_kt": (
+                lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=pl,
+                                  **kw, **dkw),
+                bwd_bound(b, n_real, d, dh, heads, 2), calls),
+            "vf_eval_euler_tiled_kt": (
+                lambda pl: vf_eval(x, w, mode="euler", dt=1 / 35, plain=pl,
+                                   **kw),
+                vf_bound(b, n_real, d, dh, 2), 0),
+            # the other key-tiled instances
+            "vf_eval_tiled_kt": (lambda pl: vf_eval(x, w, plain=pl, **kw),
+                                 vf_bound(b, n_real, d, dh, 2), 0),
+            "vf_eval_base_tiled_kt": (
+                lambda pl: vf_eval(x, w, mode="base", dt=0.5, base=x,
+                                   plain=pl, **kw),
+                vf_bound(b, n_real, d, dh, 2, states=3), 0),
+            "vf_eval_jasmin_tiled_kt": (
+                lambda pl: vf_eval_jasmin(x, w, jas_k=LONG_K, plain=pl, **kw),
+                jasmin_bound(b, n_real, d, dh, heads, 2, kk), 0),
+            "vf_eval_attn_kt": (lambda pl: vf_eval_attn(x, w, plain=pl, **kw),
+                                attn_bound(b, n_real, d, dh, heads, 2), 0),
+            "vf_eval_attn_drop_kt": (
+                lambda pl: vf_eval_attn(x, w, plain=pl, **kw, **dkw),
+                attn_bound(b, n_real, d, dh, heads, 2), calls),
+            "vf_eval_masks_kt": (
+                lambda pl: (lambda f, m: (f, *m))(*vf_eval(
+                    x, w, plain=pl, emit_masks=True, **kw, **dkw)),
+                masks_bound(b, n_real, d, dh, heads, 2), calls),
+            "vf_bwd_tiled_kt": (
+                lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx,
+                                  g_attn=ga, plain=pl, **kw),
+                bwd_bound(b, n_real, d, dh, heads, 2, map_cotangent=True), 0),
+            "vf_eval_stash_tiled_kt": (
+                lambda pl: (lambda f, r: (f, *resid_rows(r, b, n_pad,
+                                                         n_real)))(
+                    *vf_eval(x, w, stash=True, plain=pl, **kw)),
+                stb["fwd"], 0),
+            "vf_eval_jasmin_stash_tiled_kt": (
+                lambda pl: (lambda f, s, i, r: (
+                    f, s, i, *resid_rows(r, b, n_pad, n_real)))(
+                    *vf_eval_jasmin(x, w, jas_k=LONG_K, stash=True, plain=pl,
+                                    **kw)),
+                stb["jasmin"], 0),
+            "vf_bwd_resid_tiled_kt": (
+                lambda pl: vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx,
+                                  resid_qkv=rqkv, resid_h1=rh1, plain=pl,
+                                  **kw), stb["bwd"], 0),
+            "vf_eval_l2_tiled_kt": (lambda pl: vf_eval(x, wl2, plain=pl, **kw),
+                                    vf_bound(b, n_real, d, dh, 2), 0),
+            "vf_eval_jasmin_l2_tiled_kt": (
+                lambda pl: vf_eval_jasmin(x, wl2, jas_k=LONG_K, plain=pl,
+                                          **kw),
+                jasmin_bound(b, n_real, d, dh, heads, 2, kk), 0),
+            "vf_bwd_l2_tiled_kt": (
+                lambda pl: vf_bwd(x, wl2, gx, g_jas=gj, jas_idx=lidx,
+                                  plain=pl, **kw),
+                bwd_bound(b, n_real, d, dh, heads, 2), 0),
+            "vf_bwd_attn_kt": (
+                lambda pl: vf_bwd_attn(x, w4, gx, xbar_m, g_jas=gj,
+                                       jas_idx=idx, plain=pl, **kw),
+                attn_bwd_bound(b, n_real, d, heads, 2), 0)}
+        out.update(time_jobs(jobs, n_real))
+        mw = macaron224_model().vf.kernel_weights(torch.float32)
+        mkw = dict(num_heads=heads, scaler=1.0, n_real=n_real)
+        xm[:, n_real:] = 0
+        gm = (xm * 1e-2).contiguous()
+        mjobs = {
+            "macaron_eval_tiled_kt": (
+                lambda pl: macaron_eval(xm, mw, plain=pl, **mkw),
+                macaron_bound(b, n_real, d, 1536, 4), 0),
+            "macaron_bwd_tiled_kt": (
+                lambda pl: macaron_bwd(xm, mw, gm, plain=pl, **mkw),
+                macaron_bound(b, n_real, d, 1536, 4, backward=True), 0)}
+        for name, (fn, bound, calls_) in mjobs.items():
+            got, want = fn(False), fn(True)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [rel_err(a[:, :n_real] if a.dim() == 3 else a,
+                            c[:, :n_real] if c.dim() == 3 else c)
+                    for a, c in zip(got, want)]
+            check(max(errs) <= TOL_F32, f"{name}: {errs}")
+            out[name] = {
+                "max_abs_err": max((a.float() - c.float()).abs().max().item()
+                                   for a, c in zip(got, want)),
+                "rel_errs": errs, "ms": cuda_ms(lambda: fn(False), iters=3),
+                "plain_ms": cuda_ms(lambda: fn(True), iters=1),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "bound_unit": "f32", "library_ms": None}
+    launch_counts.update(before)           # comparisons do not count
+    emit("long_kernel_timing", shape=f"B={b} n={n_real}/{n_pad} D=768 H=12 "
+         f"dh=768 bf16 (split half dh=3072; Macaron f32 dh=1536)",
+         drops=DROP_RATES, philox_calls=calls, results=out)
+    return out
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4282,6 +4911,15 @@ def main() -> int:
     chain_launches, chain_timing = phase_chain_vs_per_step(
         cifar_euler, x, euler25, x224)
     phase_serving_224(euler25, rng_s)
+    # phase 28: sequences past 256 padded tokens (the key-tiled attention),
+    # the TS-Base student at 384 px trained (32 px resized on the card) and
+    # served
+    del euler25, students
+    long_checked = phase_long_kernels_vs_plain()
+    long_train = phase_long_train(images_d, labels_d)
+    long_serve, long_model = phase_long_serving(np.random.default_rng(3))
+    long_timing = phase_long_kernel_timing(long_model, images_d)
+    del long_model
 
     kernels = [{
         "name": "vf_eval", "route": "cuda",
@@ -4477,7 +5115,36 @@ def main() -> int:
         # distillation cells'
         if entry["name"] in map_launches:
             entry["launches_map_route"] = map_launches[entry["name"]]
-    check(len(kernels) == 41, f"{len(kernels)} kernels in the line")
+    for name, entry in long_timing.items():
+        # the key-tiled instances: launches on the slice's main paths (the
+        # 384 px cells), else those held against the plain versions in
+        # phase 28a
+        path, launches = (
+            (LONG_TRAIN_CELL, long_train[name]) if name in long_train else
+            (LONG_SERVE_CELL, long_serve[name]) if name in long_serve else
+            ("long_kernels_vs_plain", long_checked[name]))
+        source, replaces = (
+            ("macaron_tiled.cu", "macaron.py:218") if name.startswith(
+                "macaron_bwd") else
+            ("macaron_tiled.cu", "macaron.py:45") if name.startswith(
+                "macaron") else
+            ("vector_field_bwd_split.cu", "vector_field_bwd.py:432")
+            if name.startswith("vf_bwd_attn") else
+            ("vector_field_tiled.cu", "vector_field_bwd.py:117")
+            if name.startswith("vf_bwd") else
+            ("vector_field_tiled.cu", "vector_field.py:221")
+            if name.startswith("vf_eval_masks") else
+            ("vector_field_tiled.cu", "vector_field.py:196"))
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"odevit_tpu_torch/csrc/{source}",
+            "replaces": f"odevit_tpu/kernels/{replaces}",
+            "launches": launches, "launches_of": path,
+            **{k: v for k, v in entry.items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "bound_unit", "library_ms")}})
+    check(len(kernels) == 41 + len(long_timing),
+          f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

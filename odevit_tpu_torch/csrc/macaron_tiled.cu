@@ -2,7 +2,8 @@
 // backward, on Hopper (sm_90a), for shapes where one image does not fit one
 // CTA of macaron.cu / macaron_bwd.cu (more than 128 padded tokens, such as
 // a 224 px ViTMacaron at patch 16: 197 tokens padded to 208, D=768, 12
-// heads, dh=1536).
+// heads, dh=1536). Past 256 padded tokens the attention runs
+// vector_field_tiled.cu's key-tiled instances.
 //
 // Replaces the TPU kernels odevit_tpu/kernels/macaron.py::_macaron_kernel
 // (plain, Euler and stage-advance modes) and _macaron_bwd_kernel (the 16
@@ -180,11 +181,14 @@ __device__ void colsum(const S* src, int ld, int w, int n_real, float scale,
 
 // One CTA per image: the backward's per-row steps between products (see
 // the top of the file), `stage` 3 (x3_bar), 2 (LN3), 1 (LN2), 0 (LN1).
+// The LayerNorm statistics (2 n_pad floats: each row's mean and rstd) take
+// dynamic shared memory, so that they follow n_pad.
 template <typename T>
 __global__ void __launch_bounds__(vf::kThreads)
 mct_stage(MctArgs a, int stage) {
   __shared__ float red[vf::kWarps];
-  __shared__ float stats[2 * vft::kMaxCols];
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* stats = reinterpret_cast<float*>(smem);
   const int n = a.n_pad, n_real = a.n_real, d = a.d, dh = a.dh;
   const size_t R = (size_t)a.batch * n, row0 = (size_t)blockIdx.x * n;
   const macb::NpOff no = macb::np_offsets(d, dh);
@@ -368,7 +372,11 @@ int forward(const MctArgs& a, cudaStream_t st) {
 
 template <typename T>
 int stage(const MctArgs& a, int s, cudaStream_t st) {
-  mct_stage<T><<<a.batch, vf::kThreads, 0, st>>>(a, s);
+  const size_t smem = (size_t)2 * a.n_pad * sizeof(float);
+  const cudaError_t err = cudaFuncSetAttribute(
+      mct_stage<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  mct_stage<T><<<a.batch, vf::kThreads, smem, st>>>(a, s);
   return (int)cudaGetLastError();
 }
 
@@ -466,8 +474,9 @@ extern "C" {
 // The tiled plan of a Macaron shape: vft::plan's for the deterministic
 // softmax instances, whose attention kernels the route runs (query-tile
 // rows; shared memory of the forward, backward and key-tile attention
-// CTAs). Returns 0 with the plan, 1 when the shape has none: n_pad > 256,
-// or sizes that are not multiples of 16 (the wrapper raises).
+// CTAs; past 256 padded tokens those of the key-tiled instances). Returns
+// 0 with the plan, 1 when the shape has none: sizes that are not
+// multiples of 16 (the wrapper raises).
 // kernels/macaron_tiled.py::tiled_macaron_plan repeats this rule in
 // Python.
 int mct_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,

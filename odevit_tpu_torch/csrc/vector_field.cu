@@ -166,8 +166,9 @@ __device__ __forceinline__ float gelu_grad(float v) {
 // tiles wide, `strip_stride` elements apart), so one product can gather
 // the q, k and v columns of a head. Each warp owns a column tile (and,
 // when there are fewer column tiles than warps, a group of row tiles): it
-// reads each B fragment once, one step ahead of its use.
-template <bool AT, bool BT>
+// reads each B fragment once, one step ahead of its use. A warp's group
+// holds at most kRows row tiles (its accumulators live in registers).
+template <bool AT, bool BT, int kRows = kMaxRowTiles>
 __device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
                    int ldc, bool accumulate, int M, int N, int K,
                    int strip = 1 << 30, int strip_stride = 0) {
@@ -187,9 +188,9 @@ __device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
     const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
     const bf16* bcol = BT ? B + (size_t)col * ldb : B + col;
     const size_t bstep = BT ? 16 : (size_t)16 * ldb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[kMaxRowTiles];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[kRows];
 #pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r) {
+    for (int r = 0; r < kRows; ++r) {
       if (r < rows) {
         if (accumulate)
           wmma::load_matrix_sync(c[r], C + (r0 + r) * 16 * ldc + tn * 16,
@@ -204,7 +205,7 @@ __device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
       if (kk + 1 < kt)
         wmma::load_matrix_sync(b_next, bcol + (kk + 1) * bstep, ldb);
 #pragma unroll
-      for (int r = 0; r < kMaxRowTiles; ++r) {
+      for (int r = 0; r < kRows; ++r) {
         if (r < rows) {
           wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
           const bf16* ap = AT ? A + kk * 16 * lda + (r0 + r) * 16
@@ -216,7 +217,7 @@ __device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
       b = b_next;
     }
 #pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r) {
+    for (int r = 0; r < kRows; ++r) {
       if (r < rows)
         wmma::store_matrix_sync(C + (r0 + r) * 16 * ldc + tn * 16, c[r], ldc,
                                 wmma::mem_row_major);
@@ -224,8 +225,8 @@ __device__ void mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
   }
 }
 
-// The f32 version of the same product, on the CUDA cores.
-template <bool AT, bool BT>
+// The f32 version of the same product, on the CUDA cores (kRows unused).
+template <bool AT, bool BT, int kRows = kMaxRowTiles>
 __device__ void mm(const float* A, int lda, const float* B, int ldb,
                    float* C, int ldc, bool accumulate, int M, int N, int K,
                    int strip = 1 << 30, int strip_stride = 0) {

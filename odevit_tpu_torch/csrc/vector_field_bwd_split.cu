@@ -371,7 +371,7 @@ int mlp(const TiledArgs& t, cudaStream_t st) {
 // dtype; wbars: Wqkv_bar, Wout_bar, ga_bar, ba_bar.
 template <typename T>
 int attn(const TiledArgs& t, cudaStream_t st) {
-  const int R = t.batch * t.n_pad, d = t.d, hd = d / t.heads;
+  const int R = t.batch * t.n_pad, d = t.d;
   const bool drop = (t.drop.th_p | t.drop.th_ao) != 0;
   if (drop && t.rqkv != nullptr) return (int)cudaErrorInvalidValue;
   // with dropout, gd2 = round(g scaler mask_ao) is the branch's operand
@@ -388,15 +388,7 @@ int attn(const TiledArgs& t, cudaStream_t st) {
       vft::gemm_args(gda, d, t.wout, d, d, R, d, vft::kRound, t.cb, d), st)));
   VFS_CHECK((drop ? vft::attn<T, true, true>(t, st)
                   : vft::attn<T, true, false>(t, st)));
-  const size_t ksmem = vft::key_plan(t.n_pad, hd, sizeof(T)).total;
-  const cudaError_t err = cudaFuncSetAttribute(
-      vft::vft_attn_keys<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)ksmem);
-  if (err != cudaSuccess) return (int)err;
-  vft::vft_attn_keys<T><<<dim3((t.n_pad + vft::kKeyTile - 1) / vft::kKeyTile,
-                               t.heads, t.batch),
-                          vf::kThreads, ksmem, st>>>(vft::attn_args(t));
-  VFS_CHECK((int)cudaGetLastError());
+  VFS_CHECK((vft::attn_keys<T, false>(t, st)));
   // a_bar = qkv_bar Wqkv^T (f32)
   GemmArgs ab = vft::gemm_args(t.qkvb, 3 * d, t.wqkv, 3 * d, 3 * d, R, d,
                                vft::kF32, nullptr, d);

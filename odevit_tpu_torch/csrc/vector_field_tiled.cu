@@ -14,7 +14,10 @@
 //
 // The arithmetic is the one of vector_field.cu (the same rounding to the
 // compute dtype, f32 accumulation, selection masks for padded keys); only
-// the split of the work differs. Rows >= n_real of each image read as
+// the split of the work differs. Past 256 padded tokens (kMaxCols) the
+// attention CTAs stream the keys in tiles (vft_attn_kt, vft_attn_keys_kt:
+// see "key-tiled attention" below); every other kernel of the route tiles
+// rows already and takes any n_pad. Rows >= n_real of each image read as
 // zeros, so nothing a padded row holds reaches a real row or a cotangent;
 // the attention map and the JaSMin statistics hold zeros on padded query
 // rows, and x_bar holds zeros on padded rows.
@@ -145,7 +148,7 @@ namespace vft {
 using namespace nvcuda;
 using vf::bf16;
 
-constexpr int kMaxCols = 256;           // n_pad limit: 8 columns per lane
+constexpr int kMaxCols = 256;           // whole rows: 8 columns per lane
 constexpr int kQTiles[] = {64, 32, 16};  // query-tile rows, largest first
 constexpr int kKeyTile = 64;
 
@@ -1065,6 +1068,558 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
   }
 }
 
+// ------------------------------------------------- key-tiled attention
+//
+// Past kMaxCols padded tokens (the TS-Base student at 384 px: 587 tokens
+// padded to 592) a row of scores no longer fits the whole-row CTA above: K
+// and V of the head, f32 rows of [mt, n_pad] scores and, in the backward,
+// p_bar. These instances stream K and V through shared memory in key tiles
+// of kKeyTile rows, one CTA per (query tile, head, image) as above:
+//   pass 1   over the key tiles holding real keys: each query row's max and
+//            sum of exp(s tau - max) over the real keys, the sum rescaled
+//            when the max grows (L2: the sum of e, then + 1e-8; no max);
+//   pass 2   the scores again, p = round(exp(s tau - m) / l) per tile; the
+//            map, the emitted mask and the masked p per tile (the Philox
+//            stream's bits depend on (seed, site, image, row, column),
+//            never on the tile); the JaSMin statistics as a running top-kk
+//            per row, merged tile by tile in column order (rounding is
+//            monotone, so the ranks, their first columns and the clipped
+//            row sum are those of the whole row); ctx accumulated in f32
+//            over the tiles and rounded once.
+// The backward takes pass 1, then pass 2 with p_bar = cb v^T of the tile
+// (masked by the tile's keep bits, + g_attn, + the JaSMin scatter), the
+// row's dot = sum p_bar p and ctx; then pass 3 recomputes the scores and
+// p_bar, writes s_bar = round(p (p_bar - dot)) (L2: round(d2b), its row
+// sums and each tile's column sums) and accumulates q_bar = s_bar k over
+// the tiles. p and s_bar go to the [B, H, n, n] scratch as above, and
+// vft_attn_keys_kt loops over query tiles instead of holding all n queries.
+// The arithmetic is the whole-row kernels' (the same rounding points; the
+// plain versions stay the reference); only the order of the f32 sums over
+// keys differs. No atomics: two runs are bit-identical.
+//
+// Bound and design. At 592 tokens, B=64, D=768 the attention products
+// take 69 GFLOP of an evaluation's 337 (0.34 ms at 989 TFLOP/s); these
+// CTAs run 1.5x that in the forward (pass 1 recomputes the scores) and
+// about 1.75x the whole-row backward's. Operations bound them, but the
+// CTAs are latency-bound: tiles of 64 x 64 products between barriers. So
+// K and V move in 16-byte loads, vf::mm keeps at most 4 row tiles of
+// accumulators (M <= 64), and __launch_bounds__(384, 2) holds the CTAs to
+// 80 registers so that two share an SM (the bf16 backward spills 112-184
+// bytes for it, and is faster all the same).
+
+constexpr int kMaxJas = 16;  // JaSMin extraction passes (k + 1) past kMaxCols
+constexpr int kRowVals = 6;  // per query row: max, sum, dot, q2, rsum, jsum
+
+struct KtPlan {
+  size_t q, k, v, s, p, acc, cb, pbar, rows, topv, topc, total;
+  int ld_hd, ld_s, ld_p, ld_acc;
+};
+
+__host__ __device__ inline KtPlan kt_plan(int hd, int mt, int tb, bool bwd) {
+  const int pad = 16 / tb;
+  KtPlan a;
+  a.ld_hd = hd + pad;
+  a.ld_s = kKeyTile + 4;
+  a.ld_p = kKeyTile + pad;
+  a.ld_acc = hd + 4;
+  size_t off = 0;
+  a.q = off;    off += vf::align128((size_t)mt * a.ld_hd * tb);
+  a.k = off;    off += vf::align128((size_t)kKeyTile * a.ld_hd * tb);
+  a.v = off;    off += vf::align128((size_t)kKeyTile * a.ld_hd * tb);
+  a.s = off;    off += vf::align128((size_t)mt * a.ld_s * 4);
+  a.p = off;    off += vf::align128((size_t)mt * a.ld_p * tb);
+  a.acc = off;  off += vf::align128((size_t)mt * a.ld_acc * 4);
+  a.cb = a.pbar = off;
+  if (bwd) {
+    a.cb = off;    off += vf::align128((size_t)mt * a.ld_hd * tb);
+    a.pbar = off;  off += vf::align128((size_t)mt * a.ld_s * 4);
+  }
+  a.rows = off;  off += vf::align128((size_t)(kRowVals * mt + kKeyTile) * 4);
+  a.topv = a.topc = off;
+  if (!bwd) {
+    a.topv = off;  off += vf::align128((size_t)mt * kMaxJas * 4);
+    a.topc = off;  off += vf::align128((size_t)mt * kMaxJas * 4);
+  }
+  a.total = off;
+  return a;
+}
+
+struct KeyKtPlan {
+  size_t qs, cbs, stk, stv, cs, total;
+  int ld_hd, ld_st;
+};
+
+__host__ __device__ inline KeyKtPlan key_kt_plan(int hd, int mt, int tb) {
+  KeyKtPlan a;
+  a.ld_hd = hd + 16 / tb;
+  a.ld_st = hd + 4;
+  size_t off = 0;
+  a.qs = off;   off += vf::align128((size_t)mt * a.ld_hd * tb);
+  a.cbs = off;  off += vf::align128((size_t)mt * a.ld_hd * tb);
+  a.stk = off;  off += vf::align128((size_t)kKeyTile * a.ld_st * 4);
+  a.stv = off;  off += vf::align128((size_t)kKeyTile * a.ld_st * 4);
+  a.cs = off;   off += vf::align128((size_t)kKeyTile * 4);
+  a.total = off;
+  return a;
+}
+
+// The keep bits of columns c0 .. c0 + kKeyTile - 1 of one real row, for
+// every lane of the warp: bit c % 32 of word c / 32 for column c0 + c (lane
+// j < 16 draws vf::keep4's group c0 / 4 + j).
+__device__ __forceinline__ uint2 keep_tile(unsigned key, unsigned img,
+                                           int row, int c0, int n_valid,
+                                           unsigned th) {
+  const int lane = threadIdx.x % 32;
+  unsigned nib = 0u;
+  if (lane < kKeyTile / 4 && c0 + 4 * lane < n_valid) {
+    float m[4];
+    vf::keep4(key, img, row, c0 / 4 + lane, n_valid, th, 1.0f, m);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (m[j] != 0.0f) nib |= 1u << j;
+  }
+  const unsigned lo = __reduce_or_sync(0xffffffffu,
+                                       lane < 8 ? nib << (4 * lane) : 0u);
+  const unsigned hi = __reduce_or_sync(
+      0xffffffffu, lane >= 8 && lane < 16 ? nib << (4 * (lane - 8)) : 0u);
+  return make_uint2(lo, hi);
+}
+
+__device__ __forceinline__ bool kept_tile(uint2 w, int c) {
+  return ((c < 32 ? w.x : w.y) >> (c & 31)) & 1u;
+}
+
+// Merges one key tile's candidates (two a lane: rounded p of real keys and
+// their columns, -inf where absent) into a row's running top list (kk
+// entries, value descending, ties by the earlier column; tv, tc in shared
+// memory), by one warp: kk passes, each taking the largest value and its
+// FIRST column, as jas_row over the whole row. The list's columns precede
+// the tile's, so the merged list is the whole row's top kk so far.
+__device__ void jas_merge(float (&cv)[2], int (&cc)[2], float* tv, int* tc,
+                          int kk) {
+  const int lane = threadIdx.x % 32;
+  float lv = lane < kk ? tv[lane] : -INFINITY;
+  int lc = lane < kk ? tc[lane] : 1 << 30;
+  float nv = -INFINITY;
+  int nc = 1 << 30;
+  for (int pass = 0; pass < kk; ++pass) {
+    const float m = vf::warp_max(fmaxf(lv, fmaxf(cv[0], cv[1])));
+    int first = 1 << 30;
+    if (lv == m) first = min(first, lc);
+    if (cv[0] == m) first = min(first, cc[0]);
+    if (cv[1] == m) first = min(first, cc[1]);
+    first = vf::warp_min_int(first);
+    if (lane == pass) {
+      nv = m;
+      nc = first;
+    }
+    if (lc == first) lv = -INFINITY;
+    if (cc[0] == first) cv[0] = -INFINITY;
+    if (cc[1] == first) cv[1] = -INFINITY;
+  }
+  __syncwarp();
+  if (lane < kk) {
+    tv[lane] = nv;
+    tc[lane] = nc;
+  }
+  __syncwarp();
+}
+
+// Rows of a head's hd columns in 16-byte vectors (hd is a multiple of 16,
+// every row of the operands and of the shared tiles starts 16-byte
+// aligned): the vectors a row holds, and vector i's row and column.
+template <typename T>
+struct RowVecs {
+  static constexpr int kPer = 16 / sizeof(T);
+  int per_row;
+  __device__ explicit RowVecs(int hd) : per_row(hd / kPer) {}
+  __device__ int row(int i) const { return i / per_row; }
+  __device__ int col(int i) const { return i % per_row * kPer; }
+};
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void st16(void* p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// K (and, with with_v, V) rows c0 .. c0 + kc of head h into shared memory,
+// as vft_attn loads them (padded value rows, and with resid padded key
+// rows, as zeros), 16 bytes a load; with kL2 then the f32 k2 of the tile.
+// Syncs.
+template <typename T, bool kL2>
+__device__ void kt_load(const AttnArgs& a, const T* qkv, size_t row0, int h,
+                        int hd, int c0, int kc, T* k, T* v, int lh,
+                        float* k2, bool with_v) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const int d = a.d;
+  const RowVecs<T> rv(hd);
+  for (int i = threadIdx.x; i < kc * rv.per_row; i += vf::kThreads) {
+    const int r = rv.row(i), c = rv.col(i);
+    const T* src = qkv + (row0 + c0 + r) * 3 * d + h * hd + c;
+    st16(k + r * lh + c, a.resid && c0 + r >= a.n_real ? zero : ld16(src + d));
+    if (with_v)
+      st16(v + r * lh + c, c0 + r < a.n_real ? ld16(src + 2 * d) : zero);
+  }
+  __syncthreads();
+  if (kL2) vf::sq_rows(k, lh, kc, hd, k2);
+}
+
+// One CTA per (query tile, head, image) past kMaxCols padded tokens (see
+// above): the forward's (kBwd false) or the backward's key-tiled passes,
+// with the modes, dropout and L2 of vft_attn.
+template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
+__global__ void __launch_bounds__(vf::kThreads, 2) vft_attn_kt(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, n_real = a.n_real, d = a.d, hd = d / a.heads;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * a.mt;
+  const int rows = vf::imin(a.mt, n - q0);
+  const KtPlan pl = kt_plan(hd, a.mt, sizeof(T), kBwd);
+  T* q = reinterpret_cast<T*>(smem + pl.q);
+  T* k = reinterpret_cast<T*>(smem + pl.k);
+  T* v = reinterpret_cast<T*>(smem + pl.v);
+  float* s = reinterpret_cast<float*>(smem + pl.s);
+  T* p = reinterpret_cast<T*>(smem + pl.p);
+  float* acc = reinterpret_cast<float*>(smem + pl.acc);
+  T* cbs = reinterpret_cast<T*>(smem + pl.cb);
+  float* pbar = reinterpret_cast<float*>(smem + pl.pbar);
+  float* rm = reinterpret_cast<float*>(smem + pl.rows);
+  float *rl = rm + a.mt, *rdot = rl + a.mt, *q2 = rdot + a.mt;
+  float *rsum = q2 + a.mt, *jsum = rsum + a.mt, *k2 = jsum + a.mt;
+  float* topv = reinterpret_cast<float*>(smem + pl.topv);
+  int* topc = reinterpret_cast<int*>(smem + pl.topc);
+  const int lh = pl.ld_hd, ls = pl.ld_s, lp = pl.ld_p, la = pl.ld_acc;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t row0 = (size_t)b * n;
+  const size_t bh = (size_t)b * a.heads + h;
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T zero = vf::from_f<T>(0.0f);
+  const float tau = a.qk_scale;
+  const bool jas = !kBwd && a.mode == kJasmin;
+  const bool drop_p = kDrop && a.drop.th_p;
+  const unsigned pkey = vf::site_key(a.drop.seed, vf::kSiteP + h);
+
+  const RowVecs<T> rv(hd);
+  for (int i = threadIdx.x; i < rows * rv.per_row; i += vf::kThreads) {
+    const int r = rv.row(i), c = rv.col(i);
+    const T* src = qkv + (row0 + q0 + r) * 3 * d + h * hd + c;
+    st16(q + r * lh + c, a.resid && q0 + r >= n_real
+                             ? make_uint4(0u, 0u, 0u, 0u)
+                             : ld16(src));
+    if (kBwd)
+      st16(cbs + r * lh + c, ld16(static_cast<const T*>(a.cb) +
+                                  (row0 + q0 + r) * d + h * hd + c));
+  }
+  for (int r = threadIdx.x; r < a.mt; r += vf::kThreads) {
+    rm[r] = -INFINITY;
+    rl[r] = rdot[r] = rsum[r] = jsum[r] = 0.0f;
+  }
+  if (jas)
+    for (int i = threadIdx.x; i < a.mt * kMaxJas; i += vf::kThreads) {
+      topv[i] = -INFINITY;
+      topc[i] = 1 << 30;
+    }
+  __syncthreads();
+  if (kL2) {
+    vf::sq_rows(q, lh, rows, hd, q2);
+    __syncthreads();
+  }
+
+  // pass 1: each row's max and sum over the real keys
+  for (int c0 = 0; c0 < n_real; c0 += kKeyTile) {
+    const int kc = vf::imin(kKeyTile, n - c0);
+    kt_load<T, kL2>(a, qkv, row0, h, hd, c0, kc, k, v, lh, k2, false);
+    vf::mm<false, true, 4>(q, lh, k, lh, s, ls, false, rows, kc, hd);
+    __syncthreads();
+    const int creal = vf::imin(kc, n_real - c0);
+    for (int r = warp; r < rows; r += vf::kWarps) {
+      const float* row = s + r * ls;
+      if (kL2) {
+        const float qr = q2[r];
+        float sum = 0.0f;
+        for (int c = lane; c < creal; c += 32)
+          sum += expf(-(qr + k2[c] - 2.0f * row[c]) * tau);
+        sum = vf::warp_sum(sum);
+        if (lane == 0) rl[r] += sum;
+        continue;
+      }
+      const float m_old = rm[r], l_old = rl[r];
+      float mx = -INFINITY;
+      for (int c = lane; c < creal; c += 32) mx = fmaxf(mx, row[c] * tau);
+      const float m_new = fmaxf(m_old, vf::warp_max(mx));
+      float sum = 0.0f;
+      for (int c = lane; c < creal; c += 32) sum += expf(row[c] * tau - m_new);
+      sum = vf::warp_sum(sum);
+      if (lane == 0) {
+        rl[r] = l_old * expf(m_old - m_new) + sum;
+        rm[r] = m_new;
+      }
+    }
+    __syncthreads();
+  }
+  if (kL2) {
+    for (int r = threadIdx.x; r < rows; r += vf::kThreads) rl[r] += 1e-8f;
+    __syncthreads();
+  }
+
+  // column c of the tile at c0, row r: the f32 p (L2: e, p = e / rl)
+  auto e_of = [&](int r, int c, int col) {
+    if (col >= n_real) return 0.0f;
+    const float sv = s[r * ls + c];
+    return kL2 ? expf(-(q2[r] + k2[c] - 2.0f * sv) * tau)
+               : expf(sv * tau - rm[r]) / rl[r];
+  };
+  T* pg = kBwd ? static_cast<T*>(a.pg) + bh * n * n : nullptr;
+  T* sb = kBwd ? static_cast<T*>(a.sbar) + bh * n * n : nullptr;
+  const T* gat = kBwd && a.g_attn != nullptr
+                     ? static_cast<const T*>(a.g_attn) + bh * n * n
+                     : nullptr;
+  const float* gj = kBwd && a.g_jas != nullptr ? a.g_jas + bh * 5 * n
+                                               : nullptr;
+  const int* ji = gj != nullptr ? a.jas_idx + bh * 4 * n : nullptr;
+  // the backward's full p_bar of one real key column (on the pre-dropout
+  // rounded p pr for the JaSMin scatter)
+  auto pbar_of = [&](int r, int c, int col, int qi, uint2 bits, float pr) {
+    float pb = pbar[r * ls + c];
+    if (drop_p) pb *= kept_tile(bits, c) ? a.drop.sc_p : 0.0f;
+    if (gat != nullptr) pb += vf::to_f(gat[(size_t)qi * n + col]);
+    if (gj != nullptr) {
+      const float lo = ((pr >= 1e-12f) + (pr > 1e-12f)) * 0.5f;
+      const float hi = ((pr <= 1.0f) + (pr < 1.0f)) * 0.5f;
+      float t = gj[4 * n + qi] * (lo * hi);
+      for (int i = 0; i < 4; ++i)
+        if (ji[i * n + qi] == col) t += gj[i * n + qi];
+      pb += t;
+    }
+    return pb;
+  };
+
+  // pass 2: p per tile; the map, the masks, the statistics; ctx (and in
+  // the backward p to the scratch and the rows' dot)
+  for (int c0 = 0; c0 < n; c0 += kKeyTile) {
+    const int kc = vf::imin(kKeyTile, n - c0);
+    kt_load<T, kL2>(a, qkv, row0, h, hd, c0, kc, k, v, lh, k2, true);
+    vf::mm<false, true, 4>(q, lh, k, lh, s, ls, false, rows, kc, hd);
+    if (kBwd)
+      vf::mm<false, true, 4>(cbs, lh, v, lh, pbar, ls, false, rows, kc, hd);
+    __syncthreads();
+    for (int r = warp; r < rows; r += vf::kWarps) {
+      const int qi = q0 + r;
+      const bool real = qi < n_real;
+      const uint2 bits = drop_p && real ? keep_tile(pkey, b, qi, c0, n_real,
+                                                    a.drop.th_p)
+                                        : make_uint2(0u, 0u);
+      T* mrow = !kBwd && a.mode == kMap
+                    ? static_cast<T*>(a.pmap) + (bh * n + qi) * n
+                    : nullptr;
+      float* krow = !kBwd && drop_p && a.mask_p != nullptr
+                        ? a.mask_p + (bh * n + qi) * n
+                        : nullptr;
+      float cv[2] = {-INFINITY, -INFINITY}, dot = 0.0f, csum = 0.0f;
+      int cc[2] = {1 << 30, 1 << 30};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j, col = c0 + c;
+        if (c >= kc) continue;
+        const float e = e_of(r, c, col);
+        const float pf = kL2 ? e / rl[r] : e;
+        const T pr = vf::from_f<T>(pf);
+        T pm = pr;
+        if (drop_p) {
+          const float mk = kept_tile(bits, c) ? a.drop.sc_p : 0.0f;
+          pm = vf::from_f<T>(vf::to_f(pr) * mk);
+          if (krow != nullptr) krow[col] = mk;
+        }
+        p[r * lp + c] = pm;
+        if (mrow != nullptr) mrow[col] = real ? pr : zero;
+        if (jas && real && col < n_real) {
+          cv[j] = vf::to_f(pr);
+          cc[j] = col;
+          csum += fminf(fmaxf(cv[j], 1e-12f), 1.0f);
+        }
+        if (kBwd) {
+          pg[(size_t)qi * n + col] = real ? pm : zero;
+          if (real && col < n_real)
+            dot += pbar_of(r, c, col, qi, bits, vf::to_f(pr)) * pf;
+        }
+      }
+      if (jas && real) {
+        csum = vf::warp_sum(csum);
+        if (lane == 0) jsum[r] += csum;
+        jas_merge(cv, cc, topv + r * kMaxJas, topc + r * kMaxJas, a.jas_kk);
+      }
+      if (kBwd && real) {
+        dot = vf::warp_sum(dot);
+        if (lane == 0) rdot[r] += dot;
+      }
+    }
+    __syncthreads();
+    vf::mm<false, false, 4>(p, lp, v, lh, acc, la, c0 > 0, rows, hd, kc);
+    __syncthreads();
+  }
+  T* ctx = static_cast<T*>(a.ctx);
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    ctx[(row0 + q0 + r) * d + h * hd + c] = vf::from_f<T>(acc[r * la + c]);
+  }
+  if (jas) {
+    float* st = a.stats + bh * 5 * n;
+    int* ix = a.idx + bh * 4 * n;
+    const int kk = a.jas_kk;
+    const int ranks[4] = {0, 1, kk - 2, kk - 1};
+    for (int r = threadIdx.x; r < rows; r += vf::kThreads) {
+      const int qi = q0 + r;
+      const bool real = qi < n_real;
+      for (int i = 0; i < 4; ++i) {
+        st[i * n + qi] = real ? topv[r * kMaxJas + ranks[i]] : 0.0f;
+        ix[i * n + qi] = real ? topc[r * kMaxJas + ranks[i]] : 0;
+      }
+      st[4 * n + qi] = real ? jsum[r] : 0.0f;
+    }
+  }
+  if (!kBwd) return;
+
+  // pass 3: s_bar (L2: round(d2b)) per tile to the scratch, q_bar
+  for (int c0 = 0; c0 < n; c0 += kKeyTile) {
+    const int kc = vf::imin(kKeyTile, n - c0);
+    kt_load<T, kL2>(a, qkv, row0, h, hd, c0, kc, k, v, lh, k2, true);
+    vf::mm<false, true, 4>(q, lh, k, lh, s, ls, false, rows, kc, hd);
+    vf::mm<false, true, 4>(cbs, lh, v, lh, pbar, ls, false, rows, kc, hd);
+    __syncthreads();
+    for (int r = warp; r < rows; r += vf::kWarps) {
+      const int qi = q0 + r;
+      if (qi >= n_real) {
+        for (int c = lane; c < kc; c += 32) {
+          p[r * lp + c] = zero;
+          sb[(size_t)qi * n + c0 + c] = zero;
+          if (kL2) pbar[r * ls + c] = 0.0f;
+        }
+        continue;
+      }
+      const uint2 bits = drop_p ? keep_tile(pkey, b, qi, c0, n_real,
+                                            a.drop.th_p)
+                                : make_uint2(0u, 0u);
+      const float dot = rdot[r];
+      float part = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = lane + 32 * j, col = c0 + c;
+        if (c >= kc) continue;
+        float v2 = 0.0f;
+        if (col < n_real) {
+          const float e = e_of(r, c, col);
+          const float pf = kL2 ? e / rl[r] : e;
+          const float pb = pbar_of(r, c, col, qi, bits,
+                                   vf::to_f(vf::from_f<T>(pf)));
+          v2 = kL2 ? -tau * e * ((pb - dot) / rl[r]) : e * (pb - dot);
+        }
+        const T sv = vf::from_f<T>(v2);
+        if (kL2) pbar[r * ls + c] = v2;
+        p[r * lp + c] = sv;
+        sb[(size_t)qi * n + col] = sv;
+        part += v2;
+      }
+      if (kL2) {
+        part = vf::warp_sum(part);
+        if (lane == 0) rsum[r] += part;
+      }
+    }
+    __syncthreads();
+    if (kL2) {
+      // this query tile's column sums of d2b, over its rows in order
+      float* cs = a.l2cs + (bh * gridDim.x + blockIdx.x) * n + c0;
+      for (int c = threadIdx.x; c < kc; c += vf::kThreads) {
+        float sum = 0.0f;
+        for (int r = 0; r < rows; ++r) sum += pbar[r * ls + c];
+        cs[c] = sum;
+      }
+    }
+    vf::mm<false, false, 4>(p, lp, k, lh, acc, la, c0 > 0, rows, hd, kc);
+    __syncthreads();
+  }
+  T* qkvb = static_cast<T*>(a.qkvb);
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    const float qb =
+        kL2 ? (q0 + r < n_real ? 2.0f * vf::to_f(q[r * lh + c]) * rsum[r] -
+                                     2.0f * acc[r * la + c]
+                               : 0.0f)
+            : acc[r * la + c] * tau;
+    qkvb[(row0 + q0 + r) * 3 * d + h * hd + c] = vf::from_f<T>(qb);
+  }
+}
+
+// One CTA per (key tile, head, image) past kMaxCols padded tokens:
+// vft_attn_keys' k_bar and v_bar, with the queries taken a query tile (mt
+// rows) at a time into shared memory and both products accumulated in
+// f32 over the tiles, rounded once.
+template <typename T, bool kL2 = false>
+__global__ void __launch_bounds__(vf::kThreads, 2)
+    vft_attn_keys_kt(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, d = a.d, hd = d / a.heads, mq = a.mt;
+  const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * kKeyTile;
+  const int rows = vf::imin(kKeyTile, n - j0);
+  const KeyKtPlan pl = key_kt_plan(hd, mq, sizeof(T));
+  T* qs = reinterpret_cast<T*>(smem + pl.qs);
+  T* cbs = reinterpret_cast<T*>(smem + pl.cbs);
+  float* stk = reinterpret_cast<float*>(smem + pl.stk);
+  float* stv = reinterpret_cast<float*>(smem + pl.stv);
+  float* cs = reinterpret_cast<float*>(smem + pl.cs);
+  const int lh = pl.ld_hd, ls = pl.ld_st;
+  const size_t row0 = (size_t)b * n;
+  const size_t bh = (size_t)b * a.heads + h;
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T* cb = static_cast<const T*>(a.cb);
+  if (kL2) {
+    const int tiles = (n + mq - 1) / mq;
+    for (int r = threadIdx.x; r < rows; r += vf::kThreads) {
+      float sum = 0.0f;
+      for (int t = 0; t < tiles; ++t)
+        sum += a.l2cs[(bh * tiles + t) * n + j0 + r];
+      cs[r] = sum;
+    }
+  }
+  const T* sb = static_cast<const T*>(a.sbar) + bh * n * n + j0;
+  const T* pg = static_cast<const T*>(a.pg) + bh * n * n + j0;
+  const RowVecs<T> rv(hd);
+  for (int i0 = 0; i0 < n; i0 += mq) {
+    const int qr = vf::imin(mq, n - i0);
+    for (int i = threadIdx.x; i < qr * rv.per_row; i += vf::kThreads) {
+      const int r = rv.row(i), c = rv.col(i);
+      uint4 qv = a.resid && i0 + r >= a.n_real
+                     ? make_uint4(0u, 0u, 0u, 0u)
+                     : ld16(qkv + (row0 + i0 + r) * 3 * d + h * hd + c);
+      if (!kL2) {
+        T* e = reinterpret_cast<T*>(&qv);
+#pragma unroll
+        for (int j = 0; j < RowVecs<T>::kPer; ++j)
+          e[j] = vf::from_f<T>(vf::to_f(e[j]) * a.qk_scale);
+      }
+      st16(qs + r * lh + c, qv);
+      st16(cbs + r * lh + c, ld16(cb + (row0 + i0 + r) * d + h * hd + c));
+    }
+    __syncthreads();
+    vf::mm<true, false, 4>(sb + (size_t)i0 * n, n, qs, lh, stk, ls, i0 > 0,
+                           rows, hd, qr);
+    vf::mm<true, false, 4>(pg + (size_t)i0 * n, n, cbs, lh, stv, ls, i0 > 0,
+                           rows, hd, qr);
+    __syncthreads();
+  }
+  T* qkvb = static_cast<T*>(a.qkvb);
+  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
+    const int r = i / hd, c = i % hd;
+    const size_t o = (row0 + j0 + r) * 3 * d + d + h * hd + c;
+    const float kb = kL2 ? 2.0f * vf::to_f(qkv[o]) * cs[r] -
+                               2.0f * stk[r * ls + c]
+                         : stk[r * ls + c];
+    qkvb[o] = vf::from_f<T>(kb);
+    qkvb[o + d] = vf::from_f<T>(stv[r * ls + c]);
+  }
+}
+
 }  // namespace vft
 
 // Everything one tiled evaluation or backward needs, passed by pointer from
@@ -1199,8 +1754,28 @@ AttnArgs attn_args(const TiledArgs& t) {
   return a;
 }
 
+// The key-tiled attention CTA past kMaxCols padded tokens; its JaSMin
+// mode keeps at most kMaxJas extraction passes.
+template <typename T, bool kBwd, bool kDrop, bool kL2>
+int attn_kt(const TiledArgs& t, cudaStream_t st) {
+  if (!kBwd && t.mode == kJasmin && t.jas_kk > kMaxJas)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kt_plan(t.d / t.heads, t.mt, sizeof(T), kBwd).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      vft_attn_kt<T, kBwd, kDrop, kL2>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
+  vft_attn_kt<T, kBwd, kDrop, kL2><<<grid, vf::kThreads, smem, st>>>(
+      attn_args(t));
+  return (int)cudaGetLastError();
+}
+
+// The attention CTAs of one evaluation or backward: whole rows up to
+// kMaxCols padded tokens, key tiles past that.
 template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
 int attn(const TiledArgs& t, cudaStream_t st) {
+  if (t.n_pad > kMaxCols) return attn_kt<T, kBwd, kDrop, kL2>(t, st);
   const int hd = t.d / t.heads;
   const size_t smem =
       attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd, kDrop, kL2).total;
@@ -1214,17 +1789,27 @@ int attn(const TiledArgs& t, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The key-tile kernel of the backward (its L2 instance with kL2).
+// The key-tile kernel of the backward (its L2 instance with kL2), over
+// every query at once up to kMaxCols padded tokens, a query tile at a time
+// past that.
 template <typename T, bool kL2>
 int attn_keys(const TiledArgs& t, cudaStream_t st) {
+  const dim3 grid((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads, t.batch);
+  if (t.n_pad > kMaxCols) {
+    const size_t smem = key_kt_plan(t.d / t.heads, t.mt, sizeof(T)).total;
+    cudaError_t err = cudaFuncSetAttribute(
+        vft_attn_keys_kt<T, kL2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    vft_attn_keys_kt<T, kL2><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
+    return (int)cudaGetLastError();
+  }
   const size_t ksmem = key_plan(t.n_pad, t.d / t.heads, sizeof(T), kL2).total;
   cudaError_t err = cudaFuncSetAttribute(
       vft_attn_keys<T, kL2>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)ksmem);
   if (err != cudaSuccess) return (int)err;
-  vft_attn_keys<T, kL2><<<dim3((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads,
-                               t.batch),
-                          vf::kThreads, ksmem, st>>>(attn_args(t));
+  vft_attn_keys<T, kL2><<<grid, vf::kThreads, ksmem, st>>>(attn_args(t));
   return (int)cudaGetLastError();
 }
 
@@ -1433,19 +2018,36 @@ int backward(const TiledArgs& t, cudaStream_t st) {
 bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
   return heads > 0 && d % heads == 0 && d % 16 == 0 &&
          (d / heads) % 16 == 0 && dh % 16 == 0 && n_pad % 16 == 0 &&
-         n_pad > 0 && n_pad <= kMaxCols && n_real > 0 && n_real <= n_pad;
+         n_pad > 0 && n_real > 0 && n_real <= n_pad;
 }
 
 // Chooses the query-tile rows of the attention kernels: the largest whose
 // backward CTA (of the dropout instance with `drop`, of the L2 instance
-// with `l2`) fits the shared memory. Returns 0 with the plan, 1 when the
-// shape has none (the wrappers raise). kernels/tiled.py::tiled_plan_rule
-// repeats this rule in Python.
+// with `l2`) fits the shared memory; past kMaxCols padded tokens, of the
+// key-tiled instances (whose CTAs, forward, backward and key tile, must
+// all fit; their shared memory does not grow with n_pad). Returns 0 with
+// the plan, 1 when the shape has none (the wrappers raise).
+// kernels/tiled.py::tiled_plan_rule repeats this rule in Python.
 int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
          bool drop, bool l2, int* mt_out, int* smem_fwd_out,
          int* smem_bwd_out, int* smem_keys_out) {
   if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   const int hd = d / heads;
+  if (n_pad > kMaxCols) {
+    for (int mt : kQTiles) {
+      const size_t fwd = kt_plan(hd, mt, tbytes, false).total;
+      const size_t bwd = kt_plan(hd, mt, tbytes, true).total;
+      const size_t keys = key_kt_plan(hd, mt, tbytes).total;
+      if (vf::imax(vf::imax((int)fwd, (int)bwd), (int)keys) <= vf::kMaxSmem) {
+        *mt_out = mt;
+        *smem_fwd_out = (int)fwd;
+        *smem_bwd_out = (int)bwd;
+        *smem_keys_out = (int)keys;
+        return 0;
+      }
+    }
+    return 1;
+  }
   const size_t keys = key_plan(n_pad, hd, tbytes, l2).total;
   if (keys > (size_t)vf::kMaxSmem) return 1;
   for (int mt : kQTiles) {

@@ -2,7 +2,10 @@
 
 Every kernel wrapper adds one to its entry in :data:`launch_counts` each
 time it launches its kernel, and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels. The tiled route's wrappers whose launch
+runs attention kernels count past :data:`KEY_TILED_FROM` padded tokens
+under ``<name>_kt`` (:func:`count_tiled`): there the route's attention
+runs its key-tiled instances.
 """
 
 from __future__ import annotations
@@ -46,12 +49,38 @@ launch_counts: Dict[str, int] = {
     "vf_eval_stash_tiled": 0, "vf_eval_jasmin_stash_tiled": 0,
     "vf_bwd_resid": 0, "vf_bwd_resid_tiled": 0,
     "vf_bwd_mlp_resid": 0, "vf_bwd_attn_resid": 0}
+
+# csrc/vector_field_tiled.cu's kMaxCols: whole-row attention CTAs up to it,
+# key-tiled ones past it
+KEY_TILED_FROM = 256
+KEY_TILED_COUNTERS = (
+    "vf_eval_tiled", "vf_eval_jasmin_tiled", "vf_eval_attn", "vf_bwd_tiled",
+    "vf_eval_tiled_drop", "vf_eval_jasmin_tiled_drop", "vf_eval_attn_drop",
+    "vf_bwd_tiled_drop", "vf_eval_euler_tiled", "vf_eval_base_tiled",
+    "vf_bwd_attn", "vf_bwd_attn_drop", "vf_eval_l2_tiled",
+    "vf_eval_jasmin_l2_tiled", "vf_bwd_l2_tiled", "vf_eval_masks",
+    "macaron_eval_tiled", "macaron_bwd_tiled", "vf_eval_stash_tiled",
+    "vf_eval_jasmin_stash_tiled", "vf_bwd_resid_tiled", "vf_bwd_attn_resid")
+launch_counts.update({name + "_kt": 0 for name in KEY_TILED_COUNTERS})
 _count_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
     with _count_lock:
         launch_counts[name] += 1
+
+
+def key_tiled(n_pad: int) -> bool:
+    """Whether the tiled route's attention runs its key-tiled instances
+    (past :data:`KEY_TILED_FROM` padded tokens) rather than its whole-row
+    ones."""
+    return n_pad > KEY_TILED_FROM
+
+
+def count_tiled(name: str, n_pad: int) -> None:
+    """``count_launch`` of a tiled-route wrapper: ``<name>_kt`` where
+    :func:`key_tiled`."""
+    count_launch(name + "_kt" if key_tiled(n_pad) else name)
 
 
 def reset_launch_counts() -> None:

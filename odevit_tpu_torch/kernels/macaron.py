@@ -6,8 +6,10 @@ runs its plain PyTorch version ``macaron_eval_plain`` on a CPU tensor.
 :func:`macaron_route` chooses the kernel, by the same rule on either
 device: ``csrc/macaron.cu``, one image per CTA, where :func:`macaron_plan`
 has a plan, else the tiled route of ``csrc/macaron_tiled.cu``
-(``kernels/macaron_tiled.py``) up to 256 padded tokens; past that it
-raises. With ``f = x3 * scaler`` and
+(``kernels/macaron_tiled.py``; past 256 padded tokens its attention
+runs the key-tiled instances of ``csrc/vector_field_tiled.cu``). A shape
+with neither plan (sizes that are not multiples of 16) raises. With
+``f = x3 * scaler`` and
 
     x1 = x  + rs/2 * FFN(LN1 x)        FFN(z) = gelu(z W1 + b1) W2 + b2
     x2 = x1 + rs   * Attn(LN2 x1)      (biased q|k|v and output projections)
@@ -32,7 +34,7 @@ dtype; the FFN output and attn_o stay float32 until they reach the state;
 the result is rounded once. Both routes round there, so the plain
 version is one. JAX's forward runs its Pallas kernel at every shape
 (``_macaron_block_b`` only halves the batch tile); the port's two routes
-together take every shape up to 256 padded tokens.
+together take every shape whose sizes are multiples of 16.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.vector_field import (_CHUNKS, _MAX_SMEM,
                                                    TOKEN_PAD, align128,
                                                    cta_shape_ok)
@@ -113,9 +115,10 @@ def macaron_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
 def macaron_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                   dh: int, bwd: bool = False) -> str:
     """"cta" where the one-image-per-CTA kernel has a plan (of the backward
-    with ``bwd``), else "tiled" where the tiled route has one; raises past
-    both (n_pad > 256, or sizes that are not multiples of 16). The same
-    rule on either device."""
+    with ``bwd``), else "tiled" where the tiled route has one (key-tiled
+    attention past 256 padded tokens); raises where neither has one
+    (sizes that are not multiples of 16). The same rule on either
+    device."""
     from odevit_tpu_torch.kernels.macaron_tiled import tiled_macaron_plan
     if bwd:
         from odevit_tpu_torch.kernels.macaron_bwd import macaron_bwd_plan
@@ -128,8 +131,8 @@ def macaron_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
         return "tiled"
     raise ValueError(
         f"no Macaron plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
-        f"dh={dh} in {dtype}: one image per CTA needs n_pad <= 128, the "
-        f"tiled kernels n_pad <= 256, both multiples of 16")
+        f"dh={dh} in {dtype}: one image per CTA needs n_pad <= 128, and "
+        f"both routes need multiples of 16")
 
 
 def _check(x, w: MacaronWeights, num_heads, n_real, mode, base,
@@ -293,7 +296,7 @@ def macaron_eval(x, w: MacaronWeights, *, num_heads: int, scaler: float,
         from odevit_tpu_torch.kernels.macaron_tiled import tiled_eval
         out = tiled_eval(x, w, num_heads=num_heads, scaler=scaler,
                          n_real=n_real, mode=mode, dt=dt, base=base)
-        count_launch("macaron_eval_tiled")
+        count_tiled("macaron_eval_tiled", x.shape[1])
         return out
     b, n, d = x.shape
     dh = w.w1.shape[1]

@@ -6,14 +6,14 @@ runs its plain PyTorch version ``macaron_bwd_plain`` on a CPU tensor. The
 route is ``macaron_route(..., bwd=True)``'s: the kernels of
 ``csrc/macaron_bwd.cu`` (one image per CTA, counted as ``macaron_bwd``)
 where :func:`macaron_bwd_plan` has a plan, else the tiled route of
-``csrc/macaron_tiled.cu`` (``macaron_bwd_tiled``) up to 256 padded tokens;
-past that it raises. JAX's backward is ``pallas_macaron_bwd`` wherever
-``macaron_bwd_block_b`` finds a batch tile, else ``jax.vjp`` of its XLA
-twin (at MLP ratio 4 and 224 px, for one); the cotangents are the same.
-Both
-take the forward's input ``x``, its weights and the cotangent ``g`` of
-f(x), and return the 16 cotangents of ``pallas_macaron_bwd`` in its order
-(x_bar in x's dtype, the rest in float32, ``rs``'s as a ``(1,)`` tensor):
+``csrc/macaron_tiled.cu`` (``macaron_bwd_tiled``; key-tiled attention
+past 256 padded tokens); a shape with neither plan raises. JAX's
+backward is ``pallas_macaron_bwd`` wherever ``macaron_bwd_block_b`` finds
+a batch tile, else ``jax.vjp`` of its XLA twin (at MLP ratio 4 and 224
+px, for one); the cotangents are the same. Both take the forward's
+input ``x``, its weights and the cotangent ``g`` of f(x), and return the
+16 cotangents of ``pallas_macaron_bwd`` in its order (x_bar in x's
+dtype, the rest in float32, ``rs``'s as a ``(1,)`` tensor):
 
     (x_bar, ln1s, ln1b, ln2s, ln2b, ln3s, ln3b, wqkv, qkv_bias, wout,
      out_bias, w1, b1, w2, b2, rs)
@@ -36,7 +36,7 @@ import ctypes
 
 import torch
 
-from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.macaron import (MacaronWeights, _check,
                                               chain_plain, check_launch)
 from odevit_tpu_torch.kernels.macaron_tiled import tiled_bwd
@@ -219,7 +219,7 @@ def macaron_bwd(x, w: MacaronWeights, g, *, num_heads: int, scaler: float,
     if route == "tiled":
         xbar, out = tiled_bwd(x, w, g, num_heads=num_heads, scaler=scaler,
                               n_real=n_real, splits=splits, nlen=nlen)
-        count_launch("macaron_bwd_tiled")
+        count_tiled("macaron_bwd_tiled", n)
         return split_bars(xbar, out, d, dh)
     hc, smem = macaron_bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
 

@@ -68,8 +68,9 @@ def _library() -> ctypes.CDLL:
 def tiled_macaron_plan(dtype, n_pad: int, n_real: int, d: int,
                        num_heads: int, dh: int):
     """``mct_plan``'s answer in Python: (query-tile rows, shared-memory
-    bytes of the forward, backward and key-tile attention CTAs), or None
-    past 256 padded tokens or where a size is not a multiple of 16."""
+    bytes of the forward, backward and key-tile attention CTAs; past 256
+    padded tokens those of the key-tiled instances), or None where a size
+    is not a multiple of 16."""
     return tiled_plan_rule(dtype, n_pad, n_real, d, num_heads, dh)
 
 

@@ -7,7 +7,12 @@ whose image does not fit the one-image-per-CTA kernels of
 ``vector_field.cu`` and ``vector_field_bwd.cu`` (the 224 px TS-Base
 evaluation: 207 tokens padded to 208, D=768, 12 heads). It replaces the
 same TPU kernels, ``_vf_kernel`` (plain, JaSMin, attention-map, Euler and
-stage-advance modes) and ``_vf_bwd_kernel``. The wrappers in
+stage-advance modes) and ``_vf_bwd_kernel``. Past 256 padded tokens
+(:func:`key_tiled`; the TS-Base student at 384 px: 587 tokens padded to
+592) the route's attention CTAs stream the keys in tiles of 64, so any
+n_pad that is a multiple of 16 has a plan; the wrappers count those
+launches as ``<name>_kt``. The JaSMin statistics there take at most 15
+extraction passes (k <= 15). The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
 module binds the library and allocates the scratch the kernels use.
 
@@ -41,6 +46,7 @@ import ctypes
 
 import torch
 
+from odevit_tpu_torch.kernels import key_tiled
 from odevit_tpu_torch.kernels.dropout import Drop
 
 MODES = {"plain": 0, "jasmin": 1, "attn": 2, "euler": 3, "base": 4}
@@ -86,8 +92,9 @@ def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                dh: int, drop: bool = False, l2: bool = False):
     """(query-tile rows, shared-memory bytes of the forward, backward and
     key-tile attention CTAs), of the dropout instances with ``drop``, of
-    the L2 instances with ``l2``; raises if the shape has no tiled plan
-    (n_pad > 256, or sizes that are not multiples of 16)."""
+    the L2 instances with ``l2`` (past 256 padded tokens, of the
+    key-tiled instances); raises if the shape has no tiled plan (sizes
+    that are not multiples of 16)."""
     out = [ctypes.c_int() for _ in range(4)]
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vft_plan(tbytes, n_pad, n_real, d, num_heads, dh,
@@ -95,15 +102,17 @@ def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                            *(ctypes.byref(o) for o in out)):
         raise ValueError(
             f"no tiled plan for n_pad={n_pad}, D={d}, {num_heads} heads, "
-            f"dh={dh} in {dtype}: the tiled kernels need n_pad <= 256 and "
-            f"multiples of 16")
+            f"dh={dh} in {dtype}: the tiled kernels need multiples of 16 "
+            f"and attention CTAs that fit 227 KB of shared memory")
     return tuple(o.value for o in out)
 
 
-# csrc/vector_field_tiled.cu: kMaxCols, kQTiles, kKeyTile, vf::kMaxSmem
-_MAX_COLS = 256
+# csrc/vector_field_tiled.cu: kQTiles, kKeyTile, kMaxJas, kRowVals,
+# vf::kMaxSmem (its kMaxCols is kernels.KEY_TILED_FROM)
 _Q_TILES = (64, 32, 16)
 _KEY_TILE = 64
+_MAX_JAS = 16
+_ROW_VALS = 6
 _MAX_SMEM = 232448
 
 
@@ -112,12 +121,13 @@ def align128(nbytes: int) -> int:
 
 
 def shape_rule(n_pad: int, n_real: int, d: int, num_heads: int, dh: int,
-               max_cols: int) -> bool:
+               max_cols: int | None = None) -> bool:
     """The kernels' shape rule (``shape_ok``): sizes in multiples of 16,
-    at most ``max_cols`` padded tokens."""
+    with ``max_cols`` at most that many padded tokens."""
     return (num_heads > 0 and d % num_heads == 0 and d % 16 == 0
             and (d // num_heads) % 16 == 0 and dh % 16 == 0
-            and n_pad % 16 == 0 and 0 < n_pad <= max_cols
+            and n_pad % 16 == 0 and 0 < n_pad
+            and (max_cols is None or n_pad <= max_cols)
             and 0 < n_real <= n_pad)
 
 
@@ -136,14 +146,43 @@ def _attn_smem(n, hd, mt, tb, bwd, drop, l2):
     return total
 
 
+def _kt_smem(hd, mt, tb, bwd):
+    # kt_plan of csrc/vector_field_tiled.cu (the key-tiled attention CTA)
+    pad = 16 // tb
+    ld_hd, ld_s, ld_p, ld_acc = hd + pad, _KEY_TILE + 4, _KEY_TILE + pad, \
+        hd + 4
+    total = (align128(mt * ld_hd * tb) + 2 * align128(_KEY_TILE * ld_hd * tb)
+             + align128(mt * ld_s * 4) + align128(mt * ld_p * tb)
+             + align128(mt * ld_acc * 4)
+             + align128((_ROW_VALS * mt + _KEY_TILE) * 4))
+    if bwd:
+        return (total + align128(mt * ld_hd * tb)
+                + align128(mt * ld_s * 4))
+    return total + 2 * align128(mt * _MAX_JAS * 4)
+
+
+def _key_kt_smem(hd, mt, tb):
+    # key_kt_plan of csrc/vector_field_tiled.cu
+    return (2 * align128(mt * (hd + 16 // tb) * tb)
+            + 2 * align128(_KEY_TILE * (hd + 4) * 4)
+            + align128(_KEY_TILE * 4))
+
+
 def tiled_plan_rule(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                     dh: int, drop: bool = False, l2: bool = False):
     """``vft_plan``'s answer in Python: the plan :func:`tiled_plan` would
     return, or None where it would raise."""
-    if not shape_rule(n_pad, n_real, d, num_heads, dh, _MAX_COLS):
+    if not shape_rule(n_pad, n_real, d, num_heads, dh):
         return None
     tb = torch.empty((), dtype=dtype).element_size()
     hd = d // num_heads
+    if key_tiled(n_pad):
+        for mt in _Q_TILES:
+            plan = (mt, _kt_smem(hd, mt, tb, False),
+                    _kt_smem(hd, mt, tb, True), _key_kt_smem(hd, mt, tb))
+            if max(plan[1:]) <= _MAX_SMEM:
+                return plan
+        return None
     keys = (2 * align128(n_pad * (hd + 16 // tb) * tb)
             + align128(_KEY_TILE * (hd + 4) * 4)
             + (align128(_KEY_TILE * 4) if l2 else 0))
@@ -274,6 +313,9 @@ def tiled_forward(x, w, *, num_heads: int, scaler: float, n_real: int,
     and with ``stash`` last (rqkv, rh1). The caller has checked the
     arguments. ``drop``: a ``dropout.Drop`` or None (see the module
     docstring)."""
+    if mode == "jasmin" and key_tiled(x.shape[1]) and jas_kk > _MAX_JAS:
+        raise ValueError(f"past 256 padded tokens the JaSMin statistics take "
+                         f"k <= {_MAX_JAS - 1}, got k={jas_kk - 1}")
     bufs = forward_buffers(x, w, num_heads=num_heads, mode=mode, drop=drop,
                            emit_masks=emit_masks, stash=stash)
     kernel_bufs = dict(bufs, base=base)

@@ -48,8 +48,9 @@ it, without dropout or maps. Where one image fits one CTA (:func:`l2_plan`)
 they launch the one-image-per-CTA kernel's L2 instance (``vf_eval_l2``,
 ``vf_eval_jasmin_l2``), elsewhere the tiled route's
 (``vf_eval_l2_tiled``, ``vf_eval_jasmin_l2_tiled``; the 224 px TS-Base
-student). :func:`l2_route` decides, by the same rule on either device; a
-shape with neither plan (past 256 padded tokens) raises.
+student, and past 256 padded tokens the tiled route's key-tiled
+instances). :func:`l2_route` decides, by the same rule on either device;
+a shape with neither plan (sizes that are not multiples of 16) raises.
 
 Dropout. ``vf_eval`` and ``vf_eval_jasmin`` take ``seed`` and ``drops`` =
 (attn_drop, proj_drop, mlp_drop), the counterparts of ``fused_vf_dropout``
@@ -98,7 +99,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.dropout import drop_spec, masks_plain
 from odevit_tpu_torch.kernels.tiled import (align128, shape_rule,
                                             tiled_forward, tiled_plan_rule)
@@ -291,8 +292,10 @@ def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
 def l2_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
              dh: int, bwd: bool = False) -> str:
     """"cta" where the one-image-per-CTA L2 instance has a plan (of the
-    backward with ``bwd``), else "tiled" where the tiled route's has one;
-    raises past both (n_pad > 256). The same rule on either device."""
+    backward with ``bwd``), else "tiled" where the tiled route's has one
+    (key-tiled past 256 padded tokens); raises where neither has one
+    (sizes that are not multiples of 16). The same rule on either
+    device."""
     if bwd:
         from odevit_tpu_torch.kernels.vector_field_bwd import l2_bwd_plan
         cta = l2_bwd_plan(dtype, n_pad, n_real, d, num_heads, dh)
@@ -304,8 +307,7 @@ def l2_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
         return "tiled"
     raise ValueError(
         f"no L2 plan for n_pad={n_pad}, D={d}, {num_heads} heads, dh={dh} "
-        f"in {dtype}: the tiled kernels need n_pad <= 256 and multiples of "
-        f"16")
+        f"in {dtype}: the tiled kernels need multiples of 16")
 
 
 def _check_l2_drop(w: VFWeights, drops):
@@ -577,7 +579,7 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
             out, resid = tiled_forward(x, w, num_heads=num_heads,
                                        scaler=scaler, n_real=n_real,
                                        stash=True)
-            count_launch("vf_eval_stash_tiled")
+            count_tiled("vf_eval_stash_tiled", x.shape[1])
             return out, resid
         out, _, _, resid = _launch(x, w, num_heads=num_heads, scaler=scaler,
                                    n_real=n_real, mode=mode, dt=dt,
@@ -588,13 +590,13 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
         _check_emit_masks(mode, seed, drops)
         out, masks = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                    n_real=n_real, drop=drop, emit_masks=True)
-        count_launch("vf_eval_masks")
+        count_tiled("vf_eval_masks", x.shape[1])
         return out, masks
     if w.l2:
         if _l2_tiled(x, w, num_heads, n_real):
             (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                    n_real=n_real)
-            count_launch("vf_eval_l2_tiled")
+            count_tiled("vf_eval_l2_tiled", x.shape[1])
             return out
         out = _launch(x, w, num_heads=num_heads, scaler=scaler,
                       n_real=n_real, mode=mode, dt=dt, base=base)[0]
@@ -604,8 +606,8 @@ def vf_eval(x, w: VFWeights, *, num_heads: int, scaler: float, n_real: int,
         (out,) = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                n_real=n_real, mode=mode, drop=drop, dt=dt,
                                base=base)
-        count_launch(_TILED_COUNTERS[mode] if drop is None
-                     else "vf_eval_tiled_drop")
+        count_tiled(_TILED_COUNTERS[mode] if drop is None
+                    else "vf_eval_tiled_drop", x.shape[1])
         return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
                   mode=mode, dt=dt, base=base, drop=drop)[0]
@@ -675,7 +677,7 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
             out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                 n_real=n_real, mode="jasmin", jas_kk=kk,
                                 stash=True)
-            count_launch("vf_eval_jasmin_stash_tiled")
+            count_tiled("vf_eval_jasmin_stash_tiled", x.shape[1])
             return out
         out = _launch(x, w, num_heads=num_heads, scaler=scaler,
                       n_real=n_real, mode="plain", dt=0.0, base=None,
@@ -686,7 +688,7 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
         if _l2_tiled(x, w, num_heads, n_real):
             out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                                 n_real=n_real, mode="jasmin", jas_kk=kk)
-            count_launch("vf_eval_jasmin_l2_tiled")
+            count_tiled("vf_eval_jasmin_l2_tiled", x.shape[1])
             return out
         out = _launch(x, w, num_heads=num_heads, scaler=scaler,
                       n_real=n_real, mode="plain", dt=0.0, base=None,
@@ -697,8 +699,8 @@ def vf_eval_jasmin(x, w: VFWeights, *, num_heads: int, scaler: float,
         out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                             n_real=n_real, mode="jasmin", jas_kk=kk,
                             drop=drop)
-        count_launch("vf_eval_jasmin_tiled" if drop is None
-                     else "vf_eval_jasmin_tiled_drop")
+        count_tiled("vf_eval_jasmin_tiled" if drop is None
+                    else "vf_eval_jasmin_tiled_drop", x.shape[1])
         return out
     out = _launch(x, w, num_heads=num_heads, scaler=scaler, n_real=n_real,
                   mode="plain", dt=0.0, base=None, jas_kk=kk, drop=drop)[:3]
@@ -728,8 +730,9 @@ def vf_eval_attn(x, w: VFWeights, *, num_heads: int, scaler: float,
     out = tiled_forward(x, w, num_heads=num_heads, scaler=scaler,
                         n_real=n_real, mode="attn", drop=drop,
                         emit_masks=emit_masks)
-    count_launch("vf_eval_masks" if emit_masks
-                 else "vf_eval_attn" if drop is None else "vf_eval_attn_drop")
+    count_tiled("vf_eval_masks" if emit_masks
+                else "vf_eval_attn" if drop is None else "vf_eval_attn_drop",
+                x.shape[1])
     return out
 
 

@@ -65,7 +65,7 @@ import math
 
 import torch
 
-from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
 from odevit_tpu_torch.kernels.tiled import tiled_backward
 from odevit_tpu_torch.kernels.vector_field import (
@@ -460,7 +460,7 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         xbar, out = tiled_backward(
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             splits=splits, g_jas=g_jas, jas_idx=jas_idx)
-        count_launch("vf_bwd_l2_tiled")
+        count_tiled("vf_bwd_l2_tiled", n)
         return _split_bars(xbar, out, d, dh)
     if not w.l2 and (g_attn is not None or not has_bwd_plan(
             x.dtype, n, n_real, d, num_heads, dh, drop is not None)):
@@ -468,9 +468,9 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             x, w, g, num_heads=num_heads, scaler=scaler, n_real=n_real,
             splits=splits, g_jas=g_jas, jas_idx=jas_idx, g_attn=g_attn,
             drop=drop, rqkv=resid_qkv, rh1=resid_h1)
-        count_launch("vf_bwd_resid_tiled" if resid
-                     else "vf_bwd_tiled" if drop is None
-                     else "vf_bwd_tiled_drop")
+        count_tiled("vf_bwd_resid_tiled" if resid
+                    else "vf_bwd_tiled" if drop is None
+                    else "vf_bwd_tiled_drop", n)
         return _split_bars(xbar, out, d, dh)
     cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
                                  drop is not None, w.l2)

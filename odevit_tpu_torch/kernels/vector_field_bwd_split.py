@@ -47,7 +47,7 @@ import ctypes
 
 import torch
 
-from odevit_tpu_torch.kernels import count_launch
+from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.dropout import check_rates, drop_spec, \
     masks_plain
 from odevit_tpu_torch.kernels.tiled import _Args, make_args, tiled_plan
@@ -250,8 +250,8 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
                     drop is not None)[0]
     _launch("vfs_attn", x, w, bufs, num_heads=num_heads, scaler=scaler,
             n_real=n_real, splits=splits, drop=drop, mt=mt)
-    count_launch("vf_bwd_attn_resid" if resid else "vf_bwd_attn"
-                 if drop is None else "vf_bwd_attn_drop")
+    count_tiled("vf_bwd_attn_resid" if resid else "vf_bwd_attn"
+                if drop is None else "vf_bwd_attn_drop", n)
     wqkv, wout, ga, ba = torch.split(bufs["wbars"],
                                      [3 * d * d, d * d, d, d])
     return bufs["out"], ga, ba, wqkv.view(d, 3 * d), wout.view(d, d)

@@ -187,14 +187,14 @@ def test_l2_routes_jax_does_not_have_raise(case):
                  {"pixel_values": pixels, "labels": labels}, rng=0)
     elif case == "no_cta_plan":
         # 64 px at patch 4: 259 tokens padded to 272, beyond one image per
-        # CTA and beyond the tiled route's 256 (tests/test_torch_l2_tiled.py
-        # holds the shapes between against JAX)
+        # CTA: the tiled route, key-tiled past 256 padded tokens
+        # (tests/test_torch_long_seq.py holds that shape against JAX)
         tm = ViTODE(**{**CFG, "img_size": 64}, device="cpu")
-        with pytest.raises(ValueError, match="256"):
-            fast_forward(tm, torch.zeros(2, 64, 64, 3))
-        with pytest.raises(ValueError, match="256"):
-            fast_free_forward(tm, torch.zeros(2, 64, 64, 3), labels,
-                              jasmin_k=10)
+        logits = fast_forward(tm, torch.zeros(2, 64, 64, 3))["logits"]
+        assert torch.isfinite(logits).all()
+        loss, _ = fast_free_forward(tm, torch.zeros(2, 64, 64, 3), labels,
+                                    jasmin_k=10)
+        assert torch.isfinite(loss)
     elif case == "distill":
         tm = ViTODE(**{**CFG, "solver": "euler"}, device="cpu")
         teacher = ViTTeacher(image_size=16, patch_size=4, hidden_size=32,

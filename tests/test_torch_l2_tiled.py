@@ -14,8 +14,9 @@ take every shape:
   * one free-training step (Euler on 3 points: two JaSMin evaluations)
     against JAX's ``make_fast_free_train_step``, and ``fast_forward``
     logits against JAX's;
-  * the routes: one CTA at <= 128 padded tokens, the tiled route above,
-    a raise past 256, and never the split backward (L2 weights at D=768,
+  * the routes: one CTA at <= 128 padded tokens, the tiled route above
+    (past 256 too), a raise where a size is not a multiple of 16, and
+    never the split backward (L2 weights at D=768,
     dh=3072 take the tiled combined backward; JAX keeps its combined
     kernel for L2).
 
@@ -234,14 +235,21 @@ def test_l2_routes(case):
         assert tiled_plan_rule(torch.float32, 208, 207, 768, 12, 768,
                                l2=True)[0] == 32
     elif case == "past_256":
-        # 64 px at patch 4: 259 tokens padded to 272
-        with pytest.raises(ValueError, match="256"):
-            l2_route(torch.bfloat16, 272, 259, 32, 2, 64)
+        # 64 px at patch 4 (259 tokens padded to 272) and the 384 px
+        # TS-Base student (587 tokens padded to 592) take the tiled route,
+        # whose attention runs its key-tiled instances on the card
+        for args in ((272, 259, 32, 2, 64), (592, 587, 768, 12, 768)):
+            for dtype in (torch.bfloat16, torch.float32):
+                assert l2_route(dtype, *args) == "tiled"
+                assert l2_route(dtype, *args, bwd=True) == "tiled"
         x, w = make_case(4)
         tx = torch.zeros(B, 272, D)
-        with pytest.raises(ValueError, match="256"):
-            vf_eval_plain(tx, torch_weights(w, torch.float32), num_heads=H,
-                          scaler=SCALER, n_real=259)
+        out = vf_eval_plain(tx, torch_weights(w, torch.float32), num_heads=H,
+                            scaler=SCALER, n_real=259)
+        assert out.shape == tx.shape and torch.isfinite(out).all()
+        # a size that is not a multiple of 16 still has no plan
+        with pytest.raises(ValueError, match="multiples of 16"):
+            l2_route(torch.bfloat16, 600, 587, 768, 12, 768)
     else:
         # L2 weights at MLP ratio 4 (D=768, dh=3072) keep the combined
         # backward: vf_bwd never asks the split route

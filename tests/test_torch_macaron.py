@@ -400,9 +400,14 @@ def test_plans_and_the_shapes_without_one_raise():
             assert macaron_route(dt, 144, 130, 192, 3, 768, bwd) == "tiled"
         assert macaron_plan(dt, 144, 130, 192, 3, 768) is None
         assert macaron_bwd_plan(dt, 144, 130, 192, 3, 768) is None
+        # past 256 padded tokens the tiled route's attention is key-tiled
+        for bwd in (False, True):
+            assert macaron_route(dt, 272, 260, 192, 3, 768, bwd) == "tiled"
+            assert macaron_route(dt, 592, 587, 768, 12, 1536,
+                                 bwd) == "tiled"
         # heads of 8 channels have a plan on neither route
         assert macaron_plan(dt, 32, 20, 32, 4, 64) is None
-        with pytest.raises(ValueError, match="256"):
+        with pytest.raises(ValueError, match="multiples of 16"):
             macaron_route(dt, 32, 20, 32, 4, 64)
     _, p = jax_vf_tree(15)
     w = port_weights(p)
@@ -414,14 +419,14 @@ def test_plans_and_the_shapes_without_one_raise():
     assert len(macaron_bwd(x, w, x, num_heads=H, scaler=1.0,
                            n_real=140)) == 16
     assert launch_counts == before
-    # past 256 padded tokens neither route has a plan
+    # past 256 padded tokens too (the tiled route; its attention is
+    # key-tiled on the card)
     x = torch.zeros(1, 272, D)
-    for fn in (lambda: macaron_eval(x, w, num_heads=H, scaler=1.0,
-                                    n_real=260),
-               lambda: macaron_bwd(x, w, x, num_heads=H, scaler=1.0,
-                                   n_real=260)):
-        with pytest.raises(ValueError, match="256"):
-            fn()
+    assert macaron_eval(x, w, num_heads=H, scaler=1.0,
+                        n_real=260).shape == x.shape
+    assert len(macaron_bwd(x, w, x, num_heads=H, scaler=1.0,
+                           n_real=260)) == 16
+    assert launch_counts == before
     with pytest.raises(ValueError, match="padded"):
         macaron_eval(torch.zeros(1, 17, D), w, num_heads=H, scaler=1.0,
                      n_real=17)

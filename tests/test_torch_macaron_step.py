@@ -106,11 +106,11 @@ def test_macaron_routes_that_raise(case):
         with pytest.raises(NotImplementedError, match="mesh"):
             make_fast_macaron_train_step(tm, mesh=object())
     else:
-        # 64 px at patch 4: 257 tokens (272 padded), beyond the tiled
-        # route's 256 as well as one image per CTA
+        # 64 px at patch 4: 257 tokens (272 padded), beyond one image per
+        # CTA: the tiled route, key-tiled past 256 padded tokens
         tm = ViTMacaron(**{**CFG, "img_size": 64}, device="cpu")
-        with pytest.raises(ValueError, match="256"):
-            fast_forward(tm, torch.zeros(2, 64, 64, 3))
+        logits = fast_forward(tm, torch.zeros(2, 64, 64, 3))["logits"]
+        assert torch.isfinite(logits).all()
 
 
 @pytest.mark.parametrize("route", ["euler", "rk4", "rk4_nonuniform"])

@@ -9,7 +9,8 @@ backward's ``macaron_bwd_block_b`` is 2 here, so ``pallas_macaron_bwd``
 runs its kernel, not the XLA twin's vjp):
 
   * the route: tiled at 160 padded tokens, forward and backward, in both
-    dtypes; a raise at 272;
+    dtypes, and at 272 and 592 (key-tiled attention on the card); a raise
+    at 600 (not a multiple of 16);
   * ``macaron_eval_plain`` in its three modes against ``_pallas_macaron``
     and ``_xla_macaron``;
   * ``macaron_bwd_plain``'s 16 cotangents against ``pallas_macaron_bwd``
@@ -89,8 +90,12 @@ def jdtype(dtype):
 def test_route_is_tiled_and_raises_past_256(dtype):
     for bwd in (False, True):
         assert macaron_route(dtype, N_PAD, N, D, H, DH, bwd) == "tiled"
-        with pytest.raises(ValueError, match="256"):
-            macaron_route(dtype, 272, 257, D, H, DH, bwd)
+        # past 256 padded tokens the tiled route's attention is key-tiled
+        assert macaron_route(dtype, 272, 257, D, H, DH, bwd) == "tiled"
+        assert macaron_route(dtype, 592, 587, D, H, DH, bwd) == "tiled"
+        # a size that is not a multiple of 16 still raises
+        with pytest.raises(ValueError, match="multiples of 16"):
+            macaron_route(dtype, 600, 587, D, H, DH, bwd)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
