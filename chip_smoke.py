@@ -91,10 +91,12 @@ Phases:
      phase 22): ``macaron_eval`` in its three modes and ``macaron_bwd``
      (16 cotangents) against their plain versions at B=4 in bf16 and f32
      (perturbed weights, NaN padding, repeats, the Python plans against
-     the CUDA ones); the bf16 model (float32 states by promotion) served
-     at B=1024 by rk4 on 13 points (48 launches) and Euler on 13 (12),
-     and through the engine; 3 training steps through the kernels and the
-     plain path; each instance alone at B=1024;
+     the CUDA ones and their one-CTA backward counts); the bf16 model
+     (float32 states by promotion) served at B=1024 by rk4 on 13 points
+     (48 launches) and Euler on 13 (12), and through the engine; 3
+     training steps through the kernels and the plain path; each
+     instance alone at B=1024 (the f32 backward's kernels by profiler
+     beside its split-TF32 floor);
   24. the fused steps' map route and emit_masks (after phase 11): the free
      step on a 9-token sequence (CIFAR width at patch 16, k=9, rk4-13,
      B=1024, ± dropout 0.1), JaSMin from the maps, through the kernels
@@ -163,8 +165,10 @@ import sys
 import threading
 import time
 
-# The card's published peaks (NVIDIA H100 SXM data sheet, dense bf16).
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense bf16 and
+# TF32).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # 32-bit integer instructions outside the tensor cores issue on two pipes
 # of 64 lanes per SM each: multiplies (IMAD, IMAD.HI) on the FMA pipe,
@@ -2307,6 +2311,36 @@ def backward_profile(loss_fn, top: int = 12):
                     for k, ms, c in rows[:top]]}
 
 
+def kernel_parts(fn, calls: int = 3):
+    """Device time of each kernel that ``calls`` calls of ``fn`` launch,
+    under torch.profiler (after one call outside it): {kernel name without
+    its arguments: {"ms_per_launch", "launches" the profiler recorded}},
+    largest first. Per launch, not per call: the profiler does not record
+    every launch of a window (seen on the H100)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    def name(key):
+        key = key.replace("(anonymous namespace)::", "")
+        return key.removeprefix("void ").split("(")[0][:60]
+
+    rows = [(name(e.key),
+             {"ms_per_launch": e.self_device_time_total / 1e3 / e.count,
+              "launches": e.count})
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1]["ms_per_launch"] * r[1]["launches"])
+    return dict(rows)
+
+
 def stash_ab(make_model, make_step, loss_fn, batch, nb: int):
     """The stash and recompute arms of one cell on the kernels, from the
     same weights and batch: their first steps compared (loss and
@@ -3318,6 +3352,20 @@ def macaron_model(solver="rk4", steps=13, seed=0):
                       device="cuda", seed=seed)
 
 
+def macaron_flops(b: int, n_real: int, d: int, dh: int,
+                  backward: bool = False) -> float:
+    """Operations of one Macaron evaluation (``backward``: its backward,
+    3x) at the real token count."""
+    flops = b * (n_real * (8 * d * dh + 8 * d * d) + 4 * n_real * n_real * d)
+    return 3 * flops if backward else flops
+
+
+def tf32_floor_ms(flops: float) -> float:
+    """The f32 kernels' own floor: their products as split TF32 take three
+    TF32 passes each, over the TF32 tensor peak."""
+    return 3 * flops / PEAK_TF32_FLOPS * 1e3
+
+
 def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
                   backward: bool = False):
     """(bound_ms, bound_by) of one Macaron evaluation (``backward``: its
@@ -3328,12 +3376,11 @@ def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
     bf16 instance and the float32 peak for the float32 one, against the
     state in and out (and g, x_bar), the weights and, for the backward,
     their float32 cotangents over the memory rate."""
-    flops = b * (n_real * (8 * d * dh + 8 * d * d) + 4 * n_real * n_real * d)
+    flops = macaron_flops(b, n_real, d, dh, backward)
     weights = 4 * d * d + 2 * d * dh
     states = 3 if backward else 2
     nbytes = (states * b * n_real * d + weights) * itemsize + 12 * d * 4
     if backward:
-        flops *= 3
         nbytes += (weights + 11 * d + dh + 1) * 4
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     t_ops = flops / peak * 1e3
@@ -3344,12 +3391,14 @@ def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
 def macaron_plans_agree():
     """The Python plans that route Macaron on either device
     (``macaron_plan``, ``macaron_bwd_plan``) against the CUDA sources'
-    ``mac_plan``/``mcb_plan`` over a sweep of shapes."""
+    ``mac_plan``/``mcb_plan`` over a sweep of shapes; the one-CTA
+    backward has a plan at 114 of them in bf16 and 93 in f32."""
     import torch
     from odevit_tpu_torch.kernels.macaron import kernel_plan, macaron_plan
     from odevit_tpu_torch.kernels.macaron_bwd import (kernel_bwd_plan,
                                                       macaron_bwd_plan)
     shapes = 0
+    cta_bwd = {torch.bfloat16: 0, torch.float32: 0}
     for dtype in (torch.bfloat16, torch.float32):
         for n_pad in (16, 32, 64, 80, 96, 128, 144):
             for d, heads in ((32, 2), (64, 2), (128, 2), (192, 3), (256, 4),
@@ -3364,7 +3413,11 @@ def macaron_plans_agree():
                           f"Macaron bwd plan {args}: python "
                           f"{macaron_bwd_plan(*args)}, mcb_plan "
                           f"{kernel_bwd_plan(*args)}")
+                    cta_bwd[dtype] += macaron_bwd_plan(*args) is not None
                     shapes += 1
+    # the one-CTA backward's shapes: as many as before the f32 redesign
+    check(cta_bwd == {torch.bfloat16: 114, torch.float32: 93},
+          f"one-CTA Macaron backward plans: {cta_bwd}")
     return shapes
 
 
@@ -3687,13 +3740,22 @@ def macaron_timing(model, x_in, b, iters=(5, 2), slow_iters=3):
                     "plain_ms": cuda_ms(lambda: macaron_bwd(
                         x, w, gd, plain=True, **kw), iters=iters[1]),
                     **dict(zip(("bound_ms", "bound_by"), macaron_bound(
-                        b, n_real, d, dh, isz, backward=True)))}}
+                        b, n_real, d, dh, isz, backward=True))),
+                    # f32: the split-TF32 floor, and each kernel's device
+                    # time per launch
+                    **({"tf32_floor_ms": tf32_floor_ms(macaron_flops(
+                        b, n_real, d, dh, backward=True)),
+                        "parts": kernel_parts(
+                            lambda: macaron_bwd(x, w, gd, **kw))}
+                       if slow else {})}}
     launch_counts.update(before)           # comparisons do not count
     return out, n_real, x.shape[1], dh
 
 
 def phase_macaron_kernel_timing(images_u8):
-    """Each Macaron instance alone at B=1024 on the main path's inputs."""
+    """Each Macaron instance alone at B=1024 on the main path's inputs; the
+    f32 backward's kernels per launch (``parts``) and its split-TF32
+    floor (``tf32_floor_ms``) beside its bound."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     out, n_real, n_pad, dh = macaron_timing(
@@ -5030,7 +5092,7 @@ def main() -> int:
                if name == "macaron_eval" else {}),
             **{k: v for k, v in mac_timing["torch.float32"][name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by")},
+                        "bound_by", "tf32_floor_ms", "parts")},
             "library_ms": None,
             "bf16": {k: v for k, v in mac_timing["torch.bfloat16"][name]
                      .items() if k in ("max_abs_err", "ms", "plain_ms",

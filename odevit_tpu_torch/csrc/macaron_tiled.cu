@@ -449,16 +449,17 @@ int backward(const MctArgs& a, cudaStream_t st) {
     ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
     ps.rows_per_split =
         (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-    int ntiles = 0;
-    for (int i = 0; i < 2; ++i)
-      ntiles += ((ps.p[i].m + kTile - 1) / kTile) *
-                ((ps.p[i].n + kTile - 1) / kTile);
-    const dim3 grid(ntiles, a.splits);
-    if (sizeof(T) == 2)
-      vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
-    else
-      macb::mcb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
-    VFT_CHECK((int)cudaGetLastError());
+    if (sizeof(T) == 2) {
+      int ntiles = 0;
+      for (int i = 0; i < 2; ++i)
+        ntiles += ((ps.p[i].m + kTile - 1) / kTile) *
+                  ((ps.p[i].n + kTile - 1) / kTile);
+      vfb_wgrad_bf16<<<dim3(ntiles, a.splits), kWThreads, 0, st>>>(ps,
+                                                                  a.wpart);
+      VFT_CHECK((int)cudaGetLastError());
+    } else {
+      VFT_CHECK(macb::wgrad_f32(ps, a.wpart, a.splits, st));
+    }
   }
   const int nlen = macb::np_offsets(d, dh).total;
   const size_t all = wtotal + (size_t)nlen;

@@ -33,6 +33,7 @@ reaches a cotangent.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -42,7 +43,7 @@ from odevit_tpu_torch.kernels.macaron import (MacaronWeights, _check,
 from odevit_tpu_torch.kernels.macaron_tiled import tiled_bwd
 from odevit_tpu_torch.kernels.vector_field import (_CHUNKS, _MAX_SMEM,
                                                    align128, cta_shape_ok)
-from odevit_tpu_torch.kernels.vector_field_bwd import (_gelu_grad,
+from odevit_tpu_torch.kernels.vector_field_bwd import (_SMS, _gelu_grad,
                                                        check_operands,
                                                        weight_splits)
 from odevit_tpu_torch.ops.dot import dot32
@@ -51,29 +52,81 @@ from odevit_tpu_torch.ops.layer_norm import LN_EPS
 BAR_NAMES = ("x", *MacaronWeights._fields)
 
 
+_BLOCKS = (192, 128, 96, 64, 32, 16)   # ``kBlocks``: the f32 column blocks
+_SLICE, _LD_K, _STAGES = 16, 20, 2      # ``mac::kSlice``, ``kLdK``, ``kStages``
+_RED = align128((12 + 2 * 128) * 4)     # reduction scratch, row statistics
+
+
+def cta_layout_bytes(tb: int, n: int, hd: int, hc: int) -> int:
+    """Bytes of ``mcb_rows``'s layout (``make_plan``): the one-CTA route's
+    rule in either dtype, and the bf16 kernel's plan."""
+    pad = 16 // tb
+    off = _RED + align128(n * (max(hc, 3 * hd, n) + 4) * 4)     # st
+    ffn = align128(n * (hc + 4) * 4) + align128(n * (hc + pad) * tb)
+    attn = (align128(n * (n + 4) * 4) + align128(n * (n + pad) * tb)
+            + 4 * align128(n * (hd + pad) * tb))                # q k v cb
+    return off + max(ffn, attn)
+
+
+def f32_layout(n: int, hc: int, nb: int) -> dict:
+    """``make_plan_f32`` of ``csrc/macaron_bwd.cu``: byte offsets, the
+    ring's plane of one slot (``slot``, floats) and the row strides
+    (floats) of ``mcb_rows_f32``'s shared memory."""
+    slot = n * _LD_K + max(_SLICE * (nb + 8), nb * _LD_K)   # ring_slot
+    ld_h, ld_p = hc + 4, n + 4
+    fh, fp = align128(n * ld_h * 4), align128(n * ld_p * 4)
+    ring = _RED
+    off = ring + align128(2 * _STAGES * slot * 4)
+    return {"ring": ring, "slot": slot, "ld_h": ld_h, "ld_p": ld_p,
+            "ld_b": nb + 8, "ld_k": _LD_K, "pre": off, "hbig": off + fh,
+            "hsmall": off + 2 * fh, "st": off, "pf": off + fp,
+            "pbig": off + 2 * fp, "psmall": off + 3 * fp,
+            "total": off + max(3 * fh, 4 * fp)}
+
+
 def macaron_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                      dh: int):
-    """(FFN chunk width, shared-memory bytes) of the per-image kernel, or
-    None where one image does not fit one CTA (the shape then takes the
-    tiled route, ``macaron_route``): ``mcb_plan`` of
-    ``csrc/macaron_bwd.cu`` in Python. ``chip_smoke.py`` holds it against
+    """(FFN chunk width, shared-memory bytes, column block) of the
+    per-image kernel, or None where one image does not fit one CTA (the
+    shape then takes the tiled route, ``macaron_route``): ``mcb_plan`` of
+    ``csrc/macaron_bwd.cu`` in Python. A shape has a plan where
+    ``mcb_rows``'s layout fits (:func:`cta_layout_bytes`); in bf16 that
+    layout is the plan (column block 0), in f32 :func:`f32_layout`'s
+    (wide column blocks first). ``chip_smoke.py`` holds it against
     ``mcb_plan``."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
         return None
     tb = torch.empty((), dtype=dtype).element_size()
-    n, hd, pad = n_pad, d // num_heads, 16 // tb
     for hc in _CHUNKS:
-        if dh % hc:
+        if dh % hc or cta_layout_bytes(tb, n_pad, d // num_heads,
+                                      hc) > _MAX_SMEM:
             continue
-        off = align128((12 + 2 * 128) * 4)                     # red, stats
-        off += align128(n * (max(hc, 3 * hd, n) + 4) * 4)      # st
-        ffn = align128(n * (hc + 4) * 4) + align128(n * (hc + pad) * tb)
-        attn = (align128(n * (n + 4) * 4) + align128(n * (n + pad) * tb)
-                + 4 * align128(n * (hd + pad) * tb))           # q k v cb
-        total = off + max(ffn, attn)
-        if total <= _MAX_SMEM:
-            return hc, total
+        if tb == 2:
+            return hc, cta_layout_bytes(tb, n_pad, d // num_heads, hc), 0
+        for nb in _BLOCKS:
+            if -(-nb // 32) * -(-(n_pad // 16) // 3) > 12:
+                continue          # block_fits: one round of warp tiles
+            for hc32 in _CHUNKS:
+                if dh % hc32:
+                    continue
+                total = f32_layout(n_pad, hc32, nb)["total"]
+                if total <= _MAX_SMEM:
+                    return hc32, total, nb
+        return None
     return None
+
+
+def wgrad_splits(dtype, rows: int, d: int, dh: int) -> int:
+    """Slices of rows the weight products are split into. bf16:
+    ``weight_splits``. f32 (``mcb_wgrad_f32``'s 128 x 64 tiles): about
+    four CTAs per SM in the smaller pass (Wqkv and Wout), each slice at
+    least 256 rows. Fixed by the shape, so the reduction order, and the
+    result, are the same every run."""
+    if dtype != torch.float32:
+        return weight_splits(rows, d, dh)
+    t = lambda m, n: -(-m // 128) * -(-n // 64)
+    return max(1, min(math.ceil(4 * _SMS / (t(d, 3 * d) + t(d, d))),
+                      rows // 256))
 
 
 def ln_stats(xf):
@@ -154,8 +207,8 @@ class _Args(ctypes.Structure):
         "h1b13", "ob13", "qkv", "ctx", "aod", "qkvbar", "st32", "npart",
         "wpart", "out")]
         + [(name, ctypes.c_int) for name in (
-            "batch", "n_pad", "n_real", "d", "heads", "dh", "hc", "smem",
-            "splits")]
+            "batch", "n_pad", "n_real", "d", "heads", "dh", "hc", "nb",
+            "smem", "splits")]
         + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float)])
 
 
@@ -168,7 +221,7 @@ def _library() -> ctypes.CDLL:
         from odevit_tpu_torch.kernels import build
         lib = build.load("macaron_bwd")
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.mcb_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 2
+        lib.mcb_plan.argtypes = [i] * 6 + [ctypes.POINTER(i)] * 3
         lib.mcb_plan.restype = i
         lib.mcb_launch.argtypes = [i, ctypes.POINTER(_Args), p]
         lib.mcb_launch.restype = i
@@ -181,13 +234,15 @@ def _library() -> ctypes.CDLL:
 def kernel_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                     dh: int):
     """``mcb_plan`` of ``csrc/macaron_bwd.cu``: (FFN chunk width,
-    shared-memory bytes), or None where the shape has no plan."""
-    hc, smem = ctypes.c_int(), ctypes.c_int()
+    shared-memory bytes, column block), or None where the shape has no
+    plan."""
+    hc, smem, nb = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().mcb_plan(tbytes, n_pad, n_real, d, num_heads, dh,
-                           ctypes.byref(hc), ctypes.byref(smem)):
+                           ctypes.byref(hc), ctypes.byref(smem),
+                           ctypes.byref(nb)):
         return None
-    return hc.value, smem.value
+    return hc.value, smem.value, nb.value
 
 
 def partials(d: int, dh: int) -> int:
@@ -213,7 +268,7 @@ def macaron_bwd(x, w: MacaronWeights, g, *, num_heads: int, scaler: float,
     dh = w.w1.shape[1]
     rows = b * n
     # one split count for both weight passes (B*n_pad and 2*B*n_pad rows)
-    splits = weight_splits(rows, d, dh)
+    splits = wgrad_splits(x.dtype, rows, d, dh)
     wtotal = 4 * d * d + 2 * d * dh
     nlen = partials(d, dh)
     if route == "tiled":
@@ -221,7 +276,7 @@ def macaron_bwd(x, w: MacaronWeights, g, *, num_heads: int, scaler: float,
                               n_real=n_real, splits=splits, nlen=nlen)
         count_tiled("macaron_bwd_tiled", n)
         return split_bars(xbar, out, d, dh)
-    hc, smem = macaron_bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
+    hc, smem, nb = macaron_bwd_plan(x.dtype, n, n_real, d, num_heads, dh)
 
     def scratch(width, halves=1, dtype=x.dtype):
         return torch.empty(halves * rows, width, device=x.device, dtype=dtype)
@@ -239,7 +294,7 @@ def macaron_bwd(x, w: MacaronWeights, g, *, num_heads: int, scaler: float,
         **{name: t.data_ptr() for name, t in w._asdict().items()},
         **{name: t.data_ptr() for name, t in bufs.items()},
         batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads, dh=dh, hc=hc,
-        smem=smem, splits=splits, scaler=scaler,
+        nb=nb, smem=smem, splits=splits, scaler=scaler,
         qk_scale=(d // num_heads) ** -0.5)
     err = _library().mcb_launch(
         x.element_size(), ctypes.byref(args),
