@@ -143,12 +143,17 @@ Phases:
      (every key-tiled instance of the tiled route, its split backward and
      the Macaron tiled route against the plain versions at B=2, 261/272
      and 587/592 tokens, bf16 and f32; repeats, NaN padding, the emitted
-     masks against the generator, the plans up to 1,024 padded tokens),
-     ``long_train`` (3 steps at B=8 through the kernels and the plain
-     path, then 3 kernel steps at B=64: img/s, split, peak memory, busy
-     share, launches), ``long_serving`` (Euler-36 at B=64 against the
-     plain path, timed; the engine as ``long_serving_engine``) and
-     ``long_kernel_timing`` (each key-tiled instance alone at B=64);
+     masks against the generator, the plans up to 1,024 padded tokens;
+     the bf16 backward's ``vft_attn_kt_bwd`` / ``vft_attn_keys_kt2`` also
+     at head widths 16, 192 and 288, and their registers and spills from
+     ``-Xptxas -v``), ``long_train`` (3 steps at B=8 through the kernels
+     and the plain path, then 3 kernel steps at B=64: img/s, split, peak
+     memory, busy share, launches), ``long_serving`` (Euler-36 at B=64
+     against the plain path, timed; the engine as
+     ``long_serving_engine``) and ``long_kernel_timing`` (each key-tiled
+     instance alone at B=64; the bf16 backwards' kernels per launch with
+     the attention pair's own bound; the ratio-4 MLP half at 592 tokens;
+     ``scaled_dot_product_attention`` forward + backward as a yardstick);
   last, the kernels line (launch counts of the main paths, times, bounds)
   and the result line.
 
@@ -160,6 +165,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -2339,6 +2345,30 @@ def kernel_parts(fn, calls: int = 3):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1]["ms_per_launch"] * r[1]["launches"])
     return dict(rows)
+
+
+def kernel_resources(source: str, names) -> dict:
+    """Registers, stack frame and spills of each kernel of ``source``
+    whose mangled name holds one of ``names``, as ``-Xptxas -v`` printed
+    them when this process built the library (empty if it did not)."""
+    from odevit_tpu_torch.kernels import build
+    lines = build.build_logs.get(source, "").splitlines()
+    out = {}
+    for i, ln in enumerate(lines):
+        m = re.search(r"Function properties for (\S+)", ln)
+        if not m or not any(n in m.group(1) for n in names):
+            continue
+        props = " ".join(lines[i + 1:i + 3])
+
+        def num(pattern):
+            found = re.search(pattern, props)
+            return int(found.group(1)) if found else None
+
+        out[m.group(1)] = {"registers": num(r"Used (\d+) registers"),
+                           "stack": num(r"(\d+) bytes stack frame"),
+                           "spill_stores": num(r"(\d+) bytes spill stores"),
+                           "spill_loads": num(r"(\d+) bytes spill loads")}
+    return out
 
 
 def stash_ab(make_model, make_step, loss_fn, batch, nb: int):
@@ -4566,6 +4596,53 @@ def phase_long_kernels_vs_plain():
             check(max(errs.values()) <= tol, f"long {dtype} n={n_pad}: "
                   f"{errs}")
             results.append(r)
+    # the bf16 softmax backward's CTAs at head widths other than 64 (Q and
+    # cb read from shared memory): 16, 192 (ctx and q_bar in 64-column
+    # chunks) and 288 (one K/V slot)
+    wide = {}
+    n_pad, n_real = LONG_SHAPES[1]
+    for wd, wheads in ((32, 2), (768, 4), (1152, 4)):
+        ww = long_weights(wd, wheads, wd, g)[torch.bfloat16][0]
+        wkw = dict(num_heads=wheads, scaler=4.0, n_real=n_real)
+        x = torch.randn(b, n_pad, wd, generator=g, device="cuda")
+        x[:, n_real:] = 0
+        x = x.to(torch.bfloat16)
+        gx = torch.randn(b, n_pad, wd, generator=g, device="cuda") * 1e-2
+        gx[:, n_real:] = 0
+        gx = gx.to(torch.bfloat16)
+        gj = torch.randn(b, wheads, 5, n_pad, generator=g,
+                         device="cuda") * 1e-2
+        gj[..., n_real:] = 0
+        ga = torch.randn(b, wheads, n_pad, n_pad, generator=g,
+                         device="cuda") * 1e-2
+        ga[:, :, n_real:] = 0
+        ga[..., n_real:] = 0
+        ga = ga.to(torch.bfloat16)
+        idx = vf_eval_jasmin(x, ww, jas_k=LONG_K, **wkw)[2]
+        for name, extra, counter in (
+                ("g_jas", dict(g_jas=gj, jas_idx=idx), "vf_bwd_tiled_kt"),
+                ("drop_all", dict(g_attn=ga, g_jas=gj, jas_idx=idx, **dkw),
+                 "vf_bwd_tiled_drop_kt")):
+            got = routed(lambda: vf_bwd(x, ww, gx, **wkw, **extra),
+                         {counter: 1})
+            want = vf_bwd(x, ww, gx, plain=True, **wkw, **extra)
+            again = vf_bwd(x, ww, gx, **wkw, **extra)
+            err = max(rel_err(a[:, :n_real] if a.dim() == 3 else a,
+                              c[:, :n_real] if c.dim() == 3 else c)
+                      for a, c in zip(got, want))
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            wide[f"hd{wd // wheads}_{name}"] = {"rel_err": err,
+                                               "repeat_bit_identical": same}
+            check(err <= TOL_BF16 and same, f"long bwd at hd="
+                  f"{wd // wheads} {name}: {err}, repeat {same}")
+    resources = {f"{src}:{k}": v
+                 for src in ("vector_field_tiled", "vector_field_bwd_split",
+                             "macaron_tiled")
+                 for k, v in kernel_resources(
+                     src, ("vft_attn_kt_bwd", "vft_attn_keys_kt2")).items()}
+    check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
+              for v in resources.values()),
+          f"the bf16 key-tiled backward's kernels spill: {resources}")
     for n_pad, n_real in LONG_SHAPES:
         made = macaron_vs_plain(
             f"long_macaron_kernels_vs_plain_{n_pad}", macaron224_model(), b,
@@ -4576,8 +4653,49 @@ def phase_long_kernels_vs_plain():
     shapes = long_plans_agree()
     launch_counts.update(before)           # comparisons do not count
     emit("long_kernels_vs_plain", plans_agree_over_shapes=shapes,
-         launches_checked=checked, results=results)
+         launches_checked=checked, results=results, other_head_widths=wide,
+         bwd_kernel_resources=resources)
     return checked
+
+
+SDPA_YARDSTICK = ("torch.nn.functional.scaled_dot_product_attention "
+                  "forward + backward, B=64, 12 heads, 592 tokens, hd=64, "
+                  "bf16, no dropout: not the same function (no JaSMin or "
+                  "map cotangent, other dropout bits); a yardstick only, "
+                  "never called by the port")
+
+
+def pair_bound(b: int, n_real: int, n_pad: int, d: int, heads: int):
+    """The bf16 key-tiled backward's attention pair (vft_attn_kt_bwd,
+    vft_attn_keys_kt2): six head products at the real token count (QK^T,
+    P V, cb V^T, s_bar K, s_bar^T q, p^T cb) over the bf16 peak, against
+    q, k, v and cb in, ctx and the three cotangents out (bf16) over the
+    memory rate; beside it the floor of this design's [B, H, n_pad, n_pad]
+    p and s_bar scratch, written once and read once."""
+    flops = 6 * 2 * b * n_real * n_real * d
+    nbytes = 8 * b * n_real * d * 2
+    scratch = 2 * 2 * b * heads * n_pad * n_pad * 2
+    bound_ms, bound_by = _bound(flops, nbytes)
+    return {"bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "scratch_gb": scratch / 1e9,
+            "scratch_floor_ms": scratch / PEAK_BYTES_PER_S * 1e3}
+
+
+def sdpa_fwd_bwd_ms(b: int, heads: int, n: int, hd: int) -> float:
+    """``SDPA_YARDSTICK``: one forward and backward of PyTorch's fused
+    attention on random bf16 q, k, v, timed by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v, go = (torch.randn(b, heads, n, hd, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+
+    def run():
+        F.scaled_dot_product_attention(q, k, v).backward(go)
+
+    with torch.enable_grad():
+        return cuda_ms(run, iters=5)
 
 
 def long_kernel_steps(model, images_u8, labels, pre, rng):
@@ -4731,7 +4849,8 @@ def phase_long_kernel_timing(model, images_u8):
     from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
                                                        vf_eval_jasmin)
     from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
-    from odevit_tpu_torch.kernels.vector_field_bwd_split import vf_bwd_attn
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import (vf_bwd_attn,
+                                                                 vf_bwd_mlp)
     before = dict(launch_counts)
     b, d, dh, heads = LONG_BATCH, 768, 768, 12
     out = {}
@@ -4827,8 +4946,38 @@ def phase_long_kernel_timing(model, images_u8):
             "vf_bwd_attn_kt": (
                 lambda pl: vf_bwd_attn(x, w4, gx, xbar_m, g_jas=gj,
                                        jas_idx=idx, plain=pl, **kw),
-                attn_bwd_bound(b, n_real, d, heads, 2), 0)}
+                attn_bwd_bound(b, n_real, d, heads, 2), 0),
+            # the split backward's MLP half at this length (it tiles rows:
+            # no key-tiled instance)
+            "vf_bwd_mlp_592": (
+                lambda pl: vf_bwd_mlp(x, w4, gx, plain=pl,
+                                      scaler=kw["scaler"], n_real=n_real),
+                mlp_bwd_bound(b, n_real, d, 4 * d, 2), 0)}
         out.update(time_jobs(jobs, n_real))
+        # the bf16 softmax backwards' kernels, each launch's device time;
+        # for the attention pair (vft_attn_kt_bwd, vft_attn_keys_kt2) its
+        # own bound and the floor of its p and s_bar scratch
+        yardstick = sdpa_fwd_bwd_ms(b, heads, n_pad, d // heads)
+        for name in ("vf_bwd_tiled_drop_kt", "vf_bwd_tiled_kt",
+                     "vf_bwd_resid_tiled_kt", "vf_bwd_attn_kt"):
+            for _ in range(3):      # the profiler may drop a window
+                parts = kernel_parts(lambda: jobs[name][0](False))
+                new = [k for k in parts
+                       if "vft_attn_kt_bwd" in k or "vft_attn_keys_kt2" in k]
+                if len(new) == 2:
+                    break
+            old = [k for k in parts
+                   if re.search(r"vft_attn_kt<[^,]+, true|vft_attn_keys_kt<",
+                                k)]
+            check(not old and len(new) == 2, f"{name}: attention kernels "
+                  f"{list(parts)}")
+            out[name]["parts"] = parts
+            out[name]["pair"] = {
+                "kernels": new,
+                "ms": sum(parts[k]["ms_per_launch"] for k in new),
+                **pair_bound(b, n_real, n_pad, d, heads),
+                "library_ms": yardstick,
+                "library_call": SDPA_YARDSTICK}
         mw = macaron224_model().vf.kernel_weights(torch.float32)
         mkw = dict(num_heads=heads, scaler=1.0, n_real=n_real)
         xm[:, n_real:] = 0
@@ -5184,8 +5333,11 @@ def main() -> int:
         path, launches = (
             (LONG_TRAIN_CELL, long_train[name]) if name in long_train else
             (LONG_SERVE_CELL, long_serve[name]) if name in long_serve else
-            ("long_kernels_vs_plain", long_checked[name]))
+            ("long_kernels_vs_plain",
+             long_checked[name.removesuffix("_592")]))
         source, replaces = (
+            ("vector_field_bwd_split.cu", "vector_field_bwd.py:350")
+            if name.startswith("vf_bwd_mlp") else
             ("macaron_tiled.cu", "macaron.py:218") if name.startswith(
                 "macaron_bwd") else
             ("macaron_tiled.cu", "macaron.py:45") if name.startswith(
@@ -5204,7 +5356,8 @@ def main() -> int:
             "launches": launches, "launches_of": path,
             **{k: v for k, v in entry.items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "bound_unit", "library_ms")}})
+                        "bound_by", "bound_unit", "library_ms", "parts",
+                        "pair")}})
     check(len(kernels) == 41 + len(long_timing),
           f"{len(kernels)} kernels in the line")
     print(smi, flush=True)

@@ -46,9 +46,13 @@
 //                   p_bar = cb v^T + g_attn + the JaSMin scatter onto the
 //                   saved columns, s_bar = round(p (p_bar - sum p p_bar)),
 //                   q_bar = round(s_bar k tau); p and s_bar go to global
-//                   scratch;
+//                   scratch (past kMaxCols padded tokens vft_attn_kt<bwd>,
+//                   and in bf16 softmax vft_attn_kt_bwd: scores and
+//                   accumulators in mma.sync registers, K and V through a
+//                   cp.async ring, the keep bits drawn once);
 //   vft_attn_keys   per (image, head, key tile): k_bar = round(s_bar^T
-//                   round(q tau)), v_bar = round(p^T cb);
+//                   round(q tau)), v_bar = round(p^T cb) (past kMaxCols
+//                   vft_attn_keys_kt, in bf16 softmax vft_attn_keys_kt2);
 //   vft_gemm (x2)   a_bar = [q_bar k_bar v_bar] Wqkv^T, m_bar = h1_bar W1^T
 //                   (f32);
 //   vft_norm_bwd    x_bar and the per-image partial sums of the four norm
@@ -1104,8 +1108,11 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
 // CTAs are latency-bound: tiles of 64 x 64 products between barriers. So
 // K and V move in 16-byte loads, vf::mm keeps at most 4 row tiles of
 // accumulators (M <= 64), and __launch_bounds__(384, 2) holds the CTAs to
-// 80 registers so that two share an SM (the bf16 backward spills 112-184
-// bytes for it, and is faster all the same).
+// 80 registers so that two share an SM. These first CTAs now run the
+// forward and the f32 and L2 backwards; the bf16 softmax backward, which
+// spilled at that cap, runs vft_attn_kt_bwd and vft_attn_keys_kt2 (below:
+// operands and accumulators in registers, bytes of the p and s_bar
+// scratch bound the pair).
 
 constexpr int kMaxJas = 16;  // JaSMin extraction passes (k + 1) past kMaxCols
 constexpr int kRowVals = 6;  // per query row: max, sum, dot, q2, rsum, jsum
@@ -1620,6 +1627,777 @@ __global__ void __launch_bounds__(vf::kThreads, 2)
   }
 }
 
+// ---------------- the bf16 softmax backward past kMaxCols, on registers
+//
+// vft_attn_kt_bwd (query-major) and vft_attn_keys_kt2 (key-major) replace
+// vft_attn_kt<bf16, true, ...> and vft_attn_keys_kt<bf16, false> for every
+// bf16 softmax backward past kMaxCols padded tokens: the tiled backward
+// (± dropout, ± JaSMin and map cotangents, ± residuals), the split
+// backward's attention half and the bf16 tiled Macaron backward. They
+// stand for odevit_tpu/kernels/vector_field_bwd.py::_vf_bwd_kernel (:117;
+// dropout :182-233, :261-284) and _attn_bwd_kernel (:432). The f32 and L2
+// instances keep the two kernels above.
+//
+// Arithmetic: the whole-row kernels' rounding points. p = round(exp(s tau
+// - m) / l) (exp2 with log2 e folded into tau; e / l by one FMA correction
+// of e (1 / l)); pm = round(round(p) keep sc); ctx = round(sum pm v);
+// p_bar = keep sc (cb v^T) + g_attn + the JaSMin scatter on the
+// pre-dropout round(p); dot = sum p_bar p (f32 p); s_bar = round(p (p_bar
+// - dot)); q_bar = round(tau sum s_bar k); k_bar = round(sum s_bar^T
+// round(q tau)); v_bar = round(sum pm^T cb). Otherwise only the order of
+// the f32 sums differs from the plain versions. No atomics: two runs are
+// bit-identical.
+//
+// Bound. At 587 of 592 tokens, B=64, 12 heads, hd=64 the pair needs six
+// [n x 64] x [64 x n] head products (QK^T, P V for ctx, cb V^T, s_bar K,
+// s_bar^T q, p^T cb): 203 GFLOP, 0.206 ms at 989 TFLOP/s, against 0.14 ms
+// for its q, k, v, cb in and ctx, q_bar, k_bar, v_bar out. This design
+// also writes the p and s_bar scratch ([B, H, n_pad, n_pad] bf16, 538 MB
+// each) once and reads it once: 2.15 GB, a floor of 0.64 ms at 3.35
+// TB/s. The query-major kernel runs 9 head products, not 6 (QK^T three
+// times, cb V^T twice): recomputing them (69 GFLOP at tensor-core rate)
+// costs less than keeping the f32 p_bar in device memory between passes
+// (2.15 GB more traffic).
+//
+// Design (vft_attn_kt_bwd). One CTA of 4 warps per (64-row query tile,
+// head, image); each warp owns 16 query rows. Q and cb arrive once by
+// cp.async and go into registers as mma.sync.m16n8k16 A fragments
+// (ldmatrix; at head widths other than 64, kGeneric, they are read from
+// shared memory at each use). K and V stream in 64-key tiles through a
+// ring of two cp.async slots (one where two do not fit, past hd = 272):
+// one barrier per tile, none inside the tile's math; keys past the tile's
+// end land as zeros, so every k-step runs whole. The scores, p_bar, p and
+// s_bar live in the warp's accumulator fragments, a 16-key k-step at a
+// time (a loop, not unrolled: the registers stay below 255 without
+// spilling): row max, sum and dot reduce over the quad by __shfl_xor, and
+// p and s_bar turn in registers into the A fragments of the next product
+// (FlashAttention-2's register reuse). ctx and q_bar accumulate in
+// registers over the whole stream (at other head widths in 64-column
+// chunks, each chunk streaming the keys again). Three passes, because dot
+// needs the whole row before any s_bar: pass 1 m and l; pass 2 p_bar, dot,
+// pm, ctx and the p scratch; pass 3 s_bar, its scratch and q_bar. The
+// per-element code has no branch: absent cotangents read as zeros, a rate
+// of 0 as kept bits, padding by selection. Dropout keep bits are drawn
+// once, in pass 2, one Philox call per thread and 8 keys (the partner
+// lane of the quad draws the other row's group; a shuffle swaps the
+// halves), and kept as a word per thread and key tile in shared memory for
+// pass 3 (5 KB at 592 tokens; where they do not fit, pass 3 draws them
+// again). Each row's JaSMin columns and cotangents sit in registers. The
+// scratch rows go out through a per-warp staging tile in 16-byte stores.
+//
+// Design (vft_attn_keys_kt2). One CTA of 4 warps per (64-key tile, head,
+// image), 16 keys a warp. The query tiles stream in ascending order
+// through two cp.async slots, each holding the [64 q x 64 k] tiles of
+// s_bar and p, q (each thread rounds the vectors it copied to round(q tau)
+// once they land) and cb; s_bar^T and p^T come by ldmatrix.trans as A
+// fragments, q and cb as .trans B fragments. k_bar and v_bar accumulate in
+// registers and are rounded once (past hd = 64, 64 columns at a time).
+// Reading its half of the scratch (1.08 GB) bounds it at 0.32 ms.
+
+constexpr int kBThreads = 128;              // 4 warps of 16 rows
+constexpr int kLdStg = kKeyTile + 8;        // staged 64-wide bf16 tiles
+constexpr size_t kStgTile = (size_t)kKeyTile * kLdStg * 2;
+
+// Shared memory of vft_attn_kt_bwd (byte offsets; rows of ld bf16): Q and
+// cb of the query tile, the warps' staging tiles, the K/V ring (`stages`
+// slots of K and V), then with `keep` the keep bits of pass 2 (a word per
+// thread and key tile).
+struct KtbPlan {
+  size_t q, cb, stg, ring, slot, bits, total;
+  int ld, stages;
+  bool keep;
+};
+
+__host__ __device__ inline KtbPlan ktb_plan(int hd, int n_pad, bool drop) {
+  KtbPlan a;
+  a.ld = hd + 8;
+  const size_t tile = (size_t)kKeyTile * a.ld * 2;
+  a.q = 0;
+  a.cb = tile;
+  a.stg = 2 * tile;
+  a.ring = a.stg + kStgTile;
+  a.slot = 2 * tile;
+  a.stages = a.ring + 2 * a.slot <= (size_t)vf::kMaxSmem ? 2 : 1;
+  a.bits = a.ring + a.stages * a.slot;
+  const size_t bits =
+      (size_t)((n_pad + kKeyTile - 1) / kKeyTile) * kBThreads * 4;
+  a.keep = drop && a.bits + bits <= (size_t)vf::kMaxSmem;
+  a.total = a.bits + (a.keep ? bits : 0);
+  return a;
+}
+
+// vft_attn_keys_kt2's two slots of s_bar, p, q and cb tiles
+constexpr size_t kKeybSmem = 2 * 4 * kStgTile;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device to shared memory, asynchronously; zeros where !in
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// closes this thread's copies so far into a group
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits for every group of this thread (a barrier shows them to others)
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory: lane l gives row l % 8 of
+// matrix l / 8; with kTrans each matrix arrives transposed
+template <bool kTrans>
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p) {
+  if (kTrans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(smem_addr(p))
+        : "memory");
+}
+
+// c += a b for one m16n8k16 tile (bf16 operands, f32 accumulators)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two values rounded to bf16 and packed, the first in the low half (the
+// lower column of a fragment)
+__device__ __forceinline__ unsigned pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float bf_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+
+__device__ __forceinline__ float bf_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+__device__ __forceinline__ float rbf(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// s = A B^T for this warp's 16 rows and kJ * 8 keys (B's rows from bs;
+// rows past the tile's keys hold zeros), over depth hd: A from the
+// registers af (hd = 64) or, with kGeneric, from shared memory (as: the
+// warp's first row). s[j]: keys 8 j .. 8 j + 7 in the accumulator layout.
+template <bool kGeneric, int kJ>
+__device__ __forceinline__ void qk_tile(float (&s)[kJ][4],
+                                        const unsigned (&af)[4][4],
+                                        const bf16* as, const bf16* bs,
+                                        int ld, int hd) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < kJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  const bf16* brow =
+      bs + ((lane & 7) + 8 * (lane >> 4)) * ld + 8 * ((lane >> 3) & 1);
+  auto step = [&](const unsigned (&a4)[4], int ks) {
+#pragma unroll
+    for (int jj = 0; jj < kJ / 2; ++jj) {
+      unsigned b4[4];
+      ldsm4<false>(b4, brow + 16 * jj * ld + 16 * ks);
+      mma_bf16(s[2 * jj], a4, b4[0], b4[1]);
+      mma_bf16(s[2 * jj + 1], a4, b4[2], b4[3]);
+    }
+  };
+  if constexpr (kGeneric) {
+    const bf16* arow =
+        as + ((lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 8 * (lane >> 4);
+    for (int ks = 0; ks < hd / 16; ++ks) {
+      unsigned a4[4];
+      ldsm4<false>(a4, arow + 16 * ks);
+      step(a4, ks);
+    }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) step(af[ks], ks);
+  }
+}
+
+// acc += a B for k-step kk: a the warp's A fragment of rows x (16 kk ..
+// 16 kk + 15), B's rows those 16 in shared memory (bs, stride ld; its
+// first wc columns, wc a multiple of 16: 64 unless kGeneric), read by
+// ldmatrix.trans.
+template <bool kGeneric>
+__device__ __forceinline__ void pv_step(float (&acc)[8][4],
+                                        const unsigned (&a4)[4],
+                                        const bf16* bs, int ld, int kk,
+                                        int wc) {
+  const int lane = threadIdx.x % 32;
+  const bf16* brow =
+      bs + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld +
+      8 * (lane >> 4);
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj) {
+    if (!kGeneric || 16 * jj < wc) {
+      unsigned b4[4];
+      ldsm4<true>(b4, brow + 16 * jj);
+      mma_bf16(acc[2 * jj], a4, b4[0], b4[1]);
+      mma_bf16(acc[2 * jj + 1], a4, b4[2], b4[3]);
+    }
+  }
+}
+
+// 2^x (ex2.approx.ftz, the instruction exp2f compiles to, without the
+// rescaling of subnormal results)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// e / l for 0 <= e <= 1 <= l by one FMA correction of e (1 / l), il the
+// correctly rounded 1 / l: the correctly rounded quotient (Markstein) for
+// normal quotients, with no branch
+__device__ __forceinline__ float div_by(float e, float l, float il) {
+  const float q = e * il;
+  return fmaf(fmaf(-l, q, e), il, q);
+}
+
+// round(acc scale) of the warp's 16 rows x wc columns into its staging
+// tile st (stride kLdStg)
+__device__ __forceinline__ void stage_acc(bf16* st, const float (&acc)[8][4],
+                                          float scale, int wc) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (8 * j < wc) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<unsigned*>(st + (g + 8 * hf) * kLdStg + 8 * j +
+                                     2 * t4) =
+            pack2(acc[j][2 * hf] * scale, acc[j][2 * hf + 1] * scale);
+    }
+  }
+}
+
+// fn(r, c) for each 16-byte vector (row r, column c) of a [64 x width]
+// bf16 tile that this thread of kBThreads takes; width a multiple of 8
+// (64: no division, one vector column a thread)
+template <typename F>
+__device__ __forceinline__ void tile_vecs(int width, F&& fn) {
+  const int tid = threadIdx.x;
+  if (width == kKeyTile) {
+    const int c = tid % 8 * 8;
+#pragma unroll
+    for (int r = tid / 8; r < kKeyTile; r += kBThreads / 8) fn(r, c);
+  } else {
+    const int per = width / 8;
+    for (int i = tid; i < kKeyTile * per; i += kBThreads)
+      fn(i / per, i % per * 8);
+  }
+}
+
+// The warp's staged rows (the first `rows` of 16, `cols` columns) to dst
+// (stride ldd), 16 bytes a store.
+__device__ __forceinline__ void warp_store(bf16* dst, size_t ldd,
+                                           const bf16* st, int rows,
+                                           int cols) {
+  const int lane = threadIdx.x % 32;
+  __syncwarp();
+  if (cols == kKeyTile) {
+    const int c = lane % 8 * 8;
+    for (int r = lane / 8; r < rows; r += 4)
+      st16(dst + r * ldd + c, ld16(st + r * kLdStg + c));
+  } else {
+    const int per = cols / 8;
+    for (int i = lane; i < rows * per; i += 32) {
+      const int r = i / per, c = i % per * 8;
+      st16(dst + r * ldd + c, ld16(st + r * kLdStg + c));
+    }
+  }
+  __syncwarp();
+}
+
+// One CTA per (64-row query tile, head, image): see above. kDrop: the
+// dropout instance (keep bits of mask_p); kGeneric: a head width other
+// than 64 (Q and cb read from shared memory, ctx and q_bar in 64-column
+// chunks). The per-element code is straight-line: absent cotangents read
+// as zeros, rates of 0 as kept bits, padding by selection.
+template <bool kDrop, bool kGeneric>
+__global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  // the hd = 64 instance knows its width (the launch routes by it)
+  const int n = a.n_pad, n_real = a.n_real, d = a.d;
+  const int hd = kGeneric ? d / a.heads : kKeyTile;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kKeyTile;
+  const KtbPlan pl = ktb_plan(hd, n, kDrop);
+  const int ld = pl.ld, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* qs = reinterpret_cast<bf16*>(smem + pl.q);
+  bf16* cbs = reinterpret_cast<bf16*>(smem + pl.cb);
+  bf16* stg = reinterpret_cast<bf16*>(smem + pl.stg) + warp * 16 * kLdStg;
+  unsigned* kbits = reinterpret_cast<unsigned*>(smem + pl.bits);
+  const size_t row0 = (size_t)b * n, bh = (size_t)b * a.heads + h;
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  const bf16* cb = static_cast<const bf16*>(a.cb);
+  const int wr = q0 + 16 * warp;  // the warp's first query row
+  const bool active = wr < n;
+  const int wrows = vf::imin(16, n - wr);
+  const int rw0 = wr + g, rw1 = wr + g + 8;  // the thread's two rows
+  const bool real0 = rw0 < n_real, real1 = rw1 < n_real;
+  const int tiles = (n + kKeyTile - 1) / kKeyTile;
+  const float tl2 = a.qk_scale * 1.4426950408889634f;
+  const bool drop_p = kDrop && a.drop.th_p;
+  const float sc = drop_p ? a.drop.sc_p : 1.0f;
+  const unsigned pkey = vf::site_key(a.drop.seed, vf::kSiteP + h);
+
+  // Q and cb of the query tile (rows >= n, and with resid padded rows of
+  // q, as zeros)
+  tile_vecs(hd, [&](int r, int c) {
+    const int qi = q0 + r;
+    const size_t src = row0 + vf::imin(qi, n - 1);
+    cp16(qs + r * ld + c, qkv + src * 3 * d + h * hd + c,
+         qi < n && !(a.resid && qi >= n_real));
+    cp16(cbs + r * ld + c, cb + src * d + h * hd + c, qi < n);
+  });
+  cp_commit();
+  // each row's JaSMin columns and cotangents (columns -1 and zeros
+  // without the cotangent); g_attn (zeros without it)
+  const float* gjb = a.g_jas != nullptr ? a.g_jas + bh * 5 * n : nullptr;
+  const int* jib = gjb != nullptr ? a.jas_idx + bh * 4 * n : nullptr;
+  float gj0[6], gj1[6];  // [5]: gj[4] / 2
+  int jc0[4], jc1[4];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    gj0[i] = gjb != nullptr && real0 ? gjb[i * n + rw0] : 0.0f;
+    gj1[i] = gjb != nullptr && real1 ? gjb[i * n + rw1] : 0.0f;
+  }
+  gj0[5] = 0.5f * gj0[4];
+  gj1[5] = 0.5f * gj1[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    jc0[i] = jib != nullptr && real0 ? jib[i * n + rw0] : -1;
+    jc1[i] = jib != nullptr && real1 ? jib[i * n + rw1] : -1;
+  }
+  const bf16* gat = a.g_attn != nullptr
+                        ? static_cast<const bf16*>(a.g_attn) + bh * n * n
+                        : nullptr;
+  cp_wait_all();
+  __syncthreads();
+  unsigned qa[4][4], ca[4][4];
+  if constexpr (!kGeneric) {
+    const int o = (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld +
+                  8 * (lane >> 4);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      ldsm4<false>(qa[ks], qs + o + 16 * ks);
+      ldsm4<false>(ca[ks], cbs + o + 16 * ks);
+    }
+  }
+  const bf16* qw = qs + 16 * warp * ld;
+  const bf16* cw = cbs + 16 * warp * ld;
+
+  // K (and V) of the key tile at c0 into ring slot `slot` (keys >= n,
+  // padded value rows, and with resid padded key rows, as zeros); one
+  // commit group
+  auto load_kv = [&](int c0, int slot, bool with_v) {
+    bf16* ks = reinterpret_cast<bf16*>(smem + pl.ring + slot * pl.slot);
+    bf16* vs = ks + kKeyTile * ld;
+    tile_vecs(hd, [&](int r, int c) {
+      const int key = c0 + r;
+      const bf16* src =
+          qkv + (row0 + vf::imin(key, n - 1)) * 3 * d + h * hd + c;
+      cp16(ks + r * ld + c, src + d, key < n && !(a.resid && key >= n_real));
+      if (with_v) cp16(vs + r * ld + c, src + 2 * d, key < n_real);
+    });
+    cp_commit();
+  };
+  // The ring: tile t of a stream of `count` key tiles sits in slot seq %
+  // stages (seq counts the tiles of every stream). ring_start loads the
+  // stream's first tile; ring_wait(t) waits for tile t, starts tile t + 1
+  // (two slots) and returns its K (V follows); ring_done(t) starts tile
+  // t + 1 once every warp is done with the one slot.
+  int seq = 0;
+  auto ring_start = [&](bool with_v) {
+    if (pl.stages == 1) __syncthreads();  // the slot's last readers
+    load_kv(0, seq % pl.stages, with_v);
+  };
+  auto ring_wait = [&](int t, int count, bool with_v) {
+    cp_wait_all();
+    __syncthreads();
+    if (pl.stages > 1 && t + 1 < count)
+      load_kv((t + 1) * kKeyTile, (seq + 1) % pl.stages, with_v);
+    return reinterpret_cast<const bf16*>(smem + pl.ring +
+                                         (seq % pl.stages) * pl.slot);
+  };
+  auto ring_done = [&](int t, int count, bool with_v) {
+    ++seq;
+    if (pl.stages == 1 && t + 1 < count) {
+      __syncthreads();
+      load_kv((t + 1) * kKeyTile, 0, with_v);
+    }
+  };
+  // the keep bits of the thread's 32 elements of the key tile at c0: bit
+  // 4 j + 2 hf + e for column c0 + 8 j + 2 t4 + e of row hf. The even lane
+  // of a pair draws its first row's group of 4 columns, the odd lane its
+  // second row's (the same group), and they swap halves.
+  auto draw = [&](int c0) {
+    unsigned kb = 0u;
+    const int odd = t4 & 1, row = odd ? rw1 : rw0, sh = 2 * odd;
+    const unsigned th = a.drop.th_p;
+#pragma unroll 4  // all 8 Philox calls at once spill
+    for (int j = 0; j < 8; ++j) {
+      const int grp = c0 / 4 + 2 * j + (t4 >> 1), c = 4 * grp;
+      const uint4 w = vf::philox(pkey, b, row, grp);
+      const bool on = row < n_real;
+      const unsigned nib = (unsigned)(on && c < n_real && w.x >= th) |
+                           (unsigned)(on && c + 1 < n_real && w.y >= th) << 1 |
+                           (unsigned)(on && c + 2 < n_real && w.z >= th) << 2 |
+                           (unsigned)(on && c + 3 < n_real && w.w >= th) << 3;
+      const unsigned other = __shfl_xor_sync(0xffffffffu, nib, 1);
+      const unsigned n0 = odd ? other : nib, n1 = odd ? nib : other;
+      kb |= ((n0 >> sh) & 3u) << (4 * j) | ((n1 >> sh) & 3u) << (4 * j + 2);
+    }
+    return kb;
+  };
+  // the full p_bar of a real row's real key from cb v^T (pb), its keep
+  // value mk, g_attn (ga) and its pre-dropout rounded p (pr). pr is a
+  // bf16 value in [0, 1], never 1e-12f: the plain versions' clip factor
+  // ((pr >= 1e-12) + (pr > 1e-12)) ((pr <= 1) + (pr < 1)) / 4 is 1 inside
+  // (1e-12, 1), 1/2 at 1 and 0 below.
+  auto pbar_full = [&](float pb, float mk, float ga, const float (&gj)[6],
+                       const int (&jc)[4], int col, float pr) {
+    float t = pr > 1e-12f ? (pr < 1.0f ? gj[4] : gj[5]) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t += jc[i] == col ? gj[i] : 0.0f;
+    return (kDrop ? pb * mk : pb) + ga + t;
+  };
+  // g_attn of columns col, col + 1 of row `row` (zeros where absent)
+  auto gattn2 = [&](int row, bool real, int col) {
+    return gat != nullptr && real && col < n_real
+               ? *reinterpret_cast<const unsigned*>(gat + (size_t)row * n +
+                                                    col)
+               : 0u;
+  };
+
+  // pass 1: each row's max and sum over the real keys
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  const int tiles1 = (n_real + kKeyTile - 1) / kKeyTile;
+  ring_start(false);
+  for (int t = 0; t < tiles1; ++t) {
+    const bf16* k = ring_wait(t, tiles1, false);
+    if (active) {
+      const int c0 = t * kKeyTile;
+      float s[8][4];
+      qk_tile<kGeneric, 8>(s, qa, qw, k, ld, hd);
+      float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
+          x0 = in ? fmaxf(x0, s[j][e] * tl2) : x0;
+          x1 = in ? fmaxf(x1, s[j][2 + e] * tl2) : x1;
+        }
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+      const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
+          s0 += in ? ex2(s[j][e] * tl2 - n0) : 0.0f;
+          s1 += in ? ex2(s[j][2 + e] * tl2 - n1) : 0.0f;
+        }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      l0 = l0 * ex2(m0 - n0) + s0;
+      l1 = l1 * ex2(m1 - n1) + s1;
+      m0 = n0;
+      m1 = n1;
+    }
+    ring_done(t, tiles1, false);
+  }
+  const float il0 = 1.0f / l0, il1 = 1.0f / l1;
+  // the f32 p of score sv at column col (0 on padded keys)
+  auto p_of = [&](float sv, int hf, int col) {
+    const float e = ex2(sv * tl2 - (hf ? m1 : m0));
+    const float p = hf ? div_by(e, l1, il1) : div_by(e, l0, il0);
+    return col < n_real ? p : 0.0f;
+  };
+
+  // pass 2 (per 64 columns of hd): pm, ctx; with the first chunk p_bar,
+  // dot, the keep bits and the p scratch
+  float dot0 = 0.0f, dot1 = 0.0f;
+  bf16* pg = static_cast<bf16*>(a.pg) + bh * n * n;
+  bf16* sbg = static_cast<bf16*>(a.sbar) + bh * n * n;
+  for (int hc = 0; hc < hd; hc += kKeyTile) {
+    const bool first = !kGeneric || hc == 0;
+    const int wc = vf::imin(kKeyTile, hd - hc);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    ring_start(true);
+    for (int t = 0; t < tiles; ++t) {
+      const bf16* k = ring_wait(t, tiles, true);
+      const bf16* v = k + kKeyTile * ld;
+      const int c0 = t * kKeyTile, kc = vf::imin(kKeyTile, n - c0);
+      if (!active) {
+        ring_done(t, tiles, true);
+        continue;
+      }
+      unsigned kb = ~0u;
+      if (drop_p) {
+        unsigned* word = kbits + t * kBThreads + tid;
+        kb = first || !pl.keep ? draw(c0) : *word;
+        if (first && pl.keep) *word = kb;
+      }
+      // the tile a k-step (16 keys) at a time
+#pragma unroll 1
+      for (int kk = 0; kk < 4; ++kk) {
+        float s[2][4], pb[2][4];
+        qk_tile<kGeneric, 2>(s, qa, qw, k + 16 * kk * ld, ld, hd);
+        if (first) qk_tile<kGeneric, 2>(pb, ca, cw, v + 16 * kk * ld, ld, hd);
+        unsigned a4[4];
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh) {
+          const int j = 2 * kk + jh, col = c0 + 8 * j + 2 * t4;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const bool real = hf ? real1 : real0;
+            const unsigned gw = first ? gattn2(hf ? rw1 : rw0, real, col) : 0u;
+            float pm[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pf = p_of(s[jh][2 * hf + e], hf, col + e);
+              const float pr = rbf(pf);
+              const float mk = (kb >> (4 * j + 2 * hf + e)) & 1u ? sc : 0.0f;
+              pm[e] = kDrop ? pr * mk : pr;
+              if (first) {
+                const float pbf = pbar_full(
+                    pb[jh][2 * hf + e], mk, e ? bf_hi(gw) : bf_lo(gw),
+                    hf ? gj1 : gj0, hf ? jc1 : jc0, col + e, pr);
+                const float c = real && col + e < n_real ? pbf * pf : 0.0f;
+                if (hf)
+                  dot1 += c;
+                else
+                  dot0 += c;
+              }
+            }
+            const unsigned w = pack2(pm[0], pm[1]);
+            a4[hf + 2 * jh] = w;
+            if (first)
+              *reinterpret_cast<unsigned*>(stg + (g + 8 * hf) * kLdStg +
+                                           8 * j + 2 * t4) = real ? w : 0u;
+          }
+        }
+        pv_step<kGeneric>(acc, a4, v + hc, ld, kk, wc);
+      }
+      if (first) warp_store(pg + (size_t)wr * n + c0, n, stg, wrows, kc);
+      ring_done(t, tiles, true);
+    }
+    if (first) {
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
+      dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
+      dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
+    }
+    if (active) {
+      stage_acc(stg, acc, 1.0f, wc);
+      warp_store(static_cast<bf16*>(a.ctx) + (row0 + wr) * d + h * hd + hc, d,
+                 stg, wrows, wc);
+    }
+  }
+
+  // pass 3 (per 64 columns of hd): s_bar, q_bar; with the first chunk the
+  // s_bar scratch
+  for (int hc = 0; hc < hd; hc += kKeyTile) {
+    const bool first = !kGeneric || hc == 0;
+    const int wc = vf::imin(kKeyTile, hd - hc);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    ring_start(true);
+    for (int t = 0; t < tiles; ++t) {
+      const bf16* k = ring_wait(t, tiles, true);
+      const bf16* v = k + kKeyTile * ld;
+      const int c0 = t * kKeyTile, kc = vf::imin(kKeyTile, n - c0);
+      if (!active) {
+        ring_done(t, tiles, true);
+        continue;
+      }
+      unsigned kb = ~0u;
+      if (drop_p) kb = pl.keep ? kbits[t * kBThreads + tid] : draw(c0);
+#pragma unroll 1
+      for (int kk = 0; kk < 4; ++kk) {
+        float s[2][4], pb[2][4];
+        qk_tile<kGeneric, 2>(s, qa, qw, k + 16 * kk * ld, ld, hd);
+        qk_tile<kGeneric, 2>(pb, ca, cw, v + 16 * kk * ld, ld, hd);
+        unsigned a4[4];
+#pragma unroll
+        for (int jh = 0; jh < 2; ++jh) {
+          const int j = 2 * kk + jh, col = c0 + 8 * j + 2 * t4;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const bool real = hf ? real1 : real0;
+            const unsigned gw = gattn2(hf ? rw1 : rw0, real, col);
+            float sv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pf = p_of(s[jh][2 * hf + e], hf, col + e);
+              const float mk = (kb >> (4 * j + 2 * hf + e)) & 1u ? sc : 0.0f;
+              const float pbf = pbar_full(
+                  pb[jh][2 * hf + e], mk, e ? bf_hi(gw) : bf_lo(gw),
+                  hf ? gj1 : gj0, hf ? jc1 : jc0, col + e, rbf(pf));
+              sv[e] = real && col + e < n_real
+                          ? pf * (pbf - (hf ? dot1 : dot0))
+                          : 0.0f;
+            }
+            const unsigned w = pack2(sv[0], sv[1]);
+            a4[hf + 2 * jh] = w;
+            if (first)
+              *reinterpret_cast<unsigned*>(stg + (g + 8 * hf) * kLdStg +
+                                           8 * j + 2 * t4) = w;
+          }
+        }
+        pv_step<kGeneric>(acc, a4, k + hc, ld, kk, wc);
+      }
+      if (first) warp_store(sbg + (size_t)wr * n + c0, n, stg, wrows, kc);
+      ring_done(t, tiles, true);
+    }
+    if (active) {
+      stage_acc(stg, acc, a.qk_scale, wc);
+      warp_store(static_cast<bf16*>(a.qkvb) + (row0 + wr) * 3 * d + h * hd +
+                     hc,
+                 3 * d, stg, wrows, wc);
+    }
+  }
+}
+
+// One CTA per (64-key tile, head, image): see above.
+__global__ void __launch_bounds__(kBThreads) vft_attn_keys_kt2(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, n_real = a.n_real, d = a.d, hd = d / a.heads;
+  const int h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * kKeyTile;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  constexpr int ld = kLdStg;
+  const size_t row0 = (size_t)b * n, bh = (size_t)b * a.heads + h;
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  const bf16* cb = static_cast<const bf16*>(a.cb);
+  const bf16* sbg = static_cast<const bf16*>(a.sbar) + bh * n * n;
+  const bf16* pgg = static_cast<const bf16*>(a.pg) + bh * n * n;
+  const int wr = j0 + 16 * warp;  // the warp's first key
+  const bool active = wr < n;
+  const int wrows = vf::imin(16, n - wr);
+  const int count = (n + kKeyTile - 1) / kKeyTile;
+  const float tau = a.qk_scale;
+  auto slot = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + (s & 1) * 4 * kStgTile);
+  };
+  // query tile t into slot s: s_bar and p [64 q x 64 keys from j0], q and
+  // cb [64 q x wc from hc] (rows >= n, with resid padded rows of q, and
+  // keys >= n as zeros); one commit group
+  auto load = [&](int t, int s, int hc, int wc) {
+    bf16* sp = slot(s);
+    bf16* pp = sp + kKeyTile * ld;
+    bf16* qp = pp + kKeyTile * ld;
+    bf16* cp = qp + kKeyTile * ld;
+    tile_vecs(kKeyTile, [&](int r, int c) {
+      const int q = t * kKeyTile + r;
+      const size_t o = (size_t)vf::imin(q, n - 1) * n + vf::imin(j0 + c, n - 8);
+      const bool in = q < n && j0 + c < n;
+      cp16(sp + r * ld + c, sbg + o, in);
+      cp16(pp + r * ld + c, pgg + o, in);
+    });
+    tile_vecs(wc, [&](int r, int c) {
+      const int q = t * kKeyTile + r;
+      const size_t src = row0 + vf::imin(q, n - 1);
+      cp16(qp + r * ld + c, qkv + src * 3 * d + h * hd + hc + c,
+           q < n && !(a.resid && q >= n_real));
+      cp16(cp + r * ld + c, cb + src * d + h * hd + hc + c, q < n);
+    });
+    cp_commit();
+  };
+  // q = round(q tau) for the vectors this thread copied into slot s (its
+  // own copies have landed)
+  auto scale_q = [&](int s, int wc) {
+    bf16* qp = slot(s) + 2 * kKeyTile * ld;
+    tile_vecs(wc, [&](int r, int c) {
+      bf16* p = qp + r * ld + c;
+      uint4 v = ld16(p);
+      unsigned* w = reinterpret_cast<unsigned*>(&v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = pack2(bf_lo(w[e]) * tau, bf_hi(w[e]) * tau);
+      st16(p, v);
+    });
+  };
+  // A fragments of s_bar^T and p^T: this warp's keys, queries 16 kk ..
+  const int arow = ((lane & 7) + 8 * (lane >> 4)) * ld + 16 * warp +
+                   8 * ((lane >> 3) & 1);
+  int seq = 0;
+  for (int hc = 0; hc < hd; hc += kKeyTile) {
+    const int wc = vf::imin(kKeyTile, hd - hc);
+    float kacc[8][4], vacc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) kacc[j][e] = vacc[j][e] = 0.0f;
+    load(0, seq, hc, wc);
+    for (int t = 0; t < count; ++t, ++seq) {
+      cp_wait_all();
+      scale_q(seq, wc);
+      __syncthreads();
+      if (t + 1 < count) load(t + 1, seq + 1, hc, wc);
+      if (active) {
+        const bf16* sp = slot(seq);
+        const bf16* pp = sp + kKeyTile * ld;
+        const bf16* qp = pp + kKeyTile * ld;
+        const bf16* cp = qp + kKeyTile * ld;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          unsigned as[4], ap[4];
+          ldsm4<true>(as, sp + arow + 16 * kk * ld);
+          ldsm4<true>(ap, pp + arow + 16 * kk * ld);
+          pv_step<true>(kacc, as, qp, ld, kk, wc);
+          pv_step<true>(vacc, ap, cp, ld, kk, wc);
+        }
+      }
+    }
+    __syncthreads();  // the slots are free: they stage the results
+    if (active) {
+      bf16* st = slot(0) + warp * 16 * kLdStg;
+      bf16* o = static_cast<bf16*>(a.qkvb) + (row0 + wr) * 3 * d + d +
+                h * hd + hc;
+      stage_acc(st, kacc, 1.0f, wc);
+      warp_store(o, 3 * d, st, wrows, wc);
+      stage_acc(st, vacc, 1.0f, wc);
+      warp_store(o + d, 3 * d, st, wrows, wc);
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace vft
 
 // Everything one tiled evaluation or backward needs, passed by pointer from
@@ -1771,11 +2549,33 @@ int attn_kt(const TiledArgs& t, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The bf16 softmax backward's query-major CTA past kMaxCols padded tokens
+// (vft_attn_kt_bwd; kGeneric for head widths other than 64).
+template <bool kDrop>
+int attn_kt_bwd(const TiledArgs& t, cudaStream_t st) {
+  const int hd = t.d / t.heads;
+  const size_t smem = ktb_plan(hd, t.n_pad, kDrop).total;
+  void (*kernel)(AttnArgs) = hd != 64 ? &vft_attn_kt_bwd<kDrop, true>
+                                      : &vft_attn_kt_bwd<kDrop, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads, t.batch);
+  kernel<<<grid, kBThreads, smem, st>>>(attn_args(t));
+  return (int)cudaGetLastError();
+}
+
 // The attention CTAs of one evaluation or backward: whole rows up to
-// kMaxCols padded tokens, key tiles past that.
+// kMaxCols padded tokens, key tiles past that (the bf16 softmax backward
+// on vft_attn_kt_bwd).
 template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
 int attn(const TiledArgs& t, cudaStream_t st) {
-  if (t.n_pad > kMaxCols) return attn_kt<T, kBwd, kDrop, kL2>(t, st);
+  if (t.n_pad > kMaxCols) {
+    if constexpr (kBwd && !kL2 && std::is_same<T, bf16>::value)
+      return attn_kt_bwd<kDrop>(t, st);
+    else
+      return attn_kt<T, kBwd, kDrop, kL2>(t, st);
+  }
   const int hd = t.d / t.heads;
   const size_t smem =
       attn_plan(t.n_pad, hd, t.mt, sizeof(T), kBwd, kDrop, kL2).total;
@@ -1791,10 +2591,20 @@ int attn(const TiledArgs& t, cudaStream_t st) {
 
 // The key-tile kernel of the backward (its L2 instance with kL2), over
 // every query at once up to kMaxCols padded tokens, a query tile at a time
-// past that.
+// past that (bf16 softmax: vft_attn_keys_kt2).
 template <typename T, bool kL2>
 int attn_keys(const TiledArgs& t, cudaStream_t st) {
   const dim3 grid((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads, t.batch);
+  if constexpr (!kL2 && std::is_same<T, bf16>::value) {
+    if (t.n_pad > kMaxCols) {
+      cudaError_t err = cudaFuncSetAttribute(
+          vft_attn_keys_kt2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kKeybSmem);
+      if (err != cudaSuccess) return (int)err;
+      vft_attn_keys_kt2<<<grid, kBThreads, kKeybSmem, st>>>(attn_args(t));
+      return (int)cudaGetLastError();
+    }
+  }
   if (t.n_pad > kMaxCols) {
     const size_t smem = key_kt_plan(t.d / t.heads, t.mt, sizeof(T)).total;
     cudaError_t err = cudaFuncSetAttribute(
@@ -2025,19 +2835,24 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 // backward CTA (of the dropout instance with `drop`, of the L2 instance
 // with `l2`) fits the shared memory; past kMaxCols padded tokens, of the
 // key-tiled instances (whose CTAs, forward, backward and key tile, must
-// all fit; their shared memory does not grow with n_pad). Returns 0 with
-// the plan, 1 when the shape has none (the wrappers raise).
-// kernels/tiled.py::tiled_plan_rule repeats this rule in Python.
+// all fit). There the bf16 softmax backward runs vft_attn_kt_bwd and
+// vft_attn_keys_kt2, whose shared memory does not depend on mt (with
+// `drop` it grows with n_pad by the keep bits); the others' does not grow
+// with n_pad. Returns 0 with the plan, 1 when the shape has none (the
+// wrappers raise). kernels/tiled.py::tiled_plan_rule repeats this rule in
+// Python.
 int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
          bool drop, bool l2, int* mt_out, int* smem_fwd_out,
          int* smem_bwd_out, int* smem_keys_out) {
   if (!shape_ok(n_pad, n_real, d, heads, dh)) return 1;
   const int hd = d / heads;
   if (n_pad > kMaxCols) {
+    const bool regs = tbytes == 2 && !l2;
     for (int mt : kQTiles) {
       const size_t fwd = kt_plan(hd, mt, tbytes, false).total;
-      const size_t bwd = kt_plan(hd, mt, tbytes, true).total;
-      const size_t keys = key_kt_plan(hd, mt, tbytes).total;
+      const size_t bwd = regs ? ktb_plan(hd, n_pad, drop).total
+                              : kt_plan(hd, mt, tbytes, true).total;
+      const size_t keys = regs ? kKeybSmem : key_kt_plan(hd, mt, tbytes).total;
       if (vf::imax(vf::imax((int)fwd, (int)bwd), (int)keys) <= vf::kMaxSmem) {
         *mt_out = mt;
         *smem_fwd_out = (int)fwd;

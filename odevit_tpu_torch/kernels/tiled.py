@@ -11,7 +11,10 @@ stage-advance modes) and ``_vf_bwd_kernel``. Past 256 padded tokens
 (:func:`key_tiled`; the TS-Base student at 384 px: 587 tokens padded to
 592) the route's attention CTAs stream the keys in tiles of 64, so any
 n_pad that is a multiple of 16 has a plan; the wrappers count those
-launches as ``<name>_kt``. The JaSMin statistics there take at most 15
+launches as ``<name>_kt``. There the bf16 softmax backward runs
+``vft_attn_kt_bwd`` and ``vft_attn_keys_kt2`` (scores and accumulators in
+``mma.sync`` registers), the f32 and L2 backwards and every forward the
+first key-tiled CTAs. The JaSMin statistics there take at most 15
 extraction passes (k <= 15). The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
 module binds the library and allocates the scratch the kernels use.
@@ -108,11 +111,13 @@ def tiled_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
 
 
 # csrc/vector_field_tiled.cu: kQTiles, kKeyTile, kMaxJas, kRowVals,
-# vf::kMaxSmem (its kMaxCols is kernels.KEY_TILED_FROM)
+# kBThreads, kLdStg, vf::kMaxSmem (its kMaxCols is kernels.KEY_TILED_FROM)
 _Q_TILES = (64, 32, 16)
 _KEY_TILE = 64
 _MAX_JAS = 16
 _ROW_VALS = 6
+_B_THREADS = 128
+_LD_STG = _KEY_TILE + 8
 _MAX_SMEM = 232448
 
 
@@ -168,6 +173,21 @@ def _key_kt_smem(hd, mt, tb):
             + align128(_KEY_TILE * 4))
 
 
+def _ktb_smem(hd, n_pad, drop):
+    # ktb_plan of csrc/vector_field_tiled.cu (vft_attn_kt_bwd, bf16): Q,
+    # cb, the staging tiles, a K/V ring of two slots (one where two do not
+    # fit), then with dropout the keep bits where they fit
+    tile = _KEY_TILE * (hd + 8) * 2
+    ring = 2 * tile + _KEY_TILE * _LD_STG * 2
+    end = ring + (2 if ring + 4 * tile <= _MAX_SMEM else 1) * 2 * tile
+    bits = -(-n_pad // _KEY_TILE) * _B_THREADS * 4
+    return end + bits if drop and end + bits <= _MAX_SMEM else end
+
+
+# kKeybSmem: vft_attn_keys_kt2's two slots of four 64-row bf16 tiles
+_KEYB_SMEM = 2 * 4 * _KEY_TILE * _LD_STG * 2
+
+
 def tiled_plan_rule(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                     dh: int, drop: bool = False, l2: bool = False):
     """``vft_plan``'s answer in Python: the plan :func:`tiled_plan` would
@@ -177,9 +197,13 @@ def tiled_plan_rule(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     tb = torch.empty((), dtype=dtype).element_size()
     hd = d // num_heads
     if key_tiled(n_pad):
+        # the bf16 softmax backward's CTAs do not depend on mt
+        regs = tb == 2 and not l2
         for mt in _Q_TILES:
             plan = (mt, _kt_smem(hd, mt, tb, False),
-                    _kt_smem(hd, mt, tb, True), _key_kt_smem(hd, mt, tb))
+                    _ktb_smem(hd, n_pad, drop) if regs
+                    else _kt_smem(hd, mt, tb, True),
+                    _KEYB_SMEM if regs else _key_kt_smem(hd, mt, tb))
             if max(plan[1:]) <= _MAX_SMEM:
                 return plan
         return None
