@@ -90,13 +90,15 @@ Phases:
      cifar100-macaron-train-b1024, JAX's ``macaron_b1024``; it runs after
      phase 22): ``macaron_eval`` in its three modes and ``macaron_bwd``
      (16 cotangents) against their plain versions at B=4 in bf16 and f32
-     (perturbed weights, NaN padding, repeats, the Python plans against
-     the CUDA ones and their one-CTA backward counts); the bf16 model
-     (float32 states by promotion) served at B=1024 by rk4 on 13 points
-     (48 launches) and Euler on 13 (12), and through the engine; 3
+     (perturbed weights, NaN padding, in f32 a NaN in a real row
+     reaching what it reaches in the plain version, repeats, the Python
+     plans against the CUDA ones and their one-CTA backward counts); the
+     bf16 model (float32 states by promotion) served at B=1024 by rk4 on
+     13 points (48 launches) and Euler on 13 (12), and through the
+     engine; 3
      training steps through the kernels and the plain path; each
-     instance alone at B=1024 (the f32 backward's kernels by profiler
-     beside its split-TF32 floor);
+     instance alone at B=1024 (the f32 backward's kernels by profiler;
+     the f32 bounds are split TF32's floor);
   24. the fused steps' map route and emit_masks (after phase 11): the free
      step on a 9-token sequence (CIFAR width at patch 16, k=9, rk4-13,
      B=1024, ± dropout 0.1), JaSMin from the maps, through the kernels
@@ -117,11 +119,17 @@ Phases:
      width as a ViTMacaron, 224 px, D=768, 12 heads, MLP ratio 2, f32,
      197 tokens padded to 208): the tiled route's forward in its three
      modes and its backward (16 cotangents) against the plain versions
-     at B=4 in bf16 and f32 (repeats, NaN padding, the Python tiled plan
-     against ``mct_plan``); 3 training steps (Euler on 24 points, B=64,
+     at B=4 in bf16 and f32 (repeats, NaN padding, in f32 a NaN in a real
+     row reaching what it reaches in the plain version, the Python tiled
+     plan against ``mct_plan``); 3 training steps (Euler on 24 points, B=64,
      32 px resized on the card) through the kernels and the plain path;
-     each instance alone at B=64; the model served at euler-24 and rk4-7
-     and through the engine;
+     each instance alone at B=64 (the f32 forward's and backward's kernels
+     per launch); the model served at euler-24 and rk4-7 and through the
+     engine; before them ``tf32_gemm_vs_plain``: ``vft_gemm_tf32``, the
+     route's f32 product kernel, alone at the cell's 8 products (13,312
+     rows) against a float64 product and timed beside ``torch.matmul`` in
+     full f32, every epilogue at a ragged shape, NaNs with every
+     mantissa bit set, its spills;
   27. residual stashing (after phase 21; the stash arms of cells
      cifar100-vitode-train-b1024-bf16, tsref-distill-b64-bf16 and
      tsbase-r4-distill-b64-bf16): ``stash_kernels_vs_plain`` (B=4 on the
@@ -151,8 +159,10 @@ Phases:
      memory, busy share, launches), ``long_serving`` (Euler-36 at B=64
      against the plain path, timed; the engine as
      ``long_serving_engine``) and ``long_kernel_timing`` (each key-tiled
-     instance alone at B=64; the bf16 backwards' kernels per launch with
-     the attention pair's own bound; the ratio-4 MLP half at 592 tokens;
+     instance alone at B=64; the bf16 backwards' key-tiled CTAs by the
+     libraries' launch counts (PR 16's pair, no old CTA), their kernels
+     per launch with the attention pair's own bound; the ratio-4 MLP half
+     at 592 tokens;
      ``scaled_dot_product_attention`` forward + backward as a yardstick);
   last, the kernels line (launch counts of the main paths, times, bounds)
   and the result line.
@@ -3367,9 +3377,6 @@ MACARON_SHAPE = dict(img_size=32, patch_size=4, embed_dim=192, num_heads=3,
                      time_interval=12.0, num_eval_steps=13, solver="rk4")
 MACARON_TRAIN_CELL = "cifar100-macaron-train-b1024"
 MACARON_SERVE_CELL = "cifar100-macaron-serve-rk4-13-b1024"
-# the H100's float32 peak outside the tensor cores: the bound of the
-# float32 instances, whose inputs are float32
-PEAK_F32_FLOPS = 67e12
 
 
 def macaron_model(solver="rk4", steps=13, seed=0):
@@ -3403,7 +3410,9 @@ def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
     attention at the real token count (99.1 MFLOP per image at 65 tokens,
     ``analysis/flops.py::macaron_fwd_flops``); the backward recomputes them
     and does two products for each, 3x. Over the bf16 tensor peak for the
-    bf16 instance and the float32 peak for the float32 one, against the
+    bf16 instance and, for the float32 one, split TF32's floor
+    (``tf32_floor_ms``: three TF32 passes on the tensor cores, which take
+    float32 work faster than the float32 peak outside them), against the
     state in and out (and g, x_bar), the weights and, for the backward,
     their float32 cotangents over the memory rate."""
     flops = macaron_flops(b, n_real, d, dh, backward)
@@ -3412,8 +3421,8 @@ def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
     nbytes = (states * b * n_real * d + weights) * itemsize + 12 * d * 4
     if backward:
         nbytes += (weights + 11 * d + dh + 1) * 4
-    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
-    t_ops = flops / peak * 1e3
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3 if itemsize == 2 \
+        else tf32_floor_ms(flops)
     t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -3460,7 +3469,8 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     the backward's) say; repeats bit-identical; NaN and garbage in the
     padded rows inert; ``plans()`` holds the Python plans against the
     CUDA ones and returns the number of shapes. Returns the launches it
-    made, by counter."""
+    made, by counter. In f32, the card's NaN in a real row reaches the
+    outputs it reaches in the plain version."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.macaron import macaron_eval
@@ -3540,6 +3550,24 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
             macaron_bwd(dirty, w, gdirty, **kw), got))
         r["nan_padding_unchanged"] = same
         check(same, f"Macaron {dtype}: padded rows reached a real row")
+        if dtype == torch.float32:
+            # the NaN the card makes (0x7FFFFFFF) in one real row reaches
+            # the outputs it reaches in the plain version: the split-TF32
+            # products let it through
+            sick = x.clone()
+            sick.view(torch.int32)[0, 1] = 0x7FFFFFFF
+            real = lambda nm, t: t[:, :n_real] if nm == "x" else t
+            pairs = [(real("x", macaron_eval(sick, w, **kw)),
+                      real("x", macaron_eval(sick, w, plain=True, **kw)))]
+            pairs += [(real(nm, a), real(nm, c)) for nm, a, c in zip(
+                BAR_NAMES, macaron_bwd(sick, w, gx, **kw),
+                macaron_bwd(sick, w, gx, plain=True, **kw))]
+            r["nan_real_row_as_plain"] = all(
+                torch.equal(torch.isnan(a), torch.isnan(c))
+                and bool(torch.isnan(c).any()) for a, c in pairs)
+            check(r["nan_real_row_as_plain"], f"Macaron {dtype}: a NaN in "
+                  f"a real row reached other outputs than in the plain "
+                  f"version")
         results.append(r)
     shapes = plans()
     made = {k: v - before[k] for k, v in launch_counts.items()
@@ -3757,7 +3785,10 @@ def macaron_timing(model, x_in, b, iters=(5, 2), slow_iters=3):
                     "plain_ms": cuda_ms(lambda: macaron_eval(
                         x, w, plain=True, **kw), iters=iters[1]),
                     **dict(zip(("bound_ms", "bound_by"), macaron_bound(
-                        b, n_real, d, dh, isz)))},
+                        b, n_real, d, dh, isz))),
+                    # f32: each kernel's device time per launch
+                    **({"parts": kernel_parts(
+                        lambda: macaron_eval(x, w, **kw))} if slow else {})},
                 names[1]: {
                     "max_abs_err": max((a.float() - c.float()).abs().max()
                                        .item() for a, c in zip(bars[1:],
@@ -3845,6 +3876,172 @@ def macaron_tiled_plans_agree():
                           f"{got}, mct_plan {want}")
                     shapes += 1
     return shapes
+
+
+# vft_gemm_tf32 alone (csrc/vector_field_tiled.cu, kernels/tf32_gemm.py):
+# the f32 products of cell cifar224-macaron-r2-train-b64's evaluation and
+# backward at B=64 x 208 padded rows, (label, N, K, B stored [N, K],
+# epilogue, the outputs the route has it write); then every epilogue at a
+# ragged shape
+TF32_ROWS = 64 * 208
+TF32_CELL_PRODUCTS = (
+    ("z W1", 1536, 768, False, "gelu", ("out",)),
+    ("h W2", 768, 1536, False, "mac_resid", ("out32",)),
+    ("z Wqkv", 2304, 768, False, "round", ("out",)),
+    ("ctx Wout", 768, 768, False, "mac_resid", ("out32",)),
+    ("ob W2^T", 1536, 768, True, "gelu_grad", ("out",)),
+    ("h1_bar W1^T", 768, 1536, True, "f32", ("out32",)),
+    ("aod Wout^T", 768, 768, True, "round", ("out",)),
+    ("qkv_bar Wqkv^T", 768, 2304, True, "f32", ("out32",)))
+# M and N not multiples of the 128 x 128 tile, K ending in half a slice;
+# rows of 208 padded to 197 real for the padded-row epilogues
+TF32_RAGGED = dict(m=3 * 208, n=400, k=(80, 48), n_pad=208, n_real=197)
+TOL_TF32_GEMM = 1e-5
+MIN_TF32_RATE = 150e12          # TF32 passes a second at the z W1 product
+
+
+def tf32_gemm_case(m, n, ks, bt, epi, g, n_pad=208, n_real=197,
+                   outputs=None):
+    """One ``tf32_gemm`` call's arguments on random f32 operands: ``ks``
+    the pairs' K, every input an epilogue may read, and the ``outputs``
+    (default all six; zeros, so that what an epilogue leaves alone
+    compares equal)."""
+    import torch
+    from odevit_tpu_torch.kernels.dropout import (DROP_SITE_ATTN_OUT,
+                                                  DROP_SITE_H,
+                                                  DROP_SITE_MLP_OUT)
+    from odevit_tpu_torch.kernels.tf32_gemm import OUTPUTS
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    pairs = [(r(m, k), r(n, k) if bt else r(k, n)) for k in ks]
+    drops = {"gelu_drop": ((DROP_SITE_H, 0.1),),
+             "gelu_grad_drop": ((DROP_SITE_H, 0.1),),
+             "out_drop": ((DROP_SITE_MLP_OUT, 0.1),
+                          (DROP_SITE_ATTN_OUT, 0.2))}.get(epi, ())
+    kw = dict(bias=r(n), aux=r(m, n), res=r(m, n), rs=r(1), scale=0.37,
+              dt=0.05, alpha=0.5, seed=1234567, drops=drops, n_pad=n_pad,
+              n_real=n_real, bt=bt)
+    outs = {k: torch.zeros(m, n, device="cuda")
+            if outputs is None or k in outputs else None for k in OUTPUTS}
+    return pairs, kw, outs
+
+
+def tf32_gemm_check(pairs, epi, kw, outs):
+    """Runs ``tf32_gemm`` twice and the float64 plain version once:
+    (max |kernel - float64| / max|float64| over the outputs, repeats
+    bit-identical, the masks equal to the plain generator's)."""
+    import torch
+    from odevit_tpu_torch.kernels.tf32_gemm import tf32_gemm
+    tf32_gemm(pairs, epi, outs, **kw)
+    given = [k for k, v in outs.items() if v is not None]
+    first = {k: outs[k].clone() for k in given}
+    tf32_gemm(pairs, epi, outs, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(first[k], outs[k]) for k in given)
+    d64 = lambda t: None if t is None else t.double()
+    ref = {k: torch.zeros_like(outs[k], dtype=torch.float64) for k in given}
+    tf32_gemm([(d64(a), d64(b)) for a, b in pairs], epi, ref, plain=True,
+              **{k: d64(v) if torch.is_tensor(v) else v
+                 for k, v in kw.items()})
+    err = max(((outs[k].double() - ref[k]).abs().max()
+               / ref[k].abs().max().clamp_min(1e-30)).item()
+              for k in given if not k.startswith("mask"))
+    masks = all(torch.equal(outs[k].double(), ref[k])
+                for k in given if k.startswith("mask"))
+    return err, same, masks
+
+
+def phase_tf32_gemm_vs_plain():
+    """``vft_gemm_tf32`` alone: the f32 products of the 224 px Macaron cell
+    at B=64 x 208 rows against a float64 product of the same operands
+    (within 1e-5 of max|ref|), repeats bit-identical, timed beside
+    ``torch.matmul`` in full f32 on the same operands (its library call),
+    with the rate of its three TF32 passes against the 495 TFLOP/s peak;
+    every epilogue (the dropout ones with their masks) in both layouts
+    with one and two pairs at a ragged shape; NaNs with every mantissa
+    bit set reaching their rows and columns; registers and spills of
+    every instance from ``-Xptxas -v``."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.tf32_gemm import EPILOGUES, tf32_gemm
+    before = dict(launch_counts)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    cell, ragged, gates = {}, {}, []
+    for label, n, k, bt, epi, written in TF32_CELL_PRODUCTS:
+        pairs, kw, outs = tf32_gemm_case(TF32_ROWS, n, (k,), bt, epi, g,
+                                         outputs=written)
+        err, same, _ = tf32_gemm_check(pairs, epi, kw, outs)
+        gates += [(err <= TOL_TF32_GEMM, f"tf32 gemm {label}: rel err {err}"),
+                  (same, f"tf32 gemm {label}: repeats differ")]
+        a, b = pairs[0]
+        ms = cuda_ms(lambda: tf32_gemm(pairs, epi, outs, **kw), iters=20)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b.T if bt else b),
+                         iters=20)
+        flops = 2.0 * TF32_ROWS * n * k
+        cell[label] = {
+            "m": TF32_ROWS, "n": n, "k": k, "bt": bt, "epilogue": epi,
+            "outputs": written,
+            "rel_err": err, "ms": ms, "library_ms": lib_ms,
+            "tf32_pass_tflops": 3 * flops / ms / 1e9,
+            "f32_work_tflops": flops / ms / 1e9,
+            "tf32_floor_ms": tf32_floor_ms(flops),
+            "bound_ms": max(tf32_floor_ms(flops),
+                            4.0 * (TF32_ROWS * k + k * n + TF32_ROWS * n)
+                            / PEAK_BYTES_PER_S * 1e3)}
+    rate = cell["z W1"]["tf32_pass_tflops"] * 1e12
+    gates.append((rate >= MIN_TF32_RATE, f"tf32 gemm z W1: "
+                  f"{rate / 1e12:.1f} TFLOP/s of TF32 passes"))
+    rg = TF32_RAGGED
+    for epi in EPILOGUES:
+        for bt in (False, True):
+            for ks in (rg["k"][:1], rg["k"]):
+                pairs, kw, outs = tf32_gemm_case(rg["m"], rg["n"], ks, bt,
+                                                 epi, g, rg["n_pad"],
+                                                 rg["n_real"])
+                err, same, masks = tf32_gemm_check(pairs, epi, kw, outs)
+                what = f"tf32 gemm {epi} bt={bt} pairs={len(ks)}"
+                gates += [(err <= TOL_TF32_GEMM, f"{what}: rel err {err}"),
+                          (same, f"{what}: repeats differ"),
+                          (masks, f"{what}: masks differ from the "
+                                  f"generator's")]
+                ragged[f"{epi} bt={int(bt)} pairs={len(ks)}"] = err
+    # the card's NaN (0x7FFFFFFF) in a row of A and its negative
+    # (0xFFFFFFFF) in a column of B: exactly that row and column of C are
+    # NaN
+    nan_ok = {}
+    for bt in (False, True):
+        pairs, kw, outs = tf32_gemm_case(rg["m"], rg["n"], rg["k"][:1], bt,
+                                         "f32", g, outputs=("out32",))
+        a, b = pairs[0]
+        a.view(torch.int32)[5] = 0x7FFFFFFF
+        (b[7] if bt else b[:, 7]).view(torch.int32).fill_(-1)
+        tf32_gemm(pairs, "f32", outs, **kw)
+        want = torch.zeros(rg["m"], rg["n"], dtype=torch.bool, device="cuda")
+        want[5] = want[:, 7] = True
+        nan_ok[f"bt={int(bt)}"] = torch.equal(torch.isnan(outs["out32"]),
+                                              want)
+        gates.append((nan_ok[f"bt={int(bt)}"], f"tf32 gemm bt={bt}: NaN "
+                      f"in A's row 5 and B's column 7 gave other NaNs"))
+    # -Xptxas -v of every instance, where this process built the library
+    from odevit_tpu_torch.kernels import build
+    resources = {lib: kernel_resources(lib, ("vft_gemm_tf32",))
+                 for lib in ("vector_field_tiled", "vector_field_bwd_split",
+                             "macaron_tiled") if lib in build.build_logs}
+    for lib, found in resources.items():
+        gates.append((bool(found),
+                      f"{lib}: no -Xptxas -v lines for vft_gemm_tf32"))
+        gates += [(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                   f"{lib} {name}: spills {r}") for name, r in found.items()]
+    launch_counts.update(before)           # comparisons do not count
+    emit("tf32_gemm_vs_plain", tol=TOL_TF32_GEMM,
+         min_tf32_pass_rate=MIN_TF32_RATE,
+         peak_tf32_flops=PEAK_TF32_FLOPS, cell=cell,
+         ragged_shape=f"M={rg['m']} N={rg['n']} K={rg['k']}",
+         ragged_rel_errs=ragged, max_ragged_rel_err=max(ragged.values()),
+         nan_reaches_its_row_and_column=nan_ok,
+         resources=resources)
+    for ok, what in gates:
+        check(ok, what)
+    return cell
 
 
 def phase_macaron224_kernels_vs_plain():
@@ -4681,6 +4878,26 @@ def pair_bound(b: int, n_real: int, n_pad: int, d: int, heads: int):
             "scratch_floor_ms": scratch / PEAK_BYTES_PER_S * 1e3}
 
 
+def kt_bwd_launches() -> list:
+    """``vft_kt_bwd_launches`` summed over the libraries that launch the
+    key-tiled backward attention CTAs: launches so far of [PR 16's
+    ``vft_attn_kt_bwd``, ``vft_attn_keys_kt2``, the old ``vft_attn_kt``
+    backward, ``vft_attn_keys_kt``]."""
+    import ctypes
+    from odevit_tpu_torch.kernels.tiled import _library as tiled_library
+    from odevit_tpu_torch.kernels.vector_field_bwd_split import \
+        _library as split_library
+    total = [0] * 4
+    for lib in (tiled_library(), split_library()):
+        fn = lib.vft_kt_bwd_launches
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        fn.restype = None
+        got = (ctypes.c_ulonglong * 4)()
+        fn(got)
+        total = [a + c for a, c in zip(total, got)]
+    return total
+
+
 def sdpa_fwd_bwd_ms(b: int, heads: int, n: int, hd: int) -> float:
     """``SDPA_YARDSTICK``: one forward and backward of PyTorch's fused
     attention on random bf16 q, k, v, timed by CUDA events."""
@@ -4960,21 +5177,33 @@ def phase_long_kernel_timing(model, images_u8):
         yardstick = sdpa_fwd_bwd_ms(b, heads, n_pad, d // heads)
         for name in ("vf_bwd_tiled_drop_kt", "vf_bwd_tiled_kt",
                      "vf_bwd_resid_tiled_kt", "vf_bwd_attn_kt"):
-            for _ in range(3):      # the profiler may drop a window
-                parts = kernel_parts(lambda: jobs[name][0](False))
+            # which key-tiled CTAs one backward launched, by the libraries'
+            # own counts: PR 16's pair, and no old CTA
+            kt0 = kt_bwd_launches()
+            jobs[name][0](False)
+            torch.cuda.synchronize()
+            took = [a - c for a, c in zip(kt_bwd_launches(), kt0)]
+            check(took[0] > 0 and took[1] > 0 and took[2] == took[3] == 0,
+                  f"{name}: key-tiled backward CTAs launched (pair, its "
+                  f"key CTA, old, old key CTA): {took}")
+            # the profiler may drop a kernel's events from a window: the
+            # kernels of up to 8 windows, each with its first window's time
+            parts = {}
+            for _ in range(8):
+                for k, v in kernel_parts(lambda: jobs[name][0](False)).items():
+                    parts.setdefault(k, v)
                 new = [k for k in parts
                        if "vft_attn_kt_bwd" in k or "vft_attn_keys_kt2" in k]
                 if len(new) == 2:
                     break
-            old = [k for k in parts
-                   if re.search(r"vft_attn_kt<[^,]+, true|vft_attn_keys_kt<",
-                                k)]
-            check(not old and len(new) == 2, f"{name}: attention kernels "
-                  f"{list(parts)}")
+            out[name]["kt_bwd_launches"] = took
             out[name]["parts"] = parts
             out[name]["pair"] = {
                 "kernels": new,
-                "ms": sum(parts[k]["ms_per_launch"] for k in new),
+                # null where the profiler dropped one of the pair's events
+                # from every window
+                "ms": sum(parts[k]["ms_per_launch"] for k in new)
+                if len(new) == 2 else None,
                 **pair_bound(b, n_real, n_pad, d, heads),
                 "library_ms": yardstick,
                 "library_call": SDPA_YARDSTICK}
@@ -5110,6 +5339,7 @@ def main() -> int:
     tsl2_serve = phase_tsbase_l2_serving(images_r4, rng_d)
     # the Macaron family past one CTA: experiment_vit_edo.yaml's width as
     # a ViTMacaron, trained and served at 224 px (32 px resized on the card)
+    phase_tf32_gemm_vs_plain()
     phase_macaron224_kernels_vs_plain()
     mac224_launches = phase_macaron224_train(images_d, labels_d)
     mac224_timing = phase_macaron224_kernel_timing(images_d)

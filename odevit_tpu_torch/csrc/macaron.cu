@@ -47,8 +47,8 @@
 // product to the state); the difference is f32 rounding. The state lives
 // in shared memory in bf16 and in the output buffer in f32. Products are
 // the bf16 WMMA fragments of vector_field.cu (16x16x16, f32 accumulators)
-// or, in f32, split-TF32 WMMA in three passes (mm_f32 below), which keeps
-// f32's accuracy to within a few ulps on the tensor cores.
+// or, in f32, split-TF32 WMMA in three passes (mm_f32 of split_tf32.cuh),
+// which keeps f32's accuracy to within a few ulps on the tensor cores.
 //
 // macaron_bwd.cu includes this file with MAC_HELPERS_ONLY for the shared
 // helpers (namespace mac).
@@ -57,6 +57,7 @@
 #define VF_HELPERS_ONLY
 #include "vector_field.cu"
 #endif
+#include "split_tf32.cuh"
 
 namespace mac {
 
@@ -146,96 +147,6 @@ __device__ void mm_axpy(const bf16* A, int lda, const bf16* B, int ldb,
   }
 }
 
-// ---- f32 products on the tensor cores: split TF32 in three passes ----
-// Each f32 operand v is split into big = tf32(v) and small = tf32(v - big);
-// a product is big*big + big*small + small*big (the small*small term,
-// ~2^-22 of it, is dropped), each pass a TF32 WMMA (16x16x8, f32
-// accumulators). The result carries about 21 bits: f32 to within its
-// last few ulps, where single-pass TF32 keeps 10. Fragments load from f32
-// rows whose stride is a multiple of 4 elements, 32-byte aligned.
-
-template <typename Frag>
-__device__ __forceinline__ void split_tf32(Frag& big, Frag& small) {
-#pragma unroll
-  for (int i = 0; i < big.num_elements; ++i) {
-    const float v = big.x[i];
-    big.x[i] = wmma::__float_to_tf32(v);
-    small.x[i] = wmma::__float_to_tf32(v - big.x[i]);
-  }
-}
-
-// C[M,N] (= | +=) alpha * (A[M,K] @ B[K,N]) in f32 (C shared or global),
-// with the layouts and the column strips of vf::mm. M, N multiples of 16,
-// K of 8. Each warp owns a column tile (and a group of row tiles when
-// there are fewer column tiles than warps); each tile's product is summed
-// over K first, then stored or added to C once.
-template <bool AT, bool BT>
-__device__ void mm_f32(const float* A, int lda, const float* B, int ldb,
-                       float* C, int ldc, bool accumulate, int M, int N,
-                       int K, float alpha = 1.0f, int strip = 1 << 30,
-                       int strip_stride = 0) {
-  using ALayout =
-      typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
-  using BLayout =
-      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
-  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
-                               wmma::precision::tf32, ALayout>;
-  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
-                               wmma::precision::tf32, BLayout>;
-  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
-  const int warp = threadIdx.x / 32;
-  const int mt = M / 16, nt = N / 16, kt = K / 8;
-  const int groups = imin(imax(kWarps / nt, 1), mt);
-  const int rg = (mt + groups - 1) / groups;
-  for (int task = warp; task < nt * groups; task += kWarps) {
-    const int tn = task % nt;
-    const int r0 = (task / nt) * rg;
-    const int rows = imin(mt - r0, rg);
-    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
-    const float* bcol = BT ? B + (size_t)col * ldb : B + col;
-    const size_t bstep = BT ? 8 : (size_t)8 * ldb;
-    FragC c[kMaxRowTiles];
-#pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r)
-      if (r < rows) wmma::fill_fragment(c[r], 0.0f);
-    for (int kk = 0; kk < kt; ++kk) {
-      FragB b_big, b_small;
-      wmma::load_matrix_sync(b_big, bcol + kk * bstep, ldb);
-      split_tf32(b_big, b_small);
-#pragma unroll
-      for (int r = 0; r < kMaxRowTiles; ++r) {
-        if (r < rows) {
-          FragA a_big, a_small;
-          const float* ap = AT ? A + (size_t)kk * 8 * lda + (r0 + r) * 16
-                               : A + (size_t)(r0 + r) * 16 * lda + kk * 8;
-          wmma::load_matrix_sync(a_big, ap, lda);
-          split_tf32(a_big, a_small);
-          wmma::mma_sync(c[r], a_small, b_big, c[r]);
-          wmma::mma_sync(c[r], a_big, b_small, c[r]);
-          wmma::mma_sync(c[r], a_big, b_big, c[r]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kMaxRowTiles; ++r) {
-      if (r < rows) {
-        float* cp = C + (size_t)(r0 + r) * 16 * ldc + tn * 16;
-        if (accumulate) {
-          FragC t;
-          wmma::load_matrix_sync(t, cp, ldc, wmma::mem_row_major);
-          for (int i = 0; i < t.num_elements; ++i)
-            t.x[i] = fmaf(alpha, c[r].x[i], t.x[i]);
-          wmma::store_matrix_sync(cp, t, ldc, wmma::mem_row_major);
-        } else {
-          if (alpha != 1.0f)
-            for (int i = 0; i < c[r].num_elements; ++i) c[r].x[i] *= alpha;
-          wmma::store_matrix_sync(cp, c[r], ldc, wmma::mem_row_major);
-        }
-      }
-    }
-  }
-}
-
 __device__ void mm_axpy(const float* A, int lda, const float* B, int ldb,
                         float* C, int ldc, float alpha, int M, int N, int K) {
   mm_f32<false, false>(A, lda, B, ldb, C, ldc, true, M, N, K, alpha);
@@ -266,8 +177,8 @@ __device__ inline void add_row_vector(float* dst, int ld, const float* v,
 }
 
 // ---- split-TF32 products staged through shared memory (gemm_tf32) ----
-// The f32 backward's products (macaron_bwd.cu) run here; mm_f32 above
-// stays the forward's. Operands in device memory reach shared memory by
+// The f32 backward's products (macaron_bwd.cu) run here; mm_f32 stays
+// the forward's. Operands in device memory reach shared memory by
 // 16-byte cp.async, K in slices of kSlice through a ring of kStages slots:
 // the next slice lands while this one is multiplied. Each element is split
 // once, where it lands, into a big and a small TF32 plane (split_tf32's
@@ -287,62 +198,6 @@ constexpr int kTileCols = 4;       // n8 tiles of a warp's register tile
 constexpr int kStages = 2;         // slots of the staging ring
 constexpr int kMaxOwn = 3;         // 16-byte chunks a thread stages: M * 4
                                    // + 4 nb, and M <= 96 or nb <= 128
-
-__device__ __forceinline__ unsigned tf32_bits(float v) {
-  unsigned u;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(u) : "f"(v));
-  return u;
-}
-
-// big = tf32(v), small = tf32(v - big): split_tf32's split of one value
-__device__ __forceinline__ void split_bits(float v, unsigned& big,
-                                           unsigned& small) {
-  big = tf32_bits(v);
-  small = tf32_bits(v - __uint_as_float(big));
-}
-
-// c += a b for one m16n8k8 tile (TF32 operands, f32 accumulators)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes from device to shared memory, asynchronously (zeros where !in)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool in = true) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// this thread's copies have landed (its own; a barrier shows them to
-// others), but for the `pending` groups it committed last
-template <int pending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
-}
-
-// Splits the float4 at `big` (this thread's own landed copy, times scale)
-// in place, its small plane `plane` floats further on.
-__device__ __forceinline__ void split4(unsigned* big, int plane,
-                                       float scale) {
-  const float4 v = *reinterpret_cast<const float4*>(big);
-  uint4 hi, lo;
-  split_bits(v.x * scale, hi.x, lo.x);
-  split_bits(v.y * scale, hi.y, lo.y);
-  split_bits(v.z * scale, hi.z, lo.z);
-  split_bits(v.w * scale, hi.w, lo.w);
-  *reinterpret_cast<uint4*>(big) = hi;
-  *reinterpret_cast<uint4*>(big + plane) = lo;
-}
 
 // The A operand [M, K]: staged from device memory (row m at g + m * ld, K
 // contiguous; kAStaged), or planes resident in shared memory, row-major

@@ -609,7 +609,7 @@ __device__ void softmax_planes(const float* s, int lds, unsigned* big,
     sum = warp_sum(sum);
     for (int c = lane; c < n; c += 32) {
       const float v = c < n_real ? expf(row[c] * qk_scale - mx) / sum : 0.0f;
-      mac::split_bits(v, big[r * ldp + c], small[r * ldp + c]);
+      vf::split_bits(v, big[r * ldp + c], small[r * ldp + c]);
       if (pf != nullptr) pf[r * ldp + c] = v;
     }
   }
@@ -660,7 +660,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcb_rows_f32(McbArgs a) {
   using mac::kAPlanesT;
   using mac::kAStaged;
   using mac::op_b;
-  using mac::split_bits;
+  using vf::split_bits;
   const int n = a.n_pad, n_real = a.n_real, d = a.d, heads = a.heads;
   const int hd = d / heads, dh = a.dh, hc = a.hc, nb = a.nb;
   const PlanF32 pl = make_plan_f32(n, hc, nb);
@@ -827,10 +827,10 @@ __global__ void __launch_bounds__(kThreads, 1) mcb_rows_f32(McbArgs a) {
             });
       } else {
         for (int i = threadIdx.x * 4; i < n * hc; i += kThreads * 4)
-          mac::cp_async16(pre + (i / hc) * lh + i % hc,
-                          h1b + (size_t)(i / hc) * dh + c0 + i % hc);
-        mac::cp_async_commit();
-        mac::cp_async_wait<0>();  // the next product's barrier shows it
+          vf::cp_async16(pre + (i / hc) * lh + i % hc,
+                         h1b + (size_t)(i / hc) * dh + c0 + i % hc);
+        vf::cp_async_commit();
+        vf::cp_async_wait<0>();  // the next product's barrier shows it
       }
       gemm_tf32<kAStaged, true>(
           ring, n, hc, d, nb, staged(xb, d), op_b(w2 + (size_t)c0 * d, d),
@@ -1024,9 +1024,9 @@ mcb_wgrad_f32(Problems ps, float* wpart) {
   };
   auto stage = [&](int c) {
     own(c, [](unsigned* dst, const float* src, bool in) {
-      mac::cp_async16(dst, src, in);
+      vf::cp_async16(dst, src, in);
     });
-    mac::cp_async_commit();
+    vf::cp_async_commit();
   };
 
   float tot[2][4][4];
@@ -1038,9 +1038,9 @@ mcb_wgrad_f32(Problems ps, float* wpart) {
       for (int e = 0; e < 4; ++e) tot[i][j][e] = 0.0f;
   if (chunks > 0) stage(0);
   for (int c = 0; c < chunks; ++c) {
-    mac::cp_async_wait<0>();
+    vf::cp_async_wait<0>();
     own(c, [](unsigned* dst, const float*, bool) {
-      mac::split4(dst, kWgSlot, 1.0f);
+      vf::split4(dst, kWgSlot, 1.0f);
     });
     __syncthreads();  // chunk c is split; the other slot is free
     if (c + 1 < chunks) stage(c + 1);
@@ -1077,9 +1077,9 @@ mcb_wgrad_f32(Problems ps, float* wpart) {
                                  as[i0 + dk + 8]};
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          mac::mma_tf32(part[i][j], fas, fb[j]);
-          mac::mma_tf32(part[i][j], fa, fs[j]);
-          mac::mma_tf32(part[i][j], fa, fb[j]);
+          vf::mma_tf32(part[i][j], fas, fb[j]);
+          vf::mma_tf32(part[i][j], fa, fs[j]);
+          vf::mma_tf32(part[i][j], fa, fb[j]);
         }
       }
     }

@@ -77,11 +77,16 @@
 //
 // Bound. At B=64, 197 real tokens, D=768, dh=1536 one evaluation does
 // 186 GFLOP (two FFN halves, the projections, the attention): 0.19 ms at
-// 989 TFLOP/s in bf16, 2.78 ms at the 67 TFLOP/s f32 peak; the backward
-// about 3x that. Operations bound both. This first design is simple: the
-// f32 instance (the main path: a Macaron model's states are f32) runs its
-// products on vft_gemm_f32's CUDA-core loops and the attention on
-// vf::mm's f32 loops; no wgmma, no TMA; intermediates in device memory.
+// 989 TFLOP/s in bf16 and, as split TF32 (three TF32 passes at 495
+// TFLOP/s, faster than the 67 TFLOP/s f32 peak outside the tensor cores),
+// 1.13 ms in f32; the backward about 3x that. Operations bound both. The
+// f32 forward's products alone, 188 GFLOP over the padded rows, take
+// 1.14 ms as split TF32. The f32 instance (the main path: a
+// Macaron model's states are f32) runs its products on vft_gemm_tf32
+// (split TF32 on wgmma: A split in registers, B once into swizzled
+// planes) and its whole-row attention on vf::mm_f32 (split TF32 WMMA);
+// past 256 padded tokens the key-tiled f32 attention CTAs still run on
+// the CUDA cores. Intermediates stay in device memory between launches.
 // Nothing goes to a library.
 
 #define VFT_KERNELS_ONLY

@@ -1,0 +1,268 @@
+// Split-TF32 products: f32 matrix products on the tensor cores, shared by
+// the Macaron kernels (macaron.cu, macaron_bwd.cu) and the tiled route
+// (vector_field_tiled.cu: vft_gemm_tf32 and the f32 attention CTAs).
+//
+// Each f32 operand v is split into big = tf32(v) (to nearest, ties away
+// from zero) and small = v - big cut to TF32; a product is small*big +
+// big*small + big*big in that order (the small*small term, ~2^-22 of it,
+// is dropped): three TF32 passes that keep about 21 bits, f32 to within
+// its last few ulps, where one TF32 pass keeps 10. The tensor cores do
+// not round their own accumulation to nearest, so long sums take a fresh
+// accumulator per chunk of K, added to a running f32 total by ordinary
+// adds.
+//
+// Here: mm_f32, vf::mm's signature on TF32 WMMA fragments (each warp
+// splits the fragments it loads); the split of one value by integer
+// operations, the m16n8k8 mma.sync and the cp.async helpers of
+// mac::gemm_tf32 (macaron.cu) and vft_gemm_tf32; and vft_gemm_tf32's
+// wgmma pieces: swizzled K-major planes, their descriptors and the
+// m64n128k8 TF32 wgmma with A from registers. Include after
+// vector_field.cu's helpers.
+
+#pragma once
+
+#include <cstdint>
+
+namespace vf {
+
+// ---- the split ----
+// tf32(v) by two integer operations, bit for bit cvt.rna.tf32.f32 on
+// finite values: half an ulp of the 10-bit mantissa added to the
+// magnitude's bits, the 13 bits below it cleared
+__device__ __forceinline__ unsigned tf32_bits(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// big = tf32(v); small = v - big (exact) cut to TF32 toward zero, within
+// 2^-21 |v| of it. A NaN v makes small NaN, whatever the add made of big
+// (it carries the all-ones mantissa of the card's NaN, 0x7FFFFFFF, into
+// the sign bit: -0), so a product with a NaN operand comes out NaN.
+__device__ __forceinline__ void split_bits(float v, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_bits(v);
+  small = __float_as_uint(v - __uint_as_float(big)) & 0xFFFFE000u;
+}
+
+// ---- WMMA: split at fragment load ----
+// Fragments load from f32 rows whose stride is a multiple of 4 elements,
+// 32-byte aligned; each pass is a TF32 WMMA (16x16x8, f32 accumulators).
+
+template <typename Frag>
+__device__ __forceinline__ void split_tf32(Frag& big, Frag& small) {
+#pragma unroll
+  for (int i = 0; i < big.num_elements; ++i) {
+    unsigned hi, lo;
+    split_bits(big.x[i], hi, lo);
+    big.x[i] = __uint_as_float(hi);
+    small.x[i] = __uint_as_float(lo);
+  }
+}
+
+// C[M,N] (= | +=) alpha * (A[M,K] @ B[K,N]) in f32 (C shared or global),
+// with the layouts and the column strips of vf::mm. M, N multiples of 16,
+// K of 8. Each warp owns a column tile (and a group of row tiles when
+// there are fewer column tiles than warps); each tile's product is summed
+// over K first, then stored or added to C once.
+template <bool AT, bool BT>
+__device__ void mm_f32(const float* A, int lda, const float* B, int ldb,
+                       float* C, int ldc, bool accumulate, int M, int N,
+                       int K, float alpha = 1.0f, int strip = 1 << 30,
+                       int strip_stride = 0) {
+  using ALayout =
+      typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
+  using BLayout =
+      typename std::conditional<BT, wmma::col_major, wmma::row_major>::type;
+  using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8,
+                               wmma::precision::tf32, ALayout>;
+  using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 8,
+                               wmma::precision::tf32, BLayout>;
+  using FragC = wmma::fragment<wmma::accumulator, 16, 16, 8, float>;
+  const int warp = threadIdx.x / 32;
+  const int mt = M / 16, nt = N / 16, kt = K / 8;
+  const int groups = imin(imax(kWarps / nt, 1), mt);
+  const int rg = (mt + groups - 1) / groups;
+  for (int task = warp; task < nt * groups; task += kWarps) {
+    const int tn = task % nt;
+    const int r0 = (task / nt) * rg;
+    const int rows = imin(mt - r0, rg);
+    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
+    const float* bcol = BT ? B + (size_t)col * ldb : B + col;
+    const size_t bstep = BT ? 8 : (size_t)8 * ldb;
+    FragC c[kMaxRowTiles];
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r)
+      if (r < rows) wmma::fill_fragment(c[r], 0.0f);
+    for (int kk = 0; kk < kt; ++kk) {
+      FragB b_big, b_small;
+      wmma::load_matrix_sync(b_big, bcol + kk * bstep, ldb);
+      split_tf32(b_big, b_small);
+#pragma unroll
+      for (int r = 0; r < kMaxRowTiles; ++r) {
+        if (r < rows) {
+          FragA a_big, a_small;
+          const float* ap = AT ? A + (size_t)kk * 8 * lda + (r0 + r) * 16
+                               : A + (size_t)(r0 + r) * 16 * lda + kk * 8;
+          wmma::load_matrix_sync(a_big, ap, lda);
+          split_tf32(a_big, a_small);
+          wmma::mma_sync(c[r], a_small, b_big, c[r]);
+          wmma::mma_sync(c[r], a_big, b_small, c[r]);
+          wmma::mma_sync(c[r], a_big, b_big, c[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxRowTiles; ++r) {
+      if (r < rows) {
+        float* cp = C + (size_t)(r0 + r) * 16 * ldc + tn * 16;
+        if (accumulate) {
+          FragC t;
+          wmma::load_matrix_sync(t, cp, ldc, wmma::mem_row_major);
+          for (int i = 0; i < t.num_elements; ++i)
+            t.x[i] = fmaf(alpha, c[r].x[i], t.x[i]);
+          wmma::store_matrix_sync(cp, t, ldc, wmma::mem_row_major);
+        } else {
+          if (alpha != 1.0f)
+            for (int i = 0; i < c[r].num_elements; ++i) c[r].x[i] *= alpha;
+          wmma::store_matrix_sync(cp, c[r], ldc, wmma::mem_row_major);
+        }
+      }
+    }
+  }
+}
+
+// ---- mma.sync and cp.async ----
+// c += a b for one m16n8k8 tile (TF32 operands, f32 accumulators)
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from device to shared memory, asynchronously (zeros where !in)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool in = true) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies have landed (its own; a barrier shows them to
+// others), but for the `pending` groups it committed last
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// Splits the float4 at `big` (this thread's own landed copy, times scale)
+// in place, its small plane `plane` floats further on.
+__device__ __forceinline__ void split4(unsigned* big, int plane,
+                                       float scale) {
+  const float4 v = *reinterpret_cast<const float4*>(big);
+  uint4 hi, lo;
+  split_bits(v.x * scale, hi.x, lo.x);
+  split_bits(v.y * scale, hi.y, lo.y);
+  split_bits(v.z * scale, hi.z, lo.z);
+  split_bits(v.w * scale, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(big) = hi;
+  *reinterpret_cast<uint4*>(big + plane) = lo;
+}
+
+// ---- wgmma (sm_90a): TF32 B operands from shared memory ----
+// wgmma takes TF32 operands K-major only. A plane holds rows (M or N) of
+// 32 f32 values (128 bytes) in the 128-byte swizzle: the 16-byte chunk c
+// of row r sits at chunk c ^ (r % 8) of that row, and a plane starts on a
+// 1024-byte boundary. A descriptor names 8-row groups 1024 bytes apart;
+// the k8 step kk of a 32-wide slice starts 32 kk bytes into the rows.
+
+// the byte offset of element (r, k), k < 32, in a swizzled plane
+__host__ __device__ __forceinline__ int swz128(int r, int k) {
+  return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + (k & 3) * 4;
+}
+
+__device__ __forceinline__ uint64_t wg_desc(const void* plane) {
+  const uint64_t a =
+      static_cast<uint64_t>(__cvta_generic_to_shared(plane));
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The compiler sees wgmma's accumulators written when it is issued; this
+// keeps their reads and writes on the side of a fence or wait it stands
+// after.
+__device__ __forceinline__ void wg_pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// shared-memory writes of this thread made visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= a b for a 64 x 128 tile of one warpgroup, k = 8, TF32 operands:
+// a from registers, b from shared memory (descriptor, K-major), f32
+// accumulators. a[0..3] hold A(r, k), A(r + 8, k), A(r, k + 4), A(r + 8,
+// k + 4), r = 16 warp + lane / 4, k = lane % 4 (mma.sync's m16n8k8 A
+// fragment, one per warp of the warpgroup); they must not change until
+// the product has completed (wg_wait_all). d[4 j + 2 h + e] holds row 16
+// warp + lane / 4 + 8 h and column 8 j + 2 (lane % 4) + e of the tile;
+// accumulate = 0 ignores d.
+__device__ __forceinline__ void wgmma_tf32_m64n128_rs(float (&d)[64],
+                                                      const unsigned (&a)[4],
+                                                      uint64_t b,
+                                                      int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// keeps the A registers of a product alive and unchanged up to this point
+__device__ __forceinline__ void wg_pin(unsigned (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+}  // namespace vf

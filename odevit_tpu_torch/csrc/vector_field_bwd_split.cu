@@ -62,8 +62,9 @@
 // 298 GFLOP (0.30 ms at 989 TFLOP/s in bf16), the attention half ~22 R D^2
 // + 12 n^2 D B = 187 GFLOP (0.19 ms); operations, not bytes, bound both.
 // This first design is simple: WMMA fragments (16x16x16) staged through
-// shared memory, no wgmma, no TMA; the f32 instance, for checks, runs
-// every product on the CUDA cores. Nothing goes to a library.
+// shared memory, no wgmma, no TMA. In f32 the products launched through
+// vft::gemm run vft_gemm_tf32 (split TF32 on wgmma), while vfs_hidden's
+// own products stay on the CUDA cores. Nothing goes to a library.
 
 #define VFT_KERNELS_ONLY
 #include "vector_field_tiled.cu"

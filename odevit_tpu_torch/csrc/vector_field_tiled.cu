@@ -62,16 +62,20 @@
 //                   then a fixed-order reduce of the weight and norm
 //                   partials.
 //
-// Products. vft_gemm is a 128x128 tile per CTA of 8 warps, each warp 64x32
-// in bf16 WMMA fragments (16x16x16, f32 accumulators), K in steps of 32
-// staged through shared memory with the next step's loads held in
-// registers. The attention kernels use the WMMA helper of vector_field.cu
-// (vf::mm). The f32 instantiation, for tight checks, runs every product on
-// the CUDA cores. Nothing goes to a library.
+// Products. In bf16 vft_gemm is a 128x128 tile per CTA of 8 warps, each
+// warp 64x32 in WMMA fragments (16x16x16, f32 accumulators), K in steps
+// of 32 staged through shared memory with the next step's loads held in
+// registers. In f32 (the main path of a Macaron model, whose states are
+// f32) it is vft_gemm_tf32: split TF32 in three passes on wgmma, operands
+// staged by cp.async, A split in registers and B once into swizzled
+// K-major planes (see there). The whole-row attention kernels use vector_field.cu's WMMA
+// helper (vf::mm) in bf16 and its split-TF32 twin (vf::mm_f32,
+// split_tf32.cuh) in f32; the key-tiled f32 CTAs still run vf::mm's f32
+// loops on the CUDA cores. Nothing goes to a library.
 //
 // Bound. At TS-Base and B=64 one evaluation does ~102 GFLOP (0.10 ms at
 // 989 TFLOP/s in bf16) and one backward ~3x that; operations, not bytes,
-// bound both. This first design is simple: no wgmma, no TMA, no pipeline
+// bound both. The bf16 design is simple: no wgmma, no TMA, no pipeline
 // deeper than one step, intermediates in device memory between launches.
 //
 // Dropout (the TPU kernels' fused_vf_dropout, fused_vf_jasmin_dropout,
@@ -138,14 +142,16 @@
 // last residual step's round(scaler x3) or its Euler / stage update.
 //
 // The product epilogues draw one Philox call per 4 columns of a row (the
-// 16x16 accumulator tile is staged in shared memory first, so a lane takes
-// a row's 4 consecutive columns whatever the fragment layout); the f32
-// check instance draws per element. Masks add ~16 M Philox calls per
-// forward at B=64, drawn between barriers: below the products' bound on
-// the FMA pipe, but they add to the time rather than hide under it.
+// bf16 kernel stages each 16x16 accumulator tile in shared memory first,
+// vft_gemm_tf32 its whole 128x128 tile, so a lane takes a row's 4
+// consecutive columns whatever the fragment layout).
+// Masks add ~16 M Philox calls per forward at B=64, drawn between
+// barriers: below the products' bound on the FMA pipe, but they add to
+// the time rather than hide under it.
 
 #define VFB_KERNELS_ONLY
 #include "vector_field_bwd.cu"
+#include "split_tf32.cuh"
 
 namespace vft {
 
@@ -562,60 +568,357 @@ __global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
     }
 }
 
-// The f32 version on the CUDA cores: a 64x64 tile per CTA, 4x4 outputs a
-// thread, K in steps of 16 through shared memory. Its dropout epilogues
-// draw one Philox call per element (it exists for checks).
+// ---- the f32 products: vft_gemm_tf32, split TF32 on wgmma ----
+//
+// Bound. The f32 products of one 224 px Macaron evaluation (B=64, 208
+// padded rows, D=768, dh=1536) are 188 GFLOP; as split TF32 (three TF32
+// passes, split_tf32.cuh) they take 1.14 ms at 495 TFLOP/s. Operations
+// bound them: a 128x128 tile reads 32 KB of operands per 32-wide slice of
+// K for 3.1 MFLOP of TF32 work, and the weights and a row block of A stay
+// in L2 while the CTAs of one row block run.
+//
+// Design. One CTA of two warpgroups per 128x128 output tile, each
+// warpgroup 64 rows of it. K goes in slices of 32: 16-byte cp.async bring
+// a slice's raw f32 rows of A and B into a landing slot (kTfLand slots:
+// the next three slices land while one is multiplied). Each thread
+// takes its own A fragments from the landing slot and splits them in
+// registers; B is split once into big and small TF32 planes (K-major,
+// 128-byte swizzle; a B stored [K, N] is transposed on the way) while the
+// tensor cores multiply the previous slice from the other pair of planes.
+// Per k8 step three wgmma m64n128k8 with A from registers, in mm_f32's
+// order (small x big, big x small, big x big). Each slice sums into a
+// fresh accumulator set, added to the running total by f32 adds (the
+// tensor cores truncate their own sums, and K runs to 2304 here). The
+// total goes through shared memory to the epilogues, which take four
+// consecutive columns of a row a thread (16-byte loads and stores; the
+// dropout epilogues one Philox call per 4-column group). No split of K
+// across CTAs and no atomics: two runs are bit-identical, and a product
+// the backward recomputes equals the forward's.
+constexpr int kTfM = 128, kTfN = 128, kTfK = 32, kTfThreads = 256;
+constexpr int kTfLand = 4;                 // landing slots
+constexpr int kTfLdA = kTfK + 4;           // landed A rows: fragment loads
+                                           // on 32 distinct banks
+constexpr int kTfLdB = kTfN + 4;           // a B stored [K, N] lands so
+constexpr int kTfLdE = kTfN + 8;           // the staged output tile
+constexpr int kTfPlane = kTfN * kTfK * 4;  // one swizzled B plane: 16 KB
+constexpr int kTfLandA = kTfM * kTfLdA * 4;
+constexpr int kTfLandSlot = kTfLandA + kTfK * kTfLdB * 4;  // A, then B
+// two sets of B planes (big, small), the landing slots, and room to start
+// the planes on a 1024-byte boundary; the output tile, staged after the
+// last product, takes the planes and landing slots' bytes
+constexpr int kTfSmem = 2 * 2 * kTfPlane + kTfLand * kTfLandSlot + 1024;
+static_assert(kTfM * kTfLdE * 4 <= kTfSmem - 1024, "staged tile");
+static_assert(kTfSmem <= 232448, "one CTA an SM: 227 KB of shared memory");
+
+// The f32 epilogues of columns n .. n + 3 of output row m (epilogue and
+// epilogue_drop in f32, four columns at a time): v the products, k0 and
+// k1 the dropout epilogues' kept values.
+__device__ __forceinline__ void epilogue4(const GemmArgs& g, int m, int n,
+                                          const float (&v)[4],
+                                          const float (&k0)[4],
+                                          const float (&k1)[4]) {
+  auto ld = [](const void* p, size_t i, float (&r)[4]) {
+    const float4 t =
+        *reinterpret_cast<const float4*>(static_cast<const float*>(p) + i);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  };
+  auto st = [](void* p, size_t i, const float (&r)[4]) {
+    *reinterpret_cast<float4*>(static_cast<float*>(p) + i) =
+        make_float4(r[0], r[1], r[2], r[3]);
+  };
+  const size_t o = (size_t)m * g.ldo + n, s = (size_t)m * g.ld32 + n,
+               x = (size_t)m * g.ldaux + n;
+  const bool bias = g.bias != nullptr;
+  float r[4], f[4], a[4], t[4], b[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (bias) ld(g.bias, n, b);
+  switch (g.epi) {
+    case kRound:
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r[q] = bias ? v[q] + b[q] : v[q];
+      st(g.out, o, r);
+      break;
+    case kScale:
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        r[q] = (bias ? v[q] + b[q] : v[q]) * g.scale;
+      st(g.out, o, r);
+      break;
+    case kGelu:
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        f[q] = bias ? v[q] + b[q] : v[q];
+        r[q] = vf::gelu(f[q]);
+      }
+      if (g.out32 != nullptr) st(g.out32, s, f);
+      if (g.out2 != nullptr) st(g.out2, o, f);
+      st(g.out, o, r);
+      break;
+    case kGeluGradResid:
+      if (m % g.n_pad < g.n_real) {
+        ld(g.res, o, t);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) t[q] = 0.0f;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        r[q] = v[q] * vf::gelu_grad(t[q]);
+        f[q] = vf::gelu(t[q]);
+      }
+      st(g.out, o, r);
+      st(g.out2, o, f);
+      break;
+    case kGeluGrad:
+      ld(g.aux, x, a);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r[q] = v[q] * vf::gelu_grad(a[q]);
+      st(g.out, o, r);
+      break;
+    case kAdvance:
+      ld(g.res, o, t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r[q] = t[q] + g.dt * (v[q] * g.scale);
+      st(g.out, o, r);
+      break;
+    case kMacResid:
+#pragma unroll
+      for (int q = 0; q < 4; ++q) f[q] = v[q] + b[q];
+      if (g.fout != nullptr) st(g.fout, s, f);
+      if (g.out32 != nullptr) {
+        ld(g.aux, s, a);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) r[q] = a[q] + g.alpha * g.rs[0] * f[q];
+        st(g.out32, s, r);
+      }
+      break;
+    case kMacOut:
+      ld(g.aux, x, a);
+      if (g.res != nullptr) ld(g.res, o, t);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        f[q] = (a[q] + g.alpha * g.rs[0] * (v[q] + b[q])) * g.scale;
+        r[q] = g.res != nullptr ? t[q] + g.dt * f[q] : f[q];
+      }
+      st(g.out, o, r);
+      break;
+    case kGeluDrop:
+      if (g.out32 != nullptr) st(g.out32, s, v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r[q] = vf::gelu(v[q]) * k0[q];
+      st(g.out, o, r);
+      break;
+    case kGeluGradDrop:
+      ld(g.aux, x, a);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) r[q] = v[q] * k0[q] * vf::gelu_grad(a[q]);
+      st(g.out, o, r);
+      break;
+    case kOutDrop:
+      ld(g.aux, x, a);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        r[q] = (v[q] * k0[q] + a[q] * k1[q]) * g.scale;
+      st(g.out, o, r);
+      break;
+    default:  // kF32
+      st(g.out32, s, v);
+      break;
+  }
+  if (g.epi == kGeluDrop || g.epi == kGeluGradDrop || g.epi == kOutDrop) {
+    if (g.mask[0] != nullptr) st(g.mask[0], (size_t)m * g.n + n, k0);
+    if (g.mask[1] != nullptr) st(g.mask[1], (size_t)m * g.n + n, k1);
+  }
+}
+
 template <bool BT, bool kDrop>
-__global__ void __launch_bounds__(kGThreads) vft_gemm_f32(GemmArgs g) {
-  __shared__ float As[16][65];
-  __shared__ float Bs[16][65];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * 64, n0 = blockIdx.x * 64;
-  float acc[4][4] = {};
-  for (int p = 0; p < g.pairs; ++p) {
-    const float* A = static_cast<const float*>(g.a[p]);
-    const float* B = static_cast<const float*>(g.b[p]);
-    const int K = g.k[p];
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      for (int i = 0; i < 4; ++i) {
-        const int e = threadIdx.x + i * kGThreads;
-        const int mm = e / 16, kk = e % 16;
-        As[kk][mm] = m0 + mm < g.m && k0 + kk < K
-                         ? A[(size_t)(m0 + mm) * g.lda[p] + k0 + kk]
-                         : 0.0f;
+__global__ void __launch_bounds__(kTfThreads, 1) vft_gemm_tf32(GemmArgs g) {
+  extern __shared__ unsigned char tf_raw[];
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(tf_raw));
+  unsigned char* smem = tf_raw + ((1024 - (base & 1023)) & 1023);
+  unsigned char* land0 = smem + 2 * 2 * kTfPlane;
+  const int m0 = blockIdx.y * kTfM, n0 = blockIdx.x * kTfN;
+  const int M = g.m, N = g.n;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;  // rows 64 wg .. 64 wg + 63 of the tile
+  // the operands of both pairs, without run-time indexing of g's arrays
+  const float* const a0 = static_cast<const float*>(g.a[0]);
+  const float* const a1 = static_cast<const float*>(g.a[1]);
+  const float* const b0 = static_cast<const float*>(g.b[0]);
+  const float* const b1 = static_cast<const float*>(g.b[1]);
+  const int lda0 = g.lda[0], lda1 = g.lda[1], ldb0 = g.ldb[0],
+            ldb1 = g.ldb[1], k0s = g.k[0], k1s = g.pairs > 1 ? g.k[1] : 0;
+  const int nk0 = (k0s + kTfK - 1) / kTfK;
+  const int slices = nk0 + (k1s + kTfK - 1) / kTfK;
+
+  // slice s (of pair 0, then pair 1) into landing slot s % kTfLand, zeros
+  // past M, N and K; a commit group each, empty past the last slice
+  auto load = [&](int s) {
+    if (s < slices) {
+      const bool p = s >= nk0;
+      const int k0 = (p ? s - nk0 : s) * kTfK, K = p ? k1s : k0s;
+      const float* A = p ? a1 : a0;
+      const float* B = p ? b1 : b0;
+      const int la_ = p ? lda1 : lda0, lb_ = p ? ldb1 : ldb0;
+      float* la = reinterpret_cast<float*>(land0 + (s % kTfLand) * kTfLandSlot);
+      float* lb = la + kTfLandA / 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int i = threadIdx.x + j * kTfThreads;
+        const int r = i >> 3, c = (i & 7) * 4;
+        const bool ina = m0 + r < M && k0 + c < K;
+        vf::cp_async16(la + r * kTfLdA + c,
+                       ina ? A + (size_t)(m0 + r) * la_ + k0 + c : A, ina);
         if (BT) {
-          Bs[kk][mm] = n0 + mm < g.n && k0 + kk < K
-                           ? B[(size_t)(n0 + mm) * g.ldb[p] + k0 + kk]
-                           : 0.0f;
+          const bool inb = n0 + r < N && k0 + c < K;
+          vf::cp_async16(lb + r * kTfK + c,
+                         inb ? B + (size_t)(n0 + r) * lb_ + k0 + c : B, inb);
         } else {
-          const int kr = e / 64, nn = e % 64;
-          Bs[kr][nn] = k0 + kr < K && n0 + nn < g.n
-                           ? B[(size_t)(k0 + kr) * g.ldb[p] + n0 + nn]
-                           : 0.0f;
+          const int kr = i >> 5, c4 = (i & 31) * 4;
+          const bool inb = k0 + kr < K && n0 + c4 < N;
+          vf::cp_async16(lb + kr * kTfLdB + c4,
+                         inb ? B + (size_t)(k0 + kr) * lb_ + n0 + c4 : B,
+                         inb);
         }
       }
-      __syncthreads();
-      for (int kk = 0; kk < 16; ++kk)
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j)
-            acc[i][j] = fmaf(As[kk][ty + 16 * i], Bs[kk][tx + 16 * j],
-                             acc[i][j]);
-      __syncthreads();
     }
-  }
-  for (int i = 0; i < 4; ++i)
+    vf::cp_async_commit();
+  };
+  // B of slice s from its landing slot into plane pair s % 2: rows of a B
+  // stored [N, K] chunk by chunk, a B stored [K, N] a float4 of a K row at
+  // a time, each value to its own N row
+  auto split_b = [&](int s) {
+    const float* lb = reinterpret_cast<const float*>(
+        land0 + (s % kTfLand) * kTfLandSlot + kTfLandA);
+    unsigned char* big = smem + (s & 1) * 2 * kTfPlane;
+    unsigned char* small = big + kTfPlane;
+#pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty + 16 * i, n = n0 + tx + 16 * j;
-      if (m >= g.m || n >= g.n) continue;
-      if (kDrop) {
-        float k0[4], k1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-        gemm_keep4(g, 0, m, n >> 2, k0);
-        if (g.epi == kOutDrop) gemm_keep4(g, 1, m, n >> 2, k1);
-        epilogue_drop<float>(g, m, n, acc[i][j], k0[n & 3], k1[n & 3]);
+      const int i = threadIdx.x + j * kTfThreads;
+      if (BT) {
+        const int r = i >> 3, c = (i & 7) * 4, o = vf::swz128(r, c);
+        const float4 v = *reinterpret_cast<const float4*>(lb + r * kTfK + c);
+        uint4 hi, lo;
+        vf::split_bits(v.x, hi.x, lo.x);
+        vf::split_bits(v.y, hi.y, lo.y);
+        vf::split_bits(v.z, hi.z, lo.z);
+        vf::split_bits(v.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(big + o) = hi;
+        *reinterpret_cast<uint4*>(small + o) = lo;
       } else {
-        epilogue<float>(g, m, n, acc[i][j]);
+        const int k = i & 31, n4 = (i >> 5) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(lb + k * kTfLdB + n4);
+        const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          unsigned hi, lo;
+          vf::split_bits(e[q], hi, lo);
+          const int o = vf::swz128(n4 + q, k);
+          *reinterpret_cast<unsigned*>(big + o) = hi;
+          *reinterpret_cast<unsigned*>(small + o) = lo;
+        }
       }
     }
+    vf::fence_async_shared();
+  };
+  // this thread's A fragments of slice s, raw: element (r, k) of fragment
+  // kk at raw[4 kk + 2 (k >= 4) + (r >= 8)], r and k within it
+  const int fr = wg * 64 + (warp & 3) * 16 + (lane >> 2), fk = lane & 3;
+  auto load_a = [&](int s, float (&raw)[16]) {
+    const float* la = reinterpret_cast<const float*>(
+        land0 + (s % kTfLand) * kTfLandSlot) + fr * kTfLdA + fk;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      raw[4 * kk] = la[8 * kk];
+      raw[4 * kk + 1] = la[8 * kTfLdA + 8 * kk];
+      raw[4 * kk + 2] = la[8 * kk + 4];
+      raw[4 * kk + 3] = la[8 * kTfLdA + 8 * kk + 4];
+    }
+  };
+  auto split_a = [](const float (&raw)[16], unsigned (&hi)[4][4],
+                    unsigned (&lo)[4][4]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      vf::split_bits(raw[i], hi[i / 4][i % 4], lo[i / 4][i % 4]);
+  };
+
+  float tot[64], acc[64], raw[16];
+  unsigned ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) tot[i] = acc[i] = 0.0f;
+  for (int s = 0; s < kTfLand; ++s) load(s);
+  vf::cp_async_wait<kTfLand - 1>();
+  __syncthreads();  // slice 0 has landed
+  split_b(0);
+  load_a(0, raw);
+  split_a(raw, ahi, alo);
+  vf::cp_async_wait<kTfLand - 2>();
+  __syncthreads();  // its B planes are written, slice 1 has landed
+  for (int s = 0; s < slices; ++s) {
+    const unsigned char* pl = smem + (s & 1) * 2 * kTfPlane;
+    const uint64_t b_big = vf::wg_desc(pl);
+    const uint64_t b_small = vf::wg_desc(pl + kTfPlane);
+    vf::wg_pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      vf::wg_pin(ahi[kk]);
+      vf::wg_pin(alo[kk]);
+    }
+    vf::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTfK / 8; ++kk) {
+      const uint64_t step = kk * 32 / 16;  // 32 bytes, in 16-byte units
+      vf::wgmma_tf32_m64n128_rs(acc, alo[kk], b_big + step, kk > 0);
+      vf::wgmma_tf32_m64n128_rs(acc, ahi[kk], b_small + step, 1);
+      vf::wgmma_tf32_m64n128_rs(acc, ahi[kk], b_big + step, 1);
+    }
+    vf::wg_commit();
+    // beside the tensor cores' work: slice s + kTfLand into the landing
+    // slot slice s left, slice s + 1's B planes and raw A fragments
+    load(s + kTfLand);
+    if (s + 1 < slices) {
+      split_b(s + 1);
+      load_a(s + 1, raw);
+    }
+    vf::wg_wait_all();
+    vf::wg_pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      vf::wg_pin(ahi[kk]);
+      vf::wg_pin(alo[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] += acc[i];
+    if (s + 1 < slices) split_a(raw, ahi, alo);
+    vf::cp_async_wait<kTfLand - 2>();
+    // slice s + 1's B planes are written, plane pair s % 2 and landing
+    // slot (s + 1) % kTfLand are free, slice s + 2 has landed
+    __syncthreads();
+  }
+
+  // the total through shared memory (the planes and landing slots are
+  // free once every warpgroup has left the loop), then the epilogues
+  float* tile = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + (fr + 8 * h) * kTfLdE + 8 * j +
+                                 2 * fk) =
+          make_float2(tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTfM * kTfN / 4; i += kTfThreads) {
+    const int r = i / (kTfN / 4), c = (i % (kTfN / 4)) * 4;
+    const int m = m0 + r, n = n0 + c;
+    if (m >= M || n >= N) continue;
+    const float4 t = *reinterpret_cast<const float4*>(tile + r * kTfLdE + c);
+    const float v[4] = {t.x, t.y, t.z, t.w};
+    float k0[4] = {1.0f, 1.0f, 1.0f, 1.0f}, k1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+    if (kDrop) {
+      gemm_keep4(g, 0, m, n >> 2, k0);
+      if (g.epi == kOutDrop) gemm_keep4(g, 1, m, n >> 2, k1);
+    }
+    epilogue4(g, m, n, v, k0, k1);
+  }
 }
 
 // ---------------------------------------------------------------- attention
@@ -728,6 +1031,49 @@ __host__ __device__ inline AttnPlan attn_plan(int n, int hd, int mt, int tb,
   return a;
 }
 
+// Rows of a head into shared memory 16 bytes (4 f32 or 8 bf16) at a time,
+// four loads in flight a thread: row r < rows of the hd columns at src +
+// r lds, times scale where it is not 1, to dst + r ldd, or zeros where
+// zero(r). hd a multiple of 16 / sizeof(T), 16-byte aligned rows.
+template <typename T, typename Z>
+__device__ __forceinline__ void load_rows16(T* dst, int ldd, const T* src,
+                                            size_t lds, int rows, int hd,
+                                            float scale, Z zero) {
+  constexpr int kV = 16 / sizeof(T);
+  const int hq = hd / kV;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * hq; i += vf::kThreads) {
+    const int r = i / hq, c = (i % hq) * kV;
+    uint4 t = make_uint4(0u, 0u, 0u, 0u);
+    if (!zero(r)) {
+      t = *reinterpret_cast<const uint4*>(src + r * lds + c);
+      if (scale != 1.0f) {
+        T* e = reinterpret_cast<T*>(&t);
+#pragma unroll
+        for (int j = 0; j < kV; ++j)
+          e[j] = vf::from_f<T>(vf::to_f(e[j]) * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + r * ldd + c) = t;
+  }
+}
+
+// The whole-row attention CTAs' products, vf::mm's arguments: bf16 WMMA
+// fragments, f32 as split TF32 on the tensor cores (vf::mm_f32).
+template <bool AT, bool BT>
+__device__ __forceinline__ void attn_mm(const bf16* A, int lda, const bf16* B,
+                                        int ldb, float* C, int ldc, int M,
+                                        int N, int K) {
+  vf::mm<AT, BT>(A, lda, B, ldb, C, ldc, false, M, N, K);
+}
+
+template <bool AT, bool BT>
+__device__ __forceinline__ void attn_mm(const float* A, int lda,
+                                        const float* B, int ldb, float* C,
+                                        int ldc, int M, int N, int K) {
+  vf::mm_f32<AT, BT>(A, lda, B, ldb, C, ldc, false, M, N, K);
+}
+
 // One CTA per (query tile, head, image). Forward: the scores, p, the map
 // or statistics, ctx. With kBwd also p_bar, s_bar and q_bar (see the top
 // of the file). kDrop: ctx (and in the backward v_bar, through the p
@@ -759,21 +1105,17 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
 
   // K and V of the head (padded value rows zeroed, so that 0 * NaN cannot
   // reach p v), the query tile, and in the backward the tile of cb
-  for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
-    const int r = i / hd, c = i % hd;
-    const T* src = qkv + (row0 + r) * 3 * d + h * hd + c;
-    k[r * lh + c] = a.resid && r >= n_real ? zero : src[d];
-    v[r * lh + c] = r < n_real ? src[2 * d] : zero;
-  }
-  for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
-    const int r = i / hd, c = i % hd;
-    q[r * lh + c] = a.resid && q0 + r >= n_real
-                        ? zero
-                        : qkv[(row0 + q0 + r) * 3 * d + h * hd + c];
-    if (kBwd)
-      cbs[r * lh + c] =
-          static_cast<const T*>(a.cb)[(row0 + q0 + r) * d + h * hd + c];
-  }
+  const T* hq = qkv + row0 * 3 * d + h * hd;
+  load_rows16(k, lh, hq + d, 3 * d, n, hd, 1.0f,
+              [&](int r) { return a.resid && r >= n_real; });
+  load_rows16(v, lh, hq + 2 * d, 3 * d, n, hd, 1.0f,
+              [&](int r) { return r >= n_real; });
+  load_rows16(q, lh, hq + (size_t)q0 * 3 * d, 3 * d, rows, hd, 1.0f,
+              [&](int r) { return a.resid && q0 + r >= n_real; });
+  if (kBwd)
+    load_rows16(cbs, lh,
+                static_cast<const T*>(a.cb) + (row0 + q0) * d + h * hd, d,
+                rows, hd, 1.0f, [](int) { return false; });
   __syncthreads();
 
   if (kL2) {
@@ -781,7 +1123,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
     vf::sq_rows(k, lh, n, hd, k2);
     vf::sq_rows(q, lh, rows, hd, q2);
   }
-  vf::mm<false, true>(q, lh, k, lh, s, ls, false, rows, n, hd);
+  attn_mm<false, true>(q, lh, k, lh, s, ls, rows, n, hd);
   __syncthreads();
   // softmax over the real keys, or L2: e = exp(-(q2 + k2 - 2 q.k) tau)
   // over (sum e + 1e-8), no max; p rounded; in the backward the unrounded
@@ -879,7 +1221,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
 
   // ctx = round(p v) for this tile
   float* cst = kBwd ? pbar : s;
-  vf::mm<false, false>(p, lp, v, lh, cst, ls, false, rows, hd, n);
+  attn_mm<false, false>(p, lp, v, lh, cst, ls, rows, hd, n);
   __syncthreads();
   T* ctx = static_cast<T*>(a.ctx);
   for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
@@ -897,7 +1239,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   __syncthreads();
   // p_bar = cb v^T (+ g_attn, + the JaSMin scatter); s_bar (L2: round(d2b))
   // into p
-  vf::mm<false, true>(cbs, lh, v, lh, pbar, ls, false, rows, n, hd);
+  attn_mm<false, true>(cbs, lh, v, lh, pbar, ls, rows, n, hd);
   __syncthreads();
   T* sb = static_cast<T*>(a.sbar) + bh * n * n;
   const T* gat = a.g_attn != nullptr
@@ -979,7 +1321,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn(AttnArgs a) {
   }
   // softmax: q_bar = round(s_bar k tau); L2: q_bar = round(2 q rsum - 2
   // round(d2b) k)
-  vf::mm<false, false>(p, lp, k, lh, s, ls, false, rows, hd, n);
+  attn_mm<false, false>(p, lp, k, lh, s, ls, rows, hd, n);
   __syncthreads();
   T* qkvb = static_cast<T*>(a.qkvb);
   for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
@@ -1034,13 +1376,11 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
   const size_t bh = (size_t)b * a.heads + h;
   const T* qkv = static_cast<const T*>(a.qkv);
   const T* cb = static_cast<const T*>(a.cb);
-  for (int i = threadIdx.x; i < n * hd; i += vf::kThreads) {
-    const int r = i / hd, c = i % hd;
-    const T qv = a.resid && r >= a.n_real ? vf::from_f<T>(0.0f)
-                                          : qkv[(row0 + r) * 3 * d + h * hd + c];
-    qs[r * lh + c] = kL2 ? qv : vf::from_f<T>(vf::to_f(qv) * a.qk_scale);
-    cbs[r * lh + c] = cb[(row0 + r) * d + h * hd + c];
-  }
+  load_rows16(qs, lh, qkv + row0 * 3 * d + h * hd, 3 * d, n, hd,
+              kL2 ? 1.0f : a.qk_scale,
+              [&](int r) { return a.resid && r >= a.n_real; });
+  load_rows16(cbs, lh, cb + row0 * d + h * hd, d, n, hd, 1.0f,
+              [](int) { return false; });
   if (kL2) {
     const int tiles = (n + a.mt - 1) / a.mt;
     for (int r = threadIdx.x; r < rows; r += vf::kThreads) {
@@ -1056,8 +1396,7 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
                      static_cast<const T*>(a.pg) + bh * n * n + j0};
   const T* rhs[2] = {qs, cbs};
   for (int part = 0; part < 2; ++part) {
-    vf::mm<true, false>(src[part], n, rhs[part], lh, st, ls, false, rows, hd,
-                        n);
+    attn_mm<true, false>(src[part], n, rhs[part], lh, st, ls, rows, hd, n);
     __syncthreads();
     for (int i = threadIdx.x; i < rows * hd; i += vf::kThreads) {
       const int r = i / hd, c = i % hd;
@@ -2479,15 +2818,46 @@ GemmArgs gemm_args(const void* a, int lda, const void* b, int ldb, int k,
   return g;
 }
 
+// What vft_gemm_tf32 takes: M, N and every K multiples of 16, one or two
+// pairs, rows of a multiple of 16 bytes from 16-byte-aligned bases (its
+// 16-byte cp.async and the epilogues' 16-byte loads and stores).
+bool tf32_ok(const GemmArgs& g) {
+  if (g.pairs < 1 || g.pairs > 2 || g.m <= 0 || g.n <= 0 || g.m % 16 ||
+      g.n % 16)
+    return false;
+  for (int p = 0; p < g.pairs; ++p)
+    if (g.k[p] <= 0 || g.k[p] % 16 || g.lda[p] % 4 || g.ldb[p] % 4 ||
+        reinterpret_cast<uintptr_t>(g.a[p]) % 16 ||
+        reinterpret_cast<uintptr_t>(g.b[p]) % 16)
+      return false;
+  // the epilogues' 16-byte loads and stores
+  const void* bufs[] = {g.out, g.out32, g.out2, g.aux, g.res, g.bias,
+                        g.mask[0], g.mask[1], g.fout};
+  for (const void* b : bufs)
+    if (reinterpret_cast<uintptr_t>(b) % 16) return false;
+  return g.ldo % 4 == 0 && g.ld32 % 4 == 0 && g.ldaux % 4 == 0;
+}
+
+template <bool BT, bool kDrop>
+int gemm_tf32(const GemmArgs& g, cudaStream_t st) {
+  if (!tf32_ok(g)) return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      cudaFuncSetAttribute(vft_gemm_tf32<BT, kDrop>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kTfSmem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((g.n + kTfN - 1) / kTfN, (g.m + kTfM - 1) / kTfM);
+  vft_gemm_tf32<BT, kDrop><<<grid, kTfThreads, kTfSmem, st>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// The route's products: bf16 on vft_gemm_bf16, f32 on vft_gemm_tf32 (a
+// shape it does not take returns cudaErrorInvalidValue).
 template <typename T, bool BT, bool kDrop = false>
 int gemm(const GemmArgs& g, cudaStream_t st) {
-  if (sizeof(T) == 2) {
-    const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM);
-    vft_gemm_bf16<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
-  } else {
-    const dim3 grid((g.n + 63) / 64, (g.m + 63) / 64);
-    vft_gemm_f32<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
-  }
+  if (sizeof(T) != 2) return gemm_tf32<BT, kDrop>(g, st);
+  const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM);
+  vft_gemm_bf16<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -2532,6 +2902,13 @@ AttnArgs attn_args(const TiledArgs& t) {
   return a;
 }
 
+// Launches of the key-tiled backward attention CTAs, counted by the host
+// where it launches them: [0] vft_attn_kt_bwd, [1] vft_attn_keys_kt2 (the
+// bf16 softmax pair), [2] vft_attn_kt with kBwd, [3] vft_attn_keys_kt.
+// vft_kt_bwd_launches reads them, so that a check can see which CTAs a
+// backward took without a profiler (which can drop a kernel's events).
+static unsigned long long kt_bwd_launches[4];
+
 // The key-tiled attention CTA past kMaxCols padded tokens; its JaSMin
 // mode keeps at most kMaxJas extraction passes.
 template <typename T, bool kBwd, bool kDrop, bool kL2>
@@ -2546,6 +2923,7 @@ int attn_kt(const TiledArgs& t, cudaStream_t st) {
   const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
   vft_attn_kt<T, kBwd, kDrop, kL2><<<grid, vf::kThreads, smem, st>>>(
       attn_args(t));
+  if (kBwd) ++kt_bwd_launches[2];
   return (int)cudaGetLastError();
 }
 
@@ -2562,6 +2940,7 @@ int attn_kt_bwd(const TiledArgs& t, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads, t.batch);
   kernel<<<grid, kBThreads, smem, st>>>(attn_args(t));
+  ++kt_bwd_launches[0];
   return (int)cudaGetLastError();
 }
 
@@ -2602,6 +2981,7 @@ int attn_keys(const TiledArgs& t, cudaStream_t st) {
           (int)kKeybSmem);
       if (err != cudaSuccess) return (int)err;
       vft_attn_keys_kt2<<<grid, kBThreads, kKeybSmem, st>>>(attn_args(t));
+      ++kt_bwd_launches[1];
       return (int)cudaGetLastError();
     }
   }
@@ -2612,6 +2992,7 @@ int attn_keys(const TiledArgs& t, cudaStream_t st) {
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     vft_attn_keys_kt<T, kL2><<<grid, vf::kThreads, smem, st>>>(attn_args(t));
+    ++kt_bwd_launches[3];
     return (int)cudaGetLastError();
   }
   const size_t ksmem = key_plan(t.n_pad, t.d / t.heads, sizeof(T), kL2).total;
@@ -2881,6 +3262,11 @@ int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 
 }  // namespace vft
 
+// In every library that includes this file: vft::kt_bwd_launches so far.
+extern "C" void vft_kt_bwd_launches(unsigned long long* out) {
+  for (int i = 0; i < 4; ++i) out[i] = vft::kt_bwd_launches[i];
+}
+
 // vector_field_bwd_split.cu and macaron_tiled.cu include this file with
 // VFT_KERNELS_ONLY for its kernels and launch helpers; they have entry
 // points of their own.
@@ -2914,6 +3300,16 @@ int vft_backward(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vft::backward<bf16>(*args, st)
                      : vft::backward<float>(*args, st);
+}
+
+// One f32 product of the route (vft_gemm_tf32), B stored transposed with
+// bt, the dropout epilogues' instance with drop; returns as vft_forward.
+int vft_tf32_gemm(int bt, int drop, const vft::GemmArgs* g, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bt ? (drop ? vft::gemm_tf32<true, true>(*g, st)
+                    : vft::gemm_tf32<true, false>(*g, st))
+            : (drop ? vft::gemm_tf32<false, true>(*g, st)
+                    : vft::gemm_tf32<false, false>(*g, st));
 }
 
 const char* vft_error_string(int code) {

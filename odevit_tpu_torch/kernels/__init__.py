@@ -48,7 +48,10 @@ launch_counts: Dict[str, int] = {
     "vf_eval_stash": 0, "vf_eval_jasmin_stash": 0,
     "vf_eval_stash_tiled": 0, "vf_eval_jasmin_stash_tiled": 0,
     "vf_bwd_resid": 0, "vf_bwd_resid_tiled": 0,
-    "vf_bwd_mlp_resid": 0, "vf_bwd_attn_resid": 0}
+    "vf_bwd_mlp_resid": 0, "vf_bwd_attn_resid": 0,
+    # one f32 product of the tiled route alone (csrc/vector_field_tiled.cu:
+    # vft_gemm_tf32, launched by kernels/tf32_gemm.py for checks)
+    "vft_gemm_tf32": 0}
 
 # csrc/vector_field_tiled.cu's kMaxCols: whole-row attention CTAs up to it,
 # key-tiled ones past it

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (sm_90a) into a
 shared library with a plain C interface, which is loaded with ``ctypes``.
 Libraries go to ``build/odevit_tpu_torch/`` beside the package, named by a
-hash of every file in ``csrc`` (a source may include another), so an
-edited source is rebuilt. Several sources
+hash of every file in ``csrc`` (a source may include another, and the
+``.cuh`` headers), so an edited source or header is rebuilt. Several sources
 build in parallel: one ``nvcc`` each, all started together. A failed build
 raises; nothing falls back.
 """
@@ -50,8 +50,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     srcs = sources()
-    # every source counts: one may include another
-    text = b"".join(p.read_bytes() for p in srcs.values())
+    # every file of csrc counts: a source includes others and headers
+    text = b"".join(p.read_bytes() for p in sorted(CSRC.iterdir())
+                    if p.is_file())
     digest = hashlib.sha256(srcs[name].name.encode() + text
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"

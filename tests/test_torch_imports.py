@@ -134,6 +134,21 @@ def test_editing_one_source_rebuilds_every_library(tmp_path, monkeypatch):
         assert build.library_path(name) != path
 
 
+def test_editing_a_header_rebuilds_every_library(tmp_path, monkeypatch):
+    """Sources include the .cuh headers of csrc (split_tf32.cuh): a
+    header's edit renames every library too, and a header is no source of
+    its own."""
+    (tmp_path / "h.cuh").write_text("int h;\n")
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert set(build.sources()) == {"a", "b"}
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    (tmp_path / "h.cuh").write_text("int h = 1;\n")
+    for name, path in before.items():
+        assert build.library_path(name) != path
+
+
 def test_the_only_source_is_listed():
     assert set(build.sources()) == {"vector_field", "vector_field_bwd",
                                     "vector_field_tiled", "dropout_masks",
