@@ -5,6 +5,13 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases:
   1. card: name and power limit; build of every CUDA source (parallel nvcc);
+     then ``wgrad_vs_plain``: the bf16 weight product of every backward
+     (``vfb_wgrad_wgmma``) alone at each training cell's shape against a
+     float64 product, repeats, NaN rows and columns, spills, its time
+     beside ``torch.matmul``, the Python split rule against the C one, and
+     ``vfb_wgrad_f32`` once; every training phase below checks by the C
+     counters that each bf16 backward launched it once (twice a Macaron
+     backward) and each f32 backward not at all;
   2. kernel vs plain: ``vf_eval`` against ``vf_eval_plain`` at the serving
      shape (B=64, 69 tokens padded to 80, D=192, 3 heads, dh=768), modes
      plain / euler / base, in bf16 and f32, and with garbage and NaN in
@@ -714,6 +721,8 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
+    old = [k for k, _, _ in rows if OLD_WGRAD in k]
+    check(not old, f"profiled step ran {OLD_WGRAD}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:80], "ms": ms, "count": c}
@@ -758,6 +767,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         torch.cuda.reset_peak_memory_stats()
         if path == "kernels":
             reset_launch_counts()
+            wgrad0 = wgrad_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -768,6 +778,8 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
+        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
+                 else None)
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -797,7 +809,8 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
             "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
-            "launches": launches, "first_grad": first_grad}
+            "launches": launches, "wgrad_launches": wgrad,
+            "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
     cos = torch.nn.functional.cosine_similarity(
@@ -807,7 +820,33 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
     return runs, profile, cos, loss_rel, per_step
 
 
-def check_train(name, runs, cos, loss_rel, per_step, want):
+def wgrad_launches() -> int:
+    """The bf16 weight-product kernel's launches so far, by the C counter
+    of every library that compiles it (``kernels/wgrad.py``)."""
+    from odevit_tpu_torch.kernels.wgrad import wgrad_launches as count
+    return count()
+
+
+def wgrad_expected(launches: dict) -> int:
+    """Launches of the bf16 weight-product kernel that the backward
+    launches in ``launches`` make: one per backward (each split half is a
+    backward of its own; ``vf_bwd_split`` counts the pairs), two per
+    Macaron backward (the attention's products, then the shared FFN's
+    over both halves)."""
+    n = 0
+    for name, count in launches.items():
+        if name.startswith("vf_bwd") and not name.startswith("vf_bwd_split"):
+            n += count
+        elif name.startswith("macaron_bwd"):
+            n += 2 * count
+    return n
+
+
+def check_train(name, runs, cos, loss_rel, per_step, want, bf16=True):
+    """The kernel path against the plain path (losses, first gradient),
+    its launches per step against ``want``, and the route of its weight
+    products: with ``bf16`` one launch of the weight-product kernel per
+    backward (``wgrad_expected``), else none."""
     import numpy as np
     k, p = runs["kernels"], runs["plain"]
     check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
@@ -817,6 +856,9 @@ def check_train(name, runs, cos, loss_rel, per_step, want):
     want = {**{n: 0 for n in per_step}, **want}
     check(per_step == want, f"{name}: launches per step {per_step}, "
           f"want {want}")
+    want_w = wgrad_expected(k["launches"]) if bf16 else 0
+    check(k["wgrad_launches"] == want_w, f"{name}: {k['wgrad_launches']} "
+          f"weight-product launches, want {want_w}")
 
 
 def phase_train(images_u8, labels):
@@ -1412,6 +1454,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         torch.cuda.reset_peak_memory_stats()
         if path == "kernels":
             reset_launch_counts()
+            wgrad0 = wgrad_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1422,6 +1465,8 @@ def distill_runs(teacher, images_u8, labels, drops=None,
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
+        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
+                 else None)
         peak = torch.cuda.max_memory_allocated() / 1e9
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
                  if drops else None)
@@ -1456,7 +1501,8 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                          "forward": ev[1].elapsed_time(ev[2]),
                          "backward": ev[2].elapsed_time(ev[3]),
                          "optimizer": ev[3].elapsed_time(ev[4])},
-            "launches": launches, "first_grad": first_grad}
+            "launches": launches, "wgrad_launches": wgrad,
+            "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
     cos = torch.nn.functional.cosine_similarity(
@@ -1955,7 +2001,8 @@ def phase_split_kernels_vs_plain(model, ratio1):
                       f"the split backward ({key}) took {routes}")
                 want = vf_bwd(x, w, gx, plain=True, **kw, **drop, **extra)
                 xbar, wbars = tiled_backward(
-                    x, w, gx, splits=weight_splits(b * n_pad, d, dh),
+                    x, w, gx,
+                    splits=weight_splits(b * n_pad, d, dh, dtype=dtype),
                     drop=drop_spec(drop.get("seed"),
                                    drop.get("drops", (0.0, 0.0, 0.0))),
                     g_jas=extra.get("g_jas"), jas_idx=extra.get("jas_idx"),
@@ -2093,7 +2140,7 @@ def phase_distill_r4_kernel_timing(model, images_u8, drops=None):
         calls_mlp = b * n_real * (c4(dh) + c4(d)) if drops else 0
         calls_attn = (b * n_real * (c4(d) + heads * c4(n_real))
                       if drops else 0)
-        splits = weight_splits(b * n_pad, d, dh)
+        splits = weight_splits(b * n_pad, d, dh, dtype=torch.bfloat16)
 
         def tiled(pl):
             if pl:
@@ -3663,6 +3710,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
         torch.cuda.reset_peak_memory_stats()
         if path == "kernels":
             reset_launch_counts()
+            wgrad0 = wgrad_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -3673,6 +3721,8 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
+        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
+                 else None)
         peak = torch.cuda.max_memory_allocated() / 1e9
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state.optimizer.zero_grad(set_to_none=True)
@@ -3695,7 +3745,8 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
             "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
-            "launches": launches, "first_grad": first_grad}
+            "launches": launches, "wgrad_launches": wgrad,
+            "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
     cos = torch.nn.functional.cosine_similarity(
@@ -3723,7 +3774,7 @@ def phase_macaron_train(images_u8, labels):
          min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("macaron_train", runs, cos, loss_rel, per_step,
-                {"macaron_eval": 48, "macaron_bwd": 48})
+                {"macaron_eval": 48, "macaron_bwd": 48}, bf16=False)
     return k["launches"]
 
 
@@ -4044,6 +4095,223 @@ def phase_tf32_gemm_vs_plain():
     return cell
 
 
+# The bf16 weight products of the training cells' backwards, W_bar = A^T G
+# (A [R, M], G [R, N]): R and the (M, N) of each launch's problems. CIFAR
+# and its Macaron at B=1024 x 80 rows (the Macaron backward's second pass
+# runs the shared FFN over both halves, 2R rows); TS-Base at B=64 x 208
+# (224 px; the ratio-4 student's split halves) and x 592 (384 px).
+WGRAD_SHAPES = {
+    "cifar": (BATCH * 80, ((192, 576), (192, 192), (192, 768), (768, 192))),
+    "tsbase224": (64 * 208, ((768, 2304), (768, 768), (768, 768),
+                             (768, 768))),
+    "r4_attn": (64 * 208, ((768, 2304), (768, 768))),
+    "r4_mlp": (64 * 208, ((768, 3072), (3072, 768))),
+    "tsbase384": (64 * 592, ((768, 2304), (768, 768), (768, 768),
+                             (768, 768))),
+    "macaron_attn": (BATCH * 80, ((192, 576), (192, 192))),
+    "macaron_ffn": (2 * BATCH * 80, ((192, 768), (768, 192))),
+}
+# Ragged shapes, checked but neither timed against a gate nor in the
+# kernels line: rows that end inside a stage (one image of the CIFAR
+# cell, 80 rows; 1,100 rows in two slices, the second ending mid-stage),
+# M and N below, between and past the tiles' edges, so the TMA zero fill,
+# boxes wholly out of range and the masked epilogue all run
+WGRAD_RAGGED = {
+    "ragged_r80": (80, ((192, 576), (192, 192), (192, 768), (768, 192))),
+    "ragged_r1100": (1100, ((48, 80), (16, 48), (208, 336), (64, 192))),
+}
+WGRAD_KERNEL = "vfb_wgrad_wgmma"
+OLD_WGRAD = "vfb_wgrad_bf16"     # the WMMA kernel it replaced
+# bf16 products are exact in f32: only the f32 sums over up to 163,840
+# rows err (fresh accumulators every 512 rows); sound runs read below
+# 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
+# (64 / 81,920 of the sum) would read about 8e-4
+TOL_WGRAD = 1e-5
+MIN_WGRAD_RATE = 150e12
+WGRAD_RATE_SHAPES = ("tsbase224", "tsbase384")
+
+
+def wgrad_operands(rows, shapes, g, dtype):
+    """Seeded (A, G) pairs: N(0.5, 1) and N(0.25, 1), so that the sums
+    over rows drift as the backward's do (GELU outputs are biased)."""
+    import torch
+    return [((torch.randn(rows, m, generator=g, device="cuda") + 0.5)
+             .to(dtype),
+             (torch.randn(rows, n, generator=g, device="cuda") + 0.25)
+             .to(dtype)) for m, n in shapes]
+
+
+def wgrad_case(label, rows, shapes, pairs, splits, dtype_tol):
+    """One shape's weight products through ``weight_bars``: against a
+    float64 product (relative to max|ref|) and the plain version, twice
+    (bit-identical?), with the card's NaN in one row of each operand, and
+    timed: the call, its kernels per launch by profiler, the plain
+    version and ``torch.matmul`` per product (its library call). The
+    report's ``launches`` is the C counter's count over the checked calls
+    (two, and the NaN run). Returns (report, gates)."""
+    import torch
+    from odevit_tpu_torch.kernels.wgrad import weight_bars, weight_bars_plain
+    run = lambda: weight_bars(pairs, splits)
+    counted = wgrad_launches()
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    max_abs = max((x - y).abs().max().item()
+                  for x, y in zip(got, weight_bars_plain(pairs)))
+    rel = 0.0
+    for (a, b), x in zip(pairs, got):
+        ref = a.double().T @ b.double()
+        rel = max(rel, ((x.double() - ref).abs().max()
+                        / ref.abs().max()).item())
+    del got, again, ref
+    # the card's NaN (every mantissa bit set) at A[ra, 7] and G[rg, 11]:
+    # exactly row 7 and column 11 of each W_bar
+    ra, rg = rows // 3, rows - 1
+    nan_bits = 0x7FFF if pairs[0][0].dtype == torch.bfloat16 else 0x7FFFFFFF
+    kept = [(a[ra, 7].clone(), b[rg, 11].clone()) for a, b in pairs]
+    ints = torch.int16 if nan_bits == 0x7FFF else torch.int32
+    for a, b in pairs:
+        a.view(ints)[ra, 7] = nan_bits
+        b.view(ints)[rg, 11] = nan_bits
+    nan_ok = True
+    for x in run():
+        want = torch.zeros(x.shape, dtype=torch.bool, device="cuda")
+        want[7] = want[:, 11] = True
+        nan_ok = nan_ok and torch.equal(torch.isnan(x), want)
+    for (a, b), (va, vb) in zip(pairs, kept):
+        a[ra, 7], b[rg, 11] = va, vb
+    counted = wgrad_launches() - counted
+    ms = cuda_ms(run, iters=10)
+    parts = kernel_parts(run)
+    kname = next((k for k in parts if "vfb_reduce" not in k), None)
+    kernel_ms = parts[kname]["ms_per_launch"] if kname else None
+    reduce_ms = next((v["ms_per_launch"] for k, v in parts.items()
+                      if "vfb_reduce" in k), None)
+    lib_ms = cuda_ms(lambda: [torch.matmul(a.T, b) for a, b in pairs],
+                     iters=10)
+    plain_ms = cuda_ms(lambda: weight_bars_plain(pairs), iters=3)
+    flops = sum(2.0 * rows * m * n for m, n in shapes)
+    size = pairs[0][0].element_size()
+    nbytes = sum(size * rows * (m + n) + 4.0 * m * n for m, n in shapes)
+    if size == 2:
+        bound_ms, bound_by = _bound(flops, nbytes)
+    else:
+        t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound_ms, bound_by = max((tf32_floor_ms(flops), "operations"),
+                                 (t_mem, "bytes"))
+    report = {
+        "rows": rows, "problems": [list(mn) for mn in shapes],
+        "splits": splits, "launches": counted, "rel_err": rel,
+        "max_abs_err": max_abs,
+        "repeats_identical": same, "nan_in_its_row_and_column": nan_ok,
+        "kernel": kname, "kernel_ms": kernel_ms, "reduce_ms": reduce_ms,
+        "ms": ms, "gflop": flops / 1e9,
+        "tflops": flops / (kernel_ms or ms) / 1e9,
+        "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
+        "library": "torch.matmul(a.T, g) per product (bf16 out)"
+                   if size == 2 else "torch.matmul(a.T, g) per product, "
+                                     "full f32"}
+    gates = [(rel <= dtype_tol, f"wgrad {label}: rel err {rel}"),
+             (same, f"wgrad {label}: repeats differ"),
+             (nan_ok, f"wgrad {label}: NaN in A's column 7 and G's column "
+                      f"11 gave other NaNs")]
+    return report, gates
+
+
+def wgrad_splits_agree() -> dict:
+    """``weight_splits`` (bf16) against the C rule it copies
+    (``vfb_wgrad_splits``) over rows, widths and the problem sets of the
+    combined backward and of the split halves."""
+    import ctypes
+    import torch
+    from odevit_tpu_torch.kernels import build
+    from odevit_tpu_torch.kernels.vector_field_bwd import weight_splits
+    fn = build.load("vector_field_bwd").vfb_wgrad_splits
+    ip = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ip, ip]
+    fn.restype = ctypes.c_int
+    differ, n = [], 0
+    for rows in (300, 512, 1100, 4096, 13312, 37888, 81920, 163840):
+        for d in (64, 192, 384, 512, 768, 1024):
+            for dh in (d, 2 * d, 4 * d):
+                for shapes in (((d, 3 * d), (d, d), (d, dh), (dh, d)),
+                               ((d, dh), (dh, d)), ((d, 3 * d), (d, d))):
+                    ms = (ctypes.c_int * 4)(*[m for m, _ in shapes])
+                    ns = (ctypes.c_int * 4)(*[k for _, k in shapes])
+                    want = weight_splits(rows, d, dh, shapes,
+                                         dtype=torch.bfloat16)
+                    got = fn(rows, len(shapes), ms, ns)
+                    n += 1
+                    if got != want:
+                        differ.append((rows, shapes, want, got))
+    return {"shapes": n, "differ": differ}
+
+
+def phase_wgrad_vs_plain():
+    """The bf16 weight product of every backward (``vfb_wgrad_wgmma``)
+    alone through ``kernels/wgrad.py`` at each training cell's shape
+    (``WGRAD_SHAPES``, the main paths' splits) and at ragged ones
+    (``WGRAD_RAGGED``): within ``TOL_WGRAD`` of max|ref| of a float64
+    product, repeats bit-identical, the card's NaN reaching exactly its row
+    and column, timed per launch beside ``torch.matmul`` on the same
+    operands, at least 150 TFLOP/s at the TS-Base shapes, no spills;
+    ``vfb_wgrad_f32`` once at the 224 px shape in f32. Returns the cells'
+    cases."""
+    import torch
+    from odevit_tpu_torch.kernels import build, launch_counts
+    from odevit_tpu_torch.kernels.macaron_bwd import wgrad_splits
+    from odevit_tpu_torch.kernels.vector_field_bwd import weight_splits
+    from odevit_tpu_torch.kernels.wgrad import LIBRARIES
+    before = dict(launch_counts)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    mac_splits = wgrad_splits(torch.bfloat16, BATCH * 80, 192, 768)
+    cases, ragged, gates = {}, {}, []
+    for label, (rows, shapes) in {**WGRAD_SHAPES, **WGRAD_RAGGED}.items():
+        pairs = wgrad_operands(rows, shapes, g, torch.bfloat16)
+        splits = (mac_splits if label.startswith("macaron")
+                  else weight_splits(rows, 0, 0, shapes,
+                                     dtype=torch.bfloat16))
+        into = ragged if label in WGRAD_RAGGED else cases
+        into[label], found = wgrad_case(label, rows, shapes, pairs, splits,
+                                        TOL_WGRAD)
+        gates += found
+        del pairs
+        torch.cuda.empty_cache()
+    for label in WGRAD_RATE_SHAPES:
+        rate = cases[label]["tflops"] * 1e12
+        gates.append((rate >= MIN_WGRAD_RATE,
+                      f"wgrad {label}: {rate / 1e12:.1f} TFLOP/s"))
+    # vfb_wgrad_f32 (CUDA cores), once, at the 224 px shape in f32
+    rows, shapes = WGRAD_SHAPES["tsbase224"]
+    pairs = wgrad_operands(rows, shapes, g, torch.float32)
+    f32, found = wgrad_case("tsbase224 f32", rows, shapes, pairs,
+                            weight_splits(rows, 0, 0, shapes,
+                                          dtype=torch.float32),
+                            TOL_F32)
+    gates += found
+    del pairs
+    splits_agree = wgrad_splits_agree()
+    gates.append((not splits_agree["differ"], f"wgrad splits: Python and "
+                  f"C differ at {splits_agree['differ'][:5]}"))
+    resources = {lib: kernel_resources(lib, (WGRAD_KERNEL, OLD_WGRAD))
+                 for lib in LIBRARIES if lib in build.build_logs}
+    for lib, res in resources.items():
+        gates.append((bool(res), f"{lib}: no -Xptxas -v lines for the "
+                                  f"weight-product kernel"))
+        gates += [(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                   f"{lib} {name}: spills {r}") for name, r in res.items()]
+    launch_counts.update(before)           # comparisons do not count
+    emit("wgrad_vs_plain", tol=TOL_WGRAD, min_rate=MIN_WGRAD_RATE,
+         rate_shapes=WGRAD_RATE_SHAPES, peak_bf16_flops=PEAK_BF16_FLOPS,
+         operands="A ~ N(0.5, 1), G ~ N(0.25, 1), bf16", cases=cases,
+         ragged=ragged, f32_tsbase224=f32, splits_agree=splits_agree,
+         resources=resources)
+    for ok, what in gates:
+        check(ok, what)
+    return cases
+
+
 def phase_macaron224_kernels_vs_plain():
     """The tiled route at B=4 and the cells' shape (197 tokens padded to
     208, D=768, 12 heads, dh=1536): each mode and the 16 cotangents
@@ -4079,7 +4347,7 @@ def phase_macaron224_train(images_u8, labels):
          min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("macaron224_train", runs, cos, loss_rel, per_step,
-                MAC224_LAUNCHES)
+                MAC224_LAUNCHES, bf16=False)
     return k["launches"]
 
 
@@ -5001,7 +5269,7 @@ def phase_long_train(images_u8, labels):
          check_launches_per_step=per_step, check_results=runs,
          check_profile=profile, img_per_s=full["img_per_s_best_of_2_3"],
          **full)
-    return full["launches"]
+    return full["launches"], runs["kernels"]["wgrad_launches"]
 
 
 def phase_long_serving(rng):
@@ -5240,7 +5508,6 @@ def phase_long_kernel_timing(model, images_u8):
     return out
 
 
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5253,6 +5520,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_card()
+    wgrad = phase_wgrad_vs_plain()
     models = {
         "euler-49": ViTODE(**SHAPE, num_eval_steps=49, solver="euler",
                            dtype=torch.bfloat16, device="cuda", seed=0),
@@ -5357,7 +5625,7 @@ def main() -> int:
     # served
     del euler25, students
     long_checked = phase_long_kernels_vs_plain()
-    long_train = phase_long_train(images_d, labels_d)
+    long_train, long_train_wgrad = phase_long_train(images_d, labels_d)
     long_serve, long_model = phase_long_serving(np.random.default_rng(3))
     long_timing = phase_long_kernel_timing(long_model, images_d)
     del long_model
@@ -5588,7 +5856,42 @@ def main() -> int:
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "bound_unit", "library_ms", "parts",
                         "pair")}})
-    check(len(kernels) == 41 + len(long_timing),
+    # the weight products at each cell's shape: launches on that cell's
+    # training path (3 kernel steps, the C counter), else in this phase
+    wgrad_paths = {
+        "cifar": ("cifar100-vitode-train-b1024-bf16",
+                  train["kernels"]["wgrad_launches"]),
+        "tsbase224": ("tsref-distill-b64-bf16",
+                      distill["kernels"]["wgrad_launches"]),
+        "r4_attn": ("tsbase-r4-distill-b64-bf16",
+                    r4_runs["kernels"]["wgrad_launches"] // 2),
+        "r4_mlp": ("tsbase-r4-distill-b64-bf16",
+                   r4_runs["kernels"]["wgrad_launches"] // 2),
+        "tsbase384": (LONG_TRAIN_CELL + " (B=8)",
+                      long_train_wgrad)}
+    for label, case in wgrad.items():
+        # the bf16 Macaron backward is on no training path (the Macaron
+        # cells run f32 states): the launches counted over the phase's
+        # checked calls
+        path, launches = wgrad_paths.get(
+            label, ("wgrad_vs_plain", case["launches"]))
+        kernels.append({
+            "name": f"{WGRAD_KERNEL}_{label}", "route": "cuda",
+            "source": "odevit_tpu_torch/csrc/vector_field_bwd.cu",
+            "replaces": ("odevit_tpu/kernels/macaron.py:278"
+                         if label.startswith("macaron") else
+                         "odevit_tpu/kernels/vector_field_bwd.py:409"
+                         if label == "r4_mlp" else
+                         "odevit_tpu/kernels/vector_field_bwd.py:548"
+                         if label == "r4_attn" else
+                         "odevit_tpu/kernels/vector_field_bwd.py:214"),
+            "launches": launches, "launches_of": path,
+            "max_abs_err": case["max_abs_err"], "rel_err": case["rel_err"],
+            "ms": case["kernel_ms"] or case["ms"],
+            "call_ms": case["ms"], "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+            "tflops": case["tflops"], "library_ms": case["library_ms"]})
+    check(len(kernels) == 41 + len(long_timing) + len(WGRAD_SHAPES),
           f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -51,7 +51,7 @@
 //     go to a global workspace; the column sums (the six LayerNorm
 //     vectors, the four biases) and rs_bar go to per-image partials, each
 //     summed over rows in a fixed order.
-//  2. vfb_wgrad_bf16 (vector_field_bwd.cu; in f32 mcb_wgrad_f32), twice:
+//  2. vfb_wgrad_wgmma (vector_field_bwd.cu; in f32 mcb_wgrad_f32), twice:
 //     Wqkv_bar = z2^T qkv_bar and
 //     Wout_bar = ctx^T aod over the B*n_pad rows; the shared FFN's
 //     W1_bar = [z1; z3]^T [h1_bar_1; h1_bar_3] and W2_bar = [h_1; h_3]^T
@@ -965,7 +965,7 @@ __global__ void __launch_bounds__(kThreads, 1) mcb_rows_f32(McbArgs a) {
 }
 
 // ---- the f32 weight products: mcb_wgrad_f32 ----
-// W_bar = A^T G of vfb_wgrad_bf16 in f32, as split TF32 in three passes:
+// W_bar = A^T G of vfb_wgrad_wgmma in f32, as split TF32 in three passes:
 // blockIdx.x a 128 x 64 output tile of one problem, blockIdx.y a slice of
 // rows; each CTA writes its own partial tile. 8 warps, 32 x 32 each. Rows
 // come in chunks of kRowStep through a ring of two slots by 16-byte
@@ -1104,10 +1104,12 @@ mcb_wgrad_f32(Problems ps, float* wpart) {
     }
 }
 
-// Launches mcb_wgrad_f32 over the problems of `ps` (unused entries m = 0)
-// and `splits` slices of rows; returns the first CUDA error, else 0.
-inline int wgrad_f32(const Problems& ps, float* wpart, int splits,
+// Launches mcb_wgrad_f32 over the problems of `ps` (unused entries m = 0;
+// ps.rows set) and `splits` slices of rows; returns the first CUDA error,
+// else 0.
+inline int wgrad_f32(Problems ps, float* wpart, int splits,
                      cudaStream_t st) {
+  ps.rows_per_split = slice_rows(ps.rows, splits, kRowStep);
   int ntiles = 0;
   for (const Problem& p : ps.p)
     if (p.m > 0) ntiles += wg_tiles(p);
@@ -1145,20 +1147,9 @@ int launch(const McbArgs& a, cudaStream_t st) {
     }
     ps.total = wtotal;
     ps.rows = (int)(pass == 0 ? rows : 2 * rows);
-    ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
-    ps.rows_per_split =
-        (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-    if (sizeof(T) == 2) {
-      int ntiles = 0;
-      for (int i = 0; i < 2; ++i)
-        ntiles += ((ps.p[i].m + kTile - 1) / kTile) *
-                  ((ps.p[i].n + kTile - 1) / kTile);
-      vfb_wgrad_bf16<<<dim3(ntiles, a.splits), kWThreads, 0, st>>>(ps,
-                                                                  a.wpart);
-      err = cudaGetLastError();
-    } else {
-      err = (cudaError_t)wgrad_f32(ps, a.wpart, a.splits, st);
-    }
+    err = (cudaError_t)(sizeof(T) == 2
+                            ? wgrad_bf16(ps, a.wpart, a.splits, st)
+                            : wgrad_f32(ps, a.wpart, a.splits, st));
     if (err != cudaSuccess) return (int)err;
   }
   const int nlen = np_offsets(d, dh).total;

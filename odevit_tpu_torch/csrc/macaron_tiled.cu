@@ -63,7 +63,7 @@
 //   mct_stage 0   LN1's backward (x read as zeros on padded rows), b1's
 //                 partial, x_bar = round(x_bar), rs_bar = 1/2 sum(x3_bar
 //                 f3) + sum(x2_bar ao) + 1/2 sum(x1_bar f1);
-//   vfb_wgrad_bf16 or mcb_wgrad_f32, twice: Wqkv_bar = z2^T qkv_bar and
+//   vfb_wgrad_wgmma or mcb_wgrad_f32, twice: Wqkv_bar = z2^T qkv_bar and
 //                 Wout_bar = ctx^T aod over the B n_pad rows; the shared
 //                 FFN's W1_bar = [z1; z3]^T [h1_bar_1; h1_bar_3] and W2_bar
 //                 = [h_1; h_3]^T [ob_1; ob_3] over both halves' rows
@@ -451,20 +451,8 @@ int backward(const MctArgs& a, cudaStream_t st) {
     }
     ps.total = wtotal;
     ps.rows = (int)(pass == 0 ? R : 2 * R);
-    ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
-    ps.rows_per_split =
-        (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-    if (sizeof(T) == 2) {
-      int ntiles = 0;
-      for (int i = 0; i < 2; ++i)
-        ntiles += ((ps.p[i].m + kTile - 1) / kTile) *
-                  ((ps.p[i].n + kTile - 1) / kTile);
-      vfb_wgrad_bf16<<<dim3(ntiles, a.splits), kWThreads, 0, st>>>(ps,
-                                                                  a.wpart);
-      VFT_CHECK((int)cudaGetLastError());
-    } else {
-      VFT_CHECK(macb::wgrad_f32(ps, a.wpart, a.splits, st));
-    }
+    VFT_CHECK(sizeof(T) == 2 ? wgrad_bf16(ps, a.wpart, a.splits, st)
+                             : macb::wgrad_f32(ps, a.wpart, a.splits, st));
   }
   const int nlen = macb::np_offsets(d, dh).total;
   const size_t all = wtotal + (size_t)nlen;

@@ -76,18 +76,22 @@
 //     backward head by head, x_bar and the image's norm partial sums. It
 //     writes the operands of the weight products (cn_m, cn_a, gd, ctx, h,
 //     h1_bar, [q_bar k_bar v_bar]) to global scratch in x's dtype.
-//  2. vfb_wgrad: the four weight cotangents as A^T G products over all
-//     B*n_pad rows. The TPU accumulates them with += across its sequential
-//     grid; here CTAs run in parallel, so each CTA sums one 64x64 output
-//     tile over one fixed slice of rows into its own partial buffer.
+//  2. vfb_wgrad_wgmma (f32: vfb_wgrad_f32): the four weight cotangents
+//     as A^T G products over all B*n_pad rows. The TPU accumulates them
+//     with += across its sequential grid; here CTAs run in parallel, so
+//     each CTA sums one output tile over one fixed slice of rows into its
+//     own partial buffer (bf16: wgmma fed by a TMA ring, below).
 //  3. vfb_reduce: sums the partials (and the per-image norm partials) in
 //     a fixed order. Two runs give bit-identical cotangents.
-// Products are the repo's own WMMA code (the helpers of vector_field.cu);
-// nothing goes to a library. Not yet done: wgmma/TMA, keeping the weight products' A and
-// G operands on chip.
+// Products are the repo's own code (WMMA helpers of vector_field.cu,
+// wgmma and TMA here); nothing goes to a library. Not yet done: keeping
+// the weight products' A and G operands on chip.
 
 #define VF_HELPERS_ONLY
 #include "vector_field.cu"
+#include "split_tf32.cuh"
+
+#include <cuda.h>
 
 using namespace vf;
 
@@ -609,62 +613,350 @@ struct Problems {
   size_t total;  // floats of one split's partial buffer
 };
 
-__device__ inline int tiles(int m) { return (m + kTile - 1) / kTile; }
+__host__ __device__ inline int tiles(int m) {
+  return (m + kTile - 1) / kTile;
+}
 
-// blockIdx.x: a 64x64 output tile of one problem; blockIdx.y: a slice of
-// rows. Each CTA writes its own partial tile; nothing is shared.
-__global__ void __launch_bounds__(kWThreads)
-vfb_wgrad_bf16(Problems ps, float* wpart) {
-  __shared__ __align__(128) bf16 as[kRowStep][kTile + 8];
-  __shared__ __align__(128) bf16 gs[kRowStep][kTile + 8];
+// ---- the bf16 weight products: vfb_wgrad_wgmma ----
+// Replaces the weight accumulation of the TPU kernels: _vf_bwd_kernel's
+// (odevit_tpu/kernels/vector_field_bwd.py:214, :223, :323, :334),
+// _mlp_bwd_kernel's and _attn_bwd_kernel's (:409, :421, :548, :556) and
+// _macaron_bwd_kernel's (odevit_tpu/kernels/macaron.py:278, :285, :336,
+// :373), which the TPU sums with += across its sequential grid. Every
+// bf16 backward of the port runs it: the one-CTA, tiled, key-tiled and
+// split backwards and both Macaron backwards.
+//
+// Bound. Each product is 2 R M N operations on R (M + N) bf16 operands:
+// at the training shapes (R = 13,312 to 163,840 rows, M and N 192 to
+// 3,072) 30 to 270 GFLOP a launch against 0.1 to 0.5 GB, operations
+// bound on the tensor cores (CIFAR, D=192: bytes bound).
+//
+// Design. Both operands are MN-major in device memory (A [R, M] and
+// G [R, N] are contiguous along M and N, not along K = R), which bf16
+// wgmma takes through the transpose bits of its descriptors. Blocks
+// (blockIdx.x) are output tiles of a fixed set, chosen per problem for
+// the fewer padded elements: 128 x 128 (two consumer warpgroups over M;
+// multiples of 128 such as 768, 2,304, 3,072) or 64 x 192 (over N: 128
+// and 64 columns; D = 192 and 576). blockIdx.y is a slice of rows; the
+// slice's tiles launch next to each other, so its rows of A and G are
+// read from L2 while they walk them together. A producer warp keeps a
+// ring of kWbStages stages in flight by TMA: four 64 x 64 boxes (128
+// bytes wide, 128-byte swizzle) of 64 rows each, zeros past the matrix,
+// so ragged M, N and slice ends need no masks. Each consumer warpgroup
+// issues one m64n64k16 wgmma per 64-column atom of its tile (the
+// descriptors never span two swizzle atoms), keeps one stage in flight
+// and frees the one before. The tensor cores do not round their own
+// accumulation to nearest, so every kWbChunk stages (512 rows) start a
+// fresh accumulator, added to an f32 register total. The tile goes out
+// through shared memory, 16 bytes a thread, masked at ragged M and N.
+// Each CTA writes its own partial; vfb_reduce adds them in a fixed
+// order: two runs give the same bits.
+constexpr int kWbRows = 64;        // rows (K) of a stage
+constexpr int kWbBox = 64;         // columns of a box: 128 bytes of bf16
+constexpr int kWbBoxes = 4;        // boxes of a stage
+constexpr int kWbBoxBytes = kWbRows * kWbBox * 2;
+constexpr int kWbStageBytes = kWbBoxes * kWbBoxBytes;
+constexpr int kWbStages = 6;
+constexpr int kWbChunk = 8;        // stages summed on a fresh accumulator
+constexpr int kWbConsumers = 256;  // two consumer warpgroups
+constexpr int kWbThreads = kWbConsumers + 32;  // and the producer warp
+constexpr int kWbLdStage = 136;    // f32 staging row (128 + 8)
+constexpr int kWbMinSlice = 512;   // rows of a slice at least
+constexpr int kWbSms = 132;
+constexpr int kWbSmem =
+    kWbStages * kWbStageBytes + 1024 + 2 * kWbStages * 8;  // + align, barriers
+static_assert(kWbSmem <= 232448, "one CTA's shared memory fits an SM");
+static_assert(2 * 64 * kWbLdStage * 4 <= kWbStages * kWbStageBytes,
+              "the staged tiles fit the ring");
+
+// The tile of a problem: 0 for 128 x 128, 1 for 64 x 192, the one whose
+// tiles cover it with the fewer padded elements (ties to 0).
+inline int wb_kind(int m, int n) {
+  const long long a0 =
+      (long long)((m + 127) / 128) * ((n + 127) / 128) * 128 * 128;
+  const long long a1 =
+      (long long)((m + 63) / 64) * ((n + 191) / 192) * 64 * 192;
+  return a1 < a0 ? 1 : 0;
+}
+
+inline int wb_tiles_n(int n, int kind) {
+  return kind ? (n + 191) / 192 : (n + 127) / 128;
+}
+
+inline int wb_tiles(int m, int n) {
+  const int kind = wb_kind(m, n);
+  return (kind ? (m + 63) / 64 : (m + 127) / 128) * wb_tiles_n(n, kind);
+}
+
+// rows of each of `splits` slices of `rows`, in whole chunks of `step`
+inline int slice_rows(int rows, int splits, int step) {
+  const int r = (rows + splits - 1) / splits;
+  return (r + step - 1) / step * step;
+}
+
+// Slices of `rows`: the fewest whose CTAs (one an SM) fill at least 9/10
+// of the waves they take on kWbSms SMs, each slice at least kWbMinSlice
+// rows in whole stages and none empty; where none does, the fullest.
+// Fixed by the shape, so the order of the sums is;
+// kernels/vector_field_bwd.py::weight_splits copies it.
+inline int wgrad_splits(int rows, const int* ms, const int* ns, int count) {
+  long long all = 0;
+  for (int i = 0; i < count; ++i) all += wb_tiles(ms[i], ns[i]);
+  const int most = imax(1, rows / kWbMinSlice);
+  int best = 1;
+  long long best_ctas = 0, best_room = 1;
+  for (int s = 1; s <= most; ++s) {
+    if ((long long)(s - 1) * slice_rows(rows, s, kWbRows) >= rows) continue;
+    const long long ctas = all * s;
+    const long long room = (ctas + kWbSms - 1) / kWbSms * kWbSms;
+    if (10 * ctas >= 9 * room) return s;
+    if (ctas * best_room > best_ctas * room) {
+      best = s;
+      best_ctas = ctas;
+      best_room = room;
+    }
+  }
+  return best;
+}
+
+struct WbParams {
+  CUtensorMap a[4], g[4];  // A [R, M], G [R, N] of each problem
+  int m[4], n[4], kind[4], tn[4], tiles[4];  // tiles 0: no problem
+  size_t out[4];
+  size_t total;
+  int rows, rows_per_split;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(b))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  const uint32_t a = smem_u32(b);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// the box at column c0, row c1 of `map` into `dst`, completing on `bar`
+__device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
+                                        int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The descriptor of an MN-major box (rows of K, 128 bytes of M or N each,
+// 128-byte swizzle): 8-row groups 1024 bytes apart. An m64 or n64 operand
+// is one swizzle atom wide, so the MN stride is never used; both offset
+// fields hold 1024.
+__device__ __forceinline__ uint64_t wb_desc(const void* box) {
+  const uint64_t a = smem_u32(box);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// d (+)= a b for a 64 x 64 tile, k = 16, both bf16 operands MN-major from
+// shared memory, f32 accumulators: d[4 j + 2 h + e] holds row 16 warp +
+// lane / 4 + 8 h and column 8 j + 2 (lane % 4) + e; accumulate = 0
+// ignores d.
+__device__ __forceinline__ void wgmma_m64n64_mn(float (&d)[32], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One consumer warpgroup's part of a tile: its A box a_box and NB boxes
+// of B from b_box on, over `stages` stages of the ring; then its 64 x 64
+// NB output tile, staged in the ring (once both warpgroups are done with
+// it) and stored 16 bytes a thread at row0, col0 of the m x n problem.
+template <int NB>
+__device__ __forceinline__ void wb_consume(
+    const unsigned char* ring, uint64_t* full, uint64_t* empty, int stages,
+    int a_box, int b_box, float* out, int row0, int col0, int m, int n) {
+  float acc[NB][32], tot[NB][32];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[b][i] = tot[b][i] = 0.0f;
+  int held = -1;  // the slot whose products may still read it
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % kWbStages;
+    mbar_wait(&full[slot], (s / kWbStages) & 1);
+    const unsigned char* st = ring + slot * kWbStageBytes;
+    const uint64_t da = wb_desc(st + a_box * kWbBoxBytes);
+    const uint64_t db = wb_desc(st + b_box * kWbBoxBytes);
+    const int fresh = s % kWbChunk == 0;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWbRows / 16; ++kk) {
+      // 16 rows of 128 bytes further on
+      const uint64_t k_off = (uint64_t)(kk * 16 * 128) >> 4;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        wgmma_m64n64_mn(acc[b], da + k_off,
+                        db + k_off + (uint64_t)(b * (kWbBoxBytes >> 4)),
+                        fresh && kk == 0 ? 0 : 1);
+    }
+    wg_commit();
+    if (s % kWbChunk == kWbChunk - 1 || s == stages - 1) {
+      wg_wait_all();
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(acc[b][i])::"memory");
+      if (held >= 0) mbar_arrive(&empty[held]);
+      mbar_arrive(&empty[slot]);
+      held = -1;
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tot[b][i] += acc[b][i];
+    } else {
+      // the stage before this one is done: free its slot
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (held >= 0) mbar_arrive(&empty[held]);
+      held = slot;
+    }
+  }
+
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int wg = threadIdx.x / 128;
+  float* stage =
+      reinterpret_cast<float*>(const_cast<unsigned char*>(ring)) +
+      wg * 64 * kWbLdStage;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 16 * warp + lane / 4 + 8 * h;
+        const int c = 64 * b + 8 * j + 2 * (lane % 4);
+        *reinterpret_cast<float2*>(&stage[r * kWbLdStage + c]) =
+            make_float2(tot[b][4 * j + 2 * h], tot[b][4 * j + 2 * h + 1]);
+      }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  constexpr int kPerRow = 16 * NB;  // float4s of a staged row
+  for (int i = threadIdx.x % 128; i < 64 * kPerRow; i += 128) {
+    const int r = i / kPerRow, c = (i % kPerRow) * 4;
+    if (row0 + r < m && col0 + c < n)
+      *reinterpret_cast<float4*>(out + (size_t)(row0 + r) * n + col0 + c) =
+          *reinterpret_cast<const float4*>(&stage[r * kWbLdStage + c]);
+  }
+}
+
+// blockIdx.x: an output tile of one problem; blockIdx.y: a slice of rows.
+// Threads 0-255: two consumer warpgroups; 256-287: the producer warp.
+__global__ void __launch_bounds__(kWbThreads, 1)
+vfb_wgrad_wgmma(const __grid_constant__ WbParams p, float* wpart) {
+  extern __shared__ unsigned char wb_smem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wb_smem) + 1023) & ~uintptr_t(1023));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + kWbStages * kWbStageBytes);
+  uint64_t* empty = full + kWbStages;
   int t = blockIdx.x, pi = 0;
-  while (t >= tiles(ps.p[pi].m) * tiles(ps.p[pi].n)) {
-    t -= tiles(ps.p[pi].m) * tiles(ps.p[pi].n);
+  while (t >= p.tiles[pi]) {
+    t -= p.tiles[pi];
     ++pi;
   }
-  const Problem pr = ps.p[pi];
-  const int tn = tiles(pr.n);
-  const int m0 = (t / tn) * kTile, n0 = (t % tn) * kTile;
-  const bf16* a = static_cast<const bf16*>(pr.a);
-  const bf16* g = static_cast<const bf16*>(pr.g);
-  const int r_begin = blockIdx.y * ps.rows_per_split;
-  const int r_end = imin(ps.rows, r_begin + ps.rows_per_split);
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
-  for (int r0 = r_begin; r0 < r_end; r0 += kRowStep) {
-    for (int i = threadIdx.x; i < kRowStep * kTile; i += kWThreads) {
-      const int rr = i / kTile, cc = i % kTile, r = r0 + rr;
-      const bool in = r < r_end;
-      as[rr][cc] = in && m0 + cc < pr.m ? a[(size_t)r * pr.m + m0 + cc]
-                                        : __float2bfloat16_rn(0.0f);
-      gs[rr][cc] = in && n0 + cc < pr.n ? g[(size_t)r * pr.n + n0 + cc]
-                                        : __float2bfloat16_rn(0.0f);
+  const int kind = p.kind[pi];
+  const int m0 = (t / p.tn[pi]) * (kind ? 64 : 128);
+  const int n0 = (t % p.tn[pi]) * (kind ? 192 : 128);
+  const int r_begin = blockIdx.y * p.rows_per_split;
+  const int r_end = imin(p.rows, r_begin + p.rows_per_split);
+  const int stages =
+      r_end > r_begin ? (r_end - r_begin + kWbRows - 1) / kWbRows : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWbStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWbConsumers);
     }
-    __syncthreads();
-    for (int kk = 0; kk < kRowStep; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &as[kk][wm + 16 * i], kTile + 8);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &gs[kk][wn + 16 * j], kTile + 8);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(c[i][j], fa[i], fb[j], c[i][j]);
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float* out = wpart + blockIdx.y * ps.total + pr.out;
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + wm + 16 * i, nn = n0 + wn + 16 * j;
-      if (m < pr.m && nn < pr.n)
-        wmma::store_matrix_sync(out + (size_t)m * pr.n + nn, c[i][j], pr.n,
-                                wmma::mem_row_major);
+  __syncthreads();
+
+  if (threadIdx.x >= kWbConsumers) {
+    // the producer: boxes 0..na-1 of A (columns m0, m0 + 64), the rest of
+    // G (n0, n0 + 64, ...), 64 rows from the stage's first
+    if (threadIdx.x == kWbConsumers) {
+      const int na = kind ? 1 : 2;
+      for (int s = 0; s < stages; ++s) {
+        const int slot = s % kWbStages;
+        if (s >= kWbStages)
+          mbar_wait(&empty[slot], ((s / kWbStages) & 1) ^ 1);
+        mbar_expect_tx(&full[slot], kWbStageBytes);
+        unsigned char* dst = ring + slot * kWbStageBytes;
+        const int row = r_begin + s * kWbRows;
+        for (int i = 0; i < kWbBoxes; ++i)
+          tma_box(dst + i * kWbBoxBytes, i < na ? &p.a[pi] : &p.g[pi],
+                  i < na ? m0 + kWbBox * i : n0 + kWbBox * (i - na), row,
+                  &full[slot]);
+      }
     }
+    return;
+  }
+
+  // the consumers: 128 x 128 takes boxes A(m0), A(m0 + 64), G(n0),
+  // G(n0 + 64), one A box a warpgroup and both of G; 64 x 192 takes A(m0)
+  // and G(n0), G(n0 + 64), G(n0 + 128), the first two for warpgroup 0
+  const int wg = threadIdx.x / 128;
+  float* out = wpart + blockIdx.y * p.total + p.out[pi];
+  if (kind == 0)
+    wb_consume<2>(ring, full, empty, stages, wg, 2, out, m0 + 64 * wg, n0,
+                  p.m[pi], p.n[pi]);
+  else if (wg == 0)
+    wb_consume<2>(ring, full, empty, stages, 0, 1, out, m0, n0, p.m[pi],
+                  p.n[pi]);
+  else
+    wb_consume<1>(ring, full, empty, stages, 0, 3, out, m0, n0 + 128,
+                  p.m[pi], p.n[pi]);
 }
 
 // The f32 version, on the CUDA cores (checks at small shapes).
@@ -711,6 +1003,107 @@ __global__ void vfb_reduce(const float* wpart, int splits, size_t wtotal,
   }
 }
 
+// vfb_wgrad_wgmma launches so far in this library (vfb_wgrad_launches)
+unsigned long long wgrad_launches = 0;
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a [rows, cols] bf16 operand in kWbBox x kWbRows boxes, 128-byte
+// swizzle, zeros outside; false where the driver refuses it
+inline bool encode_operand(CUtensorMap* map, const void* ptr, int rows,
+                           int cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || (reinterpret_cast<uintptr_t>(ptr) & 15)) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {kWbBox, kWbRows};
+  const cuuint32_t steps[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The weight products of ps (its entries with m > 0; ps.rows and ps.total
+// set) over `splits` slices of rows into wpart [splits, ps.total], in bf16
+// on vfb_wgrad_wgmma; returns the first CUDA error, else 0. M and N must
+// be multiples of 16 and the operands 16-byte aligned: anything else
+// returns cudaErrorInvalidValue, nothing else runs.
+inline int wgrad_bf16(const Problems& ps, float* wpart, int splits,
+                      cudaStream_t st) {
+  if (splits < 1 || ps.rows < 1) return (int)cudaErrorInvalidValue;
+  WbParams p = {};
+  int ntiles = 0;
+  for (int i = 0; i < 4; ++i) {
+    const Problem& q = ps.p[i];
+    if (q.m <= 0) continue;
+    if (q.m % 16 || q.n % 16 || !encode_operand(&p.a[i], q.a, ps.rows, q.m) ||
+        !encode_operand(&p.g[i], q.g, ps.rows, q.n))
+      return (int)cudaErrorInvalidValue;
+    p.m[i] = q.m;
+    p.n[i] = q.n;
+    p.kind[i] = wb_kind(q.m, q.n);
+    p.tn[i] = wb_tiles_n(q.n, p.kind[i]);
+    p.tiles[i] = wb_tiles(q.m, q.n);
+    p.out[i] = q.out;
+    ntiles += p.tiles[i];
+  }
+  if (ntiles == 0) return (int)cudaErrorInvalidValue;
+  p.total = ps.total;
+  p.rows = ps.rows;
+  p.rows_per_split = slice_rows(ps.rows, splits, kWbRows);
+  cudaError_t err = cudaFuncSetAttribute(
+      vfb_wgrad_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kWbSmem);
+  if (err != cudaSuccess) return (int)err;
+  vfb_wgrad_wgmma<<<dim3(ntiles, splits), kWbThreads, kWbSmem, st>>>(p,
+                                                                    wpart);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++wgrad_launches;
+  return (int)err;
+}
+
+// The same in f32 on vfb_wgrad_f32 (the one-CTA and tiled backwards; the
+// Macaron backwards take macb::wgrad_f32).
+inline int wgrad_cuda_f32(Problems ps, float* wpart, int splits,
+                          cudaStream_t st) {
+  ps.rows_per_split = slice_rows(ps.rows, splits, kRowStep);
+  int ntiles = 0;
+  for (const Problem& p : ps.p)
+    if (p.m > 0) ntiles += tiles(p.m) * tiles(p.n);
+  vfb_wgrad_f32<<<dim3(ntiles, splits), kWThreads, 0, st>>>(ps, wpart);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgrad(const Problems& ps, float* wpart, int splits, cudaStream_t st) {
+  return sizeof(T) == 2 ? wgrad_bf16(ps, wpart, splits, st)
+                        : wgrad_cuda_f32(ps, wpart, splits, st);
+}
+
 bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
   return heads > 0 && d % heads == 0 && d % 16 == 0 && (d / heads) % 16 == 0 &&
          dh % 16 == 0 && n_pad % 16 == 0 && n_pad > 0 &&
@@ -737,24 +1130,16 @@ int launch(const Args& a, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
 
   const int d = a.d, dh = a.dh;
-  Problems ps;
+  Problems ps = {};
   ps.p[0] = {a.cna, a.qkvb, d, 3 * d, 0};
+  // Wout_bar = ctx^T gd of the attention branch: with dropout its gd is
+  // gd2 = round(g scaler mask_ao), not the MLP branch's gd
   ps.p[1] = {a.ctx, drop ? a.gd2 : a.gd, d, d, (size_t)3 * d * d};
   ps.p[2] = {a.cnm, a.h1b, d, dh, (size_t)4 * d * d};
   ps.p[3] = {a.h, a.gd, dh, d, (size_t)4 * d * d + (size_t)d * dh};
   ps.total = (size_t)4 * d * d + (size_t)2 * d * dh;
   ps.rows = a.batch * a.n_pad;
-  ps.rows_per_split = (ps.rows + a.splits - 1) / a.splits;
-  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-  int ntiles = 0;
-  for (const Problem& p : ps.p)
-    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
-  const dim3 grid(ntiles, a.splits);
-  if (sizeof(T) == 2)
-    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
-  else
-    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, a.wpart);
-  err = cudaGetLastError();
+  err = (cudaError_t)wgrad<T>(ps, a.wpart, a.splits, st);
   if (err != cudaSuccess) return (int)err;
 
   const int nlen = (l2 ? 8 : 4) * d;
@@ -766,9 +1151,24 @@ int launch(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
+// In every library that includes this file: the bf16 weight-product
+// kernel's launches so far.
+extern "C" unsigned long long vfb_wgrad_launches() { return wgrad_launches; }
+
 // vector_field_tiled.cu includes this file with VFB_KERNELS_ONLY for its
 // weight products and reduce; it has entry points of its own.
 #ifndef VFB_KERNELS_ONLY
+
+// Up to four weight products W_bar[M, N] = A[R, M]^T G[R, N] on their own
+// (kernels/wgrad.py), for checks and timing.
+struct WgradArgs {
+  const void* a[4];
+  const void* g[4];
+  int m[4], n[4];
+  int count, rows, splits;
+  float* wpart;  // [splits, sum of M N]
+  float* out;    // [sum of M N]: the products in order, row-major
+};
 
 extern "C" {
 
@@ -806,6 +1206,35 @@ int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 int vfb_launch(int tbytes, const Args* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? launch<bf16>(*args, st) : launch<float>(*args, st);
+}
+
+// The products of *w (x's element size `tbytes`: 2 runs vfb_wgrad_wgmma,
+// 4 vfb_wgrad_f32) and the fixed-order reduce of their partials into
+// w->out; returns as vfb_launch.
+int vfb_weight_bars(int tbytes, const WgradArgs* w, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (w->count < 1 || w->count > 4 || w->splits < 1 || w->rows < 1)
+    return (int)cudaErrorInvalidValue;
+  Problems ps = {};
+  size_t off = 0;
+  for (int i = 0; i < w->count; ++i) {
+    ps.p[i] = {w->a[i], w->g[i], w->m[i], w->n[i], off};
+    off += (size_t)w->m[i] * w->n[i];
+  }
+  ps.total = off;
+  ps.rows = w->rows;
+  const int err = tbytes == 2 ? wgrad<bf16>(ps, w->wpart, w->splits, st)
+                              : wgrad<float>(ps, w->wpart, w->splits, st);
+  if (err) return err;
+  vfb_reduce<<<(unsigned)((off + 255) / 256), 256, 0, st>>>(
+      w->wpart, w->splits, off, nullptr, 0, 0, w->out);
+  return (int)cudaGetLastError();
+}
+
+// wgrad_splits: the slices of `rows` vfb_wgrad_wgmma's launcher would
+// be given for the `count` problems (ms[i] x ns[i]) by the Python copy.
+int vfb_wgrad_splits(int rows, int count, const int* ms, const int* ns) {
+  return wgrad_splits(rows, ms, ns, count);
 }
 
 const char* vfb_error_string(int code) {

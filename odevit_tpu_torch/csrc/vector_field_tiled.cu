@@ -3108,23 +3108,13 @@ int forward(const TiledArgs& t, cudaStream_t st) {
 template <typename T>
 int weight_bars(Problems ps, int count, const TiledArgs& t, int nlen,
                 cudaStream_t st) {
-  const int R = t.batch * t.n_pad;
   ps.total = 0;
-  int ntiles = 0;
-  for (int i = 0; i < count; ++i) {
-    const Problem& p = ps.p[i];
-    ps.total += (size_t)p.m * p.n;
-    ntiles += ((p.m + kTile - 1) / kTile) * ((p.n + kTile - 1) / kTile);
+  for (int i = 0; i < 4; ++i) {
+    if (i >= count) ps.p[i] = {};
+    ps.total += (size_t)ps.p[i].m * ps.p[i].n;
   }
-  ps.rows = R;
-  ps.rows_per_split = (R + t.splits - 1) / t.splits;
-  ps.rows_per_split = (ps.rows_per_split + kRowStep - 1) / kRowStep * kRowStep;
-  const dim3 grid(ntiles, t.splits);
-  if (sizeof(T) == 2)
-    vfb_wgrad_bf16<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
-  else
-    vfb_wgrad_f32<<<grid, kWThreads, 0, st>>>(ps, t.wpart);
-  VFT_CHECK((int)cudaGetLastError());
+  ps.rows = t.batch * t.n_pad;
+  VFT_CHECK(wgrad<T>(ps, t.wpart, t.splits, st));
   const size_t all = ps.total + (size_t)nlen;
   vfb_reduce<<<(unsigned)((all + 255) / 256), 256, 0, st>>>(
       t.wpart, t.splits, ps.total, t.npart, t.batch, nlen, t.wbars);
@@ -3198,7 +3188,7 @@ int backward(const TiledArgs& t, cudaStream_t st) {
 
   // the weight cotangents: split-K products, then a fixed-order reduce
   // (the kernels of vector_field_bwd.cu)
-  Problems ps;
+  Problems ps = {};
   ps.p[0] = {t.cna, t.qkvb, d, 3 * d, 0};
   ps.p[1] = {t.ctx, gda, d, d, (size_t)3 * d * d};
   ps.p[2] = {t.cnm, t.h1b, d, dh, (size_t)4 * d * d};

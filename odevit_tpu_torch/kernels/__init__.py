@@ -51,7 +51,10 @@ launch_counts: Dict[str, int] = {
     "vf_bwd_mlp_resid": 0, "vf_bwd_attn_resid": 0,
     # one f32 product of the tiled route alone (csrc/vector_field_tiled.cu:
     # vft_gemm_tf32, launched by kernels/tf32_gemm.py for checks)
-    "vft_gemm_tf32": 0}
+    "vft_gemm_tf32": 0,
+    # the backwards' weight products alone (csrc/vector_field_bwd.cu,
+    # launched by kernels/wgrad.py for checks): bf16 and f32
+    "vfb_wgrad_wgmma": 0, "vfb_wgrad_f32": 0}
 
 # csrc/vector_field_tiled.cu's kMaxCols: whole-row attention CTAs up to it,
 # key-tiled ones past it

@@ -123,7 +123,7 @@ def wgrad_splits(dtype, rows: int, d: int, dh: int) -> int:
     least 256 rows. Fixed by the shape, so the reduction order, and the
     result, are the same every run."""
     if dtype != torch.float32:
-        return weight_splits(rows, d, dh)
+        return weight_splits(rows, d, dh, dtype=dtype)
     t = lambda m, n: -(-m // 128) * -(-n // 64)
     return max(1, min(math.ceil(4 * _SMS / (t(d, 3 * d) + t(d, d))),
                       rows // 256))

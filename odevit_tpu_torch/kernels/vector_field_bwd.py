@@ -73,8 +73,7 @@ from odevit_tpu_torch.kernels.vector_field import (
     align128, cta_shape_ok, l2_probs, l2_route)
 from odevit_tpu_torch.ops.dot import dot32
 
-# SMs of an H100: the weight products are split over rows so that about
-# four CTAs per SM are in flight
+# SMs of an H100: the weight products are split over rows to fill them
 _SMS = 132
 
 
@@ -412,15 +411,57 @@ def has_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return True
 
 
-def weight_splits(rows: int, d: int, dh: int, shapes=None) -> int:
+# csrc/vector_field_bwd.cu's vfb_wgrad_wgmma: rows of a ring stage, the
+# fewest rows of a slice, and its output tiles (M x N): 128 x 128 or, where
+# it pads less, 64 x 192
+WB_ROWS = 64
+WB_MIN_SLICE = 512
+WB_TILES = ((128, 128), (64, 192))
+
+
+def wgrad_tile(m: int, n: int) -> int:
+    """Which of :data:`WB_TILES` ``vfb_wgrad_wgmma`` takes for an M x N
+    product: the one whose tiles cover it with the fewer padded elements,
+    the first on a tie (``wb_kind``)."""
+    area = [-(-m // tm) * -(-n // tn) * tm * tn for tm, tn in WB_TILES]
+    return 1 if area[1] < area[0] else 0
+
+
+def wgrad_tiles(m: int, n: int) -> int:
+    tm, tn = WB_TILES[wgrad_tile(m, n)]
+    return -(-m // tm) * -(-n // tn)
+
+
+def weight_splits(rows: int, d: int, dh: int, shapes=None, *,
+                  dtype: torch.dtype) -> int:
     """Slices of rows the weight products (``shapes``, default all four)
-    are split into: enough CTAs for about four per SM, each slice at least
-    256 rows. Fixed by the shape, so the reduction order, and the result,
-    are the same every run."""
-    t = lambda m: -(-m // 64)
+    of ``dtype`` operands are split into; fixed by the shape, so the
+    reduction order, and the result, are the same every run.
+
+    bf16 (``vfb_wgrad_wgmma``, ``wgrad_splits`` of csrc/vector_field_bwd.cu):
+    the fewest slices whose CTAs, one an SM, fill at least 9/10 of the
+    waves they take on 132 SMs, each slice at least 512 rows in whole
+    stages of 64 and none empty (where none does, the fullest). f32
+    (``vfb_wgrad_f32``'s 64 x 64 tiles): about four CTAs per SM, each
+    slice at least 256 rows."""
     shapes = shapes or ((d, 3 * d), (d, d), (d, dh), (dh, d))
-    tiles = sum(t(m) * t(n) for m, n in shapes)
-    return max(1, min(math.ceil(4 * _SMS / tiles), rows // 256))
+    if dtype == torch.float32:
+        t = lambda m: -(-m // 64)
+        tiles = sum(t(m) * t(n) for m, n in shapes)
+        return max(1, min(math.ceil(4 * _SMS / tiles), rows // 256))
+    tiles = sum(wgrad_tiles(m, n) for m, n in shapes)
+    best, best_fill = 1, (0, 1)
+    for s in range(1, max(1, rows // WB_MIN_SLICE) + 1):
+        per = -(-(-(-rows // s)) // WB_ROWS) * WB_ROWS
+        if (s - 1) * per >= rows:
+            continue                    # the last slice would be empty
+        ctas = tiles * s
+        room = -(-ctas // _SMS) * _SMS
+        if 10 * ctas >= 9 * room:
+            return s
+        if ctas * best_fill[1] > best_fill[0] * room:
+            best, best_fill = s, (ctas, room)
+    return best
 
 
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
@@ -454,7 +495,7 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
-    splits = weight_splits(rows, d, dh)
+    splits = weight_splits(rows, d, dh, dtype=x.dtype)
     if w.l2 and l2_route(x.dtype, n, n_real, d, num_heads, dh,
                          bwd=True) == "tiled":
         xbar, out = tiled_backward(

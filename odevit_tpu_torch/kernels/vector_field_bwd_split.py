@@ -189,7 +189,7 @@ def vf_bwd_mlp(x, w: VFWeights, g, *, scaler: float, n_real: int,
     b, n, d = x.shape
     dh = w.w1.shape[1]
     rows = b * n
-    splits = weight_splits(rows, d, dh, ((d, dh), (dh, d)))
+    splits = weight_splits(rows, d, dh, ((d, dh), (dh, d)), dtype=x.dtype)
     f32 = lambda *s: torch.empty(*s, device=x.device)
     e = lambda width: torch.empty(rows, width, device=x.device,
                                   dtype=x.dtype)
@@ -230,7 +230,8 @@ def vf_bwd_attn(x, w: VFWeights, g, xbar_m, *, num_heads: int,
     drop = drop_spec(seed, _attn_rates(drops))
     b, n, d = x.shape
     rows = b * n
-    splits = weight_splits(rows, d, 0, ((d, 3 * d), (d, d)))
+    splits = weight_splits(rows, d, 0, ((d, 3 * d), (d, d)),
+                           dtype=x.dtype)
     f32 = lambda *s: torch.empty(*s, device=x.device)
     e = lambda *s: torch.empty(*s, device=x.device, dtype=x.dtype)
     bufs = {"g": g, "g_jas": g_jas, "jas_idx": jas_idx, "g_attn": g_attn,
