@@ -5,13 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases:
   1. card: name and power limit; build of every CUDA source (parallel nvcc);
-     then ``wgrad_vs_plain``: the bf16 weight product of every backward
-     (``vfb_wgrad_wgmma``) alone at each training cell's shape against a
-     float64 product, repeats, NaN rows and columns, spills, its time
-     beside ``torch.matmul``, the Python split rule against the C one, and
-     ``vfb_wgrad_f32`` once; every training phase below checks by the C
-     counters that each bf16 backward launched it once (twice a Macaron
-     backward) and each f32 backward not at all;
+     then ``wgrad_vs_plain``: the weight products of every backward
+     alone, bf16 (``vfb_wgrad_wgmma``) at each training cell's shape and
+     f32 (``vfb_wgrad_tf32``, split TF32) at the f32 ViTODE backwards',
+     against a float64 product, repeats, NaN rows and columns, spills,
+     their time beside ``torch.matmul``, the Python split rules against
+     the C one; every training phase below checks by the C counters that
+     each bf16 backward launched the bf16 kernel once (twice a Macaron
+     backward), each f32 ViTODE backward the f32 kernel once, and the f32
+     Macaron backwards neither;
   2. kernel vs plain: ``vf_eval`` against ``vf_eval_plain`` at the serving
      shape (B=64, 69 tokens padded to 80, D=192, 3 heads, dh=768), modes
      plain / euler / base, in bf16 and f32, and with garbage and NaN in
@@ -34,6 +36,8 @@ Phases:
      and through the plain path from the same weights; losses and the
      first gradient compared, launches counted, steps timed;
   7. the training kernels alone at B=1024 against their plain versions;
+     then the f32 cell cifar100-vitode-train-b1024-f32: phase 6 with an
+     f32 model, through the kernels and the plain path, profiled;
   8. dropout masks: the generator kernel (``generate_dropout_masks``) at
      B=1024 against the plain generator, bit for bit, for three seeds;
      values, keep rates, and masks that change with seed, site, head and
@@ -59,7 +63,9 @@ Phases:
      supervised, B=64, bf16) through the kernels and through the plain
      path; losses and the first gradient compared, launches counted, the
      step timed and split, one step profiled;
-  14. the tiled kernels alone at B=64 against their plain versions;
+  14. the tiled kernels alone at B=64 against their plain versions; then
+     the f32 cell tsref-distill-b64-f32: phase 13 with an f32 student,
+     through the kernels and the plain path, profiled;
   15. distillation dropout kernels vs plain: the tiled route's dropout
      instances at B=4 in bf16 and f32, forward in its three modes and the
      backward with each cotangent, against their plain versions; maps and
@@ -721,8 +727,8 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    old = [k for k, _, _ in rows if OLD_WGRAD in k]
-    check(not old, f"profiled step ran {OLD_WGRAD}: {old}")
+    old = [k for k, _, _ in rows if any(o in k for o in OLD_WGRADS)]
+    check(not old, f"profiled step ran {OLD_WGRADS}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:80], "ms": ms, "count": c}
@@ -778,8 +784,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
-        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
-                 else None)
+        wgrad = wgrad_since(wgrad0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -820,16 +825,25 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
     return runs, profile, cos, loss_rel, per_step
 
 
-def wgrad_launches() -> int:
-    """The bf16 weight-product kernel's launches so far, by the C counter
-    of every library that compiles it (``kernels/wgrad.py``)."""
+def wgrad_launches() -> dict:
+    """The weight-product kernels' launches so far, by the C counters of
+    every library that compiles them (``kernels/wgrad.py``): {"bf16":
+    ``vfb_wgrad_wgmma``'s, "f32": ``vfb_wgrad_tf32``'s}."""
+    import torch
     from odevit_tpu_torch.kernels.wgrad import wgrad_launches as count
-    return count()
+    return {"bf16": count(torch.bfloat16), "f32": count(torch.float32)}
+
+
+def wgrad_since(before: dict) -> dict:
+    """The launches of each weight-product kernel since ``before`` (a
+    :func:`wgrad_launches`)."""
+    now = wgrad_launches()
+    return {k: now[k] - before[k] for k in now}
 
 
 def wgrad_expected(launches: dict) -> int:
-    """Launches of the bf16 weight-product kernel that the backward
-    launches in ``launches`` make: one per backward (each split half is a
+    """Launches of the weight-product kernel that the backward launches in
+    ``launches`` make: one per backward (each split half is a
     backward of its own; ``vf_bwd_split`` counts the pairs), two per
     Macaron backward (the attention's products, then the shared FFN's
     over both halves)."""
@@ -842,11 +856,13 @@ def wgrad_expected(launches: dict) -> int:
     return n
 
 
-def check_train(name, runs, cos, loss_rel, per_step, want, bf16=True):
+def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
     """The kernel path against the plain path (losses, first gradient),
     its launches per step against ``want``, and the route of its weight
-    products: with ``bf16`` one launch of the weight-product kernel per
-    backward (``wgrad_expected``), else none."""
+    products: one launch per backward (``wgrad_expected``) of the
+    weight-product kernel of ``wgrad`` ("bf16": ``vfb_wgrad_wgmma``,
+    "f32": ``vfb_wgrad_tf32``) and none of the other; ``wgrad=None`` (the
+    f32 Macaron backwards, on ``mcb_wgrad_f32``): none of either."""
     import numpy as np
     k, p = runs["kernels"], runs["plain"]
     check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
@@ -856,7 +872,8 @@ def check_train(name, runs, cos, loss_rel, per_step, want, bf16=True):
     want = {**{n: 0 for n in per_step}, **want}
     check(per_step == want, f"{name}: launches per step {per_step}, "
           f"want {want}")
-    want_w = wgrad_expected(k["launches"]) if bf16 else 0
+    want_w = {kind: wgrad_expected(k["launches"]) if kind == wgrad else 0
+              for kind in ("bf16", "f32")}
     check(k["wgrad_launches"] == want_w, f"{name}: {k['wgrad_launches']} "
           f"weight-product launches, want {want_w}")
 
@@ -874,6 +891,70 @@ def phase_train(images_u8, labels):
     check_train("train", runs, cos, loss_rel, per_step,
                 {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48})
     return runs["kernels"]["launches"], runs
+
+
+# The f32 ViTODE training cells: the recipes train in f32 (the JAX CLI's
+# default dtype; no recipe under configs/ sets inputs.dtype)
+F32_TRAIN_CELL = "cifar100-vitode-train-b1024-f32"
+F32_DISTILL_CELL = "tsref-distill-b64-f32"
+
+
+def phase_train_f32(images_u8, labels):
+    """Cell cifar100-vitode-train-b1024-f32: phase_train's deterministic
+    step (rk4-13, JaSMin k=10, AdamW, B=1024, dropout 0) with an f32
+    model and f32 preprocess, through the kernels and the plain path."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    runs, profile, cos, loss_rel, per_step = train_runs(
+        images_u8, labels, pre=make_preprocess(dtype=torch.float32),
+        model_fn=lambda rates: ViTODE(
+            **SHAPE, num_eval_steps=13, solver="rk4", dtype=torch.float32,
+            device="cuda", seed=0))
+    k, p = runs["kernels"], runs["plain"]
+    emit("train_f32_profile", **profile)
+    emit("train_f32", cell=F32_TRAIN_CELL, batch=BATCH, steps=TRAIN_STEPS,
+         solver="rk4-13", jasmin_k=JASMIN_K, dtype="float32",
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s_best_of_2_3"],
+         plain_img_per_s=p["img_per_s_best_of_2_3"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         device_ms=profile["device_ms"], busy_share=profile["busy_share"],
+         first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         launches_per_step=per_step, results=runs)
+    check_train("train_f32", runs, cos, loss_rel, per_step,
+                {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48},
+                wgrad="f32")
+    return runs
+
+
+def phase_distill_f32(teacher, images_u8, labels):
+    """Cell tsref-distill-b64-f32: phase_distill's step (Euler-36, JaSMin
+    k=2, L1 maps, B=64, 32 px resized on the card, the random ViT-B/16
+    teacher) with an f32 student and f32 preprocess, through the kernels
+    and the plain path."""
+    import torch
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    runs, profile, cos, loss_rel, per_step = distill_runs(
+        teacher, images_u8, labels, dtype=torch.float32,
+        student_fn=lambda drops: ViTODE.base_224(
+            num_classes=100, dtype=torch.float32, device="cuda", seed=0))
+    k, p = runs["kernels"], runs["plain"]
+    emit("distill_f32_profile", **profile)
+    emit("distill_f32", cell=F32_DISTILL_CELL, batch=DISTILL_BATCH,
+         input="uint8 32x32 resized to 224", steps=TRAIN_STEPS,
+         solver="euler-36", jasmin_k=DISTILL_K, dtype="float32",
+         ms_per_step_best_of_2_3=min(k["ms_per_step"][1:]),
+         img_per_s=k["img_per_s"], plain_img_per_s=p["img_per_s"],
+         split_ms=k["split_ms"], peak_mem_gb=k["peak_mem_gb"],
+         device_ms=profile["device_ms"], busy_share=profile["busy_share"],
+         first_grad_cosine=cos, min_cosine=MIN_GRAD_COSINE,
+         loss_rel_diff=loss_rel, tol_loss=TOL_TRAIN_LOSS,
+         launches_per_step=per_step, results=runs)
+    check_train("distill_f32", runs, cos, loss_rel, per_step,
+                DISTILL_LAUNCHES, wgrad="f32")
+    return runs
 
 
 def phase_train_kernel_timing(model, images_u8):
@@ -1419,15 +1500,16 @@ def distill_student(drops=None):
 
 
 def distill_runs(teacher, images_u8, labels, drops=None,
-                 student_fn=None, recipe=None, stash=False):
+                 student_fn=None, recipe=None, stash=False, dtype=None):
     """3 steps through the kernels and through the plain path from the same
     student weights, teacher and batch (with ``drops``, the student's
     dropout rates, and the same rng); then one more step of each split by
     CUDA events into teacher, student forward, backward and optimizer, and
     one profiled step of the kernel path. The student is ``student_fn``'s
     (default the recipe's), the step's settings ``recipe`` (default
-    ``DISTILL_RECIPE``) and ``stash``. Returns (runs, profile,
-    first-gradient cosine, loss differences, launches per step)."""
+    ``DISTILL_RECIPE``) and ``stash``, its images preprocessed to
+    ``dtype`` (default bf16). Returns (runs, profile, first-gradient
+    cosine, loss differences, launches per step)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -1437,7 +1519,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                                               make_optimizer)
     # the recipe's CIFAR images are resized to 224 on the device, as the
     # CLI does (odevit_tpu/cli/classification_ode_distillation.py:73-74)
-    pre = make_preprocess(image_size=224, dtype=torch.bfloat16)
+    pre = make_preprocess(image_size=224, dtype=dtype or torch.bfloat16)
     batch = {"pixel_values": images_u8, "labels": labels}
     recipe = recipe or DISTILL_RECIPE
     student_fn = student_fn or distill_student
@@ -1465,8 +1547,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
-        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
-                 else None)
+        wgrad = wgrad_since(wgrad0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
                  if drops else None)
@@ -3721,8 +3802,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
             if i == 0:
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
-        wgrad = (wgrad_launches() - wgrad0 if path == "kernels"
-                 else None)
+        wgrad = wgrad_since(wgrad0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state.optimizer.zero_grad(set_to_none=True)
@@ -3774,7 +3854,7 @@ def phase_macaron_train(images_u8, labels):
          min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("macaron_train", runs, cos, loss_rel, per_step,
-                {"macaron_eval": 48, "macaron_bwd": 48}, bf16=False)
+                {"macaron_eval": 48, "macaron_bwd": 48}, wgrad=None)
     return k["launches"]
 
 
@@ -4120,14 +4200,24 @@ WGRAD_RAGGED = {
     "ragged_r80": (80, ((192, 576), (192, 192), (192, 768), (768, 192))),
     "ragged_r1100": (1100, ((48, 80), (16, 48), (208, 336), (64, 192))),
 }
+# The f32 ViTODE backwards' weight products (vfb_wgrad_tf32; the f32
+# Macaron backwards take mcb_wgrad_f32): the same shapes in f32.
+WGRAD_F32_SHAPES = ("cifar", "tsbase224", "r4_attn", "r4_mlp", "tsbase384")
 WGRAD_KERNEL = "vfb_wgrad_wgmma"
-OLD_WGRAD = "vfb_wgrad_bf16"     # the WMMA kernel it replaced
+TF32_WGRAD_KERNEL = "vfb_wgrad_tf32"
+# the kernels they replaced: bf16 WMMA tiles, and f32 on the CUDA cores
+OLD_WGRADS = ("vfb_wgrad_bf16", "vfb_wgrad_f32")
 # bf16 products are exact in f32: only the f32 sums over up to 163,840
 # rows err (fresh accumulators every 512 rows); sound runs read below
 # 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
-# (64 / 81,920 of the sum) would read about 8e-4
+# (64 / 81,920 of the sum) would read about 8e-4. Split TF32 keeps about
+# 21 bits of each f32 product (fresh accumulators every 32 rows); a
+# dropped 32-row slice would read about 4e-4 at the CIFAR shape.
 TOL_WGRAD = 1e-5
 MIN_WGRAD_RATE = 150e12
+# f32: TF32 passes (three a product) a second, at least; the CUDA-core
+# kernel it replaced ran 1.9e12
+MIN_TF32_WGRAD_RATE = 100e12
 WGRAD_RATE_SHAPES = ("tsbase224", "tsbase384")
 
 
@@ -4147,11 +4237,13 @@ def wgrad_case(label, rows, shapes, pairs, splits, dtype_tol):
     (bit-identical?), with the card's NaN in one row of each operand, and
     timed: the call, its kernels per launch by profiler, the plain
     version and ``torch.matmul`` per product (its library call). The
-    report's ``launches`` is the C counter's count over the checked calls
-    (two, and the NaN run). Returns (report, gates)."""
+    report's ``launches`` is the C counter's count of the operands'
+    kernel over the checked calls (two, and the NaN run); f32 also gives
+    the rate of TF32 passes. Returns (report, gates)."""
     import torch
     from odevit_tpu_torch.kernels.wgrad import weight_bars, weight_bars_plain
     run = lambda: weight_bars(pairs, splits)
+    kind = "bf16" if pairs[0][0].dtype == torch.bfloat16 else "f32"
     counted = wgrad_launches()
     got, again = run(), run()
     torch.cuda.synchronize()
@@ -4180,7 +4272,7 @@ def wgrad_case(label, rows, shapes, pairs, splits, dtype_tol):
         nan_ok = nan_ok and torch.equal(torch.isnan(x), want)
     for (a, b), (va, vb) in zip(pairs, kept):
         a[ra, 7], b[rg, 11] = va, vb
-    counted = wgrad_launches() - counted
+    counted = wgrad_since(counted)
     ms = cuda_ms(run, iters=10)
     parts = kernel_parts(run)
     kname = next((k for k in parts if "vfb_reduce" not in k), None)
@@ -4201,18 +4293,23 @@ def wgrad_case(label, rows, shapes, pairs, splits, dtype_tol):
                                  (t_mem, "bytes"))
     report = {
         "rows": rows, "problems": [list(mn) for mn in shapes],
-        "splits": splits, "launches": counted, "rel_err": rel,
+        "splits": splits, "launches": counted[kind],
+        "launches_by_kernel": counted, "rel_err": rel,
         "max_abs_err": max_abs,
         "repeats_identical": same, "nan_in_its_row_and_column": nan_ok,
         "kernel": kname, "kernel_ms": kernel_ms, "reduce_ms": reduce_ms,
         "ms": ms, "gflop": flops / 1e9,
         "tflops": flops / (kernel_ms or ms) / 1e9,
+        **({} if size == 2 else
+           {"tf32_pass_tflops": 3 * flops / (kernel_ms or ms) / 1e9}),
         "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
         "library_ms": lib_ms,
         "library": "torch.matmul(a.T, g) per product (bf16 out)"
                    if size == 2 else "torch.matmul(a.T, g) per product, "
                                      "full f32"}
     gates = [(rel <= dtype_tol, f"wgrad {label}: rel err {rel}"),
+             (counted[kind] == 3 and sum(counted.values()) == 3,
+              f"wgrad {label}: launches {counted}, want 3 of {kind}"),
              (same, f"wgrad {label}: repeats differ"),
              (nan_ok, f"wgrad {label}: NaN in A's column 7 and G's column "
                       f"11 gave other NaNs")]
@@ -4220,44 +4317,52 @@ def wgrad_case(label, rows, shapes, pairs, splits, dtype_tol):
 
 
 def wgrad_splits_agree() -> dict:
-    """``weight_splits`` (bf16) against the C rule it copies
+    """``weight_splits`` of each dtype against the C rule it copies
     (``vfb_wgrad_splits``) over rows, widths and the problem sets of the
-    combined backward and of the split halves."""
+    combined backward and of the split halves: 432 shapes a dtype."""
     import ctypes
     import torch
     from odevit_tpu_torch.kernels import build
     from odevit_tpu_torch.kernels.vector_field_bwd import weight_splits
     fn = build.load("vector_field_bwd").vfb_wgrad_splits
     ip = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ip, ip]
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ip, ip]
     fn.restype = ctypes.c_int
-    differ, n = [], 0
-    for rows in (300, 512, 1100, 4096, 13312, 37888, 81920, 163840):
-        for d in (64, 192, 384, 512, 768, 1024):
-            for dh in (d, 2 * d, 4 * d):
-                for shapes in (((d, 3 * d), (d, d), (d, dh), (dh, d)),
-                               ((d, dh), (dh, d)), ((d, 3 * d), (d, d))):
-                    ms = (ctypes.c_int * 4)(*[m for m, _ in shapes])
-                    ns = (ctypes.c_int * 4)(*[k for _, k in shapes])
-                    want = weight_splits(rows, d, dh, shapes,
-                                         dtype=torch.bfloat16)
-                    got = fn(rows, len(shapes), ms, ns)
-                    n += 1
-                    if got != want:
-                        differ.append((rows, shapes, want, got))
-    return {"shapes": n, "differ": differ}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        differ, n = [], 0
+        tbytes = torch.empty((), dtype=dtype).element_size()
+        for rows in (300, 512, 1100, 4096, 13312, 37888, 81920, 163840):
+            for d in (64, 192, 384, 512, 768, 1024):
+                for dh in (d, 2 * d, 4 * d):
+                    for shapes in (((d, 3 * d), (d, d), (d, dh), (dh, d)),
+                                   ((d, dh), (dh, d)),
+                                   ((d, 3 * d), (d, d))):
+                        ms = (ctypes.c_int * 4)(*[m for m, _ in shapes])
+                        ns = (ctypes.c_int * 4)(*[k for _, k in shapes])
+                        want = weight_splits(rows, d, dh, shapes,
+                                             dtype=dtype)
+                        got = fn(tbytes, rows, len(shapes), ms, ns)
+                        n += 1
+                        if got != want:
+                            differ.append((rows, shapes, want, got))
+        out[str(dtype)] = {"shapes": n, "differ": differ}
+    return out
 
 
 def phase_wgrad_vs_plain():
-    """The bf16 weight product of every backward (``vfb_wgrad_wgmma``)
-    alone through ``kernels/wgrad.py`` at each training cell's shape
-    (``WGRAD_SHAPES``, the main paths' splits) and at ragged ones
+    """The weight products of every backward alone through
+    ``kernels/wgrad.py``: ``vfb_wgrad_wgmma`` in bf16 at each training
+    cell's shape (``WGRAD_SHAPES``, the main paths' splits) and
+    ``vfb_wgrad_tf32`` in f32 at the f32 ViTODE backwards'
+    (``WGRAD_F32_SHAPES``), each also at the ragged shapes
     (``WGRAD_RAGGED``): within ``TOL_WGRAD`` of max|ref| of a float64
     product, repeats bit-identical, the card's NaN reaching exactly its row
     and column, timed per launch beside ``torch.matmul`` on the same
-    operands, at least 150 TFLOP/s at the TS-Base shapes, no spills;
-    ``vfb_wgrad_f32`` once at the 224 px shape in f32. Returns the cells'
-    cases."""
+    operands; at the TS-Base shapes at least 150 TFLOP/s in bf16 and 100
+    TFLOP/s of TF32 passes in f32; no spills; the Python split rules
+    against the C rule. Returns the cells' cases of each dtype ({"bf16":
+    ..., "f32": ...})."""
     import torch
     from odevit_tpu_torch.kernels import build, launch_counts
     from odevit_tpu_torch.kernels.macaron_bwd import wgrad_splits
@@ -4267,49 +4372,81 @@ def phase_wgrad_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(31)
     mac_splits = wgrad_splits(torch.bfloat16, BATCH * 80, 192, 768)
     cases, ragged, gates = {}, {}, []
-    for label, (rows, shapes) in {**WGRAD_SHAPES, **WGRAD_RAGGED}.items():
-        pairs = wgrad_operands(rows, shapes, g, torch.bfloat16)
-        splits = (mac_splits if label.startswith("macaron")
-                  else weight_splits(rows, 0, 0, shapes,
-                                     dtype=torch.bfloat16))
-        into = ragged if label in WGRAD_RAGGED else cases
-        into[label], found = wgrad_case(label, rows, shapes, pairs, splits,
-                                        TOL_WGRAD)
-        gates += found
-        del pairs
-        torch.cuda.empty_cache()
+    for kind, dtype, labels in (("bf16", torch.bfloat16, WGRAD_SHAPES),
+                                ("f32", torch.float32, WGRAD_F32_SHAPES)):
+        cases[kind], ragged[kind] = {}, {}
+        for label in (*labels, *WGRAD_RAGGED):
+            rows, shapes = {**WGRAD_SHAPES, **WGRAD_RAGGED}[label]
+            pairs = wgrad_operands(rows, shapes, g, dtype)
+            splits = (mac_splits if label.startswith("macaron")
+                      else weight_splits(rows, 0, 0, shapes, dtype=dtype))
+            into = ragged[kind] if label in WGRAD_RAGGED else cases[kind]
+            into[label], found = wgrad_case(f"{kind} {label}", rows,
+                                            shapes, pairs, splits,
+                                            TOL_WGRAD)
+            gates += found
+            del pairs
+            torch.cuda.empty_cache()
     for label in WGRAD_RATE_SHAPES:
-        rate = cases[label]["tflops"] * 1e12
+        rate = cases["bf16"][label]["tflops"] * 1e12
         gates.append((rate >= MIN_WGRAD_RATE,
-                      f"wgrad {label}: {rate / 1e12:.1f} TFLOP/s"))
-    # vfb_wgrad_f32 (CUDA cores), once, at the 224 px shape in f32
-    rows, shapes = WGRAD_SHAPES["tsbase224"]
-    pairs = wgrad_operands(rows, shapes, g, torch.float32)
-    f32, found = wgrad_case("tsbase224 f32", rows, shapes, pairs,
-                            weight_splits(rows, 0, 0, shapes,
-                                          dtype=torch.float32),
-                            TOL_F32)
-    gates += found
-    del pairs
+                      f"wgrad bf16 {label}: {rate / 1e12:.1f} TFLOP/s"))
+        rate = cases["f32"][label]["tf32_pass_tflops"] * 1e12
+        gates.append((rate >= MIN_TF32_WGRAD_RATE,
+                      f"wgrad f32 {label}: {rate / 1e12:.1f} TFLOP/s of "
+                      f"TF32 passes"))
     splits_agree = wgrad_splits_agree()
-    gates.append((not splits_agree["differ"], f"wgrad splits: Python and "
-                  f"C differ at {splits_agree['differ'][:5]}"))
-    resources = {lib: kernel_resources(lib, (WGRAD_KERNEL, OLD_WGRAD))
-                 for lib in LIBRARIES if lib in build.build_logs}
+    for dtype, agree in splits_agree.items():
+        gates.append((not agree["differ"], f"wgrad splits {dtype}: Python "
+                      f"and C differ at {agree['differ'][:5]}"))
+    resources = {lib: kernel_resources(
+        lib, (WGRAD_KERNEL, TF32_WGRAD_KERNEL, *OLD_WGRADS))
+        for lib in LIBRARIES if lib in build.build_logs}
     for lib, res in resources.items():
-        gates.append((bool(res), f"{lib}: no -Xptxas -v lines for the "
-                                  f"weight-product kernel"))
+        for want in (WGRAD_KERNEL, TF32_WGRAD_KERNEL):
+            gates.append((any(want in name for name in res),
+                          f"{lib}: no -Xptxas -v lines for {want}"))
+        gates += [(not any(old in name for old in OLD_WGRADS),
+                   f"{lib}: {name} is built") for name in res]
         gates += [(r["spill_stores"] == 0 and r["spill_loads"] == 0,
                    f"{lib} {name}: spills {r}") for name, r in res.items()]
     launch_counts.update(before)           # comparisons do not count
     emit("wgrad_vs_plain", tol=TOL_WGRAD, min_rate=MIN_WGRAD_RATE,
+         min_tf32_pass_rate=MIN_TF32_WGRAD_RATE,
          rate_shapes=WGRAD_RATE_SHAPES, peak_bf16_flops=PEAK_BF16_FLOPS,
-         operands="A ~ N(0.5, 1), G ~ N(0.25, 1), bf16", cases=cases,
-         ragged=ragged, f32_tsbase224=f32, splits_agree=splits_agree,
+         peak_tf32_flops=PEAK_TF32_FLOPS,
+         operands="A ~ N(0.5, 1), G ~ N(0.25, 1), bf16 and f32",
+         cases=cases, ragged=ragged, splits_agree=splits_agree,
          resources=resources)
     for ok, what in gates:
         check(ok, what)
     return cases
+
+
+def wgrad_entry(kind, label, case, path, launches) -> dict:
+    """The kernels line's entry of one weight-product case of
+    ``phase_wgrad_vs_plain`` (``kind`` "bf16" or "f32"), with its
+    launches on ``path``."""
+    return {
+        "name": (WGRAD_KERNEL if kind == "bf16" else TF32_WGRAD_KERNEL)
+        + f"_{label}", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field_bwd.cu",
+        "replaces": ("odevit_tpu/kernels/macaron.py:278"
+                     if label.startswith("macaron") else
+                     "odevit_tpu/kernels/vector_field_bwd.py:409"
+                     if label == "r4_mlp" else
+                     "odevit_tpu/kernels/vector_field_bwd.py:548"
+                     if label == "r4_attn" else
+                     "odevit_tpu/kernels/vector_field_bwd.py:214"),
+        "launches": launches, "launches_of": path,
+        "max_abs_err": case["max_abs_err"], "rel_err": case["rel_err"],
+        "ms": case["kernel_ms"] or case["ms"],
+        "call_ms": case["ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+        "tflops": case["tflops"],
+        **({"tf32_pass_tflops": case["tf32_pass_tflops"]}
+           if kind == "f32" else {}),
+        "library_ms": case["library_ms"]}
 
 
 def phase_macaron224_kernels_vs_plain():
@@ -4347,7 +4484,7 @@ def phase_macaron224_train(images_u8, labels):
          min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("macaron224_train", runs, cos, loss_rel, per_step,
-                MAC224_LAUNCHES, bf16=False)
+                MAC224_LAUNCHES, wgrad=None)
     return k["launches"]
 
 
@@ -5269,7 +5406,7 @@ def phase_long_train(images_u8, labels):
          check_launches_per_step=per_step, check_results=runs,
          check_profile=profile, img_per_s=full["img_per_s_best_of_2_3"],
          **full)
-    return full["launches"], runs["kernels"]["wgrad_launches"]
+    return full["launches"], runs["kernels"]["wgrad_launches"]["bf16"]
 
 
 def phase_long_serving(rng):
@@ -5538,6 +5675,7 @@ def main() -> int:
     labels = torch.from_numpy(rng.integers(0, 100, BATCH)).cuda()
     train_launches, train = phase_train(images, labels)
     train_timing = phase_train_kernel_timing(models["rk4-13"], images)
+    train_f32 = phase_train_f32(images, labels)
     # the dropout slice at the CIFAR shape
     mask_launches = phase_dropout_masks(models["rk4-13"])
     phase_dropout_kernels_vs_plain(models["rk4-13"])
@@ -5573,6 +5711,7 @@ def main() -> int:
     distill_launches, distill = phase_distill(teacher, images_d, labels_d,
                                               rng_d)
     distill_timing = phase_distill_kernel_timing(student, images_d)
+    distill_f32 = phase_distill_f32(teacher, images_d, labels_d)
     # the distillation step at the recipe's dropout, beside drop 0
     phase_distill_dropout_kernels_vs_plain(student)
     ddrop_launches = phase_distill_dropout(teacher, images_d, labels_d,
@@ -5859,39 +5998,30 @@ def main() -> int:
     # the weight products at each cell's shape: launches on that cell's
     # training path (3 kernel steps, the C counter), else in this phase
     wgrad_paths = {
-        "cifar": ("cifar100-vitode-train-b1024-bf16",
-                  train["kernels"]["wgrad_launches"]),
-        "tsbase224": ("tsref-distill-b64-bf16",
-                      distill["kernels"]["wgrad_launches"]),
-        "r4_attn": ("tsbase-r4-distill-b64-bf16",
-                    r4_runs["kernels"]["wgrad_launches"] // 2),
-        "r4_mlp": ("tsbase-r4-distill-b64-bf16",
-                   r4_runs["kernels"]["wgrad_launches"] // 2),
-        "tsbase384": (LONG_TRAIN_CELL + " (B=8)",
-                      long_train_wgrad)}
-    for label, case in wgrad.items():
-        # the bf16 Macaron backward is on no training path (the Macaron
-        # cells run f32 states): the launches counted over the phase's
-        # checked calls
-        path, launches = wgrad_paths.get(
-            label, ("wgrad_vs_plain", case["launches"]))
-        kernels.append({
-            "name": f"{WGRAD_KERNEL}_{label}", "route": "cuda",
-            "source": "odevit_tpu_torch/csrc/vector_field_bwd.cu",
-            "replaces": ("odevit_tpu/kernels/macaron.py:278"
-                         if label.startswith("macaron") else
-                         "odevit_tpu/kernels/vector_field_bwd.py:409"
-                         if label == "r4_mlp" else
-                         "odevit_tpu/kernels/vector_field_bwd.py:548"
-                         if label == "r4_attn" else
-                         "odevit_tpu/kernels/vector_field_bwd.py:214"),
-            "launches": launches, "launches_of": path,
-            "max_abs_err": case["max_abs_err"], "rel_err": case["rel_err"],
-            "ms": case["kernel_ms"] or case["ms"],
-            "call_ms": case["ms"], "plain_ms": case["plain_ms"],
-            "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
-            "tflops": case["tflops"], "library_ms": case["library_ms"]})
-    check(len(kernels) == 41 + len(long_timing) + len(WGRAD_SHAPES),
+        ("bf16", "cifar"): ("cifar100-vitode-train-b1024-bf16", train),
+        ("bf16", "tsbase224"): ("tsref-distill-b64-bf16", distill),
+        ("bf16", "r4_attn"): ("tsbase-r4-distill-b64-bf16", r4_runs),
+        ("bf16", "r4_mlp"): ("tsbase-r4-distill-b64-bf16", r4_runs),
+        ("f32", "cifar"): (F32_TRAIN_CELL, train_f32),
+        ("f32", "tsbase224"): (F32_DISTILL_CELL, distill_f32)}
+    for kind, cells in wgrad.items():
+        for label, case in cells.items():
+            # the ratio-4 cell's backwards are split halves, one launch
+            # each; the bf16 Macaron backward is on no training path (the
+            # Macaron cells run f32 states), nor are the f32 ratio-4 and
+            # 384 px backwards: the launches over the phase's checked calls
+            if (kind, label) in wgrad_paths:
+                path, runs = wgrad_paths[kind, label]
+                launches = runs["kernels"]["wgrad_launches"][kind]
+                if label.startswith("r4"):
+                    launches //= 2
+            elif (kind, label) == ("bf16", "tsbase384"):
+                path, launches = LONG_TRAIN_CELL + " (B=8)", long_train_wgrad
+            else:
+                path, launches = "wgrad_vs_plain", case["launches"]
+            kernels.append(wgrad_entry(kind, label, case, path, launches))
+    check(len(kernels) == 41 + len(long_timing) + len(WGRAD_SHAPES)
+          + len(WGRAD_F32_SHAPES),
           f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

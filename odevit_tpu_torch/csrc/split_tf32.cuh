@@ -1,6 +1,7 @@
 // Split-TF32 products: f32 matrix products on the tensor cores, shared by
-// the Macaron kernels (macaron.cu, macaron_bwd.cu) and the tiled route
-// (vector_field_tiled.cu: vft_gemm_tf32 and the f32 attention CTAs).
+// the Macaron kernels (macaron.cu, macaron_bwd.cu), the tiled route
+// (vector_field_tiled.cu: vft_gemm_tf32 and the f32 attention CTAs) and
+// the f32 weight products (vector_field_bwd.cu: vfb_wgrad_tf32).
 //
 // Each f32 operand v is split into big = tf32(v) (to nearest, ties away
 // from zero) and small = v - big cut to TF32; a product is small*big +
@@ -14,9 +15,11 @@
 // Here: mm_f32, vf::mm's signature on TF32 WMMA fragments (each warp
 // splits the fragments it loads); the split of one value by integer
 // operations, the m16n8k8 mma.sync and the cp.async helpers of
-// mac::gemm_tf32 (macaron.cu) and vft_gemm_tf32; and vft_gemm_tf32's
-// wgmma pieces: swizzled K-major planes, their descriptors and the
-// m64n128k8 TF32 wgmma with A from registers. Include after
+// mac::gemm_tf32 (macaron.cu) and vft_gemm_tf32; and the wgmma pieces of
+// vft_gemm_tf32 and vfb_wgrad_tf32: swizzled K-major planes (an operand
+// stored [K, N] split into them by split_kn4), their descriptors, A
+// fragments split in registers (split_frags) and the m64n128k8 and
+// m64n96k8 TF32 wgmma with A from registers. Include after
 // vector_field.cu's helpers.
 
 #pragma once
@@ -186,6 +189,36 @@ __host__ __device__ __forceinline__ int swz128(int r, int k) {
   return r * 128 + ((((k >> 2) ^ r) & 7) << 4) + (k & 3) * 4;
 }
 
+// A thread's raw A fragments of a 32-wide slice of K (element i of the
+// four m16n8k8 fragments at raw[i], fragment i / 4) split into big and
+// small registers for wgmma_tf32_*_rs
+__device__ __forceinline__ void split_frags(const float (&raw)[16],
+                                            unsigned (&hi)[4][4],
+                                            unsigned (&lo)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    split_bits(raw[i], hi[i / 4][i % 4], lo[i / 4][i % 4]);
+}
+
+// An operand stored [K, N] into the big and small planes of its K-major
+// form: the float4 at `src` (row k < 32 of a landed slice, columns n .. n
+// + 3) split, each value to column k of its own plane row n + q. A warp
+// whose lanes take the 32 k of one n writes 32 banks.
+__device__ __forceinline__ void split_kn4(const float* src, int k, int n,
+                                          unsigned char* big,
+                                          unsigned char* small) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned hi, lo;
+    split_bits(e[q], hi, lo);
+    const int o = swz128(n + q, k);
+    *reinterpret_cast<unsigned*>(big + o) = hi;
+    *reinterpret_cast<unsigned*>(small + o) = lo;
+  }
+}
+
 __device__ __forceinline__ uint64_t wg_desc(const void* plane) {
   const uint64_t a =
       static_cast<uint64_t>(__cvta_generic_to_shared(plane));
@@ -208,9 +241,10 @@ __device__ __forceinline__ void wg_wait_all() {
 // The compiler sees wgmma's accumulators written when it is issued; this
 // keeps their reads and writes on the side of a fence or wait it stands
 // after.
-__device__ __forceinline__ void wg_pin(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void wg_pin(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // shared-memory writes of this thread made visible to wgmma's reads
@@ -255,6 +289,37 @@ __device__ __forceinline__ void wgmma_tf32_m64n128_rs(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// The same for a 64 x 96 tile: d[4 j + 2 h + e], j < 12, holds row 16
+// warp + lane / 4 + 8 h and column 8 j + 2 (lane % 4) + e.
+__device__ __forceinline__ void wgmma_tf32_m64n96_rs(float (&d)[48],
+                                                     const unsigned (&a)[4],
+                                                     uint64_t b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
 }

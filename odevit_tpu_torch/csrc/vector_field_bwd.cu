@@ -76,15 +76,16 @@
 //     backward head by head, x_bar and the image's norm partial sums. It
 //     writes the operands of the weight products (cn_m, cn_a, gd, ctx, h,
 //     h1_bar, [q_bar k_bar v_bar]) to global scratch in x's dtype.
-//  2. vfb_wgrad_wgmma (f32: vfb_wgrad_f32): the four weight cotangents
+//  2. vfb_wgrad_wgmma (f32: vfb_wgrad_tf32): the four weight cotangents
 //     as A^T G products over all B*n_pad rows. The TPU accumulates them
 //     with += across its sequential grid; here CTAs run in parallel, so
 //     each CTA sums one output tile over one fixed slice of rows into its
-//     own partial buffer (bf16: wgmma fed by a TMA ring, below).
+//     own partial buffer (bf16: wgmma fed by a TMA ring; f32: split TF32
+//     on wgmma fed by cp.async; below).
 //  3. vfb_reduce: sums the partials (and the per-image norm partials) in
 //     a fixed order. Two runs give bit-identical cotangents.
 // Products are the repo's own code (WMMA helpers of vector_field.cu,
-// wgmma and TMA here); nothing goes to a library. Not yet done: keeping
+// wgmma, TMA and split TF32 here); nothing goes to a library. Not yet done: keeping
 // the weight products' A and G operands on chip.
 
 #define VF_HELPERS_ONLY
@@ -139,9 +140,7 @@ struct Args {
 namespace {
 
 constexpr int kChunks[] = {128, 64, 32, 16};
-constexpr int kTile = 64;        // weight-product output tile
-constexpr int kRowStep = 32;     // rows per staged chunk
-constexpr int kWThreads = 128;   // 4 warps, 32x32 of the tile each
+constexpr int kRowStep = 32;     // rows of a chunk of mcb_wgrad_f32
 
 struct Plan {
   size_t cn, gd, gd2, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
@@ -613,10 +612,6 @@ struct Problems {
   size_t total;  // floats of one split's partial buffer
 };
 
-__host__ __device__ inline int tiles(int m) {
-  return (m + kTile - 1) / kTile;
-}
-
 // ---- the bf16 weight products: vfb_wgrad_wgmma ----
 // Replaces the weight accumulation of the TPU kernels: _vf_bwd_kernel's
 // (odevit_tpu/kernels/vector_field_bwd.py:214, :223, :323, :334),
@@ -696,17 +691,19 @@ inline int slice_rows(int rows, int splits, int step) {
 
 // Slices of `rows`: the fewest whose CTAs (one an SM) fill at least 9/10
 // of the waves they take on kWbSms SMs, each slice at least kWbMinSlice
-// rows in whole stages and none empty; where none does, the fullest.
-// Fixed by the shape, so the order of the sums is;
+// rows in whole steps of `step` (a stage of vfb_wgrad_wgmma, kWbRows; a
+// slice of vfb_wgrad_tf32, kTgRows) and none empty; where none does, the
+// fullest. Fixed by the shape, so the order of the sums is;
 // kernels/vector_field_bwd.py::weight_splits copies it.
-inline int wgrad_splits(int rows, const int* ms, const int* ns, int count) {
+inline int wgrad_splits(int rows, const int* ms, const int* ns, int count,
+                        int step) {
   long long all = 0;
   for (int i = 0; i < count; ++i) all += wb_tiles(ms[i], ns[i]);
   const int most = imax(1, rows / kWbMinSlice);
   int best = 1;
   long long best_ctas = 0, best_room = 1;
   for (int s = 1; s <= most; ++s) {
-    if ((long long)(s - 1) * slice_rows(rows, s, kWbRows) >= rows) continue;
+    if ((long long)(s - 1) * slice_rows(rows, s, step) >= rows) continue;
     const long long ctas = all * s;
     const long long room = (ctas + kWbSms - 1) / kWbSms * kWbSms;
     if (10 * ctas >= 9 * room) return s;
@@ -959,30 +956,250 @@ vfb_wgrad_wgmma(const __grid_constant__ WbParams p, float* wpart) {
                   p.m[pi], p.n[pi]);
 }
 
-// The f32 version, on the CUDA cores (checks at small shapes).
-__global__ void __launch_bounds__(kWThreads)
-vfb_wgrad_f32(Problems ps, float* wpart) {
+// ---- the f32 weight products: vfb_wgrad_tf32 ----
+// Replaces, in f32, the weight accumulation vfb_wgrad_wgmma replaces in
+// bf16: _vf_bwd_kernel's (odevit_tpu/kernels/vector_field_bwd.py:214,
+// :223, :323, :334), _mlp_bwd_kernel's and _attn_bwd_kernel's. Every f32
+// ViTODE backward runs it (one CTA, tiled, key-tiled, L2, both split
+// halves); the f32 Macaron backwards take macb::mcb_wgrad_f32.
+//
+// Bound. As split TF32 (split_tf32.cuh: three TF32 passes, about 21
+// bits) each product is 6 R M N TF32 operations on R (M + N) f32
+// operands: at the 224 px shape (13,312 rows) 94 GFLOP a launch, 283 of
+// passes, 0.571 ms at 495 TFLOP/s against 0.09 ms of bytes. Operations
+// bound it at every training shape (CIFAR, D=192: 0.44 against 0.30).
+//
+// Design. vfb_wgrad_wgmma's grid and tiles on vft_gemm_tf32's pipeline.
+// blockIdx.x is an output tile of one problem (128 x 128, or 64 x 192
+// where it pads less: wb_kind), blockIdx.y a slice of rows; each CTA
+// writes its own partial, which vfb_reduce sums in a fixed order. Rows
+// come in slices of kTgRows by 16-byte cp.async into kTgLand landing
+// slots, zeros past the CTA's rows, M and N, so ragged edges need no
+// other masks. TF32 wgmma takes K-major operands only, and A [R, M] and
+// G [R, N] are MN-major: each thread reads its A fragments transposed
+// from the landed [rows, M] slice (a row of kTgLdA floats puts a
+// fragment's 32 loads on 32 banks) and splits them in registers; G is
+// split once into big and small swizzled K-major planes, transposed on
+// the way (split_kn4), while the tensor cores multiply the previous
+// slice from the other pair of planes. Two warpgroups: m64 x n128 each
+// over M (128 x 128) or m64 x n96 each over N (64 x 192). Per k8 step
+// three wgmma in mm_f32's order (small x big, big x small, big x big).
+// Each slice sums into a fresh accumulator set, added to an f32 register
+// total by ordinary adds (the tensor cores truncate their own sums, and
+// a CTA's rows run to thousands). The total goes out through shared
+// memory, 16 bytes a thread, masked at ragged M and N. The split keeps
+// NaN: a NaN operand reaches exactly its row (A) or column (G).
+constexpr int kTgRows = 32;       // rows (K) of a slice
+constexpr int kTgLand = 3;        // landing slots
+constexpr int kTgThreads = 256;   // two warpgroups
+constexpr int kTgLdA = 136;       // landed A row: 128 + 8 floats
+constexpr int kTgLdG = 196;       // landed G row: 192 + 4 floats
+constexpr int kTgPlane = 192 * 128;  // one big or small plane, in bytes
+constexpr int kTgLandA = kTgRows * kTgLdA * 4;
+constexpr int kTgLandSlot = kTgLandA + kTgRows * kTgLdG * 4;  // A, then G
+// two pairs of planes, the landing slots, and room to start the planes on
+// a 1024-byte boundary; the staged output tile takes their bytes after
+// the last product
+constexpr int kTgSmem = 2 * 2 * kTgPlane + kTgLand * kTgLandSlot + 1024;
+static_assert(kTgSmem <= 232448, "one CTA's shared memory fits an SM");
+static_assert(128 * (128 + 8) * 4 <= kTgSmem - 1024 &&
+                  64 * (192 + 8) * 4 <= kTgSmem - 1024,
+              "the staged tiles fit");
+
+struct TgParams {
+  const float* a[4];
+  const float* g[4];  // A [R, M], G [R, N] of each problem
+  int m[4], n[4], kind[4], tn[4], tiles[4];  // tiles 0: no problem
+  size_t out[4];
+  size_t total;
+  int rows, rows_per_split;
+};
+
+// One CTA's tile: rows r_begin .. r_end of A^T G at m0, n0 of the M x N
+// problem into `out`, its partial (row-major, N wide). kKind 0: 128 x 128,
+// warpgroup wg over rows 64 wg ..; 1: 64 x 192, over columns 96 wg ...
+template <int kKind>
+__device__ __forceinline__ void tg_tile(const float* A, const float* G,
+                                        int M, int N, int m0, int n0,
+                                        int r_begin, int r_end, float* out,
+                                        unsigned char* smem) {
+  constexpr int TM = kKind ? 64 : 128, TN = kKind ? 192 : 128;
+  constexpr int WN = kKind ? 96 : 128;   // a warpgroup's columns
+  constexpr int NA = WN / 2;             // its accumulators a thread
+  constexpr int A4 = TM / 4, G4 = TN / 4;  // float4s of a landed row
+  unsigned char* land0 = smem + 2 * 2 * kTgPlane;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wg = threadIdx.x / 128;
+  const int slices = imax(0, (r_end - r_begin + kTgRows - 1) / kTgRows);
+
+  // slice s into landing slot s % kTgLand, a commit group each, empty
+  // past the last slice
+  auto load = [&](int s) {
+    if (s < slices) {
+      const int row0 = r_begin + s * kTgRows;
+      float* la =
+          reinterpret_cast<float*>(land0 + (s % kTgLand) * kTgLandSlot);
+      float* lg = la + kTgLandA / 4;
+#pragma unroll
+      for (int j = 0; j < kTgRows * A4 / kTgThreads; ++j) {
+        const int i = threadIdx.x + j * kTgThreads;
+        const int r = i / A4, c = (i % A4) * 4;
+        const bool in = row0 + r < r_end && m0 + c < M;
+        vf::cp_async16(la + r * kTgLdA + c,
+                       in ? A + (size_t)(row0 + r) * M + m0 + c : A, in);
+      }
+#pragma unroll
+      for (int j = 0; j < kTgRows * G4 / kTgThreads; ++j) {
+        const int i = threadIdx.x + j * kTgThreads;
+        const int r = i / G4, c = (i % G4) * 4;
+        const bool in = row0 + r < r_end && n0 + c < N;
+        vf::cp_async16(lg + r * kTgLdG + c,
+                       in ? G + (size_t)(row0 + r) * N + n0 + c : G, in);
+      }
+    }
+    vf::cp_async_commit();
+  };
+  // G of slice s from its landing slot into plane pair s % 2
+  auto split_g = [&](int s) {
+    const float* lg = reinterpret_cast<const float*>(
+        land0 + (s % kTgLand) * kTgLandSlot + kTgLandA);
+    unsigned char* big = smem + (s & 1) * 2 * kTgPlane;
+#pragma unroll
+    for (int j = 0; j < kTgRows * G4 / kTgThreads; ++j) {
+      const int i = threadIdx.x + j * kTgThreads;
+      const int k = i % kTgRows, n4 = (i / kTgRows) * 4;
+      vf::split_kn4(lg + k * kTgLdG + n4, k, n4, big, big + kTgPlane);
+    }
+    vf::fence_async_shared();
+  };
+  // this thread's A fragments of slice s, raw: A(m, k) is landed row k,
+  // column m; element (r, k) of fragment kk at raw[4 kk + 2 (k >= 4) +
+  // (r >= 8)], r and k within it
+  const int fm = (kKind ? 0 : 64 * wg) + (warp & 3) * 16 + (lane >> 2);
+  const int fk = lane & 3;
+  auto load_a = [&](int s, float (&raw)[16]) {
+    const float* la = reinterpret_cast<const float*>(
+                          land0 + (s % kTgLand) * kTgLandSlot) +
+                      fk * kTgLdA + fm;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      raw[4 * kk] = la[8 * kk * kTgLdA];
+      raw[4 * kk + 1] = la[8 * kk * kTgLdA + 8];
+      raw[4 * kk + 2] = la[(8 * kk + 4) * kTgLdA];
+      raw[4 * kk + 3] = la[(8 * kk + 4) * kTgLdA + 8];
+    }
+  };
+  auto mma = [](float (&d)[NA], const unsigned (&a)[4], uint64_t b,
+                int accumulate) {
+    if constexpr (kKind == 0)
+      vf::wgmma_tf32_m64n128_rs(d, a, b, accumulate);
+    else
+      vf::wgmma_tf32_m64n96_rs(d, a, b, accumulate);
+  };
+
+  float tot[NA], acc[NA], raw[16];
+  unsigned ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) tot[i] = acc[i] = 0.0f;
+  if (slices > 0) {
+    for (int s = 0; s < kTgLand; ++s) load(s);
+    vf::cp_async_wait<kTgLand - 1>();
+    __syncthreads();  // slice 0 has landed
+    split_g(0);
+    load_a(0, raw);
+    vf::split_frags(raw, ahi, alo);
+    vf::cp_async_wait<kTgLand - 2>();
+    __syncthreads();  // its planes are written, slice 1 has landed
+  }
+  // this warpgroup's B columns start (64 x 192) 96 wg rows into a plane
+  const int b_row = kKind ? 96 * wg : 0;
+  for (int s = 0; s < slices; ++s) {
+    const unsigned char* pl = smem + (s & 1) * 2 * kTgPlane + b_row * 128;
+    const uint64_t b_big = vf::wg_desc(pl);
+    const uint64_t b_small = vf::wg_desc(pl + kTgPlane);
+    vf::wg_pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      vf::wg_pin(ahi[kk]);
+      vf::wg_pin(alo[kk]);
+    }
+    vf::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTgRows / 8; ++kk) {
+      const uint64_t step = kk * 32 / 16;  // 32 bytes, in 16-byte units
+      mma(acc, alo[kk], b_big + step, kk > 0);
+      mma(acc, ahi[kk], b_small + step, 1);
+      mma(acc, ahi[kk], b_big + step, 1);
+    }
+    vf::wg_commit();
+    // beside the tensor cores' work: slice s + kTgLand into the landing
+    // slot slice s left, slice s + 1's planes and raw A fragments
+    load(s + kTgLand);
+    if (s + 1 < slices) {
+      split_g(s + 1);
+      load_a(s + 1, raw);
+    }
+    vf::wg_wait_all();
+    vf::wg_pin(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      vf::wg_pin(ahi[kk]);
+      vf::wg_pin(alo[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) tot[i] += acc[i];
+    if (s + 1 < slices) vf::split_frags(raw, ahi, alo);
+    vf::cp_async_wait<kTgLand - 2>();
+    // slice s + 1's planes are written, plane pair s % 2 and landing slot
+    // (s + 1) % kTgLand are free, slice s + 2 has landed
+    __syncthreads();
+  }
+
+  // the total through shared memory (free once both warpgroups have left
+  // the loop), then 16 bytes a thread, masked at ragged M and N
+  __syncthreads();
+  constexpr int kLd = TN + 8;
+  float* tile = reinterpret_cast<float*>(smem);
+  const int col = b_row + 2 * fk;
+#pragma unroll
+  for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + (fm + 8 * h) * kLd + col + 8 * j) =
+          make_float2(tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TM * G4; i += kTgThreads) {
+    const int r = i / G4, c = (i % G4) * 4;
+    if (m0 + r < M && n0 + c < N)
+      *reinterpret_cast<float4*>(out + (size_t)(m0 + r) * N + n0 + c) =
+          *reinterpret_cast<const float4*>(tile + r * kLd + c);
+  }
+}
+
+// blockIdx.x: an output tile of one problem; blockIdx.y: a slice of rows.
+__global__ void __launch_bounds__(kTgThreads, 1)
+vfb_wgrad_tf32(const __grid_constant__ TgParams p, float* wpart) {
+  extern __shared__ unsigned char tg_raw[];
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(tg_raw));
+  unsigned char* smem = tg_raw + ((1024 - (base & 1023)) & 1023);
   int t = blockIdx.x, pi = 0;
-  while (t >= tiles(ps.p[pi].m) * tiles(ps.p[pi].n)) {
-    t -= tiles(ps.p[pi].m) * tiles(ps.p[pi].n);
+  while (t >= p.tiles[pi]) {
+    t -= p.tiles[pi];
     ++pi;
   }
-  const Problem pr = ps.p[pi];
-  const int tn = tiles(pr.n);
-  const int m0 = (t / tn) * kTile, n0 = (t % tn) * kTile;
-  const float* a = static_cast<const float*>(pr.a);
-  const float* g = static_cast<const float*>(pr.g);
-  const int r_begin = blockIdx.y * ps.rows_per_split;
-  const int r_end = imin(ps.rows, r_begin + ps.rows_per_split);
-  float* out = wpart + blockIdx.y * ps.total + pr.out;
-  for (int i = threadIdx.x; i < kTile * kTile; i += kWThreads) {
-    const int m = m0 + i / kTile, nn = n0 + i % kTile;
-    if (m >= pr.m || nn >= pr.n) continue;
-    float s = 0.0f;
-    for (int r = r_begin; r < r_end; ++r)
-      s = fmaf(a[(size_t)r * pr.m + m], g[(size_t)r * pr.n + nn], s);
-    out[(size_t)m * pr.n + nn] = s;
-  }
+  const int kind = p.kind[pi];
+  const int m0 = (t / p.tn[pi]) * (kind ? 64 : 128);
+  const int n0 = (t % p.tn[pi]) * (kind ? 192 : 128);
+  const int r_begin = blockIdx.y * p.rows_per_split;
+  const int r_end = imin(p.rows, r_begin + p.rows_per_split);
+  float* out = wpart + blockIdx.y * p.total + p.out[pi];
+  if (kind == 0)
+    tg_tile<0>(p.a[pi], p.g[pi], p.m[pi], p.n[pi], m0, n0, r_begin, r_end,
+               out, smem);
+  else
+    tg_tile<1>(p.a[pi], p.g[pi], p.m[pi], p.n[pi], m0, n0, r_begin, r_end,
+               out, smem);
 }
 
 // out[i] = sum over splits of wpart (weights), then sum over images of
@@ -1003,8 +1220,9 @@ __global__ void vfb_reduce(const float* wpart, int splits, size_t wtotal,
   }
 }
 
-// vfb_wgrad_wgmma launches so far in this library (vfb_wgrad_launches)
-unsigned long long wgrad_launches = 0;
+// vfb_wgrad_wgmma and vfb_wgrad_tf32 launches so far in this library
+// (vfb_wgrad_launches, vfb_wgrad_tf32_launches)
+unsigned long long wgrad_launches = 0, wgrad_tf32_launches = 0;
 
 // cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1086,22 +1304,47 @@ inline int wgrad_bf16(const Problems& ps, float* wpart, int splits,
   return (int)err;
 }
 
-// The same in f32 on vfb_wgrad_f32 (the one-CTA and tiled backwards; the
-// Macaron backwards take macb::wgrad_f32).
-inline int wgrad_cuda_f32(Problems ps, float* wpart, int splits,
-                          cudaStream_t st) {
-  ps.rows_per_split = slice_rows(ps.rows, splits, kRowStep);
+// The same in f32 on vfb_wgrad_tf32 (every f32 ViTODE backward; the
+// Macaron backwards take macb::wgrad_f32), with the same checks.
+inline int wgrad_tf32(const Problems& ps, float* wpart, int splits,
+                      cudaStream_t st) {
+  if (splits < 1 || ps.rows < 1) return (int)cudaErrorInvalidValue;
+  TgParams p = {};
   int ntiles = 0;
-  for (const Problem& p : ps.p)
-    if (p.m > 0) ntiles += tiles(p.m) * tiles(p.n);
-  vfb_wgrad_f32<<<dim3(ntiles, splits), kWThreads, 0, st>>>(ps, wpart);
-  return (int)cudaGetLastError();
+  for (int i = 0; i < 4; ++i) {
+    const Problem& q = ps.p[i];
+    if (q.m <= 0) continue;
+    if (q.m % 16 || q.n % 16 || (reinterpret_cast<uintptr_t>(q.a) & 15) ||
+        (reinterpret_cast<uintptr_t>(q.g) & 15))
+      return (int)cudaErrorInvalidValue;
+    p.a[i] = static_cast<const float*>(q.a);
+    p.g[i] = static_cast<const float*>(q.g);
+    p.m[i] = q.m;
+    p.n[i] = q.n;
+    p.kind[i] = wb_kind(q.m, q.n);
+    p.tn[i] = wb_tiles_n(q.n, p.kind[i]);
+    p.tiles[i] = wb_tiles(q.m, q.n);
+    p.out[i] = q.out;
+    ntiles += p.tiles[i];
+  }
+  if (ntiles == 0) return (int)cudaErrorInvalidValue;
+  p.total = ps.total;
+  p.rows = ps.rows;
+  p.rows_per_split = slice_rows(ps.rows, splits, kTgRows);
+  cudaError_t err = cudaFuncSetAttribute(
+      vfb_wgrad_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kTgSmem);
+  if (err != cudaSuccess) return (int)err;
+  vfb_wgrad_tf32<<<dim3(ntiles, splits), kTgThreads, kTgSmem, st>>>(p,
+                                                                   wpart);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++wgrad_tf32_launches;
+  return (int)err;
 }
 
 template <typename T>
 int wgrad(const Problems& ps, float* wpart, int splits, cudaStream_t st) {
   return sizeof(T) == 2 ? wgrad_bf16(ps, wpart, splits, st)
-                        : wgrad_cuda_f32(ps, wpart, splits, st);
+                        : wgrad_tf32(ps, wpart, splits, st);
 }
 
 bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
@@ -1151,9 +1394,12 @@ int launch(const Args& a, cudaStream_t st) {
 
 }  // namespace
 
-// In every library that includes this file: the bf16 weight-product
-// kernel's launches so far.
+// In every library that includes this file: the bf16 and the f32
+// weight-product kernels' launches so far.
 extern "C" unsigned long long vfb_wgrad_launches() { return wgrad_launches; }
+extern "C" unsigned long long vfb_wgrad_tf32_launches() {
+  return wgrad_tf32_launches;
+}
 
 // vector_field_tiled.cu includes this file with VFB_KERNELS_ONLY for its
 // weight products and reduce; it has entry points of its own.
@@ -1209,7 +1455,7 @@ int vfb_launch(int tbytes, const Args* args, void* stream) {
 }
 
 // The products of *w (x's element size `tbytes`: 2 runs vfb_wgrad_wgmma,
-// 4 vfb_wgrad_f32) and the fixed-order reduce of their partials into
+// 4 vfb_wgrad_tf32) and the fixed-order reduce of their partials into
 // w->out; returns as vfb_launch.
 int vfb_weight_bars(int tbytes, const WgradArgs* w, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1231,10 +1477,12 @@ int vfb_weight_bars(int tbytes, const WgradArgs* w, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// wgrad_splits: the slices of `rows` vfb_wgrad_wgmma's launcher would
-// be given for the `count` problems (ms[i] x ns[i]) by the Python copy.
-int vfb_wgrad_splits(int rows, int count, const int* ms, const int* ns) {
-  return wgrad_splits(rows, ms, ns, count);
+// wgrad_splits: the slices of `rows` the weight products' launcher would
+// be given for the `count` problems (ms[i] x ns[i]) by the Python copy,
+// for operands of `tbytes` (2: vfb_wgrad_wgmma, 4: vfb_wgrad_tf32).
+int vfb_wgrad_splits(int tbytes, int rows, int count, const int* ms,
+                     const int* ns) {
+  return wgrad_splits(rows, ms, ns, count, tbytes == 2 ? kWbRows : kTgRows);
 }
 
 const char* vfb_error_string(int code) {

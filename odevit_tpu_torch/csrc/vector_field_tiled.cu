@@ -806,16 +806,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) vft_gemm_tf32(GemmArgs g) {
         *reinterpret_cast<uint4*>(small + o) = lo;
       } else {
         const int k = i & 31, n4 = (i >> 5) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(lb + k * kTfLdB + n4);
-        const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          unsigned hi, lo;
-          vf::split_bits(e[q], hi, lo);
-          const int o = vf::swz128(n4 + q, k);
-          *reinterpret_cast<unsigned*>(big + o) = hi;
-          *reinterpret_cast<unsigned*>(small + o) = lo;
-        }
+        vf::split_kn4(lb + k * kTfLdB + n4, k, n4, big, small);
       }
     }
     vf::fence_async_shared();
@@ -834,12 +825,6 @@ __global__ void __launch_bounds__(kTfThreads, 1) vft_gemm_tf32(GemmArgs g) {
       raw[4 * kk + 3] = la[8 * kTfLdA + 8 * kk + 4];
     }
   };
-  auto split_a = [](const float (&raw)[16], unsigned (&hi)[4][4],
-                    unsigned (&lo)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i)
-      vf::split_bits(raw[i], hi[i / 4][i % 4], lo[i / 4][i % 4]);
-  };
 
   float tot[64], acc[64], raw[16];
   unsigned ahi[4][4], alo[4][4];
@@ -850,7 +835,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) vft_gemm_tf32(GemmArgs g) {
   __syncthreads();  // slice 0 has landed
   split_b(0);
   load_a(0, raw);
-  split_a(raw, ahi, alo);
+  vf::split_frags(raw, ahi, alo);
   vf::cp_async_wait<kTfLand - 2>();
   __syncthreads();  // its B planes are written, slice 1 has landed
   for (int s = 0; s < slices; ++s) {
@@ -888,7 +873,7 @@ __global__ void __launch_bounds__(kTfThreads, 1) vft_gemm_tf32(GemmArgs g) {
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) tot[i] += acc[i];
-    if (s + 1 < slices) split_a(raw, ahi, alo);
+    if (s + 1 < slices) vf::split_frags(raw, ahi, alo);
     vf::cp_async_wait<kTfLand - 2>();
     // slice s + 1's B planes are written, plane pair s % 2 and landing
     // slot (s + 1) % kTfLand are free, slice s + 2 has landed

@@ -54,7 +54,7 @@ launch_counts: Dict[str, int] = {
     "vft_gemm_tf32": 0,
     # the backwards' weight products alone (csrc/vector_field_bwd.cu,
     # launched by kernels/wgrad.py for checks): bf16 and f32
-    "vfb_wgrad_wgmma": 0, "vfb_wgrad_f32": 0}
+    "vfb_wgrad_wgmma": 0, "vfb_wgrad_tf32": 0}
 
 # csrc/vector_field_tiled.cu's kMaxCols: whole-row attention CTAs up to it,
 # key-tiled ones past it

@@ -61,7 +61,6 @@ cotangent, which adds to the pre-dropout p's cotangent).
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -411,18 +410,21 @@ def has_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return True
 
 
-# csrc/vector_field_bwd.cu's vfb_wgrad_wgmma: rows of a ring stage, the
-# fewest rows of a slice, and its output tiles (M x N): 128 x 128 or, where
-# it pads less, 64 x 192
+# csrc/vector_field_bwd.cu's weight products: rows of a ring stage of
+# vfb_wgrad_wgmma (bf16) and of a slice of vfb_wgrad_tf32 (f32), the fewest
+# rows of a slice, and their output tiles (M x N): 128 x 128 or, where it
+# pads less, 64 x 192
 WB_ROWS = 64
+TG_ROWS = 32
 WB_MIN_SLICE = 512
 WB_TILES = ((128, 128), (64, 192))
 
 
 def wgrad_tile(m: int, n: int) -> int:
-    """Which of :data:`WB_TILES` ``vfb_wgrad_wgmma`` takes for an M x N
-    product: the one whose tiles cover it with the fewer padded elements,
-    the first on a tie (``wb_kind``)."""
+    """Which of :data:`WB_TILES` the weight products (``vfb_wgrad_wgmma``,
+    ``vfb_wgrad_tf32``) take for an M x N product: the one whose tiles
+    cover it with the fewer padded elements, the first on a tie
+    (``wb_kind``)."""
     area = [-(-m // tm) * -(-n // tn) * tm * tn for tm, tn in WB_TILES]
     return 1 if area[1] < area[0] else 0
 
@@ -438,21 +440,18 @@ def weight_splits(rows: int, d: int, dh: int, shapes=None, *,
     of ``dtype`` operands are split into; fixed by the shape, so the
     reduction order, and the result, are the same every run.
 
-    bf16 (``vfb_wgrad_wgmma``, ``wgrad_splits`` of csrc/vector_field_bwd.cu):
-    the fewest slices whose CTAs, one an SM, fill at least 9/10 of the
-    waves they take on 132 SMs, each slice at least 512 rows in whole
-    stages of 64 and none empty (where none does, the fullest). f32
-    (``vfb_wgrad_f32``'s 64 x 64 tiles): about four CTAs per SM, each
-    slice at least 256 rows."""
+    ``wgrad_splits`` of csrc/vector_field_bwd.cu, for both kernels: the
+    fewest slices whose CTAs, one an SM, fill at least 9/10 of the waves
+    they take on 132 SMs, each slice at least 512 rows and none empty
+    (where none does, the fullest), in whole steps of the kernel's rows:
+    stages of 64 in bf16 (``vfb_wgrad_wgmma``), slices of 32 in f32
+    (``vfb_wgrad_tf32``)."""
     shapes = shapes or ((d, 3 * d), (d, d), (d, dh), (dh, d))
-    if dtype == torch.float32:
-        t = lambda m: -(-m // 64)
-        tiles = sum(t(m) * t(n) for m, n in shapes)
-        return max(1, min(math.ceil(4 * _SMS / tiles), rows // 256))
+    step = WB_ROWS if dtype == torch.bfloat16 else TG_ROWS
     tiles = sum(wgrad_tiles(m, n) for m, n in shapes)
     best, best_fill = 1, (0, 1)
     for s in range(1, max(1, rows // WB_MIN_SLICE) + 1):
-        per = -(-(-(-rows // s)) // WB_ROWS) * WB_ROWS
+        per = -(-(-(-rows // s)) // step) * step
         if (s - 1) * per >= rows:
             continue                    # the last slice would be empty
         ctas = tiles * s

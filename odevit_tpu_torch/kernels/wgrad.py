@@ -2,15 +2,15 @@
 
 Every bf16 backward of the port (one CTA per image, tiled, key-tiled, the
 split halves, both Macaron backwards) hands its weight cotangents to one
-kernel of ``csrc/vector_field_bwd.cu``: W_bar[M, N] = A[R, M]^T G[R, N]
-over all B n_pad rows of the backward, up to four products a launch, each
-CTA summing one output tile over one fixed slice of rows into its own
-partial, then ``vfb_reduce`` adding the partials in a fixed order, so two
-runs give the same bits. The backwards launch it from C++;
-:func:`weight_bars` launches it alone, so that ``chip_smoke.py`` can hold
-it against a float64 product of the same operands and time it beside
-``torch.matmul``. f32 operands take ``vfb_wgrad_f32``, the f32 products of
-the one-CTA and tiled backwards.
+kernel of ``csrc/vector_field_bwd.cu``, ``vfb_wgrad_wgmma``, and every f32
+ViTODE backward (the same routes but Macaron's) to its split-TF32 twin,
+``vfb_wgrad_tf32``: W_bar[M, N] = A[R, M]^T G[R, N] over all B n_pad rows
+of the backward, up to four products a launch, each CTA summing one
+output tile over one fixed slice of rows into its own partial, then
+``vfb_reduce`` adding the partials in a fixed order, so two runs give the
+same bits. The backwards launch them from C++; :func:`weight_bars`
+launches them alone, so that ``chip_smoke.py`` can hold each against a
+float64 product of the same operands and time it beside ``torch.matmul``.
 
 It replaces no TPU kernel of its own: it is the weight accumulation of
 ``_vf_bwd_kernel``, ``_mlp_bwd_kernel`` and ``_attn_bwd_kernel``
@@ -57,14 +57,17 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def wgrad_launches() -> int:
-    """Launches so far of the bf16 weight-product kernel, summed over the
+def wgrad_launches(dtype: torch.dtype) -> int:
+    """Launches so far of the weight-product kernel of ``dtype`` operands
+    (bf16: ``vfb_wgrad_wgmma``, f32: ``vfb_wgrad_tf32``), summed over the
     libraries that compile it (each keeps its own count in C; loading one
     builds it)."""
     from odevit_tpu_torch.kernels import build
     total = 0
     for name in LIBRARIES:
-        fn = build.load(name).vfb_wgrad_launches
+        lib = build.load(name)
+        fn = (lib.vfb_wgrad_launches if dtype == torch.bfloat16
+              else lib.vfb_wgrad_tf32_launches)
         fn.argtypes = []
         fn.restype = ctypes.c_ulonglong
         total += fn()
@@ -109,7 +112,7 @@ def weight_bars(pairs, splits: int | None = None):
     rule, ``weight_splits`` of the pairs' shapes).
 
     A CUDA tensor launches the kernel and ``vfb_reduce`` (counted as
-    ``vfb_wgrad_wgmma``, or ``vfb_wgrad_f32`` in f32); a CPU tensor runs
+    ``vfb_wgrad_wgmma``, or ``vfb_wgrad_tf32`` in f32); a CPU tensor runs
     :func:`weight_bars_plain`."""
     _check(pairs)
     a0 = pairs[0][0]
@@ -134,6 +137,6 @@ def weight_bars(pairs, splits: int | None = None):
         raise RuntimeError("weight-product launch failed: "
                            + lib.vfb_error_string(err).decode())
     count_launch("vfb_wgrad_wgmma" if a0.dtype == torch.bfloat16
-                 else "vfb_wgrad_f32")
+                 else "vfb_wgrad_tf32")
     return [t.view(m, n) for t, (m, n) in
             zip(torch.split(out, [m * n for m, n in shapes]), shapes)]

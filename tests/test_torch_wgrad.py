@@ -1,13 +1,15 @@
-"""The bf16 weight product of every backward, ``vfb_wgrad_wgmma``
-(``csrc/vector_field_bwd.cu``), on the CPU: the plain version of
-:func:`weight_bars` against JAX's ``jnp.dot(a.T, g,
+"""The weight products of every backward, ``vfb_wgrad_wgmma`` (bf16) and
+``vfb_wgrad_tf32`` (f32; ``csrc/vector_field_bwd.cu``), on the CPU: the
+plain version of :func:`weight_bars` against JAX's ``jnp.dot(a.T, g,
 preferred_element_type=jnp.float32)`` on the same numpy-seeded bf16
 operands (ragged sizes, one and four products; tolerance 1e-5 of the
 output scale: bf16 products are exact in f32, the sums over 300 rows run
-in another order), the split rule frozen at the training cells' shapes
-with its invariants, the kernel's tile and stage constants frozen in the
-source, and the wrapper's checks. ``chip_smoke.py``'s ``wgrad_vs_plain``
-holds the kernel itself against a float64 product on the card."""
+in another order), CPU tensors of either dtype taking the plain version,
+the split rules of both dtypes frozen at the training cells' shapes with
+their invariants, the kernels' tile, slice and stage constants frozen in
+the source, and the wrapper's checks. ``chip_smoke.py``'s
+``wgrad_vs_plain`` holds the kernels themselves against a float64
+product on the card."""
 
 import re
 from pathlib import Path
@@ -20,11 +22,12 @@ import torch
 from odevit_tpu_torch.kernels import launch_counts
 from odevit_tpu_torch.kernels.macaron_bwd import wgrad_splits
 from odevit_tpu_torch.kernels.vector_field_bwd import (
-    _SMS, WB_MIN_SLICE, WB_ROWS, WB_TILES, weight_splits, wgrad_tile)
+    _SMS, TG_ROWS, WB_MIN_SLICE, WB_ROWS, WB_TILES, weight_splits,
+    wgrad_tile)
 from odevit_tpu_torch.kernels.wgrad import weight_bars, weight_bars_plain
 
-SRC = Path(__file__).resolve().parents[1] / "odevit_tpu_torch" / "csrc" \
-    / "vector_field_bwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "odevit_tpu_torch" / "csrc"
+SRC = CSRC / "vector_field_bwd.cu"
 TOL = 1e-5
 ROWS = 300
 PAIRS = {"one": ((48, 80),),
@@ -59,9 +62,11 @@ def test_plain_matches_jax(name):
         assert err <= TOL, err
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("name", sorted(PAIRS))
-def test_cpu_tensors_take_the_plain_version(name):
-    pairs = [(a, g) for (a, _), (g, _) in operands(PAIRS[name], seed=1)]
+def test_cpu_tensors_take_the_plain_version(name, dtype):
+    pairs = [(a.to(dtype), g.to(dtype))
+             for (a, _), (g, _) in operands(PAIRS[name], seed=1)]
     before = dict(launch_counts)
     got = weight_bars(pairs)
     assert launch_counts == before
@@ -130,15 +135,31 @@ def test_split_invariants():
                     assert all(fill(s) >= fill(k) for k in ks)
 
 
-def test_f32_keeps_its_rule():
-    # vfb_wgrad_f32's 64 x 64 tiles: about four CTAs per SM, slices of
-    # at least 256 rows
-    for rows, d, dh in ((64 * 208, 768, 768), (1024 * 80, 192, 768),
-                        (300, 192, 768)):
-        tiles = sum(-(-m // 64) * -(-n // 64) for m, n in
-                    ((d, 3 * d), (d, d), (d, dh), (dh, d)))
-        want = max(1, min(-(-4 * _SMS // tiles), rows // 256))
-        assert weight_splits(rows, d, dh, dtype=torch.float32) == want
+# vfb_wgrad_tf32's slices at the same cells: the same rule in whole
+# slices of 32 rows
+F32_SPLITS = {"cifar": 7, "tsbase224": 3, "r4_mlp": 3, "r4_attn": 5,
+              "tsbase384": 3}
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_f32_splits_frozen_at_the_cells(cell):
+    rows, d, dh, shapes, _ = CELLS[cell]
+    s = weight_splits(rows, d, dh, shapes, dtype=torch.float32)
+    assert s == F32_SPLITS[cell]
+    # fixed by the shape
+    assert s == weight_splits(rows, d, dh, shapes, dtype=torch.float32)
+    assert 1 <= s <= max(1, rows // WB_MIN_SLICE)
+    # whole 32-row slices of at least 512 rows, none empty
+    per = -(-(-(-rows // s)) // TG_ROWS) * TG_ROWS
+    assert per % TG_ROWS == 0 and per >= WB_MIN_SLICE
+    assert (s - 1) * per < rows
+    # the fewest slices whose CTAs fill 9/10 of their waves on 132 SMs
+    tiles = sum(-(-m // WB_TILES[wgrad_tile(m, n)][0])
+                * -(-n // WB_TILES[wgrad_tile(m, n)][1])
+                for m, n in shapes or ((d, 3 * d), (d, d), (d, dh),
+                                       (dh, d)))
+    fill = lambda k: tiles * k / (-(-tiles * k // _SMS) * _SMS)
+    assert fill(s) >= 0.9 and all(fill(k) < 0.9 for k in range(1, s))
 
 
 @pytest.mark.parametrize("m, n, tile", [
@@ -150,11 +171,11 @@ def test_tile_choice(m, n, tile):
     assert wgrad_tile(m, n) == tile
 
 
-def test_constants_frozen_in_the_source():
-    # stages of 64 rows, four 64-column boxes (128 bytes) a stage, a ring
-    # of six, a fresh accumulator every eight stages, two consumer
-    # warpgroups and a producer warp, slices of at least 512 rows, 132 SMs
-    src = SRC.read_text()
+def wgmma_constants(src):
+    # vfb_wgrad_wgmma: stages of 64 rows, four 64-column boxes (128 bytes)
+    # a stage, a ring of six, a fresh accumulator every eight stages, two
+    # consumer warpgroups and a producer warp, slices of at least 512
+    # rows, 132 SMs
     want = {"kWbRows": WB_ROWS, "kWbBox": 64, "kWbBoxes": 4,
             "kWbStages": 6, "kWbChunk": 8, "kWbConsumers": 256,
             "kWbMinSlice": WB_MIN_SLICE, "kWbSms": _SMS}
@@ -169,6 +190,40 @@ def test_constants_frozen_in_the_source():
     # the WMMA kernel it replaced is gone
     assert "vfb_wgrad_bf16" not in src
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
+
+
+def tf32_constants(src):
+    # vfb_wgrad_tf32: slices of 32 rows through three landing slots, two
+    # warpgroups, landed rows of 136 (A, 128 + 8) and 196 (G, 192 + 4)
+    # floats
+    want = {"kTgRows": TG_ROWS, "kTgLand": 3, "kTgThreads": 256,
+            "kTgLdA": 136, "kTgLdG": 196}
+    consts = dict(re.findall(r"constexpr int (kTg\w+) = (\d+);", src))
+    assert {k: int(consts[k]) for k in want} == want
+    assert "static_assert(kTgSmem <= 232448" in src
+    # a warp's A fragment loads, A(m, k) at landed row k, column m (m =
+    # lane / 4 + const, k = lane % 4 + const), fall on 32 banks
+    ld = want["kTgLdA"]
+    assert len({(k * ld + m) % 32 for k in range(4) for m in range(8)}) == 32
+    # the launcher's slices are the Python rule's steps
+    assert "slice_rows(ps.rows, splits, kTgRows)" in src
+    assert "tbytes == 2 ? kWbRows : kTgRows" in src
+    # split TF32 on wgmma (the instructions live in split_tf32.cuh); the
+    # CUDA-core kernel it replaced is gone
+    assert "vf::wgmma_tf32_m64n128_rs" in src
+    assert "vf::wgmma_tf32_m64n96_rs" in src
+    header = (CSRC / "split_tf32.cuh").read_text()
+    for n in (96, 128):
+        assert (f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32"
+                in header)
+    assert "vfb_wgrad_f32" not in src and "wgrad_cuda_f32" not in src
+
+
+@pytest.mark.parametrize("kernel", ["vfb_wgrad_wgmma", "vfb_wgrad_tf32"])
+def test_constants_frozen_in_the_source(kernel):
+    check = {"vfb_wgrad_wgmma": wgmma_constants,
+             "vfb_wgrad_tf32": tf32_constants}[kernel]
+    check(SRC.read_text())
 
 
 def bf16(*shape):
