@@ -37,7 +37,15 @@ Phases:
      first gradient compared, launches counted, steps timed;
   7. the training kernels alone at B=1024 against their plain versions;
      then the f32 cell cifar100-vitode-train-b1024-f32: phase 6 with an
-     f32 model, through the kernels and the plain path, profiled;
+     f32 model, through the kernels and the plain path, profiled (48
+     ``vf_kernel_f32`` and 48 ``vfb_rows_f32`` a step by their C
+     counters, none of the CUDA-core f32 instances they replaced), and
+     ``train_f32_kernel_timing``: those two kernels alone at its state
+     (base, Euler, JaSMin, dropout 0.1; the backward ± the JaSMin
+     cotangent) beside split TF32's floor, their registers and spills,
+     and the tiled route's f32 forward and backward as a yardstick; every
+     kernel-vs-plain phase holds its f32 calls' one-CTA launches against
+     the same C counters;
   8. dropout masks: the generator kernel (``generate_dropout_masks``) at
      B=1024 against the plain generator, bit for bit, for three seeds;
      values, keep rates, and masks that change with seed, site, head and
@@ -322,7 +330,9 @@ def phase_kernel_vs_plain(model):
     check(n_real == 69, f"slice shape has 69 tokens, got {n_real}")
     g = torch.Generator(device="cuda").manual_seed(1)
     results = []
+    tally = F32Tally()
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        tally.start(dtype)
         w = model.vf.kernel_weights(dtype)
         x = torch.randn(b, n_pad, d, generator=g, device="cuda")
         x[:, n_real:] = 0
@@ -352,10 +362,13 @@ def phase_kernel_vs_plain(model):
         check(same, f"{dtype}: padded rows changed real rows")
         results.append({"dtype": str(dtype), "mode": "euler, NaN padding",
                         "real_rows_unchanged": same})
+        tally.stop(dtype)
     # a second, small shape (D=64, 2 heads, dh=128, 19 tokens padded to
     # 32), where the kernel takes its other plan (q|k|v in one product)
     from odevit_tpu_torch.kernels.vector_field import VFWeights, kernel_plan
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        tally.start(dtype)
+
         def r(*shape, scale=0.2, shift=0.0):
             return (torch.randn(*shape, generator=g, device="cuda") * scale
                     + shift)
@@ -376,6 +389,8 @@ def phase_kernel_vs_plain(model):
                             "plan": kernel_plan(dtype, 32, 19, 64, 2, 128),
                             "rel_err": err, "tol": tol})
             check(err <= tol, f"small {dtype} {mode}: rel err {err} > {tol}")
+        tally.stop(dtype)
+    results.append(tally.check("kernel_vs_plain"))
     # a shape without a one-image-per-CTA plan (the 224 px TS-Base
     # evaluation: 207 tokens, D=768, 12 heads) takes the tiled route's
     # Euler and stage-advance modes
@@ -627,7 +642,9 @@ def phase_train_kernels_vs_plain(model):
     g = torch.Generator(device="cuda").manual_seed(2)
     before = dict(launch_counts)
     results = []
+    tally = F32Tally()
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        tally.start(dtype)
         kinds = ("random", "ties", "peaked") if dtype == torch.bfloat16 \
             else ("random", "ties")
         for kind in kinds:
@@ -697,6 +714,8 @@ def phase_train_kernels_vs_plain(model):
                 r["nan_padding_unchanged"] = same
                 check(same, f"{dtype}: padded rows reached a real row")
             results.append(r)
+        tally.stop(dtype)
+    results.append(tally.check("train_kernels_vs_plain"))
     launch_counts.update(before)           # comparisons do not count
     emit("train_kernels_vs_plain", results=results)
 
@@ -727,8 +746,9 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    old = [k for k, _, _ in rows if any(o in k for o in OLD_WGRADS)]
-    check(not old, f"profiled step ran {OLD_WGRADS}: {old}")
+    old = [k for k, _, _ in rows
+           if any(o in k for o in OLD_WGRADS + OLD_F32_CTA)]
+    check(not old, f"profiled step ran {OLD_WGRADS + OLD_F32_CTA}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:80], "ms": ms, "count": c}
@@ -774,6 +794,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            cta0 = f32_cta_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -785,6 +806,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        cta = f32_cta_since(cta0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -815,6 +837,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
+            "f32_cta_launches": cta,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -832,6 +855,69 @@ def wgrad_launches() -> dict:
     import torch
     from odevit_tpu_torch.kernels.wgrad import wgrad_launches as count
     return {"bf16": count(torch.bfloat16), "f32": count(torch.float32)}
+
+
+# The wrappers' counters of the one-image-per-CTA forward and backward
+# (every instance): on f32 inputs each launch is one vf_kernel_f32 or one
+# vfb_rows_f32
+CTA_FWD = ("vf_eval", "vf_eval_jasmin", "vf_eval_drop", "vf_eval_jasmin_drop",
+           "vf_eval_l2", "vf_eval_jasmin_l2", "vf_eval_stash",
+           "vf_eval_jasmin_stash", "vf_euler_chain")
+CTA_BWD = ("vf_bwd", "vf_bwd_drop", "vf_bwd_l2", "vf_bwd_resid")
+
+
+def f32_cta_launches() -> dict:
+    """The f32 one-CTA ViTODE kernels' launches so far, by their
+    libraries' C counters: {"fwd": ``vf_kernel_f32``'s, "bwd":
+    ``vfb_rows_f32``'s}."""
+    from odevit_tpu_torch.kernels.vector_field import f32_launches
+    from odevit_tpu_torch.kernels.vector_field_bwd import rows_f32_launches
+    return {"fwd": f32_launches(), "bwd": rows_f32_launches()}
+
+
+def f32_cta_since(before: dict) -> dict:
+    now = f32_cta_launches()
+    return {k: now[k] - before[k] for k in now}
+
+
+def f32_cta_expected(launches: dict) -> dict:
+    """The one-CTA launches among the wrappers' counts ``launches``: what
+    the f32 kernels' C counters should show for f32 calls."""
+    return {"fwd": sum(launches.get(n, 0) for n in CTA_FWD),
+            "bwd": sum(launches.get(n, 0) for n in CTA_BWD)}
+
+
+class F32Tally:
+    """The f32 calls of a kernel-vs-plain phase: the one-CTA launches the
+    wrappers counted for them (what the route says) against the f32
+    kernels' C counters, summed over the spans between ``start`` and
+    ``stop`` (both no-ops for another dtype)."""
+
+    def __init__(self):
+        self.route = {"fwd": 0, "bwd": 0}
+        self.kernels = {"fwd": 0, "bwd": 0}
+
+    def start(self, dtype):
+        import torch
+        from odevit_tpu_torch.kernels import launch_counts
+        if dtype == torch.float32:
+            self._at = (f32_cta_expected(launch_counts), f32_cta_launches())
+
+    def stop(self, dtype):
+        import torch
+        from odevit_tpu_torch.kernels import launch_counts
+        if dtype == torch.float32:
+            route, kernels = (f32_cta_expected(launch_counts),
+                              f32_cta_launches())
+            for k in self.route:
+                self.route[k] += route[k] - self._at[0][k]
+                self.kernels[k] += kernels[k] - self._at[1][k]
+
+    def check(self, what) -> dict:
+        check(self.kernels == self.route,
+              f"{what}: the f32 one-CTA kernels launched {self.kernels}, "
+              f"the route says {self.route}")
+        return {"f32_cta_launches": self.kernels}
 
 
 def wgrad_since(before: dict) -> dict:
@@ -862,7 +948,9 @@ def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
     products: one launch per backward (``wgrad_expected``) of the
     weight-product kernel of ``wgrad`` ("bf16": ``vfb_wgrad_wgmma``,
     "f32": ``vfb_wgrad_tf32``) and none of the other; ``wgrad=None`` (the
-    f32 Macaron backwards, on ``mcb_wgrad_f32``): none of either."""
+    f32 Macaron backwards, on ``mcb_wgrad_f32``): none of either. With
+    ``wgrad="f32"`` the f32 one-CTA kernels' C counters (``vf_kernel_f32``,
+    ``vfb_rows_f32``) equal the step's one-CTA launches; otherwise 0."""
     import numpy as np
     k, p = runs["kernels"], runs["plain"]
     check(all(np.isfinite(v) for v in k["loss"] + p["loss"]),
@@ -876,6 +964,12 @@ def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
               for kind in ("bf16", "f32")}
     check(k["wgrad_launches"] == want_w, f"{name}: {k['wgrad_launches']} "
           f"weight-product launches, want {want_w}")
+    # an f32 ViTODE step launches vf_kernel_f32 / vfb_rows_f32 once per
+    # one-CTA forward / backward (the C counters); any other step neither
+    want_c = (f32_cta_expected(k["launches"]) if wgrad == "f32"
+              else {"fwd": 0, "bwd": 0})
+    check(k["f32_cta_launches"] == want_c, f"{name}: the f32 one-CTA "
+          f"kernels launched {k['f32_cta_launches']}, want {want_c}")
 
 
 def phase_train(images_u8, labels):
@@ -926,7 +1020,169 @@ def phase_train_f32(images_u8, labels):
     check_train("train_f32", runs, cos, loss_rel, per_step,
                 {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48},
                 wgrad="f32")
+    # the profiled step ran the f32 one-CTA kernels (and, by
+    # profile_step, none of the CUDA-core instances they replaced)
+    ran = " ".join(t["kernel"] for t in profile["top"])
+    check("vf_kernel_f32" in ran and "vfb_rows_f32" in ran,
+          f"train_f32's profile lacks the f32 one-CTA kernels: {ran}")
     return runs
+
+
+def f32_bound(flops: float, t_mem: float):
+    """(bound_ms, bound_by) of an f32 kernel: split TF32's floor (three
+    TF32 passes of its products over the TF32 peak) against its bytes'
+    time ``t_mem``."""
+    t_ops = tf32_floor_ms(flops)
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def phase_train_f32_kernel_timing(images_u8):
+    """The f32 one-CTA kernels alone at the f32 cell's state (B=1024, f32:
+    the embedded batch, the first state of the JaSMin window) against
+    their plain versions: ``vf_kernel_f32`` in the base (stage-advance)
+    and Euler modes, JaSMin (k=10) and the dropout instance at 0.1, and
+    the backward (``vfb_rows_f32`` and the weight products and reduce
+    beside it, ``parts`` by profiler) with and without the JaSMin
+    cotangent. Each: ms a launch, split TF32's floor (``tf32_floor_ms``)
+    and the TF32-pass rate, the plain version's ms, registers and spills
+    from ``-Xptxas -v``; the tiled route's f32 forward and backward at the
+    same state as a yardstick (the port's other route for the same
+    function). The C counters hold every launch against the route."""
+    import torch
+    from odevit_tpu_torch.data.pipeline import make_preprocess
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.tiled import tiled_backward, tiled_forward
+    from odevit_tpu_torch.kernels.vector_field import (pad_tokens, vf_eval,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import (_split_bars,
+                                                           vf_bwd,
+                                                           weight_splits)
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    before = dict(launch_counts)
+    tally = F32Tally()
+    tally.start(torch.float32)
+    model = ViTODE(**SHAPE, num_eval_steps=13, solver="rk4",
+                   dtype=torch.float32, device="cuda", seed=0)
+    b, d, dh, heads = BATCH, 192, 768, 3
+    with torch.no_grad():
+        tokens = model.patch_embed(make_preprocess(
+            dtype=torch.float32)(images_u8))
+        n_real = tokens.shape[1]
+        n_pad = pad_tokens(n_real)
+        x = torch.nn.functional.pad(
+            tokens, (0, 0, 0, n_pad - n_real)).contiguous()
+        check(x.dtype == torch.float32, f"f32 state is {x.dtype}")
+        w = model.vf.kernel_weights(torch.float32)
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        g = torch.Generator(device="cuda").manual_seed(31)
+        gx = torch.randn(x.shape, generator=g, device="cuda") * 1e-3
+        gx[:, n_real:] = 0
+        base = x + 1e-2 * torch.randn(x.shape, generator=g, device="cuda")
+        dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+        _, st, idx = vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw)
+        gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+        gj[..., n_real:] = 0
+        fwd_flops = b * (n_real * (8 * d * d + 4 * d * dh)
+                         + 4 * n_real * n_real * d)
+        bwd_flops = b * (n_real * (10 * d * dh + 22 * d * d)
+                         + 12 * n_real * n_real * d)
+        # vfb_rows_f32's own products: the backward's less the weight
+        # products, which vfb_wgrad_tf32 takes over all padded rows
+        rows_flops = bwd_flops - b * n_pad * (8 * d * d + 4 * d * dh)
+        wbytes = (4 * d * d + 2 * d * dh) * 4
+        cut = lambda t: t[:, :n_real]
+        fwd_cases = {
+            "base": (lambda plain=False: vf_eval(
+                x, w, mode="base", dt=1.0 / 12, base=base, plain=plain, **kw),
+                3),
+            "euler": (lambda plain=False: vf_eval(
+                x, w, mode="euler", dt=1.0 / 12, plain=plain, **kw), 2),
+            "jasmin": (lambda plain=False: vf_eval_jasmin(
+                x, w, jas_k=JASMIN_K, plain=plain, **kw)[0], 2),
+            "dropout_0.1": (lambda plain=False: vf_eval(
+                x, w, plain=plain, **kw, **dkw), 2)}
+        out = {}
+        res = kernel_resources("vector_field", ["vf_kernel_f32"])
+        for name, (fn, states) in fwd_cases.items():
+            got, want = fn(), fn(plain=True)
+            torch.cuda.synchronize()
+            err = rel_err(cut(got), cut(want))
+            check(err <= TOL_F32, f"f32 {name} at B={b}: {err}")
+            ms = cuda_ms(fn, iters=10)
+            t_mem = (states * b * n_pad * d * 4 + wbytes) / PEAK_BYTES_PER_S \
+                * 1e3
+            out[name] = {
+                "max_abs_err": (cut(got) - cut(want)).abs().max().item(),
+                "rel_err": err, "ms": ms,
+                "plain_ms": cuda_ms(lambda: fn(plain=True), iters=2),
+                "tf32_floor_ms": tf32_floor_ms(fwd_flops),
+                "tf32_pass_tflops": 3 * fwd_flops / ms / 1e9,
+                **dict(zip(("bound_ms", "bound_by"),
+                           f32_bound(fwd_flops, t_mem)))}
+        out["forward_resources"] = res
+        for name, extra in (("bwd", {}),
+                            ("bwd_jas", dict(g_jas=gj, jas_idx=idx))):
+            got = vf_bwd(x, w, gx, **kw, **extra)
+            want = vf_bwd(x, w, gx, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            errs = [rel_err(cut(got[0]), cut(want[0]))] + [
+                rel_err(a, c) for a, c in zip(got[1:], want[1:])]
+            check(max(errs) <= TOL_F32, f"f32 {name} at B={b}: {errs}")
+            fn = lambda: vf_bwd(x, w, gx, **kw, **extra)
+            ms = cuda_ms(fn, iters=5)
+            parts = kernel_parts(fn)
+            rows = [v for k, v in parts.items() if "vfb_rows_f32" in k]
+            check(len(rows) == 1, f"{name}: parts {list(parts)}")
+            rows_ms = rows[0]["ms_per_launch"]
+            t_mem = ((3 * b * n_pad * d + 4 * d * d + 2 * d * dh) * 4
+                     + wbytes) / PEAK_BYTES_PER_S * 1e3
+            out[name] = {
+                "max_abs_err": max((a - c).abs().max().item()
+                                   for a, c in zip(got[1:], want[1:])),
+                "max_abs_err_x": (cut(got[0]) - cut(want[0])).abs().max()
+                .item(), "rel_errs": errs, "ms": ms,
+                "plain_ms": cuda_ms(lambda: vf_bwd(
+                    x, w, gx, plain=True, **kw, **extra), iters=2),
+                "tf32_floor_ms": tf32_floor_ms(bwd_flops),
+                **dict(zip(("bound_ms", "bound_by"),
+                           f32_bound(bwd_flops, t_mem))),
+                "vfb_rows_f32_ms": rows_ms,
+                "vfb_rows_f32_tf32_floor_ms": tf32_floor_ms(rows_flops),
+                "vfb_rows_f32_tf32_pass_tflops": 3 * rows_flops / rows_ms
+                / 1e9, "parts": parts}
+        out["backward_resources"] = kernel_resources("vector_field_bwd",
+                                                     ["vfb_rows_f32"])
+        spills = [r for part in ("forward_resources", "backward_resources")
+                  for r in out[part].values()
+                  if r["spill_stores"] or r["spill_loads"]]
+        check(not spills, f"the f32 one-CTA kernels spill: {spills}")
+        # the tiled route at the same state: the port's other route for
+        # the same function, as a yardstick
+        splits = weight_splits(b * n_pad, d, dh, dtype=torch.float32)
+        tf = lambda: tiled_forward(x, w, mode="base", dt=1.0 / 12,
+                                   base=base, **kw)[0]
+        tb = lambda: tiled_backward(x, w, gx, splits=splits, g_jas=gj,
+                                    jas_idx=idx, **kw)
+        terr = rel_err(cut(tf()), cut(fwd_cases["base"][0](plain=True)))
+        tbars = _split_bars(*tb(), d, dh)
+        pbars = vf_bwd(x, w, gx, g_jas=gj, jas_idx=idx, plain=True, **kw)
+        torch.cuda.synchronize()
+        tberr = max([rel_err(cut(tbars[0]), cut(pbars[0]))]
+                    + [rel_err(a, c) for a, c in zip(tbars[1:], pbars[1:])])
+        check(max(terr, tberr) <= TOL_F32, f"tiled f32 yardstick: "
+              f"{terr}, {tberr}")
+        out["tiled_yardstick"] = {
+            "forward_base_ms": cuda_ms(tf, iters=5),
+            "backward_jas_ms": cuda_ms(tb, iters=5),
+            "rel_err_fwd": terr, "rel_err_bwd": tberr}
+    tally.stop(torch.float32)
+    out.update(tally.check("train_f32_kernel_timing"))
+    launch_counts.update(before)           # comparisons do not count
+    emit("train_f32_kernel_timing", cell=F32_TRAIN_CELL,
+         shape=f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh} f32",
+         results=out)
+    del model
+    return out
 
 
 def phase_distill_f32(teacher, images_u8, labels):
@@ -1118,7 +1374,9 @@ def phase_dropout_kernels_vs_plain(model):
     g = torch.Generator(device="cuda").manual_seed(6)
     before = dict(launch_counts)
     results = []
+    tally = F32Tally()
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        tally.start(dtype)
         w, x, gx, gj = train_case(model, b, dtype, "random", g)
         r = {"dtype": str(dtype), "tol": tol, "drops": DROP_RATES,
              "shape": f"B={b} n={n_real}/80 D=192 H=3 dh=768"}
@@ -1191,6 +1449,7 @@ def phase_dropout_kernels_vs_plain(model):
         check(same, f"dropout {dtype}: padded rows reached a real row")
         results.append(r)
     # sites of rate 0 beside sites with dropout (f32: exact masks)
+    tally.start(x.dtype)
     for drops in ((0.0, 0.3, 0.0), (0.2, 0.0, 0.1)):
         mixed = dict(seed=DROP_SEEDS[0], drops=drops)
         errs = [rel_err(a[:, :n_real], b_[:, :n_real]) for a, b_ in zip(
@@ -1210,6 +1469,8 @@ def phase_dropout_kernels_vs_plain(model):
           and torch.equal(zero, vf_eval(x, w, **kw)))
     results.append({"rates_0_with_seed": routed, "deterministic": ok})
     check(ok, f"rates of 0 did not take the deterministic instance: {routed}")
+    tally.stop(x.dtype)
+    results.append(tally.check("dropout_kernels_vs_plain"))
     launch_counts.update(before)           # comparisons do not count
     emit("dropout_kernels_vs_plain", results=results)
 
@@ -1537,6 +1798,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            cta0 = f32_cta_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1548,6 +1810,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        cta = f32_cta_since(cta0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
                  if drops else None)
@@ -1583,6 +1846,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                          "backward": ev[2].elapsed_time(ev[3]),
                          "optimizer": ev[3].elapsed_time(ev[4])},
             "launches": launches, "wgrad_launches": wgrad,
+            "f32_cta_launches": cta,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -2332,10 +2596,12 @@ def phase_stash_kernels_vs_plain():
     g = torch.Generator(device="cuda").manual_seed(13)
     before = dict(launch_counts)
     results = []
+    tally = F32Tally()
     for shape, (n_real, n_pad, d, heads, dh) in STASH_SHAPES.items():
         fwd_c, jas_c, bwd_c = STASH_ROUTES[shape]
         for dtype, tol in ((torch.bfloat16, TOL_BF16),
                            (torch.float32, TOL_F32)):
+            tally.start(dtype)
             w = stash_weights(dtype, d, heads, dh, g)
             kw = dict(num_heads=heads, scaler=0.25, n_real=n_real)
             x = torch.randn(b, n_pad, d, generator=g, device="cuda")
@@ -2428,6 +2694,8 @@ def phase_stash_kernels_vs_plain():
             check(r["nan_padding_unchanged"],
                   f"stash {shape} {dtype}: padded rows reached a real row")
             results.append(r)
+            tally.stop(dtype)
+    results.append(tally.check("stash_kernels_vs_plain"))
     launch_counts.update(before)           # comparisons do not count
     emit("stash_kernels_vs_plain", results=results)
 
@@ -3172,16 +3440,43 @@ def l2_model(solver="rk4", steps=13, dtype="bfloat16", seed=0,
 def l2_plans_agree():
     """The Python plans that route L2 on either device (``l2_plan``,
     ``l2_bwd_plan``) against the CUDA sources' ``vf_plan``/``vfb_plan``
-    over a sweep of shapes: the same plan, or none on both sides."""
+    over a sweep of shapes: the same plan, or none on both sides. On the
+    same sweep, the Python copies of the other instances' route plans
+    (``cta_plan``, ``cta_bwd_plan``: deterministic and dropout) and of
+    the f32 kernels' layouts (``f32_plan``, ``f32_bwd_plan``: each
+    instance) against ``vf_plan``/``vfb_plan`` and ``vf_plan_f32``/
+    ``vfb_plan_f32``."""
     import torch
-    from odevit_tpu_torch.kernels.vector_field import kernel_plan, l2_plan
-    from odevit_tpu_torch.kernels.vector_field_bwd import bwd_plan, l2_bwd_plan
+    from odevit_tpu_torch.kernels.vector_field import (cta_plan, f32_plan,
+                                                       kernel_plan,
+                                                       kernel_plan_f32,
+                                                       l2_plan)
+    from odevit_tpu_torch.kernels.vector_field_bwd import (
+        bwd_plan, cta_bwd_plan, f32_bwd_plan, kernel_bwd_plan_f32,
+        l2_bwd_plan)
 
-    def c_plan(fn, *args):
+    def c_plan(fn, *args, l2=True, **kw):
         try:
-            return tuple(fn(*args, l2=True))
+            return tuple(fn(*args, l2=l2, **kw))
         except ValueError:
             return None
+
+    def other_plans_agree(dtype, *shape):
+        for drop in (False, True):
+            for py, c in ((cta_plan, kernel_plan), (cta_bwd_plan, bwd_plan)):
+                got = py(dtype, *shape, drop=drop)
+                want = c_plan(c, dtype, *shape, drop, l2=False)
+                check(got == want, f"{py.__name__} {dtype} {shape} "
+                      f"drop={drop}: python {got}, CUDA {want}")
+        if dtype != torch.float32:
+            return
+        for drop, l2 in ((False, False), (True, False), (False, True)):
+            for py, c in ((f32_plan, kernel_plan_f32),
+                          (f32_bwd_plan, kernel_bwd_plan_f32)):
+                got = py(*shape, drop=drop, l2=l2)
+                want = c_plan(c, *shape, drop=drop, l2=l2)
+                check(got == want, f"{py.__name__} {shape} drop={drop} "
+                      f"l2={l2}: python {got}, CUDA {want}")
     shapes = 0
     for dtype in (torch.bfloat16, torch.float32):
         for n_pad in (16, 32, 64, 80, 96, 112, 128, 144):
@@ -3196,6 +3491,7 @@ def l2_plans_agree():
                           f"vf_plan {want_f}")
                     check(got_b == want_b, f"L2 bwd plan {args}: python "
                           f"{got_b}, vfb_plan {want_b}")
+                    other_plans_agree(*args)
                     shapes += 1
     return shapes
 
@@ -3233,7 +3529,9 @@ def phase_l2_kernels_vs_plain(tsbase=False):
         return out
 
     results = []
+    tally = F32Tally()
     for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+        tally.start(dtype)
         for kind in ("random", "far"):
             w = model.vf.kernel_weights(dtype)
             if kind == "far":
@@ -3318,6 +3616,8 @@ def phase_l2_kernels_vs_plain(tsbase=False):
                 r["nan_padding_unchanged"] = same
                 check(same, f"L2 {dtype}: padded rows reached a real row")
             results.append(r)
+        tally.stop(dtype)
+    results.append(tally.check("l2_kernels_vs_plain"))
     shapes = tiled_plans_agree() if tsbase else l2_plans_agree()
     launch_counts.update(before)           # comparisons do not count
     emit("l2_tiled_kernels_vs_plain" if tsbase else "l2_kernels_vs_plain",
@@ -3792,6 +4092,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            cta0 = f32_cta_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -3803,6 +4104,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        cta = f32_cta_since(cta0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state.optimizer.zero_grad(set_to_none=True)
@@ -3826,6 +4128,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
+            "f32_cta_launches": cta,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -4207,6 +4510,9 @@ WGRAD_KERNEL = "vfb_wgrad_wgmma"
 TF32_WGRAD_KERNEL = "vfb_wgrad_tf32"
 # the kernels they replaced: bf16 WMMA tiles, and f32 on the CUDA cores
 OLD_WGRADS = ("vfb_wgrad_bf16", "vfb_wgrad_f32")
+# the one-CTA kernels' CUDA-core f32 instances, which vf_kernel_f32 and
+# vfb_rows_f32 replaced: no step may launch them
+OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float")
 # bf16 products are exact in f32: only the f32 sums over up to 163,840
 # rows err (fresh accumulators every 512 rows); sound runs read below
 # 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
@@ -5676,6 +5982,7 @@ def main() -> int:
     train_launches, train = phase_train(images, labels)
     train_timing = phase_train_kernel_timing(models["rk4-13"], images)
     train_f32 = phase_train_f32(images, labels)
+    f32_timing = phase_train_f32_kernel_timing(images)
     # the dropout slice at the CIFAR shape
     mask_launches = phase_dropout_masks(models["rk4-13"])
     phase_dropout_kernels_vs_plain(models["rk4-13"])
@@ -5789,6 +6096,31 @@ def main() -> int:
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by")},
         "library_ms": None}]
+    # the f32 one-CTA kernels on the f32 cell's path (its 3 kernel steps;
+    # vf_kernel_f32 and vfb_rows_f32 by their C counters beside), timed at
+    # its state
+    f32_path = train_f32["kernels"]
+    for name, case, counter, source, replaces, kernel in (
+            ("vf_eval_f32", "base", "vf_eval", "vector_field.cu",
+             "vector_field.py:196", "vf_kernel_f32"),
+            ("vf_eval_jasmin_f32", "jasmin", "vf_eval_jasmin",
+             "vector_field.cu", "vector_field.py:196", "vf_kernel_f32"),
+            ("vf_bwd_f32", "bwd_jas", "vf_bwd", "vector_field_bwd.cu",
+             "vector_field_bwd.py:117", "vfb_rows_f32")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"odevit_tpu_torch/csrc/{source}",
+            "replaces": f"odevit_tpu/kernels/{replaces}", "kernel": kernel,
+            "launches": f32_path["launches"][counter],
+            "launches_of": F32_TRAIN_CELL,
+            "kernel_launches": f32_path["f32_cta_launches"][
+                "bwd" if kernel == "vfb_rows_f32" else "fwd"],
+            **{k: v for k, v in f32_timing[case].items()
+               if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "tf32_floor_ms", "tf32_pass_tflops",
+                        "vfb_rows_f32_ms", "vfb_rows_f32_tf32_floor_ms",
+                        "vfb_rows_f32_tf32_pass_tflops")},
+            "library_ms": None})
     tiled_timing = {**distill_timing, **ddrop_timing}
     for name in (*DISTILL_LAUNCHES, *DISTILL_DROP_LAUNCHES):
         kernels.append({
@@ -6020,7 +6352,7 @@ def main() -> int:
             else:
                 path, launches = "wgrad_vs_plain", case["launches"]
             kernels.append(wgrad_entry(kind, label, case, path, launches))
-    check(len(kernels) == 41 + len(long_timing) + len(WGRAD_SHAPES)
+    check(len(kernels) == 44 + len(long_timing) + len(WGRAD_SHAPES)
           + len(WGRAD_F32_SHAPES),
           f"{len(kernels)} kernels in the line")
     print(smi, flush=True)

@@ -176,254 +176,10 @@ __device__ inline void add_row_vector(float* dst, int ld, const float* v,
     dst[(size_t)(i / w) * ld + i % w] += alpha * v[i % w];
 }
 
-// ---- split-TF32 products staged through shared memory (gemm_tf32) ----
-// The f32 backward's products (macaron_bwd.cu) run here; mm_f32 stays
-// the forward's. Operands in device memory reach shared memory by
-// 16-byte cp.async, K in slices of kSlice through a ring of kStages slots:
-// the next slice lands while this one is multiplied. Each element is split
-// once, where it lands, into a big and a small TF32 plane (split_tf32's
-// split); every warp then reads the planes with no conversion. Operands
-// the CTA produced itself may stay in shared memory as planes. Each warp
-// owns a register tile of up to kTileRows x kTileCols m16n8k8 tiles (48 x
-// 32 of C), fed by mma.sync in three passes per k-step in mm_f32's order
-// (small x big, big x small, big x big), the sums in f32 registers. The
-// epilogue receives the results from registers, two adjacent columns at a
-// time; nothing goes through shared memory unless the epilogue puts it
-// there.
-
-constexpr int kSlice = 16;         // K of one staged slice
-constexpr int kLdK = kSlice + 4;   // stride of a K-contiguous staged tile
-constexpr int kTileRows = 3;       // m16 tiles of a warp's register tile
-constexpr int kTileCols = 4;       // n8 tiles of a warp's register tile
-constexpr int kStages = 2;         // slots of the staging ring
-constexpr int kMaxOwn = 3;         // 16-byte chunks a thread stages: M * 4
-                                   // + 4 nb, and M <= 96 or nb <= 128
-
-// The A operand [M, K]: staged from device memory (row m at g + m * ld, K
-// contiguous; kAStaged), or planes resident in shared memory, row-major
-// (kAPlanes) or stored [K][M] (kAPlanesT), row stride ld.
-enum { kAStaged = 0, kAPlanes = 1, kAPlanesT = 2 };
-struct OpA {
-  const float* g;
-  int ld;
-  const unsigned* big;
-  const unsigned* small;
-};
-
-// The B operand [K, N] in device memory: row-major, element (k, n) at g +
-// k * ld + col(n) with col(n) = (n / strip) * sstride + n % strip (strips
-// gather a head's q, k and v columns), or with kBT stored [N][K] (at g + n
-// * ld + k). Staged values are multiplied by `scale` before the split.
-struct OpB {
-  const float* g;
-  int ld;
-  float scale;
-  int strip, sstride;
-};
-
-__device__ inline OpB op_b(const float* g, int ld, float scale = 1.0f,
-                           int strip = 1 << 30, int sstride = 0) {
-  return OpB{g, ld, scale, strip, sstride};
-}
-
-// The staging ring: kStages slots, each a big plane of `slot` floats (the
-// A slice [M, kSlice] at stride kLdK, then the B slice: [kSlice, nb + 8]
-// or, transposed, [nb, kLdK]) followed by its small plane.
-struct Ring {
-  unsigned* base;
-  int slot;
-};
-
-// Floats of one plane of one ring slot for M rows and column blocks of nb.
-__host__ __device__ inline int ring_slot(int m, int nb) {
-  return m * kLdK + imax(kSlice * (nb + 8), nb * kLdK);
-}
-
-// C[M, N] = A[M, K] B[K, N] (+ cadd[M, N], row stride ldc, in device
-// memory) in f32 by split TF32, N in column blocks of nb; epi(r, c, v0,
-// v1) receives C[r, c] and C[r, c + 1] from registers. cadd is read
-// before the epilogue runs, all of a warp's loads at once. M, N, K
-// multiples of 16, nb of 16; staged rows 16-byte aligned. Every thread of
-// the CTA calls it. It begins with a barrier (the operands written before
-// it are then visible, and the ring free) and ends without one: whoever
-// reads what the epilogue wrote in shared memory syncs first.
-template <int kA, bool kBT, typename Epi>
-__device__ void gemm_tf32(const Ring& ring, int M, int N, int K, int nb,
-                          const OpA& A, const OpB& B, Epi epi,
-                          const float* cadd = nullptr, int ldc = 0) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gq = lane >> 2, tq = lane & 3;
-  const int mt = M / 16, slices = K / kSlice, a_part = M * kLdK;
-  for (int nb0 = 0; nb0 < N; nb0 += nb) {
-    const int nw = imin(nb, N - nb0), nt = nw / 8;
-    const int ldb = kBT ? kLdK : nw + 8;
-    // warp tiles: column groups of kTileCols n8 tiles; the rows split into
-    // as many groups (each at most kTileRows m16 tiles) as the warps allow
-    const int cg = (nt + kTileCols - 1) / kTileCols;
-    int groups = (mt + kTileRows - 1) / kTileRows;
-    while (groups < mt && (groups + 1) * cg <= kWarps) ++groups;
-    const int rpg = (mt + groups - 1) / groups;
-    const int tasks = ((mt + rpg - 1) / rpg) * cg;
-    // this thread's 16-byte chunks of a slice (kMaxOwn at most), the A
-    // slice's first: where each lands in a slot, and
-    // where slice 0's comes from. The same ones are copied and then split,
-    // so a thread waits only for its own copies.
-    const int a_chunks = kA == kAStaged ? M * 4 : 0;
-    const int per = nw / 4;  // chunks of a row-major B slice's row
-    unsigned off[kMaxOwn];
-    const float* src[kMaxOwn];
-#pragma unroll
-    for (int j = 0; j < kMaxOwn; ++j) {
-      const int i = threadIdx.x + j * kThreads, ib = i - a_chunks;
-      off[j] = ~0u;
-      src[j] = nullptr;
-      if (i < a_chunks) {
-        const int m = i >> 2, q = (i & 3) * 4;
-        off[j] = m * kLdK + q;
-        src[j] = A.g + (size_t)m * A.ld + q;
-      } else if (kBT && ib < nw * 4) {
-        const int nn = ib >> 2, q = (ib & 3) * 4;
-        off[j] = a_part + nn * kLdK + q;
-        src[j] = B.g + (size_t)(nb0 + nn) * B.ld + q;
-      } else if (!kBT && ib < kSlice * per) {
-        const int kr = ib / per, q = (ib % per) * 4, col = nb0 + q;
-        off[j] = a_part + kr * ldb + q;
-        src[j] = B.g + (size_t)kr * B.ld + (col / B.strip) * B.sstride +
-                 col % B.strip;
-      }
-    }
-    // slice s of chunk j: a row-major B steps by rows, the others by columns
-    auto slice_src = [&](int j, int s) {
-      const size_t step = !kBT && off[j] >= (unsigned)a_part ? B.ld : 1;
-      return src[j] + (size_t)s * kSlice * step;
-    };
-    auto stage = [&](int s) {
-      unsigned* big = ring.base + (size_t)(s % kStages) * 2 * ring.slot;
-#pragma unroll
-      for (int j = 0; j < kMaxOwn; ++j)
-        if (off[j] != ~0u) cp_async16(big + off[j], slice_src(j, s));
-      cp_async_commit();
-    };
-    auto split = [&](int s) {
-      unsigned* big = ring.base + (size_t)(s % kStages) * 2 * ring.slot;
-#pragma unroll
-      for (int j = 0; j < kMaxOwn; ++j)
-        if (off[j] != ~0u)
-          split4(big + off[j], ring.slot,
-                 off[j] >= (unsigned)a_part ? B.scale : 1.0f);
-    };
-    for (int task0 = 0; task0 < tasks; task0 += kWarps) {
-      const int task = task0 + warp;
-      const bool active = task < tasks;
-      const int r0 = active ? (task / cg) * rpg : 0;
-      const int rows = active ? imin(rpg, mt - r0) : 0;
-      const int j0 = active ? (task % cg) * kTileCols : 0;
-      const int cols = active ? imin(kTileCols, nt - j0) : 0;
-      float acc[kTileRows][kTileCols][4];
-#pragma unroll
-      for (int r = 0; r < kTileRows; ++r)
-#pragma unroll
-        for (int j = 0; j < kTileCols; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.0f;
-      __syncthreads();
-      for (int s = 0; s < kStages - 1 && s < slices; ++s) stage(s);
-      for (int s = 0; s < slices; ++s) {
-        if (s + kStages - 2 < slices)
-          cp_async_wait<kStages - 2>();
-        else
-          cp_async_wait<0>();
-        split(s);
-        // slice s is split; the slot of slice s + kStages - 1, last read
-        // for slice s - 1, is free
-        __syncthreads();
-        if (s + kStages - 1 < slices) stage(s + kStages - 1);
-        if (!active) continue;
-        const unsigned* sb =
-            ring.base + (size_t)(s % kStages) * 2 * ring.slot;
-        const unsigned* ss = sb + ring.slot;
-#pragma unroll 1
-        for (int kk = 0; kk < kSlice; kk += 8) {
-          unsigned fb[kTileCols][2], fs[kTileCols][2];
-#pragma unroll
-          for (int j = 0; j < kTileCols; ++j) {
-            if (j < cols) {
-              const int nn = (j0 + j) * 8 + gq;
-              const int i0 = a_part + (kBT ? nn * kLdK + kk + tq
-                                           : (kk + tq) * ldb + nn);
-              const int i1 = i0 + (kBT ? 4 : 4 * ldb);
-              fb[j][0] = sb[i0];
-              fb[j][1] = sb[i1];
-              fs[j][0] = ss[i0];
-              fs[j][1] = ss[i1];
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < kTileRows; ++r) {
-            if (r < rows) {
-              const int m = (r0 + r) * 16 + gq;
-              const unsigned* pb = kA == kAStaged ? sb : A.big;
-              const unsigned* ps = kA == kAStaged ? ss : A.small;
-              int i0, dr, dk;  // element (m, k), then the steps to m + 8
-              if (kA == kAStaged) {   // and to k + 4
-                i0 = m * kLdK + kk + tq;
-                dr = 8 * kLdK;
-                dk = 4;
-              } else if (kA == kAPlanes) {
-                i0 = m * A.ld + s * kSlice + kk + tq;
-                dr = 8 * A.ld;
-                dk = 4;
-              } else {
-                i0 = (s * kSlice + kk + tq) * A.ld + m;
-                dr = 8;
-                dk = 4 * A.ld;
-              }
-              const unsigned ab[4] = {pb[i0], pb[i0 + dr], pb[i0 + dk],
-                                      pb[i0 + dr + dk]};
-              const unsigned as[4] = {ps[i0], ps[i0 + dr], ps[i0 + dk],
-                                      ps[i0 + dr + dk]};
-#pragma unroll
-              for (int j = 0; j < kTileCols; ++j) {
-                if (j < cols) {
-                  mma_tf32(acc[r][j], as, fb[j]);
-                  mma_tf32(acc[r][j], ab, fs[j]);
-                  mma_tf32(acc[r][j], ab, fb[j]);
-                }
-              }
-            }
-          }
-        }
-      }
-      if (cadd != nullptr) {
-#pragma unroll
-        for (int r = 0; r < kTileRows; ++r)
-#pragma unroll
-          for (int j = 0; j < kTileCols; ++j)
-            if (r < rows && j < cols) {
-              const float* cp = cadd + (size_t)((r0 + r) * 16 + gq) * ldc +
-                                nb0 + (j0 + j) * 8 + 2 * tq;
-              const float2 u = *reinterpret_cast<const float2*>(cp);
-              const float2 w =
-                  *reinterpret_cast<const float2*>(cp + (size_t)8 * ldc);
-              acc[r][j][0] += u.x;
-              acc[r][j][1] += u.y;
-              acc[r][j][2] += w.x;
-              acc[r][j][3] += w.y;
-            }
-      }
-#pragma unroll
-      for (int r = 0; r < kTileRows; ++r)
-#pragma unroll
-        for (int j = 0; j < kTileCols; ++j)
-          if (r < rows && j < cols) {
-            const int row = (r0 + r) * 16 + gq;
-            const int col = nb0 + (j0 + j) * 8 + 2 * tq;
-            epi(row, col, acc[r][j][0], acc[r][j][1]);
-            epi(row + 8, col, acc[r][j][2], acc[r][j][3]);
-          }
-    }
-  }
-}
+// The split-TF32 products staged through shared memory (gemm_tf32, its
+// Ring, OpA and OpB) live in split_tf32.cuh, in this namespace: the
+// Macaron backward and the f32 ViTODE kernels (vf_kernel_f32,
+// vfb_rows_f32) share them.
 
 }  // namespace mac
 

@@ -79,8 +79,12 @@
 // tiles of D=192. Shared-memory rows are padded by 16 bytes so fragment
 // loads hit distinct banks. Weights (0.9 MB in bf16) stay in L2 across
 // the batch.
-// The f32 mode exists for tight checks: its products run on the CUDA
-// cores and its accumulator lives in the output buffer.
+// f32 (the dtype the recipes train in) runs vf_kernel_f32 below: every
+// product on split TF32 (three TF32 passes on mma.sync, operands staged
+// through shared memory by cp.async, each weight slice once per CTA), the
+// accumulator in shared memory. Its bound is split TF32's floor, 0.40 ms
+// at the CIFAR training shape; one 12-warp CTA per SM, a barrier per K
+// slice and the small dependent products of each head limit it.
 //
 // What limits it today: the shared memory of one image (~223 KB) allows
 // one 12-warp CTA per SM, so the barriers between small dependent
@@ -91,10 +95,12 @@
 
 // The device helpers below (namespace vf) are shared with the backward,
 // vector_field_bwd.cu, which includes this file with VF_HELPERS_ONLY
-// defined. Products: bf16 WMMA fragments (16x16x16, f32 accumulators) or,
-// for the f32 check mode, plain loops on the CUDA cores. Both walk K in
-// the same order whatever the product's layout, so a product recomputed
-// by the backward is bit-identical to the forward's.
+// defined. Products: bf16 WMMA fragments (16x16x16, f32 accumulators) or
+// plain f32 loops on the CUDA cores (the f32 overload of vf::mm, which the
+// tiled route's f32 attention CTAs still call). Both walk K in the same
+// order whatever the product's layout, so a product recomputed by the
+// backward is bit-identical to the forward's; the f32 one-CTA kernels
+// share mac::gemm_tf32 (split_tf32.cuh) in the same way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -439,6 +445,8 @@ __device__ __forceinline__ bool kept(const unsigned* words, int c) {
 }  // namespace vf
 
 #ifndef VF_HELPERS_ONLY
+
+#include "split_tf32.cuh"
 
 using namespace vf;
 
@@ -797,6 +805,399 @@ bool shape_ok(const Shape& s) {
          s.n_real <= s.n_pad;
 }
 
+// ---- the f32 instance: vf_kernel_f32 ----
+// vf_kernel's evaluation in f32 with every product on mac::gemm_tf32
+// (split_tf32.cuh): operands in device memory reach shared memory by
+// 16-byte cp.async through a ring of K slices and are split once, where
+// they land, into big and small TF32 planes; each warp multiplies a
+// register tile of up to 48 x 32 by mma.sync in three passes (small x big,
+// big x small, big x big); epilogues run from registers. Each weight slice
+// is staged once per CTA and shared by the 12 warps, not read from L2 once
+// per output row.
+//
+// Where each operand lives. cn (of either norm) and the head's q | k | v
+// go to a per-image workspace in device memory (they stay in L2: one
+// image's is n_pad (D + 3 hd) floats), from where the ring stages them;
+// ctx of the head overwrites q there. The products the CTA makes and
+// reuses as an A operand stay in shared memory as split planes: the GELU
+// chunk, and p (the scores land there in f32, the softmax and the JaSMin
+// passes run on those rows in place, then the split, with the mask_p of
+// dropout). mlp_o + attn_o accumulate in an f32 [n_pad, D] block: in
+// shared memory where the plan has room for it (acc_smem), else in the
+// workspace. Each product is summed over its own K (a dh chunk, a head)
+// from zero and added to the accumulator by f32 adds, in the order of
+// vf_kernel: the chunks, then the heads.
+//
+// Numerics: vf_kernel's in f32 (no rounding but the products'), with the
+// products, the qkv, h1, score and ctx ones among them, split TF32 with
+// the same K order as vfb_rows_f32's recomputation, so the stash's rqkv
+// and rh1 are bit for bit what the backward recomputes. The split keeps
+// NaN (split_bits), and padded rows of v are zeroed in the workspace, so
+// a NaN in a padded row of x stays in its own rows, as in vf_kernel.
+//
+// Bound: split TF32 is three TF32 passes of every product, 199 GFLOP at
+// the CIFAR training shape (B=1024), 0.40 ms at 495 TFLOP/s; its state
+// traffic is 0.02 ms. What limits it: one 12-warp CTA per SM (the ring,
+// the accumulator and the planes take most of the 227 KB), with a barrier
+// per K slice of 16 and between the small dependent products of a head.
+//
+// f32 plan (vf_plan_f32; kernels/vector_field.py::f32_plan repeats it):
+// the ring for column blocks of nb, the accumulator (acc_smem), then one
+// region used by the MLP (the chunk's planes, hc + 4 floats a row) and by
+// each head (p's planes, n_pad + 4 floats a row: a fragment row read 4 g +
+// t hits 32 banks), then dropout's keep bits and L2's row norms. The
+// choice prefers wide chunks, then wide column blocks (fewer K passes and
+// barriers, fuller warp tiles), then the accumulator in shared memory:
+// at the CIFAR shape chunks of 128 and blocks of 192 leave it no room, and
+// that plan, with the accumulator's adds through L2, beat both plans that
+// keep it in shared memory on the card. Which shapes take this kernel is
+// vf_plan's decision (the route rule, unchanged): every shape it sends to
+// one CTA has an f32 plan.
+struct PlanF32 {
+  size_t ring, acc, hbig, hsmall, pbig, psmall, bits, norms, total;
+  size_t ws_qkv, ws_acc, ws;  // floats of one image's workspace (cn at 0)
+  int slot, ld_acc, ld_h, ld_p, ld_bits, ld_qkv;
+};
+
+__host__ __device__ inline PlanF32 make_plan_f32(const Shape& s, int nb,
+                                                 int acc_smem) {
+  PlanF32 p;
+  const size_t n = s.n_pad;
+  p.slot = mac::ring_slot(s.n_pad, nb);
+  p.ld_acc = s.d + 8;
+  p.ld_h = s.hc + 4;
+  p.ld_p = s.n_pad + 4;
+  p.ld_bits = 4 * ((s.d + 127) / 128);
+  p.ld_qkv = 3 * s.hd;
+  size_t off = 0;
+  p.ring = off;  off += align128((size_t)2 * mac::kStages * p.slot * 4);
+  p.acc = off;
+  if (acc_smem) off += align128(n * p.ld_acc * 4);
+  const size_t fh = align128(n * p.ld_h * 4), fp = align128(n * p.ld_p * 4);
+  p.hbig = off;
+  p.hsmall = off + fh;
+  p.pbig = off;
+  p.psmall = off + fp;
+  off += 2 * (fh > fp ? fh : fp);
+  p.bits = off;
+  if (s.drop) off += align128(n * p.ld_bits * 4);
+  p.norms = off;
+  if (s.l2) off += 2 * align128(n * 4);
+  p.total = off;
+  p.ws_qkv = n * s.d;
+  p.ws_acc = p.ws_qkv + n * p.ld_qkv;
+  p.ws = p.ws_acc + (acc_smem ? 0 : n * s.d);
+  return p;
+}
+
+template <bool kJas, bool kDrop, bool kChain, bool kL2, bool kStash>
+__global__ void __launch_bounds__(kThreads, 1)
+vf_kernel_f32(const float* __restrict__ x, const float* __restrict__ base,
+              float* out, float* __restrict__ ws,
+              const float* __restrict__ ga, const float* __restrict__ ba,
+              const float* __restrict__ gm, const float* __restrict__ bm,
+              const float* __restrict__ wqkv, const float* __restrict__ wout,
+              const float* __restrict__ w1, const float* __restrict__ w2,
+              const float* __restrict__ qkv_bias,
+              const float* __restrict__ out_bias, float* __restrict__ jas,
+              int* __restrict__ jas_idx, int jas_kk, Shape s, int nb,
+              int acc_smem, float scaler, float coef, float qk_scale,
+              int mode, Drop drop, int chain, float* __restrict__ rqkv,
+              float* __restrict__ rh1) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using mac::gemm_tf32;
+  using mac::kAPlanes;
+  using mac::kAStaged;
+  using mac::op_b;
+  using mac::put2;
+  const PlanF32 pl = make_plan_f32(s, nb, acc_smem);
+  const int n = s.n_pad, d = s.d, hd = s.hd, hc = s.hc, dh = s.dh;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const unsigned b = blockIdx.x;
+  const size_t img = (size_t)blockIdx.x * n * d;
+  float* oi = out + img;
+  float* cn = ws + (size_t)blockIdx.x * pl.ws;
+  float* qkv = cn + pl.ws_qkv;
+  const int lq = pl.ld_qkv, lh = pl.ld_h, lp = pl.ld_p;
+  float* acc = acc_smem ? reinterpret_cast<float*>(smem + pl.acc)
+                        : cn + pl.ws_acc;
+  const int la = acc_smem ? pl.ld_acc : d;
+  const mac::Ring ring{reinterpret_cast<unsigned*>(smem + pl.ring), pl.slot};
+  unsigned* hbig = reinterpret_cast<unsigned*>(smem + pl.hbig);
+  unsigned* hsmall = reinterpret_cast<unsigned*>(smem + pl.hsmall);
+  unsigned* pbig = reinterpret_cast<unsigned*>(smem + pl.pbig);
+  unsigned* psmall = reinterpret_cast<unsigned*>(smem + pl.psmall);
+  float* sf = reinterpret_cast<float*>(pbig);  // the f32 scores, then p
+  unsigned* bits = reinterpret_cast<unsigned*>(smem + pl.bits);
+  float* q2 = reinterpret_cast<float*>(smem + pl.norms);
+  float* k2 = q2 + align128(s.n_pad * 4) / 4;
+  float* rqkv_i = kStash ? rqkv + (size_t)blockIdx.x * n * 3 * d : nullptr;
+  float* rh1_i = kStash ? rh1 + (size_t)blockIdx.x * n * dh : nullptr;
+  auto staged = [](const float* p, int ld) {
+    return mac::OpA{p, ld, nullptr, nullptr};
+  };
+  const mac::OpA hpl{nullptr, lh, hbig, hsmall};
+  const mac::OpA ppl{nullptr, lp, pbig, psmall};
+  // an accumulator in the workspace takes gemm_tf32's cadd (all of a
+  // warp's loads at once), one in shared memory adds in the epilogue;
+  // attn_o under dropout is masked before it is added
+  const bool ao_masked = kDrop && drop.th_ao;
+
+  auto evaluate = [&](const float* xi) {
+    // MLP branch: acc = sum over dh chunks of gelu(cn_m W1[:, c]) W2[c, :]
+    center_norm(xi, gm, bm, cn, d, n, d);
+    for (int c0 = 0; c0 < dh; c0 += hc) {
+      gemm_tf32<kAStaged, false>(
+          ring, n, hc, d, nb, staged(cn, d), op_b(w1 + c0, dh),
+          [&](int r, int c, float v0, float v1) {
+            hbig[r * lh + c] = __float_as_uint(v0);
+            hbig[r * lh + c + 1] = __float_as_uint(v1);
+          });
+      __syncthreads();
+      // h = gelu(h1) (x mask_h) to the chunk's planes, in place
+      if (kDrop && drop.th_m) {
+        const unsigned key = site_key(drop.seed, kSiteH);
+        for (int r = warp; r < n; r += kWarps)
+          for (int g = lane; 4 * g < hc; g += 32) {
+            float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (r < s.n_real)
+              keep4(key, b, r, (c0 >> 2) + g, dh, drop.th_m, drop.sc_m, m);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = r * lh + 4 * g + j;
+              split_bits(gelu(__uint_as_float(hbig[i])) * m[j], hbig[i],
+                         hsmall[i]);
+            }
+          }
+      } else {
+        for (int r = warp; r < n; r += kWarps)
+          for (int c = lane; c < hc; c += 32) {
+            const int i = r * lh + c;
+            const float h1 = __uint_as_float(hbig[i]);
+            // kStash: the pre-GELU hidden
+            if (kStash) rh1_i[(size_t)r * dh + c0 + c] = h1;
+            split_bits(gelu(h1), hbig[i], hsmall[i]);
+          }
+      }
+      const bool first = c0 == 0;
+      gemm_tf32<kAPlanes, false>(
+          ring, n, d, hc, nb, hpl, op_b(w2 + (size_t)c0 * d, d),
+          [&](int r, int c, float v0, float v1) {
+            float* a = acc + r * la + c;
+            if (acc_smem && !first) {
+              v0 += a[0];
+              v1 += a[1];
+            }
+            put2(a, v0, v1);
+          },
+          acc_smem || first ? nullptr : acc, la);
+    }
+    __syncthreads();
+    if (kDrop && drop.th_m) {
+      // acc = mlp_o * mask_mo
+      const unsigned key = site_key(drop.seed, kSiteMlpOut);
+      for (int r = warp; r < n; r += kWarps)
+        for (int g = lane; 4 * g < d; g += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (r < s.n_real) keep4(key, b, r, g, d, drop.th_m, drop.sc_m, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[r * la + 4 * g + j] *= m[j];
+        }
+    }
+    if (ao_masked) {
+      const unsigned key = site_key(drop.seed, kSiteAttnOut);
+      for (int r = warp; r < n; r += kWarps) {
+        if (r < s.n_real)
+          keep_bits_row(key, b, r, d, d, drop.th_ao, bits + r * pl.ld_bits);
+        else
+          for (int i = lane; i < pl.ld_bits; i += 32)
+            bits[r * pl.ld_bits + i] = 0;
+      }
+    }
+
+    // attention branch, head by head: acc += ctx_h Wout[h*hd:(h+1)*hd, :]
+    center_norm(xi, ga, ba, cn, d, n, d);
+    for (int h = 0; h < s.heads; ++h) {
+      // q | k | v of the head in one product to the workspace (padded
+      // value rows zeroed so that 0 * NaN cannot reach p @ v; kStash: the
+      // same values to rqkv, value rows unzeroed)
+      gemm_tf32<kAStaged, false>(
+          ring, n, 3 * hd, d, nb, staged(cn, d),
+          op_b(wqkv + h * hd, 3 * d, 1.0f, hd, d),
+          [&](int r, int c, float v0, float v1) {
+            const int j = c / hd, cc = j * d + h * hd + c % hd;
+            if (kL2) {
+              v0 += qkv_bias[cc];
+              v1 += qkv_bias[cc + 1];
+            }
+            if (kStash) put2(rqkv_i + (size_t)r * 3 * d + cc, v0, v1);
+            const bool zero = j == 2 && r >= s.n_real;
+            put2(qkv + (size_t)r * lq + c, zero ? 0.0f : v0,
+                 zero ? 0.0f : v1);
+          });
+      if (kL2) {
+        // q's and k's row norms, beside the score product
+        __syncthreads();
+        sq_rows(qkv, lq, n, hd, q2);
+        sq_rows(qkv + hd, lq, n, hd, k2);
+      }
+      gemm_tf32<kAStaged, true>(
+          ring, n, n, hd, nb, staged(qkv, lq), op_b(qkv + hd, lq),
+          [&](int r, int c, float v0, float v1) {
+            sf[r * lp + c] = v0;
+            sf[r * lp + c + 1] = v1;
+          });
+      __syncthreads();
+      if (kL2)
+        l2_rows(sf, lp, q2, k2, sf, lp, n, s.n_real, qk_scale);
+      else
+        softmax_rows(sf, lp, sf, lp, n, s.n_real, qk_scale);
+      __syncthreads();
+      if (kJas) {
+        const size_t bh = (size_t)blockIdx.x * s.heads + h;
+        jas_stats_rows(sf, lp, n, s.n_real, jas_kk, jas + bh * 5 * n,
+                       jas_idx + bh * 4 * n);
+        __syncthreads();
+      }
+      // p (x mask_p; the statistics took the pre-dropout p) to its planes,
+      // in place
+      if (kDrop && drop.th_p) {
+        const unsigned key = site_key(drop.seed, kSiteP + h);
+        for (int r = warp; r < n; r += kWarps)
+          for (int g = lane; 4 * g < n; g += 32) {
+            float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            if (r < s.n_real)
+              keep4(key, b, r, g, s.n_real, drop.th_p, drop.sc_p, m);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int i = r * lp + 4 * g + j;
+              split_bits(sf[i] * m[j], pbig[i], psmall[i]);
+            }
+          }
+      } else {
+        for (int r = warp; r < n; r += kWarps)
+          for (int c = lane; c < n; c += 32) {
+            const int i = r * lp + c;
+            split_bits(sf[i], pbig[i], psmall[i]);
+          }
+      }
+      // ctx = p v over q's columns, then acc += ctx Wout_h (x mask_ao)
+      gemm_tf32<kAPlanes, false>(
+          ring, n, hd, n, nb, ppl, op_b(qkv + 2 * hd, lq),
+          [&](int r, int c, float v0, float v1) {
+            put2(qkv + (size_t)r * lq + c, v0, v1);
+          });
+      gemm_tf32<kAStaged, false>(
+          ring, n, d, hd, nb, staged(qkv, lq),
+          op_b(wout + (size_t)h * hd * d, d),
+          [&](int r, int c, float v0, float v1) {
+            float* a = acc + r * la + c;
+            if (ao_masked) {
+              const unsigned* w = bits + r * pl.ld_bits;
+              v0 *= kept(w, c) ? drop.sc_ao : 0.0f;
+              v1 *= kept(w, c + 1) ? drop.sc_ao : 0.0f;
+            }
+            if (acc_smem || ao_masked) {
+              v0 += a[0];
+              v1 += a[1];
+            }
+            put2(a, v0, v1);
+          },
+          acc_smem || ao_masked ? nullptr : acc, la);
+    }
+    __syncthreads();
+
+    const float* bi = mode == 2 ? base + img : xi;
+    for (int r = warp; r < n; r += kWarps) {
+      for (int c = lane; c < d; c += 32) {
+        float a = acc[r * la + c];
+        if (kL2) a += out_bias[c];
+        const float f = a * scaler;
+        const size_t i = (size_t)r * d + c;
+        oi[i] = mode == 0 ? f : bi[i] + coef * f;
+      }
+    }
+  };
+  evaluate(x + img);
+  // kChain: each further step reads the state the previous one wrote,
+  // through `out`
+  for (int step = 1; kChain && step < chain; ++step) {
+    __syncthreads();
+    evaluate(oi);
+  }
+}
+
+// The f32 plan of one CTA (see PlanF32): the widest MLP chunk, then the
+// widest column block, with the accumulator in shared memory where it
+// still fits, else in the workspace. Returns false when no plan fits.
+bool plan_f32(Shape s, int* acc_smem, int* hc, int* nb, PlanF32* out) {
+  for (int c : kChunks) {
+    if (s.dh % c) continue;
+    s.hc = c;
+    for (int b : mac::kBlocksF32) {
+      if (!mac::block_ok(s.n_pad, b)) continue;
+      for (int as = 1; as >= 0; --as) {
+        const PlanF32 p = make_plan_f32(s, b, as);
+        if (p.total <= (size_t)kMaxSmem) {
+          *acc_smem = as;
+          *hc = c;
+          *nb = b;
+          *out = p;
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+// vf_kernel_f32's launches so far (chip_smoke.py holds the count against
+// the route's)
+unsigned long long f32_launches = 0;
+
+int launch_f32(const float* x, const float* base, float* out, float* ws,
+               const float* ga, const float* ba, const float* gm,
+               const float* bm, const float* wqkv, const float* wout,
+               const float* w1, const float* w2, const float* qkvb,
+               const float* outb, float* jas, int* jas_idx, int jas_kk,
+               int batch, Shape s, float scaler, float coef, float qk_scale,
+               int mode, const Drop& drop, bool has_drop, int chain,
+               float* rqkv, float* rh1, cudaStream_t st) {
+  int acc_smem, hc, nb;
+  PlanF32 p;
+  if (ws == nullptr || !shape_ok(s) ||
+      !plan_f32(s, &acc_smem, &hc, &nb, &p))
+    return (int)cudaErrorInvalidValue;
+  s.hc = hc;
+  auto kernel = rqkv != nullptr
+                    ? (jas_kk > 0 ? vf_kernel_f32<true, false, false, false,
+                                                  true>
+                                  : vf_kernel_f32<false, false, false, false,
+                                                  true>)
+                : chain > 1 ? vf_kernel_f32<false, false, true, false, false>
+                : s.l2      ? (jas_kk > 0 ? vf_kernel_f32<true, false, false,
+                                                          true, false>
+                                          : vf_kernel_f32<false, false, false,
+                                                          true, false>)
+                : has_drop  ? (jas_kk > 0 ? vf_kernel_f32<true, true, false,
+                                                          false, false>
+                                          : vf_kernel_f32<false, true, false,
+                                                          false, false>)
+                : jas_kk > 0 ? vf_kernel_f32<true, false, false, false, false>
+                             : vf_kernel_f32<false, false, false, false,
+                                             false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<batch, kThreads, p.total, st>>>(
+      x, base, out, ws, ga, ba, gm, bm, wqkv, wout, w1, w2, qkvb, outb, jas,
+      jas_idx, jas_kk, s, nb, acc_smem, scaler, coef, qk_scale, mode, drop,
+      chain, rqkv, rh1);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++f32_launches;
+  return (int)err;
+}
+
 template <typename T, bool kDrop>
 int launch(const void* x, const void* base, void* out, void* acc,
            const float* ga, const float* ba, const float* gm,
@@ -865,10 +1266,12 @@ int vf_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 // the launch (0 on success). mode: 0 plain, 1 euler, 2 base. jas_kk > 0
 // also writes the JaSMin statistics ([B, H, 5, n_pad] f32) and their
 // columns ([B, H, 4, n_pad] int32) of kk = k + 1 extraction passes. A
-// non-null `drop` launches the dropout instance (planned with drop=1);
-// in f32 it takes `ao`, a [B * n_pad, D] f32 scratch. chain > 1 runs
-// `chain` Euler steps in one launch (mode 1, no statistics, no dropout;
-// in f32 `acc` is then a [B * n_pad, D] f32 scratch apart from `out`).
+// non-null `drop` launches the dropout instance (planned with drop=1).
+// chain > 1 runs `chain` Euler steps in one launch (mode 1, no
+// statistics, no dropout). In f32 every instance runs vf_kernel_f32 on the
+// plan of vf_plan_f32 (the passed qkv_fused, hc and smem are bf16's), and
+// `acc` is its workspace: B * vf_plan_f32's ws_floats f32, apart from
+// `out`; `ao` is unused.
 // Non-null biases (qkvb [3D], outb [D], f32) launch the L2 instance
 // (planned with l2=1): mode 0, no chain, no dropout. Non-null rqkv and rh1
 // ([B * n_pad, 3D] and [B * n_pad, dh], x's dtype) launch the stash
@@ -883,8 +1286,9 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
               float scaler, float coef, float qk_scale, int mode, void* jas,
               void* jas_idx, int jas_kk, const Drop* drop, void* ao,
               int chain, void* rqkv, void* rh1, void* stream) {
-  if (chain > 1 && (mode != 1 || jas_kk > 0 || drop != nullptr ||
-                    (tbytes == 4 && acc == out)))
+  if (chain > 1 && (mode != 1 || jas_kk > 0 || drop != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (tbytes == 4 && (acc == nullptr || acc == out))
     return (int)cudaErrorInvalidValue;
   const bool l2 = qkvb != nullptr;
   if (l2 != (outb != nullptr) ||
@@ -904,9 +1308,36 @@ int vf_launch(int tbytes, const void* x, const void* base, void* out,
                qk_scale, mode, dr, ao, chain, rqkv, rh1, st)
   if (tbytes == 2)
     return drop != nullptr ? VF_LAUNCH(bf16, true) : VF_LAUNCH(bf16, false);
-  return drop != nullptr ? VF_LAUNCH(float, true) : VF_LAUNCH(float, false);
 #undef VF_LAUNCH
+  // f32: vf_kernel_f32 on its own plan; `acc` is its workspace
+  return launch_f32(
+      static_cast<const float*>(x), static_cast<const float*>(base),
+      static_cast<float*>(out), static_cast<float*>(acc), ga, ba, gm, bm,
+      static_cast<const float*>(wqkv), static_cast<const float*>(wout),
+      static_cast<const float*>(w1), static_cast<const float*>(w2), qkvb,
+      outb, static_cast<float*>(jas), static_cast<int*>(jas_idx), jas_kk,
+      batch, s, scaler, coef, qk_scale, mode, dr, drop != nullptr, chain,
+      static_cast<float*>(rqkv), static_cast<float*>(rh1), st);
 }
+
+// The f32 instances' plan (vf_kernel_f32, see PlanF32), with the same
+// flags as vf_plan: the accumulator in shared memory, the MLP chunk, the
+// column block, the shared memory and the workspace's floats per image.
+// Returns 0 when the shape has one, 1 when not.
+int vf_plan_f32(int n_pad, int n_real, int d, int heads, int dh, int drop,
+                int l2, int* acc_smem_out, int* hc_out, int* nb_out,
+                int* smem_out, long long* ws_out) {
+  const Shape s = make_shape(n_pad, n_real, d, heads, dh, 0, 1, drop != 0,
+                             l2 != 0);
+  PlanF32 p;
+  if (!shape_ok(s) || !plan_f32(s, acc_smem_out, hc_out, nb_out, &p))
+    return 1;
+  *smem_out = (int)p.total;
+  *ws_out = (long long)p.ws;
+  return 0;
+}
+
+unsigned long long vf_f32_launches() { return f32_launches; }
 
 const char* vf_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

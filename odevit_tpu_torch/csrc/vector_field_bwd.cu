@@ -71,11 +71,12 @@
 // busiest pipe) stays below.
 //
 // Design: three launches, all deterministic.
-//  1. vfb_rows: one CTA of 12 warps per image, as the forward kernel:
-//     recompute, the MLP backward over dh in chunks, the attention
-//     backward head by head, x_bar and the image's norm partial sums. It
-//     writes the operands of the weight products (cn_m, cn_a, gd, ctx, h,
-//     h1_bar, [q_bar k_bar v_bar]) to global scratch in x's dtype.
+//  1. vfb_rows (bf16; f32: vfb_rows_f32, split TF32 on mma.sync, below):
+//     one CTA of 12 warps per image, as the forward kernel: recompute,
+//     the MLP backward over dh in chunks, the attention backward head by
+//     head, x_bar and the image's norm partial sums. It writes the
+//     operands of the weight products (cn_m, cn_a, gd, ctx, h, h1_bar,
+//     [q_bar k_bar v_bar]) to global scratch in x's dtype.
 //  2. vfb_wgrad_wgmma (f32: vfb_wgrad_tf32): the four weight cotangents
 //     as A^T G products over all B*n_pad rows. The TPU accumulates them
 //     with += across its sequential grid; here CTAs run in parallel, so
@@ -121,7 +122,8 @@ struct Args {
   void* h;                 // [B*n_pad, dh]
   void* h1b;               // [B*n_pad, dh]
   void* qkvb;              // [B*n_pad, 3D]
-  float* macc;             // [B*n_pad, D]   m_bar
+  float* macc;             // [B*n_pad, D]   m_bar (bf16; f32: null)
+  float* ws;               // f32: B * vfb_plan_f32's ws_floats, else null
   float* npart;            // [B, 4, D]      per-image norm partials;
                            // with L2 [B, 8, D]: then the bias partials
   float* wpart;            // [splits, W]    per-split weight partials
@@ -133,6 +135,7 @@ struct Args {
   const void* rh1;         // kResid: [B*n_pad, dh] x's dtype, else null
   int batch, n_pad, n_real, d, heads, dh;
   int cn_smem, hc, smem, splits;
+  int nb, acc_smem;        // f32: set by the launcher from its own plan
   float scaler, qk_scale;
   Drop drop;               // all zeros: the deterministic instance
 };
@@ -597,6 +600,619 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
     }
   }
 }
+
+// ---- the f32 instance: vfb_rows_f32 ----
+// vfb_rows's chain in f32 with every product on mac::gemm_tf32
+// (split_tf32.cuh), as vf_kernel_f32 (vector_field.cu) takes the forward:
+// operands in device memory staged by 16-byte cp.async through a ring of
+// K slices and split once where they land, register tiles of up to 48 x
+// 32 a warp on mma.sync in three passes, epilogues from registers. Each
+// weight slice is staged once per CTA for the 12 warps. It writes the same
+// scratch operands (cn_m, cn_a, gd, gd2, ctx, h, h1_bar, [q_bar k_bar
+// v_bar]) for vfb_wgrad_tf32, in f32 (no rounding beyond the products'),
+// and the same per-image norm (and L2 bias) partials.
+//
+// Where each operand lives. cn_m, cn_a, gd (and gd2) go to their scratch
+// in device memory first and are staged from there (they stay in L2);
+// the head's q | k | v | cb go to a per-image workspace (n_pad x 4 hd
+// floats), with the head's f32 p (L2: e) beside them (n_pad x n_pad),
+// read once by the row pass of s_bar. In shared memory: the row means;
+// the ring; m_bar, f32 [n_pad, D], summed over the dh chunks (acc_smem;
+// else in the workspace); and one region used by the MLP chunk (h1 and
+// h_bar in f32, then h1_bar's big and small planes in their place), by
+// each head (the scores in f32, the softmax in place, p's planes with
+// mask_p; after v_bar, p_bar in f32, then s_bar's planes in its place; the
+// keep bits of the head's map; L2's five vectors) and last by a_bar (f32
+// [n_pad, D]), which meets m_bar in the norm partials and x_bar. The
+// products the forward also takes (qkv, h1, the scores, ctx) run with the
+// forward's K order, so they are bit for bit vf_kernel_f32's.
+//
+// Plan (vfb_plan_f32; kernels/vector_field_bwd.py::f32_bwd_plan repeats
+// it): the widest chunk, then the widest column block, m_bar in shared
+// memory where that still fits 227 KB (at the CIFAR shape it does not: as
+// in vf_kernel_f32, that plan beat those that keep m_bar in shared memory
+// on the card). Planes are n_pad + 4 floats a row: a
+// fragment row read 4 g + t (p v, s_bar k) hits 32 banks; the transposed
+// reads of p^T cb and s_bar^T q (8 g + ... by t) put at most two lanes on
+// a bank. Which shapes take one CTA stays vfb_plan's decision.
+struct PlanB32 {
+  size_t mean, ring, macc, reg, p0, p1, pbig, psmall, pbits, l2, abar, total;
+  size_t ws_pf, ws_macc, ws;  // floats of one image's workspace
+  int slot, ld_acc, ld_h, ld_p, ld_ws;
+};
+
+__host__ __device__ inline PlanB32 make_plan_b32(int n, int d, int hd,
+                                                 int hc, int nb, int acc_smem,
+                                                 bool drop, bool l2) {
+  PlanB32 p;
+  p.slot = mac::ring_slot(n, nb);
+  p.ld_acc = d + 8;
+  p.ld_h = hc + 4;
+  p.ld_p = n + 4;
+  p.ld_ws = 4 * hd;
+  size_t off = 0;
+  p.l2 = off;    // first: its address is a constant
+  if (l2) off += 5 * align128((size_t)n * 4);
+  p.mean = off;  off += align128((size_t)n * 4);
+  p.ring = off;  off += align128((size_t)2 * mac::kStages * p.slot * 4);
+  p.macc = off;
+  if (acc_smem) off += align128((size_t)n * p.ld_acc * 4);
+  p.reg = off;
+  const size_t fh = align128((size_t)n * p.ld_h * 4);
+  const size_t fp = align128((size_t)n * p.ld_p * 4);
+  p.p0 = off;
+  p.p1 = off + fh;
+  p.pbig = off;
+  p.psmall = off + fp;
+  size_t a = off + 2 * fp;
+  p.pbits = a;
+  if (drop) a += align128((size_t)n * 4 * 4);
+  p.abar = off;
+  size_t e = off + 2 * fh;
+  if (a > e) e = a;
+  const size_t ab = off + align128((size_t)n * p.ld_acc * 4);
+  p.total = ab > e ? ab : e;
+  p.ws_pf = (size_t)n * p.ld_ws;
+  p.ws_macc = p.ws_pf + (size_t)n * n;
+  p.ws = p.ws_macc + (acc_smem ? 0 : (size_t)n * d);
+  return p;
+}
+
+
+// vfb_rows_f32 runs at the register limit (168 a thread under 384
+// threads): the products' register tiles take most of it. Three things
+// keep it from spilling. Loops outside the products are not unrolled
+// (#pragma unroll 1; unrolled, they hold many loads at once). The sizes
+// are made opaque to the optimizer before each product of a head and at
+// the top of each chunk (VFB_FRESH_*), so that nothing derived from them
+// is hoisted into registers that live across the products. And L2's
+// helpers below are vector_field.cu's sq_rows and l2_rows (p in place of
+// the scores) with their loops not unrolled; the same arithmetic.
+#define VFB_FRESH_MLP                                                    \
+  asm volatile("" : "+r"(n), "+r"(n_real), "+r"(d), "+r"(hc), "+r"(dh), \
+               "+r"(nb), "+r"(lh))
+#define VFB_FRESH_ATT                                                    \
+  asm volatile("" : "+r"(n), "+r"(n_real), "+r"(d), "+r"(hd), "+r"(nb), \
+               "+r"(lw), "+r"(lp))
+
+__device__ void sq_rows_rolled(const float* a, int lda, int n, int w,
+                               float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int r = warp; r < n; r += kWarps) {
+    float sum = 0.0f;
+#pragma unroll 1
+    for (int c = lane; c < w; c += 32) {
+      const float v = a[r * lda + c];
+      sum += v * v;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) out[r] = sum;
+  }
+}
+__device__ void l2_rows_rolled(float* s, int lds, const float* q2,
+                               const float* k2, int n, int n_real, float tau,
+                               float* ef, int ldef, float* esum) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll 1
+  for (int r = warp; r < n; r += kWarps) {
+    float* row = s + r * lds;
+    const float qr = q2[r];
+    auto e_of = [&](int c) {
+      return expf(-(qr + k2[c] - 2.0f * row[c]) * tau);
+    };
+    float sum = 0.0f;
+#pragma unroll 1
+    for (int c = lane; c < n_real; c += 32) sum += e_of(c);
+    sum = warp_sum(sum) + 1e-8f;
+    if (lane == 0) esum[r] = sum;
+#pragma unroll 1
+    for (int c = lane; c < n; c += 32) {
+      const float e = c < n_real ? e_of(c) : 0.0f;
+      row[c] = e / sum;
+      ef[r * ldef + c] = e;
+    }
+  }
+}
+
+template <bool kDrop, bool kL2, bool kResid>
+__global__ void __launch_bounds__(kThreads, 1) vfb_rows_f32(Args args) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using mac::gemm_tf32;
+  using mac::kAPlanes;
+  using mac::kAPlanesT;
+  using mac::kAStaged;
+  using mac::op_b;
+  using mac::put2;
+  int n = args.n_pad, n_real = args.n_real, d = args.d;
+  int hd = d / args.heads, dh = args.dh, hc = args.hc, nb = args.nb;
+  const int heads = args.heads, acc_smem = args.acc_smem;
+  const PlanB32 pl =
+      make_plan_b32(n, d, hd, hc, nb, acc_smem, kDrop, kL2);
+  const Drop& dr = args.drop;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int b = blockIdx.x;
+  const size_t row0 = (size_t)b * n;
+  const float tau = args.qk_scale;
+  const float* x = static_cast<const float*>(args.x) + row0 * d;
+  const float* g = static_cast<const float*>(args.g) + row0 * d;
+  const float* wqkv = static_cast<const float*>(args.wqkv);
+  const float* wout = static_cast<const float*>(args.wout);
+  const float* w1 = static_cast<const float*>(args.w1);
+  const float* w2 = static_cast<const float*>(args.w2);
+  float* cnm_g = static_cast<float*>(args.cnm) + row0 * d;
+  float* cna_g = static_cast<float*>(args.cna) + row0 * d;
+  float* gd_g = static_cast<float*>(args.gd) + row0 * d;
+  // the attention's operand: gd, or with dropout gd2
+  float* gda = kDrop ? static_cast<float*>(args.gd2) + row0 * d : gd_g;
+  float* ctx_g = static_cast<float*>(args.ctx) + row0 * d;
+  float* h_g = static_cast<float*>(args.h) + row0 * dh;
+  float* h1b_g = static_cast<float*>(args.h1b) + row0 * dh;
+  float* qkvb_g = static_cast<float*>(args.qkvb) + row0 * 3 * d;
+  float* ws = args.ws + (size_t)b * pl.ws;  // q | k | v | cb of the head
+  float* pfw = ws + pl.ws_pf;               // its f32 p (L2: e)
+  int lw = pl.ld_ws, lh = pl.ld_h, lp = pl.ld_p;
+  float* mb = acc_smem ? reinterpret_cast<float*>(smem + pl.macc)
+                       : ws + pl.ws_macc;   // m_bar
+  const int lm = acc_smem ? pl.ld_acc : d;
+  float* mean = reinterpret_cast<float*>(smem + pl.mean);
+  const mac::Ring ring{reinterpret_cast<unsigned*>(smem + pl.ring), pl.slot};
+  const float scale = (float)((double)d / (d - 1.0));
+  auto staged = [](const float* p, int ld) {
+    return mac::OpA{p, ld, nullptr, nullptr};
+  };
+
+  // gd = g * scaler (x mask_mo), gd2 = g * scaler * mask_ao; rows >=
+  // n_real are zeros
+  if (kDrop) {
+    const unsigned kmo = site_key(dr.seed, kSiteMlpOut);
+    const unsigned kao = site_key(dr.seed, kSiteAttnOut);
+    for (int r = warp; r < n; r += kWarps)
+      for (int gg = lane; 4 * gg < d; gg += 32) {
+        float mo[4] = {1.0f, 1.0f, 1.0f, 1.0f}, ma[4] = {1.0f, 1.0f, 1.0f,
+                                                         1.0f};
+        if (r < n_real && dr.th_m) keep4(kmo, b, r, gg, d, dr.th_m, dr.sc_m, mo);
+        if (r < n_real && dr.th_ao)
+          keep4(kao, b, r, gg, d, dr.th_ao, dr.sc_ao, ma);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * gg + j;
+          const float gv = r < n_real ? g[(size_t)r * d + c] * args.scaler
+                                      : 0.0f;
+          gd_g[(size_t)r * d + c] = gv * mo[j];
+          gda[(size_t)r * d + c] = gv * ma[j];
+        }
+      }
+  } else {
+    for (int r = warp; r < n; r += kWarps)
+      for (int c = lane; c < d; c += 32)
+        gd_g[(size_t)r * d + c] =
+            r < n_real ? g[(size_t)r * d + c] * args.scaler : 0.0f;
+  }
+
+  // ---- MLP backward, over dh in chunks of hc ----
+  center_norm(x, args.gm, args.bm, cnm_g, d, n, d, n_real, mean);
+  float* h1 = reinterpret_cast<float*>(smem + pl.p0);   // then big
+  float* hbar = reinterpret_cast<float*>(smem + pl.p1); // then small
+  unsigned* hbig = reinterpret_cast<unsigned*>(h1);
+  unsigned* hsmall = reinterpret_cast<unsigned*>(hbar);
+  const mac::OpA hpl{nullptr, lh, hbig, hsmall};
+  for (int c0 = 0; c0 < dh; c0 += hc) {
+    VFB_FRESH_MLP;
+    if (kResid) {
+      // h1 of the chunk from rh1; padded rows read as zeros
+      const float* rh1 = static_cast<const float*>(args.rh1) + row0 * dh + c0;
+      __syncthreads();  // the last chunk's m_bar product has read its planes
+      for (int i = threadIdx.x; i < n * hc; i += kThreads) {
+        const int r = i / hc, c = i % hc;
+        h1[r * lh + c] = r < n_real ? rh1[(size_t)r * dh + c] : 0.0f;
+      }
+    } else {
+      gemm_tf32<kAStaged, false>(
+          ring, n, hc, d, nb, staged(cnm_g, d), op_b(w1 + c0, dh),
+          [&](int r, int c, float v0, float v1) {
+            h1[r * lh + c] = v0;
+            h1[r * lh + c + 1] = v1;
+          });
+    }
+    // h_bar = gd W2[c, :]^T
+    gemm_tf32<kAStaged, true>(
+        ring, n, hc, d, nb, staged(gd_g, d), op_b(w2 + (size_t)c0 * d, d),
+        [&](int r, int c, float v0, float v1) {
+          hbar[r * lh + c] = v0;
+          hbar[r * lh + c + 1] = v1;
+        });
+    __syncthreads();
+    // h = gelu(h1) (x mask_h) and h1_bar = h_bar (x mask_h) gelu'(h1) to
+    // the scratch; h1_bar's planes in place of h1 and h_bar
+    if (kDrop && dr.th_m) {
+      const unsigned kh = site_key(dr.seed, kSiteH);
+      for (int r = warp; r < n; r += kWarps)
+        for (int gg = lane; 4 * gg < hc; gg += 32) {
+          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (r < n_real)
+            keep4(kh, b, r, (c0 >> 2) + gg, dh, dr.th_m, dr.sc_m, m);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = 4 * gg + j, i = r * lh + c;
+            const float hv = h1[i];
+            const float v = hbar[i] * m[j] * gelu_grad(hv);
+            h_g[(size_t)r * dh + c0 + c] = gelu(hv) * m[j];
+            h1b_g[(size_t)r * dh + c0 + c] = v;
+            split_bits(v, hbig[i], hsmall[i]);
+          }
+        }
+    } else {
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < hc; c += 32) {
+          const int i = r * lh + c;
+          const float hv = h1[i];
+          const float v = hbar[i] * gelu_grad(hv);
+          h_g[(size_t)r * dh + c0 + c] = gelu(hv);
+          h1b_g[(size_t)r * dh + c0 + c] = v;
+          split_bits(v, hbig[i], hsmall[i]);
+        }
+    }
+    // m_bar (+)= h1_bar W1[:, c]^T
+    const bool first = c0 == 0;
+    gemm_tf32<kAPlanes, true>(
+        ring, n, d, hc, nb, hpl, op_b(w1 + c0, dh),
+        [&](int r, int c, float v0, float v1) {
+          float* a = mb + r * lm + c;
+          if (acc_smem && !first) {
+            v0 += a[0];
+            v1 += a[1];
+          }
+          put2(a, v0, v1);
+        },
+        acc_smem || first ? nullptr : mb, lm);
+  }
+
+  // ---- attention backward, head by head ----
+  center_norm(x, args.ga, args.ba, cna_g, d, n, d, n_real);
+  float* sf = reinterpret_cast<float*>(smem + pl.pbig);  // scores, p, p_bar
+  unsigned* pbig = reinterpret_cast<unsigned*>(sf);
+  unsigned* psmall = reinterpret_cast<unsigned*>(smem + pl.psmall);
+  const mac::OpA ppl{nullptr, lp, pbig, psmall};
+  unsigned* pbits = reinterpret_cast<unsigned*>(smem + pl.pbits);
+  float* qw = ws;
+  float* kw = ws + hd;
+  float* vw = ws + 2 * hd;
+  float* cbw = ws + 3 * hd;
+  for (int hh = 0; hh < heads; ++hh) {
+    VFB_FRESH_ATT;
+    // kL2: q2, k2, esum, then the rows' and the columns' sums of d2b
+    const size_t nv = align128((size_t)n * 4) / 4;
+    float* q2 = reinterpret_cast<float*>(smem + pl.l2);
+    float *k2 = q2 + nv, *esum = q2 + 2 * nv, *rsum = q2 + 3 * nv,
+          *csum = q2 + 4 * nv;
+    if (kResid) {
+      // q, k and v of the head from rqkv; padded rows read as zeros
+      const float* rq =
+          static_cast<const float*>(args.rqkv) + row0 * 3 * d + hh * hd;
+      __syncthreads();  // the last head's products have read the workspace
+      for (int i = threadIdx.x; i < n * hd; i += kThreads) {
+        const int r = i / hd, c = i % hd;
+        for (int j = 0; j < 3; ++j)
+          ws[(size_t)r * lw + j * hd + c] =
+              r < n_real ? rq[(size_t)r * 3 * d + j * d + c] : 0.0f;
+      }
+    } else {
+      // q | k | v in one product (padded value rows zeroed so that 0 * NaN
+      // cannot reach p @ v)
+      VFB_FRESH_ATT;
+      gemm_tf32<kAStaged, false>(
+          ring, n, 3 * hd, d, nb, staged(cna_g, d),
+          op_b(wqkv + hh * hd, 3 * d, 1.0f, hd, d),
+          [&](int r, int c, float v0, float v1) {
+            const bool zero = c >= 2 * hd && r >= n_real;
+            put2(ws + (size_t)r * lw + c, zero ? 0.0f : v0, zero ? 0.0f : v1);
+          });
+    }
+    if (kL2) {
+      // + the bias (not on the zeroed value rows), in a pass: in the
+      // epilogue its loads spilled registers
+      __syncthreads();
+      for (int i = threadIdx.x; i < n * 3 * hd; i += kThreads) {
+        const int r = i / (3 * hd), c = i % (3 * hd), j = c / hd;
+        if (j < 2 || r < n_real)
+          ws[(size_t)r * lw + c] += args.qkv_bias[j * d + hh * hd + c % hd];
+      }
+      __syncthreads();
+      sq_rows_rolled(qw, lw, n, hd, q2);
+      sq_rows_rolled(kw, lw, n, hd, k2);
+    }
+    VFB_FRESH_ATT;
+    gemm_tf32<kAStaged, true>(
+        ring, n, n, hd, nb, staged(qw, lw), op_b(kw, lw),
+        [&](int r, int c, float v0, float v1) {
+          sf[r * lp + c] = v0;
+          sf[r * lp + c + 1] = v1;
+        });
+    __syncthreads();
+    // the f32 p in place (L2: e / esum, and e to the workspace), p (softmax)
+    // to the workspace
+    if (kL2)
+      l2_rows_rolled(sf, lp, q2, k2, n, n_real, tau, pfw, n, esum);
+    else
+      softmax_rows(sf, lp, sf, lp, n, n_real, tau, pfw, n);
+    __syncthreads();
+    // p (x mask_p) to its planes in place; the keep bits stay for p_bar
+    if (kDrop && dr.th_p) {
+      const unsigned kp = site_key(dr.seed, kSiteP + hh);
+      for (int r = warp; r < n; r += kWarps) {
+        unsigned* words = pbits + 4 * r;
+        if (r < n_real)
+          keep_bits_row(kp, b, r, n, n_real, dr.th_p, words);
+        else if (lane < 4)
+          words[lane] = 0;
+        __syncwarp();
+        for (int c = lane; c < n; c += 32) {
+          const int i = r * lp + c;
+          split_bits(sf[i] * (kept(words, c) ? dr.sc_p : 0.0f), pbig[i],
+                     psmall[i]);
+        }
+      }
+    } else {
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < n; c += 32) {
+          const int i = r * lp + c;
+          split_bits(sf[i], pbig[i], psmall[i]);
+        }
+    }
+    // ctx = p v (for Wout_bar)
+    VFB_FRESH_ATT;
+    gemm_tf32<kAPlanes, false>(
+        ring, n, hd, n, nb, ppl, op_b(vw, lw),
+        [&](int r, int c, float v0, float v1) {
+          put2(ctx_g + (size_t)r * d + hh * hd + c, v0, v1);
+        });
+    // cb = gd Wout[h*hd:(h+1)*hd, :]^T
+    VFB_FRESH_ATT;
+    gemm_tf32<kAStaged, true>(
+        ring, n, hd, d, nb, staged(gda, d), op_b(wout + (size_t)hh * hd * d, d),
+        [&](int r, int c, float v0, float v1) {
+          put2(cbw + (size_t)r * lw + c, v0, v1);
+        });
+    // v_bar = p^T cb
+    VFB_FRESH_ATT;
+    gemm_tf32<kAPlanesT, false>(
+        ring, n, hd, n, nb, ppl, op_b(cbw, lw),
+        [&](int r, int c, float v0, float v1) {
+          put2(qkvb_g + (size_t)r * 3 * d + 2 * d + hh * hd + c, v0, v1);
+        });
+    // p_bar = cb v^T, in f32 where p's planes were
+    VFB_FRESH_ATT;
+    gemm_tf32<kAStaged, true>(
+        ring, n, n, hd, nb, staged(cbw, lw), op_b(vw, lw),
+        [&](int r, int c, float v0, float v1) {
+          sf[r * lp + c] = v0;
+          sf[r * lp + c + 1] = v1;
+        });
+    __syncthreads();
+    // (+ JaSMin) then s_bar (softmax; its planes in place) or d2b (L2, f32
+    // in place for the column sums)
+    const size_t bh = (size_t)b * heads + hh;
+#pragma unroll 1
+    for (int r = warp; r < n; r += kWarps) {
+      float* prow = sf + r * lp;
+      const float* frow = pfw + (size_t)r * n;
+      if (r >= n_real) {
+#pragma unroll 1
+        for (int c = lane; c < n; c += 32) {
+          pbig[r * lp + c] = 0u;
+          psmall[r * lp + c] = 0u;
+        }
+        if (kL2 && lane == 0) rsum[r] = 0.0f;
+        continue;
+      }
+      // the f32 p of column c
+      const float es = kL2 ? esum[r] : 1.0f;
+      auto p_of = [&](int c) { return kL2 ? frow[c] / es : frow[c]; };
+      if (kDrop && dr.th_p)
+#pragma unroll 1
+        for (int c = lane; c < n_real; c += 32)
+          prow[c] *= kept(pbits + 4 * r, c) ? dr.sc_p : 0.0f;
+      if (args.g_jas != nullptr) {
+        const float* gj = args.g_jas + bh * 5 * n;
+        const int* ji = args.jas_idx + bh * 4 * n;
+        const float g4 = gj[4 * n + r];
+#pragma unroll 1
+        for (int c = lane; c < n_real; c += 32) {
+          const float pj = p_of(c);  // pre-dropout
+          const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
+          const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
+          float t = g4 * (lo * hi);
+#pragma unroll 1
+          for (int i = 0; i < 4; ++i)
+            if (ji[i * n + r] == c) t += gj[i * n + r];
+          prow[c] += t;
+        }
+      }
+      float dot = 0.0f;
+#pragma unroll 1
+      for (int c = lane; c < n_real; c += 32) dot += prow[c] * p_of(c);
+      dot = warp_sum(dot);
+      if (kL2) {
+        float sum = 0.0f;
+#pragma unroll 1
+        for (int c = lane; c < n; c += 32) {
+          const float v2 = c < n_real
+              ? -tau * frow[c] * ((prow[c] - dot) / es) : 0.0f;
+          prow[c] = v2;
+          sum += v2;
+        }
+        sum = warp_sum(sum);
+        if (lane == 0) rsum[r] = sum;
+      } else {
+#pragma unroll 1
+        for (int c = lane; c < n; c += 32) {
+          const float v = c < n_real ? frow[c] * (prow[c] - dot) : 0.0f;
+          split_bits(v, pbig[r * lp + c], psmall[r * lp + c]);
+        }
+      }
+    }
+    __syncthreads();
+    if (kL2) {
+      // the columns' sums of d2b, each over the rows in order; then d2b's
+      // planes in place
+#pragma unroll 1
+      for (int c = threadIdx.x; c < n; c += kThreads) {
+        float sum = 0.0f;
+#pragma unroll 1
+        for (int r = 0; r < n; ++r) sum += sf[r * lp + c];
+        csum[c] = sum;
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int r = warp; r < n; r += kWarps)
+#pragma unroll 1
+        for (int c = lane; c < n; c += 32) {
+          const int i = r * lp + c;
+          split_bits(sf[i], pbig[i], psmall[i]);
+        }
+    }
+    // softmax: q_bar = s_bar k tau, k_bar = s_bar^T (q tau); L2 (the
+    // products first, then a pass): q_bar = 2 q rsum - 2 d2b k, k_bar =
+    // 2 k csum - 2 d2b^T q
+    float* qbar = qkvb_g + hh * hd;
+    float* kbar = qkvb_g + d + hh * hd;
+    VFB_FRESH_ATT;
+    gemm_tf32<kAPlanes, false>(
+        ring, n, hd, n, nb, ppl, op_b(kw, lw),
+        [&](int r, int c, float v0, float v1) {
+          const float s = kL2 ? 1.0f : tau;
+          put2(qbar + (size_t)r * 3 * d + c, v0 * s, v1 * s);
+        });
+    VFB_FRESH_ATT;
+    gemm_tf32<kAPlanesT, false>(
+        ring, n, hd, n, nb, ppl, op_b(qw, lw, kL2 ? 1.0f : tau),
+        [&](int r, int c, float v0, float v1) {
+          put2(kbar + (size_t)r * 3 * d + c, v0, v1);
+        });
+    if (kL2) {
+      __syncthreads();
+#pragma unroll 1
+      for (int i = threadIdx.x; i < n * hd; i += kThreads) {
+        const int r = i / hd, c = i % hd;
+        float* qb = qbar + (size_t)r * 3 * d + c;
+        float* kb = kbar + (size_t)r * 3 * d + c;
+        *qb = 2.0f * qw[(size_t)r * lw + c] * rsum[r] - 2.0f * *qb;
+        *kb = 2.0f * kw[(size_t)r * lw + c] * csum[r] - 2.0f * *kb;
+      }
+    }
+  }
+
+  // a_bar = [q_bar k_bar v_bar] Wqkv^T, one product over 3D
+  VFB_FRESH_ATT;
+  float* abar = reinterpret_cast<float*>(smem + pl.abar);
+  gemm_tf32<kAStaged, true>(
+      ring, n, d, 3 * d, nb, staged(qkvb_g, 3 * d), op_b(wqkv, 3 * d),
+      [&](int r, int c, float v0, float v1) {
+        abar[r * pl.ld_acc + c] = v0;
+        abar[r * pl.ld_acc + c + 1] = v1;
+      });
+  __syncthreads();
+
+  // norm partials of this image: (ga, ba, gm, bm) sums over real rows
+  float* np = args.npart + (size_t)b * (kL2 ? 8 : 4) * d;
+  if (kL2) {
+    // bias partials: qkv_bias_bar over [q_bar k_bar v_bar], out_bias_bar
+    // over gd (both written above)
+    for (int c = threadIdx.x; c < 3 * d; c += kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r) sum += qkvb_g[(size_t)r * 3 * d + c];
+      np[4 * d + c] = sum;
+    }
+    for (int c = threadIdx.x; c < d; c += kThreads) {
+      float sum = 0.0f;
+      for (int r = 0; r < n_real; ++r) sum += gd_g[(size_t)r * d + c];
+      np[7 * d + c] = sum;
+    }
+  }
+  const int la = pl.ld_acc;
+  for (int c = threadIdx.x; c < d; c += kThreads) {
+    float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
+    for (int r = 0; r < n_real; ++r) {
+      const float cent = (x[(size_t)r * d + c] - mean[r]) * scale;
+      const float a = abar[r * la + c];
+      const float m = mb[r * lm + c];
+      sa1 += a * cent;
+      sa0 += a;
+      sm1 += m * cent;
+      sm0 += m;
+    }
+    np[c] = sa1;
+    np[d + c] = sa0;
+    np[2 * d + c] = sm1;
+    np[3 * d + c] = sm0;
+  }
+
+  // x_bar = d/(d-1) (c_bar - mean(c_bar)); padded rows are zeros
+  float* xb = static_cast<float*>(args.xbar) + row0 * d;
+  for (int r = warp; r < n; r += kWarps) {
+    float sum = 0.0f;
+    for (int c = lane; c < d; c += 32)
+      sum += abar[r * la + c] * args.ga[c] + mb[r * lm + c] * args.gm[c];
+    const float cm = warp_sum(sum) / d;
+    for (int c = lane; c < d; c += 32) {
+      const float cbar =
+          abar[r * la + c] * args.ga[c] + mb[r * lm + c] * args.gm[c];
+      xb[(size_t)r * d + c] = r < n_real ? scale * (cbar - cm) : 0.0f;
+    }
+  }
+}
+
+#undef VFB_FRESH_MLP
+#undef VFB_FRESH_ATT
+
+// vfb_rows_f32's plan (see PlanB32): the widest MLP chunk, then the
+// widest column block, with m_bar in shared memory where it still fits,
+// else in the workspace. Returns false when none fits.
+inline bool plan_b32(int n, int d, int hd, int dh, bool drop, bool l2,
+                     int* acc_smem, int* hc, int* nb, PlanB32* out) {
+  for (int c : kChunks) {
+    if (dh % c) continue;
+    for (int bl : mac::kBlocksF32) {
+      if (!mac::block_ok(n, bl)) continue;
+      for (int as = 1; as >= 0; --as) {
+        const PlanB32 p = make_plan_b32(n, d, hd, c, bl, as, drop, l2);
+        if (p.total <= (size_t)kMaxSmem) {
+          *acc_smem = as;
+          *hc = c;
+          *nb = bl;
+          *out = p;
+          return true;
+        }
+      }
+    }
+  }
+  return false;
+}
+
+// vfb_rows_f32's launches so far (chip_smoke.py holds the count against
+// the route's)
+unsigned long long rows_f32_launches = 0;
 
 // The four weight products W_bar[M, N] = A[R, M]^T G[R, N].
 struct Problem {
@@ -1361,16 +1977,39 @@ int launch(const Args& a, cudaStream_t st) {
   if (l2 && (drop || a.out_bias == nullptr)) return (int)cudaErrorInvalidValue;
   if (resid != (a.rh1 != nullptr) || (resid && (drop || l2)))
     return (int)cudaErrorInvalidValue;
-  auto rows = l2      ? vfb_rows<T, false, true>
-              : drop  ? vfb_rows<T, true>
-              : resid ? vfb_rows<T, false, false, true>
-                      : vfb_rows<T, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
-  if (err != cudaSuccess) return (int)err;
-  rows<<<a.batch, kThreads, a.smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err;
+  if constexpr (sizeof(T) == 4) {
+    // f32: vfb_rows_f32 on its own plan and workspace
+    Args a32 = a;
+    PlanB32 p;
+    if (a.ws == nullptr || !shape_ok(a.n_pad, a.n_real, a.d, a.heads, a.dh) ||
+        !plan_b32(a.n_pad, a.d, a.d / a.heads, a.dh, drop, l2, &a32.acc_smem,
+                  &a32.hc, &a32.nb, &p))
+      return (int)cudaErrorInvalidValue;
+    a32.smem = (int)p.total;
+    auto rows = l2      ? vfb_rows_f32<false, true, false>
+                : drop  ? vfb_rows_f32<true, false, false>
+                : resid ? vfb_rows_f32<false, false, true>
+                        : vfb_rows_f32<false, false, false>;
+    err = cudaFuncSetAttribute(
+        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a32.smem);
+    if (err != cudaSuccess) return (int)err;
+    rows<<<a.batch, kThreads, a32.smem, st>>>(a32);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++rows_f32_launches;
+  } else {
+    auto rows = l2      ? vfb_rows<T, false, true>
+                : drop  ? vfb_rows<T, true>
+                : resid ? vfb_rows<T, false, false, true>
+                        : vfb_rows<T, false>;
+    err = cudaFuncSetAttribute(
+        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return (int)err;
+    rows<<<a.batch, kThreads, a.smem, st>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   const int d = a.d, dh = a.dh;
   Problems ps = {};
@@ -1484,6 +2123,25 @@ int vfb_wgrad_splits(int tbytes, int rows, int count, const int* ms,
                      const int* ns) {
   return wgrad_splits(rows, ms, ns, count, tbytes == 2 ? kWbRows : kTgRows);
 }
+
+// vfb_rows_f32's plan for a shape (the dropout instance's with `drop`,
+// the L2 one's with `l2`): m_bar in shared memory, the MLP chunk, the
+// column block, the shared memory and the workspace's floats per image.
+// Returns 0 when the shape has one, 1 when not.
+int vfb_plan_f32(int n_pad, int n_real, int d, int heads, int dh, int drop,
+                 int l2, int* acc_smem_out, int* hc_out, int* nb_out,
+                 int* smem_out, long long* ws_out) {
+  PlanB32 p;
+  if (!shape_ok(n_pad, n_real, d, heads, dh) ||
+      !plan_b32(n_pad, d, d / heads, dh, drop != 0, l2 != 0, acc_smem_out,
+                hc_out, nb_out, &p))
+    return 1;
+  *smem_out = (int)p.total;
+  *ws_out = (long long)p.ws;
+  return 0;
+}
+
+unsigned long long vfb_rows_f32_launches() { return rows_f32_launches; }
 
 const char* vfb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -261,12 +261,14 @@ def cta_shape_ok(n_pad: int, n_real: int, d: int, num_heads: int,
     return shape_rule(n_pad, n_real, d, num_heads, dh, 128)
 
 
-def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-            dh: int):
-    """(fused q|k|v product, MLP chunk width, shared-memory bytes) of the
-    L2 instance, or None where one image does not fit one CTA: ``vf_plan``
-    of ``csrc/vector_field.cu`` (its ``make_plan`` with the norms' region)
-    in Python, so that a CPU run routes as the card does.
+def cta_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+             dh: int, drop: bool = False, l2: bool = False):
+    """(fused q|k|v product, MLP chunk width, shared-memory bytes) of one
+    CTA (of the dropout instance with ``drop``, of the L2 instance with
+    ``l2``), or None where one image does not fit one CTA: ``vf_plan`` of
+    ``csrc/vector_field.cu`` (its ``make_plan``) in Python, so that a CPU
+    run routes as the card does. It decides the route in either dtype;
+    the f32 kernel then lays its CTA out by :func:`f32_plan`.
     ``chip_smoke.py`` holds it against ``vf_plan`` on the card."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
         return None
@@ -277,16 +279,105 @@ def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
             if dh % hc:
                 continue
             rows = [(d + pad) * tb,                         # cn
-                    (max(hc, 3 * hd if fused else hd, n_pad) + 4) * 4,
+                    (max(hc, 3 * hd if fused else hd, n_pad,
+                         d if drop and tb == 2 else 0) + 4) * 4,
                     (max(hc, hd) + pad) * tb,               # hbuf
                     *[(hd + pad) * tb] * 3,                 # q, k, v
                     (n_pad + pad) * tb,                     # p
                     *([(d + 4) * 4] if tb == 2 else []),    # acc
-                    4, 4]                                   # q2, k2
+                    *([4 * ((d + 127) // 128) * 4] if drop else []),
+                    *([4, 4] if l2 else [])]                # q2, k2
             total = sum(align128(n_pad * r) for r in rows)
             if total <= _MAX_SMEM:
                 return fused, hc, total
     return None
+
+
+def l2_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+            dh: int):
+    """:func:`cta_plan` of the L2 instance."""
+    return cta_plan(dtype, n_pad, n_real, d, num_heads, dh, l2=True)
+
+
+# csrc/split_tf32.cuh: mac::gemm_tf32's ring (kSlice, kStages, kTileRows,
+# kMaxOwn; 12 warps of 32 threads) and the f32 one-CTA kernels' column
+# blocks (kBlocksF32)
+_SLICE, _STAGES, _TILE_ROWS, _MAX_OWN = 16, 2, 3, 3
+F32_BLOCKS = (192, 128, 96, 64, 32, 16)
+
+
+def ring_slot(n: int, nb: int) -> int:
+    """Floats of one plane of one slot of gemm_tf32's ring for n rows and
+    column blocks of nb (``mac::ring_slot``)."""
+    return n * (_SLICE + 4) + max(_SLICE * (nb + 8), nb * (_SLICE + 4))
+
+
+def block_ok(n: int, nb: int) -> bool:
+    """``mac::block_ok``: one round of warp tiles, and a staged slice's
+    16-byte chunks within kMaxOwn a thread."""
+    return (-(-nb // 32) * -(-(n // 16) // _TILE_ROWS) <= 12
+            and 4 * n + 4 * nb <= _MAX_OWN * 384)
+
+
+def f32_layout(n_pad: int, d: int, num_heads: int, hc: int, nb: int,
+               acc_smem: int, drop: bool = False, l2: bool = False) -> dict:
+    """``make_plan_f32`` of csrc/vector_field.cu: byte offsets of the f32
+    forward's CTA, its row strides (floats) and its workspace (floats per
+    image)."""
+    n, hd = n_pad, d // num_heads
+    lay = {"slot": ring_slot(n, nb), "ld_acc": d + 8, "ld_h": hc + 4,
+           "ld_p": n + 4, "ld_bits": 4 * ((d + 127) // 128),
+           "ld_qkv": 3 * hd}
+    off = 0
+    lay["ring"] = off
+    off += align128(2 * _STAGES * lay["slot"] * 4)
+    lay["acc"] = off
+    if acc_smem:
+        off += align128(n * lay["ld_acc"] * 4)
+    fh, fp = align128(n * lay["ld_h"] * 4), align128(n * lay["ld_p"] * 4)
+    lay.update(hbig=off, hsmall=off + fh, pbig=off, psmall=off + fp)
+    off += 2 * max(fh, fp)
+    lay["bits"] = off
+    if drop:
+        off += align128(n * lay["ld_bits"] * 4)
+    lay["norms"] = off
+    if l2:
+        off += 2 * align128(n * 4)
+    lay["total"] = off
+    lay["ws_qkv"] = n * d
+    lay["ws_acc"] = lay["ws_qkv"] + n * lay["ld_qkv"]
+    lay["ws"] = lay["ws_acc"] + (0 if acc_smem else n * d)
+    return lay
+
+
+def f32_search(layout, n_pad: int, n_real: int, d: int, num_heads: int,
+               dh: int, drop: bool = False, l2: bool = False):
+    """The f32 one-CTA kernels' plan rule (``plan_f32`` and ``plan_b32`` of
+    the CUDA sources): the widest MLP chunk, then the widest column block,
+    the accumulator in shared memory where it still fits. (accumulator in
+    shared memory, chunk, block, shared-memory bytes, workspace floats per
+    image) of the first ``layout`` within 227 KB, or None."""
+    if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
+        return None
+    for hc in _CHUNKS:
+        if dh % hc:
+            continue
+        for nb in F32_BLOCKS:
+            if not block_ok(n_pad, nb):
+                continue
+            for acc_smem in (1, 0):
+                lay = layout(n_pad, d, num_heads, hc, nb, acc_smem, drop, l2)
+                if lay["total"] <= _MAX_SMEM:
+                    return acc_smem, hc, nb, lay["total"], lay["ws"]
+    return None
+
+
+def f32_plan(n_pad: int, n_real: int, d: int, num_heads: int, dh: int,
+             drop: bool = False, l2: bool = False):
+    """:func:`f32_search` over ``vf_kernel_f32``'s layouts: ``vf_plan_f32``
+    of csrc/vector_field.cu in Python. ``chip_smoke.py`` holds it against
+    ``vf_plan_f32``."""
+    return f32_search(f32_layout, n_pad, n_real, d, num_heads, dh, drop, l2)
 
 
 def l2_route(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
@@ -440,6 +531,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.vf_launch.restype = i
     lib.vf_error_string.argtypes = [i]
     lib.vf_error_string.restype = ctypes.c_char_p
+    lib.vf_plan_f32.argtypes = ([i] * 7 + [ctypes.POINTER(i)] * 4
+                                + [ctypes.POINTER(ctypes.c_longlong)])
+    lib.vf_plan_f32.restype = i
+    lib.vf_f32_launches.argtypes = []
+    lib.vf_f32_launches.restype = ctypes.c_ulonglong
     return lib
 
 
@@ -484,6 +580,26 @@ def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     return fused.value, hc.value, smem.value
 
 
+def kernel_plan_f32(n_pad: int, n_real: int, d: int, num_heads: int,
+                    dh: int, drop: bool = False, l2: bool = False):
+    """``vf_plan_f32`` of the CUDA source: (accumulator in shared memory,
+    MLP chunk width, column block, shared-memory bytes, workspace floats
+    per image) of ``vf_kernel_f32``; raises if the shape has none."""
+    outs = [ctypes.c_int() for _ in range(4)]
+    ws = ctypes.c_longlong()
+    if _library().vf_plan_f32(n_pad, n_real, d, num_heads, dh, int(drop),
+                              int(l2), *map(ctypes.byref, outs),
+                              ctypes.byref(ws)):
+        raise ValueError(f"no f32 plan for n_pad={n_pad}, D={d}, "
+                         f"{num_heads} heads, dh={dh}")
+    return (*(o.value for o in outs), ws.value)
+
+
+def f32_launches() -> int:
+    """``vf_kernel_f32``'s launches so far (the library's C counter)."""
+    return _library().vf_f32_launches()
+
+
 def _check_launch(x, w: VFWeights, base=None):
     if x.device.type != "cuda":
         raise ValueError(f"the kernel runs on CUDA or CPU, not {x.device}")
@@ -514,16 +630,14 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
     plan = kernel_plan(x.dtype, n, n_real, d, num_heads, dh, drop is not None,
                        w.l2)
     out = torch.empty_like(x)
-    # f32: the kernel accumulates mlp_o + attn_o in the output buffer (a
-    # chain keeps its state there, and its accumulator in a scratch), and
-    # the dropout instance takes each head's attn_o product in a scratch
-    acc_buf = None
+    # f32: vf_kernel_f32's workspace (cn, the head's q | k | v, and the
+    # accumulator where its plan keeps it out of shared memory)
+    acc = None
     if x.dtype == torch.float32:
-        acc_buf = torch.empty(b * n, d, device=x.device) if chain > 1 else out
-    acc = acc_buf.data_ptr() if acc_buf is not None else None
-    ao = None
-    if drop is not None and x.dtype == torch.float32:
-        ao = torch.empty(b * n, d, device=x.device)
+        ws = kernel_plan_f32(n, n_real, d, num_heads, dh, drop is not None,
+                             w.l2)[4]
+        acc_buf = torch.empty(b * ws, device=x.device)
+        acc = acc_buf.data_ptr()
     stats = idx = None
     if jas_kk:
         stats = torch.empty(b, num_heads, 5, n, device=x.device)
@@ -541,7 +655,7 @@ def _launch(x, w: VFWeights, *, num_heads, scaler, n_real, mode, dt, base,
         stats.data_ptr() if jas_kk else None,
         idx.data_ptr() if jas_kk else None, jas_kk,
         ctypes.byref(drop) if drop is not None else None,
-        ao.data_ptr() if ao is not None else None, chain,
+        None, chain,
         *(t.data_ptr() if t is not None else None for t in resid),
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:

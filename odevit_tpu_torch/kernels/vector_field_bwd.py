@@ -68,8 +68,9 @@ from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.dropout import Drop, drop_spec, masks_plain
 from odevit_tpu_torch.kernels.tiled import tiled_backward
 from odevit_tpu_torch.kernels.vector_field import (
-    _CHUNKS, _MAX_SMEM, VFWeights, _check, _check_launch, _check_l2_drop,
-    align128, cta_shape_ok, l2_probs, l2_route)
+    _CHUNKS, _MAX_SMEM, _STAGES, VFWeights, _check, _check_launch,
+    _check_l2_drop, align128, cta_shape_ok, f32_search, l2_probs, l2_route,
+    ring_slot)
 from odevit_tpu_torch.ops.dot import dot32
 
 # SMs of an H100: the weight products are split over rows to fill them
@@ -324,11 +325,11 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
         "w1", "w2", "xbar", "cnm", "cna", "gd", "gd2", "ctx", "h", "h1b",
-        "qkvb", "macc", "npart", "wpart", "out", "qkv_bias", "out_bias",
-        "rqkv", "rh1")]
+        "qkvb", "macc", "ws", "npart", "wpart", "out", "qkv_bias",
+        "out_bias", "rqkv", "rh1")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
-            "smem", "splits")]
+            "smem", "splits", "nb", "acc_smem")]
         + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float),
            ("drop", Drop)])
 
@@ -348,17 +349,25 @@ def _library() -> ctypes.CDLL:
         lib.vfb_launch.restype = i
         lib.vfb_error_string.argtypes = [i]
         lib.vfb_error_string.restype = ctypes.c_char_p
+        lib.vfb_plan_f32.argtypes = ([i] * 7 + [ctypes.POINTER(i)] * 4
+                                     + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.vfb_plan_f32.restype = i
+        lib.vfb_rows_f32_launches.argtypes = []
+        lib.vfb_rows_f32_launches.restype = ctypes.c_ulonglong
         _lib = lib
     return _lib
 
 
-def l2_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
-                dh: int):
+def cta_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                 dh: int, drop: bool = False, l2: bool = False):
     """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
-    of the L2 instance of the per-image kernel, or None where one image
-    does not fit one CTA: ``vfb_plan`` of ``csrc/vector_field_bwd.cu`` (its
-    ``make_plan`` with the L2 region) in Python, so that a CPU run routes
-    as the card does. ``chip_smoke.py`` holds it against ``vfb_plan``."""
+    of the per-image kernel (of its dropout instance with ``drop``, of its
+    L2 instance with ``l2``), or None where one image does not fit one
+    CTA: ``vfb_plan`` of ``csrc/vector_field_bwd.cu`` (its ``make_plan``)
+    in Python, so that a CPU run routes as the card does. It decides the
+    route in either dtype; the f32 kernel then lays its CTA out by
+    :func:`f32_bwd_plan`. ``chip_smoke.py`` holds it against
+    ``vfb_plan``."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
         return None
     tb = torch.empty((), dtype=dtype).element_size()
@@ -367,7 +376,8 @@ def l2_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
         for hc in _CHUNKS:
             if dh % hc:
                 continue
-            off = 2 * align128(n * (d + pad) * tb) if cn_smem else 0
+            off = ((3 if drop else 2) * align128(n * (d + pad) * tb)
+                   if cn_smem else 0)
             off += align128(n * 4)                              # mean
             mlp = (2 * align128(n * (hc + 4) * 4)
                    + align128(n * (hc + pad) * tb))
@@ -375,11 +385,81 @@ def l2_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                     + align128(n * (n + 4) * 4)                 # pf
                     + align128(n * (n + pad) * tb)              # pb
                     + 4 * align128(n * (hd + pad) * tb)         # q k v cb
-                    + 5 * align128(n * 4))                      # L2
+                    + (align128(n * 16) if drop else 0)         # pbits
+                    + (5 * align128(n * 4) if l2 else 0))       # L2
             total = off + max(mlp, attn, align128(n * (d + 4) * 4))
             if total <= _MAX_SMEM:
                 return cn_smem, hc, total
     return None
+
+
+def l2_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
+                dh: int):
+    """:func:`cta_bwd_plan` of the L2 instance."""
+    return cta_bwd_plan(dtype, n_pad, n_real, d, num_heads, dh, l2=True)
+
+
+def f32_bwd_layout(n_pad: int, d: int, num_heads: int, hc: int, nb: int,
+                   acc_smem: int, drop: bool = False,
+                   l2: bool = False) -> dict:
+    """``make_plan_b32`` of csrc/vector_field_bwd.cu: byte offsets of the
+    f32 backward's CTA, its row strides (floats) and its workspace (floats
+    per image)."""
+    n, hd = n_pad, d // num_heads
+    lay = {"slot": ring_slot(n, nb), "ld_acc": d + 8, "ld_h": hc + 4,
+           "ld_p": n + 4, "ld_ws": 4 * hd}
+    off = 0
+    lay["l2"] = off
+    if l2:
+        off += 5 * align128(n * 4)
+    lay["mean"] = off
+    off += align128(n * 4)
+    lay["ring"] = off
+    off += align128(2 * _STAGES * lay["slot"] * 4)
+    lay["macc"] = off
+    if acc_smem:
+        off += align128(n * lay["ld_acc"] * 4)
+    fh, fp = align128(n * lay["ld_h"] * 4), align128(n * lay["ld_p"] * 4)
+    lay.update(reg=off, p0=off, p1=off + fh, pbig=off, psmall=off + fp,
+               abar=off)
+    a = off + 2 * fp
+    lay["pbits"] = a
+    if drop:
+        a += align128(n * 16)
+    lay["total"] = max(off + 2 * fh, a,
+                       off + align128(n * lay["ld_acc"] * 4))
+    lay["ws_pf"] = n * lay["ld_ws"]
+    lay["ws_macc"] = lay["ws_pf"] + n * n
+    lay["ws"] = lay["ws_macc"] + (0 if acc_smem else n * d)
+    return lay
+
+
+def f32_bwd_plan(n_pad: int, n_real: int, d: int, num_heads: int, dh: int,
+                 drop: bool = False, l2: bool = False):
+    """:func:`f32_search` over ``vfb_rows_f32``'s layouts: ``vfb_plan_f32``
+    of csrc/vector_field_bwd.cu in Python. ``chip_smoke.py`` holds it
+    against ``vfb_plan_f32``."""
+    return f32_search(f32_bwd_layout, n_pad, n_real, d, num_heads, dh, drop,
+                      l2)
+
+
+def kernel_bwd_plan_f32(n_pad: int, n_real: int, d: int, num_heads: int,
+                        dh: int, drop: bool = False, l2: bool = False):
+    """``vfb_plan_f32`` of the CUDA source (see :func:`f32_bwd_plan`);
+    raises if the shape has none."""
+    outs = [ctypes.c_int() for _ in range(4)]
+    ws = ctypes.c_longlong()
+    if _library().vfb_plan_f32(n_pad, n_real, d, num_heads, dh, int(drop),
+                               int(l2), *map(ctypes.byref, outs),
+                               ctypes.byref(ws)):
+        raise ValueError(f"no f32 backward plan for n_pad={n_pad}, D={d}, "
+                         f"{num_heads} heads, dh={dh}")
+    return (*(o.value for o in outs), ws.value)
+
+
+def rows_f32_launches() -> int:
+    """``vfb_rows_f32``'s launches so far (the library's C counter)."""
+    return _library().vfb_rows_f32_launches()
 
 
 def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
@@ -525,7 +605,12 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
             "gd2": scratch(d) if drop is not None else None,
             "ctx": scratch(d),
             "h": scratch(dh), "h1b": scratch(dh), "qkvb": scratch(3 * d),
-            "macc": scratch(d, torch.float32),
+            # bf16: m_bar; f32: vfb_rows_f32's workspace
+            "macc": (scratch(d, torch.float32) if x.dtype == torch.bfloat16
+                     else None),
+            "ws": (torch.empty(b * kernel_bwd_plan_f32(
+                n, n_real, d, num_heads, dh, drop is not None, w.l2)[4],
+                device=x.device) if x.dtype == torch.float32 else None),
             "npart": torch.empty(b, nlen, device=x.device),
             "wpart": torch.empty(splits, wtotal, device=x.device),
             "out": torch.empty(wtotal + nlen, device=x.device),
