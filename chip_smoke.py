@@ -3858,14 +3858,20 @@ def macaron_bound(b: int, n_real: int, d: int, dh: int, itemsize: int,
 def macaron_plans_agree():
     """The Python plans that route Macaron on either device
     (``macaron_plan``, ``macaron_bwd_plan``) against the CUDA sources'
-    ``mac_plan``/``mcb_plan`` over a sweep of shapes; the one-CTA
-    backward has a plan at 114 of them in bf16 and 93 in f32."""
+    ``mac_plan``/``mcb_plan`` over a sweep of shapes, and the f32
+    forward's own layout (``macaron_plan_f32``) against ``mac_plan_f32``;
+    the one-CTA backward has a plan at 114 of them in bf16 and 93 in f32,
+    the forward at 102 and 96, each of the 96 with an f32 plan."""
     import torch
-    from odevit_tpu_torch.kernels.macaron import kernel_plan, macaron_plan
+    from odevit_tpu_torch.kernels.macaron import (kernel_plan,
+                                                  kernel_plan_f32,
+                                                  macaron_plan,
+                                                  macaron_plan_f32)
     from odevit_tpu_torch.kernels.macaron_bwd import (kernel_bwd_plan,
                                                       macaron_bwd_plan)
     shapes = 0
     cta_bwd = {torch.bfloat16: 0, torch.float32: 0}
+    cta_fwd = {torch.bfloat16: 0, torch.float32: 0}
     for dtype in (torch.bfloat16, torch.float32):
         for n_pad in (16, 32, 64, 80, 96, 128, 144):
             for d, heads in ((32, 2), (64, 2), (128, 2), (192, 3), (256, 4),
@@ -3881,10 +3887,22 @@ def macaron_plans_agree():
                           f"{macaron_bwd_plan(*args)}, mcb_plan "
                           f"{kernel_bwd_plan(*args)}")
                     cta_bwd[dtype] += macaron_bwd_plan(*args) is not None
+                    cta_fwd[dtype] += macaron_plan(*args) is not None
+                    if dtype == torch.float32:
+                        plan = macaron_plan_f32(*args[1:])
+                        check(plan == kernel_plan_f32(*args[1:]),
+                              f"Macaron f32 plan {args}: python {plan}, "
+                              f"mac_plan_f32 {kernel_plan_f32(*args[1:])}")
+                        check(macaron_plan(*args) is None
+                              or plan is not None,
+                              f"one-CTA f32 Macaron shape {args} has no "
+                              f"f32 plan")
                     shapes += 1
-    # the one-CTA backward's shapes: as many as before the f32 redesign
+    # the one-CTA shapes: as many as before the f32 redesigns
     check(cta_bwd == {torch.bfloat16: 114, torch.float32: 93},
           f"one-CTA Macaron backward plans: {cta_bwd}")
+    check(cta_fwd == {torch.bfloat16: 102, torch.float32: 96},
+          f"one-CTA Macaron forward plans: {cta_fwd}")
     return shapes
 
 
@@ -3898,10 +3916,12 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     padded rows inert; ``plans()`` holds the Python plans against the
     CUDA ones and returns the number of shapes. Returns the launches it
     made, by counter. In f32, the card's NaN in a real row reaches the
-    outputs it reaches in the plain version."""
+    outputs it reaches in the plain version, and ``mac_kernel_f32``'s C
+    counter moves once per one-CTA evaluation (not at all on the tiled
+    route)."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
-    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron import f32_launches, macaron_eval
     from odevit_tpu_torch.kernels.macaron_bwd import BAR_NAMES, macaron_bwd
     before = dict(launch_counts)
     gen = torch.Generator().manual_seed(21)
@@ -3934,6 +3954,7 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
         gx = gx.to(dtype)
         r = {"dtype": str(dtype), "tol": tol,
              "shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh}"}
+        at = (f32_launches(), launch_counts["macaron_eval"])
         modes = {"plain": {}, "euler": dict(dt=0.25),
                  "base": dict(dt=0.25, base=base)}
         for mode, extra in modes.items():
@@ -3996,6 +4017,15 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
             check(r["nan_real_row_as_plain"], f"Macaron {dtype}: a NaN in "
                   f"a real row reached other outputs than in the plain "
                   f"version")
+        # every one-CTA evaluation of this dtype ran mac_kernel_f32 in f32
+        # and mac_kernel<bf16> in bf16
+        cta = launch_counts["macaron_eval"] - at[1]
+        r["mac_kernel_f32_launches"] = f32_launches() - at[0]
+        check(r["mac_kernel_f32_launches"]
+              == (cta if dtype == torch.float32 else 0),
+              f"Macaron {dtype}: mac_kernel_f32 launched "
+              f"{r['mac_kernel_f32_launches']} times for {cta} one-CTA "
+              f"evaluations")
         results.append(r)
     shapes = plans()
     made = {k: v - before[k] for k, v in launch_counts.items()
@@ -4006,12 +4036,129 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     return made
 
 
+# SHA-256 of mac_kernel<bf16>'s outputs in mac_bf16_digest, as the kernel
+# gave them before mac_kernel_f32 replaced its f32 instance (H100, CUDA
+# 12.8): the bf16 kernel is unchanged, bit for bit. It guards that one
+# change only: a later change to mac_kernel<bf16>, to macaron_model's
+# initialisation or to the toolchain drops it or takes it anew on its
+# parent.
+MAC_BF16_SHA256 = ("b708fb7a9d93332fa3bfb52cbf14013105075d07822769053d99679fc6db2b57")
+
+
+def mac_bf16_digest():
+    """SHA-256 of ``mac_kernel<bf16>``'s outputs, plain, Euler and base,
+    at B=4 (65 tokens padded to 80) from ``macaron_model``'s weights and
+    inputs drawn from CPU seeds."""
+    import hashlib
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    before = dict(launch_counts)
+    model = macaron_model()
+    n_real, n_pad, d = 65, 80, model.embed_dim
+    w = model.vf.kernel_weights(torch.bfloat16)
+    kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler,
+              n_real=n_real)
+    gen = torch.Generator().manual_seed(25)
+    x = torch.randn(4, n_pad, d, generator=gen)
+    x[:, n_real:] = 0
+    x = x.to(torch.bfloat16).cuda()
+    base = torch.randn(4, n_pad, d, generator=gen).to(torch.bfloat16).cuda()
+    digest = hashlib.sha256()
+    for mode, extra in {"plain": {}, "euler": dict(dt=0.25),
+                        "base": dict(dt=0.25, base=base)}.items():
+        out = macaron_eval(x, w, mode=mode, **kw, **extra)
+        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
+    launch_counts.update(before)           # comparisons do not count
+    return digest.hexdigest()
+
+
+# mac_kernel_f32's plans that the CIFAR cell does not take, at shapes the
+# route sends to one CTA: (n_real, n_pad, embed_dim, heads, mlp_ratio) and
+# the plan's (FFN chunk, column block)
+MAC_F32_PLANS = (((65, 80, 128, 2, 4.0), (128, 192)),
+                 ((65, 80, 64, 1, 1.0), (64, 192)),
+                 ((29, 32, 32, 2, 1.0), (32, 192)),
+                 ((122, 128, 32, 2, 4.0), (128, 128)))
+
+
+def mac_f32_plans_vs_plain():
+    """``mac_kernel_f32`` at B=4 on each plan of ``MAC_F32_PLANS``: plain,
+    Euler and base against the plain version (parameters perturbed by
+    normal(0, 0.1), as in ``macaron_vs_plain``) within ``TOL_F32``,
+    finite, repeats bit-identical, NaN and garbage in the padded rows
+    inert, each evaluation one launch of its C counter."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.macaron import (f32_launches, macaron_eval,
+                                                  macaron_plan_f32)
+    from odevit_tpu_torch.models.macaron import ViTMacaron
+    before = dict(launch_counts)
+    gen = torch.Generator().manual_seed(27)
+    results = []
+    for (n_real, n_pad, d, heads, ratio), want_plan in MAC_F32_PLANS:
+        model = ViTMacaron(**{**MACARON_SHAPE, "embed_dim": d,
+                              "num_heads": heads, "mlp_ratio": ratio},
+                           dtype=torch.bfloat16, device="cuda", seed=0)
+        with torch.no_grad():
+            for p in model.vf.parameters():
+                p.add_(torch.randn(p.shape, generator=gen).cuda() * 0.1)
+        w = model.vf.kernel_weights(torch.float32)
+        dh = w.w1.shape[1]
+        plan = macaron_plan_f32(n_pad, n_real, d, heads, dh)
+        check(plan is not None and plan[:2] == want_plan,
+              f"Macaron f32 plan at {n_pad} {d} {heads} {dh}: {plan}")
+        kw = dict(num_heads=heads, scaler=model.vf.scaler, n_real=n_real)
+        x = torch.randn(4, n_pad, d, generator=gen)
+        x[:, n_real:] = 0
+        base = torch.randn(4, n_pad, d, generator=gen).cuda()
+        dirty = x.clone()
+        dirty[:, n_real::2] = float("nan")
+        dirty[:, n_real + 1::2] = 1e30
+        x, dirty = x.cuda(), dirty.cuda()
+        r = {"shape": f"B=4 n={n_real}/{n_pad} D={d} H={heads} dh={dh}",
+             "plan": plan}
+        at = f32_launches()
+        for mode, extra in {"plain": {}, "euler": dict(dt=0.25),
+                            "base": dict(dt=0.25, base=base)}.items():
+            got = macaron_eval(x, w, mode=mode, **kw, **extra)
+            again = macaron_eval(x, w, mode=mode, **kw, **extra)
+            padded = macaron_eval(dirty, w, mode=mode, **kw, **extra)
+            want = macaron_eval(x, w, mode=mode, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            r[mode] = rel_err(got[:, :n_real], want[:, :n_real])
+            check(bool(torch.isfinite(got[:, :n_real]).all()),
+                  f"Macaron f32 {r['shape']} {mode}: non-finite output")
+            check(r[mode] <= TOL_F32,
+                  f"Macaron f32 {r['shape']} {mode}: {r[mode]}")
+            check(torch.equal(got, again),
+                  f"Macaron f32 {r['shape']} {mode} not repeatable")
+            check(torch.equal(got[:, :n_real], padded[:, :n_real]),
+                  f"Macaron f32 {r['shape']} {mode}: padded rows reached "
+                  f"a real row")
+        r["mac_kernel_f32_launches"] = f32_launches() - at
+        check(r["mac_kernel_f32_launches"] == 9,
+              f"Macaron f32 {r['shape']}: mac_kernel_f32 launched "
+              f"{r['mac_kernel_f32_launches']} times for 9 evaluations")
+        results.append(r)
+        del model
+    launch_counts.update(before)           # comparisons do not count
+    emit("macaron_f32_plans_vs_plain", weight_noise=0.1, tol=TOL_F32,
+         results=results)
+
+
 def phase_macaron_kernels_vs_plain():
     """The one-CTA kernels at B=4 and the cell's shape (65 tokens padded
     to 80, D=192, 3 heads, dh=768); the Python plans against
-    ``mac_plan``/``mcb_plan``."""
+    ``mac_plan``/``mcb_plan``/``mac_plan_f32``; ``mac_kernel_f32`` on
+    the plans of other shapes; ``mac_kernel<bf16>``'s outputs bit for bit
+    those it gave before ``mac_kernel_f32``."""
     macaron_vs_plain("macaron_kernels_vs_plain", macaron_model(), 4, 65, 80,
                      ("macaron_eval", "macaron_bwd"), macaron_plans_agree)
+    mac_f32_plans_vs_plain()
+    digest = mac_bf16_digest()
+    emit("macaron_bf16_unchanged", sha256=digest, want=MAC_BF16_SHA256)
+    check(digest == MAC_BF16_SHA256, "mac_kernel<bf16>'s outputs changed")
 
 
 def phase_macaron_serving(images_u8, rng):
@@ -4019,10 +4166,12 @@ def phase_macaron_serving(images_u8, rng):
     ``fast_forward`` at B=1024, rk4 on 13 points on the fused stage-advance
     route (48 launches: one euler-mode and three base-mode per step, f32
     states), against the plain path; Euler on 13 points (12 euler-mode
-    launches) beside it; the engine over the rk4 model."""
+    launches) beside it; the engine over the rk4 model. Each launch is one
+    ``mac_kernel_f32`` (its C counter)."""
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.kernels.macaron import f32_launches
     from odevit_tpu_torch.models.fast_forward import fast_forward
     x = make_preprocess(dtype=torch.bfloat16)(images_u8)
     report = {}
@@ -4032,12 +4181,16 @@ def phase_macaron_serving(images_u8, rng):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        f32_0 = f32_launches()
         got = fast_forward(model, x)["logits"]
         torch.cuda.synchronize()
         launches = {k: v for k, v in launch_counts.items() if v}
+        kernel_launches = f32_launches() - f32_0
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(launches == {"macaron_eval": evals},
               f"Macaron {name}: launches {launches}")
+        check(kernel_launches == evals, f"Macaron {name}: mac_kernel_f32 "
+              f"launched {kernel_launches} times, want {evals}")
         want = fast_forward(model, x, plain=True)["logits"]
         torch.cuda.synchronize()
         err = rel_err(got, want)
@@ -4052,7 +4205,8 @@ def phase_macaron_serving(images_u8, rng):
         plain_ms = cuda_ms(lambda: fast_forward(model, x, plain=True),
                            iters=2)
         report[name] = {
-            "launches": launches, "rel_err": err, "tol": TOL_LOGITS,
+            "launches": launches, "mac_kernel_f32_launches": kernel_launches,
+            "rel_err": err, "tol": TOL_LOGITS,
             "top1_agreement": top1, "logit_scale": want.abs().max().item(),
             "ms_per_forward": ms, "img_per_s": BATCH / ms * 1e3,
             "ms_per_eval": ms / evals, "plain_ms_per_forward": plain_ms,
@@ -4073,6 +4227,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from odevit_tpu_torch.kernels.macaron import f32_launches
     from odevit_tpu_torch.train.fast_steps import (
         fast_macaron_forward, make_fast_macaron_train_step)
     from odevit_tpu_torch.train.state import (create_train_state,
@@ -4093,6 +4248,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
             reset_launch_counts()
             wgrad0 = wgrad_launches()
             cta0 = f32_cta_launches()
+            mac0 = f32_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -4105,6 +4261,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
         cta = f32_cta_since(cta0) if path == "kernels" else None
+        mac = f32_launches() - mac0 if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         state.optimizer.zero_grad(set_to_none=True)
@@ -4128,10 +4285,15 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
-            "f32_cta_launches": cta,
+            "f32_cta_launches": cta, "mac_kernel_f32_launches": mac,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
+    # each one-CTA evaluation of the f32 steps is one mac_kernel_f32
+    check(k["mac_kernel_f32_launches"] == k["launches"].get("macaron_eval",
+                                                            0),
+          f"mac_kernel_f32 launched {k['mac_kernel_f32_launches']} times "
+          f"for {k['launches']}")
     cos = torch.nn.functional.cosine_similarity(
         k.pop("first_grad"), p.pop("first_grad"), dim=0).item()
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(k["loss"], p["loss"])]
@@ -4158,7 +4320,13 @@ def phase_macaron_train(images_u8, labels):
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("macaron_train", runs, cos, loss_rel, per_step,
                 {"macaron_eval": 48, "macaron_bwd": 48}, wgrad=None)
-    return k["launches"]
+    check(k["mac_kernel_f32_launches"] == 48 * TRAIN_STEPS,
+          f"macaron_train: mac_kernel_f32 launched "
+          f"{k['mac_kernel_f32_launches']} times in {TRAIN_STEPS} steps")
+    ran = " ".join(t["kernel"] for t in profile["top"])
+    check("mac_kernel_f32" in ran,
+          f"macaron_train's profile lacks mac_kernel_f32: {ran}")
+    return k
 
 
 def macaron_timing(model, x_in, b, iters=(5, 2), slow_iters=3):
@@ -4243,8 +4411,52 @@ def macaron_timing(model, x_in, b, iters=(5, 2), slow_iters=3):
                         "parts": kernel_parts(
                             lambda: macaron_bwd(x, w, gd, **kw))}
                        if slow else {})}}
+            if slow and names[0] == "macaron_eval":
+                out[str(dtype)][names[0]].update(mac_f32_modes(
+                    x, w, kw, b, n_real, d, dh, iters))
     launch_counts.update(before)           # comparisons do not count
     return out, n_real, x.shape[1], dh
+
+
+def mac_f32_modes(x, w, kw, b, n_real, d, dh, iters):
+    """``mac_kernel_f32`` in each mode at the timing state: ms, the rate of
+    TF32 passes (three per product) against split TF32's floor, the plain
+    version's ms and, as a yardstick, the tiled route's on the same inputs
+    (checked against the plain version too); its registers and spills
+    (``-Xptxas -v``, where this process built the library), which must
+    show none."""
+    import torch
+    from odevit_tpu_torch.kernels import build
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
+    from odevit_tpu_torch.kernels.macaron_tiled import tiled_eval
+    g = torch.Generator(device="cuda").manual_seed(26)
+    base = torch.randn(x.shape, generator=g, device="cuda")
+    flops = macaron_flops(b, n_real, d, dh)
+    modes = {}
+    for mode, extra in {"plain": {}, "euler": dict(dt=0.25),
+                        "base": dict(dt=0.25, base=base)}.items():
+        want = macaron_eval(x, w, mode=mode, plain=True, **kw, **extra)
+        tiled = tiled_eval(x, w, mode=mode, **kw, **extra)
+        torch.cuda.synchronize()
+        err = rel_err(tiled[:, :n_real], want[:, :n_real])
+        check(err <= TOL_F32, f"tiled Macaron {mode} at B={b}: {err}")
+        ms = cuda_ms(lambda: macaron_eval(x, w, mode=mode, **kw, **extra),
+                     iters=iters[0])
+        modes[mode] = {
+            "ms": ms, "tf32_pass_tflops": 3 * flops / ms / 1e9,
+            "plain_ms": cuda_ms(lambda: macaron_eval(
+                x, w, mode=mode, plain=True, **kw, **extra), iters=iters[1]),
+            "tiled_ms": cuda_ms(lambda: tiled_eval(x, w, mode=mode, **kw,
+                                                   **extra), iters=iters[0]),
+            "tiled_rel_err": err}
+    res = kernel_resources("macaron", ["mac_kernel_f32"])
+    check("macaron" not in build.build_logs
+          or (bool(res) and all(v["spill_stores"] == 0
+                                and v["spill_loads"] == 0
+                                for v in res.values())),
+          f"mac_kernel_f32's registers and spills: {res}")
+    return {"modes": modes, "tf32_floor_ms": tf32_floor_ms(flops),
+            "resources": res}
 
 
 def phase_macaron_kernel_timing(images_u8):
@@ -4510,9 +4722,9 @@ WGRAD_KERNEL = "vfb_wgrad_wgmma"
 TF32_WGRAD_KERNEL = "vfb_wgrad_tf32"
 # the kernels they replaced: bf16 WMMA tiles, and f32 on the CUDA cores
 OLD_WGRADS = ("vfb_wgrad_bf16", "vfb_wgrad_f32")
-# the one-CTA kernels' CUDA-core f32 instances, which vf_kernel_f32 and
-# vfb_rows_f32 replaced: no step may launch them
-OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float")
+# the one-CTA kernels' old f32 instances, which vf_kernel_f32,
+# vfb_rows_f32 and mac_kernel_f32 replaced: no step may launch them
+OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float", "mac_kernel<float")
 # bf16 products are exact in f32: only the f32 sums over up to 163,840
 # rows err (fresh accumulators every 512 rows); sound runs read below
 # 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
@@ -6001,7 +6213,7 @@ def main() -> int:
     # step, on the kernels' float32 instances
     phase_macaron_kernels_vs_plain()
     mac_serve = phase_macaron_serving(images, rng)
-    mac_launches = phase_macaron_train(images, labels)
+    mac_train = phase_macaron_train(images, labels)
     mac_timing = phase_macaron_kernel_timing(images)
     cifar_euler = models["euler-49"]
     del models
@@ -6204,13 +6416,19 @@ def main() -> int:
             "source": f"odevit_tpu_torch/csrc/{source}",
             "replaces": f"odevit_tpu/kernels/macaron.py:{line}",
             # the Macaron train cell's 3 steps (float32 instance); serving's
-            # rk4-13 forward beside it, and the bf16 instance's numbers
-            "launches": mac_launches[name],
-            **({"launches_serve": mac_serve["rk4-13"]["launches"][name]}
+            # rk4-13 forward beside it, and the bf16 instance's numbers; the
+            # forward's f32 kernel by its C counter, each mode's times
+            "launches": mac_train["launches"][name],
+            **({"launches_serve": mac_serve["rk4-13"]["launches"][name],
+                "kernel": "mac_kernel_f32",
+                "kernel_launches": mac_train["mac_kernel_f32_launches"],
+                "kernel_launches_serve":
+                    mac_serve["rk4-13"]["mac_kernel_f32_launches"]}
                if name == "macaron_eval" else {}),
             **{k: v for k, v in mac_timing["torch.float32"][name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "tf32_floor_ms", "parts")},
+                        "bound_by", "tf32_floor_ms", "parts", "modes",
+                        "resources")},
             "library_ms": None,
             "bf16": {k: v for k, v in mac_timing["torch.bfloat16"][name]
                      .items() if k in ("max_abs_err", "ms", "plain_ms",

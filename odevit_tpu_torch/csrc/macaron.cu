@@ -34,8 +34,9 @@
 // takes 0.019 ms at 3.35 TB/s. Operations bound it. JAX's bf16 Macaron
 // model integrates in f32 (its patch projection adds an f32 bias), so its
 // main path runs the f32 instance. Its products take three TF32 passes
-// each (below): 304 GFLOP of TF32 work, 0.62 ms at 495 TFLOP/s; on the
-// CUDA cores' 67 TFLOP/s f32 peak the evaluation would take 1.5 ms.
+// each (split TF32, split_tf32.cuh): 304 GFLOP of TF32 work, 0.615 ms at
+// 495 TFLOP/s; on the CUDA cores' 67 TFLOP/s f32 peak the evaluation
+// would take 1.5 ms.
 //
 // Design. One CTA of 12 warps per image, as vf_kernel (vector_field.cu):
 // only x (and base) come in and only the new state goes out. The FFN runs
@@ -44,11 +45,20 @@
 // (b2 once, after the last chunk), and each head's ctx_h Wout[h] scaled by
 // rs (out_bias once, after the last head). That sums each FFN output and
 // attn_o in another order than the TPU kernel (which adds the whole
-// product to the state); the difference is f32 rounding. The state lives
-// in shared memory in bf16 and in the output buffer in f32. Products are
-// the bf16 WMMA fragments of vector_field.cu (16x16x16, f32 accumulators)
-// or, in f32, split-TF32 WMMA in three passes (mm_f32 of split_tf32.cuh),
-// which keeps f32's accuracy to within a few ulps on the tensor cores.
+// product to the state); the difference is f32 rounding.
+//  - bf16 (mac_kernel): the state lives in shared memory; products are
+//    the bf16 WMMA fragments of vector_field.cu (16x16x16, f32
+//    accumulators).
+//  - f32 (mac_kernel_f32, below): every product runs on mac::gemm_tf32
+//    (split_tf32.cuh), as in vf_kernel_f32: operands in device memory are
+//    staged by 16-byte cp.async through a ring of K slices and split once,
+//    where they land, into big and small TF32 planes; each warp multiplies
+//    a register tile of up to 48 x 32 by mma.sync in three passes; the
+//    epilogues run from registers. Each weight slice is staged once per
+//    CTA and shared by the 12 warps. Three passes keep f32's accuracy to
+//    within a few ulps on the tensor cores. What limits it: one CTA per SM
+//    (the ring and the planes take most of the 227 KB), a barrier per
+//    16-wide K slice, and the small dependent products of each head.
 //
 // macaron_bwd.cu includes this file with MAC_HELPERS_ONLY for the shared
 // helpers (namespace mac).
@@ -147,26 +157,13 @@ __device__ void mm_axpy(const bf16* A, int lda, const bf16* B, int ldb,
   }
 }
 
-__device__ void mm_axpy(const float* A, int lda, const float* B, int ldb,
-                        float* C, int ldc, float alpha, int M, int N, int K) {
-  mm_f32<false, false>(A, lda, B, ldb, C, ldc, true, M, N, K, alpha);
-}
-
-// The Macaron kernels' products: bf16 through vf::mm, f32 through mm_f32.
+// The bf16 kernels' products (mac_kernel, mcb_rows) through vf::mm.
 template <bool AT, bool BT>
 __device__ void prod(const bf16* A, int lda, const bf16* B, int ldb, float* C,
                      int ldc, bool accumulate, int M, int N, int K,
                      int strip = 1 << 30, int strip_stride = 0) {
   mm<AT, BT>(A, lda, B, ldb, C, ldc, accumulate, M, N, K, strip,
              strip_stride);
-}
-
-template <bool AT, bool BT>
-__device__ void prod(const float* A, int lda, const float* B, int ldb,
-                     float* C, int ldc, bool accumulate, int M, int N, int K,
-                     int strip = 1 << 30, int strip_stride = 0) {
-  mm_f32<AT, BT>(A, lda, B, ldb, C, ldc, accumulate, M, N, K, 1.0f, strip,
-                 strip_stride);
 }
 
 // dst[r, c] += alpha * v[c] for an [n, w] f32 block.
@@ -177,9 +174,9 @@ __device__ inline void add_row_vector(float* dst, int ld, const float* v,
 }
 
 // The split-TF32 products staged through shared memory (gemm_tf32, its
-// Ring, OpA and OpB) live in split_tf32.cuh, in this namespace: the
-// Macaron backward and the f32 ViTODE kernels (vf_kernel_f32,
-// vfb_rows_f32) share them.
+// Ring, OpA and OpB) live in split_tf32.cuh, in this namespace: the f32
+// Macaron kernels (mac_kernel_f32 below, mcb_rows_f32) and the f32 ViTODE
+// kernels (vf_kernel_f32, vfb_rows_f32) share them.
 
 }  // namespace mac
 
@@ -192,12 +189,15 @@ struct Shape {
   int qkv_fused;  // 1: q, k and v of a head come from one product
 };
 
-// Shared memory of one CTA: byte offsets and row strides (in elements).
-// Rows are padded by 16 bytes so fragment loads hit distinct banks. z (the
-// rounded LayerNorm output), the f32 stage of the products, the rounded
-// hidden chunk (also ctx of a head), q, k, v, p, and in bf16 the f32 state
-// (in f32 it lives in the output buffer).
-// kernels/macaron.py::macaron_plan repeats this layout in Python.
+// Shared memory of one mac_kernel CTA: byte offsets and row strides (in
+// elements). Rows are padded by 16 bytes so fragment loads hit distinct
+// banks. z (the rounded LayerNorm output), the f32 stage of the products,
+// the rounded hidden chunk (also ctx of a head), q, k, v, p, and in bf16
+// the f32 state. The bf16 kernel lays its CTA out by it; in f32 it only
+// decides which shapes take one CTA (the route, mac_plan: a shape takes
+// it in f32 where this layout fits), and mac_kernel_f32 then lays its CTA
+// out by make_plan_f32. kernels/macaron.py::macaron_plan repeats this
+// layout in Python.
 struct Plan {
   size_t z, stage, hbuf, q, k, v, p, state, total;
   int ld_z, ld_stage, ld_h, ld_qkv, ld_p, ld_state;
@@ -211,7 +211,7 @@ __host__ __device__ inline Plan make_plan(const Shape& s, int tbytes) {
   p.ld_h = imax(s.hc, s.hd) + pad;
   p.ld_qkv = s.hd + pad;
   p.ld_p = s.n_pad + pad;
-  p.ld_state = tbytes == 2 ? s.d + 4 : s.d;
+  p.ld_state = s.d + 4;
   const size_t n = s.n_pad;
   size_t off = 0;
   p.z = off;     off += align128(n * p.ld_z * tbytes);
@@ -256,14 +256,18 @@ struct MacArgs {
   const void* w2;
   const float* b2;
   const float* rs;
+  float* ws;          // f32: B * mac_plan_f32's ws floats, else null
   int batch, n_pad, n_real, d, heads, dh, qkv_fused, hc, smem, mode;
+  int nb;             // f32: the plan's column block
   float scaler, coef, qk_scale;
 };
 
 namespace mac {
 
+// The bf16 instance (mac_kernel_f32 below is the f32 one).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) mac_kernel(MacArgs a) {
+  static_assert(sizeof(T) == 2, "f32 runs mac_kernel_f32");
   extern __shared__ __align__(128) unsigned char smem[];
   const Shape s{a.n_pad, a.n_real, a.d,  a.heads,
                 a.d / a.heads, a.dh, a.hc, a.qkv_fused};
@@ -285,10 +289,8 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(MacArgs a) {
   const T* wout = static_cast<const T*>(a.wout);
   const T* w1 = static_cast<const T*>(a.w1);
   const T* w2 = static_cast<const T*>(a.w2);
-  // the f32 state: shared memory in bf16, the output buffer in f32 (each
-  // element is read and written by the same thread in the epilogue)
-  float* xs = sizeof(T) == 2 ? reinterpret_cast<float*>(smem + pl.state)
-                             : reinterpret_cast<float*>(oi);
+  // the f32 state, in shared memory
+  float* xs = reinterpret_cast<float*>(smem + pl.state);
   const int lds = pl.ld_state;
   const float rs = a.rs[0];
 
@@ -375,14 +377,262 @@ __global__ void __launch_bounds__(kThreads) mac_kernel(MacArgs a) {
   }
 }
 
-template <typename T>
-int launch(const MacArgs& a, cudaStream_t st) {
-  auto kernel = mac_kernel<T>;
+int launch_bf16(const MacArgs& a, cudaStream_t st) {
+  auto kernel = mac_kernel<bf16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<a.batch, kThreads, a.smem, st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// ---- the f32 instance: mac_kernel_f32 ----
+// mac_kernel's evaluation in f32 with every product on gemm_tf32 (see the
+// file's comment): z W1 per chunk of hc, h W2 per chunk, z Wqkv (a head's
+// q | k | v in one product, through strips of the columns), q k^T, p v and
+// ctx Wout per head. Each weight slice is staged once per CTA and shared
+// by the 12 warps, not re-read and re-split by every warp that needs it.
+//
+// Where each operand lives. z (the LayerNorm output of either half) and
+// the head's q | k | v go to a per-image workspace in device memory (one
+// image's is n_pad (D + 3 hd) floats, 122,880 bytes at the CIFAR shape; the
+// resident CTAs' shares stay in L2), from where the ring stages them;
+// ctx of the head overwrites q there. The GELU chunk goes to its split
+// planes from the W1 product's registers (bias and GELU in the
+// epilogue); the scores land in p's planes in f32, the softmax runs on
+// those rows in place, then the split. The f32 state is updated from
+// registers by the W2 and Wout epilogues, chunk by chunk scaled by rs/2
+// and head by head scaled by rs, b2 and out_bias once after the last
+// (mac_kernel's order of sums). It lives in the output buffer (through
+// L2): gemm_tf32's cadd reads all of a warp's elements at once and forms
+// state + alpha v with one rounding (fmaf).
+//
+// Numerics: mac_kernel's in f32 (nothing is rounded but the products):
+// LayerNorm in f32 with eps 1e-6, the mean first, then the centred
+// variance; qkv after its bias; padded keys masked by selection; padded
+// rows of v zeroed in the workspace. The split keeps NaN (split_bits), so
+// a NaN in a padded row of x stays in its own rows and one in a real row
+// reaches what it reaches in the plain version.
+//
+// f32 plan (mac_plan_f32; kernels/macaron.py::macaron_plan_f32 repeats
+// it): the ring for column blocks of nb, then one region used by each FFN
+// chunk (the GELU chunk's planes, hc + 4 floats a row) and by each head
+// (p's planes, n_pad + 4 floats a row). Both strides are 4 mod 16 floats,
+// so a fragment row read at 4 g + t hits 32 banks. The choice prefers wide
+// chunks (up to 192, each chunk's z W1 product one column block: every
+// chunk stages z again, so fewer chunks take fewer K slices), then wide
+// column blocks. At the CIFAR shape that is chunks and blocks of 192 (the
+// ring 85 KB, the chunk's planes 122.5 KB), the fastest plan an H100 was
+// timed on (PERF.md). Which shapes take this kernel is mac_plan's
+// decision (the route, unchanged): every shape it sends to one CTA in f32
+// has an f32 plan.
+struct PlanF32 {
+  size_t ring, hbig, hsmall, pbig, psmall, total;
+  size_t ws_qkv, ws;  // floats of one image's workspace (z at 0)
+  int slot, ld_h, ld_p, ld_qkv;
+};
+
+__host__ __device__ inline PlanF32 make_plan_f32(const Shape& s, int nb) {
+  PlanF32 p;
+  const size_t n = s.n_pad;
+  p.slot = ring_slot(s.n_pad, nb);
+  p.ld_h = s.hc + 4;
+  p.ld_p = s.n_pad + 4;
+  p.ld_qkv = 3 * s.hd;
+  size_t off = 0;
+  p.ring = off;  off += align128((size_t)2 * kStages * p.slot * 4);
+  const size_t fh = align128(n * p.ld_h * 4), fp = align128(n * p.ld_p * 4);
+  p.hbig = off;
+  p.hsmall = off + fh;
+  p.pbig = off;
+  p.psmall = off + fp;
+  off += 2 * (fh > fp ? fh : fp);
+  p.total = off;
+  p.ws_qkv = n * s.d;
+  p.ws = p.ws_qkv + n * p.ld_qkv;
+  return p;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) mac_kernel_f32(MacArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Shape s{a.n_pad, a.n_real, a.d,  a.heads,
+                a.d / a.heads, a.dh, a.hc, 1};
+  const PlanF32 pl = make_plan_f32(s, a.nb);
+  const int n = s.n_pad, d = s.d, hd = s.hd, hc = s.hc, dh = s.dh;
+  const int nb = a.nb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t img = (size_t)blockIdx.x * n * d;
+  const float* xi = static_cast<const float*>(a.x) + img;
+  float* oi = static_cast<float*>(a.out) + img;
+  const float* wqkv = static_cast<const float*>(a.wqkv);
+  const float* wout = static_cast<const float*>(a.wout);
+  const float* w1 = static_cast<const float*>(a.w1);
+  const float* w2 = static_cast<const float*>(a.w2);
+  float* z = a.ws + (size_t)blockIdx.x * pl.ws;
+  float* qkv = z + pl.ws_qkv;
+  float* xs = oi;  // the f32 state
+  const int lq = pl.ld_qkv, lh = pl.ld_h, lp = pl.ld_p;
+  const Ring ring{reinterpret_cast<unsigned*>(smem + pl.ring), pl.slot};
+  unsigned* hbig = reinterpret_cast<unsigned*>(smem + pl.hbig);
+  unsigned* hsmall = reinterpret_cast<unsigned*>(smem + pl.hsmall);
+  unsigned* pbig = reinterpret_cast<unsigned*>(smem + pl.pbig);
+  unsigned* psmall = reinterpret_cast<unsigned*>(smem + pl.psmall);
+  float* sf = reinterpret_cast<float*>(pbig);  // the f32 scores, then p
+  const OpA hpl{nullptr, lh, hbig, hsmall};
+  const OpA ppl{nullptr, lp, pbig, psmall};
+  const float* b1 = a.b1;
+  const float* qkv_bias = a.qkv_bias;
+  const float rs = a.rs[0], hrs = 0.5f * rs;
+  auto staged = [](const float* p, int ld) {
+    return OpA{p, ld, nullptr, nullptr};
+  };
+  // state = state + alpha v, formed by gemm_tf32's cadd
+  auto put_state = [&](int r, int c, float v0, float v1) {
+    put2(xs + r * d + c, v0, v1);
+  };
+
+  for (int i = threadIdx.x * 4; i < n * d; i += kThreads * 4)
+    *reinterpret_cast<float4*>(xs + i) =
+        *reinterpret_cast<const float4*>(xi + i);
+  __syncthreads();
+
+  // state += rs/2 * FFN(LN(state)), over dh in chunks of hc
+  auto ffn_half = [&](const float* g, const float* b) {
+    layer_norm_rows(xs, d, g, b, z, d, n, d);
+    for (int c0 = 0; c0 < dh; c0 += hc) {
+      // h = gelu(z W1[:, c] + b1[c]) to the chunk's planes
+      gemm_tf32<kAStaged, false>(
+          ring, n, hc, d, nb, staged(z, d), op_b(w1 + c0, dh),
+          [&](int r, int c, float v0, float v1) {
+            const int i = r * lh + c;
+            split_bits(gelu(v0 + b1[c0 + c]), hbig[i], hsmall[i]);
+            split_bits(gelu(v1 + b1[c0 + c + 1]), hbig[i + 1],
+                       hsmall[i + 1]);
+          });
+      gemm_tf32<kAPlanes, false>(
+          ring, n, d, hc, nb, hpl, op_b(w2 + (size_t)c0 * d, d), put_state,
+          xs, d, hrs);
+    }
+    __syncthreads();
+    add_row_vector(xs, d, a.b2, hrs, n, d);
+    __syncthreads();
+  };
+
+  // The three residual steps, FFN (LN1), attention, FFN (LN3), as one
+  // loop: the FFN's code is emitted once, which keeps the kernel within
+  // its 168 registers without spills.
+#pragma unroll 1
+  for (int part = 0; part < 3; ++part) {
+    if (part != 1) {
+      ffn_half(part == 0 ? a.ln1s : a.ln3s, part == 0 ? a.ln1b : a.ln3b);
+      continue;
+    }
+    // state += rs * (sum_h ctx_h Wout[h*hd:(h+1)*hd, :] + out_bias)
+    layer_norm_rows(xs, d, a.ln2s, a.ln2b, z, d, n, d);
+    for (int h = 0; h < s.heads; ++h) {
+      // q | k | v of the head in one product, + bias, to the workspace
+      // (padded value rows zeroed so that 0 * NaN cannot reach p @ v)
+      gemm_tf32<kAStaged, false>(
+          ring, n, 3 * hd, d, nb, staged(z, d),
+          op_b(wqkv + h * hd, 3 * d, 1.0f, hd, d),
+          [&](int r, int c, float v0, float v1) {
+            const int j = c / hd, cc = j * d + h * hd + c % hd;
+            const bool zero = j == 2 && r >= s.n_real;
+            put2(qkv + (size_t)r * lq + c,
+                 zero ? 0.0f : v0 + qkv_bias[cc],
+                 zero ? 0.0f : v1 + qkv_bias[cc + 1]);
+          });
+      gemm_tf32<kAStaged, true>(
+          ring, n, n, hd, nb, staged(qkv, lq), op_b(qkv + hd, lq),
+          [&](int r, int c, float v0, float v1) {
+            sf[r * lp + c] = v0;
+            sf[r * lp + c + 1] = v1;
+          });
+      __syncthreads();
+      softmax_rows(sf, lp, sf, lp, n, s.n_real, a.qk_scale);
+      // p to its planes, in place (each thread splits what it wrote)
+      for (int r = warp; r < n; r += kWarps)
+        for (int c = lane; c < n; c += 32) {
+          const int i = r * lp + c;
+          split_bits(sf[i], pbig[i], psmall[i]);
+        }
+      // ctx = p v over q's columns, then state += rs ctx Wout_h
+      gemm_tf32<kAPlanes, false>(
+          ring, n, hd, n, nb, ppl, op_b(qkv + 2 * hd, lq),
+          [&](int r, int c, float v0, float v1) {
+            put2(qkv + (size_t)r * lq + c, v0, v1);
+          });
+      gemm_tf32<kAStaged, false>(
+          ring, n, d, hd, nb, staged(qkv, lq),
+          op_b(wout + (size_t)h * hd * d, d), put_state, xs, d, rs);
+    }
+    __syncthreads();
+    add_row_vector(xs, d, a.out_bias, rs, n, d);
+    __syncthreads();
+  }
+
+  const float* bi =
+      a.mode == 2 ? static_cast<const float*>(a.base) + img : xi;
+  for (int i = threadIdx.x * 4; i < n * d; i += kThreads * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(xs + i);
+    float f[4] = {v.x * a.scaler, v.y * a.scaler, v.z * a.scaler,
+                  v.w * a.scaler};
+    if (a.mode != 0) {
+      const float4 u = *reinterpret_cast<const float4*>(bi + i);
+      f[0] = u.x + a.coef * f[0];
+      f[1] = u.y + a.coef * f[1];
+      f[2] = u.z + a.coef * f[2];
+      f[3] = u.w + a.coef * f[3];
+    }
+    *reinterpret_cast<float4*>(oi + i) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+}
+
+// The FFN chunks of the f32 plan, widest first.
+constexpr int kChunksF32[] = {192, 128, 64, 32, 16};
+
+// The f32 plan of one CTA (see PlanF32): the widest FFN chunk, then the
+// widest column block no narrower than the chunk. Returns false when no
+// plan fits.
+bool plan_f32(Shape s, int* hc, int* nb, PlanF32* out) {
+  for (int c : kChunksF32) {
+    if (s.dh % c) continue;
+    s.hc = c;
+    for (int b : kBlocksF32) {
+      if (!block_ok(s.n_pad, b) || b < c) continue;
+      const PlanF32 p = make_plan_f32(s, b);
+      if (p.total <= (size_t)kMaxSmem) {
+        *hc = c;
+        *nb = b;
+        *out = p;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// mac_kernel_f32's launches so far (chip_smoke.py holds the count against
+// the route's)
+unsigned long long f32_launches = 0;
+
+// Launches mac_kernel_f32 on mac_plan_f32's plan, which the arguments
+// carry (hc, nb, smem).
+int launch_f32(const MacArgs& a, cudaStream_t st) {
+  const Shape s{a.n_pad, a.n_real, a.d,  a.heads,
+                a.heads > 0 ? a.d / a.heads : 0, a.dh, 0, 1};
+  int hc, nb;
+  PlanF32 p;
+  if (a.ws == nullptr || !shape_ok(s) || !plan_f32(s, &hc, &nb, &p) ||
+      hc != a.hc || nb != a.nb || p.total != (size_t)a.smem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      mac_kernel_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return (int)err;
+  mac_kernel_f32<<<a.batch, kThreads, a.smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++f32_launches;
+  return (int)err;
 }
 
 }  // namespace mac
@@ -414,16 +664,36 @@ int mac_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
 }
 
 // Launches one evaluation on `stream`; returns cudaGetLastError() after
-// the launch (0 on success). mode: 0 plain, 1 euler, 2 base.
+// the launch (0 on success). mode: 0 plain, 1 euler, 2 base. bf16 runs
+// mac_kernel on the plan of mac_plan (qkv_fused, hc, smem); f32 runs
+// mac_kernel_f32 on the plan of mac_plan_f32 (hc, nb, smem) with `ws`
+// its workspace, apart from `out` and x.
 int mac_launch(int tbytes, const MacArgs* args, void* stream) {
   if (args->mode < 0 || args->mode > 2 ||
       (args->mode == 2) != (args->base != nullptr))
     return (int)cudaErrorInvalidValue;
   if (tbytes == 4 && args->out == args->x) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return tbytes == 2 ? mac::launch<vf::bf16>(*args, st)
-                     : mac::launch<float>(*args, st);
+  return tbytes == 2 ? mac::launch_bf16(*args, st)
+                     : mac::launch_f32(*args, st);
 }
+
+// The f32 plan (mac_kernel_f32, see PlanF32): the FFN chunk, the column
+// block, the shared memory and the workspace's floats per image. Returns
+// 0 when the shape has one, 1 when not.
+int mac_plan_f32(int n_pad, int n_real, int d, int heads, int dh,
+                 int* hc_out, int* nb_out, int* smem_out, long long* ws_out) {
+  const mac::Shape s{n_pad, n_real, d,  heads, heads > 0 ? d / heads : 0,
+                     dh,    0,      1};
+  mac::PlanF32 p;
+  if (!mac::shape_ok(s) || !mac::plan_f32(s, hc_out, nb_out, &p))
+    return 1;
+  *smem_out = (int)p.total;
+  *ws_out = (long long)p.ws;
+  return 0;
+}
+
+unsigned long long mac_f32_launches() { return mac::f32_launches; }
 
 const char* mac_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

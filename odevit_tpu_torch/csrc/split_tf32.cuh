@@ -12,18 +12,20 @@
 // accumulator per chunk of K, added to a running f32 total by ordinary
 // adds.
 //
-// Here: mm_f32, vf::mm's signature on TF32 WMMA fragments (each warp
-// splits the fragments it loads); the split of one value by integer
-// operations, the m16n8k8 mma.sync and the cp.async helpers of
+// Here: mm_f32, vf::mm's product on TF32 WMMA fragments (each warp
+// splits the fragments it loads), used only by the tiled route's
+// whole-row f32 attention CTAs (vector_field_tiled.cu: vft_attn<float>,
+// vft_attn_keys<float>, through attn_mm); the split of one value by
+// integer operations, the m16n8k8 mma.sync and the cp.async helpers of
 // mac::gemm_tf32 (below) and vft_gemm_tf32; and the wgmma pieces of
 // vft_gemm_tf32 and vfb_wgrad_tf32: swizzled K-major planes (an operand
 // stored [K, N] split into them by split_kn4), their descriptors, A
 // fragments split in registers (split_frags) and the m64n128k8 and
 // m64n96k8 TF32 wgmma with A from registers. Then, in namespace mac,
 // gemm_tf32: the one-CTA f32 product staged through shared memory that the
-// Macaron backward (mcb_rows_f32) and the f32 ViTODE kernels
-// (vf_kernel_f32, vfb_rows_f32) share. Include after vector_field.cu's
-// helpers.
+// Macaron forward and backward (mac_kernel_f32, mcb_rows_f32) and the f32
+// ViTODE kernels (vf_kernel_f32, vfb_rows_f32) share. Include after
+// vector_field.cu's helpers.
 
 #pragma once
 
@@ -64,16 +66,13 @@ __device__ __forceinline__ void split_tf32(Frag& big, Frag& small) {
   }
 }
 
-// C[M,N] (= | +=) alpha * (A[M,K] @ B[K,N]) in f32 (C shared or global),
-// with the layouts and the column strips of vf::mm. M, N multiples of 16,
-// K of 8. Each warp owns a column tile (and a group of row tiles when
-// there are fewer column tiles than warps); each tile's product is summed
-// over K first, then stored or added to C once.
+// C[M,N] = A[M,K] @ B[K,N] in f32 (C shared or global), with the layouts
+// of vf::mm. M, N multiples of 16, K of 8. Each warp owns a column tile
+// (and a group of row tiles when there are fewer column tiles than
+// warps); each tile's product is summed over K first, then stored once.
 template <bool AT, bool BT>
 __device__ void mm_f32(const float* A, int lda, const float* B, int ldb,
-                       float* C, int ldc, bool accumulate, int M, int N,
-                       int K, float alpha = 1.0f, int strip = 1 << 30,
-                       int strip_stride = 0) {
+                       float* C, int ldc, int M, int N, int K) {
   using ALayout =
       typename std::conditional<AT, wmma::col_major, wmma::row_major>::type;
   using BLayout =
@@ -91,7 +90,7 @@ __device__ void mm_f32(const float* A, int lda, const float* B, int ldb,
     const int tn = task % nt;
     const int r0 = (task / nt) * rg;
     const int rows = imin(mt - r0, rg);
-    const int col = (tn / strip) * strip_stride + (tn % strip) * 16;
+    const int col = tn * 16;
     const float* bcol = BT ? B + (size_t)col * ldb : B + col;
     const size_t bstep = BT ? 8 : (size_t)8 * ldb;
     FragC c[kMaxRowTiles];
@@ -119,18 +118,8 @@ __device__ void mm_f32(const float* A, int lda, const float* B, int ldb,
 #pragma unroll
     for (int r = 0; r < kMaxRowTiles; ++r) {
       if (r < rows) {
-        float* cp = C + (size_t)(r0 + r) * 16 * ldc + tn * 16;
-        if (accumulate) {
-          FragC t;
-          wmma::load_matrix_sync(t, cp, ldc, wmma::mem_row_major);
-          for (int i = 0; i < t.num_elements; ++i)
-            t.x[i] = fmaf(alpha, c[r].x[i], t.x[i]);
-          wmma::store_matrix_sync(cp, t, ldc, wmma::mem_row_major);
-        } else {
-          if (alpha != 1.0f)
-            for (int i = 0; i < c[r].num_elements; ++i) c[r].x[i] *= alpha;
-          wmma::store_matrix_sync(cp, c[r], ldc, wmma::mem_row_major);
-        }
+        wmma::store_matrix_sync(C + (size_t)(r0 + r) * 16 * ldc + tn * 16,
+                                c[r], ldc, wmma::mem_row_major);
       }
     }
   }
@@ -340,10 +329,11 @@ namespace mac {
 using namespace vf;
 
 // ---- split-TF32 products staged through shared memory (gemm_tf32) ----
-// The products of the f32 one-CTA kernels run here: the Macaron backward
-// (macaron_bwd.cu: mcb_rows_f32) and the ViTODE forward and backward
-// (vector_field.cu: vf_kernel_f32, vector_field_bwd.cu: vfb_rows_f32);
-// mm_f32 stays the Macaron forward's. Operands in device memory reach shared memory by
+// The products of the f32 one-CTA kernels run here: the Macaron forward
+// and backward (macaron.cu: mac_kernel_f32, macaron_bwd.cu: mcb_rows_f32)
+// and the ViTODE forward and backward (vector_field.cu: vf_kernel_f32,
+// vector_field_bwd.cu: vfb_rows_f32); mm_f32 is left to the tiled route's
+// whole-row f32 attention CTAs. Operands in device memory reach shared memory by
 // 16-byte cp.async, K in slices of kSlice through a ring of kStages slots:
 // the next slice lands while this one is multiplied. Each element is split
 // once, where it lands, into a big and a small TF32 plane (split_tf32's
@@ -404,10 +394,11 @@ __host__ __device__ inline int ring_slot(int m, int nb) {
   return m * kLdK + imax(kSlice * (nb + 8), nb * kLdK);
 }
 
-// C[M, N] = A[M, K] B[K, N] (+ cadd[M, N], row stride ldc, in device
-// memory) in f32 by split TF32, N in column blocks of nb; epi(r, c, v0,
-// v1) receives C[r, c] and C[r, c + 1] from registers. cadd is read
-// before the epilogue runs, all of a warp's loads at once. M, N, K
+// C[M, N] = A[M, K] B[K, N] (or cadd[M, N] + cscale (A B), row stride
+// ldc, in device memory, one rounding: fmaf) in f32 by split TF32, N in
+// column blocks of nb; epi(r, c, v0, v1) receives C[r, c] and C[r, c + 1]
+// from registers. cadd is read before the epilogue runs, all of a warp's
+// loads at once. M, N, K
 // multiples of 16, nb of 16; staged rows 16-byte aligned. Every thread of
 // the CTA calls it. It begins with a barrier (the operands written before
 // it are then visible, and the ring free) and ends without one: whoever
@@ -415,7 +406,8 @@ __host__ __device__ inline int ring_slot(int m, int nb) {
 template <int kA, bool kBT, typename Epi>
 __device__ void gemm_tf32(const Ring& ring, int M, int N, int K, int nb,
                           const OpA& A, const OpB& B, Epi epi,
-                          const float* cadd = nullptr, int ldc = 0) {
+                          const float* cadd = nullptr, int ldc = 0,
+                          float cscale = 1.0f) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane >> 2, tq = lane & 3;
   const int mt = M / 16, slices = K / kSlice, a_part = M * kLdK;
@@ -570,10 +562,10 @@ __device__ void gemm_tf32(const Ring& ring, int M, int N, int K, int nb,
               const float2 u = *reinterpret_cast<const float2*>(cp);
               const float2 w =
                   *reinterpret_cast<const float2*>(cp + (size_t)8 * ldc);
-              acc[r][j][0] += u.x;
-              acc[r][j][1] += u.y;
-              acc[r][j][2] += w.x;
-              acc[r][j][3] += w.y;
+              acc[r][j][0] = fmaf(cscale, acc[r][j][0], u.x);
+              acc[r][j][1] = fmaf(cscale, acc[r][j][1], u.y);
+              acc[r][j][2] = fmaf(cscale, acc[r][j][2], w.x);
+              acc[r][j][3] = fmaf(cscale, acc[r][j][3], w.y);
             }
       }
 #pragma unroll

@@ -1056,7 +1056,7 @@ template <bool AT, bool BT>
 __device__ __forceinline__ void attn_mm(const float* A, int lda,
                                         const float* B, int ldb, float* C,
                                         int ldc, int M, int N, int K) {
-  vf::mm_f32<AT, BT>(A, lda, B, ldb, C, ldc, false, M, N, K);
+  vf::mm_f32<AT, BT>(A, lda, B, ldb, C, ldc, M, N, K);
 }
 
 // One CTA per (query tile, head, image). Forward: the scores, p, the map

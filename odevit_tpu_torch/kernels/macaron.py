@@ -8,7 +8,11 @@ device: ``csrc/macaron.cu``, one image per CTA, where :func:`macaron_plan`
 has a plan, else the tiled route of ``csrc/macaron_tiled.cu``
 (``kernels/macaron_tiled.py``; past 256 padded tokens its attention
 runs the key-tiled instances of ``csrc/vector_field_tiled.cu``). A shape
-with neither plan (sizes that are not multiples of 16) raises. With
+with neither plan (sizes that are not multiples of 16) raises. On one CTA
+bf16 runs ``mac_kernel``; f32 runs ``mac_kernel_f32`` (split TF32 on
+``mac::gemm_tf32``) on the layout of :func:`macaron_plan_f32`, with a
+per-image workspace, its launches also counted in C
+(:func:`f32_launches`). With
 ``f = x3 * scaler`` and
 
     x1 = x  + rs/2 * FFN(LN1 x)        FFN(z) = gelu(z W1 + b1) W2 + b2
@@ -46,12 +50,16 @@ import torch
 
 from odevit_tpu_torch.kernels import count_launch, count_tiled
 from odevit_tpu_torch.kernels.vector_field import (_CHUNKS, _MAX_SMEM,
+                                                   _STAGES, F32_BLOCKS,
                                                    TOKEN_PAD, align128,
-                                                   cta_shape_ok)
+                                                   block_ok, cta_shape_ok,
+                                                   ring_slot)
 from odevit_tpu_torch.ops.dot import dot32
 from odevit_tpu_torch.ops.layer_norm import layer_norm
 
 MODES = {"plain": 0, "euler": 1, "base": 2}
+# csrc/macaron.cu: mac_kernel_f32's FFN chunks (kChunksF32), widest first
+F32_CHUNKS = (192, 128, 64, 32, 16)
 
 
 class MacaronWeights(NamedTuple):
@@ -91,7 +99,9 @@ def macaron_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     CTA, or None where one image does not fit one CTA (the shape then takes
     the tiled route, :func:`macaron_route`): ``mac_plan`` of
     ``csrc/macaron.cu`` in Python, so that a CPU run routes as the card
-    does. ``chip_smoke.py`` holds it against ``mac_plan``."""
+    does. ``chip_smoke.py`` holds it against ``mac_plan``. It decides the
+    route in either dtype; the f32 kernel then lays its CTA out by
+    :func:`macaron_plan_f32`."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
         return None
     tb = torch.empty((), dtype=dtype).element_size()
@@ -109,6 +119,41 @@ def macaron_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
             total = sum(align128(n_pad * r) for r in rows)
             if total <= _MAX_SMEM:
                 return fused, hc, total
+    return None
+
+
+def f32_layout(n_pad: int, d: int, num_heads: int, hc: int, nb: int) -> dict:
+    """``make_plan_f32`` of csrc/macaron.cu: byte offsets of
+    ``mac_kernel_f32``'s CTA (the staging ring, then one region for the
+    GELU chunk's planes or p's), its row strides (floats) and its workspace
+    (floats per image: z, then the head's q | k | v)."""
+    n, hd = n_pad, d // num_heads
+    lay = {"slot": ring_slot(n, nb), "ld_h": hc + 4, "ld_p": n + 4,
+           "ld_qkv": 3 * hd, "ring": 0}
+    off = align128(2 * _STAGES * lay["slot"] * 4)
+    fh, fp = align128(n * lay["ld_h"] * 4), align128(n * lay["ld_p"] * 4)
+    lay.update(hbig=off, hsmall=off + fh, pbig=off, psmall=off + fp,
+               total=off + 2 * max(fh, fp), ws_qkv=n * d)
+    lay["ws"] = lay["ws_qkv"] + n * lay["ld_qkv"]
+    return lay
+
+
+def macaron_plan_f32(n_pad: int, n_real: int, d: int, num_heads: int,
+                     dh: int):
+    """``mac_plan_f32`` of csrc/macaron.cu in Python: the widest FFN chunk
+    (``kChunksF32``), then the widest column block no narrower than the
+    chunk, that fit one CTA, as (FFN chunk width, column block,
+    shared-memory bytes, workspace floats per image); or None.
+    ``chip_smoke.py`` holds it against ``mac_plan_f32``."""
+    if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
+        return None
+    for hc in F32_CHUNKS:
+        for nb in F32_BLOCKS:
+            if dh % hc or nb < hc or not block_ok(n_pad, nb):
+                continue
+            lay = f32_layout(n_pad, d, num_heads, hc, nb)
+            if lay["total"] <= _MAX_SMEM:
+                return hc, nb, lay["total"], lay["ws"]
     return None
 
 
@@ -216,10 +261,10 @@ def macaron_eval_plain(x, w: MacaronWeights, *, num_heads: int,
 
 class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
-        "x", "base", "out", *MacaronWeights._fields)]
+        "x", "base", "out", *MacaronWeights._fields, "ws")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "qkv_fused",
-            "hc", "smem", "mode")]
+            "hc", "smem", "mode", "nb")]
         + [(name, ctypes.c_float) for name in ("scaler", "coef",
                                                 "qk_scale")])
 
@@ -239,6 +284,11 @@ def _library() -> ctypes.CDLL:
         lib.mac_launch.restype = i
         lib.mac_error_string.argtypes = [i]
         lib.mac_error_string.restype = ctypes.c_char_p
+        lib.mac_plan_f32.argtypes = ([i] * 5 + [ctypes.POINTER(i)] * 3
+                                     + [ctypes.POINTER(ctypes.c_longlong)])
+        lib.mac_plan_f32.restype = i
+        lib.mac_f32_launches.argtypes = []
+        lib.mac_f32_launches.restype = ctypes.c_ulonglong
         _lib = lib
     return _lib
 
@@ -254,6 +304,24 @@ def kernel_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                            ctypes.byref(smem)):
         return None
     return fused.value, hc.value, smem.value
+
+
+def kernel_plan_f32(n_pad: int, n_real: int, d: int, num_heads: int,
+                    dh: int):
+    """``mac_plan_f32`` of the CUDA source: (FFN chunk width, column
+    block, shared-memory bytes, workspace floats per image) of
+    ``mac_kernel_f32``, or None where the shape has none."""
+    outs = [ctypes.c_int() for _ in range(3)]
+    ws = ctypes.c_longlong()
+    if _library().mac_plan_f32(n_pad, n_real, d, num_heads, dh,
+                               *map(ctypes.byref, outs), ctypes.byref(ws)):
+        return None
+    return (*(o.value for o in outs), ws.value)
+
+
+def f32_launches() -> int:
+    """``mac_kernel_f32``'s launches so far (the library's C counter)."""
+    return _library().mac_f32_launches()
 
 
 def check_launch(x, w: MacaronWeights, base=None):
@@ -300,15 +368,21 @@ def macaron_eval(x, w: MacaronWeights, *, num_heads: int, scaler: float,
         return out
     b, n, d = x.shape
     dh = w.w1.shape[1]
-    fused, hc, smem = macaron_plan(x.dtype, n, n_real, d, num_heads, dh)
+    if x.dtype == torch.float32:
+        hc, nb, smem, ws = macaron_plan_f32(n, n_real, d, num_heads, dh)
+        ws = torch.empty(b * ws, device=x.device)   # z and a head's q|k|v
+        plan = dict(ws=ws.data_ptr(), hc=hc, nb=nb, smem=smem)
+    else:
+        fused, hc, smem = macaron_plan(x.dtype, n, n_real, d, num_heads, dh)
+        plan = dict(qkv_fused=fused, hc=hc, smem=smem)
     out = torch.empty_like(x)
     args = _Args(
         x=x.data_ptr(), base=base.data_ptr() if base is not None else None,
         out=out.data_ptr(), **{name: t.data_ptr() for name, t in
                                w._asdict().items()},
         batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads, dh=dh,
-        qkv_fused=fused, hc=hc, smem=smem, mode=MODES[mode], scaler=scaler,
-        coef=dt, qk_scale=(d // num_heads) ** -0.5)
+        mode=MODES[mode], scaler=scaler, coef=dt,
+        qk_scale=(d // num_heads) ** -0.5, **plan)
     err = _library().mac_launch(
         x.element_size(), ctypes.byref(args),
         torch.cuda.current_stream(x.device).cuda_stream)
