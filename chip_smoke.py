@@ -746,9 +746,9 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    old = [k for k, _, _ in rows
-           if any(o in k for o in OLD_WGRADS + OLD_F32_CTA)]
-    check(not old, f"profiled step ran {OLD_WGRADS + OLD_F32_CTA}: {old}")
+    gone = OLD_WGRADS + OLD_F32_CTA + OLD_KT_BF16
+    old = [k for k, _, _ in rows if any(o in k for o in gone)]
+    check(not old, f"profiled step ran {gone}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
             "top": [{"kernel": k[:80], "ms": ms, "count": c}
@@ -4036,43 +4036,6 @@ def macaron_vs_plain(name, model, b, n_real, n_pad, counters, plans):
     return made
 
 
-# SHA-256 of mac_kernel<bf16>'s outputs in mac_bf16_digest, as the kernel
-# gave them before mac_kernel_f32 replaced its f32 instance (H100, CUDA
-# 12.8): the bf16 kernel is unchanged, bit for bit. It guards that one
-# change only: a later change to mac_kernel<bf16>, to macaron_model's
-# initialisation or to the toolchain drops it or takes it anew on its
-# parent.
-MAC_BF16_SHA256 = ("b708fb7a9d93332fa3bfb52cbf14013105075d07822769053d99679fc6db2b57")
-
-
-def mac_bf16_digest():
-    """SHA-256 of ``mac_kernel<bf16>``'s outputs, plain, Euler and base,
-    at B=4 (65 tokens padded to 80) from ``macaron_model``'s weights and
-    inputs drawn from CPU seeds."""
-    import hashlib
-    import torch
-    from odevit_tpu_torch.kernels import launch_counts
-    from odevit_tpu_torch.kernels.macaron import macaron_eval
-    before = dict(launch_counts)
-    model = macaron_model()
-    n_real, n_pad, d = 65, 80, model.embed_dim
-    w = model.vf.kernel_weights(torch.bfloat16)
-    kw = dict(num_heads=model.num_heads, scaler=model.vf.scaler,
-              n_real=n_real)
-    gen = torch.Generator().manual_seed(25)
-    x = torch.randn(4, n_pad, d, generator=gen)
-    x[:, n_real:] = 0
-    x = x.to(torch.bfloat16).cuda()
-    base = torch.randn(4, n_pad, d, generator=gen).to(torch.bfloat16).cuda()
-    digest = hashlib.sha256()
-    for mode, extra in {"plain": {}, "euler": dict(dt=0.25),
-                        "base": dict(dt=0.25, base=base)}.items():
-        out = macaron_eval(x, w, mode=mode, **kw, **extra)
-        digest.update(out.view(torch.int16).cpu().numpy().tobytes())
-    launch_counts.update(before)           # comparisons do not count
-    return digest.hexdigest()
-
-
 # mac_kernel_f32's plans that the CIFAR cell does not take, at shapes the
 # route sends to one CTA: (n_real, n_pad, embed_dim, heads, mlp_ratio) and
 # the plan's (FFN chunk, column block)
@@ -4151,14 +4114,10 @@ def phase_macaron_kernels_vs_plain():
     """The one-CTA kernels at B=4 and the cell's shape (65 tokens padded
     to 80, D=192, 3 heads, dh=768); the Python plans against
     ``mac_plan``/``mcb_plan``/``mac_plan_f32``; ``mac_kernel_f32`` on
-    the plans of other shapes; ``mac_kernel<bf16>``'s outputs bit for bit
-    those it gave before ``mac_kernel_f32``."""
+    the plans of other shapes."""
     macaron_vs_plain("macaron_kernels_vs_plain", macaron_model(), 4, 65, 80,
                      ("macaron_eval", "macaron_bwd"), macaron_plans_agree)
     mac_f32_plans_vs_plain()
-    digest = mac_bf16_digest()
-    emit("macaron_bf16_unchanged", sha256=digest, want=MAC_BF16_SHA256)
-    check(digest == MAC_BF16_SHA256, "mac_kernel<bf16>'s outputs changed")
 
 
 def phase_macaron_serving(images_u8, rng):
@@ -4725,6 +4684,9 @@ OLD_WGRADS = ("vfb_wgrad_bf16", "vfb_wgrad_f32")
 # the one-CTA kernels' old f32 instances, which vf_kernel_f32,
 # vfb_rows_f32 and mac_kernel_f32 replaced: no step may launch them
 OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float", "mac_kernel<float")
+# the first key-tiled CTA's bf16 softmax instances (forward and backward),
+# which vft_attn_kt_fwd and vft_attn_kt_bwd replaced
+OLD_KT_BF16 = ("vft_attn_kt<__nv_bfloat16, false",)
 # bf16 products are exact in f32: only the f32 sums over up to 163,840
 # rows err (fresh accumulators every 512 rows); sound runs read below
 # 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
@@ -5497,17 +5459,23 @@ def phase_long_kernels_vs_plain():
     dropout, resid and L2; the split pair at dh=3072; the Macaron tiled
     route (3 modes, 16 cotangents). Statistics' columns on real keys,
     repeats bit-identical, NaN in padded rows inert, each launch counted
-    once under its ``_kt`` counter; the Python plans against the CUDA
-    ones up to 1,024 padded tokens."""
+    once under its ``_kt`` counter and each forward's attention CTA by
+    the C counter (``vft_attn_kt_fwd`` for bf16 softmax, the ViTODE and
+    the Macaron forwards, the old ``vft_attn_kt`` for f32 and L2); the
+    forwards also at head widths 16, 192 and 288; the Python plans
+    against the CUDA ones up to 1,024 padded tokens; the outputs of the
+    kernels that share code with ``vft_attn_kt_fwd`` or stay as they were
+    against ``LONG_KT_SHA256``."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
     from odevit_tpu_torch.kernels.dropout import generate_dropout_masks
     from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
                                                        vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.macaron import macaron_eval
     from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
     from odevit_tpu_torch.kernels.tiled import tiled_plan
     before = dict(launch_counts)
-    checked = {}
+    checked, ctas = {}, {}
     b, d, heads, dh = 2, 768, 12, 768
     g = torch.Generator(device="cuda").manual_seed(28)
     weights = long_weights(d, heads, dh, g)
@@ -5515,16 +5483,38 @@ def phase_long_kernels_vs_plain():
     seed, drops = DROP_SEEDS[2], DROP_RATES
     dkw = dict(seed=seed, drops=drops)
 
-    def routed(fn, want):
+    def routed(fn, want, cta=(0, 0)):
+        # cta: the forward attention CTAs the call launches by the C
+        # counter, (vft_attn_kt_fwd, the old vft_attn_kt forward)
         counts = dict(launch_counts)
+        at = kt_fwd_launches()
         out = fn()
         torch.cuda.synchronize()
         got = {k: launch_counts[k] - counts[k] for k in counts
                if launch_counts[k] != counts[k]}
         check(got == want, f"launched {got}, want {want}")
+        took = tuple(a - c for a, c in zip(kt_fwd_launches(), at))
+        check(took == tuple(cta), f"{want}: forward attention CTAs "
+              f"(vft_attn_kt_fwd, vft_attn_kt) {took}, want {cta}")
         for k, v in got.items():
             checked[k] = checked.get(k, 0) + v
+            ctas[k] = [a + c for a, c in zip(ctas.get(k, (0, 0)), took)]
         return out
+
+    def flat(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [t for o in out for t in (flat(o) if isinstance(o, tuple)
+                                         else (o,))]
+
+    def bit_same(a, c):
+        return all(torch.equal(u, v) for u, v in zip(flat(a), flat(c)))
+
+    def cta_of(dtype, n_pad, l2=False):
+        # the forward attention CTAs one evaluation past 256 padded tokens
+        # launches by the C counter, (vft_attn_kt_fwd, vft_attn_kt), as
+        # vft::attn routes: the new CTA for bf16 softmax, else PR 14's
+        assert n_pad > 256
+        return (1, 0) if dtype == torch.bfloat16 and not l2 else (0, 1)
 
     results = []
     for n_pad, n_real in LONG_SHAPES:
@@ -5553,6 +5543,11 @@ def phase_long_kernels_vs_plain():
             r = {"dtype": str(dtype), "tol": tol,
                  "shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh}",
                  "plan": tiled_plan(dtype, n_pad, n_real, d, heads, dh)}
+            cta, cta_l2 = cta_of(dtype, n_pad), cta_of(dtype, n_pad, True)
+            fwd_repeats = {}
+
+            def fwd_repeat(name, got, fn):
+                fwd_repeats[name] = bit_same(got, fn())
             errs = {}
             real = lambda a: a[:, :n_real]
 
@@ -5576,13 +5571,16 @@ def phase_long_kernels_vs_plain():
                          "vf_eval_base_tiled_kt"),
                 "drop": (dkw, "vf_eval_tiled_drop_kt")}
             for name, (extra, counter) in fwd.items():
-                cmp(name, routed(lambda: vf_eval(x, w, **kw, **extra),
-                                 {counter: 1}),
-                    vf_eval(x, w, plain=True, **kw, **extra))
+                got = routed(lambda: vf_eval(x, w, **kw, **extra),
+                             {counter: 1}, cta)
+                cmp(name, got, vf_eval(x, w, plain=True, **kw, **extra))
+                fwd_repeat(name, got, lambda: vf_eval(x, w, **kw, **extra))
             jas = {}
             for k in (LONG_K, JASMIN_K):
                 got = routed(lambda: vf_eval_jasmin(x, w, jas_k=k, **kw),
-                             {"vf_eval_jasmin_tiled_kt": 1})
+                             {"vf_eval_jasmin_tiled_kt": 1}, cta)
+                fwd_repeat(f"jasmin_k{k}", got,
+                      lambda: vf_eval_jasmin(x, w, jas_k=k, **kw))
                 cmp(f"jasmin_k{k}", got,
                     vf_eval_jasmin(x, w, jas_k=k, plain=True, **kw))
                 jas[k] = got
@@ -5604,25 +5602,32 @@ def phase_long_kernels_vs_plain():
                       "statistics not zero on padded rows")
             djas = routed(lambda: vf_eval_jasmin(x, w, jas_k=LONG_K, **kw,
                                                  **dkw),
-                          {"vf_eval_jasmin_tiled_drop_kt": 1})
+                          {"vf_eval_jasmin_tiled_drop_kt": 1}, cta)
+            fwd_repeat("drop_jasmin", djas, lambda: vf_eval_jasmin(
+                x, w, jas_k=LONG_K, **kw, **dkw))
             cmp("drop_jasmin", djas,
                 vf_eval_jasmin(x, w, jas_k=LONG_K, plain=True, **kw, **dkw))
             check(torch.equal(djas[1], jas[LONG_K][1])
                   and torch.equal(djas[2], jas[LONG_K][2]),
                   "dropout changed the JaSMin statistics")
             amap = routed(lambda: vf_eval_attn(x, w, **kw),
-                          {"vf_eval_attn_kt": 1})
+                          {"vf_eval_attn_kt": 1}, cta)
+            fwd_repeat("map", amap, lambda: vf_eval_attn(x, w, **kw))
             cmp("map", amap, vf_eval_attn(x, w, plain=True, **kw))
             check(not amap[1][:, :, n_real:].any()
                   and not amap[1][..., n_real:].any(),
                   "the map is not zero on padded rows and keys")
             dmap = routed(lambda: vf_eval_attn(x, w, **kw, **dkw),
-                          {"vf_eval_attn_drop_kt": 1})
+                          {"vf_eval_attn_drop_kt": 1}, cta)
+            fwd_repeat("drop_map", dmap,
+                       lambda: vf_eval_attn(x, w, **kw, **dkw))
             cmp("drop_map", dmap, vf_eval_attn(x, w, plain=True, **kw, **dkw))
             check(torch.equal(dmap[1], amap[1]), "dropout changed the map")
             out, masks = routed(
                 lambda: vf_eval(x, w, emit_masks=True, **kw, **dkw),
-                {"vf_eval_masks_kt": 1})
+                {"vf_eval_masks_kt": 1}, cta)
+            fwd_repeat("masks", (out, masks), lambda: vf_eval(
+                x, w, emit_masks=True, **kw, **dkw))
             cmp("masks_out", out, vf_eval(x, w, plain=True, **kw, **dkw))
             gen = generate_dropout_masks(
                 b, n_real, d, dh, heads, seed, attn_drop=drops[0],
@@ -5637,7 +5642,7 @@ def phase_long_kernels_vs_plain():
                   and not masks[3][..., n_real:].any(),
                   "mask_p not zero on padding")
             sout = routed(lambda: vf_eval(x, w, stash=True, **kw),
-                          {"vf_eval_stash_tiled_kt": 1})
+                          {"vf_eval_stash_tiled_kt": 1}, cta)
             rows = lambda o: (o[0], *resid_rows(o[1], b, n_pad, n_real))
             cmp("stash", rows(sout),
                 rows(vf_eval(x, w, stash=True, plain=True, **kw)))
@@ -5645,14 +5650,14 @@ def phase_long_kernels_vs_plain():
                   "the stash forward's f(x) differs")
             sjas = routed(lambda: vf_eval_jasmin(x, w, jas_k=LONG_K,
                                                  stash=True, **kw),
-                          {"vf_eval_jasmin_stash_tiled_kt": 1})
+                          {"vf_eval_jasmin_stash_tiled_kt": 1}, cta)
             cmp("stash_jasmin", sjas[:3], vf_eval_jasmin(
                 x, w, jas_k=LONG_K, stash=True, plain=True, **kw)[:3])
             cmp("l2", routed(lambda: vf_eval(x, wl2, **kw),
-                             {"vf_eval_l2_tiled_kt": 1}),
+                             {"vf_eval_l2_tiled_kt": 1}, cta_l2),
                 vf_eval(x, wl2, plain=True, **kw))
             ljas = routed(lambda: vf_eval_jasmin(x, wl2, jas_k=LONG_K, **kw),
-                          {"vf_eval_jasmin_l2_tiled_kt": 1})
+                          {"vf_eval_jasmin_l2_tiled_kt": 1}, cta_l2)
             cmp("l2_jasmin", ljas,
                 vf_eval_jasmin(x, wl2, jas_k=LONG_K, plain=True, **kw))
             # the backwards
@@ -5694,14 +5699,18 @@ def phase_long_kernels_vs_plain():
                 if name == "bwd_g_attn":
                     clean = got
             r["repeat_bit_identical"] = repeats
+            r["fwd_repeat_bit_identical"] = fwd_repeats
             check(all(repeats.values()), f"long bwd not repeatable: "
                   f"{repeats}")
+            check(all(fwd_repeats.values()), f"long fwd not repeatable: "
+                  f"{fwd_repeats}")
             # NaN and garbage in the padded rows change no real row
             dirty = x.clone()
             dirty[:, n_real:] = float("nan")
             gdirty = gx.clone()
             gdirty[:, n_real:] = 1e30 if dtype == torch.float32 else 3e38
             ddx, dst, didx = vf_eval_jasmin(dirty, w, jas_k=LONG_K, **kw)
+            dout, dpmap = vf_eval_attn(dirty, w, **kw, **dkw)
             dbars = vf_bwd(dirty, w, gdirty, g_attn=ga, g_jas=gj,
                            jas_idx=idx, **kw)
             torch.cuda.synchronize()
@@ -5709,6 +5718,8 @@ def phase_long_kernels_vs_plain():
                 torch.equal(real(ddx), real(jas[LONG_K][0]))
                 and torch.equal(dst, jas[LONG_K][1])
                 and torch.equal(didx, jas[LONG_K][2])
+                and torch.equal(real(dout), real(dmap[0]))
+                and torch.equal(dpmap, dmap[1])
                 and all(torch.equal(a, c) for a, c in zip(dbars, clean)))
             check(r["nan_padding_unchanged"], f"{dtype} n={n_pad}: padded "
                   f"rows reached a real row")
@@ -5738,6 +5749,29 @@ def phase_long_kernels_vs_plain():
         ga[:, :, n_real:] = 0
         ga[..., n_real:] = 0
         ga = ga.to(torch.bfloat16)
+        # the forward's modes on vft_attn_kt_fwd at this width
+        fwd_wide = {
+            "plain": (lambda pl: vf_eval(x, ww, plain=pl, **wkw),
+                      "vf_eval_tiled_kt"),
+            "jasmin": (lambda pl: vf_eval_jasmin(x, ww, jas_k=JASMIN_K,
+                                                 plain=pl, **wkw),
+                       "vf_eval_jasmin_tiled_kt"),
+            "drop_map": (lambda pl: vf_eval_attn(x, ww, plain=pl, **wkw,
+                                                 **dkw),
+                         "vf_eval_attn_drop_kt")}
+        for name, (fn, counter) in fwd_wide.items():
+            got = routed(lambda: fn(False), {counter: 1},
+                         cta_of(torch.bfloat16, n_pad))
+            want = fn(True)
+            err = max(rel_err(a[:, :n_real] if a.dim() == 3 else a,
+                              c[:, :n_real] if c.dim() == 3 else c)
+                      for a, c in zip(flat(got), flat(want))
+                      if a.dtype != torch.int32)
+            rep_ok = bit_same(got, fn(False))
+            wide[f"hd{wd // wheads}_fwd_{name}"] = {
+                "rel_err": err, "repeat_bit_identical": rep_ok}
+            check(err <= TOL_BF16 and rep_ok, f"long fwd at hd="
+                  f"{wd // wheads} {name}: {err}, repeat {rep_ok}")
         idx = vf_eval_jasmin(x, ww, jas_k=LONG_K, **wkw)[2]
         for name, extra, counter in (
                 ("g_jas", dict(g_jas=gj, jas_idx=idx), "vf_bwd_tiled_kt"),
@@ -5759,10 +5793,11 @@ def phase_long_kernels_vs_plain():
                  for src in ("vector_field_tiled", "vector_field_bwd_split",
                              "macaron_tiled")
                  for k, v in kernel_resources(
-                     src, ("vft_attn_kt_bwd", "vft_attn_keys_kt2")).items()}
+                     src, ("vft_attn_kt_bwd", "vft_attn_keys_kt2",
+                           "vft_attn_kt_fwd")).items()}
     check(all(v["spill_stores"] == 0 and v["spill_loads"] == 0
               for v in resources.values()),
-          f"the bf16 key-tiled backward's kernels spill: {resources}")
+          f"the bf16 key-tiled register kernels spill: {resources}")
     for n_pad, n_real in LONG_SHAPES:
         made = macaron_vs_plain(
             f"long_macaron_kernels_vs_plain_{n_pad}", macaron224_model(), b,
@@ -5770,12 +5805,42 @@ def phase_long_kernels_vs_plain():
             lambda: 0)
         for k, v in made.items():
             checked[k] = checked.get(k, 0) + v
+    # the Macaron tiled forward's attention CTA: vft_attn_kt_fwd in bf16,
+    # the old one in f32, once an evaluation in every mode
+    mac = macaron224_model()
+    with torch.no_grad():                  # as macaron_vs_plain perturbs it
+        for p in mac.vf.parameters():
+            p.add_(torch.randn(p.shape, generator=g, device="cuda") * 0.1)
+    n_pad, n_real = LONG_SHAPES[1]
+    mkw = dict(num_heads=mac.num_heads, scaler=mac.vf.scaler, n_real=n_real)
+    mac_ctas = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        mcta = cta_of(dtype, n_pad)
+        mw = mac.vf.kernel_weights(dtype)
+        xm = torch.randn(b, n_pad, mac.embed_dim, generator=g,
+                         device="cuda")
+        xm[:, n_real:] = 0
+        xm = xm.to(dtype)
+        for mode, extra in (("plain", {}), ("euler", dict(dt=0.25)),
+                            ("base", dict(dt=0.25, base=xm))):
+            got = routed(lambda: macaron_eval(xm, mw, mode=mode, **mkw,
+                                              **extra),
+                         {"macaron_eval_tiled_kt": 1}, mcta)
+            err = rel_err(got[:, :n_real], macaron_eval(
+                xm, mw, mode=mode, plain=True, **mkw, **extra)[:, :n_real])
+            mac_ctas[f"{dtype}_{mode}"] = {"cta": mcta, "rel_err": err}
+            check(err <= (TOL_BF16 if dtype == torch.bfloat16 else TOL_F32),
+                  f"long Macaron {dtype} {mode}: {err}")
     shapes = long_plans_agree()
+    digests = long_kt_digests()
     launch_counts.update(before)           # comparisons do not count
     emit("long_kernels_vs_plain", plans_agree_over_shapes=shapes,
          launches_checked=checked, results=results, other_head_widths=wide,
-         bwd_kernel_resources=resources)
-    return checked
+         macaron_forward_ctas=mac_ctas, register_kernel_resources=resources,
+         unchanged_sha256=digests, want_sha256=LONG_KT_SHA256)
+    bad = {k: v for k, v in digests.items() if LONG_KT_SHA256.get(k) != v}
+    check(not bad, f"outputs changed against LONG_KT_SHA256: {sorted(bad)}")
+    return checked, ctas
 
 
 SDPA_YARDSTICK = ("torch.nn.functional.scaled_dot_product_attention "
@@ -5838,11 +5903,201 @@ def sdpa_fwd_bwd_ms(b: int, heads: int, n: int, hd: int) -> float:
         return cuda_ms(run, iters=5)
 
 
+SDPA_FWD_YARDSTICK = ("torch.nn.functional.scaled_dot_product_attention "
+                      "forward, B=64, 12 heads, the 587 real tokens, hd=64, "
+                      "bf16, no dropout: the plain mode's attention over "
+                      "the real tokens up to p's rounding; a yardstick "
+                      "only, never called by the port")
+
+
+def sdpa_fwd_ms(b: int, heads: int, n: int, hd: int) -> float:
+    """``SDPA_FWD_YARDSTICK``: one forward of PyTorch's fused attention on
+    random bf16 q, k, v, timed by CUDA events."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn(b, heads, n, hd, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                       iters=10)
+
+
+def kt_fwd_launches() -> list:
+    """``vft_kt_fwd_launches`` summed over the libraries that launch the
+    tiled forwards (the ViTODE and the Macaron routes): launches so far of
+    [``vft_attn_kt_fwd``, the old ``vft_attn_kt`` forward]."""
+    import ctypes
+    from odevit_tpu_torch.kernels.macaron_tiled import \
+        _library as mac_library
+    from odevit_tpu_torch.kernels.tiled import _library as tiled_library
+    total = [0] * 2
+    for lib in (tiled_library(), mac_library()):
+        fn = lib.vft_kt_fwd_launches
+        fn.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+        fn.restype = None
+        got = (ctypes.c_ulonglong * 2)()
+        fn(got)
+        total = [a + c for a, c in zip(total, got)]
+    return total
+
+
+def attn_only(qkv, heads: int, n_real: int, *, kt: bool, mode="plain",
+              jas_kk: int = 0, drop=None, masks: bool = False, mt: int = 64):
+    """The bf16 softmax forward's attention launch alone
+    (``vft_attn_fwd_only``) on ``qkv`` [B, n_pad, 3D]: with ``kt``
+    ``vft_attn_kt_fwd`` whatever n_pad, else the CTA the route takes
+    (``mt``: its plan's query-tile rows); ``drop`` a ``dropout.Drop``,
+    with ``masks`` also writing mask_p. Returns ctx [B, n_pad, D] and, by
+    ``mode``, the statistics and columns or the map, then mask_p."""
+    import ctypes
+    import torch
+    from odevit_tpu_torch.kernels.dropout import Drop
+    from odevit_tpu_torch.kernels.tiled import MODES, _Args, _library
+    lib = _library()
+    fn = lib.vft_attn_fwd_only
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    ctx = torch.empty(b, n, d, device="cuda", dtype=torch.bfloat16)
+    extra = {}
+    if mode == "jasmin":
+        extra = {"stats": torch.empty(b, heads, 5, n, device="cuda"),
+                 "idx": torch.empty(b, heads, 4, n, device="cuda",
+                                    dtype=torch.int32)}
+    elif mode == "attn":
+        extra = {"pmap": torch.empty(b, heads, n, n, device="cuda",
+                                     dtype=torch.bfloat16)}
+    if masks:
+        extra["mask_p"] = torch.empty(b, heads, n, n, device="cuda")
+    args = _Args(qkv=qkv.data_ptr(), ctx=ctx.data_ptr(),
+                 **{k: v.data_ptr() for k, v in extra.items()},
+                 batch=b, n_pad=n, n_real=n_real, d=d, heads=heads,
+                 mode=MODES[mode], jas_kk=jas_kk, mt=mt,
+                 qk_scale=(d // heads) ** -0.5, drop=drop or Drop())
+    err = fn(int(kt), ctypes.byref(args),
+             torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"vft_attn_fwd_only: error {err}")
+    return (ctx, *extra.values())
+
+
+def kt_fwd_bound(b: int, n_real: int, d: int, heads: int, mode="plain",
+                 kk: int = 0, calls: int = 0, masks: bool = False):
+    """(bound_ms, bound_by, bound_unit) of one forward attention launch
+    past 256 padded tokens: the function's two head products at the real
+    token count (QK^T and P V, as ``vf_bound`` counts the attention; the
+    kernel's second QK^T is its own cost, not the function's) over the
+    bf16 peak, with ``kk`` JaSMin compare passes over each real row as
+    ``jasmin_bound`` counts them, against q, k, v in and ctx out (bf16)
+    plus the map (bf16), the statistics or mask_p (f32) over the memory
+    rate; beside ``calls`` Philox calls (``with_masks``)."""
+    flops = 2 * 2 * b * n_real * n_real * d + b * heads * n_real ** 2 * kk
+    nbytes = 4 * b * n_real * d * 2
+    if mode == "attn":
+        nbytes += b * heads * n_real * n_real * 2
+    if mode == "jasmin":
+        nbytes += b * heads * n_real * (5 + 4) * 4
+    if masks:
+        nbytes += b * heads * n_real * n_real * 4
+    return with_masks(_bound(flops, nbytes), calls)
+
+
+# SHA-256 of long_kt_digests()'s outputs, taken on the tree before
+# vft_attn_kt_fwd (NVIDIA H100 80GB HBM3): the kernels that share code
+# with the new forward (kt_pass1, kt_p, kt_keep, KvRing) and the
+# key-tiled forwards it leaves alone must give the same bits. A guard
+# for that change only: the next change to these kernels (the f32 and L2
+# key-tiled CTAs' redesign among them) deletes it with long_kt_digests
+# and pins nothing anew.
+LONG_KT_SHA256 = {
+    "bwd_g_jas":
+        "8cf327e017b1171d65c1dcad642fcbdd2dd448775cf6364ef34bd0538fdb5a5b",
+    "bwd_g_attn":
+        "0e7004bca2443c4d248593fa43e138a3abf69ca870fdc512d2635416f04c6691",
+    "bwd_drop":
+        "fd88af168d8fdf7cdb5a17392645217fb7c6140b361ed9cdc7461dc410805e83",
+    "bwd_split":
+        "a006c3af04d6c8982ca43a1ce04b7bd5abd35d10c882c58906c3458416a3ab21",
+    "f32_plain":
+        "181fa2f061fdd53fae4b24382d9fb64221580e1d2b547271ce980ee1380ef0af",
+    "f32_jasmin":
+        "0052e49a6fd559b82a023037ab6ab777242a81a95794ef34023f9bc6a295eca4",
+    "f32_map_drop":
+        "c5c68622f813199e8f5049ee7a1f804c7a8ff1ca5b33be5704a96ef9092888ab",
+    "l2_plain":
+        "66c061f82643483125c5f078a0f596676a9da6b7522617dd8c9bbfb3776800a8",
+    "l2_jasmin":
+        "9ee6f767ac031ed77e88484c0fde29363fa4069361d83b1a72103b54918424d6"}
+
+
+def long_kt_digests() -> dict:
+    """SHA-256 of the outputs of the key-tiled kernels beside the bf16
+    softmax forward, at B=2, 587 tokens padded to 592, D=768, 12 heads,
+    from seed 29: the bf16 softmax backward (``vft_attn_kt_bwd``,
+    ``vft_attn_keys_kt2``) with the JaSMin and map cotangents, ±
+    dropout, the split pair's attention half at dh=3072, and the f32 and
+    L2 (bf16) key-tiled forwards (plain, JaSMin k=2, and f32 dropout)."""
+    import hashlib
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
+                                                       vf_eval_jasmin)
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    n_pad, n_real = LONG_SHAPES[1]
+    b, d, heads, dh = 2, 768, 12, 768
+    g = torch.Generator(device="cuda").manual_seed(29)
+    weights = long_weights(d, heads, dh, g)
+    w4 = long_weights(d, heads, 4 * d, g)[torch.bfloat16][0]
+    x = torch.randn(b, n_pad, d, generator=g, device="cuda")
+    x[:, n_real:] = 0
+    gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
+    gx[:, n_real:] = 0
+    gj = torch.randn(b, heads, 5, n_pad, generator=g, device="cuda") * 1e-2
+    gj[..., n_real:] = 0
+    idx = torch.randint(0, n_real, (b, heads, 4, n_pad), generator=g,
+                        device="cuda", dtype=torch.int32)
+    ga = torch.randn(b, heads, n_pad, n_pad, generator=g,
+                     device="cuda") * 1e-2
+    ga[:, :, n_real:] = 0
+    ga[..., n_real:] = 0
+    xb, gxb, gab = (t.to(torch.bfloat16) for t in (x, gx, ga))
+    kw = dict(num_heads=heads, scaler=4.0, n_real=n_real)
+    dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
+    w, wl2 = weights[torch.bfloat16]
+    w32 = weights[torch.float32][0]
+    x32 = x.contiguous()
+    cases = {
+        "bwd_g_jas": lambda: vf_bwd(xb, w, gxb, g_jas=gj, jas_idx=idx, **kw),
+        "bwd_g_attn": lambda: vf_bwd(xb, w, gxb, g_attn=gab, g_jas=gj,
+                                     jas_idx=idx, **kw),
+        "bwd_drop": lambda: vf_bwd(xb, w, gxb, g_attn=gab, g_jas=gj,
+                                   jas_idx=idx, **kw, **dkw),
+        "bwd_split": lambda: vf_bwd(xb, w4, gxb, g_jas=gj, jas_idx=idx,
+                                    **kw),
+        "f32_plain": lambda: vf_eval(x32, w32, **kw),
+        "f32_jasmin": lambda: vf_eval_jasmin(x32, w32, jas_k=LONG_K, **kw),
+        "f32_map_drop": lambda: vf_eval_attn(x32, w32, **kw, **dkw),
+        "l2_plain": lambda: vf_eval(xb, wl2, **kw),
+        "l2_jasmin": lambda: vf_eval_jasmin(xb, wl2, jas_k=LONG_K, **kw)}
+    out = {}
+    for name, fn in cases.items():
+        got = fn()
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for t in (got if isinstance(got, tuple) else (got,)):
+            h.update(t.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
 def long_kernel_steps(model, images_u8, labels, pre, rng):
     """Three free steps of ``model`` through the kernels alone (the plain
     path is too slow at this batch): ms per step, img/s (best of steps
-    2-3), launches per step and peak memory; then one step split by CUDA
-    events into forward, backward and optimizer, and one profiled."""
+    2-3), launches per step, the forward attention CTAs of those steps by
+    the C counter (``kt_fwd_launches``) and peak memory; then one step
+    split by CUDA events into forward, backward and optimizer, and one
+    profiled."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts, reset_launch_counts
     from odevit_tpu_torch.train.fast_steps import (draw_step_seeds,
@@ -5859,12 +6114,14 @@ def long_kernel_steps(model, images_u8, labels, pre, rng):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     ms, losses = [], []
+    at = kt_fwd_launches()
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batch, rng=rng)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
+    ctas = [a - c for a, c in zip(kt_fwd_launches(), at)]
     launches = {k: v for k, v in launch_counts.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
     seeds = draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -5885,6 +6142,7 @@ def long_kernel_steps(model, images_u8, labels, pre, rng):
             "peak_mem_gb": peak, "launches": launches,
             "launches_per_step": {k: v / TRAIN_STEPS
                                   for k, v in launches.items()},
+            "kt_fwd_launches": ctas,
             "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
@@ -5914,6 +6172,17 @@ def phase_long_train(images_u8, labels):
     want = {**{k: 0 for k in full["launches_per_step"]}, **LONG_LAUNCHES}
     check(full["launches_per_step"] == want, f"long_train B=64: launches "
           f"{full['launches_per_step']}")
+    # every forward evaluation of the 3 steps launched vft_attn_kt_fwd once
+    # and the old forward CTA never, by the C counter; the profiled step
+    # ran it (and, by profile_step, no old bf16 softmax vft_attn_kt)
+    fwd = TRAIN_STEPS * sum(v for k, v in LONG_LAUNCHES.items()
+                            if k.startswith("vf_eval"))
+    check(full["kt_fwd_launches"] == [fwd, 0], f"long_train B=64: forward "
+          f"attention CTAs (vft_attn_kt_fwd, vft_attn_kt) "
+          f"{full['kt_fwd_launches']}, want [{fwd}, 0]")
+    ran = " ".join(t["kernel"] for t in full["profile"]["top"])
+    check("vft_attn_kt_fwd" in ran,
+          f"long_train's profile lacks vft_attn_kt_fwd: {ran}")
     b = images_u8.shape[0]
     emit("long_train_profile", **full.pop("profile"))
     emit("long_train", cell=LONG_TRAIN_CELL, batch=b,
@@ -5924,15 +6193,17 @@ def phase_long_train(images_u8, labels):
          check_launches_per_step=per_step, check_results=runs,
          check_profile=profile, img_per_s=full["img_per_s_best_of_2_3"],
          **full)
-    return full["launches"], runs["kernels"]["wgrad_launches"]["bf16"]
+    return (full["launches"], runs["kernels"]["wgrad_launches"]["bf16"],
+            full["kt_fwd_launches"])
 
 
 def phase_long_serving(rng):
     """Phase 28c, cell tsbase384-serve-euler36-b64-bf16: ``fast_forward``
     of the 384 px student at Euler on 36 points (35 key-tiled Euler
     launches per forward) at B=64 on 384 px uint8, against the plain path,
-    timed, with its peak memory; then 16 engine requests against direct
-    forwards and the B=1 latency."""
+    timed, with its peak memory and its forward attention CTAs by the C
+    counter (35 ``vft_attn_kt_fwd``, no old ``vft_attn_kt``); then 16
+    engine requests against direct forwards and the B=1 latency."""
     import numpy as np
     import torch
     from odevit_tpu_torch.data.pipeline import make_preprocess
@@ -5946,12 +6217,16 @@ def phase_long_serving(rng):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    at = kt_fwd_launches()
     got = fast_forward(model, x)["logits"]
     torch.cuda.synchronize()
+    ctas = [a - c for a, c in zip(kt_fwd_launches(), at)]
     launches = {k: v for k, v in launch_counts.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches == {"vf_eval_euler_tiled_kt": 35},
           f"{LONG_SERVE_CELL}: launches {launches}")
+    check(ctas == [35, 0], f"{LONG_SERVE_CELL}: forward attention CTAs "
+          f"(vft_attn_kt_fwd, vft_attn_kt) {ctas}, want [35, 0]")
     want = fast_forward(model, x, plain=True)["logits"]
     torch.cuda.synchronize()
     err = rel_err(got, want)
@@ -5971,8 +6246,8 @@ def phase_long_serving(rng):
          tol=TOL_LOGITS, top1_agreement=top1, ms_per_forward=ms,
          img_per_s=b / ms * 1e3, plain_ms_per_forward=plain_ms,
          plain_img_per_s=b / plain_ms * 1e3, peak_mem_gb=peak,
-         engine_launches=engine)
-    return launches, model
+         kt_fwd_launches=ctas, engine_launches=engine)
+    return launches, model, ctas
 
 
 def phase_long_kernel_timing(model, images_u8):
@@ -5984,6 +6259,7 @@ def phase_long_kernel_timing(model, images_u8):
     same shape."""
     import torch
     from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import drop_spec
     from odevit_tpu_torch.kernels.macaron import macaron_eval
     from odevit_tpu_torch.kernels.macaron_bwd import macaron_bwd
     from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
@@ -6094,6 +6370,48 @@ def phase_long_kernel_timing(model, images_u8):
                                       scaler=kw["scaler"], n_real=n_real),
                 mlp_bwd_bound(b, n_real, d, 4 * d, 2), 0)}
         out.update(time_jobs(jobs, n_real))
+        # the forwards' attention CTA (vft_attn_kt_fwd): one launch an
+        # evaluation by the C counter; alone on the state's own qkv (the
+        # stash forward's) by CUDA events, beside its bound (the attention
+        # site's Philox calls with dropout) and, in the plain mode,
+        # PyTorch's fused attention forward
+        calls_p = b * heads * n_real * -(-n_real // 4)
+        qkv3 = rqkv.view(b, n_pad, 3 * d)
+        drop = drop_spec(dkw["seed"], dkw["drops"])
+        sdpa_fwd = sdpa_fwd_ms(b, heads, n_real, d // heads)
+        fwd_ctas = {
+            "vf_eval_tiled_drop_kt": ("plain", 0, calls_p, False),
+            "vf_eval_jasmin_tiled_drop_kt": ("jasmin", kk, calls_p, False),
+            "vf_eval_euler_tiled_kt": ("plain", 0, 0, False),
+            "vf_eval_tiled_kt": ("plain", 0, 0, False),
+            "vf_eval_base_tiled_kt": ("plain", 0, 0, False),
+            "vf_eval_jasmin_tiled_kt": ("jasmin", kk, 0, False),
+            "vf_eval_attn_kt": ("attn", 0, 0, False),
+            "vf_eval_attn_drop_kt": ("attn", 0, calls_p, False),
+            "vf_eval_masks_kt": ("plain", 0, calls_p, True),
+            "vf_eval_stash_tiled_kt": ("plain", 0, 0, False),
+            "vf_eval_jasmin_stash_tiled_kt": ("jasmin", kk, 0, False)}
+        for name, (mode, k_, calls_, masks) in fwd_ctas.items():
+            at = kt_fwd_launches()
+            jobs[name][0](False)
+            torch.cuda.synchronize()
+            took = [a - c for a, c in zip(kt_fwd_launches(), at)]
+            check(took == [1, 0], f"{name}: forward attention CTAs "
+                  f"(vft_attn_kt_fwd, vft_attn_kt) {took}")
+            bound_ms, bound_by, unit = kt_fwd_bound(
+                b, n_real, d, heads, mode, k_, calls_, masks)
+            out[name]["cta"] = {
+                "kernel": "vft_attn_kt_fwd",
+                "ms": cuda_ms(lambda: attn_only(
+                    qkv3, heads, n_real, kt=True, mode=mode,
+                    jas_kk=k_, drop=drop if calls_ else None,
+                    masks=masks), iters=10),
+                "bound_ms": bound_ms,
+                "bound_by": bound_by, "bound_unit": unit,
+                "library_ms": sdpa_fwd if name == "vf_eval_tiled_kt"
+                else None,
+                "library_call": SDPA_FWD_YARDSTICK
+                if name == "vf_eval_tiled_kt" else None}
         # the bf16 softmax backwards' kernels, each launch's device time;
         # for the attention pair (vft_attn_kt_bwd, vft_attn_keys_kt2) its
         # own bound and the floor of its p and s_bar scratch
@@ -6156,10 +6474,44 @@ def phase_long_kernel_timing(model, images_u8):
                 "plain_ms": cuda_ms(lambda: fn(True), iters=1),
                 "bound_ms": bound[0], "bound_by": bound[1],
                 "bound_unit": "f32", "library_ms": None}
+    probe = kt_fwd_whole_row_probe()
     launch_counts.update(before)           # comparisons do not count
     emit("long_kernel_timing", shape=f"B={b} n={n_real}/{n_pad} D=768 H=12 "
          f"dh=768 bf16 (split half dh=3072; Macaron f32 dh=1536)",
          drops=DROP_RATES, philox_calls=calls, results=out)
+    emit("kt_fwd_whole_row_probe", **probe)
+    return out
+
+
+def kt_fwd_whole_row_probe():
+    """``vft_attn_kt_fwd`` at the 224 px whole-row shape (B=64, 207
+    tokens padded to 208, D=768, 12 heads, bf16), where the route takes
+    ``vft_attn``: both launched alone (``attn_only``) on the same random
+    qkv, plain and JaSMin (k=2) modes, timed by CUDA events and held
+    against each other (ctx, statistics within 2e-2 of max|vft_attn|).
+    For the next redesign; no path launches the new CTA here."""
+    import torch
+    from odevit_tpu_torch.kernels.tiled import tiled_plan
+    b, n_pad, n_real, d, heads = 64, 208, 207, 768, 12
+    g = torch.Generator(device="cuda").manual_seed(31)
+    qkv = torch.randn(b, n_pad, 3 * d, generator=g, device="cuda").to(
+        torch.bfloat16)
+    mt = tiled_plan(torch.bfloat16, n_pad, n_real, d, heads, d)[0]
+    out = {"shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} bf16",
+           "whole_row_mt": mt}
+    for mode, kk in (("plain", 0), ("jasmin", LONG_K + 1)):
+        run = lambda kt: attn_only(qkv, heads, n_real, kt=kt, mode=mode,
+                                   jas_kk=kk, mt=mt)
+        row, new = run(False), run(True)
+        torch.cuda.synchronize()
+        errs = [rel_err(a[:, :n_real] if a.dim() == 3 else a,
+                        c[:, :n_real] if c.dim() == 3 else c)
+                for a, c in zip(new, row) if a.dtype != torch.int32]
+        check(max(errs) <= TOL_BF16, f"whole-row probe {mode}: {errs}")
+        out[mode] = {"vft_attn_ms": cuda_ms(lambda: run(False), iters=10),
+                     "vft_attn_kt_fwd_ms": cuda_ms(lambda: run(True),
+                                                   iters=10),
+                     "rel_errs": errs}
     return out
 
 
@@ -6282,9 +6634,11 @@ def main() -> int:
     # the TS-Base student at 384 px trained (32 px resized on the card) and
     # served
     del euler25, students
-    long_checked = phase_long_kernels_vs_plain()
-    long_train, long_train_wgrad = phase_long_train(images_d, labels_d)
-    long_serve, long_model = phase_long_serving(np.random.default_rng(3))
+    long_checked, long_checked_ctas = phase_long_kernels_vs_plain()
+    long_train, long_train_wgrad, long_train_ctas = phase_long_train(
+        images_d, labels_d)
+    long_serve, long_model, long_serve_ctas = phase_long_serving(
+        np.random.default_rng(3))
     long_timing = phase_long_kernel_timing(long_model, images_d)
     del long_model
 
@@ -6536,6 +6890,15 @@ def main() -> int:
             ("vector_field_tiled.cu", "vector_field.py:221")
             if name.startswith("vf_eval_masks") else
             ("vector_field_tiled.cu", "vector_field.py:196"))
+        if "cta" in entry:
+            # the forward attention CTAs (vft_attn_kt_fwd, the old
+            # vft_attn_kt) by the C counter on that same path (phase 28a:
+            # its calls that counted this name, bf16 and f32)
+            entry["cta"]["kt_fwd_launches"] = (
+                long_train_ctas if path == LONG_TRAIN_CELL else
+                long_serve_ctas if path == LONG_SERVE_CELL else
+                long_checked_ctas[name])
+            entry["cta"]["kt_fwd_launches_of"] = path
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"odevit_tpu_torch/csrc/{source}",
@@ -6544,7 +6907,7 @@ def main() -> int:
             **{k: v for k, v in entry.items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "bound_unit", "library_ms", "parts",
-                        "pair")}})
+                        "pair", "cta")}})
     # the weight products at each cell's shape: launches on that cell's
     # training path (3 kernel steps, the C counter), else in this phase
     wgrad_paths = {

@@ -28,7 +28,10 @@
 //   vft_attn        one CTA per (image, head, query tile): K and V of the
 //                   head in shared memory, f32 scores, softmax over the real
 //                   keys, p rounded; the map (attention-map mode) or the
-//                   JaSMin statistics and their columns; ctx = round(p v);
+//                   JaSMin statistics and their columns; ctx = round(p v)
+//                   (past kMaxCols padded tokens vft_attn_kt, and in bf16
+//                   softmax vft_attn_kt_fwd: scores, p and ctx in mma.sync
+//                   registers, K and V through a cp.async ring);
 //   vft_gemm        out = round(scaler * ([ctx | h] [Wout; W2])), the two
 //                   products summed in one f32 accumulator; the Euler and
 //                   stage-advance modes (the TPU kernel's euler_dt and
@@ -1432,11 +1435,11 @@ __global__ void __launch_bounds__(vf::kThreads) vft_attn_keys(AttnArgs a) {
 // CTAs are latency-bound: tiles of 64 x 64 products between barriers. So
 // K and V move in 16-byte loads, vf::mm keeps at most 4 row tiles of
 // accumulators (M <= 64), and __launch_bounds__(384, 2) holds the CTAs to
-// 80 registers so that two share an SM. These first CTAs now run the
-// forward and the f32 and L2 backwards; the bf16 softmax backward, which
-// spilled at that cap, runs vft_attn_kt_bwd and vft_attn_keys_kt2 (below:
-// operands and accumulators in registers, bytes of the p and s_bar
-// scratch bound the pair).
+// 80 registers so that two share an SM. These first CTAs now run the f32
+// and L2 instances only; the bf16 softmax backward, which spilled at that
+// cap, runs vft_attn_kt_bwd and vft_attn_keys_kt2, and the bf16 softmax
+// forward vft_attn_kt_fwd (below: operands and accumulators in
+// registers).
 
 constexpr int kMaxJas = 16;  // JaSMin extraction passes (k + 1) past kMaxCols
 constexpr int kRowVals = 6;  // per query row: max, sum, dot, q2, rsum, jsum
@@ -2017,6 +2020,54 @@ __global__ void __launch_bounds__(vf::kThreads, 2)
 // fragments, q and cb as .trans B fragments. k_bar and v_bar accumulate in
 // registers and are rounded once (past hd = 64, 64 columns at a time).
 // Reading its half of the scratch (1.08 GB) bounds it at 0.32 ms.
+//
+// ---------------- the bf16 softmax forward past kMaxCols, on registers
+//
+// vft_attn_kt_fwd replaces vft_attn_kt<bf16, false, ...> for every bf16
+// softmax forward past kMaxCols padded tokens: the tiled forward in its
+// plain, Euler, stage-advance, JaSMin and map modes, ± dropout, ±
+// emit_masks, the stash's forwards, and the bf16 tiled Macaron forward. It
+// stands for odevit_tpu/kernels/vector_field.py::_vf_kernel (:196; the
+// JaSMin statistics :282-351, the map and dropout of fused_vf_attn,
+// fused_vf_dropout, fused_vf_jasmin_dropout, fused_vf_attn_dropout, and
+// emit_masks :221-223). The f32 and L2 instances keep vft_attn_kt.
+//
+// Bound. At 587 of 592 tokens, B=64, 12 heads, hd=64 it needs three head
+// products (QK^T in pass 1 and again in pass 2, P V): 103 GFLOP, 0.105 ms
+// at 989 TFLOP/s, against 0.07 ms for q, k, v in and ctx out; the dropout
+// instance adds mask_p's Philox calls, one per 4 keys of a real row.
+//
+// Design. vft_attn_kt_bwd's layout and code: one CTA of 4 warps per
+// (64-row query tile, head, image), 16 query rows a warp; Q by cp.async
+// into mma.sync A fragments (read from shared memory at other head
+// widths); K and V through the same KvRing (two slots, one where two do
+// not fit). Two passes, because the rounding points need the row's final
+// m and l before any p is rounded: pass 1 is kt_pass1, the backward's own;
+// pass 2 computes p = round(kt_p(s)) in the accumulator fragments, 32
+// keys at a time (a whole tile's scores beside ctx and Q would exceed the
+// 128 registers that let four CTAs share an SM), pm = round(p keep sc)
+// with kt_keep's bits (the backward's draw, one Philox call per thread and
+// 8 keys), packs pm into the A fragments of P V and accumulates ctx in f32
+// registers over the stream (at other head widths in 64-column chunks,
+// each streaming the keys again), rounded once; so the forward's p, keep
+// bits and ctx are the backward's, bit for bit. The map (pre-dropout p) and mask_p (keep
+// flags, written as sc or 0) go out through the warp's staging tile in
+// 16-byte stores. JaSMin: each lane keeps a running top-kk of its own
+// columns of each of its two rows in shared memory (values descending;
+// real keys only), so no lane waits for another. A tile's values are
+// filtered in registers against the lane's kk-th value as the tile began;
+// what passes is marked in a bit mask and staged as bf16 in the warp's
+// staging tile, and each lane inserts its own candidates by the mask's set
+// bits, in column order (so the warp steps as often as its busiest lane
+// has candidates, not once per position): a value enters only if it is
+// strictly greater than the current kk-th (an equal value comes from a
+// later column and loses the tie), behind the equal values it meets.
+// After the stream one lane of the quad merges its row's four lists
+// (value, then the earlier column) into the row's ranks; the clipped row
+// sum accumulates in registers and reduces over the quad. The lists take
+// kk entries a lane and row (6 KB at k = 2, 32 KB at most), in the JaSMin
+// mode's launches only. Padding by selection (NaN in padded rows reaches
+// no real row), no atomics: repeats are bit-identical.
 
 constexpr int kBThreads = 128;              // 4 warps of 16 rows
 constexpr int kLdStg = kKeyTile + 8;        // staged 64-wide bf16 tiles
@@ -2047,6 +2098,38 @@ __host__ __device__ inline KtbPlan ktb_plan(int hd, int n_pad, bool drop) {
       (size_t)((n_pad + kKeyTile - 1) / kKeyTile) * kBThreads * 4;
   a.keep = drop && a.bits + bits <= (size_t)vf::kMaxSmem;
   a.total = a.bits + (a.keep ? bits : 0);
+  return a;
+}
+
+// Shared memory of vft_attn_kt_fwd (byte offsets; rows of ld bf16): Q of
+// the query tile, the warps' staging tiles, the K/V ring (`stages` slots
+// of K and V), then the lanes' JaSMin lists of kk entries (values, then
+// columns: entry i of row hf of thread tid at (hf kk + i) kBThreads +
+// tid), which only the JaSMin mode's launches take (`top` bytes and
+// lane_lists(kk) more; `total` at kk = kMaxJas). It does not depend on
+// n_pad or dropout.
+__host__ __device__ constexpr size_t lane_lists(int kk) {
+  return (size_t)2 * 2 * kk * kBThreads * 4;
+}
+constexpr size_t kLaneLists = lane_lists(kMaxJas);
+
+struct KtfPlan {
+  size_t q, stg, ring, slot, top, total;
+  int ld, stages;
+};
+
+__host__ __device__ inline KtfPlan ktf_plan(int hd) {
+  KtfPlan a;
+  a.ld = hd + 8;
+  const size_t tile = (size_t)kKeyTile * a.ld * 2;
+  a.q = 0;
+  a.stg = tile;
+  a.ring = a.stg + kStgTile;
+  a.slot = 2 * tile;
+  a.stages =
+      a.ring + 2 * a.slot + kLaneLists <= (size_t)vf::kMaxSmem ? 2 : 1;
+  a.top = a.ring + a.stages * a.slot;
+  a.total = a.top + kLaneLists;
   return a;
 }
 
@@ -2254,6 +2337,148 @@ __device__ __forceinline__ void warp_store(bf16* dst, size_t ldd,
   __syncwarp();
 }
 
+// The K/V ring of vft_attn_kt_bwd and vft_attn_kt_fwd: tile t of a stream
+// of `count` key tiles sits in slot seq % stages (seq counts the tiles of
+// every stream). start loads the stream's first tile; wait(t) waits for
+// tile t, starts tile t + 1 (two slots) and returns its K (V follows);
+// done(t) starts tile t + 1 once every warp is done with the one slot.
+struct KvRing {
+  unsigned char* base;  // slot 0
+  size_t slot;          // bytes of a slot: K and V, 64 rows of ld each
+  const bf16* qkv;      // [R, 3D]
+  size_t row0;          // the image's first row
+  int stages, ld, hd, n, n_real, d, h, seq;
+  bool resid;
+
+  // K (and V) of the key tile at c0 into slot s (keys >= n, padded value
+  // rows, and with resid padded key rows, as zeros); one commit group
+  __device__ void load(int c0, int s, bool with_v) const {
+    bf16* ks = reinterpret_cast<bf16*>(base + s * slot);
+    bf16* vs = ks + kKeyTile * ld;
+    tile_vecs(hd, [&](int r, int c) {
+      const int key = c0 + r;
+      const bf16* src =
+          qkv + (row0 + vf::imin(key, n - 1)) * 3 * d + h * hd + c;
+      cp16(ks + r * ld + c, src + d, key < n && !(resid && key >= n_real));
+      if (with_v) cp16(vs + r * ld + c, src + 2 * d, key < n_real);
+    });
+    cp_commit();
+  }
+  __device__ void start(bool with_v) {
+    if (stages == 1) __syncthreads();  // the slot's last readers
+    load(0, seq % stages, with_v);
+  }
+  __device__ const bf16* wait(int t, int count, bool with_v) {
+    cp_wait_all();
+    __syncthreads();
+    if (stages > 1 && t + 1 < count)
+      load((t + 1) * kKeyTile, (seq + 1) % stages, with_v);
+    return reinterpret_cast<const bf16*>(base + (seq % stages) * slot);
+  }
+  __device__ void done(int t, int count, bool with_v) {
+    ++seq;
+    if (stages == 1 && t + 1 < count) {
+      __syncthreads();
+      load((t + 1) * kKeyTile, 0, with_v);
+    }
+  }
+};
+
+// Pass 1 of vft_attn_kt_bwd and vft_attn_kt_fwd: the max m (of s tau log2
+// e) and the sum l of 2^(s tau log2 e - m) over the real keys of the
+// thread's two rows (m0, l0: row g of the warp's 16; m1, l1: row g + 8),
+// reduced over the quad, streaming K through the ring. The A operand as
+// qk_tile takes it (qa, or with kGeneric the warp's rows at qw).
+template <bool kGeneric>
+__device__ void kt_pass1(KvRing& ring, bool active,
+                         const unsigned (&qa)[4][4], const bf16* qw,
+                         float tl2, float& m0, float& m1, float& l0,
+                         float& l1) {
+  const int t4 = threadIdx.x % 4, n_real = ring.n_real;
+  m0 = m1 = -INFINITY;
+  l0 = l1 = 0.0f;
+  const int tiles1 = (n_real + kKeyTile - 1) / kKeyTile;
+  ring.start(false);
+  for (int t = 0; t < tiles1; ++t) {
+    const bf16* k = ring.wait(t, tiles1, false);
+    if (active) {
+      const int c0 = t * kKeyTile;
+      float s[8][4];
+      qk_tile<kGeneric, 8>(s, qa, qw, k, ring.ld, ring.hd);
+      float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
+          x0 = in ? fmaxf(x0, s[j][e] * tl2) : x0;
+          x1 = in ? fmaxf(x1, s[j][2 + e] * tl2) : x1;
+        }
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+      const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+      float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
+          s0 += in ? ex2(s[j][e] * tl2 - n0) : 0.0f;
+          s1 += in ? ex2(s[j][2 + e] * tl2 - n1) : 0.0f;
+        }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      l0 = l0 * ex2(m0 - n0) + s0;
+      l1 = l1 * ex2(m1 - n1) + s1;
+      m0 = n0;
+      m1 = n1;
+    }
+    ring.done(t, tiles1, false);
+  }
+}
+
+// The f32 p of score sv at column col of a row with pass 1's m and l (il
+// = 1 / l): 2^(sv tau log2 e - m) / l, 0 on padded keys.
+__device__ __forceinline__ float kt_p(float sv, float tl2, float m, float l,
+                                      float il, int col, int n_real) {
+  const float p = div_by(ex2(sv * tl2 - m), l, il);
+  return col < n_real ? p : 0.0f;
+}
+
+// The keep bits (vf::keep4's stream, site kSiteP + h) of the thread's 32
+// elements of the key tile at c0: bit 4 j + 2 hf + e for column c0 + 8 j +
+// 2 t4 + e of row hf (rw0, rw1; 0 on padded rows and keys). The even lane
+// of a pair draws its first row's group of 4 columns, the odd lane its
+// second row's (the same group), and they swap halves: one Philox call per
+// thread and 8 keys. kUnroll calls at once (all 8 spill in the backward;
+// the forward, held to 128 registers, takes 2).
+template <int kUnroll>
+__device__ __forceinline__ unsigned kt_keep(unsigned pkey, int img, int rw0,
+                                            int rw1, int n_real, unsigned th,
+                                            int c0) {
+  const int t4 = threadIdx.x & 3;
+  unsigned kb = 0u;
+  const int odd = t4 & 1, row = odd ? rw1 : rw0, sh = 2 * odd;
+#pragma unroll(kUnroll)
+  for (int j = 0; j < 8; ++j) {
+    const int grp = c0 / 4 + 2 * j + (t4 >> 1), c = 4 * grp;
+    const uint4 w = vf::philox(pkey, img, row, grp);
+    const bool on = row < n_real;
+    const unsigned nib = (unsigned)(on && c < n_real && w.x >= th) |
+                         (unsigned)(on && c + 1 < n_real && w.y >= th) << 1 |
+                         (unsigned)(on && c + 2 < n_real && w.z >= th) << 2 |
+                         (unsigned)(on && c + 3 < n_real && w.w >= th) << 3;
+    const unsigned other = __shfl_xor_sync(0xffffffffu, nib, 1);
+    const unsigned n0 = odd ? other : nib, n1 = odd ? nib : other;
+    kb |= ((n0 >> sh) & 3u) << (4 * j) | ((n1 >> sh) & 3u) << (4 * j + 2);
+  }
+  return kb;
+}
+
 // One CTA per (64-row query tile, head, image): see above. kDrop: the
 // dropout instance (keep bits of mask_p); kGeneric: a head width other
 // than 64 (Q and cb read from shared memory, ctx and q_bar in 64-column
@@ -2333,69 +2558,8 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
   const bf16* qw = qs + 16 * warp * ld;
   const bf16* cw = cbs + 16 * warp * ld;
 
-  // K (and V) of the key tile at c0 into ring slot `slot` (keys >= n,
-  // padded value rows, and with resid padded key rows, as zeros); one
-  // commit group
-  auto load_kv = [&](int c0, int slot, bool with_v) {
-    bf16* ks = reinterpret_cast<bf16*>(smem + pl.ring + slot * pl.slot);
-    bf16* vs = ks + kKeyTile * ld;
-    tile_vecs(hd, [&](int r, int c) {
-      const int key = c0 + r;
-      const bf16* src =
-          qkv + (row0 + vf::imin(key, n - 1)) * 3 * d + h * hd + c;
-      cp16(ks + r * ld + c, src + d, key < n && !(a.resid && key >= n_real));
-      if (with_v) cp16(vs + r * ld + c, src + 2 * d, key < n_real);
-    });
-    cp_commit();
-  };
-  // The ring: tile t of a stream of `count` key tiles sits in slot seq %
-  // stages (seq counts the tiles of every stream). ring_start loads the
-  // stream's first tile; ring_wait(t) waits for tile t, starts tile t + 1
-  // (two slots) and returns its K (V follows); ring_done(t) starts tile
-  // t + 1 once every warp is done with the one slot.
-  int seq = 0;
-  auto ring_start = [&](bool with_v) {
-    if (pl.stages == 1) __syncthreads();  // the slot's last readers
-    load_kv(0, seq % pl.stages, with_v);
-  };
-  auto ring_wait = [&](int t, int count, bool with_v) {
-    cp_wait_all();
-    __syncthreads();
-    if (pl.stages > 1 && t + 1 < count)
-      load_kv((t + 1) * kKeyTile, (seq + 1) % pl.stages, with_v);
-    return reinterpret_cast<const bf16*>(smem + pl.ring +
-                                         (seq % pl.stages) * pl.slot);
-  };
-  auto ring_done = [&](int t, int count, bool with_v) {
-    ++seq;
-    if (pl.stages == 1 && t + 1 < count) {
-      __syncthreads();
-      load_kv((t + 1) * kKeyTile, 0, with_v);
-    }
-  };
-  // the keep bits of the thread's 32 elements of the key tile at c0: bit
-  // 4 j + 2 hf + e for column c0 + 8 j + 2 t4 + e of row hf. The even lane
-  // of a pair draws its first row's group of 4 columns, the odd lane its
-  // second row's (the same group), and they swap halves.
-  auto draw = [&](int c0) {
-    unsigned kb = 0u;
-    const int odd = t4 & 1, row = odd ? rw1 : rw0, sh = 2 * odd;
-    const unsigned th = a.drop.th_p;
-#pragma unroll 4  // all 8 Philox calls at once spill
-    for (int j = 0; j < 8; ++j) {
-      const int grp = c0 / 4 + 2 * j + (t4 >> 1), c = 4 * grp;
-      const uint4 w = vf::philox(pkey, b, row, grp);
-      const bool on = row < n_real;
-      const unsigned nib = (unsigned)(on && c < n_real && w.x >= th) |
-                           (unsigned)(on && c + 1 < n_real && w.y >= th) << 1 |
-                           (unsigned)(on && c + 2 < n_real && w.z >= th) << 2 |
-                           (unsigned)(on && c + 3 < n_real && w.w >= th) << 3;
-      const unsigned other = __shfl_xor_sync(0xffffffffu, nib, 1);
-      const unsigned n0 = odd ? other : nib, n1 = odd ? nib : other;
-      kb |= ((n0 >> sh) & 3u) << (4 * j) | ((n1 >> sh) & 3u) << (4 * j + 2);
-    }
-    return kb;
-  };
+  KvRing ring = {smem + pl.ring, pl.slot, qkv, row0, pl.stages, ld, hd, n,
+                 n_real, d, h, 0, a.resid != 0};
   // the full p_bar of a real row's real key from cb v^T (pb), its keep
   // value mk, g_attn (ga) and its pre-dropout rounded p (pr). pr is a
   // bf16 value in [0, 1], never 1e-12f: the plain versions' clip factor
@@ -2417,55 +2581,13 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
   };
 
   // pass 1: each row's max and sum over the real keys
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  const int tiles1 = (n_real + kKeyTile - 1) / kKeyTile;
-  ring_start(false);
-  for (int t = 0; t < tiles1; ++t) {
-    const bf16* k = ring_wait(t, tiles1, false);
-    if (active) {
-      const int c0 = t * kKeyTile;
-      float s[8][4];
-      qk_tile<kGeneric, 8>(s, qa, qw, k, ld, hd);
-      float x0 = -INFINITY, x1 = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
-          x0 = in ? fmaxf(x0, s[j][e] * tl2) : x0;
-          x1 = in ? fmaxf(x1, s[j][2 + e] * tl2) : x1;
-        }
-      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
-      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
-      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
-      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
-      const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
-      float s0 = 0.0f, s1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const bool in = c0 + 8 * j + 2 * t4 + e < n_real;
-          s0 += in ? ex2(s[j][e] * tl2 - n0) : 0.0f;
-          s1 += in ? ex2(s[j][2 + e] * tl2 - n1) : 0.0f;
-        }
-      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
-      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-      l0 = l0 * ex2(m0 - n0) + s0;
-      l1 = l1 * ex2(m1 - n1) + s1;
-      m0 = n0;
-      m1 = n1;
-    }
-    ring_done(t, tiles1, false);
-  }
+  float m0, m1, l0, l1;
+  kt_pass1<kGeneric>(ring, active, qa, qw, tl2, m0, m1, l0, l1);
   const float il0 = 1.0f / l0, il1 = 1.0f / l1;
   // the f32 p of score sv at column col (0 on padded keys)
   auto p_of = [&](float sv, int hf, int col) {
-    const float e = ex2(sv * tl2 - (hf ? m1 : m0));
-    const float p = hf ? div_by(e, l1, il1) : div_by(e, l0, il0);
-    return col < n_real ? p : 0.0f;
+    return hf ? kt_p(sv, tl2, m1, l1, il1, col, n_real)
+              : kt_p(sv, tl2, m0, l0, il0, col, n_real);
   };
 
   // pass 2 (per 64 columns of hd): pm, ctx; with the first chunk p_bar,
@@ -2480,19 +2602,21 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    ring_start(true);
+    ring.start(true);
     for (int t = 0; t < tiles; ++t) {
-      const bf16* k = ring_wait(t, tiles, true);
+      const bf16* k = ring.wait(t, tiles, true);
       const bf16* v = k + kKeyTile * ld;
       const int c0 = t * kKeyTile, kc = vf::imin(kKeyTile, n - c0);
       if (!active) {
-        ring_done(t, tiles, true);
+        ring.done(t, tiles, true);
         continue;
       }
       unsigned kb = ~0u;
       if (drop_p) {
         unsigned* word = kbits + t * kBThreads + tid;
-        kb = first || !pl.keep ? draw(c0) : *word;
+        kb = first || !pl.keep
+                 ? kt_keep<4>(pkey, b, rw0, rw1, n_real, a.drop.th_p, c0)
+                 : *word;
         if (first && pl.keep) *word = kb;
       }
       // the tile a k-step (16 keys) at a time
@@ -2537,7 +2661,7 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
         pv_step<kGeneric>(acc, a4, v + hc, ld, kk, wc);
       }
       if (first) warp_store(pg + (size_t)wr * n + c0, n, stg, wrows, kc);
-      ring_done(t, tiles, true);
+      ring.done(t, tiles, true);
     }
     if (first) {
       dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
@@ -2561,17 +2685,19 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
-    ring_start(true);
+    ring.start(true);
     for (int t = 0; t < tiles; ++t) {
-      const bf16* k = ring_wait(t, tiles, true);
+      const bf16* k = ring.wait(t, tiles, true);
       const bf16* v = k + kKeyTile * ld;
       const int c0 = t * kKeyTile, kc = vf::imin(kKeyTile, n - c0);
       if (!active) {
-        ring_done(t, tiles, true);
+        ring.done(t, tiles, true);
         continue;
       }
       unsigned kb = ~0u;
-      if (drop_p) kb = pl.keep ? kbits[t * kBThreads + tid] : draw(c0);
+      if (drop_p)
+        kb = pl.keep ? kbits[t * kBThreads + tid]
+                     : kt_keep<4>(pkey, b, rw0, rw1, n_real, a.drop.th_p, c0);
 #pragma unroll 1
       for (int kk = 0; kk < 4; ++kk) {
         float s[2][4], pb[2][4];
@@ -2607,13 +2733,288 @@ __global__ void __launch_bounds__(kBThreads) vft_attn_kt_bwd(AttnArgs a) {
         pv_step<kGeneric>(acc, a4, k + hc, ld, kk, wc);
       }
       if (first) warp_store(sbg + (size_t)wr * n + c0, n, stg, wrows, kc);
-      ring_done(t, tiles, true);
+      ring.done(t, tiles, true);
     }
     if (active) {
       stage_acc(stg, acc, a.qk_scale, wc);
       warp_store(static_cast<bf16*>(a.qkvb) + (row0 + wr) * 3 * d + h * hd +
                      hc,
                  3 * d, stg, wrows, wc);
+    }
+  }
+}
+
+// Puts (v, c) into a lane's top list (kk entries of stride kBThreads in
+// shared memory, value descending) where v is strictly greater than its
+// kk-th value, behind the entries equal to v, the last entry falling off.
+// c is past every column of the list, so this keeps ties in column order.
+__device__ __forceinline__ void lane_insert(float* tv, int* tc, int kk,
+                                            float v, int c) {
+  constexpr int S = kBThreads;
+  if (!(v > tv[(kk - 1) * S])) return;
+  int i = kk - 1;
+  for (; i > 0 && tv[(i - 1) * S] < v; --i) {
+    tv[i * S] = tv[(i - 1) * S];
+    tc[i * S] = tc[(i - 1) * S];
+  }
+  tv[i * S] = v;
+  tc[i * S] = c;
+}
+
+// The warp's staged keep flags (bf16 1 or 0; the first `rows` of 16,
+// `cols` columns) to dst (f32, stride ldd) as sc or 0, 16 bytes a store.
+__device__ __forceinline__ void warp_store_mask(float* dst, size_t ldd,
+                                                const bf16* st, int rows,
+                                                int cols, float sc) {
+  const int lane = threadIdx.x % 32, per = cols / 8;
+  __syncwarp();
+  for (int i = lane; i < rows * per; i += 32) {
+    const int r = i / per, c = i % per * 8;
+    const uint4 f = ld16(st + r * kLdStg + c);
+    const unsigned w[4] = {f.x, f.y, f.z, f.w};
+    unsigned o[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[2 * e] = __float_as_uint(bf_lo(w[e]) * sc);
+      o[2 * e + 1] = __float_as_uint(bf_hi(w[e]) * sc);
+    }
+    st16(dst + r * ldd + c, make_uint4(o[0], o[1], o[2], o[3]));
+    st16(dst + r * ldd + c + 4, make_uint4(o[4], o[5], o[6], o[7]));
+  }
+  __syncwarp();
+}
+
+// One CTA per (64-row query tile, head, image): the forward's softmax
+// attention past kMaxCols padded tokens (see above). kDrop: the dropout
+// instance (keep bits of mask_p, drawn as vft_attn_kt_bwd draws them);
+// kGeneric: a head width other than 64 (Q read from shared memory, ctx in
+// 64-column chunks). Modes: a.mode (plain, JaSMin statistics, the map),
+// the map, the statistics and mask_p from the first chunk.
+template <bool kDrop, bool kGeneric>
+__global__ void __launch_bounds__(kBThreads, kGeneric ? 1 : 4)
+    vft_attn_kt_fwd(AttnArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n_pad, n_real = a.n_real, d = a.d;
+  const int hd = kGeneric ? d / a.heads : kKeyTile;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kKeyTile;
+  const KtfPlan pl = ktf_plan(hd);
+  const int ld = pl.ld, tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  bf16* qs = reinterpret_cast<bf16*>(smem + pl.q);
+  bf16* stg = reinterpret_cast<bf16*>(smem + pl.stg) + warp * 16 * kLdStg;
+  const bool jas = a.mode == kJasmin, map = a.mode == kMap;
+  const int kk = a.jas_kk;
+  // the lanes' top lists: values, then columns; this thread's of its
+  // rows hf at lv + hf * kk * kBThreads (entries kBThreads apart)
+  float* lv = reinterpret_cast<float*>(smem + pl.top);
+  int* lc = reinterpret_cast<int*>(lv + 2 * kk * kBThreads);
+  float *tv0 = lv + tid, *tv1 = tv0 + kk * kBThreads;
+  int *tc0 = lc + tid, *tc1 = tc0 + kk * kBThreads;
+  const size_t row0 = (size_t)b * n, bh = (size_t)b * a.heads + h;
+  const bf16* qkv = static_cast<const bf16*>(a.qkv);
+  const int wr = q0 + 16 * warp;  // the warp's first query row
+  const bool active = wr < n;
+  const int wrows = vf::imin(16, n - wr);
+  const int rw0 = wr + g, rw1 = wr + g + 8;  // the thread's two rows
+  const bool real0 = rw0 < n_real, real1 = rw1 < n_real;
+  const int tiles = (n + kKeyTile - 1) / kKeyTile;
+  const float tl2 = a.qk_scale * 1.4426950408889634f;
+  const bool drop_p = kDrop && a.drop.th_p;
+  const float sc = drop_p ? a.drop.sc_p : 1.0f;
+  const unsigned pkey = vf::site_key(a.drop.seed, vf::kSiteP + h);
+  const bool masks = drop_p && a.mask_p != nullptr;
+  // the map's and mask_p's rows of the warp from column c0 (taken from
+  // the arguments where used: two 64-bit pointers fewer in the loop)
+  auto at = [&](auto* base, int c0) { return base + (bh * n + wr) * n + c0; };
+
+  // Q of the query tile (rows >= n, and with resid padded rows, as zeros)
+  tile_vecs(hd, [&](int r, int c) {
+    const int qi = q0 + r;
+    cp16(qs + r * ld + c,
+         qkv + (row0 + vf::imin(qi, n - 1)) * 3 * d + h * hd + c,
+         qi < n && !(a.resid && qi >= n_real));
+  });
+  cp_commit();
+  if (jas)
+    for (int i = 0; i < kk; ++i) {
+      tv0[i * kBThreads] = tv1[i * kBThreads] = -INFINITY;
+      tc0[i * kBThreads] = tc1[i * kBThreads] = 1 << 30;
+    }
+  cp_wait_all();
+  __syncthreads();
+  unsigned qa[4][4];
+  if constexpr (!kGeneric) {
+    const int o = (16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld +
+                  8 * (lane >> 4);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) ldsm4<false>(qa[ks], qs + o + 16 * ks);
+  }
+  const bf16* qw = qs + 16 * warp * ld;
+
+  KvRing ring = {smem + pl.ring, pl.slot, qkv, row0, pl.stages, ld, hd, n,
+                 n_real, d, h, 0, a.resid != 0};
+  // pass 1: each row's max and sum over the real keys
+  float m0, m1, l0, l1;
+  kt_pass1<kGeneric>(ring, active, qa, qw, tl2, m0, m1, l0, l1);
+  const float il0 = 1.0f / l0, il1 = 1.0f / l1;
+
+  // pass 2 (per 64 columns of hd): p, pm and ctx; with the first chunk
+  // the map, mask_p and the statistics. thr: the lane's kk-th value of
+  // the row when the tile began (values not above it cannot enter), js:
+  // the lane's part of the row's clipped sum.
+  float thr0 = -INFINITY, thr1 = -INFINITY, js0 = 0.0f, js1 = 0.0f;
+  // a tile's candidates: bit 4 j + 2 hf + e of cm, their p pairs (j, hf)
+  // staged as bf16 in the warp's staging tile, word 32 (2 j + hf) + lane
+  unsigned* cw = reinterpret_cast<unsigned*>(stg) + lane;
+  for (int hc = 0; hc < hd; hc += kKeyTile) {
+    const bool first = !kGeneric || hc == 0;
+    const int wc = vf::imin(kKeyTile, hd - hc);
+    float acc[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+    ring.start(true);
+    for (int t = 0; t < tiles; ++t) {
+      const bf16* k = ring.wait(t, tiles, true);
+      const bf16* v = k + kKeyTile * ld;
+      const int c0 = t * kKeyTile, kc = vf::imin(kKeyTile, n - c0);
+      if (!active) {
+        ring.done(t, tiles, true);
+        continue;
+      }
+      const unsigned kb =
+          drop_p ? kt_keep<2>(pkey, b, rw0, rw1, n_real, a.drop.th_p, c0)
+                 : ~0u;
+      unsigned cm = 0u;
+      // the tile in halves of 32 keys (the scores of a whole tile beside
+      // ctx and Q exceed the 128 registers that four CTAs an SM allow)
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float s[4][4];
+        qk_tile<kGeneric, 4>(s, qa, qw, k + 32 * half * ld, ld, hd);
+#pragma unroll
+        for (int ks2 = 0; ks2 < 2; ++ks2) {
+          const int ks = 2 * half + ks2;
+          unsigned a4[4];
+#pragma unroll
+          for (int jh = 0; jh < 2; ++jh) {
+            const int j = 2 * ks + jh, col = c0 + 8 * j + 2 * t4;
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const bool real = hf ? real1 : real0;
+              float pr[2], pm[2];
+              unsigned pc = 0u;  // this pair's candidates
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float sv = s[2 * ks2 + jh][2 * hf + e];
+                pr[e] = rbf(hf ? kt_p(sv, tl2, m1, l1, il1, col + e, n_real)
+                               : kt_p(sv, tl2, m0, l0, il0, col + e, n_real));
+                const float mk = (kb >> (4 * j + 2 * hf + e)) & 1u ? sc : 0.0f;
+                pm[e] = kDrop ? pr[e] * mk : pr[e];
+                if (jas && first) {
+                  const bool in = real && col + e < n_real;
+                  const float cl =
+                      in ? fminf(fmaxf(pr[e], 1e-12f), 1.0f) : 0.0f;
+                  if (hf)
+                    js1 += cl;
+                  else
+                    js0 += cl;
+                  pc |= (unsigned)(in && pr[e] > (hf ? thr1 : thr0)) << e;
+                }
+              }
+              a4[hf + 2 * jh] = pack2(pm[0], pm[1]);
+              if (map && first)
+                *reinterpret_cast<unsigned*>(stg + (g + 8 * hf) * kLdStg +
+                                             8 * j + 2 * t4) =
+                    real ? pack2(pr[0], pr[1]) : 0u;
+              if (jas && first) {
+                cm |= pc << (4 * j + 2 * hf);
+                cw[32 * (2 * j + hf)] = pack2(pr[0], pr[1]);
+              }
+            }
+          }
+          pv_step<kGeneric>(acc, a4, v + hc, ld, ks, wc);
+        }
+      }
+      // the statistics: this lane's candidates into its lists, in column
+      // order (as many steps as the warp's busiest lane has candidates)
+      if (jas && first) {
+        for (; cm != 0u; cm &= cm - 1u) {
+          const int pos = __ffs(cm) - 1, hf = (pos >> 1) & 1;
+          const unsigned w = cw[32 * (pos >> 1)];
+          lane_insert(hf ? tv1 : tv0, hf ? tc1 : tc0, kk,
+                      pos & 1 ? bf_hi(w) : bf_lo(w),
+                      c0 + 8 * (pos >> 2) + 2 * t4 + (pos & 1));
+        }
+        thr0 = tv0[(kk - 1) * kBThreads];
+        thr1 = tv1[(kk - 1) * kBThreads];
+        __syncwarp();  // the staging tile's next writers
+      }
+      if (map && first)
+        warp_store(at(static_cast<bf16*>(a.pmap), c0), n, stg, wrows, kc);
+      if (masks && first) {
+        __syncwarp();
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            *reinterpret_cast<unsigned*>(stg + (g + 8 * hf) * kLdStg + 8 * j +
+                                         2 * t4) =
+                pack2((kb >> (4 * j + 2 * hf)) & 1u ? 1.0f : 0.0f,
+                      (kb >> (4 * j + 2 * hf + 1)) & 1u ? 1.0f : 0.0f);
+        warp_store_mask(at(a.mask_p, c0), n, stg, wrows, kc, sc);
+      }
+      ring.done(t, tiles, true);
+    }
+    if (active) {
+      stage_acc(stg, acc, 1.0f, wc);
+      warp_store(static_cast<bf16*>(a.ctx) + (row0 + wr) * d + h * hd + hc, d,
+                 stg, wrows, wc);
+    }
+  }
+  if (jas && active) {
+    js0 += __shfl_xor_sync(0xffffffffu, js0, 1);
+    js0 += __shfl_xor_sync(0xffffffffu, js0, 2);
+    js1 += __shfl_xor_sync(0xffffffffu, js1, 1);
+    js1 += __shfl_xor_sync(0xffffffffu, js1, 2);
+    __syncwarp();  // the quad's lists
+    if (t4 == 0) {
+      // the row's ranks: the four lanes' lists merged, the larger value
+      // first, then the earlier column
+      float* st = a.stats + bh * 5 * n;
+      int* ix = a.idx + bh * 4 * n;
+      const int ranks[4] = {0, 1, kk - 2, kk - 1};
+#pragma unroll 1
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = hf ? rw1 : rw0;
+        const bool real = hf ? real1 : real0;
+        const float* qv = (hf ? tv1 : tv0);
+        const int* qc = (hf ? tc1 : tc0);
+        int at[4] = {0, 0, 0, 0};
+        for (int r = 0; r < kk; ++r) {
+          float bv = -INFINITY;
+          int bc = 1 << 30, bq = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float v = at[q] < kk ? qv[at[q] * kBThreads + q] : -INFINITY;
+            const int c = at[q] < kk ? qc[at[q] * kBThreads + q] : 1 << 30;
+            if (v > bv || (v == bv && c < bc)) {
+              bv = v;
+              bc = c;
+              bq = q;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 4; ++q) at[q] += bq == q;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (r == ranks[i]) {
+              st[i * n + row] = real ? bv : 0.0f;
+              ix[i * n + row] = real ? bc : 0;
+            }
+        }
+        st[4 * n + row] = real ? (hf ? js1 : js0) : 0.0f;
+      }
     }
   }
 }
@@ -2894,6 +3295,11 @@ AttnArgs attn_args(const TiledArgs& t) {
 // backward took without a profiler (which can drop a kernel's events).
 static unsigned long long kt_bwd_launches[4];
 
+// Launches of the key-tiled forward attention CTAs, counted as above: [0]
+// vft_attn_kt_fwd (the bf16 softmax forward), [1] vft_attn_kt without
+// kBwd (f32 and L2). vft_kt_fwd_launches reads them.
+static unsigned long long kt_fwd_launches[2];
+
 // The key-tiled attention CTA past kMaxCols padded tokens; its JaSMin
 // mode keeps at most kMaxJas extraction passes.
 template <typename T, bool kBwd, bool kDrop, bool kL2>
@@ -2908,7 +3314,28 @@ int attn_kt(const TiledArgs& t, cudaStream_t st) {
   const dim3 grid((t.n_pad + t.mt - 1) / t.mt, t.heads, t.batch);
   vft_attn_kt<T, kBwd, kDrop, kL2><<<grid, vf::kThreads, smem, st>>>(
       attn_args(t));
-  if (kBwd) ++kt_bwd_launches[2];
+  ++(kBwd ? kt_bwd_launches[2] : kt_fwd_launches[1]);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 softmax forward's CTA past kMaxCols padded tokens
+// (vft_attn_kt_fwd; kGeneric for head widths other than 64), on a grid of
+// 64-row query tiles; its JaSMin mode keeps at most kMaxJas entries a row.
+template <bool kDrop>
+int attn_kt_fwd(const TiledArgs& t, cudaStream_t st) {
+  if (t.mode == kJasmin && t.jas_kk > kMaxJas)
+    return (int)cudaErrorInvalidValue;
+  const int hd = t.d / t.heads;
+  const KtfPlan pl = ktf_plan(hd);
+  const size_t smem = pl.top + (t.mode == kJasmin ? lane_lists(t.jas_kk) : 0);
+  void (*kernel)(AttnArgs) = hd != 64 ? &vft_attn_kt_fwd<kDrop, true>
+                                      : &vft_attn_kt_fwd<kDrop, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((t.n_pad + kKeyTile - 1) / kKeyTile, t.heads, t.batch);
+  kernel<<<grid, kBThreads, smem, st>>>(attn_args(t));
+  ++kt_fwd_launches[0];
   return (int)cudaGetLastError();
 }
 
@@ -2930,15 +3357,19 @@ int attn_kt_bwd(const TiledArgs& t, cudaStream_t st) {
 }
 
 // The attention CTAs of one evaluation or backward: whole rows up to
-// kMaxCols padded tokens, key tiles past that (the bf16 softmax backward
-// on vft_attn_kt_bwd).
+// kMaxCols padded tokens, key tiles past that (bf16 softmax on
+// vft_attn_kt_fwd and vft_attn_kt_bwd).
 template <typename T, bool kBwd, bool kDrop, bool kL2 = false>
 int attn(const TiledArgs& t, cudaStream_t st) {
   if (t.n_pad > kMaxCols) {
-    if constexpr (kBwd && !kL2 && std::is_same<T, bf16>::value)
-      return attn_kt_bwd<kDrop>(t, st);
-    else
+    if constexpr (!kL2 && std::is_same<T, bf16>::value) {
+      if constexpr (kBwd)
+        return attn_kt_bwd<kDrop>(t, st);
+      else
+        return attn_kt_fwd<kDrop>(t, st);
+    } else {
       return attn_kt<T, kBwd, kDrop, kL2>(t, st);
+    }
   }
   const int hd = t.d / t.heads;
   const size_t smem =
@@ -3191,12 +3622,12 @@ bool shape_ok(int n_pad, int n_real, int d, int heads, int dh) {
 // backward CTA (of the dropout instance with `drop`, of the L2 instance
 // with `l2`) fits the shared memory; past kMaxCols padded tokens, of the
 // key-tiled instances (whose CTAs, forward, backward and key tile, must
-// all fit). There the bf16 softmax backward runs vft_attn_kt_bwd and
+// all fit). There bf16 softmax runs vft_attn_kt_fwd, vft_attn_kt_bwd and
 // vft_attn_keys_kt2, whose shared memory does not depend on mt (with
-// `drop` it grows with n_pad by the keep bits); the others' does not grow
-// with n_pad. Returns 0 with the plan, 1 when the shape has none (the
-// wrappers raise). kernels/tiled.py::tiled_plan_rule repeats this rule in
-// Python.
+// `drop` the backward's grows with n_pad by the keep bits); the others'
+// does not grow with n_pad. Returns 0 with the plan, 1 when the shape has
+// none (the wrappers raise). kernels/tiled.py::tiled_plan_rule repeats
+// this rule in Python.
 int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
          bool drop, bool l2, int* mt_out, int* smem_fwd_out,
          int* smem_bwd_out, int* smem_keys_out) {
@@ -3205,7 +3636,8 @@ int plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
   if (n_pad > kMaxCols) {
     const bool regs = tbytes == 2 && !l2;
     for (int mt : kQTiles) {
-      const size_t fwd = kt_plan(hd, mt, tbytes, false).total;
+      const size_t fwd =
+          regs ? ktf_plan(hd).total : kt_plan(hd, mt, tbytes, false).total;
       const size_t bwd = regs ? ktb_plan(hd, n_pad, drop).total
                               : kt_plan(hd, mt, tbytes, true).total;
       const size_t keys = regs ? kKeybSmem : key_kt_plan(hd, mt, tbytes).total;
@@ -3242,6 +3674,11 @@ extern "C" void vft_kt_bwd_launches(unsigned long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = vft::kt_bwd_launches[i];
 }
 
+// In every library that includes this file: vft::kt_fwd_launches so far.
+extern "C" void vft_kt_fwd_launches(unsigned long long* out) {
+  for (int i = 0; i < 2; ++i) out[i] = vft::kt_fwd_launches[i];
+}
+
 // vector_field_bwd_split.cu and macaron_tiled.cu include this file with
 // VFT_KERNELS_ONLY for its kernels and launch helpers; they have entry
 // points of their own.
@@ -3268,6 +3705,20 @@ int vft_forward(int tbytes, const TiledArgs* args, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tbytes == 2 ? vft::forward<bf16>(*args, st)
                      : vft::forward<float>(*args, st);
+}
+
+// The bf16 softmax forward's attention launch alone, on args->qkv (ctx
+// and, by mode, the statistics or the map out; args->mt the plan's): with
+// kt vft_attn_kt_fwd at any n_pad that is a multiple of 16, whole-row
+// shapes included, else the CTA vft::attn chooses. For measurement; no
+// evaluation calls it. Returns as vft_forward.
+int vft_attn_fwd_only(int kt, const TiledArgs* args, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vft::has_drop(*args))
+    return kt ? vft::attn_kt_fwd<true>(*args, st)
+              : vft::attn<vf::bf16, false, true>(*args, st);
+  return kt ? vft::attn_kt_fwd<false>(*args, st)
+            : vft::attn<vf::bf16, false, false>(*args, st);
 }
 
 // One backward on `stream`; returns as vft_forward.

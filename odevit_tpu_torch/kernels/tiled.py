@@ -11,11 +11,11 @@ stage-advance modes) and ``_vf_bwd_kernel``. Past 256 padded tokens
 (:func:`key_tiled`; the TS-Base student at 384 px: 587 tokens padded to
 592) the route's attention CTAs stream the keys in tiles of 64, so any
 n_pad that is a multiple of 16 has a plan; the wrappers count those
-launches as ``<name>_kt``. There the bf16 softmax backward runs
-``vft_attn_kt_bwd`` and ``vft_attn_keys_kt2`` (scores and accumulators in
-``mma.sync`` registers), the f32 and L2 backwards and every forward the
-first key-tiled CTAs. The JaSMin statistics there take at most 15
-extraction passes (k <= 15). The wrappers in
+launches as ``<name>_kt``. There bf16 softmax runs ``vft_attn_kt_fwd``
+(the forward), ``vft_attn_kt_bwd`` and ``vft_attn_keys_kt2`` (the
+backward), with scores and accumulators in ``mma.sync`` registers; the f32
+and L2 instances run the first key-tiled CTAs. The JaSMin statistics
+there take at most 15 extraction passes (k <= 15). The wrappers in
 ``vector_field.py`` and ``vector_field_bwd.py`` choose the route; this
 module binds the library and allocates the scratch the kernels use.
 
@@ -184,6 +184,23 @@ def _ktb_smem(hd, n_pad, drop):
     return end + bits if drop and end + bits <= _MAX_SMEM else end
 
 
+# kLaneLists: vft_attn_kt_fwd's JaSMin lists at their largest, kMaxJas
+# values and columns of two rows for each of its threads
+_LANE_LISTS = 2 * 2 * _MAX_JAS * _B_THREADS * 4
+
+
+def _ktf_smem(hd):
+    # ktf_plan of csrc/vector_field_tiled.cu (vft_attn_kt_fwd, bf16): Q,
+    # the staging tiles, a K/V ring of two slots (one where two do not fit
+    # beside the lists), the lanes' JaSMin lists at kk = kMaxJas (a JaSMin
+    # launch takes kk entries, the other modes none); neither n_pad nor
+    # dropout changes it
+    tile = _KEY_TILE * (hd + 8) * 2
+    ring = tile + _KEY_TILE * _LD_STG * 2
+    stages = 2 if ring + 4 * tile + _LANE_LISTS <= _MAX_SMEM else 1
+    return ring + stages * 2 * tile + _LANE_LISTS
+
+
 # kKeybSmem: vft_attn_keys_kt2's two slots of four 64-row bf16 tiles
 _KEYB_SMEM = 2 * 4 * _KEY_TILE * _LD_STG * 2
 
@@ -197,13 +214,13 @@ def tiled_plan_rule(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
     tb = torch.empty((), dtype=dtype).element_size()
     hd = d // num_heads
     if key_tiled(n_pad):
-        # the bf16 softmax backward's CTAs do not depend on mt
+        # the bf16 softmax CTAs do not depend on mt
         regs = tb == 2 and not l2
         for mt in _Q_TILES:
-            plan = (mt, _kt_smem(hd, mt, tb, False),
-                    _ktb_smem(hd, n_pad, drop) if regs
-                    else _kt_smem(hd, mt, tb, True),
-                    _KEYB_SMEM if regs else _key_kt_smem(hd, mt, tb))
+            plan = ((mt, _ktf_smem(hd), _ktb_smem(hd, n_pad, drop),
+                     _KEYB_SMEM) if regs else
+                    (mt, _kt_smem(hd, mt, tb, False),
+                     _kt_smem(hd, mt, tb, True), _key_kt_smem(hd, mt, tb)))
             if max(plan[1:]) <= _MAX_SMEM:
                 return plan
         return None

@@ -1,11 +1,13 @@
 """The key-tiled plans past 256 padded tokens, now that the bf16 softmax
-backward runs ``vft_attn_kt_bwd`` and ``vft_attn_keys_kt2``
-(``csrc/vector_field_tiled.cu``): ``tiled_plan_rule``'s answers frozen at
-the 261-, 587- and 1,000-token shapes of the TS-Base width (D=768, 12
-heads, MLP ratio 1). bf16 ± dropout take the new CTAs' shared memory (the
-dropout instance keeps its keep bits, 512 bytes per 64-key tile); f32 and
-L2 keep the first key-tiled CTAs' numbers; no bf16 shape that had a plan
-before the redesign loses it. Needs no JAX: the rule is Python, and the
+backward runs ``vft_attn_kt_bwd`` and ``vft_attn_keys_kt2`` and the bf16
+softmax forward ``vft_attn_kt_fwd`` (``csrc/vector_field_tiled.cu``):
+``tiled_plan_rule``'s answers frozen at the 261-, 587- and 1,000-token
+shapes of the TS-Base width (D=768, 12 heads, MLP ratio 1). bf16 ±
+dropout take the register CTAs' shared memory (the backward's dropout
+instance keeps its keep bits, 512 bytes per 64-key tile; the forward's
+88,064 bytes do not change with n_pad or dropout); f32 and L2 keep the
+first key-tiled CTAs' numbers; no bf16 shape that had a plan before the
+backward's redesign loses it. Needs no JAX: the rule is Python, and the
 card holds it against ``vft_plan`` (``chip_smoke.py``,
 ``long_plans_agree``)."""
 
@@ -21,12 +23,12 @@ WIDTH = (768, 12, 768)   # D, heads, dh
 
 # (query-tile rows, forward, backward and key-tile CTA bytes)
 BF16 = {
-    (272, False): (64, 81664, 64512, 73728),
-    (592, False): (64, 81664, 64512, 73728),
-    (1024, False): (64, 81664, 64512, 73728),
-    (272, True): (64, 81664, 67072, 73728),
-    (592, True): (64, 81664, 69632, 73728),
-    (1024, True): (64, 81664, 72704, 73728),
+    (272, False): (64, 88064, 64512, 73728),
+    (592, False): (64, 88064, 64512, 73728),
+    (1024, False): (64, 88064, 64512, 73728),
+    (272, True): (64, 88064, 67072, 73728),
+    (592, True): (64, 88064, 69632, 73728),
+    (1024, True): (64, 88064, 72704, 73728),
 }
 # the first key-tiled CTAs' plans, which the f32 and L2 instances keep
 FIRST = {torch.float32: (64, 114432, 141056, 69888),
