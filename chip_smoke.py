@@ -13,7 +13,12 @@ Phases:
      the C one; every training phase below checks by the C counters that
      each bf16 backward launched the bf16 kernel once (twice a Macaron
      backward), each f32 ViTODE backward the f32 kernel once, and the f32
-     Macaron backwards neither;
+     Macaron backwards neither; ``bf16_gemm_vs_plain``: the tiled route's
+     bf16 products alone (``vft_gemm_wgmma``) at the 224 px, 384 px and
+     ratio-4 shapes against float64 and ``torch.matmul``, every epilogue
+     at a ragged shape; every bf16 tiled training and serving phase
+     checks by its C counter that the route launched it as many times as
+     its wrappers say;
   2. kernel vs plain: ``vf_eval`` against ``vf_eval_plain`` at the serving
      shape (B=64, 69 tokens padded to 80, D=192, 3 heads, dh=768), modes
      plain / euler / base, in bf16 and f32, and with garbage and NaN in
@@ -746,7 +751,7 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    gone = OLD_WGRADS + OLD_F32_CTA + OLD_KT_BF16
+    gone = OLD_WGRADS + OLD_F32_CTA + OLD_KT_BF16 + (OLD_GEMM_BF16,)
     old = [k for k, _, _ in rows if any(o in k for o in gone)]
     check(not old, f"profiled step ran {gone}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -794,6 +799,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
@@ -806,6 +812,8 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        gemm = (gemm_launches() - gemm0 if path == "kernels"
+                else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
@@ -837,6 +845,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
+            "gemm_launches": gemm,
             "f32_cta_launches": cta,
             "first_grad": first_grad}
         del model, state, step
@@ -942,6 +951,53 @@ def wgrad_expected(launches: dict) -> int:
     return n
 
 
+def gemm_launches() -> int:
+    """``vft_gemm_wgmma``'s launches so far, by the C counters of every
+    library that compiles it (``kernels/bf16_gemm.py``)."""
+    from odevit_tpu_torch.kernels.bf16_gemm import wgmma_launches
+    return wgmma_launches()
+
+
+# The bf16 products (vft_gemm_wgmma launches) of one launch of each tiled
+# wrapper (csrc/vector_field_tiled.cu, vector_field_bwd_split.cu): the
+# forward's qkv, h and output products, with dropout at the MLP or
+# projection sites the output in two (attn_o, then the masked sum); the
+# backward's h1, qkv, h1_bar, cb, a_bar and m_bar, with the stash's
+# residuals no h1 or qkv; the split halves' m_bar and qkv, cb, a_bar (the
+# stash: no qkv); a tiled Macaron evaluation's six and backward's 25
+# launches' eleven are f32 in every cell (0 here). The same past 256
+# padded tokens (``_kt``). The cells' dropout rates are all nonzero.
+GEMMS_PER_LAUNCH = {
+    "vf_eval_tiled": 3, "vf_eval_jasmin_tiled": 3, "vf_eval_attn": 3,
+    "vf_eval_euler_tiled": 3, "vf_eval_base_tiled": 3,
+    "vf_eval_l2_tiled": 3, "vf_eval_jasmin_l2_tiled": 3,
+    "vf_eval_stash_tiled": 3, "vf_eval_jasmin_stash_tiled": 3,
+    "vf_eval_tiled_drop": 4, "vf_eval_jasmin_tiled_drop": 4,
+    "vf_eval_attn_drop": 4, "vf_eval_masks": 4,
+    "vf_bwd_tiled": 6, "vf_bwd_tiled_drop": 6, "vf_bwd_l2_tiled": 6,
+    "vf_bwd_resid_tiled": 4,
+    "vf_bwd_mlp": 1, "vf_bwd_mlp_drop": 1, "vf_bwd_mlp_resid": 1,
+    "vf_bwd_attn": 3, "vf_bwd_attn_drop": 3, "vf_bwd_attn_resid": 2}
+GEMMS_PER_LAUNCH.update({k + "_kt": v for k, v in GEMMS_PER_LAUNCH.items()})
+
+
+def gemm_expected(launches: dict) -> int:
+    """The ``vft_gemm_wgmma`` launches that the bf16 wrappers' launches
+    ``launches`` make (``GEMMS_PER_LAUNCH``)."""
+    return sum(GEMMS_PER_LAUNCH.get(name, 0) * count
+               for name, count in launches.items())
+
+
+def check_gemm_route(what: str, launches: dict, got: int, bf16: bool = True):
+    """The route's bf16 products: ``vft_gemm_wgmma`` launched ``got``
+    times by its C counter, as ``launches`` say for a bf16 run, not at all
+    for an f32 one."""
+    want = gemm_expected(launches) if bf16 else 0
+    check(got == want, f"{what}: {got} vft_gemm_wgmma launches, want "
+          f"{want}")
+    return got
+
+
 def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
     """The kernel path against the plain path (losses, first gradient),
     its launches per step against ``want``, and the route of its weight
@@ -966,6 +1022,9 @@ def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
           f"weight-product launches, want {want_w}")
     # an f32 ViTODE step launches vf_kernel_f32 / vfb_rows_f32 once per
     # one-CTA forward / backward (the C counters); any other step neither
+    # the tiled route's bf16 products: vft_gemm_wgmma by its C counter
+    check_gemm_route(name, k["launches"], k["gemm_launches"],
+                     wgrad == "bf16")
     want_c = (f32_cta_expected(k["launches"]) if wgrad == "f32"
               else {"fwd": 0, "bwd": 0})
     check(k["f32_cta_launches"] == want_c, f"{name}: the f32 one-CTA "
@@ -1798,6 +1857,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
@@ -1810,6 +1870,8 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        gemm = (gemm_launches() - gemm0 if path == "kernels"
+                else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -1846,6 +1908,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                          "backward": ev[2].elapsed_time(ev[3]),
                          "optimizer": ev[3].elapsed_time(ev[4])},
             "launches": launches, "wgrad_launches": wgrad,
+            "gemm_launches": gemm,
             "f32_cta_launches": cta,
             "first_grad": first_grad}
         del model, state, step
@@ -3119,11 +3182,13 @@ def phase_serve_224(rng):
     for cell, (solver, steps, want_launches) in SERVE224_CELLS.items():
         model = serve_student(solver, steps)
         reset_launch_counts()
+        gemm0 = gemm_launches()
         got = fast_forward(model, x)["logits"]
         torch.cuda.synchronize()
         launches = {k: v for k, v in launch_counts.items() if v}
         check(launches == want_launches,
               f"{cell}: launches {launches}, want {want_launches}")
+        gemms = check_gemm_route(cell, launches, gemm_launches() - gemm0)
         want = fast_forward(model, x, plain=True)["logits"]
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"{cell}: non-finite logits")
@@ -3139,6 +3204,7 @@ def phase_serve_224(rng):
         evals = sum(want_launches.values())
         report[cell] = {
             "solver": f"{solver}-{steps}", "launches": launches,
+            "gemm_launches": gemms,
             "max_abs_dlogit": (got - want).abs().max().item(),
             "rel_err": err, "tol": TOL_LOGITS, "top1_agreement": top1,
             "ms_per_forward": ms, "img_per_s": b / ms * 1e3,
@@ -4206,6 +4272,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
         if path == "kernels":
             reset_launch_counts()
             wgrad0 = wgrad_launches()
+            gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
             mac0 = f32_launches()
         losses, ms, metrics, first_grad = [], [], None, None
@@ -4219,6 +4286,8 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                 first_grad = grad_vector(model)
         launches = dict(launch_counts) if path == "kernels" else None
         wgrad = wgrad_since(wgrad0) if path == "kernels" else None
+        gemm = (gemm_launches() - gemm0 if path == "kernels"
+                else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
         mac = f32_launches() - mac0 if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -4244,6 +4313,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
+            "gemm_launches": gemm,
             "f32_cta_launches": cta, "mac_kernel_f32_launches": mac,
             "first_grad": first_grad}
         del model, state, step
@@ -4649,6 +4719,286 @@ def phase_tf32_gemm_vs_plain():
     return cell
 
 
+# vft_gemm_wgmma alone (csrc/vector_field_tiled.cu, kernels/bf16_gemm.py):
+# the bf16 products of the tiled route at three cells' shapes, (rows, D,
+# dh): 224 px B=64 x 208 padded rows (tsref-distill-b64-bf16, the 224 px
+# serving and L2 cells), 384 px B=64 x 592 (the tsbase384 cells), ratio 4
+# (tsbase-r4-distill-b64-bf16)
+BF16_GEMM_CELLS = {"224px": (64 * 208, 768, 768),
+                   "384px": (64 * 592, 768, 768),
+                   "r4": (64 * 208, 768, 3072)}
+# the cells whose main path the kernels line reads each shape's launches
+# from
+BF16_GEMM_PATHS = {"224px": "tsref-distill-b64-bf16",
+                   "384px": "tsbase384-free-train-drop0.1-b64-bf16",
+                   "r4": "tsbase-r4-distill-b64-bf16"}
+
+
+def bf16_gemm_products(d: int, dh: int):
+    """The route's products at width d, hidden dh: (label, N, the pairs'
+    K, B stored [N, K], epilogue, the outputs the route has it write) of
+    the forward (qkv, h, the two-pair output with its Euler epilogue) and
+    the backward (h1_bar, cb, a_bar, m_bar)."""
+    return (("qkv", 3 * d, (d,), False, "round", ("out",)),
+            ("h", dh, (d,), False, "gelu", ("out",)),
+            ("out", d, (d, dh), False, "advance", ("out",)),
+            ("h1_bar", dh, (d,), True, "gelu_grad", ("out",)),
+            ("cb", d, (d,), True, "round", ("out",)),
+            ("a_bar", d, (3 * d,), True, "f32", ("out32",)),
+            ("m_bar", d, (dh,), True, "f32", ("out32",)))
+
+
+# M and N not multiples of the tiles, K ending inside a stage; rows of 208
+# padded to 197 real for the padded-row epilogues
+BF16_RAGGED = dict(m=3 * 208, n=400, k=(80, 48), n_pad=208, n_real=197)
+# Against a float64 product of the same bf16 operands, relative to
+# max|ref|: outputs rounded to bf16 err by half a bf16 ulp (2^-9 of the
+# value, below 2e-3 of the scale; gelu_drop rounds twice); the f32 ones by
+# the tensor cores' sums over K <= 3,840 in one accumulator, sound runs
+# below 1e-5 (one 64-deep stage dropped would read ~1e-2).
+TOL_BF16_GEMM_ROUNDED = 8e-3
+TOL_BF16_GEMM_F32 = 1e-4
+# Speed floors against regressions, below what the kernel reads on an
+# H100 at 700 W (PERF.md §6): the 384 px qkv product's rate (457-477
+# TFLOP/s there), and each product's time over torch.matmul's on the same
+# operands (1.2-2.6 there: the epilogue, not the products, holds the
+# kernel back; PERF.md §7)
+MIN_BF16_QKV_RATE = 430e12
+MAX_BF16_VS_MATMUL = 3.0
+
+
+def bf16_gemm_case(m, n, ks, bt, epi, g, n_pad=208, n_real=197,
+                   outputs=None):
+    """One ``bf16_gemm`` call's arguments on random operands: bf16 pairs
+    with ``ks`` the pairs' K, every input an epilogue may read (f32 bias,
+    aux, rs; bf16 res), and the ``outputs`` (default all six; zeros, so
+    that what an epilogue leaves alone compares equal)."""
+    import torch
+    from odevit_tpu_torch.kernels.bf16_gemm import DTYPES
+    from odevit_tpu_torch.kernels.dropout import (DROP_SITE_ATTN_OUT,
+                                                  DROP_SITE_H,
+                                                  DROP_SITE_MLP_OUT)
+    from odevit_tpu_torch.kernels.tf32_gemm import OUTPUTS
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    bf = lambda *s: r(*s).to(torch.bfloat16)
+    pairs = [(bf(m, k), bf(n, k) if bt else bf(k, n)) for k in ks]
+    drops = {"gelu_drop": ((DROP_SITE_H, 0.1),),
+             "gelu_grad_drop": ((DROP_SITE_H, 0.1),),
+             "out_drop": ((DROP_SITE_MLP_OUT, 0.1),
+                          (DROP_SITE_ATTN_OUT, 0.2))}.get(epi, ())
+    kw = dict(bias=r(n), aux=r(m, n), res=bf(m, n), rs=r(1), scale=0.37,
+              dt=0.05, alpha=0.5, seed=1234567, drops=drops, n_pad=n_pad,
+              n_real=n_real, bt=bt)
+    outs = {k: torch.zeros(m, n, device="cuda", dtype=DTYPES[k])
+            if outputs is None or k in outputs else None for k in OUTPUTS}
+    return pairs, kw, outs
+
+
+def bf16_gemm_check(pairs, epi, kw, outs):
+    """Runs ``bf16_gemm`` twice and the float64 plain version once:
+    (max |kernel - float64| / max|float64| over the bf16 outputs, the same
+    over the f32 ones (masks aside), repeats bit-identical, the masks equal
+    to the plain generator's, max |kernel - float64| over the outputs)."""
+    import torch
+    from odevit_tpu_torch.kernels.bf16_gemm import bf16_gemm
+    bf16_gemm(pairs, epi, outs, **kw)
+    given = [k for k, v in outs.items() if v is not None]
+    first = {k: outs[k].clone() for k in given}
+    bf16_gemm(pairs, epi, outs, **kw)
+    torch.cuda.synchronize()
+    same = all(torch.equal(first[k], outs[k]) for k in given)
+    d64 = lambda t: None if t is None else t.double()
+    ref = {k: torch.zeros_like(outs[k], dtype=torch.float64) for k in given}
+    bf16_gemm([(d64(a), d64(b)) for a, b in pairs], epi, ref, plain=True,
+              **{k: d64(v) if torch.is_tensor(v) else v
+                 for k, v in kw.items()})
+    errs = {True: 0.0, False: 0.0}        # bf16 outputs, f32 ones
+    max_abs = 0.0
+    for k in given:
+        if k.startswith("mask"):
+            continue
+        diff = (outs[k].double() - ref[k]).abs().max()
+        e = (diff / ref[k].abs().max().clamp_min(1e-30)).item()
+        rounded = outs[k].dtype == torch.bfloat16
+        errs[rounded] = max(errs[rounded], e)
+        max_abs = max(max_abs, diff.item())
+    masks = all(torch.equal(outs[k].double(), ref[k])
+                for k in given if k.startswith("mask"))
+    return errs[True], errs[False], same, masks, max_abs
+
+
+def gemm_bytes(m, n, ks, epi, written) -> float:
+    """Bytes the product must move: its bf16 operands once, the epilogue's
+    inputs once (aux f32, res bf16, bias f32) and its outputs once (bf16
+    out and out2, f32 out32, fout and masks)."""
+    nbytes = sum(2.0 * (m * k + k * n) for k in ks)
+    reads = {"gelu_grad": 4, "gelu_grad_drop": 4, "out_drop": 4,
+             "advance": 2, "gelu_grad_resid": 2, "mac_resid": 4,
+             "mac_out": 4}
+    nbytes += reads.get(epi, 0) * m * n
+    sizes = {"out": 2, "out2": 2, "out32": 4, "fout": 4, "mask0": 4,
+             "mask1": 4}
+    return nbytes + sum(sizes[k] for k in written) * m * n
+
+
+def phase_bf16_gemm_vs_plain():
+    """``vft_gemm_wgmma`` alone: the route's seven bf16 products at each
+    of ``BF16_GEMM_CELLS`` against a float64 product of the same bf16
+    operands (rounded outputs within 8e-3, f32 ones within 1e-4 of
+    max|ref|), repeats bit-identical, timed by CUDA events beside
+    ``torch.matmul`` on the same
+    bf16 operands (the bare product, two pairs as one product of the
+    concatenated operands: the library call), with their TFLOP/s against
+    989 and their bound; the 384 px qkv product at least
+    ``MIN_BF16_QKV_RATE`` and every product within ``MAX_BF16_VS_MATMUL``
+    of ``torch.matmul``; every epilogue, both
+    layouts, one and two pairs at a ragged shape, the masks
+    against the generator; the card's NaN in a row of A and a column of B
+    reaching exactly that row and column; the C counter once a call;
+    registers and spills of every instance from ``-Xptxas -v``. Returns
+    {cell: {product: report}}."""
+    import torch
+    from odevit_tpu_torch.kernels import build, launch_counts
+    from odevit_tpu_torch.kernels.bf16_gemm import (LIBRARIES, bf16_gemm,
+                                                    wgmma_launches)
+    from odevit_tpu_torch.kernels.tf32_gemm import EPILOGUES
+    before = dict(launch_counts)
+    g = torch.Generator(device="cuda").manual_seed(37)
+    cells, ragged, gates, calls = {}, {}, [], 0
+    counted = wgmma_launches()
+    for cell, (rows, d, dh) in BF16_GEMM_CELLS.items():
+        cells[cell] = {}
+        for label, n, ks, bt, epi, written in bf16_gemm_products(d, dh):
+            pairs, kw, outs = bf16_gemm_case(rows, n, ks, bt, epi, g,
+                                             outputs=written)
+            e16, e32, same, _, max_abs = bf16_gemm_check(pairs, epi, kw,
+                                                         outs)
+            calls += 2
+            what = f"bf16 gemm {cell} {label}"
+            gates += [(e16 <= TOL_BF16_GEMM_ROUNDED,
+                       f"{what}: rel err {e16} (bf16 outputs)"),
+                      (e32 <= TOL_BF16_GEMM_F32,
+                       f"{what}: rel err {e32} (f32 outputs)"),
+                      (same, f"{what}: repeats differ")]
+            ms = cuda_ms(lambda: bf16_gemm(pairs, epi, outs, **kw), iters=20)
+            calls += 21
+            a_cat = torch.cat([a for a, _ in pairs], 1)
+            b_cat = torch.cat([b for _, b in pairs], 1 if bt else 0)
+            lib_ms = cuda_ms(lambda: torch.matmul(
+                a_cat, b_cat.T if bt else b_cat), iters=20)
+            del a_cat, b_cat
+            plain_ms = cuda_ms(lambda: bf16_gemm(pairs, epi, outs,
+                                                 plain=True, **kw), iters=3)
+            flops = 2.0 * rows * n * sum(ks)
+            bound_ms, bound_by = _bound(flops, gemm_bytes(rows, n, ks, epi,
+                                                          written))
+            cells[cell][label] = {
+                "m": rows, "n": n, "k": list(ks), "bt": bt, "epilogue": epi,
+                "outputs": written, "rel_err_bf16": e16,
+                "rel_err_f32": e32, "max_abs_err": max_abs,
+                "flops": flops, "bytes": gemm_bytes(rows, n, ks, epi,
+                                                    written),
+                "ms": ms, "library_ms": lib_ms, "plain_ms": plain_ms,
+                "tflops": flops / ms / 1e9,
+                "library_tflops": flops / lib_ms / 1e9,
+                "vs_library": ms / lib_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "peak_share": bound_ms / ms}
+            gates.append((ms <= MAX_BF16_VS_MATMUL * lib_ms,
+                          f"{what}: {ms:.4f} ms against torch.matmul's "
+                          f"{lib_ms:.4f}"))
+            del pairs, kw, outs
+            torch.cuda.empty_cache()
+    rate = cells["384px"]["qkv"]["tflops"] * 1e12
+    gates.append((rate >= MIN_BF16_QKV_RATE, f"bf16 gemm 384px qkv: "
+                  f"{rate / 1e12:.1f} TFLOP/s"))
+    rg = BF16_RAGGED
+    for epi in EPILOGUES:
+        for bt in (False, True):
+            for ks in (rg["k"][:1], rg["k"]):
+                pairs, kw, outs = bf16_gemm_case(rg["m"], rg["n"], ks, bt,
+                                                 epi, g, rg["n_pad"],
+                                                 rg["n_real"])
+                e16, e32, same, masks, _ = bf16_gemm_check(pairs, epi, kw,
+                                                           outs)
+                calls += 2
+                what = f"bf16 gemm {epi} bt={bt} pairs={len(ks)}"
+                gates += [(e16 <= TOL_BF16_GEMM_ROUNDED,
+                           f"{what}: rel err {e16} (bf16 outputs)"),
+                          (e32 <= TOL_BF16_GEMM_F32,
+                           f"{what}: rel err {e32} (f32 outputs)"),
+                          (same, f"{what}: repeats differ"),
+                          (masks, f"{what}: masks differ from the "
+                                  f"generator's")]
+                ragged[f"{epi} bt={int(bt)} pairs={len(ks)}"] = [e16, e32]
+    # the card's NaN (0x7FFF) in a row of A and its negative (0xFFFF) in a
+    # column of B: exactly that row and column of C are NaN
+    nan_ok = {}
+    for bt in (False, True):
+        pairs, kw, outs = bf16_gemm_case(rg["m"], rg["n"], rg["k"][:1], bt,
+                                         "f32", g, outputs=("out32",))
+        a, b = pairs[0]
+        a.view(torch.int16)[5] = 0x7FFF
+        (b[7] if bt else b[:, 7]).view(torch.int16).fill_(-1)
+        bf16_gemm(pairs, "f32", outs, **kw)
+        calls += 1
+        want = torch.zeros(rg["m"], rg["n"], dtype=torch.bool, device="cuda")
+        want[5] = want[:, 7] = True
+        nan_ok[f"bt={int(bt)}"] = torch.equal(torch.isnan(outs["out32"]),
+                                              want)
+        gates.append((nan_ok[f"bt={int(bt)}"], f"bf16 gemm bt={bt}: NaN in "
+                      f"A's row 5 and B's column 7 gave other NaNs"))
+    counted = wgmma_launches() - counted
+    gates.append((counted == calls, f"bf16 gemm: the C counter saw "
+                  f"{counted} launches of {calls} calls"))
+    resources = {lib: kernel_resources(lib, (BF16_GEMM_KERNEL,
+                                             OLD_GEMM_BF16))
+                 for lib in LIBRARIES if lib in build.build_logs}
+    for lib, found in resources.items():
+        gates.append((any(BF16_GEMM_KERNEL in k for k in found),
+                      f"{lib}: no -Xptxas -v lines for {BF16_GEMM_KERNEL}"))
+        gates += [(OLD_GEMM_BF16 not in name, f"{lib}: {name} is built")
+                  for name in found]
+        gates += [(r["spill_stores"] == 0 and r["spill_loads"] == 0,
+                   f"{lib} {name}: spills {r}") for name, r in found.items()]
+    launch_counts.update(before)           # comparisons do not count
+    emit("bf16_gemm_vs_plain", tol_rounded=TOL_BF16_GEMM_ROUNDED,
+         tol_f32=TOL_BF16_GEMM_F32, min_qkv_rate=MIN_BF16_QKV_RATE,
+         max_vs_library=MAX_BF16_VS_MATMUL, peak_bf16_flops=PEAK_BF16_FLOPS,
+         library="torch.matmul on the same bf16 operands (two pairs: "
+                 "their concatenation), no epilogue",
+         cells=cells, ragged_shape=f"M={rg['m']} N={rg['n']} K={rg['k']}",
+         ragged_rel_errs=ragged,
+         max_ragged_rel_err_bf16=max(v[0] for v in ragged.values()),
+         max_ragged_rel_err_f32=max(v[1] for v in ragged.values()),
+         nan_reaches_its_row_and_column=nan_ok, launches=counted,
+         resources=resources)
+    for ok, what in gates:
+        check(ok, what)
+    return cells
+
+
+def bf16_gemm_entry(cell, products, launches) -> dict:
+    """The kernels line's entry of ``vft_gemm_wgmma`` at one cell's shape:
+    its seven products once each (``bf16_gemm_products``), summed, with
+    each product's numbers beside; ``launches`` on the cell's main path
+    (``BF16_GEMM_PATHS``)."""
+    total = lambda key: sum(v[key] for v in products.values())
+    bound_ms, bound_by = _bound(total("flops"), total("bytes"))
+    return {
+        "name": f"{BF16_GEMM_KERNEL}_{cell}", "route": "cuda",
+        "source": "odevit_tpu_torch/csrc/vector_field_tiled.cu",
+        "replaces": "odevit_tpu/kernels/vector_field.py:262",
+        "launches": launches, "launches_of": BF16_GEMM_PATHS[cell],
+        "max_abs_err": max(v["max_abs_err"] for v in products.values()),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": total("library_ms"),
+        "products": {k: {f: v[f] for f in (
+            "m", "n", "k", "bt", "epilogue", "ms", "library_ms", "tflops", "vs_library", "bound_ms", "bound_by",
+            "rel_err_bf16", "rel_err_f32")} for k, v in products.items()}}
+
+
 # The bf16 weight products of the training cells' backwards, W_bar = A^T G
 # (A [R, M], G [R, N]): R and the (M, N) of each launch's problems. CIFAR
 # and its Macaron at B=1024 x 80 rows (the Macaron backward's second pass
@@ -4687,6 +5037,9 @@ OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float", "mac_kernel<float")
 # the first key-tiled CTA's bf16 softmax instances (forward and backward),
 # which vft_attn_kt_fwd and vft_attn_kt_bwd replaced
 OLD_KT_BF16 = ("vft_attn_kt<__nv_bfloat16, false",)
+# the route's bf16 product kernel, and the WMMA one it replaced
+BF16_GEMM_KERNEL = "vft_gemm_wgmma"
+OLD_GEMM_BF16 = "vft_gemm_bf16"
 # bf16 products are exact in f32: only the f32 sums over up to 163,840
 # rows err (fresh accumulators every 512 rows); sound runs read below
 # 1e-6 of max|ref|, and one 64-row stage dropped at the CIFAR shape
@@ -5003,12 +5356,16 @@ def phase_macaron224_serving(images_u8, rng):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        gemm0 = gemm_launches()
         got = fast_forward(model, x)["logits"]
         torch.cuda.synchronize()
         launches = {k: v for k, v in launch_counts.items() if v}
         peak = torch.cuda.max_memory_allocated() / 1e9
         check(launches == {"macaron_eval_tiled": evals},
               f"Macaron 224 {name}: launches {launches}")
+        # f32 states: the route's products run vft_gemm_tf32
+        check_gemm_route(f"Macaron 224 {name}", launches,
+                         gemm_launches() - gemm0, bf16=False)
         want = fast_forward(model, x, plain=True)["logits"]
         torch.cuda.synchronize()
         err = rel_err(got, want)
@@ -5163,11 +5520,14 @@ def phase_tsbase_l2_serving(images_224, rng):
     x = make_preprocess(image_size=224, dtype=torch.bfloat16)(images_224)
     b = x.shape[0]
     reset_launch_counts()
+    gemm0 = gemm_launches()
     got = fast_forward(model, x)["logits"]
     torch.cuda.synchronize()
     launches = {k: v for k, v in launch_counts.items() if v}
     check(launches == {"vf_eval_l2_tiled": 35},
           f"{TSL2_SERVE_CELL}: launches {launches}")
+    gemms = check_gemm_route(TSL2_SERVE_CELL, launches,
+                             gemm_launches() - gemm0)
     want = fast_forward(model, x, plain=True)["logits"]
     torch.cuda.synchronize()
     err = rel_err(got, want)
@@ -5182,7 +5542,8 @@ def phase_tsbase_l2_serving(images_224, rng):
     engine = phase_serving_224(model, rng, counter="vf_eval_l2_tiled",
                                evals=35, name="tsbase_l2_serving_engine")
     emit("tsbase_l2_serving", cell=TSL2_SERVE_CELL, solver="euler-36",
-         batch=b, launches=launches, rel_err=err, tol=TOL_LOGITS,
+         batch=b, launches=launches, gemm_launches=gemms, rel_err=err,
+         tol=TOL_LOGITS,
          top1_agreement=top1, ms_per_forward=ms, img_per_s=b / ms * 1e3,
          plain_img_per_s=b / plain_ms * 1e3, engine_launches=engine)
     return launches
@@ -6004,81 +6365,48 @@ def kt_fwd_bound(b: int, n_real: int, d: int, heads: int, mode="plain",
 
 
 # SHA-256 of long_kt_digests()'s outputs, taken on the tree before
-# vft_attn_kt_fwd (NVIDIA H100 80GB HBM3): the kernels that share code
-# with the new forward (kt_pass1, kt_p, kt_keep, KvRing) and the
-# key-tiled forwards it leaves alone must give the same bits. A guard
-# for that change only: the next change to these kernels (the f32 and L2
-# key-tiled CTAs' redesign among them) deletes it with long_kt_digests
-# and pins nothing anew.
+# vft_attn_kt_fwd (NVIDIA H100 80GB HBM3): the f32 key-tiled forwards,
+# whose attention CTAs (vft_attn_kt) and products (vft_gemm_tf32) neither
+# that change nor the bf16 products' redesign (vft_gemm_wgmma) touched,
+# must give the same bits. The bf16 outputs it pinned before (the bf16
+# backward pair, the split attention half, the L2 forwards) run on the
+# bf16 products and changed with them; phase 28a's kernel-vs-plain gates
+# hold those. The next change to the f32 key-tiled CTAs deletes it with
+# long_kt_digests and pins nothing anew.
 LONG_KT_SHA256 = {
-    "bwd_g_jas":
-        "8cf327e017b1171d65c1dcad642fcbdd2dd448775cf6364ef34bd0538fdb5a5b",
-    "bwd_g_attn":
-        "0e7004bca2443c4d248593fa43e138a3abf69ca870fdc512d2635416f04c6691",
-    "bwd_drop":
-        "fd88af168d8fdf7cdb5a17392645217fb7c6140b361ed9cdc7461dc410805e83",
-    "bwd_split":
-        "a006c3af04d6c8982ca43a1ce04b7bd5abd35d10c882c58906c3458416a3ab21",
     "f32_plain":
         "181fa2f061fdd53fae4b24382d9fb64221580e1d2b547271ce980ee1380ef0af",
     "f32_jasmin":
         "0052e49a6fd559b82a023037ab6ab777242a81a95794ef34023f9bc6a295eca4",
     "f32_map_drop":
-        "c5c68622f813199e8f5049ee7a1f804c7a8ff1ca5b33be5704a96ef9092888ab",
-    "l2_plain":
-        "66c061f82643483125c5f078a0f596676a9da6b7522617dd8c9bbfb3776800a8",
-    "l2_jasmin":
-        "9ee6f767ac031ed77e88484c0fde29363fa4069361d83b1a72103b54918424d6"}
+        "c5c68622f813199e8f5049ee7a1f804c7a8ff1ca5b33be5704a96ef9092888ab"}
 
 
 def long_kt_digests() -> dict:
-    """SHA-256 of the outputs of the key-tiled kernels beside the bf16
-    softmax forward, at B=2, 587 tokens padded to 592, D=768, 12 heads,
-    from seed 29: the bf16 softmax backward (``vft_attn_kt_bwd``,
-    ``vft_attn_keys_kt2``) with the JaSMin and map cotangents, ±
-    dropout, the split pair's attention half at dh=3072, and the f32 and
-    L2 (bf16) key-tiled forwards (plain, JaSMin k=2, and f32 dropout)."""
+    """SHA-256 of the outputs of the f32 key-tiled forwards (plain, JaSMin
+    k=2, map with dropout) at B=2, 587 tokens padded to 592, D=768, 12
+    heads, from seed 29."""
     import hashlib
     import torch
     from odevit_tpu_torch.kernels.vector_field import (vf_eval, vf_eval_attn,
                                                        vf_eval_jasmin)
-    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
     n_pad, n_real = LONG_SHAPES[1]
     b, d, heads, dh = 2, 768, 12, 768
     g = torch.Generator(device="cuda").manual_seed(29)
     weights = long_weights(d, heads, dh, g)
-    w4 = long_weights(d, heads, 4 * d, g)[torch.bfloat16][0]
+    # the ratio-4 weights the pin's first version also drew: x is drawn
+    # after them, as when the digests were taken
+    long_weights(d, heads, 4 * d, g)
     x = torch.randn(b, n_pad, d, generator=g, device="cuda")
     x[:, n_real:] = 0
-    gx = torch.randn(b, n_pad, d, generator=g, device="cuda") * 1e-2
-    gx[:, n_real:] = 0
-    gj = torch.randn(b, heads, 5, n_pad, generator=g, device="cuda") * 1e-2
-    gj[..., n_real:] = 0
-    idx = torch.randint(0, n_real, (b, heads, 4, n_pad), generator=g,
-                        device="cuda", dtype=torch.int32)
-    ga = torch.randn(b, heads, n_pad, n_pad, generator=g,
-                     device="cuda") * 1e-2
-    ga[:, :, n_real:] = 0
-    ga[..., n_real:] = 0
-    xb, gxb, gab = (t.to(torch.bfloat16) for t in (x, gx, ga))
     kw = dict(num_heads=heads, scaler=4.0, n_real=n_real)
     dkw = dict(seed=DROP_SEEDS[2], drops=DROP_RATES)
-    w, wl2 = weights[torch.bfloat16]
     w32 = weights[torch.float32][0]
     x32 = x.contiguous()
     cases = {
-        "bwd_g_jas": lambda: vf_bwd(xb, w, gxb, g_jas=gj, jas_idx=idx, **kw),
-        "bwd_g_attn": lambda: vf_bwd(xb, w, gxb, g_attn=gab, g_jas=gj,
-                                     jas_idx=idx, **kw),
-        "bwd_drop": lambda: vf_bwd(xb, w, gxb, g_attn=gab, g_jas=gj,
-                                   jas_idx=idx, **kw, **dkw),
-        "bwd_split": lambda: vf_bwd(xb, w4, gxb, g_jas=gj, jas_idx=idx,
-                                    **kw),
         "f32_plain": lambda: vf_eval(x32, w32, **kw),
         "f32_jasmin": lambda: vf_eval_jasmin(x32, w32, jas_k=LONG_K, **kw),
-        "f32_map_drop": lambda: vf_eval_attn(x32, w32, **kw, **dkw),
-        "l2_plain": lambda: vf_eval(xb, wl2, **kw),
-        "l2_jasmin": lambda: vf_eval_jasmin(xb, wl2, jas_k=LONG_K, **kw)}
+        "f32_map_drop": lambda: vf_eval_attn(x32, w32, **kw, **dkw)}
     out = {}
     for name, fn in cases.items():
         got = fn()
@@ -6115,6 +6443,7 @@ def long_kernel_steps(model, images_u8, labels, pre, rng):
     reset_launch_counts()
     ms, losses = [], []
     at = kt_fwd_launches()
+    gemm0 = gemm_launches()
     for _ in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         state, metrics = step(state, batch, rng=rng)
@@ -6122,6 +6451,7 @@ def long_kernel_steps(model, images_u8, labels, pre, rng):
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics["loss"].item())
     ctas = [a - c for a, c in zip(kt_fwd_launches(), at)]
+    gemms = gemm_launches() - gemm0
     launches = {k: v for k, v in launch_counts.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
     seeds = draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -6142,7 +6472,7 @@ def long_kernel_steps(model, images_u8, labels, pre, rng):
             "peak_mem_gb": peak, "launches": launches,
             "launches_per_step": {k: v / TRAIN_STEPS
                                   for k, v in launches.items()},
-            "kt_fwd_launches": ctas,
+            "kt_fwd_launches": ctas, "gemm_launches": gemms,
             "split_ms": {"forward": ev[0].elapsed_time(ev[1]),
                          "backward": ev[1].elapsed_time(ev[2]),
                          "optimizer": ev[2].elapsed_time(ev[3])},
@@ -6172,6 +6502,8 @@ def phase_long_train(images_u8, labels):
     want = {**{k: 0 for k in full["launches_per_step"]}, **LONG_LAUNCHES}
     check(full["launches_per_step"] == want, f"long_train B=64: launches "
           f"{full['launches_per_step']}")
+    check_gemm_route("long_train B=64", full["launches"],
+                     full["gemm_launches"])
     # every forward evaluation of the 3 steps launched vft_attn_kt_fwd once
     # and the old forward CTA never, by the C counter; the profiled step
     # ran it (and, by profile_step, no old bf16 softmax vft_attn_kt)
@@ -6194,7 +6526,7 @@ def phase_long_train(images_u8, labels):
          check_profile=profile, img_per_s=full["img_per_s_best_of_2_3"],
          **full)
     return (full["launches"], runs["kernels"]["wgrad_launches"]["bf16"],
-            full["kt_fwd_launches"])
+            full["kt_fwd_launches"], full["gemm_launches"])
 
 
 def phase_long_serving(rng):
@@ -6218,13 +6550,16 @@ def phase_long_serving(rng):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     at = kt_fwd_launches()
+    gemm0 = gemm_launches()
     got = fast_forward(model, x)["logits"]
     torch.cuda.synchronize()
     ctas = [a - c for a, c in zip(kt_fwd_launches(), at)]
+    gemms = gemm_launches() - gemm0
     launches = {k: v for k, v in launch_counts.items() if v}
     peak = torch.cuda.max_memory_allocated() / 1e9
     check(launches == {"vf_eval_euler_tiled_kt": 35},
           f"{LONG_SERVE_CELL}: launches {launches}")
+    check_gemm_route(LONG_SERVE_CELL, launches, gemms)
     check(ctas == [35, 0], f"{LONG_SERVE_CELL}: forward attention CTAs "
           f"(vft_attn_kt_fwd, vft_attn_kt) {ctas}, want [35, 0]")
     want = fast_forward(model, x, plain=True)["logits"]
@@ -6246,7 +6581,8 @@ def phase_long_serving(rng):
          tol=TOL_LOGITS, top1_agreement=top1, ms_per_forward=ms,
          img_per_s=b / ms * 1e3, plain_ms_per_forward=plain_ms,
          plain_img_per_s=b / plain_ms * 1e3, peak_mem_gb=peak,
-         kt_fwd_launches=ctas, engine_launches=engine)
+         kt_fwd_launches=ctas, gemm_launches=gemms,
+         engine_launches=engine)
     return launches, model, ctas
 
 
@@ -6528,6 +6864,7 @@ def main() -> int:
 
     smi = phase_card()
     wgrad = phase_wgrad_vs_plain()
+    bf16_gemm = phase_bf16_gemm_vs_plain()
     models = {
         "euler-49": ViTODE(**SHAPE, num_eval_steps=49, solver="euler",
                            dtype=torch.bfloat16, device="cuda", seed=0),
@@ -6635,8 +6972,8 @@ def main() -> int:
     # served
     del euler25, students
     long_checked, long_checked_ctas = phase_long_kernels_vs_plain()
-    long_train, long_train_wgrad, long_train_ctas = phase_long_train(
-        images_d, labels_d)
+    long_train, long_train_wgrad, long_train_ctas, long_train_gemms = \
+        phase_long_train(images_d, labels_d)
     long_serve, long_model, long_serve_ctas = phase_long_serving(
         np.random.default_rng(3))
     long_timing = phase_long_kernel_timing(long_model, images_d)
@@ -6933,8 +7270,15 @@ def main() -> int:
             else:
                 path, launches = "wgrad_vs_plain", case["launches"]
             kernels.append(wgrad_entry(kind, label, case, path, launches))
+    # the route's bf16 products at each cell's shape: launches on that
+    # cell's main path (its 3 kernel steps, the C counter)
+    gemm_paths = {"224px": distill["kernels"]["gemm_launches"],
+                  "384px": long_train_gemms,
+                  "r4": r4_runs["kernels"]["gemm_launches"]}
+    for cell, products in bf16_gemm.items():
+        kernels.append(bf16_gemm_entry(cell, products, gemm_paths[cell]))
     check(len(kernels) == 44 + len(long_timing) + len(WGRAD_SHAPES)
-          + len(WGRAD_F32_SHAPES),
+          + len(WGRAD_F32_SHAPES) + len(BF16_GEMM_CELLS),
           f"{len(kernels)} kernels in the line")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1866,17 +1866,22 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a [rows, cols] bf16 operand in kWbBox x kWbRows boxes, 128-byte
-// swizzle, zeros outside; false where the driver refuses it
+// a [rows, cols] bf16 (elem 2) or f32 (elem 4) operand, rows ld elements
+// apart (0: cols), in boxes of 128 bytes by box_rows, 128-byte swizzle,
+// zeros outside; false where the driver refuses it
 inline bool encode_operand(CUtensorMap* map, const void* ptr, int rows,
-                           int cols) {
+                           int cols, int ld = 0, int box_rows = kWbRows,
+                           int elem = 2) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr || (reinterpret_cast<uintptr_t>(ptr) & 15)) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {kWbBox, kWbRows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld > 0 ? ld : cols) * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  return fn(map,
+            elem == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            2, const_cast<void*>(ptr),
             dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

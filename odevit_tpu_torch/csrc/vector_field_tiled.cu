@@ -65,21 +65,20 @@
 //                   then a fixed-order reduce of the weight and norm
 //                   partials.
 //
-// Products. In bf16 vft_gemm is a 128x128 tile per CTA of 8 warps, each
-// warp 64x32 in WMMA fragments (16x16x16, f32 accumulators), K in steps
-// of 32 staged through shared memory with the next step's loads held in
-// registers. In f32 (the main path of a Macaron model, whose states are
-// f32) it is vft_gemm_tf32: split TF32 in three passes on wgmma, operands
-// staged by cp.async, A split in registers and B once into swizzled
-// K-major planes (see there). The whole-row attention kernels use vector_field.cu's WMMA
-// helper (vf::mm) in bf16 and its split-TF32 twin (vf::mm_f32,
-// split_tf32.cuh) in f32; the key-tiled f32 CTAs still run vf::mm's f32
-// loops on the CUDA cores. Nothing goes to a library.
+// Products. In bf16 vft_gemm is vft_gemm_wgmma: a persistent CTA whose
+// two warpgroups take turns on wgmma with their own 128x128 tiles, fed by
+// a TMA ring from a producer warpgroup, 16-byte epilogues (see there). In f32 (the main path of a
+// Macaron model, whose states are f32) it is vft_gemm_tf32: split TF32 in
+// three passes on wgmma, operands staged by cp.async, A split in
+// registers and B once into swizzled K-major planes (see there). The
+// whole-row attention kernels use vector_field.cu's WMMA helper (vf::mm)
+// in bf16 and its split-TF32 twin (vf::mm_f32, split_tf32.cuh) in f32;
+// the key-tiled f32 CTAs still run vf::mm's f32 loops on the CUDA cores.
+// Nothing goes to a library.
 //
 // Bound. At TS-Base and B=64 one evaluation does ~102 GFLOP (0.10 ms at
 // 989 TFLOP/s in bf16) and one backward ~3x that; operations, not bytes,
-// bound both. The bf16 design is simple: no wgmma, no TMA, no pipeline
-// deeper than one step, intermediates in device memory between launches.
+// bound both. Intermediates stay in device memory between launches.
 //
 // Dropout (the TPU kernels' fused_vf_dropout, fused_vf_jasmin_dropout,
 // fused_vf_attn_dropout and _vf_bwd_kernel with a seed). Instances
@@ -144,10 +143,10 @@
 // f32 state x + alpha rs (v + bias) (and v + bias itself), kMacOut the
 // last residual step's round(scaler x3) or its Euler / stage update.
 //
-// The product epilogues draw one Philox call per 4 columns of a row (the
-// bf16 kernel stages each 16x16 accumulator tile in shared memory first,
-// vft_gemm_tf32 its whole 128x128 tile, so a lane takes a row's 4
-// consecutive columns whatever the fragment layout).
+// The product epilogues draw one Philox call per 4 columns of a row (both
+// product kernels stage their whole tile in shared memory first, so a
+// thread takes a row's 4 or 8 consecutive columns whatever the fragment
+// layout).
 // Masks add ~16 M Philox calls per forward at B=64, drawn between
 // barriers: below the products' bound on the FMA pipe, but they add to
 // the time rather than hide under it.
@@ -279,8 +278,14 @@ vft_norm_bwd(const float* __restrict__ abar, const float* __restrict__ mbar,
 
 // ---------------------------------------------------------------- GEMM
 
+// What each epilogue writes from the f32 sum v, round() to x's dtype:
+// kRound round(v (+ bias)); kScale round((v (+ bias)) scale); kGelu, h1 =
+// v (+ bias): out = round(gelu(h1)), out32 = h1, out2 = round(h1) (each
+// optional); kGeluGrad round(v gelu'(aux)); kF32 out32 = v.
 enum Epilogue { kRound = 0, kGelu = 1, kScale = 2, kGeluGrad = 3, kF32 = 4,
-                // the dropout epilogues (vft_gemm_*<BT, true>)
+                // the dropout epilogues (vft_gemm_*<BT, true>): out =
+                // round(round(gelu(v)) mask0) and out32 = v, round(v mask0
+                // gelu'(aux)), round(scale (v mask0 + aux mask1))
                 kGeluDrop = 5, kGeluGradDrop = 6, kOutDrop = 7,
                 // the Euler and stage-advance output: round(res + dt
                 // (scale v)), res = x (Euler) or the stage base
@@ -335,64 +340,6 @@ struct GemmArgs {
   float* fout;
 };
 
-template <typename T>
-__device__ __forceinline__ void epilogue(const GemmArgs& g, int m, int n,
-                                         float v) {
-  T* out = static_cast<T*>(g.out);
-  const size_t o = (size_t)m * g.ldo + n;
-  switch (g.epi) {
-    case kRound:
-      out[o] = vf::from_f<T>(g.bias != nullptr ? v + g.bias[n] : v);
-      break;
-    case kGelu: {  // with a bias (the Macaron FFN's b1) added first
-      const float h1 = g.bias != nullptr ? v + g.bias[n] : v;
-      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = h1;
-      if (g.out2 != nullptr) static_cast<T*>(g.out2)[o] = vf::from_f<T>(h1);
-      out[o] = vf::from_f<T>(vf::gelu(h1));
-      break;
-    }
-    case kGeluGradResid: {
-      const float h1 = m % g.n_pad < g.n_real
-                           ? vf::to_f(static_cast<const T*>(g.res)[o])
-                           : 0.0f;
-      out[o] = vf::from_f<T>(v * vf::gelu_grad(h1));
-      static_cast<T*>(g.out2)[o] = vf::from_f<T>(vf::gelu(h1));
-      break;
-    }
-    case kScale:
-      out[o] = vf::from_f<T>((g.bias != nullptr ? v + g.bias[n] : v) *
-                             g.scale);
-      break;
-    case kGeluGrad:
-      out[o] = vf::from_f<T>(v * vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
-      break;
-    case kAdvance:  // the f32 sum of vector_field.cu's epilogue
-      out[o] = vf::from_f<T>(vf::to_f(static_cast<const T*>(g.res)[o]) +
-                             g.dt * (v * g.scale));
-      break;
-    case kMacResid: {  // the new f32 state (in place where aux == out32)
-      const float f = v + g.bias[n];
-      const size_t s = (size_t)m * g.ld32 + n;
-      if (g.fout != nullptr) g.fout[s] = f;
-      if (g.out32 != nullptr) g.out32[s] = g.aux[s] + g.alpha * g.rs[0] * f;
-      break;
-    }
-    case kMacOut: {  // f not rounded before the Euler or stage update
-      const float x3 = g.aux[(size_t)m * g.ldaux + n] +
-                       g.alpha * g.rs[0] * (v + g.bias[n]);
-      const float f = x3 * g.scale;
-      out[o] = vf::from_f<T>(
-          g.res != nullptr
-              ? vf::to_f(static_cast<const T*>(g.res)[o]) + g.dt * f
-              : f);
-      break;
-    }
-    default:
-      g.out32[(size_t)m * g.ld32 + n] = v;
-      break;
-  }
-}
-
 // mask[j]: the kept value of column 4 grp + j of output row m under mask i
 // of a dropout epilogue; 1 where the site has no dropout, 0 on padded rows
 __device__ __forceinline__ void gemm_keep4(const GemmArgs& g, int i, int m,
@@ -404,29 +351,10 @@ __device__ __forceinline__ void gemm_keep4(const GemmArgs& g, int i, int m,
     vf::keep4(g.key[i], m / g.n_pad, row, grp, g.n, g.th[i], g.sc[i], mask);
 }
 
-template <typename T>
-__device__ __forceinline__ void epilogue_drop(const GemmArgs& g, int m, int n,
-                                              float v, float m0, float m1) {
-  T* out = static_cast<T*>(g.out);
-  const size_t o = (size_t)m * g.ldo + n;
-  switch (g.epi) {
-    case kGeluDrop:  // h = round(round(gelu(h1)) mask_h)
-      if (g.out32 != nullptr) g.out32[(size_t)m * g.ld32 + n] = v;
-      out[o] = vf::from_f<T>(vf::to_f(vf::from_f<T>(vf::gelu(v))) * m0);
-      break;
-    case kGeluGradDrop:  // h1_bar = round(h_bar mask_h gelu'(h1))
-      out[o] = vf::from_f<T>(v * m0 *
-                             vf::gelu_grad(g.aux[(size_t)m * g.ldaux + n]));
-      break;
-    default:  // kOutDrop: round(scaler (mlp_o mask_mo + attn_o mask_ao))
-      out[o] = vf::from_f<T>(
-          (v * m0 + g.aux[(size_t)m * g.ldaux + n] * m1) * g.scale);
-      break;
-  }
-  if (g.mask[0] != nullptr) g.mask[0][(size_t)m * g.n + n] = m0;
-  if (g.mask[1] != nullptr) g.mask[1][(size_t)m * g.n + n] = m1;
-}
-
+// The WMMA product mainloop of vector_field_bwd_split.cu's vfs_hidden_bf16
+// (two chained products a CTA): a 128x128 tile of 8 warps, each warp 64x32
+// in WMMA fragments (16x16x16, f32 accumulators), K in steps of 32 staged
+// through shared memory with the next step's loads held in registers.
 constexpr int kBM = 128, kBN = 128, kBK = 32, kGThreads = 256;
 constexpr int kLdA = kBK + 8;   // shared rows padded by 16 bytes
 constexpr int kLdB = kBN + 8;
@@ -528,47 +456,540 @@ __device__ __forceinline__ void gemm_mainloop(const GemmArgs& g, int m0,
   }
 }
 
-template <bool BT, bool kDrop>
-__global__ void __launch_bounds__(kGThreads) vft_gemm_bf16(GemmArgs g) {
-  __shared__ __align__(128) bf16 As[kBM * kLdA];
-  __shared__ __align__(128) bf16 Bs[kBM * kLdA];  // >= kBK * kLdB
-  __shared__ __align__(128) float ep[kGThreads / 32][16 * kLdE];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  Acc c[4][2];
-  gemm_mainloop<BT>(g, m0, n0, As, Bs, c);
+// ---- the bf16 products: vft_gemm_wgmma ----
+//
+// Replaces no TPU kernel of its own: it is the product layer of this
+// route, which replaces the products inside the TPU kernels
+// odevit_tpu/kernels/vector_field.py::_vf_kernel, vector_field_bwd.py::
+// _vf_bwd_kernel, _mlp_bwd_kernel and _attn_bwd_kernel, and macaron.py's
+// _macaron_kernel and _macaron_bwd_kernel (each a jnp.dot inside the
+// Pallas kernel). Every bf16 vft::gemm launches it: the tiled and
+// key-tiled forwards and backwards, the split backward's products and the
+// tiled bf16 Macaron route.
+//
+// Bound. 2 M N K operations at 989 TFLOP/s against (M K + K N + M N) 2
+// bytes at 3.35 TB/s: operations bound every shape the route launches;
+// the 384 px qkv product (37,888 x 2,304 x 768) is 134 GFLOP, 0.136 ms,
+// against 0.070 ms of bytes. The epilogues that read or write f32 [M, N]
+// (kGeluGrad's h1, kF32, kGelu's out32) move up to three times those
+// bytes and come near the line.
+//
+// Design. A persistent CTA an SM (grid: the SMs or the tiles, the fewer)
+// walks the output tiles t = blockIdx.x, + gridDim.x, ... (N fastest, so
+// the CTAs at work share their rows of A in L2). Two consumer warpgroups
+// take the CTA's tiles in turn, each its own 128 x 128 tile (two wgmma
+// m64n128k16 a k step), all of K in one f32 accumulator in registers (as the WMMA kernel this one
+// replaced summed it: K is at most d + dh = 3,840 here, where the tensor
+// cores' truncated sums err below 1e-5 of the output scale). A producer
+// warpgroup (one thread at work, its registers handed to the consumers by
+// setmaxnreg) keeps a ring of stages in flight by TMA (128-byte swizzle,
+// one mbarrier pair a stage): a stage is kWgK = 64 of K, A's 128 x 64
+// box (K-major) and B's, either one 128 x 64 box of a B stored [N, K]
+// (K-major) or two boxes of 64 x 64 of a B stored [K, N] (MN-major, read
+// through the descriptor's transpose bit). Two pairs: the producer
+// walks pair 0's slices, then pair 1's, into the same accumulator. The
+// TMA zero fill covers ragged M, N and K. The warpgroups take turns on
+// the tensor cores (a turn barrier: one starts its tile's products once
+// the other has all of its stages), so one warpgroup's epilogue runs
+// while the other's products do. The epilogue takes the tile in four 64
+// x 64 chunks through a staging buffer of the warpgroup (16-byte chunks
+// XOR-swizzled by row: the fragments' stores and the rows' reads on
+// distinct banks); each thread then runs the epilogue on eight
+// consecutive columns of a row, one Philox call per four columns in the
+// dropout epilogues (drawn as keep bits a chunk at a time), and writes 16
+// bytes of bf16 or two times 16 of f32. What the epilogue reads of [M, N] (aux f32 or res bf16) a second
+// producer thread brings by TMA, chunk by chunk, into four buffers that
+// the previous tile's epilogue frees chunk by chunk, so a tile's inputs
+// land while its products run.
+// No split of K across CTAs and no atomics: two runs give the same bits,
+// and a product the backward recomputes (qkv, h1) equals the forward's.
+constexpr int kWgM = 128, kWgN = 128;  // a warpgroup's tile
+constexpr int kWgK = 64;               // K of a stage: 128 bytes of bf16
+constexpr int kWgStages = 4;
+constexpr int kWgConsumers = 256;      // two consumer warpgroups
+constexpr int kWgThreads = kWgConsumers + 128;  // and the producer's
+constexpr int kWgABytes = kWgM * kWgK * 2;      // A's box of a stage
+constexpr int kWgStageBytes = kWgABytes + kWgN * kWgK * 2;
+constexpr int kWgInBytes = 64 * 1024;     // four chunks' epilogue inputs
+constexpr int kWgStageOut = 64 * 64 * 4;  // a warpgroup's staged chunk
+constexpr int kWgRegsProducer = 40, kWgRegsConsumer = 232;  // setmaxnreg
+// the ring, the epilogue's input chunks, the two staging buffers, room to
+// start them on a 1024-byte boundary, the barriers
+constexpr int kWgSmem = kWgStages * kWgStageBytes + kWgInBytes +
+                        2 * kWgStageOut + 1024 + 8 * (2 * kWgStages + 10);
+static_assert(kWgSmem <= 232448, "one CTA an SM: 227 KB of shared memory");
+static_assert(4 * 64 * 64 * 4 <= kWgInBytes,
+              "four f32 input chunks fit their buffers");
+static_assert(kWgRegsConsumer * kWgConsumers + kWgRegsProducer * 128 <=
+                  65536,
+              "the register file");
 
-  float* sc = ep[warp];
+// The tensor maps of a launch: a[p] A [M, K] in 64 x 128 boxes; b[p] B [N,
+// K] in 64 x 128 boxes, or B [K, N] in 64 x 64 boxes; in, the epilogue's
+// input [M, N] (aux f32 in 32 x 64 boxes, or res bf16 in 64 x 64).
+struct WgMaps {
+  CUtensorMap a[2], b[2], in;
+};
+
+// What the epilogue reads of [M, N], brought by TMA: 1 aux (f32; kMacOut
+// reads res from device memory), 2 res (bf16), 0 nothing.
+__host__ __device__ inline int wg_input(const GemmArgs& g) {
+  switch (g.epi) {
+    case kGeluGrad:
+    case kGeluGradDrop:
+    case kOutDrop:
+    case kMacOut:
+      return 1;
+    case kMacResid:
+      return g.out32 != nullptr ? 1 : 0;
+    case kAdvance:
+    case kGeluGradResid:
+      return 2;
+    default:
+      return 0;
+  }
+}
+
+// The descriptor of a B stored [K, N] (MN-major) stage: 64-column boxes of
+// kWgK rows of 128 bytes, 128-byte swizzle; boxes 8 KB apart (the leading,
+// N, offset), 8-row groups 1024 bytes apart (the stride, K, offset).
+__device__ __forceinline__ uint64_t wg_mn_desc(const void* p) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t((64 * kWgK * 2) >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// d (+)= a b for a 64 x 128 tile, k = 16, bf16 operands from shared memory
+// (a K-major, b K-major or, with kTransB, MN-major), f32 accumulators:
+// d[4 j + 2 h + e] holds row 16 warp + lane / 4 + 8 h and column 8 j +
+// 2 (lane % 4) + e; accumulate = 0 ignores d.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16_m64n128(float (&d)[64], uint64_t a,
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+}
+
+// The epilogue (enum Epilogue; the dropout ones with kDrop) of columns n
+// .. n + 7 of output row m: v the products, a the aux and t the res values
+// where the epilogue reads them, b0 and b1 the dropout epilogues' keep
+// bits (wg_keep_word: bit q for column n + q). Every value is f32 until it
+// is written; bf16 buffers take 16-byte stores, f32 ones two.
+template <bool kDrop>
+__device__ __forceinline__ void epilogue8(const GemmArgs& g, int m, int n,
+                                          const float (&v)[8],
+                                          const float (&a)[8],
+                                          const float (&t)[8], uint32_t b0,
+                                          uint32_t b1) {
+  auto st = [](void* p, size_t i, const float (&r)[8]) {
+    float4* q = reinterpret_cast<float4*>(static_cast<float*>(p) + i);
+    q[0] = make_float4(r[0], r[1], r[2], r[3]);
+    q[1] = make_float4(r[4], r[5], r[6], r[7]);
+  };
+  auto st16 = [](void* p, size_t i, const float (&r)[8]) {
+    uint4 w;
+    bf16* e = reinterpret_cast<bf16*>(&w);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int q = 0; q < 8; ++q) e[q] = vf::from_f<bf16>(r[q]);
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(p) + i) = w;
+  };
+  const size_t o = (size_t)m * g.ldo + n, s = (size_t)m * g.ld32 + n;
+  const bool bias = g.bias != nullptr;
+  float r[8], f[8], b[8] = {};
+  if (bias) {
+    const float4* q = reinterpret_cast<const float4*>(g.bias + n);
+    const float4 x = q[0], y = q[1];
+    b[0] = x.x, b[1] = x.y, b[2] = x.z, b[3] = x.w;
+    b[4] = y.x, b[5] = y.y, b[6] = y.z, b[7] = y.w;
+  }
+  if (kDrop) {
+    // kept: the site's scale (1 where it has no dropout); dropped or a
+    // padded row: 0
+    float k0[8], k1[8];
+    const float s0 = g.th[0] ? g.sc[0] : 1.0f;
+    const float s1 = g.th[1] ? g.sc[1] : 1.0f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int mb = m0 + wm * 64 + i * 16, nb = n0 + wn * 32 + j * 16;
-      if (mb >= g.m || nb >= g.n) continue;  // the same for the whole warp
-      wmma::store_matrix_sync(sc, c[i][j], kLdE, wmma::mem_row_major);
-      __syncwarp();
-      if (kDrop) {
-        // a lane takes 4 consecutive columns of a row: one Philox call
-        for (int e = lane; e < 64; e += 32) {
-          const int rr = e >> 2, c4 = (e & 3) * 4, m = mb + rr;
-          if (m >= g.m) continue;
-          float k0[4], k1[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-          gemm_keep4(g, 0, m, (nb + c4) >> 2, k0);
-          if (g.epi == kOutDrop) gemm_keep4(g, 1, m, (nb + c4) >> 2, k1);
+    for (int q = 0; q < 8; ++q) {
+      k0[q] = (b0 >> q) & 1u ? s0 : 0.0f;
+      k1[q] = g.epi == kOutDrop ? ((b1 >> q) & 1u ? s1 : 0.0f) : 1.0f;
+    }
+    switch (g.epi) {
+      case kGeluDrop:  // round(round(gelu(h1)) mask_h)
+        if (g.out32 != nullptr) st(g.out32, s, v);
 #pragma unroll
-          for (int q = 0; q < 4; ++q)
-            epilogue_drop<bf16>(g, m, nb + c4 + q, sc[rr * kLdE + c4 + q],
-                                k0[q], k1[q]);
-        }
-      } else {
-        for (int e = lane; e < 256; e += 32) {
-          const int m = mb + (e >> 4);
-          if (m < g.m) epilogue<bf16>(g, m, nb + (e & 15), sc[(e >> 4) * kLdE + (e & 15)]);
+        for (int q = 0; q < 8; ++q)
+          r[q] = vf::to_f(vf::from_f<bf16>(vf::gelu(v[q]))) * k0[q];
+        st16(g.out, o, r);
+        break;
+      case kGeluGradDrop:
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          r[q] = v[q] * k0[q] * vf::gelu_grad(a[q]);
+        st16(g.out, o, r);
+        break;
+      default:  // kOutDrop
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          r[q] = (v[q] * k0[q] + a[q] * k1[q]) * g.scale;
+        st16(g.out, o, r);
+        break;
+    }
+    if (g.mask[0] != nullptr) st(g.mask[0], (size_t)m * g.n + n, k0);
+    if (g.mask[1] != nullptr) st(g.mask[1], (size_t)m * g.n + n, k1);
+    return;
+  }
+  switch (g.epi) {
+    case kRound:
+    case kScale:
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        r[q] = (bias ? v[q] + b[q] : v[q]) * (g.epi == kScale ? g.scale
+                                                              : 1.0f);
+      st16(g.out, o, r);
+      break;
+    case kGelu:
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        f[q] = bias ? v[q] + b[q] : v[q];
+        r[q] = vf::gelu(f[q]);
+      }
+      if (g.out32 != nullptr) st(g.out32, s, f);
+      if (g.out2 != nullptr) st16(g.out2, o, f);
+      st16(g.out, o, r);
+      break;
+    case kGeluGradResid: {
+      const bool real = m % g.n_pad < g.n_real;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float h1 = real ? t[q] : 0.0f;
+        r[q] = v[q] * vf::gelu_grad(h1);
+        f[q] = vf::gelu(h1);
+      }
+      st16(g.out, o, r);
+      st16(g.out2, o, f);
+      break;
+    }
+    case kGeluGrad:
+#pragma unroll
+      for (int q = 0; q < 8; ++q) r[q] = v[q] * vf::gelu_grad(a[q]);
+      st16(g.out, o, r);
+      break;
+    case kAdvance:
+#pragma unroll
+      for (int q = 0; q < 8; ++q) r[q] = t[q] + g.dt * (v[q] * g.scale);
+      st16(g.out, o, r);
+      break;
+    case kMacResid:
+#pragma unroll
+      for (int q = 0; q < 8; ++q) f[q] = v[q] + b[q];
+      if (g.fout != nullptr) st(g.fout, s, f);
+      if (g.out32 != nullptr) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) r[q] = a[q] + g.alpha * g.rs[0] * f[q];
+        st(g.out32, s, r);
+      }
+      break;
+    case kMacOut:
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        f[q] = (a[q] + g.alpha * g.rs[0] * (v[q] + b[q])) * g.scale;
+        r[q] = g.res != nullptr ? t[q] + g.dt * f[q] : f[q];
+      }
+      st16(g.out, o, r);
+      break;
+    default:  // kF32
+      st(g.out32, s, v);
+      break;
+  }
+}
+
+// Chunk C of a warpgroup's tile (rows 64 (C / 2), columns 64 (C % 2), 64
+// x 64) from its accumulators into the staging buffer `stg`: f32 rows of
+// 256 bytes, 16-byte chunk c of row r at c ^ (r % 8).
+template <int C>
+__device__ __forceinline__ void wg_stage(const float (&acc)[2][64],
+                                         unsigned char* stg) {
+  constexpr int rh = C / 2, j0 = 8 * (C % 2);
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * ((threadIdx.x / 32) % 4) + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h, c = 2 * j + (lane % 4) / 2;
+      *reinterpret_cast<float2*>(stg + r * 256 + ((c ^ (r & 7)) << 4) +
+                                 8 * (lane % 2)) =
+          make_float2(acc[rh][4 * (j0 + j) + 2 * h],
+                      acc[rh][4 * (j0 + j) + 2 * h + 1]);
+    }
+}
+
+// The keep bits of this thread's four groups of eight columns of chunk c
+// (its steps 0-3) of the tile at (m0, n0) under mask s of a dropout
+// epilogue: bit 8 step + q set where column q of the step's group keeps a
+// nonzero value (gemm_keep4).
+__device__ __forceinline__ uint32_t wg_keep_word(const GemmArgs& g, int s,
+                                                 int m0, int n0, int c) {
+  const int tid = threadIdx.x % 128;
+  uint32_t word = 0u;
+#pragma unroll 1
+  for (int step = 0; step < 4; ++step) {
+    const int i = tid + 128 * step;
+    const int m = m0 + 64 * (c / 2) + i / 8;
+    const int n = n0 + 64 * (c % 2) + 8 * (i % 8);
+    if (m >= g.m || n >= g.n) continue;
+    float k[8];
+    gemm_keep4(g, s, m, n >> 2, k);
+    gemm_keep4(g, s, m, (n >> 2) + 1, k + 4);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      word |= (k[q] != 0.0f ? 1u : 0u) << (8 * step + q);
+  }
+  return word;
+}
+
+// A warpgroup's tile at (m0, n0), the CTA's tile i, through the
+// epilogue, chunk by chunk: staged (wg_stage), then eight columns of a row
+// a thread and step, with what the epilogue reads from the chunk's input
+// buffer in[c] (16 KB each; TMA's 128-byte swizzle: 16-byte chunk j of row
+// r of a box at j ^ (r % 8)); the dropout epilogues' keep bits drawn a
+// chunk at a time (wg_keep_word).
+template <bool kDrop>
+__device__ __forceinline__ void wg_epilogue(
+    const GemmArgs& g, const float (&acc)[2][64], int m0, int n0, int i,
+    const unsigned char* in, uint64_t* in_full, uint64_t* in_empty,
+    unsigned char* stg, int input) {
+  const int tid = threadIdx.x % 128, bar = 2 + threadIdx.x / 128;
+  auto chunk = [&](int c) {
+    // the chunk before is read: the buffer is free
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+    switch (c) {
+      case 0: wg_stage<0>(acc, stg); break;
+      case 1: wg_stage<1>(acc, stg); break;
+      case 2: wg_stage<2>(acc, stg); break;
+      default: wg_stage<3>(acc, stg); break;
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar) : "memory");
+    const unsigned char* buf = in + c * (kWgInBytes / 4);
+    if (input) {
+      // the other warpgroup is done with this buffer's previous chunk, so
+      // the next completion of in_full[c] is this tile's
+      if (i > 0) mbar_wait(&in_empty[c], (i - 1) & 1);
+      mbar_wait(&in_full[c], i & 1);
+    }
+    const int rb = 64 * (c / 2), cb = 64 * (c % 2);
+    // this chunk's keep bits, 8 a step
+    uint32_t bits[2] = {0u, 0u};
+    if (kDrop) {
+      bits[0] = wg_keep_word(g, 0, m0, n0, c);
+      if (g.epi == kOutDrop) bits[1] = wg_keep_word(g, 1, m0, n0, c);
+    }
+#pragma unroll 1
+    for (int e = tid; e < 64 * 8; e += 128, bits[0] >>= 8, bits[1] >>= 8) {
+      const int r = e / 8, lc = 8 * (e % 8);
+      const int m = m0 + rb + r, n = n0 + cb + lc;
+      if (m >= g.m || n >= g.n) continue;
+      // lanes 4-7 of each eight read their upper half first: the 16-byte
+      // reads of eight lanes on distinct banks
+      const int up = (e >> 2) & 1, ck = 2 * (e % 8);
+      const unsigned char* row = stg + r * 256;
+      const float4 x = *reinterpret_cast<const float4*>(
+          row + (((ck + up) ^ (r & 7)) << 4));
+      const float4 y = *reinterpret_cast<const float4*>(
+          row + (((ck + 1 - up) ^ (r & 7)) << 4));
+      const float4 lo = up ? y : x, hi = up ? x : y;
+      const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      float a[8], t[8];
+      if (input == 1) {
+        const unsigned char* ar = buf + (lc / 32) * 8192 + r * 128;
+        const int j = (lc % 32) / 4;
+        const float4 x0 = *reinterpret_cast<const float4*>(
+            ar + ((j ^ (r & 7)) << 4));
+        const float4 x1 = *reinterpret_cast<const float4*>(
+            ar + (((j + 1) ^ (r & 7)) << 4));
+        a[0] = x0.x, a[1] = x0.y, a[2] = x0.z, a[3] = x0.w;
+        a[4] = x1.x, a[5] = x1.y, a[6] = x1.z, a[7] = x1.w;
+      }
+      const bool res =
+          !kDrop && (input == 2 || (g.epi == kMacOut && g.res != nullptr));
+      if (res) {
+        const uint4 raw =
+            input == 2
+                ? *reinterpret_cast<const uint4*>(
+                      buf + r * 128 + (((lc / 8) ^ (r & 7)) << 4))
+                : *reinterpret_cast<const uint4*>(
+                      static_cast<const bf16*>(g.res) + (size_t)m * g.ldo +
+                      n);
+        const bf16* w = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) t[q] = vf::to_f(w[q]);
+      }
+      epilogue8<kDrop>(g, m, n, v, a, t, bits[0] & 0xFFu, bits[1] & 0xFFu);
+    }
+    if (input) mbar_arrive(&in_empty[c]);
+  };
+  for (int c = 0; c < 4; ++c) chunk(c);
+}
+
+// Threads 0-255: two consumer warpgroups; 256-383: the producer
+// warpgroup, of which thread 256 issues the operands' copies and thread
+// 288 the epilogue's input chunks. The CTA's tiles i = 0, 1, ... are tiles
+// blockIdx.x + i gridDim.x of the grid; warpgroup w takes i = w, w + 2,
+// ...; the producer loads stage i T + kt (T stages a tile) into slot (i T
+// + kt) % S.
+template <bool BT, bool kDrop>
+__global__ void __launch_bounds__(kWgThreads, 1)
+vft_gemm_wgmma(const __grid_constant__ WgMaps maps,
+               const __grid_constant__ GemmArgs g) {
+  constexpr int S = kWgStages;
+  extern __shared__ unsigned char wg_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wg_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* in_tile = ring + S * kWgStageBytes;
+  unsigned char* staging = in_tile + kWgInBytes;  // [w]: kWgStageOut each
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(staging + 2 * kWgStageOut);
+  uint64_t* empty = full + S;
+  uint64_t* in_full = empty + S;   // [c]: input chunk c of a tile
+  uint64_t* in_empty = in_full + 4;
+  uint64_t* turn = in_empty + 4;   // [w]: the other warpgroup has its stages
+  const int tiles_n = (g.n + kWgN - 1) / kWgN;
+  const int tiles = (g.m + kWgM - 1) / kWgM * tiles_n;
+  const int local = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;
+  const int nk0 = (g.k[0] + kWgK - 1) / kWgK;
+  const int T = nk0 + (g.pairs > 1 ? (g.k[1] + kWgK - 1) / kWgK : 0);
+  const int input = wg_input(g);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    for (int c = 0; c < 4; ++c) {
+      mbar_init(&in_full[c], 1);
+      mbar_init(&in_empty[c], 128);
+    }
+    mbar_init(&turn[0], 1);
+    mbar_init(&turn[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWgConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kWgRegsProducer));
+    // the producer: each tile's stages, pair 0's slices, then pair 1's
+    if (threadIdx.x == kWgConsumers) {
+      for (int i = 0; i < local; ++i) {
+        const int t = blockIdx.x + i * gridDim.x;
+        const int m0 = t / tiles_n * kWgM, n0 = t % tiles_n * kWgN;
+        for (int kt = 0; kt < T; ++kt) {
+          const int s = i * T + kt, slot = s % S;
+          if (s >= S) mbar_wait(&empty[slot], ((s / S) & 1) ^ 1);
+          mbar_expect_tx(&full[slot], kWgStageBytes);
+          unsigned char* dst = ring + slot * kWgStageBytes;
+          const int p = kt >= nk0;
+          const int k0 = (p ? kt - nk0 : kt) * kWgK;
+          tma_box(dst, &maps.a[p], k0, m0, &full[slot]);
+          if (BT) {
+            tma_box(dst + kWgABytes, &maps.b[p], k0, n0, &full[slot]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kWgN / 64; ++j)
+              tma_box(dst + kWgABytes + j * 64 * kWgK * 2, &maps.b[p],
+                      n0 + 64 * j, k0, &full[slot]);
+          }
         }
       }
-      __syncwarp();
+    } else if (threadIdx.x == kWgConsumers + 32 && input) {
+      // the second producer: input chunk c of each tile into buffer c once
+      // the previous tile's epilogue is done with it
+      for (int i = 0; i < local; ++i) {
+        const int t = blockIdx.x + i * gridDim.x;
+        const int m0 = t / tiles_n * kWgM, n0 = t % tiles_n * kWgN;
+        for (int c = 0; c < 4; ++c) {
+          if (i > 0) mbar_wait(&in_empty[c], (i - 1) & 1);
+          mbar_expect_tx(&in_full[c], 64 * 64 * (input == 1 ? 4 : 2));
+          const int r0 = m0 + 64 * (c / 2), c0 = n0 + 64 * (c % 2);
+          unsigned char* dst = in_tile + c * (kWgInBytes / 4);
+          tma_box(dst, &maps.in, c0, r0, &in_full[c]);
+          if (input == 1)
+            tma_box(dst + 8192, &maps.in, c0 + 32, r0, &in_full[c]);
+        }
+      }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kWgRegsConsumer));
+    const int wg = threadIdx.x / 128;
+    const bool leader = threadIdx.x % 128 == 0;
+    unsigned char* stg = staging + wg * kWgStageOut;
+    float acc[2][64];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int c = 0; c < 64; ++c) acc[rh][c] = 0.0f;
+    for (int i = wg, k = 0; i < local; i += 2, ++k) {
+      const int t = blockIdx.x + i * gridDim.x;
+      const int m0 = t / tiles_n * kWgM, n0 = t % tiles_n * kWgN;
+      // the other warpgroup has all of tile i - 1's stages: every earlier
+      // phase of the ring's barriers is complete
+      if (i > 0) mbar_wait(&turn[wg], (wg ? k : k - 1) & 1);
+      for (int kt = 0; kt < T; ++kt) {
+        const int s = i * T + kt, slot = s % S;
+        mbar_wait(&full[slot], (s / S) & 1);
+        if (kt == T - 1 && leader) mbar_arrive(&turn[1 - wg]);
+        const unsigned char* st = ring + slot * kWgStageBytes;
+        const uint64_t db = BT ? vf::wg_desc(st + kWgABytes)
+                               : wg_mn_desc(st + kWgABytes);
+        vf::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kWgK / 16; ++kk)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+            // 32 bytes further along K-major rows; 16 rows of 128 bytes
+            // further along MN-major ones (descriptor units of 16 bytes)
+            wgmma_bf16_m64n128<BT ? 0 : 1>(
+                acc[rh], vf::wg_desc(st + rh * 64 * 128) + 2 * kk,
+                db + (BT ? 2 * kk : 128 * kk), kt > 0 || kk > 0);
+        vf::wg_commit();
+        // the stage before this one is done: free its slot
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kt > 0) mbar_arrive(&empty[(s - 1) % S]);
+      }
+      vf::wg_wait_all();
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) vf::wg_pin(acc[rh]);
+      mbar_arrive(&empty[(i * T + T - 1) % S]);
+      wg_epilogue<kDrop>(g, acc, m0, n0, i, in_tile, in_full, in_empty, stg,
+                         input);
+    }
+  }
 }
 
 // ---- the f32 products: vft_gemm_tf32, split TF32 on wgmma ----
@@ -613,9 +1034,8 @@ constexpr int kTfSmem = 2 * 2 * kTfPlane + kTfLand * kTfLandSlot + 1024;
 static_assert(kTfM * kTfLdE * 4 <= kTfSmem - 1024, "staged tile");
 static_assert(kTfSmem <= 232448, "one CTA an SM: 227 KB of shared memory");
 
-// The f32 epilogues of columns n .. n + 3 of output row m (epilogue and
-// epilogue_drop in f32, four columns at a time): v the products, k0 and
-// k1 the dropout epilogues' kept values.
+// The f32 epilogues (enum Epilogue) of columns n .. n + 3 of output row
+// m: v the products, k0 and k1 the dropout epilogues' kept values.
 __device__ __forceinline__ void epilogue4(const GemmArgs& g, int m, int n,
                                           const float (&v)[4],
                                           const float (&k0)[4],
@@ -3237,14 +3657,82 @@ int gemm_tf32(const GemmArgs& g, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The route's products: bf16 on vft_gemm_bf16, f32 on vft_gemm_tf32 (a
-// shape it does not take returns cudaErrorInvalidValue).
+// vft_gemm_wgmma's launches in this library (vft_gemm_wgmma_launches
+// reads them), so that a check can see the route's products without a
+// profiler
+static unsigned long long wgmma_launches;
+
+// What vft_gemm_wgmma takes: M, N and every K multiples of 16, one or two
+// pairs, rows of a multiple of 16 bytes from 16-byte-aligned bases (TMA's
+// global strides and addresses, the epilogues' 16-byte loads and stores).
+bool wgmma_ok(const GemmArgs& g) {
+  if (g.pairs < 1 || g.pairs > 2 || g.m <= 0 || g.n <= 0 || g.m % 16 ||
+      g.n % 16)
+    return false;
+  for (int p = 0; p < g.pairs; ++p)
+    if (g.k[p] <= 0 || g.k[p] % 16 || g.lda[p] % 8 || g.ldb[p] % 8 ||
+        reinterpret_cast<uintptr_t>(g.a[p]) % 16 ||
+        reinterpret_cast<uintptr_t>(g.b[p]) % 16)
+      return false;
+  const void* bufs[] = {g.out, g.out32, g.out2, g.aux, g.res, g.bias,
+                        g.mask[0], g.mask[1], g.fout};
+  for (const void* b : bufs)
+    if (reinterpret_cast<uintptr_t>(b) % 16) return false;
+  // kMacResid's aux is read through the input chunks, at ldaux
+  return g.ldo % 8 == 0 && g.ld32 % 4 == 0 && g.ldaux % 4 == 0 &&
+         (g.epi != kMacResid || g.ldaux == g.ld32);
+}
+
+// The SMs of the current device (the persistent grid's size at most).
+int wg_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+// One bf16 product on vft_gemm_wgmma.
+template <bool BT, bool kDrop>
+int gemm_bf16(const GemmArgs& g, cudaStream_t st) {
+  if (!wgmma_ok(g) || wg_sms() == 0) return (int)cudaErrorInvalidValue;
+  WgMaps maps = {};
+  for (int p = 0; p < g.pairs; ++p) {
+    const bool b_ok =
+        BT ? encode_operand(&maps.b[p], g.b[p], g.n, g.k[p], g.ldb[p], kWgN)
+           : encode_operand(&maps.b[p], g.b[p], g.k[p], g.n, g.ldb[p], kWgK);
+    if (!b_ok ||
+        !encode_operand(&maps.a[p], g.a[p], g.m, g.k[p], g.lda[p], kWgM))
+      return (int)cudaErrorInvalidValue;
+  }
+  const int input = wg_input(g);
+  if (input == 1 &&
+      !encode_operand(&maps.in, g.aux, g.m, g.n, g.ldaux, 64, 4))
+    return (int)cudaErrorInvalidValue;
+  if (input == 2 && !encode_operand(&maps.in, g.res, g.m, g.n, g.ldo, 64))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = vft_gemm_wgmma<BT, kDrop>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (g.m + kWgM - 1) / kWgM * ((g.n + kWgN - 1) / kWgN);
+  kernel<<<tiles < wg_sms() ? tiles : wg_sms(), kWgThreads, kWgSmem, st>>>(
+      maps, g);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++wgmma_launches;
+  return (int)err;
+}
+
+// The route's products: bf16 on vft_gemm_wgmma, f32 on vft_gemm_tf32 (a
+// shape either does not take returns cudaErrorInvalidValue).
 template <typename T, bool BT, bool kDrop = false>
 int gemm(const GemmArgs& g, cudaStream_t st) {
   if (sizeof(T) != 2) return gemm_tf32<BT, kDrop>(g, st);
-  const dim3 grid((g.n + kBN - 1) / kBN, (g.m + kBM - 1) / kBM);
-  vft_gemm_bf16<BT, kDrop><<<grid, kGThreads, 0, st>>>(g);
-  return (int)cudaGetLastError();
+  return gemm_bf16<BT, kDrop>(g, st);
 }
 
 // mask i of a dropout epilogue: the keep mask of `site` (mask_h and mask_mo
@@ -3674,6 +4162,11 @@ extern "C" void vft_kt_bwd_launches(unsigned long long* out) {
   for (int i = 0; i < 4; ++i) out[i] = vft::kt_bwd_launches[i];
 }
 
+// In every library that includes this file: vft::wgmma_launches so far.
+extern "C" unsigned long long vft_gemm_wgmma_launches() {
+  return vft::wgmma_launches;
+}
+
 // In every library that includes this file: vft::kt_fwd_launches so far.
 extern "C" void vft_kt_fwd_launches(unsigned long long* out) {
   for (int i = 0; i < 2; ++i) out[i] = vft::kt_fwd_launches[i];
@@ -3736,6 +4229,17 @@ int vft_tf32_gemm(int bt, int drop, const vft::GemmArgs* g, void* stream) {
                     : vft::gemm_tf32<true, false>(*g, st))
             : (drop ? vft::gemm_tf32<false, true>(*g, st)
                     : vft::gemm_tf32<false, false>(*g, st));
+}
+
+// One bf16 product of the route (vft_gemm_wgmma), B stored transposed
+// with bt, the dropout epilogues' instance with drop; returns as
+// vft_forward.
+int vft_bf16_gemm(int bt, int drop, const vft::GemmArgs* g, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return bt ? (drop ? vft::gemm_bf16<true, true>(*g, st)
+                    : vft::gemm_bf16<true, false>(*g, st))
+            : (drop ? vft::gemm_bf16<false, true>(*g, st)
+                    : vft::gemm_bf16<false, false>(*g, st));
 }
 
 const char* vft_error_string(int code) {

@@ -52,6 +52,9 @@ launch_counts: Dict[str, int] = {
     # one f32 product of the tiled route alone (csrc/vector_field_tiled.cu:
     # vft_gemm_tf32, launched by kernels/tf32_gemm.py for checks)
     "vft_gemm_tf32": 0,
+    # and one bf16 product (vft_gemm_wgmma, launched by kernels/bf16_gemm.py
+    # for checks)
+    "vft_gemm_wgmma": 0,
     # the backwards' weight products alone (csrc/vector_field_bwd.cu,
     # launched by kernels/wgrad.py for checks): bf16 and f32
     "vfb_wgrad_wgmma": 0, "vfb_wgrad_tf32": 0}

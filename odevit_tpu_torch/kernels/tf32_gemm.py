@@ -108,18 +108,20 @@ def gemm_masks(m: int, n: int, seed: int, drops, n_pad: int, n_real: int,
     return out
 
 
-def tf32_gemm_plain(pairs, epi: str, outs: dict, *, bt: bool = False,
-                    bias=None, aux=None, res=None, rs=None,
-                    scale: float = 1.0, dt: float = 0.0, alpha: float = 0.0,
-                    seed: int = 0, drops=(), n_pad: int = 0,
-                    n_real: int = 0):
-    """The plain version of :func:`tf32_gemm`, in the operands' dtype
-    (float64 operands give the float64 reference): writes ``outs`` in
-    place."""
+def gemm_plain(pairs, epi: str, outs: dict, *, bt: bool = False,
+               bias=None, aux=None, res=None, rs=None, scale: float = 1.0,
+               dt: float = 0.0, alpha: float = 0.0, seed: int = 0,
+               drops=(), n_pad: int = 0, n_real: int = 0):
+    """The plain version of :func:`tf32_gemm` and of
+    ``bf16_gemm.bf16_gemm``: writes ``outs`` in place. The product is
+    summed in the operands' dtype, bf16 operands in f32 (float64 operands
+    give the float64 reference); the epilogue runs in that dtype, and each
+    output is rounded to its own dtype where it is written. ``gelu_drop``
+    also rounds gelu(C) to ``out``'s dtype before the mask, as the kernels
+    do."""
     a0 = pairs[0][0]
-    c = sum(a.to(a0.dtype) @ (b.T if bt else b).to(a0.dtype)
-            for a, b in pairs)
-    dt_ = c.dtype
+    dt_ = torch.float32 if a0.dtype == torch.bfloat16 else a0.dtype
+    c = sum(a.to(dt_) @ (b.T if bt else b).to(dt_) for a, b in pairs)
     m, n = c.shape
     cast = lambda t: None if t is None else t.to(dt_)
     bias, aux, res = cast(bias), cast(aux), cast(res)
@@ -154,7 +156,10 @@ def tf32_gemm_plain(pairs, epi: str, outs: dict, *, bt: bool = False,
         m0, m1 = (t.to(dt_) for t in gemm_masks(m, n, seed, drops, n_pad,
                                                   n_real, c.device))
         if epi == "gelu_drop":
-            w.update(out=_gelu(c) * m0, out32=c)
+            g = _gelu(c)
+            if outs.get("out") is not None:
+                g = g.to(outs["out"].dtype).to(dt_)
+            w.update(out=g * m0, out32=c)
         elif epi == "gelu_grad_drop":
             w["out"] = c * m0 * _gelu_grad(aux)
         else:
@@ -171,42 +176,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def tf32_gemm(pairs, epi: str, outs: dict, *, bt: bool = False, bias=None,
-              aux=None, res=None, rs=None, scale: float = 1.0,
-              dt: float = 0.0, alpha: float = 0.0, seed: int = 0, drops=(),
-              n_pad: int = 0, n_real: int = 0, plain: bool = False):
-    """C = sum over ``pairs`` of A B and the epilogue ``epi`` (see the
-    module docstring), written into ``outs`` ({name in :data:`OUTPUTS`:
-    [M, N] f32 tensor or None}). ``drops``: up to two (site, rate) of the
-    dropout epilogues. f32 contiguous operands, M, N and each K multiples
-    of 16.
-
-    A CUDA tensor launches ``vft_gemm_tf32`` (counted as
-    ``vft_gemm_tf32``); a CPU tensor runs :func:`tf32_gemm_plain`, as does
-    ``plain=True``."""
+def check_call(pairs, epi: str, drops, bt: bool):
+    """The call's shape rules common to both products: (M, N) of C."""
     if epi not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epi!r}")
     if not 1 <= len(pairs) <= 2 or len(drops) > 2:
         raise ValueError("one or two pairs, at most two dropout sites")
-    a0 = pairs[0][0]
-    if plain or a0.device.type == "cpu":
-        return tf32_gemm_plain(pairs, epi, outs, bt=bt, bias=bias, aux=aux,
-                               res=res, rs=rs, scale=scale, dt=dt,
-                               alpha=alpha, seed=seed, drops=drops,
-                               n_pad=n_pad, n_real=n_real)
-    m = a0.shape[0]
+    m = pairs[0][0].shape[0]
     n = pairs[0][1].shape[0 if bt else 1]
-    tensors = [t for ab in pairs for t in ab] + [
-        t for t in (bias, aux, res, rs, *outs.values()) if t is not None]
-    if any(t.dtype != torch.float32 or not t.is_contiguous()
-           or t.device != a0.device for t in tensors):
-        raise ValueError("tf32_gemm takes contiguous f32 tensors on one "
-                         "device")
     for a, b in pairs:
         k = a.shape[1]
         if a.shape[0] != m or tuple(b.shape) != ((n, k) if bt else (k, n)):
             raise ValueError(f"pair shapes {tuple(a.shape)} x "
                              f"{tuple(b.shape)} do not make [{m}, {n}]")
+    return m, n
+
+
+def gemm_args(pairs, epi: str, outs: dict, *, bt, bias, aux, res, rs, scale,
+              dt, alpha, seed, drops, n_pad, n_real) -> _GemmArgs:
+    """``vft::GemmArgs`` of one call (contiguous operands and outputs)."""
+    m, n = check_call(pairs, epi, drops, bt)
     g = _GemmArgs()
     for p, (a, b) in enumerate(pairs):
         g.a[p], g.b[p] = a.data_ptr(), b.data_ptr()
@@ -223,12 +212,46 @@ def tf32_gemm(pairs, epi: str, outs: dict, *, bt: bool = False, bias=None,
         g.th[i] = threshold(rate) if rate > 0.0 else 0
         g.sc[i] = keep_scale(rate) if rate > 0.0 else 1.0
     g.mask[0], g.mask[1] = _ptr(outs.get("mask0")), _ptr(outs.get("mask1"))
-    lib = _library()
-    err = lib.vft_tf32_gemm(int(bt), int(epi in DROP_EPILOGUES),
-                            ctypes.byref(g),
-                            torch.cuda.current_stream(a0.device).cuda_stream)
+    return g
+
+
+def raise_on(err: int, kernel: str) -> None:
+    """Raises where a launch of ``kernel`` returned a CUDA error."""
     if err:
         from odevit_tpu_torch.kernels.tiled import _library as tiled_library
-        raise RuntimeError("vft_gemm_tf32 launch failed: "
+        raise RuntimeError(f"{kernel} launch failed: "
                            + tiled_library().vft_error_string(err).decode())
+
+
+def tf32_gemm(pairs, epi: str, outs: dict, *, bt: bool = False, bias=None,
+              aux=None, res=None, rs=None, scale: float = 1.0,
+              dt: float = 0.0, alpha: float = 0.0, seed: int = 0, drops=(),
+              n_pad: int = 0, n_real: int = 0, plain: bool = False):
+    """C = sum over ``pairs`` of A B and the epilogue ``epi`` (see the
+    module docstring), written into ``outs`` ({name in :data:`OUTPUTS`:
+    [M, N] f32 tensor or None}). ``drops``: up to two (site, rate) of the
+    dropout epilogues. f32 contiguous operands, M, N and each K multiples
+    of 16.
+
+    A CUDA tensor launches ``vft_gemm_tf32`` (counted as
+    ``vft_gemm_tf32``); a CPU tensor runs :func:`gemm_plain`, as does
+    ``plain=True``."""
+    kw = dict(bt=bt, bias=bias, aux=aux, res=res, rs=rs, scale=scale, dt=dt,
+              alpha=alpha, seed=seed, drops=drops, n_pad=n_pad,
+              n_real=n_real)
+    check_call(pairs, epi, drops, bt)
+    a0 = pairs[0][0]
+    if plain or a0.device.type == "cpu":
+        return gemm_plain(pairs, epi, outs, **kw)
+    tensors = [t for ab in pairs for t in ab] + [
+        t for t in (bias, aux, res, rs, *outs.values()) if t is not None]
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           or t.device != a0.device for t in tensors):
+        raise ValueError("tf32_gemm takes contiguous f32 tensors on one "
+                         "device")
+    g = gemm_args(pairs, epi, outs, **kw)
+    err = _library().vft_tf32_gemm(
+        int(bt), int(epi in DROP_EPILOGUES), ctypes.byref(g),
+        torch.cuda.current_stream(a0.device).cuda_stream)
+    raise_on(err, "vft_gemm_tf32")
     count_launch("vft_gemm_tf32")
