@@ -751,7 +751,8 @@ def profile_step(step, state, batch, top: int = 12):
             and e.self_device_time_total > 0]
     device_ms = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    gone = OLD_WGRADS + OLD_F32_CTA + OLD_KT_BF16 + (OLD_GEMM_BF16,)
+    gone = (OLD_WGRADS + OLD_F32_CTA + OLD_BF16_CTA + OLD_KT_BF16
+            + (OLD_GEMM_BF16,))
     old = [k for k, _, _ in rows if any(o in k for o in gone)]
     check(not old, f"profiled step ran {gone}: {old}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
@@ -801,6 +802,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
             wgrad0 = wgrad_launches()
             gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
+            rows0 = rows_bf16_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -815,6 +817,8 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
         gemm = (gemm_launches() - gemm0 if path == "kernels"
                 else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
+        rows = (rows_bf16_launches() - rows0 if path == "kernels"
+                else None)
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step, timed by CUDA events around its parts
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
@@ -846,7 +850,7 @@ def train_runs(images_u8, labels, drops=None, l2=False, model_fn=None,
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
             "gemm_launches": gemm,
-            "f32_cta_launches": cta,
+            "f32_cta_launches": cta, "rows_bf16_launches": rows,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -882,6 +886,12 @@ def f32_cta_launches() -> dict:
     from odevit_tpu_torch.kernels.vector_field import f32_launches
     from odevit_tpu_torch.kernels.vector_field_bwd import rows_f32_launches
     return {"fwd": f32_launches(), "bwd": rows_f32_launches()}
+
+
+def rows_bf16_launches() -> int:
+    """``vfb_rows_bf16``'s launches so far (its library's C counter)."""
+    from odevit_tpu_torch.kernels.vector_field_bwd import rows_bf16_launches
+    return rows_bf16_launches()
 
 
 def f32_cta_since(before: dict) -> dict:
@@ -998,7 +1008,8 @@ def check_gemm_route(what: str, launches: dict, got: int, bf16: bool = True):
     return got
 
 
-def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
+def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16",
+                rows_bf16=None):
     """The kernel path against the plain path (losses, first gradient),
     its launches per step against ``want``, and the route of its weight
     products: one launch per backward (``wgrad_expected``) of the
@@ -1029,6 +1040,15 @@ def check_train(name, runs, cos, loss_rel, per_step, want, wgrad="bf16"):
               else {"fwd": 0, "bwd": 0})
     check(k["f32_cta_launches"] == want_c, f"{name}: the f32 one-CTA "
           f"kernels launched {k['f32_cta_launches']}, want {want_c}")
+    # a bf16 step launches vfb_rows_bf16 once per one-CTA backward (its C
+    # counter; ``rows_bf16``: the cell's count over its 3 steps), any
+    # other step never
+    want_r = (sum(k["launches"].get(n, 0) for n in CTA_BWD)
+              if wgrad == "bf16" else 0)
+    check(k["rows_bf16_launches"] == want_r
+          and rows_bf16 in (None, want_r),
+          f"{name}: {ROWS_BF16} launched {k['rows_bf16_launches']} times, "
+          f"the route says {want_r}, the cell {rows_bf16}")
 
 
 def phase_train(images_u8, labels):
@@ -1042,7 +1062,8 @@ def phase_train(images_u8, labels):
     # the CIFAR shape keeps the one-image-per-CTA kernels: the tiled
     # route's counters stay at 0
     check_train("train", runs, cos, loss_rel, per_step,
-                {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48})
+                {"vf_eval": 36, "vf_eval_jasmin": 12, "vf_bwd": 48},
+                rows_bf16=ROWS_BF16_CIFAR)
     return runs["kernels"]["launches"], runs
 
 
@@ -1272,6 +1293,285 @@ def phase_distill_f32(teacher, images_u8, labels):
     return runs
 
 
+ROWS_BF16 = "vfb_rows_bf16"
+# its launches in 3 training steps: the CIFAR bf16 cells (48 one-CTA
+# backwards a step, ± dropout, L2, the stash arm) and the map route (36)
+ROWS_BF16_CIFAR = 144
+ROWS_BF16_MAP = 108
+
+
+def rows_bf16_bound(b: int, n_pad: int, d: int, dh: int, resid=False,
+                    drop=False):
+    """(bound_ms, bound_by, flops) of the bf16 one-CTA backward's rows
+    kernel alone (``vfb_rows_bf16``) on ``b`` images of ``n_pad`` rows:
+    its products, the backward's less the weight products (recomputed qkv
+    and h1 unless ``resid``; the two head products; h_bar, m_bar, cb,
+    v_bar, p_bar, q_bar, k_bar, a_bar) over the bf16 peak, against x and
+    g read and the scratch operands (cn_m, cn_a, gd (, gd2), ctx, h,
+    h1_bar, [q_bar k_bar v_bar]) and x_bar written in bf16, the weights
+    read once (with ``resid`` also rqkv and rh1 read)."""
+    flops = b * (n_pad * (14 * d * d + 6 * d * dh) + 12 * n_pad * n_pad * d)
+    if resid:
+        flops -= b * n_pad * (6 * d * d + 2 * d * dh)
+    rows = b * n_pad * ((11 if drop else 10) * d + 2 * dh
+                        + (3 * d + dh if resid else 0))
+    nbytes = 2 * (rows + 4 * d * d + 2 * d * dh)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return ((t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")) \
+        + (flops,)
+
+
+def rows_bf16_report(x, w, gx, kw, extra, resid=False, drop=False):
+    """The bf16 one-CTA backward's rows kernel alone on one state: its
+    device time a launch under the profiler (the part of ``vf_bwd`` whose
+    name holds ``vfb_rows``: ``vfb_rows_bf16``, or the old ``vfb_rows<``
+    on a tree that still has it), its bound and rate, and the tiled
+    route's backward on the same inputs as the yardstick: its time by CUDA
+    events, and less its weight products and reduce (their device time a
+    launch, each once a call)."""
+    import torch
+    from odevit_tpu_torch.kernels.dropout import drop_spec
+    from odevit_tpu_torch.kernels.tiled import tiled_backward
+    from odevit_tpu_torch.kernels.vector_field_bwd import (vf_bwd,
+                                                           weight_splits)
+    b, n_pad, d = x.shape
+    dh = w.w1.shape[1]
+    fn = lambda: vf_bwd(x, w, gx, **kw, **extra)
+    # the profiler records no device event now and then (PERF.md §7): a
+    # few tries, else the kernel's time is not measured in this run
+    for _ in range(3):
+        parts = kernel_parts(fn)
+        rows = {k: v for k, v in parts.items() if "vfb_rows" in k}
+        if parts:
+            break
+    check(len(rows) == 1 or not parts,
+          f"vf_bwd's rows kernel among {list(parts)}")
+    name, part = next(iter(rows.items())) if rows else (None, None)
+    ms = part["ms_per_launch"] if part else None
+    bound_ms, bound_by, flops = rows_bf16_bound(b, n_pad, d, dh, resid, drop)
+    tkw = dict(num_heads=kw["num_heads"], scaler=kw["scaler"],
+               n_real=kw["n_real"],
+               splits=weight_splits(b * n_pad, d, dh, dtype=x.dtype),
+               g_jas=extra.get("g_jas"), jas_idx=extra.get("jas_idx"),
+               drop=drop_spec(extra.get("seed"), extra.get("drops",
+                                                           (0.0,) * 3)),
+               rqkv=extra.get("resid_qkv"), rh1=extra.get("resid_h1"))
+    tb = lambda: tiled_backward(x, w, gx, **tkw)
+    tiled_ms = cuda_ms(tb, iters=5)
+    tparts = kernel_parts(tb)
+    wr = (sum(v["ms_per_launch"] for k, v in tparts.items()
+              if "vfb_wgrad" in k or "vfb_reduce" in k) if tparts else None)
+    return {"kernel": name, "ms": ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "gflop": flops / 1e9,
+            "tflops": flops / ms / 1e9 if ms else None,
+            "vf_bwd_ms": cuda_ms(fn, iters=5),
+            "tiled_yardstick": {
+                "backward_ms": tiled_ms,
+                "less_weight_products_ms": (tiled_ms - wr if wr is not None
+                                            else None),
+                "weight_products_ms": wr}}
+
+
+def rows_bf16_cases(images_u8) -> dict:
+    """The bf16 one-CTA backward's instances on the CIFAR training state
+    (B=1024: the first state of one batch, its cotangent N(0, 1e-3), the
+    JaSMin cotangent and columns of the forward at that state): name ->
+    (x, w, gx, keywords, the instance's keywords, resid, drop). The
+    deterministic instance ± the JaSMin cotangent, dropout at the
+    recipe's rates, L2 (the L2 model's weights and state), resid (the
+    stash forward's residuals)."""
+    import torch
+    from odevit_tpu_torch.kernels.vector_field import vf_eval_jasmin
+    from odevit_tpu_torch.models.vit_ode import ViTODE
+    out = {}
+    for fam, model in (("softmax", ViTODE(
+            **SHAPE, num_eval_steps=13, solver="rk4", dtype=torch.bfloat16,
+            device="cuda", seed=0)), ("l2", l2_model())):
+        with torch.no_grad():
+            x, w, kw = first_state(model, images_u8)
+            g = torch.Generator(device="cuda").manual_seed(3)
+            gx = (torch.randn(x.shape, generator=g, device="cuda")
+                  * 1e-3).to(torch.bfloat16)
+            _, st, idx, (rq, rh) = (
+                vf_eval_jasmin(x, w, jas_k=JASMIN_K, stash=True, **kw)
+                if fam == "softmax" else
+                (*vf_eval_jasmin(x, w, jas_k=JASMIN_K, **kw), (None, None)))
+            gj = torch.randn(st.shape, generator=g, device="cuda") * 1e-3
+            gj[..., kw["n_real"]:] = 0
+            jas = dict(g_jas=gj, jas_idx=idx)
+            if fam == "l2":
+                out["l2"] = (x, w, gx, kw, jas, False, False)
+                continue
+            out["det"] = (x, w, gx, kw, {}, False, False)
+            out["jas"] = (x, w, gx, kw, jas, False, False)
+            out["drop"] = (x, w, gx, kw, dict(
+                seed=DROP_SEEDS[2], drops=DROP_RATES, **jas), False, True)
+            out["resid"] = (x, w, gx, kw, dict(
+                resid_qkv=rq, resid_h1=rh, **jas), True, False)
+        del model
+    return out
+
+
+def recompute_matches_stash(x, w, gx, kw, extra, rq, rh) -> bool:
+    """Whether the one-CTA backward's recomputed q, k and v are bit for bit
+    the forward's (its stash, ``rq``): then every attention-side cotangent
+    (the attention norm's two, Wqkv's, Wout's) of the recompute instance
+    equals the resid instance's; the MLP side differs by design (the
+    resid instance reads h1 rounded)."""
+    import torch
+    from odevit_tpu_torch.kernels.vector_field_bwd import vf_bwd
+    a = vf_bwd(x, w, gx, **kw, **extra)
+    b = vf_bwd(x, w, gx, resid_qkv=rq, resid_h1=rh, **kw, **extra)
+    torch.cuda.synchronize()
+    return all(torch.equal(a[i], b[i]) for i in (1, 2, 5, 6))
+
+
+def phase_rows_bf16_only(images_u8):
+    """``python3 chip_smoke.py --rows``: the bf16 one-CTA backward's rows
+    kernel alone at the CIFAR training state in every instance, beside the
+    tiled route's backward (``rows_bf16_report``); on this tree or, copied
+    into it, on an older one whose kernel is ``vfb_rows<``."""
+    cases = rows_bf16_cases(images_u8)
+    out = {name: rows_bf16_report(x, w, gx, kw, extra, resid, drop)
+           for name, (x, w, gx, kw, extra, resid, drop) in cases.items()}
+    x, w, gx, kw, extra = cases["resid"][:5]
+    jas = {k: extra[k] for k in ("g_jas", "jas_idx")}
+    out["recomputed_qkv_bit_identical"] = recompute_matches_stash(
+        x, w, gx, kw, jas, extra["resid_qkv"], extra["resid_h1"])
+    emit("rows_bf16_only", shape=f"B={BATCH} n=69/80 D=192 H=3 dh=768 "
+         f"bf16", results=out)
+    return out
+
+
+# vfb_rows_bf16's plans that the CIFAR shape (cn and gd resident, chunks
+# of 64, blocks of 192, four slots) does not take: (n_real, n_pad, D,
+# heads, dh) -> the deterministic instance's (cn_smem, chunk, block, slots)
+BF16_BWD_PLANS = (
+    ((29, 32, 64, 2, 64), (1, 64, 192, 4)),         # D=64, dh=64, 32 rows
+    ((125, 128, 64, 2, 64), (0, 64, 192, 4)),       # 128 rows: cn staged
+    ((69, 80, 32, 2, 32), (1, 32, 192, 4)),         # chunks of 32
+    ((29, 32, 48, 3, 48), (1, 16, 192, 4)),         # chunks of 16, hd 16
+    ((9, 16, 256, 4, 256), (1, 64, 192, 4)),        # blocks of 192 and 64
+    ((61, 64, 384, 6, 384), (1, 64, 32, 4)),        # blocks of 32
+    ((109, 112, 320, 5, 320), (0, 64, 32, 3)),      # three slots
+    ((110, 112, 384, 6, 384), (0, 32, 128, 2)))     # two slots
+BF16_BWD_INSTANCES = ("det", "jas", "drop", "l2", "resid")
+BF16_CHECK_DROPS = (0.2, 0.1, 0.3)
+
+
+def bf16_bwd_plans_vs_plain():
+    """``vfb_rows_bf16`` at B=4 on each plan of ``BF16_BWD_PLANS``, in
+    every instance (deterministic ± the JaSMin cotangent, dropout at mixed
+    rates, L2 with nonzero biases, resid with random residuals) against
+    ``vf_bwd_plain``: every cotangent within ``TOL_BF16`` of max|plain|,
+    finite, repeats bit-identical, NaN and garbage in the padded rows of
+    x, g and the residuals inert, one launch of the C counter a call; with
+    dropout the zeros of the h, gd and gd2 operands (``scratch``) exactly
+    those of the generator's mask_h, mask_mo and mask_ao on the real
+    rows."""
+    import torch
+    from odevit_tpu_torch.kernels import launch_counts
+    from odevit_tpu_torch.kernels.dropout import masks_plain
+    from odevit_tpu_torch.kernels.vector_field_bwd import (bf16_bwd_plan,
+                                                           vf_bwd)
+    before = dict(launch_counts)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    r = lambda *sh: torch.randn(*sh, generator=g, device="cuda")
+    results = []
+    for (n_real, n_pad, d, heads, dh), want_plan in BF16_BWD_PLANS:
+        b = 4
+        plan = bf16_bwd_plan(n_pad, n_real, d, heads, dh)
+        check(plan is not None and plan[:4] == want_plan,
+              f"bf16 backward plan at {n_pad} {d} {heads} {dh}: {plan}")
+        w = stash_weights(torch.bfloat16, d, heads, dh, g)
+        x = r(b, n_pad, d)
+        x[:, n_real:] = 0
+        gx = r(b, n_pad, d) * 1e-2
+        gx[:, n_real:] = 0
+        x, gx = x.to(torch.bfloat16), gx.to(torch.bfloat16)
+        dirty, gdirty = x.clone(), gx.clone()
+        dirty[:, n_real::2] = float("nan")
+        dirty[:, n_real + 1::2] = 1e30
+        gdirty[:, n_real:] = 7.0
+        gj = r(b, heads, 5, n_pad) * 1e-2
+        gj[..., n_real:] = 0
+        idx = torch.randint(0, n_real, (b, heads, 4, n_pad), generator=g,
+                            device="cuda", dtype=torch.int32)
+        rq = r(b * n_pad, 3 * d).to(torch.bfloat16)
+        rh = r(b * n_pad, dh).to(torch.bfloat16)
+        rq.view(b, n_pad, -1)[:, n_real:] = 0
+        rh.view(b, n_pad, -1)[:, n_real:] = 0
+        rqd, rhd = rq.clone(), rh.clone()
+        rqd.view(b, n_pad, -1)[:, n_real:] = float("nan")
+        rhd.view(b, n_pad, -1)[:, n_real:] = float("nan")
+        res = {"shape": f"B={b} n={n_real}/{n_pad} D={d} H={heads} dh={dh}",
+               "plan": plan}
+        kw = dict(num_heads=heads, scaler=0.7, n_real=n_real)
+        for inst in BF16_BWD_INSTANCES:
+            wi, extra, dextra = w, {}, {}
+            if inst == "jas":
+                extra = dict(g_jas=gj, jas_idx=idx)
+            elif inst == "drop":
+                extra = dict(seed=DROP_SEEDS[1], drops=BF16_CHECK_DROPS,
+                             g_jas=gj, jas_idx=idx)
+            elif inst == "l2":
+                wi = w._replace(qkv_bias=L2_BIAS_SCALE * r(3 * d),
+                                out_bias=L2_BIAS_SCALE * r(d))
+                extra = dict(g_jas=gj, jas_idx=idx)
+            elif inst == "resid":
+                extra = dict(resid_qkv=rq, resid_h1=rh)
+                dextra = dict(resid_qkv=rqd, resid_h1=rhd)
+            at = rows_bf16_launches()
+            scratch = {}
+            got = vf_bwd(x, wi, gx, scratch=scratch, **kw, **extra)
+            again = vf_bwd(x, wi, gx, **kw, **extra)
+            padded = vf_bwd(dirty, wi, gdirty, **kw, **{**extra, **dextra})
+            want = vf_bwd(x, wi, gx, plain=True, **kw, **extra)
+            torch.cuda.synchronize()
+            errs = [rel_err(a[:, :n_real] if i == 0 else a,
+                            c[:, :n_real] if i == 0 else c)
+                    for i, (a, c) in enumerate(zip(got, want))]
+            ri = {"max_rel_err": max(errs),
+                  "launches": rows_bf16_launches() - at}
+            what = f"bf16 backward {res['shape']} {inst}"
+            check(all(bool(torch.isfinite(a).all()) for a in got),
+                  f"{what}: non-finite cotangent")
+            check(ri["max_rel_err"] <= TOL_BF16, f"{what}: {errs}")
+            check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                  f"{what} not repeatable")
+            check(all(torch.equal(a, c) for a, c in zip(got, padded)),
+                  f"{what}: padded rows reached a cotangent")
+            check(ri["launches"] == 3, f"{what}: {ROWS_BF16} launched "
+                  f"{ri['launches']} times for 3 calls")
+            if inst == "drop":
+                mh, mmo, mao, _ = masks_plain(
+                    b, n_real, d, dh, heads, DROP_SEEDS[1], BF16_CHECK_DROPS,
+                    device="cuda", n_pad=n_pad)
+                ri["mask_zeros_differ"] = {
+                    name: int(((scratch[name].view(b, n_pad, -1)[:, :n_real]
+                                != 0) != (m[:, :n_real] != 0)).sum())
+                    for name, m in (("h", mh), ("gd", mmo), ("gd2", mao))}
+                check(not any(ri["mask_zeros_differ"].values()),
+                      f"{what}: masks {ri['mask_zeros_differ']}")
+            res[inst] = ri
+        results.append(res)
+    launch_counts.update(before)           # comparisons do not count
+    emit("bf16_bwd_plans_vs_plain", tol=TOL_BF16, drops=BF16_CHECK_DROPS,
+         results=results)
+    return results
+
+
+def rows_bf16_resources() -> dict:
+    """Registers and spills of each ``vfb_rows_bf16`` instance (none may
+    spill)."""
+    res = kernel_resources("vector_field_bwd", [ROWS_BF16])
+    spills = [k for k, r in res.items()
+              if r["spill_stores"] or r["spill_loads"]]
+    check(not spills, f"{ROWS_BF16} spills: {spills}")
+    return res
+
+
 def phase_train_kernel_timing(model, images_u8):
     """Each training kernel alone on the main path's inputs (the first
     JaSMin-window state of one image batch) against its plain version."""
@@ -1330,6 +1630,13 @@ def phase_train_kernel_timing(model, images_u8):
                     iters=2),
                 **dict(zip(("bound_ms", "bound_by"), bwd_bound(
                     BATCH, n_real, 192, 768, 3, 2)))}}
+        # the rows kernel alone, ± the JaSMin cotangent, beside the tiled
+        # route's backward
+        out["vf_bwd"][ROWS_BF16] = rows_bf16_report(
+            x, w, gx, kw, dict(g_jas=gj, jas_idx=idx))
+        out["vf_bwd"][ROWS_BF16 + "_no_jas"] = rows_bf16_report(
+            x, w, gx, kw, {})
+        out["vf_bwd"][ROWS_BF16]["resources"] = rows_bf16_resources()
     launch_counts.update(before)           # comparisons do not count
     emit("train_kernel_timing", shape=f"B={BATCH} n={n_real}/80 D=192 H=3 "
          f"dh=768 bf16", results=out)
@@ -1556,7 +1863,7 @@ def phase_train_dropout(images_u8, labels, det):
          launches_per_step=per_step, results=runs)
     check_train("train_dropout", runs, cos, loss_rel, per_step,
                 {"vf_eval_drop": 36, "vf_eval_jasmin_drop": 12,
-                 "vf_bwd_drop": 48})
+                 "vf_bwd_drop": 48}, rows_bf16=ROWS_BF16_CIFAR)
     return k["launches"]
 
 
@@ -1636,6 +1943,8 @@ def phase_dropout_kernel_timing(model, images_u8):
                          "bound_unit": unit, "library_ms": None}
         check(out["dropout_masks"]["max_abs_err"] == 0.0,
               "the generator is not bit-identical at B=1024")
+        out["vf_bwd_drop"][ROWS_BF16] = rows_bf16_report(
+            x, w, gx, kw, dict(g_jas=gj, jas_idx=idx, **dkw), drop=True)
         gen = torch.Generator(device="cuda").manual_seed(8)
         flat = torch.empty(elements, device="cuda")
         out["dropout_masks"]["library_ms"] = cuda_ms(
@@ -1859,6 +2168,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
             wgrad0 = wgrad_launches()
             gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
+            rows0 = rows_bf16_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
             t0 = time.perf_counter()
@@ -1873,6 +2183,8 @@ def distill_runs(teacher, images_u8, labels, drops=None,
         gemm = (gemm_launches() - gemm0 if path == "kernels"
                 else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
+        rows = (rows_bf16_launches() - rows0 if path == "kernels"
+                else None)
         peak = torch.cuda.max_memory_allocated() / 1e9
         seeds = (draw_step_seeds(rng, state.step, model.num_eval_steps - 1)
                  if drops else None)
@@ -1909,7 +2221,7 @@ def distill_runs(teacher, images_u8, labels, drops=None,
                          "optimizer": ev[3].elapsed_time(ev[4])},
             "launches": launches, "wgrad_launches": wgrad,
             "gemm_launches": gemm,
-            "f32_cta_launches": cta,
+            "f32_cta_launches": cta, "rows_bf16_launches": rows,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -2935,7 +3247,7 @@ def phase_stash_train(images_u8, labels, teacher, images_d, labels_d,
     runs, profile, cos, loss_rel, per_step = train_runs(images_u8, labels,
                                                         stash=True)
     check_train(cells[0], runs, cos, loss_rel, per_step,
-                STASH_LAUNCHES[cells[0]])
+                STASH_LAUNCHES[cells[0]], rows_bf16=ROWS_BF16_CIFAR)
     ab = stash_ab(
         cifar, lambda m, s: make_fast_free_train_step(
             m, jasmin_k=JASMIN_K, preprocess_fn=pre, stash=s),
@@ -3123,6 +3435,13 @@ def phase_stash_kernel_timing(images_u8, images_d, images_r4):
                                           plain=pl, **res, **kw),
                         bounds["bwd"], 0)}
             out.update(time_jobs(jobs, n_real))
+            if not sfx:
+                out["vf_bwd_resid"][ROWS_BF16] = rows_bf16_report(
+                    x, w, gx, kw, dict(g_jas=gj, jas_idx=idx, **res),
+                    resid=True)
+                out["vf_bwd_resid"]["recomputed_qkv_bit_identical"] = \
+                    recompute_matches_stash(x, w, gx, kw, dict(
+                        g_jas=gj, jas_idx=idx), rq, rh)
         del model
     launch_counts.update(before)           # comparisons do not count
     emit("stash_kernel_timing", shapes=shapes, results=out)
@@ -3511,15 +3830,16 @@ def l2_plans_agree():
     (``cta_plan``, ``cta_bwd_plan``: deterministic and dropout) and of
     the f32 kernels' layouts (``f32_plan``, ``f32_bwd_plan``: each
     instance) against ``vf_plan``/``vfb_plan`` and ``vf_plan_f32``/
-    ``vfb_plan_f32``."""
+    ``vfb_plan_f32``, and of the bf16 backward's layout
+    (``bf16_bwd_plan``: each instance) against ``vfb_plan_bf16``."""
     import torch
     from odevit_tpu_torch.kernels.vector_field import (cta_plan, f32_plan,
                                                        kernel_plan,
                                                        kernel_plan_f32,
                                                        l2_plan)
     from odevit_tpu_torch.kernels.vector_field_bwd import (
-        bwd_plan, cta_bwd_plan, f32_bwd_plan, kernel_bwd_plan_f32,
-        l2_bwd_plan)
+        bf16_bwd_plan, bwd_plan, cta_bwd_plan, f32_bwd_plan,
+        kernel_bwd_plan_bf16, kernel_bwd_plan_f32, l2_bwd_plan)
 
     def c_plan(fn, *args, l2=True, **kw):
         try:
@@ -3534,7 +3854,12 @@ def l2_plans_agree():
                 want = c_plan(c, dtype, *shape, drop, l2=False)
                 check(got == want, f"{py.__name__} {dtype} {shape} "
                       f"drop={drop}: python {got}, CUDA {want}")
-        if dtype != torch.float32:
+        if dtype == torch.bfloat16:
+            for drop, l2 in ((False, False), (True, False), (False, True)):
+                got = bf16_bwd_plan(*shape, drop=drop, l2=l2)
+                want = c_plan(kernel_bwd_plan_bf16, *shape, drop=drop, l2=l2)
+                check(got == want, f"bf16_bwd_plan {shape} drop={drop} "
+                      f"l2={l2}: python {got}, CUDA {want}")
             return
         for drop, l2 in ((False, False), (True, False), (False, True)):
             for py, c in ((f32_plan, kernel_plan_f32),
@@ -3765,7 +4090,8 @@ def phase_l2_train(images_u8, labels, det):
          min_cosine=MIN_GRAD_COSINE, loss_rel_diff=loss_rel,
          tol_loss=TOL_TRAIN_LOSS, launches_per_step=per_step, results=runs)
     check_train("l2_train", runs, cos, loss_rel, per_step,
-                {"vf_eval_l2": 36, "vf_eval_jasmin_l2": 12, "vf_bwd_l2": 48})
+                {"vf_eval_l2": 36, "vf_eval_jasmin_l2": 12, "vf_bwd_l2": 48},
+                rows_bf16=ROWS_BF16_CIFAR)
     return k["launches"]
 
 
@@ -3857,6 +4183,9 @@ def phase_l2_kernel_timing(images_u8, tsbase=False):
                         iters=2),
                     **dict(zip(("bound_ms", "bound_by"), bwd_bound(
                         b, n_real, d, dh, heads, 2)))}}
+            if not tsbase:
+                out["vf_bwd_l2"][ROWS_BF16] = rows_bf16_report(
+                    x, w, gx, kw, dict(g_jas=gj, jas_idx=idx))
     launch_counts.update(before)           # comparisons do not count
     emit("tsbase_l2_kernel_timing" if tsbase else "l2_kernel_timing",
          shape=f"B={b} n={n_real}/{state.shape[1]} D={d} H={heads} "
@@ -4274,6 +4603,7 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
             wgrad0 = wgrad_launches()
             gemm0 = gemm_launches()
             cta0 = f32_cta_launches()
+            rows0 = rows_bf16_launches()
             mac0 = f32_launches()
         losses, ms, metrics, first_grad = [], [], None, None
         for i in range(TRAIN_STEPS):
@@ -4289,6 +4619,8 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
         gemm = (gemm_launches() - gemm0 if path == "kernels"
                 else None)
         cta = f32_cta_since(cta0) if path == "kernels" else None
+        rows = (rows_bf16_launches() - rows0 if path == "kernels"
+                else None)
         mac = f32_launches() - mac0 if path == "kernels" else None
         peak = torch.cuda.max_memory_allocated() / 1e9
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -4314,7 +4646,8 @@ def macaron_train_runs(images_u8, labels, model_fn=None, pre=None):
                          "optimizer": ev[2].elapsed_time(ev[3])},
             "launches": launches, "wgrad_launches": wgrad,
             "gemm_launches": gemm,
-            "f32_cta_launches": cta, "mac_kernel_f32_launches": mac,
+            "f32_cta_launches": cta, "rows_bf16_launches": rows,
+            "mac_kernel_f32_launches": mac,
             "first_grad": first_grad}
         del model, state, step
     k, p = runs["kernels"], runs["plain"]
@@ -5034,6 +5367,9 @@ OLD_WGRADS = ("vfb_wgrad_bf16", "vfb_wgrad_f32")
 # the one-CTA kernels' old f32 instances, which vf_kernel_f32,
 # vfb_rows_f32 and mac_kernel_f32 replaced: no step may launch them
 OLD_F32_CTA = ("vf_kernel<float", "vfb_rows<float", "mac_kernel<float")
+# the bf16 one-CTA backward's old kernel, replaced by vfb_rows_bf16: no
+# profiled step may launch it
+OLD_BF16_CTA = ("vfb_rows<__nv_bfloat16",)
 # the first key-tiled CTA's bf16 softmax instances (forward and backward),
 # which vft_attn_kt_fwd and vft_attn_kt_bwd replaced
 OLD_KT_BF16 = ("vft_attn_kt<__nv_bfloat16, false",)
@@ -5570,7 +5906,8 @@ def phase_map_route(images_u8, labels):
             images_u8, labels, drops=drops, model_fn=model_fn,
             jasmin_k=MAP_ROUTE_K)
         name = "drop0.1" if drops else "deterministic"
-        check_train(f"map_route {name}", runs, cos, loss_rel, per_step, want)
+        check_train(f"map_route {name}", runs, cos, loss_rel, per_step, want,
+                    rows_bf16=ROWS_BF16_MAP)
         k = runs["kernels"]
         out[name] = {"img_per_s": k["img_per_s_best_of_2_3"],
                      "plain_img_per_s": runs["plain"]["img_per_s_best_of_2_3"],
@@ -6861,6 +7198,12 @@ def main() -> int:
     from odevit_tpu_torch.models.vit_ode import ViTODE
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--rows"]:
+        # the rows kernel alone (phase_rows_bf16_only), and nothing else
+        rng = np.random.default_rng(0)
+        phase_rows_bf16_only(torch.from_numpy(rng.integers(
+            0, 256, (BATCH, 32, 32, 3), dtype=np.uint8)).cuda())
+        return 0
 
     smi = phase_card()
     wgrad = phase_wgrad_vs_plain()
@@ -6879,6 +7222,7 @@ def main() -> int:
     timing = phase_vf_timing(models["euler-49"], x)
     phase_serving(models["euler-49"], rng)
     phase_train_kernels_vs_plain(models["rk4-13"])
+    bf16_bwd_plans_vs_plain()
     labels = torch.from_numpy(rng.integers(0, 100, BATCH)).cuda()
     train_launches, train = phase_train(images, labels)
     train_timing = phase_train_kernel_timing(models["rk4-13"], images)
@@ -6997,7 +7341,8 @@ def main() -> int:
         "launches": train_launches["vf_bwd"],
         **{k: v for k, v in train_timing["vf_bwd"].items()
            if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by")},
+                    "bound_by", ROWS_BF16, ROWS_BF16 + "_no_jas")},
+        "rows_bf16_launches": train["kernels"]["rows_bf16_launches"],
         "library_ms": None}]
     # the f32 one-CTA kernels on the f32 cell's path (its 3 kernel steps;
     # vf_kernel_f32 and vfb_rows_f32 by their C counters beside), timed at
@@ -7052,7 +7397,8 @@ def main() -> int:
                          else drop_launches[name]),
             **{k: v for k, v in drop_timing[name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "bound_unit", "library_ms")}})
+                        "bound_by", "bound_unit", "library_ms",
+                        ROWS_BF16)}})
     for name, cell in (
             ("vf_eval_euler_tiled", "tsbase-serve-euler25-b64-bf16"),
             ("vf_eval_base_tiled", "tsbase-serve-rk4-7-b64-bf16")):
@@ -7098,7 +7444,7 @@ def main() -> int:
                if name == "vf_eval_l2" else {}),
             **{k: v for k, v in l2_timing[name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by")},
+                        "bound_by", ROWS_BF16)},
             "library_ms": None})
     for name, source, line in (("macaron_eval", "macaron.cu", 45),
                                ("macaron_bwd", "macaron_bwd.cu", 218)):
@@ -7194,7 +7540,7 @@ def main() -> int:
             "launches": stash_launches[stash_cells[cell]][name],
             **{k: v for k, v in stash_timing[name].items()
                if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}}
+                        "bound_by", "library_ms", ROWS_BF16)}}
         if name.startswith("vf_eval") and cell == 1:
             # the ratio-4 cell's stash forwards, timed at its state
             entry["launches_r4"] = stash_launches[stash_cells[2]][name]

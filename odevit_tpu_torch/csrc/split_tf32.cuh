@@ -607,4 +607,385 @@ __device__ __forceinline__ void put2(float* p, float v0, float v1) {
   *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
 }
 
+// ---- bf16 products on mma.sync (gemm_b16) ----
+// gemm_tf32's bf16 sibling, the products of the bf16 one-CTA backward
+// (vector_field_bwd.cu: vfb_rows_bf16): bf16 operands, f32 accumulators,
+// one mma.sync m16n8k16 a k-step, fragments read from shared memory by
+// ldmatrix (.trans where an operand is read transposed). An operand the
+// CTA holds in shared memory is read where it lies (kSA, kSAT; kSB,
+// kSBT); one in device memory (kGA; kGB, kGBT: the weights) reaches
+// shared memory by 16-byte cp.async, K in slices of kSliceB through a
+// ring of 2 to 4 slots, so each slice is staged once for all the warps
+// of the CTA while the next ones land. Each warp owns a register tile of
+// up to TR x TC m16n8 tiles of C and walks K in k-steps of 16 in
+// increasing order (vf::mm's order: a product the forward also takes
+// sums in its order). The caller's epilogue receives each tile's
+// accumulators in registers; with `zero` false they carry over from the
+// last call (the caller keeps them: one column block, one round of
+// tasks). A dual call (kB2 >= 0) takes two products of one shape, A B and
+// A2 B2, on the same tiles, so an epilogue meets both.
+
+constexpr int kSliceB = 32;            // K of one staged slice
+constexpr int kLdSlice = kSliceB + 8;  // stride of a K-contiguous slice
+
+// A [M, K]: in shared memory row-major (kSA) or stored [K][M] (kSAT), or
+// in device memory row-major, staged (kGA). B [K, N]: in shared memory
+// row-major (kSB) or stored [N][K] (kSBT), or in device memory row-major
+// with column strips (kGB) or stored [N][K] (kGBT), staged.
+enum { kSA = 0, kSAT = 1, kGA = 2 };
+enum { kSB = 0, kSBT = 1, kGB = 2, kGBT = 3 };
+
+// An operand: base, row stride, and (kGB) column n at (n / strip) *
+// sstride + n % strip, which gathers a head's q, k and v columns.
+struct Op16 {
+  const bf16* p;
+  int ld;
+  int strip, sstride;
+};
+
+__device__ inline Op16 op16(const bf16* p, int ld, int strip = 1 << 30,
+                            int sstride = 0) {
+  return Op16{p, ld, strip, sstride};
+}
+
+// The warps' tiles of an [M, N] product in m16 x n8 tiles (mt x nt):
+// column groups of tc n8 tiles, the rows in as many groups (each at most
+// tr m16 tiles) as the warps allow. Task t is row group t / cg and column
+// group t % cg.
+struct TilingB16 {
+  int cg, rpg, groups, tasks;
+};
+
+__host__ __device__ constexpr TilingB16 tiling_b16(int mt, int nt, int tr,
+                                                   int tc) {
+  TilingB16 t{};
+  t.cg = (nt + tc - 1) / tc;
+  int groups = (mt + tr - 1) / tr;
+  while (groups < mt && (groups + 1) * t.cg <= kWarps) ++groups;
+  t.rpg = (mt + groups - 1) / groups;
+  t.groups = (mt + t.rpg - 1) / t.rpg;
+  t.tasks = t.groups * t.cg;
+  return t;
+}
+
+// Elements of one ring slot for a product of m rows and column blocks of
+// nw: the staged slices of A (kGA), B, and for a dual call A2 and B2.
+__host__ __device__ constexpr int slice_b16(int nw, int kb) {
+  return kb == kGB ? kSliceB * (nw + 8) : kb == kGBT ? nw * kLdSlice : 0;
+}
+
+__host__ __device__ constexpr int slot_b16(int m, int nw, int ka, int kb,
+                                           int kb2 = -1) {
+  return (ka == kGA ? m * kLdSlice : 0) + slice_b16(nw, kb) +
+         (kb2 >= 0 ? (ka == kGA ? m * kLdSlice : 0) + slice_b16(nw, kb2)
+                   : 0);
+}
+
+// One warp's tile: first row, its m16 tiles, first column, its n8 tiles,
+// its row group.
+struct TileB16 {
+  int r0, rows, c0, cols, rg;
+};
+
+__device__ __forceinline__ unsigned sm_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 8x8 bf16 matrices from shared memory: lane l gives row l % 8 of matrix
+// l / 8 (x2: lanes 0-15); with kTrans each matrix arrives transposed
+// (not volatile: the memory clobber keeps them after the shared-memory
+// stores and barriers before them, and lets them move ahead of products).
+// `a` is a shared-space address.
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned a) {
+  if (kTrans)
+    asm("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a)
+        : "memory");
+  else
+    asm("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a)
+        : "memory");
+}
+
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x2(unsigned& r0, unsigned& r1,
+                                        unsigned a) {
+  if (kTrans)
+    asm("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r0), "=r"(r1)
+        : "r"(a)
+        : "memory");
+  else
+    asm("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+        : "=r"(r0), "=r"(r1)
+        : "r"(a)
+        : "memory");
+}
+
+// c += a b for one m16n8k16 tile (bf16 operands, f32 accumulators)
+__device__ __forceinline__ void mma_b16(float (&c)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Byte offset, from its operand's base at k = 0, of the row this lane
+// gives ldmatrix for the A fragment of rows m0 .. m0 + 15 (a0 .. a3 of
+// mma.sync's layout): row-major at stride ld, or stored [K][M] (kT, read
+// transposed). A k-step of 16 adds 32 bytes, or with kT 32 ld.
+template <bool kT>
+__device__ __forceinline__ unsigned a_lane(int ld, int m0) {
+  const int l = threadIdx.x & 31;
+  return 2u * (kT ? ((l & 7) + ((l >> 4) << 3)) * ld + m0 +
+                        (((l >> 3) & 1) << 3)
+                  : (m0 + (l & 15)) * ld + ((l >> 4) << 3));
+}
+
+// The same for the B fragments (b0, b1) of columns n0 .. n0 + 7 and of n0 +
+// 8 .. n0 + 15 (an x4 load; an x2 takes the first pair): stored [K][N] at
+// stride ld (kKN, read transposed; a k-step adds 32 ld bytes) or [N][K]
+// (32 bytes).
+template <bool kKN>
+__device__ __forceinline__ unsigned b_lane(int ld, int n0) {
+  const int l = threadIdx.x & 31, i = l >> 3;
+  return 2u * (kKN ? ((l & 7) + ((i & 1) << 3)) * ld + n0 + ((i >> 1) << 3)
+                   : (n0 + (l & 7) + ((i >> 1) << 3)) * ld + ((i & 1) << 3));
+}
+
+// C[M, N] = A[M, K] B[K, N] (and with kB2 >= 0 C2 = A2 B2) into the
+// caller's register tiles acc (acc2), N in column blocks of nb; for each
+// warp's tile, epi(tile, acc, acc2). M, N, K multiples of 16, nb of 16;
+// rows of staged operands 16-byte aligned; `ring` holds `stages` slots of
+// `slot` elements (slot_b16). Every thread of the CTA calls it. It begins
+// with a barrier (what was written before is then visible and the ring
+// free) and ends without one: whoever reads what the epilogue wrote in
+// shared memory syncs first.
+template <int TR, int TC, int kA, int kB, int kB2 = -1, typename Epi>
+__device__ void gemm_b16(bf16* ring, int slot, int stages, int M, int N,
+                         int K, int nb, const Op16& A, const Op16& B,
+                         const Op16& A2, const Op16& B2,
+                         float (&acc)[TR][TC][4], float (&acc2)[TR][TC][4],
+                         bool zero, Epi epi) {
+  constexpr bool kDual = kB2 >= 0;
+  constexpr bool kStaged = kA == kGA || kB >= kGB || kB2 >= kGB;
+  const int warp = threadIdx.x / 32;
+  const int mt = M / 16, slices = (K + kSliceB - 1) / kSliceB;
+  for (int nb0 = 0; nb0 < N; nb0 += nb) {
+    const int nw = imin(nb, N - nb0), nt = nw / 8;
+    const TilingB16 tl = tiling_b16(mt, nt, TR, TC);
+    // where each staged part lies in a slot
+    const int a_sz = kA == kGA ? M * kLdSlice : 0;
+    const int boff = a_sz, a2off = boff + slice_b16(nw, kB),
+              b2off = a2off + (kDual ? a_sz : 0);
+    // A K-contiguous part (A, or B stored [N][K]): `rows` rows of kq
+    // 16-byte chunks (kSliceB / 8, fewer on a last partial slice: a power
+    // of two), row r at src + r ld, landing at stride kLdSlice. No
+    // division: chunk i is row i >> lq.
+    auto stage_k = [&](bf16* dst, const bf16* src, int ld, int rows,
+                       int kq) {
+      const int lq = __ffs(kq) - 1;
+#pragma unroll 1
+      for (int i = threadIdx.x; i < rows * kq; i += kThreads) {
+        const int r = i >> lq, q = i & (kq - 1);
+        cp_async16(dst + r * kLdSlice + q * 8, src + (size_t)r * ld + q * 8);
+      }
+    };
+    // A row-major B slice: kv rows of per = nw / 8 chunks; a thread's
+    // (row, chunk) steps by kThreads chunks without a division, and a
+    // column finds its strip by subtraction.
+    const int per = nw / 8, dkr = kThreads / per, dq = kThreads % per;
+    const int kr0 = threadIdx.x / per, q0 = threadIdx.x % per;
+    auto stage_kn = [&](bf16* dst, const Op16& op, int k0, int kv) {
+      int kr = kr0, q = q0;
+#pragma unroll 1
+      while (kr < kv) {
+        int col = nb0 + q * 8, st = 0;
+        while (col >= op.strip) {
+          col -= op.strip;
+          st += op.sstride;
+        }
+        cp_async16(dst + kr * (nw + 8) + q * 8,
+                   op.p + (size_t)(k0 + kr) * op.ld + st + col);
+        kr += dkr;
+        q += dq;
+        if (q >= per) {
+          q -= per;
+          ++kr;
+        }
+      }
+    };
+    auto stage_b = [&](bf16* dst, const Op16& op, int kind, int k0, int kv,
+                       int kq) {
+      if (kind == kGB)
+        stage_kn(dst, op, k0, kv);
+      else if (kind == kGBT)
+        stage_k(dst, op.p + (size_t)nb0 * op.ld + k0, op.ld, nw, kq);
+    };
+    auto stage = [&](int s) {
+      bf16* sl = ring + (size_t)(s % stages) * slot;
+      const int k0 = s * kSliceB, kv = imin(kSliceB, K - k0), kq = kv / 8;
+      if (kA == kGA) stage_k(sl, A.p + k0, A.ld, M, kq);
+      stage_b(sl + boff, B, kB, k0, kv, kq);
+      if (kDual) {
+        if (kA == kGA) stage_k(sl + a2off, A2.p + k0, A2.ld, M, kq);
+        stage_b(sl + b2off, B2, kB2, k0, kv, kq);
+      }
+      cp_async_commit();
+    };
+    for (int task0 = 0; task0 < tl.tasks; task0 += kWarps) {
+      const int task = task0 + warp;
+      const bool active = task < tl.tasks;
+      const int rt0 = active ? (task / tl.cg) * tl.rpg : 0;
+      const int rows = active ? imin(tl.rpg, mt - rt0) : 0;
+      const int j0 = active ? (task % tl.cg) * TC : 0;
+      const int cols = active ? imin(TC, nt - j0) : 0;
+      if (zero) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+#pragma unroll
+          for (int j = 0; j < TC; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              acc[i][j][e] = 0.0f;
+              if (kDual) acc2[i][j][e] = 0.0f;
+            }
+      }
+      // this lane's ldmatrix offsets for the task's fragments (bytes from
+      // each operand's base at k = 0) and the bytes a k of 1 adds
+      constexpr int kP = kDual ? 2 : 1;
+      unsigned aoff[kP][TR], boff2[kP][(TC + 1) / 2];
+      int aunit[kP], bunit[kP];
+#pragma unroll
+      for (int p = 0; p < kP; ++p) {
+        const int kbk = p ? kB2 : kB;
+        const int lda = kA == kGA ? kLdSlice : (p ? A2 : A).ld;
+        const int ldb = kbk == kGB ? nw + 8
+                        : kbk == kGBT ? kLdSlice : (p ? B2 : B).ld;
+        const int nbase = kbk >= kGB ? 0 : nb0;
+        aunit[p] = kA == kSAT ? 2 * lda : 2;
+        bunit[p] = kbk == kSB || kbk == kGB ? 2 * ldb : 2;
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          aoff[p][i] = kA == kSAT ? a_lane<true>(lda, (rt0 + i) * 16)
+                                  : a_lane<false>(lda, (rt0 + i) * 16);
+#pragma unroll
+        for (int j = 0; j < TC; j += 2)
+          boff2[p][j / 2] =
+              kbk == kSB || kbk == kGB
+                  ? b_lane<true>(ldb, nbase + (j0 + j) * 8)
+                  : b_lane<false>(ldb, nbase + (j0 + j) * 8);
+      }
+      const unsigned a_sm[2] = {sm_u32(A.p), sm_u32(A2.p)};
+      const unsigned b_sm[2] = {sm_u32(B.p), sm_u32(B2.p)};
+      // k-steps [kb, ke) of K; staged operands from the slot at shared
+      // address sl, at k - k0
+      auto steps = [&](unsigned sl, int k0, int kb, int ke) {
+#pragma unroll 1
+        for (int k = kb; k < ke; k += 16) {
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            const int kbk = p ? kB2 : kB;
+            const unsigned ab =
+                kA == kGA ? sl + 2 * (p ? a2off : 0) + (k - k0) * aunit[p]
+                          : a_sm[p] + k * aunit[p];
+            const unsigned bb =
+                kbk >= kGB ? sl + 2 * (p ? b2off : boff) + (k - k0) * bunit[p]
+                           : b_sm[p] + k * bunit[p];
+            unsigned bf[(TC + 1) / 2][4];
+#pragma unroll
+            for (int j = 0; j < TC; j += 2) {
+              if (j < cols) {
+                const unsigned ad = bb + boff2[p][j / 2];
+                const bool kn = kbk == kSB || kbk == kGB;
+                if (j + 1 < cols) {
+                  if (kn)
+                    ldsm_x4<true>(bf[j / 2], ad);
+                  else
+                    ldsm_x4<false>(bf[j / 2], ad);
+                } else {
+                  if (kn)
+                    ldsm_x2<true>(bf[j / 2][0], bf[j / 2][1], ad);
+                  else
+                    ldsm_x2<false>(bf[j / 2][0], bf[j / 2][1], ad);
+                }
+              }
+            }
+            // every A fragment of the k-step before the products, so that
+            // the loads overlap
+            unsigned af[TR][4];
+#pragma unroll
+            for (int i = 0; i < TR; ++i)
+              if (i < rows) ldsm_x4<kA == kSAT>(af[i], ab + aoff[p][i]);
+#pragma unroll
+            for (int i = 0; i < TR; ++i)
+#pragma unroll
+              for (int j = 0; j < TC; ++j)
+                if (i < rows && j < cols) {
+                  float(&c)[4] = p ? acc2[i][j] : acc[i][j];
+                  mma_b16(c, af[i], bf[j / 2][(j & 1) * 2],
+                          bf[j / 2][(j & 1) * 2 + 1]);
+                }
+          }
+        }
+      };
+      __syncthreads();
+      if (kStaged) {
+        for (int s = 0; s < stages - 1 && s < slices; ++s) stage(s);
+#pragma unroll 1
+        for (int s = 0; s < slices; ++s) {
+          // this thread's copies of slice s have landed: all but the
+          // groups of the slices after it that are in flight
+          const int later = imin(stages - 2, slices - 1 - s);
+          if (later >= 2)
+            cp_async_wait<2>();
+          else if (later == 1)
+            cp_async_wait<1>();
+          else
+            cp_async_wait<0>();
+          // slice s has landed for every thread; the slot of slice s +
+          // stages - 1, last read for slice s - 1, is free
+          __syncthreads();
+          if (s + stages - 1 < slices) stage(s + stages - 1);
+          if (active)
+            steps(sm_u32(ring) + 2u * (s % stages) * slot, s * kSliceB,
+                  s * kSliceB, imin(K, (s + 1) * kSliceB));
+        }
+      } else if (active) {
+        steps(0u, 0, 0, K);
+      }
+      if (active)
+        epi(TileB16{rt0 * 16, rows, nb0 + j0 * 8, cols, task / tl.cg}, acc,
+            acc2);
+    }
+  }
+}
+
+// f(r, c, v0, v1) for each pair of a tile's accumulators: C[r, c] and
+// C[r, c + 1].
+template <int TR, int TC, typename F>
+__device__ __forceinline__ void each_pair(const TileB16& t,
+                                          const float (&acc)[TR][TC][4],
+                                          F f) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < TR; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j)
+      if (i < t.rows && j < t.cols) {
+        const int r = t.r0 + i * 16 + gq, c = t.c0 + j * 8 + 2 * tq;
+        f(r, c, acc[i][j][0], acc[i][j][1]);
+        f(r + 8, c, acc[i][j][2], acc[i][j][3]);
+      }
+}
+
+__device__ __forceinline__ void put_b2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
 }  // namespace mac

@@ -120,12 +120,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRowTiles = 8;          // n_pad <= 128
 constexpr int kMaxSmem = 232448;         // 227 KB of dynamic shared memory
 
-__host__ __device__ inline size_t align128(size_t b) {
+__host__ __device__ constexpr size_t align128(size_t b) {
   return (b + 127) / 128 * 128;
 }
 
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }

@@ -52,8 +52,9 @@
 // Residuals (instance kResid, the TPU kernel's has_resid, :125, :173-188;
 // softmax, no dropout): the forward's stash instance wrote rqkv, the
 // rounded qkv [B * n_pad, 3D], and rh1, the rounded pre-GELU hidden
-// [B * n_pad, dh]. vfb_rows reads each dh chunk of h1 from rh1 instead of
-// the cn_m W1 product, and q, k and v of each head from rqkv instead of
+// [B * n_pad, dh]. The rows kernel reads each dh chunk of h1 from rh1
+// instead of the cn_m W1 product, and q, k and v of each head from rqkv
+// instead of
 // the three cn_a Wqkv products: h = round(gelu(f32(rh1))), h1_bar =
 // round(h_bar gelu'(f32(rh1))), as JAX's stash backward takes them. cn_m
 // and cn_a are still computed: the weight products read them. Padded rows
@@ -66,17 +67,21 @@
 // Bound. At the training shape (B=1024, 69 real tokens padded to 80,
 // D=192, 3 heads, dh=768) the backward recomputes the forward's products
 // and does two for each of them: about 2.6x the forward's 66 GFLOP, 0.17
-// ms at the H100's 989 TFLOP/s in bf16. Operations, not bytes, bound it;
+// ms at the H100's 989 TFLOP/s in bf16. The rows kernel's own products
+// (all but the weight products) are 130 GFLOP on the 80 padded rows, 0.13
+// ms; the scratch operands it writes (566 MB) take 0.17 ms at 3.35 TB/s;
 // with dropout the masks' integer work (the forward's, 58 us on its
 // busiest pipe) stays below.
 //
 // Design: three launches, all deterministic.
-//  1. vfb_rows (bf16; f32: vfb_rows_f32, split TF32 on mma.sync, below):
-//     one CTA of 12 warps per image, as the forward kernel: recompute,
-//     the MLP backward over dh in chunks, the attention backward head by
-//     head, x_bar and the image's norm partial sums. It writes the
-//     operands of the weight products (cn_m, cn_a, gd, ctx, h, h1_bar,
-//     [q_bar k_bar v_bar]) to global scratch in x's dtype.
+//  1. The rows kernel, one CTA of 12 warps per image (bf16:
+//     vfb_rows_bf16, on mma.sync register tiles with the weights staged
+//     once per CTA; f32: vfb_rows_f32, split TF32 on mma.sync; both
+//     below): the attention backward head by head, the MLP backward over
+//     dh in chunks (recomputing what the forward computed), a_bar, x_bar
+//     and the image's norm partial sums, m_bar kept on chip. It writes
+//     the operands of the weight products (cn_m, cn_a, gd, ctx, h,
+//     h1_bar, [q_bar k_bar v_bar]) to global scratch in x's dtype.
 //  2. vfb_wgrad_wgmma (f32: vfb_wgrad_tf32): the four weight cotangents
 //     as A^T G products over all B*n_pad rows. The TPU accumulates them
 //     with += across its sequential grid; here CTAs run in parallel, so
@@ -85,9 +90,9 @@
 //     on wgmma fed by cp.async; below).
 //  3. vfb_reduce: sums the partials (and the per-image norm partials) in
 //     a fixed order. Two runs give bit-identical cotangents.
-// Products are the repo's own code (WMMA helpers of vector_field.cu,
-// wgmma, TMA and split TF32 here); nothing goes to a library. Not yet done: keeping
-// the weight products' A and G operands on chip.
+// Products are the repo's own code (mma.sync and split TF32 in
+// split_tf32.cuh, wgmma and TMA here); nothing goes to a library. Not
+// yet done: keeping the weight products' A and G operands on chip.
 
 #define VF_HELPERS_ONLY
 #include "vector_field.cu"
@@ -122,7 +127,6 @@ struct Args {
   void* h;                 // [B*n_pad, dh]
   void* h1b;               // [B*n_pad, dh]
   void* qkvb;              // [B*n_pad, 3D]
-  float* macc;             // [B*n_pad, D]   m_bar (bf16; f32: null)
   float* ws;               // f32: B * vfb_plan_f32's ws_floats, else null
   float* npart;            // [B, 4, D]      per-image norm partials;
                            // with L2 [B, 8, D]: then the bias partials
@@ -136,6 +140,7 @@ struct Args {
   int batch, n_pad, n_real, d, heads, dh;
   int cn_smem, hc, smem, splits;
   int nb, acc_smem;        // f32: set by the launcher from its own plan
+  int stages;              // bf16: set by the launcher from its own plan
   float scaler, qk_scale;
   Drop drop;               // all zeros: the deterministic instance
 };
@@ -145,78 +150,261 @@ namespace {
 constexpr int kChunks[] = {128, 64, 32, 16};
 constexpr int kRowStep = 32;     // rows of a chunk of mcb_wgrad_f32
 
-struct Plan {
-  size_t cn, gd, gd2, mean, st_m, st2_m, hb_m, st_a, pf, pb, q, k, v, cb,
-      pbits, l2, abar, total;
-  int ld_cn, ld_st_m, ld_hb, ld_st_a, ld_pf, ld_p, ld_hd, ld_abar;
+// The bytes of shared memory the one-CTA route was planned with: cn and
+// gd (with dropout also gd2) in shared memory unless cn_smem is 0, the row
+// means, then the larger of an MLP region (two f32 stages and the rounded
+// h1_bar chunk) and an attention region (scores, p in f32 and in x's
+// dtype, q, k, v, cb; with dropout the keep bits, with L2 five vectors)
+// or a_bar in f32. This was the layout of PR 3's kernel; vfb_plan keeps
+// it as the rule of which shapes take one CTA (in either dtype: the f32
+// and bf16 kernels lay their CTAs out by plans of their own, PlanB32 and
+// PlanB16). kernels/vector_field_bwd.py::cta_bwd_plan repeats it.
+__host__ __device__ inline size_t make_plan(int n, int d, int hd, int hc,
+                                            int cn_smem, int tb, bool drop,
+                                            bool l2) {
+  const int pad = 16 / tb;
+  size_t off = 0;
+  if (cn_smem) off += (drop ? 3 : 2) * align128((size_t)n * (d + pad) * tb);
+  off += align128((size_t)n * 4);
+  const size_t mlp = 2 * align128((size_t)n * (hc + 4) * 4) +
+                     align128((size_t)n * (hc + pad) * tb);
+  size_t attn = align128((size_t)n * (imax(hd, n) + 4) * 4) +
+                align128((size_t)n * (n + 4) * 4) +
+                align128((size_t)n * (n + pad) * tb) +
+                4 * align128((size_t)n * (hd + pad) * tb);
+  if (drop) attn += align128((size_t)n * 4 * 4);
+  if (l2) attn += 5 * align128((size_t)n * 4);
+  size_t m = mlp > attn ? mlp : attn;
+  const size_t abar = align128((size_t)n * (d + 4) * 4);
+  if (abar > m) m = abar;
+  return off + m;
+}
+
+// ---- the bf16 instance: vfb_rows_bf16 ----
+// Replaces the bf16 instances of PR 3's vfb_rows template, whose products
+// (vf::mm, WMMA) loaded every weight fragment from device memory one
+// k-step ahead, stored each f32 result in shared memory for a separate
+// rounding pass and summed m_bar in an f32 [B n_pad, D] buffer in device
+// memory (4.56 ms a launch at the CIFAR shape, 3 % of the tensor cores'
+// peak).
+//
+// The chain and its rounding points are the top of the file's.
+// Every product runs on mac::gemm_b16 (split_tf32.cuh): mma.sync m16n8k16
+// register tiles, fragments from shared memory by ldmatrix, the weights
+// W1, W2, Wqkv and Wout staged by 16-byte cp.async through a ring of K
+// slices of 32 (two to four slots), each slice once for the 12 warps.
+// Epilogues run on the accumulators: the rounding, GELU and GELU', the
+// mask_h bits (one Philox call a lane pair: each lane draws one of the
+// pair's two rows and hands half the words across), and the stores of h,
+// h1_bar, ctx and [q_bar k_bar v_bar] go from registers; only what a
+// later product or row pass of the CTA reads goes to shared memory, in
+// bf16 where the chain rounds it (q, k, v, cb, p, s_bar, h1_bar) and in
+// f32 where it does not (the scores and p_bar for the row passes: the
+// softmax, sum(p_bar p), L2's sums).
+//
+// Order. The attention backward head by head first (it writes q_bar,
+// k_bar, v_bar to their scratch), then the MLP backward over dh in
+// chunks, then a_bar = [q_bar k_bar v_bar] Wqkv^T with both operands
+// staged, whose epilogue meets m_bar: it takes the four norm partials'
+// column sums in registers (reduced over the lanes of a column in a fixed
+// order, then over the warps' row groups through shared memory in a fixed
+// order) and leaves c_bar = a_bar gamma_a + m_bar gamma_m for the row
+// pass of x_bar.
+//
+// m_bar on chip: f32 [n_pad, D + 4] in shared memory, each chunk's
+// product added by its epilogue, each element by the thread that holds
+// it. Keeping each warp's tile of it in registers across the chunks (40
+// floats a thread at the CIFAR shape) was tried first: beside the MLP's
+// two register tiles it pushed three of the four instances past the 168
+// registers that 384 threads get, into spills.
+//
+// Plan (vfb_plan_bf16; kernels/vector_field_bwd.py::bf16_bwd_plan repeats
+// it): cn and gd resident in shared memory where they fit (else staged
+// from their scratch, where the kernel writes them anyway), four ring
+// slots, the MLP chunk (64 first:
+// its two products h1 and h_bar, one dual call of 1 x 4 tiles, then take
+// 10 of the 12 warps at n_pad = 80), and the widest column block of the
+// staged weights that fits 227 KB. The products the forward also takes
+// (qkv, h1, the scores, ctx) walk K as vf::mm does, in k-steps of 16 in
+// increasing order on the same m16n8k16 instruction.
+struct PlanB16 {
+  size_t l2, mean, cna, gda, q, k, v, cb, st, st2, pb, pbits, ring_a;
+  size_t mbar, cnm, gd, hb, ring_m, part, ring_e, total;
+  int ld_cn, ld_hd, ld_s, ld_p, ld_hb, ld_mb;
+  int slot_a, slot_m, slot_e, groups_e;
 };
 
-// Shared memory of one CTA: cn and gd (unless they stay in global
-// scratch; with dropout also the attention's gd2), the row means, then a
-// region used by the MLP phase (two f32 stages and the rounded h1_bar
-// chunk) and again by the attention phase (with dropout also the keep bits
-// of one head's map, 4 words per row; with L2 five f32 vectors of one
-// head: q2, k2, esum, the rows' and the columns' sums of d2b).
-// kernels/vector_field_bwd.py::l2_bwd_plan repeats the L2 plan in Python.
-__host__ __device__ inline Plan make_plan(int n, int d, int hd, int hc,
-                                          int cn_smem, int tb, bool drop,
-                                          bool l2) {
-  const int pad = 16 / tb;
-  Plan p;
-  p.ld_cn = cn_smem ? d + pad : d;
-  p.ld_st_m = hc + 4;
-  p.ld_hb = hc + pad;
-  p.ld_st_a = imax(hd, n) + 4;
-  p.ld_pf = n + 4;
-  p.ld_p = n + pad;
-  p.ld_hd = hd + pad;
-  p.ld_abar = d + 4;
+constexpr int kChunksB16[] = {64, 32, 16};
+constexpr int kStagesB16 = 4;  // the most slots of the ring
+constexpr int kBlocksB16[] = {192, 128, 96, 64, 32, 16};
+
+// the row groups of a_bar's tiles: the most over its column blocks
+__host__ __device__ constexpr int abar_groups(int n, int d, int nb) {
+  int g = mac::tiling_b16(n / 16, imin(nb, d) / 8, 3, 4).groups;
+  if (d > nb && d % nb)
+    g = imax(g, mac::tiling_b16(n / 16, (d % nb) / 8, 3, 4).groups);
+  return g;
+}
+
+// Byte offsets of one CTA's shared memory: L2's five vectors and the row
+// means, then a region laid out three times: for the attention (cn_a and
+// gda where resident, q, k, v, cb, the f32 scores / p, p or s_bar in
+// bf16, the keep bits, then the ring or, from its product to the row
+// pass, p_bar in f32), for the MLP (m_bar in f32, cn_m and gd where
+// resident, the h1_bar chunk, the ring) and for a_bar (c_bar in m_bar's
+// place, the norm partials of each
+// row group, the ring). Row strides of bf16 operands are their width + 8
+// elements (ldmatrix reads 32 banks), of f32 ones width + 4.
+__host__ __device__ constexpr PlanB16 make_plan_b16(int n, int d, int hd,
+                                                    int hc, int nb,
+                                                    int cn_smem, int stages,
+                                                    bool drop, bool l2) {
+  using mac::kGA;
+  using mac::kGB;
+  using mac::kGBT;
+  using mac::kSA;
+  using mac::slot_b16;
+  PlanB16 p{};
+  const int ka = cn_smem ? kSA : kGA;
+  p.ld_cn = d + 8;
+  p.ld_hd = hd + 8;
+  p.ld_s = n + 4;
+  p.ld_p = n + 8;
+  p.ld_hb = hc + 8;
+  p.ld_mb = d + 4;
+  p.slot_a = imax(slot_b16(n, imin(nb, 3 * hd), ka, kGB),
+                  slot_b16(n, imin(nb, hd), ka, kGBT));
+  p.slot_m = imax(slot_b16(n, imin(nb, hc), ka, kGB, kGBT),
+                  slot_b16(n, imin(nb, d), kSA, kGBT));
+  p.slot_e = slot_b16(n, imin(nb, d), kGA, kGBT);
+  p.groups_e = abar_groups(n, d, nb);
   size_t off = 0;
-  p.cn = off;
-  p.gd = off;
-  p.gd2 = off;
-  if (cn_smem) {
-    off += align128((size_t)n * p.ld_cn * tb);
-    p.gd = off;
-    off += align128((size_t)n * p.ld_cn * tb);
-    p.gd2 = off;
-    if (drop) off += align128((size_t)n * p.ld_cn * tb);
-  }
-  p.mean = off;  off += align128((size_t)n * 4);
-  size_t m = off;
-  p.st_m = m;   m += align128((size_t)n * p.ld_st_m * 4);
-  p.st2_m = m;  m += align128((size_t)n * p.ld_st_m * 4);
-  p.hb_m = m;   m += align128((size_t)n * p.ld_hb * tb);
+  p.l2 = off;
+  if (l2) off += 5 * align128((size_t)n * 4);
+  p.mean = off;
+  off += align128((size_t)n * 4);
+  const size_t cn = align128((size_t)n * p.ld_cn * 2);
+  const size_t hds = align128((size_t)n * p.ld_hd * 2);
+  const size_t fs = align128((size_t)n * p.ld_s * 4);
   size_t a = off;
-  p.st_a = a;   a += align128((size_t)n * p.ld_st_a * 4);
-  p.pf = a;     a += align128((size_t)n * p.ld_pf * 4);
-  p.pb = a;     a += align128((size_t)n * p.ld_p * tb);
-  p.q = a;      a += align128((size_t)n * p.ld_hd * tb);
-  p.k = a;      a += align128((size_t)n * p.ld_hd * tb);
-  p.v = a;      a += align128((size_t)n * p.ld_hd * tb);
-  p.cb = a;     a += align128((size_t)n * p.ld_hd * tb);
+  p.cna = a;
+  p.gda = a;
+  if (cn_smem) {
+    p.gda = a + cn;
+    a += 2 * cn;
+  }
+  p.q = a;
+  p.k = a + hds;
+  p.v = a + 2 * hds;
+  p.cb = a + 3 * hds;
+  a += 4 * hds;
+  p.st = a;
+  a += fs;
+  p.pb = a;
+  a += align128((size_t)n * p.ld_p * 2);
   p.pbits = a;
   if (drop) a += align128((size_t)n * 4 * 4);
-  p.l2 = a;
-  if (l2) a += 5 * align128((size_t)n * 4);
-  p.abar = off;
-  const size_t e = off + align128((size_t)n * p.ld_abar * 4);
-  p.total = m > a ? m : a;
+  // p_bar lives from its product to the row pass, when the ring is idle
+  p.ring_a = a;
+  p.st2 = a;
+  const size_t ring = (size_t)stages * p.slot_a * 2;
+  a += ring > fs ? ring : fs;
+  const size_t mb = align128((size_t)n * p.ld_mb * 4);
+  p.mbar = off;
+  size_t m = off + mb;
+  p.cnm = m;
+  p.gd = m;
+  if (cn_smem) {
+    p.gd = m + cn;
+    m += 2 * cn;
+  }
+  p.hb = m;
+  m += align128((size_t)n * p.ld_hb * 2);
+  p.ring_m = m;
+  m += (size_t)stages * p.slot_m * 2;
+  size_t e = off + mb;
+  p.part = e;
+  e += align128((size_t)p.groups_e * 4 * d * 4);
+  p.ring_e = e;
+  e += (size_t)stages * p.slot_e * 2;
+  p.total = a > m ? a : m;
   if (e > p.total) p.total = e;
   return p;
 }
 
-// L2: dst[r, c] = round(2 a[r, c] sum[r] - 2 prod[r, c]) for an [n, w]
-// block, a in shared memory; dst is global (row stride ldd). One warp per
-// row.
-template <typename T>
-__device__ void l2_bar(const float* prod, int lds, const T* a, int lda,
-                       const float* sum, int n, int w, T* dst, int ldd) {
+// vfb_rows_bf16's plan for a shape: cn and gd resident and the most ring
+// slots, in that order of preference, then the MLP chunk and the widest
+// column block that fit. Returns false when none fits.
+inline bool plan_b16(int n, int d, int hd, int dh, bool drop, bool l2,
+                     int* cn_smem, int* hc, int* nb, int* stages,
+                     PlanB16* out) {
+  for (int cs = 1; cs >= 0; --cs)
+    for (int st = kStagesB16; st >= 2; --st)
+      for (int c : kChunksB16) {
+        if (dh % c) continue;
+        for (int bl : kBlocksB16) {
+          const PlanB16 p = make_plan_b16(n, d, hd, c, bl, cs, st, drop, l2);
+          if (p.total <= (size_t)kMaxSmem) {
+            *cn_smem = cs;
+            *hc = c;
+            *nb = bl;
+            *stages = st;
+            *out = p;
+            return true;
+          }
+        }
+      }
+  return false;
+}
+
+// The CIFAR training shape (80 rows, D=192, 3 heads, chunks of 64) takes
+// the first plan in every instance: cn and gd resident, four slots. The
+// widest register tiles (3 x 4 m16n8 tiles, 48 floats; the MLP's two of 1
+// x 4, 32) leave 120 registers a thread of the 168 that 384 threads get.
+constexpr int kRegsB16 = 65536 / kThreads / 8 * 8;
+static_assert(make_plan_b16(80, 192, 64, 64, 192, 1, 4, true, false)
+                      .total <= kMaxSmem &&
+                  make_plan_b16(80, 192, 64, 64, 192, 1, 4, false, true)
+                          .total <= kMaxSmem,
+              "the CIFAR plan fits 227 KB in every instance");
+static_assert(3 * 4 * 4 + 120 <= kRegsB16,
+              "a product's register tiles leave 120 registers a thread");
+static_assert(mac::kSliceB % 16 == 0 && mac::kLdSlice * 2 % 16 == 0,
+              "a staged slice is whole k-steps and 16-byte rows");
+
+// The kept values of mask_h at columns col, col + 1 (col even) of rows r
+// and r + 8 (m[0], m[1]): the lanes of a pair (tq and tq ^ 1 hold the four
+// columns of one Philox call) each draw one of the two rows and hand the
+// other lane the two words it needs. Padded rows keep nothing.
+__device__ __forceinline__ void keep_pair(unsigned key, unsigned img, int r,
+                                          int col, int n_real, unsigned th,
+                                          float sc, float (&m)[2][2]) {
+  const bool odd = threadIdx.x & 1;
+  const int rr = r + (odd ? 8 : 0);
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (rr < n_real) w = philox(key, img, rr, col >> 2);
+  const unsigned s0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 1);
+  const unsigned s1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 1);
+  const unsigned o0 = odd ? w.z : w.x, o1 = odd ? w.w : w.y;
+  const unsigned u[2][2] = {{odd ? s0 : o0, odd ? s1 : o1},
+                            {odd ? o0 : s0, odd ? o1 : s1}};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) m[h][e] = u[h][e] >= th ? sc : 0.0f;
+}
+
+// The rows r < n of an [n, w] bf16 block from shared memory (stride lds)
+// to device memory (stride ldd), 16 bytes at a time; row r by warp r % 12,
+// the warp that wrote it (center_norm).
+__device__ __forceinline__ void rows_out(const bf16* src, int lds, bf16* dst,
+                                         int ldd, int n, int w) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncwarp();
   for (int r = warp; r < n; r += kWarps)
-    for (int c = lane; c < w; c += 32)
-      dst[(size_t)r * ldd + c] = from_f<T>(
-          2.0f * to_f(a[r * lda + c]) * sum[r] - 2.0f * prod[r * lds + c]);
+    for (int c = lane * 8; c < w; c += 256)
+      *reinterpret_cast<uint4*>(dst + (size_t)r * ldd + c) =
+          *reinterpret_cast<const uint4*>(src + (size_t)r * lds + c);
 }
 
 // kDrop: dropout, compiled apart so that the deterministic instance keeps
@@ -230,198 +418,208 @@ __device__ void l2_bar(const float* prod, int lds, const T* a, int lda,
 // on the pre-dropout p. kL2: L2 attention with biases (see the top of the
 // file), compiled apart as well, as is kResid: the forward's residuals in
 // place of the qkv and h1 products (see the top of the file).
-template <typename T, bool kDrop, bool kL2 = false, bool kResid = false>
-__global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
+template <bool kDrop, bool kL2, bool kResid>
+__global__ void __launch_bounds__(kThreads, 1) vfb_rows_bf16(Args args) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int n = args.n_pad, n_real = args.n_real, d = args.d;
-  const int heads = args.heads, hd = d / heads, dh = args.dh, hc = args.hc;
-  const Plan pl =
-      make_plan(n, d, hd, hc, args.cn_smem, sizeof(T), kDrop, kL2);
+  using mac::each_pair;
+  using mac::gemm_b16;
+  using mac::kGA;
+  using mac::kGB;
+  using mac::kGBT;
+  using mac::kSA;
+  using mac::kSAT;
+  using mac::kSB;
+  using mac::kSBT;
+  using mac::op16;
+  using mac::Op16;
+  using mac::put2;
+  using mac::put_b2;
+  using mac::TileB16;
+  typedef float Acc[3][4][4];
+  typedef float Acc1[1][4][4];
+  // The sizes are made opaque at the top of each phase, head and chunk
+  // (VFB16_FRESH), and the plan's offsets and every pointer are derived
+  // again after it (VFB16_PHASE), so that nothing but the accumulators
+  // lives in registers across the products (as in vfb_rows_f32).
+  int n = args.n_pad, n_real = args.n_real, d = args.d;
+  int hd = d / args.heads, nb = args.nb;
+  const int heads = args.heads, dh = args.dh, hc = args.hc;
+  const int cn_smem = args.cn_smem, stages = args.stages;
   const Drop& dr = args.drop;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane >> 2, tq = lane & 3;
   const int b = blockIdx.x;
-  const size_t row0 = (size_t)b * n;
-  const T* x = static_cast<const T*>(args.x) + row0 * d;
-  const T* g = static_cast<const T*>(args.g) + row0 * d;
-  const T* wqkv = static_cast<const T*>(args.wqkv);
-  const T* wout = static_cast<const T*>(args.wout);
-  const T* w1 = static_cast<const T*>(args.w1);
-  const T* w2 = static_cast<const T*>(args.w2);
-  T* cnm_g = static_cast<T*>(args.cnm) + row0 * d;
-  T* cna_g = static_cast<T*>(args.cna) + row0 * d;
-  T* gd_g = static_cast<T*>(args.gd) + row0 * d;
-  T* ctx_g = static_cast<T*>(args.ctx) + row0 * d;
-  T* h_g = static_cast<T*>(args.h) + row0 * dh;
-  T* h1b_g = static_cast<T*>(args.h1b) + row0 * dh;
-  T* qkvb_g = static_cast<T*>(args.qkvb) + row0 * 3 * d;
-  float* macc = args.macc + row0 * d;
-  float* mean = reinterpret_cast<float*>(smem + pl.mean);
-  T* gd = args.cn_smem ? reinterpret_cast<T*>(smem + pl.gd) : gd_g;
-  // the attention's operand: gd, or with dropout gd2
-  T* gd2_g = kDrop ? static_cast<T*>(args.gd2) + row0 * d : gd_g;
-  T* gda = !kDrop ? gd
-           : args.cn_smem ? reinterpret_cast<T*>(smem + pl.gd2) : gd2_g;
-  const float scale = (float)((double)d / (d - 1.0));
+  const float tau = args.qk_scale;
+  auto at = [&](size_t off) { return reinterpret_cast<bf16*>(smem + off); };
+  auto atf = [&](size_t off) { return reinterpret_cast<float*>(smem + off); };
+#define VFB16_FRESH \
+  asm volatile("" : "+r"(n), "+r"(n_real), "+r"(d), "+r"(hd), "+r"(nb))
+#define VFB16_PHASE                                                         \
+  VFB16_FRESH;                                                              \
+  const PlanB16 pl =                                                        \
+      make_plan_b16(n, d, hd, hc, nb, cn_smem, stages, kDrop, kL2);         \
+  const size_t row0 = (size_t)b * n;                                        \
+  const bf16* x = static_cast<const bf16*>(args.x) + row0 * d;             \
+  const bf16* wqkv = static_cast<const bf16*>(args.wqkv);                  \
+  bf16* gd_g = static_cast<bf16*>(args.gd) + row0 * d;                     \
+  /* the attention's operand: gd, or with dropout gd2 */                   \
+  bf16* gda_g = kDrop ? static_cast<bf16*>(args.gd2) + row0 * d : gd_g;    \
+  bf16* qkvb_g = static_cast<bf16*>(args.qkvb) + row0 * 3 * d;             \
+  float* mean = atf(pl.mean);                                               \
+  const float scale = (float)((double)d / (d - 1.0));                      \
+  const int lcn = cn_smem ? pl.ld_cn : d;                                   \
+  bf16* gda = cn_smem ? at(pl.gda) : gda_g
 
-  // gd = round(g * scaler); rows >= n_real are zeros
-  if (kDrop) {
-    // gd = round(g * scaler * mask_mo), gd2 = round(g * scaler * mask_ao)
-    const unsigned kmo = site_key(dr.seed, kSiteMlpOut);
-    const unsigned kao = site_key(dr.seed, kSiteAttnOut);
-    for (int r = warp; r < n; r += kWarps)
-      for (int gg = lane; 4 * gg < d; gg += 32) {
-        float mo[4] = {1.0f, 1.0f, 1.0f, 1.0f}, ma[4] = {1.0f, 1.0f, 1.0f,
-                                                         1.0f};
-        if (r < n_real && dr.th_m) keep4(kmo, b, r, gg, d, dr.th_m, dr.sc_m, mo);
-        if (r < n_real && dr.th_ao)
-          keep4(kao, b, r, gg, d, dr.th_ao, dr.sc_ao, ma);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = 4 * gg + j;
-          const float gv =
-              r < n_real ? to_f(g[(size_t)r * d + c]) * args.scaler : 0.0f;
-          const T vm = from_f<T>(gv * mo[j]), va = from_f<T>(gv * ma[j]);
-          gd[r * pl.ld_cn + c] = vm;
-          gda[r * pl.ld_cn + c] = va;
-          if (args.cn_smem) {
-            gd_g[(size_t)r * d + c] = vm;
-            gd2_g[(size_t)r * d + c] = va;
-          }
-        }
-      }
-  } else {
-    for (int r = warp; r < n; r += kWarps)
-      for (int c = lane; c < d; c += 32) {
-        const T v = r < n_real ? from_f<T>(to_f(g[(size_t)r * d + c]) *
-                                           args.scaler)
-                               : from_f<T>(0.0f);
-        gd[r * pl.ld_cn + c] = v;
-        if (args.cn_smem) gd_g[(size_t)r * d + c] = v;
-      }
-  }
-
-  // ---- MLP backward, over dh in chunks of hc ----
-  T* cn = args.cn_smem ? reinterpret_cast<T*>(smem + pl.cn) : cnm_g;
-  center_norm(x, args.gm, args.bm, cn, pl.ld_cn, n, d, n_real, mean);
-  __syncthreads();
-  if (args.cn_smem)
-    for (int i = threadIdx.x; i < n * d; i += kThreads)
-      cnm_g[i] = cn[(i / d) * pl.ld_cn + i % d];
-  float* st = reinterpret_cast<float*>(smem + pl.st_m);
-  float* st2 = reinterpret_cast<float*>(smem + pl.st2_m);
-  T* hb = reinterpret_cast<T*>(smem + pl.hb_m);
-  for (int c0 = 0; c0 < dh; c0 += hc) {
-    if (kResid) {
-      // h1 of the chunk from rh1; padded rows read as zeros
-      const T* rh1 = static_cast<const T*>(args.rh1) + row0 * dh + c0;
-      for (int i = threadIdx.x; i < n * hc; i += kThreads) {
-        const int r = i / hc, c = i % hc;
-        st[r * pl.ld_st_m + c] =
-            r < n_real ? to_f(rh1[(size_t)r * dh + c]) : 0.0f;
-      }
-    } else {
-      mm<false, false>(cn, pl.ld_cn, w1 + c0, dh, st, pl.ld_st_m, false, n,
-                       hc, d);
-    }
-    mm<false, true>(gd, pl.ld_cn, w2 + (size_t)c0 * d, d, st2, pl.ld_st_m,
-                    false, n, hc, d);
-    __syncthreads();
-    if (kDrop && dr.th_m) {
-      // h = round(round(gelu(h1)) * mask_h); h1_bar from h_bar * mask_h
-      const unsigned kh = site_key(dr.seed, kSiteH);
+  // gd = round(g * scaler (* mask_mo)) and, with dropout, gd2 =
+  // round(g * scaler * mask_ao) to their scratch, the attention's (gd or
+  // gd2) also to shared memory where it stays; rows >= n_real are zeros;
+  // then cn_a and the row means
+  {
+    VFB16_PHASE;
+    const bf16* g = static_cast<const bf16*>(args.g) + row0 * d;
+    if (kDrop) {
+      // 4 columns a lane: one Philox call per site
+      const unsigned kmo = site_key(dr.seed, kSiteMlpOut);
+      const unsigned kao = site_key(dr.seed, kSiteAttnOut);
       for (int r = warp; r < n; r += kWarps)
-        for (int gg = lane; 4 * gg < hc; gg += 32) {
-          float m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        for (int gg = lane; 4 * gg < d; gg += 32) {
+          float mo[4] = {1.0f, 1.0f, 1.0f, 1.0f}, ma[4] = {1.0f, 1.0f, 1.0f,
+                                                           1.0f};
+          if (r < n_real && dr.th_m)
+            keep4(kmo, b, r, gg, d, dr.th_m, dr.sc_m, mo);
+          if (r < n_real && dr.th_ao)
+            keep4(kao, b, r, gg, d, dr.th_ao, dr.sc_ao, ma);
+          uint2 gv = make_uint2(0u, 0u);
           if (r < n_real)
-            keep4(kh, b, r, (c0 >> 2) + gg, dh, dr.th_m, dr.sc_m, m);
+            gv = *reinterpret_cast<const uint2*>(g + (size_t)r * d + 4 * gg);
+          const bf16* gi = reinterpret_cast<const bf16*>(&gv);
+          __align__(8) bf16 vm[4], va[4];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int c = 4 * gg + j;
-            const float h1 = st[r * pl.ld_st_m + c];
-            const T v =
-                from_f<T>(st2[r * pl.ld_st_m + c] * m[j] * gelu_grad(h1));
-            h_g[(size_t)r * dh + c0 + c] =
-                from_f<T>(to_f(from_f<T>(gelu(h1))) * m[j]);
-            h1b_g[(size_t)r * dh + c0 + c] = v;
-            hb[r * pl.ld_hb + c] = v;
+            const float v = to_f(gi[j]) * args.scaler;
+            vm[j] = from_f<bf16>(v * mo[j]);
+            va[j] = from_f<bf16>(v * ma[j]);
           }
+          const size_t o = (size_t)r * d + 4 * gg;
+          *reinterpret_cast<uint2*>(gd_g + o) = *reinterpret_cast<uint2*>(vm);
+          *reinterpret_cast<uint2*>(gda_g + o) = *reinterpret_cast<uint2*>(va);
+          if (cn_smem)
+            *reinterpret_cast<uint2*>(gda + r * lcn + 4 * gg) =
+                *reinterpret_cast<uint2*>(va);
         }
     } else {
+      // 8 columns a lane, 16 bytes at a time
       for (int r = warp; r < n; r += kWarps)
-        for (int c = lane; c < hc; c += 32) {
-          const float h1 = st[r * pl.ld_st_m + c];
-          const T v = from_f<T>(st2[r * pl.ld_st_m + c] * gelu_grad(h1));
-          h_g[(size_t)r * dh + c0 + c] = from_f<T>(gelu(h1));
-          h1b_g[(size_t)r * dh + c0 + c] = v;
-          hb[r * pl.ld_hb + c] = v;
+        for (int c = 8 * lane; c < d; c += 256) {
+          uint4 gv = make_uint4(0u, 0u, 0u, 0u);
+          if (r < n_real)
+            gv = *reinterpret_cast<const uint4*>(g + (size_t)r * d + c);
+          const bf16* gi = reinterpret_cast<const bf16*>(&gv);
+          __align__(16) bf16 o[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            o[j] = from_f<bf16>(to_f(gi[j]) * args.scaler);
+          *reinterpret_cast<uint4*>(gd_g + (size_t)r * d + c) =
+              *reinterpret_cast<uint4*>(o);
+          if (cn_smem)
+            *reinterpret_cast<uint4*>(gda + r * lcn + c) =
+                *reinterpret_cast<uint4*>(o);
         }
     }
-    __syncthreads();
-    mm<false, true>(hb, pl.ld_hb, w1 + c0, dh, macc, d, c0 > 0, n, d, hc);
-    __syncthreads();
+
+    bf16* cna_g = static_cast<bf16*>(args.cna) + row0 * d;
+    bf16* cna = cn_smem ? at(pl.cna) : cna_g;
+    center_norm(x, args.ga, args.ba, cna, lcn, n, d, n_real, mean);
+    if (cn_smem) rows_out(cna, lcn, cna_g, d, n, d);
   }
 
   // ---- attention backward, head by head ----
-  if (!args.cn_smem) cn = cna_g;
-  center_norm(x, args.ga, args.ba, cn, pl.ld_cn, n, d, n_real);
-  __syncthreads();
-  if (args.cn_smem)
-    for (int i = threadIdx.x; i < n * d; i += kThreads)
-      cna_g[i] = cn[(i / d) * pl.ld_cn + i % d];
-  st = reinterpret_cast<float*>(smem + pl.st_a);
-  float* pf = reinterpret_cast<float*>(smem + pl.pf);
-  T* pb = reinterpret_cast<T*>(smem + pl.pb);
-  T* q = reinterpret_cast<T*>(smem + pl.q);
-  T* k = reinterpret_cast<T*>(smem + pl.k);
-  T* v = reinterpret_cast<T*>(smem + pl.v);
-  T* cb = reinterpret_cast<T*>(smem + pl.cb);
-  unsigned* pbits = reinterpret_cast<unsigned*>(smem + pl.pbits);
-  // kL2: q2, k2, esum, then the rows' and the columns' sums of d2b
-  const size_t nv = align128((size_t)n * 4) / 4;
-  float* q2 = reinterpret_cast<float*>(smem + pl.l2);
-  float *k2 = q2 + nv, *esum = q2 + 2 * nv, *rsum = q2 + 3 * nv,
-        *csum = q2 + 4 * nv;
-  T* const none = nullptr;  // q_bar, k_bar, v_bar go to global scratch only
-  const int ls = pl.ld_st_a, lh = pl.ld_hd;
+  Acc acc;
+#pragma unroll 1
   for (int hh = 0; hh < heads; ++hh) {
-    T* dst[3] = {q, k, v};
+    VFB16_PHASE;
+    bf16* cna = cn_smem ? at(pl.cna)
+                        : static_cast<bf16*>(args.cna) + row0 * d;
+    const bf16* wout = static_cast<const bf16*>(args.wout);
+    bf16* ctx_g = static_cast<bf16*>(args.ctx) + row0 * d;
+    bf16 *q = at(pl.q), *k = at(pl.k), *v = at(pl.v), *cb = at(pl.cb);
+    float* st = atf(pl.st);    // the scores, then the f32 p (L2: e) in place
+    float* st2 = atf(pl.st2);  // p_bar (L2: then d2b)
+    bf16* pb = at(pl.pb);      // p, then s_bar (L2: round(d2b))
+    unsigned* pbits = reinterpret_cast<unsigned*>(smem + pl.pbits);
+    // kL2: q2, k2, esum, then the rows' and the columns' sums of d2b
+    const size_t nv = align128((size_t)n * 4) / 4;
+    float* q2 = atf(pl.l2);
+    float *k2 = q2 + nv, *esum = q2 + 2 * nv, *rsum = q2 + 3 * nv,
+          *csum = q2 + 4 * nv;
+    bf16* ring_a = at(pl.ring_a);
+    const int lh = pl.ld_hd, ls = pl.ld_s, lp = pl.ld_p;
+    const Op16 o_cn = op16(cna, lcn), o_gda = op16(gda, lcn);
     if (kResid) {
       // q, k and v of the head from rqkv; padded rows read as zeros
-      const T* rq = static_cast<const T*>(args.rqkv) + row0 * 3 * d + hh * hd;
-      for (int i = threadIdx.x; i < n * hd; i += kThreads) {
-        const int r = i / hd, c = i % hd;
-        for (int j = 0; j < 3; ++j)
-          dst[j][r * lh + c] = r < n_real ? rq[(size_t)r * 3 * d + j * d + c]
-                                          : from_f<T>(0.0f);
+      const bf16* rq = static_cast<const bf16*>(args.rqkv) + row0 * 3 * d +
+                       hh * hd;
+      __syncthreads();  // the last head's products have read q, k and v
+      const int per = hd / 8;
+      for (int i = threadIdx.x; i < 3 * n * per; i += kThreads) {
+        const int j = i / (n * per), r = i % (n * per) / per,
+                  c = i % per * 8;
+        cp_async16((j == 0 ? q : j == 1 ? k : v) + r * lh + c,
+                   rq + (size_t)r * 3 * d + j * d + c, r < n_real);
       }
-      __syncthreads();
-    }
-    for (int j = 0; !kResid && j < 3; ++j) {
-      mm<false, false>(cn, pl.ld_cn, wqkv + j * d + hh * hd, 3 * d, st, ls,
-                       false, n, hd, d);
-      __syncthreads();
+      cp_async_commit();
+      cp_async_wait<0>();  // the scores' product syncs first
+    } else {
+      // q | k | v = round(cn_a Wqkv[:, head] (+ bias)) in one product;
       // padded value rows are zeroed so that 0 * NaN cannot reach p @ v
-      round_block(st, ls, dst[j], lh, n, hd, j == 2 ? n_real : n, 1.0f, none,
-                  0, kL2 ? args.qkv_bias + j * d + hh * hd : nullptr);
-      __syncthreads();
+      auto epi = [&](const TileB16& t, Acc& c, Acc&) {
+        each_pair(t, c, [&](int r, int col, float v0, float v1) {
+          const int j = col / hd, cc = col % hd;
+          if (kL2) {
+            const float* bias = args.qkv_bias + j * d + hh * hd + cc;
+            v0 += bias[0];
+            v1 += bias[1];
+          }
+          if (j == 2 && r >= n_real) v0 = v1 = 0.0f;
+          put_b2((j == 0 ? q : j == 1 ? k : v) + r * lh + cc, v0, v1);
+        });
+      };
+      const Op16 ob = op16(wqkv + hh * hd, 3 * d, hd, d);
+      if (cn_smem)
+        gemm_b16<3, 4, kSA, kGB>(ring_a, pl.slot_a, stages, n, 3 * hd, d, nb,
+                                 o_cn, ob, o_cn, ob, acc, acc, true, epi);
+      else
+        gemm_b16<3, 4, kGA, kGB>(ring_a, pl.slot_a, stages, n, 3 * hd, d, nb,
+                                 o_cn, ob, o_cn, ob, acc, acc, true, epi);
     }
     if (kL2) {
+      __syncthreads();
       sq_rows(q, lh, n, hd, q2);
       sq_rows(k, lh, n, hd, k2);
     }
-    mm<false, true>(q, lh, k, lh, st, ls, false, n, n, hd);
+    // the scores q k^T in f32
+    auto to_st = [&](float* dst) {
+      return [=](const TileB16& t, Acc& c, Acc&) {
+        each_pair(t, c, [&](int r, int col, float v0, float v1) {
+          put2(dst + r * ls + col, v0, v1);
+        });
+      };
+    };
+    gemm_b16<3, 4, kSA, kSBT>(nullptr, 0, stages, n, n, hd, n, op16(q, lh),
+                              op16(k, lh), op16(q, lh), op16(k, lh), acc, acc,
+                              true, to_st(st));
     __syncthreads();
-    // pf: the f32 p (softmax) or e (L2, with esum: p = e / esum)
+    // p (softmax; L2: e / esum, with e in place of the scores for s_bar)
     if (kL2)
-      l2_rows(st, ls, q2, k2, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
-              pl.ld_pf, esum);
+      l2_rows(st, ls, q2, k2, pb, lp, n, n_real, tau, st, ls, esum);
     else
-      softmax_rows(st, ls, pb, pl.ld_p, n, n_real, args.qk_scale, pf,
-                   pl.ld_pf);
-    __syncthreads();
+      softmax_rows(st, ls, pb, lp, n, n_real, tau, st, ls);
     if (kDrop && dr.th_p) {
-      // pb = round(pb * mask_p); the keep bits stay for p_bar
+      // pb = round(pb * mask_p) by the warp that wrote the row; the keep
+      // bits stay for p_bar
+      __syncwarp();
       const unsigned kp = site_key(dr.seed, kSiteP + hh);
+#pragma unroll 1
       for (int r = warp; r < n; r += kWarps) {
         unsigned* words = pbits + 4 * r;
         if (r < n_real)
@@ -429,45 +627,69 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
         else if (lane < 4)
           words[lane] = 0;
         __syncwarp();
+#pragma unroll 1
         for (int c = lane; c < n; c += 32)
-          pb[r * pl.ld_p + c] = from_f<T>(
-              to_f(pb[r * pl.ld_p + c]) * (kept(words, c) ? dr.sc_p : 0.0f));
+          pb[r * lp + c] = from_f<bf16>(
+              to_f(pb[r * lp + c]) * (kept(words, c) ? dr.sc_p : 0.0f));
       }
-      __syncthreads();
     }
-    mm<false, false>(pb, pl.ld_p, v, lh, st, ls, false, n, hd, n);
+    // ctx = round(p v) for Wout_bar (q is rounded to q tau below, once the
+    // scores have read it: softmax; L2's k_bar takes q as it is)
+    if (!kL2) {
+#pragma unroll 1
+      for (int i = threadIdx.x; i < n * hd; i += kThreads) {
+        bf16* e = q + (i / hd) * lh + i % hd;
+        *e = from_f<bf16>(to_f(*e) * tau);
+      }
+    }
+    gemm_b16<3, 4, kSA, kSB>(
+        nullptr, 0, stages, n, hd, n, hd, op16(pb, lp), op16(v, lh),
+        op16(pb, lp), op16(v, lh), acc, acc, true,
+        [&](const TileB16& t, Acc& c, Acc&) {
+          each_pair(t, c, [&](int r, int col, float v0, float v1) {
+            put_b2(ctx_g + (size_t)r * d + hh * hd + col, v0, v1);
+          });
+        });
+    // cb = round(gda Wout[h*hd:(h+1)*hd, :]^T)
+    {
+      auto epi = [&](const TileB16& t, Acc& c, Acc&) {
+        each_pair(t, c, [&](int r, int col, float v0, float v1) {
+          put_b2(cb + r * lh + col, v0, v1);
+        });
+      };
+      const Op16 ob = op16(wout + (size_t)hh * hd * d, d);
+      if (cn_smem)
+        gemm_b16<3, 4, kSA, kGBT>(ring_a, pl.slot_a, stages, n, hd, d, nb,
+                                  o_gda, ob, o_gda, ob, acc, acc, true, epi);
+      else
+        gemm_b16<3, 4, kGA, kGBT>(ring_a, pl.slot_a, stages, n, hd, d, nb,
+                                  o_gda, ob, o_gda, ob, acc, acc, true, epi);
+    }
+    // v_bar = round(p^T cb)
+    gemm_b16<3, 4, kSAT, kSB>(
+        nullptr, 0, stages, n, hd, n, hd, op16(pb, lp), op16(cb, lh),
+        op16(pb, lp), op16(cb, lh), acc, acc, true,
+        [&](const TileB16& t, Acc& c, Acc&) {
+          each_pair(t, c, [&](int r, int col, float v0, float v1) {
+            put_b2(qkvb_g + (size_t)r * 3 * d + 2 * d + hh * hd + col, v0,
+                   v1);
+          });
+        });
+    // p_bar = cb v^T in f32
+    gemm_b16<3, 4, kSA, kSBT>(nullptr, 0, stages, n, n, hd, n, op16(cb, lh),
+                              op16(v, lh), op16(cb, lh), op16(v, lh), acc,
+                              acc, true, to_st(st2));
     __syncthreads();
-    // ctx of this head for Wout_bar; q becomes round(q * tau) for k_bar
-    // (softmax; L2's k_bar takes q as it is)
-    round_block(st, ls, none, 0, n, hd, n, 1.0f, ctx_g + hh * hd, d);
-    if (!kL2)
-      for (int r = warp; r < n; r += kWarps)
-        for (int c = lane; c < hd; c += 32)
-          q[r * lh + c] = from_f<T>(to_f(q[r * lh + c]) * args.qk_scale);
-    __syncthreads();
-    // cb = round(gd Wout[h*hd:(h+1)*hd, :]^T)
-    mm<false, true>(gda, pl.ld_cn, wout + (size_t)hh * hd * d, d, st, ls,
-                    false, n, hd, d);
-    __syncthreads();
-    round_block(st, ls, cb, lh, n, hd, n);
-    __syncthreads();
-    // v_bar = p^T cb
-    mm<true, false>(pb, pl.ld_p, cb, lh, st, ls, false, n, hd, n);
-    __syncthreads();
-    round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + 2 * d + hh * hd,
-                3 * d);
-    __syncthreads();
-    // p_bar = cb v^T (+ JaSMin), then s_bar (softmax) or round(d2b) (L2)
-    // into pb
-    mm<false, true>(cb, lh, v, lh, st, ls, false, n, n, hd);
-    __syncthreads();
+    // (+ JaSMin) then s_bar (softmax) or round(d2b) (L2) into pb
     const size_t bh = (size_t)b * heads + hh;
+#pragma unroll 1
     for (int r = warp; r < n; r += kWarps) {
-      float* prow = st + r * ls;
-      const float* frow = pf + r * pl.ld_pf;
+      float* prow = st2 + r * ls;
+      const float* frow = st + r * ls;
       if (r >= n_real) {
+#pragma unroll 1
         for (int c = lane; c < n; c += 32) {
-          pb[r * pl.ld_p + c] = from_f<T>(0.0f);
+          pb[r * lp + c] = from_f<bf16>(0.0f);
           if (kL2) prow[c] = 0.0f;
         }
         if (kL2 && lane == 0) rsum[r] = 0.0f;
@@ -476,15 +698,18 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
       // the f32 p of column c
       const float es = kL2 ? esum[r] : 1.0f;
       auto p_of = [&](int c) { return kL2 ? frow[c] / es : frow[c]; };
-      if (kDrop && dr.th_p)
+      if (kDrop && dr.th_p) {
+#pragma unroll 1
         for (int c = lane; c < n_real; c += 32)
           prow[c] *= kept(pbits + 4 * r, c) ? dr.sc_p : 0.0f;
+      }
       if (args.g_jas != nullptr) {
         const float* gj = args.g_jas + bh * 5 * n;
         const int* ji = args.jas_idx + bh * 4 * n;
         const float g4 = gj[4 * n + r];
+#pragma unroll 1
         for (int c = lane; c < n_real; c += 32) {
-          const float pj = to_f(from_f<T>(p_of(c)));  // pre-dropout, rounded
+          const float pj = to_f(from_f<bf16>(p_of(c)));  // pre-dropout
           const float lo = ((pj >= 1e-12f) + (pj > 1e-12f)) * 0.5f;
           const float hi = ((pj <= 1.0f) + (pj < 1.0f)) * 0.5f;
           float t = g4 * (lo * hi);
@@ -494,115 +719,293 @@ __global__ void __launch_bounds__(kThreads) vfb_rows(Args args) {
         }
       }
       float dot = 0.0f;
+#pragma unroll 1
       for (int c = lane; c < n_real; c += 32) dot += prow[c] * p_of(c);
       dot = warp_sum(dot);
       if (kL2) {
-        // d2b in f32 stays in st for the column sums; pb = round(d2b)
+        // d2b in f32 stays in st2 for the column sums; pb = round(d2b)
         float sum = 0.0f;
+#pragma unroll 1
         for (int c = lane; c < n; c += 32) {
-          const float v2 = c < n_real
-              ? -args.qk_scale * frow[c] * ((prow[c] - dot) / es) : 0.0f;
+          const float v2 =
+              c < n_real ? -tau * frow[c] * ((prow[c] - dot) / es) : 0.0f;
           prow[c] = v2;
-          pb[r * pl.ld_p + c] = from_f<T>(v2);
+          pb[r * lp + c] = from_f<bf16>(v2);
           sum += v2;
         }
         sum = warp_sum(sum);
         if (lane == 0) rsum[r] = sum;
       } else {
+#pragma unroll 1
         for (int c = lane; c < n; c += 32)
-          pb[r * pl.ld_p + c] =
-              from_f<T>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
+          pb[r * lp + c] =
+              from_f<bf16>(c < n_real ? frow[c] * (prow[c] - dot) : 0.0f);
       }
     }
-    __syncthreads();
     if (kL2) {
       // the columns' sums of d2b, each over the rows in order
+      __syncthreads();
+#pragma unroll 1
       for (int c = threadIdx.x; c < n; c += kThreads) {
         float sum = 0.0f;
-        for (int r = 0; r < n; ++r) sum += st[r * ls + c];
+        for (int r = 0; r < n; ++r) sum += st2[r * ls + c];
         csum[c] = sum;
       }
-      __syncthreads();
     }
-    // softmax: q_bar = s_bar k tau, k_bar = s_bar^T round(q tau); L2:
-    // q_bar = 2 q rsum - 2 round(d2b) k, k_bar = 2 k csum - 2 round(d2b)^T q
-    mm<false, false>(pb, pl.ld_p, k, lh, st, ls, false, n, hd, n);
-    __syncthreads();
-    if (kL2)
-      l2_bar(st, ls, q, lh, rsum, n, hd, qkvb_g + hh * hd, 3 * d);
-    else
-      round_block(st, ls, none, 0, n, hd, n, args.qk_scale, qkvb_g + hh * hd,
-                  3 * d);
-    __syncthreads();
-    mm<true, false>(pb, pl.ld_p, q, lh, st, ls, false, n, hd, n);
-    __syncthreads();
-    if (kL2)
-      l2_bar(st, ls, k, lh, csum, n, hd, qkvb_g + d + hh * hd, 3 * d);
-    else
-      round_block(st, ls, none, 0, n, hd, n, 1.0f, qkvb_g + d + hh * hd,
-                  3 * d);
-    __syncthreads();
+    // softmax: q_bar = round(s_bar k tau), k_bar = round(s_bar^T round(q
+    // tau)); L2: q_bar = round(2 q rsum - 2 round(d2b) k), k_bar = round(2
+    // k csum - 2 round(d2b)^T q)
+    gemm_b16<3, 4, kSA, kSB>(
+        nullptr, 0, stages, n, hd, n, hd, op16(pb, lp), op16(k, lh),
+        op16(pb, lp), op16(k, lh), acc, acc, true,
+        [&](const TileB16& t, Acc& c, Acc&) {
+          each_pair(t, c, [&](int r, int col, float v0, float v1) {
+            if (kL2) {
+              v0 = 2.0f * to_f(q[r * lh + col]) * rsum[r] - 2.0f * v0;
+              v1 = 2.0f * to_f(q[r * lh + col + 1]) * rsum[r] - 2.0f * v1;
+            } else {
+              v0 *= tau;
+              v1 *= tau;
+            }
+            put_b2(qkvb_g + (size_t)r * 3 * d + hh * hd + col, v0, v1);
+          });
+        });
+    gemm_b16<3, 4, kSAT, kSB>(
+        nullptr, 0, stages, n, hd, n, hd, op16(pb, lp), op16(q, lh),
+        op16(pb, lp), op16(q, lh), acc, acc, true,
+        [&](const TileB16& t, Acc& c, Acc&) {
+          each_pair(t, c, [&](int r, int col, float v0, float v1) {
+            if (kL2) {
+              v0 = 2.0f * to_f(k[r * lh + col]) * csum[r] - 2.0f * v0;
+              v1 = 2.0f * to_f(k[r * lh + col + 1]) * csum[r] - 2.0f * v1;
+            }
+            put_b2(qkvb_g + (size_t)r * 3 * d + d + hh * hd + col, v0, v1);
+          });
+        });
   }
 
-  // a_bar = [q_bar k_bar v_bar] Wqkv^T, one product over 3D
-  float* abar = reinterpret_cast<float*>(smem + pl.abar);
-  mm<false, true>(qkvb_g, 3 * d, wqkv, 3 * d, abar, pl.ld_abar, false, n, d,
-                  3 * d);
+  // ---- MLP backward, over dh in chunks of hc ----
+  __syncthreads();  // the last head's products have read their operands
+  {
+    VFB16_PHASE;
+    bf16* cnm_g = static_cast<bf16*>(args.cnm) + row0 * d;
+    bf16* cnm = cn_smem ? at(pl.cnm) : cnm_g;
+    center_norm(x, args.gm, args.bm, cnm, lcn, n, d, n_real);
+    if (cn_smem) {
+      bf16* gdm = at(pl.gd);
+      rows_out(cnm, lcn, cnm_g, d, n, d);
+      for (int i = threadIdx.x; i < n * d / 8; i += kThreads) {
+        const int r = i / (d / 8), c = (i % (d / 8)) * 8;
+        *reinterpret_cast<uint4*>(gdm + r * lcn + c) =
+            *reinterpret_cast<const uint4*>(gd_g + (size_t)r * d + c);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < dh; c0 += hc) {
+    VFB16_PHASE;
+    const bf16* w1 = static_cast<const bf16*>(args.w1);
+    const bf16* w2 = static_cast<const bf16*>(args.w2);
+    bf16* h_g = static_cast<bf16*>(args.h) + row0 * dh;
+    bf16* h1b_g = static_cast<bf16*>(args.h1b) + row0 * dh;
+    bf16* cnm = cn_smem ? at(pl.cnm)
+                        : static_cast<bf16*>(args.cnm) + row0 * d;
+    bf16* gdm = cn_smem ? at(pl.gd) : gd_g;
+    bf16* hb = at(pl.hb);
+    float* mbs = atf(pl.mbar);  // m_bar
+    bf16* ring_m = at(pl.ring_m);
+    const int lhb = pl.ld_hb, lmb = pl.ld_mb;
+    const Op16 o_cnm = op16(cnm, lcn), o_gdm = op16(gdm, lcn),
+               o_hb = op16(hb, lhb);
+    Acc1 a1, a2;
+    // h1 = cn_m W1[:, c] (kResid: from rh1) and h_bar = gd W2[c, :]^T on
+    // the same tiles; h = round(gelu(h1)) (x mask_h), h1_bar = round(h_bar
+    // (x mask_h) gelu'(h1)) from registers to the scratch and to hb
+    auto epi = [&](const TileB16& t, Acc1& c1, Acc1& c2) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= t.cols) continue;
+        const int r = t.r0 + gq, col = t.c0 + j * 8 + 2 * tq;
+        float m[2][2] = {{1.0f, 1.0f}, {1.0f, 1.0f}};
+        if (kDrop && dr.th_m)
+          keep_pair(site_key(dr.seed, kSiteH), b, r, c0 + col, n_real,
+                    dr.th_m, dr.sc_m, m);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = r + 8 * h;
+          float hv[2], gv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float hbar =
+                kResid ? c1[0][j][2 * h + e] : c2[0][j][2 * h + e];
+            const float h1 =
+                !kResid ? c1[0][j][2 * h + e]
+                : rr < n_real
+                    ? to_f(static_cast<const bf16*>(args.rh1)[(row0 + rr) * dh +
+                                                             c0 + col + e])
+                    : 0.0f;
+            if (kDrop && dr.th_m) {
+              hv[e] = to_f(from_f<bf16>(gelu(h1))) * m[h][e];
+              gv[e] = hbar * m[h][e] * gelu_grad(h1);
+            } else {
+              hv[e] = gelu(h1);
+              gv[e] = hbar * gelu_grad(h1);
+            }
+          }
+          put_b2(h_g + (size_t)rr * dh + c0 + col, hv[0], hv[1]);
+          put_b2(h1b_g + (size_t)rr * dh + c0 + col, gv[0], gv[1]);
+          put_b2(hb + rr * lhb + col, gv[0], gv[1]);
+        }
+      }
+    };
+    const Op16 o_w1 = op16(w1 + c0, dh), o_w2 = op16(w2 + (size_t)c0 * d, d);
+    if (kResid) {
+      if (cn_smem)
+        gemm_b16<1, 4, kSA, kGBT>(ring_m, pl.slot_m, stages, n, hc, d, nb,
+                                  o_gdm, o_w2, o_gdm, o_w2, a1, a1, true, epi);
+      else
+        gemm_b16<1, 4, kGA, kGBT>(ring_m, pl.slot_m, stages, n, hc, d, nb,
+                                  o_gdm, o_w2, o_gdm, o_w2, a1, a1, true, epi);
+    } else {
+      if (cn_smem)
+        gemm_b16<1, 4, kSA, kGB, kGBT>(ring_m, pl.slot_m, stages, n, hc, d,
+                                       nb, o_cnm, o_w1, o_gdm, o_w2, a1, a2,
+                                       true, epi);
+      else
+        gemm_b16<1, 4, kGA, kGB, kGBT>(ring_m, pl.slot_m, stages, n, hc, d,
+                                       nb, o_cnm, o_w1, o_gdm, o_w2, a1, a2,
+                                       true, epi);
+    }
+    // m_bar (+)= h1_bar W1[:, c]^T, added in f32 in shared memory
+    const bool first = c0 == 0;
+    gemm_b16<3, 4, kSA, kGBT>(
+        ring_m, pl.slot_m, stages, n, d, hc, nb, o_hb, o_w1, o_hb, o_w1, acc,
+        acc, true, [&](const TileB16& t, Acc& c, Acc&) {
+          each_pair(t, c, [&](int r, int col, float v0, float v1) {
+            float* e = mbs + r * lmb + col;
+            if (!first) {
+              v0 += e[0];
+              v1 += e[1];
+            }
+            put2(e, v0, v1);
+          });
+        });
+  }
+
+  // ---- a_bar = [q_bar k_bar v_bar] Wqkv^T, one product over 3D ----
+  // Its epilogue meets m_bar in shared memory, leaves c_bar = a_bar
+  // gamma_a + m_bar gamma_m in its place and sums
+  // this tile's columns of the norm partials over its real rows: a_bar
+  // cent, a_bar, m_bar cent, m_bar, reduced over the lanes of a column in
+  // a fixed order, per row group into `part`.
+  VFB16_PHASE;
+  float* mbs = atf(pl.mbar);  // m_bar, then c_bar
+  const int lmb = pl.ld_mb;
+  float* part = atf(pl.part);
+  __syncthreads();  // the last chunk's products have read their operands
+#pragma unroll 1
+  for (int i = threadIdx.x; i < pl.groups_e * 4 * d; i += kThreads)
+    part[i] = 0.0f;
+  gemm_b16<3, 4, kGA, kGBT>(
+      at(pl.ring_e), pl.slot_e, stages, n, d, 3 * d, nb, op16(qkvb_g, 3 * d),
+      op16(wqkv, 3 * d), op16(qkvb_g, 3 * d), op16(wqkv, 3 * d), acc, acc,
+      true, [&](const TileB16& t, Acc& a, Acc&) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j >= t.cols) continue;
+          const int col = t.c0 + j * 8 + 2 * tq;
+          const float ga0 = args.ga[col], ga1 = args.ga[col + 1];
+          const float gm0 = args.gm[col], gm1 = args.gm[col + 1];
+          float s[4][2] = {};
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            if (i >= t.rows) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = t.r0 + i * 16 + gq + 8 * h;
+              float* cr = mbs + r * lmb + col;
+              const float av0 = a[i][j][2 * h], av1 = a[i][j][2 * h + 1];
+              const float m0 = cr[0], m1 = cr[1];
+              if (r < n_real) {
+                const float ce0 =
+                    (to_f(x[(size_t)r * d + col]) - mean[r]) * scale;
+                const float ce1 =
+                    (to_f(x[(size_t)r * d + col + 1]) - mean[r]) * scale;
+                s[0][0] += av0 * ce0;
+                s[0][1] += av1 * ce1;
+                s[1][0] += av0;
+                s[1][1] += av1;
+                s[2][0] += m0 * ce0;
+                s[2][1] += m1 * ce1;
+                s[3][0] += m0;
+                s[3][1] += m1;
+              }
+              put2(cr, av0 * ga0 + m0 * gm0, av1 * ga1 + m1 * gm1);
+            }
+          }
+#pragma unroll
+          for (int qn = 0; qn < 4; ++qn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float u = s[qn][e];
+              u += __shfl_xor_sync(0xffffffffu, u, 4);
+              u += __shfl_xor_sync(0xffffffffu, u, 8);
+              u += __shfl_xor_sync(0xffffffffu, u, 16);
+              if (gq == 0) part[((size_t)t.rg * 4 + qn) * d + col + e] = u;
+            }
+        }
+      });
   __syncthreads();
 
-  // norm partials of this image: (ga, ba, gm, bm) sums over real rows
+  // norm partials of this image: (ga, ba, gm, bm) sums over real rows,
+  // the row groups added in order
   float* np = args.npart + (size_t)b * (kL2 ? 8 : 4) * d;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 4 * d; i += kThreads) {
+    float sum = 0.0f;
+    for (int gg = 0; gg < pl.groups_e; ++gg)
+      sum += part[((size_t)gg * 4 + i / d) * d + i % d];
+    np[i] = sum;
+  }
   if (kL2) {
     // bias partials: qkv_bias_bar over [q_bar k_bar v_bar], out_bias_bar
-    // over gd (both written above, in x's dtype)
+    // over gd (both written above)
+#pragma unroll 1
     for (int c = threadIdx.x; c < 3 * d; c += kThreads) {
       float sum = 0.0f;
       for (int r = 0; r < n_real; ++r)
         sum += to_f(qkvb_g[(size_t)r * 3 * d + c]);
       np[4 * d + c] = sum;
     }
+#pragma unroll 1
     for (int c = threadIdx.x; c < d; c += kThreads) {
       float sum = 0.0f;
       for (int r = 0; r < n_real; ++r) sum += to_f(gd_g[(size_t)r * d + c]);
       np[7 * d + c] = sum;
     }
   }
-  for (int c = threadIdx.x; c < d; c += kThreads) {
-    float sa1 = 0.0f, sa0 = 0.0f, sm1 = 0.0f, sm0 = 0.0f;
-    for (int r = 0; r < n_real; ++r) {
-      const float cent = (to_f(x[(size_t)r * d + c]) - mean[r]) * scale;
-      const float a = abar[r * pl.ld_abar + c];
-      const float m = macc[(size_t)r * d + c];
-      sa1 += a * cent;
-      sa0 += a;
-      sm1 += m * cent;
-      sm0 += m;
-    }
-    np[c] = sa1;
-    np[d + c] = sa0;
-    np[2 * d + c] = sm1;
-    np[3 * d + c] = sm0;
-  }
 
   // x_bar = d/(d-1) (c_bar - mean(c_bar)); padded rows are zeros
-  T* xb = static_cast<T*>(args.xbar) + row0 * d;
+  bf16* xb = static_cast<bf16*>(args.xbar) + row0 * d;
+#pragma unroll 1
   for (int r = warp; r < n; r += kWarps) {
+    const float* cr = mbs + r * lmb;
     float sum = 0.0f;
-    for (int c = lane; c < d; c += 32)
-      sum += abar[r * pl.ld_abar + c] * args.ga[c] +
-             macc[(size_t)r * d + c] * args.gm[c];
+#pragma unroll 1
+    for (int c = lane; c < d; c += 32) sum += cr[c];
     const float cm = warp_sum(sum) / d;
-    for (int c = lane; c < d; c += 32) {
-      const float cbar = abar[r * pl.ld_abar + c] * args.ga[c] +
-                         macc[(size_t)r * d + c] * args.gm[c];
+#pragma unroll 1
+    for (int c = lane; c < d; c += 32)
       xb[(size_t)r * d + c] =
-          from_f<T>(r < n_real ? scale * (cbar - cm) : 0.0f);
-    }
+          from_f<bf16>(r < n_real ? scale * (cr[c] - cm) : 0.0f);
   }
 }
 
+#undef VFB16_PHASE
+#undef VFB16_FRESH
+
 // ---- the f32 instance: vfb_rows_f32 ----
-// vfb_rows's chain in f32 with every product on mac::gemm_tf32
+// The rows kernel's chain in f32 with every product on mac::gemm_tf32
 // (split_tf32.cuh), as vf_kernel_f32 (vector_field.cu) takes the forward:
 // operands in device memory staged by 16-byte cp.async through a ring of
 // K slices and split once where they land, register tiles of up to 48 x
@@ -1029,10 +1432,11 @@ __global__ void __launch_bounds__(kThreads, 1) vfb_rows_f32(Args args) {
       // the f32 p of column c
       const float es = kL2 ? esum[r] : 1.0f;
       auto p_of = [&](int c) { return kL2 ? frow[c] / es : frow[c]; };
-      if (kDrop && dr.th_p)
+      if (kDrop && dr.th_p) {
 #pragma unroll 1
         for (int c = lane; c < n_real; c += 32)
           prow[c] *= kept(pbits + 4 * r, c) ? dr.sc_p : 0.0f;
+      }
       if (args.g_jas != nullptr) {
         const float* gj = args.g_jas + bh * 5 * n;
         const int* ji = args.jas_idx + bh * 4 * n;
@@ -1210,9 +1614,9 @@ inline bool plan_b32(int n, int d, int hd, int dh, bool drop, bool l2,
   return false;
 }
 
-// vfb_rows_f32's launches so far (chip_smoke.py holds the count against
-// the route's)
-unsigned long long rows_f32_launches = 0;
+// vfb_rows_f32's and vfb_rows_bf16's launches so far (chip_smoke.py
+// holds the counts against the route's)
+unsigned long long rows_f32_launches = 0, rows_bf16_launches = 0;
 
 // The four weight products W_bar[M, N] = A[R, M]^T G[R, N].
 struct Problem {
@@ -2004,16 +2408,25 @@ int launch(const Args& a, cudaStream_t st) {
     if (err != cudaSuccess) return (int)err;
     ++rows_f32_launches;
   } else {
-    auto rows = l2      ? vfb_rows<T, false, true>
-                : drop  ? vfb_rows<T, true>
-                : resid ? vfb_rows<T, false, false, true>
-                        : vfb_rows<T, false>;
+    // bf16: vfb_rows_bf16 on its own plan
+    Args a16 = a;
+    PlanB16 p;
+    if (!shape_ok(a.n_pad, a.n_real, a.d, a.heads, a.dh) ||
+        !plan_b16(a.n_pad, a.d, a.d / a.heads, a.dh, drop, l2, &a16.cn_smem,
+                  &a16.hc, &a16.nb, &a16.stages, &p))
+      return (int)cudaErrorInvalidValue;
+    a16.smem = (int)p.total;
+    auto rows = l2      ? vfb_rows_bf16<false, true, false>
+                : drop  ? vfb_rows_bf16<true, false, false>
+                : resid ? vfb_rows_bf16<false, false, true>
+                        : vfb_rows_bf16<false, false, false>;
     err = cudaFuncSetAttribute(
-        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+        rows, cudaFuncAttributeMaxDynamicSharedMemorySize, a16.smem);
     if (err != cudaSuccess) return (int)err;
-    rows<<<a.batch, kThreads, a.smem, st>>>(a);
+    rows<<<a.batch, kThreads, a16.smem, st>>>(a16);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    ++rows_bf16_launches;
   }
 
   const int d = a.d, dh = a.dh;
@@ -2062,10 +2475,13 @@ struct WgradArgs {
 
 extern "C" {
 
-// Chooses the plan of vfb_rows: whether cn and gd live in shared memory
-// (preferred) or in their global scratch, and the MLP chunk width; `drop`
-// asks for the dropout instance's plan, `l2` for the L2 instance's.
-// Returns 0 when the shape has a plan, 1 when it has none.
+// The route's plan (make_plan): whether one image takes one CTA, with cn
+// and gd in shared memory (preferred) or in their global scratch, and the
+// MLP chunk width, as PR 3's kernel was laid out; `drop` asks for the
+// dropout instance's plan, `l2` for the L2 instance's. The rows kernels
+// lay their CTAs out by plans of their own (vfb_plan_bf16,
+// vfb_plan_f32). Returns 0 when the shape has a plan, 1 when it has
+// none.
 int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
              int drop, int l2, int* cn_smem_out, int* hc_out,
              int* smem_out) {
@@ -2073,12 +2489,12 @@ int vfb_plan(int tbytes, int n_pad, int n_real, int d, int heads, int dh,
   for (int cn_smem = 1; cn_smem >= 0; --cn_smem) {
     for (int hc : kChunks) {
       if (dh % hc) continue;
-      const Plan p = make_plan(n_pad, d, d / heads, hc, cn_smem, tbytes,
-                               drop != 0, l2 != 0);
-      if (p.total <= (size_t)kMaxSmem) {
+      const size_t total = make_plan(n_pad, d, d / heads, hc, cn_smem,
+                                     tbytes, drop != 0, l2 != 0);
+      if (total <= (size_t)kMaxSmem) {
         *cn_smem_out = cn_smem;
         *hc_out = hc;
-        *smem_out = (int)p.total;
+        *smem_out = (int)total;
         return 0;
       }
     }
@@ -2147,6 +2563,24 @@ int vfb_plan_f32(int n_pad, int n_real, int d, int heads, int dh, int drop,
 }
 
 unsigned long long vfb_rows_f32_launches() { return rows_f32_launches; }
+
+// vfb_rows_bf16's plan for a shape (the dropout instance's with `drop`,
+// the L2 one's with `l2`): cn and gd resident, the MLP chunk, the column
+// block of the staged weights, the ring's slots and the shared memory.
+// Returns 0 when the shape has one, 1 when not.
+int vfb_plan_bf16(int n_pad, int n_real, int d, int heads, int dh, int drop,
+                  int l2, int* cn_smem_out, int* hc_out, int* nb_out,
+                  int* stages_out, int* smem_out) {
+  PlanB16 p;
+  if (!shape_ok(n_pad, n_real, d, heads, dh) ||
+      !plan_b16(n_pad, d, d / heads, dh, drop != 0, l2 != 0, cn_smem_out,
+                hc_out, nb_out, stages_out, &p))
+    return 1;
+  *smem_out = (int)p.total;
+  return 0;
+}
+
+unsigned long long vfb_rows_bf16_launches() { return rows_bf16_launches; }
 
 const char* vfb_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

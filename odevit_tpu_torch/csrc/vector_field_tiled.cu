@@ -115,7 +115,7 @@
 // q2 (its query tile) and k2 (every key) of the rounded q and k, and p =
 // round(e / (sum e + 1e-8)), e = exp(-(q2 + k2 - 2 q.k) tau) over the
 // real keys: the expanded form, as the TPU kernel, and no max. Its
-// backward, as vector_field_bwd.cu's vfb_rows<kL2>: e_bar = (p_bar -
+// backward, as vector_field_bwd.cu's one-CTA kL2 instances: e_bar = (p_bar -
 // sum p_bar p) / esum, d2b = -tau e e_bar (f32), q_bar = round(2 q rsum -
 // 2 round(d2b) k) in vft_attn, k_bar = round(2 k csum - 2 round(d2b)^T q)
 // in vft_attn_keys, with rsum a row's sum of d2b and csum a key's column

@@ -35,7 +35,11 @@ ratio 4), the split route of ``vector_field_bwd_split.py`` runs, one
 MLP-branch and one attention-branch backward, on the GPU and in its plain
 twins on the CPU.
 Elsewhere, without ``g_attn``, where one image fits one CTA (``bwd_plan``),
-the kernels of ``csrc/vector_field_bwd.cu`` run; with ``g_attn``, or where
+the kernels of ``csrc/vector_field_bwd.cu`` run: the rows kernel of the
+dtype (``vfb_rows_bf16``: ``mma.sync`` register tiles, the weights staged
+once per CTA by ``cp.async``, m_bar on chip; ``vfb_rows_f32``: split TF32,
+each laid out by its own plan, :func:`bf16_bwd_plan` / :func:`f32_bwd_plan`),
+the weight products and the fixed-order reduce; with ``g_attn``, or where
 no such plan exists (the 224 px TS-Base shape at ratio 1), the tiled route
 of ``csrc/vector_field_tiled.cu`` runs (``kernels/tiled.py``).
 
@@ -325,11 +329,11 @@ class _Args(ctypes.Structure):
     _fields_ = ([(name, ctypes.c_void_p) for name in (
         "x", "g", "g_jas", "jas_idx", "ga", "ba", "gm", "bm", "wqkv", "wout",
         "w1", "w2", "xbar", "cnm", "cna", "gd", "gd2", "ctx", "h", "h1b",
-        "qkvb", "macc", "ws", "npart", "wpart", "out", "qkv_bias",
+        "qkvb", "ws", "npart", "wpart", "out", "qkv_bias",
         "out_bias", "rqkv", "rh1")]
         + [(name, ctypes.c_int) for name in (
             "batch", "n_pad", "n_real", "d", "heads", "dh", "cn_smem", "hc",
-            "smem", "splits", "nb", "acc_smem")]
+            "smem", "splits", "nb", "acc_smem", "stages")]
         + [("scaler", ctypes.c_float), ("qk_scale", ctypes.c_float),
            ("drop", Drop)])
 
@@ -354,6 +358,10 @@ def _library() -> ctypes.CDLL:
         lib.vfb_plan_f32.restype = i
         lib.vfb_rows_f32_launches.argtypes = []
         lib.vfb_rows_f32_launches.restype = ctypes.c_ulonglong
+        lib.vfb_plan_bf16.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 5
+        lib.vfb_plan_bf16.restype = i
+        lib.vfb_rows_bf16_launches.argtypes = []
+        lib.vfb_rows_bf16_launches.restype = ctypes.c_ulonglong
         _lib = lib
     return _lib
 
@@ -361,13 +369,14 @@ def _library() -> ctypes.CDLL:
 def cta_bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
                  dh: int, drop: bool = False, l2: bool = False):
     """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
-    of the per-image kernel (of its dropout instance with ``drop``, of its
-    L2 instance with ``l2``), or None where one image does not fit one
-    CTA: ``vfb_plan`` of ``csrc/vector_field_bwd.cu`` (its ``make_plan``)
-    in Python, so that a CPU run routes as the card does. It decides the
-    route in either dtype; the f32 kernel then lays its CTA out by
-    :func:`f32_bwd_plan`. ``chip_smoke.py`` holds it against
-    ``vfb_plan``."""
+    of the route's per-image plan (of its dropout instance with ``drop``,
+    of its L2 instance with ``l2``), or None where one image does not fit
+    one CTA: ``vfb_plan`` of ``csrc/vector_field_bwd.cu`` (its
+    ``make_plan``, PR 3's layout) in Python, so that a CPU run routes as
+    the card does. It decides the route in either dtype; the rows kernels
+    then lay their CTAs out by plans of their own, :func:`bf16_bwd_plan`
+    (``vfb_rows_bf16``) and :func:`f32_bwd_plan` (``vfb_rows_f32``).
+    ``chip_smoke.py`` holds it against ``vfb_plan``."""
     if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
         return None
     tb = torch.empty((), dtype=dtype).element_size()
@@ -462,11 +471,151 @@ def rows_f32_launches() -> int:
     return _library().vfb_rows_f32_launches()
 
 
+# csrc/split_tf32.cuh: mac::gemm_b16's K slice and its stride, and
+# csrc/vector_field_bwd.cu: vfb_rows_bf16's MLP chunks and column blocks,
+# in the order its plan tries them
+B16_SLICE = 32
+B16_LD_SLICE = B16_SLICE + 8
+B16_CHUNKS = (64, 32, 16)
+B16_STAGES = (4, 3, 2)
+B16_BLOCKS = (192, 128, 96, 64, 32, 16)
+_SA, _GA = 0, 2                 # A in shared memory / staged
+_GB, _GBT = 2, 3                # B staged [K][N] / [N][K]
+
+
+def tiling_b16(mt: int, nt: int, tr: int, tc: int) -> dict:
+    """``mac::tiling_b16``: the warps' tiles of an mt x nt (m16 x n8)
+    product: column groups of tc tiles, the rows in as many groups of at
+    most tr as the 12 warps allow."""
+    cg = -(-nt // tc)
+    groups = -(-mt // tr)
+    while groups < mt and (groups + 1) * cg <= 12:
+        groups += 1
+    rpg = -(-mt // groups)
+    groups = -(-mt // rpg)
+    return {"cg": cg, "rpg": rpg, "groups": groups, "tasks": groups * cg}
+
+
+def slot_b16(m: int, nw: int, ka: int, kb: int, kb2: int = -1) -> int:
+    """``mac::slot_b16``: elements of one ring slot."""
+    a = m * B16_LD_SLICE if ka == _GA else 0
+
+    def b(k):
+        return (B16_SLICE * (nw + 8) if k == _GB
+                else nw * B16_LD_SLICE if k == _GBT else 0)
+    return a + b(kb) + (a + b(kb2) if kb2 >= 0 else 0)
+
+
+def abar_groups(n: int, d: int, nb: int) -> int:
+    """``abar_groups``: the most row groups of a_bar's column blocks."""
+    g = tiling_b16(n // 16, min(nb, d) // 8, 3, 4)["groups"]
+    if d > nb and d % nb:
+        g = max(g, tiling_b16(n // 16, (d % nb) // 8, 3, 4)["groups"])
+    return g
+
+
+def bf16_bwd_layout(n_pad: int, d: int, num_heads: int, hc: int, nb: int,
+                    cn_smem: int, stages: int, drop: bool = False,
+                    l2: bool = False) -> dict:
+    """``make_plan_b16`` of csrc/vector_field_bwd.cu: byte offsets of the
+    bf16 backward's CTA in its three phases, row strides (elements) and
+    ring slots (elements)."""
+    n, hd = n_pad, d // num_heads
+    ka = _SA if cn_smem else _GA
+    lay = {"ld_cn": d + 8, "ld_hd": hd + 8, "ld_s": n + 4, "ld_p": n + 8,
+           "ld_hb": hc + 8, "ld_mb": d + 4}
+    lay["slot_a"] = max(slot_b16(n, min(nb, 3 * hd), ka, _GB),
+                        slot_b16(n, min(nb, hd), ka, _GBT))
+    lay["slot_m"] = max(slot_b16(n, min(nb, hc), ka, _GB, _GBT),
+                        slot_b16(n, min(nb, d), _SA, _GBT))
+    lay["slot_e"] = slot_b16(n, min(nb, d), _GA, _GBT)
+    lay["groups_e"] = abar_groups(n, d, nb)
+    off = 0
+    lay["l2"] = off
+    if l2:
+        off += 5 * align128(n * 4)
+    lay["mean"] = off
+    off += align128(n * 4)
+    cn = align128(n * lay["ld_cn"] * 2)
+    hds = align128(n * lay["ld_hd"] * 2)
+    fs = align128(n * lay["ld_s"] * 4)
+    a = off
+    lay.update(cna=a, gda=a + (cn if cn_smem else 0))
+    a += 2 * cn if cn_smem else 0
+    lay.update(q=a, k=a + hds, v=a + 2 * hds, cb=a + 3 * hds)
+    a += 4 * hds
+    lay["st"] = a
+    a += fs
+    lay["pb"] = a
+    a += align128(n * lay["ld_p"] * 2)
+    lay["pbits"] = a
+    if drop:
+        a += align128(n * 16)
+    lay.update(ring_a=a, st2=a)         # p_bar while the ring is idle
+    a += max(stages * lay["slot_a"] * 2, fs)
+    mb = align128(n * lay["ld_mb"] * 4)
+    lay["mbar"] = off
+    m = off + mb
+    lay.update(cnm=m, gd=m + (cn if cn_smem else 0))
+    m += 2 * cn if cn_smem else 0
+    lay["hb"] = m
+    m += align128(n * lay["ld_hb"] * 2)
+    lay["ring_m"] = m
+    m += stages * lay["slot_m"] * 2
+    e = off + mb
+    lay["part"] = e
+    e += align128(lay["groups_e"] * 4 * d * 4)
+    lay["ring_e"] = e
+    e += stages * lay["slot_e"] * 2
+    lay["attn_end"], lay["mlp_end"], lay["abar_end"] = a, m, e
+    lay["total"] = max(a, m, e)
+    return lay
+
+
+def bf16_bwd_plan(n_pad: int, n_real: int, d: int, num_heads: int, dh: int,
+                  drop: bool = False, l2: bool = False):
+    """``vfb_plan_bf16`` of csrc/vector_field_bwd.cu in Python: (cn and gd
+    resident, MLP chunk, column block, ring slots, shared-memory bytes) of
+    the first layout within 227 KB, trying cn and gd resident and the most
+    slots first, or None. ``chip_smoke.py`` holds it against
+    ``vfb_plan_bf16``."""
+    if not cta_shape_ok(n_pad, n_real, d, num_heads, dh):
+        return None
+    for cs in (1, 0):
+        for stages in B16_STAGES:
+            for hc in B16_CHUNKS:
+                if dh % hc:
+                    continue
+                for nb in B16_BLOCKS:
+                    total = bf16_bwd_layout(n_pad, d, num_heads, hc, nb, cs,
+                                            stages, drop, l2)["total"]
+                    if total <= _MAX_SMEM:
+                        return cs, hc, nb, stages, total
+    return None
+
+
+def kernel_bwd_plan_bf16(n_pad: int, n_real: int, d: int, num_heads: int,
+                         dh: int, drop: bool = False, l2: bool = False):
+    """``vfb_plan_bf16`` of the CUDA source (see :func:`bf16_bwd_plan`);
+    raises if the shape has none."""
+    outs = [ctypes.c_int() for _ in range(5)]
+    if _library().vfb_plan_bf16(n_pad, n_real, d, num_heads, dh, int(drop),
+                                int(l2), *map(ctypes.byref, outs)):
+        raise ValueError(f"no bf16 backward plan for n_pad={n_pad}, D={d}, "
+                         f"{num_heads} heads, dh={dh}")
+    return tuple(o.value for o in outs)
+
+
+def rows_bf16_launches() -> int:
+    """``vfb_rows_bf16``'s launches so far (the library's C counter)."""
+    return _library().vfb_rows_bf16_launches()
+
+
 def bwd_plan(dtype, n_pad: int, n_real: int, d: int, num_heads: int,
              dh: int, drop: bool = False, l2: bool = False):
-    """(cn and gd in shared memory, MLP chunk width, shared-memory bytes)
-    of the per-image kernel (its dropout instance with ``drop``, its L2
-    instance with ``l2``); raises if the shape has no plan."""
+    """``vfb_plan`` of the CUDA source (see :func:`cta_bwd_plan`): the
+    route's per-image plan (its dropout instance with ``drop``, its L2
+    instance with ``l2``); raises if the shape has none."""
     cn_smem, hc, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     tbytes = torch.empty((), dtype=dtype).element_size()
     if _library().vfb_plan(tbytes, n_pad, n_real, d, num_heads, dh,
@@ -546,13 +695,16 @@ def weight_splits(rows: int, d: int, dh: int, shapes=None, *,
 def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
            n_real: int, g_jas=None, jas_idx=None, g_attn=None, seed=None,
            drops=(0.0, 0.0, 0.0), plain: bool = False, resid_qkv=None,
-           resid_h1=None):
+           resid_h1=None, scratch=None):
     """The 9 cotangents of one evaluation (11 with L2 attention; see the
     module docstring), reading the stash's ``resid_qkv`` and ``resid_h1``
     where given. A CUDA tensor launches the kernels; a CPU tensor, or
     ``plain=True``, runs :func:`vf_bwd_plain`. Shapes of the split route
     (``vector_field_bwd_split.split_route``) take it on either device; L2
-    never does."""
+    never does. A dict ``scratch`` receives, where one image per CTA
+    runs, the rows kernel's operands of the weight products ([B n_pad,
+    width] in x's dtype: cnm, cna, gd, gd2 (dropout), ctx, h, h1b, qkvb),
+    for checks."""
     from odevit_tpu_torch.kernels import vector_field_bwd_split as split
     rkw = dict(resid_qkv=resid_qkv, resid_h1=resid_h1)
     if not w.l2 and split.split_route(x.shape[-1], w.w1.shape[1]):
@@ -592,22 +744,18 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
                     else "vf_bwd_tiled" if drop is None
                     else "vf_bwd_tiled_drop", n)
         return _split_bars(xbar, out, d, dh)
-    cn_smem, hc, smem = bwd_plan(x.dtype, n, n_real, d, num_heads, dh,
-                                 drop is not None, w.l2)
     wtotal = 4 * d * d + 2 * d * dh
     nlen = (8 if w.l2 else 4) * d      # the norms' (and biases') sums
 
-    def scratch(width, dtype=x.dtype):
-        return torch.empty(rows, width, device=x.device, dtype=dtype)
+    def rows_of(width):
+        return torch.empty(rows, width, device=x.device, dtype=x.dtype)
 
-    bufs = {"xbar": torch.empty_like(x), "cnm": scratch(d),
-            "cna": scratch(d), "gd": scratch(d),
-            "gd2": scratch(d) if drop is not None else None,
-            "ctx": scratch(d),
-            "h": scratch(dh), "h1b": scratch(dh), "qkvb": scratch(3 * d),
-            # bf16: m_bar; f32: vfb_rows_f32's workspace
-            "macc": (scratch(d, torch.float32) if x.dtype == torch.bfloat16
-                     else None),
+    bufs = {"xbar": torch.empty_like(x), "cnm": rows_of(d),
+            "cna": rows_of(d), "gd": rows_of(d),
+            "gd2": rows_of(d) if drop is not None else None,
+            "ctx": rows_of(d),
+            "h": rows_of(dh), "h1b": rows_of(dh), "qkvb": rows_of(3 * d),
+            # f32: vfb_rows_f32's workspace
             "ws": (torch.empty(b * kernel_bwd_plan_f32(
                 n, n_real, d, num_heads, dh, drop is not None, w.l2)[4],
                 device=x.device) if x.dtype == torch.float32 else None),
@@ -627,7 +775,7 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
         **{name: t.data_ptr() if t is not None else None
            for name, t in bufs.items()},
         batch=b, n_pad=n, n_real=n_real, d=d, heads=num_heads, dh=dh,
-        cn_smem=cn_smem, hc=hc, smem=smem, splits=splits, scaler=scaler,
+        splits=splits, scaler=scaler,
         qk_scale=(d // num_heads) ** -0.5, drop=drop or Drop())
     err = _library().vfb_launch(
         x.element_size(), ctypes.byref(args),
@@ -637,6 +785,9 @@ def vf_bwd(x, w: VFWeights, g, *, num_heads: int, scaler: float,
                            + _library().vfb_error_string(err).decode())
     count_launch("vf_bwd_l2" if w.l2 else "vf_bwd_resid" if resid
                  else "vf_bwd" if drop is None else "vf_bwd_drop")
+    if scratch is not None:
+        scratch.update({k: bufs[k] for k in ("cnm", "cna", "gd", "gd2",
+                                             "ctx", "h", "h1b", "qkvb")})
     return _split_bars(bufs["xbar"], bufs["out"], d, dh)
 
 

@@ -244,12 +244,13 @@ def test_no_f32_instance_of_the_cuda_core_kernels():
     bwd = (CSRC / "vector_field_bwd.cu").read_text()
     # the forward's launcher takes bf16 only; f32 goes to launch_f32
     assert "VF_LAUNCH(float" not in fwd and "launch_f32(" in fwd
-    # the backward's launcher names vfb_rows<T, ...> only where T is bf16
+    # the backward's launcher names vfb_rows_f32 where T is f32 and
+    # vfb_rows_bf16 where it is bf16; the template vfb_rows<T, ...> is gone
     launch = body(bwd, "int launch(const Args& a, cudaStream_t st)")
     f32, bf16 = launch.split("} else {", 1)
     assert "if constexpr (sizeof(T) == 4)" in f32
     assert "vfb_rows<" not in f32 and "vfb_rows_f32<" in f32
-    assert "vfb_rows<T" in bf16
+    assert "vfb_rows<" not in bf16 and "vfb_rows_bf16<" in bf16
 
 
 def test_args_mirror_the_c_struct_field_for_field():
